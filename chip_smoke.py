@@ -7,24 +7,41 @@ port builds and runs its main path on the card.
 Phases (one line each; any failure raises and the exit code is non-zero):
  1. device: requires CUDA (no CPU fallback), prints the card's name and
     power limit;
- 2. build: nvcc-compiles csrc/wide_traverse.cu, prints build seconds and the
-    ptxas register/spill report;
- 3. kernel vs plain: compiles the 123,650-triangle mesh room on the host,
+ 2. build: nvcc-compiles csrc/wide_traverse.cu and csrc/megakernel.cu, one
+    nvcc each, both started together; prints build seconds and the ptxas
+    register/spill report of each;
+ 3. B1 kernel vs plain: compiles the 123,650-triangle mesh room on the host,
     then traces 500,000 camera rays, one cosine bounce from their hits and
     shadow rays to the panel light through the CUDA kernel and through its
     plain PyTorch twin, closest and any hit. Requires equal hit flags on
     >= 99.99% of rays and, where both hit, equal prims on >= 99.99% with t
     within rtol 1e-5 (FMA-free IEEE arithmetic on both sides; the margin is
     for exact ties at shared edges). Times both with CUDA events;
- 4. main path: render_compiled of the room at 1000x500, 16 spp, depth 5 on
-    cuda after a warm-up pass; checks the route label, kernel launches > 0
-    in that run, and a finite, non-black image; prints
+ 4. mesh main path: render_compiled of the room at 1000x500, 16 spp, depth 5
+    on cuda after a warm-up pass; checks the route label, traversal-kernel
+    launches > 0 in that run, and a finite, non-black image; prints
     path_vertex_samples_per_sec (sum of path vertices / render wall time);
- 5. same image on both devices: a 64x32 crop at 4 spp on cuda (kernel) and
-    on cpu (plain versions) with one seed must agree: sum|a-b| / sum|b| <
-    1e-3 and >= 99% of pixels within rtol 1e-2 (atol 1e-4).
-The second-to-last lines are the kernel report as JSON and the card's
-nvidia-smi name and power limit; the last line is
+ 5. same mesh image on both devices: a 64x32 crop at 4 spp on cuda (kernel)
+    and on cpu (plain versions) with one seed must agree: sum|a-b| / sum|b|
+    < 1e-3 and >= 99% of pixels within rtol 1e-2 (atol 1e-4);
+ 6. B3 kernel vs plain: the brute megakernel and its plain twin on the
+    spheres gallery (8 prims, 3 delta lights) at 1000x500, 2 spp, with the
+    reference megakernel's image tolerance (tests/test_megakernel.py):
+    weights allclose, total path vertices within 4, per-pixel
+    |dL| / (|L| + 1e-2) < 2e-2 and mean |dL| < 1e-4 (sin/cos/log and
+    operation order may move a rare path by ulps); times both at the main
+    path's 16 spp, the kernel with CUDA events, the plain twin by the host
+    clock around one call ending in a synchronize; computes the kernel's
+    float32 bound;
+ 7. gallery main path: render_compiled of the spheres gallery at 1000x500,
+    16 spp, depth 5 on cuda after a warm-up pass; checks the route label
+    torch-megakernel/cuda-brute, megakernel launches > 0 in that run, and a
+    finite, non-black image; prints path_vertex_samples_per_sec;
+ 8. same gallery image on both devices: a 64x32 crop at 4 spp, held as in
+    phase 5.
+Each main path runs with every launch count set to 0 just before it and
+read just after. The second-to-last lines are the kernel report as JSON
+and the card's nvidia-smi name and power limit; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -40,6 +57,16 @@ from pathlib import Path
 SEED = 0
 CROP_BOUNDS = (468, 532, 234, 266)  # 64 x 32 pixels around the film centre
 CROP_SPP = 4
+COMPARE_SPP = 2  # B3 kernel vs plain
+
+# H100 SXM peaks (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float32 operations per unit of work, counted from the kernels' sources as
+# a lower bound (one IEEE divide or square root counted as one operation):
+B1_OPS_PER_POP = 8 * 20  # a pop tests at least 8 child boxes (~20 ops each)
+B3_OPS_TRI, B3_OPS_SPH = 45, 65  # one watertight triangle / full-sphere test
+B3_OPS_SHADE = 300  # BSDF sample + evaluation + NEE terms per path vertex
 
 
 def _smi() -> str:
@@ -64,6 +91,75 @@ def _cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    float32 operations over the peak float32 rate."""
+    t_b, t_o = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _check_crop(label, cs_gpu, cs_cpu, desc):
+    """Phases 5 and 8: the same crop rendered on cuda and on cpu."""
+    import numpy as np
+
+    from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch.scene.builder import CompiledScene
+
+    desc_c = dataclasses.replace(
+        desc, integrator=dataclasses.replace(desc.integrator, pixel_bounds=CROP_BOUNDS),
+        sampler=dataclasses.replace(desc.sampler, pixel_samples=CROP_SPP))
+    x0, x1, y0, y1 = CROP_BOUNDS
+    img_g = R_.render_compiled(CompiledScene(cs_gpu.arrays, cs_gpu.static, desc_c), seed=SEED)[y0:y1, x0:x1]
+    tier_g = R_.render_compiled.last_timing["tier"]
+    img_c = R_.render_compiled(CompiledScene(cs_cpu.arrays, cs_cpu.static, desc_c), seed=SEED)[y0:y1, x0:x1]
+    tier_c = R_.render_compiled.last_timing["tier"]
+    rel = np.abs(img_g - img_c).sum() / max(np.abs(img_c).sum(), 1e-30)
+    px_ok = np.isclose(img_g, img_c, rtol=1e-2, atol=1e-4).all(axis=-1).mean()
+    print(f"[{label}] {x1 - x0}x{y1 - y0} {CROP_SPP}spp ({tier_g} vs {tier_c}): "
+          f"sum|a-b|/sum|b| {rel:.3e}, pixels within rtol 1e-2 {px_ok:.4f}, means {img_g.mean():.5f} "
+          f"{img_c.mean():.5f}", flush=True)
+    if not (np.isfinite(img_g).all() and img_c.mean() > 0 and rel < 1e-3 and px_ok >= 0.99):
+        raise AssertionError(f"cuda and cpu renders of the crop disagree ({label})")
+
+
+def _reset_launches():
+    from pbrt_tpu_torch.device import megakernel, wide_bvh
+
+    wide_bvh.traverse_cuda.launches = 0
+    megakernel.megakernel_cuda.launches = 0
+
+
+def _main_path(label, cs, expect_tier, kernel_fn):
+    """Phases 4 and 7: a warm-up pass, then one full render with every
+    launch count set to 0 just before it; returns (timing, launches)."""
+    import numpy as np
+
+    from pbrt_tpu_torch import render as R_
+
+    R_.render_compiled(cs, seed=SEED, spp=2)  # warm-up pass
+    _reset_launches()
+    img = R_.render_compiled(cs, seed=SEED)
+    launches = kernel_fn.launches
+    timing = R_.render_compiled.last_timing
+    desc = cs.description
+    if timing["tier"] != expect_tier:
+        raise AssertionError(f"{label} took route {timing['tier']}")
+    if launches <= 0:
+        raise AssertionError(f"{label} made no launch of its kernel")
+    if not (np.isfinite(img).all() and img.mean() > 0):
+        raise AssertionError(f"{label} image is not finite and non-black")
+    vps = timing["n_vertices"] / timing["wall_s"]
+    print(f"[{label}] {desc.film.x_resolution}x{desc.film.y_resolution} {desc.sampler.pixel_samples}spp "
+          f"depth {desc.integrator.max_depth} route {timing['tier']}: wall {timing['wall_s']:.4f}s, "
+          f"{timing['n_vertices']:.0f} path vertices, path_vertex_samples_per_sec {vps:.1f}, "
+          f"kernel launches {launches}, image mean {img.mean():.5f}", flush=True)
+    return timing, launches
 
 
 def _rays(cs):
@@ -131,7 +227,6 @@ def _compare(name, any_hit, res_k, res_p):
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
     # --- 1. device ---
@@ -143,18 +238,21 @@ def main() -> int:
     print(f"[1 device] {kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from pbrt_tpu_torch import render as R_
-    from pbrt_tpu_torch.device import wide_bvh
-    from pbrt_tpu_torch.scene.builder import CompiledScene, compile_scene
-    from pbrt_tpu_torch.scenes import mesh_room
+    from pbrt_tpu_torch.device import megakernel, nvcc, wide_bvh
+    from pbrt_tpu_torch.device.camera import make_camera
+    from pbrt_tpu_torch.scene.builder import compile_scene
+    from pbrt_tpu_torch.scenes import mesh_room, spheres_gallery
 
-    # --- 2. build ---
-    info = wide_bvh.build_kernel()
-    regs = "; ".join(sorted(set(re.findall(r"Used \d+ registers[^\n]*", info["log"])))) or "n/a"
-    spills = "; ".join(sorted(set(re.findall(r"\d+ bytes spill stores, \d+ bytes spill loads", info["log"])))) or "n/a"
-    print(f"[2 build] {Path(info['path']).name} in {info['seconds']:.1f}s; ptxas: {regs}; {spills}", flush=True)
+    # --- 2. build: both kernels, one nvcc each, started together ---
+    nvcc.build_all([wide_bvh.KERNEL_SOURCE, megakernel.KERNEL_SOURCE])
+    for build in (wide_bvh.build_kernel, megakernel.build_kernel):
+        info = build()
+        regs = "; ".join(sorted(set(re.findall(r"Used \d+ registers[^\n]*", info["log"])))) or "n/a"
+        spills = "; ".join(sorted(set(re.findall(r"\d+ bytes spill stores, \d+ bytes spill loads",
+                                                 info["log"])))) or "n/a"
+        print(f"[2 build] {Path(info['path']).name} in {info['seconds']:.1f}s; ptxas: {regs}; {spills}", flush=True)
 
-    # --- 3. kernel vs plain at the main path's shapes ---
+    # --- 3. B1 kernel vs plain at the main path's shapes ---
     t0 = time.perf_counter()
     cs_host = compile_scene(mesh_room(248), "cpu")
     host_s = time.perf_counter() - t0
@@ -165,7 +263,7 @@ def main() -> int:
     print(f"[3 scene] {cs.static.n_prims} triangles, host compile {host_s:.1f}s, wide tables "
           f"{sum(tab_bytes.values())} bytes {tab_bytes}, all tables {sa.byte_size()} bytes", flush=True)
     max_err = 0.0
-    ms = plain_ms = None
+    ms = plain_ms = b1_bound = None
     for name, o, d, t_max in _rays(cs):
         for any_hit in (False, True):
             res_k = wide_bvh.traverse_cuda(sa, o, d, t_max, any_hit)
@@ -177,62 +275,93 @@ def main() -> int:
                 ms = _cuda_ms(lambda: wide_bvh.traverse_cuda(sa, o, d, t_max, False), 20)
                 plain_ms = _cuda_ms(lambda: wide_bvh.traverse_plain(sa, o, d, t_max, False), 2)
                 pops = res_k[4].double()
-                print(f"  camera/closest: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms for {o.shape[0]} rays; "
-                      f"pops/ray mean {pops.mean().item():.1f} max {int(pops.max().item())}", flush=True)
+                # inputs read once (rays, tables), outputs written once (t,
+                # prim, b1, b2, pops); operations from this run's pops
+                b1_bytes = _nbytes(o, d, t_max, sa.wnode_tab, sa.wprim_tab, sa.wmeta_tab, *res_k[:5])
+                b1_bound = _bound(b1_bytes, float(pops.sum()) * B1_OPS_PER_POP)
+                print(f"  camera/closest: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms for {o.shape[0]} rays; "
+                      f"pops/ray mean {pops.mean().item():.2f} max {int(pops.max().item())}; bound "
+                      f"{b1_bound[0]:.4f} ms ({b1_bound[1]}: {b1_bytes} bytes, {float(pops.sum()):.0f} pops)",
+                      flush=True)
     counters = wide_bvh.traverse_cuda.counters[torch.device("cuda", 0)].tolist()
     if counters != [0, 0]:
         raise AssertionError(f"kernel stack overflows / iteration-cap hits: {counters}")
     print(f"[3 kernel-vs-plain] ok; max abs err {max_err:.3e}", flush=True)
 
-    # --- 4. the main path ---
-    R_.render_compiled(cs, seed=SEED, spp=2)  # warm-up pass
-    wide_bvh.traverse_cuda.launches = 0
-    img = R_.render_compiled(cs, seed=SEED)
-    launches = wide_bvh.traverse_cuda.launches
-    timing = R_.render_compiled.last_timing
-    desc = cs.description
-    if timing["tier"] != "torch-wavefront/cuda-wide":
-        raise AssertionError(f"main path took route {timing['tier']}")
-    if launches <= 0:
-        raise AssertionError("main path made no traversal-kernel launch")
-    if not (np.isfinite(img).all() and img.mean() > 0):
-        raise AssertionError("main-path image is not finite and non-black")
+    # --- 4. the mesh main path ---
+    _timing, b1_launches = _main_path("4 mesh main path", cs, "torch-wavefront/cuda-wide", wide_bvh.traverse_cuda)
     counters = wide_bvh.traverse_cuda.counters[torch.device("cuda", 0)].tolist()
     if counters != [0, 0]:
         raise AssertionError(f"kernel stack overflows / iteration-cap hits: {counters}")
-    vps = timing["n_vertices"] / timing["wall_s"]
-    print(f"[4 main path] {desc.film.x_resolution}x{desc.film.y_resolution} {desc.sampler.pixel_samples}spp "
-          f"depth {desc.integrator.max_depth} route {timing['tier']}: wall {timing['wall_s']:.3f}s, "
-          f"{timing['n_vertices']:.0f} path vertices, path_vertex_samples_per_sec {vps:.1f}, "
-          f"kernel launches {launches}, image mean {img.mean():.5f}", flush=True)
 
-    # --- 5. the same crop on cuda and cpu ---
-    desc_c = dataclasses.replace(
-        desc, integrator=dataclasses.replace(desc.integrator, pixel_bounds=CROP_BOUNDS),
-        sampler=dataclasses.replace(desc.sampler, pixel_samples=CROP_SPP))
-    x0, x1, y0, y1 = CROP_BOUNDS
-    img_g = R_.render_compiled(CompiledScene(cs.arrays, cs.static, desc_c), seed=SEED)[y0:y1, x0:x1]
-    tier_g = R_.render_compiled.last_timing["tier"]
-    img_c = R_.render_compiled(CompiledScene(cs_host.arrays, cs_host.static, desc_c), seed=SEED)[y0:y1, x0:x1]
-    tier_c = R_.render_compiled.last_timing["tier"]
-    rel = np.abs(img_g - img_c).sum() / max(np.abs(img_c).sum(), 1e-30)
-    px_ok = np.isclose(img_g, img_c, rtol=1e-2, atol=1e-4).all(axis=-1).mean()
-    print(f"[5 cuda-vs-cpu crop] {x1 - x0}x{y1 - y0} {CROP_SPP}spp ({tier_g} vs {tier_c}): "
-          f"sum|a-b|/sum|b| {rel:.3e}, pixels within rtol 1e-2 {px_ok:.4f}, means {img_g.mean():.5f} "
-          f"{img_c.mean():.5f}", flush=True)
-    if not (np.isfinite(img_g).all() and rel < 1e-3 and px_ok >= 0.99):
-        raise AssertionError("cuda and cpu renders of the crop disagree")
+    # --- 5. the same mesh crop on cuda and cpu ---
+    _check_crop("5 cuda-vs-cpu crop", cs, cs_host, cs.description)
 
-    report = {"kernels": [{
-        "name": "wide_traverse",
-        "route": "cuda",
-        "source": "pbrt_tpu_torch/csrc/wide_traverse.cu",
-        "replaces": "pbrt_tpu/device/pallas_bvh.py:90",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}
+    # --- 6. B3 kernel vs plain on the spheres gallery ---
+    g_host = compile_scene(spheres_gallery(), "cpu")
+    g = g_host.to("cuda")
+    gd = g.description
+    W, H = gd.film.x_resolution, gd.film.y_resolution
+    icfg = {"kind": gd.integrator.kind, "max_depth": gd.integrator.max_depth,
+            "rr_threshold": gd.integrator.rr_threshold, "strategy": gd.integrator.strategy,
+            "light_strategy": gd.integrator.light_strategy}
+    fcfg = {"filter": "box", "filter_params": {}, "max_sample_luminance": float("inf")}
+    consts = megakernel.extract_consts(g, make_camera(gd.camera, gd.film, "cuda"), icfg,
+                                       {"kind": gd.sampler.kind, "spp": gd.sampler.pixel_samples}, fcfg)
+    if consts is None:
+        raise AssertionError("the spheres gallery is outside the megakernel's class")
+    blob = megakernel.pack_consts(consts).to("cuda")
+    mode = megakernel.kernel_mode(consts)
+    idx = torch.arange(W * H, device="cuda")
+    lanes = (idx % W, idx // W, idx)
+    L_k, w_k, nv_k = megakernel.megakernel_cuda(blob, mode, *lanes, 0, COMPARE_SPP, SEED)
+    L_p, w_p, nv_p = megakernel.megakernel_plain(consts, *lanes, 0, COMPARE_SPP, SEED)
+    torch.cuda.synchronize()
+    diff = (L_k - L_p).abs()
+    rel = diff / (L_p.abs() + 1e-2)
+    b3_err = diff.max().item()
+    dnv = abs(nv_k.double().sum().item() - nv_p.double().sum().item())
+    print(f"[6 B3 kernel-vs-plain] {W}x{H} {COMPARE_SPP}spp: weights equal {torch.equal(w_k, w_p)}, "
+          f"vertices {nv_k.double().sum().item():.0f} vs {nv_p.double().sum().item():.0f}, max |dL|/(|L|+1e-2) "
+          f"{rel.max().item():.3e}, mean |dL| {diff.mean().item():.3e}, max |dL| {b3_err:.3e}, "
+          f"image mean {L_p.mean().item():.5f}", flush=True)
+    if not (torch.allclose(w_k, w_p) and dnv <= 4 and rel.max().item() < 2e-2 and diff.mean().item() < 1e-4
+            and L_p.mean().item() > 0):
+        raise AssertionError("the brute megakernel and its plain twin disagree")
+    spp = gd.sampler.pixel_samples
+    b3_ms = _cuda_ms(lambda: megakernel.megakernel_cuda(blob, mode, *lanes, 0, spp, SEED), 5)
+    t0 = time.perf_counter()
+    megakernel.megakernel_plain(consts, *lanes, 0, spp, SEED)
+    torch.cuda.synchronize()
+    b3_plain_ms = 1e3 * (time.perf_counter() - t0)
+    nv16 = megakernel.megakernel_cuda(blob, mode, *lanes, 0, spp, SEED)[2].double().sum().item()
+    n_tri = sum(p["kind"] == "tri" for p in consts["prims"])
+    n_sph = len(consts["prims"]) - n_tri
+    # per path vertex: one closest-hit and one shadow test over every prim
+    # plus the shading; inputs px, py, pid and the blob, outputs L, w, nv
+    b3_ops = nv16 * (2 * (n_tri * B3_OPS_TRI + n_sph * B3_OPS_SPH) + B3_OPS_SHADE)
+    b3_bound = _bound(3 * 4 * W * H + megakernel.BLOB_FLOATS * 4 + 5 * 4 * W * H, b3_ops)
+    print(f"  {W}x{H} {spp}spp: kernel {b3_ms:.4f} ms, plain {b3_plain_ms:.1f} ms; {nv16:.0f} path vertices; "
+          f"bound {b3_bound[0]:.4f} ms ({b3_bound[1]}, {b3_ops:.4g} ops), kernel at "
+          f"{100 * b3_bound[0] / b3_ms:.2f}% of it", flush=True)
+
+    # --- 7. the gallery main path ---
+    g_timing, b3_launches = _main_path("7 gallery main path", g, "torch-megakernel/cuda-brute",
+                                       megakernel.megakernel_cuda)
+    print(f"  kernel share of the render wall: {100 * b3_ms / (1e3 * g_timing['wall_s']):.1f}%", flush=True)
+
+    # --- 8. the same gallery crop on cuda and cpu ---
+    _check_crop("8 cuda-vs-cpu gallery crop", g, g_host, gd)
+
+    report = {"kernels": [
+        {"name": "wide_traverse", "route": "cuda", "source": "pbrt_tpu_torch/csrc/wide_traverse.cu",
+         "replaces": "pbrt_tpu/device/pallas_bvh.py:90", "launches": b1_launches, "max_abs_err": max_err,
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": b1_bound[0], "bound_by": b1_bound[1], "library_ms": None},
+        {"name": "brute_megakernel", "route": "cuda", "source": "pbrt_tpu_torch/csrc/megakernel.cu",
+         "replaces": "pbrt_tpu/device/megakernel.py:814", "launches": b3_launches, "max_abs_err": b3_err,
+         "ms": b3_ms, "plain_ms": b3_plain_ms, "bound_ms": b3_bound[0], "bound_by": b3_bound[1],
+         "library_ms": None},
+    ]}
     print(json.dumps(report))
     print(_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,19 +5,28 @@ The port mirrors the JAX package's module layout and function names
 find, and it imports neither ``jax`` nor ``pbrt_tpu``: the machines that run
 it on a GPU have no JAX.
 
-What it renders today is one slice of the reference: the persistent path
-tracer over triangle meshes with matte (constant Kd) materials and diffuse
-area lights, traversing the 8-wide BVH with a hand-written CUDA kernel
-(``csrc/wide_traverse.cu``). Every other feature raises NotImplementedError
-at scene compile time.
+What it renders today are two slices of the reference, each with a
+hand-written CUDA kernel:
+
+- the persistent path tracer over triangle meshes of more than 64 prims with
+  matte (constant Kd) materials and diffuse area lights, traversing the
+  8-wide BVH (``csrc/wide_traverse.cu``);
+- the brute megakernel for scenes of at most 16 triangle or full-sphere
+  prims with point, spot and distant lights and constant-parameter matte,
+  mirror, glass, metal and plastic materials, path or directlighting
+  (``csrc/megakernel.cu``).
+
+Every other feature raises NotImplementedError at scene compile time or
+when the render route is built.
 
 Public entry points:
     pbrt_tpu_torch.scenes.mesh_room(n_side)             -> SceneDescription
-    pbrt_tpu_torch.scene.builder.compile_scene(desc, device)
+    pbrt_tpu_torch.scenes.spheres_gallery()             -> SceneDescription
+    pbrt_tpu_torch.scene.builder.compile_scene(desc, device="cuda")
     pbrt_tpu_torch.render.render(desc, device="cuda")    -> (H, W, 3) image
 
-Importing the package loads no kernel and touches no GPU; the CUDA kernel is
-compiled with nvcc on its first launch.
+Importing the package loads no kernel and touches no GPU; the CUDA kernels
+are compiled with nvcc on their first launch.
 """
 
 __version__ = "0.1.0"

@@ -16,9 +16,28 @@ import torch
 from .camera import concentric_sample_disk
 from .shading import normalize
 
+# lobe ids and slot count of the reference's lobe sets (bsdf.py); the
+# wavefront evaluates LOBE_LAMBERT_R only, the brute megakernel bakes the
+# others (device/materials.bake_lobes)
+N_SLOTS = 8
 LOBE_NONE = 0
 LOBE_LAMBERT_R = 1
+LOBE_OREN_NAYAR = 3
+LOBE_MICRO_R = 4
+LOBE_MICRO_T = 5
+LOBE_SPEC_R = 6
+LOBE_SPEC_T = 7
+LOBE_FRESNEL_SPEC = 8
 INV_PI = 1.0 / math.pi
+
+
+def tr_roughness_to_alpha(rough):
+    """TrowbridgeReitz::roughness_to_alpha (microfacet.rs), float32 in the
+    reference's operation order."""
+    r = torch.clamp(rough, min=1e-3)
+    x = torch.log(r)
+    x2 = x * x
+    return 1.62142 + 0.819955 * x + 0.1734 * x * x + 0.0171201 * (x2 * x) + 0.000640711 * (x2 * x2)
 
 
 def abs_cos_theta(w):

@@ -1,9 +1,10 @@
-"""Light sampling for triangle area lights.
+"""Light sampling for triangle area lights, and light power.
 
 The port's counterpart of ``pbrt_tpu/device/lights.py`` restricted to
 diffuse area lights on triangles (src/lights/diffuse.rs), one light row per
 emitting triangle: sample_li (uniform area sampling, converted to solid
-angle), area_light_emission, pdf_li_area_hit and compute_power.
+angle), area_light_emission and pdf_li_area_hit. compute_power also covers
+the point, spot and distant lights that the brute megakernel samples.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import math
 
 import torch
 
-from ..scene.arrays import LIGHT_AREA
+from ..scene.arrays import LIGHT_AREA, LIGHT_DISTANT, LIGHT_POINT, LIGHT_SPOT
 from .shading import FLAG_FLIP_GEOM_N, cross, dot, normalize
 
 
@@ -80,11 +81,20 @@ def pdf_li_area_hit(sa, p_ref, hit_p, hit_ng, hit_light, prim_area_of_hit):
 
 def compute_power(sa, static):
     """Emitted power per light (Light::power) for power-proportional light
-    selection: two-sidedness x area x pi x sum(L)."""
+    selection (integrator.rs:239-246): point 4 pi sum(I), spot
+    2 pi (1 - (cosTotalWidth + cosFalloffStart) / 2) sum(I), distant
+    pi r_world^2 sum(L), area two-sidedness x area x pi x sum(L)."""
     if static.n_lights == 0:
         return torch.ones(1, dtype=torch.float32, device=sa.light_param.device)
+    kind = sa.light_kind
     par = sa.light_param
-    area = sa.prim_area[torch.clamp(sa.light_prim, min=0)]
-    two = 1.0 + (par[:, 3] > 0).to(torch.float32)
-    power = torch.where(sa.light_kind == LIGHT_AREA, two * area * math.pi * par[:, 0:3].sum(-1), 0.0)
+    wr = sa.world_radius
+    lum = par[:, 3:6].sum(-1)  # point/spot/distant store I or L at 3:6
+    power = torch.where(kind == LIGHT_POINT, 4.0 * math.pi * lum, 0.0)
+    power = torch.where(kind == LIGHT_SPOT, 2.0 * math.pi * (1.0 - 0.5 * (par[:, 9] + par[:, 10])) * lum, power)
+    power = torch.where(kind == LIGHT_DISTANT, math.pi * wr * wr * lum, power)
+    if static.has_area_lights:
+        area = sa.prim_area[torch.clamp(sa.light_prim, min=0)]
+        two = 1.0 + (par[:, 3] > 0).to(torch.float32)
+        power = torch.where(kind == LIGHT_AREA, two * area * math.pi * par[:, 0:3].sum(-1), power)
     return torch.clamp(power, min=0.0)

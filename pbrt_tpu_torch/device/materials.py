@@ -1,16 +1,39 @@
 """Material evaluation: per-ray material rows -> BSDF lobe sets.
 
-The port's counterpart of ``pbrt_tpu/device/materials.py make_bsdf`` for
-matte with a constant Kd and sigma = 0 (src/materials/matte.rs): a
-Lambertian reflection lobe of color clip(Kd, 0, 1), or no lobe where Kd is
-black. The scene compiler refuses every other material.
+The port's counterpart of ``pbrt_tpu/device/materials.py make_bsdf``, in two
+forms:
+
+- ``make_bsdf`` for the wavefront: matte with a constant Kd and sigma = 0
+  (src/materials/matte.rs), a Lambertian reflection lobe of color
+  clip(Kd, 0, 1), or no lobe where Kd is black;
+- ``bake_lobes`` for the brute megakernel: every material row's full lobe
+  set, kinds (M, 8) and data (M, 8, 14), for matte (Lambert or Oren-Nayar),
+  mirror, glass, metal and plastic with constant parameters, written to the
+  reference's slots with the reference's float32 arithmetic.
+
+The scene compiler refuses every other material.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from ..scene.arrays import MAT_MATTE, P_KD
-from .bsdf import LOBE_LAMBERT_R, LOBE_NONE
+from ..scene.arrays import (
+    MAT_GLASS, MAT_MATTE, MAT_METAL, MAT_MIRROR, MAT_PLASTIC, P_ETA, P_K, P_KD, P_KR, P_KS, P_KT,
+    P_SIGMA, P_UROUGH, P_VROUGH,
+)
+from .bsdf import (
+    LOBE_FRESNEL_SPEC, LOBE_LAMBERT_R, LOBE_MICRO_R, LOBE_MICRO_T, LOBE_NONE, LOBE_OREN_NAYAR,
+    LOBE_SPEC_R, LOBE_SPEC_T, N_SLOTS, tr_roughness_to_alpha,
+)
+
+# Fresnel kinds of a lobe's data[11] (materials.py FR_*)
+FR_NONE = 0.0
+FR_DIELECTRIC = 1.0
+FR_CONDUCTOR = 2.0
+
+BAKED_KINDS = frozenset({MAT_MATTE, MAT_MIRROR, MAT_GLASS, MAT_METAL, MAT_PLASTIC})
 
 
 def make_bsdf(sa, static, mat_ids):
@@ -21,3 +44,104 @@ def make_bsdf(sa, static, mat_ids):
     matte = sa.mat_kind[mat_ids] == MAT_MATTE
     lam = matte & (kd > 0).any(-1)
     return {"kind": torch.where(lam, LOBE_LAMBERT_R, LOBE_NONE), "color": torch.where(lam[:, None], kd, 0.0)}
+
+
+def bake_lobes(sa, static):
+    """Lobe kinds (M, 8) int32 and data (M, 8, 14) float32 of every material
+    row, as the reference's make_bsdf writes them for constant parameters
+    (materials.py:150-260). Data columns: color 0:3, eta 3 (or rgb 3:6),
+    k or Kt 6:9, alpha_x 9, alpha_y 10, Fresnel kind 11, then Oren-Nayar
+    (A, B) or the micro lobes' Beckmann flag in 12:14."""
+    if set(static.mat_kinds_present) - BAKED_KINDS:
+        raise NotImplementedError("bake_lobes covers matte, mirror, glass, metal and plastic only")
+    M = sa.mat_kind.shape[0]
+    dev = sa.mat_const.device
+    kind = sa.mat_kind
+    const = sa.mat_const  # (M, N_MAT_PARAMS, 3) float32
+    remap_row = sa.mat_remap
+    remap = (remap_row & 1) != 0
+    beck_f = ((remap_row >> 1) & 1).to(torch.float32)
+    zero_r = torch.zeros(M, dtype=torch.float32, device=dev)
+
+    kd = torch.clamp(const[:, P_KD], 0.0, 1.0)
+    sigma = const[:, P_SIGMA, 0]
+    kr = torch.clamp(const[:, P_KR], min=0.0)
+    kt = torch.clamp(const[:, P_KT], min=0.0)
+    ks = torch.clamp(const[:, P_KS], min=0.0)
+    eta3 = const[:, P_ETA]
+    eta = torch.where(eta3[:, 0] > 0, eta3[:, 0], 1.5)
+    kcond = const[:, P_K]
+
+    def alpha_of(r):
+        return torch.clamp(torch.where(remap, tr_roughness_to_alpha(r), r), min=1e-3)
+
+    urough = const[:, P_UROUGH, 0]
+    vrough = const[:, P_VROUGH, 0]
+    ax = alpha_of(urough)
+    ay = alpha_of(vrough)
+
+    out_kind = torch.zeros((M, N_SLOTS), dtype=torch.int32, device=dev)
+    data = torch.zeros((M, N_SLOTS, 14), dtype=torch.float32, device=dev)
+
+    def put(slot, mask, lobe, color, eta=None, k_or_t=None, ax=None, ay=None, fresnel=FR_NONE, ab=None):
+        """Masked write of one lobe into `slot` (materials._LobeWriter.put)."""
+        def sel(c, value):
+            v = torch.broadcast_to(torch.as_tensor(value, dtype=torch.float32, device=dev), (M,))
+            data[:, slot, c] = torch.where(mask, v, data[:, slot, c])
+
+        out_kind[:, slot] = torch.where(mask, lobe, out_kind[:, slot])
+        for c in range(3):
+            sel(c, color[:, c] if color.dim() == 2 else color)
+        if eta is not None:
+            eta = torch.as_tensor(eta, dtype=torch.float32, device=dev)
+            if eta.dim() <= 1:
+                sel(3, eta)
+            else:
+                for c in range(3):
+                    sel(3 + c, eta[:, c])
+        if k_or_t is not None:
+            for c in range(3):
+                sel(6 + c, k_or_t[:, c])
+        if ax is not None:
+            sel(9, ax)
+            sel(10, ay)
+        sel(11, fresnel)
+        if ab is not None:
+            sel(12, ab[0])
+            sel(13, ab[1])
+
+    def nonblack(c):
+        return (c > 0).any(-1)
+
+    m = kind == MAT_MATTE
+    has_kd = nonblack(kd)
+    # Oren-Nayar A/B from sigma in degrees (reflection.rs:901)
+    sig_rad = torch.clamp(sigma, 0.0, 90.0) * torch.tensor(math.pi / 180.0, dtype=torch.float32)
+    s2 = sig_rad * sig_rad
+    a_on = 1.0 - s2 / (2.0 * (s2 + 0.33))
+    b_on = 0.45 * s2 / (s2 + 0.09)
+    use_on = sigma != 0.0
+    put(0, m & has_kd & ~use_on, LOBE_LAMBERT_R, kd)
+    put(0, m & has_kd & use_on, LOBE_OREN_NAYAR, kd, ab=(a_on, b_on))
+
+    m = kind == MAT_MIRROR
+    put(4, m & nonblack(kr), LOBE_SPEC_R, kr, fresnel=FR_NONE)
+
+    m = kind == MAT_GLASS
+    smooth = (urough == 0) & (vrough == 0)
+    both = nonblack(kr) & nonblack(kt)
+    put(4, m & smooth & both, LOBE_FRESNEL_SPEC, kr, eta=eta, k_or_t=kt)
+    put(4, m & smooth & ~both & nonblack(kr), LOBE_SPEC_R, kr, eta=eta, fresnel=FR_DIELECTRIC)
+    put(5, m & smooth & ~both & nonblack(kt), LOBE_SPEC_T, kt, eta=eta)
+    put(2, m & ~smooth & nonblack(kr), LOBE_MICRO_R, kr, eta=eta, ax=ax, ay=ay, fresnel=FR_DIELECTRIC,
+        ab=(beck_f, zero_r))
+    put(3, m & ~smooth & nonblack(kt), LOBE_MICRO_T, kt, eta=eta, ax=ax, ay=ay, ab=(beck_f, zero_r))
+
+    m = kind == MAT_PLASTIC
+    put(0, m & nonblack(kd), LOBE_LAMBERT_R, kd)
+    put(2, m & nonblack(ks), LOBE_MICRO_R, ks, eta=1.5, ax=ax, ay=ay, fresnel=FR_DIELECTRIC, ab=(beck_f, zero_r))
+
+    m = kind == MAT_METAL
+    one = torch.ones((M, 3), dtype=torch.float32, device=dev)
+    put(2, m, LOBE_MICRO_R, one, eta=eta3, k_or_t=kcond, ax=ax, ay=ay, fresnel=FR_CONDUCTOR, ab=(beck_f, zero_r))
+    return out_kind, data

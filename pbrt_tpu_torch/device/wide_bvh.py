@@ -13,71 +13,36 @@ reference up to packet-versus-ray visit order.
 to the other. The plain version is the same per-ray traversal vectorised
 over rays with an (R, 72) stack tensor, looping until every stack is empty.
 
-The kernel is compiled with nvcc at its first launch into ``_build/`` next
-to this package (the directory is git-ignored) and loaded with ctypes.
+The kernel is compiled with nvcc at its first launch (device/nvcc.py) and
+loaded with ctypes.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
+
+from . import nvcc
 
 STACK = 72  # >= wide-tree depth x safety
 EPS = 1e-4  # watertight test t_min (intersect.SHADOW_EPS)
 ITER_CAP = 1_000_000  # pops per ray; a safety valve only
 SORT_MIN_RAYS = 512  # the reference sorts only waves of >= 2 packets
 
-_PKG = Path(__file__).resolve().parent.parent
-KERNEL_SOURCE = _PKG / "csrc" / "wide_traverse.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
+KERNEL_SOURCE = nvcc.CSRC / "wide_traverse.cu"
 
 
 # ---------------------------------------------------------------------------
-# Build and bind (nvcc -> shared library -> ctypes)
+# Build and bind (device/nvcc.py: nvcc -> shared library -> ctypes)
 # ---------------------------------------------------------------------------
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA traversal kernel cannot be built")
-    return path
 
 
 def build_kernel() -> dict:
-    """Compile (if needed) and load the traversal kernel library.
-
-    Returns {"lib": ctypes.CDLL, "seconds": build wall time (0 when the
-    library was already built), "log": nvcc's -Xptxas -v output}. The
-    library name carries a hash of the source and flags, so an edited
-    kernel is rebuilt."""
-    if _LIB:
-        return _LIB
-    src = KERNEL_SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"libwide_traverse_{tag}.so"
-    seconds, log = 0.0, ""
-    if not so.exists():
-        t0 = time.perf_counter()
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(KERNEL_SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-    lib = ctypes.CDLL(str(so))
+    """Compile (if needed) and load the traversal kernel library:
+    {"lib", "seconds", "log", "path"} as device/nvcc.build returns it."""
+    info = nvcc.build(KERNEL_SOURCE)
+    lib = info["lib"]
     lib.wide_traverse.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -85,11 +50,7 @@ def build_kernel() -> dict:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.wide_traverse.restype = ctypes.c_int
-    _LIB.update(lib=lib, seconds=seconds, log=log, path=str(so))
-    return _LIB
-
-
-_LIB: dict = {}
+    return info
 
 
 def _check_tables(tables, device):

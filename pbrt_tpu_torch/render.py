@@ -1,10 +1,17 @@
 """Top-level render driver: SceneDescription -> image, on one device.
 
-The port's counterpart of ``pbrt_tpu/render.py`` for the persistent
-wavefront (``make_regen``, ``make_persistent_fn``, the persistent branch of
-``render_compiled``, ``render``). The whole film (or crop) is one lane set,
-rendered in spp chunks of PERSISTENT_SPP_CHUNK = 8 (the reference mesh
-tier's accumulation granularity) and accumulated in float64. The
+The port's counterpart of ``pbrt_tpu/render.py`` for the persistent routes
+(``make_regen``, ``make_persistent_fn``, the persistent branch of
+``render_compiled``, ``render``). ``make_persistent_fn`` picks one of two:
+
+- the brute megakernel (device/megakernel.py) for every path or
+  directlighting scene of its class, as the reference routes them first;
+  all samples of a render go in one launch;
+- the persistent wavefront with the wide-BVH traversal otherwise, in spp
+  chunks of PERSISTENT_SPP_CHUNK = 8 (the reference mesh tier's
+  accumulation granularity).
+
+The whole film (or crop) is one lane set, accumulated in float64. The
 reference's dispatch-shape table and its TPU watchdog chunking are not
 carried over: GPU chunk sizes are for measurement to set.
 """
@@ -19,6 +26,7 @@ import torch
 
 from .device.camera import generate_rays, make_camera
 from .device.integrator import trace_persistent
+from .device.megakernel import explain_ineligible, make_megakernel_fn
 from .device.sampler import sample_2d
 from .scene.builder import CompiledScene, compile_scene
 from .scene.host import SceneDescription
@@ -28,7 +36,9 @@ log = logging.getLogger(__name__)
 PERSISTENT_SPP_CHUNK = 8
 
 # route of the most recent make_persistent_fn build, so a run shows the
-# path it took: the CUDA traversal kernel, or the plain version on the CPU
+# path it took: torch-megakernel/{cuda,plain}-brute or
+# torch-wavefront/{cuda,plain}-wide (the CUDA kernel, or its plain twin on
+# the CPU)
 LAST_PERSISTENT_TIER = "unbuilt"
 
 
@@ -67,16 +77,20 @@ def make_persistent_fn(cs: CompiledScene, cam=None):
     """Build the persistent-wave function: (sa, px, py, pids, s0, n_samples,
     seed) -> (accLw, accW, n_vertices), all on the scene's device.
 
-    Sets LAST_PERSISTENT_TIER to the route that will execute."""
+    Sets LAST_PERSISTENT_TIER to the route that will execute. A scene of
+    the brute-force class (no BVH tables) that the megakernel does not take
+    raises NotImplementedError naming what it lacks: the port has no brute
+    wavefront yet."""
     global LAST_PERSISTENT_TIER
     desc = cs.description
     dev = cs.arrays.device
     if cam is None:
         cam = make_camera(desc.camera, desc.film, dev)
     icfg = {
-        "kind": desc.integrator.kind,
+        "kind": desc.integrator.kind if desc.integrator.kind == "directlighting" else "path",
         "max_depth": max(int(desc.integrator.max_depth), 1),
         "rr_threshold": desc.integrator.rr_threshold,
+        "strategy": desc.integrator.strategy,
         "light_strategy": desc.integrator.light_strategy,
     }
     scfg = {"kind": desc.sampler.kind, "spp": int(desc.sampler.pixel_samples)}
@@ -86,6 +100,13 @@ def make_persistent_fn(cs: CompiledScene, cam=None):
         "max_sample_luminance": desc.film.max_sample_luminance,
     }
     static = cs.static
+    if static.use_brute_force:
+        mk = make_megakernel_fn(cs, cam, icfg, scfg, fcfg)
+        if mk is None:
+            raise NotImplementedError("pbrt_tpu_torch renders scenes of <= 64 primitives only through the brute "
+                                      f"megakernel, which does not take {explain_ineligible(cs, cam, icfg, scfg, fcfg)}")
+        LAST_PERSISTENT_TIER = "torch-megakernel/" + ("cuda-brute" if dev.type == "cuda" else "plain-brute")
+        return mk
     LAST_PERSISTENT_TIER = "torch-wavefront/" + ("cuda-wide" if dev.type == "cuda" else "plain-wide")
 
     def wave_p(sa, px, py, pixel_ids, s0: int, n_samples: int, seed: int):
@@ -147,12 +168,14 @@ def render_compiled(cs: CompiledScene, seed: int = 0, spp: int | None = None):
 
     wave_p = make_persistent_fn(cs)
     tier = LAST_PERSISTENT_TIER
+    # the megakernel takes every sample of the render in one launch
+    chunk = spp if tier.startswith("torch-megakernel") else PERSISTENT_SPP_CHUNK
     acc = torch.zeros((ww * wh, 3), dtype=torch.float64, device=dev)
     wacc = torch.zeros(ww * wh, dtype=torch.float64, device=dev)
     n_vertices = torch.zeros((), dtype=torch.float64, device=dev)
     t0 = time.perf_counter()
-    for s in range(0, spp, PERSISTENT_SPP_CHUNK):
-        n_s = min(PERSISTENT_SPP_CHUNK, spp - s)
+    for s in range(0, spp, chunk):
+        n_s = min(chunk, spp - s)
         Lw, w, nv = wave_p(cs.arrays, px, py, pixel_ids, s, n_s, seed)
         acc += Lw.to(torch.float64)
         wacc += w.to(torch.float64)

@@ -2,7 +2,8 @@
 
 The port's counterpart of ``pbrt_tpu/scene/arrays.py``: the same id
 constants and the same table layouts, holding only the fields the ported
-slice reads (triangle meshes, matte materials, area lights, wide BVH).
+slices read: triangle meshes and full spheres, the material rows, the
+light rows and, for scenes above the brute-force size, the wide BVH.
 
 - ``SceneTensors``: torch tensors, all on one device.
 - ``SceneStatic``: Python-level counts and flags that shape the program.
@@ -20,7 +21,10 @@ import torch
 
 # geometry type ids
 GEOM_TRI = 0
-GEOM_SPHERE = 1
+GEOM_SPHERE = 1  # any analytic quadric row (see QUADRIC_* for the sub-kind)
+
+# quadric sub-kinds (sph_kind)
+QUADRIC_SPHERE = 0
 
 # material kind ids
 MAT_NONE = 0
@@ -38,6 +42,24 @@ MAT_SUBSURFACE = 11
 MAT_KDSUBSURFACE = 12
 MAT_FOURIER = 13
 MAT_HAIR = 14
+
+MAT_IDS = {
+    "none": MAT_NONE,
+    "matte": MAT_MATTE,
+    "mirror": MAT_MIRROR,
+    "glass": MAT_GLASS,
+    "plastic": MAT_PLASTIC,
+    "metal": MAT_METAL,
+    "uber": MAT_UBER,
+    "substrate": MAT_SUBSTRATE,
+    "translucent": MAT_TRANSLUCENT,
+    "disney": MAT_DISNEY,
+    "mix": MAT_MIX,
+    "subsurface": MAT_SUBSURFACE,
+    "kdsubsurface": MAT_KDSUBSURFACE,
+    "fourier": MAT_FOURIER,
+    "hair": MAT_HAIR,
+}
 
 # material parameter slots (each a vec3 + texture-id indirection)
 P_KD = 0
@@ -70,6 +92,12 @@ _TABLE_DTYPES = {
     "tri_p": torch.float32,  # (T, 3, 3) vertex positions
     "tri_n": torch.float32,  # (T, 3, 3) shading normals (geometric if absent)
     "tri_uv": torch.float32,  # (T, 3, 2)
+    "tri_prim_ids": torch.int32,  # (T,) triangle row -> prim row
+    "sph_o2w": torch.float32,  # (S, 3, 4) quadric object -> world
+    "sph_w2o": torch.float32,  # (S, 3, 4) world -> object
+    "sph_param": torch.float32,  # (S, 12) sphere: radius, zmin, zmax, phimax, thetamin, thetamax
+    "sph_kind": torch.int32,  # (S,) QUADRIC_*
+    "sph_prim_ids": torch.int32,  # (S,) quadric row -> prim row
     "prim_kind": torch.int32,  # (P,) GEOM_*
     "prim_geom": torch.int32,  # (P,) row in tri_*
     "prim_mat": torch.int32,  # (P,) material row
@@ -79,11 +107,16 @@ _TABLE_DTYPES = {
     "mat_kind": torch.int32,  # (M,) MAT_*
     "mat_const": torch.float32,  # (M, N_MAT_PARAMS, 3)
     "mat_tex": torch.int32,  # (M, N_MAT_PARAMS) texture index or -1
+    "mat_remap": torch.int32,  # (M,) bit0 remap roughness, bit1 Beckmann
     "light_kind": torch.int32,  # (L,) LIGHT_*
-    "light_param": torch.float32,  # (L, 12): area = L(3), two_sided
+    "light_param": torch.float32,  # (L, 12): area L(3), two_sided; point/spot/distant see builder
     "light_prim": torch.int32,  # (L,) prim row of an area light
     "world_center": torch.float32,  # (3,)
     "world_radius": torch.float32,  # ()
+}
+
+# the wide-BVH tables: None for a brute-force scene, which has none
+_WIDE_DTYPES = {
     "wnode_tab": torch.float32,  # (ceil(Nw/8)*8, 128) wide-BVH node boxes
     "wprim_tab": torch.float32,  # (ceil(n_oct/8)*8, 128) leaf triangles
     "wmeta_tab": torch.int32,  # (n_nodes*8,) packed child metas
@@ -96,6 +129,12 @@ class SceneTensors:
     tri_p: torch.Tensor
     tri_n: torch.Tensor
     tri_uv: torch.Tensor
+    tri_prim_ids: torch.Tensor
+    sph_o2w: torch.Tensor
+    sph_w2o: torch.Tensor
+    sph_param: torch.Tensor
+    sph_kind: torch.Tensor
+    sph_prim_ids: torch.Tensor
     prim_kind: torch.Tensor
     prim_geom: torch.Tensor
     prim_mat: torch.Tensor
@@ -105,26 +144,28 @@ class SceneTensors:
     mat_kind: torch.Tensor
     mat_const: torch.Tensor
     mat_tex: torch.Tensor
+    mat_remap: torch.Tensor
     light_kind: torch.Tensor
     light_param: torch.Tensor
     light_prim: torch.Tensor
     world_center: torch.Tensor
     world_radius: torch.Tensor
-    wnode_tab: torch.Tensor
-    wprim_tab: torch.Tensor
-    wmeta_tab: torch.Tensor
-    wslot_prim: torch.Tensor
+    wnode_tab: torch.Tensor | None = None
+    wprim_tab: torch.Tensor | None = None
+    wmeta_tab: torch.Tensor | None = None
+    wslot_prim: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
         return self.tri_p.device
 
     def to(self, device) -> "SceneTensors":
-        return SceneTensors(**{f.name: getattr(self, f.name).to(device) for f in fields(self)})
+        return SceneTensors(**{f.name: None if getattr(self, f.name) is None else getattr(self, f.name).to(device)
+                               for f in fields(self)})
 
     def byte_size(self) -> int:
-        return sum(getattr(self, f.name).numel() * getattr(self, f.name).element_size()
-                   for f in fields(self))
+        return sum(t.numel() * t.element_size() for t in (getattr(self, f.name) for f in fields(self))
+                   if t is not None)
 
 
 @dataclass
@@ -139,6 +180,11 @@ class SceneStatic:
     mat_kinds_present: tuple = ()
     light_kinds: tuple = ()  # LIGHT_* per light row
     has_area_lights: bool = False
+    has_infinite: bool = False
+    use_brute_force: bool = False  # n_prims <= 64: brute-force intersection, no BVH tables
+    n_media: int = 0
+    has_motion: bool = False
+    tex_programs: tuple = ()  # texture programs (the port compiles none yet)
     has_wide: bool = False
     wide_root: int = 1
 
@@ -147,13 +193,15 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
     """Host tables (name -> array, reference layouts) -> (SceneTensors on
     `device`, SceneStatic). Extra keys in either dict are ignored, so a
     reference scene's full field set can be passed as is."""
-    if arrays.get("wnode_tab") is None:
-        raise NotImplementedError("scenes without wide-BVH tables (the port traverses only the wide BVH)")
     tensors = {}
     for name, dtype in _TABLE_DTYPES.items():
         # np.array copies: reference arrays may be read-only views
         tensors[name] = torch.as_tensor(np.array(arrays[name]), dtype=dtype, device=device)
+    for name, dtype in _WIDE_DTYPES.items():
+        if arrays.get(name) is not None:
+            tensors[name] = torch.as_tensor(np.array(arrays[name]), dtype=dtype, device=device)
     st = SceneStatic(**{f.name: static[f.name] for f in fields(SceneStatic)})
     st.mat_kinds_present = tuple(int(k) for k in st.mat_kinds_present)
     st.light_kinds = tuple(int(k) for k in st.light_kinds)
+    st.tex_programs = tuple(st.tex_programs)
     return SceneTensors(**tensors), st

@@ -1,17 +1,28 @@
 """Scene compiler: SceneDescription (host records) -> SceneTensors.
 
 The port's counterpart of ``pbrt_tpu/scene/builder.py compile_scene`` for
-one scene class: static triangle meshes, matte materials with a constant Kd,
-diffuse area lights (one- or two-sided), a perspective camera and the BVH
-accelerator with the wide-BVH tables. Primitive order, areas, light rows,
-world bounds and the wide tables are computed with the reference's NumPy
-code in the reference's order, so they come out bit-identical
-(tests/test_torch_scene.py holds them equal table for table).
+two scene classes, one per render route:
 
-Anything outside that class raises NotImplementedError naming the feature;
-nothing is silently dropped. The reference's cluster tables, joint-kernel
-probe, fused shading rows and mipmaps are not built: nothing in the port
-reads them.
+- the wavefront class (more than BRUTE_FORCE_MAX_PRIMS prims): static
+  triangle meshes, matte with a constant Kd, diffuse area lights, and the
+  BVH accelerator with the wide-BVH tables;
+- the brute-force class (at most BRUTE_FORCE_MAX_PRIMS prims, no BVH
+  tables): static triangle meshes and spheres; matte (Lambert or
+  Oren-Nayar), mirror, glass, metal and plastic with constant parameters;
+  point, spot and distant lights; the path or directlighting integrator.
+  The brute megakernel (device/megakernel.py) renders the part of it that
+  the reference's megakernel takes.
+
+Both take a perspective camera and the box filter. Primitive order, areas,
+light and material rows, world bounds and the wide tables are computed
+with the reference's NumPy code in the reference's order, so they come out
+bit-identical (tests/test_torch_scene.py, tests/test_torch_megakernel.py
+hold them equal table for table).
+
+Anything outside those classes raises NotImplementedError naming the
+feature; nothing is silently dropped. The reference's cluster tables,
+joint-kernel probe, fused shading rows and mipmaps are not built: nothing
+in the port reads them.
 """
 from __future__ import annotations
 
@@ -19,9 +30,16 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..core.spectrum import copper_eta_k_rgb
+from ..device.sampler import SAMPLER_KINDS
 from .arrays import (
+    GEOM_SPHERE,
     GEOM_TRI,
     LIGHT_AREA,
+    LIGHT_DISTANT,
+    LIGHT_POINT,
+    LIGHT_SPOT,
+    MAT_IDS,
     MAT_MATTE,
     N_MAT_PARAMS,
     P_ETA,
@@ -36,11 +54,11 @@ from .arrays import (
     P_TRANSMIT,
     P_UROUGH,
     P_VROUGH,
+    QUADRIC_SPHERE,
     SceneStatic,
     SceneTensors,
     scene_tensors_from_numpy,
 )
-from ..device.sampler import SAMPLER_KINDS
 from .bvh import build_bvh
 from .host import HostMaterial, SceneDescription
 from .widebvh import build_wide_bvh
@@ -52,6 +70,20 @@ FLAG_FLIP_GEOM_N = 1
 FLAG_HAS_SHADING_N = 2
 FLAG_REVERSE_ORIENTATION = 4
 FLAG_HAS_UV = 8
+
+# what each route can render
+BRUTE_MATERIALS = ("matte", "mirror", "glass", "metal", "plastic")
+BRUTE_SAMPLERS = ("zerotwosequence", "lowdiscrepancy", "random", "stratified")
+BRUTE_INTEGRATORS = ("path", "directlighting")
+
+# per-kind parameter defaults (reference src/materials/*.rs create_* fns)
+_MATERIAL_DEFAULTS = {
+    "matte": {"Kd": 0.5},
+    "mirror": {"Kr": 0.9},
+    "glass": {"Kr": 1.0, "Kt": 1.0},
+    "plastic": {"Kd": 0.25, "Ks": 0.25, "roughness": 0.1},
+    "metal": {"roughness": 0.01},
+}
 
 
 @dataclass
@@ -68,10 +100,17 @@ def _unsupported(feature: str):
     raise NotImplementedError(f"pbrt_tpu_torch does not support {feature} yet")
 
 
+def _count_prims(desc: SceneDescription) -> int:
+    return sum(len(p.shape.mesh.indices) if p.shape.mesh is not None else 1 for p in desc.primitives)
+
+
 def _check_slice(desc: SceneDescription) -> None:
-    """Raise NotImplementedError for any feature outside the ported class."""
-    if desc.lights:
-        _unsupported(f"'{desc.lights[0].kind}' lights (only diffuse area lights)")
+    """Raise NotImplementedError for any feature outside the ported classes."""
+    brute = _count_prims(desc) <= BRUTE_FORCE_MAX_PRIMS
+    route = "scenes of <= 64 primitives" if brute else "scenes of > 64 primitives"
+    for light in desc.lights:
+        if not brute or light.kind not in ("point", "spot", "distant"):
+            _unsupported(f"'{light.kind}' lights in {route}")
     if desc.media or desc.camera_medium:
         _unsupported("participating media")
     if str(desc.accelerator or "bvh") != "bvh":
@@ -81,46 +120,60 @@ def _check_slice(desc: SceneDescription) -> None:
         _unsupported(f"'{cam.kind}' cameras")
     if cam.camera_to_world_end is not None:
         _unsupported("animated cameras")
-    if desc.sampler.kind not in SAMPLER_KINDS:
-        _unsupported(f"the '{desc.sampler.kind}' sampler")
+    if desc.sampler.kind not in (BRUTE_SAMPLERS if brute else SAMPLER_KINDS):
+        _unsupported(f"the '{desc.sampler.kind}' sampler in {route}")
     if desc.film.filter_name != "box":
         _unsupported(f"the '{desc.film.filter_name}' filter")
-    if desc.integrator.kind != "path":
-        _unsupported(f"the '{desc.integrator.kind}' integrator")
+    if desc.integrator.kind not in (BRUTE_INTEGRATORS if brute else ("path",)):
+        _unsupported(f"the '{desc.integrator.kind}' integrator in {route}")
     for prim in desc.primitives:
         sh = prim.shape
         if sh.mesh is None:
-            _unsupported("quadric shapes")
-        mesh = sh.mesh
-        if mesh.p_end is not None or mesh.anim is not None:
-            _unsupported("motion blur")
-        if mesh.alpha_texture is not None or mesh.shadow_alpha_texture is not None:
-            _unsupported("alpha cutouts")
+            sph = sh.sphere
+            if not brute or getattr(sph, "kind", "sphere") != "sphere":
+                _unsupported(f"'{getattr(sph, 'kind', 'sphere')}' quadrics in {route}")
+            if sph.object_to_world_end is not None or sph.anim is not None:
+                _unsupported("motion blur")
+        else:
+            mesh = sh.mesh
+            if mesh.p_end is not None or mesh.anim is not None:
+                _unsupported("motion blur")
+            if mesh.alpha_texture is not None or mesh.shadow_alpha_texture is not None:
+                _unsupported("alpha cutouts")
         if prim.instance_transform is not None:
             _unsupported("object instancing")
         if prim.inside_medium or prim.outside_medium:
             _unsupported("medium interfaces")
+        if prim.area_light is not None and (brute or prim.area_light.kind != "area"):
+            _unsupported(f"'{prim.area_light.kind}' lights attached to shapes in {route}")
         mat = prim.material
-        if mat.kind != "matte":
-            _unsupported(f"the '{mat.kind}' material")
+        if mat.kind not in (BRUTE_MATERIALS if brute else ("matte",)):
+            _unsupported(f"the '{mat.kind}' material in {route}")
         if mat.bump_map is not None:
             _unsupported("bump maps")
         for name, src in mat.params.items():
             if isinstance(src, tuple) and src and src[0] == "texture":
-                _unsupported(f"textured material parameter '{name}'")
+                _unsupported(f"textured material parameter '{name}' (imagemap textures)")
         sigma = mat.params.get("sigma")
-        if sigma is not None and np.any(np.asarray(sigma[1], np.float64) != 0):
-            _unsupported("matte sigma > 0 (Oren-Nayar)")
+        if not brute and sigma is not None and np.any(np.asarray(sigma[1], np.float64) != 0):
+            _unsupported(f"matte sigma > 0 (Oren-Nayar) in {route}")
 
 
 def _compile_material(mat: HostMaterial):
-    """Matte HostMaterial -> (kind_id, const (N_MAT_PARAMS, 3), tex, remap),
-    filled as the reference's _compile_material fills a constant-only row."""
+    """HostMaterial of a constant-parameter kind -> (kind_id, const
+    (N_MAT_PARAMS, 3), tex, remap), filled as the reference's
+    _compile_material fills such a row."""
+    kind = MAT_IDS.get(mat.kind, MAT_MATTE)
     const = np.zeros((N_MAT_PARAMS, 3), dtype=np.float64)
     tex = np.full(N_MAT_PARAMS, -1, dtype=np.int64)
     remap = 1
     params = dict(mat.params)
-    params.setdefault("Kd", ("const", np.array([0.5, 0.5, 0.5])))
+    for name, dv in _MATERIAL_DEFAULTS.get(mat.kind, {}).items():
+        params.setdefault(name, ("const", np.array([dv, dv, dv])))
+    if mat.kind == "metal" and "eta" not in params:
+        cu_eta, cu_k = copper_eta_k_rgb()
+        params["eta"] = ("const", np.asarray(cu_eta))
+        params.setdefault("k", ("const", np.asarray(cu_k)))
 
     def put(slot, name, default=None):
         src = params.get(name)
@@ -151,18 +204,58 @@ def _compile_material(mat: HostMaterial):
     rm = params.get("remaproughness")
     if rm is not None and rm[0] == "const":
         remap = 1 if rm[1] else 0
-    return MAT_MATTE, const, tex, remap | (2 if beckmann else 0)
+    return kind, const, tex, remap | (2 if beckmann else 0)
 
 
-def compile_scene(desc: SceneDescription, device="cpu") -> CompiledScene:
-    """Compile a scene of the ported class into tables on `device`."""
+def _compile_light(hl):
+    """Point / spot / distant HostLight -> (kind, params (12,)), as the
+    reference's light loop writes them (scene/builder.py:361-404)."""
+    p = np.zeros(12)
+    if hl.kind == "point":
+        p[0:3] = hl.from_point
+        p[3:6] = hl.intensity
+        return LIGHT_POINT, p
+    if hl.kind == "spot":
+        p[0:3] = hl.from_point
+        p[3:6] = hl.intensity
+        d = np.asarray(hl.to_point) - np.asarray(hl.from_point)
+        d = d / max(np.linalg.norm(d), 1e-12)
+        p[6:9] = d
+        p[9] = np.cos(np.radians(hl.cone_angle))  # cosTotalWidth
+        p[10] = np.cos(np.radians(hl.cone_angle - hl.cone_delta))  # cosFalloffStart
+        return LIGHT_SPOT, p
+    d = np.asarray(hl.from_point) - np.asarray(hl.to_point)  # distant: direction TO the light
+    d = d / max(np.linalg.norm(d), 1e-12)
+    p[0:3] = d
+    p[3:6] = hl.intensity
+    return LIGHT_DISTANT, p
+
+
+def _geom_to_prim_map(prim_kind, prim_geom, kind_id, n_geom):
+    """geometry-table row -> primitive row (prims are in BVH leaf order)."""
+    out = np.zeros(max(n_geom, 0), np.int32)
+    for i, (k, g) in enumerate(zip(prim_kind, prim_geom)):
+        if k == kind_id:
+            out[g] = i
+    return out
+
+
+def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
+    """Compile a scene of a ported class into tables on `device` (the card
+    unless the caller names another device)."""
     _check_slice(desc)
     tri_p, tri_n, tri_uv = [], [], []
+    sph_o2w, sph_w2o, sph_param, sph_kind = [], [], [], []
     prim_kind, prim_geom, prim_mat, prim_light, prim_flags, prim_area = [], [], [], [], [], []
     prim_lo, prim_hi = [], []
     mat_index: dict[int, int] = {}
     mat_rows: list[tuple] = []
     lights: list[tuple] = []  # (kind, params(12,), prim_id)
+
+    # non-area lights first, in description order
+    for hl in desc.lights:
+        kind, p = _compile_light(hl)
+        lights.append((kind, p, -1))
 
     for prim in desc.primitives:
         key = id(prim.material)
@@ -170,6 +263,35 @@ def compile_scene(desc: SceneDescription, device="cpu") -> CompiledScene:
             mat_index[key] = len(mat_rows)
             mat_rows.append(_compile_material(prim.material))
         mid = mat_index[key]
+        if prim.shape.mesh is None:
+            # full or partial sphere (sphere.rs); the checks admit no other quadric
+            sph = prim.shape.sphere
+            o2w = sph.object_to_world
+            si = len(sph_o2w)
+            sph_o2w.append(o2w.m[:3, :])
+            sph_w2o.append(o2w.inverse().m[:3, :])
+            sph_kind.append(QUADRIC_SPHERE)
+            zmin = np.clip(min(sph.z_min, sph.z_max), -sph.radius, sph.radius)
+            zmax = np.clip(max(sph.z_min, sph.z_max), -sph.radius, sph.radius)
+            theta_min = np.arccos(np.clip(zmin / sph.radius, -1.0, 1.0))
+            theta_max = np.arccos(np.clip(zmax / sph.radius, -1.0, 1.0))
+            sph_param.append([sph.radius, zmin, zmax, sph.phi_max, theta_min, theta_max] + [0.0] * 6)
+            flags = 0
+            if sph.reverse_orientation ^ o2w.swaps_handedness():
+                flags |= FLAG_FLIP_GEOM_N
+            if sph.reverse_orientation:
+                flags |= FLAG_REVERSE_ORIENTATION
+            prim_kind.append(GEOM_SPHERE)
+            prim_geom.append(si)
+            prim_mat.append(mid)
+            prim_light.append(-1)
+            prim_flags.append(flags)
+            prim_area.append(sph.phi_max * sph.radius * (np.clip(sph.z_max, -sph.radius, sph.radius)
+                                                         - np.clip(sph.z_min, -sph.radius, sph.radius)))
+            lo, hi = o2w.xbounds([-sph.radius] * 3, [sph.radius] * 3)
+            prim_lo.append(lo)
+            prim_hi.append(hi)
+            continue
         mesh = prim.shape.mesh
         v = np.asarray(mesh.p, dtype=np.float64)
         f = np.asarray(mesh.indices, dtype=np.int64)
@@ -205,8 +327,6 @@ def compile_scene(desc: SceneDescription, device="cpu") -> CompiledScene:
         base_prim = len(prim_kind)
         light_ids = np.full(t, -1, dtype=np.int64)
         if prim.area_light is not None:
-            if prim.area_light.kind != "area":
-                _unsupported(f"'{prim.area_light.kind}' lights attached to shapes")
             light_ids = np.arange(len(lights), len(lights) + t)
             lp = np.zeros(12)
             lp[0:3] = prim.area_light.intensity
@@ -224,10 +344,11 @@ def compile_scene(desc: SceneDescription, device="cpu") -> CompiledScene:
         prim_hi.extend(pv.max(axis=1))
 
     n_prims = len(prim_kind)
-    if n_prims <= BRUTE_FORCE_MAX_PRIMS:
-        _unsupported(f"scenes of <= {BRUTE_FORCE_MAX_PRIMS} primitives (brute-force intersection)")
-    if not lights:
-        _unsupported("scenes without lights")
+    use_brute = n_prims <= BRUTE_FORCE_MAX_PRIMS
+    if n_prims == 0:
+        _unsupported("scenes without primitives")
+    if not lights and not use_brute:
+        _unsupported("scenes of > 64 primitives without lights")
 
     # --- world bounds ---------------------------------------------------------
     wlo = np.min(np.asarray(prim_lo), axis=0)
@@ -256,29 +377,25 @@ def compile_scene(desc: SceneDescription, device="cpu") -> CompiledScene:
     prim_area = _perm(prim_area)
     prim_lo = _perm(prim_lo)
     prim_hi = _perm(prim_hi)
-    lights = [(k, p_, int(inv[pr])) for (k, p_, pr) in lights]
+    lights = [(k, p_, int(inv[pr]) if pr >= 0 else -1) for (k, p_, pr) in lights]
 
     def _cat(chunks, shape):
+        if not chunks:
+            return np.zeros((0,) + shape, dtype=np.float32)
         return np.concatenate([np.asarray(c, dtype=np.float32).reshape((-1,) + shape) for c in chunks], axis=0)
 
     tri_p_cat = _cat(tri_p, (3, 3))
-
-    # --- wide BVH over the (permuted) triangle rows ---------------------------
-    # payload cols 11-13 (mat, light, flags) as the reference writes them
-    extra = np.stack([
-        np.asarray(prim_mat, np.float32),
-        np.asarray(prim_light, np.float32),
-        np.asarray(prim_flags, np.float32),
-    ], axis=1)
-    tv = tri_p_cat[np.asarray(prim_geom)]
-    wide = build_wide_bvh(np.asarray(prim_lo), np.asarray(prim_hi), tv[:, 0], tv[:, 1], tv[:, 2],
-                          extra_cols=extra)
-
     mat_kind = np.array([r[0] for r in mat_rows], dtype=np.int32)
     arrays = {
         "tri_p": tri_p_cat,
         "tri_n": _cat(tri_n, (3, 3)),
         "tri_uv": _cat(tri_uv, (3, 2)),
+        "tri_prim_ids": _geom_to_prim_map(prim_kind, prim_geom, GEOM_TRI, len(tri_p_cat)),
+        "sph_o2w": np.asarray(sph_o2w, dtype=np.float32).reshape(-1, 3, 4),
+        "sph_w2o": np.asarray(sph_w2o, dtype=np.float32).reshape(-1, 3, 4),
+        "sph_param": np.asarray(sph_param, dtype=np.float32).reshape(-1, 12),
+        "sph_kind": np.asarray(sph_kind, dtype=np.int32),
+        "sph_prim_ids": _geom_to_prim_map(prim_kind, prim_geom, GEOM_SPHERE, len(sph_o2w)),
         "prim_kind": np.asarray(prim_kind, dtype=np.int32),
         "prim_geom": np.asarray(prim_geom, dtype=np.int32),
         "prim_mat": np.asarray(prim_mat, dtype=np.int32),
@@ -288,16 +405,28 @@ def compile_scene(desc: SceneDescription, device="cpu") -> CompiledScene:
         "mat_kind": mat_kind,
         "mat_const": np.stack([r[1] for r in mat_rows]).astype(np.float32),
         "mat_tex": np.stack([r[2] for r in mat_rows]).astype(np.int32),
+        "mat_remap": np.array([r[3] for r in mat_rows], dtype=np.int32),
         "light_kind": np.array([l[0] for l in lights], dtype=np.int32),
-        "light_param": np.stack([l[1] for l in lights]).astype(np.float32),
+        "light_param": np.asarray([l[1] for l in lights], dtype=np.float32).reshape(-1, 12),
         "light_prim": np.array([l[2] for l in lights], dtype=np.int32),
         "world_center": wc.astype(np.float32),
         "world_radius": np.float32(wr),
-        "wnode_tab": wide.node_tab,
-        "wprim_tab": wide.prim_tab,
-        "wmeta_tab": wide.meta_tab,
-        "wslot_prim": wide.slot_prim,
     }
+    wide_root = 1
+    if not use_brute:
+        # --- wide BVH over the (permuted) triangle rows -----------------------
+        # payload cols 11-13 (mat, light, flags) as the reference writes them
+        extra = np.stack([
+            np.asarray(prim_mat, np.float32),
+            np.asarray(prim_light, np.float32),
+            np.asarray(prim_flags, np.float32),
+        ], axis=1)
+        tv = tri_p_cat[np.asarray(prim_geom)]
+        wide = build_wide_bvh(np.asarray(prim_lo), np.asarray(prim_hi), tv[:, 0], tv[:, 1], tv[:, 2],
+                              extra_cols=extra)
+        arrays.update(wnode_tab=wide.node_tab, wprim_tab=wide.prim_tab, wmeta_tab=wide.meta_tab,
+                      wslot_prim=wide.slot_prim)
+        wide_root = wide.root
     static = {
         "n_tris": len(tri_p_cat),
         "n_prims": n_prims,
@@ -305,10 +434,14 @@ def compile_scene(desc: SceneDescription, device="cpu") -> CompiledScene:
         "n_lights": len(lights),
         "mat_kinds_present": tuple(sorted(set(int(k) for k in mat_kind))),
         "light_kinds": tuple(int(l[0]) for l in lights),
-        "has_area_lights": True,
-        "has_wide": True,
-        "wide_root": wide.root,
+        "has_area_lights": any(l[0] == LIGHT_AREA for l in lights),
+        "has_infinite": False,
+        "use_brute_force": use_brute,
+        "n_media": 0,
+        "has_motion": False,
+        "tex_programs": (),
+        "has_wide": not use_brute,
+        "wide_root": wide_root,
     }
     tensors, st = scene_tensors_from_numpy(arrays, static, device)
     return CompiledScene(arrays=tensors, static=st, description=desc)
-

@@ -2,12 +2,13 @@
 
 The subset of ``pbrt_tpu/scene/host.py`` that the port's scene compiler
 reads: the same plain records with the same fields and defaults, so a scene
-built on these types compiles to the same tables as the reference's. Shapes
-other than triangle meshes, textures and media are not part of the port yet
-(the compiler raises NotImplementedError on them).
+built on these types compiles to the same tables as the reference's.
+Quadrics other than full spheres, textures and media are not part of the
+port yet (the compiler raises NotImplementedError on them).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -38,11 +39,39 @@ class TriangleMesh:
     anim: tuple | None = None  # (M0, M1) 4x4 shutter keyframe CTMs
 
 
+@dataclass
+class Sphere:
+    """Analytic quadric, kept parametric on device.
+
+    kind selects the shape: "sphere" (src/shapes/sphere.rs), "cylinder"
+    (cylinder.rs) or "disk" (disk.rs). height/inner_radius apply to disks
+    only; z_min/z_max to spheres and cylinders. The port's compiler takes
+    spheres only, in scenes of at most 64 prims; its megakernel renders
+    full ones."""
+
+    object_to_world: Transform
+    radius: float = 1.0
+    z_min: float = -1.0
+    z_max: float = 1.0
+    phi_max: float = 2.0 * math.pi  # radians
+    reverse_orientation: bool = False
+    object_to_world_end: Transform | None = None  # motion blur keyframe
+    object_to_world_mid: Transform | None = None  # mid-shutter slerp sample
+    anim: tuple | None = None  # (M0, M1) 4x4 shutter keyframe CTMs (exact path)
+    kind: str = "sphere"
+    height: float = 0.0
+    inner_radius: float = 0.0
+    # hyperboloid endpoints (hyperboloid.rs): the segment p1->p2 revolved
+    # around z
+    p1: np.ndarray | None = None
+    p2: np.ndarray | None = None
+
+
 # Shape record: exactly one of mesh/sphere is set.
 @dataclass
 class ShapeRecord:
     mesh: TriangleMesh | None = None
-    sphere: object | None = None  # analytic quadric (not ported yet)
+    sphere: Sphere | None = None
 
 
 # ---------------------------------------------------------------------------

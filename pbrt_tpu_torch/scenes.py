@@ -1,5 +1,12 @@
 """Built-in scenes, made on the port's host types.
 
+``spheres_gallery`` is the reference bench's "value" configuration (bench.py
+renders the spheres scene at 1000x500, 16 spp, depth 5 through the brute
+megakernel) rebuilt on a scene that lives in the repository: a ground quad
+and six full spheres, one per lobe class the megakernel bakes (Lambert,
+Oren-Nayar, mirror, glass, GGX copper, Lambert+GGX plastic), lit by a
+distant, a point and a spot light with power-proportional light selection.
+
 ``mesh_room`` is bench.py's mesh configuration (``bench._grid_mesh`` and
 ``bench._mesh_scene``) with the same numbers: an enclosed displaced-terrain
 room of 2 * n_side^2 floor triangles (123,650 prims in all at n_side=248),
@@ -14,7 +21,7 @@ import numpy as np
 from .core.transform import Transform
 from .scene.host import (
     CameraConfig, FilmConfig, HostLight, HostMaterial, HostPrimitive,
-    IntegratorConfig, SamplerConfig, SceneDescription, ShapeRecord, TriangleMesh,
+    IntegratorConfig, SamplerConfig, SceneDescription, ShapeRecord, Sphere, TriangleMesh,
 )
 
 
@@ -71,6 +78,50 @@ def mesh_room(n_side: int = 248) -> SceneDescription:
         camera=CameraConfig(kind="perspective",
                             camera_to_world=Transform.look_at([0, 2.3, 3.3], [0, 0.2, -1.0], [0, 1, 0]),
                             fov=70.0),
+        film=FilmConfig(x_resolution=1000, y_resolution=500),
+        sampler=SamplerConfig(kind="zerotwosequence", pixel_samples=16),
+        integrator=IntegratorConfig(kind="path", max_depth=5, light_strategy="power"),
+    )
+
+
+def _const(v):
+    return ("const", np.asarray(v, np.float64))
+
+
+def spheres_gallery() -> SceneDescription:
+    """The 1000x500, 16 spp, depth-5 path-traced spheres gallery: 8 prims
+    (2 ground triangles, 6 spheres), 3 delta lights."""
+    ground = HostPrimitive(
+        shape=ShapeRecord(mesh=TriangleMesh(
+            p=np.array([[-20, -1, -20], [20, -1, -20], [20, -1, 20], [-20, -1, 20]], np.float64),
+            indices=np.array([[0, 2, 1], [0, 3, 2]], np.int32),
+            uv=np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float64))),
+        material=HostMaterial(kind="matte", params={"Kd": _const([0.6, 0.5, 0.4])}))
+    materials = [
+        HostMaterial(kind="matte", params={"Kd": _const([0.7, 0.3, 0.3])}),
+        HostMaterial(kind="matte", params={"Kd": _const([0.5, 0.55, 0.6]), "sigma": ("const", 20.0)}),
+        HostMaterial(kind="mirror", params={"Kr": _const([0.9, 0.9, 0.9])}),
+        HostMaterial(kind="glass", params={}),
+        HostMaterial(kind="metal", params={"roughness": ("const", 0.08)}),
+        HostMaterial(kind="plastic", params={"Kd": _const([0.6, 0.5, 0.4]), "Ks": _const([0.4, 0.4, 0.4]),
+                                             "roughness": ("const", 0.2)}),
+    ]
+    spheres = [HostPrimitive(shape=ShapeRecord(sphere=Sphere(object_to_world=Transform.translate([x, 0.0, 0.0]),
+                                                             radius=0.9)), material=m)
+               for x, m in zip((-5.0, -3.0, -1.0, 1.0, 3.0, 5.0), materials)]
+    lights = [
+        HostLight(kind="distant", from_point=np.array([0.0, 10.0, 0.0]), to_point=np.zeros(3),
+                  intensity=np.array([3.0, 3.0, 3.0])),
+        HostLight(kind="point", from_point=np.array([0.0, 4.0, 2.0]), intensity=np.array([30.0, 28.0, 26.0])),
+        HostLight(kind="spot", from_point=np.array([0.0, 5.0, 3.0]), to_point=np.array([0.0, -1.0, 0.0]),
+                  intensity=np.array([55.0, 50.0, 45.0]), cone_angle=25.0, cone_delta=15.0),
+    ]
+    return SceneDescription(
+        primitives=[ground] + spheres,
+        lights=lights,
+        camera=CameraConfig(kind="perspective",
+                            camera_to_world=Transform.look_at([0, 2.5, 9], [0, -0.3, 0], [0, 1, 0]),
+                            fov=40.0),
         film=FilmConfig(x_resolution=1000, y_resolution=500),
         sampler=SamplerConfig(kind="zerotwosequence", pixel_samples=16),
         integrator=IntegratorConfig(kind="path", max_depth=5, light_strategy="power"),

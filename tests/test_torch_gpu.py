@@ -1,4 +1,4 @@
-"""pbrt_tpu_torch's CUDA kernel against its plain PyTorch twin, on a card.
+"""pbrt_tpu_torch's CUDA kernels against their plain PyTorch twins, on a card.
 
 Marked `gpu`: a fixture decides whether there is a CUDA device and skips
 the tests where there is none. The file imports no JAX, because the card's
@@ -6,17 +6,21 @@ machine has none; run it there from the repository root with
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
-The kernel and the plain version do the same per-ray traversal in IEEE
-float32 without fused multiply-adds, so their outputs must be identical.
+The traversal kernel and its plain version do the same per-ray traversal in
+IEEE float32 without fused multiply-adds, so their outputs must be
+identical. The brute megakernel's sin/cos/log may differ from torch's by
+ulps, so it is held to its twin with the reference megakernel's image
+tolerance (tests/test_megakernel.py).
 """
 import numpy as np
 import pytest
 import torch
 
 from pbrt_tpu_torch import render
-from pbrt_tpu_torch.device import wide_bvh
+from pbrt_tpu_torch.device import megakernel, wide_bvh
+from pbrt_tpu_torch.device.camera import make_camera
 from pbrt_tpu_torch.scene.builder import compile_scene
-from pbrt_tpu_torch.scenes import mesh_room
+from pbrt_tpu_torch.scenes import mesh_room, spheres_gallery
 
 
 @pytest.fixture
@@ -66,3 +70,33 @@ def test_render_cuda_matches_cpu(cuda_device):
     # to float32 differences between the CPU's and the card's sin/cos/sqrt
     assert np.abs(img_g - img_c).sum() / np.abs(img_c).sum() < 1e-3
     assert np.isclose(img_g, img_c, rtol=1e-2, atol=1e-4).all(axis=-1).mean() >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ikind", ["path", "directlighting"])
+def test_megakernel_matches_plain(cuda_device, ikind):
+    desc = spheres_gallery()
+    W, H, spp = 64, 32, 2
+    desc.film.x_resolution, desc.film.y_resolution = W, H
+    desc.integrator.kind = ikind
+    desc.integrator.strategy = "one"
+    cs = compile_scene(desc, "cpu")
+    icfg = {"kind": ikind, "max_depth": 5, "rr_threshold": 1.0, "strategy": "one", "light_strategy": "power"}
+    consts = megakernel.extract_consts(cs, make_camera(desc.camera, desc.film), icfg,
+                                       {"kind": "zerotwosequence", "spp": spp},
+                                       {"filter": "box", "filter_params": {}, "max_sample_luminance": float("inf")})
+    idx = torch.arange(W * H, device=cuda_device)
+    lanes = (idx % W, idx // W, idx)
+    before = megakernel.megakernel_cuda.launches
+    blob = megakernel.pack_consts(consts).to(cuda_device)
+    L, w, nv = (x.cpu().numpy() for x in megakernel.megakernel_cuda(
+        blob, megakernel.kernel_mode(consts), *lanes, 0, spp, 7))
+    torch.cuda.synchronize()
+    assert megakernel.megakernel_cuda.launches == before + 1
+    L_p, w_p, nv_p = (x.cpu().numpy() for x in megakernel.megakernel_plain(consts, *(x.cpu() for x in lanes), 0, spp, 7))
+    assert L_p.mean() > 1e-3
+    assert np.allclose(w, w_p)
+    assert abs(float(nv.sum()) - float(nv_p.sum())) <= 4
+    diff = np.abs(L - L_p)
+    assert float((diff / (np.abs(L_p) + 1e-2)).max()) < 2e-2
+    assert float(diff.mean()) < 1e-4

@@ -32,7 +32,7 @@ def _small(desc):
 
 @pytest.fixture(scope="module")
 def port_scene():
-    return compile_scene(_small(mesh_room(8)))
+    return compile_scene(_small(mesh_room(8)), "cpu")
 
 
 def _pixels():

@@ -26,7 +26,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 @pytest.fixture(scope="module")
 def both():
-    return compile_scene(mesh_room(8)), ref_compile_scene(bench._mesh_scene(8))
+    return compile_scene(mesh_room(8), "cpu"), ref_compile_scene(bench._mesh_scene(8))
 
 
 @pytest.mark.parametrize("name", [f.name for f in fields(SceneTensors)])
@@ -77,13 +77,14 @@ def test_outside_the_slice_raises(feature):
     else:
         desc.sampler.kind = "halton"
     with pytest.raises(NotImplementedError):
-        compile_scene(desc)
+        compile_scene(desc, "cpu")
 
 
 def test_port_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import pbrt_tpu_torch.render, pbrt_tpu_torch.scenes, pbrt_tpu_torch.device.wide_bvh\n"
+        "import pbrt_tpu_torch.device.megakernel, pbrt_tpu_torch.device.nvcc, pbrt_tpu_torch.core.spectrum\n"
         "assert not any(m == 'pbrt_tpu' or m.startswith('pbrt_tpu.') for m in sys.modules)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)

@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
 """Where the time goes in pbrt_tpu_torch's main path, on one CUDA GPU.
 
-    python3 tools/torch_phases.py [--reps 5] [--out FILE.json]
+    python3 tools/torch_phases.py [--scene mesh|gallery] [--reps 5] [--out FILE.json]
 
-Renders the 123,650-triangle mesh room (1000x500, 16 spp, depth 5) and
-reports, with the card's name and power limit:
+Renders the 123,650-triangle mesh room (--scene mesh, the default) or the
+spheres gallery (--scene gallery; the brute megakernel) at 1000x500, 16 spp,
+depth 5 and reports, with the card's name and power limit:
  1. end to end: render wall time and path_vertex_samples_per_sec over
     --reps untraced renders after a warm-up (median, min, max);
  2. the traversal kernel against its plain PyTorch twin on the main path's
     ray sets (camera, one cosine bounce, shadow rays; closest and any hit),
-    by CUDA events;
- 3. layers: one render with a synchronize around every call into a layer
+    by CUDA events (mesh only; chip_smoke.py times the megakernel);
+ 3. layers (mesh only; the gallery's render is one kernel launch): one render with a synchronize around every call into a layer
     (camera regeneration, closest-hit query, shadow query, of which the
     kernel itself), the rest being shading, NEE, sampling, Russian roulette,
     flush and loop control; the synchronizes serialise host and device, so
     the traced wall minus the untraced median is the tracing cost;
- 4. device: one untraced render under torch.profiler: total kernel time,
-    the device busy share (kernel time / wall) and the top kernels.
+ 3g. launch path (gallery only): the route's one call with a synchronize
+    before and after: host time until it returns, device time by CUDA
+    events, the whole call; then one such call under torch.profiler for
+    the device busy share (device time / untraced call wall);
+ 4. device (mesh only): one untraced render under torch.profiler: total
+    kernel time, the device busy share (kernel time / wall) and the top
+    kernels (--out also keeps the chrome trace).
 The spans are wrapped around the port's functions from this script; the
 program itself carries no tracing code.
 """
@@ -49,9 +55,11 @@ def _spanned(fn, name, spans):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--scene", choices=("mesh", "gallery"), default="mesh")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", help="also write the full record as JSON here")
+    ap.add_argument("--out", help="also write the full record as JSON here (with --scene mesh, the profiled "
+                                  "render's chrome trace beside it, FILE.trace.json)")
     args = ap.parse_args()
 
     import torch
@@ -61,17 +69,15 @@ def main() -> int:
         return 1
     import chip_smoke
     from pbrt_tpu_torch import render as R_
-    from pbrt_tpu_torch.device import integrator, wide_bvh
     from pbrt_tpu_torch.scene.builder import compile_scene
-    from pbrt_tpu_torch.scenes import mesh_room
+    from pbrt_tpu_torch.scenes import mesh_room, spheres_gallery
 
     rec = {"device": torch.cuda.get_device_name(0), "nvidia_smi": chip_smoke._smi(),
-           "torch": torch.__version__, "cuda": torch.version.cuda}
+           "torch": torch.__version__, "cuda": torch.version.cuda, "scene": args.scene}
     t0 = time.perf_counter()
-    cs = compile_scene(mesh_room(248), "cpu")
+    cs = compile_scene(mesh_room(248) if args.scene == "mesh" else spheres_gallery(), "cpu")
     rec["host_compile_s"] = time.perf_counter() - t0
     cs = cs.to("cuda")
-    wide_bvh.build_kernel()
 
     # --- 1. end to end, untraced ---
     R_.render_compiled(cs, seed=args.seed, spp=2)  # warm-up
@@ -86,6 +92,24 @@ def main() -> int:
                      "tier": tm["tier"]}
     print(f"render: wall median {statistics.median(walls):.4f}s (min {min(walls):.4f} max {max(walls):.4f}), "
           f"path_vertex_samples_per_sec median {statistics.median(vps):.1f}", flush=True)
+
+    if args.scene == "mesh":
+        _traversal_and_layers(args, cs, rec, statistics.median(walls))
+        _device(args, cs, rec, statistics.median(walls))
+    else:
+        _launch_path(args, cs, rec)
+    if args.out:
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(rec, indent=1))
+    print(json.dumps({"ok": True, "busy_share": rec["device"]["busy_share"], "nvidia_smi": rec["nvidia_smi"]}))
+    return 0
+
+
+def _traversal_and_layers(args, cs, rec, wall_median):
+    import chip_smoke
+    from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch.device import integrator, wide_bvh
 
     # --- 2. traversal kernel vs plain on the main path's ray sets ---
     rec["traversal"] = []
@@ -126,12 +150,74 @@ def main() -> int:
               "closest_query": spans.get("closest_query", 0.0),
               "shadow_query": spans.get("shadow_query", 0.0)}
     layers["shading_nee_flush_loop"] = traced - sum(layers.values())
-    rec["layers"] = {"traced_wall_s": traced, "tracing_cost_s": traced - statistics.median(walls),
+    rec["layers"] = {"traced_wall_s": traced, "tracing_cost_s": traced - wall_median,
                      "seconds": layers, "kernel_s_within_queries": spans.get("kernel", 0.0),
                      "kernel_launches": kern.launches}
     print(f"layers (traced wall {traced:.4f}s): " + ", ".join(
         f"{k} {v:.4f}s ({100 * v / traced:.1f}%)" for k, v in layers.items())
         + f"; kernel itself {spans.get('kernel', 0.0):.4f}s over {kern.launches} launches", flush=True)
+
+
+def _launch_path(args, cs, rec):
+    """Gallery only: where the render wall goes around its one launch. The
+    route's function is called as render_compiled calls it, with a
+    synchronize before and after: host time until the call returns, kernel
+    time by CUDA events, and the whole call."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch import render as R_
+
+    desc = cs.description
+    W, H = desc.film.x_resolution, desc.film.y_resolution
+    spp = desc.sampler.pixel_samples
+    ys, xs = np.mgrid[0:H, 0:W]
+    lanes = [torch.as_tensor(a.ravel().astype(np.int64), device="cuda") for a in (xs, ys, ys * W + xs)]
+    wave = R_.make_persistent_fn(cs)
+    rows = []
+    for _ in range(args.reps + 1):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        Lw, w, nv = wave(cs.arrays, *lanes, 0, spp, args.seed)
+        stop.record()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rows.append({"host_to_return_ms": 1e3 * (t1 - t0), "call_ms": 1e3 * (t2 - t0),
+                     "device_ms": start.elapsed_time(stop)})
+    rows = rows[1:]  # the first call carries one-time set-up
+    med = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+    rec["launch_path"] = {"rows": rows, "median": med}
+    print(f"launch path (median of {len(rows)}): host until the call returns {med['host_to_return_ms']:.4f} ms, "
+          f"device (events around the call) {med['device_ms']:.4f} ms, whole call {med['call_ms']:.4f} ms",
+          flush=True)
+
+    # device busy share of one call under the profiler: every device event
+    # recorded lies inside the call, which is the render's timed window
+    # less its few float64 adds
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wave(cs.arrays, *lanes, 0, spp, args.seed)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+    dev_s = sum(e.time_range.elapsed_us() / 1e6 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    # against the untraced call, as for the mesh: the profiler slows the host
+    busy = dev_s / (med["call_ms"] / 1e3)
+    rec["device"] = {"profiled_call_s": call_s, "kernel_time_s": dev_s, "busy_share": busy,
+                     "busy_share_of_profiled_call": dev_s / call_s}
+    print(f"device: {1e3 * dev_s:.4f} ms of device time; untraced call {med['call_ms']:.4f} ms -> busy "
+          f"{100 * busy:.1f}%, idle {100 * (1 - busy):.1f}% (of the profiled call, {1e3 * call_s:.4f} ms: "
+          f"busy {100 * dev_s / call_s:.1f}%)", flush=True)
+
+
+def _device(args, cs, rec, wall_median):
+    from pbrt_tpu_torch import render as R_
 
     # --- 4. device time under the profiler (no synchronizing spans) ---
     from torch.autograd import DeviceType
@@ -140,6 +226,10 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         R_.render_compiled(cs, seed=args.seed)
     wall = R_.render_compiled.last_timing["wall_s"]
+    if args.out:
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out.with_suffix(".trace.json")))
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -149,22 +239,15 @@ def main() -> int:
     rows.sort(reverse=True)
     dev_s = sum(r[0] for r in rows)
     # busy share against the untraced wall: the profiler slows the host side
-    busy = dev_s / statistics.median(walls)
+    busy = dev_s / wall_median
     rec["device"] = {"profiled_wall_s": wall, "kernel_time_s": dev_s, "busy_share": busy,
                      "kernel_launches": sum(r[1] for r in rows),
                      "top": [{"name": k[:120], "s": s, "count": c} for s, c, k in rows[:15]]}
     print(f"device: kernel time {dev_s:.4f}s in {rec['device']['kernel_launches']} kernels; untraced wall "
-          f"{statistics.median(walls):.4f}s -> busy {100 * busy:.1f}%, idle {100 * (1 - busy):.1f}% "
+          f"{wall_median:.4f}s -> busy {100 * busy:.1f}%, idle {100 * (1 - busy):.1f}% "
           f"(profiled wall {wall:.4f}s)", flush=True)
     for s, c, k in rows[:10]:
         print(f"  {s:.4f}s  x{c:6d}  {k[:100]}")
-
-    if args.out:
-        out = Path(args.out)
-        out.parent.mkdir(parents=True, exist_ok=True)
-        out.write_text(json.dumps(rec, indent=1))
-    print(json.dumps({"ok": True, "busy_share": rec["device"]["busy_share"], "nvidia_smi": rec["nvidia_smi"]}))
-    return 0
 
 
 if __name__ == "__main__":
