@@ -7,8 +7,9 @@ port builds and runs its main path on the card.
 Phases (one line each; any failure raises and the exit code is non-zero):
  1. device: requires CUDA (no CPU fallback), prints the card's name and
     power limit;
- 2. build: nvcc-compiles csrc/wide_traverse.cu and csrc/megakernel.cu, one
-    nvcc each, both started together; prints build seconds and the ptxas
+ 2. build: nvcc-compiles every kernel source (csrc/wide_traverse.cu,
+    wide_traverse_joint.cu, megakernel.cu, megakernel_wide.cu), one nvcc
+    each, all started together; prints build seconds and the ptxas
     register/spill report of each;
  3. B1 kernel vs plain: compiles the 123,650-triangle mesh room on the host,
     then traces 500,000 camera rays, one cosine bounce from their hits and
@@ -38,9 +39,34 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     torch-megakernel/cuda-brute, megakernel launches > 0 in that run, and a
     finite, non-black image; prints path_vertex_samples_per_sec;
  8. same gallery image on both devices: a 64x32 crop at 4 spp, held as in
-    phase 5.
+    phase 5;
+ 9. B2 against B1: the six ray sets of phase 3 through the joint traversal
+    kernel at 2 and 4 rays per thread; t, prim/slot, b1, b2 and pops must
+    equal B1's on every ray, and agree with phase 3's plain results as B1
+    does (the largest |dt|, |db| is B2's max_abs_err). Times B1 and both K
+    with CUDA events;
+10. mesh main path with PBRT_TPU_JOINT=1: route torch-wavefront/cuda-wide-
+    joint, joint launches > 0 and B1 launches 0 in that run, and the image
+    of phase 4 (sum|a-b| / sum|b| < 1e-6; prints whether it is bit-equal);
+11. B4 kernel vs plain: the wide megakernel and its plain twin on
+    material_room (3,854 triangles) at 1000x500, 2 spp, with the reference
+    wide megakernel's tolerance (tests/test_megakernel_wide.py): weights
+    allclose, total path vertices within 6, per-pixel |dL| / (|L| + 1e-2) <
+    2e-2 and mean |dL| < 1e-4; times the kernel at 16 spp with CUDA events
+    and the twin by the host clock; computes the bound from the run's pops
+    and path vertices; the stack-overflow and iteration-cap counters must
+    stay 0;
+12. material_room main path with PBRT_TPU_WIDEMEGA=1 at 1000x500, 16 spp,
+    depth 5: route torch-megakernel/cuda-wide, one B4 launch, a finite,
+    non-black image; prints path_vertex_samples_per_sec and the kernel's
+    share of the render wall;
+13. same material_room crop on both devices, held as in phase 5;
+14. the mesh room through B4 (PBRT_TPU_WIDEMEGA=1,
+    PBRT_TPU_WIDEMEGA_MAX_TRIS=200000) at 1000x500, 16 spp, beside phase 4's
+    wavefront; then the 64x32, 4 spp crop through B4 and through the
+    wavefront, both on the card, held to the wide tolerance of phase 11.
 Each main path runs with every launch count set to 0 just before it and
-read just after. The second-to-last lines are the kernel report as JSON
+read just after; every switch a phase sets is restored after it. The second-to-last lines are the kernel report as JSON
 and the card's nvidia-smi name and power limit; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -48,11 +74,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 SEED = 0
 CROP_BOUNDS = (468, 532, 234, 266)  # 64 x 32 pixels around the film centre
@@ -129,15 +157,31 @@ def _check_crop(label, cs_gpu, cs_cpu, desc):
 
 
 def _reset_launches():
-    from pbrt_tpu_torch.device import megakernel, wide_bvh
+    from pbrt_tpu_torch.device import megakernel, megakernel_wide, wide_bvh
 
-    wide_bvh.traverse_cuda.launches = 0
-    megakernel.megakernel_cuda.launches = 0
+    for fn in (wide_bvh.traverse_cuda, wide_bvh.traverse_joint_cuda, megakernel.megakernel_cuda,
+               megakernel_wide.wide_megakernel_cuda):
+        fn.launches = 0
+
+
+def _wide_tolerance(L, w, nv, L_r, w_r, nv_r):
+    """The reference wide megakernel's tolerance (tests/test_megakernel_wide.py
+    :190-198); returns (ok, a description of the comparison)."""
+    import torch
+
+    diff = (L - L_r).abs()
+    rel = (diff / (L_r.abs() + 1e-2)).max().item()
+    dnv = abs(nv.double().sum().item() - nv_r.double().sum().item())
+    ok = torch.allclose(w, w_r) and dnv <= 6 and rel < 2e-2 and diff.mean().item() < 1e-4 and L_r.mean().item() > 0
+    return ok, (f"weights equal {torch.equal(w, w_r)}, vertices {nv.double().sum().item():.0f} vs "
+                f"{nv_r.double().sum().item():.0f}, max |dL|/(|L|+1e-2) {rel:.3e}, mean |dL| {diff.mean().item():.3e}, "
+                f"max |dL| {diff.max().item():.3e}")
 
 
 def _main_path(label, cs, expect_tier, kernel_fn):
-    """Phases 4 and 7: a warm-up pass, then one full render with every
-    launch count set to 0 just before it; returns (timing, launches)."""
+    """Phases 4, 7, 10, 12 and 14: a warm-up pass, then one full render with
+    every launch count set to 0 just before it; returns (timing, launches,
+    image)."""
     import numpy as np
 
     from pbrt_tpu_torch import render as R_
@@ -159,7 +203,7 @@ def _main_path(label, cs, expect_tier, kernel_fn):
           f"depth {desc.integrator.max_depth} route {timing['tier']}: wall {timing['wall_s']:.4f}s, "
           f"{timing['n_vertices']:.0f} path vertices, path_vertex_samples_per_sec {vps:.1f}, "
           f"kernel launches {launches}, image mean {img.mean():.5f}", flush=True)
-    return timing, launches
+    return timing, launches, img
 
 
 def _rays(cs):
@@ -227,6 +271,7 @@ def _compare(name, any_hit, res_k, res_p):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     # --- 1. device ---
@@ -238,14 +283,17 @@ def main() -> int:
     print(f"[1 device] {kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from pbrt_tpu_torch.device import megakernel, nvcc, wide_bvh
+    from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch.device import megakernel, megakernel_wide, nvcc, wide_bvh
     from pbrt_tpu_torch.device.camera import make_camera
     from pbrt_tpu_torch.scene.builder import compile_scene
-    from pbrt_tpu_torch.scenes import mesh_room, spheres_gallery
+    from pbrt_tpu_torch.scenes import material_room, mesh_room, spheres_gallery
 
-    # --- 2. build: both kernels, one nvcc each, started together ---
-    nvcc.build_all([wide_bvh.KERNEL_SOURCE, megakernel.KERNEL_SOURCE])
-    for build in (wide_bvh.build_kernel, megakernel.build_kernel):
+    # --- 2. build: every kernel, one nvcc each, all started together ---
+    nvcc.build_all([wide_bvh.KERNEL_SOURCE, wide_bvh.JOINT_SOURCE, megakernel.KERNEL_SOURCE,
+                    megakernel_wide.KERNEL_SOURCE])
+    for build in (wide_bvh.build_kernel, wide_bvh.build_joint_kernel, megakernel.build_kernel,
+                  megakernel_wide.build_kernel):
         info = build()
         regs = "; ".join(sorted(set(re.findall(r"Used \d+ registers[^\n]*", info["log"])))) or "n/a"
         spills = "; ".join(sorted(set(re.findall(r"\d+ bytes spill stores, \d+ bytes spill loads",
@@ -264,10 +312,12 @@ def main() -> int:
           f"{sum(tab_bytes.values())} bytes {tab_bytes}, all tables {sa.byte_size()} bytes", flush=True)
     max_err = 0.0
     ms = plain_ms = b1_bound = None
-    for name, o, d, t_max in _rays(cs):
+    ray_sets = _rays(cs)
+    plain_res = {}  # (ray set, any hit) -> traverse_plain's results, B2's reference in phase 9
+    for name, o, d, t_max in ray_sets:
         for any_hit in (False, True):
             res_k = wide_bvh.traverse_cuda(sa, o, d, t_max, any_hit)
-            res_p = wide_bvh.traverse_plain(sa, o, d, t_max, any_hit)
+            res_p = plain_res[name, any_hit] = wide_bvh.traverse_plain(sa, o, d, t_max, any_hit)
             max_err = max(max_err, _compare(name, any_hit, res_k, res_p))
             if res_p[5] != (0, 0):
                 raise AssertionError(f"plain traversal stack overflow / iteration cap: {res_p[5]}")
@@ -289,7 +339,8 @@ def main() -> int:
     print(f"[3 kernel-vs-plain] ok; max abs err {max_err:.3e}", flush=True)
 
     # --- 4. the mesh main path ---
-    _timing, b1_launches = _main_path("4 mesh main path", cs, "torch-wavefront/cuda-wide", wide_bvh.traverse_cuda)
+    mesh_timing, b1_launches, mesh_img = _main_path("4 mesh main path", cs, "torch-wavefront/cuda-wide",
+                                                    wide_bvh.traverse_cuda)
     counters = wide_bvh.traverse_cuda.counters[torch.device("cuda", 0)].tolist()
     if counters != [0, 0]:
         raise AssertionError(f"kernel stack overflows / iteration-cap hits: {counters}")
@@ -346,20 +397,146 @@ def main() -> int:
           f"{100 * b3_bound[0] / b3_ms:.2f}% of it", flush=True)
 
     # --- 7. the gallery main path ---
-    g_timing, b3_launches = _main_path("7 gallery main path", g, "torch-megakernel/cuda-brute",
-                                       megakernel.megakernel_cuda)
+    g_timing, b3_launches, _img = _main_path("7 gallery main path", g, "torch-megakernel/cuda-brute",
+                                             megakernel.megakernel_cuda)
     print(f"  kernel share of the render wall: {100 * b3_ms / (1e3 * g_timing['wall_s']):.1f}%", flush=True)
 
     # --- 8. the same gallery crop on cuda and cpu ---
     _check_crop("8 cuda-vs-cpu gallery crop", g, g_host, gd)
 
+    # --- 9. B2 against B1 on the six ray sets of phase 3 ---
+    dev = torch.device("cuda", 0)
+    b2_ms = {}
+    b2_err = 0.0
+    for name, o, d, t_max in ray_sets:
+        for any_hit in (False, True):
+            ref_res = wide_bvh.traverse_cuda(sa, o, d, t_max, any_hit)
+            label = f"{name}/{'any' if any_hit else 'closest'}"
+            times = [_cuda_ms(lambda: wide_bvh.traverse_cuda(sa, o, d, t_max, any_hit), 20)]
+            for k in (2, 4):
+                res = wide_bvh.traverse_joint_cuda(sa, o, d, t_max, any_hit, k)
+                if not all(torch.equal(x, y) for x, y in zip(res, ref_res)):
+                    raise AssertionError(f"the joint kernel (K={k}) differs from B1 on {label}")
+                b2_err = max(b2_err, _compare(f"K={k} {name}", any_hit, res, plain_res[name, any_hit]))
+                times.append(_cuda_ms(lambda: wide_bvh.traverse_joint_cuda(sa, o, d, t_max, any_hit, k), 20))
+            b2_ms[label] = times
+            print(f"  {label}: equal to B1 at K=2 and K=4; B1 {times[0]:.4f} ms, joint K=2 {times[1]:.4f} ms, "
+                  f"K=4 {times[2]:.4f} ms", flush=True)
+    if wide_bvh.traverse_joint_cuda.counters[dev].tolist() != [0, 0]:
+        raise AssertionError("joint kernel stack overflows / iteration-cap hits")
+    k_route = wide_bvh.JOINT_K
+    b2_cam_ms = b2_ms["camera/closest"][1 if k_route == 2 else 2]
+    print(f"[9 B2 vs B1] ok, bit-equal on all six ray sets; max abs err against plain {b2_err:.3e}; the route "
+          f"takes K={k_route}; camera/closest {b2_cam_ms:.4f} ms against B1 {b2_ms['camera/closest'][0]:.4f} ms",
+          flush=True)
+
+    # --- 10. the mesh main path through the joint kernel ---
+    with mock.patch.dict(os.environ, PBRT_TPU_JOINT="1"):
+        _t, b2_launches, joint_img = _main_path("10 mesh main path, joint", cs, "torch-wavefront/cuda-wide-joint",
+                                                wide_bvh.traverse_joint_cuda)
+        if wide_bvh.traverse_cuda.launches != 0:
+            raise AssertionError("the joint route launched B1")
+    rel_img = np.abs(joint_img - mesh_img).sum() / max(np.abs(mesh_img).sum(), 1e-30)
+    print(f"  joint image against phase 4's: sum|a-b|/sum|b| {rel_img:.3e}, bit-equal "
+          f"{bool(np.array_equal(joint_img, mesh_img))}", flush=True)
+    if not rel_img < 1e-6:
+        raise AssertionError("the joint route's image differs from the wavefront's")
+
+    # --- 11. B4 kernel vs plain on material_room ---
+    m_host = compile_scene(material_room(), "cpu")
+    m = m_host.to("cuda")
+    md = m.description
+    W, H = md.film.x_resolution, md.film.y_resolution
+    icfg = {"kind": "path", "max_depth": md.integrator.max_depth, "rr_threshold": md.integrator.rr_threshold,
+            "light_strategy": md.integrator.light_strategy}
+    wconsts = megakernel_wide.extract_wide_consts(m, make_camera(md.camera, md.film, "cuda"), icfg,
+                                                  {"kind": md.sampler.kind, "spp": md.sampler.pixel_samples}, fcfg,
+                                                  megakernel_wide.DEFAULT_MAX_TRIS)
+    if wconsts is None:
+        raise AssertionError("material_room is outside the wide megakernel's class")
+    wblob = megakernel_wide.pack_wide_consts(wconsts).to("cuda")
+    wmode = megakernel_wide.kernel_mode(wconsts)
+    idx = torch.arange(W * H, device="cuda")
+    lanes = (idx % W, idx // W, idx)
+    L_k, w_k, nv_k = megakernel_wide.wide_megakernel_cuda(wblob, wmode, m.arrays, *lanes, 0, COMPARE_SPP, SEED)
+    t0 = time.perf_counter()
+    L_p, w_p, nv_p = megakernel_wide.wide_megakernel_plain(wconsts, m.arrays, *lanes, 0, COMPARE_SPP, SEED)
+    torch.cuda.synchronize()
+    b4_plain2_s = time.perf_counter() - t0
+    ok, desc_cmp = _wide_tolerance(L_k, w_k, nv_k, L_p, w_p, nv_p)
+    b4_err = (L_k - L_p).abs().max().item()
+    print(f"[11 B4 kernel-vs-plain] material_room {m.static.n_tris} triangles, {W}x{H} {COMPARE_SPP}spp: {desc_cmp}, "
+          f"image mean {L_p.mean().item():.5f}; plain twin {b4_plain2_s:.1f} s", flush=True)
+    if not ok:
+        raise AssertionError("the wide megakernel and its plain twin disagree")
+    spp = md.sampler.pixel_samples
+    b4_ms = _cuda_ms(lambda: megakernel_wide.wide_megakernel_cuda(wblob, wmode, m.arrays, *lanes, 0, spp, SEED), 3)
+    t0 = time.perf_counter()
+    megakernel_wide.wide_megakernel_plain(wconsts, m.arrays, *lanes, 0, spp, SEED)
+    torch.cuda.synchronize()
+    b4_plain_ms = 1e3 * (time.perf_counter() - t0)
+    pops = megakernel_wide.wide_megakernel_cuda.pops[dev]
+    pops.zero_()
+    nv16 = megakernel_wide.wide_megakernel_cuda(wblob, wmode, m.arrays, *lanes, 0, spp, SEED)[2].double().sum().item()
+    pops_c, pops_s = pops.tolist()
+    if megakernel_wide.wide_megakernel_cuda.counters[dev].tolist() != [0, 0]:
+        raise AssertionError("wide megakernel stack overflows / iteration-cap hits")
+    # inputs px, py, pid (int32) and the wide tables read once, outputs L, w,
+    # nv written once; operations from this run's pops and path vertices
+    b4_bytes = 3 * 4 * W * H + _nbytes(m.arrays.wnode_tab, m.arrays.wprim_tab, m.arrays.wmeta_tab) + 5 * 4 * W * H
+    b4_ops = (pops_c + pops_s) * B1_OPS_PER_POP + nv16 * B3_OPS_SHADE
+    b4_bound = _bound(b4_bytes, b4_ops)
+    print(f"  {W}x{H} {spp}spp: kernel {b4_ms:.4f} ms, plain {b4_plain_ms:.1f} ms; {nv16:.0f} path vertices "
+          f"({nv16 / (W * H * spp):.3f} per sample), pops closest {pops_c} shadow {pops_s}; bound "
+          f"{b4_bound[0]:.4f} ms ({b4_bound[1]}, {b4_ops:.4g} ops, {b4_bytes} bytes), kernel at "
+          f"{100 * b4_bound[0] / b4_ms:.2f}% of it", flush=True)
+
+    # --- 12. the material_room main path through B4 ---
+    with mock.patch.dict(os.environ, PBRT_TPU_WIDEMEGA="1"):
+        m_timing, b4_launches, _img = _main_path("12 material_room main path", m, "torch-megakernel/cuda-wide",
+                                                 megakernel_wide.wide_megakernel_cuda)
+        if b4_launches != 1:
+            raise AssertionError(f"the material_room render made {b4_launches} wide megakernel launches, not 1")
+        print(f"  kernel share of the render wall: {100 * b4_ms / (1e3 * m_timing['wall_s']):.1f}%", flush=True)
+
+        # --- 13. the same material_room crop on cuda and cpu ---
+        _check_crop("13 cuda-vs-cpu material_room crop", m, m_host, md)
+
+    # --- 14. the mesh room through B4 beside the wavefront ---
+    with mock.patch.dict(os.environ, PBRT_TPU_WIDEMEGA="1", PBRT_TPU_WIDEMEGA_MAX_TRIS="200000"):
+        mm_timing, _n, _img = _main_path("14 mesh room through B4", cs, "torch-megakernel/cuda-wide",
+                                         megakernel_wide.wide_megakernel_cuda)
+        x0, x1, y0, y1 = CROP_BOUNDS
+        ys, xs = torch.meshgrid(torch.arange(y0, y1, device="cuda"), torch.arange(x0, x1, device="cuda"),
+                                indexing="ij")
+        crop = (xs.reshape(-1), ys.reshape(-1), (ys * cs.description.film.x_resolution + xs).reshape(-1))
+        mega = R_.make_persistent_fn(cs)(cs.arrays, *crop, 0, CROP_SPP, SEED)
+        mega_tier = R_.LAST_PERSISTENT_TIER
+    wave = R_.make_persistent_fn(cs)(cs.arrays, *crop, 0, CROP_SPP, SEED)
+    ok, desc_cmp = _wide_tolerance(*mega, *wave)
+    vps_b4 = mm_timing["n_vertices"] / mm_timing["wall_s"]
+    vps_wave = mesh_timing["n_vertices"] / mesh_timing["wall_s"]
+    print(f"[14 mesh room B4 vs wavefront] path_vertex_samples_per_sec B4 {vps_b4:.1f}, wavefront (phase 4) "
+          f"{vps_wave:.1f}, ratio {vps_b4 / vps_wave:.3f}; {x1 - x0}x{y1 - y0} {CROP_SPP}spp crop ({mega_tier} vs "
+          f"{R_.LAST_PERSISTENT_TIER}): {desc_cmp}", flush=True)
+    if not ok:
+        raise AssertionError("the wide megakernel and the wavefront disagree on the mesh room crop")
+
     report = {"kernels": [
         {"name": "wide_traverse", "route": "cuda", "source": "pbrt_tpu_torch/csrc/wide_traverse.cu",
          "replaces": "pbrt_tpu/device/pallas_bvh.py:90", "launches": b1_launches, "max_abs_err": max_err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": b1_bound[0], "bound_by": b1_bound[1], "library_ms": None},
+        {"name": "wide_traverse_joint", "route": "cuda", "source": "pbrt_tpu_torch/csrc/wide_traverse_joint.cu",
+         "replaces": "pbrt_tpu/device/pallas_bvh.py:326", "launches": b2_launches, "max_abs_err": b2_err,
+         "ms": b2_cam_ms, "plain_ms": plain_ms, "bound_ms": b1_bound[0], "bound_by": b1_bound[1],
+         "library_ms": None},
         {"name": "brute_megakernel", "route": "cuda", "source": "pbrt_tpu_torch/csrc/megakernel.cu",
          "replaces": "pbrt_tpu/device/megakernel.py:814", "launches": b3_launches, "max_abs_err": b3_err,
          "ms": b3_ms, "plain_ms": b3_plain_ms, "bound_ms": b3_bound[0], "bound_by": b3_bound[1],
+         "library_ms": None},
+        {"name": "wide_megakernel", "route": "cuda", "source": "pbrt_tpu_torch/csrc/megakernel_wide.cu",
+         "replaces": "pbrt_tpu/device/megakernel_wide.py:525", "launches": b4_launches, "max_abs_err": b4_err,
+         "ms": b4_ms, "plain_ms": b4_plain_ms, "bound_ms": b4_bound[0], "bound_by": b4_bound[1],
          "library_ms": None},
     ]}
     print(json.dumps(report))

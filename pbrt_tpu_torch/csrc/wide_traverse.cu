@@ -13,38 +13,15 @@
 // warp divergence, not by FLOPs. The tables stay in the reference's TPU
 // layout (scene/widebvh.py) so the parity tests compare like with like; for
 // the 123,650-triangle room they total a few MB and sit in the 50 MB L2.
-// Relayout for coalescing, several rays per thread and the worth of the
-// coherence sort are later work.
+// Relayout for coalescing and the worth of the coherence sort are later
+// work; several rays per thread is the joint kernel (wide_traverse_joint.cu).
 //
-// Semantics kept from the reference kernel:
-//  - ray setup as pack_rays: 1/d and 1/d[kz] clamp at +-1e-30, kz = argmax|d|
-//    (first index on ties), kx = kz+1, ky = kz+2 (mod 3), shear constants
-//    sx = -d[kx]/d[kz], sy = -d[ky]/d[kz], sz = 1/d[kz];
-//  - stack entry = node id << 9 | remaining child mask << 1 | dir; the root
-//    sits in meta_tab[0] (sentinel parent 0, child slot 0);
-//  - child meta = meta_tab[nid*8+k]: > 0 interior (id in bits 0-20, split
-//    axis in bits 21-22), < 0 leaf -(octet+1), 0 empty (never pushed);
-//  - box test tn <= tf*1.0000004 && tf > 0 && tn < t_best;
-//  - leaf = octets o, o+1 (16 prim rows), watertight shear test, hit when
-//    t > 1e-4 && t < t_best; equal t inside a leaf -> highest slot wins;
-//    across leaves only a strict improvement counts; the 1e29 guard keeps
-//    the 1e30 miss sentinel from ever counting as a hit;
-//  - t_max <= 0 is a dead lane; any-hit returns at its first hit;
-//  - at most 1,000,000 pops per ray.
-// Built with -fmad=false: the watertight edge functions (and parity with the
-// plain PyTorch version) need every multiply and add rounded on its own, and
-// without --use_fast_math so 1/x is IEEE division.
+// The traversal itself (ray setup, pop, box and watertight triangle tests,
+// and the reference semantics it keeps) is wide_traverse.cuh's, shared with
+// the joint kernel (B2) and the wide megakernel (B4). Built with -fmad=false
+// and without fast math (see the header).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define STACK 72
-#define ITER_CAP 1000000
-#define EPS 1e-4f
-
-__device__ __forceinline__ float clamp_tiny(float x) {
-    return fabsf(x) < 1e-30f ? (x < 0.0f ? -1e-30f : 1e-30f) : x;
-}
+#include "wide_traverse.cuh"
 
 __global__ void __launch_bounds__(128)
 wide_traverse_kernel(const float* __restrict__ o, const float* __restrict__ d,
@@ -56,146 +33,18 @@ wide_traverse_kernel(const float* __restrict__ o, const float* __restrict__ d,
                      float* __restrict__ out_t, int* __restrict__ out_idx,
                      float* __restrict__ out_b1, float* __restrict__ out_b2,
                      int* __restrict__ out_pops, unsigned int* __restrict__ counters) {
-    const int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= n_rays) return;
-
-    const float ox = o[3 * r], oy = o[3 * r + 1], oz = o[3 * r + 2];
-    const float dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
-    float t_best = t_max[r];
-    int best_idx = -1;
-    float best_b1 = 0.0f, best_b2 = 0.0f;
-    if (!(t_best > 0.0f)) {  // dead lane
-        out_t[r] = t_best;
-        out_idx[r] = -1;
-        out_b1[r] = 0.0f;
-        out_b2[r] = 0.0f;
-        out_pops[r] = 0;
-        return;
-    }
-
-    const float ix = 1.0f / clamp_tiny(dx);
-    const float iy = 1.0f / clamp_tiny(dy);
-    const float iz = 1.0f / clamp_tiny(dz);
-    const float adx = fabsf(dx), ady = fabsf(dy), adz = fabsf(dz);
-    int kz = 0;
-    if (ady > adx) kz = 1;
-    if (adz > (kz == 0 ? adx : ady)) kz = 2;
-    const float dkx = kz == 0 ? dy : (kz == 1 ? dz : dx);
-    const float dky = kz == 0 ? dz : (kz == 1 ? dx : dy);
-    const float dkz = kz == 0 ? dx : (kz == 1 ? dy : dz);
-    const float inv_dkz = 1.0f / clamp_tiny(dkz);
-    const float sx = -dkx * inv_dkz;
-    const float sy = -dky * inv_dkz;
-    const float sz = inv_dkz;
-    // child order per split axis: negative direction walks highest-first
-    const int dir_bits = (dx < 0.0f ? 1 : 0) | (dy < 0.0f ? 2 : 0) | (dz < 0.0f ? 4 : 0);
-
-    int stack[STACK];
-    stack[0] = (0 << 9) | (1 << 1) | 0;
-    int sp = 1;
-    int pops = 0;
-    while (sp > 0) {
-        if (pops >= ITER_CAP) {
-            atomicAdd(&counters[1], 1u);
-            break;
-        }
-        ++pops;
-        const int top = stack[sp - 1];
-        const int dirb = top & 1;
-        const int m = (top >> 1) & 255;
-        const int pn = top >> 9;
-        const int k = dirb ? 31 - __clz(m) : __ffs(m) - 1;
-        const int m2 = m & ~(1 << k);
-        if (m2 == 0) {
-            --sp;
-        } else {
-            stack[sp - 1] = (pn << 9) | (m2 << 1) | dirb;
-        }
-        const int e = __ldg(&meta_tab[pn * 8 + k]);
-
-        if (e > 0) {
-            // interior: test the 8 children of node nid
-            const int nid = e & 0x1FFFFF;
-            const int axis = e >> 21;
-            const float* base = node_tab + ((size_t)(nid >> 3) * 8) * 128 + (nid & 7) * 16;
-            int mask_new = 0;
-#pragma unroll
-            for (int c = 0; c < 8; ++c) {
-                const float4 a = __ldg(reinterpret_cast<const float4*>(base + c * 128));
-                const float4 b = __ldg(reinterpret_cast<const float4*>(base + c * 128 + 4));
-                if (b.z == 0.0f) continue;  // empty child slot (meta 0)
-                const float t0x = (a.x - ox) * ix, t1x = (a.w - ox) * ix;
-                const float t0y = (a.y - oy) * iy, t1y = (b.x - oy) * iy;
-                const float t0z = (a.z - oz) * iz, t1z = (b.y - oz) * iz;
-                const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
-                const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z)) * 1.0000004f;
-                if (tn <= tf && tf > 0.0f && tn < t_best) mask_new |= 1 << c;
-            }
-            if (mask_new != 0) {
-                if (sp >= STACK) {
-                    atomicAdd(&counters[0], 1u);
-                } else {
-                    stack[sp++] = (nid << 9) | (mask_new << 1) | ((dir_bits >> axis) & 1);
-                }
-            }
-        } else {
-            // leaf: octets o_, o_+1 (o_ even, so both share block rows)
-            const int o_ = max(-e - 1, 0);
-            float tmin = 1e30f;
-            int jwin = 0;
-            float w1 = 0.0f, w2 = 0.0f;
-            const float* wrow = nullptr;
-            for (int j = 0; j < 16; ++j) {
-                const int oct = o_ + (j >> 3);
-                const float* row = prim_tab + ((size_t)(oct >> 3) * 8 + (j & 7)) * 128 + (oct & 7) * 16;
-                const float4 q0 = __ldg(reinterpret_cast<const float4*>(row));
-                const float4 q1 = __ldg(reinterpret_cast<const float4*>(row + 4));
-                const float4 q2 = __ldg(reinterpret_cast<const float4*>(row + 8));
-                if (!(q2.y > 0.0f)) continue;  // padding row (valid = 0)
-                const float v[9] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x};
-                float xs[3], ys[3], zs[3];
-#pragma unroll
-                for (int vi = 0; vi < 3; ++vi) {
-                    const float vx = v[3 * vi] - ox, vy = v[3 * vi + 1] - oy, vz = v[3 * vi + 2] - oz;
-                    const float px = kz == 0 ? vy : (kz == 1 ? vz : vx);
-                    const float py = kz == 0 ? vz : (kz == 1 ? vx : vy);
-                    const float pz = kz == 0 ? vx : (kz == 1 ? vy : vz);
-                    xs[vi] = px + sx * pz;
-                    ys[vi] = py + sy * pz;
-                    zs[vi] = sz * pz;
-                }
-                const float e0 = xs[1] * ys[2] - ys[1] * xs[2];
-                const float e1 = xs[2] * ys[0] - ys[2] * xs[0];
-                const float e2 = xs[0] * ys[1] - ys[0] * xs[1];
-                const bool same = (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f) ||
-                                  (e0 <= 0.0f && e1 <= 0.0f && e2 <= 0.0f);
-                const float det = e0 + e1 + e2;
-                if (!same || det == 0.0f) continue;
-                const float inv = 1.0f / det;
-                const float t = (e0 * zs[0] + e1 * zs[1] + e2 * zs[2]) * inv;
-                // <= : among equal t the highest slot wins
-                if (t > EPS && t < t_best && t <= tmin) {
-                    tmin = t;
-                    jwin = j;
-                    w1 = e1 * inv;
-                    w2 = e2 * inv;
-                    wrow = row;
-                }
-            }
-            if (tmin < fminf(t_best, 1e29f)) {
-                t_best = tmin;
-                best_idx = any_hit ? o_ * 8 + jwin : (int)__ldg(wrow + 10);
-                best_b1 = w1;
-                best_b2 = w2;
-                if (any_hit) break;
-            }
-        }
-    }
-    out_t[r] = t_best;
-    out_idx[r] = best_idx;
-    out_b1[r] = best_b1;
-    out_b2[r] = best_b2;
-    out_pops[r] = pops;
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n_rays) return;
+    WideRay r;
+    int stack[WT_STACK];
+    wide_init(r, stack, o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1], d[3 * i + 2], t_max[i],
+              any_hit != 0);
+    wide_walk(r, stack, meta_tab, node_tab, prim_tab, counters);
+    out_t[i] = r.t_best;
+    out_idx[i] = r.best_idx;
+    out_b1[i] = r.b1;
+    out_b2[i] = r.b2;
+    out_pops[i] = r.pops;
 }
 
 extern "C" int wide_traverse(const void* o, const void* d, const void* t_max, int n_rays,

@@ -31,9 +31,9 @@ def _perspective_matrix(fov_deg, n=1e-2, f=1000.0):
     return s @ m
 
 
-def make_camera(cfg: CameraConfig, film: FilmConfig, device="cpu"):
+def make_camera(cfg: CameraConfig, film: FilmConfig, device="cuda"):
     """Build the camera parameter dict (matrices as float32 tensors on
-    `device`)."""
+    `device`: the card unless the caller names another device)."""
     if cfg.kind != "perspective":
         raise NotImplementedError(f"pbrt_tpu_torch does not support '{cfg.kind}' cameras yet")
     if cfg.camera_to_world_end is not None:

@@ -19,13 +19,14 @@ work.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .bsdf import bsdf_f, bsdf_pdf, bsdf_sample, num_lobes
 from .intersect import intersect, intersect_p
 from .lights import area_light_emission, compute_power, pdf_li_area_hit, sample_li
 from .materials import make_bsdf
-from .sampler import sample_1d, sample_2d
+from .sampler import SAMPLER_KINDS, sample_1d, sample_2d
 from .shading import dot, surface_interaction
 
 RAY_EPS = 1e-3
@@ -103,13 +104,32 @@ def _light_selectors(sa, static, icfg: dict):
     return _select_light, _sel_pmf_of
 
 
+def explain_unsupported(desc) -> str | None:
+    """The first feature of a compiled wide scene that the wavefront cannot
+    render, or None: lights other than triangle area lights, samplers other
+    than (0,2) and random, materials other than matte, Oren-Nayar matte."""
+    if desc.lights:  # the scene's own lights; area lights ride the prims
+        return f"'{desc.lights[0].kind}' lights"
+    if desc.sampler.kind not in SAMPLER_KINDS:
+        return f"the '{desc.sampler.kind}' sampler"
+    for prim in desc.primitives:
+        mat = prim.material
+        if mat.kind != "matte":
+            return f"the '{mat.kind}' material"
+        sigma = mat.params.get("sigma")
+        if sigma is not None and np.any(np.asarray(sigma[1], np.float64) != 0):
+            return "Oren-Nayar matte (sigma > 0)"
+    return None
+
+
 def trace_persistent(sa, static, icfg: dict, scfg: dict, seed: int, pixel, s0: int,
-                     n_samples: int, regen, max_sample_luminance=float("inf")):
+                     n_samples: int, regen, max_sample_luminance=float("inf"), joint=False):
     """Persistent wavefront path tracer with in-place ray regeneration.
 
     One lane per pixel (pixel: (R,) int64 pixel ids); lane samples s0 ..
     s0+n_samples-1 are traced one after another. regen(sample_idx (R,)) ->
-    (o, d, w_filter) gives fresh camera samples for every lane.
+    (o, d, w_filter) gives fresh camera samples for every lane. joint: CUDA
+    queries go through the joint traversal kernel (B2) instead of B1.
 
     Returns (accLw (R, 3), accW (R,), n_vertices (R,)), float32.
     """
@@ -140,7 +160,7 @@ def trace_persistent(sa, static, icfg: dict, scfg: dict, seed: int, pixel, s0: i
         contributes = alive_m & (p_l > 0) & (f_val * ls["li"] > 0).any(-1)
         o_sh = _offset_ray(si["p"], si["ng"], wi, si["p_err"])
         t_sh = torch.where(contributes, ls["dist"] * (1.0 - 2.0 * RAY_EPS), -1.0)
-        occ = intersect_p(sa, static, o_sh, wi, t_sh, sort_rays=True)
+        occ = intersect_p(sa, static, o_sh, wi, t_sh, sort_rays=True, joint=joint)
         vis = torch.where(occ[:, None], 0.0, 1.0)
         w_l = torch.where(ls["delta"], 1.0, power_heuristic(1.0, p_l, 1.0, p_b))
         contrib = f_val * ls["li"] * vis * (w_l / torch.clamp(p_l, min=1e-30))[:, None]
@@ -168,7 +188,7 @@ def trace_persistent(sa, static, icfg: dict, scfg: dict, seed: int, pixel, s0: i
         it += 1
         # --- extend: intersect + emitted pickup (deferred MIS) ---
         t_query = torch.where(alive, torch.inf, -1.0)
-        hit = intersect(sa, static, o, d, t_query, sort_rays=True)
+        hit = intersect(sa, static, o, d, t_query, sort_rays=True, joint=joint)
         si = surface_interaction(sa, hit, o, d)
         valid = si["valid"]
         nverts = nverts + (alive & valid).to(torch.float32)

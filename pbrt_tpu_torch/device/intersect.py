@@ -23,11 +23,12 @@ def _require_wide(static):
         raise NotImplementedError("pbrt_tpu_torch traverses only scenes with wide-BVH tables")
 
 
-def intersect(sa, static, o, d, t_max, sort_rays=False):
-    """Closest-hit query. Returns hit dict {t, prim, b1, b2}."""
+def intersect(sa, static, o, d, t_max, sort_rays=False, joint=False):
+    """Closest-hit query. Returns hit dict {t, prim, b1, b2}. joint: CUDA
+    rays go through the joint traversal kernel."""
     _require_wide(static)
     sort = sort_rays and static.n_prims >= SORT_MIN_PRIMS
-    t, prim, hitm, b1, b2 = wide_intersect(sa, o, d, t_max, sort=sort)
+    t, prim, hitm, b1, b2 = wide_intersect(sa, o, d, t_max, sort=sort, joint=joint)
     return {
         "t": torch.where(hitm, t, math.inf),
         "prim": prim,
@@ -36,9 +37,9 @@ def intersect(sa, static, o, d, t_max, sort_rays=False):
     }
 
 
-def intersect_p(sa, static, o, d, t_max, sort_rays=False):
+def intersect_p(sa, static, o, d, t_max, sort_rays=False, joint=False):
     """Any-hit (shadow) query -> bool (R,). (scene.rs intersect_p)"""
     _require_wide(static)
     sort = sort_rays and static.n_prims >= SORT_MIN_PRIMS
-    _t, _slot, hit_any = wide_intersect(sa, o, d, t_max, any_hit=True, sort=sort)
+    _t, _slot, hit_any = wide_intersect(sa, o, d, t_max, any_hit=True, sort=sort, joint=joint)
     return hit_any

@@ -566,6 +566,31 @@ def _ggx_sample_wh(wo_x, wo_y, wo_z, u1, u2, ax, ay):
     return tuple(torch.where(flip, -c, c) for c in (hx, hy, hz))
 
 
+def _local(at, x, y, z):
+    return (_dot3(x, y, z, at["ssx"], at["ssy"], at["ssz"]), _dot3(x, y, z, at["tsx"], at["tsy"], at["tsz"]),
+            _dot3(x, y, z, at["nsx"], at["nsy"], at["nsz"]))
+
+
+def _samplers(is_random: bool):
+    """(sample_1d, sample_2d) of the traced dimensions: the random and
+    stratified samplers' uniform hash, or the (0,2) sequence, keyed by
+    (hbase, sample, dimension) as the reference kernels key them."""
+
+    def sample_1d(hbase, s_cur, dim):
+        if is_random:
+            return _u2f01(_pcg(_pcg(hbase ^ s_cur) ^ (1024 + dim)))
+        return _vdc(s_cur, _pcg(hbase ^ (4096 + dim)))
+
+    def sample_2d(hbase, s_cur, dim):
+        d2 = 2 * dim
+        if is_random:
+            h = _pcg(hbase ^ s_cur)
+            return _u2f01(_pcg(h ^ d2)), _u2f01(_pcg(h ^ (d2 + 1)))
+        return _vdc(s_cur, _pcg(hbase ^ d2)), _sobol2(s_cur, _pcg(hbase ^ (d2 + 1)))
+
+    return sample_1d, sample_2d
+
+
 class _MatTable:
     """Per-lane material lookups over the baked rows (mat_select /
     mat_color / mat_mask of the reference): rows the scene does not use
@@ -587,6 +612,156 @@ class _MatTable:
         self.rows = sorted(mats)
         self.lobes = {e["lobe"] for e in mats.values()}
         self.any_mirror_die = any(e["lobe"] == LOBE_SPEC_R and e["fresnel"] == 1 for e in mats.values())
+        self.dev = dev
+        self.any_on = LOBE_OREN_NAYAR in self.lobes
+        self.any_diffuse = bool(self.lobes & {LOBE_OREN_NAYAR, LOBE_LAMBERT_R, LOBE_PLASTIC})
+        self.any_mirror = LOBE_SPEC_R in self.lobes
+        self.any_glass = LOBE_FRESNEL_SPEC in self.lobes
+        self.any_micro = bool(self.lobes & {LOBE_MICRO_R, LOBE_PLASTIC})
+        self.any_plastic = LOBE_PLASTIC in self.lobes
+
+    def in_lobes(self, mat, kinds):
+        lobe = self.lobe[mat]
+        out = torch.zeros(mat.shape, dtype=torch.bool, device=self.dev)
+        for k in kinds:
+            out = out | (lobe == k)
+        return out
+
+    def micro_f_pdf(self, mat, mic_m, wo_x, wo_y, wo_z, wi_x, wi_y, wi_z):
+        """GGX f (rgb, no cosine) and visible-normal pdf toward wi."""
+        axv, ayv = self.f["ax"][mat], self.f["ay"][mat]
+        whx, why, whz = wi_x + wo_x, wi_y + wo_y, wi_z + wo_z
+        wh_len = torch.sqrt(whx * whx + why * why + whz * whz)
+        inv_l = 1.0 / torch.clamp(wh_len, min=1e-30)
+        hx, hy, hz = whx * inv_l, why * inv_l, whz * inv_l
+        d_val = _ggx_d(hx, hy, hz, axv, ayv)
+        lam_o = _ggx_lambda(wo_x, wo_y, wo_z, axv, ayv)
+        g_val = 1.0 / (1.0 + lam_o + _ggx_lambda(wi_x, wi_y, wi_z, axv, ayv))
+        cos_f = (wi_x * hx + wi_y * hy + wi_z * hz) * torch.where(hz < 0, -1.0, 1.0)
+        fr_m = self.f["fr_m"][mat]
+        fd = _fresnel_dielectric(cos_f, self.f["eta_m"][mat])
+        fr = []
+        for ch in range(3):
+            fc = _fresnel_conductor(cos_f, self.f["eta_rgb"][mat, ch], self.f["k_rgb"][mat, ch])
+            fr.append(torch.where(fr_m == 1, fd, torch.where(fr_m == 2, fc, 1.0)))
+        abs_ci, abs_co = wi_z.abs(), wo_z.abs()
+        base = d_val * g_val / torch.clamp(4.0 * abs_co * abs_ci, min=1e-12)
+        refl_hemi = wo_z * wi_z > 0
+        ok = mic_m & refl_hemi & (wh_len > 1e-12) & (abs_ci > 0) & (abs_co > 0)
+        f = [torch.where(ok, self.f["ks"][mat, ch] * fr[ch] * base, 0.0) for ch in range(3)]
+        g1 = 1.0 / (1.0 + lam_o)
+        dot_oh = (wo_x * hx + wo_y * hy + wo_z * hz).abs()
+        p = d_val * g1 * dot_oh / torch.clamp(abs_co, min=1e-9) / torch.clamp(4.0 * dot_oh, min=1e-12)
+        return f, torch.where(mic_m & refl_hemi, p, 0.0)
+
+    def on_factor(self, mat, wo_x, wo_y, wo_z, wi_x, wi_y, wi_z):
+        si = torch.sqrt(torch.clamp(1.0 - wi_z * wi_z, min=0.0))
+        so = torch.sqrt(torch.clamp(1.0 - wo_z * wo_z, min=0.0))
+        cpi = torch.where(si > 1e-4, wi_x / torch.clamp(si, min=1e-12), 1.0)
+        spi = torch.where(si > 1e-4, wi_y / torch.clamp(si, min=1e-12), 0.0)
+        cpo = torch.where(so > 1e-4, wo_x / torch.clamp(so, min=1e-12), 1.0)
+        spo = torch.where(so > 1e-4, wo_y / torch.clamp(so, min=1e-12), 0.0)
+        max_cos = torch.clamp(cpi * cpo + spi * spo, min=0.0)
+        abs_ci, abs_co = wi_z.abs(), wo_z.abs()
+        big_i = abs_ci > abs_co
+        sin_alpha = torch.where(big_i, so, si)
+        tan_beta = torch.where(big_i, si / torch.clamp(abs_ci, min=1e-9), so / torch.clamp(abs_co, min=1e-9))
+        return _f32(INV_PI) * (self.f["on_a"][mat] + self.f["on_b"][mat] * max_cos * sin_alpha * tan_beta)
+
+    def bsdf_sample(self, sample_1d, sample_2d, hbase, s_cur, dim_base, at, wox, woy, woz, mat):
+        """bsdf_sample for the baked lobe classes."""
+        wo_x, wo_y, wo_z = _local(at, wox, woy, woz)
+        u1, u2 = sample_2d(hbase, s_cur, dim_base + 3)
+        false = torch.zeros(wox.shape, dtype=torch.bool, device=self.dev)
+        lam_m = self.in_lobes(mat, (LOBE_LAMBERT_R, LOBE_PLASTIC))
+        on_m = self.in_lobes(mat, (LOBE_OREN_NAYAR,))
+        diff_like = lam_m | on_m
+        mic_m = self.in_lobes(mat, (LOBE_MICRO_R, LOBE_PLASTIC))
+        plast_m = self.in_lobes(mat, (LOBE_PLASTIC,))
+        mirror_m = self.in_lobes(mat, (LOBE_SPEC_R,))
+        glass_m = self.in_lobes(mat, (LOBE_FRESNEL_SPEC,))
+        entering = wo_z > 0
+        zero = torch.zeros_like(wox)
+        wix = wiy = wiz = zero
+        valid = ~self.in_lobes(mat, (LOBE_NONE,))
+        eta = torch.clamp(self.f["eta"][mat], min=_f32(1.0 + 1e-6))
+        if self.any_plastic:
+            u_lobe = sample_1d(hbase, s_cur, dim_base + 2)
+            n_act = torch.where(plast_m, 2, 1)
+            pick = torch.minimum((u_lobe * n_act.to(torch.float32)).to(torch.int64), n_act - 1)
+        else:
+            pick = torch.zeros(wox.shape, dtype=torch.int64, device=self.dev)
+        samp_diff = diff_like & (pick == 0)
+        samp_mic = mic_m & (~lam_m | (pick == 1))
+        if self.any_diffuse:
+            ddx, ddy = _concentric_disk(u1, u2)
+            dz = torch.sqrt(torch.clamp(1.0 - ddx * ddx - ddy * ddy, min=0.0))
+            dz = torch.where(entering, dz, -dz)
+            wix, wiy, wiz = (torch.where(samp_diff, a, b) for a, b in ((ddx, wix), (ddy, wiy), (dz, wiz)))
+        if self.any_micro:
+            hx, hy, hz = _ggx_sample_wh(wo_x, wo_y, wo_z, u1, u2, self.f["ax"][mat], self.f["ay"][mat])
+            dwh = wo_x * hx + wo_y * hy + wo_z * hz
+            wi_m = (-wo_x + 2.0 * dwh * hx, -wo_y + 2.0 * dwh * hy, -wo_z + 2.0 * dwh * hz)
+            wix, wiy, wiz = (torch.where(samp_mic, a, b) for a, b in zip(wi_m, (wix, wiy, wiz)))
+            valid = valid & (~samp_mic | (wo_z * wi_m[2] > 0))
+        wi_sr = (-wo_x, -wo_y, wo_z)
+        if self.any_mirror:
+            wix, wiy, wiz = (torch.where(mirror_m, a, b) for a, b in zip(wi_sr, (wix, wiy, wiz)))
+        if self.any_glass:
+            fr_s = _fresnel_dielectric(wo_z, eta)
+            choose_r = u1 < fr_s
+            eta_ratio = torch.where(entering, 1.0 / eta, eta)
+            nz = torch.where(entering, 1.0, -1.0)
+            cos_i = nz * wo_z
+            sin2_i = torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+            sin2_t = eta_ratio * eta_ratio * sin2_i
+            cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+            wi_st = (eta_ratio * -wo_x, eta_ratio * -wo_y, eta_ratio * -wo_z + (eta_ratio * cos_i - cos_t) * nz)
+            wix, wiy, wiz = (torch.where(glass_m, torch.where(choose_r, r_, t_), b)
+                             for r_, t_, b in zip(wi_sr, wi_st, (wix, wiy, wiz)))
+            valid = valid & ((sin2_t < 1.0) | ~(glass_m & ~choose_r))
+        else:
+            fr_s, choose_r, eta_ratio = zero, false, torch.ones_like(wox)
+        wix, wiy, wiz = _norm3(wix, wiy, wiz)
+        abs_ci = wiz.abs()
+        kd = [self.f["color"][mat, ch] for ch in range(3)]
+        f_spec = [zero] * 3
+        pdf_spec = zero
+        inv_ci = 1.0 / torch.clamp(abs_ci, min=1e-9)
+        if self.any_mirror:
+            frm = torch.ones_like(wox)
+            if self.any_mirror_die:
+                frm = torch.where(mirror_m & (self.f["fresnel"][mat] == 1), _fresnel_dielectric(wo_z, eta), frm)
+            f_spec = [torch.where(mirror_m, kd[ch] * frm * inv_ci, f_spec[ch]) for ch in range(3)]
+            pdf_spec = torch.where(mirror_m, 1.0, pdf_spec)
+        if self.any_glass:
+            st_scale = eta_ratio * eta_ratio
+            t_term = (1.0 - fr_s) * st_scale * inv_ci
+            r_term = fr_s * inv_ci
+            f_spec = [torch.where(glass_m, torch.where(choose_r, kd[ch] * r_term, self.f["kt"][mat, ch] * t_term),
+                                  f_spec[ch]) for ch in range(3)]
+            pdf_spec = torch.where(glass_m, torch.where(choose_r, fr_s, 1.0 - fr_s), pdf_spec)
+        refl_hemi = wo_z * wiz > 0
+        f_diff = torch.where(lam_m & refl_hemi, _f32(INV_PI), 0.0)
+        if self.any_on:
+            f_diff = torch.where(on_m & refl_hemi, self.on_factor(mat, wo_x, wo_y, wo_z, wix, wiy, wiz), f_diff)
+        pdf_ns = torch.where(diff_like & refl_hemi, abs_ci * _f32(INV_PI), 0.0)
+        f_ns = [kd[ch] * f_diff for ch in range(3)]
+        if self.any_micro:
+            fmic, p_m = self.micro_f_pdf(mat, mic_m, wo_x, wo_y, wo_z, wix, wiy, wiz)
+            f_ns = [f_ns[ch] + fmic[ch] for ch in range(3)]
+            pdf_ns = pdf_ns + p_m
+            if self.any_plastic:
+                pdf_ns = pdf_ns / torch.where(plast_m, 2.0, 1.0)
+        specular = mirror_m | glass_m
+        f_out = [torch.where(specular, f_spec[ch], f_ns[ch]) for ch in range(3)]
+        pdf = torch.where(specular, pdf_spec, pdf_ns)
+        transmissive = glass_m & ~choose_r
+        eta_sc = torch.where(transmissive, torch.where(entering, eta * eta, 1.0 / (eta * eta)), 1.0)
+        valid = valid & (pdf > 0)
+        ww = tuple(wix * at["ss" + c] + wiy * at["ts" + c] + wiz * at["ns" + c] for c in "xyz")
+        return {"ww": ww, "f": f_out, "pdf": pdf, "specular": specular, "valid": valid, "eta_scale": eta_sc,
+                "kd": kd}
 
 
 def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
@@ -612,26 +787,10 @@ def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
     cap = n_samples * (max_depth + 2) + 8
     ikind = consts["ikind"]
     T = _MatTable(consts["mats"], dev)
-    any_on = LOBE_OREN_NAYAR in T.lobes
-    any_diffuse = bool(T.lobes & {LOBE_OREN_NAYAR, LOBE_LAMBERT_R, LOBE_PLASTIC})
-    any_mirror = LOBE_SPEC_R in T.lobes
-    any_glass = LOBE_FRESNEL_SPEC in T.lobes
-    any_micro = bool(T.lobes & {LOBE_MICRO_R, LOBE_PLASTIC})
-    any_plastic = LOBE_PLASTIC in T.lobes
     g7 = _f32(_gamma(7))
     g53, g3 = _f32(_gamma(5) + _gamma(3)), _gamma(3)
 
-    def sample_1d(hbase, s_cur, dim):
-        if is_random:
-            return _u2f01(_pcg(_pcg(hbase ^ s_cur) ^ (1024 + dim)))
-        return _vdc(s_cur, _pcg(hbase ^ (4096 + dim)))
-
-    def sample_2d(hbase, s_cur, dim):
-        d2 = 2 * dim
-        if is_random:
-            h = _pcg(hbase ^ s_cur)
-            return _u2f01(_pcg(h ^ d2)), _u2f01(_pcg(h ^ (d2 + 1)))
-        return _vdc(s_cur, _pcg(hbase ^ d2)), _sobol2(s_cur, _pcg(hbase ^ (d2 + 1)))
+    sample_1d, sample_2d = _samplers(is_random)
 
     def tri_test(v, ox, oy, oz, permute, sx, sy, sz, t_query):
         def shear(c):
@@ -811,61 +970,9 @@ def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
         dy = (2.0 * u2 - 1.0) * fyw
         return camera_ray(px_f + 0.5 + dx, py_f + 0.5 + dy)
 
-    def in_lobes(mat, kinds):
-        lobe = T.lobe[mat]
-        out = torch.zeros(mat.shape, dtype=torch.bool, device=dev)
-        for k in kinds:
-            out = out | (lobe == k)
-        return out
-
-    def local(at, x, y, z):
-        return (_dot3(x, y, z, at["ssx"], at["ssy"], at["ssz"]), _dot3(x, y, z, at["tsx"], at["tsy"], at["tsz"]),
-                _dot3(x, y, z, at["nsx"], at["nsy"], at["nsz"]))
-
-    def micro_f_pdf(mat, mic_m, wo_x, wo_y, wo_z, wi_x, wi_y, wi_z):
-        """GGX f (rgb, no cosine) and visible-normal pdf toward wi."""
-        axv, ayv = T.f["ax"][mat], T.f["ay"][mat]
-        whx, why, whz = wi_x + wo_x, wi_y + wo_y, wi_z + wo_z
-        wh_len = torch.sqrt(whx * whx + why * why + whz * whz)
-        inv_l = 1.0 / torch.clamp(wh_len, min=1e-30)
-        hx, hy, hz = whx * inv_l, why * inv_l, whz * inv_l
-        d_val = _ggx_d(hx, hy, hz, axv, ayv)
-        lam_o = _ggx_lambda(wo_x, wo_y, wo_z, axv, ayv)
-        g_val = 1.0 / (1.0 + lam_o + _ggx_lambda(wi_x, wi_y, wi_z, axv, ayv))
-        cos_f = (wi_x * hx + wi_y * hy + wi_z * hz) * torch.where(hz < 0, -1.0, 1.0)
-        fr_m = T.f["fr_m"][mat]
-        fd = _fresnel_dielectric(cos_f, T.f["eta_m"][mat])
-        fr = []
-        for ch in range(3):
-            fc = _fresnel_conductor(cos_f, T.f["eta_rgb"][mat, ch], T.f["k_rgb"][mat, ch])
-            fr.append(torch.where(fr_m == 1, fd, torch.where(fr_m == 2, fc, 1.0)))
-        abs_ci, abs_co = wi_z.abs(), wo_z.abs()
-        base = d_val * g_val / torch.clamp(4.0 * abs_co * abs_ci, min=1e-12)
-        refl_hemi = wo_z * wi_z > 0
-        ok = mic_m & refl_hemi & (wh_len > 1e-12) & (abs_ci > 0) & (abs_co > 0)
-        f = [torch.where(ok, T.f["ks"][mat, ch] * fr[ch] * base, 0.0) for ch in range(3)]
-        g1 = 1.0 / (1.0 + lam_o)
-        dot_oh = (wo_x * hx + wo_y * hy + wo_z * hz).abs()
-        p = d_val * g1 * dot_oh / torch.clamp(abs_co, min=1e-9) / torch.clamp(4.0 * dot_oh, min=1e-12)
-        return f, torch.where(mic_m & refl_hemi, p, 0.0)
-
-    def on_factor(mat, wo_x, wo_y, wo_z, wi_x, wi_y, wi_z):
-        si = torch.sqrt(torch.clamp(1.0 - wi_z * wi_z, min=0.0))
-        so = torch.sqrt(torch.clamp(1.0 - wo_z * wo_z, min=0.0))
-        cpi = torch.where(si > 1e-4, wi_x / torch.clamp(si, min=1e-12), 1.0)
-        spi = torch.where(si > 1e-4, wi_y / torch.clamp(si, min=1e-12), 0.0)
-        cpo = torch.where(so > 1e-4, wo_x / torch.clamp(so, min=1e-12), 1.0)
-        spo = torch.where(so > 1e-4, wo_y / torch.clamp(so, min=1e-12), 0.0)
-        max_cos = torch.clamp(cpi * cpo + spi * spo, min=0.0)
-        abs_ci, abs_co = wi_z.abs(), wo_z.abs()
-        big_i = abs_ci > abs_co
-        sin_alpha = torch.where(big_i, so, si)
-        tan_beta = torch.where(big_i, si / torch.clamp(abs_ci, min=1e-9), so / torch.clamp(abs_co, min=1e-9))
-        return _f32(INV_PI) * (T.f["on_a"][mat] + T.f["on_b"][mat] * max_cos * sin_alpha * tan_beta)
-
     def nee(hbase, s_cur, dim_base, alive_sh, at, wox, woy, woz, mat, kd):
         """uniform_sample_onelight + estimate_direct for delta lights."""
-        lam_m = in_lobes(mat, (LOBE_LAMBERT_R, LOBE_PLASTIC))
+        lam_m = T.in_lobes(mat, (LOBE_LAMBERT_R, LOBE_PLASTIC))
         if n_lights > 1:
             u_sel = sample_1d(hbase, s_cur, dim_base)
             if consts["uniform_select"]:
@@ -909,15 +1016,15 @@ def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
         cos_ns = _dot3(wix, wiy, wiz, at["nsx"], at["nsy"], at["nsz"]).abs()
         fm = lam_m & refl
         f = [torch.where(fm, kd[ch] * _f32(INV_PI) * cos_ns, 0.0) for ch in range(3)]
-        if any_micro or any_on:
-            wo_l = local(at, wox, woy, woz)
-            wi_l = local(at, wix, wiy, wiz)
-        if any_on:
-            onf = on_factor(mat, *wo_l, *wi_l)
-            onm = in_lobes(mat, (LOBE_OREN_NAYAR,)) & refl
+        if T.any_micro or T.any_on:
+            wo_l = _local(at, wox, woy, woz)
+            wi_l = _local(at, wix, wiy, wiz)
+        if T.any_on:
+            onf = T.on_factor(mat, *wo_l, *wi_l)
+            onm = T.in_lobes(mat, (LOBE_OREN_NAYAR,)) & refl
             f = [torch.where(onm, kd[ch] * onf * cos_ns, f[ch]) for ch in range(3)]
-        if any_micro:
-            fmic, _p = micro_f_pdf(mat, in_lobes(mat, (LOBE_MICRO_R, LOBE_PLASTIC)), *wo_l, *wi_l)
+        if T.any_micro:
+            fmic, _p = T.micro_f_pdf(mat, T.in_lobes(mat, (LOBE_MICRO_R, LOBE_PLASTIC)), *wo_l, *wi_l)
             f = [f[ch] + torch.where(refl, fmic[ch] * cos_ns, 0.0) for ch in range(3)]
         li = (lir, lig, lib)
         contributes = alive_sh & (spdf > 0) & ((f[0] * lir > 0) | (f[1] * lig > 0) | (f[2] * lib > 0))
@@ -927,101 +1034,6 @@ def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
         vis = torch.where(occ, 0.0, 1.0)
         inv_pl = 1.0 / torch.clamp(spdf, min=1e-30)
         return [torch.where(contributes, f[ch] * li[ch] * vis * inv_pl, 0.0) for ch in range(3)]
-
-    def bsdf_sample(hbase, s_cur, dim_base, at, wox, woy, woz, mat):
-        """bsdf_sample for the baked lobe classes."""
-        wo_x, wo_y, wo_z = local(at, wox, woy, woz)
-        u1, u2 = sample_2d(hbase, s_cur, dim_base + 3)
-        false = torch.zeros(wox.shape, dtype=torch.bool, device=dev)
-        lam_m = in_lobes(mat, (LOBE_LAMBERT_R, LOBE_PLASTIC))
-        on_m = in_lobes(mat, (LOBE_OREN_NAYAR,))
-        diff_like = lam_m | on_m
-        mic_m = in_lobes(mat, (LOBE_MICRO_R, LOBE_PLASTIC))
-        plast_m = in_lobes(mat, (LOBE_PLASTIC,))
-        mirror_m = in_lobes(mat, (LOBE_SPEC_R,))
-        glass_m = in_lobes(mat, (LOBE_FRESNEL_SPEC,))
-        entering = wo_z > 0
-        zero = torch.zeros_like(wox)
-        wix = wiy = wiz = zero
-        valid = ~in_lobes(mat, (LOBE_NONE,))
-        eta = torch.clamp(T.f["eta"][mat], min=_f32(1.0 + 1e-6))
-        if any_plastic:
-            u_lobe = sample_1d(hbase, s_cur, dim_base + 2)
-            n_act = torch.where(plast_m, 2, 1)
-            pick = torch.minimum((u_lobe * n_act.to(torch.float32)).to(torch.int64), n_act - 1)
-        else:
-            pick = torch.zeros(wox.shape, dtype=torch.int64, device=dev)
-        samp_diff = diff_like & (pick == 0)
-        samp_mic = mic_m & (~lam_m | (pick == 1))
-        if any_diffuse:
-            ddx, ddy = _concentric_disk(u1, u2)
-            dz = torch.sqrt(torch.clamp(1.0 - ddx * ddx - ddy * ddy, min=0.0))
-            dz = torch.where(entering, dz, -dz)
-            wix, wiy, wiz = (torch.where(samp_diff, a, b) for a, b in ((ddx, wix), (ddy, wiy), (dz, wiz)))
-        if any_micro:
-            hx, hy, hz = _ggx_sample_wh(wo_x, wo_y, wo_z, u1, u2, T.f["ax"][mat], T.f["ay"][mat])
-            dwh = wo_x * hx + wo_y * hy + wo_z * hz
-            wi_m = (-wo_x + 2.0 * dwh * hx, -wo_y + 2.0 * dwh * hy, -wo_z + 2.0 * dwh * hz)
-            wix, wiy, wiz = (torch.where(samp_mic, a, b) for a, b in zip(wi_m, (wix, wiy, wiz)))
-            valid = valid & (~samp_mic | (wo_z * wi_m[2] > 0))
-        wi_sr = (-wo_x, -wo_y, wo_z)
-        if any_mirror:
-            wix, wiy, wiz = (torch.where(mirror_m, a, b) for a, b in zip(wi_sr, (wix, wiy, wiz)))
-        if any_glass:
-            fr_s = _fresnel_dielectric(wo_z, eta)
-            choose_r = u1 < fr_s
-            eta_ratio = torch.where(entering, 1.0 / eta, eta)
-            nz = torch.where(entering, 1.0, -1.0)
-            cos_i = nz * wo_z
-            sin2_i = torch.clamp(1.0 - cos_i * cos_i, min=0.0)
-            sin2_t = eta_ratio * eta_ratio * sin2_i
-            cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
-            wi_st = (eta_ratio * -wo_x, eta_ratio * -wo_y, eta_ratio * -wo_z + (eta_ratio * cos_i - cos_t) * nz)
-            wix, wiy, wiz = (torch.where(glass_m, torch.where(choose_r, r_, t_), b)
-                             for r_, t_, b in zip(wi_sr, wi_st, (wix, wiy, wiz)))
-            valid = valid & ((sin2_t < 1.0) | ~(glass_m & ~choose_r))
-        else:
-            fr_s, choose_r, eta_ratio = zero, false, torch.ones_like(wox)
-        wix, wiy, wiz = _norm3(wix, wiy, wiz)
-        abs_ci = wiz.abs()
-        kd = [T.f["color"][mat, ch] for ch in range(3)]
-        f_spec = [zero] * 3
-        pdf_spec = zero
-        inv_ci = 1.0 / torch.clamp(abs_ci, min=1e-9)
-        if any_mirror:
-            frm = torch.ones_like(wox)
-            if T.any_mirror_die:
-                frm = torch.where(mirror_m & (T.f["fresnel"][mat] == 1), _fresnel_dielectric(wo_z, eta), frm)
-            f_spec = [torch.where(mirror_m, kd[ch] * frm * inv_ci, f_spec[ch]) for ch in range(3)]
-            pdf_spec = torch.where(mirror_m, 1.0, pdf_spec)
-        if any_glass:
-            st_scale = eta_ratio * eta_ratio
-            t_term = (1.0 - fr_s) * st_scale * inv_ci
-            r_term = fr_s * inv_ci
-            f_spec = [torch.where(glass_m, torch.where(choose_r, kd[ch] * r_term, T.f["kt"][mat, ch] * t_term),
-                                  f_spec[ch]) for ch in range(3)]
-            pdf_spec = torch.where(glass_m, torch.where(choose_r, fr_s, 1.0 - fr_s), pdf_spec)
-        refl_hemi = wo_z * wiz > 0
-        f_diff = torch.where(lam_m & refl_hemi, _f32(INV_PI), 0.0)
-        if any_on:
-            f_diff = torch.where(on_m & refl_hemi, on_factor(mat, wo_x, wo_y, wo_z, wix, wiy, wiz), f_diff)
-        pdf_ns = torch.where(diff_like & refl_hemi, abs_ci * _f32(INV_PI), 0.0)
-        f_ns = [kd[ch] * f_diff for ch in range(3)]
-        if any_micro:
-            fmic, p_m = micro_f_pdf(mat, mic_m, wo_x, wo_y, wo_z, wix, wiy, wiz)
-            f_ns = [f_ns[ch] + fmic[ch] for ch in range(3)]
-            pdf_ns = pdf_ns + p_m
-            if any_plastic:
-                pdf_ns = pdf_ns / torch.where(plast_m, 2.0, 1.0)
-        specular = mirror_m | glass_m
-        f_out = [torch.where(specular, f_spec[ch], f_ns[ch]) for ch in range(3)]
-        pdf = torch.where(specular, pdf_spec, pdf_ns)
-        transmissive = glass_m & ~choose_r
-        eta_sc = torch.where(transmissive, torch.where(entering, eta * eta, 1.0 / (eta * eta)), 1.0)
-        valid = valid & (pdf > 0)
-        ww = tuple(wix * at["ss" + c] + wiy * at["ts" + c] + wiz * at["ns" + c] for c in "xyz")
-        return {"ww": ww, "f": f_out, "pdf": pdf, "specular": specular, "valid": valid, "eta_scale": eta_sc,
-                "kd": kd}
 
     # --- the persistent loop -------------------------------------------------
     px_f = px.to(torch.float32)
@@ -1053,8 +1065,8 @@ def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
         dim_base = 2 + bounces * DPB
         can_scatter = alive_b & (bounces < max_depth - 1)
         mat = at["mat"]
-        alive_sh = can_scatter & ~in_lobes(mat, (LOBE_NONE,))
-        bs = bsdf_sample(hbase, s_cur, dim_base, at, wox, woy, woz, mat)
+        alive_sh = can_scatter & ~T.in_lobes(mat, (LOBE_NONE,))
+        bs = T.bsdf_sample(sample_1d, sample_2d, hbase, s_cur, dim_base, at, wox, woy, woz, mat)
         if n_lights > 0:
             c = nee(hbase, s_cur, dim_base, alive_sh, at, wox, woy, woz, mat, bs["kd"])
             L = [L[ch] + beta[ch] * c[ch] for ch in range(3)]

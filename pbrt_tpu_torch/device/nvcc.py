@@ -2,8 +2,9 @@
 interface -> ctypes.
 
 Each source in ``csrc/`` is compiled at first use into ``_build/`` next to
-this package (git-ignored). The library name carries a hash of the source
-and the flags, so an edited kernel is rebuilt. ``build_all`` starts one nvcc
+this package (git-ignored). The library name carries a hash of the flags,
+the source and the shared headers it includes, so an edited kernel or header
+is rebuilt. ``build_all`` starts one nvcc
 per source at once, so a cold start pays for the slowest build only.
 
 Every kernel is built for ``sm_90a`` with ``-fmad=false`` and without fast
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -36,9 +38,29 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources_of(source: Path) -> list[Path]:
+    """The source and every header it includes with quotes, transitively
+    (the shared csrc/*.cuh), each once, in include order."""
+    out, todo = [], [source]
+    while todo:
+        f = todo.pop(0)
+        if f in out:
+            continue
+        out.append(f)
+        todo.extend(f.parent / name.decode() for name in _INCLUDE.findall(f.read_bytes()))
+    return out
+
+
 def _target(source: Path) -> Path:
-    tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}_{tag}.so"
+    """The library path: a hash of the flags, the source and every header it
+    includes, so an edit to a shared header rebuilds every library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in _sources_of(source):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:12]}.so"
 
 
 def build_all(sources) -> dict:

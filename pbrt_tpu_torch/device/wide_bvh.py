@@ -8,13 +8,19 @@ stack, and reads the same tables (``scene/widebvh.py`` layout) with the same
 box test, watertight triangle test and tie rules, so hits agree with the
 reference up to packet-versus-ray visit order.
 
-``wide_intersect`` launches the kernel for CUDA tensors and runs
+The joint kernel (``csrc/wide_traverse_joint.cu``, the counterpart of
+``pallas_bvh._traverse_kernel_joint``) has the same contract: each thread
+carries K rays and advances them one pop each per loop iteration, and a
+ray's results are B1's bit for bit. The wavefront takes it when its route is
+built with PBRT_TPU_JOINT=1 (render.make_persistent_fn).
+
+``wide_intersect`` launches a kernel for CUDA tensors and runs
 ``wide_intersect_plain`` only for CPU tensors; it never falls back from one
 to the other. The plain version is the same per-ray traversal vectorised
 over rays with an (R, 72) stack tensor, looping until every stack is empty.
 
-The kernel is compiled with nvcc at its first launch (device/nvcc.py) and
-loaded with ctypes.
+The kernels are compiled with nvcc at their first launch (device/nvcc.py)
+and loaded with ctypes.
 """
 from __future__ import annotations
 
@@ -31,6 +37,9 @@ ITER_CAP = 1_000_000  # pops per ray; a safety valve only
 SORT_MIN_RAYS = 512  # the reference sorts only waves of >= 2 packets
 
 KERNEL_SOURCE = nvcc.CSRC / "wide_traverse.cu"
+JOINT_SOURCE = nvcc.CSRC / "wide_traverse_joint.cu"
+# rays per thread of the joint kernel on the wavefront's joint route
+JOINT_K = 2
 
 
 # ---------------------------------------------------------------------------
@@ -38,18 +47,29 @@ KERNEL_SOURCE = nvcc.CSRC / "wide_traverse.cu"
 # ---------------------------------------------------------------------------
 
 
+_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+]
+
+
 def build_kernel() -> dict:
     """Compile (if needed) and load the traversal kernel library:
     {"lib", "seconds", "log", "path"} as device/nvcc.build returns it."""
     info = nvcc.build(KERNEL_SOURCE)
-    lib = info["lib"]
-    lib.wide_traverse.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    lib.wide_traverse.restype = ctypes.c_int
+    info["lib"].wide_traverse.argtypes = _ARGTYPES
+    info["lib"].wide_traverse.restype = ctypes.c_int
+    return info
+
+
+def build_joint_kernel() -> dict:
+    """build_kernel for the joint traversal kernel (csrc/wide_traverse_joint.cu),
+    whose C entry takes the rays per thread after any_hit."""
+    info = nvcc.build(JOINT_SOURCE)
+    info["lib"].wide_traverse_joint.argtypes = _ARGTYPES[:8] + [ctypes.c_int] + _ARGTYPES[8:]
+    info["lib"].wide_traverse_joint.restype = ctypes.c_int
     return info
 
 
@@ -63,43 +83,61 @@ def _check_tables(tables, device):
         raise ValueError("wide-BVH tables must have 128 columns")
 
 
-def traverse_cuda(tables, o, d, t_max, any_hit: bool):
-    """Launch the CUDA kernel. Returns (t, idx, b1, b2, pops): idx is the
-    global prim row (closest hit) or the kernel slot (any hit), -1 on a
-    miss. Adds one to ``traverse_cuda.launches`` per launch; stack overflows
-    and iteration-cap hits accumulate in ``traverse_cuda.counters``."""
+def _launch(wrapper, fn, tables, o, d, t_max, any_hit, extra=()):
+    """Check the inputs, launch fn (one of the C entries) on the current
+    stream and count the launch on wrapper; returns (t, idx, b1, b2, pops)."""
     dev = o.device
     if dev.type != "cuda":
-        raise ValueError("traverse_cuda takes CUDA tensors")
+        raise ValueError(f"{wrapper.__name__} takes CUDA tensors")
     for name, x, shape in (("o", o, (o.shape[0], 3)), ("d", d, (o.shape[0], 3)),
                            ("t_max", t_max, (o.shape[0],))):
         if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous() or tuple(x.shape) != shape:
             raise ValueError(f"{name} must be a contiguous float32 {shape} tensor on {dev}")
     _check_tables(tables, dev)
-    lib = build_kernel()["lib"]
     R = o.shape[0]
     t = torch.empty(R, dtype=torch.float32, device=dev)
     idx = torch.empty(R, dtype=torch.int32, device=dev)
     b1 = torch.empty(R, dtype=torch.float32, device=dev)
     b2 = torch.empty(R, dtype=torch.float32, device=dev)
     pops = torch.empty(R, dtype=torch.int32, device=dev)
-    counters = traverse_cuda.counters.get(dev)
+    counters = wrapper.counters.get(dev)
     if counters is None:
-        counters = traverse_cuda.counters[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
+        counters = wrapper.counters[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.wide_traverse(o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R,
-                            tables.wmeta_tab.data_ptr(), tables.wnode_tab.data_ptr(),
-                            tables.wprim_tab.data_ptr(), int(bool(any_hit)),
-                            t.data_ptr(), idx.data_ptr(), b1.data_ptr(), b2.data_ptr(),
-                            pops.data_ptr(), counters.data_ptr(), stream)
+    err = fn(o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R,
+             tables.wmeta_tab.data_ptr(), tables.wnode_tab.data_ptr(), tables.wprim_tab.data_ptr(),
+             int(bool(any_hit)), *extra, t.data_ptr(), idx.data_ptr(), b1.data_ptr(), b2.data_ptr(),
+             pops.data_ptr(), counters.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"wide_traverse launch failed: cudaError {err}")
-    traverse_cuda.launches += 1
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
+    wrapper.launches += 1
     return t, idx, b1, b2, pops
+
+
+def traverse_cuda(tables, o, d, t_max, any_hit: bool):
+    """Launch the CUDA kernel. Returns (t, idx, b1, b2, pops): idx is the
+    global prim row (closest hit) or the kernel slot (any hit), -1 on a
+    miss. Adds one to ``traverse_cuda.launches`` per launch; stack overflows
+    and iteration-cap hits accumulate in ``traverse_cuda.counters``."""
+    return _launch(traverse_cuda, build_kernel()["lib"].wide_traverse, tables, o, d, t_max, any_hit)
 
 
 traverse_cuda.launches = 0
 traverse_cuda.counters = {}  # device -> int32 (2,): stack overflows, iteration-cap hits
+
+
+def traverse_joint_cuda(tables, o, d, t_max, any_hit: bool, k: int = JOINT_K):
+    """Launch the joint traversal kernel, k rays per thread (2 or 4). Same
+    contract and results as traverse_cuda; counts in
+    ``traverse_joint_cuda.launches`` and ``traverse_joint_cuda.counters``."""
+    if k not in (2, 4):
+        raise ValueError(f"the joint kernel is built for 2 or 4 rays per thread, not {k}")
+    return _launch(traverse_joint_cuda, build_joint_kernel()["lib"].wide_traverse_joint, tables, o, d, t_max,
+                   any_hit, (int(k),))
+
+
+traverse_joint_cuda.launches = 0
+traverse_joint_cuda.counters = {}  # device -> int32 (2,): stack overflows, iteration-cap hits
 
 
 # ---------------------------------------------------------------------------
@@ -325,7 +363,7 @@ def _query(traverse, tables, o, d, t_max, any_hit, sort):
     return t, idx, hit, b1, b2
 
 
-def wide_intersect(tables, o, d, t_max, any_hit=False, sort=True):
+def wide_intersect(tables, o, d, t_max, any_hit=False, sort=True, joint=False):
     """Closest-hit (or any-hit) against the wide BVH tables, with the return
     contract of pallas_bvh.wide_intersect.
 
@@ -335,10 +373,11 @@ def wide_intersect(tables, o, d, t_max, any_hit=False, sort=True):
     rays by coherence_keys before traversal and restores the order after;
     it cannot change any result.
 
-    CUDA tensors launch the CUDA kernel; CPU tensors run the plain version.
+    CUDA tensors launch the CUDA kernel (the joint kernel when ``joint``);
+    CPU tensors run the plain version, the twin of both.
     """
     if o.device.type == "cuda":
-        return _query(traverse_cuda, tables, o, d, t_max, any_hit, sort)
+        return _query(traverse_joint_cuda if joint else traverse_cuda, tables, o, d, t_max, any_hit, sort)
     if o.device.type == "cpu":
         return _query(traverse_plain, tables, o, d, t_max, any_hit, sort)
     raise ValueError(f"wide_intersect has no implementation for device {o.device}")

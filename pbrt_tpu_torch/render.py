@@ -2,14 +2,22 @@
 
 The port's counterpart of ``pbrt_tpu/render.py`` for the persistent routes
 (``make_regen``, ``make_persistent_fn``, the persistent branch of
-``render_compiled``, ``render``). ``make_persistent_fn`` picks one of two:
+``render_compiled``, ``render``). ``make_persistent_fn`` tries, in the
+reference's order:
 
 - the brute megakernel (device/megakernel.py) for every path or
-  directlighting scene of its class, as the reference routes them first;
-  all samples of a render go in one launch;
+  directlighting scene of its class; all samples of a render go in one
+  launch;
+- the wide megakernel (device/megakernel_wide.py) for path-traced scenes
+  of its class when PBRT_TPU_WIDEMEGA=1 (PBRT_TPU_WIDEMEGA_MAX_TRIS sets
+  its triangle cap, default 4096); one launch per render as well;
 - the persistent wavefront with the wide-BVH traversal otherwise, in spp
   chunks of PERSISTENT_SPP_CHUNK = 8 (the reference mesh tier's
-  accumulation granularity).
+  accumulation granularity); PBRT_TPU_JOINT=1 sends its CUDA queries
+  through the joint traversal kernel. What the wavefront cannot render
+  raises NotImplementedError when the route is built.
+
+The switches are the reference's, read once when a route is built.
 
 The whole film (or crop) is one lane set, accumulated in float64. The
 reference's dispatch-shape table and its TPU watchdog chunking are not
@@ -19,14 +27,16 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 import time
 
 import numpy as np
 import torch
 
 from .device.camera import generate_rays, make_camera
-from .device.integrator import trace_persistent
+from .device.integrator import explain_unsupported, trace_persistent
 from .device.megakernel import explain_ineligible, make_megakernel_fn
+from .device.megakernel_wide import DEFAULT_MAX_TRIS, explain_ineligible_wide, make_wide_megakernel_fn
 from .device.sampler import sample_2d
 from .scene.builder import CompiledScene, compile_scene
 from .scene.host import SceneDescription
@@ -36,8 +46,9 @@ log = logging.getLogger(__name__)
 PERSISTENT_SPP_CHUNK = 8
 
 # route of the most recent make_persistent_fn build, so a run shows the
-# path it took: torch-megakernel/{cuda,plain}-brute or
-# torch-wavefront/{cuda,plain}-wide (the CUDA kernel, or its plain twin on
+# path it took: torch-megakernel/{cuda,plain}-brute,
+# torch-megakernel/{cuda,plain}-wide, torch-wavefront/{cuda,plain}-wide or
+# torch-wavefront/cuda-wide-joint (the CUDA kernel, or its plain twin on
 # the CPU)
 LAST_PERSISTENT_TIER = "unbuilt"
 
@@ -80,7 +91,8 @@ def make_persistent_fn(cs: CompiledScene, cam=None):
     Sets LAST_PERSISTENT_TIER to the route that will execute. A scene of
     the brute-force class (no BVH tables) that the megakernel does not take
     raises NotImplementedError naming what it lacks: the port has no brute
-    wavefront yet."""
+    wavefront yet. So does a wide scene that neither the wide megakernel
+    (when PBRT_TPU_WIDEMEGA=1) nor the wavefront can render."""
     global LAST_PERSISTENT_TIER
     desc = cs.description
     dev = cs.arrays.device
@@ -107,12 +119,27 @@ def make_persistent_fn(cs: CompiledScene, cam=None):
                                       f"megakernel, which does not take {explain_ineligible(cs, cam, icfg, scfg, fcfg)}")
         LAST_PERSISTENT_TIER = "torch-megakernel/" + ("cuda-brute" if dev.type == "cuda" else "plain-brute")
         return mk
-    LAST_PERSISTENT_TIER = "torch-wavefront/" + ("cuda-wide" if dev.type == "cuda" else "plain-wide")
+    widemega = os.environ.get("PBRT_TPU_WIDEMEGA", "") == "1" and icfg["kind"] == "path"
+    if widemega:
+        max_tris = int(os.environ.get("PBRT_TPU_WIDEMEGA_MAX_TRIS", str(DEFAULT_MAX_TRIS)))
+        mkw = make_wide_megakernel_fn(cs, cam, icfg, scfg, fcfg, max_tris)
+        if mkw is not None:
+            LAST_PERSISTENT_TIER = "torch-megakernel/" + ("cuda-wide" if dev.type == "cuda" else "plain-wide")
+            return mkw
+    missing = explain_unsupported(desc)
+    if missing is not None:
+        why = ("the wide megakernel (PBRT_TPU_WIDEMEGA=1) does not take "
+               + explain_ineligible_wide(cs, cam, icfg, scfg, fcfg, max_tris) if widemega
+               else "the wide megakernel (PBRT_TPU_WIDEMEGA=1) renders scenes of its class")
+        raise NotImplementedError(f"the pbrt_tpu_torch wavefront does not render {missing}; {why}")
+    joint = os.environ.get("PBRT_TPU_JOINT", "0") == "1" and dev.type == "cuda"
+    LAST_PERSISTENT_TIER = "torch-wavefront/" + (
+        ("cuda-wide-joint" if joint else "cuda-wide") if dev.type == "cuda" else "plain-wide")
 
     def wave_p(sa, px, py, pixel_ids, s0: int, n_samples: int, seed: int):
         regen = make_regen(cam, scfg, fcfg, px, py, pixel_ids, seed)
         return trace_persistent(sa, static, icfg, scfg, seed, pixel_ids, s0, n_samples, regen,
-                                max_sample_luminance=float(fcfg["max_sample_luminance"]))
+                                max_sample_luminance=float(fcfg["max_sample_luminance"]), joint=joint)
 
     return wave_p
 

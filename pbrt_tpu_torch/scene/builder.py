@@ -1,19 +1,24 @@
 """Scene compiler: SceneDescription (host records) -> SceneTensors.
 
 The port's counterpart of ``pbrt_tpu/scene/builder.py compile_scene`` for
-two scene classes, one per render route:
+two scene classes:
 
-- the wavefront class (more than BRUTE_FORCE_MAX_PRIMS prims): static
-  triangle meshes, matte with a constant Kd, diffuse area lights, and the
-  BVH accelerator with the wide-BVH tables;
+- the wide class (more than BRUTE_FORCE_MAX_PRIMS prims): static triangle
+  meshes with the BVH accelerator and the wide-BVH tables; triangle area
+  lights beside point, spot and distant lights; the path integrator. The
+  wavefront (device/integrator.py) renders its matte, area-lit part with
+  the (0,2) or random sampler; the wide megakernel
+  (device/megakernel_wide.py) renders what its class takes;
 - the brute-force class (at most BRUTE_FORCE_MAX_PRIMS prims, no BVH
-  tables): static triangle meshes and spheres; matte (Lambert or
-  Oren-Nayar), mirror, glass, metal and plastic with constant parameters;
-  point, spot and distant lights; the path or directlighting integrator.
-  The brute megakernel (device/megakernel.py) renders the part of it that
-  the reference's megakernel takes.
+  tables): static triangle meshes and spheres; point, spot and distant
+  lights; the path or directlighting integrator. The brute megakernel
+  (device/megakernel.py) renders the part of it that the reference's
+  megakernel takes.
 
-Both take a perspective camera and the box filter. Primitive order, areas,
+Both take matte (Lambert or Oren-Nayar), mirror, glass, metal and plastic
+with constant parameters, the (0,2), random and stratified samplers, a
+perspective camera and the box filter. Each route refuses, when it is
+built, what it cannot render. Primitive order, areas,
 light and material rows, world bounds and the wide tables are computed
 with the reference's NumPy code in the reference's order, so they come out
 bit-identical (tests/test_torch_scene.py, tests/test_torch_megakernel.py
@@ -31,7 +36,6 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..core.spectrum import copper_eta_k_rgb
-from ..device.sampler import SAMPLER_KINDS
 from .arrays import (
     GEOM_SPHERE,
     GEOM_TRI,
@@ -71,9 +75,9 @@ FLAG_HAS_SHADING_N = 2
 FLAG_REVERSE_ORIENTATION = 4
 FLAG_HAS_UV = 8
 
-# what each route can render
-BRUTE_MATERIALS = ("matte", "mirror", "glass", "metal", "plastic")
-BRUTE_SAMPLERS = ("zerotwosequence", "lowdiscrepancy", "random", "stratified")
+# what the compiler admits (each render route refuses the rest of it)
+MATERIALS = ("matte", "mirror", "glass", "metal", "plastic")
+SAMPLERS = ("zerotwosequence", "lowdiscrepancy", "random", "stratified")
 BRUTE_INTEGRATORS = ("path", "directlighting")
 
 # per-kind parameter defaults (reference src/materials/*.rs create_* fns)
@@ -109,8 +113,8 @@ def _check_slice(desc: SceneDescription) -> None:
     brute = _count_prims(desc) <= BRUTE_FORCE_MAX_PRIMS
     route = "scenes of <= 64 primitives" if brute else "scenes of > 64 primitives"
     for light in desc.lights:
-        if not brute or light.kind not in ("point", "spot", "distant"):
-            _unsupported(f"'{light.kind}' lights in {route}")
+        if light.kind not in ("point", "spot", "distant"):
+            _unsupported(f"'{light.kind}' lights")
     if desc.media or desc.camera_medium:
         _unsupported("participating media")
     if str(desc.accelerator or "bvh") != "bvh":
@@ -120,8 +124,8 @@ def _check_slice(desc: SceneDescription) -> None:
         _unsupported(f"'{cam.kind}' cameras")
     if cam.camera_to_world_end is not None:
         _unsupported("animated cameras")
-    if desc.sampler.kind not in (BRUTE_SAMPLERS if brute else SAMPLER_KINDS):
-        _unsupported(f"the '{desc.sampler.kind}' sampler in {route}")
+    if desc.sampler.kind not in SAMPLERS:
+        _unsupported(f"the '{desc.sampler.kind}' sampler")
     if desc.film.filter_name != "box":
         _unsupported(f"the '{desc.film.filter_name}' filter")
     if desc.integrator.kind not in (BRUTE_INTEGRATORS if brute else ("path",)):
@@ -147,16 +151,13 @@ def _check_slice(desc: SceneDescription) -> None:
         if prim.area_light is not None and (brute or prim.area_light.kind != "area"):
             _unsupported(f"'{prim.area_light.kind}' lights attached to shapes in {route}")
         mat = prim.material
-        if mat.kind not in (BRUTE_MATERIALS if brute else ("matte",)):
-            _unsupported(f"the '{mat.kind}' material in {route}")
+        if mat.kind not in MATERIALS:
+            _unsupported(f"the '{mat.kind}' material")
         if mat.bump_map is not None:
             _unsupported("bump maps")
         for name, src in mat.params.items():
             if isinstance(src, tuple) and src and src[0] == "texture":
                 _unsupported(f"textured material parameter '{name}' (imagemap textures)")
-        sigma = mat.params.get("sigma")
-        if not brute and sigma is not None and np.any(np.asarray(sigma[1], np.float64) != 0):
-            _unsupported(f"matte sigma > 0 (Oren-Nayar) in {route}")
 
 
 def _compile_material(mat: HostMaterial):

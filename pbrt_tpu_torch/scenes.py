@@ -88,6 +88,42 @@ def _const(v):
     return ("const", np.asarray(v, np.float64))
 
 
+def _box(center, edge):
+    """Closed axis-aligned box: 8 vertices, 12 triangles wound outward."""
+    c = np.asarray(center, np.float64)
+    corners = np.array([[x, y, z] for x in (-0.5, 0.5) for y in (-0.5, 0.5) for z in (-0.5, 0.5)])
+    # corner index = 4 * (x > 0) + 2 * (y > 0) + (z > 0); each face as a
+    # quad (a, b, c, d) counter-clockwise seen from outside
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6), (0, 2, 6, 4), (1, 5, 7, 3)]
+    idx = [t for a, b, cc, d in quads for t in ((a, b, cc), (a, cc, d))]
+    return c + edge * corners, np.asarray(idx, np.int32)
+
+
+def material_room(n_side: int = 40) -> SceneDescription:
+    """The mesh room at n_side 40 (3,842 triangles) with a closed glass box
+    (12 triangles) added and its materials and lights changed so that one
+    render exercises every lobe and light kind of the wide megakernel's
+    class: plastic terrain, a mirror back wall, an Oren-Nayar left wall, a
+    copper right wall, matte front wall and ceiling, the two-sided area
+    panel, a point and a spot light, power light selection. 3,854
+    triangles, under the wide megakernel's default cap of 4,096."""
+    desc = mesh_room(n_side)
+    terrain, back, _front, left, right, _ceiling, _panel = desc.primitives
+    terrain.material = HostMaterial(kind="plastic", params={
+        "Kd": _const([0.55, 0.45, 0.35]), "Ks": _const([0.4, 0.4, 0.4]), "roughness": ("const", 0.15)})
+    back.material = HostMaterial(kind="mirror", params={"Kr": _const([0.9, 0.9, 0.9])})
+    left.material = HostMaterial(kind="matte", params={"Kd": _const([0.55, 0.3, 0.3]), "sigma": ("const", 20.0)})
+    right.material = HostMaterial(kind="metal", params={"roughness": ("const", 0.08)})
+    desc.primitives.append(HostPrimitive(shape=ShapeRecord(mesh=TriangleMesh(*_box([1.5, 0.4, -1.5], 1.0))),
+                                         material=HostMaterial(kind="glass", params={})))
+    desc.lights = [
+        HostLight(kind="point", from_point=np.array([-2.0, 2.5, -1.0]), intensity=np.array([6.0, 6.0, 6.0])),
+        HostLight(kind="spot", from_point=np.array([2.0, 3.5, 1.0]), to_point=np.array([0.0, -0.5, -1.5]),
+                  intensity=np.array([30.0, 28.0, 26.0]), cone_angle=30.0, cone_delta=18.0),
+    ]
+    return desc
+
+
 def spheres_gallery() -> SceneDescription:
     """The 1000x500, 16 spp, depth-5 path-traced spheres gallery: 8 prims
     (2 ground triangles, 6 spheres), 3 delta lights."""

@@ -6,21 +6,23 @@ machine has none; run it there from the repository root with
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
-The traversal kernel and its plain version do the same per-ray traversal in
-IEEE float32 without fused multiply-adds, so their outputs must be
-identical. The brute megakernel's sin/cos/log may differ from torch's by
-ulps, so it is held to its twin with the reference megakernel's image
-tolerance (tests/test_megakernel.py).
+The traversal kernels and their plain version do the same per-ray traversal
+in IEEE float32 without fused multiply-adds, so their outputs must be
+identical: B1 against the plain traversal, and the joint kernel (B2)
+against B1. The megakernels' sin/cos/log may differ from torch's by ulps,
+so the brute megakernel (B3) and the wide megakernel (B4) are held to their
+twins with the reference megakernels' image tolerances
+(tests/test_megakernel.py, tests/test_megakernel_wide.py).
 """
 import numpy as np
 import pytest
 import torch
 
 from pbrt_tpu_torch import render
-from pbrt_tpu_torch.device import megakernel, wide_bvh
+from pbrt_tpu_torch.device import megakernel, megakernel_wide, wide_bvh
 from pbrt_tpu_torch.device.camera import make_camera
 from pbrt_tpu_torch.scene.builder import compile_scene
-from pbrt_tpu_torch.scenes import mesh_room, spheres_gallery
+from pbrt_tpu_torch.scenes import material_room, mesh_room, spheres_gallery
 
 
 @pytest.fixture
@@ -37,18 +39,22 @@ def _small_room():
     return compile_scene(desc, "cpu")
 
 
+def _random_rays(device, R=4096):
+    rs = np.random.RandomState(5)
+    o = np.stack([rs.uniform(-3, 3, R), rs.uniform(0.5, 3.0, R), rs.uniform(-3, 3, R)], -1)
+    d = rs.normal(size=(R, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = np.where(rs.uniform(size=R) < 0.5, np.inf, rs.uniform(-1.0, 4.0, R))
+    return [torch.as_tensor(x, dtype=torch.float32, device=device) for x in (o, d, t_max)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("any_hit", [False, True])
 @pytest.mark.parametrize("sort", [False, True])
 def test_kernel_matches_plain(cuda_device, any_hit, sort):
     sa = _small_room().arrays.to(cuda_device)
-    rs = np.random.RandomState(5)
     R = 4096
-    o = np.stack([rs.uniform(-3, 3, R), rs.uniform(0.5, 3.0, R), rs.uniform(-3, 3, R)], -1)
-    d = rs.normal(size=(R, 3))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    t_max = np.where(rs.uniform(size=R) < 0.5, np.inf, rs.uniform(-1.0, 4.0, R))
-    args = [torch.as_tensor(x, dtype=torch.float32, device=cuda_device) for x in (o, d, t_max)]
+    args = _random_rays(cuda_device, R)
     before = wide_bvh.traverse_cuda.launches
     k = wide_bvh.wide_intersect(sa, *args, any_hit=any_hit, sort=sort)
     p = wide_bvh.wide_intersect_plain(sa, *args, any_hit=any_hit, sort=sort)
@@ -82,7 +88,7 @@ def test_megakernel_matches_plain(cuda_device, ikind):
     desc.integrator.strategy = "one"
     cs = compile_scene(desc, "cpu")
     icfg = {"kind": ikind, "max_depth": 5, "rr_threshold": 1.0, "strategy": "one", "light_strategy": "power"}
-    consts = megakernel.extract_consts(cs, make_camera(desc.camera, desc.film), icfg,
+    consts = megakernel.extract_consts(cs, make_camera(desc.camera, desc.film, "cpu"), icfg,
                                        {"kind": "zerotwosequence", "spp": spp},
                                        {"filter": "box", "filter_params": {}, "max_sample_luminance": float("inf")})
     idx = torch.arange(W * H, device=cuda_device)
@@ -97,6 +103,54 @@ def test_megakernel_matches_plain(cuda_device, ikind):
     assert L_p.mean() > 1e-3
     assert np.allclose(w, w_p)
     assert abs(float(nv.sum()) - float(nv_p.sum())) <= 4
+    diff = np.abs(L - L_p)
+    assert float((diff / (np.abs(L_p) + 1e-2)).max()) < 2e-2
+    assert float(diff.mean()) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_joint_kernel_matches_b1(cuda_device, any_hit, k):
+    """B2 runs each ray through B1's pop sequence, so every output is B1's."""
+    sa = _small_room().arrays.to(cuda_device)
+    o, d, t_max = _random_rays(cuda_device, 4093)  # a ragged last thread
+    before = wide_bvh.traverse_joint_cuda.launches
+    joint = wide_bvh.traverse_joint_cuda(sa, o, d, t_max, any_hit, k)
+    b1 = wide_bvh.traverse_cuda(sa, o, d, t_max, any_hit)
+    torch.cuda.synchronize()
+    assert wide_bvh.traverse_joint_cuda.launches == before + 1
+    assert 0 < int((b1[1] >= 0).sum()) < o.shape[0]
+    for x, y in zip(joint, b1):
+        assert torch.equal(x, y)
+    assert wide_bvh.traverse_joint_cuda.counters[cuda_device].tolist() == [0, 0]
+
+
+@pytest.mark.gpu
+def test_wide_megakernel_matches_plain(cuda_device):
+    desc = material_room(8)
+    W, H, spp = 64, 32, 2
+    cs = compile_scene(desc, "cpu")
+    icfg = {"kind": "path", "max_depth": 5, "rr_threshold": 1.0, "light_strategy": "power"}
+    consts = megakernel_wide.extract_wide_consts(
+        cs, make_camera(desc.camera, desc.film, "cpu"), icfg, {"kind": "zerotwosequence", "spp": spp},
+        {"filter": "box", "filter_params": {}, "max_sample_luminance": float("inf")},
+        megakernel_wide.DEFAULT_MAX_TRIS)
+    idx = torch.arange(W * H, device=cuda_device)
+    lanes = (idx % W, idx // W, idx)
+    before = megakernel_wide.wide_megakernel_cuda.launches
+    blob = megakernel_wide.pack_wide_consts(consts).to(cuda_device)
+    L, w, nv = (x.cpu().numpy() for x in megakernel_wide.wide_megakernel_cuda(
+        blob, megakernel_wide.kernel_mode(consts), cs.arrays.to(cuda_device), *lanes, 0, spp, 7))
+    torch.cuda.synchronize()
+    assert megakernel_wide.wide_megakernel_cuda.launches == before + 1
+    assert megakernel_wide.wide_megakernel_cuda.counters[cuda_device].tolist() == [0, 0]
+    assert all(p > 0 for p in megakernel_wide.wide_megakernel_cuda.pops[cuda_device].tolist())
+    L_p, w_p, nv_p = (x.numpy() for x in megakernel_wide.wide_megakernel_plain(
+        consts, cs.arrays, *(x.cpu() for x in lanes), 0, spp, 7))
+    assert L_p.mean() > 1e-3
+    assert np.allclose(w, w_p)
+    assert abs(float(nv.sum()) - float(nv_p.sum())) <= 6
     diff = np.abs(L - L_p)
     assert float((diff / (np.abs(L_p) + 1e-2)).max()) < 2e-2
     assert float(diff.mean()) < 1e-4

@@ -183,7 +183,7 @@ def test_bake_lobes_matches_make_bsdf(compiled, scene):
 def _both_consts(scene_desc, cs, ref, icfg=None, scfg=None):
     i, s, f = _cfgs(scene_desc)
     icfg, scfg = icfg or i, scfg or s
-    mine = mk.extract_consts(cs, make_camera(scene_desc.camera, scene_desc.film), icfg, scfg, f)
+    mine = mk.extract_consts(cs, make_camera(scene_desc.camera, scene_desc.film, "cpu"), icfg, scfg, f)
     theirs = ref_mk.extract_consts(ref, ref_make_camera(ref.description.camera, ref.description.film), icfg, scfg, f)
     return mine, theirs
 
@@ -273,7 +273,7 @@ def test_eligibility_gates(gate):
         icfg.update(kind="directlighting", strategy="all")
     mine, theirs = _both_consts(cs.description, cs, ref, icfg, scfg)
     assert mine is None and theirs is None
-    cam = make_camera(cs.description.camera, cs.description.film)
+    cam = make_camera(cs.description.camera, cs.description.film, "cpu")
     assert not mk.megakernel_eligible(cs, cam, icfg, scfg, fcfg)
     assert mk.explain_ineligible(cs, cam, icfg, scfg, fcfg)
     if gate in ("many-prims", "partial-sphere"):
@@ -282,13 +282,40 @@ def test_eligibility_gates(gate):
             render.make_persistent_fn(cs)
 
 
-def test_wavefront_still_refuses_glass_meshes():
+def test_wavefront_still_refuses_glass_meshes(monkeypatch):
+    """Glass in a wide scene compiles (the wide megakernel's class) and the
+    wavefront route refuses it unless PBRT_TPU_WIDEMEGA=1."""
     from pbrt_tpu_torch.scenes import mesh_room
 
     desc = mesh_room(8)
     desc.primitives[0].material = HostMaterial(kind="glass")
+    cs = compile_scene(desc, "cpu")
+    monkeypatch.delenv("PBRT_TPU_WIDEMEGA", raising=False)
     with pytest.raises(NotImplementedError, match="glass"):
-        compile_scene(desc, "cpu")
+        render.make_persistent_fn(cs)
+
+
+def test_make_camera_defaults_to_the_card():
+    assert inspect.signature(make_camera).parameters["device"].default == "cuda"
+
+
+def test_library_hash_covers_included_headers(tmp_path):
+    """device/nvcc.py names a library by the source and every csrc header it
+    includes, so an edit to a shared header rebuilds each kernel using it."""
+    from pbrt_tpu_torch.device import nvcc
+
+    (tmp_path / "a.cuh").write_text("#pragma once\n#define X 1\n")
+    (tmp_path / "b.cuh").write_text('#pragma once\n#include "a.cuh"\n')
+    src = tmp_path / "k.cu"
+    src.write_text('#include "b.cuh"\n#include <cuda_runtime.h>\n')
+    assert [f.name for f in nvcc._sources_of(src)] == ["k.cu", "b.cuh", "a.cuh"]
+    before = nvcc._target(src)
+    (tmp_path / "a.cuh").write_text("#pragma once\n#define X 2\n")
+    after = nvcc._target(src)
+    assert before != after and before.parent == after.parent
+    assert nvcc._target(nvcc.CSRC / "megakernel_wide.cu") != nvcc._target(nvcc.CSRC / "megakernel.cu")
+    assert {f.name for f in nvcc._sources_of(nvcc.CSRC / "megakernel_wide.cu")} == {
+        "megakernel_wide.cu", "pt_common.cuh", "wide_traverse.cuh"}
 
 
 # --- (d) the estimator against the reference kernel ----------------------------
@@ -315,7 +342,7 @@ def test_plain_matches_reference_kernel(sampler, light, micro, ikind, seed):
     L_r, w_r, nv_r = (np.asarray(x) for x in fn(
         ref.arrays, jnp.asarray(px.astype(np.int32)), jnp.asarray(py.astype(np.int32)),
         jnp.asarray(pid.astype(np.uint32)), jnp.uint32(0), SPP, jnp.uint32(seed)))
-    consts = mk.extract_consts(cs, make_camera(desc.camera, desc.film), icfg, scfg, fcfg)
+    consts = mk.extract_consts(cs, make_camera(desc.camera, desc.film, "cpu"), icfg, scfg, fcfg)
     L, w, nv = (x.numpy() for x in mk.megakernel_plain(
         consts, *(torch.as_tensor(x.astype(np.int64)) for x in (px, py, pid)), 0, SPP, seed))
     assert L_r.mean() > 1e-3
@@ -366,7 +393,7 @@ def _unpack(blob, consts):
 def test_pack_consts_round_trips(compiled, scene):
     cs, _ref = compiled[scene]
     icfg, scfg, fcfg = _cfgs(cs.description)
-    consts = mk.extract_consts(cs, make_camera(cs.description.camera, cs.description.film), icfg, scfg, fcfg)
+    consts = mk.extract_consts(cs, make_camera(cs.description.camera, cs.description.film, "cpu"), icfg, scfg, fcfg)
     blob = mk.pack_consts(consts)
     assert blob.dtype == torch.float32 and blob.shape == (mk.BLOB_FLOATS,)
     got = _unpack(blob, consts)

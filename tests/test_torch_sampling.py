@@ -93,7 +93,7 @@ def test_make_regen_matches(lens_radius):
                                       jnp.asarray(px.astype(np.int32)), jnp.asarray(py.astype(np.int32)),
                                       jnp.asarray(pids.astype(np.uint32)), jnp.uint32(SEED))
     o_r, d_r, w_r, _dx, _dy = (np.asarray(x) for x in ref_regen(jnp.asarray(s_idx.astype(np.uint32))))
-    regen = render.make_regen(make_camera(desc.camera, desc.film), scfg, fcfg,
+    regen = render.make_regen(make_camera(desc.camera, desc.film, "cpu"), scfg, fcfg,
                               _t(px), _t(py), _t(pids), SEED)
     o, d, w = (x.numpy() for x in regen(_t(s_idx)))
     np.testing.assert_allclose(o, o_r, atol=1e-6, rtol=0)

@@ -63,7 +63,12 @@ def test_reference_tables_cross_unchanged(both):
 
 
 @pytest.mark.parametrize("feature", ["material", "light", "small", "sampler"])
-def test_outside_the_slice_raises(feature):
+def test_outside_the_slice_raises(feature, monkeypatch):
+    """A mirror or a point light in a wide scene is the wide megakernel's
+    class: compile_scene takes it, and the wavefront route refuses it unless
+    PBRT_TPU_WIDEMEGA=1. A lone panel (brute class, area light) and the
+    halton sampler are refused at compile time."""
+    from pbrt_tpu_torch import render
     from pbrt_tpu_torch.scene.host import HostLight
 
     desc = mesh_room(8)
@@ -76,6 +81,12 @@ def test_outside_the_slice_raises(feature):
         desc.primitives = desc.primitives[-1:]
     else:
         desc.sampler.kind = "halton"
+    if feature in ("material", "light"):
+        cs = compile_scene(desc, "cpu")
+        monkeypatch.delenv("PBRT_TPU_WIDEMEGA", raising=False)
+        with pytest.raises(NotImplementedError, match="mirror" if feature == "material" else "point"):
+            render.make_persistent_fn(cs)
+        return
     with pytest.raises(NotImplementedError):
         compile_scene(desc, "cpu")
 
@@ -85,6 +96,7 @@ def test_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None\n"
         "import pbrt_tpu_torch.render, pbrt_tpu_torch.scenes, pbrt_tpu_torch.device.wide_bvh\n"
         "import pbrt_tpu_torch.device.megakernel, pbrt_tpu_torch.device.nvcc, pbrt_tpu_torch.core.spectrum\n"
+        "import pbrt_tpu_torch.device.megakernel_wide\n"
         "assert not any(m == 'pbrt_tpu' or m.startswith('pbrt_tpu.') for m in sys.modules)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)

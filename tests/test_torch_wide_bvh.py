@@ -1,9 +1,9 @@
 """The port's wide-BVH traversal against the reference's Pallas kernel.
 
-wide_intersect_plain (the CUDA kernel's plain PyTorch twin) must return the
+wide_intersect_plain (the CUDA kernels' plain PyTorch twin) must return the
 hits of pbrt_tpu.device.pallas_bvh.wide_intersect run in interpret mode on
 the 200-triangle scene and rays of tests/test_widebvh.py, grazing misses
-included. The reference walks 256-ray packets over one stack and the port
+included, and so must traverse_plain those of the reference's joint kernel. The reference walks 256-ray packets over one stack and the port
 one stack per ray, so only visit order differs: closest hits must agree
 exactly in hit flag and prim, t within rtol 1e-6 and barycentrics within
 atol 1e-6; any-hit queries must agree in the hit flag (the first occluder
@@ -126,14 +126,51 @@ def test_any_hit_matches_pallas(scene, sort):
     assert ((slot_p >= 0) == hit_p).all()
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_joint_kernel_matches_plain(scene, any_hit):
+    """B2: the reference's joint kernel (pallas_bvh._run with joint=True, in
+    interpret mode as _joint_probe runs it on the CPU) returns the hits of
+    traverse_plain, the twin of both CUDA traversal kernels."""
+    _tri, ref, st, port, o, d, tmax = scene
+    t_hit = wide_bvh.traverse_plain(port, torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(tmax), False)[0]
+    t = tmax
+    if any_hit:
+        # half the shadow rays end just past their closest hit, half short of it
+        scale = np.where(np.arange(len(o)) % 2 == 0, 1.05, 0.95)
+        t = np.where(np.isfinite(t_hit.numpy()), t_hit.numpy() * scale, 2.0).astype(np.float32)
+        t[::7] = -1.0  # dead lanes
+    live = jnp.where(jnp.asarray(t) > 0, 1.0, 0.0) if any_hit else None
+    blocks, R, _B = pallas_bvh.pack_rays(jnp.asarray(o), jnp.asarray(d), jnp.asarray(t), live)
+    out = pallas_bvh._run(ref.wnode_tab, ref.wprim_tab, blocks, st.wide_root, any_hit, True, meta=ref.wmeta_tab,
+                          joint=True)
+    rows = [np.asarray(out[:, j, :]).reshape(-1)[:R] for j in range(5)]
+    t_p, idx_p, b1_p, b2_p = (x.numpy() for x in wide_bvh.traverse_plain(
+        port, torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(t), any_hit)[:4])
+    hit_p = idx_p >= 0
+    if any_hit:
+        np.testing.assert_array_equal(hit_p, rows[1] >= 0)
+        assert 0 < hit_p.sum() < len(hit_p) and not hit_p[::7].any()
+        return
+    hit_r = rows[2] >= 0
+    assert 50 < hit_r.sum() < len(hit_r)
+    np.testing.assert_array_equal(hit_p, hit_r)
+    np.testing.assert_array_equal(idx_p, rows[2].astype(np.int64))
+    np.testing.assert_allclose(t_p[hit_r], rows[0][hit_r], rtol=1e-6)
+    np.testing.assert_allclose(b1_p[hit_r], rows[3][hit_r], atol=1e-6)
+    np.testing.assert_allclose(b2_p[hit_r], rows[4][hit_r], atol=1e-6)
+
+
 def test_wrapper_routes_cpu_tensors_to_plain(scene):
     _tri, _ref, _st, port, o, d, tmax = scene
     before = wide_bvh.traverse_cuda.launches
+    joint_before = wide_bvh.traverse_joint_cuda.launches
     a = wide_bvh.wide_intersect(port, torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(tmax))
     b = wide_bvh.wide_intersect_plain(port, torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(tmax))
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
+    c = wide_bvh.wide_intersect(port, torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(tmax), joint=True)
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and torch.equal(z, y)
     assert wide_bvh.traverse_cuda.launches == before
+    assert wide_bvh.traverse_joint_cuda.launches == joint_before
 
 
 

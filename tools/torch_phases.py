@@ -1,35 +1,45 @@
 #!/usr/bin/env python3
 """Where the time goes in pbrt_tpu_torch's main path, on one CUDA GPU.
 
-    python3 tools/torch_phases.py [--scene mesh|gallery] [--reps 5] [--out FILE.json]
+    python3 tools/torch_phases.py [--scene mesh|gallery|material_room|mesh_b4] [--reps 5] [--out FILE.json]
 
-Renders the 123,650-triangle mesh room (--scene mesh, the default) or the
-spheres gallery (--scene gallery; the brute megakernel) at 1000x500, 16 spp,
-depth 5 and reports, with the card's name and power limit:
+Renders at 1000x500, 16 spp, depth 5 one of: the 123,650-triangle mesh room
+on the wavefront (--scene mesh, the default), the spheres gallery (--scene
+gallery; the brute megakernel), material_room (--scene material_room; the
+wide megakernel, PBRT_TPU_WIDEMEGA=1) or the mesh room through the wide
+megakernel (--scene mesh_b4; also PBRT_TPU_WIDEMEGA_MAX_TRIS=200000), and
+reports, with the card's name and power limit:
  1. end to end: render wall time and path_vertex_samples_per_sec over
     --reps untraced renders after a warm-up (median, min, max);
  2. the traversal kernel against its plain PyTorch twin on the main path's
     ray sets (camera, one cosine bounce, shadow rays; closest and any hit),
     by CUDA events (mesh only; chip_smoke.py times the megakernel);
- 3. layers (mesh only; the gallery's render is one kernel launch): one render with a synchronize around every call into a layer
+ 3. layers (mesh only; a megakernel render is one kernel launch): one
+    render with a synchronize around every call into a layer
     (camera regeneration, closest-hit query, shadow query, of which the
     kernel itself), the rest being shading, NEE, sampling, Russian roulette,
     flush and loop control; the synchronizes serialise host and device, so
     the traced wall minus the untraced median is the tracing cost;
- 3g. launch path (gallery only): the route's one call with a synchronize
-    before and after: host time until it returns, device time by CUDA
-    events, the whole call; then one such call under torch.profiler for
-    the device busy share (device time / untraced call wall);
+ 3g. launch path (the megakernel scenes): the route's one call with a
+    synchronize before and after: host time until it returns, device time
+    by CUDA events, the whole call; for the wide megakernel also its
+    closest-hit and shadow pops per path vertex and the device time per
+    pop; then one such call under torch.profiler for the device busy share
+    (device time / untraced call wall);
  4. device (mesh only): one untraced render under torch.profiler: total
     kernel time, the device busy share (kernel time / wall) and the top
     kernels (--out also keeps the chrome trace).
-The spans are wrapped around the port's functions from this script; the
-program itself carries no tracing code.
+--all-matte gives every material of the scene the room's matte (Kd 0.6,
+the panel's black Kd kept), so that a wide-megakernel run with and without
+it tells shading divergence from geometry. The spans are wrapped around the
+port's functions from this script; the program itself carries no tracing
+code.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import sys
 import time
@@ -55,13 +65,15 @@ def _spanned(fn, name, spans):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--scene", choices=("mesh", "gallery"), default="mesh")
+    ap.add_argument("--scene", choices=("mesh", "gallery", "material_room", "mesh_b4"), default="mesh")
+    ap.add_argument("--all-matte", action="store_true", help="every material matte (Kd 0.6), the panel's kept")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write the full record as JSON here (with --scene mesh, the profiled "
                                   "render's chrome trace beside it, FILE.trace.json)")
     args = ap.parse_args()
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -70,12 +82,24 @@ def main() -> int:
     import chip_smoke
     from pbrt_tpu_torch import render as R_
     from pbrt_tpu_torch.scene.builder import compile_scene
-    from pbrt_tpu_torch.scenes import mesh_room, spheres_gallery
+    from pbrt_tpu_torch.scene.host import HostMaterial
+    from pbrt_tpu_torch.scenes import material_room, mesh_room, spheres_gallery
 
+    if args.scene in ("material_room", "mesh_b4"):
+        os.environ["PBRT_TPU_WIDEMEGA"] = "1"
+    if args.scene == "mesh_b4":
+        os.environ["PBRT_TPU_WIDEMEGA_MAX_TRIS"] = "200000"
+    make = {"mesh": mesh_room, "mesh_b4": mesh_room, "gallery": spheres_gallery, "material_room": material_room}
     rec = {"device": torch.cuda.get_device_name(0), "nvidia_smi": chip_smoke._smi(),
-           "torch": torch.__version__, "cuda": torch.version.cuda, "scene": args.scene}
+           "torch": torch.__version__, "cuda": torch.version.cuda, "scene": args.scene,
+           "all_matte": args.all_matte}
+    desc = make[args.scene]()
+    if args.all_matte:
+        for prim in desc.primitives:
+            if prim.area_light is None:
+                prim.material = HostMaterial(kind="matte", params={"Kd": ("const", np.full(3, 0.6))})
     t0 = time.perf_counter()
-    cs = compile_scene(mesh_room(248) if args.scene == "mesh" else spheres_gallery(), "cpu")
+    cs = compile_scene(desc, "cpu")
     rec["host_compile_s"] = time.perf_counter() - t0
     cs = cs.to("cuda")
 
@@ -93,7 +117,7 @@ def main() -> int:
     print(f"render: wall median {statistics.median(walls):.4f}s (min {min(walls):.4f} max {max(walls):.4f}), "
           f"path_vertex_samples_per_sec median {statistics.median(vps):.1f}", flush=True)
 
-    if args.scene == "mesh":
+    if args.scene == "mesh":  # the wavefront
         _traversal_and_layers(args, cs, rec, statistics.median(walls))
         _device(args, cs, rec, statistics.median(walls))
     else:
@@ -159,14 +183,15 @@ def _traversal_and_layers(args, cs, rec, wall_median):
 
 
 def _launch_path(args, cs, rec):
-    """Gallery only: where the render wall goes around its one launch. The
-    route's function is called as render_compiled calls it, with a
-    synchronize before and after: host time until the call returns, kernel
-    time by CUDA events, and the whole call."""
+    """The megakernel scenes: where the render wall goes around the one
+    launch. The route's function is called as render_compiled calls it,
+    with a synchronize before and after: host time until the call returns,
+    kernel time by CUDA events, and the whole call."""
     import numpy as np
     import torch
 
     from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch.device import megakernel_wide
 
     desc = cs.description
     W, H = desc.film.x_resolution, desc.film.y_resolution
@@ -193,6 +218,18 @@ def _launch_path(args, cs, rec):
     print(f"launch path (median of {len(rows)}): host until the call returns {med['host_to_return_ms']:.4f} ms, "
           f"device (events around the call) {med['device_ms']:.4f} ms, whole call {med['call_ms']:.4f} ms",
           flush=True)
+    if R_.LAST_PERSISTENT_TIER == "torch-megakernel/cuda-wide":
+        # the wide megakernel's own counters, over one more call
+        pops = megakernel_wide.wide_megakernel_cuda.pops[torch.device("cuda", 0)]
+        pops.zero_()
+        n_v = wave(cs.arrays, *lanes, 0, spp, args.seed)[2].double().sum().item()
+        pc, ps = pops.tolist()
+        rec["wide_megakernel"] = {"path_vertices": n_v, "closest_pops": pc, "shadow_pops": ps,
+                                  "pops_per_vertex": (pc + ps) / n_v,
+                                  "ns_per_pop": 1e6 * med["device_ms"] / (pc + ps)}
+        print(f"wide megakernel: {n_v:.0f} path vertices ({n_v / (W * H * spp):.3f} per sample); pops per vertex "
+              f"closest {pc / n_v:.2f}, shadow {ps / n_v:.2f}; {rec['wide_megakernel']['ns_per_pop']:.4f} ns of "
+              f"device time per pop", flush=True)
 
     # device busy share of one call under the profiler: every device event
     # recorded lies inside the call, which is the render's timed window
