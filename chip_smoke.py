@@ -9,8 +9,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     power limit;
  2. build: nvcc-compiles every kernel source (csrc/wide_traverse.cu,
     wide_traverse_joint.cu, megakernel.cu, megakernel_wide.cu), one nvcc
-    each, all started together; prints build seconds and the ptxas
-    register/spill report of each;
+    each, all started together; prints build seconds, the ptxas
+    register/spill/shared-memory report of each and every variant's
+    resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
  3. B1 kernel vs plain: compiles the 123,650-triangle mesh room on the host,
     then traces 500,000 camera rays, one cosine bounce from their hits and
     shadow rays to the panel light through the CUDA kernel and through its
@@ -55,7 +56,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     2e-2 and mean |dL| < 1e-4; times the kernel at 16 spp with CUDA events
     and the twin by the host clock; computes the bound from the run's pops
     and path vertices; the stack-overflow and iteration-cap counters must
-    stay 0;
+    stay 0, and the 16 spp render must trace the per-lane kernel's 29,659,505 path
+    vertices;
 12. material_room main path with PBRT_TPU_WIDEMEGA=1 at 1000x500, 16 spp,
     depth 5: route torch-megakernel/cuda-wide, one B4 launch, a finite,
     non-black image; prints path_vertex_samples_per_sec and the kernel's
@@ -63,8 +65,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
 13. same material_room crop on both devices, held as in phase 5;
 14. the mesh room through B4 (PBRT_TPU_WIDEMEGA=1,
     PBRT_TPU_WIDEMEGA_MAX_TRIS=200000) at 1000x500, 16 spp, beside phase 4's
-    wavefront; then the 64x32, 4 spp crop through B4 and through the
-    wavefront, both on the card, held to the wide tolerance of phase 11.
+    wavefront; the B4 kernel on the route's blob timed with CUDA events as
+    in phase 11, beside the render wall, and the per-lane kernel's 31,724,525 path
+    vertices required; then the 64x32,
+    4 spp crop through B4 and through the wavefront, both on the card,
+    held to the wide tolerance of phase 11.
 Each main path runs with every launch count set to 0 just before it and
 read just after; every switch a phase sets is restored after it. The second-to-last lines are the kernel report as JSON
 and the card's nvidia-smi name and power limit; the last line is
@@ -86,6 +91,10 @@ SEED = 0
 CROP_BOUNDS = (468, 532, 234, 266)  # 64 x 32 pixels around the film centre
 CROP_SPP = 4
 COMPARE_SPP = 2  # B3 kernel vs plain
+# path vertices of the 16 spp renders with SEED, as the earlier per-lane B4
+# (one thread per pixel) traced them; the persistent B4 must trace the same paths
+MATERIAL_ROOM_VERTICES = 29_659_505
+MESH_ROOM_VERTICES = 31_724_525
 
 # H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -292,13 +301,19 @@ def main() -> int:
     # --- 2. build: every kernel, one nvcc each, all started together ---
     nvcc.build_all([wide_bvh.KERNEL_SOURCE, wide_bvh.JOINT_SOURCE, megakernel.KERNEL_SOURCE,
                     megakernel_wide.KERNEL_SOURCE])
-    for build in (wide_bvh.build_kernel, wide_bvh.build_joint_kernel, megakernel.build_kernel,
-                  megakernel_wide.build_kernel):
+    # resident blocks per SM of each kernel (cudaOccupancyMaxActiveBlocksPerMultiprocessor), per variant
+    occupancy = (("wide_traverse_occupancy", [()]), ("wide_traverse_joint_occupancy", [(2,), (4,)]),
+                 ("brute_megakernel_occupancy", [(m,) for m in range(6)]),
+                 ("wide_megakernel_occupancy", [(m,) for m in range(6)]))
+    for build, (entry, variants) in zip((wide_bvh.build_kernel, wide_bvh.build_joint_kernel, megakernel.build_kernel,
+                                         megakernel_wide.build_kernel), occupancy):
         info = build()
         regs = "; ".join(sorted(set(re.findall(r"Used \d+ registers[^\n]*", info["log"])))) or "n/a"
         spills = "; ".join(sorted(set(re.findall(r"\d+ bytes spill stores, \d+ bytes spill loads",
                                                  info["log"])))) or "n/a"
-        print(f"[2 build] {Path(info['path']).name} in {info['seconds']:.1f}s; ptxas: {regs}; {spills}", flush=True)
+        occ = [nvcc.occupancy(getattr(info["lib"], entry), *v) for v in variants]
+        print(f"[2 build] {Path(info['path']).name} in {info['seconds']:.1f}s; ptxas: {regs}; {spills}; "
+              f"blocks per SM by variant {occ}", flush=True)
 
     # --- 3. B1 kernel vs plain at the main path's shapes ---
     t0 = time.perf_counter()
@@ -481,6 +496,9 @@ def main() -> int:
     pops_c, pops_s = pops.tolist()
     if megakernel_wide.wide_megakernel_cuda.counters[dev].tolist() != [0, 0]:
         raise AssertionError("wide megakernel stack overflows / iteration-cap hits")
+    print(f"  16 spp path vertices {nv16:.0f} (the per-lane kernel's: {MATERIAL_ROOM_VERTICES})", flush=True)
+    if nv16 != MATERIAL_ROOM_VERTICES:
+        raise AssertionError("the wide megakernel traced other paths than the per-lane kernel on material_room")
     # inputs px, py, pid (int32) and the wide tables read once, outputs L, w,
     # nv written once; operations from this run's pops and path vertices
     b4_bytes = 3 * 4 * W * H + _nbytes(m.arrays.wnode_tab, m.arrays.wprim_tab, m.arrays.wmeta_tab) + 5 * 4 * W * H
@@ -510,17 +528,32 @@ def main() -> int:
         ys, xs = torch.meshgrid(torch.arange(y0, y1, device="cuda"), torch.arange(x0, x1, device="cuda"),
                                 indexing="ij")
         crop = (xs.reshape(-1), ys.reshape(-1), (ys * cs.description.film.x_resolution + xs).reshape(-1))
-        mega = R_.make_persistent_fn(cs)(cs.arrays, *crop, 0, CROP_SPP, SEED)
+        b4_fn = R_.make_persistent_fn(cs)
+        mega = b4_fn(cs.arrays, *crop, 0, CROP_SPP, SEED)
         mega_tier = R_.LAST_PERSISTENT_TIER
+        # the render's B4 kernel alone (the route's blob and mode, timed as in
+        # phase 11 by CUDA events around the launch wrapper), and its paths
+        mW, mH = cs.description.film.x_resolution, cs.description.film.y_resolution
+        midx = torch.arange(mW * mH, device="cuda")
+        mlanes = (midx % mW, midx // mW, midx)
+        mspp = cs.description.sampler.pixel_samples
+        b4_launch = lambda: megakernel_wide.wide_megakernel_cuda(  # noqa: E731
+            b4_fn.blob, b4_fn.mode, cs.arrays, *mlanes, 0, mspp, SEED)
+        mesh_b4_ms = _cuda_ms(b4_launch, 3)
+        mesh_nv = b4_launch()[2].double().sum().item()
     wave = R_.make_persistent_fn(cs)(cs.arrays, *crop, 0, CROP_SPP, SEED)
     ok, desc_cmp = _wide_tolerance(*mega, *wave)
     vps_b4 = mm_timing["n_vertices"] / mm_timing["wall_s"]
     vps_wave = mesh_timing["n_vertices"] / mesh_timing["wall_s"]
     print(f"[14 mesh room B4 vs wavefront] path_vertex_samples_per_sec B4 {vps_b4:.1f}, wavefront (phase 4) "
-          f"{vps_wave:.1f}, ratio {vps_b4 / vps_wave:.3f}; {x1 - x0}x{y1 - y0} {CROP_SPP}spp crop ({mega_tier} vs "
+          f"{vps_wave:.1f}, ratio {vps_b4 / vps_wave:.3f}; B4 kernel {mesh_b4_ms:.4f} ms beside the render wall "
+          f"{1e3 * mm_timing['wall_s']:.4f} ms; 16 spp path vertices {mesh_nv:.0f} (the per-lane kernel's: "
+          f"{MESH_ROOM_VERTICES}); {x1 - x0}x{y1 - y0} {CROP_SPP}spp crop ({mega_tier} vs "
           f"{R_.LAST_PERSISTENT_TIER}): {desc_cmp}", flush=True)
     if not ok:
         raise AssertionError("the wide megakernel and the wavefront disagree on the mesh room crop")
+    if mesh_nv != MESH_ROOM_VERTICES:
+        raise AssertionError("the wide megakernel traced other paths than the per-lane kernel on the mesh room")
 
     report = {"kernels": [
         {"name": "wide_traverse", "route": "cuda", "source": "pbrt_tpu_torch/csrc/wide_traverse.cu",

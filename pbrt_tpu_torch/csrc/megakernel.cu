@@ -494,3 +494,12 @@ extern "C" int brute_megakernel(const void* blob, const void* px, const void* py
     }
     return (int)cudaGetLastError();
 }
+
+// Resident blocks of 128 threads per SM for one mode.
+extern "C" int brute_megakernel_occupancy(int mode, int* blocks_per_sm) {
+    const void* kernels[6] = {(const void*)brute_megakernel_kernel<0, 0>, (const void*)brute_megakernel_kernel<0, 1>,
+                              (const void*)brute_megakernel_kernel<1, 0>, (const void*)brute_megakernel_kernel<1, 1>,
+                              (const void*)brute_megakernel_kernel<2, 0>, (const void*)brute_megakernel_kernel<2, 1>};
+    if (mode < 0 || mode > 5) return (int)cudaErrorInvalidValue;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernels[mode], 128, 0);
+}

@@ -62,3 +62,8 @@ extern "C" int wide_traverse(const void* o, const void* d, const void* t_max, in
     }
     return (int)cudaGetLastError();
 }
+
+// Resident blocks of 128 threads per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int wide_traverse_occupancy(int* blocks_per_sm) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, wide_traverse_kernel, 128, 0);
+}

@@ -2,9 +2,11 @@
 // traversal kernels (wide_traverse.cu, B1; wide_traverse_joint.cu, B2) and
 // the wide megakernel (megakernel_wide.cu, B4) share.
 //
-// A ray's whole state is a WideRay plus a private 72-entry stack. wide_init
-// sets it up, wide_pop advances it by one pop, wide_walk pops until the
-// stack is empty. A caller that interleaves several rays (B2) calls
+// A ray's whole state is a WideRay plus a private 72-entry stack, whose top
+// entry the WideRay holds in a register (r.top): a pop reads it without a
+// load, and the entry below is loaded only when the top is used up, while
+// that pop's node loads are in flight. wide_init sets it up, wide_pop
+// advances it by one pop, wide_walk pops until the stack is empty. A caller that interleaves several rays (B2) calls
 // wide_pop on each in turn: a ray's pop order and arithmetic do not depend
 // on what else the thread does, so its results are the same as wide_walk's.
 //
@@ -51,8 +53,10 @@ struct WideRay {
     int best_idx;  // closest hit: global prim row; any hit: kernel slot; -1 miss
     float b1, b2;
     int best_row;  // float offset of the winner's prim row in prim_tab, -1 miss
+    int best_mat;  // the winner's material row (prim_tab col 11), closest hit
     int pops;
-    int sp;  // stack depth; 0 once the ray is finished
+    int sp;   // stack depth; 0 once the ray is finished
+    int top;  // the stack's top entry; stack[0 .. sp-2] hold the rest
 };
 
 __device__ __forceinline__ void wide_init(WideRay& r, int* stack, float ox, float oy, float oz, float dx,
@@ -83,8 +87,9 @@ __device__ __forceinline__ void wide_init(WideRay& r, int* stack, float ox, floa
     r.b1 = 0.0f;
     r.b2 = 0.0f;
     r.best_row = -1;
+    r.best_mat = -1;
     r.pops = 0;
-    stack[0] = (0 << 9) | (1 << 1) | 0;
+    r.top = (0 << 9) | (1 << 1) | 0;
     r.sp = t_max > 0.0f ? 1 : 0;  // t_max <= 0 (or NaN): a dead lane
 }
 
@@ -99,7 +104,7 @@ __device__ __forceinline__ void wide_pop(WideRay& r, int* stack, const int* __re
         return;
     }
     ++r.pops;
-    const int top = stack[r.sp - 1];
+    const int top = r.top;
     const int dirb = top & 1;
     const int m = (top >> 1) & 255;
     const int pn = top >> 9;
@@ -107,8 +112,9 @@ __device__ __forceinline__ void wide_pop(WideRay& r, int* stack, const int* __re
     const int m2 = m & ~(1 << k);
     if (m2 == 0) {
         --r.sp;
+        if (r.sp > 0) r.top = stack[r.sp - 1];
     } else {
-        stack[r.sp - 1] = (pn << 9) | (m2 << 1) | dirb;
+        r.top = (pn << 9) | (m2 << 1) | dirb;
     }
     const int e = __ldg(&meta_tab[pn * 8 + k]);
 
@@ -134,7 +140,9 @@ __device__ __forceinline__ void wide_pop(WideRay& r, int* stack, const int* __re
             if (r.sp >= WT_STACK) {
                 atomicAdd(&counters[0], 1u);
             } else {
-                stack[r.sp++] = (nid << 9) | (mask_new << 1) | ((r.dir_bits >> axis) & 1);
+                if (r.sp > 0) stack[r.sp - 1] = r.top;
+                r.top = (nid << 9) | (mask_new << 1) | ((r.dir_bits >> axis) & 1);
+                ++r.sp;
             }
         }
         return;
@@ -142,7 +150,7 @@ __device__ __forceinline__ void wide_pop(WideRay& r, int* stack, const int* __re
     // leaf: octets o_, o_+1 (o_ even, so both share block rows)
     const int o_ = max(-e - 1, 0);
     float tmin = 1e30f;
-    int jwin = 0;
+    int jwin = 0, wgid = -1, wmat = -1;
     float w1 = 0.0f, w2 = 0.0f;
     int wrow = -1;
     for (int j = 0; j < 16; ++j) {
@@ -180,11 +188,14 @@ __device__ __forceinline__ void wide_pop(WideRay& r, int* stack, const int* __re
             w1 = e1 * inv;
             w2 = e2 * inv;
             wrow = rowoff;
+            wgid = (int)q2.z;  // the row's global prim id (col 10) and material row (col 11)
+            wmat = (int)q2.w;
         }
     }
     if (tmin < fminf(r.t_best, 1e29f)) {
         r.t_best = tmin;
-        r.best_idx = r.any_hit ? o_ * 8 + jwin : (int)__ldg(prim_tab + wrow + 10);
+        r.best_idx = r.any_hit ? o_ * 8 + jwin : wgid;
+        r.best_mat = wmat;
         r.b1 = w1;
         r.b2 = w2;
         r.best_row = wrow;

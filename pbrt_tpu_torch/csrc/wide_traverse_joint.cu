@@ -101,3 +101,12 @@ extern "C" int wide_traverse_joint(const void* o, const void* d, const void* t_m
     }
     return (int)cudaGetLastError();
 }
+
+// Resident blocks of 128 threads per SM for k rays per thread (2 or 4).
+extern "C" int wide_traverse_joint_occupancy(int k, int* blocks_per_sm) {
+    if (k != 2 && k != 4) return (int)cudaErrorInvalidValue;
+    return (int)(k == 2 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, wide_traverse_joint_kernel<2>,
+                                                                        128, 0)
+                        : cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, wide_traverse_joint_kernel<4>,
+                                                                        128, 0));
+}

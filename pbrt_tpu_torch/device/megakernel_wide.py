@@ -24,8 +24,12 @@ reads PBRT_TPU_WIDEMEGA_MAX_TRIS, default 4096).
 - ``wide_megakernel_plain``: the same per-lane loop over (R,) tensors,
   reusing the brute megakernel's plain helpers and ``traverse_plain`` for
   both walks.
-- ``wide_megakernel_cuda``: builds the kernel at first use, launches it,
-  counts launches, pops, stack overflows and iteration-cap hits.
+- ``wide_megakernel_cuda``: builds the kernel at first use, launches it on
+  its persistent grid with a zeroed pixel counter, counts launches, pops,
+  stack overflows and iteration-cap hits; ``wide_megakernel_split``
+  launches the instrumented instantiation (the cycle split per phase,
+  ``SPLIT_FIELDS``) for tools/torch_phases.py, and ``occupancy`` returns
+  the kernel's resident blocks per SM.
 - ``make_wide_megakernel_fn``: the wave_p-compatible function of the render
   route; CUDA tensors launch the kernel, CPU tensors run the plain twin.
 """
@@ -616,30 +620,39 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
 # ---------------------------------------------------------------------------
 
 
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p]
+# The cycle split of the instrumented instantiation, in the order of its
+# u64 record (csrc/megakernel_wide.cu SPLIT_*): lane-cycles of the slots
+# whose path walked, in the walk pool, in sort + shading + NEE and in
+# flush/regen; of slots that waited for their shadow ray; of empty slots
+# (the grid's tail); of the whole launch; of all lanes in the walk phase;
+# lane-cycles in which a thread had walk or shading work; block iterations.
+SPLIT_FIELDS = ("walk", "shade_nee", "flush_regen", "wait", "idle_tail", "total", "walk_lanes", "walk_busy",
+                "shade_busy", "iterations")
+
+
 def build_kernel() -> dict:
     """Compile (if needed) and load csrc/megakernel_wide.cu: {"lib",
     "seconds", "log", "path"} as device/nvcc.build returns it."""
     info = nvcc.build(KERNEL_SOURCE)
-    fn = info["lib"].wide_megakernel
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = info["lib"]
+    lib.wide_megakernel.argtypes = _ARGTYPES
+    lib.wide_megakernel.restype = ctypes.c_int
+    lib.wide_megakernel_split.argtypes = _ARGTYPES + [ctypes.c_void_p]
+    lib.wide_megakernel_split.restype = ctypes.c_int
     return info
 
 
-def wide_megakernel_cuda(blob, mode: int, tables, px, py, pids, s0: int, n_samples: int, seed: int):
-    """Launch the CUDA kernel on the current stream. blob: pack_wide_consts's
-    float32 tensor on the lanes' device; mode: kernel_mode(consts); tables:
-    the scene tensors holding wmeta_tab, wnode_tab and wprim_tab; px, py,
-    pids: (R,) integer CUDA tensors. Returns (accLw (R, 3), accW (R,),
-    n_vertices (R,)) float32. Adds one to ``wide_megakernel_cuda.launches``
-    per launch; the closest-hit and shadow pops accumulate in
-    ``wide_megakernel_cuda.pops[device]`` (int64 (2,)), stack overflows and
-    iteration-cap hits in ``wide_megakernel_cuda.counters[device]`` (int32
-    (2,)); raises on a refused launch."""
+def occupancy(mode: int) -> int:
+    """Resident blocks per SM of the kernel for one mode."""
+    return nvcc.occupancy(build_kernel()["lib"].wide_megakernel_occupancy, mode)
+
+
+def _launch(entry: str, blob, mode: int, tables, px, py, pids, s0: int, n_samples: int, seed: int, *extra):
     dev = px.device
     if dev.type != "cuda":
         raise ValueError("wide_megakernel_cuda takes CUDA tensors")
@@ -653,7 +666,7 @@ def wide_megakernel_cuda(blob, mode: int, tables, px, py, pids, s0: int, n_sampl
             raise ValueError(f"{name} must be an integer ({R},) tensor on {dev}")
         lanes.append(x.to(torch.int32).contiguous())
     blob = blob.contiguous()
-    fn = build_kernel()["lib"].wide_megakernel
+    fn = getattr(build_kernel()["lib"], entry)
     out_l = torch.empty((R, 3), dtype=torch.float32, device=dev)
     out_w = torch.empty(R, dtype=torch.float32, device=dev)
     out_nv = torch.empty(R, dtype=torch.float32, device=dev)
@@ -663,15 +676,41 @@ def wide_megakernel_cuda(blob, mode: int, tables, px, py, pids, s0: int, n_sampl
     counters = wide_megakernel_cuda.counters.get(dev)
     if counters is None:
         counters = wide_megakernel_cuda.counters[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
+    queue = torch.zeros(1, dtype=torch.int32, device=dev)  # the next unserved lane
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(blob.data_ptr(), lanes[0].data_ptr(), lanes[1].data_ptr(), lanes[2].data_ptr(), R,
              int(seed) & M32, int(s0) & M32, int(n_samples), int(mode),
              tables.wmeta_tab.data_ptr(), tables.wnode_tab.data_ptr(), tables.wprim_tab.data_ptr(),
-             out_l.data_ptr(), out_w.data_ptr(), out_nv.data_ptr(), pops.data_ptr(), counters.data_ptr(), stream)
+             out_l.data_ptr(), out_w.data_ptr(), out_nv.data_ptr(), pops.data_ptr(), counters.data_ptr(),
+             queue.data_ptr(), stream, *(x.data_ptr() for x in extra))
     if err != 0:
-        raise RuntimeError(f"wide_megakernel launch failed: cudaError {err}")
-    wide_megakernel_cuda.launches += 1
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     return out_l, out_w, out_nv
+
+
+def wide_megakernel_cuda(blob, mode: int, tables, px, py, pids, s0: int, n_samples: int, seed: int):
+    """Launch the CUDA kernel on the current stream. blob: pack_wide_consts's
+    float32 tensor on the lanes' device; mode: kernel_mode(consts); tables:
+    the scene tensors holding wmeta_tab, wnode_tab and wprim_tab; px, py,
+    pids: (R,) integer CUDA tensors. Returns (accLw (R, 3), accW (R,),
+    n_vertices (R,)) float32. Adds one to ``wide_megakernel_cuda.launches``
+    per launch; the closest-hit and shadow pops accumulate in
+    ``wide_megakernel_cuda.pops[device]`` (int64 (2,)), stack overflows and
+    iteration-cap hits in ``wide_megakernel_cuda.counters[device]`` (int32
+    (2,)); raises on a refused launch."""
+    out = _launch("wide_megakernel", blob, mode, tables, px, py, pids, s0, n_samples, seed)
+    wide_megakernel_cuda.launches += 1
+    return out
+
+
+def wide_megakernel_split(blob, mode: int, tables, px, py, pids, s0: int, n_samples: int, seed: int):
+    """wide_megakernel_cuda through the instrumented instantiation, which
+    exists for mode 1 only ((0,2) sampler, area lights) and which no route
+    launches: returns (accLw, accW, n_vertices, split), split mapping
+    SPLIT_FIELDS to cycle counts summed over the launch."""
+    prof = torch.zeros(len(SPLIT_FIELDS), dtype=torch.int64, device=px.device)
+    out = _launch("wide_megakernel_split", blob, mode, tables, px, py, pids, s0, n_samples, seed, prof)
+    return (*out, dict(zip(SPLIT_FIELDS, prof.tolist())))
 
 
 wide_megakernel_cuda.launches = 0
@@ -684,7 +723,8 @@ def make_wide_megakernel_fn(cs, cam, icfg, scfg, fcfg, max_tris, consts=None):
     megakernel: fn(sa, px, py, pids, s0, n_samples, seed) -> (accLw (R, 3),
     accW (R,), n_vertices (R,)), or None if the scene is outside the class.
     CUDA lanes launch the kernel, CPU lanes run the plain twin; there is no
-    fallback from one to the other."""
+    fallback from one to the other. fn.blob (on the scene's device) and
+    fn.mode are the kernel's arguments for the scene's consts."""
     if consts is None:
         consts = extract_wide_consts(cs, cam, icfg, scfg, fcfg, max_tris)
     if consts is None:
@@ -705,4 +745,7 @@ def make_wide_megakernel_fn(cs, cam, icfg, scfg, fcfg, max_tris, consts=None):
             return wide_megakernel_plain(consts, sa, px, py, pixel_ids, s0, n_samples, seed)
         raise ValueError(f"the wide megakernel has no implementation for device {px.device}")
 
+    # what the launch takes, for tools that time or instrument the route's
+    # own launch (chip_smoke.py, tools/torch_phases.py)
+    wave_p.blob, wave_p.mode = blobs[cs.arrays.device], mode
     return wave_p

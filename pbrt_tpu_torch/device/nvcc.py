@@ -102,3 +102,15 @@ def build_all(sources) -> dict:
 def build(source) -> dict:
     """build_all for one source."""
     return build_all([source])[Path(source)]
+
+
+def occupancy(fn, *args) -> int:
+    """Resident blocks per SM from a kernel library's ``*_occupancy`` entry,
+    fn(*int args, int* blocks_per_sm) -> cudaError_t; raises on an error."""
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(*args, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {err}")
+    return out.value

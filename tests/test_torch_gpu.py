@@ -12,7 +12,9 @@ identical: B1 against the plain traversal, and the joint kernel (B2)
 against B1. The megakernels' sin/cos/log may differ from torch's by ulps,
 so the brute megakernel (B3) and the wide megakernel (B4) are held to their
 twins with the reference megakernels' image tolerances
-(tests/test_megakernel.py, tests/test_megakernel_wide.py).
+(tests/test_megakernel.py, tests/test_megakernel_wide.py). B4's persistent
+grid is also run on fewer lanes than it has path slots, to show that its
+pixel counter serves every lane exactly once.
 """
 import numpy as np
 import pytest
@@ -154,3 +156,53 @@ def test_wide_megakernel_matches_plain(cuda_device):
     diff = np.abs(L - L_p)
     assert float((diff / (np.abs(L_p) + 1e-2)).max()) < 2e-2
     assert float(diff.mean()) < 1e-4
+
+
+_MATERIAL_ROOM = {}
+
+
+def _material_room_consts():
+    """material_room compiled on the host once, with its B4 constants."""
+    if not _MATERIAL_ROOM:
+        desc = material_room()
+        cs = compile_scene(desc, "cpu")
+        icfg = {"kind": "path", "max_depth": desc.integrator.max_depth,
+                "rr_threshold": desc.integrator.rr_threshold, "light_strategy": desc.integrator.light_strategy}
+        consts = megakernel_wide.extract_wide_consts(
+            cs, make_camera(desc.camera, desc.film, "cpu"), icfg,
+            {"kind": desc.sampler.kind, "spp": desc.sampler.pixel_samples},
+            {"filter": "box", "filter_params": {}, "max_sample_luminance": float("inf")},
+            megakernel_wide.DEFAULT_MAX_TRIS)
+        _MATERIAL_ROOM.update(cs=cs, consts=consts, W=desc.film.x_resolution, H=desc.film.y_resolution)
+    return _MATERIAL_ROOM
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spp", [1, 3])
+@pytest.mark.parametrize("n_lanes", [37, 1000])
+def test_wide_megakernel_pixel_queue(cuda_device, n_lanes, spp):
+    """B4's persistent grid on lane counts that are not a multiple of its
+    block and smaller than its slots: every lane is served exactly once
+    (weight == n_samples), no stack overflow or iteration cap, and the
+    image is the twin's within chip_smoke phase 11's tolerance."""
+    room = _material_room_consts()
+    cs, consts, W, H = room["cs"], room["consts"], room["W"], room["H"]
+    pids = torch.as_tensor(np.random.RandomState(n_lanes + spp).choice(W * H, n_lanes, replace=False))
+    lanes = (pids % W, pids // W, pids)
+    counters = megakernel_wide.wide_megakernel_cuda.counters.get(cuda_device)
+    if counters is not None:
+        counters.zero_()
+    blob = megakernel_wide.pack_wide_consts(consts).to(cuda_device)
+    L, w, nv = (x.cpu() for x in megakernel_wide.wide_megakernel_cuda(
+        blob, megakernel_wide.kernel_mode(consts), cs.arrays.to(cuda_device), *(x.to(cuda_device) for x in lanes),
+        0, spp, 3))
+    torch.cuda.synchronize()
+    assert torch.equal(w, torch.full((n_lanes,), float(spp)))
+    assert megakernel_wide.wide_megakernel_cuda.counters[cuda_device].tolist() == [0, 0]
+    L_p, w_p, nv_p = megakernel_wide.wide_megakernel_plain(consts, cs.arrays, *lanes, 0, spp, 3)
+    assert torch.equal(w, w_p)
+    assert L_p.mean().item() > 0
+    assert abs(float(nv.double().sum()) - float(nv_p.double().sum())) <= 6
+    diff = (L - L_p).abs()
+    assert (diff / (L_p.abs() + 1e-2)).max().item() < 2e-2
+    assert diff.mean().item() < 1e-4

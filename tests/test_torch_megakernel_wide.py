@@ -19,9 +19,12 @@ reference's (tests/test_torch_megakernel.py ``_to_ref``). Covered:
 (d) pack_wide_consts round-trips;
 (e) the routes: PBRT_TPU_WIDEMEGA=1 takes material_room to the wide
     megakernel, whose image matches the reference kernel's; without it the
-    wavefront refuses the scene; on the mesh room the two routes agree.
+    wavefront refuses the scene; on the mesh room the two routes agree;
+(f) the blob offsets and the cycle-split record equal the CUDA source's,
+    and the kernel's wrappers refuse CPU lanes.
 """
 import dataclasses
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -355,6 +358,37 @@ def test_pack_wide_consts_round_trips(case):
         o = mw.MAT_BASE + s * mw.MAT_STRIDE
         e = dict(MAT_DEFAULTS, **consts["mats"][m])
         assert int(b[o + mw.M_ROW]) == m and int(b[o]) == e["lobe"]
+
+
+def _cu_defines():
+    src = mw.KERNEL_SOURCE.read_text()
+    return {k: v for k, v in re.findall(r"^#define (\w+) (\d+)\b", src, re.MULTILINE)}
+
+
+def test_blob_and_split_layouts_match_the_kernel():
+    """The blob offsets and the cycle-split record that the wrapper reads are
+    the kernel source's (csrc/megakernel_wide.cu)."""
+    d = _cu_defines()
+    for name in ("H_N_LIGHTS", "H_N_MATS", "H_MAX_DEPTH", "H_RR", "H_UNIFORM", "H_SAMPLER", "H_STRAT_XS",
+                 "H_STRAT_YS", "H_WR2", "H_FXW", "H_FYW", "H_MAX_LUM", "H_G7", "H_LENS_R", "H_FOCAL", "H_R2C",
+                 "H_C2W", "H_CDF", "H_PMF", "HEADER", "MAX_LIGHTS", "LIGHT_STRIDE", "MAX_MATS", "MAT_STRIDE",
+                 "L_AREA", "L_TWO_SIDED", "L_V", "L_NG", "M_ROW"):
+        assert int(d[name]) == getattr(mw, name), name
+    split = {k[len("SPLIT_"):].lower(): int(v) for k, v in d.items() if k.startswith("SPLIT_")}
+    assert int(d["N_SPLIT"]) == len(mw.SPLIT_FIELDS) == len(split)
+    kernel_names = {"shade": "shade_nee", "flush": "flush_regen", "idle": "idle_tail", "iters": "iterations"}
+    assert sorted(split.values()) == list(range(len(split)))
+    for name, i in split.items():
+        assert mw.SPLIT_FIELDS[i] == kernel_names.get(name, name), name
+
+
+@pytest.mark.parametrize("entry", ["wide_megakernel_cuda", "wide_megakernel_split"])
+def test_cuda_entries_refuse_cpu_lanes(entry):
+    """The kernel's wrappers take CUDA tensors only: CPU lanes raise before
+    any build or launch (the route sends CPU lanes to the plain twin)."""
+    lanes = torch.arange(4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        getattr(mw, entry)(torch.zeros(mw.BLOB_FLOATS), 1, None, lanes, lanes, lanes, 0, 1, 0)
 
 
 # --- (e) the routes --------------------------------------------------------------------

@@ -23,9 +23,11 @@ reports, with the card's name and power limit:
  3g. launch path (the megakernel scenes): the route's one call with a
     synchronize before and after: host time until it returns, device time
     by CUDA events, the whole call; for the wide megakernel also its
-    closest-hit and shadow pops per path vertex and the device time per
-    pop; then one such call under torch.profiler for the device busy share
-    (device time / untraced call wall);
+    closest-hit and shadow pops per path vertex, the device time per pop,
+    and the cycle split of its instrumented instantiation (phases as shares
+    of lane-cycles, the share of walk lanes holding a ray, resident blocks
+    per SM); then one such call under torch.profiler for the device busy
+    share (device time / untraced call wall);
  4. device (mesh only): one untraced render under torch.profiler: total
     kernel time, the device busy share (kernel time / wall) and the top
     kernels (--out also keeps the chrome trace).
@@ -33,7 +35,7 @@ reports, with the card's name and power limit:
 the panel's black Kd kept), so that a wide-megakernel run with and without
 it tells shading divergence from geometry. The spans are wrapped around the
 port's functions from this script; the program itself carries no tracing
-code.
+code but B4's instrumented instantiation, which no route launches.
 """
 from __future__ import annotations
 
@@ -230,6 +232,7 @@ def _launch_path(args, cs, rec):
         print(f"wide megakernel: {n_v:.0f} path vertices ({n_v / (W * H * spp):.3f} per sample); pops per vertex "
               f"closest {pc / n_v:.2f}, shadow {ps / n_v:.2f}; {rec['wide_megakernel']['ns_per_pop']:.4f} ns of "
               f"device time per pop", flush=True)
+        _wide_split(args, cs, rec, wave, lanes, med["device_ms"])
 
     # device busy share of one call under the profiler: every device event
     # recorded lies inside the call, which is the render's timed window
@@ -251,6 +254,43 @@ def _launch_path(args, cs, rec):
     print(f"device: {1e3 * dev_s:.4f} ms of device time; untraced call {med['call_ms']:.4f} ms -> busy "
           f"{100 * busy:.1f}%, idle {100 * (1 - busy):.1f}% (of the profiled call, {1e3 * call_s:.4f} ms: "
           f"busy {100 * dev_s / call_s:.1f}%)", flush=True)
+
+
+def _wide_split(args, cs, rec, wave, lanes, device_ms):
+    """The wide megakernel's cycle split: the route's launch (wave, the
+    route's function, gives its blob and mode) through the kernel's
+    instrumented instantiation (clock64 counters, (0,2) sampler with area
+    lights only), each field as a share of the total and as that share of
+    the instrumented launch's device time; plus the kernel's resident blocks
+    per SM."""
+    import torch
+
+    from pbrt_tpu_torch.device import megakernel_wide
+
+    blob, mode = wave.blob, wave.mode
+    spp = cs.description.sampler.pixel_samples
+    run = lambda: megakernel_wide.wide_megakernel_split(blob, mode, cs.arrays, *lanes, 0, spp, args.seed)  # noqa: E731
+    run()  # warm-up
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    split = run()[3]
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop)
+    total = split["total"]
+    phases = ("walk", "shade_nee", "flush_regen", "wait", "idle_tail")
+    shares = {k: split[k] / total for k in phases}
+    # the share of the walk phase's lane-cycles in which threads had a ray,
+    # and of the shading phase's (slots that walked) in which they shaded
+    busy = {"walk": split["walk_busy"] / max(split["walk_lanes"], 1),
+            "shade_nee": split["shade_busy"] / max(split["shade_nee"], 1)}
+    occ = megakernel_wide.occupancy(mode)
+    rec["wide_split"] = {"cycles": split, "shares": shares, "busy_of_phase": busy, "instrumented_ms": ms,
+                         "uninstrumented_ms": device_ms, "blocks_per_sm": occ}
+    print(f"wide megakernel split (instrumented launch {ms:.4f} ms against {device_ms:.4f} ms; {occ} blocks of "
+          f"128 threads per SM; {split['iterations']} block iterations): "
+          + ", ".join(f"{k} {100 * v:.1f}% ({v * ms:.2f} ms)" for k, v in shares.items())
+          + "; threads with work: " + ", ".join(f"{k} {100 * v:.1f}%" for k, v in busy.items()), flush=True)
 
 
 def _device(args, cs, rec, wall_median):
