@@ -15,10 +15,14 @@ Phases (one line each; any failure raises and the exit code is non-zero):
  3. B1 kernel vs plain: compiles the 123,650-triangle mesh room on the host,
     then traces 500,000 camera rays, one cosine bounce from their hits and
     shadow rays to the panel light through the CUDA kernel and through its
-    plain PyTorch twin, closest and any hit. Requires equal hit flags on
-    >= 99.99% of rays and, where both hit, equal prims on >= 99.99% with t
-    within rtol 1e-5 (FMA-free IEEE arithmetic on both sides; the margin is
-    for exact ties at shared edges). Times both with CUDA events;
+    plain PyTorch twin, closest and any hit, on the same Hopper records.
+    Requires t, prim/slot, b1, b2 and pops equal on every ray (FMA-free IEEE
+    arithmetic and the same pop order on both sides) and the stack-overflow
+    and iteration-cap counters 0. Prints per ray set the kernel's time
+    (CUDA events), ns per pop, the share of its lanes holding a ray (pops /
+    32 x its warps' loop iterations) and, from the same pops, the share one
+    lane per ray in a fixed grid would have (the earlier B1's); times the
+    plain twin on camera rays;
  4. mesh main path: render_compiled of the room at 1000x500, 16 spp, depth 5
     on cuda after a warm-up pass; checks the route label, traversal-kernel
     launches > 0 in that run, and a finite, non-black image; prints
@@ -41,11 +45,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     finite, non-black image; prints path_vertex_samples_per_sec;
  8. same gallery image on both devices: a 64x32 crop at 4 spp, held as in
     phase 5;
- 9. B2 against B1: the six ray sets of phase 3 through the joint traversal
-    kernel at 2 and 4 rays per thread; t, prim/slot, b1, b2 and pops must
-    equal B1's on every ray, and agree with phase 3's plain results as B1
-    does (the largest |dt|, |db| is B2's max_abs_err). Times B1 and both K
-    with CUDA events;
+ 9. B2 against B1: the six ray sets of phase 3 through the cooperative
+    traversal kernel (4 lanes per ray); t, prim/slot, b1, b2 and pops must
+    equal B1's, and so phase 3's plain results, on every ray (the largest
+    |dt|, |db| against plain is B2's max_abs_err). Times B1 and B2 with CUDA
+    events and prints the share of B2's lane groups holding a ray;
 10. mesh main path with PBRT_TPU_JOINT=1: route torch-wavefront/cuda-wide-
     joint, joint launches > 0 and B1 launches 0 in that run, and the image
     of phase 4 (sum|a-b| / sum|b| < 1e-6; prints whether it is bit-equal);
@@ -252,6 +256,20 @@ def _rays(cs):
             ("shadow", o_s.contiguous(), ls["wi"].contiguous(), t_s.contiguous())]
 
 
+def _lane_share(kernel, workers, sa, o, d, t_max, any_hit):
+    """One launch of a traversal wrapper; returns (the share of its warps'
+    workers (lanes, or lane groups) holding a ray over its loop iterations,
+    the launch's results)."""
+    import torch
+
+    iters = kernel.iterations.get(torch.device("cuda", 0))
+    if iters is not None:
+        iters.zero_()
+    res = kernel(sa, o, d, t_max, any_hit)
+    n_iter = kernel.iterations[torch.device("cuda", 0)].item()
+    return res[4].double().sum().item() / max(workers * n_iter, 1), res
+
+
 def _compare(name, any_hit, res_k, res_p):
     """Kernel vs plain outputs of one ray set; returns max |dt| on agreeing hits."""
     import torch
@@ -302,7 +320,7 @@ def main() -> int:
     nvcc.build_all([wide_bvh.KERNEL_SOURCE, wide_bvh.JOINT_SOURCE, megakernel.KERNEL_SOURCE,
                     megakernel_wide.KERNEL_SOURCE])
     # resident blocks per SM of each kernel (cudaOccupancyMaxActiveBlocksPerMultiprocessor), per variant
-    occupancy = (("wide_traverse_occupancy", [()]), ("wide_traverse_joint_occupancy", [(2,), (4,)]),
+    occupancy = (("wide_traverse_occupancy", [()]), ("wide_traverse_joint_occupancy", [()]),
                  ("brute_megakernel_occupancy", [(m,) for m in range(6)]),
                  ("wide_megakernel_occupancy", [(m,) for m in range(6)]))
     for build, (entry, variants) in zip((wide_bvh.build_kernel, wide_bvh.build_joint_kernel, megakernel.build_kernel,
@@ -314,6 +332,8 @@ def main() -> int:
         occ = [nvcc.occupancy(getattr(info["lib"], entry), *v) for v in variants]
         print(f"[2 build] {Path(info['path']).name} in {info['seconds']:.1f}s; ptxas: {regs}; {spills}; "
               f"blocks per SM by variant {occ}", flush=True)
+    group = wide_bvh.joint_group_width()
+    print(f"[2 build] B2 walks a ray with {group} lanes, {32 // group} rays per warp", flush=True)
 
     # --- 3. B1 kernel vs plain at the main path's shapes ---
     t0 = time.perf_counter()
@@ -321,42 +341,53 @@ def main() -> int:
     host_s = time.perf_counter() - t0
     cs = cs_host.to("cuda")
     sa = cs.arrays
-    tab_bytes = {n: getattr(sa, n).numel() * getattr(sa, n).element_size()
-                 for n in ("wnode_tab", "wprim_tab", "wmeta_tab")}
-    print(f"[3 scene] {cs.static.n_prims} triangles, host compile {host_s:.1f}s, wide tables "
+    tab_bytes = {n: getattr(sa, n).numel() * getattr(sa, n).element_size() for n in ("wnode_rec", "wleaf_rec")}
+    print(f"[3 scene] {cs.static.n_prims} triangles, host compile {host_s:.1f}s, Hopper wide tables "
           f"{sum(tab_bytes.values())} bytes {tab_bytes}, all tables {sa.byte_size()} bytes", flush=True)
+    dev = torch.device("cuda", 0)
     max_err = 0.0
     ms = plain_ms = b1_bound = None
     ray_sets = _rays(cs)
     plain_res = {}  # (ray set, any hit) -> traverse_plain's results, B2's reference in phase 9
     for name, o, d, t_max in ray_sets:
         for any_hit in (False, True):
-            res_k = wide_bvh.traverse_cuda(sa, o, d, t_max, any_hit)
+            label = f"{name}/{'any' if any_hit else 'closest'}"
+            share_k, res_k = _lane_share(wide_bvh.traverse_cuda, 32, sa, o, d, t_max, any_hit)
             res_p = plain_res[name, any_hit] = wide_bvh.traverse_plain(sa, o, d, t_max, any_hit)
             max_err = max(max_err, _compare(name, any_hit, res_k, res_p))
             if res_p[5] != (0, 0):
                 raise AssertionError(f"plain traversal stack overflow / iteration cap: {res_p[5]}")
-            if name == "camera" and not any_hit:
-                ms = _cuda_ms(lambda: wide_bvh.traverse_cuda(sa, o, d, t_max, False), 20)
+            if not all(torch.equal(x, y.to(x.dtype)) for x, y in zip(res_k, res_p[:5])):
+                raise AssertionError(f"B1 and the plain traversal differ on {label} (t, idx, b1, b2 or pops)")
+            k_ms = _cuda_ms(lambda: wide_bvh.traverse_cuda(sa, o, d, t_max, any_hit), 20)
+            pops = res_k[4].double()
+            # one lane per ray in a fixed grid: a warp of 32 consecutive rays
+            # pops as often as its longest walk
+            n32 = -(-pops.numel() // 32) * 32
+            per_warp = torch.nn.functional.pad(pops, (0, n32 - pops.numel())).view(-1, 32).max(1).values
+            fixed = pops.sum().item() / (32 * per_warp.sum().item())
+            print(f"  {label}: B1 {k_ms:.4f} ms, {1e6 * k_ms / pops.sum().item():.4f} ns per pop, pops/ray "
+                  f"{pops.mean().item():.2f}; lanes with a ray {share_k:.4f} (one lane per ray in a fixed grid: "
+                  f"{fixed:.4f})", flush=True)
+            if label == "camera/closest":
+                ms = k_ms
                 plain_ms = _cuda_ms(lambda: wide_bvh.traverse_plain(sa, o, d, t_max, False), 2)
-                pops = res_k[4].double()
-                # inputs read once (rays, tables), outputs written once (t,
-                # prim, b1, b2, pops); operations from this run's pops
-                b1_bytes = _nbytes(o, d, t_max, sa.wnode_tab, sa.wprim_tab, sa.wmeta_tab, *res_k[:5])
+                # inputs read once (rays, the Hopper tables), outputs written
+                # once (t, prim, b1, b2, pops); operations from this run's pops
+                b1_bytes = _nbytes(o, d, t_max, sa.wnode_rec, sa.wleaf_rec, *res_k[:5])
                 b1_bound = _bound(b1_bytes, float(pops.sum()) * B1_OPS_PER_POP)
                 print(f"  camera/closest: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms for {o.shape[0]} rays; "
-                      f"pops/ray mean {pops.mean().item():.2f} max {int(pops.max().item())}; bound "
-                      f"{b1_bound[0]:.4f} ms ({b1_bound[1]}: {b1_bytes} bytes, {float(pops.sum()):.0f} pops)",
-                      flush=True)
-    counters = wide_bvh.traverse_cuda.counters[torch.device("cuda", 0)].tolist()
+                      f"pops/ray max {int(pops.max().item())}; bound {b1_bound[0]:.4f} ms ({b1_bound[1]}: "
+                      f"{b1_bytes} bytes, {float(pops.sum()):.0f} pops)", flush=True)
+    counters = wide_bvh.traverse_cuda.counters[dev].tolist()
     if counters != [0, 0]:
         raise AssertionError(f"kernel stack overflows / iteration-cap hits: {counters}")
-    print(f"[3 kernel-vs-plain] ok; max abs err {max_err:.3e}", flush=True)
+    print(f"[3 kernel-vs-plain] ok, equal on all six ray sets; max abs err {max_err:.3e}", flush=True)
 
     # --- 4. the mesh main path ---
     mesh_timing, b1_launches, mesh_img = _main_path("4 mesh main path", cs, "torch-wavefront/cuda-wide",
                                                     wide_bvh.traverse_cuda)
-    counters = wide_bvh.traverse_cuda.counters[torch.device("cuda", 0)].tolist()
+    counters = wide_bvh.traverse_cuda.counters[dev].tolist()
     if counters != [0, 0]:
         raise AssertionError(f"kernel stack overflows / iteration-cap hits: {counters}")
 
@@ -420,30 +451,27 @@ def main() -> int:
     _check_crop("8 cuda-vs-cpu gallery crop", g, g_host, gd)
 
     # --- 9. B2 against B1 on the six ray sets of phase 3 ---
-    dev = torch.device("cuda", 0)
     b2_ms = {}
     b2_err = 0.0
     for name, o, d, t_max in ray_sets:
         for any_hit in (False, True):
-            ref_res = wide_bvh.traverse_cuda(sa, o, d, t_max, any_hit)
             label = f"{name}/{'any' if any_hit else 'closest'}"
-            times = [_cuda_ms(lambda: wide_bvh.traverse_cuda(sa, o, d, t_max, any_hit), 20)]
-            for k in (2, 4):
-                res = wide_bvh.traverse_joint_cuda(sa, o, d, t_max, any_hit, k)
-                if not all(torch.equal(x, y) for x, y in zip(res, ref_res)):
-                    raise AssertionError(f"the joint kernel (K={k}) differs from B1 on {label}")
-                b2_err = max(b2_err, _compare(f"K={k} {name}", any_hit, res, plain_res[name, any_hit]))
-                times.append(_cuda_ms(lambda: wide_bvh.traverse_joint_cuda(sa, o, d, t_max, any_hit, k), 20))
+            ref_res = wide_bvh.traverse_cuda(sa, o, d, t_max, any_hit)
+            share, res = _lane_share(wide_bvh.traverse_joint_cuda, 32 // group, sa, o, d, t_max, any_hit)
+            if not all(torch.equal(x, y) for x, y in zip(res, ref_res)):
+                raise AssertionError(f"the cooperative kernel differs from B1 on {label}")
+            b2_err = max(b2_err, _compare(f"B2 {name}", any_hit, res, plain_res[name, any_hit]))
+            times = [_cuda_ms(lambda: wide_bvh.traverse_cuda(sa, o, d, t_max, any_hit), 20),
+                     _cuda_ms(lambda: wide_bvh.traverse_joint_cuda(sa, o, d, t_max, any_hit), 20)]
             b2_ms[label] = times
-            print(f"  {label}: equal to B1 at K=2 and K=4; B1 {times[0]:.4f} ms, joint K=2 {times[1]:.4f} ms, "
-                  f"K=4 {times[2]:.4f} ms", flush=True)
+            pops = float(res[4].double().sum())
+            print(f"  {label}: equal to B1; B1 {times[0]:.4f} ms, B2 {times[1]:.4f} ms ({times[1] / times[0]:.3f}x), "
+                  f"{1e6 * times[1] / pops:.4f} ns per pop; groups with a ray {share:.4f}", flush=True)
     if wide_bvh.traverse_joint_cuda.counters[dev].tolist() != [0, 0]:
-        raise AssertionError("joint kernel stack overflows / iteration-cap hits")
-    k_route = wide_bvh.JOINT_K
-    b2_cam_ms = b2_ms["camera/closest"][1 if k_route == 2 else 2]
-    print(f"[9 B2 vs B1] ok, bit-equal on all six ray sets; max abs err against plain {b2_err:.3e}; the route "
-          f"takes K={k_route}; camera/closest {b2_cam_ms:.4f} ms against B1 {b2_ms['camera/closest'][0]:.4f} ms",
-          flush=True)
+        raise AssertionError("cooperative kernel stack overflows / iteration-cap hits")
+    b2_cam_ms = b2_ms["camera/closest"][1]
+    print(f"[9 B2 vs B1] ok, bit-equal on all six ray sets; max abs err against plain {b2_err:.3e}; camera/closest "
+          f"{b2_cam_ms:.4f} ms against B1 {b2_ms['camera/closest'][0]:.4f} ms", flush=True)
 
     # --- 10. the mesh main path through the joint kernel ---
     with mock.patch.dict(os.environ, PBRT_TPU_JOINT="1"):
@@ -501,7 +529,7 @@ def main() -> int:
         raise AssertionError("the wide megakernel traced other paths than the per-lane kernel on material_room")
     # inputs px, py, pid (int32) and the wide tables read once, outputs L, w,
     # nv written once; operations from this run's pops and path vertices
-    b4_bytes = 3 * 4 * W * H + _nbytes(m.arrays.wnode_tab, m.arrays.wprim_tab, m.arrays.wmeta_tab) + 5 * 4 * W * H
+    b4_bytes = 3 * 4 * W * H + _nbytes(m.arrays.wnode_rec, m.arrays.wleaf_rec) + 5 * 4 * W * H
     b4_ops = (pops_c + pops_s) * B1_OPS_PER_POP + nv16 * B3_OPS_SHADE
     b4_bound = _bound(b4_bytes, b4_ops)
     print(f"  {W}x{H} {spp}spp: kernel {b4_ms:.4f} ms, plain {b4_plain_ms:.1f} ms; {nv16:.0f} path vertices "

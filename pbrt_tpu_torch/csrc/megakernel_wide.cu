@@ -15,8 +15,8 @@
 // device/megakernel_wide.py wide_megakernel_plain.
 //
 // What bounds it on Hopper, and what the design does about it:
-//  - The walks are chains of dependent loads (meta -> eight child boxes ->
-//    the next meta, wide_traverse.cuh), so the kernel runs at the rate at
+//  - The walks are chains of dependent loads (a node record's eight child
+//    boxes -> the next record, wide_traverse.cuh), so the kernel runs at the rate at
 //    which the SM hides load latency, which is set by the rays in flight:
 //    resident warps times the lanes that have a ray. A thread that carries a
 //    whole path through both walks holds ~128 registers (4 blocks of 128
@@ -60,13 +60,14 @@
 // emission, and a sample is flushed, or its pixel finished, only after
 // that.
 //
-// Data: the traversal returns the winner's row of wprim_tab (vertices,
-// material row, light row and flags), read again when the hit is shaded;
-// lights, materials and camera are one float blob
-// (device/megakernel_wide.py pack_wide_consts, offsets below) in shared
-// memory; wmeta, wnode and wprim are read with __ldg (the 123,650-triangle
-// room's 13 MB stay in the 50 MB L2); sampler kind and whether the scene
-// has area lights are template parameters.
+// Data: the traversal returns the winner's row of the leaf rows leaf_rec
+// (vertices, material row, light row and flags; the Hopper layout of
+// wide_traverse.cuh), read again when the hit is shaded; lights, materials
+// and camera are one float blob (device/megakernel_wide.py
+// pack_wide_consts, offsets below) in shared memory; node records and leaf
+// rows are read with __ldg (the 123,650-triangle room's 12 MB stay in the
+// 50 MB L2); sampler kind and whether the scene has area lights are
+// template parameters.
 //
 // Counters: each warp adds its threads' closest-hit and shadow pops to
 // pop_counts[0] and [1] (one atomic per warp at the end); stack overflows
@@ -116,7 +117,7 @@
 #define LIGHT_AREA 4
 
 // material record: the M_* fields of pt_common.cuh, plus the material-table
-// row the slot bakes (the wprim_tab payload names rows, not slots)
+// row the slot bakes (the leaf rows' payload names rows, not slots)
 #define M_ROW 31
 
 // --- the block: THREADS path slots, one per thread ------------------------------
@@ -156,7 +157,7 @@
 #define F_AW 24     // ... of weights
 #define F_NV 25     // ... of path vertices
 #define F_KEY 26
-#define F_ROW 27    // the hit: float offset of the winner's wprim_tab row
+#define F_ROW 27    // the hit: float offset of the winner's row in leaf_rec
 #define F_B1 28
 #define F_B2 29
 #define F_SO 30     // the queued shadow ray: origin (3)
@@ -440,9 +441,9 @@ __device__ __forceinline__ bool nee_light(const float* blob, const float* m, uin
 // sample needs one; leaves the slot's S_* state in F_KEY.
 template <int SAMPLER, int ANY_AREA>
 __device__ __forceinline__ bool shade(float* st, int i, int key, const float* blob,
-                                      const float* __restrict__ prim_tab) {
+                                      const float* __restrict__ leaf_rec) {
     Hit h;
-    const int light = tri_attrs(prim_tab + geti(st, F_ROW, i), fld(st, F_B1, i), fld(st, F_B2, i), blob[H_G7], h);
+    const int light = tri_attrs(leaf_rec + geti(st, F_ROW, i), fld(st, F_B1, i), fld(st, F_B2, i), blob[H_G7], h);
     const float wox = -fld(st, F_D, i), woy = -fld(st, F_D + 1, i), woz = -fld(st, F_D + 2, i);
     float L[3], beta[3];
 #pragma unroll
@@ -623,8 +624,8 @@ template <int SAMPLER, int ANY_AREA, int PROF>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 wide_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict__ px_in,
                        const int* __restrict__ py_in, const int* __restrict__ pid_in, int n_lanes,
-                       uint32_t seed, uint32_t s0, int n_samples, const int* __restrict__ meta_tab,
-                       const float* __restrict__ node_tab, const float* __restrict__ prim_tab,
+                       uint32_t seed, uint32_t s0, int n_samples, const float* __restrict__ node_rec,
+                       const float* __restrict__ leaf_rec,
                        float* __restrict__ out_l, float* __restrict__ out_w, float* __restrict__ out_nv,
                        unsigned long long* __restrict__ pop_counts, unsigned int* __restrict__ trav_counters,
                        int* __restrict__ queue, unsigned long long* __restrict__ prof) {
@@ -704,16 +705,16 @@ wide_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict__
                     shadow = item >= n_walk;
                     slot = shadow ? B.shlist[item - n_walk] : B.wlist[item];
                     if (shadow) {
-                        wide_init(r, stack, fld(st, F_SO, slot), fld(st, F_SO + 1, slot), fld(st, F_SO + 2, slot),
+                        wide_init(r, fld(st, F_SO, slot), fld(st, F_SO + 1, slot), fld(st, F_SO + 2, slot),
                                   fld(st, F_SD, slot), fld(st, F_SD + 1, slot), fld(st, F_SD + 2, slot),
                                   fld(st, F_TMAX, slot), true);
                     } else {
-                        wide_init(r, stack, fld(st, F_O, slot), fld(st, F_O + 1, slot), fld(st, F_O + 2, slot),
+                        wide_init(r, fld(st, F_O, slot), fld(st, F_O + 1, slot), fld(st, F_O + 2, slot),
                                   fld(st, F_D, slot), fld(st, F_D + 1, slot), fld(st, F_D + 2, slot), INFINITY,
                                   false);
                     }
                 }
-                if (r.sp > 0) wide_pop(r, stack, meta_tab, node_tab, prim_tab, trav_counters);
+                if (r.sp > 0) wide_pop(r, stack, node_rec, leaf_rec, trav_counters);
                 if (r.sp > 0) continue;
                 // the item is done
                 if (shadow) {
@@ -779,7 +780,7 @@ wide_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict__
         int sslot = -1;
         if (tid < n_shade) {
             sslot = B.sperm[tid];
-            want_sh = shade<SAMPLER, ANY_AREA>(st, sslot, geti(st, F_KEY, sslot) & 15, blob, prim_tab);
+            want_sh = shade<SAMPLER, ANY_AREA>(st, sslot, geti(st, F_KEY, sslot) & 15, blob, leaf_rec);
             if (PROF) sp[SPLIT_SHADE_BUSY] += (unsigned long long)(clock64() - t_ph);
         }
         const int shpos = warp_take(want_sh, &B.n_sh);
@@ -861,8 +862,8 @@ static const void* kernel_for(int mode) {
 // Launch kern on the persistent grid: min(resident blocks per SM x SMs,
 // the blocks n_lanes can fill). Returns a cudaError_t.
 static int launch(const void* kern, const void* blob, const void* px, const void* py, const void* pid, int n_lanes,
-                  unsigned int seed, unsigned int s0, int n_samples, const void* meta_tab, const void* node_tab,
-                  const void* prim_tab, void* out_l, void* out_w, void* out_nv, void* pop_counts,
+                  unsigned int seed, unsigned int s0, int n_samples, const void* node_rec,
+                  const void* leaf_rec, void* out_l, void* out_w, void* out_nv, void* pop_counts,
                   void* trav_counters, void* queue, void* stream, void* prof) {
     if (n_lanes <= 0) return (int)cudaGetLastError();
     int dev = 0, sms = 0, per_sm = 0;
@@ -875,8 +876,8 @@ static int launch(const void* kern, const void* blob, const void* px, const void
     const int blocks = (int)(fill < grid ? fill : grid);
     if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
     uint32_t seed_u = seed, s0_u = s0;
-    void* args[] = {&blob, &px, &py, &pid, &n_lanes, &seed_u, &s0_u, &n_samples, &meta_tab, &node_tab,
-                    &prim_tab, &out_l, &out_w, &out_nv, &pop_counts, &trav_counters, &queue, &prof};
+    void* args[] = {&blob, &px, &py, &pid, &n_lanes, &seed_u, &s0_u, &n_samples, &node_rec,
+                    &leaf_rec, &out_l, &out_w, &out_nv, &pop_counts, &trav_counters, &queue, &prof};
     return (int)cudaLaunchKernel(kern, dim3(blocks), dim3(THREADS), args, 0, (cudaStream_t)stream);
 }
 
@@ -884,12 +885,12 @@ static int launch(const void* kern, const void* blob, const void* px, const void
 // before the launch. Returns the cudaError_t of the launch (or
 // cudaErrorInvalidValue for a bad mode).
 extern "C" int wide_megakernel(const void* blob, const void* px, const void* py, const void* pid, int n_lanes,
-                               unsigned int seed, unsigned int s0, int n_samples, int mode, const void* meta_tab,
-                               const void* node_tab, const void* prim_tab, void* out_l, void* out_w, void* out_nv,
+                               unsigned int seed, unsigned int s0, int n_samples, int mode, const void* node_rec,
+                               const void* leaf_rec, void* out_l, void* out_w, void* out_nv,
                                void* pop_counts, void* trav_counters, void* queue, void* stream) {
     const void* kern = kernel_for(mode);
     if (kern == nullptr) return (int)cudaErrorInvalidValue;
-    return launch(kern, blob, px, py, pid, n_lanes, seed, s0, n_samples, meta_tab, node_tab, prim_tab, out_l, out_w,
+    return launch(kern, blob, px, py, pid, n_lanes, seed, s0, n_samples, node_rec, leaf_rec, out_l, out_w,
                   out_nv, pop_counts, trav_counters, queue, stream, nullptr);
 }
 
@@ -898,12 +899,12 @@ extern "C" int wide_megakernel(const void* blob, const void* px, const void* py,
 // into prof.
 extern "C" int wide_megakernel_split(const void* blob, const void* px, const void* py, const void* pid, int n_lanes,
                                      unsigned int seed, unsigned int s0, int n_samples, int mode,
-                                     const void* meta_tab, const void* node_tab, const void* prim_tab, void* out_l,
+                                     const void* node_rec, const void* leaf_rec, void* out_l,
                                      void* out_w, void* out_nv, void* pop_counts, void* trav_counters, void* queue,
                                      void* stream, void* prof) {
     if (mode != 1) return (int)cudaErrorInvalidValue;
     return launch((const void*)wide_megakernel_kernel<0, 1, 1>, blob, px, py, pid, n_lanes, seed, s0, n_samples,
-                  meta_tab, node_tab, prim_tab, out_l, out_w, out_nv, pop_counts, trav_counters, queue, stream,
+                  node_rec, leaf_rec, out_l, out_w, out_nv, pop_counts, trav_counters, queue, stream,
                   prof);
 }
 

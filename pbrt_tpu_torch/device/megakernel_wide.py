@@ -19,8 +19,9 @@ reads PBRT_TPU_WIDEMEGA_MAX_TRIS, default 4096).
   the same baked constants; anything outside the class gives None and a
   reason. The reference's two TPU memory budgets are not carried over.
 - ``pack_wide_consts``: lights, materials, camera and header as one flat
-  float32 blob (layout below), beside the three wide-BVH tables the only
-  things the CUDA kernel reads.
+  float32 blob (layout below), beside the wide BVH's node records and leaf
+  rows (``scene/widebvh.hopper_layout``) the only things the CUDA kernel
+  reads.
 - ``wide_megakernel_plain``: the same per-lane loop over (R,) tensors,
   reusing the brute megakernel's plain helpers and ``traverse_plain`` for
   both walks.
@@ -96,7 +97,7 @@ def _extract(cs, cam, icfg, scfg, fcfg, max_tris):
     from .materials import bake_lobes
 
     sa, static = cs.arrays, cs.static
-    if not static.has_wide or sa.wmeta_tab is None:
+    if not static.has_wide or sa.wnode_rec is None:
         return None, "scenes without the wide-BVH tables (at most 64 prims, or quadrics)"
     if static.n_tris > max_tris:
         return None, f"more than {max_tris} triangles (PBRT_TPU_WIDEMEGA_MAX_TRIS)"
@@ -622,7 +623,7 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p]
 # The cycle split of the instrumented instantiation, in the order of its
@@ -680,7 +681,7 @@ def _launch(entry: str, blob, mode: int, tables, px, py, pids, s0: int, n_sample
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(blob.data_ptr(), lanes[0].data_ptr(), lanes[1].data_ptr(), lanes[2].data_ptr(), R,
              int(seed) & M32, int(s0) & M32, int(n_samples), int(mode),
-             tables.wmeta_tab.data_ptr(), tables.wnode_tab.data_ptr(), tables.wprim_tab.data_ptr(),
+             tables.wnode_rec.data_ptr(), tables.wleaf_rec.data_ptr(),
              out_l.data_ptr(), out_w.data_ptr(), out_nv.data_ptr(), pops.data_ptr(), counters.data_ptr(),
              queue.data_ptr(), stream, *(x.data_ptr() for x in extra))
     if err != 0:
@@ -691,7 +692,7 @@ def _launch(entry: str, blob, mode: int, tables, px, py, pids, s0: int, n_sample
 def wide_megakernel_cuda(blob, mode: int, tables, px, py, pids, s0: int, n_samples: int, seed: int):
     """Launch the CUDA kernel on the current stream. blob: pack_wide_consts's
     float32 tensor on the lanes' device; mode: kernel_mode(consts); tables:
-    the scene tensors holding wmeta_tab, wnode_tab and wprim_tab; px, py,
+    the scene tensors holding the wide BVH's wnode_rec and wleaf_rec; px, py,
     pids: (R,) integer CUDA tensors. Returns (accLw (R, 3), accW (R,),
     n_vertices (R,)) float32. Adds one to ``wide_megakernel_cuda.launches``
     per launch; the closest-hit and shadow pops accumulate in

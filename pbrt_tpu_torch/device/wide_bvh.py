@@ -1,23 +1,26 @@
-"""Wide-BVH ray queries: the hand-written CUDA traversal kernel and its plain
-PyTorch twin.
+"""Wide-BVH ray queries: the hand-written CUDA traversal kernels and their
+plain PyTorch twin.
 
 The port's counterpart of ``pbrt_tpu/device/pallas_bvh.py``. The TPU kernel
 (``_traverse_kernel_impl``) walks 256-ray packets over one shared stack; the
-CUDA kernel (``csrc/wide_traverse.cu``) gives every ray its own thread and
-stack, and reads the same tables (``scene/widebvh.py`` layout) with the same
-box test, watertight triangle test and tie rules, so hits agree with the
-reference up to packet-versus-ray visit order.
+CUDA kernel (``csrc/wide_traverse.cu``, B1) gives every ray its own stack
+and keeps persistent lanes busy from a ray queue, and reads the Hopper
+layout of the same tree (``tables.wnode_rec``, ``tables.wleaf_rec``,
+``scene/widebvh.hopper_layout``) with the same box test, watertight
+triangle test and tie rules, so hits agree with the reference up to
+packet-versus-ray visit order.
 
-The joint kernel (``csrc/wide_traverse_joint.cu``, the counterpart of
-``pallas_bvh._traverse_kernel_joint``) has the same contract: each thread
-carries K rays and advances them one pop each per loop iteration, and a
-ray's results are B1's bit for bit. The wavefront takes it when its route is
-built with PBRT_TPU_JOINT=1 (render.make_persistent_fn).
+The joint kernel (``csrc/wide_traverse_joint.cu``, B2, the counterpart of
+``pallas_bvh._traverse_kernel_joint``) has the same contract: a group of 4
+lanes walks one ray together, and a ray's results are B1's bit for bit.
+The wavefront takes it when its route is built with PBRT_TPU_JOINT=1
+(render.make_persistent_fn).
 
 ``wide_intersect`` launches a kernel for CUDA tensors and runs
 ``wide_intersect_plain`` only for CPU tensors; it never falls back from one
-to the other. The plain version is the same per-ray traversal vectorised
-over rays with an (R, 72) stack tensor, looping until every stack is empty.
+to the other. The plain version is the same per-ray traversal on the same
+records vectorised over rays with an (R, 72) stack tensor, looping until
+every stack is empty.
 
 The kernels are compiled with nvcc at their first launch (device/nvcc.py)
 and loaded with ctypes.
@@ -31,15 +34,13 @@ import torch
 
 from . import nvcc
 
-STACK = 72  # >= wide-tree depth x safety
+STACK = 72  # stack entries (node, child mask, direction) per ray
 EPS = 1e-4  # watertight test t_min (intersect.SHADOW_EPS)
 ITER_CAP = 1_000_000  # pops per ray; a safety valve only
 SORT_MIN_RAYS = 512  # the reference sorts only waves of >= 2 packets
 
 KERNEL_SOURCE = nvcc.CSRC / "wide_traverse.cu"
 JOINT_SOURCE = nvcc.CSRC / "wide_traverse_joint.cu"
-# rays per thread of the joint kernel on the wavefront's joint route
-JOINT_K = 2
 
 
 # ---------------------------------------------------------------------------
@@ -47,43 +48,65 @@ JOINT_K = 2
 # ---------------------------------------------------------------------------
 
 
+# o, d, t_max, n_rays, node_rec, leaf_rec, any_hit, t, idx, b1, b2, pops,
+# counters, iters, queue, stream
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 ]
+
+
+def _bind(source, entry) -> dict:
+    info = nvcc.build(source)
+    fn = getattr(info["lib"], entry)
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return info
 
 
 def build_kernel() -> dict:
     """Compile (if needed) and load the traversal kernel library:
     {"lib", "seconds", "log", "path"} as device/nvcc.build returns it."""
-    info = nvcc.build(KERNEL_SOURCE)
-    info["lib"].wide_traverse.argtypes = _ARGTYPES
-    info["lib"].wide_traverse.restype = ctypes.c_int
-    return info
+    return _bind(KERNEL_SOURCE, "wide_traverse")
 
 
 def build_joint_kernel() -> dict:
-    """build_kernel for the joint traversal kernel (csrc/wide_traverse_joint.cu),
-    whose C entry takes the rays per thread after any_hit."""
-    info = nvcc.build(JOINT_SOURCE)
-    info["lib"].wide_traverse_joint.argtypes = _ARGTYPES[:8] + [ctypes.c_int] + _ARGTYPES[8:]
-    info["lib"].wide_traverse_joint.restype = ctypes.c_int
-    return info
+    """build_kernel for the cooperative traversal kernel
+    (csrc/wide_traverse_joint.cu), whose C entry takes B1's arguments."""
+    return _bind(JOINT_SOURCE, "wide_traverse_joint")
+
+
+def joint_group_width() -> int:
+    """Lanes per ray of the cooperative kernel (its GW)."""
+    return build_joint_kernel()["lib"].wide_traverse_joint_group_width()
 
 
 def _check_tables(tables, device):
-    for name, dtype in (("wnode_tab", torch.float32), ("wprim_tab", torch.float32),
-                        ("wmeta_tab", torch.int32)):
+    for name, cols in (("wnode_rec", 64), ("wleaf_rec", 16)):
         t = getattr(tables, name)
-        if t.device != device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {dtype} tensor on {device}")
-    if tables.wnode_tab.shape[1] != 128 or tables.wprim_tab.shape[1] != 128:
-        raise ValueError("wide-BVH tables must have 128 columns")
+        if t is None or t.device != device or t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.dim() != 2 or t.shape[1] != cols:
+            raise ValueError(f"{name} must be a contiguous float32 (N, {cols}) tensor on {device}")
 
 
-def _launch(wrapper, fn, tables, o, d, t_max, any_hit, extra=()):
+def _state(wrapper, dev, stream):
+    """The wrapper's per-device counters and iteration sum, and its ray queue
+    for this stream (zeroed once here; each launch's last block re-zeroes it)."""
+    counters = wrapper.counters.get(dev)
+    if counters is None:
+        counters = wrapper.counters[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
+    iters = wrapper.iterations.get(dev)
+    if iters is None:
+        iters = wrapper.iterations[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+    queue = wrapper.queues.get((dev, stream))
+    if queue is None:
+        queue = wrapper.queues[dev, stream] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return counters, iters, queue
+
+
+def _launch(wrapper, fn, tables, o, d, t_max, any_hit):
     """Check the inputs, launch fn (one of the C entries) on the current
     stream and count the launch on wrapper; returns (t, idx, b1, b2, pops)."""
     dev = o.device
@@ -100,14 +123,12 @@ def _launch(wrapper, fn, tables, o, d, t_max, any_hit, extra=()):
     b1 = torch.empty(R, dtype=torch.float32, device=dev)
     b2 = torch.empty(R, dtype=torch.float32, device=dev)
     pops = torch.empty(R, dtype=torch.int32, device=dev)
-    counters = wrapper.counters.get(dev)
-    if counters is None:
-        counters = wrapper.counters[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    counters, iters, queue = _state(wrapper, dev, stream)
     err = fn(o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R,
-             tables.wmeta_tab.data_ptr(), tables.wnode_tab.data_ptr(), tables.wprim_tab.data_ptr(),
-             int(bool(any_hit)), *extra, t.data_ptr(), idx.data_ptr(), b1.data_ptr(), b2.data_ptr(),
-             pops.data_ptr(), counters.data_ptr(), stream)
+             tables.wnode_rec.data_ptr(), tables.wleaf_rec.data_ptr(), int(bool(any_hit)),
+             t.data_ptr(), idx.data_ptr(), b1.data_ptr(), b2.data_ptr(), pops.data_ptr(),
+             counters.data_ptr(), iters.data_ptr(), queue.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
     wrapper.launches += 1
@@ -118,38 +139,36 @@ def traverse_cuda(tables, o, d, t_max, any_hit: bool):
     """Launch the CUDA kernel. Returns (t, idx, b1, b2, pops): idx is the
     global prim row (closest hit) or the kernel slot (any hit), -1 on a
     miss. Adds one to ``traverse_cuda.launches`` per launch; stack overflows
-    and iteration-cap hits accumulate in ``traverse_cuda.counters``."""
+    and iteration-cap hits accumulate in ``traverse_cuda.counters``, the
+    warps' loop iterations in ``traverse_cuda.iterations`` (sum(pops) /
+    (32 x iterations) is the share of lanes holding a ray)."""
     return _launch(traverse_cuda, build_kernel()["lib"].wide_traverse, tables, o, d, t_max, any_hit)
 
 
 traverse_cuda.launches = 0
 traverse_cuda.counters = {}  # device -> int32 (2,): stack overflows, iteration-cap hits
+traverse_cuda.iterations = {}  # device -> int64 (1,): warp loop iterations with a pop
+traverse_cuda.queues = {}  # (device, stream) -> int32 (2,): next ray id, finished blocks
 
 
-def traverse_joint_cuda(tables, o, d, t_max, any_hit: bool, k: int = JOINT_K):
-    """Launch the joint traversal kernel, k rays per thread (2 or 4). Same
-    contract and results as traverse_cuda; counts in
-    ``traverse_joint_cuda.launches`` and ``traverse_joint_cuda.counters``."""
-    if k not in (2, 4):
-        raise ValueError(f"the joint kernel is built for 2 or 4 rays per thread, not {k}")
+def traverse_joint_cuda(tables, o, d, t_max, any_hit: bool):
+    """Launch the cooperative traversal kernel (B2). Same contract and
+    results as traverse_cuda; counts in ``traverse_joint_cuda.launches``,
+    ``.counters`` and ``.iterations`` (sum(pops) / (32 / joint_group_width()
+    x iterations) is the share of lane groups holding a ray)."""
     return _launch(traverse_joint_cuda, build_joint_kernel()["lib"].wide_traverse_joint, tables, o, d, t_max,
-                   any_hit, (int(k),))
+                   any_hit)
 
 
 traverse_joint_cuda.launches = 0
 traverse_joint_cuda.counters = {}  # device -> int32 (2,): stack overflows, iteration-cap hits
+traverse_joint_cuda.iterations = {}  # device -> int64 (1,): warp loop iterations with a pop
+traverse_joint_cuda.queues = {}  # (device, stream) -> int32 (2,): next ray id, finished blocks
 
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch traversal (the kernel's twin)
 # ---------------------------------------------------------------------------
-
-
-def _bit_tables(device):
-    """Lowest / highest set-bit index of every 8-bit child mask."""
-    low = torch.tensor([0] + [(v & -v).bit_length() - 1 for v in range(1, 256)], device=device)
-    high = torch.tensor([0] + [v.bit_length() - 1 for v in range(1, 256)], device=device)
-    return low, high
 
 
 def _ray_setup(o, d):
@@ -170,17 +189,22 @@ def _ray_setup(o, d):
     return inv_d, kz, -dkx * inv_dkz, -dky * inv_dkz, inv_dkz
 
 
+def _bit_tables(device):
+    """Lowest / highest set-bit index of every 8-bit child mask."""
+    low = torch.tensor([0] + [(v & -v).bit_length() - 1 for v in range(1, 256)], device=device)
+    high = torch.tensor([0] + [v.bit_length() - 1 for v in range(1, 256)], device=device)
+    return low, high
+
+
 def traverse_plain(tables, o, d, t_max, any_hit: bool):
-    """The kernel's traversal in plain PyTorch, on any device; same outputs
-    as traverse_cuda plus the (stack overflow, iteration cap) counts."""
+    """The kernels' traversal in plain PyTorch, on any device, on the same
+    Hopper records with the same stack entries; same outputs as
+    traverse_cuda plus the (stack overflow, iteration cap) counts."""
     dev = o.device
     R = o.shape[0]
-    nb = tables.wnode_tab.shape[0] // 8
-    pb = tables.wprim_tab.shape[0] // 8
-    # node-major views: node n -> (8 children, 8 lanes); octet q -> (8 prims, 16 lanes)
-    nodes = tables.wnode_tab.view(nb, 8, 8, 16).permute(0, 2, 1, 3).reshape(nb * 8, 8, 16)[:, :, :8]
-    octs = tables.wprim_tab.view(pb, 8, 8, 16).permute(0, 2, 1, 3).reshape(pb * 8, 8, 16)
-    meta = tables.wmeta_tab.to(torch.int64)
+    nodes = tables.wnode_rec.view(-1, 8, 8)  # node -> (child, [lo, hi, meta, axis])
+    metas = tables.wnode_rec.view(torch.int32).view(-1, 8, 8)[:, :, 6].to(torch.int64)
+    leaves = tables.wleaf_rec.view(-1, 16, 16)  # leaf -> (row j, 16 floats)
     low_bit, high_bit = _bit_tables(dev)
     pw2 = 2 ** torch.arange(8, device=dev)
     iota16 = torch.arange(16, device=dev)
@@ -188,7 +212,7 @@ def traverse_plain(tables, o, d, t_max, any_hit: bool):
     inv_d, kz, sx, sy, sz = _ray_setup(o, d)
     dir_neg = d < 0
     stack = torch.zeros((R, STACK), dtype=torch.int64, device=dev)
-    stack[:, 0] = 1 << 1  # sentinel parent 0, child 0 = root
+    stack[:, 0] = 1 << 1  # sentinel parent 0, child 0 = the root
     sp = torch.where(t_max > 0, 1, 0).to(torch.int64)
     t_best = t_max.clone()
     idx = torch.full((R,), -1, dtype=torch.int64, device=dev)
@@ -217,7 +241,7 @@ def traverse_plain(tables, o, d, t_max, any_hit: bool):
         stack[act, spa - 1] = (pn << 9) | (m2 << 1) | dirb
         sp_pop = torch.where(m2 == 0, spa - 1, spa)
         pops[act] += 1
-        e = meta[pn * 8 + k]
+        e = metas[pn, k]  # the child's meta, from the parent's record
 
         # --- interior: 8-child slab test, push the hit mask ---
         is_int = e > 0
@@ -225,7 +249,6 @@ def traverse_plain(tables, o, d, t_max, any_hit: bool):
         if ia.numel():
             ei = e[is_int]
             nid = ei & 0x1FFFFF
-            axis = ei >> 21
             box = nodes[nid]  # (A, 8, 8)
             o_i = o[ia][:, None, :]
             inv_i = inv_d[ia][:, None, :]
@@ -235,9 +258,9 @@ def traverse_plain(tables, o, d, t_max, any_hit: bool):
             tmax3 = torch.maximum(t0, t1)
             tn = torch.maximum(torch.maximum(tmin3[..., 0], tmin3[..., 1]), tmin3[..., 2])
             tf = torch.minimum(torch.minimum(tmax3[..., 0], tmax3[..., 1]), tmax3[..., 2]) * 1.0000004
-            bhit = (tn <= tf) & (tf > 0) & (tn < t_best[ia][:, None]) & (box[:, :, 6] != 0)
+            bhit = (tn <= tf) & (tf > 0) & (tn < t_best[ia][:, None]) & (metas[nid] != 0)
             mask_new = (bhit.to(torch.int64) * pw2).sum(1)
-            dir_new = dir_neg[ia].gather(1, axis[:, None]).squeeze(1).to(torch.int64)
+            dir_new = dir_neg[ia].gather(1, (ei >> 21)[:, None]).squeeze(1).to(torch.int64)
             spi = sp_pop[is_int]
             push = mask_new != 0
             over = push & (spi >= STACK)
@@ -248,12 +271,13 @@ def traverse_plain(tables, o, d, t_max, any_hit: bool):
             stack[pr, spi[push]] = (nid[push] << 9) | (mask_new[push] << 1) | dir_new[push]
             sp_pop[is_int] = spi + push.to(torch.int64)
 
-        # --- leaf: watertight test of the octet pair o_, o_+1 ---
+        # --- leaf: watertight test of its n valid rows ---
         il = act[~is_int]
         if il.numel():
-            o_ = torch.clamp(-e[~is_int] - 1, min=0)
-            tri = torch.cat([octs[o_], octs[o_ + 1]], dim=1)  # (A, 16, 16)
-            valid = tri[:, :, 9] > 0
+            x = ~e[~is_int]
+            leaf = x >> 4
+            tri = leaves[leaf]  # (A, 16, 16)
+            valid = iota16 < ((x & 15) + 1)[:, None]
             ol = o[il]
             k0 = (kz[il] == 0)[:, None]
             k1 = (kz[il] == 1)[:, None]
@@ -284,11 +308,11 @@ def traverse_plain(tables, o, d, t_max, any_hit: bool):
             tc = torch.where(phit, t, 1e30)
             tmin = tc.min(dim=1).values
             improved = tmin < torch.clamp(t_best[il], max=1e29)
-            # highest slot among equal t
+            # highest row among equal t
             jwin = torch.where(tc == tmin[:, None], iota16, -1).max(dim=1).values
             win = jwin[:, None]
             if any_hit:
-                new_idx = o_ * 8 + jwin
+                new_idx = leaf * 16 + jwin  # the kernel slot oct * 8 + j
             else:
                 new_idx = tri[:, :, 10].gather(1, win).squeeze(1).to(torch.int64)
             ri = il[improved]

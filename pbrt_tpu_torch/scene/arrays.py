@@ -10,7 +10,10 @@ light rows and, for scenes above the brute-force size, the wide BVH.
 
 ``scene_tensors_from_numpy`` is the one place tables cross from host arrays
 to the device; the port's own compiler and the parity tests (which fill it
-from a reference ``CompiledScene``) both go through it.
+from a reference ``CompiledScene``) both go through it. It also derives,
+once per scene, the wide BVH's Hopper layout (``HOPPER_TABLES``,
+``widebvh.hopper_layout``) that the CUDA walks and their plain twin read;
+every other table is the reference's, bit for bit.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
+
+from .widebvh import hopper_layout
 
 # geometry type ids
 GEOM_TRI = 0
@@ -122,6 +127,8 @@ _WIDE_DTYPES = {
     "wmeta_tab": torch.int32,  # (n_nodes*8,) packed child metas
     "wslot_prim": torch.int32,  # (n_oct*8,) kernel slot -> prim row
 }
+# derived from the wide tables above (widebvh.hopper_layout); not reference tables
+HOPPER_TABLES = ("wnode_rec", "wleaf_rec")
 
 
 @dataclass
@@ -154,6 +161,8 @@ class SceneTensors:
     wprim_tab: torch.Tensor | None = None
     wmeta_tab: torch.Tensor | None = None
     wslot_prim: torch.Tensor | None = None
+    wnode_rec: torch.Tensor | None = None  # (n_nodes, 64) f32 node records
+    wleaf_rec: torch.Tensor | None = None  # (n_oct*8, 16) f32 leaf rows, row = kernel slot
 
     @property
     def device(self) -> torch.device:
@@ -200,6 +209,10 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
     for name, dtype in _WIDE_DTYPES.items():
         if arrays.get(name) is not None:
             tensors[name] = torch.as_tensor(np.array(arrays[name]), dtype=dtype, device=device)
+    if arrays.get("wnode_tab") is not None:
+        recs = hopper_layout(*(np.asarray(arrays[n]) for n in ("wnode_tab", "wprim_tab", "wmeta_tab")))
+        for name, rec in zip(HOPPER_TABLES, recs):
+            tensors[name] = torch.as_tensor(rec, device=device)
     st = SceneStatic(**{f.name: static[f.name] for f in fields(SceneStatic)})
     st.mat_kinds_present = tuple(int(k) for k in st.mat_kinds_present)
     st.light_kinds = tuple(int(k) for k in st.light_kinds)

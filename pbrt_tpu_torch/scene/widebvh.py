@@ -30,6 +30,26 @@ out for the TPU tiling constraints (last dim 128 lanes, f32 sublane 8):
 
 ``slot_prim`` maps kernel slot ids (oct * 8 + sublane) back to global
 primitive rows for shading.
+
+``hopper_layout`` derives a second layout of the same tree from those
+tables, the one the CUDA walks and their plain twin read (the reference
+layout stays what compile_scene builds and the table tests compare):
+
+- node records, ``(n_nodes, 64)`` f32: record ``nid`` holds its 8 children
+  one after another, 8 floats each, the reference row's lanes 0-7 [lo_x,
+  lo_y, lo_z, hi_x, hi_y, hi_z, meta, axis]: 256 contiguous bytes, two
+  128-byte lines, where the reference puts a node's children 512 bytes
+  apart. Only the meta column changes, to the int32 bits (viewed as f32) of
+  ``hopper_meta``: an interior child keeps its id | axis << 21, an empty
+  slot 0, and a leaf child becomes ``~(leaf << 4 | n - 1)``, leaf = its
+  first octet // 2 and n its count of valid rows, so a walk learns both
+  from the record it already loaded. Record 0 (the sentinel node) holds the
+  root's meta in child 0, as ``meta_tab[0]`` does.
+- leaf rows, ``(n_octets * 8, 16)`` f32: row ``oct * 8 + k`` is the
+  reference's 16-lane prim row of octet ``oct``, sublane ``k``, so row
+  index = kernel slot, and leaf L's rows in the reference's order j (octet
+  2L rows 0-7, then octet 2L+1 rows 0-7) are the 1,024 contiguous bytes
+  from row 16L; its n valid rows are rows 16L .. 16L + n - 1.
 """
 from __future__ import annotations
 
@@ -258,3 +278,54 @@ def build_wide_bvh(lo: np.ndarray, hi: np.ndarray, tri_v0: np.ndarray,
         # seeds its stack with this value directly)
         root=packed_root,
     )
+
+
+# --- the Hopper layout (see the module docstring) ------------------------------
+
+NODE_REC = 64  # floats per node record: 8 children x 8 floats
+LEAF_ROWS = 2 * WIDE  # rows per leaf record (an octet pair)
+ROW = 16  # floats per leaf row
+
+
+def hopper_meta(meta: np.ndarray, n_valid: np.ndarray) -> np.ndarray:
+    """The node records' meta (int32) for reference metas and, for leaf
+    children, their counts of valid rows (1..16): interior and empty metas
+    unchanged, leaf ``-(oct + 1)`` -> ``~((oct // 2) << 4 | n - 1)``."""
+    meta = np.asarray(meta, np.int64)
+    oct_ = -meta - 1
+    leaf = ~(((oct_ >> 1) << 4) | (np.asarray(n_valid, np.int64) - 1))
+    return np.where(meta < 0, leaf, meta).astype(np.int32)
+
+
+def node_child_offset(nid, c):
+    """Float offset of child c of node nid in the node records."""
+    return nid * NODE_REC + c * 8
+
+
+def leaf_row_offset(slot):
+    """Float offset of kernel slot ``oct * 8 + k`` (the reference's prim row
+    of octet oct, sublane k) in the leaf rows."""
+    return slot * ROW
+
+
+def hopper_layout(node_tab: np.ndarray, prim_tab: np.ndarray, meta_tab: np.ndarray):
+    """(node records (n_nodes, 64) f32, leaf rows (n_octets * 8, 16) f32)
+    from the reference tables, n_nodes = len(meta_tab) // 8 and n_octets =
+    every octet the prim table's blocks hold."""
+    n_nodes = len(meta_tab) // WIDE
+    nb, pb = node_tab.shape[0] // 8, prim_tab.shape[0] // 8
+    # (block, child row, node in block, lane) -> (node, child, lane)
+    nodes = node_tab.reshape(nb, 8, 8, 16).transpose(0, 2, 1, 3).reshape(nb * 8, 8, 16)[:n_nodes, :, :8]
+    rows = np.ascontiguousarray(prim_tab.reshape(pb, 8, 8, 16).transpose(0, 2, 1, 3).reshape(pb * 64, ROW),
+                                dtype=np.float32)
+    valid = (rows[:, 9] > 0).reshape(-1, LEAF_ROWS)
+    n_valid = valid.sum(axis=1)
+    # a leaf's valid rows are its first n (build_wide_bvh fills octet o, then o + 1)
+    assert (valid == (np.arange(LEAF_ROWS) < n_valid[:, None])).all()
+    meta = np.asarray(meta_tab, np.int64).reshape(n_nodes, WIDE)
+    leaf_of = np.where(meta < 0, (-meta - 1) >> 1, 0)
+    n_child = np.where(meta < 0, n_valid[leaf_of], 1)
+    assert (n_child >= 1).all()
+    rec = np.array(nodes, dtype=np.float32)
+    rec[:, :, 6] = hopper_meta(meta, n_child).view(np.float32)
+    return rec.reshape(n_nodes, NODE_REC), rows

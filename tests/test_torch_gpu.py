@@ -7,9 +7,10 @@ machine has none; run it there from the repository root with
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
 The traversal kernels and their plain version do the same per-ray traversal
-in IEEE float32 without fused multiply-adds, so their outputs must be
-identical: B1 against the plain traversal, and the joint kernel (B2)
-against B1. The megakernels' sin/cos/log may differ from torch's by ulps,
+on the same Hopper records in IEEE float32 without fused multiply-adds, so
+their outputs must be identical: B1 against the plain traversal, and the
+cooperative kernel (B2) against B1 and the plain traversal, pops included.
+The megakernels' sin/cos/log may differ from torch's by ulps,
 so the brute megakernel (B3) and the wide megakernel (B4) are held to their
 twins with the reference megakernels' image tolerances
 (tests/test_megakernel.py, tests/test_megakernel_wide.py). B4's persistent
@@ -111,20 +112,26 @@ def test_megakernel_matches_plain(cuda_device, ikind):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("n_rays", [4093, 3])
 @pytest.mark.parametrize("any_hit", [False, True])
-def test_joint_kernel_matches_b1(cuda_device, any_hit, k):
-    """B2 runs each ray through B1's pop sequence, so every output is B1's."""
+def test_joint_kernel_matches_b1(cuda_device, any_hit, n_rays):
+    """B2 runs each ray through B1's pop sequence, so every output is B1's,
+    and both are the plain walk's, pops included: on a ragged last warp
+    (4093 rays) and on fewer rays than one warp's 8 lane groups (3)."""
     sa = _small_room().arrays.to(cuda_device)
-    o, d, t_max = _random_rays(cuda_device, 4093)  # a ragged last thread
+    o, d, t_max = (x[:n_rays].contiguous() for x in _random_rays(cuda_device, 4093))
     before = wide_bvh.traverse_joint_cuda.launches
-    joint = wide_bvh.traverse_joint_cuda(sa, o, d, t_max, any_hit, k)
+    joint = wide_bvh.traverse_joint_cuda(sa, o, d, t_max, any_hit)
     b1 = wide_bvh.traverse_cuda(sa, o, d, t_max, any_hit)
+    plain = wide_bvh.traverse_plain(sa, o, d, t_max, any_hit)
     torch.cuda.synchronize()
     assert wide_bvh.traverse_joint_cuda.launches == before + 1
-    assert 0 < int((b1[1] >= 0).sum()) < o.shape[0]
-    for x, y in zip(joint, b1):
+    if n_rays > 3:
+        assert 0 < int((b1[1] >= 0).sum()) < o.shape[0]
+    for x, y, z in zip(joint, b1, plain[:5]):
         assert torch.equal(x, y)
+        assert torch.equal(y, z.to(y.dtype))
+    assert plain[5] == (0, 0)
     assert wide_bvh.traverse_joint_cuda.counters[cuda_device].tolist() == [0, 0]
 
 

@@ -35,7 +35,7 @@ from pbrt_tpu_torch.core.transform import Transform
 from pbrt_tpu_torch.device import megakernel as mk
 from pbrt_tpu_torch.device.camera import make_camera
 from pbrt_tpu_torch.device.materials import bake_lobes
-from pbrt_tpu_torch.scene.arrays import SceneTensors, scene_tensors_from_numpy
+from pbrt_tpu_torch.scene.arrays import HOPPER_TABLES, SceneTensors, scene_tensors_from_numpy
 from pbrt_tpu_torch.scene.builder import CompiledScene, compile_scene
 from pbrt_tpu_torch.scene.host import (
     CameraConfig, FilmConfig, HostLight, HostMaterial, HostPrimitive, IntegratorConfig, SamplerConfig,
@@ -148,6 +148,9 @@ def test_brute_tables_bit_identical(compiled, scene):
     cs, ref = compiled[scene]
     assert cs.static.use_brute_force and ref.static.use_brute_force
     for f in dataclasses.fields(SceneTensors):
+        if f.name in HOPPER_TABLES:  # derived from the wide tables, not reference tables
+            assert getattr(cs.arrays, f.name) is None, f.name
+            continue
         mine, theirs = getattr(cs.arrays, f.name), getattr(ref.arrays, f.name)
         if mine is None:
             assert f.name.startswith("w"), f.name  # only the wide tables are absent

@@ -42,7 +42,7 @@ from pbrt_tpu_torch.core.transform import Transform
 from pbrt_tpu_torch.device import megakernel_wide as mw
 from pbrt_tpu_torch.device.camera import make_camera
 from pbrt_tpu_torch.device.megakernel import MAT_DEFAULTS, SAMPLERS
-from pbrt_tpu_torch.scene.arrays import LIGHT_AREA, SceneTensors, scene_tensors_from_numpy
+from pbrt_tpu_torch.scene.arrays import HOPPER_TABLES, LIGHT_AREA, SceneTensors, scene_tensors_from_numpy
 from pbrt_tpu_torch.scene.builder import CompiledScene, compile_scene
 from pbrt_tpu_torch.scene.host import (
     CameraConfig, FilmConfig, HostLight, HostMaterial, HostPrimitive, IntegratorConfig, SamplerConfig,
@@ -194,6 +194,8 @@ def test_wide_tables_bit_identical(scene):
     cs, ref, _cam, _ref_cam = _both(material_room(8) if scene == "material_room" else _case(scene)[0])
     assert cs.static.has_wide and ref.static.has_wide
     for f in dataclasses.fields(SceneTensors):
+        if f.name in HOPPER_TABLES:  # derived from the reference tables, not one of them
+            continue
         a, b = getattr(cs.arrays, f.name).numpy(), np.asarray(getattr(ref.arrays, f.name))
         assert a.shape == b.shape and a.dtype.kind == b.dtype.kind, f.name
         np.testing.assert_array_equal(a, b, err_msg=f.name)

@@ -16,8 +16,9 @@ import torch
 
 import bench
 from pbrt_tpu.scene.builder import compile_scene as ref_compile_scene
-from pbrt_tpu_torch.scene.arrays import SceneTensors, scene_tensors_from_numpy
+from pbrt_tpu_torch.scene.arrays import HOPPER_TABLES, SceneTensors, scene_tensors_from_numpy
 from pbrt_tpu_torch.scene.builder import compile_scene
+from pbrt_tpu_torch.scene.widebvh import hopper_layout
 from pbrt_tpu_torch.scene.host import HostMaterial
 from pbrt_tpu_torch.scenes import mesh_room
 
@@ -29,7 +30,7 @@ def both():
     return compile_scene(mesh_room(8), "cpu"), ref_compile_scene(bench._mesh_scene(8))
 
 
-@pytest.mark.parametrize("name", [f.name for f in fields(SceneTensors)])
+@pytest.mark.parametrize("name", [f.name for f in fields(SceneTensors) if f.name not in HOPPER_TABLES])
 def test_tables_bit_identical(both, name):
     cs, ref = both
     a = getattr(cs.arrays, name).numpy()
@@ -60,6 +61,17 @@ def test_reference_tables_cross_unchanged(both):
     assert st.wide_root == ref.static.wide_root
     np.testing.assert_array_equal(sa.wprim_tab.numpy(), np.asarray(ref.arrays.wprim_tab))
     assert sa.prim_mat.dtype == torch.int32
+
+
+def test_hopper_tables_derive_from_reference(both):
+    """The wide BVH's Hopper records, which the kernels read, are
+    widebvh.hopper_layout of the reference's own tables."""
+    cs, ref = both
+    want = hopper_layout(*(np.asarray(getattr(ref.arrays, n)) for n in ("wnode_tab", "wprim_tab", "wmeta_tab")))
+    for name, rec in zip(HOPPER_TABLES, want):
+        got = getattr(cs.arrays, name)
+        assert got.dtype == torch.float32 and got.is_contiguous()
+        np.testing.assert_array_equal(got.numpy().view(np.int32), rec.view(np.int32))
 
 
 @pytest.mark.parametrize("feature", ["material", "light", "small", "sampler"])

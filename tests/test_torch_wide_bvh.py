@@ -17,7 +17,8 @@ import torch
 from pbrt_tpu.device import pallas_bvh
 from pbrt_tpu.scene.widebvh import build_wide_bvh as ref_build_wide_bvh
 from pbrt_tpu_torch.device import wide_bvh
-from pbrt_tpu_torch.scene.widebvh import build_wide_bvh
+from pbrt_tpu_torch.scene import widebvh
+from pbrt_tpu_torch.scene.widebvh import build_wide_bvh, hopper_layout
 
 
 def _tri_scene(n_side=10):
@@ -68,9 +69,7 @@ def _tables(tri):
     ref.world_center, ref.world_radius = jnp.asarray(wc), jnp.asarray(wr)
     st = _Tables()
     st.wide_root = w.root
-    port.wnode_tab = torch.as_tensor(w.node_tab)
-    port.wprim_tab = torch.as_tensor(w.prim_tab)
-    port.wmeta_tab = torch.as_tensor(w.meta_tab)
+    port.wnode_rec, port.wleaf_rec = (torch.as_tensor(x) for x in hopper_layout(w.node_tab, w.prim_tab, w.meta_tab))
     port.world_center, port.world_radius = torch.as_tensor(wc), torch.as_tensor(wr)
     return ref, st, port
 
@@ -91,6 +90,85 @@ def test_port_tables_match_reference_builder():
     for name in ("node_tab", "prim_tab", "meta_tab", "slot_prim"):
         np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
     assert a.root == b.root
+
+
+def _sparse_scene():
+    """37 scattered triangles: a root with empty child slots, leaves of
+    fewer than 16 (and some of fewer than 8) triangles."""
+    rs = np.random.RandomState(11)
+    c = rs.uniform(-1, 1, (37, 1, 3))
+    return (c + rs.uniform(-0.1, 0.1, (37, 3, 3))).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["grid", "sparse"])
+def test_hopper_layout_round_trips(kind):
+    """Every child's 8 floats and every prim row of the reference tables sit
+    in the Hopper records at widebvh's offsets; the meta column holds the
+    child's meta with, for a leaf, its count of valid rows, and those rows
+    come first in the leaf."""
+    tri = _tri_scene() if kind == "grid" else _sparse_scene()
+    w = build_wide_bvh(tri.min(axis=1), tri.max(axis=1), tri[:, 0], tri[:, 1], tri[:, 2])
+    node_rec, leaf_rec = hopper_layout(w.node_tab, w.prim_tab, w.meta_tab)
+    nodes, rows = node_rec.reshape(-1), leaf_rec.reshape(-1)
+    metas = node_rec.view(np.int32).reshape(-1)
+    assert node_rec.shape == (w.n_nodes, 64) and leaf_rec.shape[1] == 16
+    assert metas[widebvh.node_child_offset(0, 0) + 6] == w.root
+    n_empty = n_part = 0
+    for nid in range(1, w.n_nodes):
+        for c in range(8):
+            ref = w.node_tab[(nid // 8) * 8 + c, (nid % 8) * 16:(nid % 8) * 16 + 8]
+            at = widebvh.node_child_offset(nid, c)
+            np.testing.assert_array_equal(nodes[at:at + 8][[0, 1, 2, 3, 4, 5, 7]], ref[[0, 1, 2, 3, 4, 5, 7]])
+            meta, hop = int(w.meta_tab[nid * 8 + c]), int(metas[at + 6])
+            assert meta == int(ref[6])
+            if meta >= 0:
+                assert hop == meta
+                n_empty += meta == 0
+                continue
+            o = -meta - 1
+            n = int((w.prim_tab[(o // 8) * 8:(o // 8) * 8 + 8, (o % 8) * 16 + 9] > 0).sum()
+                    + (w.prim_tab[((o + 1) // 8) * 8:((o + 1) // 8) * 8 + 8, ((o + 1) % 8) * 16 + 9] > 0).sum())
+            assert hop < 0 and (~hop) >> 4 == o // 2 and ((~hop) & 15) + 1 == n
+            n_part += n < 16
+            # the leaf's rows j: its n valid rows first, then padding
+            for j in range(16):
+                slot = o * 8 + j
+                at = widebvh.leaf_row_offset(slot)
+                assert (rows[at + 9] > 0) == (j < n)
+                assert slot < w.n_octets * 8 and (j >= n or w.slot_prim[slot] == int(rows[at + 10]))
+    for o in range(w.n_octets):
+        for k in range(8):
+            at = widebvh.leaf_row_offset(o * 8 + k)
+            np.testing.assert_array_equal(rows[at:at + 16], w.prim_tab[(o // 8) * 8 + k, (o % 8) * 16:(o % 8) * 16 + 16])
+    assert n_part > 0
+    if kind == "sparse":
+        assert n_empty > 0
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_sparse_scene_matches_pallas(any_hit):
+    """The walk over empty child slots and partly filled leaves: the plain
+    twin against the reference kernel (interpret mode) on rays from every
+    direction through the 37-triangle scene."""
+    tri = _sparse_scene()
+    ref, st, port = _tables(tri)
+    rs = np.random.RandomState(12)
+    o = rs.uniform(-1.5, 1.5, (300, 3)).astype(np.float32)
+    # two thirds aimed near a triangle's centroid, the rest anywhere
+    aim = tri.mean(axis=1)[rs.randint(len(tri), size=300)] + rs.uniform(-0.05, 0.05, (300, 3))
+    d = np.where((np.arange(300) % 3 == 2)[:, None], rs.normal(size=(300, 3)), aim - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.where(np.arange(300) % 3 == 0, 0.8, np.inf).astype(np.float32)
+    out_r = [np.asarray(x) for x in pallas_bvh.wide_intersect(
+        ref, st, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax), any_hit=any_hit, interpret=True, sort=False)]
+    out_p = [x.numpy() for x in wide_bvh.wide_intersect_plain(
+        port, torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(tmax), any_hit=any_hit, sort=False)]
+    hit_r = out_r[2]
+    assert 20 < hit_r.sum() < len(hit_r) - 20
+    np.testing.assert_array_equal(out_p[2], hit_r)
+    if not any_hit:
+        np.testing.assert_array_equal(out_p[1], out_r[1])
+        np.testing.assert_allclose(out_p[0], out_r[0], rtol=1e-6)
 
 
 @pytest.mark.parametrize("sort", [False, True])

@@ -162,7 +162,8 @@ def _traversal_and_layers(args, cs, rec, wall_median):
         R_.make_regen = lambda *a, **k: _spanned(saved_regen(*a, **k), "regen", spans)
         kern = _spanned(saved_kernel, "kernel", spans)
         kern.launches = 0
-        kern.counters = saved_kernel.counters
+        kern.counters, kern.iterations, kern.queues = (saved_kernel.counters, saved_kernel.iterations,
+                                                       saved_kernel.queues)
         # wide_intersect and the kernel's own launch count look the name up
         # in the module at call time
         wide_bvh.traverse_cuda = kern
