@@ -11,7 +11,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     wide_traverse_joint.cu, megakernel.cu, megakernel_wide.cu), one nvcc
     each, all started together; prints build seconds, the ptxas
     register/spill/shared-memory report of each and every variant's
-    resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
+    resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    and B3's __launch_bounds__ choice;
  3. B1 kernel vs plain: compiles the 123,650-triangle mesh room on the host,
     then traces 500,000 camera rays, one cosine bounce from their hits and
     shadow rays to the panel light through the CUDA kernel and through its
@@ -37,11 +38,20 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     |dL| / (|L| + 1e-2) < 2e-2 and mean |dL| < 1e-4 (sin/cos/log and
     operation order may move a rare path by ulps); times both at the main
     path's 16 spp, the kernel with CUDA events, the plain twin by the host
-    clock around one call ending in a synchronize; computes the kernel's
-    float32 bound;
+    clock around one call ending in a synchronize; the 16 spp launch must
+    match that plain run under the same tolerances and trace the per-lane
+    kernel's 8,474,737 path vertices with no pixel cut by the iteration cap;
+    computes the kernel's float32 bound twice: by earlier PRs' per-vertex
+    formula (one closest and one shadow test per vertex; the JSON's
+    bound_ms), and from the tests the 16 spp paths made (every closest ray
+    over every prim, every shadow ray up to its first hit, as the kernel's
+    instrumented instantiation counts them, which must trace the same paths
+    bit for bit), one regeneration per sample and the shading of every
+    vertex (bound_ms_from_tests); prints B3's registers, spills, shared
+    bytes and blocks per SM;
  7. gallery main path: render_compiled of the spheres gallery at 1000x500,
     16 spp, depth 5 on cuda after a warm-up pass; checks the route label
-    torch-megakernel/cuda-brute, megakernel launches > 0 in that run, and a
+    torch-megakernel/cuda-brute, one megakernel launch in that run, and a
     finite, non-black image; prints path_vertex_samples_per_sec;
  8. same gallery image on both devices: a 64x32 crop at 4 spp, held as in
     phase 5;
@@ -99,6 +109,8 @@ COMPARE_SPP = 2  # B3 kernel vs plain
 # (one thread per pixel) traced them; the persistent B4 must trace the same paths
 MATERIAL_ROOM_VERTICES = 29_659_505
 MESH_ROOM_VERTICES = 31_724_525
+# ... and of the spheres gallery, as the per-lane B3 traced them
+GALLERY_VERTICES = 8_474_737
 
 # H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -108,6 +120,7 @@ FP32_OPS_PER_S = 67e12
 B1_OPS_PER_POP = 8 * 20  # a pop tests at least 8 child boxes (~20 ops each)
 B3_OPS_TRI, B3_OPS_SPH = 45, 65  # one watertight triangle / full-sphere test
 B3_OPS_SHADE = 300  # BSDF sample + evaluation + NEE terms per path vertex
+B3_OPS_REGEN = 60  # one camera regeneration: film sample, raster -> camera -> world, two normalisations
 
 
 def _smi() -> str:
@@ -139,6 +152,26 @@ def _bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     float32 operations over the peak float32 rate."""
     t_b, t_o = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def _b3_against_plain(label, kernel_out, plain_out) -> float:
+    """Phase 6: B3's (L, w, nv) against its plain twin's for the same lanes,
+    under the reference megakernel's tolerances (weights allclose, path
+    vertices within 4, max |dL| / (|L| + 1e-2) < 2e-2, mean |dL| < 1e-4,
+    a non-black image); prints the comparison and returns max |dL|."""
+    import torch
+
+    (L_k, w_k, nv_k), (L_p, w_p, nv_p) = kernel_out, plain_out
+    diff = (L_k - L_p).abs()
+    rel = diff / (L_p.abs() + 1e-2)
+    nv_k, nv_p = nv_k.double().sum().item(), nv_p.double().sum().item()
+    print(f"{label}: weights equal {torch.equal(w_k, w_p)}, vertices {nv_k:.0f} vs {nv_p:.0f}, max |dL|/(|L|+1e-2) "
+          f"{rel.max().item():.3e}, mean |dL| {diff.mean().item():.3e}, max |dL| {diff.max().item():.3e}, "
+          f"image mean {L_p.mean().item():.5f}", flush=True)
+    if not (torch.allclose(w_k, w_p) and abs(nv_k - nv_p) <= 4 and rel.max().item() < 2e-2
+            and diff.mean().item() < 1e-4 and L_p.mean().item() > 0):
+        raise AssertionError("the brute megakernel and its plain twin disagree")
+    return diff.max().item()
 
 
 def _nbytes(*tensors) -> int:
@@ -334,6 +367,10 @@ def main() -> int:
               f"blocks per SM by variant {occ}", flush=True)
     group = wide_bvh.joint_group_width()
     print(f"[2 build] B2 walks a ray with {group} lanes, {32 // group} rays per warp", flush=True)
+    b3_min_blocks = re.search(r"^#define MIN_BLOCKS (\d+)", megakernel.KERNEL_SOURCE.read_text(), re.MULTILINE)[1]
+    b3_occ = [megakernel.occupancy(m) for m in range(6)]
+    print(f"[2 build] B3 __launch_bounds__(128, {b3_min_blocks}): {b3_occ[0]} blocks of 128 path slots per SM",
+          flush=True)
 
     # --- 3. B1 kernel vs plain at the main path's shapes ---
     t0 = time.perf_counter()
@@ -414,37 +451,61 @@ def main() -> int:
     L_k, w_k, nv_k = megakernel.megakernel_cuda(blob, mode, *lanes, 0, COMPARE_SPP, SEED)
     L_p, w_p, nv_p = megakernel.megakernel_plain(consts, *lanes, 0, COMPARE_SPP, SEED)
     torch.cuda.synchronize()
-    diff = (L_k - L_p).abs()
-    rel = diff / (L_p.abs() + 1e-2)
-    b3_err = diff.max().item()
-    dnv = abs(nv_k.double().sum().item() - nv_p.double().sum().item())
-    print(f"[6 B3 kernel-vs-plain] {W}x{H} {COMPARE_SPP}spp: weights equal {torch.equal(w_k, w_p)}, "
-          f"vertices {nv_k.double().sum().item():.0f} vs {nv_p.double().sum().item():.0f}, max |dL|/(|L|+1e-2) "
-          f"{rel.max().item():.3e}, mean |dL| {diff.mean().item():.3e}, max |dL| {b3_err:.3e}, "
-          f"image mean {L_p.mean().item():.5f}", flush=True)
-    if not (torch.allclose(w_k, w_p) and dnv <= 4 and rel.max().item() < 2e-2 and diff.mean().item() < 1e-4
-            and L_p.mean().item() > 0):
-        raise AssertionError("the brute megakernel and its plain twin disagree")
+    b3_err = _b3_against_plain(f"[6 B3 kernel-vs-plain] {W}x{H} {COMPARE_SPP}spp", (L_k, w_k, nv_k),
+                               (L_p, w_p, nv_p))
     spp = gd.sampler.pixel_samples
     b3_ms = _cuda_ms(lambda: megakernel.megakernel_cuda(blob, mode, *lanes, 0, spp, SEED), 5)
     t0 = time.perf_counter()
-    megakernel.megakernel_plain(consts, *lanes, 0, spp, SEED)
+    out16_p = megakernel.megakernel_plain(consts, *lanes, 0, spp, SEED)
     torch.cuda.synchronize()
     b3_plain_ms = 1e3 * (time.perf_counter() - t0)
-    nv16 = megakernel.megakernel_cuda(blob, mode, *lanes, 0, spp, SEED)[2].double().sum().item()
+    caps = megakernel.megakernel_cuda.counters[dev]
+    caps.zero_()
+    out16 = megakernel.megakernel_cuda(blob, mode, *lanes, 0, spp, SEED)
+    cap_hits = caps.item()
+    b3_err = max(b3_err, _b3_against_plain(f"  {W}x{H} {spp}spp", out16, out16_p))
+    nv16 = out16[2].double().sum().item()
+    # the tests those paths made, from the instrumented instantiation
+    # ((0,2) sampler, path: the gallery's mode), which must trace them bit for bit
+    *out16_s, split = megakernel.megakernel_split(blob, mode, *lanes, 0, spp, SEED)
+    if not all(torch.equal(x, y) for x, y in zip(out16, out16_s)):
+        raise AssertionError("the brute megakernel's instrumented instantiation traced other paths")
+    t_closest, t_shadow, t_sh_tri, t_sh_sph = (split[k] for k in ("closest", "shadow", "shadow_tri", "shadow_sph"))
     n_tri = sum(p["kind"] == "tri" for p in consts["prims"])
     n_sph = len(consts["prims"]) - n_tri
+    b3_bytes = 3 * 4 * W * H + megakernel.BLOB_FLOATS * 4 + 5 * 4 * W * H  # px, py, pid and the blob; L, w, nv
     # per path vertex: one closest-hit and one shadow test over every prim
-    # plus the shading; inputs px, py, pid and the blob, outputs L, w, nv
-    b3_ops = nv16 * (2 * (n_tri * B3_OPS_TRI + n_sph * B3_OPS_SPH) + B3_OPS_SHADE)
-    b3_bound = _bound(3 * 4 * W * H + megakernel.BLOB_FLOATS * 4 + 5 * 4 * W * H, b3_ops)
-    print(f"  {W}x{H} {spp}spp: kernel {b3_ms:.4f} ms, plain {b3_plain_ms:.1f} ms; {nv16:.0f} path vertices; "
-          f"bound {b3_bound[0]:.4f} ms ({b3_bound[1]}, {b3_ops:.4g} ops), kernel at "
-          f"{100 * b3_bound[0] / b3_ms:.2f}% of it", flush=True)
+    # plus the shading (the formula of earlier PRs)
+    b3_ops_vertex = nv16 * (2 * (n_tri * B3_OPS_TRI + n_sph * B3_OPS_SPH) + B3_OPS_SHADE)
+    b3_bound_vertex = _bound(b3_bytes, b3_ops_vertex)
+    # the tests the kernel made: every closest ray (hit or miss) over every
+    # prim, every shadow ray up to its first hit; one regeneration per
+    # sample; the shading of every path vertex
+    b3_ops = (t_closest * (n_tri * B3_OPS_TRI + n_sph * B3_OPS_SPH) + t_sh_tri * B3_OPS_TRI + t_sh_sph * B3_OPS_SPH
+              + W * H * spp * B3_OPS_REGEN + nv16 * B3_OPS_SHADE)
+    b3_bound = _bound(b3_bytes, b3_ops)
+    info = megakernel.build_kernel()
+    regs = "; ".join(sorted(set(re.findall(r"Used \d+ registers[^\n]*", info["log"])))) or "n/a"
+    spills = "; ".join(sorted(set(re.findall(r"\d+ bytes spill stores, \d+ bytes spill loads", info["log"])))) or "n/a"
+    smem = sorted({int(x) for x in re.findall(r"(\d+) bytes smem", info["log"])})
+    print(f"  {W}x{H} {spp}spp: kernel {b3_ms:.4f} ms, plain {b3_plain_ms:.1f} ms; {nv16:.0f} path vertices (the "
+          f"per-lane kernel's: {GALLERY_VERTICES}), pixels cut by the iteration cap {cap_hits}; tests: closest "
+          f"{t_closest}, shadow {t_shadow} (triangle {t_sh_tri}, sphere {t_sh_sph}); per-vertex bound "
+          f"{b3_bound_vertex[0]:.4f} ms ({b3_bound_vertex[1]}, {b3_ops_vertex:.4g} ops), kernel at "
+          f"{100 * b3_bound_vertex[0] / b3_ms:.2f}% of it; bound from the tests made {b3_bound[0]:.4f} ms "
+          f"({b3_bound[1]}, {b3_ops:.4g} ops), kernel at {100 * b3_bound[0] / b3_ms:.2f}% of it", flush=True)
+    print(f"  B3 ptxas: {regs}; {spills}; shared bytes per block {smem}; blocks per SM by mode {b3_occ}",
+          flush=True)
+    if nv16 != GALLERY_VERTICES:
+        raise AssertionError("the brute megakernel traced other paths than the per-lane kernel on the gallery")
+    if cap_hits != 0:
+        raise AssertionError(f"the brute megakernel cut {cap_hits} pixels at the iteration cap")
 
     # --- 7. the gallery main path ---
     g_timing, b3_launches, _img = _main_path("7 gallery main path", g, "torch-megakernel/cuda-brute",
                                              megakernel.megakernel_cuda)
+    if b3_launches != 1:
+        raise AssertionError(f"the gallery render made {b3_launches} brute megakernel launches, not 1")
     print(f"  kernel share of the render wall: {100 * b3_ms / (1e3 * g_timing['wall_s']):.1f}%", flush=True)
 
     # --- 8. the same gallery crop on cuda and cpu ---
@@ -593,8 +654,8 @@ def main() -> int:
          "library_ms": None},
         {"name": "brute_megakernel", "route": "cuda", "source": "pbrt_tpu_torch/csrc/megakernel.cu",
          "replaces": "pbrt_tpu/device/megakernel.py:814", "launches": b3_launches, "max_abs_err": b3_err,
-         "ms": b3_ms, "plain_ms": b3_plain_ms, "bound_ms": b3_bound[0], "bound_by": b3_bound[1],
-         "library_ms": None},
+         "ms": b3_ms, "plain_ms": b3_plain_ms, "bound_ms": b3_bound_vertex[0], "bound_by": b3_bound_vertex[1],
+         "library_ms": None, "bound_ms_from_tests": b3_bound[0]},
         {"name": "wide_megakernel", "route": "cuda", "source": "pbrt_tpu_torch/csrc/megakernel_wide.cu",
          "replaces": "pbrt_tpu/device/megakernel_wide.py:525", "launches": b4_launches, "max_abs_err": b4_err,
          "ms": b4_ms, "plain_ms": b4_plain_ms, "bound_ms": b4_bound[0], "bound_by": b4_bound[1],

@@ -96,12 +96,21 @@ __device__ __forceinline__ float vdc(uint32_t index, uint32_t scramble) {
     return u2f01(__brev(index) ^ scramble);
 }
 
+// The second Sobol' dimension's direction numbers: v_0 = 2^31,
+// v_{i+1} = v_i ^ (v_i >> 1).
+static __constant__ uint32_t SOBOL2_V[32] = {
+    0x80000000u, 0xc0000000u, 0xa0000000u, 0xf0000000u, 0x88000000u, 0xcc000000u, 0xaa000000u, 0xff000000u,
+    0x80800000u, 0xc0c00000u, 0xa0a00000u, 0xf0f00000u, 0x88880000u, 0xcccc0000u, 0xaaaa0000u, 0xffff0000u,
+    0x80008000u, 0xc000c000u, 0xa000a000u, 0xf000f000u, 0x88008800u, 0xcc00cc00u, 0xaa00aa00u, 0xff00ff00u,
+    0x80808080u, 0xc0c0c0c0u, 0xa0a0a0a0u, 0xf0f0f0f0u, 0x88888888u, 0xccccccccu, 0xaaaaaaaau, 0xffffffffu};
+
+// XOR of the direction numbers of the index's set bits into the scramble,
+// visiting only those bits (a sample index is below a few dozen)
 __device__ __forceinline__ float sobol2(uint32_t index, uint32_t scramble) {
     uint32_t res = scramble;
-    uint32_t v = 1u << 31;
-    for (int i = 0; i < 32; ++i) {
-        if ((index >> i) & 1u) res ^= v;
-        v ^= v >> 1;
+    while (index != 0u) {
+        res ^= SOBOL2_V[__ffs(index) - 1];
+        index &= index - 1u;
     }
     return u2f01(res);
 }

@@ -104,12 +104,17 @@ def _light_selectors(sa, static, icfg: dict):
     return _select_light, _sel_pmf_of
 
 
-def explain_unsupported(desc) -> str | None:
+def explain_unsupported(desc, n_lights: int) -> str | None:
     """The first feature of a compiled wide scene that the wavefront cannot
-    render, or None: lights other than triangle area lights, samplers other
-    than (0,2) and random, materials other than matte, Oren-Nayar matte."""
+    render, or None: lights other than triangle area lights, the 'spatial'
+    light distribution over more than one light, samplers other than (0,2)
+    and random, materials other than matte, Oren-Nayar matte. n_lights: the
+    compiled scene's light count (``static.n_lights``), which counts the
+    area lights that ride the prims."""
     if desc.lights:  # the scene's own lights; area lights ride the prims
         return f"'{desc.lights[0].kind}' lights"
+    if desc.integrator.light_strategy == "spatial" and n_lights > 1:
+        return "the 'spatial' light distribution over more than one light"
     if desc.sampler.kind not in SAMPLER_KINDS:
         return f"the '{desc.sampler.kind}' sampler"
     for prim in desc.primitives:

@@ -18,7 +18,10 @@ Russian roulette and the sample flush.
   (R,) lane tensors, with the same loop cap. uint32 hash and Sobol'
   arithmetic rides int64 masked to 32 bits, bit-exact.
 - ``megakernel_cuda``: builds the kernel at first use, launches it on the
-  current stream, counts launches and raises on any error.
+  current stream, counts launches and iteration-cap hits, and raises on any
+  error; ``megakernel_split`` launches the instrumented instantiation (a
+  clock64 cycle split per phase and the tests the launch made), which no
+  route launches.
 - ``make_megakernel_fn``: the wave_p-compatible function of the render
   route; CUDA tensors launch the kernel, CPU tensors run the plain twin.
 
@@ -1124,15 +1127,31 @@ def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
 # ---------------------------------------------------------------------------
 
 
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p]
+# The record of the instrumented instantiation, u64 in the order of
+# csrc/megakernel.cu SPLIT_*: slot-cycles of the slots whose path was tested,
+# in the test pool, in shading + NEE and in flush + regeneration; of slots
+# that waited for their shadow ray; of empty slots (the grid's tail); of the
+# whole launch; thread-cycles of the pool phase; thread-cycles in which a
+# thread had pool or shading work; block iterations. Then the tests the
+# launch made: closest rays, shadow rays, and the triangle and sphere tests
+# those shadow rays made up to their first hit.
+SPLIT_FIELDS = ("pool", "shade_nee", "flush_regen", "wait", "idle_tail", "total", "pool_lanes", "pool_busy",
+                "shade_busy", "iterations", "closest", "shadow", "shadow_tri", "shadow_sph")
+
+
 def build_kernel() -> dict:
     """Compile (if needed) and load csrc/megakernel.cu: {"lib", "seconds",
     "log", "path"} as device/nvcc.build returns it."""
     info = nvcc.build(KERNEL_SOURCE)
-    fn = info["lib"].brute_megakernel
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = info["lib"]
+    lib.brute_megakernel.argtypes = _ARGTYPES
+    lib.brute_megakernel.restype = ctypes.c_int
+    lib.brute_megakernel_split.argtypes = _ARGTYPES + [ctypes.c_void_p]
+    lib.brute_megakernel_split.restype = ctypes.c_int
     return info
 
 
@@ -1141,12 +1160,12 @@ def kernel_mode(consts) -> int:
     return SAMPLERS[consts["sampler"]] * 2 + IKINDS[consts["ikind"]]
 
 
-def megakernel_cuda(blob, mode: int, px, py, pids, s0: int, n_samples: int, seed: int):
-    """Launch the CUDA kernel on the current stream. blob: pack_consts's
-    float32 tensor on the lanes' device; mode: kernel_mode(consts); px, py,
-    pids: (R,) integer CUDA tensors. Returns (accLw (R, 3), accW (R,),
-    n_vertices (R,)) float32. Adds one to ``megakernel_cuda.launches`` per
-    launch; raises on a refused launch."""
+def occupancy(mode: int) -> int:
+    """Resident blocks per SM of the kernel for one mode."""
+    return nvcc.occupancy(build_kernel()["lib"].brute_megakernel_occupancy, mode)
+
+
+def _launch(entry: str, blob, mode: int, px, py, pids, s0: int, n_samples: int, seed: int, *extra):
     dev = px.device
     if dev.type != "cuda":
         raise ValueError("megakernel_cuda takes CUDA tensors")
@@ -1159,21 +1178,53 @@ def megakernel_cuda(blob, mode: int, px, py, pids, s0: int, n_samples: int, seed
             raise ValueError(f"{name} must be an integer ({R},) tensor on {dev}")
         lanes.append(x.to(torch.int32).contiguous())
     blob = blob.contiguous()
-    fn = build_kernel()["lib"].brute_megakernel
+    fn = getattr(build_kernel()["lib"], entry)
     out_l = torch.empty((R, 3), dtype=torch.float32, device=dev)
     out_w = torch.empty(R, dtype=torch.float32, device=dev)
     out_nv = torch.empty(R, dtype=torch.float32, device=dev)
+    w = megakernel_cuda
+    counters = w.counters.get(dev)
+    if counters is None:
+        counters = w.counters[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    queue = w.queues.get((dev, stream))
+    if queue is None:  # next pixel, finished blocks; the grid's last block zeroes both
+        queue = w.queues[dev, stream] = torch.zeros(2, dtype=torch.int32, device=dev)
     err = fn(blob.data_ptr(), lanes[0].data_ptr(), lanes[1].data_ptr(), lanes[2].data_ptr(), R,
              int(seed) & M32, int(s0) & M32, int(n_samples), int(mode),
-             out_l.data_ptr(), out_w.data_ptr(), out_nv.data_ptr(), stream)
+             out_l.data_ptr(), out_w.data_ptr(), out_nv.data_ptr(), counters.data_ptr(), queue.data_ptr(),
+             stream, *(x.data_ptr() for x in extra))
     if err != 0:
-        raise RuntimeError(f"brute_megakernel launch failed: cudaError {err}")
-    megakernel_cuda.launches += 1
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     return out_l, out_w, out_nv
 
 
+def megakernel_cuda(blob, mode: int, px, py, pids, s0: int, n_samples: int, seed: int):
+    """Launch the CUDA kernel on the current stream. blob: pack_consts's
+    float32 tensor on the lanes' device; mode: kernel_mode(consts); px, py,
+    pids: (R,) integer CUDA tensors. Returns (accLw (R, 3), accW (R,),
+    n_vertices (R,)) float32. Adds one to ``megakernel_cuda.launches`` per
+    launch; the pixels cut by the iteration cap accumulate in
+    ``megakernel_cuda.counters[device]`` (int32 (1,)); raises on a refused
+    launch."""
+    out = _launch("brute_megakernel", blob, mode, px, py, pids, s0, n_samples, seed)
+    megakernel_cuda.launches += 1
+    return out
+
+
+def megakernel_split(blob, mode: int, px, py, pids, s0: int, n_samples: int, seed: int):
+    """megakernel_cuda through the instrumented instantiation, which exists
+    for mode 0 only ((0,2) sampler, path) and which no route launches:
+    returns (accLw, accW, n_vertices, split), split mapping SPLIT_FIELDS to
+    cycle and test counts summed over the launch."""
+    prof = torch.zeros(len(SPLIT_FIELDS), dtype=torch.int64, device=px.device)
+    out = _launch("brute_megakernel_split", blob, mode, px, py, pids, s0, n_samples, seed, prof)
+    return (*out, dict(zip(SPLIT_FIELDS, prof.tolist())))
+
+
 megakernel_cuda.launches = 0
+megakernel_cuda.counters = {}  # device -> int32 (1,): pixels cut by the iteration cap
+megakernel_cuda.queues = {}  # (device, stream) -> int32 (2,): next pixel, finished blocks
 
 
 def make_megakernel_fn(cs, cam, icfg, scfg, fcfg, consts=None):
@@ -1181,7 +1232,8 @@ def make_megakernel_fn(cs, cam, icfg, scfg, fcfg, consts=None):
     fn(sa, px, py, pids, s0, n_samples, seed) -> (accLw (R, 3), accW (R,),
     n_vertices (R,)), or None if the scene is outside the class. CUDA lanes
     launch the kernel, CPU lanes run the plain twin; there is no fallback
-    from one to the other."""
+    from one to the other. fn.blob (on the scene's device) and fn.mode are
+    the kernel's arguments for the scene's consts."""
     if consts is None:
         consts = extract_consts(cs, cam, icfg, scfg, fcfg)
     if consts is None:
@@ -1203,4 +1255,7 @@ def make_megakernel_fn(cs, cam, icfg, scfg, fcfg, consts=None):
             return megakernel_plain(consts, px, py, pixel_ids, s0, n_samples, seed)
         raise ValueError(f"the brute megakernel has no implementation for device {px.device}")
 
+    # what the launch takes, for tools that time or instrument the route's
+    # own launch (tools/torch_phases.py)
+    wave_p.blob, wave_p.mode = blobs[cs.arrays.device], mode
     return wave_p

@@ -126,7 +126,7 @@ def make_persistent_fn(cs: CompiledScene, cam=None):
         if mkw is not None:
             LAST_PERSISTENT_TIER = "torch-megakernel/" + ("cuda-wide" if dev.type == "cuda" else "plain-wide")
             return mkw
-    missing = explain_unsupported(desc)
+    missing = explain_unsupported(desc, static.n_lights)
     if missing is not None:
         why = ("the wide megakernel (PBRT_TPU_WIDEMEGA=1) does not take "
                + explain_ineligible_wide(cs, cam, icfg, scfg, fcfg, max_tris) if widemega

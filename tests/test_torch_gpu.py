@@ -13,9 +13,11 @@ cooperative kernel (B2) against B1 and the plain traversal, pops included.
 The megakernels' sin/cos/log may differ from torch's by ulps,
 so the brute megakernel (B3) and the wide megakernel (B4) are held to their
 twins with the reference megakernels' image tolerances
-(tests/test_megakernel.py, tests/test_megakernel_wide.py). B4's persistent
-grid is also run on fewer lanes than it has path slots, to show that its
-pixel counter serves every lane exactly once.
+(tests/test_megakernel.py, tests/test_megakernel_wide.py), B3 in all six
+of its modes. B3's and B4's persistent grids are also run on fewer lanes
+than they have path slots, to show that their pixel counters serve every
+lane exactly once, and B3's instrumented instantiation is held to the
+kernel bit for bit.
 """
 import numpy as np
 import pytest
@@ -81,34 +83,90 @@ def test_render_cuda_matches_cpu(cuda_device):
     assert np.isclose(img_g, img_c, rtol=1e-2, atol=1e-4).all(axis=-1).mean() >= 0.99
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("ikind", ["path", "directlighting"])
-def test_megakernel_matches_plain(cuda_device, ikind):
+def _gallery_consts(W, H, sampler="zerotwosequence", ikind="path", spp=2):
+    """The spheres gallery at W x H on the host, with its B3 constants."""
     desc = spheres_gallery()
-    W, H, spp = 64, 32, 2
     desc.film.x_resolution, desc.film.y_resolution = W, H
     desc.integrator.kind = ikind
     desc.integrator.strategy = "one"
+    desc.sampler.kind = sampler
     cs = compile_scene(desc, "cpu")
     icfg = {"kind": ikind, "max_depth": 5, "rr_threshold": 1.0, "strategy": "one", "light_strategy": "power"}
-    consts = megakernel.extract_consts(cs, make_camera(desc.camera, desc.film, "cpu"), icfg,
-                                       {"kind": "zerotwosequence", "spp": spp},
-                                       {"filter": "box", "filter_params": {}, "max_sample_luminance": float("inf")})
-    idx = torch.arange(W * H, device=cuda_device)
-    lanes = (idx % W, idx // W, idx)
+    return megakernel.extract_consts(cs, make_camera(desc.camera, desc.film, "cpu"), icfg,
+                                     {"kind": sampler, "spp": spp},
+                                     {"filter": "box", "filter_params": {}, "max_sample_luminance": float("inf")})
+
+
+def _brute_against_plain(cuda_device, consts, lanes, spp, seed):
+    """B3 on the card and its twin on the host for the same lanes: the
+    reference megakernel's tolerance (tests/test_megakernel.py), and no
+    pixel cut by the iteration cap."""
+    counters = megakernel.megakernel_cuda.counters.get(cuda_device)
+    if counters is not None:
+        counters.zero_()
     before = megakernel.megakernel_cuda.launches
     blob = megakernel.pack_consts(consts).to(cuda_device)
-    L, w, nv = (x.cpu().numpy() for x in megakernel.megakernel_cuda(
-        blob, megakernel.kernel_mode(consts), *lanes, 0, spp, 7))
+    L, w, nv = (x.cpu() for x in megakernel.megakernel_cuda(
+        blob, megakernel.kernel_mode(consts), *(x.to(cuda_device) for x in lanes), 0, spp, seed))
     torch.cuda.synchronize()
     assert megakernel.megakernel_cuda.launches == before + 1
-    L_p, w_p, nv_p = (x.cpu().numpy() for x in megakernel.megakernel_plain(consts, *(x.cpu() for x in lanes), 0, spp, 7))
-    assert L_p.mean() > 1e-3
-    assert np.allclose(w, w_p)
-    assert abs(float(nv.sum()) - float(nv_p.sum())) <= 4
-    diff = np.abs(L - L_p)
-    assert float((diff / (np.abs(L_p) + 1e-2)).max()) < 2e-2
-    assert float(diff.mean()) < 1e-4
+    assert megakernel.megakernel_cuda.counters[cuda_device].tolist() == [0]
+    assert torch.equal(w, torch.full((lanes[0].shape[0],), float(spp)))
+    L_p, w_p, nv_p = megakernel.megakernel_plain(consts, *lanes, 0, spp, seed)
+    assert L_p.mean().item() > 1e-3
+    assert torch.allclose(w, w_p)
+    assert abs(float(nv.double().sum()) - float(nv_p.double().sum())) <= 4
+    diff = (L - L_p).abs()
+    assert (diff / (L_p.abs() + 1e-2)).max().item() < 2e-2
+    assert diff.mean().item() < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampler", ["zerotwosequence", "random", "stratified"])
+@pytest.mark.parametrize("ikind", ["path", "directlighting"])
+def test_megakernel_matches_plain(cuda_device, ikind, sampler):
+    """All six modes of B3 (3 samplers x path/directlighting) at 64x32, 2 spp."""
+    W, H, spp = 64, 32, 2
+    consts = _gallery_consts(W, H, sampler, ikind, spp)
+    idx = torch.arange(W * H)
+    _brute_against_plain(cuda_device, consts, (idx % W, idx // W, idx), spp, 7)
+
+
+@pytest.mark.gpu
+def test_megakernel_split_matches_the_kernel(cuda_device):
+    """B3's instrumented instantiation traces the kernel's paths bit for bit,
+    and its test counts are the ones those paths need: one camera ray per
+    sample plus at most one continuation per path vertex, at most one shadow
+    ray per vertex, and a shadow ray tests between one prim and all of them."""
+    W, H, spp = 64, 32, 3
+    consts = _gallery_consts(W, H, spp=spp)
+    blob = megakernel.pack_consts(consts).to(cuda_device)
+    mode = megakernel.kernel_mode(consts)
+    idx = torch.arange(W * H, device=cuda_device)
+    lanes = (idx % W, idx // W, idx)
+    out = megakernel.megakernel_cuda(blob, mode, *lanes, 0, spp, 5)
+    *out_s, split = megakernel.megakernel_split(blob, mode, *lanes, 0, spp, 5)
+    for x, y in zip(out, out_s):
+        assert torch.equal(x, y)
+    n_samples, n_v, n_prims = W * H * spp, int(out[2].double().sum().item()), len(consts["prims"])
+    assert n_samples <= split["closest"] <= n_samples + n_v
+    assert 0 < split["shadow"] <= n_v
+    assert split["shadow"] <= split["shadow_tri"] + split["shadow_sph"] <= split["shadow"] * n_prims
+    assert split["total"] > 0 and split["iterations"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spp", [1, 3])
+@pytest.mark.parametrize("n_lanes", [37, 1000])
+def test_megakernel_pixel_queue(cuda_device, n_lanes, spp):
+    """B3's persistent grid on lane counts that are not a multiple of its
+    block and smaller than its slots: every lane is served exactly once
+    (weight == n_samples), no pixel is cut by the iteration cap, and the
+    image is the twin's within phase 6's tolerance."""
+    W, H = 64, 32
+    consts = _gallery_consts(W, H, spp=spp)
+    pids = torch.as_tensor(np.random.RandomState(n_lanes + spp).choice(W * H, n_lanes, replace=False))
+    _brute_against_plain(cuda_device, consts, (pids % W, pids // W, pids), spp, 3)
 
 
 @pytest.mark.gpu

@@ -18,6 +18,7 @@ description. Covered:
 import dataclasses
 import inspect
 import math
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -319,6 +320,54 @@ def test_library_hash_covers_included_headers(tmp_path):
     assert nvcc._target(nvcc.CSRC / "megakernel_wide.cu") != nvcc._target(nvcc.CSRC / "megakernel.cu")
     assert {f.name for f in nvcc._sources_of(nvcc.CSRC / "megakernel_wide.cu")} == {
         "megakernel_wide.cu", "pt_common.cuh", "wide_traverse.cuh"}
+
+
+def _cu_defines():
+    src = mk.KERNEL_SOURCE.read_text()
+    return {k: int(v) for k, v in re.findall(r"^#define (\w+) \(?(-?\d+)\)?\s*(?://.*)?$", src, re.MULTILINE)}
+
+
+def test_blob_test_and_split_layouts_match_the_kernel():
+    """The blob offsets and the record of cycles and test counts that the
+    wrapper reads are the kernel source's (csrc/megakernel.cu), and the
+    shared-memory copy of the blob keeps every field the kernel reads."""
+    d = _cu_defines()
+    for name in ("H_N_PRIMS", "H_N_LIGHTS", "H_N_MATS", "H_MAX_DEPTH", "H_RR", "H_UNIFORM", "H_IKIND",
+                 "H_SAMPLER", "H_STRAT_XS", "H_STRAT_YS", "H_WR2", "H_FXW", "H_FYW", "H_MAX_LUM", "H_G7", "H_G53",
+                 "H_R2C", "H_C2W", "H_CDF", "H_PMF", "HEADER", "MAX_LIGHTS", "MAX_PRIMS", "MAX_MATS",
+                 "LIGHT_STRIDE", "PRIM_STRIDE", "MAT_STRIDE", "P_KIND", "P_MAT", "P_FLAGS", "P_V", "P_NG", "P_NS",
+                 "P_SS", "P_TS", "P_W2O", "P_O2W", "P_R", "P_R2", "P_PHIMAX", "P_ERRC"):
+        assert d[name] == getattr(mk, name), name
+    assert d["P_FIELDS"] == mk.P_ERRC + 3 and d["M_FIELDS"] == mk.M_ON_B + 1
+    got = {k[len("SPLIT_"):].lower(): v for k, v in d.items() if k.startswith("SPLIT_")}
+    assert d["N_SPLIT"] == len(mk.SPLIT_FIELDS) == len(got)
+    names = {"shade": "shade_nee", "flush": "flush_regen", "idle": "idle_tail", "iters": "iterations"}
+    assert [names.get(k, k) for k in sorted(got, key=got.get)] == list(mk.SPLIT_FIELDS)
+
+
+def test_sobol2_direction_table_matches_the_twin():
+    """pt_common.cuh's sobol2 XORs a table of direction numbers over the set
+    bits of the index; the table is the twin's recurrence, so the result is
+    the 32-bit loop's bit for bit."""
+    src = (mk.nvcc.CSRC / "pt_common.cuh").read_text()
+    body = src[src.index("SOBOL2_V[32] = {"):]
+    table = [int(x, 16) for x in re.findall(r"0x([0-9a-f]{8})u", body[:body.index("};")])]
+    assert table == mk._SOBOL2
+    idx = torch.arange(0, 4096, 37, dtype=torch.int64)
+    scr = torch.as_tensor(np.random.RandomState(4).randint(0, 2 ** 32, idx.shape[0], dtype=np.uint64).astype(np.int64))
+    set_bits = scr.clone()
+    for i, v in enumerate(table):  # the set bits only, in any order
+        set_bits = torch.where((idx >> i) & 1 == 1, set_bits ^ v, set_bits)
+    assert torch.equal(mk._u2f01(set_bits), mk._sobol2(idx, scr))
+
+
+@pytest.mark.parametrize("entry", ["megakernel_cuda", "megakernel_split"])
+def test_cuda_entries_refuse_cpu_lanes(entry):
+    """The kernel's wrappers take CUDA tensors only: CPU lanes raise before
+    any build or launch (the route sends CPU lanes to the plain twin)."""
+    lanes = torch.arange(4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        getattr(mk, entry)(torch.zeros(mk.BLOB_FLOATS), 0, lanes, lanes, lanes, 0, 1, 0)
 
 
 # --- (d) the estimator against the reference kernel ----------------------------

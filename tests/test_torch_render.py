@@ -102,3 +102,36 @@ def test_integrator_helpers_match_reference():
         integrator.power_heuristic(1.0, torch.as_tensor(a), 1.0, torch.as_tensor(b)).numpy(),
         np.asarray(ref_integrator.power_heuristic(1.0, jnp.asarray(a), 1.0, jnp.asarray(b))),
         rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("widemega", [None, "1"])
+def test_spatial_light_strategy_refused_when_the_route_is_built(monkeypatch, widemega):
+    """pbrt's default light strategy, 'spatial', over the room's two panel
+    lights: no route of the port renders it, so make_persistent_fn raises
+    naming the strategy (and, under PBRT_TPU_WIDEMEGA=1, the wide
+    megakernel's own reason) before it records a route. With one light the
+    strategy is the uniform selector, and the wavefront renders it."""
+    if widemega is None:
+        monkeypatch.delenv("PBRT_TPU_WIDEMEGA", raising=False)
+    else:
+        monkeypatch.setenv("PBRT_TPU_WIDEMEGA", widemega)
+    desc = _small(mesh_room(8))
+    desc.integrator.light_strategy = "spatial"
+    cs = compile_scene(desc, "cpu")
+    assert cs.static.n_lights == 2 and not desc.lights  # both lights ride the panel's triangles
+    monkeypatch.setattr(render, "LAST_PERSISTENT_TIER", "unbuilt")
+    with pytest.raises(NotImplementedError, match="'spatial' light distribution") as err:
+        render.make_persistent_fn(cs)
+    assert render.LAST_PERSISTENT_TIER == "unbuilt"
+    if widemega:
+        assert "the wide megakernel (PBRT_TPU_WIDEMEGA=1) does not take the 'spatial' light" in str(err.value)
+
+    panel = desc.primitives[-1].shape.mesh
+    panel.indices = panel.indices[:1]  # one emitting triangle: one light
+    one = compile_scene(desc, "cpu")
+    assert one.static.n_lights == 1
+    wave = render.make_persistent_fn(one)
+    assert render.LAST_PERSISTENT_TIER == ("torch-megakernel/plain-wide" if widemega else "torch-wavefront/plain-wide")
+    px, py, pids = (torch.as_tensor(x[:8].astype(np.int64)) for x in _pixels())
+    L, w, _nv = wave(one.arrays, px, py, pids, 0, 1, SEED)
+    assert torch.isfinite(L).all() and torch.equal(w, torch.ones(8))

@@ -26,8 +26,12 @@ reports, with the card's name and power limit:
     closest-hit and shadow pops per path vertex, the device time per pop,
     and the cycle split of its instrumented instantiation (phases as shares
     of lane-cycles, the share of walk lanes holding a ray, resident blocks
-    per SM); then one such call under torch.profiler for the device busy
-    share (device time / untraced call wall);
+    per SM); for the brute megakernel (--scene gallery) the cycle split of
+    its instrumented instantiation (test pool, shading + NEE, flush +
+    regeneration, slots waiting for a shadow ray, the grid's tail), its
+    test counts and resident blocks per SM; then one such call under
+    torch.profiler for the device busy share (device time / untraced call
+    wall);
  4. device (mesh only): one untraced render under torch.profiler: total
     kernel time, the device busy share (kernel time / wall) and the top
     kernels (--out also keeps the chrome trace).
@@ -35,7 +39,8 @@ reports, with the card's name and power limit:
 the panel's black Kd kept), so that a wide-megakernel run with and without
 it tells shading divergence from geometry. The spans are wrapped around the
 port's functions from this script; the program itself carries no tracing
-code but B4's instrumented instantiation, which no route launches.
+code but the megakernels' instrumented instantiations, which no route
+launches.
 """
 from __future__ import annotations
 
@@ -234,6 +239,8 @@ def _launch_path(args, cs, rec):
               f"closest {pc / n_v:.2f}, shadow {ps / n_v:.2f}; {rec['wide_megakernel']['ns_per_pop']:.4f} ns of "
               f"device time per pop", flush=True)
         _wide_split(args, cs, rec, wave, lanes, med["device_ms"])
+    if R_.LAST_PERSISTENT_TIER == "torch-megakernel/cuda-brute":
+        _brute_split(args, cs, rec, wave, lanes, med["device_ms"])
 
     # device busy share of one call under the profiler: every device event
     # recorded lies inside the call, which is the render's timed window
@@ -292,6 +299,43 @@ def _wide_split(args, cs, rec, wave, lanes, device_ms):
           f"128 threads per SM; {split['iterations']} block iterations): "
           + ", ".join(f"{k} {100 * v:.1f}% ({v * ms:.2f} ms)" for k, v in shares.items())
           + "; threads with work: " + ", ".join(f"{k} {100 * v:.1f}%" for k, v in busy.items()), flush=True)
+
+
+def _brute_split(args, cs, rec, wave, lanes, device_ms):
+    """The brute megakernel's cycle split: the route's launch through the
+    kernel's instrumented instantiation (clock64 counters, (0,2) sampler and
+    path only), each field as a share of the total and as that share of the
+    instrumented launch's device time; its test counts; its resident blocks
+    per SM."""
+    import torch
+
+    from pbrt_tpu_torch.device import megakernel
+
+    spp = cs.description.sampler.pixel_samples
+    dev = torch.device("cuda", 0)
+    run = lambda: megakernel.megakernel_split(wave.blob, wave.mode, *lanes, 0, spp, args.seed)  # noqa: E731
+    run()  # warm-up
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    _l, _w, nv, split = run()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop)
+    tests = {k: split[k] for k in ("closest", "shadow", "shadow_tri", "shadow_sph")}
+    total = split["total"]
+    phases = ("pool", "shade_nee", "flush_regen", "wait", "idle_tail")
+    shares = {k: split[k] / total for k in phases}
+    busy = {"pool": split["pool_busy"] / max(split["pool_lanes"], 1),
+            "shade_nee": split["shade_busy"] / max(split["shade_nee"], 1)}
+    occ = megakernel.occupancy(wave.mode)
+    n_v = nv.double().sum().item()
+    rec["brute_split"] = {"cycles": split, "shares": shares, "busy_of_phase": busy, "instrumented_ms": ms,
+                          "uninstrumented_ms": device_ms, "blocks_per_sm": occ, "tests": tests, "path_vertices": n_v}
+    print(f"brute megakernel split (instrumented launch {ms:.4f} ms against {device_ms:.4f} ms; {occ} blocks of "
+          f"128 path slots per SM; {split['iterations']} block iterations): "
+          + ", ".join(f"{k} {100 * v:.1f}% ({v * ms:.2f} ms)" for k, v in shares.items())
+          + "; threads with work: " + ", ".join(f"{k} {100 * v:.1f}%" for k, v in busy.items())
+          + f"; {n_v:.0f} path vertices; tests {tests}", flush=True)
 
 
 def _device(args, cs, rec, wall_median):
