@@ -83,8 +83,32 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     in phase 11, beside the render wall, and the per-lane kernel's 31,724,525 path
     vertices required; then the 64x32,
     4 spp crop through B4 and through the wavefront, both on the card,
-    held to the wide tolerance of phase 11.
-Each main path runs with every launch count set to 0 just before it and
+    held to the wide tolerance of phase 11;
+15. material_room through the wavefront (no route switch set) at
+    1000x500, 16 spp, depth 5: route torch-wavefront/cuda-wide, B1
+    launches > 0, a finite, non-black image; its
+    path_vertex_samples_per_sec beside phase 12's B4, and its 16 spp
+    path-vertex total within 0.01% of B4's 29,659,505; the 64x32, 4 spp
+    crop through B4 and through the wavefront on the card, held to the wide
+    tolerance of phase 11; the crop on cuda and cpu, held as in phase 5;
+16. the spheres gallery through the brute wavefront
+    (PBRT_TPU_NO_MEGAKERNEL=1): route torch-wavefront/cuda-brute, no
+    brute megakernel launch, the 16 spp total within 0.01% of 8,474,737;
+    the crop through B3 and through the brute wavefront, held to phase 6's
+    tolerance; the crop on cuda and cpu;
+17. area_box (15 prims: area and point lights, every lobe kind of the five
+    materials, a partial sphere, 'spatial' selection) through the brute
+    wavefront: route torch-wavefront/cuda-brute, path_vertex_samples_per_sec,
+    the peak device memory of the render; the crop on cuda and cpu;
+18. the mesh room under pbrt's default 'spatial' light distribution: the
+    distribution's build time on the card, the render through
+    torch-wavefront/cuda-wide, the crop on cuda and cpu;
+19. the crop on cuda and cpu of material_room under directlighting's
+    "all" strategy, and of area_box with a declared 4x4 stratified sampler
+    (16 spp).
+Phases 15-19 are the wavefront's array code around B1 (the brute
+wavefront launches no kernel of the port): they add no row to the kernel
+report. Each main path runs with every launch count set to 0 just before it and
 read just after; every switch a phase sets is restored after it. The second-to-last lines are the kernel report as JSON
 and the card's nvidia-smi name and power limit; the last line is
 {"ok": true, "device": {...}}.
@@ -111,6 +135,8 @@ MATERIAL_ROOM_VERTICES = 29_659_505
 MESH_ROOM_VERTICES = 31_724_525
 # ... and of the spheres gallery, as the per-lane B3 traced them
 GALLERY_VERTICES = 8_474_737
+# the wavefront traces the megakernels' paths within this share of their totals
+WAVEFRONT_VERTEX_RTOL = 1e-4
 
 # H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -155,7 +181,8 @@ def _bound(bytes_moved: float, ops: float) -> tuple[float, str]:
 
 
 def _b3_against_plain(label, kernel_out, plain_out) -> float:
-    """Phase 6: B3's (L, w, nv) against its plain twin's for the same lanes,
+    """Phases 6 and 16: B3's (L, w, nv) against its plain twin's (or the
+    brute wavefront's) for the same lanes,
     under the reference megakernel's tolerances (weights allclose, path
     vertices within 4, max |dL| / (|L| + 1e-2) < 2e-2, mean |dL| < 1e-4,
     a non-black image); prints the comparison and returns max |dL|."""
@@ -170,7 +197,7 @@ def _b3_against_plain(label, kernel_out, plain_out) -> float:
           f"image mean {L_p.mean().item():.5f}", flush=True)
     if not (torch.allclose(w_k, w_p) and abs(nv_k - nv_p) <= 4 and rel.max().item() < 2e-2
             and diff.mean().item() < 1e-4 and L_p.mean().item() > 0):
-        raise AssertionError("the brute megakernel and its plain twin disagree")
+        raise AssertionError(f"{label}: the two renders disagree")
     return diff.max().item()
 
 
@@ -178,8 +205,9 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _check_crop(label, cs_gpu, cs_cpu, desc):
-    """Phases 5 and 8: the same crop rendered on cuda and on cpu."""
+def _check_crop(label, cs_gpu, cs_cpu, desc, spp=CROP_SPP):
+    """Phases 5, 8, 13 and 15-19: the same crop rendered on cuda and on cpu
+    (desc: the scene description both render)."""
     import numpy as np
 
     from pbrt_tpu_torch import render as R_
@@ -187,7 +215,7 @@ def _check_crop(label, cs_gpu, cs_cpu, desc):
 
     desc_c = dataclasses.replace(
         desc, integrator=dataclasses.replace(desc.integrator, pixel_bounds=CROP_BOUNDS),
-        sampler=dataclasses.replace(desc.sampler, pixel_samples=CROP_SPP))
+        sampler=dataclasses.replace(desc.sampler, pixel_samples=spp))
     x0, x1, y0, y1 = CROP_BOUNDS
     img_g = R_.render_compiled(CompiledScene(cs_gpu.arrays, cs_gpu.static, desc_c), seed=SEED)[y0:y1, x0:x1]
     tier_g = R_.render_compiled.last_timing["tier"]
@@ -195,7 +223,7 @@ def _check_crop(label, cs_gpu, cs_cpu, desc):
     tier_c = R_.render_compiled.last_timing["tier"]
     rel = np.abs(img_g - img_c).sum() / max(np.abs(img_c).sum(), 1e-30)
     px_ok = np.isclose(img_g, img_c, rtol=1e-2, atol=1e-4).all(axis=-1).mean()
-    print(f"[{label}] {x1 - x0}x{y1 - y0} {CROP_SPP}spp ({tier_g} vs {tier_c}): "
+    print(f"[{label}] {x1 - x0}x{y1 - y0} {spp}spp ({tier_g} vs {tier_c}): "
           f"sum|a-b|/sum|b| {rel:.3e}, pixels within rtol 1e-2 {px_ok:.4f}, means {img_g.mean():.5f} "
           f"{img_c.mean():.5f}", flush=True)
     if not (np.isfinite(img_g).all() and img_c.mean() > 0 and rel < 1e-3 and px_ok >= 0.99):
@@ -225,9 +253,10 @@ def _wide_tolerance(L, w, nv, L_r, w_r, nv_r):
 
 
 def _main_path(label, cs, expect_tier, kernel_fn):
-    """Phases 4, 7, 10, 12 and 14: a warm-up pass, then one full render with
-    every launch count set to 0 just before it; returns (timing, launches,
-    image)."""
+    """Phases 4, 7, 10, 12, 14 and 15-18: a warm-up pass, then one full
+    render with every launch count set to 0 just before it; returns (timing,
+    launches of kernel_fn, image). kernel_fn None: a route of array code
+    only (the brute wavefront), which launches no kernel of the port."""
     import numpy as np
 
     from pbrt_tpu_torch import render as R_
@@ -235,12 +264,12 @@ def _main_path(label, cs, expect_tier, kernel_fn):
     R_.render_compiled(cs, seed=SEED, spp=2)  # warm-up pass
     _reset_launches()
     img = R_.render_compiled(cs, seed=SEED)
-    launches = kernel_fn.launches
+    launches = None if kernel_fn is None else kernel_fn.launches
     timing = R_.render_compiled.last_timing
     desc = cs.description
     if timing["tier"] != expect_tier:
         raise AssertionError(f"{label} took route {timing['tier']}")
-    if launches <= 0:
+    if launches is not None and launches <= 0:
         raise AssertionError(f"{label} made no launch of its kernel")
     if not (np.isfinite(img).all() and img.mean() > 0):
         raise AssertionError(f"{label} image is not finite and non-black")
@@ -278,7 +307,8 @@ def _rays(cs):
     hit = intersect(cs.arrays, cs.static, o, d, inf)
     si = surface_interaction(cs.arrays, hit, o, d)
     u = [rng.u32_to_float(rng.hash_combine(7, idx, k)) for k in range(3)]
-    lobes = {"kind": torch.full_like(idx, LOBE_LAMBERT_R), "color": torch.ones_like(o)}
+    lobes = {"kind": torch.full_like(idx, LOBE_LAMBERT_R)[:, None], "data": torch.ones((W * H, 1, 14), device=dev),
+             "possible": (frozenset({LOBE_LAMBERT_R}),)}
     bs = bsdf_sample(lobes, _to_local(si, si["wo"]), u[0], u[1], u[2])
     wi = _to_world(si, bs["wi"])
     o_b = _offset_ray(si["p"], si["ng"], wi, si["p_err"])
@@ -328,6 +358,133 @@ def _compare(name, any_hit, res_k, res_p):
     if hit_agree < 0.9999 or (not any_hit and (idx_agree < 0.9999 or t_ok < 0.9999)):
         raise AssertionError(f"kernel and plain traversal disagree on {label}")
     return max(dt, db)
+
+
+def _total_within(label, n_vertices, expected):
+    """The wavefront's 16 spp path-vertex total against a megakernel's."""
+    rel = abs(n_vertices - expected) / expected
+    print(f"  {label}: 16 spp path vertices {n_vertices:.0f} against the megakernel's {expected} "
+          f"({100 * rel:.4f}%, limit {100 * WAVEFRONT_VERTEX_RTOL:.2f}%)", flush=True)
+    if rel > WAVEFRONT_VERTEX_RTOL:
+        raise AssertionError(f"{label}: the wavefront traced other paths than the megakernel")
+
+
+def _crop_lanes(cs):
+    import torch
+
+    x0, x1, y0, y1 = CROP_BOUNDS
+    dev = cs.arrays.device
+    ys, xs = torch.meshgrid(torch.arange(y0, y1, device=dev), torch.arange(x0, x1, device=dev), indexing="ij")
+    return xs.reshape(-1), ys.reshape(-1), (ys * cs.description.film.x_resolution + xs).reshape(-1)
+
+
+def _with_desc(cs, desc):
+    from pbrt_tpu_torch.scene.builder import CompiledScene
+
+    return CompiledScene(cs.arrays, cs.static, desc)
+
+
+def _wavefront_phases(cs, cs_host, m, m_host, g, g_host, b4_timing, gallery_timing):
+    """Phases 15-19: the wavefront on the classes it shares with the
+    megakernels, and on those only it renders. Every switch is restored."""
+    out = {}
+    switches = ("PBRT_TPU_WIDEMEGA", "PBRT_TPU_NO_MEGAKERNEL", "PBRT_TPU_JOINT")
+    with mock.patch.dict(os.environ, {k: v for k, v in os.environ.items() if k not in switches}, clear=True):
+        _wavefront_phases_unswitched(out, cs, cs_host, m, m_host, g, g_host, b4_timing, gallery_timing)
+    return out
+
+
+def _wavefront_phases_unswitched(out, cs, cs_host, m, m_host, g, g_host, b4_timing, gallery_timing):
+    """_wavefront_phases with none of the route switches set."""
+    import torch
+
+    from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch.device import lightdistrib, megakernel, wide_bvh
+    from pbrt_tpu_torch.scene.builder import compile_scene
+    from pbrt_tpu_torch.scenes import area_box
+
+    # --- 15. material_room through the wavefront, beside B4 ---
+    t15, l15, _img = _main_path("15 material_room wavefront", m, "torch-wavefront/cuda-wide",
+                                wide_bvh.traverse_cuda)
+    vps, vps_b4 = t15["n_vertices"] / t15["wall_s"], b4_timing["n_vertices"] / b4_timing["wall_s"]
+    print(f"  path_vertex_samples_per_sec wavefront {vps:.1f} against B4 (phase 12) {vps_b4:.1f}: B4 "
+          f"{vps_b4 / vps:.3f}x; B1 launches {l15}", flush=True)
+    _total_within("15 material_room wavefront", t15["n_vertices"], MATERIAL_ROOM_VERTICES)
+    crop = _crop_lanes(m)
+    wave = R_.make_persistent_fn(m)(m.arrays, *crop, 0, CROP_SPP, SEED)
+    with mock.patch.dict(os.environ, PBRT_TPU_WIDEMEGA="1"):
+        mega_fn = R_.make_persistent_fn(m)
+        mega_tier = R_.LAST_PERSISTENT_TIER
+        mega = mega_fn(m.arrays, *crop, 0, CROP_SPP, SEED)
+    ok, desc_cmp = _wide_tolerance(*wave, *mega)
+    print(f"[15 material_room B4 vs wavefront] {CROP_SPP}spp crop ({mega_tier} vs torch-wavefront/cuda-wide): "
+          f"{desc_cmp}", flush=True)
+    if not ok:
+        raise AssertionError("the wide megakernel and the wavefront disagree on the material_room crop")
+    _check_crop("15 cuda-vs-cpu material_room wavefront crop", m, m_host, m.description)
+    out["material_room_wavefront"] = {"vps": vps, "wall_s": t15["wall_s"], "b1_launches": l15}
+
+    # --- 16. the spheres gallery through the brute wavefront ---
+    with mock.patch.dict(os.environ, PBRT_TPU_NO_MEGAKERNEL="1"):
+        t16, _n, _img = _main_path("16 gallery brute wavefront", g, "torch-wavefront/cuda-brute", None)
+        if megakernel.megakernel_cuda.launches != 0:
+            raise AssertionError("the brute wavefront launched the brute megakernel")
+        vps, vps_b3 = t16["n_vertices"] / t16["wall_s"], gallery_timing["n_vertices"] / gallery_timing["wall_s"]
+        print(f"  path_vertex_samples_per_sec brute wavefront {vps:.1f} against B3 (phase 7) {vps_b3:.1f}; "
+              f"brute megakernel launches 0", flush=True)
+        _total_within("16 gallery brute wavefront", t16["n_vertices"], GALLERY_VERTICES)
+        crop = _crop_lanes(g)
+        wave = R_.make_persistent_fn(g)(g.arrays, *crop, 0, CROP_SPP, SEED)
+    mega_fn = R_.make_persistent_fn(g)
+    if R_.LAST_PERSISTENT_TIER != "torch-megakernel/cuda-brute":
+        raise AssertionError(f"the gallery took {R_.LAST_PERSISTENT_TIER} without PBRT_TPU_NO_MEGAKERNEL")
+    _b3_against_plain(f"[16 gallery B3 vs brute wavefront] {CROP_SPP}spp crop", mega_fn(g.arrays, *crop, 0, CROP_SPP,
+                                                                                       SEED), wave)
+    with mock.patch.dict(os.environ, PBRT_TPU_NO_MEGAKERNEL="1"):
+        _check_crop("16 cuda-vs-cpu gallery brute wavefront crop", g, g_host, g.description)
+    out["gallery_brute_wavefront"] = {"vps": vps, "wall_s": t16["wall_s"]}
+
+    # --- 17. area_box, the brute wavefront's own scene ---
+    box_host = compile_scene(area_box(), "cpu")
+    box = box_host.to(cs.arrays.device)
+    torch.cuda.reset_peak_memory_stats()
+    t17, _n, _img = _main_path("17 area_box main path", box, "torch-wavefront/cuda-brute", None)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {box.static.n_prims} prims ({box.static.n_tris} triangles), {box.static.n_lights} lights, "
+          f"'{box.description.integrator.light_strategy}' selection; peak device memory {peak} bytes "
+          f"({peak / 2 ** 30:.2f} GiB)", flush=True)
+    _check_crop("17 cuda-vs-cpu area_box crop", box, box_host, box.description)
+    out["area_box"] = {"vps": t17["n_vertices"] / t17["wall_s"], "wall_s": t17["wall_s"],
+                       "n_vertices": t17["n_vertices"], "peak_bytes": peak}
+
+    # --- 18. the mesh room under pbrt's default 'spatial' light distribution ---
+    desc_sp = dataclasses.replace(cs.description,
+                                  integrator=dataclasses.replace(cs.description.integrator, light_strategy="spatial"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist = lightdistrib.build_spatial_distribution(cs.arrays, cs.static)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"[18 spatial distribution] mesh room, {cs.static.n_lights} lights: {dist['res']} voxels, built in "
+          f"{build_s:.4f}s", flush=True)
+    t18, l18, _img = _main_path("18 mesh room spatial", _with_desc(cs, desc_sp), "torch-wavefront/cuda-wide",
+                                wide_bvh.traverse_cuda)
+    _check_crop("18 cuda-vs-cpu mesh room spatial crop", _with_desc(cs, desc_sp), _with_desc(cs_host, desc_sp),
+                desc_sp)
+    out["mesh_spatial"] = {"vps": t18["n_vertices"] / t18["wall_s"], "wall_s": t18["wall_s"],
+                           "build_s": build_s, "b1_launches": l18}
+
+    # --- 19. directlighting "all" and the declared stratified sampler ---
+    md = m.description
+    desc_dl = dataclasses.replace(md, integrator=dataclasses.replace(md.integrator, kind="directlighting",
+                                                                     strategy="all"))
+    _check_crop("19 cuda-vs-cpu material_room directlighting 'all' crop", _with_desc(m, desc_dl),
+                _with_desc(m_host, desc_dl), desc_dl)
+    bd = box.description
+    desc_st = dataclasses.replace(bd, sampler=dataclasses.replace(bd.sampler, kind="stratified", x_samples=4,
+                                                                  y_samples=4, jitter=True))
+    _check_crop("19 cuda-vs-cpu area_box stratified 4x4 crop", _with_desc(box, desc_st), _with_desc(box_host, desc_st),
+                desc_st, spp=16)
 
 
 def main() -> int:
@@ -643,6 +800,10 @@ def main() -> int:
         raise AssertionError("the wide megakernel and the wavefront disagree on the mesh room crop")
     if mesh_nv != MESH_ROOM_VERTICES:
         raise AssertionError("the wide megakernel traced other paths than the per-lane kernel on the mesh room")
+
+    # --- 15-19. the wavefront on the megakernels' scenes and on its own ---
+    wf = _wavefront_phases(cs, cs_host, m, m_host, g, g_host, m_timing, g_timing)
+    print(f"[15-19 wavefront] {json.dumps(wf)}", flush=True)
 
     report = {"kernels": [
         {"name": "wide_traverse", "route": "cuda", "source": "pbrt_tpu_torch/csrc/wide_traverse.cu",

@@ -5,23 +5,29 @@ The port mirrors the JAX package's module layout and function names
 find, and it imports neither ``jax`` nor ``pbrt_tpu``: the machines that run
 it on a GPU have no JAX.
 
-What it renders today are two slices of the reference, each with a
-hand-written CUDA kernel:
+What it renders today, with a hand-written CUDA kernel on each route's
+hot path where the reference has a Pallas kernel:
 
-- the persistent path tracer over triangle meshes of more than 64 prims with
-  matte (constant Kd) materials and diffuse area lights, traversing the
-  8-wide BVH (``csrc/wide_traverse.cu``);
+- the persistent wavefront (device/integrator.py) for every scene the
+  compiler takes: static triangle meshes, and for scenes of at most 64
+  prims full or partial spheres too; point, spot, distant and triangle
+  area lights under uniform, power or 'spatial' light selection; matte
+  (Lambert or Oren-Nayar), mirror, glass, metal and plastic with constant
+  parameters; the (0,2), random and stratified samplers; the path and
+  directlighting integrators. Scenes of more than 64 prims traverse the
+  8-wide BVH (``csrc/wide_traverse.cu``); smaller ones test every prim;
 - the brute megakernel for scenes of at most 16 triangle or full-sphere
-  prims with point, spot and distant lights and constant-parameter matte,
-  mirror, glass, metal and plastic materials, path or directlighting
-  (``csrc/megakernel.cu``).
+  prims with at most 4 point, spot and distant lights
+  (``csrc/megakernel.cu``), and the wide megakernel for triangle scenes of
+  its class with PBRT_TPU_WIDEMEGA=1 (``csrc/megakernel_wide.cu``).
 
-Every other feature raises NotImplementedError at scene compile time or
-when the render route is built.
+Every other feature raises NotImplementedError at scene compile time.
 
 Public entry points:
     pbrt_tpu_torch.scenes.mesh_room(n_side)             -> SceneDescription
     pbrt_tpu_torch.scenes.spheres_gallery()             -> SceneDescription
+    pbrt_tpu_torch.scenes.material_room(n_side)         -> SceneDescription
+    pbrt_tpu_torch.scenes.area_box()                    -> SceneDescription
     pbrt_tpu_torch.scene.builder.compile_scene(desc, device="cuda")
     pbrt_tpu_torch.render.render(desc, device="cuda")    -> (H, W, 3) image
 

@@ -1,13 +1,17 @@
 """Persistent wavefront path tracer.
 
 The port's counterpart of ``pbrt_tpu/device/integrator.py
-trace_persistent`` for the path integrator (src/integrators/path.rs li
-:79-222; shared NEE/MIS src/core/integrator.rs estimate_direct :109-237):
-one lane per pixel, each lane traces its pixel's samples one after another
-and regenerates a camera ray the moment its path ends. Per bounce it makes
-one closest-hit query and one shadow query, shades with the Lambert lobe,
-does one-light NEE with MIS and Russian roulette, and flushes finished
-samples into per-lane accumulators.
+trace_persistent`` for the path and directlighting integrators
+(src/integrators/path.rs li :79-222, directlighting.rs; shared NEE/MIS
+src/core/integrator.rs estimate_direct :109-237): one lane per pixel, each
+lane traces its pixel's samples one after another and regenerates a camera
+ray the moment its path ends. Per bounce it makes one closest-hit query and
+one shadow query per light sample, shades with the material's lobes, does
+NEE with MIS (one light picked by the uniform, power or spatial
+distribution, or every light with its own sample count for
+directlighting's "all" strategy; delta lights unweighted), continues the
+path (directlighting: through specular lobes only) with Russian roulette on
+path, and flushes finished samples into per-lane accumulators.
 
 The (pixel, sample, dimension) sample streams and the per-sample math are
 the reference's, so the port reproduces its images to fp tolerance
@@ -19,14 +23,15 @@ work.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from .bsdf import bsdf_f, bsdf_pdf, bsdf_sample, num_lobes
+from . import rng
+from .bsdf import SPECULAR_KINDS, _is_specular, bsdf_f, bsdf_pdf, bsdf_sample, num_lobes
 from .intersect import intersect, intersect_p
+from .lightdistrib import spatial_pmf_of, spatial_select
 from .lights import area_light_emission, compute_power, pdf_li_area_hit, sample_li
-from .materials import make_bsdf
-from .sampler import SAMPLER_KINDS, sample_1d, sample_2d
+from .materials import lobe_table, make_bsdf
+from .sampler import sample_1d, sample_2d
 from .shading import dot, surface_interaction
 
 RAY_EPS = 1e-3
@@ -72,59 +77,55 @@ def _to_world(si, w):
     return w[..., 0:1] * si["ss"] + w[..., 1:2] * si["ts"] + w[..., 2:3] * si["ns"]
 
 
+def _round_ns(kind: str, n: int) -> int:
+    """Sampler::round_count: the (0,2) sampler rounds an array's size up to a
+    power of two (zerotwosequence.rs)."""
+    if kind in ("zerotwosequence", "lowdiscrepancy") and n > 1:
+        return 1 << (n - 1).bit_length()
+    return max(n, 1)
+
+
 def _light_selectors(sa, static, icfg: dict):
-    """Light-selection closures (lightdistrib.rs): "uniform" or
-    power-proportional. Returns (_select_light(u) -> (lid, pmf),
-    _sel_pmf_of(lid))."""
+    """Light-selection closures (lightdistrib.rs): "uniform",
+    power-proportional, or the voxel-grid "spatial" distribution, whose
+    table render.make_persistent_fn builds into icfg["spatial_distribution"].
+    Returns (_select_light(u, p_at) -> (lid, pmf), _sel_pmf_of(lid, p_at));
+    p_at is the shading point that selects (for the MIS weight at an
+    emission hit, the previous path vertex)."""
     strategy = str(icfg.get("light_strategy", "uniform"))
     n = static.n_lights
-    if strategy == "spatial" and n > 1:
-        raise NotImplementedError("pbrt_tpu_torch does not support the 'spatial' light distribution yet")
     sel_pdf = 1.0 / max(n, 1)
-    use_power = strategy in ("power", "spatial") and n > 1
+    spatial = strategy == "spatial" and n > 1
+    use_power = strategy == "power" and n > 1
+    if spatial:
+        dist = icfg.get("spatial_distribution")
+        if dist is None:
+            raise ValueError("the 'spatial' light strategy needs icfg['spatial_distribution'] "
+                             "(lightdistrib.build_spatial_distribution)")
     if use_power:
         pw = compute_power(sa, static)
         pmf = torch.clamp(pw / torch.clamp(pw.sum(), min=1e-20), min=1e-6)
         pmf = pmf / pmf.sum()  # every light stays selectable (unbiased)
         cdf = torch.cumsum(pmf, 0)
 
-    def _sel_pmf_of(lid):
+    def _sel_pmf_of(lid, p_at):
+        if spatial:
+            return spatial_pmf_of(dist, p_at, lid)
         if not use_power:
             return torch.full(lid.shape, sel_pdf, dtype=torch.float32, device=lid.device)
         return pmf[lid]
 
-    def _select_light(u_sel):
+    def _select_light(u_sel, p_at):
+        if spatial:
+            return spatial_select(dist, p_at, u_sel)
         if not use_power:
             lid = torch.clamp((u_sel * n).to(torch.int64), max=n - 1)
             return lid, torch.full(u_sel.shape, sel_pdf, dtype=torch.float32, device=u_sel.device)
         lid = (u_sel[:, None] > cdf[None, :-1]).sum(1)
         lid = torch.clamp(lid, 0, n - 1)
-        return lid, _sel_pmf_of(lid)
+        return lid, _sel_pmf_of(lid, p_at)
 
     return _select_light, _sel_pmf_of
-
-
-def explain_unsupported(desc, n_lights: int) -> str | None:
-    """The first feature of a compiled wide scene that the wavefront cannot
-    render, or None: lights other than triangle area lights, the 'spatial'
-    light distribution over more than one light, samplers other than (0,2)
-    and random, materials other than matte, Oren-Nayar matte. n_lights: the
-    compiled scene's light count (``static.n_lights``), which counts the
-    area lights that ride the prims."""
-    if desc.lights:  # the scene's own lights; area lights ride the prims
-        return f"'{desc.lights[0].kind}' lights"
-    if desc.integrator.light_strategy == "spatial" and n_lights > 1:
-        return "the 'spatial' light distribution over more than one light"
-    if desc.sampler.kind not in SAMPLER_KINDS:
-        return f"the '{desc.sampler.kind}' sampler"
-    for prim in desc.primitives:
-        mat = prim.material
-        if mat.kind != "matte":
-            return f"the '{mat.kind}' material"
-        sigma = mat.params.get("sigma")
-        if sigma is not None and np.any(np.asarray(sigma[1], np.float64) != 0):
-            return "Oren-Nayar matte (sigma > 0)"
-    return None
 
 
 def trace_persistent(sa, static, icfg: dict, scfg: dict, seed: int, pixel, s0: int,
@@ -133,27 +134,50 @@ def trace_persistent(sa, static, icfg: dict, scfg: dict, seed: int, pixel, s0: i
 
     One lane per pixel (pixel: (R,) int64 pixel ids); lane samples s0 ..
     s0+n_samples-1 are traced one after another. regen(sample_idx (R,)) ->
-    (o, d, w_filter) gives fresh camera samples for every lane. joint: CUDA
-    queries go through the joint traversal kernel (B2) instead of B1.
+    (o, d, w_filter) gives fresh camera samples for every lane. icfg: kind
+    ("path" or "directlighting"), max_depth, rr_threshold, strategy
+    (directlighting's "all" or "one"), light_strategy, and what the route
+    builds once: "spatial_distribution" and "lobe_table" (made here when
+    absent). scfg: sampler kind, spp and, for "stratified", "strata". joint:
+    CUDA queries of a wide scene go through the joint traversal kernel (B2)
+    instead of B1.
 
     Returns (accLw (R, 3), accW (R,), n_vertices (R,)), float32.
     """
-    if icfg.get("kind", "path") != "path":
-        raise NotImplementedError(f"pbrt_tpu_torch does not support the '{icfg['kind']}' integrator yet")
+    ikind = icfg.get("kind", "path")
+    if ikind not in ("path", "directlighting"):
+        raise NotImplementedError(f"pbrt_tpu_torch does not support the '{ikind}' integrator yet")
     R = pixel.shape[0]
     dev = pixel.device
     max_depth = int(icfg["max_depth"])
     rr_threshold = float(icfg.get("rr_threshold", 1.0))
     kind_s = scfg["kind"]
     spp = scfg["spp"]
+    strata = scfg.get("strata")
+    n_lights = static.n_lights
+    direct_all = ikind == "directlighting" and icfg.get("strategy", "all") == "all" and n_lights > 1
     _select_light, _sel_pmf_of = _light_selectors(sa, static, icfg)
+    table = icfg.get("lobe_table")
+    if table is None:
+        table = lobe_table(sa, static)
     s_end = s0 + n_samples
 
-    def _nee(si, lobes, alive_m, dim_base, s_cur):
-        """uniform_sample_onelight / estimate_direct, surface-only form."""
-        u_sel = sample_1d(kind_s, seed, pixel, s_cur, dim_base, spp)
-        u1, u2 = sample_2d(kind_s, seed, pixel, s_cur, dim_base + 1, spp)
-        lid, spdf = _select_light(u_sel)
+    def _nee(si, lobes, alive_m, dim_base, s_cur, light_index=None, dim_salt=0, array_j=0, array_n=1):
+        """uniform_sample_onelight / estimate_direct, surface-only form. With
+        light_index: that light, sample j of its n-point array
+        (UniformSampleAll: sampler.rs request_2d_array, stratified.rs)."""
+        u1, u2 = sample_2d(kind_s, seed, pixel, s_cur, dim_base + 1 + 131 * dim_salt, spp, strata)
+        if light_index is None:
+            u_sel = sample_1d(kind_s, seed, pixel, s_cur, dim_base, spp, strata)
+            lid, spdf = _select_light(u_sel, si["p"])
+        else:
+            lid = torch.full((R,), light_index, dtype=torch.int64, device=dev)
+            spdf = 1.0
+            if array_n > 1:
+                r1 = rng.hash_combine(seed, pixel, s_cur, 0xA117 + light_index)
+                r2 = rng.hash_combine(seed, pixel, s_cur, 0xB229 + light_index)
+                u1 = (((array_j + r1 % array_n) % array_n).float() + u1) / array_n
+                u2 = (((array_j + r2 % array_n) % array_n).float() + u2) / array_n
         ls = sample_li(sa, static, lid, si["p"], u1, u2)
         wi = ls["wi"]
         wo_l = _to_local(si, si["wo"])
@@ -199,25 +223,44 @@ def trace_persistent(sa, static, icfg: dict, scfg: dict, seed: int, pixel, s0: i
         nverts = nverts + (alive & valid).to(torch.float32)
         alive = alive & valid
 
-        lid = si["light"]
-        emitting = alive & (lid >= 0)
-        le = area_light_emission(sa, lid, si["ng"], si["wo"])
-        area = sa.prim_area[torch.clamp(si["prim"], min=0)]
-        p_l = pdf_li_area_hit(sa, prev_p, si["p"], si["ng"], lid, area) * _sel_pmf_of(torch.clamp(lid, min=0))
-        w = torch.where(prev_spec, 1.0, power_heuristic(1.0, prev_pdf, 1.0, p_l))
-        L = L + torch.where(emitting[:, None], beta * le * w[:, None], 0.0)
+        if static.has_area_lights:
+            lid = si["light"]
+            emitting = alive & (lid >= 0)
+            le = area_light_emission(sa, lid, si["ng"], si["wo"])
+            area = sa.prim_area[torch.clamp(si["prim"], min=0)]
+            p_l = pdf_li_area_hit(sa, prev_p, si["p"], si["ng"], lid, area) * _sel_pmf_of(
+                torch.clamp(lid, min=0), prev_p)
+            w = torch.where(prev_spec, 1.0, power_heuristic(1.0, prev_pdf, 1.0, p_l))
+            L = L + torch.where(emitting[:, None], beta * le * w[:, None], 0.0)
 
         # --- shade: NEE + BSDF continuation (per-lane bounce depth) ---
         dim_base = 2 + bounces * DPB
         can_scatter = alive & (bounces < max_depth - 1)
-        lobes = make_bsdf(sa, static, si["mat"])
+        lobes = make_bsdf(sa, static, si["mat"], table)
         alive_sh = can_scatter & (num_lobes(lobes) > 0)
-        if static.n_lights > 0:
+        if direct_all:
+            # UniformSampleAll (directlighting.rs strategy "all"): each light's
+            # nsamples array samples, averaged (sampler round_count)
+            for li in range(n_lights):
+                ns = _round_ns(kind_s, static.light_n_samples[li])
+                acc = torch.zeros((R, 3), dtype=torch.float32, device=dev)
+                for j in range(ns):
+                    acc = acc + _nee(si, lobes, alive_sh, dim_base, s_cur, light_index=li,
+                                     dim_salt=1 + li * 1024 + j, array_j=j, array_n=ns)
+                L = L + beta * acc / ns
+        elif n_lights > 0:
             L = L + beta * _nee(si, lobes, alive_sh, dim_base, s_cur)
 
-        u_lobe = sample_1d(kind_s, seed, pixel, s_cur, dim_base + 2, spp)
-        u1, u2 = sample_2d(kind_s, seed, pixel, s_cur, dim_base + 3, spp)
+        u_lobe = sample_1d(kind_s, seed, pixel, s_cur, dim_base + 2, spp, strata)
+        u1, u2 = sample_2d(kind_s, seed, pixel, s_cur, dim_base + 3, spp, strata)
         wo_l = _to_local(si, si["wo"])
+        if ikind == "directlighting":
+            # continuation through the specular lobes only (the
+            # specular_reflect/transmit recursion, integrator.rs:409-520);
+            # a diffuse vertex ends the path
+            kinds = lobes["kind"]
+            lobes = {"kind": torch.where(_is_specular(kinds), kinds, 0), "data": lobes["data"],
+                     "possible": tuple(p & SPECULAR_KINDS for p in lobes["possible"])}
         bs = bsdf_sample(lobes, wo_l, u_lobe, u1, u2)
         wi_w = _to_world(si, bs["wi"])
         cos_term = dot(wi_w, si["ns"]).abs()
@@ -235,14 +278,17 @@ def trace_persistent(sa, static, icfg: dict, scfg: dict, seed: int, pixel, s0: i
         eta_scale = torch.where(surf_cont, eta_scale * bs["eta_scale"], eta_scale)
         new_bounces = bounces + surf_cont.to(torch.int64)
 
-        # russian roulette (path.rs:206-214)
-        max_c = (new_beta * eta_scale[:, None]).max(-1).values
-        q = torch.clamp(1.0 - max_c, min=0.05)
-        do_rr = (new_bounces > 3) & (max_c < rr_threshold)
-        u_rr = sample_1d(kind_s, seed, pixel, s_cur, dim_base + 4, spp)
-        killed = do_rr & (u_rr < q)
-        new_alive = new_alive & ~killed
-        new_beta = torch.where((do_rr & ~killed)[:, None], new_beta / torch.clamp(1.0 - q, min=1e-6)[:, None], new_beta)
+        if ikind == "path":
+            # russian roulette (path.rs:206-214); directlighting's specular
+            # chains are cut by depth only
+            max_c = (new_beta * eta_scale[:, None]).max(-1).values
+            q = torch.clamp(1.0 - max_c, min=0.05)
+            do_rr = (new_bounces > 3) & (max_c < rr_threshold)
+            u_rr = sample_1d(kind_s, seed, pixel, s_cur, dim_base + 4, spp, strata)
+            killed = do_rr & (u_rr < q)
+            new_alive = new_alive & ~killed
+            new_beta = torch.where((do_rr & ~killed)[:, None], new_beta / torch.clamp(1.0 - q, min=1e-6)[:, None],
+                                   new_beta)
 
         # --- flush finished samples, regenerate or retire lanes ---
         die = ~done & ~new_alive

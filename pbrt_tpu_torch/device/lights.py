@@ -1,19 +1,26 @@
-"""Light sampling for triangle area lights, and light power.
+"""Light sampling and light power.
 
-The port's counterpart of ``pbrt_tpu/device/lights.py`` restricted to
-diffuse area lights on triangles (src/lights/diffuse.rs), one light row per
-emitting triangle: sample_li (uniform area sampling, converted to solid
-angle), area_light_emission and pdf_li_area_hit. compute_power also covers
-the point, spot and distant lights that the brute megakernel samples.
+The port's counterpart of ``pbrt_tpu/device/lights.py`` for the light kinds
+the port compiles: point, spot and distant lights (src/lights/point.rs,
+spot.rs, distant.rs) and diffuse area lights on triangles
+(src/lights/diffuse.rs), one light row per emitting triangle. sample_li
+evaluates only the branches of the kinds the scene has; area_light_emission,
+pdf_li_area_hit and compute_power complete the set.
 """
 from __future__ import annotations
 
+import functools
 import math
+import operator
 
 import torch
 
-from ..scene.arrays import LIGHT_AREA, LIGHT_DISTANT, LIGHT_POINT, LIGHT_SPOT
+from ..scene.arrays import (
+    LIGHT_AREA, LIGHT_DISTANT, LIGHT_GONIO, LIGHT_INFINITE, LIGHT_POINT, LIGHT_PROJECTION, LIGHT_SPOT,
+)
 from .shading import FLAG_FLIP_GEOM_N, cross, dot, normalize
+
+_UNPORTED = {LIGHT_GONIO: "goniometric", LIGHT_PROJECTION: "projection", LIGHT_INFINITE: "infinite"}
 
 
 def uniform_sample_triangle(u1, u2):
@@ -45,27 +52,68 @@ def area_light_emission(sa, light_ids, n_light, w):
 
 
 def sample_li(sa, static, light_ids, p_ref, u1, u2):
-    """Sample an incident direction from area light `light_ids` toward p_ref.
+    """Sample an incident direction from light `light_ids` toward p_ref.
 
-    Returns dict {wi, li, pdf, dist, delta, n, area}: pdf in solid angle,
-    dist the distance to the light sample (the shadow ray's t_max)."""
-    if set(static.light_kinds) - {LIGHT_AREA}:
-        raise NotImplementedError("pbrt_tpu_torch samples area lights only")
+    Returns dict {wi, li, pdf, dist, delta, n, area}: pdf in solid angle
+    (1 for the delta lights), dist the distance to the light sample (the
+    shadow ray's t_max; twice the world radius for a distant light), n and
+    area the area light's sample normal and area (zero and one elsewhere)."""
+    kinds = set(static.light_kinds)
+    for k in kinds & set(_UNPORTED):
+        raise NotImplementedError(f"pbrt_tpu_torch does not sample {_UNPORTED[k]} lights yet")
     lid = torch.clamp(light_ids, min=0)
     par = sa.light_param[lid]
-    ps, ns, area = _sample_prim_point(sa, sa.light_prim[lid], u1, u2)
-    to_s = ps - p_ref
-    d2 = torch.clamp(dot(to_s, to_s), min=1e-12)
-    dist = torch.sqrt(d2)
-    wi = to_s / dist[:, None]
-    cos_l = dot(ns, -wi)
-    emits = (par[:, 3] > 0) | (cos_l > 0)
-    li = torch.where(emits[:, None], par[:, 0:3], 0.0)
-    # area pdf -> solid angle (shape.rs pdf_interaction)
-    pdf = d2 / torch.clamp(cos_l.abs() * area, min=1e-12)
-    pdf = torch.where(cos_l.abs() > 1e-7, pdf, 0.0)
-    return {"wi": wi, "li": li, "pdf": pdf, "dist": dist,
-            "delta": torch.zeros_like(pdf, dtype=torch.bool), "n": ns, "area": area}
+    # one branch per light family the scene has; every lane's light is of
+    # one of them, so the first branch needs no mask
+    branches = []
+    if kinds & {LIGHT_POINT, LIGHT_SPOT}:
+        to_l = par[:, 0:3] - p_ref
+        d2 = torch.clamp(dot(to_l, to_l), min=1e-12)
+        dl = torch.sqrt(d2)
+        wi = to_l / dl[:, None]
+        power = par[:, 3:6]
+        if LIGHT_SPOT in kinds:
+            # spot falloff ((cos - cosTotalWidth) / (cosFalloffStart -
+            # cosTotalWidth))^4 (spot.rs falloff)
+            cos_t = dot(par[:, 6:9], -wi)
+            ctw = par[:, 9]
+            cfs = par[:, 10]
+            dfall = torch.clamp((cos_t - ctw) / torch.clamp(cfs - ctw, min=1e-9), 0.0, 1.0)
+            dfall2 = dfall * dfall
+            fall = torch.where(cos_t < ctw, 0.0, torch.where(cos_t > cfs, 1.0, dfall2 * dfall2))
+            fall = torch.where(sa.light_kind[lid] == LIGHT_SPOT, fall, 1.0)
+            power = power * fall[:, None]
+        one = torch.ones_like(dl)
+        branches.append(((LIGHT_POINT, LIGHT_SPOT), {
+            "wi": wi, "li": power / d2[:, None], "pdf": one, "dist": dl,
+            "delta": torch.ones_like(dl, dtype=torch.bool), "n": torch.zeros_like(wi), "area": one}))
+    if LIGHT_DISTANT in kinds:
+        one = torch.ones(lid.shape, dtype=torch.float32, device=lid.device)
+        branches.append(((LIGHT_DISTANT,), {
+            "wi": par[:, 0:3], "li": par[:, 3:6], "pdf": one,
+            "dist": torch.broadcast_to(2.0 * sa.world_radius, one.shape),
+            "delta": torch.ones_like(one, dtype=torch.bool), "n": torch.zeros_like(par[:, 0:3]), "area": one}))
+    if LIGHT_AREA in kinds:
+        ps, ns, area = _sample_prim_point(sa, sa.light_prim[lid], u1, u2)
+        to_s = ps - p_ref
+        d2 = torch.clamp(dot(to_s, to_s), min=1e-12)
+        dist = torch.sqrt(d2)
+        wi = to_s / dist[:, None]
+        cos_l = dot(ns, -wi)
+        emits = (par[:, 3] > 0) | (cos_l > 0)
+        # area pdf -> solid angle (shape.rs pdf_interaction)
+        pdf = d2 / torch.clamp(cos_l.abs() * area, min=1e-12)
+        branches.append(((LIGHT_AREA,), {
+            "wi": wi, "li": torch.where(emits[:, None], par[:, 0:3], 0.0),
+            "pdf": torch.where(cos_l.abs() > 1e-7, pdf, 0.0), "dist": dist,
+            "delta": torch.zeros_like(pdf, dtype=torch.bool), "n": ns, "area": area}))
+    out = branches[0][1]
+    if len(branches) > 1:
+        kind = sa.light_kind[lid]
+        for fam, br in branches[1:]:
+            m = functools.reduce(operator.or_, (kind == k for k in fam))
+            out = {k: torch.where(m[:, None] if v.dim() == 2 else m, v, out[k]) for k, v in br.items()}
+    return out
 
 
 def pdf_li_area_hit(sa, p_ref, hit_p, hit_ng, hit_light, prim_area_of_hit):

@@ -1,22 +1,25 @@
 """Material evaluation: per-ray material rows -> BSDF lobe sets.
 
-The port's counterpart of ``pbrt_tpu/device/materials.py make_bsdf``, in two
-forms:
+The port's counterpart of ``pbrt_tpu/device/materials.py make_bsdf`` for
+matte (Lambert or Oren-Nayar), mirror, glass, metal and plastic with
+constant parameters (src/materials/*.rs). With constant parameters a
+material row's lobes do not depend on the hit, so:
 
-- ``make_bsdf`` for the wavefront: matte with a constant Kd and sigma = 0
-  (src/materials/matte.rs), a Lambertian reflection lobe of color
-  clip(Kd, 0, 1), or no lobe where Kd is black;
-- ``bake_lobes`` for the brute megakernel: every material row's full lobe
-  set, kinds (M, 8) and data (M, 8, 14), for matte (Lambert or Oren-Nayar),
-  mirror, glass, metal and plastic with constant parameters, written to the
-  reference's slots with the reference's float32 arithmetic.
+- ``bake_lobes`` writes every material row's full lobe set, kinds (M, 8)
+  and data (M, 8, 14), to the reference's slots with the reference's
+  float32 arithmetic (the brute megakernel reads it too);
+- ``lobe_table`` keeps the slots that hold a lobe in some row, with the
+  kinds each can hold (the reference's static ``possible`` sets, here read
+  from the table), once per route;
+- ``make_bsdf`` is a row gather of that table.
 
-The scene compiler refuses every other material.
+The scene compiler refuses every other material and textured parameters.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..scene.arrays import (
@@ -36,14 +39,29 @@ FR_CONDUCTOR = 2.0
 BAKED_KINDS = frozenset({MAT_MATTE, MAT_MIRROR, MAT_GLASS, MAT_METAL, MAT_PLASTIC})
 
 
-def make_bsdf(sa, static, mat_ids):
-    """Build lobe sets for a wave of shading points (mat_ids: (R,) rows)."""
-    if set(static.mat_kinds_present) - {MAT_MATTE}:
-        raise NotImplementedError("pbrt_tpu_torch builds BSDFs for matte materials only")
-    kd = torch.clamp(sa.mat_const[mat_ids, P_KD], 0.0, 1.0)
-    matte = sa.mat_kind[mat_ids] == MAT_MATTE
-    lam = matte & (kd > 0).any(-1)
-    return {"kind": torch.where(lam, LOBE_LAMBERT_R, LOBE_NONE), "color": torch.where(lam[:, None], kd, 0.0)}
+def lobe_table(sa, static):
+    """The scene's lobes per material row, for make_bsdf: {"kind" (M, S),
+    "data" (M, S, 14), "possible" (S frozensets of lobe kinds),
+    "has_beckmann"}, S the slots of bake_lobes that some row fills, in slot
+    order (a row with fewer lobes holds LOBE_NONE and zero data there)."""
+    if bool((sa.mat_tex >= 0).any()):
+        raise NotImplementedError("pbrt_tpu_torch does not evaluate textured material parameters yet")
+    kind, data = bake_lobes(sa, static)
+    k = kind.cpu().numpy()
+    slots = [s for s in range(N_SLOTS) if (k[:, s] != LOBE_NONE).any()] or [0]
+    micro = np.isin(k, (LOBE_MICRO_R, LOBE_MICRO_T)) & (data[..., 12].cpu().numpy() > 0)
+    return {"kind": kind[:, slots].contiguous(), "data": data[:, slots].contiguous(),
+            "possible": tuple(frozenset(int(x) for x in np.unique(k[:, s]) if x != LOBE_NONE) for s in slots),
+            "has_beckmann": bool(micro.any())}
+
+
+def make_bsdf(sa, static, mat_ids, table=None):
+    """Lobe sets for a wave of shading points (mat_ids: (R,) rows): rows of
+    `table` (lobe_table of the scene, made here when not given)."""
+    if table is None:
+        table = lobe_table(sa, static)
+    return {"kind": table["kind"][mat_ids], "data": table["data"][mat_ids], "possible": table["possible"],
+            "has_beckmann": table["has_beckmann"]}
 
 
 def bake_lobes(sa, static):

@@ -1,15 +1,23 @@
-"""Surface interaction reconstruction from hit records, for triangles.
+"""Surface interaction reconstruction from hit records.
 
 The port's counterpart of ``pbrt_tpu/device/shading.py surface_interaction``
-on its triangle branch (src/shapes/triangle.rs:300-399), without bump
-mapping, motion or instancing, which the port's scenes do not have.
+on its triangle branch (src/shapes/triangle.rs:300-399) and its sphere
+branch (sphere.rs: the hit re-projected onto the surface, the analytic
+normal, uv and dpdu/dpdv, and the gamma(5) |p_obj| error bound carried to
+world space), without bump mapping, motion or instancing, which the port's
+scenes do not have.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+from .affine import xf_point, xf_vector, xf_vector_t
 
 FLAG_FLIP_GEOM_N = 1
 FLAG_HAS_SHADING_N = 2
+GEOM_TRI = 0  # scene.arrays.GEOM_TRI
 
 # gamma(n) = n*eps/(1 - n*eps), eps = 2^-24 (pbrt.rs gamma; efloat.rs)
 _EPS32 = float(2.0 ** -24)
@@ -61,23 +69,12 @@ def _shading_frame(ns, dpdu):
     return ss, ts
 
 
-def surface_interaction(sa, hit, o, d):
-    """Build the shading record for each ray.
-
-    hit: dict from intersect(); o, d: (R, 3) ray. Returns dict with p,
-    p_err, ng (geometric normal), ns (shading normal), uv, tangent frame
-    (ss, ts), dpdu, dpdv, mat (material row), light (area light row or -1),
-    prim, wo and the valid (R,) mask."""
-    prim = torch.clamp(hit["prim"], min=0)
-    valid = hit["prim"] >= 0
-    geom = sa.prim_geom[prim]
-    flags = sa.prim_flags[prim]
+def _triangle_fields(sa, geom, flags, b1, b2):
+    """Hit point, error bound, normals, uv and dpdu/dpdv on triangle rows
+    `geom` at barycentrics (b1, b2)."""
     tv = sa.tri_p[geom]  # (R, 3, 3)
     tn = sa.tri_n[geom]
     tuv = sa.tri_uv[geom]
-
-    b1 = hit["b1"]
-    b2 = hit["b2"]
     b0 = 1.0 - b1 - b2
     e1 = tv[:, 1] - tv[:, 0]
     e2 = tv[:, 2] - tv[:, 0]
@@ -109,20 +106,61 @@ def surface_interaction(sa, hit, o, d):
         + b1.abs()[:, None] * tv[:, 1].abs()
         + b2.abs()[:, None] * tv[:, 2].abs()
     )
-    ss, ts = _shading_frame(ns, dpdu)
-    return {
-        "valid": valid,
-        "p": p,
-        "p_err": p_err,
-        "ng": ng,
-        "ns": ns,
-        "uv": uv,
-        "ss": ss,
-        "ts": ts,
-        "dpdu": dpdu,
-        "dpdv": dpdv,
-        "mat": torch.where(valid, sa.prim_mat[prim], 0),
-        "light": torch.where(valid, sa.prim_light[prim], -1),
-        "prim": hit["prim"],
-        "wo": -d,
-    }
+    return {"p": p, "p_err": p_err, "ng": ng, "ns": ns, "uv": uv, "dpdu": dpdu, "dpdv": dpdv}
+
+
+def _sphere_fields(sa, geom, flags, p):
+    """The same fields on (full or partial) sphere rows `geom` for world
+    hit points p = o + t d (sphere.rs)."""
+    o2w = sa.sph_o2w[geom]
+    w2o = sa.sph_w2o[geom]
+    par = sa.sph_param[geom]
+    radius = par[:, 0]
+    p_obj = xf_point(w2o, p)
+    # re-project onto the surface
+    r_sph = radius / torch.clamp(torch.sqrt((p_obj * p_obj).sum(-1)), min=1e-30)
+    p_obj = torch.stack([p_obj[:, 0] * r_sph, p_obj[:, 1] * r_sph, p_obj[:, 2] * r_sph], dim=-1)
+    ng = normalize(xf_vector_t(w2o[:, :, :3], p_obj / radius[:, None]))
+    ng = torch.where(((flags & FLAG_FLIP_GEOM_N) != 0)[:, None], -ng, ng)
+    x, y, z = p_obj[:, 0], p_obj[:, 1], p_obj[:, 2]
+    phi = torch.atan2(y, x)
+    phi = torch.where(phi < 0, phi + 2.0 * math.pi, phi)
+    theta = torch.arccos(torch.clamp(z / radius, -1.0, 1.0))
+    phimax = par[:, 3]
+    tmin = par[:, 4]
+    tmax = par[:, 5]
+    uv = torch.stack([phi / torch.clamp(phimax, min=1e-9), (theta - tmin) / torch.clamp(tmax - tmin, min=1e-9)], dim=-1)
+    zr = torch.sqrt(torch.clamp(x * x + y * y, min=1e-20))
+    dpdu = torch.stack([-phimax * y, phimax * x, torch.zeros_like(zr)], dim=-1)
+    dpdv = torch.stack([z * x / zr, z * y / zr, -radius * torch.sin(theta)], dim=-1) * (tmax - tmin)[:, None]
+    # gamma(5) |p_obj| in object space, through the affine o2w with the
+    # transform_point_error bound (transform.rs:433)
+    p_err = (_gamma(5) + _gamma(3)) * xf_vector(o2w[:, :, :3].abs(), p_obj.abs()) + _gamma(3) * o2w[:, :, 3].abs()
+    return {"p": xf_point(o2w, p_obj), "p_err": p_err, "ng": ng, "ns": ng, "uv": uv,
+            "dpdu": xf_vector(o2w[:, :, :3], dpdu), "dpdv": xf_vector(o2w[:, :, :3], dpdv)}
+
+
+def surface_interaction(sa, hit, o, d):
+    """Build the shading record for each ray.
+
+    hit: dict from intersect(); o, d: (R, 3) ray. Returns dict with p,
+    p_err, ng (geometric normal), ns (shading normal), uv, tangent frame
+    (ss, ts), dpdu, dpdv, mat (material row), light (area light row or -1),
+    prim, wo and the valid (R,) mask."""
+    prim = torch.clamp(hit["prim"], min=0)
+    valid = hit["prim"] >= 0
+    geom = sa.prim_geom[prim]
+    flags = sa.prim_flags[prim]
+    if sa.sph_param.shape[0] == 0:
+        f = _triangle_fields(sa, geom, flags, hit["b1"], hit["b2"])
+    else:
+        t = torch.where(valid, hit["t"], 1.0)
+        p = o + d * t[:, None]
+        is_tri = sa.prim_kind[prim] == GEOM_TRI
+        f = _sphere_fields(sa, torch.where(is_tri, 0, geom), flags, p)
+        if sa.tri_p.shape[0] > 0:
+            ft = _triangle_fields(sa, torch.where(is_tri, geom, 0), flags, hit["b1"], hit["b2"])
+            f = {k: torch.where(is_tri[:, None], ft[k], v) for k, v in f.items()}
+    ss, ts = _shading_frame(f["ns"], f["dpdu"])
+    return dict(f, valid=valid, ss=ss, ts=ts, mat=torch.where(valid, sa.prim_mat[prim], 0),
+                light=torch.where(valid, sa.prim_light[prim], -1), prim=hit["prim"], wo=-d)

@@ -11,13 +11,16 @@ reference's order:
 - the wide megakernel (device/megakernel_wide.py) for path-traced scenes
   of its class when PBRT_TPU_WIDEMEGA=1 (PBRT_TPU_WIDEMEGA_MAX_TRIS sets
   its triangle cap, default 4096); one launch per render as well;
-- the persistent wavefront with the wide-BVH traversal otherwise, in spp
-  chunks of PERSISTENT_SPP_CHUNK = 8 (the reference mesh tier's
-  accumulation granularity); PBRT_TPU_JOINT=1 sends its CUDA queries
-  through the joint traversal kernel. What the wavefront cannot render
-  raises NotImplementedError when the route is built.
+- the persistent wavefront (device/integrator.py) otherwise, in spp chunks
+  of PERSISTENT_SPP_CHUNK = 8 (the reference mesh tier's accumulation
+  granularity): brute-force intersection for scenes of at most 64 prims,
+  the wide-BVH traversal for larger ones (PBRT_TPU_JOINT=1 sends its CUDA
+  queries through the joint traversal kernel). It renders every scene that
+  compile_scene takes.
 
-The switches are the reference's, read once when a route is built.
+PBRT_TPU_NO_MEGAKERNEL (any non-empty value) skips both megakernels. The
+switches are the reference's, read once when a route is built; the route
+is chosen by the scene's class, and a route that fails raises.
 
 The whole film (or crop) is one lane set, accumulated in float64. The
 reference's dispatch-shape table and its TPU watchdog chunking are not
@@ -34,9 +37,11 @@ import numpy as np
 import torch
 
 from .device.camera import generate_rays, make_camera
-from .device.integrator import explain_unsupported, trace_persistent
-from .device.megakernel import explain_ineligible, make_megakernel_fn
-from .device.megakernel_wide import DEFAULT_MAX_TRIS, explain_ineligible_wide, make_wide_megakernel_fn
+from .device.integrator import trace_persistent
+from .device.lightdistrib import build_spatial_distribution
+from .device.materials import lobe_table
+from .device.megakernel import make_megakernel_fn
+from .device.megakernel_wide import DEFAULT_MAX_TRIS, make_wide_megakernel_fn
 from .device.sampler import sample_2d
 from .scene.builder import CompiledScene, compile_scene
 from .scene.host import SceneDescription
@@ -47,9 +52,9 @@ PERSISTENT_SPP_CHUNK = 8
 
 # route of the most recent make_persistent_fn build, so a run shows the
 # path it took: torch-megakernel/{cuda,plain}-brute,
-# torch-megakernel/{cuda,plain}-wide, torch-wavefront/{cuda,plain}-wide or
-# torch-wavefront/cuda-wide-joint (the CUDA kernel, or its plain twin on
-# the CPU)
+# torch-megakernel/{cuda,plain}-wide, torch-wavefront/{cuda,plain}-brute,
+# torch-wavefront/{cuda,plain}-wide or torch-wavefront/cuda-wide-joint (the
+# CUDA kernels, or their plain twins on the CPU)
 LAST_PERSISTENT_TIER = "unbuilt"
 
 
@@ -69,10 +74,11 @@ def make_regen(cam, scfg, fcfg, px_base, py_base, pixel_ids, seed: int):
     the pixel offset and dimension 1 for the lens (render.make_regen)."""
     kind = scfg["kind"]
     spp = scfg["spp"]
+    strata = scfg.get("strata")
 
     def regen(sample_idx):
-        u1, u2 = sample_2d(kind, seed, pixel_ids, sample_idx, 0, spp)
-        ul1, ul2 = sample_2d(kind, seed, pixel_ids, sample_idx, 1, spp)
+        u1, u2 = sample_2d(kind, seed, pixel_ids, sample_idx, 0, spp, strata)
+        ul1, ul2 = sample_2d(kind, seed, pixel_ids, sample_idx, 1, spp, strata)
         dx, dy, w = filter_offset(fcfg["filter"], fcfg["filter_params"], u1, u2)
         px = px_base.to(torch.float32) + 0.5 + dx
         py = py_base.to(torch.float32) + 0.5 + dy
@@ -88,11 +94,9 @@ def make_persistent_fn(cs: CompiledScene, cam=None):
     """Build the persistent-wave function: (sa, px, py, pids, s0, n_samples,
     seed) -> (accLw, accW, n_vertices), all on the scene's device.
 
-    Sets LAST_PERSISTENT_TIER to the route that will execute. A scene of
-    the brute-force class (no BVH tables) that the megakernel does not take
-    raises NotImplementedError naming what it lacks: the port has no brute
-    wavefront yet. So does a wide scene that neither the wide megakernel
-    (when PBRT_TPU_WIDEMEGA=1) nor the wavefront can render."""
+    Sets LAST_PERSISTENT_TIER to the route that will execute. The
+    wavefront's tables (the spatial light distribution, the material lobe
+    table) are built here, once, on the scene's device."""
     global LAST_PERSISTENT_TIER
     desc = cs.description
     dev = cs.arrays.device
@@ -106,35 +110,34 @@ def make_persistent_fn(cs: CompiledScene, cam=None):
         "light_strategy": desc.integrator.light_strategy,
     }
     scfg = {"kind": desc.sampler.kind, "spp": int(desc.sampler.pixel_samples)}
+    if desc.sampler.kind == "stratified":
+        # the declared strata and jitter flag (stratified.rs:121-131)
+        scfg["strata"] = (max(int(desc.sampler.x_samples), 1), max(int(desc.sampler.y_samples), 1),
+                          bool(desc.sampler.jitter))
     fcfg = {
         "filter": desc.film.filter_name,
         "filter_params": dict(desc.film.filter_params),
         "max_sample_luminance": desc.film.max_sample_luminance,
     }
     static = cs.static
-    if static.use_brute_force:
+    mega = not os.environ.get("PBRT_TPU_NO_MEGAKERNEL")
+    if mega and static.use_brute_force:
         mk = make_megakernel_fn(cs, cam, icfg, scfg, fcfg)
-        if mk is None:
-            raise NotImplementedError("pbrt_tpu_torch renders scenes of <= 64 primitives only through the brute "
-                                      f"megakernel, which does not take {explain_ineligible(cs, cam, icfg, scfg, fcfg)}")
-        LAST_PERSISTENT_TIER = "torch-megakernel/" + ("cuda-brute" if dev.type == "cuda" else "plain-brute")
-        return mk
-    widemega = os.environ.get("PBRT_TPU_WIDEMEGA", "") == "1" and icfg["kind"] == "path"
-    if widemega:
+        if mk is not None:
+            LAST_PERSISTENT_TIER = "torch-megakernel/" + ("cuda-brute" if dev.type == "cuda" else "plain-brute")
+            return mk
+    if mega and os.environ.get("PBRT_TPU_WIDEMEGA", "") == "1" and icfg["kind"] == "path" and static.has_wide:
         max_tris = int(os.environ.get("PBRT_TPU_WIDEMEGA_MAX_TRIS", str(DEFAULT_MAX_TRIS)))
         mkw = make_wide_megakernel_fn(cs, cam, icfg, scfg, fcfg, max_tris)
         if mkw is not None:
             LAST_PERSISTENT_TIER = "torch-megakernel/" + ("cuda-wide" if dev.type == "cuda" else "plain-wide")
             return mkw
-    missing = explain_unsupported(desc, static.n_lights)
-    if missing is not None:
-        why = ("the wide megakernel (PBRT_TPU_WIDEMEGA=1) does not take "
-               + explain_ineligible_wide(cs, cam, icfg, scfg, fcfg, max_tris) if widemega
-               else "the wide megakernel (PBRT_TPU_WIDEMEGA=1) renders scenes of its class")
-        raise NotImplementedError(f"the pbrt_tpu_torch wavefront does not render {missing}; {why}")
-    joint = os.environ.get("PBRT_TPU_JOINT", "0") == "1" and dev.type == "cuda"
-    LAST_PERSISTENT_TIER = "torch-wavefront/" + (
-        ("cuda-wide-joint" if joint else "cuda-wide") if dev.type == "cuda" else "plain-wide")
+    joint = os.environ.get("PBRT_TPU_JOINT", "0") == "1" and dev.type == "cuda" and static.has_wide
+    if icfg["light_strategy"] == "spatial" and static.n_lights > 1:
+        icfg["spatial_distribution"] = build_spatial_distribution(cs.arrays, static)
+    icfg["lobe_table"] = lobe_table(cs.arrays, static)
+    shape = "brute" if static.use_brute_force else "wide-joint" if joint else "wide"
+    LAST_PERSISTENT_TIER = f"torch-wavefront/{'cuda' if dev.type == 'cuda' else 'plain'}-{shape}"
 
     def wave_p(sa, px, py, pixel_ids, s0: int, n_samples: int, seed: int):
         regen = make_regen(cam, scfg, fcfg, px, py, pixel_ids, seed)

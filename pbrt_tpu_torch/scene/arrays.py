@@ -188,6 +188,7 @@ class SceneStatic:
     n_lights: int = 0
     mat_kinds_present: tuple = ()
     light_kinds: tuple = ()  # LIGHT_* per light row
+    light_n_samples: tuple = ()  # per-light "nsamples" (directlighting's UniformSampleAll arrays)
     has_area_lights: bool = False
     has_infinite: bool = False
     use_brute_force: bool = False  # n_prims <= 64: brute-force intersection, no BVH tables
@@ -216,5 +217,6 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
     st = SceneStatic(**{f.name: static[f.name] for f in fields(SceneStatic)})
     st.mat_kinds_present = tuple(int(k) for k in st.mat_kinds_present)
     st.light_kinds = tuple(int(k) for k in st.light_kinds)
+    st.light_n_samples = tuple(int(n) for n in st.light_n_samples)
     st.tex_programs = tuple(st.tex_programs)
     return SceneTensors(**tensors), st

@@ -4,25 +4,21 @@ The port's counterpart of ``pbrt_tpu/scene/builder.py compile_scene`` for
 two scene classes:
 
 - the wide class (more than BRUTE_FORCE_MAX_PRIMS prims): static triangle
-  meshes with the BVH accelerator and the wide-BVH tables; triangle area
-  lights beside point, spot and distant lights; the path integrator. The
-  wavefront (device/integrator.py) renders its matte, area-lit part with
-  the (0,2) or random sampler; the wide megakernel
-  (device/megakernel_wide.py) renders what its class takes;
+  meshes with the BVH accelerator and the wide-BVH tables;
 - the brute-force class (at most BRUTE_FORCE_MAX_PRIMS prims, no BVH
-  tables): static triangle meshes and spheres; point, spot and distant
-  lights; the path or directlighting integrator. The brute megakernel
-  (device/megakernel.py) renders the part of it that the reference's
-  megakernel takes.
+  tables): static triangle meshes and full or partial spheres.
 
-Both take matte (Lambert or Oren-Nayar), mirror, glass, metal and plastic
-with constant parameters, the (0,2), random and stratified samplers, a
-perspective camera and the box filter. Each route refuses, when it is
-built, what it cannot render. Primitive order, areas,
-light and material rows, world bounds and the wide tables are computed
-with the reference's NumPy code in the reference's order, so they come out
-bit-identical (tests/test_torch_scene.py, tests/test_torch_megakernel.py
-hold them equal table for table).
+Both take point, spot and distant lights and area lights on triangles;
+matte (Lambert or Oren-Nayar), mirror, glass, metal and plastic with
+constant parameters; the (0,2), random and stratified samplers; a
+perspective camera and the box filter; the path and directlighting
+integrators. The persistent wavefront (device/integrator.py) renders all of
+it; the brute and wide megakernels (device/megakernel.py,
+device/megakernel_wide.py) take the parts of it that the reference's take.
+Primitive order, areas, light and material rows, world bounds and the wide
+tables are computed with the reference's NumPy code in the reference's
+order, so they come out bit-identical (tests/test_torch_scene.py,
+tests/test_torch_megakernel.py hold them equal table for table).
 
 Anything outside those classes raises NotImplementedError naming the
 feature; nothing is silently dropped. The reference's cluster tables,
@@ -75,10 +71,10 @@ FLAG_HAS_SHADING_N = 2
 FLAG_REVERSE_ORIENTATION = 4
 FLAG_HAS_UV = 8
 
-# what the compiler admits (each render route refuses the rest of it)
+# what the compiler admits (the wavefront renders all of it)
 MATERIALS = ("matte", "mirror", "glass", "metal", "plastic")
 SAMPLERS = ("zerotwosequence", "lowdiscrepancy", "random", "stratified")
-BRUTE_INTEGRATORS = ("path", "directlighting")
+INTEGRATORS = ("path", "directlighting")
 
 # per-kind parameter defaults (reference src/materials/*.rs create_* fns)
 _MATERIAL_DEFAULTS = {
@@ -128,8 +124,8 @@ def _check_slice(desc: SceneDescription) -> None:
         _unsupported(f"the '{desc.sampler.kind}' sampler")
     if desc.film.filter_name != "box":
         _unsupported(f"the '{desc.film.filter_name}' filter")
-    if desc.integrator.kind not in (BRUTE_INTEGRATORS if brute else ("path",)):
-        _unsupported(f"the '{desc.integrator.kind}' integrator in {route}")
+    if desc.integrator.kind not in INTEGRATORS:
+        _unsupported(f"the '{desc.integrator.kind}' integrator")
     for prim in desc.primitives:
         sh = prim.shape
         if sh.mesh is None:
@@ -148,8 +144,11 @@ def _check_slice(desc: SceneDescription) -> None:
             _unsupported("object instancing")
         if prim.inside_medium or prim.outside_medium:
             _unsupported("medium interfaces")
-        if prim.area_light is not None and (brute or prim.area_light.kind != "area"):
-            _unsupported(f"'{prim.area_light.kind}' lights attached to shapes in {route}")
+        if prim.area_light is not None:
+            if prim.area_light.kind != "area":
+                _unsupported(f"'{prim.area_light.kind}' lights attached to shapes")
+            if sh.mesh is None:
+                _unsupported("area lights on spheres")
         mat = prim.material
         if mat.kind not in MATERIALS:
             _unsupported(f"the '{mat.kind}' material")
@@ -251,12 +250,12 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
     prim_lo, prim_hi = [], []
     mat_index: dict[int, int] = {}
     mat_rows: list[tuple] = []
-    lights: list[tuple] = []  # (kind, params(12,), prim_id)
+    lights: list[tuple] = []  # (kind, params(12,), prim_id, nsamples)
 
     # non-area lights first, in description order
     for hl in desc.lights:
         kind, p = _compile_light(hl)
-        lights.append((kind, p, -1))
+        lights.append((kind, p, -1, max(int(hl.n_samples), 1)))
 
     for prim in desc.primitives:
         key = id(prim.material)
@@ -332,7 +331,8 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
             lp = np.zeros(12)
             lp[0:3] = prim.area_light.intensity
             lp[3] = 1.0 if prim.area_light.two_sided else 0.0
-            lights.extend((LIGHT_AREA, lp, base_prim + ti) for ti in range(t))
+            ns = max(int(prim.area_light.n_samples), 1)
+            lights.extend((LIGHT_AREA, lp, base_prim + ti, ns) for ti in range(t))
         prim_kind.extend([GEOM_TRI] * t)
         prim_geom.extend(range(t0, t0 + t))
         prim_mat.extend([mid] * t)
@@ -378,7 +378,7 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
     prim_area = _perm(prim_area)
     prim_lo = _perm(prim_lo)
     prim_hi = _perm(prim_hi)
-    lights = [(k, p_, int(inv[pr]) if pr >= 0 else -1) for (k, p_, pr) in lights]
+    lights = [(k, p_, int(inv[pr]) if pr >= 0 else -1, ns) for (k, p_, pr, ns) in lights]
 
     def _cat(chunks, shape):
         if not chunks:
@@ -435,6 +435,7 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         "n_lights": len(lights),
         "mat_kinds_present": tuple(sorted(set(int(k) for k in mat_kind))),
         "light_kinds": tuple(int(l[0]) for l in lights),
+        "light_n_samples": tuple(l[3] for l in lights),
         "has_area_lights": any(l[0] == LIGHT_AREA for l in lights),
         "has_infinite": False,
         "use_brute_force": use_brute,

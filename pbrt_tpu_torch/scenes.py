@@ -13,6 +13,12 @@ room of 2 * n_side^2 floor triangles (123,650 prims in all at n_side=248),
 tessellated walls and ceiling, and a two-sided emissive ceiling panel. Every
 camera and bounce ray hits a surface, so a render measures traversal and
 shading, not empty lanes.
+
+``area_box`` is the brute-force counterpart of ``material_room``: 15 prims
+that hold every lobe kind of the five constant materials, triangle area
+lights and a delta light, a partial sphere and pbrt's default 'spatial'
+light distribution in one render. The brute megakernel refuses its area
+lights, so it renders through the brute wavefront.
 """
 from __future__ import annotations
 
@@ -161,4 +167,60 @@ def spheres_gallery() -> SceneDescription:
         film=FilmConfig(x_resolution=1000, y_resolution=500),
         sampler=SamplerConfig(kind="zerotwosequence", pixel_samples=16),
         integrator=IntegratorConfig(kind="path", max_depth=5, light_strategy="power"),
+    )
+
+
+def _quad(a, b, c, d, material, light=None):
+    """Quad a-b-c-d as two triangles (a, b, c), (a, c, d); its geometric
+    normal is (b - a) x (c - a)."""
+    return HostPrimitive(shape=ShapeRecord(mesh=TriangleMesh(p=np.array([a, b, c, d], np.float64),
+                                                             indices=np.array([[0, 1, 2], [0, 2, 3]], np.int32))),
+                         material=material, area_light=light)
+
+
+def area_box() -> SceneDescription:
+    """The 1000x500, 16 spp, depth-5 path-traced area box: a box open toward
+    the camera, its floor plastic, its back wall a mirror, its ceiling and
+    side walls matte (10 triangles); a 1 x 1 one-sided quad light under the
+    ceiling facing down (2 triangles, 2 lights) and a point light; a glass
+    full sphere, a GGX copper full sphere and an Oren-Nayar (sigma 20)
+    sphere clipped at z_max; pbrt's default light strategy ('spatial' over
+    the 3 lights). 15 prims."""
+    x0, x1, y0, y1, z0, z1 = -3.0, 3.0, 0.0, 3.0, -3.0, 2.0
+
+    def matte(kd, **extra):
+        return HostMaterial(kind="matte", params={"Kd": _const(kd), **extra})
+
+    plastic = HostMaterial(kind="plastic", params={
+        "Kd": _const([0.55, 0.45, 0.35]), "Ks": _const([0.4, 0.4, 0.4]), "roughness": ("const", 0.15)})
+    walls = [
+        _quad([x0, y0, z1], [x1, y0, z1], [x1, y0, z0], [x0, y0, z0], plastic),  # floor
+        _quad([x0, y1, z0], [x1, y1, z0], [x1, y1, z1], [x0, y1, z1], matte([0.7, 0.7, 0.7])),  # ceiling
+        _quad([x0, y0, z0], [x1, y0, z0], [x1, y1, z0], [x0, y1, z0],
+              HostMaterial(kind="mirror", params={"Kr": _const([0.9, 0.9, 0.9])})),  # back
+        _quad([x0, y0, z1], [x0, y0, z0], [x0, y1, z0], [x0, y1, z1], matte([0.6, 0.25, 0.25])),  # left
+        _quad([x1, y0, z0], [x1, y0, z1], [x1, y1, z1], [x1, y1, z0], matte([0.25, 0.6, 0.25])),  # right
+    ]
+    yl = y1 - 0.01
+    light = _quad([-0.5, yl, -1.5], [0.5, yl, -1.5], [0.5, yl, -0.5], [-0.5, yl, -0.5], matte([0.0, 0.0, 0.0]),
+                  light=HostLight(kind="area", intensity=np.array([10.0, 9.5, 9.0])))
+
+    def sphere(center, radius, material, z_max=None):
+        return HostPrimitive(shape=ShapeRecord(sphere=Sphere(
+            object_to_world=Transform.translate(center), radius=radius, z_min=-radius,
+            z_max=radius if z_max is None else z_max)), material=material)
+
+    spheres = [
+        sphere([-1.3, 0.7, -1.2], 0.7, HostMaterial(kind="glass", params={})),
+        sphere([1.4, 0.7, -1.6], 0.7, HostMaterial(kind="metal", params={"roughness": ("const", 0.08)})),
+        sphere([0.3, 0.6, 0.5], 0.6, matte([0.5, 0.55, 0.6], sigma=("const", 20.0)), z_max=0.3),
+    ]
+    return SceneDescription(
+        primitives=walls + [light] + spheres,
+        lights=[HostLight(kind="point", from_point=np.array([1.6, 2.2, 0.8]), intensity=np.array([4.0, 4.0, 4.0]))],
+        camera=CameraConfig(kind="perspective",
+                            camera_to_world=Transform.look_at([0, 1.6, 7.0], [0, 1.2, -1.0], [0, 1, 0]), fov=38.0),
+        film=FilmConfig(x_resolution=1000, y_resolution=500),
+        sampler=SamplerConfig(kind="zerotwosequence", pixel_samples=16),
+        integrator=IntegratorConfig(kind="path", max_depth=5),
     )

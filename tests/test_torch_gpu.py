@@ -27,7 +27,7 @@ from pbrt_tpu_torch import render
 from pbrt_tpu_torch.device import megakernel, megakernel_wide, wide_bvh
 from pbrt_tpu_torch.device.camera import make_camera
 from pbrt_tpu_torch.scene.builder import compile_scene
-from pbrt_tpu_torch.scenes import material_room, mesh_room, spheres_gallery
+from pbrt_tpu_torch.scenes import area_box, material_room, mesh_room, spheres_gallery
 
 
 @pytest.fixture
@@ -79,6 +79,25 @@ def test_render_cuda_matches_cpu(cuda_device):
     assert render.render_compiled.last_timing["tier"] == "torch-wavefront/cuda-wide"
     # chip_smoke.py's rule: identical sample streams, so the images agree up
     # to float32 differences between the CPU's and the card's sin/cos/sqrt
+    assert np.abs(img_g - img_c).sum() / np.abs(img_c).sum() < 1e-3
+    assert np.isclose(img_g, img_c, rtol=1e-2, atol=1e-4).all(axis=-1).mean() >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["area_box", "material_room"])
+def test_wavefront_cuda_matches_cpu(cuda_device, scene):
+    """The wavefront's array code on the card against the CPU: area_box
+    through the brute wavefront (spheres, area and point lights, 'spatial'
+    selection built on each device), material_room through the wide one
+    (every lobe kind, delta and area lights), with chip_smoke.py's rule."""
+    desc = area_box() if scene == "area_box" else material_room(8)
+    desc.film.x_resolution, desc.film.y_resolution = 32, 16
+    desc.sampler.pixel_samples = 2
+    cs = compile_scene(desc, "cpu")
+    img_c = render.render_compiled(cs, seed=1)
+    img_g = render.render_compiled(cs.to(cuda_device), seed=1)
+    shape = "brute" if scene == "area_box" else "wide"
+    assert render.render_compiled.last_timing["tier"] == f"torch-wavefront/cuda-{shape}"
     assert np.abs(img_g - img_c).sum() / np.abs(img_c).sum() < 1e-3
     assert np.isclose(img_g, img_c, rtol=1e-2, atol=1e-4).all(axis=-1).mean() >= 0.99
 

@@ -1,0 +1,115 @@
+"""Light sampling and the spatial light distribution of the port against
+the reference, on the CPU: sample_li for point, spot and distant lights
+(and the area lights beside them), build_spatial_distribution on area_box
+and on the mesh room, and spatial_select / spatial_pmf_of at random points.
+
+Tolerances: the delta lights' samples at rtol 1e-6. An area light's pdf
+divides by the cosine at the light, which is small at grazing angles, so a
+one-ulp difference in the direction (the two packages sum the dot products
+in different orders) moves it by up to ~1e-6 relative: rtol 1e-5 there. The
+reference builds its distribution in one jitted sweep, in which XLA:CPU
+contracts multiply-adds into fused multiply-adds (a jitted c + a * b equals
+the fused result on every element, the separately rounded one on 71%); the
+port's sweep rounds each operation, so about half of the pmf entries are
+bit-equal and the rest within 1e-5 relative.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import bench
+from pbrt_tpu.device import lightdistrib as ref_ld
+from pbrt_tpu.device import lights as ref_lights
+from pbrt_tpu.scene.builder import compile_scene as ref_compile_scene
+from pbrt_tpu_torch.device import lightdistrib, lights
+from pbrt_tpu_torch.scene.builder import compile_scene
+from pbrt_tpu_torch.scenes import area_box, mesh_room, spheres_gallery
+from test_torch_megakernel import _to_ref
+
+N = 4096
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """PyTorch runs single-threaded in this module. On the CPU, in a process
+    that has run XLA, its first multithreaded sqrt over more than a few
+    thousand elements has returned results off by ~1e-5 relative in one or
+    two threads' blocks (seen in some runs of the sphere test); on
+    one thread it gives its usual results (within 1 ulp of IEEE) every run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+SCENES = {
+    "gallery": lambda: (spheres_gallery(), None),  # distant, point, spot
+    "area_box": lambda: (area_box(), None),  # point and two triangle area lights
+    "mesh_room": lambda: (mesh_room(8), bench._mesh_scene(8)),  # two area lights
+}
+
+
+@pytest.fixture(scope="module")
+def compiled():
+    out = {}
+    for name, make in SCENES.items():
+        desc, ref_desc = make()
+        out[name] = compile_scene(desc, "cpu"), ref_compile_scene(ref_desc if ref_desc is not None else _to_ref(desc))
+    return out
+
+
+def _points(cs, rs, n):
+    c = cs.arrays.world_center.numpy()
+    r = float(cs.arrays.world_radius)
+    return (c + rs.uniform(-0.7, 0.7, (n, 3)) * r).astype(np.float32)
+
+
+@pytest.mark.parametrize("scene", ["gallery", "area_box"])
+def test_sample_li_matches_reference(compiled, scene):
+    cs, ref = compiled[scene]
+    rs = np.random.RandomState(5)
+    p = _points(cs, rs, N)
+    lid = rs.randint(0, cs.static.n_lights, N)
+    u1, u2 = rs.uniform(0, 1, (2, N)).astype(np.float32)
+    mine = lights.sample_li(cs.arrays, cs.static, torch.as_tensor(lid), *(torch.as_tensor(x) for x in (p, u1, u2)))
+    theirs = ref_lights.sample_li(ref.arrays, ref.static, jnp.asarray(lid.astype(np.int32)),
+                                  *(jnp.asarray(x) for x in (p, u1, u2)))
+    delta = np.asarray(theirs["delta"])
+    np.testing.assert_array_equal(mine["delta"].numpy(), delta)
+    kinds = np.asarray(ref.arrays.light_kind)[lid]
+    assert delta.any() and (set(kinds.tolist()) == set(cs.static.light_kinds))
+    for key in ("wi", "li", "pdf", "dist", "n", "area"):
+        a, b = mine[key].numpy(), np.asarray(theirs[key])
+        np.testing.assert_allclose(a[delta], b[delta], rtol=1e-6, atol=1e-7, err_msg=key)
+        np.testing.assert_allclose(a[~delta], b[~delta], rtol=1e-5, atol=1e-6, err_msg=key)
+    spot = kinds == 1
+    if spot.any():  # the falloff is exercised inside, across and outside the cone
+        li = mine["li"].numpy()[spot].sum(-1)
+        assert (li == 0).any() and (li > 0).any()
+
+
+@pytest.mark.parametrize("scene", ["area_box", "mesh_room"])
+def test_spatial_distribution_matches_reference(compiled, scene):
+    cs, ref = compiled[scene]
+    mine = lightdistrib.build_spatial_distribution(cs.arrays, cs.static)
+    theirs = ref_ld.build_spatial_distribution(ref.arrays, ref.static)
+    assert tuple(mine["res"]) == tuple(int(x) for x in np.asarray(theirs["res"]))
+    assert mine["n_voxels"] == theirs["n_voxels"]
+    for key in ("lo", "inv_cell"):
+        np.testing.assert_array_equal(mine[key].numpy(), np.asarray(theirs[key]), err_msg=key)
+    for key in ("pmf", "cdf"):
+        np.testing.assert_allclose(mine[key].numpy(), np.asarray(theirs[key]), rtol=1e-5, err_msg=key)
+    pmf = mine["pmf"].numpy()
+    assert (pmf.max(1) - pmf.min(1)).max() > 0.1  # the voxels tell the lights apart
+
+    rs = np.random.RandomState(6)
+    p = _points(cs, rs, N)
+    u = rs.uniform(0, 1, N).astype(np.float32)
+    lid, pmf_sel = lightdistrib.spatial_select(mine, torch.as_tensor(p), torch.as_tensor(u))
+    lid_r, pmf_r = ref_ld.spatial_select(theirs, jnp.asarray(p), jnp.asarray(u))
+    np.testing.assert_array_equal(lid.numpy(), np.asarray(lid_r))
+    np.testing.assert_allclose(pmf_sel.numpy(), np.asarray(pmf_r), rtol=1e-5)
+    q = rs.randint(0, cs.static.n_lights, N)
+    np.testing.assert_allclose(
+        lightdistrib.spatial_pmf_of(mine, torch.as_tensor(p), torch.as_tensor(q)).numpy(),
+        np.asarray(ref_ld.spatial_pmf_of(theirs, jnp.asarray(p), jnp.asarray(q.astype(np.int32)))), rtol=1e-5)

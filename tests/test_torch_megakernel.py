@@ -36,7 +36,7 @@ from pbrt_tpu_torch.core.transform import Transform
 from pbrt_tpu_torch.device import megakernel as mk
 from pbrt_tpu_torch.device.camera import make_camera
 from pbrt_tpu_torch.device.materials import bake_lobes
-from pbrt_tpu_torch.scene.arrays import HOPPER_TABLES, SceneTensors, scene_tensors_from_numpy
+from pbrt_tpu_torch.scene.arrays import HOPPER_TABLES, SceneTensors
 from pbrt_tpu_torch.scene.builder import CompiledScene, compile_scene
 from pbrt_tpu_torch.scene.host import (
     CameraConfig, FilmConfig, HostLight, HostMaterial, HostPrimitive, IntegratorConfig, SamplerConfig,
@@ -221,16 +221,11 @@ def test_extract_consts_matches_reference(compiled, scene):
 
 
 def _area_lit_scene():
-    """The mini scene with its ground quad emitting: brute class, area light.
-    The port's compiler refuses it, so the port reads the reference's tables
-    through scene_tensors_from_numpy, the one crossing point."""
-    desc = _to_ref(_mini_spheres())
-    desc.primitives[0].area_light = ref_host.HostLight(kind="area", intensity=np.array([1.0, 1.0, 1.0]))
-    ref = ref_compile_scene(desc)
-    arrays = {f.name: getattr(ref.arrays, f.name) for f in dataclasses.fields(ref.arrays)}
-    static = {f.name: getattr(ref.static, f.name) for f in dataclasses.fields(ref.static)}
-    sa, st = scene_tensors_from_numpy(arrays, static, "cpu")
-    return CompiledScene(sa, st, _mini_spheres()), ref
+    """The mini scene with its ground quad emitting: brute class, area light,
+    which both compilers take and both megakernels refuse."""
+    desc = _mini_spheres()
+    desc.primitives[0].area_light = HostLight(kind="area", intensity=np.array([1.0, 1.0, 1.0]))
+    return _compile_both(desc)
 
 
 def _many_tris_scene():
@@ -280,23 +275,26 @@ def test_eligibility_gates(gate):
     cam = make_camera(cs.description.camera, cs.description.film, "cpu")
     assert not mk.megakernel_eligible(cs, cam, icfg, scfg, fcfg)
     assert mk.explain_ineligible(cs, cam, icfg, scfg, fcfg)
-    if gate in ("many-prims", "partial-sphere"):
-        # the port has no brute wavefront: the route refuses, naming why
-        with pytest.raises(NotImplementedError, match="megakernel"):
-            render.make_persistent_fn(cs)
+    if gate in ("many-prims", "partial-sphere", "area-light"):
+        # outside the megakernel's class, the brute wavefront takes the scene
+        render.make_persistent_fn(cs)
+        assert render.LAST_PERSISTENT_TIER == "torch-wavefront/plain-brute"
 
 
 def test_wavefront_still_refuses_glass_meshes(monkeypatch):
-    """Glass in a wide scene compiles (the wide megakernel's class) and the
-    wavefront route refuses it unless PBRT_TPU_WIDEMEGA=1."""
+    """Glass in a wide scene compiles (the wide megakernel's class), and
+    without PBRT_TPU_WIDEMEGA=1 the wavefront renders it."""
     from pbrt_tpu_torch.scenes import mesh_room
 
     desc = mesh_room(8)
     desc.primitives[0].material = HostMaterial(kind="glass")
     cs = compile_scene(desc, "cpu")
     monkeypatch.delenv("PBRT_TPU_WIDEMEGA", raising=False)
-    with pytest.raises(NotImplementedError, match="glass"):
-        render.make_persistent_fn(cs)
+    wave = render.make_persistent_fn(cs)
+    assert render.LAST_PERSISTENT_TIER == "torch-wavefront/plain-wide"
+    lanes = torch.arange(0, 32 * 16, 37)
+    L, w, nv = wave(cs.arrays, lanes % 32, lanes // 32, lanes, 0, 2, 0)
+    assert torch.isfinite(L).all() and torch.equal(w, torch.full_like(w, 2.0)) and float(nv.sum()) > 0
 
 
 def test_make_camera_defaults_to_the_card():

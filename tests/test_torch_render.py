@@ -1,11 +1,21 @@
-"""The whole ported slice against the reference: the persistent path tracer
-on the 770-prim mesh room at 24x16, 4 spp, depth 5, seed 3.
+"""The whole ported slice against the reference: the persistent wavefront
+at 24x16, 4 spp, seed 3, on the 770-prim mesh room, on area_box and the
+spheres gallery (brute force), on material_room(8) under path and
+directlighting ("all" and "one"), on the mesh room under the 'spatial'
+light distribution, and on area_box with a declared 2x2 stratified sampler
+without jitter.
 
 The reference runs its own make_persistent_fn on the CPU (its default CPU
-route is the XLA packet traversal, which tests/test_widebvh.py holds equal
-to the Pallas kernel); the port runs its plain-PyTorch route. The sample
-streams are identical, so accL/accW agree within tests/test_persistent.py's
-tier tolerance (rtol 2e-4, atol 2e-4) and the path-vertex counts within 1e-3.
+route for wide scenes is the XLA packet traversal, which
+tests/test_widebvh.py holds equal to the Pallas kernel; for brute scenes
+the XLA brute wavefront, with PBRT_TPU_NO_MEGAKERNEL=1 where its brute
+megakernel would take the scene); the port runs its plain-PyTorch route.
+The sample streams are identical, so for matte scenes accL/accW agree
+within tests/test_persistent.py's tier tolerance (rtol 2e-4, atol 2e-4) and
+the path-vertex counts within 1e-3; where specular or glass lobes are
+present, within the reference megakernel test's (tests/test_megakernel.py):
+weights allclose, path vertices within 4, per-pixel |dL| / (|L| + 1e-2) <
+2e-2 and mean |dL| < 1e-4.
 """
 import dataclasses
 
@@ -16,12 +26,28 @@ import torch
 
 import bench
 from pbrt_tpu import render as ref_render
+from pbrt_tpu.device import sampler as ref_sampler
 from pbrt_tpu.scene.builder import compile_scene as ref_compile_scene
 from pbrt_tpu_torch import render
 from pbrt_tpu_torch.scene.builder import CompiledScene, compile_scene
-from pbrt_tpu_torch.scenes import mesh_room
+from pbrt_tpu_torch.scenes import area_box, material_room, mesh_room, spheres_gallery
+from test_torch_megakernel import _to_ref
 
 W, H, SPP, SEED = 24, 16, 4, 3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """PyTorch runs single-threaded in this module. On the CPU, in a process
+    that has run XLA, its first multithreaded sqrt over a few thousand
+    elements (the spatial distribution's sweep) has returned results off by
+    ~1e-5 relative in one or two threads' blocks in some runs
+    (tests/test_torch_brute.py); on one thread it gives its usual results
+    every run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _small(desc):
@@ -40,24 +66,104 @@ def _pixels():
     return xs.ravel(), ys.ravel(), (ys * W + xs).ravel()
 
 
-def test_persistent_matches_reference(port_scene):
-    ref = ref_compile_scene(_small(bench._mesh_scene(8)))
+def _reference_wave(ref):
     px, py, pids = _pixels()
     wave_r = ref_render.make_persistent_fn(ref)
     assert ref_render.LAST_PERSISTENT_TIER.startswith("xla-wavefront")
-    L_r, w_r, nv_r = (np.asarray(x) for x in wave_r(
+    return ref_render.LAST_PERSISTENT_TIER, tuple(np.asarray(x) for x in wave_r(
         ref.arrays, jnp.asarray(px.astype(np.int32)), jnp.asarray(py.astype(np.int32)),
         jnp.asarray(pids.astype(np.uint32)), jnp.uint32(0), SPP, jnp.uint32(SEED)))
 
-    wave = render.make_persistent_fn(port_scene)
-    assert render.LAST_PERSISTENT_TIER == "torch-wavefront/plain-wide"
-    t = [torch.as_tensor(x.astype(np.int64)) for x in (px, py, pids)]
-    L, w, nv = (x.numpy() for x in wave(port_scene.arrays, *t, 0, SPP, SEED))
 
+def _port_wave(cs):
+    wave = render.make_persistent_fn(cs)
+    t = [torch.as_tensor(x.astype(np.int64)) for x in _pixels()]
+    return render.LAST_PERSISTENT_TIER, tuple(x.numpy() for x in wave(cs.arrays, *t, 0, SPP, SEED))
+
+
+def _assert_tier_tolerance(L, w, nv, L_r, w_r, nv_r):
+    """tests/test_persistent.py's tier tolerance (matte scenes)."""
     assert L_r.mean() > 0.1
     np.testing.assert_allclose(w, w_r, atol=1e-5)
     assert abs(float(nv.sum()) - float(nv_r.sum())) < 1e-3
     np.testing.assert_allclose(L, L_r, rtol=2e-4, atol=2e-4)
+
+
+def _assert_specular_tolerance(L, w, nv, L_r, w_r, nv_r):
+    """tests/test_megakernel.py's tolerance (specular and glass lobes)."""
+    assert L_r.mean() > 1e-3
+    assert np.allclose(w, w_r)
+    assert abs(float(nv.sum()) - float(nv_r.sum())) <= 4
+    diff = np.abs(L - L_r)
+    assert float((diff / (np.abs(L_r) + 1e-2)).max()) < 2e-2, float(diff.max())
+    assert float(diff.mean()) < 1e-4
+
+
+def test_persistent_matches_reference(port_scene):
+    _tier_r, ref_out = _reference_wave(ref_compile_scene(_small(bench._mesh_scene(8))))
+    tier, out = _port_wave(port_scene)
+    assert tier == "torch-wavefront/plain-wide"
+    _assert_tier_tolerance(*out, *ref_out)
+
+
+def _spatial_room():
+    desc = mesh_room(8)
+    desc.integrator.light_strategy = "spatial"
+    return desc
+
+
+def _directlighting(strategy):
+    def make():
+        desc = material_room(8)
+        desc.integrator.kind = "directlighting"
+        desc.integrator.strategy = strategy
+        return desc
+    return make
+
+
+def _stratified_box():
+    desc = area_box()
+    desc.sampler = dataclasses.replace(desc.sampler, kind="stratified", x_samples=2, y_samples=2, jitter=False)
+    return desc
+
+
+# name: (port scene, reference scene or None for _to_ref of it, the port's
+# route, matte-only)
+SLICE = {
+    "area_box": (area_box, None, "brute", False),
+    "gallery-no-megakernel": (spheres_gallery, None, "brute", False),
+    "material_room": (lambda: material_room(8), None, "wide", False),
+    "mesh_room-spatial": (_spatial_room, lambda: _spatial_room_ref(), "wide", True),
+    "directlighting-all": (_directlighting("all"), None, "wide", False),
+    "directlighting-one": (_directlighting("one"), None, "wide", False),
+    "area_box-stratified-2x2-no-jitter": (_stratified_box, None, "brute", False),
+}
+
+
+def _spatial_room_ref():
+    desc = bench._mesh_scene(8)
+    desc.integrator.light_strategy = "spatial"
+    return desc
+
+
+@pytest.mark.parametrize("case", list(SLICE))
+def test_wavefront_matches_reference(case, monkeypatch):
+    """make_persistent_fn of the port against the reference's persistent
+    tier on every class this slice adds to the wavefront."""
+    make, make_ref, shape, matte = SLICE[case]
+    monkeypatch.delenv("PBRT_TPU_WIDEMEGA", raising=False)
+    if shape == "brute":  # both packages skip their brute megakernels
+        monkeypatch.setenv("PBRT_TPU_NO_MEGAKERNEL", "1")
+    desc = _small(make())
+    ref_desc = _small(make_ref()) if make_ref is not None else _to_ref(desc)
+    if desc.sampler.kind == "stratified":  # render_compiled's registration in the reference
+        monkeypatch.setattr(ref_sampler, "_STRATIFIED_SHAPE", (desc.sampler.x_samples, desc.sampler.y_samples))
+        monkeypatch.setattr(ref_sampler, "_STRATIFIED_JITTER", desc.sampler.jitter)
+    tier_r, ref_out = _reference_wave(ref_compile_scene(ref_desc))
+    assert tier_r.endswith("brute") == (shape == "brute")
+    tier, out = _port_wave(compile_scene(desc, "cpu"))
+    assert tier == f"torch-wavefront/plain-{shape}"
+    (_assert_tier_tolerance if matte else _assert_specular_tolerance)(*out, *ref_out)
 
 
 def test_render_compiled_crop_and_scale(port_scene):
@@ -107,10 +213,11 @@ def test_integrator_helpers_match_reference():
 @pytest.mark.parametrize("widemega", [None, "1"])
 def test_spatial_light_strategy_refused_when_the_route_is_built(monkeypatch, widemega):
     """pbrt's default light strategy, 'spatial', over the room's two panel
-    lights: no route of the port renders it, so make_persistent_fn raises
-    naming the strategy (and, under PBRT_TPU_WIDEMEGA=1, the wide
-    megakernel's own reason) before it records a route. With one light the
-    strategy is the uniform selector, and the wavefront renders it."""
+    lights: the route builds the spatial distribution and the wavefront
+    renders it; under PBRT_TPU_WIDEMEGA=1 the wide megakernel refuses
+    'spatial' and the wavefront takes the scene all the same. With one light
+    the strategy is the uniform selector, and the wavefront (or the wide
+    megakernel) renders it."""
     if widemega is None:
         monkeypatch.delenv("PBRT_TPU_WIDEMEGA", raising=False)
     else:
@@ -119,12 +226,11 @@ def test_spatial_light_strategy_refused_when_the_route_is_built(monkeypatch, wid
     desc.integrator.light_strategy = "spatial"
     cs = compile_scene(desc, "cpu")
     assert cs.static.n_lights == 2 and not desc.lights  # both lights ride the panel's triangles
-    monkeypatch.setattr(render, "LAST_PERSISTENT_TIER", "unbuilt")
-    with pytest.raises(NotImplementedError, match="'spatial' light distribution") as err:
-        render.make_persistent_fn(cs)
-    assert render.LAST_PERSISTENT_TIER == "unbuilt"
-    if widemega:
-        assert "the wide megakernel (PBRT_TPU_WIDEMEGA=1) does not take the 'spatial' light" in str(err.value)
+    px, py, pids = (torch.as_tensor(x[:8].astype(np.int64)) for x in _pixels())
+    wave = render.make_persistent_fn(cs)
+    assert render.LAST_PERSISTENT_TIER == "torch-wavefront/plain-wide"
+    L, w, _nv = wave(cs.arrays, px, py, pids, 0, 1, SEED)
+    assert torch.isfinite(L).all() and torch.equal(w, torch.ones(8)) and float(L.sum()) > 0
 
     panel = desc.primitives[-1].shape.mesh
     panel.indices = panel.indices[:1]  # one emitting triangle: one light
@@ -132,6 +238,5 @@ def test_spatial_light_strategy_refused_when_the_route_is_built(monkeypatch, wid
     assert one.static.n_lights == 1
     wave = render.make_persistent_fn(one)
     assert render.LAST_PERSISTENT_TIER == ("torch-megakernel/plain-wide" if widemega else "torch-wavefront/plain-wide")
-    px, py, pids = (torch.as_tensor(x[:8].astype(np.int64)) for x in _pixels())
     L, w, _nv = wave(one.arrays, px, py, pids, 0, 1, SEED)
     assert torch.isfinite(L).all() and torch.equal(w, torch.ones(8))

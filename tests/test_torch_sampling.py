@@ -67,6 +67,51 @@ def test_samples_bit_exact(kind, dim_form):
         assert pu.dtype == torch.float32 and float(pu.max()) < 1.0
 
 
+# (x_samples, y_samples, jitter) declared for 8 spp, as render_compiled
+# registers them in the reference and make_persistent_fn puts them in scfg
+STRATA = {"undeclared": None, "4x2": (4, 2, True), "4x2-jitter-off": (4, 2, False), "3x3-fallback": (3, 3, True)}
+
+
+@pytest.mark.parametrize("strata", list(STRATA))
+@pytest.mark.parametrize("dim_form", ["int", "tensor"])
+def test_stratified_bit_exact(strata, dim_form, monkeypatch):
+    """The stratified sampler: film and other int dims in strata (the
+    declared shape when x * y == spp, else floor(sqrt(spp)) x spp // that),
+    tensor dims from the random stream; against the reference with its
+    module global set (and restored) to the same declaration."""
+    spp = 8
+    decl = STRATA[strata]
+    if decl is None:
+        monkeypatch.setattr(ref_sampler, "_STRATIFIED_SHAPE", None)
+        monkeypatch.setattr(ref_sampler, "_STRATIFIED_JITTER", True)
+    else:
+        monkeypatch.setattr(ref_sampler, "_STRATIFIED_SHAPE", decl[:2])
+        monkeypatch.setattr(ref_sampler, "_STRATIFIED_JITTER", decl[2])
+    pixel, sample, dims = _grid()
+    sample = sample % spp
+    for dim in ([0, 1, 2, 7] if dim_form == "int" else [dims]):
+        d_ref = dim if isinstance(dim, int) else jnp.asarray(dim)
+        d_port = dim if isinstance(dim, int) else torch.as_tensor(dim)
+        args_r = (SEED, jnp.asarray(pixel), jnp.asarray(sample), d_ref, spp)
+        args_p = (SEED, _t(pixel), _t(sample), d_port, spp)
+        np.testing.assert_array_equal(sampler.sample_1d("stratified", *args_p, strata=decl).numpy(),
+                                      np.asarray(ref_sampler.sample_1d("stratified", *args_r)))
+        pu, pv = sampler.sample_2d("stratified", *args_p, strata=decl)
+        ru, rv = ref_sampler.sample_2d("stratified", *args_r)
+        np.testing.assert_array_equal(pu.numpy(), np.asarray(ru))
+        np.testing.assert_array_equal(pv.numpy(), np.asarray(rv))
+        if isinstance(dim, int) and decl is not None and not decl[2]:
+            assert set(np.unique(pu.numpy() * decl[0] % 1.0)) == {0.5}  # stratum centres
+
+
+def test_lowdiscrepancy_is_the_02_sequence():
+    pixel, sample, _dims = _grid()
+    args = (SEED, _t(pixel), _t(sample), 3, 16)
+    assert torch.equal(sampler.sample_1d("lowdiscrepancy", *args), sampler.sample_1d("zerotwosequence", *args))
+    for x, y in zip(sampler.sample_2d("lowdiscrepancy", *args), sampler.sample_2d("zerotwosequence", *args)):
+        assert torch.equal(x, y)
+
+
 def test_other_samplers_raise():
     with pytest.raises(NotImplementedError):
         sampler.sample_1d("halton", SEED, torch.zeros(2, dtype=torch.int64), torch.zeros(2, dtype=torch.int64), 0, 16)

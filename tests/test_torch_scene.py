@@ -76,10 +76,10 @@ def test_hopper_tables_derive_from_reference(both):
 
 @pytest.mark.parametrize("feature", ["material", "light", "small", "sampler"])
 def test_outside_the_slice_raises(feature, monkeypatch):
-    """A mirror or a point light in a wide scene is the wide megakernel's
-    class: compile_scene takes it, and the wavefront route refuses it unless
-    PBRT_TPU_WIDEMEGA=1. A lone panel (brute class, area light) and the
-    halton sampler are refused at compile time."""
+    """A mirror or a point light in a wide scene and a lone emitting panel
+    (brute class, area lights) compile, and the wavefront takes them
+    without PBRT_TPU_WIDEMEGA=1 (the panel: the brute wavefront). The
+    halton sampler is still refused at compile time."""
     from pbrt_tpu_torch import render
     from pbrt_tpu_torch.scene.host import HostLight
 
@@ -87,20 +87,22 @@ def test_outside_the_slice_raises(feature, monkeypatch):
     if feature == "material":
         desc.primitives[0].material = HostMaterial(kind="mirror")
     elif feature == "light":
-        desc.lights.append(HostLight(kind="point", intensity=np.ones(3)))
+        desc.lights.append(HostLight(kind="point", from_point=np.array([0.0, 2.0, 0.0]), intensity=np.ones(3)))
     elif feature == "small":
         desc = mesh_room(1)
         desc.primitives = desc.primitives[-1:]
     else:
         desc.sampler.kind = "halton"
-    if feature in ("material", "light"):
-        cs = compile_scene(desc, "cpu")
-        monkeypatch.delenv("PBRT_TPU_WIDEMEGA", raising=False)
-        with pytest.raises(NotImplementedError, match="mirror" if feature == "material" else "point"):
-            render.make_persistent_fn(cs)
+        with pytest.raises(NotImplementedError, match="halton"):
+            compile_scene(desc, "cpu")
         return
-    with pytest.raises(NotImplementedError):
-        compile_scene(desc, "cpu")
+    cs = compile_scene(desc, "cpu")
+    monkeypatch.delenv("PBRT_TPU_WIDEMEGA", raising=False)
+    wave = render.make_persistent_fn(cs)
+    assert render.LAST_PERSISTENT_TIER == "torch-wavefront/plain-" + ("brute" if feature == "small" else "wide")
+    lanes = torch.arange(0, 1000 * 500, 12_347)
+    L, w, _nv = wave(cs.arrays, lanes % 1000, lanes // 1000, lanes, 0, 1, 0)
+    assert torch.isfinite(L).all() and torch.equal(w, torch.ones_like(w))
 
 
 def test_port_imports_without_jax():

@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
 """Where the time goes in pbrt_tpu_torch's main path, on one CUDA GPU.
 
-    python3 tools/torch_phases.py [--scene mesh|gallery|material_room|mesh_b4] [--reps 5] [--out FILE.json]
+    python3 tools/torch_phases.py [--scene mesh|gallery|material_room|mesh_b4|material_room_wave|area_box]
+                                  [--reps 5] [--out FILE.json]
 
 Renders at 1000x500, 16 spp, depth 5 one of: the 123,650-triangle mesh room
 on the wavefront (--scene mesh, the default), the spheres gallery (--scene
 gallery; the brute megakernel), material_room (--scene material_room; the
-wide megakernel, PBRT_TPU_WIDEMEGA=1) or the mesh room through the wide
-megakernel (--scene mesh_b4; also PBRT_TPU_WIDEMEGA_MAX_TRIS=200000), and
-reports, with the card's name and power limit:
+wide megakernel, PBRT_TPU_WIDEMEGA=1), the mesh room through the wide
+megakernel (--scene mesh_b4; also PBRT_TPU_WIDEMEGA_MAX_TRIS=200000),
+material_room on the wavefront (--scene material_room_wave) or area_box
+on the brute wavefront (--scene area_box), and reports, with the card's
+name and power limit:
  1. end to end: render wall time and path_vertex_samples_per_sec over
     --reps untraced renders after a warm-up (median, min, max);
  2. the traversal kernel against its plain PyTorch twin on the main path's
     ray sets (camera, one cosine bounce, shadow rays; closest and any hit),
-    by CUDA events (mesh only; chip_smoke.py times the megakernel);
- 3. layers (mesh only; a megakernel render is one kernel launch): one
-    render with a synchronize around every call into a layer
+    by CUDA events (mesh and material_room_wave; chip_smoke.py times the
+    megakernels);
+ 3. layers (the wavefront scenes; a megakernel render is one kernel
+    launch): one render with a synchronize around every call into a layer
     (camera regeneration, closest-hit query, shadow query, of which the
-    kernel itself), the rest being shading, NEE, sampling, Russian roulette,
-    flush and loop control; the synchronizes serialise host and device, so
-    the traced wall minus the untraced median is the tracing cost;
+    traversal kernel itself), the rest being shading, NEE, sampling,
+    Russian roulette, flush and loop control; the synchronizes serialise
+    host and device, so the traced wall minus the untraced median is the
+    tracing cost;
  3g. launch path (the megakernel scenes): the route's one call with a
     synchronize before and after: host time until it returns, device time
     by CUDA events, the whole call; for the wide megakernel also its
@@ -32,9 +37,11 @@ reports, with the card's name and power limit:
     test counts and resident blocks per SM; then one such call under
     torch.profiler for the device busy share (device time / untraced call
     wall);
- 4. device (mesh only): one untraced render under torch.profiler: total
-    kernel time, the device busy share (kernel time / wall) and the top
-    kernels (--out also keeps the chrome trace).
+ 4. device (the wavefront scenes): one untraced render under
+    torch.profiler: total kernel time, device kernels per render and per
+    wavefront iteration (closest-hit queries), the device busy share
+    (kernel time / wall) and the top kernels (--out also keeps the chrome
+    trace).
 --all-matte gives every material of the scene the room's matte (Kd 0.6,
 the panel's black Kd kept), so that a wide-megakernel run with and without
 it tells shading divergence from geometry. The spans are wrapped around the
@@ -72,7 +79,8 @@ def _spanned(fn, name, spans):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--scene", choices=("mesh", "gallery", "material_room", "mesh_b4"), default="mesh")
+    ap.add_argument("--scene", default="mesh",
+                    choices=("mesh", "gallery", "material_room", "mesh_b4", "material_room_wave", "area_box"))
     ap.add_argument("--all-matte", action="store_true", help="every material matte (Kd 0.6), the panel's kept")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
@@ -90,13 +98,14 @@ def main() -> int:
     from pbrt_tpu_torch import render as R_
     from pbrt_tpu_torch.scene.builder import compile_scene
     from pbrt_tpu_torch.scene.host import HostMaterial
-    from pbrt_tpu_torch.scenes import material_room, mesh_room, spheres_gallery
+    from pbrt_tpu_torch.scenes import area_box, material_room, mesh_room, spheres_gallery
 
     if args.scene in ("material_room", "mesh_b4"):
         os.environ["PBRT_TPU_WIDEMEGA"] = "1"
     if args.scene == "mesh_b4":
         os.environ["PBRT_TPU_WIDEMEGA_MAX_TRIS"] = "200000"
-    make = {"mesh": mesh_room, "mesh_b4": mesh_room, "gallery": spheres_gallery, "material_room": material_room}
+    make = {"mesh": mesh_room, "mesh_b4": mesh_room, "gallery": spheres_gallery, "material_room": material_room,
+            "material_room_wave": material_room, "area_box": area_box}
     rec = {"device": torch.cuda.get_device_name(0), "nvidia_smi": chip_smoke._smi(),
            "torch": torch.__version__, "cuda": torch.version.cuda, "scene": args.scene,
            "all_matte": args.all_matte}
@@ -124,7 +133,7 @@ def main() -> int:
     print(f"render: wall median {statistics.median(walls):.4f}s (min {min(walls):.4f} max {max(walls):.4f}), "
           f"path_vertex_samples_per_sec median {statistics.median(vps):.1f}", flush=True)
 
-    if args.scene == "mesh":  # the wavefront
+    if tm["tier"].startswith("torch-wavefront"):
         _traversal_and_layers(args, cs, rec, statistics.median(walls))
         _device(args, cs, rec, statistics.median(walls))
     else:
@@ -144,7 +153,7 @@ def _traversal_and_layers(args, cs, rec, wall_median):
 
     # --- 2. traversal kernel vs plain on the main path's ray sets ---
     rec["traversal"] = []
-    for name, o, d, t_max in chip_smoke._rays(cs):
+    for name, o, d, t_max in (chip_smoke._rays(cs) if cs.static.has_wide else ()):
         for any_hit in (False, True):
             k_ms = chip_smoke._cuda_ms(lambda: wide_bvh.traverse_cuda(cs.arrays, o, d, t_max, any_hit), 20)
             p_ms = chip_smoke._cuda_ms(lambda: wide_bvh.traverse_plain(cs.arrays, o, d, t_max, any_hit), 2)
@@ -345,8 +354,23 @@ def _device(args, cs, rec, wall_median):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        R_.render_compiled(cs, seed=args.seed)
+    from pbrt_tpu_torch.device import integrator
+
+    # wavefront iterations = closest-hit queries (one per iteration), counted
+    # without a synchronize
+    n_iter = [0]
+    closest = integrator.intersect
+
+    def counted(*a, **k):
+        n_iter[0] += 1
+        return closest(*a, **k)
+
+    integrator.intersect = counted
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            R_.render_compiled(cs, seed=args.seed)
+    finally:
+        integrator.intersect = closest
     wall = R_.render_compiled.last_timing["wall_s"]
     if args.out:
         out = Path(args.out)
@@ -362,12 +386,14 @@ def _device(args, cs, rec, wall_median):
     dev_s = sum(r[0] for r in rows)
     # busy share against the untraced wall: the profiler slows the host side
     busy = dev_s / wall_median
+    n_kernels = sum(r[1] for r in rows)
     rec["device"] = {"profiled_wall_s": wall, "kernel_time_s": dev_s, "busy_share": busy,
-                     "kernel_launches": sum(r[1] for r in rows),
+                     "kernel_launches": n_kernels, "iterations": n_iter[0],
+                     "kernels_per_iteration": n_kernels / max(n_iter[0], 1),
                      "top": [{"name": k[:120], "s": s, "count": c} for s, c, k in rows[:15]]}
-    print(f"device: kernel time {dev_s:.4f}s in {rec['device']['kernel_launches']} kernels; untraced wall "
-          f"{wall_median:.4f}s -> busy {100 * busy:.1f}%, idle {100 * (1 - busy):.1f}% "
-          f"(profiled wall {wall:.4f}s)", flush=True)
+    print(f"device: kernel time {dev_s:.4f}s in {n_kernels} kernels over {n_iter[0]} wavefront iterations "
+          f"({n_kernels / max(n_iter[0], 1):.1f} per iteration); untraced wall {wall_median:.4f}s -> busy "
+          f"{100 * busy:.1f}%, idle {100 * (1 - busy):.1f}% (profiled wall {wall:.4f}s)", flush=True)
     for s, c, k in rows[:10]:
         print(f"  {s:.4f}s  x{c:6d}  {k[:100]}")
 
