@@ -105,8 +105,27 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     torch-wavefront/cuda-wide, the crop on cuda and cpu;
 19. the crop on cuda and cpu of material_room under directlighting's
     "all" strategy, and of area_box with a declared 4x4 stratified sampler
-    (16 spp).
-Phases 15-19 are the wavefront's array code around B1 (the brute
+    (16 spp);
+20. the front end: mesh_room(248) written as a .pbrt file (scenes.write_pbrt:
+    LookAt camera, film, Sampler "02sequence" 16, path depth 5, the
+    materials and the panel's two-sided area light, each mesh a binary PLY
+    with float64 positions) and run in-process through main.main on cuda
+    with an .exr outfile: route torch-wavefront/cuda-wide, B1 launches > 0,
+    the compiled tables equal to phase 3's bit for bit, the 16 spp total
+    equal to phase 4's 31,724,522, the image phase 4's (sum|a-b|/sum|b| <
+    1e-6), the EXR read back equal to the image at half precision; prints
+    the seconds of parse + API, compile_scene, the render wall and the write,
+    path_vertex_samples_per_sec and the files' bytes. Then python -m
+    pbrt_tpu_torch with --cropwindow on the same file, as a subprocess that
+    runs beside phase 21's crops: it must exit 0 and write its file;
+21. pbrt's defaults: material_room written with no Sampler directive
+    (halton, 16 spp) and PixelFilter "gaussian", rendered through main.main
+    on cuda at 1000x500, depth 5: route torch-wavefront/cuda-wide, B1
+    launches > 0; prints its path vertices, path_vertex_samples_per_sec and
+    the seconds to build the halton and the sobol tables at 1000x500; then
+    the crop on cuda and cpu, held as in phase 5, of halton + gaussian,
+    sobol + mitchell, maxmindist + triangle and halton + sinc.
+Phases 15-21 are the wavefront's array code around B1 (the brute
 wavefront launches no kernel of the port): they add no row to the kernel
 report. Each main path runs with every launch count set to 0 just before it and
 read just after; every switch a phase sets is restored after it. The second-to-last lines are the kernel report as JSON
@@ -119,8 +138,10 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -133,6 +154,8 @@ COMPARE_SPP = 2  # B3 kernel vs plain
 # (one thread per pixel) traced them; the persistent B4 must trace the same paths
 MATERIAL_ROOM_VERTICES = 29_659_505
 MESH_ROOM_VERTICES = 31_724_525
+# ... and as the wavefront traces the mesh room (phase 4)
+MESH_ROOM_WAVEFRONT_VERTICES = 31_724_522
 # ... and of the spheres gallery, as the per-lane B3 traced them
 GALLERY_VERTICES = 8_474_737
 # the wavefront traces the megakernels' paths within this share of their totals
@@ -206,8 +229,12 @@ def _nbytes(*tensors) -> int:
 
 
 def _check_crop(label, cs_gpu, cs_cpu, desc, spp=CROP_SPP):
-    """Phases 5, 8, 13 and 15-19: the same crop rendered on cuda and on cpu
-    (desc: the scene description both render)."""
+    """Phases 5, 8, 13, 15-19 and 21: the same crop rendered on cuda and on
+    cpu (desc: the scene description both render). Under a filter with
+    negative lobes (mitchell, sinc), whose samples carry signed weights, a
+    pixel's weight sum can be near 0 or negative at a few samples and the
+    film divides by it, as the reference's does; the image is then
+    required to be non-black in magnitude, not in its mean."""
     import numpy as np
 
     from pbrt_tpu_torch import render as R_
@@ -223,10 +250,13 @@ def _check_crop(label, cs_gpu, cs_cpu, desc, spp=CROP_SPP):
     tier_c = R_.render_compiled.last_timing["tier"]
     rel = np.abs(img_g - img_c).sum() / max(np.abs(img_c).sum(), 1e-30)
     px_ok = np.isclose(img_g, img_c, rtol=1e-2, atol=1e-4).all(axis=-1).mean()
+    signed = desc.film.filter_name in ("mitchell", "sinc", "lanczossinc")
+    level = np.abs(img_c).mean() if signed else img_c.mean()
     print(f"[{label}] {x1 - x0}x{y1 - y0} {spp}spp ({tier_g} vs {tier_c}): "
           f"sum|a-b|/sum|b| {rel:.3e}, pixels within rtol 1e-2 {px_ok:.4f}, means {img_g.mean():.5f} "
-          f"{img_c.mean():.5f}", flush=True)
-    if not (np.isfinite(img_g).all() and img_c.mean() > 0 and rel < 1e-3 and px_ok >= 0.99):
+          f"{img_c.mean():.5f}" + (f", mean |b| {level:.5f}, range [{img_c.min():.5g}, {img_c.max():.5g}]"
+                                   if signed else ""), flush=True)
+    if not (np.isfinite(img_g).all() and level > 0 and rel < 1e-3 and px_ok >= 0.99):
         raise AssertionError(f"cuda and cpu renders of the crop disagree ({label})")
 
 
@@ -485,6 +515,142 @@ def _wavefront_phases_unswitched(out, cs, cs_host, m, m_host, g, g_host, b4_timi
                                                                   y_samples=4, jitter=True))
     _check_crop("19 cuda-vs-cpu area_box stratified 4x4 crop", _with_desc(box, desc_st), _with_desc(box_host, desc_st),
                 desc_st, spp=16)
+
+
+def _tables_equal(a, b) -> list[str]:
+    """Names of the SceneTensors tables that differ bit for bit (NaN padding
+    compared as bits)."""
+    import torch
+
+    bad = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x is None or y is None:
+            if (x is None) != (y is None):
+                bad.append(f.name)
+            continue
+        if x.dtype.is_floating_point:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if x.shape != y.shape or not torch.equal(x, y.to(x.device)):
+            bad.append(f.name)
+    return bad
+
+
+def _front_end_phases(work, mesh_timing, mesh_img, cs_host, m, m_host):
+    """Phases 20 and 21: the front end, python -m pbrt_tpu_torch, on the
+    port's own scenes written as .pbrt files with binary PLY meshes."""
+    out = {}
+    switches = ("PBRT_TPU_WIDEMEGA", "PBRT_TPU_NO_MEGAKERNEL", "PBRT_TPU_JOINT")
+    with mock.patch.dict(os.environ, {k: v for k, v in os.environ.items() if k not in switches}, clear=True):
+        _front_end_phases_unswitched(out, work, mesh_timing, mesh_img, cs_host, m, m_host)
+    return out
+
+
+def _front_end_phases_unswitched(out, work, mesh_timing, mesh_img, cs_host, m, m_host):
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch import main as cli
+    from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.core.imageio import read_exr
+    from pbrt_tpu_torch.device import sampler, wide_bvh
+
+    # --- 20. the mesh room from a .pbrt file, through main ---
+    path = work / "mesh_room.pbrt"
+    scenes.write_pbrt(scenes.mesh_room(248), str(path), scenes.ROOM_LOOK_AT)
+    file_bytes = sum(f.stat().st_size for f in work.iterdir())
+    exr = work / "mesh_room.exr"
+    _reset_launches()
+    cli.main([str(path), "--outfile", str(exr), "--quiet", "--seed", str(SEED)])
+    b1 = wide_bvh.traverse_cuda.launches
+    run = cli.main.last_run
+    timing, img = run["timing"], run["image"]
+    vps = timing["n_vertices"] / timing["wall_s"]
+    bad = _tables_equal(run["scene"].arrays, cs_host.arrays)
+    half = img.astype(np.float16).astype(np.float32)
+    back = read_exr(str(exr))
+    rel_img = np.abs(img - mesh_img).sum() / max(np.abs(mesh_img).sum(), 1e-30)
+    print(f"[20 front end, mesh room] {path.name} + {len(list(work.glob('*.ply')))} PLY files, {file_bytes} bytes: "
+          f"parse + API {run['parse_s']:.4f}s, compile_scene {run['compile_s']:.4f}s, render wall "
+          f"{timing['wall_s']:.4f}s, write {run['write_s']:.4f}s; route {timing['tier']}, B1 launches {b1}; "
+          f"{timing['n_vertices']:.0f} path vertices (phase 4: {mesh_timing['n_vertices']:.0f}), "
+          f"path_vertex_samples_per_sec {vps:.1f}; tables differing from mesh_room(248)'s: {bad or 'none'}; "
+          f"EXR equals the image to half precision {np.array_equal(back, half)}; image against phase 4's "
+          f"sum|a-b|/sum|b| {rel_img:.3e}, bit-equal {bool(np.array_equal(img, mesh_img))}", flush=True)
+    if timing["tier"] != "torch-wavefront/cuda-wide" or b1 <= 0:
+        raise AssertionError("the mesh room file did not render through B1")
+    if bad or run["scene"].static != cs_host.static:
+        raise AssertionError(f"the mesh room file compiles to other tables: {bad}")
+    if not np.array_equal(back, half):
+        raise AssertionError("the EXR read back differs from the image at half precision")
+    if timing["n_vertices"] != mesh_timing["n_vertices"] or timing["n_vertices"] != MESH_ROOM_WAVEFRONT_VERTICES:
+        raise AssertionError("the mesh room file traced other paths than phase 4")
+    if not rel_img < 1e-6:
+        raise AssertionError("the mesh room file's image differs from phase 4's")
+    out["mesh_room_file"] = {"parse_s": run["parse_s"], "compile_s": run["compile_s"], "wall_s": timing["wall_s"],
+                             "write_s": run["write_s"], "vps": vps, "bytes": file_bytes, "b1_launches": b1}
+    # --- 21. pbrt's defaults (halton) and the gaussian filter, then the
+    # other samplers and filters ---
+    md = m.description
+    desc = dataclasses.replace(md, film=dataclasses.replace(md.film, filter_name="gaussian"))
+    mpath = work / "material_room.pbrt"
+    scenes.write_pbrt(desc, str(mpath), scenes.ROOM_LOOK_AT, sampler=False)
+    _reset_launches()
+    cli.main([str(mpath), "--outfile", str(work / "material_room.exr"), "--quiet", "--seed", str(SEED)])
+    b1 = wide_bvh.traverse_cuda.launches
+    run = cli.main.last_run
+    timing = run["timing"]
+    parsed = run["scene"].description
+    vps = timing["n_vertices"] / timing["wall_s"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampler.halton_tables(md.film.x_resolution, md.film.y_resolution, "cuda")
+    torch.cuda.synchronize()
+    halton_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler.sobol_tables(md.film.x_resolution, md.film.y_resolution, md.sampler.pixel_samples)
+    sobol_s = time.perf_counter() - t0
+    print(f"[21 defaults] material_room file, no Sampler directive ({parsed.sampler.kind}, "
+          f"{parsed.sampler.pixel_samples} spp), PixelFilter \"{parsed.film.filter_name}\", "
+          f"{parsed.film.x_resolution}x{parsed.film.y_resolution} depth {parsed.integrator.max_depth}: route "
+          f"{timing['tier']}, B1 launches {b1}, {timing['n_vertices']:.0f} path vertices, render wall "
+          f"{timing['wall_s']:.4f}s, path_vertex_samples_per_sec {vps:.1f}; halton tables built in "
+          f"{halton_s:.4f}s, sobol tables in {sobol_s:.6f}s at {md.film.x_resolution}x{md.film.y_resolution}",
+          flush=True)
+    if parsed.sampler.kind != "halton" or timing["tier"] != "torch-wavefront/cuda-wide" or b1 <= 0:
+        raise AssertionError("the material_room file did not render halton through B1")
+    if not (np.isfinite(run["image"]).all() and run["image"].mean() > 0):
+        raise AssertionError("the material_room file's image is not finite and non-black")
+    out["material_room_halton_gaussian"] = {"wall_s": timing["wall_s"], "vps": vps,
+                                            "n_vertices": timing["n_vertices"], "b1_launches": b1,
+                                            "halton_tables_s": halton_s, "sobol_tables_s": sobol_s}
+    # the module entry point itself, as a subprocess on phase 20's file; it
+    # runs beside the crops, after the timed renders
+    crop_exr = work / "mesh_room_crop.exr"
+    t_sub = time.perf_counter()
+    sub = subprocess.Popen([sys.executable, "-m", "pbrt_tpu_torch", str(path), "--cropwindow", "0.4", "0.6", "0.4",
+                            "0.6", "--outfile", str(crop_exr), "--quiet"], cwd=Path(__file__).resolve().parent,
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        for kind, filt in (("halton", "gaussian"), ("sobol", "mitchell"), ("maxmindist", "triangle"),
+                           ("halton", "sinc")):
+            d = dataclasses.replace(md, sampler=dataclasses.replace(md.sampler, kind=kind),
+                                    film=dataclasses.replace(md.film, filter_name=filt))
+            _check_crop(f"21 cuda-vs-cpu material_room {kind} + {filt} crop", _with_desc(m, d),
+                        _with_desc(m_host, d), d)
+        sub_out, _ = sub.communicate(timeout=900)
+    finally:
+        if sub.poll() is None:
+            sub.kill()
+            sub.wait()
+    sub_s = time.perf_counter() - t_sub
+    crop = read_exr(str(crop_exr)) if crop_exr.exists() else None
+    print(f"[20 module entry point] python -m pbrt_tpu_torch --cropwindow 0.4 0.6 0.4 0.6: exit {sub.returncode} "
+          f"in {sub_s:.1f}s, wrote {crop_exr.name} {None if crop is None else crop.shape}", flush=True)
+    if sub.returncode != 0 or crop is None or not crop.any():
+        raise AssertionError(f"python -m pbrt_tpu_torch failed:\n{sub_out[-4000:]}")
+    out["module_entry_point_s"] = sub_s
 
 
 def main() -> int:
@@ -804,6 +970,14 @@ def main() -> int:
     # --- 15-19. the wavefront on the megakernels' scenes and on its own ---
     wf = _wavefront_phases(cs, cs_host, m, m_host, g, g_host, m_timing, g_timing)
     print(f"[15-19 wavefront] {json.dumps(wf)}", flush=True)
+
+    # --- 20-21. the front end on files of the port's own scenes ---
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        fe = _front_end_phases(work, mesh_timing, mesh_img, cs_host, m, m_host)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[20-21 front end] {json.dumps(fe)}", flush=True)
 
     report = {"kernels": [
         {"name": "wide_traverse", "route": "cuda", "source": "pbrt_tpu_torch/csrc/wide_traverse.cu",

@@ -5,6 +5,13 @@ The port mirrors the JAX package's module layout and function names
 find, and it imports neither ``jax`` nor ``pbrt_tpu``: the machines that run
 it on a GPU have no JAX.
 
+Its front end is the reference's: ``python -m pbrt_tpu_torch scene.pbrt``
+lexes and parses the file (``parser/``), builds a SceneDescription with the
+reference's API (every directive, the reference's error-and-degrade
+behaviour), compiles it, renders on the card and writes the film
+(``core/imageio.py``: EXR, PFM, 8-bit PNG; no PIL). ``--device cpu`` runs
+the kernels' plain PyTorch twins; ``--checkpoint`` is not supported yet.
+
 What it renders today, with a hand-written CUDA kernel on each route's
 hot path where the reference has a Pallas kernel:
 
@@ -13,23 +20,33 @@ hot path where the reference has a Pallas kernel:
   prims full or partial spheres too; point, spot, distant and triangle
   area lights under uniform, power or 'spatial' light selection; matte
   (Lambert or Oren-Nayar), mirror, glass, metal and plastic with constant
-  parameters; the (0,2), random and stratified samplers; the path and
-  directlighting integrators. Scenes of more than 64 prims traverse the
-  8-wide BVH (``csrc/wide_traverse.cu``); smaller ones test every prim;
+  parameters; the (0,2), random, stratified, halton, sobol and maxmindist
+  samplers; every pixel filter (box, triangle, gaussian, mitchell, sinc);
+  the path and directlighting integrators. Scenes of more than 64 prims
+  traverse the 8-wide BVH (``csrc/wide_traverse.cu``); smaller ones test
+  every prim;
 - the brute megakernel for scenes of at most 16 triangle or full-sphere
   prims with at most 4 point, spot and distant lights
   (``csrc/megakernel.cu``), and the wide megakernel for triangle scenes of
-  its class with PBRT_TPU_WIDEMEGA=1 (``csrc/megakernel_wide.cu``).
+  its class with PBRT_TPU_WIDEMEGA=1 (``csrc/megakernel_wide.cu``); both
+  take the (0,2), random and stratified samplers and the box filter.
 
-Every other feature raises NotImplementedError at scene compile time.
+The parser builds every other feature (textures, media, instancing,
+quadrics other than spheres, other lights, cameras, materials and
+integrators); compile_scene refuses it by name with NotImplementedError.
 
 Public entry points:
+    python -m pbrt_tpu_torch scene.pbrt [--outfile F] [--spp N] [--device cpu] ...
+    pbrt_tpu_torch.main.main(argv)                       -> 0
+    pbrt_tpu_torch.parser.api.pbrt_parse(path, options)   -> SceneDescription
     pbrt_tpu_torch.scenes.mesh_room(n_side)             -> SceneDescription
     pbrt_tpu_torch.scenes.spheres_gallery()             -> SceneDescription
     pbrt_tpu_torch.scenes.material_room(n_side)         -> SceneDescription
     pbrt_tpu_torch.scenes.area_box()                    -> SceneDescription
+    pbrt_tpu_torch.scenes.write_pbrt(desc, path, look_at)  (a .pbrt file + PLY meshes)
     pbrt_tpu_torch.scene.builder.compile_scene(desc, device="cuda")
     pbrt_tpu_torch.render.render(desc, device="cuda")    -> (H, W, 3) image
+    pbrt_tpu_torch.core.imageio.write_image(path, image)
 
 Importing the package loads no kernel and touches no GPU; the CUDA kernels
 are compiled with nvcc on their first launch.

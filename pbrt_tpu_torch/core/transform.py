@@ -1,8 +1,8 @@
 """Host-side 4x4 transforms (NumPy, float64 internally, float32 export).
 
-A copy of ``pbrt_tpu/core/transform.py``'s ``Transform`` (the animated
-transforms are not part of the port yet), so scene tables come out
-bit-identical to the reference's.
+A copy of ``pbrt_tpu/core/transform.py`` (``Transform`` and the
+``AnimatedTransform`` the scene API uses for moving shapes), so scene tables
+come out bit-identical to the reference's.
 
 Covers the capability surface of the reference's transform layer
 (src/core/transform.rs): matrix+inverse pairs, the standard
@@ -191,3 +191,101 @@ class Transform:
     def key(self) -> bytes:
         """Hashable dedup key over matrix bytes (reference TransformCache, api.rs:406)."""
         return np.ascontiguousarray(self.m, dtype=np.float64).tobytes()
+
+
+# ---------------------------------------------------------------------------
+# AnimatedTransform (src/core/transform.rs:687-…): matrix decomposition into
+# translate / rotate(quaternion) / scale and slerp interpolation, which the
+# scene API uses to bake a moving shape's mid-shutter keyframe.
+# ---------------------------------------------------------------------------
+
+
+def _decompose(m: np.ndarray):
+    """M -> (T (3,), R quaternion (4,) wxyz, S (3,3)) (transform.rs
+    decompose :1442; polar decomposition by Higham iteration)."""
+    t = m[:3, 3].copy()
+    upper = m[:3, :3].copy()
+    r = upper.copy()
+    for _ in range(100):
+        r_next = 0.5 * (r + np.linalg.inv(r.T))
+        if np.abs(r_next - r).max() < 1e-8:
+            r = r_next
+            break
+        r = r_next
+    s = np.linalg.inv(r) @ upper
+    return t, _quat_from_matrix(r), s
+
+
+def _quat_from_matrix(r: np.ndarray) -> np.ndarray:
+    """Rotation matrix -> unit quaternion (w, x, y, z) (quaternion.rs)."""
+    tr = np.trace(r)
+    if tr > 0:
+        w = np.sqrt(tr + 1.0) / 2.0
+        s = 1.0 / (4.0 * w)
+        q = np.array([w, (r[2, 1] - r[1, 2]) * s, (r[0, 2] - r[2, 0]) * s, (r[1, 0] - r[0, 1]) * s])
+    else:
+        i = int(np.argmax([r[0, 0], r[1, 1], r[2, 2]]))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = np.sqrt(max(r[i, i] - r[j, j] - r[k, k] + 1.0, 1e-12))
+        v = np.zeros(3)
+        v[i] = 0.5 * s
+        s = 0.5 / s
+        w = (r[k, j] - r[j, k]) * s
+        v[j] = (r[j, i] + r[i, j]) * s
+        v[k] = (r[k, i] + r[i, k]) * s
+        q = np.array([w, v[0], v[1], v[2]])
+    return q / np.linalg.norm(q)
+
+
+def _quat_to_matrix(q: np.ndarray) -> np.ndarray:
+    w, x, y, z = q
+    return np.array(
+        [
+            [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+            [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+            [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+        ]
+    )
+
+
+@dataclass(frozen=True)
+class AnimatedTransform:
+    """Two-keyframe rigid+scale interpolation over [start_time, end_time]."""
+
+    start: Transform
+    end: Transform
+    start_time: float = 0.0
+    end_time: float = 1.0
+
+    @property
+    def actually_animated(self) -> bool:
+        return not np.allclose(self.start.m, self.end.m, atol=1e-9)
+
+    def _parts(self):
+        t0, q0, s0 = _decompose(np.asarray(self.start.m))
+        t1, q1, s1 = _decompose(np.asarray(self.end.m))
+        if float(np.dot(q0, q1)) < 0:
+            q1 = -q1
+        return (t0, q0, s0), (t1, q1, s1)
+
+    def interpolate(self, time: float) -> Transform:
+        """transform.rs AnimatedTransform::interpolate."""
+        if not self.actually_animated or time <= self.start_time:
+            return self.start
+        if time >= self.end_time:
+            return self.end
+        dt = (time - self.start_time) / max(self.end_time - self.start_time, 1e-12)
+        (t0, q0, s0), (t1, q1, s1) = self._parts()
+        t = (1 - dt) * t0 + dt * t1
+        cos_th = float(np.clip(np.dot(q0, q1), -1.0, 1.0))
+        if cos_th > 0.9995:
+            q = (1 - dt) * q0 + dt * q1
+        else:
+            th = np.arccos(cos_th)
+            q = (np.sin((1 - dt) * th) * q0 + np.sin(dt * th) * q1) / np.sin(th)
+        q = q / np.linalg.norm(q)
+        s = (1 - dt) * s0 + dt * s1
+        m = np.eye(4)
+        m[:3, :3] = _quat_to_matrix(q) @ s
+        m[:3, 3] = t
+        return Transform.from_matrix(m)

@@ -78,9 +78,9 @@ def _to_world(si, w):
 
 
 def _round_ns(kind: str, n: int) -> int:
-    """Sampler::round_count: the (0,2) sampler rounds an array's size up to a
-    power of two (zerotwosequence.rs)."""
-    if kind in ("zerotwosequence", "lowdiscrepancy") and n > 1:
+    """Sampler::round_count: the power-of-2 samplers round an array's size up
+    to a power of two (zerotwosequence.rs, maxmindist.rs)."""
+    if kind in ("zerotwosequence", "lowdiscrepancy", "maxmindist") and n > 1:
         return 1 << (n - 1).bit_length()
     return max(n, 1)
 

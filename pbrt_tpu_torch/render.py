@@ -42,9 +42,13 @@ from .device.lightdistrib import build_spatial_distribution
 from .device.materials import lobe_table
 from .device.megakernel import make_megakernel_fn
 from .device.megakernel_wide import DEFAULT_MAX_TRIS, make_wide_megakernel_fn
-from .device.sampler import sample_2d
+from .device.sampler import (
+    halton_dim_2d, halton_film_jitter, halton_tables, sample_2d, sobol_dim_2d, sobol_film_jitter, sobol_tables,
+)
+from .scene.arrays import scene_byte_size
 from .scene.builder import CompiledScene, compile_scene
 from .scene.host import SceneDescription
+from .utils.stats import STATS
 
 log = logging.getLogger(__name__)
 
@@ -58,11 +62,69 @@ PERSISTENT_SPP_CHUNK = 8
 LAST_PERSISTENT_TIER = "unbuilt"
 
 
+def _erfinv(x):
+    """Winitzki's approximation of erf^-1 (render._erfinv)."""
+    a = 0.147
+    ln1 = torch.log(torch.clamp(1.0 - x * x, min=1e-30))
+    t1 = 2.0 / (math.pi * a) + ln1 / 2.0
+    return torch.sign(x) * torch.sqrt(torch.clamp(torch.sqrt(t1 * t1 - ln1 / a) - t1, min=0.0))
+
+
 def filter_offset(name: str, params: dict, u1, u2):
     """Map uniform (u1, u2) -> raster offset (dx, dy) and per-sample weight
-    (None = 1). Box filter only: uniform in [-r, r]."""
-    if name != "box":
-        raise NotImplementedError(f"pbrt_tpu_torch does not support the '{name}' filter yet")
+    (None = 1) by filter importance sampling (render.filter_offset): the
+    triangle and gaussian filters warp the offset and weigh 1; mitchell and
+    sinc/lanczossinc draw it uniformly over the filter's extent and weigh it
+    by the filter value over that density."""
+    if name == "triangle":
+        r = params.get("xwidth", 2.0)
+
+        def tent(u):
+            return torch.where(u < 0.5, torch.sqrt(torch.clamp(2.0 * u, min=0.0)) - 1.0,
+                               1.0 - torch.sqrt(torch.clamp(2.0 - 2.0 * u, min=0.0)))
+
+        return tent(u1) * r, tent(u2) * params.get("ywidth", r), None
+    if name == "gaussian":
+        r = params.get("xwidth", 2.0)
+        ry = params.get("ywidth", r)
+        sigma = 1.0 / math.sqrt(2.0 * params.get("alpha", 2.0))
+        # truncated gaussian via the inverse CDF of the untruncated one
+        dx = torch.clamp(sigma * math.sqrt(2.0) * _erfinv(2.0 * u1 - 1.0), -r, r)
+        dy = torch.clamp(sigma * math.sqrt(2.0) * _erfinv(2.0 * u2 - 1.0), -ry, ry)
+        return dx, dy, None
+    if name in ("mitchell", "sinc", "lanczossinc"):
+        r = params.get("xwidth", 2.0 if name == "mitchell" else 4.0)
+        ry = params.get("ywidth", r)
+        dx = (2.0 * u1 - 1.0) * r
+        dy = (2.0 * u2 - 1.0) * ry
+        if name == "mitchell":
+            b = params.get("B", 1.0 / 3.0)
+            c = params.get("C", 1.0 / 3.0)
+
+            def m1d(x, rad):
+                x = torch.abs(2.0 * x / rad)
+                x3 = x * x * x
+                return torch.where(
+                    x > 1,
+                    ((-b - 6 * c) * x3 + (6 * b + 30 * c) * x * x + (-12 * b - 48 * c) * x + (8 * b + 24 * c)) / 6.0,
+                    ((12 - 9 * b - 6 * c) * x3 + (-18 + 12 * b + 6 * c) * x * x + (6 - 2 * b)) / 6.0,
+                )
+
+            w = m1d(dx, r) * m1d(dy, ry) * (4.0 * r * ry)
+        else:
+            tau = params.get("tau", 3.0)
+
+            def sinc1d(x, rad):
+                x = torch.abs(x)
+                small = x < 1e-5
+                px = torch.clamp(math.pi * x, min=1e-9)
+                lanczos = torch.where(small, 1.0, torch.sin(math.pi * x / tau) * tau / px)
+                sn = torch.where(small, 1.0, torch.sin(math.pi * x) / px)
+                return torch.where(x > rad, 0.0, sn * lanczos)
+
+            w = sinc1d(dx, r) * sinc1d(dy, ry) * (4.0 * r * ry)
+        return dx, dy, w
+    # box, and any other name, as in the reference: uniform in [-r, r]
     r = params.get("xwidth", 0.5)
     ry = params.get("ywidth", r)
     return (2.0 * u1 - 1.0) * r, (2.0 * u2 - 1.0) * ry, None
@@ -71,14 +133,27 @@ def filter_offset(name: str, params: dict, u1, u2):
 def make_regen(cam, scfg, fcfg, px_base, py_base, pixel_ids, seed: int):
     """Camera-sample regeneration closure for the persistent wavefront:
     regen(sample_idx (R,)) -> (o, d, w_filter), using film dimension 0 for
-    the pixel offset and dimension 1 for the lens (render.make_regen)."""
+    the pixel offset and dimension 1 for the lens (render.make_regen); the
+    halton and sobol samplers draw both from the film enumeration tables in
+    scfg["halton"] / scfg["sobol"]."""
     kind = scfg["kind"]
     spp = scfg["spp"]
     strata = scfg.get("strata")
 
     def regen(sample_idx):
-        u1, u2 = sample_2d(kind, seed, pixel_ids, sample_idx, 0, spp, strata)
-        ul1, ul2 = sample_2d(kind, seed, pixel_ids, sample_idx, 1, spp, strata)
+        if kind == "halton" and scfg.get("halton") is not None:
+            # the Halton points of the film (CRT pixel enumeration)
+            aux = scfg["halton"]
+            u1, u2 = halton_film_jitter(aux, pixel_ids, sample_idx)
+            ul1, ul2 = halton_dim_2d(aux, pixel_ids, sample_idx, 1)
+        elif kind == "sobol" and scfg.get("sobol") is not None:
+            # the global Sobol sequence over the power-of-2 padded film
+            aux = scfg["sobol"]
+            u1, u2 = sobol_film_jitter(aux, px_base, py_base, sample_idx)
+            ul1, ul2 = sobol_dim_2d(aux, px_base, py_base, sample_idx, 1)
+        else:
+            u1, u2 = sample_2d(kind, seed, pixel_ids, sample_idx, 0, spp, strata)
+            ul1, ul2 = sample_2d(kind, seed, pixel_ids, sample_idx, 1, spp, strata)
         dx, dy, w = filter_offset(fcfg["filter"], fcfg["filter_params"], u1, u2)
         px = px_base.to(torch.float32) + 0.5 + dx
         py = py_base.to(torch.float32) + 0.5 + dy
@@ -114,6 +189,10 @@ def make_persistent_fn(cs: CompiledScene, cam=None):
         # the declared strata and jitter flag (stratified.rs:121-131)
         scfg["strata"] = (max(int(desc.sampler.x_samples), 1), max(int(desc.sampler.y_samples), 1),
                           bool(desc.sampler.jitter))
+    elif desc.sampler.kind == "halton":
+        scfg["halton"] = halton_tables(desc.film.x_resolution, desc.film.y_resolution, dev)
+    elif desc.sampler.kind == "sobol":
+        scfg["sobol"] = sobol_tables(desc.film.x_resolution, desc.film.y_resolution, int(desc.sampler.pixel_samples))
     fcfg = {
         "filter": desc.film.filter_name,
         "filter_params": dict(desc.film.filter_params),
@@ -147,9 +226,9 @@ def make_persistent_fn(cs: CompiledScene, cam=None):
     return wave_p
 
 
-def render(desc: SceneDescription, seed: int = 0, spp: int | None = None, device="cuda"):
+def render(desc: SceneDescription, seed: int = 0, spp: int | None = None, progress=None, device="cuda"):
     """Render a scene description to an (H, W, 3) float32 numpy image."""
-    return render_compiled(compile_scene(desc, device), seed=seed, spp=spp)
+    return render_compiled(compile_scene(desc, device), seed=seed, spp=spp, progress=progress)
 
 
 # integrator kinds whose reference create() accepts "pixelbounds"
@@ -179,10 +258,13 @@ def film_pixel_bounds(desc) -> tuple[int, int, int, int]:
     return x0, x1, y0, y1
 
 
-def render_compiled(cs: CompiledScene, seed: int = 0, spp: int | None = None):
+def render_compiled(cs: CompiledScene, seed: int = 0, spp: int | None = None, progress=None):
     """Render a compiled scene on its device; returns the (H, W, 3) float32
     image and records ``render_compiled.last_timing`` = {"wall_s",
-    "n_vertices", "tier"} (wall time ends after a device synchronize)."""
+    "n_vertices", "tier"} (wall time ends after a device synchronize).
+    progress(done_spp, spp), when given, is called after each spp chunk; the
+    reference's counters (camera rays, path vertices, path length, scene
+    bytes) go to utils.stats.STATS."""
     desc = cs.description
     dev = cs.arrays.device
     W = desc.film.x_resolution
@@ -210,6 +292,8 @@ def render_compiled(cs: CompiledScene, seed: int = 0, spp: int | None = None):
         acc += Lw.to(torch.float64)
         wacc += w.to(torch.float64)
         n_vertices += nv.to(torch.float64).sum()
+        if progress:
+            progress(s + n_s, spp)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
@@ -217,6 +301,11 @@ def render_compiled(cs: CompiledScene, seed: int = 0, spp: int | None = None):
     log.info("rendered %dx%d @ %dspp (%s) in %.2fs (%.2f Mverts/s)",
              ww, wh, spp, tier, dt, nv_total / max(dt, 1e-9) / 1e6)
     render_compiled.last_timing = {"wall_s": dt, "n_vertices": nv_total, "tier": tier}
+    n_camera = ww * wh * spp
+    STATS.counter("Integrator/Camera rays traced", n_camera)
+    STATS.counter("Integrator/Path vertices", int(nv_total))
+    STATS.distribution("Integrator/Path length", nv_total / max(n_camera, 1), n_camera)
+    STATS.memory_counter("Memory/Scene arrays", scene_byte_size(cs.arrays))
     img_crop = (acc / torch.clamp(wacc, min=1e-9)[:, None]).reshape(wh, ww, 3).to(torch.float32).cpu().numpy()
     img_crop *= desc.film.scale
     if (ww, wh) == (W, H):

@@ -220,3 +220,8 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
     st.light_n_samples = tuple(int(n) for n in st.light_n_samples)
     st.tex_programs = tuple(st.tex_programs)
     return SceneTensors(**tensors), st
+
+
+def scene_byte_size(sa: SceneTensors) -> int:
+    """Bytes of every table of the scene (arrays.scene_byte_size)."""
+    return sa.byte_size()

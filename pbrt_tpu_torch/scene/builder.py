@@ -10,11 +10,12 @@ two scene classes:
 
 Both take point, spot and distant lights and area lights on triangles;
 matte (Lambert or Oren-Nayar), mirror, glass, metal and plastic with
-constant parameters; the (0,2), random and stratified samplers; a
-perspective camera and the box filter; the path and directlighting
-integrators. The persistent wavefront (device/integrator.py) renders all of
-it; the brute and wide megakernels (device/megakernel.py,
-device/megakernel_wide.py) take the parts of it that the reference's take.
+constant parameters; the (0,2), random, stratified, halton, sobol and
+maxmindist samplers; a perspective camera and every pixel filter; the path
+and directlighting integrators. The persistent wavefront
+(device/integrator.py) renders all of it; the brute and wide megakernels
+(device/megakernel.py, device/megakernel_wide.py) take the parts of it that
+the reference's take.
 Primitive order, areas, light and material rows, world bounds and the wide
 tables are computed with the reference's NumPy code in the reference's
 order, so they come out bit-identical (tests/test_torch_scene.py,
@@ -73,7 +74,7 @@ FLAG_HAS_UV = 8
 
 # what the compiler admits (the wavefront renders all of it)
 MATERIALS = ("matte", "mirror", "glass", "metal", "plastic")
-SAMPLERS = ("zerotwosequence", "lowdiscrepancy", "random", "stratified")
+SAMPLERS = ("zerotwosequence", "lowdiscrepancy", "random", "stratified", "halton", "sobol", "maxmindist")
 INTEGRATORS = ("path", "directlighting")
 
 # per-kind parameter defaults (reference src/materials/*.rs create_* fns)
@@ -122,8 +123,6 @@ def _check_slice(desc: SceneDescription) -> None:
         _unsupported("animated cameras")
     if desc.sampler.kind not in SAMPLERS:
         _unsupported(f"the '{desc.sampler.kind}' sampler")
-    if desc.film.filter_name != "box":
-        _unsupported(f"the '{desc.film.filter_name}' filter")
     if desc.integrator.kind not in INTEGRATORS:
         _unsupported(f"the '{desc.integrator.kind}' integrator")
     for prim in desc.primitives:

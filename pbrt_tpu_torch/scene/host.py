@@ -1,19 +1,26 @@
 """Host-side scene description objects.
 
-The subset of ``pbrt_tpu/scene/host.py`` that the port's scene compiler
-reads: the same plain records with the same fields and defaults, so a scene
-built on these types compiles to the same tables as the reference's.
-Quadrics other than full spheres, textures and media are not part of the
-port yet (the compiler raises NotImplementedError on them).
+The port's copy of ``pbrt_tpu/scene/host.py``: the same records with the
+same fields and defaults, so a scene parsed by the port's API
+(``parser/api.py``) equals the reference's parse field by field, and the
+scene compiler (``scene/builder.py``) flattens the part it takes into the
+same tables. What the compiler does not take yet it refuses by name.
+This replaces the reference's trait-object scene graph
+(src/core/primitive.rs, shape.rs, light.rs, material.rs) with
+plain records: geometry is pre-transformed to world space at build time, just
+as the reference pre-transforms triangle meshes (src/shapes/triangle.rs:21-48).
 """
 from __future__ import annotations
 
+import logging
 import math
 from dataclasses import dataclass, field
 
 import numpy as np
 
 from ..core.transform import Transform
+
+log = logging.getLogger(__name__)
 
 
 # ---------------------------------------------------------------------------
@@ -30,13 +37,15 @@ class TriangleMesh:
     n: np.ndarray | None = None  # (V, 3) shading normals (world space)
     s: np.ndarray | None = None  # (V, 3) shading tangents
     uv: np.ndarray | None = None  # (V, 2)
-    alpha_texture: object | None = None  # float texture: 0 => hit ignored
+    alpha_texture: object | None = None  # float HostTexture: 0 => hit ignored
     shadow_alpha_texture: object | None = None  # same, for shadow rays
     reverse_orientation: bool = False
     transform_swaps_handedness: bool = False
     p_end: np.ndarray | None = None  # (V, 3) shutter-close positions (motion blur)
-    p_mid: np.ndarray | None = None  # (V, 3) mid-shutter positions
-    anim: tuple | None = None  # (M0, M1) 4x4 shutter keyframe CTMs
+    p_mid: np.ndarray | None = None  # (V, 3) mid-shutter positions (slerp sample:
+    # quadratic through (p, p_mid, p_end) follows the rotation arc; None = linear)
+    anim: tuple | None = None  # (M0, M1) 4x4 shutter keyframe CTMs — the exact
+    # per-ray TRS interpolation source (device/motion.py); p is world at M0
 
 
 @dataclass
@@ -45,9 +54,7 @@ class Sphere:
 
     kind selects the shape: "sphere" (src/shapes/sphere.rs), "cylinder"
     (cylinder.rs) or "disk" (disk.rs). height/inner_radius apply to disks
-    only; z_min/z_max to spheres and cylinders. The port's compiler takes
-    spheres only, in scenes of at most 64 prims; its megakernel renders
-    full ones."""
+    only; z_min/z_max to spheres and cylinders."""
 
     object_to_world: Transform
     radius: float = 1.0
@@ -75,6 +82,50 @@ class ShapeRecord:
 
 
 # ---------------------------------------------------------------------------
+# Textures (host graph; compiled into a flat table, creation order = topo order)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class HostTexture:
+    """A texture node. `kind` selects the device eval path; children reference
+    earlier textures by object (pbrt named textures can only reference
+    previously defined ones, so creation order is a topological order)."""
+
+    kind: str  # constant | scale | mix | checkerboard | imagemap | uv | bilerp | dots | fbm | wrinkled | marble | windy
+    is_float: bool = False
+    value: np.ndarray | None = None  # constant value (3,) rgb or scalar in [0]
+    tex1: object = None  # child: HostTexture or ('const', value)
+    tex2: object = None
+    amount: object = None  # mix amount child
+    v01: object = None  # bilerp corners
+    v10: object = None
+    # 2D mapping (uv | spherical | cylindrical | planar)
+    mapping: str = "uv"
+    uscale: float = 1.0
+    vscale: float = 1.0
+    udelta: float = 0.0
+    vdelta: float = 0.0
+    v1: np.ndarray | None = None  # planar mapping axes
+    v2: np.ndarray | None = None
+    world_to_texture: Transform | None = None  # 3D mapping / spherical center
+    # imagemap
+    image: np.ndarray | None = None  # (H, W, 3) float32, linear
+    wrap: str = "repeat"
+    scale: float = 1.0
+    gamma: bool = False
+    trilinear: bool = False
+    max_aniso: float = 8.0
+    # checkerboard
+    dimension: int = 2
+    aa_mode: str = "closedform"
+    # noise-based
+    octaves: int = 8
+    roughness: float = 0.5
+    variation: float = 0.2
+
+
+# ---------------------------------------------------------------------------
 # Materials
 # ---------------------------------------------------------------------------
 
@@ -84,14 +135,17 @@ class HostMaterial:
     """Material = type name + parameter sources.
 
     Each entry of ``params`` maps a parameter name to either
-    ('const', value) or ('texture', texture) — the scene compiler turns
-    these into fixed-width parameter rows (reference: each
-    Material::compute_scattering_functions, src/materials/).
+    ('const', value) or ('texture', HostTexture) — the device-side material
+    compiler turns these into the fixed-lobe aggregate BSDF
+    (reference: each Material::compute_scattering_functions, src/materials/).
     """
 
-    kind: str  # matte | mirror | glass | plastic | metal | uber | ... | none
+    kind: str  # matte | mirror | glass | plastic | metal | uber | substrate | translucent | fourier | mix | hair | disney | subsurface | kdsubsurface | none
     params: dict = field(default_factory=dict)
     bump_map: object = None  # float texture or None
+
+
+MATTE_DEFAULT = HostMaterial(kind="matte", params={"Kd": ("const", np.array([0.5, 0.5, 0.5]))})
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +190,9 @@ class HostPrimitive:
     area_light: HostLight | None = None
     inside_medium: str = ""
     outside_medium: str = ""
+    # instance reuse (primitive.rs:41-103 TransformedPrimitive): when set,
+    # the mesh vertices stay in INSTANCE space and are shared between all
+    # instances of the prototype; rays are transformed at intersect time
     instance_transform: object = None  # Transform | None
 
 
@@ -168,6 +225,11 @@ class CameraConfig:
     shutter_open: float = 0.0
     shutter_close: float = 1.0
     screen_window: tuple | None = None  # (x0, x1, y0, y1)
+    # realistic camera
+    lens_file: str = ""
+    aperture_diameter: float = 1.0
+    focus_distance: float = 10.0
+    simple_weighting: bool = True
 
 
 @dataclass
@@ -177,6 +239,10 @@ class SamplerConfig:
     jitter: bool = True
     x_samples: int = 4
     y_samples: int = 4
+    # "dimensions": the reference pre-allocates this many sample dims per
+    # pixel (stratified.rs/random). STRUCTURALLY UNUSED here: the stateless
+    # hash samplers generate any dimension on demand, so there is nothing
+    # to size (api.py logs when a non-default value is given).
     sampled_dimensions: int = 4
 
 
@@ -188,6 +254,41 @@ class IntegratorConfig:
     light_strategy: str = "spatial"  # path/volpath lightsampling
     strategy: str = "all"  # directlighting: all|one
     pixel_bounds: tuple | None = None
+    # AO
+    cos_sample: bool = True
+    n_samples: int = 64
+    # SPPM
+    num_iterations: int = 64
+    photons_per_iteration: int = -1
+    initial_radius: float = 1.0
+    write_frequency: int = 1 << 31
+    # BDPT / MLT
+    visualize_strategies: bool = False
+    visualize_weights: bool = False
+    mutations_per_pixel: int = 100
+    large_step_probability: float = 0.3
+    sigma: float = 0.01
+    n_bootstrap: int = 100000
+    n_chains: int = 1000
+
+
+@dataclass
+class HostMedium:
+    """Participating medium (reference src/media/{homogeneous,grid}.rs)."""
+
+    kind: str = "homogeneous"  # homogeneous | heterogeneous
+    sigma_a: np.ndarray | None = None  # (3,)
+    sigma_s: np.ndarray | None = None  # (3,)
+    g: float = 0.0
+    scale: float = 1.0
+    # heterogeneous (grid) media
+    nx: int = 1
+    ny: int = 1
+    nz: int = 1
+    density: np.ndarray | None = None  # (nz, ny, nx)
+    medium_to_world: Transform = field(default_factory=Transform)
+    p0: np.ndarray | None = None  # grid bounds in medium space
+    p1: np.ndarray | None = None
 
 
 @dataclass
@@ -202,7 +303,115 @@ class SceneDescription:
     integrator: IntegratorConfig = field(default_factory=IntegratorConfig)
     accelerator: str = "bvh"
     accelerator_params: dict = field(default_factory=dict)
-    media: dict = field(default_factory=dict)  # name -> medium
+    media: dict = field(default_factory=dict)  # name -> HostMedium
     camera_medium: str = ""  # medium the camera sits in
-    transform_start_time: float = 0.0
+    transform_start_time: float = 0.0  # keyframe-0 time (TransformTimes)
     transform_end_time: float = 1.0
+
+
+# ---------------------------------------------------------------------------
+# Host tessellation of quadrics (cylinder/disk/cone/paraboloid/hyperboloid)
+# ---------------------------------------------------------------------------
+# The reference intersects these analytically (src/shapes/*.rs). The
+# API's hidden "__cone_tessellated" shape and these helpers tessellate to
+# triangle meshes at scene-build time with analytic normals, which preserves
+# the visual result at sufficient resolution.
+
+
+def _grid_mesh(fp, fn, nu, nv, u0, u1, v0, v1, o2w: Transform, reverse_orientation):
+    us = np.linspace(u0, u1, nu + 1)
+    vs = np.linspace(v0, v1, nv + 1)
+    uu, vv = np.meshgrid(us, vs, indexing="ij")
+    p = fp(uu.ravel(), vv.ravel())  # (N,3) object space
+    n = fn(uu.ravel(), vv.ravel())
+    pw = o2w.xpoint(p)
+    nw = o2w.xnormal(n)
+    nw = nw / np.maximum(np.linalg.norm(nw, axis=-1, keepdims=True), 1e-12)
+    if reverse_orientation ^ o2w.swaps_handedness():
+        nw = -nw
+    idx = []
+    for i in range(nu):
+        for j in range(nv):
+            a = i * (nv + 1) + j
+            b = (i + 1) * (nv + 1) + j
+            idx.append([a, b, b + 1])
+            idx.append([a, b + 1, a + 1])
+    uvg = np.stack([(uu.ravel() - u0) / max(u1 - u0, 1e-12), (vv.ravel() - v0) / max(v1 - v0, 1e-12)], axis=-1)
+    return TriangleMesh(
+        p=pw.astype(np.float64),
+        indices=np.asarray(idx, dtype=np.int32),
+        n=nw,
+        uv=uvg,
+        reverse_orientation=reverse_orientation,
+        transform_swaps_handedness=o2w.swaps_handedness(),
+    )
+
+
+def tessellate_cylinder(o2w, radius, z_min, z_max, phi_max, reverse_orientation, nu=128, nv=8):
+    def fp(phi, z):
+        return np.stack([radius * np.cos(phi), radius * np.sin(phi), z], axis=-1)
+
+    def fn(phi, z):
+        return np.stack([np.cos(phi), np.sin(phi), np.zeros_like(phi)], axis=-1)
+
+    return _grid_mesh(fp, fn, nu, nv, 0.0, phi_max, z_min, z_max, o2w, reverse_orientation)
+
+
+def tessellate_disk(o2w, height, radius, inner_radius, phi_max, reverse_orientation, nu=128, nv=4):
+    def fp(phi, r):
+        return np.stack([r * np.cos(phi), r * np.sin(phi), np.full_like(phi, height)], axis=-1)
+
+    def fn(phi, r):
+        z = np.ones_like(phi)
+        return np.stack([np.zeros_like(phi), np.zeros_like(phi), z], axis=-1)
+
+    return _grid_mesh(fp, fn, nu, nv, 0.0, phi_max, max(inner_radius, 1e-8 * radius), radius, o2w, reverse_orientation)
+
+
+def tessellate_cone(o2w, height, radius, phi_max, reverse_orientation, nu=128, nv=16):
+    def fp(phi, v):
+        return np.stack([radius * (1 - v) * np.cos(phi), radius * (1 - v) * np.sin(phi), v * height], axis=-1)
+
+    def fn(phi, v):
+        dpdu = np.stack([-radius * (1 - v) * np.sin(phi), radius * (1 - v) * np.cos(phi), np.zeros_like(phi)], axis=-1)
+        dpdv = np.stack([-radius * np.cos(phi), -radius * np.sin(phi), np.full_like(phi, height)], axis=-1)
+        return np.cross(dpdu, dpdv)
+
+    return _grid_mesh(fp, fn, nu, nv, 0.0, phi_max, 0.0, 1.0 - 1e-6, o2w, reverse_orientation)
+
+
+def tessellate_paraboloid(o2w, radius, z_min, z_max, phi_max, reverse_orientation, nu=128, nv=32):
+    k = z_max / (radius * radius)
+
+    def fp(phi, z):
+        r = np.sqrt(np.maximum(z / k, 0.0))
+        return np.stack([r * np.cos(phi), r * np.sin(phi), z], axis=-1)
+
+    def fn(phi, z):
+        r = np.sqrt(np.maximum(z / k, 1e-12))
+        dpdu = np.stack([-r * np.sin(phi), r * np.cos(phi), np.zeros_like(phi)], axis=-1)
+        drdz = 1.0 / (2.0 * k * r)
+        dpdv = np.stack([drdz * np.cos(phi), drdz * np.sin(phi), np.ones_like(phi)], axis=-1)
+        return np.cross(dpdu, dpdv)
+
+    return _grid_mesh(fp, fn, nu, nv, 0.0, phi_max, max(z_min, 1e-6 * z_max), z_max, o2w, reverse_orientation)
+
+
+def tessellate_hyperboloid(o2w, p1, p2, phi_max, reverse_orientation, nu=128, nv=32):
+    p1 = np.asarray(p1, dtype=np.float64)
+    p2 = np.asarray(p2, dtype=np.float64)
+
+    def fp(phi, v):
+        pr = p1[None, :] * (1 - v[..., None]) + p2[None, :] * v[..., None]
+        x = pr[..., 0] * np.cos(phi) - pr[..., 1] * np.sin(phi)
+        y = pr[..., 0] * np.sin(phi) + pr[..., 1] * np.cos(phi)
+        return np.stack([x, y, pr[..., 2]], axis=-1)
+
+    def fn(phi, v):
+        eps = 1e-4
+        p0 = fp(phi, v)
+        du = fp(phi + eps, v) - p0
+        dv = fp(phi, v + eps) - p0
+        return np.cross(du, dv)
+
+    return _grid_mesh(fp, fn, nu, nv, 0.0, phi_max, 0.0, 1.0, o2w, reverse_orientation)

@@ -19,8 +19,14 @@ that hold every lobe kind of the five constant materials, triangle area
 lights and a delta light, a partial sphere and pbrt's default 'spatial'
 light distribution in one render. The brute megakernel refuses its area
 lights, so it renders through the brute wavefront.
+
+``write_pbrt`` writes a triangle-mesh scene of these out as a .pbrt file,
+each mesh as a binary PLY beside it, so the front end can be driven with
+the same scenes (``python -m pbrt_tpu_torch``).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -63,6 +69,10 @@ def _prim(verts, idx, kd, emit=None):
     )
 
 
+# (eye, look, up) of the rooms' camera
+ROOM_LOOK_AT = ([0, 2.3, 3.3], [0, 0.2, -1.0], [0, 1, 0])
+
+
 def mesh_room(n_side: int = 248) -> SceneDescription:
     """The 1000x500, 16 spp, depth-5 path-traced mesh room."""
     terrain = _prim(*_grid_mesh(
@@ -82,8 +92,7 @@ def mesh_room(n_side: int = 248) -> SceneDescription:
         primitives=[terrain] + walls + [panel],
         lights=[],
         camera=CameraConfig(kind="perspective",
-                            camera_to_world=Transform.look_at([0, 2.3, 3.3], [0, 0.2, -1.0], [0, 1, 0]),
-                            fov=70.0),
+                            camera_to_world=Transform.look_at(*ROOM_LOOK_AT), fov=70.0),
         film=FilmConfig(x_resolution=1000, y_resolution=500),
         sampler=SamplerConfig(kind="zerotwosequence", pixel_samples=16),
         integrator=IntegratorConfig(kind="path", max_depth=5, light_strategy="power"),
@@ -224,3 +233,65 @@ def area_box() -> SceneDescription:
         sampler=SamplerConfig(kind="zerotwosequence", pixel_samples=16),
         integrator=IntegratorConfig(kind="path", max_depth=5),
     )
+
+
+def _fmt(values) -> str:
+    return " ".join(repr(float(v)) for v in np.ravel(values))
+
+
+def _param(name, src) -> str:
+    v = np.ravel(np.asarray(src[1], np.float64))
+    return f'"rgb {name}" [{_fmt(v)}]' if v.size == 3 else f'"float {name}" [{_fmt(v)}]'
+
+
+def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True) -> None:
+    """Write a scene of triangle meshes with constant-parameter materials,
+    area lights on meshes and point, spot and distant lights as a .pbrt
+    file: a LookAt camera (look_at = (eye, look, up), the one the
+    description's camera was made with), the film, pixel filter, integrator
+    and, when `sampler`, the Sampler directive (without it the file gets
+    pbrt's default, halton at 16 spp). Mesh i goes into mesh_<i>.ply beside
+    the file (binary, catprint._write_ply with float64 positions, so the
+    tables compile bit for bit as the description's); each shape gets its
+    own Material directive, as each of the description's does."""
+    from .parser.catprint import _write_ply
+
+    cam, film, integ = desc.camera, desc.film, desc.integrator
+    out = [f"LookAt {_fmt(np.concatenate([np.ravel(v) for v in look_at]))}",
+           f'Camera "{cam.kind}" "float fov" [{_fmt([cam.fov])}]',
+           f'Film "image" "integer xresolution" [{film.x_resolution}] "integer yresolution" [{film.y_resolution}]']
+    if sampler:
+        kind = "02sequence" if desc.sampler.kind == "zerotwosequence" else desc.sampler.kind
+        out.append(f'Sampler "{kind}" "integer pixelsamples" [{desc.sampler.pixel_samples}]')
+    if film.filter_name != "box":
+        out.append(f'PixelFilter "{film.filter_name}"')
+    out += [f'Integrator "{integ.kind}" "integer maxdepth" [{integ.max_depth}] '
+            f'"string lightsamplestrategy" "{integ.light_strategy}"', "WorldBegin"]
+    for hl in desc.lights:
+        if hl.kind == "point":
+            out.append(f'LightSource "point" "point from" [{_fmt(hl.from_point)}] "rgb I" [{_fmt(hl.intensity)}]')
+        elif hl.kind in ("spot", "distant"):
+            field = "I" if hl.kind == "spot" else "L"
+            extra = (f' "float coneangle" [{_fmt([hl.cone_angle])}] "float conedeltaangle" [{_fmt([hl.cone_delta])}]'
+                     if hl.kind == "spot" else "")
+            out.append(f'LightSource "{hl.kind}" "point from" [{_fmt(hl.from_point)}] "point to" [{_fmt(hl.to_point)}] '
+                       f'"rgb {field}" [{_fmt(hl.intensity)}]{extra}')
+        else:
+            raise NotImplementedError(f"write_pbrt does not write '{hl.kind}' lights")
+    for i, prim in enumerate(desc.primitives):
+        mesh = prim.shape.mesh
+        if mesh is None:
+            raise NotImplementedError("write_pbrt writes triangle meshes only")
+        fname = f"mesh_{i}.ply"
+        _write_ply(os.path.join(os.path.dirname(os.path.abspath(path)), fname), mesh.p, mesh.indices, double=True)
+        out.append("AttributeBegin")
+        mat = prim.material
+        out.append(" ".join([f'  Material "{mat.kind}"'] + [_param(k, v) for k, v in mat.params.items()]))
+        if prim.area_light is not None:
+            al = prim.area_light
+            out.append(f'  AreaLightSource "diffuse" "rgb L" [{_fmt(al.intensity)}] '
+                       f'"bool twosided" {"true" if al.two_sided else "false"}')
+        out += [f'  Shape "plymesh" "string filename" "{fname}"', "AttributeEnd"]
+    out.append("WorldEnd")
+    with open(path, "w") as f:
+        f.write("\n".join(out) + "\n")

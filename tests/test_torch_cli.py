@@ -1,0 +1,114 @@
+"""The port's command line, ``python -m pbrt_tpu_torch scene.pbrt``.
+
+main.main([... "--device", "cpu"]) parses, compiles, renders with the plain
+PyTorch twins and writes the film: the written image must equal
+render.render of the port's own parse. One tiny halton + gaussian render of
+a matte scene is held against the reference's pbrt_tpu.render.render of the
+same file, within tests/test_torch_render.py's tier tolerance (rtol 2e-4,
+atol 2e-4). --checkpoint is refused, and so is --device cuda where there
+is no GPU.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from pbrt_tpu import render as ref_render
+from pbrt_tpu.parser.api import pbrt_parse as ref_pbrt_parse
+from pbrt_tpu_torch import main as cli
+from pbrt_tpu_torch import render
+from pbrt_tpu_torch.core.imageio import read_image
+from pbrt_tpu_torch.core.options import Options
+from pbrt_tpu_torch.parser.api import pbrt_parse
+from test_torch_api import room_text
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True)
+def _wavefront_only(monkeypatch):
+    """Both packages skip their brute megakernels, so the brute wavefront
+    renders these scenes of at most 64 prims in each."""
+    monkeypatch.setenv("PBRT_TPU_NO_MEGAKERNEL", "1")
+    monkeypatch.delenv("PBRT_TPU_WIDEMEGA", raising=False)
+
+
+def _scene(tmp_path, **kw):
+    p = tmp_path / "s.pbrt"
+    p.write_text(room_text(3, **kw))
+    return str(p)
+
+
+def test_main_writes_the_render(tmp_path):
+    """32x16 film cut to 24x16 by the text, 4 spp, depth 3, halton and
+    gaussian: the film main writes equals render.render of the parse."""
+    path = _scene(tmp_path)
+    out = str(tmp_path / "out.pfm")
+    assert cli.main([path, "--outfile", out, "--device", "cpu", "--quiet"]) == 0
+    img = read_image(out)
+    want = render.render(pbrt_parse(path), device="cpu")
+    assert img.shape == (16, 24, 3) and img.mean() > 0.01
+    np.testing.assert_array_equal(img, want)
+    assert render.LAST_PERSISTENT_TIER == "torch-wavefront/plain-brute"
+    run = cli.main.last_run
+    assert run["outfile"] == out and run["timing"]["n_vertices"] > 0
+
+
+def test_main_flags(tmp_path):
+    """--cropwindow, --spp and --seed reach the render; --quick quarters the
+    film and the samples; --profile writes a trace."""
+    path = _scene(tmp_path, sampler="sobol", filter="mitchell")
+    out = str(tmp_path / "crop.pfm")
+    crop = ["0.25", "0.75", "0", "0.5"]
+    assert cli.main([path, "-o", out, "--device", "cpu", "--quiet", "--cropwindow", *crop, "--spp", "2",
+                     "--seed", "5", "--profile", str(tmp_path / "prof"), "--nthreads", "3"]) == 0
+    want = render.render(pbrt_parse(path, Options(crop_window=(0.25, 0.75, 0.0, 0.5))), seed=5, spp=2, device="cpu")
+    np.testing.assert_array_equal(read_image(out), want)
+    assert not want[8:].any() and want[:8, 6:18].any()
+    assert os.path.getsize(tmp_path / "prof" / "render_trace.json") > 0
+    assert cli.main([path, "-o", str(tmp_path / "q.png"), "--device", "cpu", "--quiet", "--quick"]) == 0
+    assert read_image(str(tmp_path / "q.png")).shape == (4, 6, 3)
+
+
+def test_checkpoint_refused(tmp_path):
+    with pytest.raises(NotImplementedError, match="per-sample wave"):
+        cli.main([_scene(tmp_path), "--device", "cpu", "--checkpoint", str(tmp_path / "ck.npz")])
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal where there is no GPU")
+def test_no_gpu_raises_instead_of_falling_back(tmp_path):
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main([_scene(tmp_path), "-o", str(tmp_path / "x.exr")])
+    assert not (tmp_path / "x.exr").exists()
+
+
+def test_module_entry_point(tmp_path):
+    """python -m pbrt_tpu_torch, as a subprocess: --cat prints the scene,
+    and a render writes its file."""
+    path = _scene(tmp_path)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    cat = subprocess.run([sys.executable, "-m", "pbrt_tpu_torch", path, "--cat"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert cat.returncode == 0, cat.stderr
+    assert 'Sampler "halton" "integer pixelsamples" [ 4 ]' in cat.stdout
+    out = subprocess.run([sys.executable, "-m", "pbrt_tpu_torch", path, "--device", "cpu", "--spp", "1",
+                          "-o", "m.exr"], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "Statistics:" in out.stderr and read_image(str(tmp_path / "m.exr")).shape == (16, 24, 3)
+
+
+def test_cli_render_matches_reference(tmp_path):
+    """The one reference render: halton + gaussian on the matte room at
+    24x16, 4 spp, depth 3, through the reference's own parse and render."""
+    path = _scene(tmp_path)
+    out = str(tmp_path / "out.pfm")
+    assert cli.main([path, "--outfile", out, "--device", "cpu", "--quiet", "--seed", "2"]) == 0
+    want = np.asarray(ref_render.render(ref_pbrt_parse(path), seed=2))
+    assert ref_render.LAST_PERSISTENT_TIER.startswith("xla-wavefront")
+    got = read_image(out)
+    assert want.mean() > 0.01
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)

@@ -290,3 +290,28 @@ def test_wide_megakernel_pixel_queue(cuda_device, n_lanes, spp):
     diff = (L - L_p).abs()
     assert (diff / (L_p.abs() + 1e-2)).max().item() < 2e-2
     assert diff.mean().item() < 1e-4
+
+
+@pytest.mark.gpu
+def test_cli_renders_on_the_card(cuda_device, tmp_path):
+    """python -m pbrt_tpu_torch's main on the card: material_room(8) written
+    as a .pbrt file with no Sampler directive (halton) and the gaussian
+    filter, at 32x16, 2 spp, rendered with the default device through B1,
+    against --device cpu with chip_smoke.py's rule."""
+    from pbrt_tpu_torch import main as cli
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.core.imageio import read_image
+
+    desc = material_room(8)
+    desc.film.x_resolution, desc.film.y_resolution = 32, 16
+    desc.film.filter_name = "gaussian"
+    path = str(tmp_path / "room.pbrt")
+    scenes.write_pbrt(desc, path, scenes.ROOM_LOOK_AT, sampler=False)
+    before = wide_bvh.traverse_cuda.launches
+    assert cli.main([path, "-o", str(tmp_path / "g.pfm"), "--spp", "2", "--quiet"]) == 0
+    assert render.render_compiled.last_timing["tier"] == "torch-wavefront/cuda-wide"
+    assert wide_bvh.traverse_cuda.launches > before
+    assert cli.main([path, "-o", str(tmp_path / "c.pfm"), "--spp", "2", "--quiet", "--device", "cpu"]) == 0
+    img_g, img_c = read_image(str(tmp_path / "g.pfm")), read_image(str(tmp_path / "c.pfm"))
+    assert np.abs(img_g - img_c).sum() / np.abs(img_c).sum() < 1e-3
+    assert np.isclose(img_g, img_c, rtol=1e-2, atol=1e-4).all(axis=-1).mean() >= 0.99

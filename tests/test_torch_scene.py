@@ -78,8 +78,9 @@ def test_hopper_tables_derive_from_reference(both):
 def test_outside_the_slice_raises(feature, monkeypatch):
     """A mirror or a point light in a wide scene and a lone emitting panel
     (brute class, area lights) compile, and the wavefront takes them
-    without PBRT_TPU_WIDEMEGA=1 (the panel: the brute wavefront). The
-    halton sampler is still refused at compile time."""
+    without PBRT_TPU_WIDEMEGA=1 (the panel: the brute wavefront); so does
+    the halton sampler with its film tables. A sampler the port does not
+    know is still refused at compile time."""
     from pbrt_tpu_torch import render
     from pbrt_tpu_torch.scene.host import HostLight
 
@@ -92,10 +93,10 @@ def test_outside_the_slice_raises(feature, monkeypatch):
         desc = mesh_room(1)
         desc.primitives = desc.primitives[-1:]
     else:
-        desc.sampler.kind = "halton"
-        with pytest.raises(NotImplementedError, match="halton"):
+        desc.sampler.kind = "pmj02bn"
+        with pytest.raises(NotImplementedError, match="pmj02bn"):
             compile_scene(desc, "cpu")
-        return
+        desc.sampler.kind = "halton"
     cs = compile_scene(desc, "cpu")
     monkeypatch.delenv("PBRT_TPU_WIDEMEGA", raising=False)
     wave = render.make_persistent_fn(cs)
@@ -107,10 +108,13 @@ def test_outside_the_slice_raises(feature, monkeypatch):
 
 def test_port_imports_without_jax():
     code = (
-        "import sys; sys.modules['jax'] = None\n"
+        "import sys; sys.modules['jax'] = None; sys.modules['PIL'] = None\n"
         "import pbrt_tpu_torch.render, pbrt_tpu_torch.scenes, pbrt_tpu_torch.device.wide_bvh\n"
         "import pbrt_tpu_torch.device.megakernel, pbrt_tpu_torch.device.nvcc, pbrt_tpu_torch.core.spectrum\n"
-        "import pbrt_tpu_torch.device.megakernel_wide\n"
+        "import pbrt_tpu_torch.device.megakernel_wide, pbrt_tpu_torch.device.sampler\n"
+        "import pbrt_tpu_torch.parser.api, pbrt_tpu_torch.parser.parser, pbrt_tpu_torch.parser.catprint\n"
+        "import pbrt_tpu_torch.main, pbrt_tpu_torch.__main__\n"
+        "import pbrt_tpu_torch.core.imageio, pbrt_tpu_torch.scene.tessellate, pbrt_tpu_torch.utils.stats\n"
         "assert not any(m == 'pbrt_tpu' or m.startswith('pbrt_tpu.') for m in sys.modules)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
