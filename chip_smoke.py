@@ -124,10 +124,35 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     launches > 0; prints its path vertices, path_vertex_samples_per_sec and
     the seconds to build the halton and the sobol tables at 1000x500; then
     the crop on cuda and cpu, held as in phase 5, of halton + gaussian,
-    sobol + mitchell, maxmindist + triangle and halton + sinc.
-Phases 15-21 are the wavefront's array code around B1 (the brute
-wavefront launches no kernel of the port): they add no row to the kernel
-report. Each main path runs with every launch count set to 0 just before it and
+    sobol + mitchell, maxmindist + triangle and halton + sinc;
+22. B4's instantiations of this slice against its twin at 1000x500, 2 spp,
+    under phase 11's tolerance: sky_meshes (3,232 triangles: halton +
+    gaussian, the attribute rows of smooth UV-mapped spheres, a constant
+    infinite light and a distant sun), material_room under halton +
+    gaussian, sobol + triangle and maxmindist + box; then each at 16 spp
+    with the
+    stack-overflow and iteration-cap counters at 0, timed with CUDA events
+    beside phase 11's (0,2) + box time, with its bound (the attribute rows'
+    and the sampler table's bytes counted) and its ptxas registers, spills,
+    shared bytes and blocks per SM; they ride the B4 row of the kernel
+    report as "instantiations";
+23. pbrt's defaults through B4: phase 21's halton + gaussian material_room
+    file through main.main with PBRT_TPU_WIDEMEGA=1: route
+    torch-megakernel/cuda-wide, exactly one B4 launch, the 16 spp
+    path-vertex total of phase 21's wavefront within 0.01% of B4's,
+    path_vertex_samples_per_sec beside phase 21's, and the 64x32 crop
+    through B4 and through the wavefront on the card under phase 11's
+    tolerance;
+24. sky_meshes through B4 (one launch) and through the wavefront (B1
+    launches > 0), the totals within 0.01%, the crop through both under
+    phase 11's tolerance and, on each route, on cuda and cpu; then an
+    image-mapped sky (a 64x128 latitude-longitude map the phase writes, on
+    sky_meshes written as a file) through main.main on the wavefront:
+    route torch-wavefront/cuda-wide, B1 launches > 0, the crop on cuda and
+    cpu.
+Phases 15-21 and 24's image-mapped sky are the wavefront's array code
+around B1 (the brute wavefront launches no kernel of the port): they add no
+row to the kernel report. Each main path runs with every launch count set to 0 just before it and
 read just after; every switch a phase sets is restored after it. The second-to-last lines are the kernel report as JSON
 and the card's nvidia-smi name and power limit; the last line is
 {"ok": true, "device": {...}}.
@@ -414,18 +439,19 @@ def _with_desc(cs, desc):
     return CompiledScene(cs.arrays, cs.static, desc)
 
 
-def _wavefront_phases(cs, cs_host, m, m_host, g, g_host, b4_timing, gallery_timing):
-    """Phases 15-19: the wavefront on the classes it shares with the
-    megakernels, and on those only it renders. Every switch is restored."""
+def _unswitched(phases, *args) -> dict:
+    """phases(out, *args) with none of the route switches set (every switch
+    restored after it); returns the dict it filled."""
     out = {}
     switches = ("PBRT_TPU_WIDEMEGA", "PBRT_TPU_NO_MEGAKERNEL", "PBRT_TPU_JOINT")
     with mock.patch.dict(os.environ, {k: v for k, v in os.environ.items() if k not in switches}, clear=True):
-        _wavefront_phases_unswitched(out, cs, cs_host, m, m_host, g, g_host, b4_timing, gallery_timing)
+        phases(out, *args)
     return out
 
 
-def _wavefront_phases_unswitched(out, cs, cs_host, m, m_host, g, g_host, b4_timing, gallery_timing):
-    """_wavefront_phases with none of the route switches set."""
+def _wavefront_phases(out, cs, cs_host, m, m_host, g, g_host, b4_timing, gallery_timing):
+    """Phases 15-19: the wavefront on the classes it shares with the
+    megakernels, and on those only it renders."""
     import torch
 
     from pbrt_tpu_torch import render as R_
@@ -536,17 +562,9 @@ def _tables_equal(a, b) -> list[str]:
     return bad
 
 
-def _front_end_phases(work, mesh_timing, mesh_img, cs_host, m, m_host):
+def _front_end_phases(out, work, mesh_timing, mesh_img, cs_host, m, m_host):
     """Phases 20 and 21: the front end, python -m pbrt_tpu_torch, on the
     port's own scenes written as .pbrt files with binary PLY meshes."""
-    out = {}
-    switches = ("PBRT_TPU_WIDEMEGA", "PBRT_TPU_NO_MEGAKERNEL", "PBRT_TPU_JOINT")
-    with mock.patch.dict(os.environ, {k: v for k, v in os.environ.items() if k not in switches}, clear=True):
-        _front_end_phases_unswitched(out, work, mesh_timing, mesh_img, cs_host, m, m_host)
-    return out
-
-
-def _front_end_phases_unswitched(out, work, mesh_timing, mesh_img, cs_host, m, m_host):
     import numpy as np
     import torch
 
@@ -653,6 +671,203 @@ def _front_end_phases_unswitched(out, work, mesh_timing, mesh_img, cs_host, m, m
     out["module_entry_point_s"] = sub_s
 
 
+def _ptxas_of(log: str, template: str) -> dict:
+    """The ptxas report of one kernel instantiation (template: the mangled
+    template arguments, e.g. ILi3ELi1ELi1ELi0EE): registers, spill stores
+    and loads, shared bytes."""
+    m = re.search(r"Function properties for \S*" + template + r"\S*\s*\n\s*(\d+) bytes stack frame, (\d+) bytes spill "
+                  r"stores, (\d+) bytes spill loads\s*\n[^\n]*Used (\d+) registers[^\n]*?(\d+) bytes smem", log)
+    if m is None:
+        return {}
+    return {"registers": int(m[4]), "spill_stores": int(m[2]), "spill_loads": int(m[3]), "smem": int(m[5])}
+
+
+def _b4_instantiation(label, scene, sampler_kind, filt, b4_ms_02, dev):
+    """Phase 22 for one scene and sampler + filter: B4 against its twin at
+    2 spp under phase 11's tolerance, the 16 spp launch with the cap and
+    overflow counters at 0, its time by CUDA events, its bound (the
+    attribute rows' and sampler table's bytes counted) and the
+    instantiation's ptxas report and blocks per SM."""
+    import torch
+
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.device import megakernel_wide, sampler
+    from pbrt_tpu_torch.device.camera import make_camera
+
+    d = scene.description
+    W, H, spp = d.film.x_resolution, d.film.y_resolution, d.sampler.pixel_samples
+    scfg = {"kind": sampler_kind, "spp": spp}
+    if sampler_kind == "halton":
+        scfg["halton"] = sampler.halton_tables(W, H, dev)
+    if sampler_kind == "sobol":
+        scfg["sobol"] = sampler.sobol_tables(W, H, spp)
+    params = dict(scenes.GAUSSIAN_DEFAULTS) if filt == "gaussian" else {"xwidth": 2.0, "ywidth": 2.0} \
+        if filt == "triangle" else {}
+    icfg = {"kind": "path", "max_depth": d.integrator.max_depth, "rr_threshold": d.integrator.rr_threshold,
+            "light_strategy": d.integrator.light_strategy}
+    consts = megakernel_wide.extract_wide_consts(
+        scene, make_camera(d.camera, d.film, dev), icfg, scfg,
+        {"filter": filt, "filter_params": params, "max_sample_luminance": float("inf")},
+        megakernel_wide.DEFAULT_MAX_TRIS)
+    if consts is None:
+        raise AssertionError(f"{label} is outside the wide megakernel's class")
+    blob = megakernel_wide.pack_wide_consts(consts).to(dev)
+    mode = megakernel_wide.kernel_mode(consts)
+    stab = megakernel_wide.sampler_table(consts, dev)
+    idx = torch.arange(W * H, device=dev)
+    lanes = (idx % W, idx // W, idx)
+
+    def launch(n):
+        return megakernel_wide.wide_megakernel_cuda(blob, mode, scene.arrays, *lanes, 0, n, SEED, stab)
+
+    out_k = launch(COMPARE_SPP)
+    out_p = megakernel_wide.wide_megakernel_plain(consts, scene.arrays, *lanes, 0, COMPARE_SPP, SEED)
+    torch.cuda.synchronize()
+    ok, desc_cmp = _wide_tolerance(*out_k, *out_p)
+    err = (out_k[0] - out_p[0]).abs().max().item()
+    print(f"[22 B4 {label}] {W}x{H} {COMPARE_SPP}spp, mode {mode}: {desc_cmp}, image mean "
+          f"{out_p[0].mean().item():.5f}", flush=True)
+    if not ok:
+        raise AssertionError(f"the wide megakernel and its plain twin disagree on {label}")
+    ms = _cuda_ms(lambda: launch(spp), 3)
+    counters, pops = megakernel_wide.wide_megakernel_cuda.counters[dev], megakernel_wide.wide_megakernel_cuda.pops[dev]
+    counters.zero_()
+    pops.zero_()
+    nv16 = launch(spp)[2].double().sum().item()
+    pops_c, pops_s = pops.tolist()
+    if counters.tolist() != [0, 0]:
+        raise AssertionError(f"wide megakernel stack overflows / iteration-cap hits on {label}: {counters.tolist()}")
+    sa = scene.arrays
+    tables = [sa.wnode_rec, sa.wleaf_rec, stab] + ([sa.wattr_rec] if consts["has_attr"] else [])
+    nbytes = 3 * 4 * W * H + _nbytes(*tables) + 5 * 4 * W * H
+    bound = _bound(nbytes, (pops_c + pops_s) * B1_OPS_PER_POP + nv16 * B3_OPS_SHADE)
+    n_s = megakernel_wide.N_SAMPLER_IDS
+    ptx = _ptxas_of(megakernel_wide.build_kernel()["log"],
+                    f"ILi{(mode // 2) % n_s}ELi{mode % 2}ELi{mode // (2 * n_s)}ELi0EE")
+    occ = megakernel_wide.occupancy(mode)
+    print(f"  {spp}spp: kernel {ms:.4f} ms (phase 11's (0,2) + box {b4_ms_02:.4f} ms, {ms / b4_ms_02:.3f}x); "
+          f"{nv16:.0f} path vertices ({nv16 / (W * H * spp):.3f} per sample), pops closest {pops_c} shadow "
+          f"{pops_s}; bound {bound[0]:.4f} ms ({bound[1]}, {nbytes} bytes), kernel at {100 * bound[0] / ms:.2f}% "
+          f"of it; ptxas {ptx}, {occ} blocks per SM", flush=True)
+    return {"mode": mode, "ms": ms, "n_vertices": nv16, "max_abs_err": err, "bound_ms": bound[0],
+            "bound_by": bound[1], "blocks_per_sm": occ, **ptx}
+
+
+def _sky_phases(out, work, m, m_host, b4_ms, fe):
+    """Phases 22-24: B4's samplers, filters, attribute rows and constant
+    sky against its twin; pbrt's defaults through B4 from a file; the sky
+    scene through B4 and the wavefront, and an image-mapped sky through the
+    wavefront."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch import main as cli
+    from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.core.imageio import write_image
+    from pbrt_tpu_torch.device import megakernel_wide, wide_bvh
+    from pbrt_tpu_torch.scene.builder import compile_scene
+
+    dev = torch.device("cuda", 0)
+    # --- 22. B4's instantiations of this slice against its twin ---
+    sky_host = compile_scene(scenes.sky_meshes(), "cpu")
+    sky = sky_host.to(dev)
+    out["instantiations"] = {
+        "sky_meshes halton + gaussian": _b4_instantiation("sky_meshes halton + gaussian", sky, "halton",
+                                                          "gaussian", b4_ms, dev),
+        "material_room halton + gaussian": _b4_instantiation("material_room halton + gaussian", m, "halton",
+                                                             "gaussian", b4_ms, dev),
+        "material_room sobol + triangle": _b4_instantiation("material_room sobol + triangle", m, "sobol",
+                                                            "triangle", b4_ms, dev),
+        "material_room maxmindist + box": _b4_instantiation("material_room maxmindist + box", m, "maxmindist",
+                                                            "box", b4_ms, dev),
+    }
+
+    # --- 23. pbrt's defaults from a file through B4 ---
+    mpath = work / "material_room.pbrt"  # phase 21's: no Sampler directive, PixelFilter "gaussian"
+    wave21 = fe["material_room_halton_gaussian"]
+    with mock.patch.dict(os.environ, PBRT_TPU_WIDEMEGA="1"):
+        _reset_launches()
+        cli.main([str(mpath), "--outfile", str(work / "material_room_b4.exr"), "--quiet", "--seed", str(SEED)])
+        b4_launches = megakernel_wide.wide_megakernel_cuda.launches
+        run = cli.main.last_run
+        timing, parsed_cs = run["timing"], run["scene"]
+        crop = _crop_lanes(parsed_cs)
+        mega = R_.make_persistent_fn(parsed_cs)(parsed_cs.arrays, *crop, 0, CROP_SPP, SEED)
+        mega_tier = R_.LAST_PERSISTENT_TIER
+    wave = R_.make_persistent_fn(parsed_cs)(parsed_cs.arrays, *crop, 0, CROP_SPP, SEED)
+    ok, desc_cmp = _wide_tolerance(*mega, *wave)
+    vps = timing["n_vertices"] / timing["wall_s"]
+    print(f"[23 defaults through B4] {mpath.name} ({parsed_cs.description.sampler.kind}, "
+          f"{parsed_cs.description.film.filter_name}) with PBRT_TPU_WIDEMEGA=1: route {timing['tier']}, B4 launches "
+          f"{b4_launches}, render wall {timing['wall_s']:.4f}s, path_vertex_samples_per_sec {vps:.1f} against phase "
+          f"21's wavefront {wave21['vps']:.1f} ({vps / wave21['vps']:.2f}x); {CROP_SPP}spp crop ({mega_tier} vs "
+          f"{R_.LAST_PERSISTENT_TIER}): {desc_cmp}", flush=True)
+    if timing["tier"] != "torch-megakernel/cuda-wide" or b4_launches != 1:
+        raise AssertionError(f"the defaults file did not render in one B4 launch ({timing['tier']}, {b4_launches})")
+    if not (np.isfinite(run["image"]).all() and run["image"].mean() > 0):
+        raise AssertionError("the defaults file's B4 image is not finite and non-black")
+    _total_within("23 defaults file, wavefront (phase 21) against B4", wave21["n_vertices"], timing["n_vertices"])
+    if not ok:
+        raise AssertionError("B4 and the wavefront disagree on the defaults file's crop")
+    out["material_room_defaults_b4"] = {"wall_s": timing["wall_s"], "vps": vps, "n_vertices": timing["n_vertices"],
+                                        "b4_launches": b4_launches}
+
+    # --- 24. sky_meshes through B4 and the wavefront; an image-mapped sky ---
+    with mock.patch.dict(os.environ, PBRT_TPU_WIDEMEGA="1"):
+        t_b4, l_b4, _img = _main_path("24 sky_meshes through B4", sky, "torch-megakernel/cuda-wide",
+                                      megakernel_wide.wide_megakernel_cuda)
+        if l_b4 != 1:
+            raise AssertionError(f"the sky render made {l_b4} B4 launches, not 1")
+        crop = _crop_lanes(sky)
+        mega = R_.make_persistent_fn(sky)(sky.arrays, *crop, 0, CROP_SPP, SEED)
+        _check_crop("24 cuda-vs-cpu sky_meshes B4 crop", sky, sky_host, sky.description)
+    t_w, l_w, _img = _main_path("24 sky_meshes wavefront", sky, "torch-wavefront/cuda-wide", wide_bvh.traverse_cuda)
+    vps_b4, vps_w = t_b4["n_vertices"] / t_b4["wall_s"], t_w["n_vertices"] / t_w["wall_s"]
+    print(f"  path_vertex_samples_per_sec B4 {vps_b4:.1f}, wavefront {vps_w:.1f}: B4 {vps_b4 / vps_w:.3f}x; "
+          f"B1 launches {l_w}", flush=True)
+    _total_within("24 sky_meshes wavefront", t_w["n_vertices"], t_b4["n_vertices"])
+    wave = R_.make_persistent_fn(sky)(sky.arrays, *crop, 0, CROP_SPP, SEED)
+    ok, desc_cmp = _wide_tolerance(*wave, *mega)
+    print(f"[24 sky_meshes B4 vs wavefront] {CROP_SPP}spp crop: {desc_cmp}", flush=True)
+    if not ok:
+        raise AssertionError("B4 and the wavefront disagree on the sky crop")
+    _check_crop("24 cuda-vs-cpu sky_meshes wavefront crop", sky, sky_host, sky.description)
+    # an image-mapped sky: a latitude-longitude map the phase writes (a
+    # zenith-to-horizon gradient and a bright sun patch), rotated by its
+    # light-to-world transform nowhere (the file's identity)
+    h, w = 64, 128
+    theta = (np.arange(h)[:, None] + 0.5) / h
+    env = np.zeros((h, w, 3), np.float32)
+    env[...] = (np.array([0.3, 0.45, 0.8]) * (1.0 - 0.6 * theta) + np.array([0.6, 0.5, 0.4]) * 0.6 * theta)[:, None]
+    env[10:14, 30:36] = [40.0, 36.0, 30.0]
+    write_image(str(work / "sky_env.pfm"), env)
+    desc = scenes.sky_meshes()
+    desc.lights[0] = dataclasses.replace(desc.lights[0], map_name="sky_env.pfm", intensity=np.ones(3))
+    epath = work / "sky_env.pbrt"
+    scenes.write_pbrt(desc, str(epath), scenes.SKY_LOOK_AT, sampler=False)
+    _reset_launches()
+    cli.main([str(epath), "--outfile", str(work / "sky_env.exr"), "--quiet", "--seed", str(SEED)])
+    b1 = wide_bvh.traverse_cuda.launches
+    run = cli.main.last_run
+    timing, env_cs = run["timing"], run["scene"]
+    vps = timing["n_vertices"] / timing["wall_s"]
+    print(f"[24 image-mapped sky] {epath.name} ({h}x{w} map): has_env_map {env_cs.static.has_env_map}, route "
+          f"{timing['tier']}, B1 launches {b1}, {timing['n_vertices']:.0f} path vertices, render wall "
+          f"{timing['wall_s']:.4f}s, path_vertex_samples_per_sec {vps:.1f}, image mean {run['image'].mean():.5f}",
+          flush=True)
+    if not env_cs.static.has_env_map or timing["tier"] != "torch-wavefront/cuda-wide" or b1 <= 0:
+        raise AssertionError("the image-mapped sky did not render through the wavefront with its map")
+    if not (np.isfinite(run["image"]).all() and run["image"].mean() > 0):
+        raise AssertionError("the image-mapped sky's image is not finite and non-black")
+    env_host = compile_scene(env_cs.description, "cpu")
+    _check_crop("24 cuda-vs-cpu image-mapped sky crop", env_cs, env_host, env_cs.description)
+    out["sky_meshes"] = {"b4_wall_s": t_b4["wall_s"], "b4_vps": vps_b4, "wave_wall_s": t_w["wall_s"],
+                         "wave_vps": vps_w, "n_vertices": t_b4["n_vertices"], "b1_launches": l_w}
+    out["sky_env_map"] = {"wall_s": timing["wall_s"], "vps": vps, "n_vertices": timing["n_vertices"],
+                          "b1_launches": b1}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -678,7 +893,7 @@ def main() -> int:
     # resident blocks per SM of each kernel (cudaOccupancyMaxActiveBlocksPerMultiprocessor), per variant
     occupancy = (("wide_traverse_occupancy", [()]), ("wide_traverse_joint_occupancy", [()]),
                  ("brute_megakernel_occupancy", [(m,) for m in range(6)]),
-                 ("wide_megakernel_occupancy", [(m,) for m in range(6)]))
+                 ("wide_megakernel_occupancy", [(m,) for m in range(4 * megakernel_wide.N_SAMPLER_IDS)]))
     for build, (entry, variants) in zip((wide_bvh.build_kernel, wide_bvh.build_joint_kernel, megakernel.build_kernel,
                                          megakernel_wide.build_kernel), occupancy):
         info = build()
@@ -968,16 +1183,20 @@ def main() -> int:
         raise AssertionError("the wide megakernel traced other paths than the per-lane kernel on the mesh room")
 
     # --- 15-19. the wavefront on the megakernels' scenes and on its own ---
-    wf = _wavefront_phases(cs, cs_host, m, m_host, g, g_host, m_timing, g_timing)
+    wf = _unswitched(_wavefront_phases, cs, cs_host, m, m_host, g, g_host, m_timing, g_timing)
     print(f"[15-19 wavefront] {json.dumps(wf)}", flush=True)
 
     # --- 20-21. the front end on files of the port's own scenes ---
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        fe = _front_end_phases(work, mesh_timing, mesh_img, cs_host, m, m_host)
+        fe = _unswitched(_front_end_phases, work, mesh_timing, mesh_img, cs_host, m, m_host)
+        print(f"[20-21 front end] {json.dumps(fe)}", flush=True)
+        # --- 22-24. B4's samplers, filters, attribute rows and sky; pbrt's
+        # defaults through B4; infinite lights through the wavefront ---
+        sk = _unswitched(_sky_phases, work, m, m_host, b4_ms, fe)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"[20-21 front end] {json.dumps(fe)}", flush=True)
+    print(f"[22-24 sky] {json.dumps(sk)}", flush=True)
 
     report = {"kernels": [
         {"name": "wide_traverse", "route": "cuda", "source": "pbrt_tpu_torch/csrc/wide_traverse.cu",
@@ -994,7 +1213,7 @@ def main() -> int:
         {"name": "wide_megakernel", "route": "cuda", "source": "pbrt_tpu_torch/csrc/megakernel_wide.cu",
          "replaces": "pbrt_tpu/device/megakernel_wide.py:525", "launches": b4_launches, "max_abs_err": b4_err,
          "ms": b4_ms, "plain_ms": b4_plain_ms, "bound_ms": b4_bound[0], "bound_by": b4_bound[1],
-         "library_ms": None},
+         "library_ms": None, "instantiations": sk["instantiations"]},
     ]}
     print(json.dumps(report))
     print(_smi())

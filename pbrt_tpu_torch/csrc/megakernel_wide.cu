@@ -4,14 +4,16 @@
 // Replaces pbrt_tpu/device/megakernel_wide.py _build_kernel (the TPU kernel
 // that make_wide_megakernel_fn launches through pl.pallas_call, opt-in with
 // PBRT_TPU_WIDEMEGA=1). For triangle scenes with the wide-BVH tables, flat
-// shading and default UVs, constant-parameter materials of the six baked
-// lobe classes (at most 16), at most 8 lights (one- or two-sided triangle
-// area lights, point, spot, distant), the (0,2), random and stratified
-// samplers, pinhole or thin-lens perspective cameras and the box filter,
-// every bounce runs here: closest hit, area-light emission with deferred
-// MIS, BSDF sampling, NEE with MIS and an any-hit shadow walk, Russian
-// roulette, the sample flush and camera regeneration. The estimator is the
-// reference's, term for term; the plain PyTorch twin is
+// or smooth shading and default or real UV charts (the attribute rows),
+// constant-parameter materials of the six baked lobe classes (at most 16),
+// at most 8 lights (one- or two-sided triangle area lights, point, spot,
+// distant, a constant infinite light), the (0,2), random, stratified,
+// halton, sobol and maxmindist samplers, pinhole or thin-lens perspective
+// cameras and the box, triangle and gaussian filters, every bounce runs
+// here: closest hit, area-light emission and the escaped ray's environment
+// with deferred MIS, BSDF sampling, NEE with MIS and an any-hit shadow
+// walk, Russian roulette, the sample flush and camera regeneration. The
+// estimator is the reference's, term for term; the plain PyTorch twin is
 // device/megakernel_wide.py wide_megakernel_plain.
 //
 // What bounds it on Hopper, and what the design does about it:
@@ -66,8 +68,16 @@
 // and camera are one float blob (device/megakernel_wide.py
 // pack_wide_consts, offsets below) in shared memory; node records and leaf
 // rows are read with __ldg (the 123,650-triangle room's 12 MB stay in the
-// 50 MB L2); sampler kind and whether the scene has area lights are
-// template parameters.
+// 50 MB L2); so are the winner's attribute row (the same offset in
+// attr_rec) and the sampler table (halton's per-pixel offsets, sobol's
+// generator columns, maxmindist's columns). Template parameters: the
+// sampler kind, whether the scene has area lights, and EXT, the extended
+// instantiation that reads the filter kind from the blob, the attribute
+// rows when given and the constant infinite light; EXT = 0 (the box filter,
+// flat default-UV shading, no sky) compiles none of that. The halton
+// sampler's bounce dimensions take a radical inverse in a prime base per
+// lane: a digit loop with an integer division each, ending with the index
+// (the float32 sum is the twin's, digit for digit).
 //
 // Counters: each warp adds its threads' closest-hit and shadow pops to
 // pop_counts[0] and [1] (one atomic per warp at the end); stack overflows
@@ -94,11 +104,14 @@
 #define H_MAX_LUM 11
 #define H_G7 12
 #define H_LENS_R 13
-#define H_FOCAL 14  // 15 unused
+#define H_FOCAL 14
+#define H_FILTER 15  // 0 box, 1 triangle, 2 gaussian (H_FXW, H_FYW: its radii)
 #define H_R2C 16  // 16 floats, row-major 4x4 raster -> camera
 #define H_C2W 32  // 12 floats, row-major 3x4 camera -> world
 #define H_CDF 44  // MAX_LIGHTS floats
 #define H_PMF 52  // MAX_LIGHTS floats
+#define H_SAMP 60  // halton stride, sx, sy; sobol m, res, frame bits; maxmindist n
+#define H_GK 63    // the gaussian filter's sigma * sqrt(2)
 #define HEADER 64
 #define MAX_LIGHTS 8
 #define LIGHT_STRIDE 32
@@ -114,7 +127,20 @@
 #define L_TWO_SIDED 15
 #define L_V 16
 #define L_NG 25
+#define L_ENV_P 14  // the infinite light's: 1/4pi x its selection pmf
+#define LIGHT_INFINITE 3
 #define LIGHT_AREA 4
+
+// the sampler table (int32): sobol's generator columns of SOBOL_DIMS
+// dimensions, 32 each, then the film inversion's and the frame's columns
+#define SOBOL_DIMS 64
+#define SOB_INV (SOBOL_DIMS * 32)
+#define SOB_DELTA (SOB_INV + 32)
+// sampler ids (device/megakernel_wide.py SAMPLERS)
+#define S_HALTON 3
+#define S_SOBOL 4
+#define S_MAXMIN 5
+#define N_SAMPLER_IDS 6
 
 // material record: the M_* fields of pt_common.cuh, plus the material-table
 // row the slot bakes (the leaf rows' payload names rows, not slots)
@@ -222,6 +248,161 @@ __device__ __forceinline__ int lobe_key(int lobe) {
     }
 }
 
+// --- the samplers of B4's class ---------------------------------------------------
+
+static __constant__ uint32_t PRIMES[100] = {
+    2u, 3u, 5u, 7u, 11u, 13u, 17u, 19u, 23u, 29u, 31u, 37u, 41u, 43u, 47u, 53u, 59u, 61u, 67u, 71u,
+    73u, 79u, 83u, 89u, 97u, 101u, 103u, 107u, 109u, 113u, 127u, 131u, 137u, 139u, 149u, 151u, 157u, 163u, 167u,
+    173u, 179u, 181u, 191u, 193u, 197u, 199u, 211u, 223u, 227u, 229u, 233u, 239u, 241u, 251u, 257u, 263u, 269u,
+    271u, 277u, 281u, 283u, 293u, 307u, 311u, 313u, 317u, 331u, 337u, 347u, 349u, 353u, 359u, 367u, 373u, 379u,
+    383u, 389u, 397u, 401u, 409u, 419u, 421u, 431u, 433u, 439u, 443u, 449u, 457u, 461u, 463u, 467u, 479u, 487u,
+    491u, 499u, 503u, 509u, 521u, 523u, 541u};
+
+// Radical inverse of idx in base b, accumulated in float32 digit by digit
+// as device/rng.py radical_inverse_dyn does (its loop's later steps leave
+// the sums as they are once the index is 0)
+__device__ __forceinline__ float radical_inverse(uint32_t b, uint32_t idx) {
+    const float bf = (float)b;
+    const float inv = 1.0f / bf;
+    float rd = 0.0f, ibn = 1.0f;
+    while (idx != 0u) {
+        const uint32_t q = idx / b;
+        rd = rd * bf + (float)(idx - q * b);
+        ibn = ibn * inv;
+        idx = q;
+    }
+    return fminf(rd * ibn, ONE_MINUS_EPS);
+}
+
+// XOR of the columns of idx's set bits, as a uniform (a generator matrix
+// times the index)
+__device__ __forceinline__ float gen_matrix(uint32_t idx, const int* __restrict__ cols, uint32_t scramble) {
+    uint32_t res = scramble;
+    while (idx != 0u) {
+        res ^= (uint32_t)__ldg(cols + (__ffs(idx) - 1));
+        idx &= idx - 1u;
+    }
+    return u2f01(res);
+}
+
+__device__ __forceinline__ float wrap01(float u) { return u >= 1.0f ? u - 1.0f : u; }
+
+// The traced dimensions of one sample (hbase, s): the (0,2), random and
+// stratified streams of pt_common.cuh; halton and sobol continue their
+// sequences (a prime base per dimension, the generator columns of
+// SOBOL_DIMS dimensions in the sampler table); maxmindist draws them from
+// the (0,2) stream.
+template <int SAMPLER>
+struct Draw {
+    uint32_t hbase, s;
+    const int* __restrict__ stab;
+
+    __device__ __forceinline__ float d1(uint32_t dim) const {
+        if (SAMPLER == S_HALTON) {
+            return wrap01(radical_inverse(PRIMES[min(2u * dim, 98u)], s) + u2f01(pcg(hbase ^ (2u * dim))));
+        }
+        if (SAMPLER == S_SOBOL) return gen_matrix(s, stab + min(2u * dim, 63u) * 32u, pcg(hbase ^ (2u * dim)));
+        return sample_1d<SAMPLER == S_MAXMIN ? 0 : SAMPLER>(hbase, s, dim);
+    }
+
+    __device__ __forceinline__ void d2(uint32_t dim, float& u1, float& u2) const {
+        const uint32_t d = 2u * dim;
+        if (SAMPLER == S_HALTON) {
+            const uint32_t b0 = min(d, 98u);
+            u1 = wrap01(radical_inverse(PRIMES[b0], s) + u2f01(pcg(hbase ^ d)));
+            u2 = wrap01(radical_inverse(PRIMES[b0 + 1u], s) + u2f01(pcg(hbase ^ (d + 1u))));
+        } else if (SAMPLER == S_SOBOL) {
+            u1 = gen_matrix(s, stab + min(d, 63u) * 32u, pcg(hbase ^ d));
+            u2 = gen_matrix(s, stab + min(d + 1u, 63u) * 32u, pcg(hbase ^ (d + 1u)));
+        } else {
+            sample_2d<SAMPLER == S_MAXMIN ? 0 : SAMPLER>(hbase, s, dim, u1, u2);
+        }
+    }
+};
+
+// Winitzki's approximation of erf^-1 (render._erfinv)
+__device__ __forceinline__ float erfinv_w(float x) {
+    const float ln1 = logf(fmaxf(1.0f - x * x, 1e-30f));
+    const float t1 = (float)(2.0 / (3.141592653589793 * 0.147)) + ln1 / 2.0f;
+    const float v = sqrtf(fmaxf(sqrtf(t1 * t1 - ln1 / 0.147f) - t1, 0.0f));
+    return x > 0.0f ? v : (x < 0.0f ? -v : 0.0f * v);
+}
+
+__device__ __forceinline__ float tent(float u) {
+    return u < 0.5f ? sqrtf(fmaxf(2.0f * u, 0.0f)) - 1.0f : 1.0f - sqrtf(fmaxf(2.0f - 2.0f * u, 0.0f));
+}
+
+// The camera sample s of pixel (px, py), id pid: the film dimension from
+// the sampler's film enumeration (halton's global index offset[pid] + s x
+// stride; sobol's global index inverted from the pixel; maxmindist's
+// searched matrix; pt_common.cuh film_u for the (0,2), random and
+// stratified samplers), its offset through the blob's filter (EXT; the box
+// filter otherwise), the lens dimension as the sampler draws it. For
+// samplers 0-2 with EXT = 0 these are pt_common.cuh regen's operations in
+// its order.
+template <int SAMPLER, int EXT>
+__device__ __forceinline__ void regen_wide(const float* blob, const int* __restrict__ stab, uint32_t hbase, int px,
+                                           int py, int pid, uint32_t s, float& ox, float& oy, float& oz, float& dx,
+                                           float& dy, float& dz) {
+    const float pxf = (float)px, pyf = (float)py;
+    float u1, u2;
+    uint32_t sob_idx = 0u;
+    if (SAMPLER == S_SOBOL) {
+        const uint32_t m = (uint32_t)blob[H_SAMP], n_frame = (uint32_t)blob[H_SAMP + 2];
+        uint32_t delta = 0u;
+        for (uint32_t c = 0; c < n_frame; ++c) {
+            if ((s >> c) & 1u) delta ^= (uint32_t)__ldg(stab + SOB_DELTA + c);
+        }
+        const uint32_t b = ((uint32_t)px | ((uint32_t)py << m)) ^ delta;
+        uint32_t low = 0u;
+        for (uint32_t j = 0; j < 2u * m; ++j) {
+            if ((b >> j) & 1u) low ^= (uint32_t)__ldg(stab + SOB_INV + j);
+        }
+        sob_idx = (s << (2u * m)) | low;
+        const float res = blob[H_SAMP + 1];
+        u1 = fminf(fmaxf(gen_matrix(sob_idx, stab, 0u) * res - pxf, 0.0f), 0.999999f);
+        u2 = fminf(fmaxf(gen_matrix(sob_idx, stab + 32, 0u) * res - pyf, 0.0f), 0.999999f);
+    } else if (SAMPLER == S_MAXMIN) {
+        const uint32_t n = (uint32_t)blob[H_SAMP];
+        const uint32_t i = s % n;
+        u1 = wrap01(((float)i + 0.5f) / (float)n + u2f01(pcg(hbase ^ 0xC9u)));
+        u2 = gen_matrix(i, stab, pcg(hbase ^ 0x51Du));
+    } else if (SAMPLER == S_HALTON) {
+        const uint32_t idx = (uint32_t)__ldg(stab + pid) + s * (uint32_t)blob[H_SAMP];
+        const float x = u2f01(__brev(idx)) * blob[H_SAMP + 1];
+        const float y = radical_inverse(3u, idx) * blob[H_SAMP + 2];
+        u1 = x - floorf(x);
+        u2 = y - floorf(y);
+    } else {
+        film_u<SAMPLER>(hbase, s, (int)blob[H_STRAT_XS], (int)blob[H_STRAT_YS], u1, u2);
+    }
+    const float rx = blob[H_FXW], ry = blob[H_FYW];
+    const int filter = EXT ? (int)blob[H_FILTER] : 0;
+    float fx, fy;
+    if (filter == 1) {
+        fx = tent(u1) * rx;
+        fy = tent(u2) * ry;
+    } else if (filter == 2) {
+        fx = fminf(fmaxf(blob[H_GK] * erfinv_w(2.0f * u1 - 1.0f), -rx), rx);
+        fy = fminf(fmaxf(blob[H_GK] * erfinv_w(2.0f * u2 - 1.0f), -ry), ry);
+    } else {
+        fx = (2.0f * u1 - 1.0f) * rx;
+        fy = (2.0f * u2 - 1.0f) * ry;
+    }
+    const float lens_r = blob[H_LENS_R];
+    float ul1 = 0.0f, ul2 = 0.0f;
+    if (lens_r > 0.0f) {  // the halton sampler takes no lens (the route refuses it)
+        if (SAMPLER == S_SOBOL) {
+            ul1 = gen_matrix(sob_idx, stab + 64, 0u);
+            ul2 = gen_matrix(sob_idx, stab + 96, 0u);
+        } else {
+            lens_u<SAMPLER == S_MAXMIN || SAMPLER == S_HALTON ? 0 : SAMPLER>(hbase, s, ul1, ul2);
+        }
+    }
+    camera_ray(blob + H_R2C, blob + H_C2W, lens_r, blob[H_FOCAL], pxf + 0.5f + fx, pyf + 0.5f + fy, ul1, ul2, ox, oy,
+               oz, dx, dy, dz);
+}
+
 // Warp-aggregated counter: every thread of the warp calls it; a thread with
 // want set gets *n's value plus its rank among the wanting lanes (in lane
 // order), and *n grows by their number; the others get -1.
@@ -236,14 +417,14 @@ __device__ __forceinline__ int warp_take(bool want, int* n) {
     return want ? base + __popc(mask & ((1u << lid) - 1u)) : -1;
 }
 
-// camera regeneration of sample s into slot i, with the path state reset
-template <int SAMPLER>
-__device__ __forceinline__ void start_sample(float* st, int i, const float* blob, float pxf, float pyf,
-                                             uint32_t hbase, uint32_t s) {
+// camera regeneration of sample s into slot i, which holds pixel `lane`,
+// with the path state reset
+template <int SAMPLER, int EXT>
+__device__ __forceinline__ void start_sample(float* st, int i, const float* blob, const int* __restrict__ stab,
+                                             const int* __restrict__ px_in, const int* __restrict__ py_in,
+                                             const int* __restrict__ pid_in, int lane, uint32_t hbase, uint32_t s) {
     float ox, oy, oz, dx, dy, dz;
-    regen<SAMPLER>(blob + H_R2C, blob + H_C2W, blob[H_FXW], blob[H_FYW], (int)blob[H_STRAT_XS],
-                   (int)blob[H_STRAT_YS], blob[H_LENS_R], blob[H_FOCAL], hbase, pxf, pyf, s, ox, oy, oz, dx, dy,
-                   dz);
+    regen_wide<SAMPLER, EXT>(blob, stab, hbase, px_in[lane], py_in[lane], pid_in[lane], s, ox, oy, oz, dx, dy, dz);
     seti(st, F_S, i, (int)s);
     fld(st, F_O, i) = ox;
     fld(st, F_O + 1, i) = oy;
@@ -265,10 +446,10 @@ __device__ __forceinline__ void start_sample(float* st, int i, const float* blob
 }
 
 // slot i takes pixel `lane`: sample s0, empty sums
-template <int SAMPLER>
-__device__ __forceinline__ void start_pixel(float* st, int i, const float* blob, const int* __restrict__ px_in,
-                                            const int* __restrict__ py_in, const int* __restrict__ pid_in,
-                                            uint32_t hseed, uint32_t s0, int lane) {
+template <int SAMPLER, int EXT>
+__device__ __forceinline__ void start_pixel(float* st, int i, const float* blob, const int* __restrict__ stab,
+                                            const int* __restrict__ px_in, const int* __restrict__ py_in,
+                                            const int* __restrict__ pid_in, uint32_t hseed, uint32_t s0, int lane) {
     const uint32_t hbase = pcg(hseed ^ (uint32_t)pid_in[lane]);
     seti(st, F_LANE, i, lane);
     seti(st, F_HB, i, (int)hbase);
@@ -277,13 +458,18 @@ __device__ __forceinline__ void start_pixel(float* st, int i, const float* blob,
     for (int k = 0; k < 3; ++k) fld(st, F_AL + k, i) = 0.0f;
     fld(st, F_AW, i) = 0.0f;
     fld(st, F_NV, i) = 0.0f;
-    start_sample<SAMPLER>(st, i, blob, (float)px_in[lane], (float)py_in[lane], hbase, s0);
+    start_sample<SAMPLER, EXT>(st, i, blob, stab, px_in, py_in, pid_in, lane, hbase, s0);
 }
 
-// surface_interaction's triangle branch for flat shading and default UVs
-// (uv0 = (0,0), uv1 = (1,0), uv2 = (1,1), so dpdu = v1 - v0), from the
-// winner's prim row; returns the row's light (-1 when it emits nothing)
-__device__ __forceinline__ int tri_attrs(const float* __restrict__ row, float b1, float b2, float g7, Hit& h) {
+// surface_interaction's triangle branch from the winner's prim row: flat
+// shading and default UVs (uv0 = (0,0), uv1 = (1,0), uv2 = (1,1), so
+// dpdu = v1 - v0); with the winner's attribute row (EXT, arow != nullptr),
+// the interpolated shading normal with ng flipped to its side and dpdu from
+// the UV chart (triangle.rs:355-360, shading.py). Returns the row's light
+// (-1 when it emits nothing).
+template <int EXT>
+__device__ __forceinline__ int tri_attrs(const float* __restrict__ row, const float* __restrict__ arow, float b1,
+                                         float b2, float g7, Hit& h) {
     const float4 q0 = __ldg(reinterpret_cast<const float4*>(row));
     const float4 q1 = __ldg(reinterpret_cast<const float4*>(row + 4));
     const float4 q2 = __ldg(reinterpret_cast<const float4*>(row + 8));
@@ -303,10 +489,36 @@ __device__ __forceinline__ int tri_attrs(const float* __restrict__ row, float b1
         ngy = -ngy;
         ngz = -ngz;
     }
-    // frame from dpdu = e1 orthogonalised against ns = ng; coordinate_system
-    // fallback when degenerate
-    const float d_dot = ngx * e1x + ngy * e1y + ngz * e1z;
-    float ssx = e1x - ngx * d_dot, ssy = e1y - ngy * d_dot, ssz = e1z - ngz * d_dot;
+    float nsx = ngx, nsy = ngy, nsz = ngz, dux = e1x, duy = e1y, duz = e1z;
+    if (EXT && arow != nullptr) {
+        // lanes 0:9 n0 n1 n2, 9:15 uv0 uv1 uv2
+        const float4 a0 = __ldg(reinterpret_cast<const float4*>(arow));
+        const float4 a1 = __ldg(reinterpret_cast<const float4*>(arow + 4));
+        const float4 a2 = __ldg(reinterpret_cast<const float4*>(arow + 8));
+        const float4 a3 = __ldg(reinterpret_cast<const float4*>(arow + 12));
+        nsx = b0 * a0.x + b1 * a0.w + b2 * a1.z;
+        nsy = b0 * a0.y + b1 * a1.x + b2 * a1.w;
+        nsz = b0 * a0.z + b1 * a1.y + b2 * a2.x;
+        norm3(nsx, nsy, nsz);
+        if (ngx * nsx + ngy * nsy + ngz * nsz < 0.0f) {
+            ngx = -ngx;
+            ngy = -ngy;
+            ngz = -ngz;
+        }
+        const float duv1x = a2.w - a2.y, duv1y = a3.x - a2.z;
+        const float duv2x = a3.y - a2.y, duv2y = a3.z - a2.z;
+        const float det = duv1x * duv2y - duv1y * duv2x;
+        if (!(fabsf(det) <= 1e-12f)) {
+            const float inv_det = 1.0f / det;
+            dux = (duv2y * e1x - duv1y * e2x) * inv_det;
+            duy = (duv2y * e1y - duv1y * e2y) * inv_det;
+            duz = (duv2y * e1z - duv1y * e2z) * inv_det;
+        }
+    }
+    // frame from dpdu orthogonalised against ns; coordinate_system fallback
+    // when degenerate
+    const float d_dot = nsx * dux + nsy * duy + nsz * duz;
+    float ssx = dux - nsx * d_dot, ssy = duy - nsy * d_dot, ssz = duz - nsz * d_dot;
     const float sl = sqrtf(ssx * ssx + ssy * ssy + ssz * ssz);
     if (sl > 1e-9f) {
         const float inv_sl = 1.0f / fmaxf(sl, 1e-20f);
@@ -314,19 +526,19 @@ __device__ __forceinline__ int tri_attrs(const float* __restrict__ row, float b1
         ssy = ssy * inv_sl;
         ssz = ssz * inv_sl;
     } else {
-        const float csg = ngz >= 0.0f ? 1.0f : -1.0f;
-        const float a = -1.0f / (csg + ngz);
-        const float bb = ngx * ngy * a;
-        ssx = 1.0f + csg * ngx * ngx * a;
+        const float csg = nsz >= 0.0f ? 1.0f : -1.0f;
+        const float a = -1.0f / (csg + nsz);
+        const float bb = nsx * nsy * a;
+        ssx = 1.0f + csg * nsx * nsx * a;
         ssy = csg * bb;
-        ssz = -csg * ngx;
+        ssz = -csg * nsx;
     }
     h.ngx = ngx; h.ngy = ngy; h.ngz = ngz;
-    h.nsx = ngx; h.nsy = ngy; h.nsz = ngz;
+    h.nsx = nsx; h.nsy = nsy; h.nsz = nsz;
     h.ssx = ssx; h.ssy = ssy; h.ssz = ssz;
-    h.tsx = ngy * ssz - ngz * ssy;
-    h.tsy = ngz * ssx - ngx * ssz;
-    h.tsz = ngx * ssy - ngy * ssx;
+    h.tsx = nsy * ssz - nsz * ssy;
+    h.tsy = nsz * ssx - nsx * ssz;
+    h.tsz = nsx * ssy - nsy * ssx;
     h.px = b0 * v0x + b1 * v1x + b2 * v2x;
     h.py = b0 * v0y + b1 * v1y + b2 * v2y;
     h.pz = b0 * v0z + b1 * v1z + b2 * v2z;
@@ -337,28 +549,42 @@ __device__ __forceinline__ int tri_attrs(const float* __restrict__ row, float b1
     return (int)q3.x;
 }
 
-// estimate_direct for one selected light, delta or triangle area, with MIS
-// against the BSDF's pdf, up to the shadow walk: returns whether the sample
-// can contribute, and then the shadow ray and the unoccluded contribution
-// without beta, c
-template <int SAMPLER>
-__device__ __forceinline__ bool nee_light(const float* blob, const float* m, uint32_t hbase, uint32_t s,
+// estimate_direct for one selected light, delta, triangle area or (EXT) the
+// constant infinite light, with MIS against the BSDF's pdf, up to the
+// shadow walk: returns whether the sample can contribute, and then the
+// shadow ray and the unoccluded contribution without beta, c
+template <int SAMPLER, int EXT>
+__device__ __forceinline__ bool nee_light(const float* blob, const float* m, const Draw<SAMPLER>& dr,
                                           uint32_t dim_base, const Hit& h, float wox, float woy, float woz,
                                           float c[3], float so[3], float sd[3], float& tmax) {
     const int n_lights = (int)blob[H_N_LIGHTS];
     int lid = 0;
-    if (n_lights > 1) {
-        lid = select_light(sample_1d<SAMPLER>(hbase, s, dim_base), n_lights, blob[H_UNIFORM] != 0.0f, blob + H_CDF);
-    }
+    if (n_lights > 1) lid = select_light(dr.d1(dim_base), n_lights, blob[H_UNIFORM] != 0.0f, blob + H_CDF);
     const float* lt = blob + LIGHT_BASE + lid * LIGHT_STRIDE;
     float wix, wiy, wiz, li[3], dist, p_l = 1.0f;
-    const bool delta = (int)lt[L_KIND] != LIGHT_AREA;
-    if (delta) {
+    const int kind = (int)lt[L_KIND];
+    const bool sky = EXT && kind == LIGHT_INFINITE;
+    const bool delta = kind != LIGHT_AREA && !sky;
+    if (sky) {
+        // the constant environment: a uniform sphere direction, pdf 1/4pi
+        float u1, u2;
+        dr.d2(dim_base + 1u, u1, u2);
+        const float z = 1.0f - 2.0f * u1;
+        const float r = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+        const float phi = (float)(2.0 * 3.141592653589793) * u2;
+        wix = r * cosf(phi);
+        wiy = r * sinf(phi);
+        wiz = z;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) li[k] = lt[L_PAR + 3 + k];
+        dist = blob[H_WR2];
+        p_l = (float)(1.0 / (4.0 * 3.141592653589793));
+    } else if (delta) {
         delta_light(lt, blob[H_WR2], h, wix, wiy, wiz, li, dist);
     } else {
         // uniform point on the emitting triangle (lights._sample_prim_point)
         float u1, u2;
-        sample_2d<SAMPLER>(hbase, s, dim_base + 1u, u1, u2);
+        dr.d2(dim_base + 1u, u1, u2);
         const float su0 = sqrtf(fmaxf(u1, 0.0f));
         const float b0s = 1.0f - su0;
         const float b1s = u2 * su0;
@@ -439,11 +665,14 @@ __device__ __forceinline__ bool nee_light(const float* blob, const float* m, uin
 // sample and the path's continuation with Russian roulette. Queues the
 // shadow ray in the slot's F_SO.. fields and returns true when the NEE
 // sample needs one; leaves the slot's S_* state in F_KEY.
-template <int SAMPLER, int ANY_AREA>
+template <int SAMPLER, int ANY_AREA, int EXT>
 __device__ __forceinline__ bool shade(float* st, int i, int key, const float* blob,
-                                      const float* __restrict__ leaf_rec) {
+                                      const float* __restrict__ leaf_rec, const float* __restrict__ attr_rec,
+                                      const int* __restrict__ stab) {
     Hit h;
-    const int light = tri_attrs(leaf_rec + geti(st, F_ROW, i), fld(st, F_B1, i), fld(st, F_B2, i), blob[H_G7], h);
+    const int row = geti(st, F_ROW, i);
+    const int light = tri_attrs<EXT>(leaf_rec + row, EXT && attr_rec != nullptr ? attr_rec + row : nullptr,
+                                     fld(st, F_B1, i), fld(st, F_B2, i), blob[H_G7], h);
     const float wox = -fld(st, F_D, i), woy = -fld(st, F_D + 1, i), woz = -fld(st, F_D + 2, i);
     float L[3], beta[3];
 #pragma unroll
@@ -481,9 +710,13 @@ __device__ __forceinline__ bool shade(float* st, int i, int key, const float* bl
         const uint32_t hbase = (uint32_t)geti(st, F_HB, i), s_cur = (uint32_t)geti(st, F_S, i);
         uint32_t bounces = (uint32_t)(geti(st, F_BOUNCES, i) & (SPECULAR - 1));
         const uint32_t dim_base = 2u + bounces * DPB;
-        const BsdfSample bs = bsdf_sample<SAMPLER>(m, hbase, s_cur, dim_base, h, wox, woy, woz);
+        const Draw<SAMPLER> dr{hbase, s_cur, stab};
+        float u1, u2;
+        dr.d2(dim_base + 3u, u1, u2);
+        const float u_lobe = (int)m[M_LOBE] == LOBE_PLASTIC ? dr.d1(dim_base + 2u) : 0.0f;
+        const BsdfSample bs = bsdf_sample_u(m, u_lobe, u1, u2, h, wox, woy, woz);
         float c[3], so[3], sd[3], tmax;
-        if (nee_light<SAMPLER>(blob, m, hbase, s_cur, dim_base, h, wox, woy, woz, c, so, sd, tmax)) {
+        if (nee_light<SAMPLER, EXT>(blob, m, dr, dim_base, h, wox, woy, woz, c, so, sd, tmax)) {
 #pragma unroll
             for (int k = 0; k < 3; ++k) {
                 fld(st, F_SO + k, i) = so[k];
@@ -526,7 +759,7 @@ __device__ __forceinline__ bool shade(float* st, int i, int key, const float* bl
             const float max_c = fmaxf(beta[0] * eta_acc, fmaxf(beta[1] * eta_acc, beta[2] * eta_acc));
             const float q = fmaxf(1.0f - max_c, 0.05f);
             if (bounces > 3u && max_c < blob[H_RR]) {
-                if (sample_1d<SAMPLER>(hbase, s_cur, dim_base + 4u) < q) {
+                if (dr.d1(dim_base + 4u) < q) {
                     new_alive = false;
                 } else {
                     const float boost = 1.0f / fmaxf(1.0f - q, 1e-6f);
@@ -569,12 +802,29 @@ __device__ __forceinline__ void add_sample(float* st, int i, int f, const float*
 // not walked, only its shadow ray). Returns 1 when the pixel is done (all
 // n_samples flushed, or the per-lane loop's iteration cap), after writing
 // its sums to the outputs; -1 when the slot waits; else 0.
-template <int SAMPLER>
-__device__ __forceinline__ int flush(float* st, int i, int lane, const float* blob, const int* __restrict__ px_in,
-                                     const int* __restrict__ py_in, uint32_t s_end, long long cap,
+template <int SAMPLER, int EXT>
+__device__ __forceinline__ int flush(float* st, int i, int lane, const float* blob, const int* __restrict__ stab,
+                                     const int* __restrict__ px_in, const int* __restrict__ py_in,
+                                     const int* __restrict__ pid_in, uint32_t s_end, long long cap,
                                      float* __restrict__ out_l, float* __restrict__ out_w,
                                      float* __restrict__ out_nv) {
     const int code = geti(st, F_KEY, i);
+    if (EXT && code >= 0 && (code & 15) == K_MISS) {
+        // the ray walked this iteration escaped: the constant environment
+        // (the route takes at most one infinite light), with the deferred
+        // MIS weight against the BSDF sample that sent it
+        const int n_lights = (int)blob[H_N_LIGHTS];
+        for (int l = 0; l < n_lights; ++l) {
+            const float* lt = blob + LIGHT_BASE + l * LIGHT_STRIDE;
+            if ((int)lt[L_KIND] != LIGHT_INFINITE) continue;
+            const float w_env =
+                (geti(st, F_BOUNCES, i) & SPECULAR) ? 1.0f : power_heuristic(fld(st, F_PPDF, i), lt[L_ENV_P]);
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+                fld(st, F_L + k, i) = fld(st, F_L + k, i) + fld(st, F_BETA + k, i) * lt[L_PAR + 3 + k] * w_env;
+            }
+        }
+    }
     int it = geti(st, F_IT, i);
     if (it & IT_OLD) {
         add_sample(st, i, F_LOLD, blob);
@@ -603,8 +853,8 @@ __device__ __forceinline__ int flush(float* st, int i, int lane, const float* bl
             add_sample(st, i, F_L, blob);
         }
         if (dead && s_next < s_end) {
-            start_sample<SAMPLER>(st, i, blob, (float)px_in[lane], (float)py_in[lane], (uint32_t)geti(st, F_HB, i),
-                                  s_next);
+            start_sample<SAMPLER, EXT>(st, i, blob, stab, px_in, py_in, pid_in, lane, (uint32_t)geti(st, F_HB, i),
+                                       s_next);
         }
         done = (dead && s_next >= s_end) || at_cap;
     }
@@ -620,13 +870,13 @@ __device__ __forceinline__ int flush(float* st, int i, int lane, const float* bl
 
 // --- the persistent kernel ------------------------------------------------------
 
-template <int SAMPLER, int ANY_AREA, int PROF>
+template <int SAMPLER, int ANY_AREA, int EXT, int PROF>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 wide_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict__ px_in,
                        const int* __restrict__ py_in, const int* __restrict__ pid_in, int n_lanes,
                        uint32_t seed, uint32_t s0, int n_samples, const float* __restrict__ node_rec,
-                       const float* __restrict__ leaf_rec,
-                       float* __restrict__ out_l, float* __restrict__ out_w, float* __restrict__ out_nv,
+                       const float* __restrict__ leaf_rec, const float* __restrict__ attr_rec,
+                       const int* __restrict__ stab, float* __restrict__ out_l, float* __restrict__ out_w, float* __restrict__ out_nv,
                        unsigned long long* __restrict__ pop_counts, unsigned int* __restrict__ trav_counters,
                        int* __restrict__ queue, unsigned long long* __restrict__ prof) {
     __shared__ BlockState B;
@@ -672,7 +922,7 @@ wide_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict__
         const int lane = warp_take(true, queue);
         const bool has = lane < n_lanes;
         if (has) {
-            start_pixel<SAMPLER>(st, tid, blob, px_in, py_in, pid_in, hseed, s0, lane);
+            start_pixel<SAMPLER, EXT>(st, tid, blob, stab, px_in, py_in, pid_in, hseed, s0, lane);
         } else {
             seti(st, F_LANE, tid, -1);
         }
@@ -780,7 +1030,8 @@ wide_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict__
         int sslot = -1;
         if (tid < n_shade) {
             sslot = B.sperm[tid];
-            want_sh = shade<SAMPLER, ANY_AREA>(st, sslot, geti(st, F_KEY, sslot) & 15, blob, leaf_rec);
+            want_sh = shade<SAMPLER, ANY_AREA, EXT>(st, sslot, geti(st, F_KEY, sslot) & 15, blob, leaf_rec, attr_rec,
+                                                    stab);
             if (PROF) sp[SPLIT_SHADE_BUSY] += (unsigned long long)(clock64() - t_ph);
         }
         const int shpos = warp_take(want_sh, &B.n_sh);
@@ -789,13 +1040,14 @@ wide_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict__
         if (PROF && tid == 0) t_s = clock64();
 
         // --- 4. flush finished samples; regenerate, or take the next pixel ---
-        const int state =
-            lane >= 0 ? flush<SAMPLER>(st, tid, lane, blob, px_in, py_in, s_end, cap, out_l, out_w, out_nv) : 0;
+        const int state = lane >= 0 ? flush<SAMPLER, EXT>(st, tid, lane, blob, stab, px_in, py_in, pid_in, s_end,
+                                                          cap, out_l, out_w, out_nv)
+                                    : 0;
         const bool finish = state == 1;
         const int next = warp_take(finish, queue);
         if (finish) {
             if (next < n_lanes) {
-                start_pixel<SAMPLER>(st, tid, blob, px_in, py_in, pid_in, hseed, s0, next);
+                start_pixel<SAMPLER, EXT>(st, tid, blob, stab, px_in, py_in, pid_in, hseed, s0, next);
             } else {
                 seti(st, F_LANE, tid, -1);
             }
@@ -845,16 +1097,16 @@ wide_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict__
     }
 }
 
-// the kernel of a mode (sampler * 2 + any_area; sampler 0 = (0,2)-sequence,
-// 1 = random, 2 = stratified), or nullptr for a bad mode
+// the kernel of a mode (ext * 12 + sampler * 2 + any_area; sampler 0 =
+// (0,2)-sequence, 1 = random, 2 = stratified, 3 = halton, 4 = sobol,
+// 5 = maxmindist), or nullptr for a bad mode
+#define WM_MODE(m) \
+    case m: return (const void*)wide_megakernel_kernel<((m) / 2) % N_SAMPLER_IDS, (m) % 2, (m) / (2 * N_SAMPLER_IDS), 0>;
 static const void* kernel_for(int mode) {
     switch (mode) {
-        case 0: return (const void*)wide_megakernel_kernel<0, 0, 0>;
-        case 1: return (const void*)wide_megakernel_kernel<0, 1, 0>;
-        case 2: return (const void*)wide_megakernel_kernel<1, 0, 0>;
-        case 3: return (const void*)wide_megakernel_kernel<1, 1, 0>;
-        case 4: return (const void*)wide_megakernel_kernel<2, 0, 0>;
-        case 5: return (const void*)wide_megakernel_kernel<2, 1, 0>;
+        WM_MODE(0) WM_MODE(1) WM_MODE(2) WM_MODE(3) WM_MODE(4) WM_MODE(5) WM_MODE(6) WM_MODE(7)
+        WM_MODE(8) WM_MODE(9) WM_MODE(10) WM_MODE(11) WM_MODE(12) WM_MODE(13) WM_MODE(14) WM_MODE(15)
+        WM_MODE(16) WM_MODE(17) WM_MODE(18) WM_MODE(19) WM_MODE(20) WM_MODE(21) WM_MODE(22) WM_MODE(23)
         default: return nullptr;
     }
 }
@@ -863,8 +1115,8 @@ static const void* kernel_for(int mode) {
 // the blocks n_lanes can fill). Returns a cudaError_t.
 static int launch(const void* kern, const void* blob, const void* px, const void* py, const void* pid, int n_lanes,
                   unsigned int seed, unsigned int s0, int n_samples, const void* node_rec,
-                  const void* leaf_rec, void* out_l, void* out_w, void* out_nv, void* pop_counts,
-                  void* trav_counters, void* queue, void* stream, void* prof) {
+                  const void* leaf_rec, const void* attr_rec, const void* stab, void* out_l, void* out_w,
+                  void* out_nv, void* pop_counts, void* trav_counters, void* queue, void* stream, void* prof) {
     if (n_lanes <= 0) return (int)cudaGetLastError();
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
@@ -877,34 +1129,37 @@ static int launch(const void* kern, const void* blob, const void* px, const void
     if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
     uint32_t seed_u = seed, s0_u = s0;
     void* args[] = {&blob, &px, &py, &pid, &n_lanes, &seed_u, &s0_u, &n_samples, &node_rec,
-                    &leaf_rec, &out_l, &out_w, &out_nv, &pop_counts, &trav_counters, &queue, &prof};
+                    &leaf_rec, &attr_rec, &stab, &out_l, &out_w, &out_nv, &pop_counts, &trav_counters, &queue,
+                    &prof};
     return (int)cudaLaunchKernel(kern, dim3(blocks), dim3(THREADS), args, 0, (cudaStream_t)stream);
 }
 
-// mode = sampler * 2 + any_area. queue: one int32 on the device, zeroed
-// before the launch. Returns the cudaError_t of the launch (or
-// cudaErrorInvalidValue for a bad mode).
+// mode as kernel_for's. attr_rec: the attribute rows (the extended modes
+// read them when not null); stab: the sampler table (int32). queue: one
+// int32 on the device, zeroed before the launch. Returns the cudaError_t of
+// the launch (or cudaErrorInvalidValue for a bad mode).
 extern "C" int wide_megakernel(const void* blob, const void* px, const void* py, const void* pid, int n_lanes,
                                unsigned int seed, unsigned int s0, int n_samples, int mode, const void* node_rec,
-                               const void* leaf_rec, void* out_l, void* out_w, void* out_nv,
-                               void* pop_counts, void* trav_counters, void* queue, void* stream) {
+                               const void* leaf_rec, const void* attr_rec, const void* stab, void* out_l,
+                               void* out_w, void* out_nv, void* pop_counts, void* trav_counters, void* queue,
+                               void* stream) {
     const void* kern = kernel_for(mode);
     if (kern == nullptr) return (int)cudaErrorInvalidValue;
-    return launch(kern, blob, px, py, pid, n_lanes, seed, s0, n_samples, node_rec, leaf_rec, out_l, out_w,
-                  out_nv, pop_counts, trav_counters, queue, stream, nullptr);
+    return launch(kern, blob, px, py, pid, n_lanes, seed, s0, n_samples, node_rec, leaf_rec, attr_rec, stab, out_l,
+                  out_w, out_nv, pop_counts, trav_counters, queue, stream, nullptr);
 }
 
-// The instrumented instantiation ((0,2) sampler with area lights, mode 1,
-// only): wide_megakernel's launch, and the cycle split (N_SPLIT u64) added
-// into prof.
+// The instrumented instantiation ((0,2) sampler, box filter, area lights:
+// mode 1 only): wide_megakernel's launch, and the cycle split (N_SPLIT u64)
+// added into prof.
 extern "C" int wide_megakernel_split(const void* blob, const void* px, const void* py, const void* pid, int n_lanes,
                                      unsigned int seed, unsigned int s0, int n_samples, int mode,
-                                     const void* node_rec, const void* leaf_rec, void* out_l,
-                                     void* out_w, void* out_nv, void* pop_counts, void* trav_counters, void* queue,
-                                     void* stream, void* prof) {
+                                     const void* node_rec, const void* leaf_rec, const void* attr_rec,
+                                     const void* stab, void* out_l, void* out_w, void* out_nv, void* pop_counts,
+                                     void* trav_counters, void* queue, void* stream, void* prof) {
     if (mode != 1) return (int)cudaErrorInvalidValue;
-    return launch((const void*)wide_megakernel_kernel<0, 1, 1>, blob, px, py, pid, n_lanes, seed, s0, n_samples,
-                  node_rec, leaf_rec, out_l, out_w, out_nv, pop_counts, trav_counters, queue, stream,
+    return launch((const void*)wide_megakernel_kernel<0, 1, 0, 1>, blob, px, py, pid, n_lanes, seed, s0, n_samples,
+                  node_rec, leaf_rec, attr_rec, stab, out_l, out_w, out_nv, pop_counts, trav_counters, queue, stream,
                   prof);
 }
 

@@ -6,7 +6,8 @@
 //  - the uint32 PCG hash, van der Corput and Sobol' samples, bit-exact with
 //    the plain PyTorch twins, and the (pixel, sample, dimension) keying of
 //    the (0,2), random and stratified samplers;
-//  - camera regeneration (pinhole and thin lens, box filter);
+//  - camera regeneration (pinhole and thin lens, box filter) and the camera
+//    ray of a raster point;
 //  - the baked lobe classes: Lambert, Oren-Nayar, specular reflection,
 //    fresnel-specular glass, GGX conductor/dielectric and Lambert+GGX
 //    plastic, their f, pdf and bsdf_sample;
@@ -196,15 +197,11 @@ __device__ __forceinline__ void concentric_disk(float u1, float u2, float& x, fl
 
 // --- camera --------------------------------------------------------------------
 
-// A camera sample of pixel (pxf, pyf), sample s: film dimension 0 through
-// the box filter of half-widths (fxw, fyw), lens dimension 1 when
-// lens_r > 0. r2c: row-major 4x4 raster -> camera; c2w: row-major 3x4
-// camera -> world; strat_xs x strat_ys: the stratified sampler's strata.
+// Film dimension 0 of the (0,2), random and stratified samplers: (u1, u2) in
+// the pixel; strat_xs x strat_ys: the stratified sampler's strata.
 template <int SAMPLER>
-__device__ __forceinline__ void regen(const float* r2c, const float* c2w, float fxw, float fyw, int strat_xs,
-                                      int strat_ys, float lens_r, float focal, uint32_t hbase, float pxf, float pyf,
-                                      uint32_t s, float& ox, float& oy, float& oz, float& dx, float& dy, float& dz) {
-    float u1, u2;
+__device__ __forceinline__ void film_u(uint32_t hbase, uint32_t s, int strat_xs, int strat_ys, float& u1,
+                                       float& u2) {
     if (SAMPLER != 0) {
         uint32_t h = pcg(hbase ^ s);
         u1 = u2f01(pcg(h));
@@ -220,8 +217,27 @@ __device__ __forceinline__ void regen(const float* r2c, const float* c2w, float 
         u1 = vdc(s, pcg(hbase));
         u2 = sobol2(s, pcg(hbase ^ 1u));
     }
-    float fx = pxf + 0.5f + (2.0f * u1 - 1.0f) * fxw;
-    float fy = pyf + 0.5f + (2.0f * u2 - 1.0f) * fyw;
+}
+
+// Lens dimension 1 of the same samplers, keyed like the film's.
+template <int SAMPLER>
+__device__ __forceinline__ void lens_u(uint32_t hbase, uint32_t s, float& ul1, float& ul2) {
+    if (SAMPLER != 0) {
+        uint32_t h = pcg(hbase ^ s);
+        ul1 = u2f01(pcg(h ^ 2u));
+        ul2 = u2f01(pcg(h ^ 3u));
+    } else {
+        ul1 = vdc(s, pcg(hbase ^ 2u));
+        ul2 = sobol2(s, pcg(hbase ^ 3u));
+    }
+}
+
+// The camera ray through raster point (fx, fy), and when lens_r > 0 the
+// lens point of the lens sample (ul1, ul2) (perspective.rs generate_ray).
+// r2c: row-major 4x4 raster -> camera; c2w: row-major 3x4 camera -> world.
+__device__ __forceinline__ void camera_ray(const float* r2c, const float* c2w, float lens_r, float focal, float fx,
+                                           float fy, float ul1, float ul2, float& ox, float& oy, float& oz,
+                                           float& dx, float& dy, float& dz) {
     float cx = r2c[0] * fx + r2c[1] * fy + r2c[3];
     float cy = r2c[4] * fx + r2c[5] * fy + r2c[7];
     float cz = r2c[8] * fx + r2c[9] * fy + r2c[11];
@@ -233,17 +249,6 @@ __device__ __forceinline__ void regen(const float* r2c, const float* c2w, float 
     norm3(cx, cy, cz);
     float ocx = 0.0f, ocy = 0.0f;
     if (lens_r > 0.0f) {
-        // thin-lens depth of field (perspective.rs generate_ray); the lens
-        // stream is dimension 1, keyed like the film's
-        float ul1, ul2;
-        if (SAMPLER != 0) {
-            uint32_t h = pcg(hbase ^ s);
-            ul1 = u2f01(pcg(h ^ 2u));
-            ul2 = u2f01(pcg(h ^ 3u));
-        } else {
-            ul1 = vdc(s, pcg(hbase ^ 2u));
-            ul2 = sobol2(s, pcg(hbase ^ 3u));
-        }
         concentric_disk(ul1, ul2, ocx, ocy);
         ocx = lens_r * ocx;
         ocy = lens_r * ocy;
@@ -266,6 +271,20 @@ __device__ __forceinline__ void regen(const float* r2c, const float* c2w, float 
         oy = c2w[7];
         oz = c2w[11];
     }
+}
+
+// A camera sample of pixel (pxf, pyf), sample s: film dimension 0 through
+// the box filter of half-widths (fxw, fyw), lens dimension 1 when
+// lens_r > 0.
+template <int SAMPLER>
+__device__ __forceinline__ void regen(const float* r2c, const float* c2w, float fxw, float fyw, int strat_xs,
+                                      int strat_ys, float lens_r, float focal, uint32_t hbase, float pxf, float pyf,
+                                      uint32_t s, float& ox, float& oy, float& oz, float& dx, float& dy, float& dz) {
+    float u1, u2, ul1 = 0.0f, ul2 = 0.0f;
+    film_u<SAMPLER>(hbase, s, strat_xs, strat_ys, u1, u2);
+    if (lens_r > 0.0f) lens_u<SAMPLER>(hbase, s, ul1, ul2);
+    camera_ray(r2c, c2w, lens_r, focal, pxf + 0.5f + (2.0f * u1 - 1.0f) * fxw, pyf + 0.5f + (2.0f * u2 - 1.0f) * fyw,
+               ul1, ul2, ox, oy, oz, dx, dy, dz);
 }
 
 // --- BSDF pieces (bsdf.py channel forms) ----------------------------------------
@@ -413,14 +432,13 @@ struct BsdfSample {
     bool specular, valid;
 };
 
-// bsdf_sample for the baked lobe classes
-template <int SAMPLER>
-__device__ BsdfSample bsdf_sample(const float* m, uint32_t hbase, uint32_t s, uint32_t dim_base, const Hit& h,
-                                  float wox, float woy, float woz) {
+// bsdf_sample for the baked lobe classes, from the sample's uniforms: u_lobe
+// (dimension dim_base + 2, read by the plastic lobe pair only) and (u1, u2)
+// (dimension dim_base + 3)
+__device__ __forceinline__ BsdfSample bsdf_sample_u(const float* m, float u_lobe, float u1, float u2, const Hit& h,
+                                                    float wox, float woy, float woz) {
     float wo_x, wo_y, wo_z;
     to_local(h, wox, woy, woz, wo_x, wo_y, wo_z);
-    float u1, u2;
-    sample_2d<SAMPLER>(hbase, s, dim_base + 3u, u1, u2);
     const int lobe = (int)m[M_LOBE];
     const bool lam = lobe == LOBE_LAMBERT_R || lobe == LOBE_PLASTIC;
     const bool on = lobe == LOBE_OREN_NAYAR;
@@ -436,10 +454,7 @@ __device__ BsdfSample bsdf_sample(const float* m, uint32_t hbase, uint32_t s, ui
     bs.valid = lobe != LOBE_NONE;
     float wix = 0.0f, wiy = 0.0f, wiz = 0.0f;
     int pick = 0;
-    if (plast) {
-        float u_lobe = sample_1d<SAMPLER>(hbase, s, dim_base + 2u);
-        pick = min((int)(u_lobe * 2.0f), 1);
-    }
+    if (plast) pick = min((int)(u_lobe * 2.0f), 1);
     const bool samp_diff = diff_like && pick == 0;
     const bool samp_mic = mic && (!lam || pick == 1);
     if (samp_diff) {  // cosine hemisphere through the concentric disk
@@ -522,6 +537,17 @@ __device__ BsdfSample bsdf_sample(const float* m, uint32_t hbase, uint32_t s, ui
     bs.wy = wix * h.ssy + wiy * h.tsy + wiz * h.nsy;
     bs.wz = wix * h.ssz + wiy * h.tsz + wiz * h.nsz;
     return bs;
+}
+
+// bsdf_sample for the baked lobe classes, drawing its uniforms from the
+// (0,2), random or stratified stream of sample s
+template <int SAMPLER>
+__device__ __forceinline__ BsdfSample bsdf_sample(const float* m, uint32_t hbase, uint32_t s, uint32_t dim_base,
+                                                  const Hit& h, float wox, float woy, float woz) {
+    float u1, u2;
+    sample_2d<SAMPLER>(hbase, s, dim_base + 3u, u1, u2);
+    const float u_lobe = (int)m[M_LOBE] == LOBE_PLASTIC ? sample_1d<SAMPLER>(hbase, s, dim_base + 2u) : 0.0f;
+    return bsdf_sample_u(m, u_lobe, u1, u2, h, wox, woy, woz);
 }
 
 // --- light selection and delta lights ---------------------------------------------

@@ -29,7 +29,7 @@ from . import rng
 from .bsdf import SPECULAR_KINDS, _is_specular, bsdf_f, bsdf_pdf, bsdf_sample, num_lobes
 from .intersect import intersect, intersect_p
 from .lightdistrib import spatial_pmf_of, spatial_select
-from .lights import area_light_emission, compute_power, pdf_li_area_hit, sample_li
+from .lights import area_light_emission, compute_power, env_le, env_pdf_li, pdf_li_area_hit, sample_li
 from .materials import lobe_table, make_bsdf
 from .sampler import sample_1d, sample_2d
 from .shading import dot, surface_interaction
@@ -215,12 +215,21 @@ def trace_persistent(sa, static, icfg: dict, scfg: dict, seed: int, pixel, s0: i
     it = 0
     while it < it_cap and bool((~done).any()):
         it += 1
-        # --- extend: intersect + emitted pickup (deferred MIS) ---
+        # --- extend: intersect + escaped/emitted pickup (deferred MIS) ---
         t_query = torch.where(alive, torch.inf, -1.0)
         hit = intersect(sa, static, o, d, t_query, sort_rays=True, joint=joint)
         si = surface_interaction(sa, hit, o, d)
         valid = si["valid"]
         nverts = nverts + (alive & valid).to(torch.float32)
+
+        if static.has_infinite:
+            # escaped rays pick up the environment with the deferred MIS
+            # weight (the selection pmf at the previous vertex)
+            esc = alive & ~valid
+            env_row = torch.full((R,), max(static.infinite_light_index, 0), dtype=torch.int64, device=dev)
+            p_l = env_pdf_li(sa, static, d) * _sel_pmf_of(env_row, prev_p)
+            w = torch.where(prev_spec, 1.0, power_heuristic(1.0, prev_pdf, 1.0, p_l))
+            L = L + torch.where(esc[:, None], beta * env_le(sa, static, d) * w[:, None], 0.0)
         alive = alive & valid
 
         if static.has_area_lights:

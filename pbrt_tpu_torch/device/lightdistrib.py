@@ -7,8 +7,10 @@ per-light CDFs when the route is built, in one sweep over voxels x lights x
 point samples, in place of pbrt's lazily filled hash table. Each voxel's
 importance per light is the luminance of Li / pdf summed over
 N_POINT_SAMPLES hashed points inside it (no visibility, as pbrt), floored so
-every light stays selectable. At NEE time a lookup is a voxel index and a
-row gather.
+every light stays selectable. An infinite light's importance comes from
+sample_li like any other light's (its radiance over its pdf, the same in
+every voxel), as in the reference. At NEE time a lookup is a voxel index
+and a row gather.
 """
 from __future__ import annotations
 

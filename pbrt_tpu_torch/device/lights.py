@@ -2,10 +2,11 @@
 
 The port's counterpart of ``pbrt_tpu/device/lights.py`` for the light kinds
 the port compiles: point, spot and distant lights (src/lights/point.rs,
-spot.rs, distant.rs) and diffuse area lights on triangles
+spot.rs, distant.rs), the infinite light, constant or image-mapped
+(src/lights/infinite.rs), and diffuse area lights on triangles
 (src/lights/diffuse.rs), one light row per emitting triangle. sample_li
 evaluates only the branches of the kinds the scene has; area_light_emission,
-pdf_li_area_hit and compute_power complete the set.
+pdf_li_area_hit, env_le, env_pdf_li and compute_power complete the set.
 """
 from __future__ import annotations
 
@@ -18,9 +19,107 @@ import torch
 from ..scene.arrays import (
     LIGHT_AREA, LIGHT_DISTANT, LIGHT_GONIO, LIGHT_INFINITE, LIGHT_POINT, LIGHT_PROJECTION, LIGHT_SPOT,
 )
+from .affine import xf_vector, xf_vector_t
 from .shading import FLAG_FLIP_GEOM_N, cross, dot, normalize
 
-_UNPORTED = {LIGHT_GONIO: "goniometric", LIGHT_PROJECTION: "projection", LIGHT_INFINITE: "infinite"}
+_UNPORTED = {LIGHT_GONIO: "goniometric", LIGHT_PROJECTION: "projection"}
+TWO_PI = 2.0 * math.pi
+INV_4PI = 1.0 / (4.0 * math.pi)
+
+
+def uniform_sample_sphere(u1, u2):
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = TWO_PI * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# The environment map (src/lights/infinite.rs + sampling.rs Distribution2D)
+# ---------------------------------------------------------------------------
+
+
+def _env_dir_to_uv(sa, d):
+    """World direction -> env map (u, v) in [0, 1)^2, and theta."""
+    dl = normalize(xf_vector(sa.env_w2l[:3, :3], d))
+    theta = torch.acos(torch.clamp(dl[..., 2], -1.0, 1.0))
+    phi = torch.atan2(dl[..., 1], dl[..., 0])
+    phi = torch.where(phi < 0, phi + TWO_PI, phi)
+    return phi / TWO_PI, theta / math.pi, theta
+
+
+def _env_texel(img, u, v):
+    h, w, _ = img.shape
+    x = torch.clamp((u * w).to(torch.int64), 0, w - 1)
+    y = torch.clamp((v * h).to(torch.int64), 0, h - 1)
+    return img[y, x]
+
+
+def env_le(sa, static, d):
+    """Escaped-ray radiance from the infinite light (infinite.rs le :120)."""
+    if not static.has_infinite:
+        return torch.zeros(d.shape[:-1] + (3,), dtype=torch.float32, device=d.device)
+    li = sa.light_param[static.infinite_light_index]
+    if not static.has_env_map:
+        return torch.broadcast_to(li[3:6], d.shape[:-1] + (3,))
+    u, v, _ = _env_dir_to_uv(sa, d)
+    return _env_texel(sa.env_image, u, v)
+
+
+def _searchsorted_rows(cdf_rows, u):
+    """Per-row searchsorted: cdf_rows (R, N), u (R,) -> (R,) index."""
+    return (cdf_rows <= u[:, None]).sum(-1)
+
+
+def _env_pdf(pdf_u, pdf_v, sin_t):
+    return torch.where(sin_t > 1e-7, pdf_u * pdf_v / (2.0 * math.pi * math.pi * torch.clamp(sin_t, min=1e-7)), 0.0)
+
+
+def _env_sample(sa, u1, u2):
+    """A direction from the env map's importance distribution: (d_world,
+    li, pdf in solid angle)."""
+    marg = sa.env_marg_cdf  # (H + 1,)
+    cond = sa.env_cond_cdf  # (H, W + 1)
+    h = cond.shape[0]
+    w = cond.shape[1] - 1
+    # the row from the marginal
+    row = torch.clamp(torch.searchsorted(marg, u1.contiguous(), right=True) - 1, 0, h - 1)
+    m0 = marg[row]
+    m1 = marg[row + 1]
+    dv = torch.where(m1 > m0, (u1 - m0) / torch.clamp(m1 - m0, min=1e-30), 0.5)
+    v = (row.to(torch.float32) + dv) / h
+    pdf_v = (m1 - m0) * h
+    # the column from the row's conditional
+    crow = cond[row]  # (R, W + 1)
+    col = torch.clamp(_searchsorted_rows(crow, u2) - 1, 0, w - 1)
+    c0 = crow.gather(1, col[:, None])[:, 0]
+    c1 = crow.gather(1, col[:, None] + 1)[:, 0]
+    du = torch.where(c1 > c0, (u2 - c0) / torch.clamp(c1 - c0, min=1e-30), 0.5)
+    u = (col.to(torch.float32) + du) / w
+    pdf_u = (c1 - c0) * w
+    theta = v * math.pi
+    phi = u * TWO_PI
+    sin_t = torch.sin(theta)
+    dl = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), torch.cos(theta)], dim=-1)
+    # light -> world is the transpose of the rotation part of w2l
+    dw = xf_vector_t(sa.env_w2l[:3, :3], dl)
+    return dw, _env_texel(sa.env_image, u, v), _env_pdf(pdf_u, pdf_v, sin_t)
+
+
+def env_pdf_li(sa, static, d):
+    """The solid-angle pdf with which the infinite light samples direction d."""
+    if not static.has_env_map:
+        return torch.full(d.shape[:-1], INV_4PI, dtype=torch.float32, device=d.device)
+    u, v, theta = _env_dir_to_uv(sa, d)
+    marg = sa.env_marg_cdf
+    cond = sa.env_cond_cdf
+    h = cond.shape[0]
+    w = cond.shape[1] - 1
+    row = torch.clamp((v * h).to(torch.int64), 0, h - 1)
+    col = torch.clamp((u * w).to(torch.int64), 0, w - 1)
+    pdf_v = (marg[row + 1] - marg[row]) * h
+    pdf_u = (cond[row, col + 1] - cond[row, col]) * w
+    return _env_pdf(pdf_u, pdf_v, torch.sin(theta))
 
 
 def uniform_sample_triangle(u1, u2):
@@ -93,6 +192,18 @@ def sample_li(sa, static, light_ids, p_ref, u1, u2):
             "wi": par[:, 0:3], "li": par[:, 3:6], "pdf": one,
             "dist": torch.broadcast_to(2.0 * sa.world_radius, one.shape),
             "delta": torch.ones_like(one, dtype=torch.bool), "n": torch.zeros_like(par[:, 0:3]), "area": one}))
+    if LIGHT_INFINITE in kinds:
+        # the environment, image-mapped or constant (uniform sphere, pdf 1/4pi)
+        if static.has_env_map:
+            wi, li, pdf = _env_sample(sa, u1, u2)
+        else:
+            wi = uniform_sample_sphere(u1, u2)
+            li = par[:, 3:6]
+            pdf = torch.full(lid.shape, INV_4PI, dtype=torch.float32, device=lid.device)
+        branches.append(((LIGHT_INFINITE,), {
+            "wi": wi, "li": li, "pdf": pdf, "dist": torch.broadcast_to(2.0 * sa.world_radius, pdf.shape),
+            "delta": torch.zeros_like(pdf, dtype=torch.bool), "n": torch.zeros_like(wi),
+            "area": torch.ones_like(pdf)}))
     if LIGHT_AREA in kinds:
         ps, ns, area = _sample_prim_point(sa, sa.light_prim[lid], u1, u2)
         to_s = ps - p_ref
@@ -131,16 +242,17 @@ def compute_power(sa, static):
     """Emitted power per light (Light::power) for power-proportional light
     selection (integrator.rs:239-246): point 4 pi sum(I), spot
     2 pi (1 - (cosTotalWidth + cosFalloffStart) / 2) sum(I), distant
-    pi r_world^2 sum(L), area two-sidedness x area x pi x sum(L)."""
+    and infinite pi r_world^2 sum(L), area two-sidedness x area x pi x sum(L)."""
     if static.n_lights == 0:
         return torch.ones(1, dtype=torch.float32, device=sa.light_param.device)
     kind = sa.light_kind
     par = sa.light_param
     wr = sa.world_radius
-    lum = par[:, 3:6].sum(-1)  # point/spot/distant store I or L at 3:6
+    lum = par[:, 3:6].sum(-1)  # point/spot/distant/infinite store I or L at 3:6
     power = torch.where(kind == LIGHT_POINT, 4.0 * math.pi * lum, 0.0)
     power = torch.where(kind == LIGHT_SPOT, 2.0 * math.pi * (1.0 - 0.5 * (par[:, 9] + par[:, 10])) * lum, power)
     power = torch.where(kind == LIGHT_DISTANT, math.pi * wr * wr * lum, power)
+    power = torch.where(kind == LIGHT_INFINITE, math.pi * wr * wr * lum, power)
     if static.has_area_lights:
         area = sa.prim_area[torch.clamp(sa.light_prim, min=0)]
         two = 1.0 + (par[:, 3] > 0).to(torch.float32)

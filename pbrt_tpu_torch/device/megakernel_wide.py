@@ -4,24 +4,29 @@
 The port's counterpart of ``pbrt_tpu/device/megakernel_wide.py``: the whole
 persistent path loop for triangle scenes, with the closest-hit and shadow
 walks of the wide BVH inside the kernel. Its class here: triangle-only
-wide-BVH scenes with flat shading and default UVs; constant-parameter
-materials of the six lobe classes ``bake_lobe_entry`` bakes (at most 16
-used); at most 8 lights among one- or two-sided triangle area lights and
-point, spot and distant lights, with uniform or power selection; pinhole and
-thin-lens perspective cameras; the box filter; the (0,2), random and
-stratified samplers (stratified without a lens, and with the reference's
-own strata, ROADMAP C); the path integrator with its Russian-roulette
-threshold and sample clamp; at most ``max_tris`` triangles (the route
-reads PBRT_TPU_WIDEMEGA_MAX_TRIS, default 4096).
+wide-BVH scenes, flat or smooth-shaded, with default or real UV charts (the
+attribute table); constant-parameter materials of the six lobe classes
+``bake_lobe_entry`` bakes (at most 16 used); at most 8 lights among one- or
+two-sided triangle area lights, point, spot and distant lights and a
+constant infinite light, with uniform or power selection; pinhole and
+thin-lens perspective cameras; the box, triangle and gaussian filters; the
+(0,2), random, stratified, halton, sobol and maxmindist samplers
+(stratified and halton without a lens, stratified with the reference's own
+strata, ROADMAP C; halton's and sobol's film enumerations from the tables
+the route builds); the path integrator with its Russian-roulette threshold
+and sample clamp; at most ``max_tris`` triangles (the route reads
+PBRT_TPU_WIDEMEGA_MAX_TRIS, default 4096).
 
 - ``extract_wide_consts`` / ``wide_megakernel_eligible`` /
   ``explain_ineligible_wide``: the reference's gates for this class, and
   the same baked constants; anything outside the class gives None and a
   reason. The reference's two TPU memory budgets are not carried over.
 - ``pack_wide_consts``: lights, materials, camera and header as one flat
-  float32 blob (layout below), beside the wide BVH's node records and leaf
-  rows (``scene/widebvh.hopper_layout``) the only things the CUDA kernel
-  reads.
+  float32 blob (layout below); ``sampler_table``: the halton per-pixel
+  offsets, the sobol generator columns and film inversion, or the
+  maxmindist columns, as one int32 tensor. Beside the wide BVH's node
+  records, leaf rows and attribute rows (``scene/widebvh.hopper_layout``,
+  ``hopper_rows``) they are the only things the CUDA kernel reads.
 - ``wide_megakernel_plain``: the same per-lane loop over (R,) tensors,
   reusing the brute megakernel's plain helpers and ``traverse_plain`` for
   both walks.
@@ -45,19 +50,27 @@ import torch
 from ..scene.arrays import (
     GEOM_SPHERE, LIGHT_AREA, LIGHT_DISTANT, LIGHT_INFINITE, LIGHT_POINT, LIGHT_SPOT, MAT_MIX,
 )
-from . import nvcc
+from . import nvcc, rng
 from .bsdf import LOBE_LAMBERT_R, LOBE_MICRO_R, LOBE_NONE, LOBE_OREN_NAYAR
+from .lights import INV_4PI, uniform_sample_sphere
 from .megakernel import (
     DPB, FLAG_FLIP_GEOM_N, FLAG_HAS_SHADING_N, INV_PI, LOBE_PLASTIC, M32, MAT_DEFAULTS, MAT_STRIDE, RAY_EPS,
-    SAMPLERS, _concentric_disk, _dot3, _f32, _gamma, _h, _local, _MatTable, _norm3, _offset_ray, _pcg, _samplers,
-    _sobol2, _u2f01, _vdc, bake_lobe_entry,
+    _concentric_disk, _dot3, _f32, _gamma, _h, _local, _MatTable, _norm3, _offset_ray, _pcg, _reverse_bits,
+    _samplers, _sobol2, _u2f01, _vdc, bake_lobe_entry,
 )
+from .sampler import _sobol_cols, _wrap, _xor_columns, sobol_dim_dyn, sobol_global_index
 from .wide_bvh import _check_tables, traverse_plain
 
 MAX_MATS = 16
 MAX_LIGHTS = 8
 DEFAULT_MAX_TRIS = 4096  # the reference's PBRT_TPU_WIDEMEGA_MAX_TRIS default
-SAMPLER_NAMES = ("zerotwosequence", "lowdiscrepancy", "random", "stratified")
+# the kernel's sampler ids (0-2 as the brute megakernel's SAMPLERS)
+SAMPLERS = {"zerotwosequence": 0, "lowdiscrepancy": 0, "random": 1, "stratified": 2, "halton": 3, "sobol": 4,
+            "maxmindist": 5}
+SAMPLER_NAMES = tuple(SAMPLERS)
+N_SAMPLER_IDS = 6
+FILTERS = {"box": 0, "triangle": 1, "gaussian": 2}
+SOBOL_DIMS = 64  # generator matrices the bounce dimensions draw from (sampler.sobol_dim_dyn)
 
 KERNEL_SOURCE = nvcc.CSRC / "megakernel_wide.cu"
 
@@ -66,11 +79,16 @@ KERNEL_SOURCE = nvcc.CSRC / "megakernel_wide.cu"
 # Keep in lockstep with csrc/megakernel_wide.cu.
 # ---------------------------------------------------------------------------
 H_N_LIGHTS, H_N_MATS, H_MAX_DEPTH, H_RR, H_UNIFORM, H_SAMPLER, H_STRAT_XS, H_STRAT_YS = range(8)
-H_WR2, H_FXW, H_FYW, H_MAX_LUM, H_G7, H_LENS_R, H_FOCAL = range(8, 15)  # 15 unused
+# H_FXW, H_FYW: the filter's radii (the box filter's half-widths)
+H_WR2, H_FXW, H_FYW, H_MAX_LUM, H_G7, H_LENS_R, H_FOCAL, H_FILTER = range(8, 16)
 H_R2C = 16  # 16 floats, row-major 4x4 raster -> camera
 H_C2W = 32  # 12 floats, row-major 3x4 camera -> world
 H_CDF = 44  # MAX_LIGHTS floats
 H_PMF = 52  # MAX_LIGHTS floats
+# the film enumeration's constants: halton stride, sx, sy; sobol m, res,
+# frame bits; maxmindist n
+H_SAMP = 60  # 3 floats
+H_GK = 63  # the gaussian filter's sigma * sqrt(2)
 HEADER = 64
 LIGHT_STRIDE = 32
 LIGHT_BASE = HEADER
@@ -78,8 +96,15 @@ MAT_BASE = LIGHT_BASE + MAX_LIGHTS * LIGHT_STRIDE
 BLOB_FLOATS = MAT_BASE + MAX_MATS * MAT_STRIDE
 # light record: 0 kind, 1 par (12), 13 spot falloff denominator (the brute
 # megakernel's record), then for a triangle area light 14 area,
-# 15 two-sided, 16 v0 v1 v2 (9), 25 ng (3)
+# 15 two-sided, 16 v0 v1 v2 (9), 25 ng (3); for the infinite light 14 the
+# escaped ray's MIS density, 1/4pi x its selection pmf
 L_KIND, L_PAR, L_SPOT_DEN, L_AREA, L_TWO_SIDED, L_V, L_NG = 0, 1, 13, 14, 15, 16, 25
+L_ENV_P = 14
+# the sampler table (int32): sobol's generator columns of SOBOL_DIMS
+# dimensions (32 each), then the film inversion's 32 columns and its 32
+# frame columns; halton's per-pixel offsets; maxmindist's 32 columns
+SOB_INV = SOBOL_DIMS * 32
+SOB_DELTA = SOB_INV + 32
 # material record: device/megakernel.py's M_* fields, plus 31 the material
 # row the slot bakes (the prim table's payload names rows, not slots)
 M_ROW = 31
@@ -103,27 +128,36 @@ def _extract(cs, cam, icfg, scfg, fcfg, max_tris):
         return None, f"more than {max_tris} triangles (PBRT_TPU_WIDEMEGA_MAX_TRIS)"
     if static.n_media:
         return None, "participating media"
+    if static.has_env_map:
+        return None, "the image-mapped infinite light (the env map)"
     if int(sa.sph_kind.shape[0]):
         return None, "spheres (baked quadrics)"
     if static.has_motion:
         return None, "motion blur"
     kind = scfg["kind"]
+    lens = float(cam["lens_radius"]) != 0.0
     if kind not in SAMPLER_NAMES:
         return None, f"the '{kind}' sampler"
-    if kind == "stratified" and float(cam["lens_radius"]) != 0.0:
+    if kind == "stratified" and lens:
         return None, "the stratified sampler with a lens"
-    if fcfg["filter"] != "box":
+    if kind == "halton" and (scfg.get("halton") is None or lens):
+        return None, "the halton sampler without its film tables, or with a lens"
+    if kind == "sobol" and scfg.get("sobol") is None:
+        return None, "the sobol sampler without its film tables"
+    if fcfg["filter"] not in FILTERS:
         return None, f"the '{fcfg['filter']}' filter"
     n_l = static.n_lights
     if n_l > MAX_LIGHTS or n_l == 0:
         return None, f"more than {MAX_LIGHTS} lights, or none"
     prim_flags = _h(sa.prim_flags)
-    if (prim_flags & FLAG_HAS_SHADING_N).any():
-        return None, "per-vertex shading normals (the attribute table)"
+    has_ns = bool((prim_flags & FLAG_HAS_SHADING_N).any())
+    has_attr = sa.wattr_tab is not None
+    if has_ns and not has_attr:
+        return None, "per-vertex shading normals without the attribute table"
     tri_uv = _h(sa.tri_uv)
     default_uv = np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0]], np.float32)
-    if tri_uv.shape[0] and not np.array_equal(tri_uv, np.broadcast_to(default_uv, tri_uv.shape)):
-        return None, "UV charts (the attribute table)"
+    if tri_uv.shape[0] and not np.array_equal(tri_uv, np.broadcast_to(default_uv, tri_uv.shape)) and not has_attr:
+        return None, "UV charts without the attribute table"
 
     strategy = str(icfg.get("light_strategy", "uniform"))
     if strategy == "spatial" and n_l > 1:
@@ -143,10 +177,8 @@ def _extract(cs, cam, icfg, scfg, fcfg, max_tris):
     lights = []
     for i in range(n_l):
         k = int(light_kind[i])
-        if k in (LIGHT_POINT, LIGHT_DISTANT, LIGHT_SPOT):
+        if k in (LIGHT_POINT, LIGHT_DISTANT, LIGHT_SPOT, LIGHT_INFINITE):
             lights.append({"kind": k, "par": light_param[i].astype(float)})
-        elif k == LIGHT_INFINITE:
-            return None, "the constant infinite light"
         elif k == LIGHT_AREA:
             pid = int(light_prim[i])
             if int(prim_kind[pid]) == GEOM_SPHERE:
@@ -160,6 +192,11 @@ def _extract(cs, cam, icfg, scfg, fcfg, max_tris):
                            "area": float(prim_area[pid]), "two_sided": bool(light_param[i][3] > 0)})
         else:
             return None, f"lights of kind {k}"
+    if sum(lt["kind"] == LIGHT_INFINITE for lt in lights) > 1:
+        # escaped rays would take every sky row in the kernel, the first in
+        # the reference kernel and the last (infinite_light_index) in the
+        # wavefront
+        return None, "more than one infinite light"
 
     if MAT_MIX in set(static.mat_kinds_present):
         return None, "mix materials"
@@ -186,9 +223,9 @@ def _extract(cs, cam, icfg, scfg, fcfg, max_tris):
         mats[m] = entry
 
     fp = fcfg["filter_params"]
-    return {
-        "has_ns": False,
-        "has_attr": False,
+    consts = {
+        "has_ns": has_ns,
+        "has_attr": has_attr,
         "mats": mats,
         "lights": lights,
         "spheres": [],
@@ -209,11 +246,40 @@ def _extract(cs, cam, icfg, scfg, fcfg, max_tris):
         "rr_threshold": float(icfg.get("rr_threshold", 1.0)),
         "sampler": kind,
         "spp": int(scfg["spp"]),
-        "halton": None,
-        "sobol": None,
-        "maxmin": None,
+        # the film enumerations' constants, as the reference bakes them
+        "halton": ({k_: int(scfg["halton"][k_]) for k_ in ("stride", "sx", "sy")} if kind == "halton" else None),
+        "sobol": _bake_sobol(scfg["sobol"]) if kind == "sobol" else None,
+        "maxmin": _bake_maxmin(int(scfg["spp"])) if kind == "maxmindist" else None,
         "max_lum": float(fcfg.get("max_sample_luminance", float("inf"))),
-    }, None
+    }
+    if kind == "halton":
+        # the per-pixel offsets of the halton film enumeration (a device
+        # tensor, indexed by pixel id; not one of the reference's consts)
+        consts["halton_offset"] = scfg["halton"]["offset"]
+    return consts, None
+
+
+def _bake_maxmin(spp: int):
+    """The maxmindist film pair's generator matrix (sampler.maxmin_matrix)."""
+    from .sampler import maxmin_matrix
+
+    k = max(int(math.ceil(math.log2(max(spp, 1)))), 0)
+    return {"n": 1 << k, "cols": tuple(int(c) for c in maxmin_matrix(k))}
+
+
+def _bake_sobol(aux):
+    """The global-Sobol film enumeration's constants: sampler.sobol_tables'
+    dict plus the generator columns of dimensions 0-3 (film x, y; lens u, v)."""
+    from ..core.sobolmat import matrix
+
+    return {
+        "m": int(aux["m"]),
+        "res": int(aux["res"]),
+        "inv_cols": tuple(int(c) for c in aux["inv_cols"]),
+        "delta_cols": tuple(int(c) for c in aux["delta_cols"]),
+        "n_frame_bits": int(aux["n_frame_bits"]),
+        "cols": tuple(tuple(int(c) for c in matrix(d)) for d in range(4)),
+    }
 
 
 def extract_wide_consts(cs, cam, icfg, scfg, fcfg, max_tris):
@@ -255,8 +321,12 @@ def pack_wide_consts(consts) -> torch.Tensor:
     b[H_STRAT_XS] = xs
     b[H_STRAT_YS] = max(spp // xs, 1)
     b[H_WR2] = 2.0 * consts["world_radius"]
-    b[H_FXW] = consts["filter_xw"]
-    b[H_FYW] = consts["filter_yw"]
+    b[H_FXW], b[H_FYW], b[H_GK] = _filter_radii(consts)
+    b[H_FILTER] = FILTERS[consts["filter"]]
+    for key, fields in (("halton", ("stride", "sx", "sy")), ("sobol", ("m", "res", "n_frame_bits")),
+                        ("maxmin", ("n",))):
+        if consts[key] is not None:
+            b[H_SAMP:H_SAMP + len(fields)] = [consts[key][f] for f in fields]
     b[H_MAX_LUM] = consts["max_lum"]
     b[H_G7] = _gamma(7)
     b[H_LENS_R] = consts["lens_radius"]
@@ -276,6 +346,8 @@ def pack_wide_consts(consts) -> torch.Tensor:
             b[o + L_TWO_SIDED] = 1.0 if lt["two_sided"] else 0.0
             b[o + L_V:o + L_V + 9] = np.asarray(lt["v"], np.float64).ravel()
             b[o + L_NG:o + L_NG + 3] = lt["ng"]
+        elif lt["kind"] == LIGHT_INFINITE:
+            b[o + L_ENV_P] = INV_4PI * float(consts["light_pmf"][i])
     for s, m in enumerate(sorted(consts["mats"])):
         e = dict(MAT_DEFAULTS, **consts["mats"][m])
         o = MAT_BASE + s * MAT_STRIDE
@@ -291,10 +363,45 @@ def pack_wide_consts(consts) -> torch.Tensor:
     return torch.from_numpy(b.astype(np.float32))
 
 
+def _filter_radii(consts):
+    """(x radius, y radius, the gaussian's sigma * sqrt(2)) of the filter:
+    the box filter's half-widths, else the triangle's or gaussian's radii
+    (render.filter_offset's defaults)."""
+    fp = consts["filter_params"]
+    if consts["filter"] == "box":
+        return consts["filter_xw"], consts["filter_yw"], 0.0
+    r = fp.get("xwidth", 2.0)
+    return r, fp.get("ywidth", r), 1.0 / math.sqrt(2.0 * fp.get("alpha", 2.0)) * math.sqrt(2.0)
+
+
 def kernel_mode(consts) -> int:
-    """The kernel's template selector: sampler * 2 + (any area light)."""
+    """The kernel's template selector: ext * 12 + sampler * 2 + (any area
+    light), sampler as in SAMPLERS; ext = 1 selects the extended
+    instantiation, for a filter other than the box, the attribute table or
+    a constant infinite light."""
     any_area = any(lt["kind"] == LIGHT_AREA for lt in consts["lights"])
-    return SAMPLERS[consts["sampler"]] * 2 + int(any_area)
+    ext = consts["filter"] != "box" or consts["has_attr"] or any(lt["kind"] == LIGHT_INFINITE
+                                                                 for lt in consts["lights"])
+    return int(ext) * 2 * N_SAMPLER_IDS + SAMPLERS[consts["sampler"]] * 2 + int(any_area)
+
+
+def sampler_table(consts, device) -> torch.Tensor:
+    """The int32 table of the film enumeration (layout at SOB_INV above) on
+    `device`; a single zero for the samplers that need none."""
+    if consts["sampler"] == "halton":
+        return (consts["halton_offset"].to(device=device, dtype=torch.int64) & M32).to(torch.int32)
+    if consts["sampler"] == "sobol":
+        sob = consts["sobol"]
+        t = np.zeros(SOB_DELTA + 32, np.uint32)
+        t[:SOB_INV] = _sobol_cols(SOBOL_DIMS).astype(np.uint32).ravel()
+        t[SOB_INV:SOB_INV + len(sob["inv_cols"])] = sob["inv_cols"]
+        t[SOB_DELTA:SOB_DELTA + len(sob["delta_cols"])] = sob["delta_cols"]
+        return torch.as_tensor(t.view(np.int32), device=device)
+    if consts["sampler"] == "maxmindist":
+        t = np.zeros(32, np.uint32)
+        t[:len(consts["maxmin"]["cols"])] = consts["maxmin"]["cols"]
+        return torch.as_tensor(t.view(np.int32), device=device)
+    return torch.zeros(1, dtype=torch.int32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -307,18 +414,56 @@ def _power_heuristic(f, g):
     return torch.where(f > 0, f2 / torch.clamp(f2 + g2, min=1e-30), 0.0)
 
 
+def _traced_samplers(sampler: int):
+    """(sample_1d, sample_2d) of the traced (per-lane bounce) dimensions,
+    keyed by (hbase, sample, dimension) as the reference kernel keys them:
+    halton and sobol continue their sequences into these dimensions (a
+    prime base per lane, the generator columns of SOBOL_DIMS dimensions),
+    maxmindist draws them from the (0,2) sequence."""
+    if sampler == SAMPLERS["halton"]:
+        last = len(rng.PRIMES) - 2
+
+        def ri(base, hbase, s_cur, d):
+            return _wrap(rng.radical_inverse_dyn(base, s_cur) + _u2f01(_pcg(hbase ^ d)))
+
+        def sample_1d(hbase, s_cur, dim):
+            return ri(torch.clamp(2 * dim, max=last), hbase, s_cur, 2 * dim)
+
+        def sample_2d(hbase, s_cur, dim):
+            b0 = torch.clamp(2 * dim, max=last)
+            return ri(b0, hbase, s_cur, 2 * dim), ri(b0 + 1, hbase, s_cur, 2 * dim + 1)
+
+        return sample_1d, sample_2d
+    if sampler == SAMPLERS["sobol"]:
+
+        def sob(d, s_cur, scr):
+            return sobol_dim_dyn(s_cur, d, scr, SOBOL_DIMS, to_float=_u2f01)
+
+        def sample_1d(hbase, s_cur, dim):
+            return sob(2 * dim, s_cur, _pcg(hbase ^ (2 * dim)))
+
+        def sample_2d(hbase, s_cur, dim):
+            return sob(2 * dim, s_cur, _pcg(hbase ^ (2 * dim))), sob(2 * dim + 1, s_cur, _pcg(hbase ^ (2 * dim + 1)))
+
+        return sample_1d, sample_2d
+    return _samplers(sampler in (SAMPLERS["random"], SAMPLERS["stratified"]))
+
+
 def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, seed: int):
     """The kernel's estimator in plain PyTorch on any device: lanes px, py,
     pids (R,) integer tensors trace samples s0 .. s0+n_samples-1 through the
-    scene tensors sa (wide tables and the prim rows they index).
+    scene tensors sa (wide tables, attribute rows and the prim rows they
+    index).
 
     Returns (accLw (R, 3), accW (R,), n_vertices (R,)), float32."""
+    from ..render import filter_offset
+
     dev = px.device
     lights = consts["lights"]
     n_lights = len(lights)
     max_depth = consts["max_depth"]
     sampler = SAMPLERS[consts["sampler"]]
-    is_random = sampler != 0
+    is_random = sampler in (SAMPLERS["random"], SAMPLERS["stratified"])
     spp = max(int(consts["spp"]), 1)
     strat_xs = max(int(math.floor(math.sqrt(spp))), 1)
     strat_ys = max(spp // strat_xs, 1)
@@ -330,9 +475,10 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
     max_lum = consts["max_lum"]
     cap = n_samples * (max_depth + 2) + 8
     T = _MatTable(consts["mats"], dev)
-    sample_1d, sample_2d = _samplers(is_random)
+    sample_1d, sample_2d = _traced_samplers(sampler)
     g7 = _f32(_gamma(7))
     any_area = any(lt["kind"] == LIGHT_AREA for lt in lights)
+    inf_idx = next((i for i, lt in enumerate(lights) if lt["kind"] == LIGHT_INFINITE), -1)
     pmf = [_f32(x) for x in consts["light_pmf"]]
     # per light row, for the emission pickup: radiance, area, sidedness, pmf
     le_t = torch.zeros((max(n_lights, 1), 3), dtype=torch.float32, device=dev)
@@ -345,22 +491,61 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
             area_t[i] = _f32(lt["area"])
             two_t[i] = bool(lt["two_sided"])
             selp_t[i] = pmf[i]
+    if consts["has_attr"]:
+        # the attribute row of each prim: the row of its kernel slot
+        slots = sa.wslot_prim.to(torch.int64)
+        attr_row = torch.zeros(int(sa.prim_mat.shape[0]), dtype=torch.int64, device=dev)
+        attr_row[slots[slots >= 0]] = torch.nonzero(slots >= 0).squeeze(1)
+    hoff = consts["halton_offset"].to(dev)[pids.to(torch.int64)] if sampler == SAMPLERS["halton"] else None
 
-    def camera(hbase, px_f, py_f, s_sel):
-        """regen: film dimension 0 through the box filter, lens dimension 1."""
+    def film_sample(hbase, px_f, py_f, s_sel):
+        """Film dimension 0: the sampler's (u1, u2) in the pixel, and for
+        sobol the global index its lens dimensions read."""
+        sob_idx = None
+        if sampler == SAMPLERS["sobol"]:
+            sob = consts["sobol"]
+            sob_idx = sobol_global_index(sob, px.to(torch.int64), py.to(torch.int64), s_sel)
+            res = float(sob["res"])
+            x = _u2f01(_xor_columns(sob_idx, sob["cols"][0], torch.zeros_like(sob_idx))) * res - px_f
+            y = _u2f01(_xor_columns(sob_idx, sob["cols"][1], torch.zeros_like(sob_idx))) * res - py_f
+            return torch.clamp(x, 0.0, 1.0 - 1e-6), torch.clamp(y, 0.0, 1.0 - 1e-6), sob_idx
+        if sampler == SAMPLERS["maxmindist"]:
+            # x = (i + 1/2) / n rotated per pixel, y = the searched generator
+            # matrix, XOR-scrambled per pixel (sampler.maxmin_2d_dim0)
+            n_mm = consts["maxmin"]["n"]
+            i_mm = s_sel % n_mm
+            y_mm = _xor_columns(i_mm, consts["maxmin"]["cols"], torch.zeros_like(i_mm)) ^ _pcg(hbase ^ 0x51D)
+            u1 = (i_mm.to(torch.float32) + 0.5) / float(n_mm) + _u2f01(_pcg(hbase ^ 0xC9))
+            return torch.where(u1 >= 1.0, u1 - 1.0, u1), _u2f01(y_mm), None
+        if sampler == SAMPLERS["halton"]:
+            # global index = offset[pixel] + s * stride; the jitter is the
+            # fractional part of ri_2 * 2^j and ri_3 * 3^k
+            hc = consts["halton"]
+            idx = (hoff + s_sel * hc["stride"]) & M32
+            x = _u2f01(_reverse_bits(idx)) * float(hc["sx"])
+            y = rng.radical_inverse(1, idx) * float(hc["sy"])
+            return x - torch.floor(x), y - torch.floor(y), None
         if is_random:
             h = _pcg(hbase ^ s_sel)
             u1, u2 = _u2f01(_pcg(h)), _u2f01(_pcg(h ^ 1))
-            if sampler == 2:
+            if sampler == SAMPLERS["stratified"]:
                 # the reference's own strata: floor(sqrt(spp)) x spp // that,
                 # always jittered (ROADMAP C)
                 idx = s_sel % (strat_xs * strat_ys)
                 u1 = ((idx % strat_xs).to(torch.float32) + u1) / float(strat_xs)
                 u2 = (((idx // strat_xs) % strat_ys).to(torch.float32) + u2) / float(strat_ys)
+            return u1, u2, None
+        return _vdc(s_sel, _pcg(hbase)), _sobol2(s_sel, _pcg(hbase ^ 1)), None
+
+    def camera(hbase, px_f, py_f, s_sel):
+        """regen: film dimension 0 through the filter, lens dimension 1."""
+        u1, u2, sob_idx = film_sample(hbase, px_f, py_f, s_sel)
+        if consts["filter"] == "box":
+            fx = px_f + 0.5 + (2.0 * u1 - 1.0) * fxw
+            fy = py_f + 0.5 + (2.0 * u2 - 1.0) * fyw
         else:
-            u1, u2 = _vdc(s_sel, _pcg(hbase)), _sobol2(s_sel, _pcg(hbase ^ 1))
-        fx = px_f + 0.5 + (2.0 * u1 - 1.0) * fxw
-        fy = py_f + 0.5 + (2.0 * u2 - 1.0) * fyw
+            ox_, oy_, _w = filter_offset(consts["filter"], consts["filter_params"], u1, u2)
+            fx, fy = px_f + 0.5 + ox_, py_f + 0.5 + oy_
         cx = r2c[0][0] * fx + r2c[0][1] * fy + r2c[0][3]
         cy = r2c[1][0] * fx + r2c[1][1] * fy + r2c[1][3]
         cz = r2c[2][0] * fx + r2c[2][1] * fy + r2c[2][3]
@@ -369,7 +554,10 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
         dx, dy, dz = _norm3(cx * inv_w, cy * inv_w, cz * inv_w)
         if lens_r > 0:
             # thin-lens depth of field (perspective.rs generate_ray)
-            if is_random:
+            if sob_idx is not None:
+                ul1 = _u2f01(_xor_columns(sob_idx, consts["sobol"]["cols"][2], torch.zeros_like(sob_idx)))
+                ul2 = _u2f01(_xor_columns(sob_idx, consts["sobol"]["cols"][3], torch.zeros_like(sob_idx)))
+            elif is_random:
                 h = _pcg(hbase ^ s_sel)
                 ul1, ul2 = _u2f01(_pcg(h ^ 2)), _u2f01(_pcg(h ^ 3))
             else:
@@ -385,7 +573,9 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
         return o[0], o[1], o[2], wx, wy, wz
 
     def tri_attrs(prim, b1, b2):
-        """surface_interaction's flat, default-UV triangle branch."""
+        """surface_interaction's triangle branch: flat with dpdu = v1 - v0
+        without the attribute table; with it, the interpolated shading
+        normal (ng flipped to its side) and the UV chart's dpdu."""
         v = sa.tri_p[sa.prim_geom[prim].long()]  # (R, 3, 3): the prim row's vertices
         b0 = 1.0 - b1 - b2
         e1 = [v[:, 1, c] - v[:, 0, c] for c in range(3)]
@@ -394,20 +584,34 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
                                e1[0] * e2[1] - e1[1] * e2[0])
         flip = (sa.prim_flags[prim] & FLAG_FLIP_GEOM_N) != 0
         ngx, ngy, ngz = (torch.where(flip, -c, c) for c in (ngx, ngy, ngz))
-        d_dot = ngx * e1[0] + ngy * e1[1] + ngz * e1[2]
-        ssx, ssy, ssz = e1[0] - ngx * d_dot, e1[1] - ngy * d_dot, e1[2] - ngz * d_dot
+        if consts["has_attr"]:
+            a = sa.wattr_rec[attr_row[prim]]  # (R, 16): n0 n1 n2, uv0 uv1 uv2
+            nsx, nsy, nsz = _norm3(*(b0 * a[:, c] + b1 * a[:, 3 + c] + b2 * a[:, 6 + c] for c in range(3)))
+            align = torch.where((ngx * nsx + ngy * nsy + ngz * nsz) < 0, -1.0, 1.0)
+            ngx, ngy, ngz = ngx * align, ngy * align, ngz * align
+            duv1x, duv1y = a[:, 11] - a[:, 9], a[:, 12] - a[:, 10]
+            duv2x, duv2y = a[:, 13] - a[:, 9], a[:, 14] - a[:, 10]
+            det = duv1x * duv2y - duv1y * duv2x
+            degen = det.abs() <= 1e-12
+            inv_det = torch.where(degen, 0.0, 1.0 / torch.where(degen, 1.0, det))
+            dpdu = [torch.where(degen, e1[c], (duv2y * e1[c] - duv1y * e2[c]) * inv_det) for c in range(3)]
+        else:
+            nsx, nsy, nsz = ngx, ngy, ngz
+            dpdu = e1
+        d_dot = nsx * dpdu[0] + nsy * dpdu[1] + nsz * dpdu[2]
+        ssx, ssy, ssz = dpdu[0] - nsx * d_dot, dpdu[1] - nsy * d_dot, dpdu[2] - nsz * d_dot
         sl = torch.sqrt(ssx * ssx + ssy * ssy + ssz * ssz)
         ok = sl > 1e-9
         inv_sl = 1.0 / torch.clamp(sl, min=1e-20)
-        csg = torch.where(ngz >= 0, 1.0, -1.0)
-        a = -1.0 / (csg + ngz)
-        bb = ngx * ngy * a
-        ssx = torch.where(ok, ssx * inv_sl, 1.0 + csg * ngx * ngx * a)
+        csg = torch.where(nsz >= 0, 1.0, -1.0)
+        a_ = -1.0 / (csg + nsz)
+        bb = nsx * nsy * a_
+        ssx = torch.where(ok, ssx * inv_sl, 1.0 + csg * nsx * nsx * a_)
         ssy = torch.where(ok, ssy * inv_sl, csg * bb)
-        ssz = torch.where(ok, ssz * inv_sl, -csg * ngx)
-        at = {"ngx": ngx, "ngy": ngy, "ngz": ngz, "nsx": ngx, "nsy": ngy, "nsz": ngz,
+        ssz = torch.where(ok, ssz * inv_sl, -csg * nsx)
+        at = {"ngx": ngx, "ngy": ngy, "ngz": ngz, "nsx": nsx, "nsy": nsy, "nsz": nsz,
               "ssx": ssx, "ssy": ssy, "ssz": ssz,
-              "tsx": ngy * ssz - ngz * ssy, "tsy": ngz * ssx - ngx * ssz, "tsz": ngx * ssy - ngy * ssx}
+              "tsx": nsy * ssz - nsz * ssy, "tsy": nsz * ssx - nsx * ssz, "tsz": nsx * ssy - nsy * ssx}
         for c, key in enumerate("xyz"):
             at["p" + key] = b0 * v[:, 0, c] + b1 * v[:, 1, c] + b2 * v[:, 2, c]
             at["e" + key] = g7 * ((b0 * v[:, 0, c]).abs() + (b1 * v[:, 1, c]).abs() + (b2 * v[:, 2, c]).abs())
@@ -434,7 +638,7 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
         wix, wiy, wiz, lir, lig, lib, dist, spdf = (zero,) * 8
         p_l = zero
         is_delta = torch.ones(wox.shape, dtype=torch.bool, device=dev)
-        if any_area:
+        if any_area or inf_idx >= 0:
             u1, u2 = sample_2d(hbase, s_cur, dim_base + 1)
         for i, lt in enumerate(lights):
             m = lid == i
@@ -456,6 +660,11 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
                     df2 = dfall * dfall
                     fall = torch.where(cos_t < ctw, 0.0, torch.where(cos_t > cfs, 1.0, df2 * df2))
                 vals = (wxa, wya, wza, par[3] * fall / d2, par[4] * fall / d2, par[5] * fall / d2, dl, 1.0)
+            elif lt["kind"] == LIGHT_INFINITE:
+                # the constant environment: a uniform sphere direction, pdf 1/4pi
+                ws = uniform_sample_sphere(u1, u2)
+                vals = (ws[:, 0], ws[:, 1], ws[:, 2], par[3], par[4], par[5], wr2, _f32(INV_4PI))
+                is_delta = is_delta & ~m
             else:  # uniform point on one triangle area light
                 v = [[_f32(x) for x in row] for row in lt["v"]]
                 su0 = torch.sqrt(torch.clamp(u1, min=0.0))
@@ -544,6 +753,14 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
         at = tri_attrs(prim, b1, b2)
         mat = sa.prim_mat[prim].long()
         wox, woy, woz = -dx, -dy, -dz
+        if inf_idx >= 0:
+            # escaped rays pick up the constant environment with the
+            # deferred MIS weight
+            esc = alive & ~valid
+            p_env = _f32(INV_4PI * float(consts["light_pmf"][inf_idx]))
+            w_env = torch.where(prev_spec, 1.0, _power_heuristic(prev_pdf, torch.full_like(prev_pdf, p_env)))
+            par_e = [_f32(x) for x in lights[inf_idx]["par"][3:6]]
+            L = [L[ch] + torch.where(esc, beta[ch] * par_e[ch] * w_env, 0.0) for ch in range(3)]
         if any_area:
             # area-light emission with deferred MIS (diffuse.rs l())
             light_h = sa.prim_light[prim].long()
@@ -623,7 +840,7 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p]
 # The cycle split of the instrumented instantiation, in the order of its
@@ -653,13 +870,27 @@ def occupancy(mode: int) -> int:
     return nvcc.occupancy(build_kernel()["lib"].wide_megakernel_occupancy, mode)
 
 
-def _launch(entry: str, blob, mode: int, tables, px, py, pids, s0: int, n_samples: int, seed: int, *extra):
+def _launch(entry: str, blob, mode: int, tables, px, py, pids, s0: int, n_samples: int, seed: int, stab, *extra):
     dev = px.device
     if dev.type != "cuda":
         raise ValueError("wide_megakernel_cuda takes CUDA tensors")
     if blob.device != dev or blob.dtype != torch.float32 or blob.numel() != BLOB_FLOATS:
         raise ValueError(f"blob must be {BLOB_FLOATS} float32 values on {dev}")
+    if not 0 <= mode < 4 * N_SAMPLER_IDS:
+        raise ValueError(f"bad kernel mode {mode}")
     _check_tables(tables, dev)
+    sampler = (mode // 2) % N_SAMPLER_IDS
+    if stab is None:
+        if sampler in (SAMPLERS["halton"], SAMPLERS["sobol"], SAMPLERS["maxmindist"]):
+            raise ValueError("the halton, sobol and maxmindist modes need their sampler_table")
+        stab = torch.zeros(1, dtype=torch.int32, device=dev)
+    if stab.device != dev or stab.dtype != torch.int32 or not stab.is_contiguous():
+        raise ValueError(f"the sampler table must be a contiguous int32 tensor on {dev}")
+    attr = tables.wattr_rec
+    if mode >= 2 * N_SAMPLER_IDS and attr is not None and (
+            attr.device != dev or attr.dtype != torch.float32 or not attr.is_contiguous()
+            or attr.shape != tables.wleaf_rec.shape):
+        raise ValueError(f"wattr_rec must be a contiguous float32 tensor of wleaf_rec's shape on {dev}")
     R = px.shape[0]
     lanes = []
     for name, x in (("px", px), ("py", py), ("pids", pids)):
@@ -679,9 +910,11 @@ def _launch(entry: str, blob, mode: int, tables, px, py, pids, s0: int, n_sample
         counters = wide_megakernel_cuda.counters[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
     queue = torch.zeros(1, dtype=torch.int32, device=dev)  # the next unserved lane
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # the extended modes read the attribute rows when the scene has them
+    attr_ptr = attr.data_ptr() if mode >= 2 * N_SAMPLER_IDS and attr is not None else None
     err = fn(blob.data_ptr(), lanes[0].data_ptr(), lanes[1].data_ptr(), lanes[2].data_ptr(), R,
              int(seed) & M32, int(s0) & M32, int(n_samples), int(mode),
-             tables.wnode_rec.data_ptr(), tables.wleaf_rec.data_ptr(),
+             tables.wnode_rec.data_ptr(), tables.wleaf_rec.data_ptr(), attr_ptr, stab.data_ptr(),
              out_l.data_ptr(), out_w.data_ptr(), out_nv.data_ptr(), pops.data_ptr(), counters.data_ptr(),
              queue.data_ptr(), stream, *(x.data_ptr() for x in extra))
     if err != 0:
@@ -689,28 +922,31 @@ def _launch(entry: str, blob, mode: int, tables, px, py, pids, s0: int, n_sample
     return out_l, out_w, out_nv
 
 
-def wide_megakernel_cuda(blob, mode: int, tables, px, py, pids, s0: int, n_samples: int, seed: int):
+def wide_megakernel_cuda(blob, mode: int, tables, px, py, pids, s0: int, n_samples: int, seed: int, stab=None):
     """Launch the CUDA kernel on the current stream. blob: pack_wide_consts's
     float32 tensor on the lanes' device; mode: kernel_mode(consts); tables:
-    the scene tensors holding the wide BVH's wnode_rec and wleaf_rec; px, py,
-    pids: (R,) integer CUDA tensors. Returns (accLw (R, 3), accW (R,),
+    the scene tensors holding the wide BVH's wnode_rec and wleaf_rec (and
+    wattr_rec, read by the extended modes); px, py, pids: (R,) integer CUDA
+    tensors; stab: sampler_table(consts) on the device (required by the
+    halton, sobol and maxmindist modes; the halton offsets cover every pixel
+    id in pids). Returns (accLw (R, 3), accW (R,),
     n_vertices (R,)) float32. Adds one to ``wide_megakernel_cuda.launches``
     per launch; the closest-hit and shadow pops accumulate in
     ``wide_megakernel_cuda.pops[device]`` (int64 (2,)), stack overflows and
     iteration-cap hits in ``wide_megakernel_cuda.counters[device]`` (int32
     (2,)); raises on a refused launch."""
-    out = _launch("wide_megakernel", blob, mode, tables, px, py, pids, s0, n_samples, seed)
+    out = _launch("wide_megakernel", blob, mode, tables, px, py, pids, s0, n_samples, seed, stab)
     wide_megakernel_cuda.launches += 1
     return out
 
 
 def wide_megakernel_split(blob, mode: int, tables, px, py, pids, s0: int, n_samples: int, seed: int):
     """wide_megakernel_cuda through the instrumented instantiation, which
-    exists for mode 1 only ((0,2) sampler, area lights) and which no route
+    exists for mode 1 only ((0,2) sampler, box filter, area lights) and which no route
     launches: returns (accLw, accW, n_vertices, split), split mapping
     SPLIT_FIELDS to cycle counts summed over the launch."""
     prof = torch.zeros(len(SPLIT_FIELDS), dtype=torch.int64, device=px.device)
-    out = _launch("wide_megakernel_split", blob, mode, tables, px, py, pids, s0, n_samples, seed, prof)
+    out = _launch("wide_megakernel_split", blob, mode, tables, px, py, pids, s0, n_samples, seed, None, prof)
     return (*out, dict(zip(SPLIT_FIELDS, prof.tolist())))
 
 
@@ -724,8 +960,8 @@ def make_wide_megakernel_fn(cs, cam, icfg, scfg, fcfg, max_tris, consts=None):
     megakernel: fn(sa, px, py, pids, s0, n_samples, seed) -> (accLw (R, 3),
     accW (R,), n_vertices (R,)), or None if the scene is outside the class.
     CUDA lanes launch the kernel, CPU lanes run the plain twin; there is no
-    fallback from one to the other. fn.blob (on the scene's device) and
-    fn.mode are the kernel's arguments for the scene's consts."""
+    fallback from one to the other. fn.blob, fn.stab (on the scene's device)
+    and fn.mode are the kernel's arguments for the scene's consts."""
     if consts is None:
         consts = extract_wide_consts(cs, cam, icfg, scfg, fcfg, max_tris)
     if consts is None:
@@ -734,19 +970,22 @@ def make_wide_megakernel_fn(cs, cam, icfg, scfg, fcfg, max_tris, consts=None):
     mode = kernel_mode(consts)
     # uploaded here, not in the first launch, so a render's timed loop holds
     # only the launch
-    blobs = {cs.arrays.device: blob_cpu.to(cs.arrays.device)}
+    dev0 = cs.arrays.device
+    blobs = {dev0: blob_cpu.to(dev0)}
+    stabs = {dev0: sampler_table(consts, dev0)}
 
     def wave_p(sa, px, py, pixel_ids, s0, n_samples, seed):
         if px.device.type == "cuda":
-            blob = blobs.get(px.device)
-            if blob is None:
-                blob = blobs[px.device] = blob_cpu.to(px.device)
-            return wide_megakernel_cuda(blob, mode, sa, px, py, pixel_ids, s0, n_samples, seed)
+            if px.device not in blobs:
+                blobs[px.device] = blob_cpu.to(px.device)
+                stabs[px.device] = sampler_table(consts, px.device)
+            return wide_megakernel_cuda(blobs[px.device], mode, sa, px, py, pixel_ids, s0, n_samples, seed,
+                                        stabs[px.device])
         if px.device.type == "cpu":
             return wide_megakernel_plain(consts, sa, px, py, pixel_ids, s0, n_samples, seed)
         raise ValueError(f"the wide megakernel has no implementation for device {px.device}")
 
     # what the launch takes, for tools that time or instrument the route's
     # own launch (chip_smoke.py, tools/torch_phases.py)
-    wave_p.blob, wave_p.mode = blobs[cs.arrays.device], mode
+    wave_p.blob, wave_p.mode, wave_p.stab = blobs[dev0], mode, stabs[dev0]
     return wave_p

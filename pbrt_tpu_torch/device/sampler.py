@@ -88,9 +88,10 @@ def _sobol_cols(max_dim: int) -> np.ndarray:
     return np.stack([matrix(k) for k in range(max_dim)])
 
 
-def sobol_dim_dyn(sample_idx, dim, scramble, max_dim: int = 64):
+def sobol_dim_dyn(sample_idx, dim, scramble, max_dim: int = 64, to_float=rng.u32_to_float):
     """Sobol' sample with a per-lane dimension: the generator columns of the
-    first max_dim dimensions, gathered per lane (sampler.sobol_dim_dyn)."""
+    first max_dim dimensions, gathered per lane (sampler.sobol_dim_dyn);
+    to_float converts the scrambled uint32 to [0, 1)."""
     table = rng.device_table(f"sobol_cols_{max_dim}", lambda: _sobol_cols(max_dim), dim.device)
     cols = table[torch.clamp(dim.to(torch.int64), 0, max_dim - 1)]  # (..., 32)
     idx = rng._u32(sample_idx)
@@ -98,7 +99,7 @@ def sobol_dim_dyn(sample_idx, dim, scramble, max_dim: int = 64):
     res = res + rng._u32(scramble)
     for j in range(32):
         res = res ^ (((idx >> j) & 1) * cols[..., j])
-    return rng.u32_to_float(res)
+    return to_float(res)
 
 
 # ---------------------------------------------------------------------------

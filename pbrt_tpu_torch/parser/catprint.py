@@ -54,19 +54,19 @@ def format_directive(d: Directive) -> str:
 
 def _write_ply(path: str, p: np.ndarray, indices: np.ndarray, n=None, uv=None, double: bool = False) -> None:
     """Minimal binary-little-endian PLY writer (plymesh.rs counterpart).
-    double: positions as float64 ("property double"), so a mesh made in
-    float64 reads back bit for bit; --toply writes float32, as the
-    reference does."""
+    double: positions, normals and UVs as float64 ("property double"), so a
+    mesh made in float64 reads back bit for bit; --toply writes float32, as
+    the reference does."""
     nv = len(p)
-    pt = "double" if double else "float"
+    pt, ft = ("double", "<f8") if double else ("float", "<f4")
     props = [f"property {pt} x", f"property {pt} y", f"property {pt} z"]
-    cols = [np.asarray(p, "<f8" if double else "<f4")]
+    cols = [np.asarray(p, ft)]
     if n is not None and len(n) == nv:
-        props += ["property float nx", "property float ny", "property float nz"]
-        cols.append(np.asarray(n, "<f4"))
+        props += [f"property {pt} nx", f"property {pt} ny", f"property {pt} nz"]
+        cols.append(np.asarray(n, ft))
     if uv is not None and len(uv) == nv:
-        props += ["property float u", "property float v"]
-        cols.append(np.asarray(uv, "<f4"))
+        props += [f"property {pt} u", f"property {pt} v"]
+        cols.append(np.asarray(uv, ft))
     header = (
         "ply\nformat binary_little_endian 1.0\n"
         f"element vertex {nv}\n" + "\n".join(props) + "\n"

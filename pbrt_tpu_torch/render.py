@@ -10,7 +10,9 @@ reference's order:
   launch;
 - the wide megakernel (device/megakernel_wide.py) for path-traced scenes
   of its class when PBRT_TPU_WIDEMEGA=1 (PBRT_TPU_WIDEMEGA_MAX_TRIS sets
-  its triangle cap, default 4096); one launch per render as well;
+  its triangle cap, default 4096); one launch per render as well, under
+  the halton and sobol samplers from the same film tables as the
+  wavefront's;
 - the persistent wavefront (device/integrator.py) otherwise, in spp chunks
   of PERSISTENT_SPP_CHUNK = 8 (the reference mesh tier's accumulation
   granularity): brute-force intersection for scenes of at most 64 prims,
@@ -170,8 +172,9 @@ def make_persistent_fn(cs: CompiledScene, cam=None):
     seed) -> (accLw, accW, n_vertices), all on the scene's device.
 
     Sets LAST_PERSISTENT_TIER to the route that will execute. The
-    wavefront's tables (the spatial light distribution, the material lobe
-    table) are built here, once, on the scene's device."""
+    halton and sobol film tables (for the wide megakernel and the
+    wavefront) and the wavefront's tables (the spatial light distribution,
+    the material lobe table) are built here, once, on the scene's device."""
     global LAST_PERSISTENT_TIER
     desc = cs.description
     dev = cs.arrays.device

@@ -3,7 +3,8 @@
 The port's counterpart of ``pbrt_tpu/scene/arrays.py``: the same id
 constants and the same table layouts, holding only the fields the ported
 slices read: triangle meshes and full spheres, the material rows, the
-light rows and, for scenes above the brute-force size, the wide BVH.
+light rows, the image-mapped infinite light's tables and, for scenes above
+the brute-force size, the wide BVH with its attribute table.
 
 - ``SceneTensors``: torch tensors, all on one device.
 - ``SceneStatic``: Python-level counts and flags that shape the program.
@@ -22,7 +23,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from .widebvh import hopper_layout
+from .widebvh import hopper_layout, hopper_rows
 
 # geometry type ids
 GEOM_TRI = 0
@@ -120,15 +121,25 @@ _TABLE_DTYPES = {
     "world_radius": torch.float32,  # ()
 }
 
+# the image-mapped infinite light: None without one
+_ENV_DTYPES = {
+    "env_image": torch.float32,  # (H, W, 3) the map times L
+    "env_cond_cdf": torch.float32,  # (H, W + 1) per-row conditional CDFs
+    "env_marg_cdf": torch.float32,  # (H + 1,) marginal CDF over rows
+    "env_w2l": torch.float32,  # (3, 4) world -> light
+}
+
 # the wide-BVH tables: None for a brute-force scene, which has none
 _WIDE_DTYPES = {
     "wnode_tab": torch.float32,  # (ceil(Nw/8)*8, 128) wide-BVH node boxes
     "wprim_tab": torch.float32,  # (ceil(n_oct/8)*8, 128) leaf triangles
     "wmeta_tab": torch.int32,  # (n_nodes*8,) packed child metas
     "wslot_prim": torch.int32,  # (n_oct*8,) kernel slot -> prim row
+    "wattr_tab": torch.float32,  # prim_tab-shaped: n0 n1 n2 (9), uv0 uv1 uv2 (6); None if flat, default UVs
 }
-# derived from the wide tables above (widebvh.hopper_layout); not reference tables
-HOPPER_TABLES = ("wnode_rec", "wleaf_rec")
+# derived from the wide tables above (widebvh.hopper_layout, hopper_rows);
+# not reference tables
+HOPPER_TABLES = ("wnode_rec", "wleaf_rec", "wattr_rec")
 
 
 @dataclass
@@ -157,12 +168,18 @@ class SceneTensors:
     light_prim: torch.Tensor
     world_center: torch.Tensor
     world_radius: torch.Tensor
+    env_image: torch.Tensor | None = None
+    env_cond_cdf: torch.Tensor | None = None
+    env_marg_cdf: torch.Tensor | None = None
+    env_w2l: torch.Tensor | None = None
     wnode_tab: torch.Tensor | None = None
     wprim_tab: torch.Tensor | None = None
     wmeta_tab: torch.Tensor | None = None
     wslot_prim: torch.Tensor | None = None
+    wattr_tab: torch.Tensor | None = None
     wnode_rec: torch.Tensor | None = None  # (n_nodes, 64) f32 node records
     wleaf_rec: torch.Tensor | None = None  # (n_oct*8, 16) f32 leaf rows, row = kernel slot
+    wattr_rec: torch.Tensor | None = None  # (n_oct*8, 16) f32 attribute rows, row = kernel slot
 
     @property
     def device(self) -> torch.device:
@@ -191,6 +208,8 @@ class SceneStatic:
     light_n_samples: tuple = ()  # per-light "nsamples" (directlighting's UniformSampleAll arrays)
     has_area_lights: bool = False
     has_infinite: bool = False
+    infinite_light_index: int = -1  # the infinite light's row
+    has_env_map: bool = False  # ... and it is image-mapped
     use_brute_force: bool = False  # n_prims <= 64: brute-force intersection, no BVH tables
     n_media: int = 0
     has_motion: bool = False
@@ -207,11 +226,14 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
     for name, dtype in _TABLE_DTYPES.items():
         # np.array copies: reference arrays may be read-only views
         tensors[name] = torch.as_tensor(np.array(arrays[name]), dtype=dtype, device=device)
-    for name, dtype in _WIDE_DTYPES.items():
+    for name, dtype in {**_ENV_DTYPES, **_WIDE_DTYPES}.items():
         if arrays.get(name) is not None:
             tensors[name] = torch.as_tensor(np.array(arrays[name]), dtype=dtype, device=device)
     if arrays.get("wnode_tab") is not None:
         recs = hopper_layout(*(np.asarray(arrays[n]) for n in ("wnode_tab", "wprim_tab", "wmeta_tab")))
+        if arrays.get("wattr_tab") is not None:
+            # one attribute row per kernel slot, beside the slot's leaf row
+            recs = (*recs, hopper_rows(np.asarray(arrays["wattr_tab"])))
         for name, rec in zip(HOPPER_TABLES, recs):
             tensors[name] = torch.as_tensor(rec, device=device)
     st = SceneStatic(**{f.name: static[f.name] for f in fields(SceneStatic)})

@@ -8,7 +8,8 @@ two scene classes:
 - the brute-force class (at most BRUTE_FORCE_MAX_PRIMS prims, no BVH
   tables): static triangle meshes and full or partial spheres.
 
-Both take point, spot and distant lights and area lights on triangles;
+Both take point, spot, distant and infinite lights (constant, or
+image-mapped through ``mapname``) and area lights on triangles;
 matte (Lambert or Oren-Nayar), mirror, glass, metal and plastic with
 constant parameters; the (0,2), random, stratified, halton, sobol and
 maxmindist samplers; a perspective camera and every pixel filter; the path
@@ -32,12 +33,13 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..core.spectrum import copper_eta_k_rgb
+from ..core.spectrum import copper_eta_k_rgb, y_of_rgb
 from .arrays import (
     GEOM_SPHERE,
     GEOM_TRI,
     LIGHT_AREA,
     LIGHT_DISTANT,
+    LIGHT_INFINITE,
     LIGHT_POINT,
     LIGHT_SPOT,
     MAT_IDS,
@@ -110,7 +112,7 @@ def _check_slice(desc: SceneDescription) -> None:
     brute = _count_prims(desc) <= BRUTE_FORCE_MAX_PRIMS
     route = "scenes of <= 64 primitives" if brute else "scenes of > 64 primitives"
     for light in desc.lights:
-        if light.kind not in ("point", "spot", "distant"):
+        if light.kind not in ("point", "spot", "distant", "infinite"):
             _unsupported(f"'{light.kind}' lights")
     if desc.media or desc.camera_medium:
         _unsupported("participating media")
@@ -207,9 +209,12 @@ def _compile_material(mat: HostMaterial):
 
 
 def _compile_light(hl):
-    """Point / spot / distant HostLight -> (kind, params (12,)), as the
-    reference's light loop writes them (scene/builder.py:361-404)."""
+    """Point / spot / distant / infinite HostLight -> (kind, params (12,)),
+    as the reference's light loop writes them (scene/builder.py:361-410)."""
     p = np.zeros(12)
+    if hl.kind == "infinite":
+        p[3:6] = hl.intensity
+        return LIGHT_INFINITE, p
     if hl.kind == "point":
         p[0:3] = hl.from_point
         p[3:6] = hl.intensity
@@ -228,6 +233,35 @@ def _compile_light(hl):
     p[0:3] = d
     p[3:6] = hl.intensity
     return LIGHT_DISTANT, p
+
+
+def _env_tables(hl):
+    """The image-mapped infinite light's tables (reference builder
+    :953-978): the map scaled by L, the luminance x sin(theta) 2D
+    distribution as per-row conditional CDFs (H, W + 1) and the marginal
+    CDF (H + 1,) (infinite.rs:81, sampling.rs Distribution2D), the
+    world -> light rows (3, 4), and the map's mean, which replaces the
+    light row's radiance (read only by the power heuristics)."""
+    scale = np.asarray(hl.intensity, np.float64) if hl.intensity is not None else np.ones(3)
+    img = np.asarray(hl.image, dtype=np.float64) * scale[None, None, :]
+    h, w, _ = img.shape
+    theta = (np.arange(h) + 0.5) / h * np.pi
+    f = y_of_rgb(img) * np.sin(theta)[:, None]
+    row_sum = f.sum(axis=1)
+    cond = np.zeros((h, w + 1))
+    cond[:, 1:] = np.cumsum(f, axis=1)
+    cond_int = cond[:, -1:].copy()
+    cond = np.where(cond_int > 0, cond / np.maximum(cond_int, 1e-30), np.linspace(0, 1, w + 1)[None, :])
+    marg = np.zeros(h + 1)
+    marg[1:] = np.cumsum(row_sum)
+    marg = marg / max(marg[-1], 1e-30)
+    tables = {
+        "env_image": img.astype(np.float32),
+        "env_cond_cdf": cond.astype(np.float32),
+        "env_marg_cdf": marg.astype(np.float32),
+        "env_w2l": hl.light_to_world.m_inv[:3, :].astype(np.float32),
+    }
+    return tables, img.mean(axis=(0, 1))
 
 
 def _geom_to_prim_map(prim_kind, prim_geom, kind_id, n_geom):
@@ -251,10 +285,14 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
     mat_rows: list[tuple] = []
     lights: list[tuple] = []  # (kind, params(12,), prim_id, nsamples)
 
-    # non-area lights first, in description order
+    # non-area lights first, in description order; the last infinite light
+    # is the scene's environment, as in the reference
+    infinite_host = None
     for hl in desc.lights:
         kind, p = _compile_light(hl)
         lights.append((kind, p, -1, max(int(hl.n_samples), 1)))
+        if kind == LIGHT_INFINITE:
+            infinite_host = hl
 
     for prim in desc.primitives:
         key = id(prim.material)
@@ -412,6 +450,11 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         "world_center": wc.astype(np.float32),
         "world_radius": np.float32(wr),
     }
+    inf_idx = max((i for i, l in enumerate(lights) if l[0] == LIGHT_INFINITE), default=-1)
+    if infinite_host is not None and infinite_host.image is not None:
+        env, mean = _env_tables(infinite_host)
+        arrays.update(env)
+        arrays["light_param"][inf_idx, 3:6] = mean
     wide_root = 1
     if not use_brute:
         # --- wide BVH over the (permuted) triangle rows -----------------------
@@ -421,11 +464,23 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
             np.asarray(prim_light, np.float32),
             np.asarray(prim_flags, np.float32),
         ], axis=1)
-        tv = tri_p_cat[np.asarray(prim_geom)]
+        pg = np.asarray(prim_geom)
+        tv = tri_p_cat[pg]
+        # the attribute table (reference builder :1118-1139), built when some
+        # prim has shading normals or a non-default UV chart: lanes 0:9 the
+        # per-vertex normals n0/n1/n2, 9:15 uv0/uv1/uv2, in the prim table's
+        # (octet, slot) layout
+        attr = None
+        tn, tuv = arrays["tri_n"][pg], arrays["tri_uv"][pg]
+        need_ns = bool((np.asarray(prim_flags, np.int64) & FLAG_HAS_SHADING_N).any())
+        need_uv = bool(tuv.shape[0]) and not np.array_equal(
+            tuv, np.broadcast_to(np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0]], tuv.dtype), tuv.shape))
+        if need_ns or need_uv:
+            attr = np.concatenate([tn.reshape(n_prims, 9), tuv.reshape(n_prims, 6)], axis=1).astype(np.float32)
         wide = build_wide_bvh(np.asarray(prim_lo), np.asarray(prim_hi), tv[:, 0], tv[:, 1], tv[:, 2],
-                              extra_cols=extra)
+                              extra_cols=extra, attr_cols=attr)
         arrays.update(wnode_tab=wide.node_tab, wprim_tab=wide.prim_tab, wmeta_tab=wide.meta_tab,
-                      wslot_prim=wide.slot_prim)
+                      wslot_prim=wide.slot_prim, wattr_tab=wide.attr_tab)
         wide_root = wide.root
     static = {
         "n_tris": len(tri_p_cat),
@@ -436,7 +491,9 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         "light_kinds": tuple(int(l[0]) for l in lights),
         "light_n_samples": tuple(l[3] for l in lights),
         "has_area_lights": any(l[0] == LIGHT_AREA for l in lights),
-        "has_infinite": False,
+        "has_infinite": inf_idx >= 0,
+        "infinite_light_index": inf_idx,
+        "has_env_map": "env_image" in arrays,
         "use_brute_force": use_brute,
         "n_media": 0,
         "has_motion": False,

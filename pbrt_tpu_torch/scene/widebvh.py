@@ -50,6 +50,9 @@ layout stays what compile_scene builds and the table tests compare):
   index = kernel slot, and leaf L's rows in the reference's order j (octet
   2L rows 0-7, then octet 2L+1 rows 0-7) are the 1,024 contiguous bytes
   from row 16L; its n valid rows are rows 16L .. 16L + n - 1.
+- attribute rows, ``(n_octets * 8, 16)`` f32 (``hopper_rows`` of the
+  attribute table): row = kernel slot, as the leaf rows, so a walk's winner
+  reads its normals and UVs at the leaf row's own offset.
 """
 from __future__ import annotations
 
@@ -308,16 +311,23 @@ def leaf_row_offset(slot):
     return slot * ROW
 
 
+def hopper_rows(tab: np.ndarray) -> np.ndarray:
+    """A prim_tab-shaped table (the prim table, or the attribute table) as
+    (n_octets * 8, 16) f32 rows, row = kernel slot ``oct * 8 + k``."""
+    pb = tab.shape[0] // 8
+    return np.ascontiguousarray(tab.reshape(pb, 8, 8, 16).transpose(0, 2, 1, 3).reshape(pb * 64, ROW),
+                                dtype=np.float32)
+
+
 def hopper_layout(node_tab: np.ndarray, prim_tab: np.ndarray, meta_tab: np.ndarray):
     """(node records (n_nodes, 64) f32, leaf rows (n_octets * 8, 16) f32)
     from the reference tables, n_nodes = len(meta_tab) // 8 and n_octets =
     every octet the prim table's blocks hold."""
     n_nodes = len(meta_tab) // WIDE
-    nb, pb = node_tab.shape[0] // 8, prim_tab.shape[0] // 8
+    nb = node_tab.shape[0] // 8
     # (block, child row, node in block, lane) -> (node, child, lane)
     nodes = node_tab.reshape(nb, 8, 8, 16).transpose(0, 2, 1, 3).reshape(nb * 8, 8, 16)[:n_nodes, :, :8]
-    rows = np.ascontiguousarray(prim_tab.reshape(pb, 8, 8, 16).transpose(0, 2, 1, 3).reshape(pb * 64, ROW),
-                                dtype=np.float32)
+    rows = hopper_rows(prim_tab)
     valid = (rows[:, 9] > 0).reshape(-1, LEAF_ROWS)
     n_valid = valid.sum(axis=1)
     # a leaf's valid rows are its first n (build_wide_bvh fills octet o, then o + 1)

@@ -20,6 +20,12 @@ lights and a delta light, a partial sphere and pbrt's default 'spatial'
 light distribution in one render. The brute megakernel refuses its area
 lights, so it renders through the brute wavefront.
 
+``sky_meshes`` is the open scene of the wide megakernel's class with pbrt's
+defaults: a displaced ground grid and four UV-sphere meshes with analytic
+per-vertex normals and a UV chart (matte, plastic, copper metal, glass)
+under a constant infinite light and a distant sun; halton with the gaussian
+filter, power light selection.
+
 ``write_pbrt`` writes a triangle-mesh scene of these out as a .pbrt file,
 each mesh as a binary PLY beside it, so the front end can be driven with
 the same scenes (``python -m pbrt_tpu_torch``).
@@ -235,6 +241,67 @@ def area_box() -> SceneDescription:
     )
 
 
+def _uv_sphere(center, radius, n_theta, n_phi):
+    """UV-sphere mesh (tests/test_megakernel_wide.py _uv_sphere) with
+    analytic per-vertex normals and the (phi / 2pi, theta / pi) chart:
+    2 n_phi (n_theta - 1) triangles."""
+    th = np.linspace(0.0, np.pi, n_theta + 1)
+    ph = np.linspace(0.0, 2 * np.pi, n_phi, endpoint=False)
+    gt, gp = np.meshgrid(th, ph, indexing="ij")
+    norms = np.stack([np.sin(gt) * np.cos(gp), np.cos(gt), np.sin(gt) * np.sin(gp)], axis=-1).reshape(-1, 3)
+    uv = np.stack([gp / (2 * np.pi), gt / np.pi], axis=-1).reshape(-1, 2)
+    idx = []
+    for i in range(n_theta):
+        for j in range(n_phi):
+            a = i * n_phi + j
+            b = i * n_phi + (j + 1) % n_phi
+            c = (i + 1) * n_phi + j
+            d = (i + 1) * n_phi + (j + 1) % n_phi
+            if i > 0:
+                idx.append([a, c, b])
+            if i < n_theta - 1:
+                idx.append([b, c, d])
+    return TriangleMesh(p=np.asarray(center, np.float64) + radius * norms, indices=np.asarray(idx, np.int32),
+                        n=norms, uv=uv)
+
+
+# the parser's parameters of a bare PixelFilter "gaussian"
+GAUSSIAN_DEFAULTS = {"xwidth": 2.0, "ywidth": 2.0, "alpha": 2.0, "B": 1.0 / 3.0, "C": 1.0 / 3.0, "tau": 3.0}
+# (eye, look, up) of sky_meshes' camera
+SKY_LOOK_AT = ([0.0, 1.7, 7.5], [0.0, 0.3, 0.0], [0, 1, 0])
+
+
+def sky_meshes(n_ground: int = 24, n_theta: int = 14, n_phi: int = 20) -> SceneDescription:
+    """The 1000x500, 16 spp, depth-5 sky scene: a 2 n_ground^2-triangle
+    displaced ground and four spheres of 2 n_phi (n_theta - 1) triangles
+    each (3,232 triangles at the defaults, under the wide megakernel's cap
+    of 4,096)."""
+    ground = HostPrimitive(
+        shape=ShapeRecord(mesh=TriangleMesh(*_grid_mesh(
+            lambda x, z: (x, 0.35 * np.sin(0.9 * x) * np.cos(0.7 * z) - 1.0, z), -12, 12, -12, 12, n_ground))),
+        material=HostMaterial(kind="matte", params={"Kd": _const([0.5, 0.45, 0.35])}))
+    materials = [
+        HostMaterial(kind="matte", params={"Kd": _const([0.7, 0.25, 0.2])}),
+        HostMaterial(kind="plastic", params={"Kd": _const([0.2, 0.35, 0.6]), "Ks": _const([0.4, 0.4, 0.4]),
+                                             "roughness": ("const", 0.1)}),
+        HostMaterial(kind="metal", params={"roughness": ("const", 0.05)}),
+        HostMaterial(kind="glass", params={}),
+    ]
+    spheres = [HostPrimitive(shape=ShapeRecord(mesh=_uv_sphere([x, -0.1, z], 0.9, n_theta, n_phi)), material=m)
+               for (x, z), m in zip(((-3.0, -0.5), (-1.0, 0.5), (1.0, -0.5), (3.0, 0.5)), materials)]
+    return SceneDescription(
+        primitives=[ground] + spheres,
+        lights=[HostLight(kind="infinite", intensity=np.array([0.4, 0.5, 0.7])),
+                HostLight(kind="distant", from_point=np.array([3.0, 8.0, 2.0]), to_point=np.zeros(3),
+                          intensity=np.array([2.5, 2.3, 2.0]))],
+        camera=CameraConfig(kind="perspective", camera_to_world=Transform.look_at(*SKY_LOOK_AT), fov=45.0),
+        film=FilmConfig(x_resolution=1000, y_resolution=500, filter_name="gaussian",
+                        filter_params=dict(GAUSSIAN_DEFAULTS)),
+        sampler=SamplerConfig(kind="halton", pixel_samples=16),
+        integrator=IntegratorConfig(kind="path", max_depth=5, light_strategy="power"),
+    )
+
+
 def _fmt(values) -> str:
     return " ".join(repr(float(v)) for v in np.ravel(values))
 
@@ -245,9 +312,10 @@ def _param(name, src) -> str:
 
 
 def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True) -> None:
-    """Write a scene of triangle meshes with constant-parameter materials,
-    area lights on meshes and point, spot and distant lights as a .pbrt
-    file: a LookAt camera (look_at = (eye, look, up), the one the
+    """Write a scene of triangle meshes (with their normals and UVs) with
+    constant-parameter materials, area lights on meshes, point, spot and
+    distant lights and infinite lights (a map named by its file name,
+    relative to the .pbrt file) as a .pbrt file: a LookAt camera (look_at = (eye, look, up), the one the
     description's camera was made with), the film, pixel filter, integrator
     and, when `sampler`, the Sampler directive (without it the file gets
     pbrt's default, halton at 16 spp). Mesh i goes into mesh_<i>.ply beside
@@ -276,6 +344,11 @@ def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True)
                      if hl.kind == "spot" else "")
             out.append(f'LightSource "{hl.kind}" "point from" [{_fmt(hl.from_point)}] "point to" [{_fmt(hl.to_point)}] '
                        f'"rgb {field}" [{_fmt(hl.intensity)}]{extra}')
+        elif hl.kind == "infinite":
+            if not np.array_equal(hl.light_to_world.m, np.eye(4)):
+                raise NotImplementedError("write_pbrt writes infinite lights with the identity transform only")
+            mapname = f' "string mapname" "{hl.map_name}"' if hl.map_name else ""
+            out.append(f'LightSource "infinite" "rgb L" [{_fmt(hl.intensity)}]{mapname}')
         else:
             raise NotImplementedError(f"write_pbrt does not write '{hl.kind}' lights")
     for i, prim in enumerate(desc.primitives):
@@ -283,7 +356,8 @@ def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True)
         if mesh is None:
             raise NotImplementedError("write_pbrt writes triangle meshes only")
         fname = f"mesh_{i}.ply"
-        _write_ply(os.path.join(os.path.dirname(os.path.abspath(path)), fname), mesh.p, mesh.indices, double=True)
+        _write_ply(os.path.join(os.path.dirname(os.path.abspath(path)), fname), mesh.p, mesh.indices, n=mesh.n,
+                   uv=mesh.uv, double=True)
         out.append("AttributeBegin")
         mat = prim.material
         out.append(" ".join([f'  Material "{mat.kind}"'] + [_param(k, v) for k, v in mat.params.items()]))

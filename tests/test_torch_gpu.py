@@ -17,7 +17,9 @@ twins with the reference megakernels' image tolerances
 of its modes. B3's and B4's persistent grids are also run on fewer lanes
 than they have path slots, to show that their pixel counters serve every
 lane exactly once, and B3's instrumented instantiation is held to the
-kernel bit for bit.
+kernel bit for bit. B4 runs under every sampler of its class, the
+extended instantiations (filters, attribute rows, constant sky) on
+sky_meshes.
 """
 import numpy as np
 import pytest
@@ -26,8 +28,9 @@ import torch
 from pbrt_tpu_torch import render
 from pbrt_tpu_torch.device import megakernel, megakernel_wide, wide_bvh
 from pbrt_tpu_torch.device.camera import make_camera
+from pbrt_tpu_torch.device.sampler import halton_tables, sobol_tables
 from pbrt_tpu_torch.scene.builder import compile_scene
-from pbrt_tpu_torch.scenes import area_box, material_room, mesh_room, spheres_gallery
+from pbrt_tpu_torch.scenes import GAUSSIAN_DEFAULTS, area_box, material_room, mesh_room, sky_meshes, spheres_gallery
 
 
 @pytest.fixture
@@ -284,6 +287,71 @@ def test_wide_megakernel_pixel_queue(cuda_device, n_lanes, spp):
     assert torch.equal(w, torch.full((n_lanes,), float(spp)))
     assert megakernel_wide.wide_megakernel_cuda.counters[cuda_device].tolist() == [0, 0]
     L_p, w_p, nv_p = megakernel_wide.wide_megakernel_plain(consts, cs.arrays, *lanes, 0, spp, 3)
+    assert torch.equal(w, w_p)
+    assert L_p.mean().item() > 0
+    assert abs(float(nv.double().sum()) - float(nv_p.double().sum())) <= 6
+    diff = (L - L_p).abs()
+    assert (diff / (L_p.abs() + 1e-2)).max().item() < 2e-2
+    assert diff.mean().item() < 1e-4
+
+
+_WIDE_CASES = {}
+
+
+def _wide_case(scene, sampler, filt):
+    """sky_meshes (the attribute table and a constant sky: the extended
+    instantiations) or material_room (flat, no sky) under a sampler and
+    filter, compiled on the host once, with its B4 constants; the halton
+    and sobol film tables are the full film's."""
+    key = (scene, sampler, filt)
+    if key not in _WIDE_CASES:
+        desc = sky_meshes() if scene == "sky" else material_room()
+        W, H, spp = desc.film.x_resolution, desc.film.y_resolution, 3
+        cs = compile_scene(desc, "cpu")
+        scfg = {"kind": sampler, "spp": spp}
+        if sampler == "halton":
+            scfg["halton"] = halton_tables(W, H, "cpu")
+        if sampler == "sobol":
+            scfg["sobol"] = sobol_tables(W, H, spp)
+        params = dict(GAUSSIAN_DEFAULTS) if filt == "gaussian" else {"xwidth": 1.5} if filt == "triangle" else {}
+        icfg = {"kind": "path", "max_depth": 5, "rr_threshold": 1.0, "light_strategy": "power"}
+        consts = megakernel_wide.extract_wide_consts(
+            cs, make_camera(desc.camera, desc.film, "cpu"), icfg, scfg,
+            {"filter": filt, "filter_params": params, "max_sample_luminance": float("inf")},
+            megakernel_wide.DEFAULT_MAX_TRIS)
+        assert consts is not None
+        _WIDE_CASES[key] = (cs, consts, W, H, spp)
+    return _WIDE_CASES[key]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_lanes", [37, 1000])
+@pytest.mark.parametrize("scene,sampler,filt", [
+    ("sky", "halton", "gaussian"), ("sky", "sobol", "triangle"), ("sky", "maxmindist", "box"),
+    ("room", "halton", "box"), ("room", "sobol", "box"), ("room", "maxmindist", "box")])
+def test_wide_megakernel_samplers_match_plain(cuda_device, scene, sampler, filt, n_lanes):
+    """B4 under the halton, sobol and maxmindist samplers, on sky_meshes
+    (the extended instantiations: gaussian or triangle filter, attribute
+    rows, constant sky) and on material_room (flat, no sky): every lane is
+    served once, no stack overflow or iteration cap, and the image is the
+    twin's within chip_smoke phase 11's tolerance."""
+    cs, consts, W, H, spp = _wide_case(scene, sampler, filt)
+    assert (megakernel_wide.kernel_mode(consts) >= 2 * megakernel_wide.N_SAMPLER_IDS) == (scene == "sky")
+    pids = torch.as_tensor(np.random.RandomState(n_lanes).choice(W * H, n_lanes, replace=False))
+    lanes = (pids % W, pids // W, pids)
+    counters = megakernel_wide.wide_megakernel_cuda.counters.get(cuda_device)
+    if counters is not None:
+        counters.zero_()
+    before = megakernel_wide.wide_megakernel_cuda.launches
+    blob = megakernel_wide.pack_wide_consts(consts).to(cuda_device)
+    L, w, nv = (x.cpu() for x in megakernel_wide.wide_megakernel_cuda(
+        blob, megakernel_wide.kernel_mode(consts), cs.arrays.to(cuda_device), *(x.to(cuda_device) for x in lanes),
+        0, spp, 5, megakernel_wide.sampler_table(consts, cuda_device)))
+    torch.cuda.synchronize()
+    assert megakernel_wide.wide_megakernel_cuda.launches == before + 1
+    assert torch.equal(w, torch.full((n_lanes,), float(spp)))
+    assert megakernel_wide.wide_megakernel_cuda.counters[cuda_device].tolist() == [0, 0]
+    L_p, w_p, nv_p = megakernel_wide.wide_megakernel_plain(consts, cs.arrays, *lanes, 0, spp, 5)
     assert torch.equal(w, w_p)
     assert L_p.mean().item() > 0
     assert abs(float(nv.double().sum()) - float(nv_p.double().sum())) <= 6

@@ -1,7 +1,9 @@
 """Light sampling and the spatial light distribution of the port against
 the reference, on the CPU: sample_li for point, spot and distant lights
 (and the area lights beside them), build_spatial_distribution on area_box
-and on the mesh room, and spatial_select / spatial_pmf_of at random points.
+and on the mesh room, and spatial_select / spatial_pmf_of at random points;
+the infinite light, constant and image-mapped: env_le, env_pdf_li,
+_env_sample and its lanes of sample_li.
 
 Tolerances: the delta lights' samples at rtol 1e-6. An area light's pdf
 divides by the cosine at the light, which is small at grazing angles, so a
@@ -11,7 +13,9 @@ reference builds its distribution in one jitted sweep, in which XLA:CPU
 contracts multiply-adds into fused multiply-adds (a jitted c + a * b equals
 the fused result on every element, the separately rounded one on 71%); the
 port's sweep rounds each operation, so about half of the pmf entries are
-bit-equal and the rest within 1e-5 relative.
+bit-equal and the rest within 1e-5 relative. The image-mapped infinite
+light's pdf of a direction near the map's poles is amplified as
+test_env_light_matches_reference states.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +28,9 @@ from pbrt_tpu.device import lights as ref_lights
 from pbrt_tpu.scene.builder import compile_scene as ref_compile_scene
 from pbrt_tpu_torch.device import lightdistrib, lights
 from pbrt_tpu_torch.scene.builder import compile_scene
-from pbrt_tpu_torch.scenes import area_box, mesh_room, spheres_gallery
+from pbrt_tpu_torch.core.transform import Transform
+from pbrt_tpu_torch.scene.host import HostLight
+from pbrt_tpu_torch.scenes import area_box, mesh_room, sky_meshes, spheres_gallery
 from test_torch_megakernel import _to_ref
 
 N = 4096
@@ -42,10 +48,24 @@ def _one_torch_thread():
     yield
     torch.set_num_threads(n)
 
+def _sky(image):
+    """sky_meshes cut to 600 triangles: its constant sky, or an image-mapped
+    one (a 16x32 map of random radiance, rotated by its light-to-world)."""
+    desc = sky_meshes(10, 6, 10)
+    if image:
+        rs = np.random.RandomState(11)
+        desc.lights[0] = HostLight(kind="infinite", intensity=np.array([1.2, 1.0, 0.9]),
+                                   image=rs.uniform(0.0, 3.0, (16, 32, 3)),
+                                   light_to_world=Transform.rotate(35.0, [0.3, 1.0, 0.2]))
+    return desc, None
+
+
 SCENES = {
     "gallery": lambda: (spheres_gallery(), None),  # distant, point, spot
     "area_box": lambda: (area_box(), None),  # point and two triangle area lights
     "mesh_room": lambda: (mesh_room(8), bench._mesh_scene(8)),  # two area lights
+    "sky": lambda: _sky(False),  # a constant infinite light and a distant light
+    "sky_map": lambda: _sky(True),  # an image-mapped infinite light and a distant light
 }
 
 
@@ -88,7 +108,7 @@ def test_sample_li_matches_reference(compiled, scene):
         assert (li == 0).any() and (li > 0).any()
 
 
-@pytest.mark.parametrize("scene", ["area_box", "mesh_room"])
+@pytest.mark.parametrize("scene", ["area_box", "mesh_room", "sky_map"])
 def test_spatial_distribution_matches_reference(compiled, scene):
     cs, ref = compiled[scene]
     mine = lightdistrib.build_spatial_distribution(cs.arrays, cs.static)
@@ -113,3 +133,47 @@ def test_spatial_distribution_matches_reference(compiled, scene):
     np.testing.assert_allclose(
         lightdistrib.spatial_pmf_of(mine, torch.as_tensor(p), torch.as_tensor(q)).numpy(),
         np.asarray(ref_ld.spatial_pmf_of(theirs, jnp.asarray(p), jnp.asarray(q.astype(np.int32)))), rtol=1e-5)
+
+
+def _directions(rs, n):
+    d = rs.normal(size=(n, 3))
+    return (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("scene", ["sky", "sky_map"])
+def test_env_light_matches_reference(compiled, scene):
+    """env_le and env_pdf_li of random directions, _env_sample of random
+    uniforms and the infinite light's lanes of sample_li, constant and
+    image-mapped."""
+    cs, ref = compiled[scene]
+    assert cs.static.has_env_map == (scene == "sky_map") and cs.static.infinite_light_index == 0
+    rs = np.random.RandomState(8)
+    d = _directions(rs, N)
+    np.testing.assert_allclose(lights.env_le(cs.arrays, cs.static, torch.as_tensor(d)).numpy(),
+                               np.asarray(ref_lights.env_le(ref.arrays, ref.static, jnp.asarray(d))), rtol=1e-6,
+                               atol=1e-7)
+    pdf = lights.env_pdf_li(cs.arrays, cs.static, torch.as_tensor(d)).numpy()
+    pdf_r = np.asarray(ref_lights.env_pdf_li(ref.arrays, ref.static, jnp.asarray(d)))
+    # near the map's poles acos amplifies an ulp of the light-space z into
+    # dtheta = dz / sin(theta), and the pdf's 1 / sin(theta) once more: a
+    # relative difference up to ~2.5e-7 / sin^2(theta) (1.2e-4 at the
+    # smallest sin(theta) drawn, 0.0226)
+    tol = 1e-6
+    if cs.static.has_env_map:
+        sin_t = np.sin(lights._env_dir_to_uv(cs.arrays, torch.as_tensor(d))[2].numpy())
+        tol = np.maximum(tol, 2.5e-7 / sin_t ** 2)
+    assert (np.abs(pdf - pdf_r) <= tol * np.abs(pdf_r) + 1e-7).all()
+    u1, u2 = rs.uniform(0, 1, (2, N)).astype(np.float32)
+    p = _points(cs, rs, N)
+    lid = np.zeros(N, np.int64)
+    mine = lights.sample_li(cs.arrays, cs.static, torch.as_tensor(lid), *(torch.as_tensor(x) for x in (p, u1, u2)))
+    theirs = ref_lights.sample_li(ref.arrays, ref.static, jnp.asarray(lid.astype(np.int32)),
+                                  *(jnp.asarray(x) for x in (p, u1, u2)))
+    assert not mine["delta"].any() and not np.asarray(theirs["delta"]).any()
+    for key in ("wi", "li", "pdf", "dist", "n", "area"):
+        np.testing.assert_allclose(mine[key].numpy(), np.asarray(theirs[key]), rtol=1e-5, atol=1e-6, err_msg=key)
+    if scene == "sky_map":
+        got = lights._env_sample(cs.arrays, torch.as_tensor(u1), torch.as_tensor(u2))
+        want = ref_lights._env_sample(ref.arrays, jnp.asarray(u1), jnp.asarray(u2))
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-6)

@@ -9,13 +9,22 @@ reference's (tests/test_torch_megakernel.py ``_to_ref``). Covered:
 (b) the gates: what the port's class leaves out gives None and a reason;
     the reference refuses the halton sampler without its tables, a
     negative-lobe filter, mix materials and meshes over the triangle cap as
-    well, and takes the rest (still to port, ROADMAP B4);
+    well, and takes the rest (still to port, ROADMAP B4) and two infinite
+    lights (which the port refuses: the reference's kernel lights escaped
+    rays with the first sky, its wavefront with the last); per-vertex
+    normals, a constant infinite light and the gaussian filter are in both
+    classes;
 (c) wide_megakernel_plain against the reference kernel itself in Pallas
     interpret mode on the reference test's cases of this class, with its
     tolerance (tests/test_megakernel_wide.py:190-198): weights allclose,
     total path vertices within 6, per-pixel |dL| / (|L| + 1e-2) < 2e-2 and
     mean |dL| < 1e-4. The stratified case holds the reference's own strata
-    on both sides: floor(sqrt(spp)) x spp // that (ROADMAP C);
+    on both sides: floor(sqrt(spp)) x spp // that (ROADMAP C). The sobol
+    (under the triangle filter) and maxmindist cases run at 32x16, and
+    scenes.sky_meshes, cut to 600 triangles, holds halton, the gaussian
+    filter, the attribute table and the constant sky: each case costs a
+    reference kernel compile in interpret mode (sobol's alone about
+    50 s), so the slice's features share three cases;
 (d) pack_wide_consts round-trips;
 (e) the routes: PBRT_TPU_WIDEMEGA=1 takes material_room to the wide
     megakernel, whose image matches the reference kernel's; without it the
@@ -35,6 +44,8 @@ import torch
 import bench
 import pbrt_tpu.core.transform as ref_transform
 from pbrt_tpu.device import megakernel_wide as ref_mw
+from pbrt_tpu.device.sampler import halton_tables as ref_halton_tables
+from pbrt_tpu.device.sampler import sobol_tables as ref_sobol_tables
 from pbrt_tpu.render import make_camera as ref_make_camera
 from pbrt_tpu.scene import host as ref_host
 from pbrt_tpu.scene.builder import compile_scene as ref_compile_scene
@@ -43,7 +54,11 @@ from pbrt_tpu_torch.core.transform import Transform
 from pbrt_tpu_torch.device import megakernel_wide as mw
 from pbrt_tpu_torch.device.camera import make_camera
 from pbrt_tpu_torch.device.megakernel import MAT_DEFAULTS, SAMPLERS
-from pbrt_tpu_torch.scene.arrays import HOPPER_TABLES, LIGHT_AREA, SceneTensors, scene_tensors_from_numpy
+from pbrt_tpu_torch.device.sampler import halton_tables, sobol_tables
+from pbrt_tpu_torch import scenes
+from pbrt_tpu_torch.scene.arrays import (
+    HOPPER_TABLES, LIGHT_AREA, LIGHT_DISTANT, LIGHT_INFINITE, SceneTensors, scene_tensors_from_numpy,
+)
 from pbrt_tpu_torch.scene.builder import CompiledScene, compile_scene
 from pbrt_tpu_torch.scene.host import (
     CameraConfig, FilmConfig, HostLight, HostMaterial, HostPrimitive, IntegratorConfig, SamplerConfig,
@@ -135,22 +150,54 @@ CASES = {
     "02-micro": ("zerotwosequence", "micro", 4, "power"),
     "random-micro": ("random", "micro", 5, "power"),
     "02-sigma": ("zerotwosequence", "sigma", 4, "power"),
+    "sobol-triangle": ("sobol", "triangle", 4, "power"),
+    "maxmin-area": ("maxmindist", "area", 4, "power"),
 }
+# the reference test's sobol and maxmindist cases, the first under the
+# triangle filter, run at 32x16 (one 1,024-lane block of the reference
+# kernel), the others at the reference test's 48x24; its halton and
+# gaussian cases are test_plain_matches_reference_sky_meshes's
+SMALL_CASES = ("sobol-triangle", "maxmin-area")
+FILTERS = {"gauss": ("gaussian", {"xwidth": 1.5, "alpha": 2.0}), "triangle": ("triangle", {"xwidth": 1.25})}
 
 
 def _case(name):
     """(port desc, icfg, scfg, fcfg) of one case, as the reference test
-    builds it."""
+    builds it; the port's scfg holds the port's halton and sobol tables
+    (_ref_scfg gives the reference's)."""
     sampler, light, depth, strategy = CASES[name]
-    desc = _room_scene(sampler=sampler, light="area" if light in ("dof", "micro", "sigma") else light,
+    desc = _room_scene(sampler=sampler,
+                       light="area" if light in ("dof", "micro", "sigma", "gauss", "triangle") else light,
                        strategy=strategy, micro=light == "micro", sigma=25.0 if light == "sigma" else 0.0)
     desc.integrator.max_depth = depth
+    if name in SMALL_CASES:
+        desc.film.x_resolution, desc.film.y_resolution = 32, 16
     if light == "dof":
         desc.camera.lens_radius = 0.15
         desc.camera.focal_distance = 4.0
+    fcfg = dict(FCFG)
+    if light in FILTERS:
+        desc.film.filter_name, desc.film.filter_params = FILTERS[light][0], dict(FILTERS[light][1])
+        fcfg.update(filter=FILTERS[light][0], filter_params=dict(FILTERS[light][1]))
     icfg = {"kind": "path", "max_depth": depth, "rr_threshold": desc.integrator.rr_threshold,
             "light_strategy": strategy}
-    return desc, icfg, {"kind": sampler, "spp": SPP}, dict(FCFG)
+    scfg = {"kind": sampler, "spp": SPP}
+    w, h = desc.film.x_resolution, desc.film.y_resolution
+    if sampler == "halton":
+        scfg["halton"] = halton_tables(w, h, "cpu")
+    if sampler == "sobol":
+        scfg["sobol"] = sobol_tables(w, h, SPP)
+    return desc, icfg, scfg, fcfg
+
+
+def _ref_scfg(scfg, w, h):
+    """The reference's sampler config for the port's scfg."""
+    out = {"kind": scfg["kind"], "spp": scfg["spp"]}
+    if "halton" in scfg:
+        out["halton"] = ref_halton_tables(w, h)
+    if "sobol" in scfg:
+        out["sobol"] = ref_sobol_tables(w, h, scfg["spp"])
+    return out
 
 
 def _both(desc):
@@ -188,16 +235,28 @@ def _assert_wide_tolerance(L, w, nv, L_r, w_r, nv_r):
 # --- (a) tables and constants ------------------------------------------------------
 
 
-@pytest.mark.parametrize("scene", ["material_room", "02-micro", "02-both-uniform", "02-spot", "02-sigma"])
+@pytest.mark.parametrize("scene", ["material_room", "02-micro", "02-both-uniform", "02-spot", "02-sigma",
+                                   "sky_meshes"])
 def test_wide_tables_bit_identical(scene):
     """compile_scene takes the wide megakernel's materials and lights in
-    wide scenes, with the reference's tables bit for bit."""
-    cs, ref, _cam, _ref_cam = _both(material_room(8) if scene == "material_room" else _case(scene)[0])
+    wide scenes, with the reference's tables bit for bit: sky_meshes's
+    attribute table (smooth UV-mapped spheres beside a flat ground) and its
+    infinite light's row included."""
+    desc = {"material_room": lambda: material_room(8), "sky_meshes": lambda: scenes.sky_meshes(10, 6, 10)}.get(
+        scene, lambda: _case(scene)[0])()
+    cs, ref, _cam, _ref_cam = _both(desc)
     assert cs.static.has_wide and ref.static.has_wide
+    assert (cs.arrays.wattr_tab is not None) == (scene == "sky_meshes") == ref.static.has_infinite
+    for name in ("has_infinite", "infinite_light_index", "has_env_map"):
+        assert getattr(cs.static, name) == getattr(ref.static, name), name
     for f in dataclasses.fields(SceneTensors):
         if f.name in HOPPER_TABLES:  # derived from the reference tables, not one of them
             continue
-        a, b = getattr(cs.arrays, f.name).numpy(), np.asarray(getattr(ref.arrays, f.name))
+        a, b = getattr(cs.arrays, f.name), getattr(ref.arrays, f.name)
+        assert (a is None) == (b is None), f.name
+        if a is None:
+            continue
+        a, b = a.numpy(), np.asarray(b)
         assert a.shape == b.shape and a.dtype.kind == b.dtype.kind, f.name
         np.testing.assert_array_equal(a, b, err_msg=f.name)
 
@@ -207,7 +266,8 @@ def test_extract_wide_consts_matches_reference(case):
     desc, icfg, scfg, fcfg = _case(case)
     cs, ref, cam, ref_cam = _both(desc)
     mine = mw.extract_wide_consts(cs, cam, icfg, scfg, fcfg, mw.DEFAULT_MAX_TRIS)
-    theirs = ref_mw.extract_wide_consts(ref, ref_cam, icfg, scfg, fcfg)
+    theirs = ref_mw.extract_wide_consts(ref, ref_cam, icfg, _ref_scfg(scfg, desc.film.x_resolution,
+                                                                      desc.film.y_resolution), fcfg)
     assert mine is not None and theirs is not None
     assert mine["mats"].keys() == theirs["mats"].keys()
     for m, e in theirs["mats"].items():
@@ -240,7 +300,8 @@ def _crossed(ref_desc):
 
 def _gate_scene(gate):
     """(port scene, reference scene, icfg, scfg, fcfg, whether the reference
-    refuses it too, the word the port's reason holds)."""
+    refuses it, the word the port's reason holds; None where the port takes
+    the scene)."""
     desc, icfg, scfg, fcfg = _case("02-area")
     rdesc = _to_ref(desc)
     if gate == "normals":
@@ -248,7 +309,7 @@ def _gate_scene(gate):
         desc.primitives[0].shape.mesh.n = n
         rdesc.primitives[0].shape.mesh.n = n
         cs, ref = compile_scene(desc, "cpu"), ref_compile_scene(rdesc)
-        return cs, ref, icfg, scfg, fcfg, False, "normals"
+        return cs, ref, icfg, scfg, fcfg, False, None
     if gate == "checker":
         checker = ref_host.HostTexture(kind="checkerboard", is_float=False, tex1=("const", np.array([0.7, 0.7, 0.6])),
                                        tex2=("const", np.array([0.1, 0.1, 0.3])), uscale=6.0, vscale=6.0)
@@ -260,9 +321,12 @@ def _gate_scene(gate):
                 object_to_world=ref_transform.Transform.translate([0.0, 1.0, 0.0]), radius=0.5)),
             material=ref_host.HostMaterial(kind="glass", params={})))
         return *_crossed(rdesc), icfg, scfg, fcfg, False, "quadrics"
-    if gate == "infinite":
-        rdesc.lights.append(ref_host.HostLight(kind="infinite", intensity=np.array([0.5, 0.5, 0.5])))
-        return *_crossed(rdesc), icfg, scfg, fcfg, False, "infinite"
+    if gate in ("infinite", "two-skies"):
+        desc.lights.append(HostLight(kind="infinite", intensity=np.array([0.5, 0.5, 0.5])))
+        if gate == "two-skies":
+            desc.lights.append(HostLight(kind="infinite", intensity=np.array([0.1, 0.2, 0.3])))
+        cs, ref = compile_scene(desc, "cpu"), ref_compile_scene(_to_ref(desc))
+        return cs, ref, icfg, scfg, fcfg, False, None if gate == "infinite" else "more than one infinite light"
     if gate == "mix":
         m1 = ref_host.HostMaterial(kind="matte", params={"Kd": ("const", np.array([0.8, 0.1, 0.1]))})
         m2 = ref_host.HostMaterial(kind="matte", params={"Kd": ("const", np.array([0.1, 0.1, 0.8]))})
@@ -274,28 +338,38 @@ def _gate_scene(gate):
     if gate == "halton":
         return cs, ref, icfg, {"kind": "halton", "spp": SPP}, fcfg, True, "halton"
     if gate == "gaussian":
-        return cs, ref, icfg, scfg, dict(fcfg, filter="gaussian", filter_params={"xwidth": 1.5}), False, "gaussian"
+        return cs, ref, icfg, scfg, dict(fcfg, filter="gaussian", filter_params={"xwidth": 1.5}), False, None
     if gate == "mitchell":
         return cs, ref, icfg, scfg, dict(fcfg, filter="mitchell"), True, "mitchell"
     assert gate == "over-cap"
     return cs, ref, icfg, scfg, fcfg, True, "triangles"
 
 
-GATES = ["normals", "checker", "sphere", "infinite", "mix", "halton", "gaussian", "mitchell", "over-cap"]
+GATES = ["normals", "checker", "sphere", "infinite", "two-skies", "mix", "halton", "gaussian", "mitchell", "over-cap"]
 
 
 @pytest.mark.parametrize("gate", GATES)
 def test_eligibility_gates(gate, monkeypatch):
+    """The port refuses checker Kd, spheres, two infinite lights, mix,
+    mitchell, the triangle cap and halton without its film tables, naming
+    each (the reference takes the first three: its kernel lights escaped
+    rays with the first sky, its wavefront with the last); since this slice
+    it takes per-vertex normals, a constant infinite light and the gaussian
+    filter, as the reference does."""
     cs, ref, icfg, scfg, fcfg, ref_refuses, word = _gate_scene(gate)
     max_tris = 100 if gate == "over-cap" else mw.DEFAULT_MAX_TRIS  # the room has 170 triangles
     monkeypatch.setenv("PBRT_TPU_WIDEMEGA_MAX_TRIS", str(max_tris))  # the reference reads its cap here
     desc = ref.description
     cam = make_camera(desc.camera, desc.film, "cpu")
+    theirs = ref_mw.extract_wide_consts(ref, ref_make_camera(desc.camera, desc.film), icfg, scfg, fcfg)
+    assert (theirs is None) == ref_refuses
+    if word is None:  # in the class since this slice: both packages take it
+        assert mw.wide_megakernel_eligible(cs, cam, icfg, scfg, fcfg, max_tris)
+        assert mw.explain_ineligible_wide(cs, cam, icfg, scfg, fcfg, max_tris) is None
+        return
     assert mw.extract_wide_consts(cs, cam, icfg, scfg, fcfg, max_tris) is None
     assert not mw.wide_megakernel_eligible(cs, cam, icfg, scfg, fcfg, max_tris)
     assert word in mw.explain_ineligible_wide(cs, cam, icfg, scfg, fcfg, max_tris)
-    theirs = ref_mw.extract_wide_consts(ref, ref_make_camera(desc.camera, desc.film), icfg, scfg, fcfg)
-    assert (theirs is None) == ref_refuses
 
 
 @pytest.mark.parametrize("n_side,eligible", [(40, True), (64, False)])
@@ -312,15 +386,38 @@ def test_mesh_room_class_as_reference(n_side, eligible):
 # --- (c) the estimator against the reference kernel ----------------------------
 
 
+def _twin_against_reference(desc, icfg, scfg, fcfg):
+    """The twin's image of a port scene against the reference kernel's (in
+    interpret mode) under the reference test's tolerance; returns consts."""
+    w, h = desc.film.x_resolution, desc.film.y_resolution
+    cs, ref, cam, ref_cam = _both(desc)
+    L_r, w_r, nv_r = _reference_image(ref, ref_cam, icfg, _ref_scfg(scfg, w, h), fcfg, w, h)
+    consts = mw.extract_wide_consts(cs, cam, icfg, scfg, fcfg, mw.DEFAULT_MAX_TRIS)
+    px, py, pid = (torch.as_tensor(x.astype(np.int64)) for x in _pixels(w, h))
+    L, wt, nv = (x.numpy() for x in mw.wide_megakernel_plain(consts, cs.arrays, px, py, pid, 0, SPP, 0))
+    _assert_wide_tolerance(L, wt, nv, L_r, w_r, nv_r)
+    return consts
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_plain_matches_reference_kernel(case):
-    desc, icfg, scfg, fcfg = _case(case)
-    cs, ref, cam, ref_cam = _both(desc)
-    L_r, w_r, nv_r = _reference_image(ref, ref_cam, icfg, scfg, fcfg)
-    consts = mw.extract_wide_consts(cs, cam, icfg, scfg, fcfg, mw.DEFAULT_MAX_TRIS)
-    px, py, pid = (torch.as_tensor(x.astype(np.int64)) for x in _pixels())
-    L, w, nv = (x.numpy() for x in mw.wide_megakernel_plain(consts, cs.arrays, px, py, pid, 0, SPP, 0))
-    _assert_wide_tolerance(L, w, nv, L_r, w_r, nv_r)
+    _twin_against_reference(*_case(case))
+
+
+def test_plain_matches_reference_sky_meshes():
+    """scenes.sky_meshes cut to 600 triangles at 32x16: pbrt's defaults
+    (halton, the gaussian filter; the reference test's halton :117 and
+    gaussian :112 cases), the attribute table with smooth normals and UV
+    charts on the spheres beside the flat ground (its shading-normal test
+    :394, with UV charts and constant Kd) and a constant infinite light with
+    a distant sun over an open scene (its constant-infinite test :548)."""
+    desc = _small(scenes.sky_meshes(10, 6, 10), 32, 16)
+    icfg = {"kind": "path", "max_depth": 5, "rr_threshold": 1.0, "light_strategy": "power"}
+    fcfg = dict(FCFG, filter="gaussian", filter_params=dict(desc.film.filter_params))
+    scfg = {"kind": "halton", "spp": SPP, "halton": halton_tables(32, 16, "cpu")}
+    consts = _twin_against_reference(desc, icfg, scfg, fcfg)
+    assert consts["has_ns"] and consts["has_attr"] and mw.kernel_mode(consts) == 2 * mw.N_SAMPLER_IDS + 6
+    assert sorted(lt["kind"] for lt in consts["lights"]) == [LIGHT_DISTANT, LIGHT_INFINITE]
 
 
 # --- (d) the blob layout -------------------------------------------------------------
@@ -375,8 +472,11 @@ def test_blob_and_split_layouts_match_the_kernel():
     for name in ("H_N_LIGHTS", "H_N_MATS", "H_MAX_DEPTH", "H_RR", "H_UNIFORM", "H_SAMPLER", "H_STRAT_XS",
                  "H_STRAT_YS", "H_WR2", "H_FXW", "H_FYW", "H_MAX_LUM", "H_G7", "H_LENS_R", "H_FOCAL", "H_R2C",
                  "H_C2W", "H_CDF", "H_PMF", "HEADER", "MAX_LIGHTS", "LIGHT_STRIDE", "MAX_MATS", "MAT_STRIDE",
-                 "L_AREA", "L_TWO_SIDED", "L_V", "L_NG", "M_ROW"):
+                 "L_AREA", "L_TWO_SIDED", "L_V", "L_NG", "M_ROW", "H_FILTER", "H_SAMP", "H_GK", "L_ENV_P",
+                 "SOBOL_DIMS", "N_SAMPLER_IDS"):
         assert int(d[name]) == getattr(mw, name), name
+    for name, kind in (("S_HALTON", "halton"), ("S_SOBOL", "sobol"), ("S_MAXMIN", "maxmindist")):
+        assert int(d[name]) == mw.SAMPLERS[kind], name
     split = {k[len("SPLIT_"):].lower(): int(v) for k, v in d.items() if k.startswith("SPLIT_")}
     assert int(d["N_SPLIT"]) == len(mw.SPLIT_FIELDS) == len(split)
     kernel_names = {"shade": "shade_nee", "flush": "flush_regen", "idle": "idle_tail", "iters": "iterations"}

@@ -268,3 +268,36 @@ def test_make_regen_matches(lens_radius, case):
     np.testing.assert_allclose(d, d_r, atol=5e-6 if filt == "gaussian" else 1e-6, rtol=0)
     np.testing.assert_allclose(w, w_r, atol=1e-6, rtol=1e-6 if filt in ("mitchell", "sinc") else 0)
     assert (w != 1.0).any() == (filt in ("mitchell", "sinc"))
+
+
+def _radical_inverse_early_stop(base: int, index: np.ndarray) -> np.ndarray:
+    """The wide megakernel's radical inverse (csrc/megakernel_wide.cu
+    radical_inverse) transcribed: float32 digit sums, the loop leaving each
+    lane when its index reaches 0."""
+    bf = np.float32(base)
+    inv = np.float32(1.0) / bf
+    idx = index.astype(np.uint64)
+    rd = np.zeros(idx.shape, np.float32)
+    ibn = np.ones(idx.shape, np.float32)
+    live = idx != 0
+    while live.any():
+        q = idx // base
+        rd = np.where(live, rd * bf + (idx - q * base).astype(np.float32), rd)
+        ibn = np.where(live, ibn * inv, ibn)
+        idx = np.where(live, q, idx)
+        live = idx != 0
+    return np.minimum(rd * ibn, np.float32(rng.ONE_MINUS_EPS))
+
+
+def test_radical_inverse_early_stop_bit_exact():
+    """The kernel's digit loop, which stops at index 0, gives the bits of
+    rng.radical_inverse_dyn's 32 fixed steps for every prime base (the
+    bounce dimensions of a depth-5 render use base indices up to 77) at
+    every sample index below 4,096 and at 4,096 random 32-bit indices (the
+    film's global halton indices, base 3)."""
+    rs = np.random.RandomState(13)
+    index = np.concatenate([np.arange(4096), rs.randint(0, 2 ** 32, 4096, dtype=np.int64)])
+    for b in range(len(rng.PRIMES)):
+        want = rng.radical_inverse_dyn(torch.full((index.size,), b), torch.as_tensor(index)).numpy()
+        got = _radical_inverse_early_stop(int(rng.PRIMES[b]), index)
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32), err_msg=f"base {rng.PRIMES[b]}")
