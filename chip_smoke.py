@@ -149,8 +149,36 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     image-mapped sky (a 64x128 latitude-longitude map the phase writes, on
     sky_meshes written as a file) through main.main on the wavefront:
     route torch-wavefront/cuda-wide, B1 launches > 0, the crop on cuda and
-    cpu.
-Phases 15-21 and 24's image-mapped sky are the wavefront's array code
+    cpu;
+25. textured_room (material_room's 3,854 triangles with UV charts, a
+    1024x1024 RGB imagemap under EWA on the floor, a 512x512 trilinear one
+    on a wall, a checkerboard, a scale of marble, a mix by fbm and a brick
+    bump map; halton + gaussian) through the wavefront at 1000x500, 16 spp,
+    depth 5: route torch-wavefront/cuda-wide, B1 launches > 0; prints the
+    wall, path_vertex_samples_per_sec, the path vertices and the device
+    kernels per wavefront iteration (torch.profiler over the crop's
+    render); the crop on cuda and cpu, held as in phase 5; then the scene
+    written as a file (Texture directives, PFM images) through main.main:
+    the tables equal to the hand-built scene's bit for bit, the same path
+    vertices and an image bit-equal to the first render's;
+26. B3's textured instantiation: textured_gallery (spheres_gallery with
+    128x128 grayscale imagemap Kds on the ground and a backdrop quad, the
+    mip atlas in device memory) against its twin at 1000x500, 2 spp under
+    phase 6's tolerance; the 16 spp launch timed with CUDA events beside
+    phase 6's gallery time, with its bound (the atlas and texture table
+    counted in the bytes, the taps of the camera rays' textured hits in the
+    operations), no pixel cut by the iteration cap, its ptxas report and
+    blocks per SM; the render through the route (one B3 launch) and through
+    the brute wavefront (PBRT_TPU_NO_MEGAKERNEL=1) at 16 spp, their mean
+    brightness within 0.93-1.07 of each other (the reference's band for a
+    ray-cone filter against EWA, tests/test_megakernel.py:189-205);
+27. B4's checkerboard Kd: material_room(checker=True) (the floor matte, a
+    uv checkerboard of two constant cells) against its twin at 1000x500,
+    2 spp under phase 11's tolerance; the 16 spp launch timed beside phase
+    11's, with its bound, counters at 0, ptxas report; the render through
+    B4 (one launch) and through the wavefront at 16 spp: totals within
+    0.01%, the crop through both under phase 11's tolerance.
+Phases 15-21, 24's image-mapped sky and 25 are the wavefront's array code
 around B1 (the brute wavefront launches no kernel of the port): they add no
 row to the kernel report. Each main path runs with every launch count set to 0 just before it and
 read just after; every switch a phase sets is restored after it. The second-to-last lines are the kernel report as JSON
@@ -195,6 +223,10 @@ B1_OPS_PER_POP = 8 * 20  # a pop tests at least 8 child boxes (~20 ops each)
 B3_OPS_TRI, B3_OPS_SPH = 45, 65  # one watertight triangle / full-sphere test
 B3_OPS_SHADE = 300  # BSDF sample + evaluation + NEE terms per path vertex
 B3_OPS_REGEN = 60  # one camera regeneration: film sample, raster -> camera -> world, two normalisations
+B3_OPS_TEX = 60  # one atlas lookup: the cone's level (log2), 2 levels x 4 taps weighted and summed
+# phase 26: the brute megakernel's image against the brute wavefront's (EWA),
+# by mean brightness (tests/test_megakernel.py:189-205)
+RAY_CONE_BAND = (0.93, 1.07)
 
 
 def _smi() -> str:
@@ -357,7 +389,7 @@ def _rays(cs):
     cam = make_camera(desc.camera, desc.film, dev)
     regen = make_regen(cam, {"kind": desc.sampler.kind, "spp": desc.sampler.pixel_samples},
                        {"filter": "box", "filter_params": {}}, idx % W, idx // W, idx, SEED)
-    o, d, _w = regen(torch.zeros_like(idx))
+    o, d, _w, _dx, _dy = regen(torch.zeros_like(idx))
     inf = torch.full((W * H,), float("inf"), device=dev)
     hit = intersect(cs.arrays, cs.static, o, d, inf)
     si = surface_interaction(cs.arrays, hit, o, d)
@@ -551,6 +583,10 @@ def _tables_equal(a, b) -> list[str]:
     bad = []
     for f in dataclasses.fields(a):
         x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, dict):  # the MIP levels, by key
+            if x.keys() != y.keys() or any(not torch.equal(x[k], y[k].to(x[k].device)) for k in x):
+                bad.append(f.name)
+            continue
         if x is None or y is None:
             if (x is None) != (y is None):
                 bad.append(f.name)
@@ -868,6 +904,240 @@ def _sky_phases(out, work, m, m_host, b4_ms, fe):
                           "b1_launches": b1}
 
 
+def _kernels_per_iteration(cs) -> tuple[int, int]:
+    """(device kernels, wavefront iterations) of the crop's render under
+    torch.profiler; iterations = closest-hit queries (one per iteration),
+    counted without a synchronize, as tools/torch_phases.py counts them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch.device import integrator
+
+    desc_c = dataclasses.replace(cs.description, integrator=dataclasses.replace(cs.description.integrator,
+                                                                                pixel_bounds=CROP_BOUNDS),
+                                 sampler=dataclasses.replace(cs.description.sampler, pixel_samples=CROP_SPP))
+    n_iter = [0]
+    closest = integrator.intersect
+
+    def counted(*a, **k):
+        n_iter[0] += 1
+        return closest(*a, **k)
+
+    integrator.intersect = counted
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            R_.render_compiled(_with_desc(cs, desc_c), seed=SEED)
+            torch.cuda.synchronize()
+    finally:
+        integrator.intersect = closest
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA), n_iter[0]
+
+
+def _texture_phases(out, work, g, b3_ms, b3_bound_vertex, m, b4_ms):
+    """Phases 25-27: a textured scene through the wavefront and from a
+    file; B3's Kd atlas; B4's checkerboard Kd."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch import main as cli
+    from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.device import megakernel, megakernel_wide, wide_bvh
+    from pbrt_tpu_torch.device.camera import generate_rays, make_camera
+    from pbrt_tpu_torch.device.intersect import intersect
+    from pbrt_tpu_torch.scene.builder import compile_scene
+
+    dev = torch.device("cuda", 0)
+    fcfg = {"filter": "box", "filter_params": {}, "max_sample_luminance": float("inf")}
+
+    # --- 25. textured_room through the wavefront; as a file ---
+    t0 = time.perf_counter()
+    tr_host = compile_scene(scenes.textured_room(), "cpu")
+    host_s = time.perf_counter() - t0
+    tr = tr_host.to(dev)
+    timing, b1, img = _main_path("25 textured_room main path", tr, "torch-wavefront/cuda-wide",
+                                 wide_bvh.traverse_cuda)
+    n_k, n_it = _kernels_per_iteration(tr)
+    tex_bytes = _nbytes(*tr.arrays.tex_images.values())
+    print(f"  host compile {host_s:.2f}s, {len(tr.static.tex_programs)} texture programs "
+          f"{[p.kind for p in tr.static.tex_programs]}, MIP levels {tex_bytes} bytes; crop under the profiler: "
+          f"{n_k} device kernels over {n_it} wavefront iterations ({n_k / max(n_it, 1):.1f} per iteration)",
+          flush=True)
+    _check_crop("25 cuda-vs-cpu textured_room crop", tr, tr_host, tr.description)
+    path = work / "textured_room.pbrt"
+    scenes.write_pbrt(tr_host.description, str(path), scenes.ROOM_LOOK_AT, sampler=False)
+    _reset_launches()
+    cli.main([str(path), "--outfile", str(work / "textured_room.exr"), "--quiet", "--seed", str(SEED)])
+    run = cli.main.last_run
+    f_timing, f_img = run["timing"], run["image"]
+    bad = _tables_equal(run["scene"].arrays, tr_host.arrays)
+    rel_img = np.abs(f_img - img).sum() / max(np.abs(img).sum(), 1e-30)
+    print(f"[25 textured_room file] {path.name}: parse + API {run['parse_s']:.4f}s, compile_scene "
+          f"{run['compile_s']:.4f}s, render wall {f_timing['wall_s']:.4f}s, route {f_timing['tier']}; tables "
+          f"differing from the hand-built scene's: {bad or 'none'}; {f_timing['n_vertices']:.0f} path vertices; "
+          f"image against the first render's sum|a-b|/sum|b| {rel_img:.3e}, bit-equal "
+          f"{bool(np.array_equal(f_img, img))}", flush=True)
+    if bad or run["scene"].static != tr_host.static:
+        raise AssertionError(f"the textured_room file compiles to other tables: {bad}")
+    if f_timing["n_vertices"] != timing["n_vertices"] or not np.array_equal(f_img, img):
+        raise AssertionError("the textured_room file renders another image than the hand-built scene")
+    out["textured_room"] = {"wall_s": timing["wall_s"], "vps": timing["n_vertices"] / timing["wall_s"],
+                            "n_vertices": timing["n_vertices"], "b1_launches": b1, "kernels": n_k,
+                            "iterations": n_it, "kernels_per_iteration": n_k / max(n_it, 1),
+                            "file_wall_s": f_timing["wall_s"], "compile_s": run["compile_s"]}
+
+    # --- 26. B3's Kd atlas on textured_gallery ---
+    tg_host = compile_scene(scenes.textured_gallery(), "cpu")
+    tg = tg_host.to(dev)
+    gd = tg.description
+    W, H, spp = gd.film.x_resolution, gd.film.y_resolution, gd.sampler.pixel_samples
+    icfg = {"kind": gd.integrator.kind, "max_depth": gd.integrator.max_depth,
+            "rr_threshold": gd.integrator.rr_threshold, "strategy": gd.integrator.strategy,
+            "light_strategy": gd.integrator.light_strategy}
+    cam = make_camera(gd.camera, gd.film, dev)
+    consts = megakernel.extract_consts(tg, cam, icfg, {"kind": gd.sampler.kind, "spp": spp}, fcfg)
+    if consts is None:
+        raise AssertionError("textured_gallery is outside the megakernel's class: "
+                             f"{megakernel.explain_ineligible(tg, cam, icfg, {'kind': gd.sampler.kind, 'spp': spp}, fcfg)}")
+    blob = megakernel.pack_consts(consts).to(dev)
+    atlas, tex = (x.to(dev) for x in megakernel.pack_textures(consts))
+    mode = megakernel.kernel_mode(consts)
+    idx = torch.arange(W * H, device=dev)
+    lanes = (idx % W, idx // W, idx)
+
+    def launch(n):
+        return megakernel.megakernel_cuda(blob, mode, *lanes, 0, n, SEED, atlas, tex)
+
+    out_k = launch(COMPARE_SPP)
+    t0 = time.perf_counter()
+    out_p = megakernel.megakernel_plain(consts, *lanes, 0, COMPARE_SPP, SEED)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = _b3_against_plain(f"[26 B3 textured kernel-vs-plain] textured_gallery {W}x{H} {COMPARE_SPP}spp, mode "
+                            f"{mode}, atlas {tuple(atlas.shape)}", out_k, out_p)
+    ms = _cuda_ms(lambda: launch(spp), 5)
+    caps = megakernel.megakernel_cuda.counters[dev]
+    caps.zero_()
+    nv16 = launch(spp)[2].double().sum().item()
+    if caps.item() != 0:
+        raise AssertionError(f"the textured brute megakernel cut {caps.item()} pixels at the iteration cap")
+    # the camera rays' first hits on textured prims, a lower count of the
+    # lookups the 16 spp paths made (bounces hit textured prims too)
+    px_f, py_f = lanes[0].float() + 0.5, lanes[1].float() + 0.5
+    o, d = generate_rays(cam, px_f, py_f, torch.zeros_like(px_f), torch.zeros_like(px_f))
+    hit = intersect(tg.arrays, tg.static, o, d, torch.full_like(px_f, float("inf")))
+    tex_rows = torch.as_tensor([int(m_ in {mm for mm, e in consts["mats"].items() if e.get("kd_tex") is not None})
+                                for m_ in range(tg.static.n_materials)], device=dev, dtype=torch.bool)
+    textured_share = ((hit["prim"] >= 0) & tex_rows[tg.arrays.prim_mat[hit["prim"].clamp(min=0)].long()]).float().mean()
+    n_lookups = float(textured_share) * W * H * spp
+    n_tri = sum(p["kind"] == "tri" for p in consts["prims"])
+    n_sph = len(consts["prims"]) - n_tri
+    nbytes = 3 * 4 * W * H + megakernel.BLOB_FLOATS * 4 + _nbytes(atlas, tex) + 5 * 4 * W * H
+    ops = nv16 * (2 * (n_tri * B3_OPS_TRI + n_sph * B3_OPS_SPH) + B3_OPS_SHADE) + n_lookups * B3_OPS_TEX
+    bound = _bound(nbytes, ops)
+    ptx = _ptxas_of(megakernel.build_kernel()["log"],
+                    f"ILi{(mode % megakernel.N_PLAIN_MODES) // 2}ELi{mode % 2}ELi1ELi0EE")
+    occ = megakernel.occupancy(mode)
+    print(f"  {spp}spp: kernel {ms:.4f} ms (phase 6's gallery {b3_ms:.4f} ms, {ms / b3_ms:.3f}x), plain "
+          f"{COMPARE_SPP}spp {plain_ms:.1f} ms; {nv16:.0f} path vertices, camera hits on textured prims "
+          f"{100 * float(textured_share):.1f}%; bound {bound[0]:.4f} ms ({bound[1]}, {ops:.4g} ops, {nbytes} bytes), "
+          f"kernel at {100 * bound[0] / ms:.2f}% of it (phase 6's per-vertex bound {b3_bound_vertex[0]:.4f} ms); "
+          f"ptxas {ptx}, {occ} blocks per SM", flush=True)
+    b3_inst = {"mode": mode, "ms": ms, "plain_ms": plain_ms, "n_vertices": nv16, "max_abs_err": err,
+               "bound_ms": bound[0], "bound_by": bound[1], "blocks_per_sm": occ, **ptx}
+    t_k, l_k, img_k = _main_path("26 textured_gallery through B3", tg, "torch-megakernel/cuda-brute",
+                                 megakernel.megakernel_cuda)
+    if l_k != 1:
+        raise AssertionError(f"the textured gallery render made {l_k} brute megakernel launches, not 1")
+    with mock.patch.dict(os.environ, PBRT_TPU_NO_MEGAKERNEL="1"):
+        t_w, _l, img_w = _main_path("26 textured_gallery through the brute wavefront", tg,
+                                    "torch-wavefront/cuda-brute", None)
+    ratio = float(img_k.mean()) / float(img_w.mean())
+    print(f"  mean brightness B3 (ray cones) {img_k.mean():.5f}, wavefront (EWA) {img_w.mean():.5f}: ratio "
+          f"{ratio:.4f} (band {RAY_CONE_BAND}); path_vertex_samples_per_sec B3 "
+          f"{t_k['n_vertices'] / t_k['wall_s']:.1f}, wavefront {t_w['n_vertices'] / t_w['wall_s']:.1f}", flush=True)
+    if not RAY_CONE_BAND[0] <= ratio <= RAY_CONE_BAND[1]:
+        raise AssertionError("the textured gallery's B3 and wavefront images differ in brightness")
+    out["textured_gallery"] = {"b3_wall_s": t_k["wall_s"], "wave_wall_s": t_w["wall_s"], "ratio": ratio,
+                               "b3_launches": l_k}
+
+    # --- 27. B4's checkerboard Kd on material_room(checker=True) ---
+    cm_host = compile_scene(scenes.material_room(checker=True), "cpu")
+    cm = cm_host.to(dev)
+    md = cm.description
+    W, H, spp = md.film.x_resolution, md.film.y_resolution, md.sampler.pixel_samples
+    icfg = {"kind": "path", "max_depth": md.integrator.max_depth, "rr_threshold": md.integrator.rr_threshold,
+            "light_strategy": md.integrator.light_strategy}
+    wconsts = megakernel_wide.extract_wide_consts(cm, make_camera(md.camera, md.film, dev), icfg,
+                                                  {"kind": md.sampler.kind, "spp": spp}, fcfg,
+                                                  megakernel_wide.DEFAULT_MAX_TRIS)
+    if wconsts is None:
+        raise AssertionError("the checker room is outside the wide megakernel's class")
+    wblob = megakernel_wide.pack_wide_consts(wconsts).to(dev)
+    wmode = megakernel_wide.kernel_mode(wconsts)
+    idx = torch.arange(W * H, device=dev)
+    lanes = (idx % W, idx // W, idx)
+
+    def wlaunch(n):
+        return megakernel_wide.wide_megakernel_cuda(wblob, wmode, cm.arrays, *lanes, 0, n, SEED)
+
+    out_k = wlaunch(COMPARE_SPP)
+    t0 = time.perf_counter()
+    out_p = megakernel_wide.wide_megakernel_plain(wconsts, cm.arrays, *lanes, 0, COMPARE_SPP, SEED)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    ok, desc_cmp = _wide_tolerance(*out_k, *out_p)
+    err = (out_k[0] - out_p[0]).abs().max().item()
+    print(f"[27 B4 checker kernel-vs-plain] {W}x{H} {COMPARE_SPP}spp, mode {wmode}: {desc_cmp}, image mean "
+          f"{out_p[0].mean().item():.5f}", flush=True)
+    if not ok:
+        raise AssertionError("the wide megakernel and its plain twin disagree on the checker room")
+    ms = _cuda_ms(lambda: wlaunch(spp), 3)
+    counters, pops = megakernel_wide.wide_megakernel_cuda.counters[dev], megakernel_wide.wide_megakernel_cuda.pops[dev]
+    counters.zero_()
+    pops.zero_()
+    nv16 = wlaunch(spp)[2].double().sum().item()
+    pops_c, pops_s = pops.tolist()
+    if counters.tolist() != [0, 0]:
+        raise AssertionError(f"wide megakernel stack overflows / iteration-cap hits on the checker room: "
+                             f"{counters.tolist()}")
+    sa = cm.arrays
+    nbytes = 3 * 4 * W * H + _nbytes(sa.wnode_rec, sa.wleaf_rec, sa.wattr_rec) + 5 * 4 * W * H
+    bound = _bound(nbytes, (pops_c + pops_s) * B1_OPS_PER_POP + nv16 * B3_OPS_SHADE)
+    n_s = megakernel_wide.N_SAMPLER_IDS
+    ptx = _ptxas_of(megakernel_wide.build_kernel()["log"],
+                    f"ILi{(wmode // 2) % n_s}ELi{wmode % 2}ELi{wmode // (2 * n_s)}ELi0EE")
+    occ = megakernel_wide.occupancy(wmode)
+    print(f"  {spp}spp: kernel {ms:.4f} ms (phase 11's (0,2) + box {b4_ms:.4f} ms, {ms / b4_ms:.3f}x), plain "
+          f"{COMPARE_SPP}spp {plain_ms:.1f} ms; {nv16:.0f} path vertices, pops closest {pops_c} shadow {pops_s}; "
+          f"bound {bound[0]:.4f} ms ({bound[1]}, {nbytes} bytes), kernel at {100 * bound[0] / ms:.2f}% of it; "
+          f"ptxas {ptx}, {occ} blocks per SM", flush=True)
+    b4_inst = {"mode": wmode, "ms": ms, "plain_ms": plain_ms, "n_vertices": nv16, "max_abs_err": err,
+               "bound_ms": bound[0], "bound_by": bound[1], "blocks_per_sm": occ, **ptx}
+    with mock.patch.dict(os.environ, PBRT_TPU_WIDEMEGA="1"):
+        t_b4, l_b4, _img = _main_path("27 checker room through B4", cm, "torch-megakernel/cuda-wide",
+                                      megakernel_wide.wide_megakernel_cuda)
+        if l_b4 != 1:
+            raise AssertionError(f"the checker room render made {l_b4} B4 launches, not 1")
+        crop = _crop_lanes(cm)
+        mega = R_.make_persistent_fn(cm)(cm.arrays, *crop, 0, CROP_SPP, SEED)
+    t_w, l_w, _img = _main_path("27 checker room through the wavefront", cm, "torch-wavefront/cuda-wide",
+                                wide_bvh.traverse_cuda)
+    _total_within("27 checker room wavefront", t_w["n_vertices"], t_b4["n_vertices"])
+    wave = R_.make_persistent_fn(cm)(cm.arrays, *crop, 0, CROP_SPP, SEED)
+    ok, desc_cmp = _wide_tolerance(*wave, *mega)
+    print(f"[27 checker room B4 vs wavefront] path_vertex_samples_per_sec B4 {t_b4['n_vertices'] / t_b4['wall_s']:.1f}"
+          f", wavefront {t_w['n_vertices'] / t_w['wall_s']:.1f}; {CROP_SPP}spp crop: {desc_cmp}", flush=True)
+    if not ok:
+        raise AssertionError("B4 and the wavefront disagree on the checker room crop")
+    out["checker_room"] = {"b4_wall_s": t_b4["wall_s"], "wave_wall_s": t_w["wall_s"], "n_vertices": t_b4["n_vertices"],
+                           "b4_launches": l_b4}
+    out["b3_instantiations"] = {"textured_gallery": b3_inst}
+    out["b4_instantiations"] = {"material_room checker Kd": b4_inst}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -892,7 +1162,7 @@ def main() -> int:
                     megakernel_wide.KERNEL_SOURCE])
     # resident blocks per SM of each kernel (cudaOccupancyMaxActiveBlocksPerMultiprocessor), per variant
     occupancy = (("wide_traverse_occupancy", [()]), ("wide_traverse_joint_occupancy", [()]),
-                 ("brute_megakernel_occupancy", [(m,) for m in range(6)]),
+                 ("brute_megakernel_occupancy", [(m,) for m in range(2 * megakernel.N_PLAIN_MODES)]),
                  ("wide_megakernel_occupancy", [(m,) for m in range(4 * megakernel_wide.N_SAMPLER_IDS)]))
     for build, (entry, variants) in zip((wide_bvh.build_kernel, wide_bvh.build_joint_kernel, megakernel.build_kernel,
                                          megakernel_wide.build_kernel), occupancy):
@@ -906,7 +1176,7 @@ def main() -> int:
     group = wide_bvh.joint_group_width()
     print(f"[2 build] B2 walks a ray with {group} lanes, {32 // group} rays per warp", flush=True)
     b3_min_blocks = re.search(r"^#define MIN_BLOCKS (\d+)", megakernel.KERNEL_SOURCE.read_text(), re.MULTILINE)[1]
-    b3_occ = [megakernel.occupancy(m) for m in range(6)]
+    b3_occ = [megakernel.occupancy(m) for m in range(2 * megakernel.N_PLAIN_MODES)]
     print(f"[2 build] B3 __launch_bounds__(128, {b3_min_blocks}): {b3_occ[0]} blocks of 128 path slots per SM",
           flush=True)
 
@@ -1194,9 +1464,13 @@ def main() -> int:
         # --- 22-24. B4's samplers, filters, attribute rows and sky; pbrt's
         # defaults through B4; infinite lights through the wavefront ---
         sk = _unswitched(_sky_phases, work, m, m_host, b4_ms, fe)
+        print(f"[22-24 sky] {json.dumps(sk)}", flush=True)
+        # --- 25-27. textures: the wavefront, B3's Kd atlas, B4's checkerboard ---
+        tx = _unswitched(_texture_phases, work, g, b3_ms, b3_bound_vertex, m, b4_ms)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"[22-24 sky] {json.dumps(sk)}", flush=True)
+    print(f"[25-27 textures] {json.dumps({k: v for k, v in tx.items() if not k.endswith('instantiations')})}",
+          flush=True)
 
     report = {"kernels": [
         {"name": "wide_traverse", "route": "cuda", "source": "pbrt_tpu_torch/csrc/wide_traverse.cu",
@@ -1209,11 +1483,11 @@ def main() -> int:
         {"name": "brute_megakernel", "route": "cuda", "source": "pbrt_tpu_torch/csrc/megakernel.cu",
          "replaces": "pbrt_tpu/device/megakernel.py:814", "launches": b3_launches, "max_abs_err": b3_err,
          "ms": b3_ms, "plain_ms": b3_plain_ms, "bound_ms": b3_bound_vertex[0], "bound_by": b3_bound_vertex[1],
-         "library_ms": None, "bound_ms_from_tests": b3_bound[0]},
+         "library_ms": None, "bound_ms_from_tests": b3_bound[0], "instantiations": tx["b3_instantiations"]},
         {"name": "wide_megakernel", "route": "cuda", "source": "pbrt_tpu_torch/csrc/megakernel_wide.cu",
          "replaces": "pbrt_tpu/device/megakernel_wide.py:525", "launches": b4_launches, "max_abs_err": b4_err,
          "ms": b4_ms, "plain_ms": b4_plain_ms, "bound_ms": b4_bound[0], "bound_by": b4_bound[1],
-         "library_ms": None, "instantiations": sk["instantiations"]},
+         "library_ms": None, "instantiations": {**sk["instantiations"], **tx["b4_instantiations"]}},
     ]}
     print(json.dumps(report))
     print(_smi())

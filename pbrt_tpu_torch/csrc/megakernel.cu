@@ -8,10 +8,18 @@
 // loop runs here: camera regeneration, brute-force closest-hit and shadow
 // tests, next-event estimation, BSDF sampling, Russian roulette and the
 // sample flush. The estimator is the reference's, term for term; the plain
-// PyTorch twin is device/megakernel.py megakernel_plain. The reference's
-// imagemap-Kd atlas is not ported yet; when it is, it is read with __ldg
-// from device memory (a 128^2 mip pyramid per texture does not fit in
-// shared memory beside the slots), so the slot layout below stays.
+// PyTorch twin is device/megakernel.py megakernel_plain.
+//
+// Textured Kd (the TEX instantiations): a grayscale imagemap on the Kd slot
+// of a matte or plastic material of triangle prims is looked up in a mip
+// atlas in device memory, read with __ldg (a 128^2 pyramid is 255 rows of
+// 128 floats, 130,560 bytes per texture, which does not fit in shared
+// memory beside the slots), with the reference's ray-cone trilinear filter
+// (eval_kd_tex): the cone's world width at the hit (the camera's pixel
+// angle times the distance travelled since the camera, F_TSPREAD, over
+// |cos| of the hit) times the prim's uv density picks the level. TEX = 0
+// compiles none of it and keeps the slot layout and shared blob below; TEX
+// = 1 adds one word per slot and one per material record.
 //
 // What bounds it on Hopper, and what the design does about it:
 //  - Arithmetic issue, not bytes: the inputs are three int32 and the outputs
@@ -100,6 +108,7 @@
 #define H_C2W 32
 #define H_CDF 44
 #define H_PMF 48
+#define H_CONE_PA 52  // float32(cone_k) * float32(pixel_angle)
 #define HEADER 64
 #define MAX_LIGHTS 4
 #define MAX_PRIMS 16
@@ -127,6 +136,27 @@
 #define P_R2 28
 #define P_PHIMAX 29
 #define P_ERRC 30
+#define P_UV 24   // triangle: uv0 uv1 uv2 (6)
+#define P_UVD 30  // triangle: the uv density sqrt(|duv cross| / |dp cross|)
+
+// material record field past pt_common.cuh's: 1 + the Kd texture's row of
+// the texture table, 0 for none (TEX)
+#define M_TEX 24
+
+// the texture table: one TEX_STRIDE row per atlas texture (keep in lockstep
+// with device/megakernel.py pack_textures)
+#define TX_NLEV 0
+#define TX_BASE 1
+#define TX_US 2
+#define TX_VS 3
+#define TX_UD 4
+#define TX_VD 5
+#define TX_SCALE 6
+#define TX_SMAX 7
+#define TX_LMAX 8
+#define TX_LEVELS 9  // (row offset, height, width) per level
+#define TEX_STRIDE 40
+#define ATLAS_W 128
 
 // --- brute-force intersection ------------------------------------------------
 
@@ -280,13 +310,19 @@ __device__ __forceinline__ void sph_attrs(const float* pr, float g53, float px_o
 #define MIN_BLOCKS 8  // resident blocks per SM that __launch_bounds__ asks for (7 measured equal, 6 slower)
 
 // The blob in shared memory: header and lights as in device memory, then
-// the first P_FIELDS floats of every prim record and M_FIELDS of every
-// material record, the fields the kernel reads.
+// the first P_FIELDS floats of every prim record and M_FIELDS (TEX: one
+// more, M_TEX) of every material record, the fields the kernel reads.
 #define P_FIELDS 33  // P_ERRC + 3
 #define M_FIELDS 24  // M_ON_B + 1
 #define SB_PRIM (LIGHT_BASE + MAX_LIGHTS * LIGHT_STRIDE)
 #define SB_MAT (SB_PRIM + MAX_PRIMS * P_FIELDS)
 #define SB_FLOATS (SB_MAT + MAX_MATS * M_FIELDS)
+template <int TEX>
+struct Layout {
+    static constexpr int m_fields = M_FIELDS + TEX;
+    static constexpr int sb_floats = SB_MAT + MAX_MATS * m_fields;
+    static constexpr int n_fields = 43 + TEX;  // N_FIELDS, and F_TSPREAD (TEX)
+};
 
 // F_KEY: after the pool, the hit prim of a hit that samples a BSDF (>= 0),
 // else S_DEAD; after shading, one of the S_* states; a slot that waits for
@@ -321,6 +357,7 @@ __device__ __forceinline__ void sph_attrs(const float* pr, float g53, float px_o
 #define F_LOLD 39     // a finished sample's radiance, flushed once its shadow ray is tested (3)
 #define F_HB 42       // the pixel's hash base
 #define N_FIELDS 43
+#define F_TSPREAD 43  // TEX: the distance the sample's ray cone has travelled
 #define IT_OLD (1 << 30)  // F_LOLD holds a sample, and the queued shadow ray adds to it
 
 // The PROF instantiation's record, u64 (device/megakernel.py SPLIT_FIELDS):
@@ -347,9 +384,10 @@ __device__ __forceinline__ void sph_attrs(const float* pr, float g53, float px_o
 #define SPLIT_SHADOW_SPH 13
 #define N_SPLIT 14
 
+template <int TEX>
 struct BlockState {
-    float blob[SB_FLOATS];
-    float st[N_FIELDS * THREADS];
+    float blob[Layout<TEX>::sb_floats];
+    float st[Layout<TEX>::n_fields * THREADS];
     uint8_t wlist[THREADS];   // slots whose closest ray is tested next, compacted
     uint8_t shlist[THREADS];  // slots with a queued shadow ray, compacted
     uint8_t hlist[THREADS];   // hits to shade, compacted
@@ -362,7 +400,10 @@ __device__ __forceinline__ float& fld(float* st, int f, int i) { return st[f * T
 __device__ __forceinline__ int geti(const float* st, int f, int i) { return __float_as_int(st[f * THREADS + i]); }
 __device__ __forceinline__ void seti(float* st, int f, int i, int v) { st[f * THREADS + i] = __int_as_float(v); }
 __device__ __forceinline__ const float* prim_rec(const float* blob, int i) { return blob + SB_PRIM + i * P_FIELDS; }
-__device__ __forceinline__ const float* mat_rec(const float* blob, int s) { return blob + SB_MAT + s * M_FIELDS; }
+template <int TEX>
+__device__ __forceinline__ const float* mat_rec(const float* blob, int s) {
+    return blob + SB_MAT + s * Layout<TEX>::m_fields;
+}
 
 // Warp-aggregated counter: every thread of the warp calls it; a thread with
 // want set gets *n's value plus its rank among the wanting lanes (in lane
@@ -401,9 +442,10 @@ __device__ __forceinline__ void tri_attrs(const float* pr, float g7, float b1, f
 // lowers it, which accepts exactly the hits the per-lane loop's t < t_best
 // accepted) or the first hit below t_max (shadow true). Returns the hit
 // prim or -1, with a triangle's (b1, b2) or a sphere's object-space point in
-// a[]; *tested: the prims tested.
+// a[] and its distance in t_hit; *tested: the prims tested.
 __device__ __forceinline__ int brute_test(const float* blob, int n_prims, float ox, float oy, float oz, float dx,
-                                          float dy, float dz, float t_max, bool shadow, float a[3], int* tested) {
+                                          float dy, float dz, float t_max, bool shadow, float a[3], int* tested,
+                                          float& t_hit) {
     const RaySetup rs = ray_setup(dx, dy, dz);
     float tq = t_max;
     int best = -1, i = 0;
@@ -424,6 +466,7 @@ __device__ __forceinline__ int brute_test(const float* blob, int n_prims, float 
         tq = t;
     }
     *tested = i;
+    t_hit = tq;
     return best;
 }
 
@@ -433,7 +476,9 @@ __device__ __forceinline__ int brute_test(const float* blob, int n_prims, float 
 template <int SAMPLER>
 __device__ __forceinline__ bool nee_light(const float* blob, const float* m, uint32_t hbase, uint32_t s,
                                           uint32_t dim_base, const Hit& h, float wox, float woy, float woz,
-                                          float c[3], float so[3], float sd[3], float& tmax) {
+                                          float c[3], float so[3], float sd[3], float& tmax,
+                                          const float* kd = nullptr) {
+    const float* col = kd != nullptr ? kd : m + M_COLOR;
     const int n_lights = (int)blob[H_N_LIGHTS];
     int lid = 0;
     if (n_lights > 1) {
@@ -449,7 +494,7 @@ __device__ __forceinline__ bool nee_light(const float* blob, const float* m, uin
     float f[3] = {0.0f, 0.0f, 0.0f};
     if ((lobe == LOBE_LAMBERT_R || lobe == LOBE_PLASTIC) && refl) {
 #pragma unroll
-        for (int k = 0; k < 3; ++k) f[k] = m[M_COLOR + k] * INV_PI_F * cos_ns;
+        for (int k = 0; k < 3; ++k) f[k] = col[k] * INV_PI_F * cos_ns;
     }
     if (lobe == LOBE_OREN_NAYAR || lobe == LOBE_MICRO_R || lobe == LOBE_PLASTIC) {
         float wo_x, wo_y, wo_z, wi_x, wi_y, wi_z;
@@ -458,7 +503,7 @@ __device__ __forceinline__ bool nee_light(const float* blob, const float* m, uin
         if (lobe == LOBE_OREN_NAYAR && refl) {
             const float onf = on_factor(m, wo_x, wo_y, wo_z, wi_x, wi_y, wi_z);
 #pragma unroll
-            for (int k = 0; k < 3; ++k) f[k] = m[M_COLOR + k] * onf * cos_ns;
+            for (int k = 0; k < 3; ++k) f[k] = col[k] * onf * cos_ns;
         }
         if (lobe != LOBE_OREN_NAYAR && refl) {
             float fm[3], p_m;
@@ -480,12 +525,53 @@ __device__ __forceinline__ bool nee_light(const float* blob, const float* m, uin
     return true;
 }
 
+// The bilinear taps of level l of an atlas texture at (su, sv), weighted by
+// w: the lower row's texel pair (x) and the upper row's (y).
+__device__ __forceinline__ float2 kd_level(const float* __restrict__ atlas, const float* __restrict__ tx, int l,
+                                          float su, float sv, float w) {
+    const int off = (int)__ldg(tx + TX_LEVELS + 3 * l), hl = (int)__ldg(tx + TX_LEVELS + 3 * l + 1);
+    const int wl = (int)__ldg(tx + TX_LEVELS + 3 * l + 2), base = (int)__ldg(tx + TX_BASE);
+    // v flipped: pbrt images are top-down (imagemap.rs st.y -> 1 - t)
+    const float x = (su - floorf(su)) * (float)wl - 0.5f;
+    const float y = (1.0f - (sv - floorf(sv))) * (float)hl - 0.5f;
+    const int ix = (int)floorf(x), iy = (int)floorf(y);
+    const float fx = x - (float)ix, fy = y - (float)iy;
+    const int ixm = ((ix % wl) + wl) % wl, ixp = (ixm + 1) % wl;
+    const int iym = ((iy % hl) + hl) % hl, iyp = (iym + 1) % hl;
+    const float* ra = atlas + (size_t)(base + off + iym) * ATLAS_W;
+    const float* rb = atlas + (size_t)(base + off + iyp) * ATLAS_W;
+    return make_float2(w * (1.0f - fy) * (1.0f - fx) * __ldg(ra + ixm) + w * (1.0f - fy) * fx * __ldg(ra + ixp),
+                       w * fy * (1.0f - fx) * __ldg(rb + ixm) + w * fy * fx * __ldg(rb + ixp));
+}
+
+// The grayscale Kd of an atlas texture (row tx of the texture table) at the
+// hit's uv: the ray cone's width (cone_pa * t_tot / max(|cos|, 0.25), times
+// the prim's uv density and the mapping's scale) picks a level, then a
+// trilinear fetch over it and the next (reference eval_kd_tex :1468-1574).
+__device__ __forceinline__ float eval_kd_tex(const float* __restrict__ atlas, const float* __restrict__ tx,
+                                             float cone_pa, float u, float v, float uvd, float t_tot, float cosg) {
+    const float world_fp = cone_pa * t_tot / fmaxf(cosg, 0.25f);
+    const float su = u * __ldg(tx + TX_US) + __ldg(tx + TX_UD);
+    const float sv = v * __ldg(tx + TX_VS) + __ldg(tx + TX_VD);
+    const float width = world_fp * uvd * __ldg(tx + TX_SMAX);
+    const float nlev = __ldg(tx + TX_NLEV);
+    float lvl = (nlev - 1.0f) + log2f(fmaxf(width, 1e-8f));
+    lvl = fminf(fmaxf(lvl, 0.0f), __ldg(tx + TX_LMAX));
+    const int l0 = (int)lvl;
+    const float ft = lvl - (float)l0;
+    const float2 lo = kd_level(atlas, tx, l0, su, sv, 1.0f - ft);
+    const float2 hi = kd_level(atlas, tx, min(l0 + 1, (int)nlev - 1), su, sv, ft);
+    return (lo.x + lo.y + hi.x + hi.y) * __ldg(tx + TX_SCALE);
+}
+
 // Phase 2 for the hit in slot i (F_KEY: its prim): the BSDF sample, the NEE
 // light sample and the path's continuation with Russian roulette. Queues the
 // shadow ray in the slot's F_SO.. fields and returns true when the NEE
-// sample needs one; leaves the slot's S_* state in F_KEY.
-template <int SAMPLER, int IKIND>
-__device__ __forceinline__ bool shade(float* st, int i, const float* blob) {
+// sample needs one; leaves the slot's S_* state in F_KEY. TEX: a material
+// with an atlas texture takes its Kd from it.
+template <int SAMPLER, int IKIND, int TEX>
+__device__ __forceinline__ bool shade(float* st, int i, const float* blob, const float* __restrict__ atlas,
+                                      const float* __restrict__ tex) {
     const float* pr = prim_rec(blob, geti(st, F_KEY, i));
     Hit h;
     if (pr[P_KIND] == 0.0f) {
@@ -494,19 +580,39 @@ __device__ __forceinline__ bool shade(float* st, int i, const float* blob) {
         sph_attrs(pr, blob[H_G53], fld(st, F_HA, i), fld(st, F_HA + 1, i), fld(st, F_HA + 2, i), h);
     }
     h.mat = (int)pr[P_MAT];
-    const float* m = mat_rec(blob, h.mat);
+    const float* m = mat_rec<TEX>(blob, h.mat);
     const float wox = -fld(st, F_D, i), woy = -fld(st, F_D + 1, i), woz = -fld(st, F_D + 2, i);
+    float kdv[3];
+    const float* kd = nullptr;
+    if (TEX) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) kdv[k] = m[M_COLOR + k];
+        const int tx = (int)m[M_TEX];
+        if (tx > 0) {  // a triangle (textured spheres are outside the class)
+            const float b1 = fld(st, F_HA, i), b2 = fld(st, F_HA + 1, i);
+            const float b0 = 1.0f - b1 - b2;
+            const float u = b0 * pr[P_UV] + b1 * pr[P_UV + 2] + b2 * pr[P_UV + 4];
+            const float v = b0 * pr[P_UV + 1] + b1 * pr[P_UV + 3] + b2 * pr[P_UV + 5];
+            const float cosg = fabsf(dot3(fld(st, F_D, i), fld(st, F_D + 1, i), fld(st, F_D + 2, i), h.ngx, h.ngy,
+                                          h.ngz));
+            const float val = eval_kd_tex(atlas, tex + (tx - 1) * TEX_STRIDE, blob[H_CONE_PA], u, v, pr[P_UVD],
+                                          fld(st, F_TSPREAD, i), cosg);
+#pragma unroll
+            for (int k = 0; k < 3; ++k) kdv[k] = val;
+        }
+        kd = kdv;
+    }
     const uint32_t hbase = (uint32_t)geti(st, F_HB, i), s_cur = (uint32_t)geti(st, F_S, i);
     uint32_t bounces = (uint32_t)geti(st, F_BOUNCES, i);
     const uint32_t dim_base = 2u + bounces * DPB;
-    const BsdfSample bs = bsdf_sample<SAMPLER>(m, hbase, s_cur, dim_base, h, wox, woy, woz);
+    const BsdfSample bs = bsdf_sample<SAMPLER>(m, hbase, s_cur, dim_base, h, wox, woy, woz, kd);
     float beta[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) beta[k] = fld(st, F_BETA + k, i);
     bool want_sh = false;
     if ((int)blob[H_N_LIGHTS] > 0) {
         float c[3], so[3], sd[3], tmax;
-        if (nee_light<SAMPLER>(blob, m, hbase, s_cur, dim_base, h, wox, woy, woz, c, so, sd, tmax)) {
+        if (nee_light<SAMPLER>(blob, m, hbase, s_cur, dim_base, h, wox, woy, woz, c, so, sd, tmax, kd)) {
 #pragma unroll
             for (int k = 0; k < 3; ++k) {
                 fld(st, F_SO + k, i) = so[k];
@@ -657,7 +763,7 @@ __device__ __forceinline__ void take_pixel(float* st, int i, const int* __restri
 }
 
 // camera regeneration of slot i's sample F_S, with the path state reset
-template <int SAMPLER>
+template <int SAMPLER, int TEX>
 __device__ __forceinline__ void start_sample(float* st, int i, const float* blob, const int* __restrict__ px_in,
                                              const int* __restrict__ py_in) {
     const int lane = geti(st, F_LANE, i);
@@ -678,19 +784,22 @@ __device__ __forceinline__ void start_sample(float* st, int i, const float* blob
     }
     fld(st, F_ETA, i) = 1.0f;
     seti(st, F_BOUNCES, i, 0);
+    if (TEX) fld(st, F_TSPREAD, i) = 0.0f;
 }
 
 // --- the persistent kernel ------------------------------------------------------
 
-template <int SAMPLER, int IKIND, int PROF>
+template <int SAMPLER, int IKIND, int TEX, int PROF>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 brute_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict__ px_in,
                         const int* __restrict__ py_in, const int* __restrict__ pid_in, int n_lanes,
                         uint32_t seed, uint32_t s0, int n_samples, float* __restrict__ out_l,
                         float* __restrict__ out_w, float* __restrict__ out_nv,
                         unsigned int* __restrict__ counters, int* __restrict__ queue,
+                        const float* __restrict__ atlas, const float* __restrict__ tex,
                         unsigned long long* __restrict__ prof) {
-    __shared__ BlockState B;
+    constexpr int MF = Layout<TEX>::m_fields;
+    __shared__ BlockState<TEX> B;
     const int tid = threadIdx.x;
     const long long t0 = PROF ? clock64() : 0;
     long long t_mark = t0, t_ph = 0, t_w = 0, t_s = 0;
@@ -698,10 +807,10 @@ brute_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict_
 #pragma unroll
     for (int q = 0; q < N_SPLIT; ++q) sp[q] = 0ull;
 
-    for (int i = tid; i < SB_FLOATS; i += THREADS) {
+    for (int i = tid; i < Layout<TEX>::sb_floats; i += THREADS) {
         int g = i;
         if (i >= SB_MAT) {
-            g = MAT_BASE + (i - SB_MAT) / M_FIELDS * MAT_STRIDE + (i - SB_MAT) % M_FIELDS;
+            g = MAT_BASE + (i - SB_MAT) / MF * MAT_STRIDE + (i - SB_MAT) % MF;
         } else if (i >= SB_PRIM) {
             g = PRIM_BASE + (i - SB_PRIM) / P_FIELDS * PRIM_STRIDE + (i - SB_PRIM) % P_FIELDS;
         }
@@ -737,7 +846,7 @@ brute_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict_
         const bool has = lane < n_lanes;
         if (has) {
             take_pixel(st, i, pid_in, hseed, s0, lane);
-            start_sample<SAMPLER>(st, i, blob, px_in, py_in);
+            start_sample<SAMPLER, TEX>(st, i, blob, px_in, py_in);
         } else {
             seti(st, F_LANE, i, -1);
         }
@@ -774,12 +883,12 @@ brute_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict_
                 const bool shadow = item >= n_walk;
                 slot = shadow ? B.shlist[item - n_walk] : B.wlist[item];
                 const int fo = shadow ? F_SO : F_O, fd = shadow ? F_SD : F_D;
-                float a[3];
+                float a[3], t_hit;
                 int tested;
                 const int hit = brute_test(blob, n_prims, fld(st, fo, slot), fld(st, fo + 1, slot),
                                            fld(st, fo + 2, slot), fld(st, fd, slot), fld(st, fd + 1, slot),
                                            fld(st, fd + 2, slot), shadow ? fld(st, F_TMAX, slot) : 1e30f, shadow, a,
-                                           &tested);
+                                           &tested, t_hit);
                 if (shadow) {
                     const bool occluded = hit >= 0;
                     const int f = (geti(st, F_IT, slot) & IT_OLD) ? F_LOLD : F_L;  // the sample it belongs to
@@ -800,9 +909,12 @@ brute_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict_
                         fld(st, F_NV, slot) = fld(st, F_NV, slot) + 1.0f;
 #pragma unroll
                         for (int k = 0; k < 3; ++k) fld(st, F_HA + k, slot) = a[k];
-                        const float* m = mat_rec(blob, (int)prim_rec(blob, hit)[P_MAT]);
+                        const float* m = mat_rec<TEX>(blob, (int)prim_rec(blob, hit)[P_MAT]);
                         shades = geti(st, F_BOUNCES, slot) < max_depth - 1 && (int)m[M_LOBE] != LOBE_NONE;
                         if (shades) key = hit;
+                        // the cone's distance at this hit (t_spread + t); kept when the path
+                        // goes on, restarted with the next sample otherwise
+                        if (TEX && shades) fld(st, F_TSPREAD, slot) = fld(st, F_TSPREAD, slot) + t_hit;
                     }
                     seti(st, F_KEY, slot, key);
                 }
@@ -826,7 +938,7 @@ brute_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict_
             int sslot = -1;
             if (base + tid < n_hit) {
                 sslot = B.hlist[base + tid];
-                want_sh = shade<SAMPLER, IKIND>(st, sslot, blob);
+                want_sh = shade<SAMPLER, IKIND, TEX>(st, sslot, blob, atlas, tex);
             }
             const int shpos = warp_take(want_sh, &B.n_sh_next);
             if (want_sh) B.shlist[shpos] = sslot;
@@ -860,7 +972,7 @@ brute_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict_
             const bool walks = geti(st, F_LANE, i) >= 0 && state != -1;
             const int pos = warp_take(walks, &B.n_walk);
             if (walks) B.wlist[pos] = i;
-            if (starts) start_sample<SAMPLER>(st, i, blob, px_in, py_in);
+            if (starts) start_sample<SAMPLER, TEX>(st, i, blob, px_in, py_in);
             if (PROF && state == -1) atomicAdd(&B.n_wait, 1);
         }
         __syncthreads();
@@ -899,17 +1011,23 @@ brute_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict_
     }
 }
 
-// the kernel of a mode (sampler * 2 + ikind; sampler 0 = (0,2)-sequence,
-// 1 = random, 2 = stratified; ikind 0 = path, 1 = directlighting), or
-// nullptr for a bad mode
+// the kernel of a mode (tex * 6 + sampler * 2 + ikind; sampler 0 =
+// (0,2)-sequence, 1 = random, 2 = stratified; ikind 0 = path, 1 =
+// directlighting; tex 1 = the atlas), or nullptr for a bad mode
 static const void* kernel_for(int mode) {
     switch (mode) {
-        case 0: return (const void*)brute_megakernel_kernel<0, 0, 0>;
-        case 1: return (const void*)brute_megakernel_kernel<0, 1, 0>;
-        case 2: return (const void*)brute_megakernel_kernel<1, 0, 0>;
-        case 3: return (const void*)brute_megakernel_kernel<1, 1, 0>;
-        case 4: return (const void*)brute_megakernel_kernel<2, 0, 0>;
-        case 5: return (const void*)brute_megakernel_kernel<2, 1, 0>;
+        case 0: return (const void*)brute_megakernel_kernel<0, 0, 0, 0>;
+        case 1: return (const void*)brute_megakernel_kernel<0, 1, 0, 0>;
+        case 2: return (const void*)brute_megakernel_kernel<1, 0, 0, 0>;
+        case 3: return (const void*)brute_megakernel_kernel<1, 1, 0, 0>;
+        case 4: return (const void*)brute_megakernel_kernel<2, 0, 0, 0>;
+        case 5: return (const void*)brute_megakernel_kernel<2, 1, 0, 0>;
+        case 6: return (const void*)brute_megakernel_kernel<0, 0, 1, 0>;
+        case 7: return (const void*)brute_megakernel_kernel<0, 1, 1, 0>;
+        case 8: return (const void*)brute_megakernel_kernel<1, 0, 1, 0>;
+        case 9: return (const void*)brute_megakernel_kernel<1, 1, 1, 0>;
+        case 10: return (const void*)brute_megakernel_kernel<2, 0, 1, 0>;
+        case 11: return (const void*)brute_megakernel_kernel<2, 1, 1, 0>;
         default: return nullptr;
     }
 }
@@ -923,7 +1041,7 @@ static int occupancy_of(const void* kern, int* blocks_per_sm) {
 // the blocks n_lanes can fill). Returns a cudaError_t.
 static int launch(const void* kern, const void* blob, const void* px, const void* py, const void* pid, int n_lanes,
                   unsigned int seed, unsigned int s0, int n_samples, void* out_l, void* out_w, void* out_nv,
-                  void* counters, void* queue, void* stream, void* prof) {
+                  void* counters, void* queue, const void* atlas, const void* tex, void* stream, void* prof) {
     if (n_lanes <= 0) return (int)cudaGetLastError();
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
@@ -936,20 +1054,22 @@ static int launch(const void* kern, const void* blob, const void* px, const void
     if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
     uint32_t seed_u = seed, s0_u = s0;
     void* args[] = {&blob, &px, &py, &pid, &n_lanes, &seed_u, &s0_u, &n_samples, &out_l, &out_w, &out_nv,
-                    &counters, &queue, &prof};
+                    &counters, &queue, &atlas, &tex, &prof};
     return (int)cudaLaunchKernel(kern, dim3(blocks), dim3(THREADS), args, 0, (cudaStream_t)stream);
 }
 
 // counters: one u32, pixels cut by the iteration cap; queue: two int32 on the device, zero before the launch
-// (the grid's last block zeroes them again). Returns the cudaError_t of the
-// launch (or cudaErrorInvalidValue for a bad mode).
+// (the grid's last block zeroes them again); atlas, tex: the Kd atlas and
+// the texture table (the textured modes; else unread). Returns the
+// cudaError_t of the launch (or cudaErrorInvalidValue for a bad mode).
 extern "C" int brute_megakernel(const void* blob, const void* px, const void* py, const void* pid, int n_lanes,
                                 unsigned int seed, unsigned int s0, int n_samples, int mode, void* out_l,
-                                void* out_w, void* out_nv, void* counters, void* queue, void* stream) {
+                                void* out_w, void* out_nv, void* counters, void* queue, const void* atlas,
+                                const void* tex, void* stream) {
     const void* kern = kernel_for(mode);
     if (kern == nullptr) return (int)cudaErrorInvalidValue;
     return launch(kern, blob, px, py, pid, n_lanes, seed, s0, n_samples, out_l, out_w, out_nv, counters, queue,
-                  stream, nullptr);
+                  atlas, tex, stream, nullptr);
 }
 
 // The instrumented instantiation ((0,2) sampler, path, mode 0, only):
@@ -958,10 +1078,10 @@ extern "C" int brute_megakernel(const void* blob, const void* px, const void* py
 extern "C" int brute_megakernel_split(const void* blob, const void* px, const void* py, const void* pid,
                                       int n_lanes, unsigned int seed, unsigned int s0, int n_samples, int mode,
                                       void* out_l, void* out_w, void* out_nv, void* counters, void* queue,
-                                      void* stream, void* prof) {
+                                      const void* atlas, const void* tex, void* stream, void* prof) {
     if (mode != 0) return (int)cudaErrorInvalidValue;
-    return launch((const void*)brute_megakernel_kernel<0, 0, 1>, blob, px, py, pid, n_lanes, seed, s0, n_samples,
-                  out_l, out_w, out_nv, counters, queue, stream, prof);
+    return launch((const void*)brute_megakernel_kernel<0, 0, 0, 1>, blob, px, py, pid, n_lanes, seed, s0,
+                  n_samples, out_l, out_w, out_nv, counters, queue, atlas, tex, stream, prof);
 }
 
 // Resident blocks of THREADS threads per SM for one mode.

@@ -73,8 +73,11 @@
 // generator columns, maxmindist's columns). Template parameters: the
 // sampler kind, whether the scene has area lights, and EXT, the extended
 // instantiation that reads the filter kind from the blob, the attribute
-// rows when given and the constant infinite light; EXT = 0 (the box filter,
-// flat default-UV shading, no sky) compiles none of that. The halton
+// rows when given, the constant infinite light and the checkerboard Kd (a
+// 2D uv-mapped checkerboard of two constant cells on a matte or plastic
+// Kd, selected per hit from the hit's uv; reference :1273-1287); EXT = 0
+// (the box filter, flat default-UV shading, no sky, no checkerboard)
+// compiles none of that. The halton
 // sampler's bounce dimensions take a radical inverse in a prime base per
 // lane: a digit loop with an integer division each, ending with the index
 // (the float32 sum is the twin's, digit for digit).
@@ -145,6 +148,11 @@
 // material record: the M_* fields of pt_common.cuh, plus the material-table
 // row the slot bakes (the leaf rows' payload names rows, not slots)
 #define M_ROW 31
+// the checkerboard Kd (EXT): M_CHK 1 when the material's Kd is one, its
+// mapping's uscale, vscale, udelta, vdelta from M_CHK_UV; the even cells'
+// color rides M_COLOR and the odd cells' M_KT (unread by these lobes)
+#define M_CHK 24
+#define M_CHK_UV 25
 
 // --- the block: THREADS path slots, one per thread ------------------------------
 #define THREADS 128
@@ -545,6 +553,16 @@ __device__ __forceinline__ int tri_attrs(const float* __restrict__ row, const fl
     h.ex = g7 * (fabsf(b0 * v0x) + fabsf(b1 * v1x) + fabsf(b2 * v2x));
     h.ey = g7 * (fabsf(b0 * v0y) + fabsf(b1 * v1y) + fabsf(b2 * v2y));
     h.ez = g7 * (fabsf(b0 * v0z) + fabsf(b1 * v1z) + fabsf(b2 * v2z));
+    if (EXT) {  // the uv chart, or the default uvs (u = b1 + b2, v = b2)
+        h.u = b1 + b2;
+        h.v = b2;
+        if (arow != nullptr) {
+            const float4 a2 = __ldg(reinterpret_cast<const float4*>(arow + 8));
+            const float4 a3 = __ldg(reinterpret_cast<const float4*>(arow + 12));
+            h.u = b0 * a2.y + b1 * a2.w + b2 * a3.y;
+            h.v = b0 * a2.z + b1 * a3.x + b2 * a3.z;
+        }
+    }
     h.mat = (int)q2.w;
     return (int)q3.x;
 }
@@ -556,7 +574,9 @@ __device__ __forceinline__ int tri_attrs(const float* __restrict__ row, const fl
 template <int SAMPLER, int EXT>
 __device__ __forceinline__ bool nee_light(const float* blob, const float* m, const Draw<SAMPLER>& dr,
                                           uint32_t dim_base, const Hit& h, float wox, float woy, float woz,
-                                          float c[3], float so[3], float sd[3], float& tmax) {
+                                          float c[3], float so[3], float sd[3], float& tmax,
+                                          const float* kd = nullptr) {
+    const float* col = kd != nullptr ? kd : m + M_COLOR;
     const int n_lights = (int)blob[H_N_LIGHTS];
     int lid = 0;
     if (n_lights > 1) lid = select_light(dr.d1(dim_base), n_lights, blob[H_UNIFORM] != 0.0f, blob + H_CDF);
@@ -620,7 +640,7 @@ __device__ __forceinline__ bool nee_light(const float* blob, const float* m, con
     float f[3] = {0.0f, 0.0f, 0.0f};
     if (lam && refl) {
 #pragma unroll
-        for (int k = 0; k < 3; ++k) f[k] = m[M_COLOR + k] * INV_PI_F * cos_ns;
+        for (int k = 0; k < 3; ++k) f[k] = col[k] * INV_PI_F * cos_ns;
     }
     // the BSDF's pdf toward wi (specular lobes contribute 0)
     const float wi_z = dot3(wix, wiy, wiz, h.nsx, h.nsy, h.nsz);
@@ -634,7 +654,7 @@ __device__ __forceinline__ bool nee_light(const float* blob, const float* m, con
         if (on && refl) {
             const float onf = on_factor(m, wo_x, wo_y, wo_z, wi_x, wi_y, wi_z);
 #pragma unroll
-            for (int k = 0; k < 3; ++k) f[k] = m[M_COLOR + k] * onf * cos_ns;
+            for (int k = 0; k < 3; ++k) f[k] = col[k] * onf * cos_ns;
         }
         if (mic) {
             float fm[3], p_m;
@@ -714,9 +734,23 @@ __device__ __forceinline__ bool shade(float* st, int i, int key, const float* bl
         float u1, u2;
         dr.d2(dim_base + 3u, u1, u2);
         const float u_lobe = (int)m[M_LOBE] == LOBE_PLASTIC ? dr.d1(dim_base + 2u) : 0.0f;
-        const BsdfSample bs = bsdf_sample_u(m, u_lobe, u1, u2, h, wox, woy, woz);
+        float kdv[3];
+        const float* kd = nullptr;
+        if (EXT) {
+            // the checkerboard Kd: (floor(s) + floor(t)) mod 2 == 0 takes
+            // the even cells' color (texture.py checkerboard)
+            const bool chk = m[M_CHK] != 0.0f;
+            const float s_t = m[M_CHK_UV] * h.u + m[M_CHK_UV + 2];
+            const float t_t = m[M_CHK_UV + 1] * h.v + m[M_CHK_UV + 3];
+            const float q = floorf(s_t) + floorf(t_t);
+            const bool odd = chk && q - 2.0f * floorf(q * 0.5f) != 0.0f;
+#pragma unroll
+            for (int k = 0; k < 3; ++k) kdv[k] = odd ? m[M_KT + k] : m[M_COLOR + k];
+            kd = kdv;
+        }
+        const BsdfSample bs = bsdf_sample_u(m, u_lobe, u1, u2, h, wox, woy, woz, kd);
         float c[3], so[3], sd[3], tmax;
-        if (nee_light<SAMPLER, EXT>(blob, m, dr, dim_base, h, wox, woy, woz, c, so, sd, tmax)) {
+        if (nee_light<SAMPLER, EXT>(blob, m, dr, dim_base, h, wox, woy, woz, c, so, sd, tmax, kd)) {
 #pragma unroll
             for (int k = 0; k < 3; ++k) {
                 fld(st, F_SO + k, i) = so[k];

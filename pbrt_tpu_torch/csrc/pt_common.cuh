@@ -162,6 +162,7 @@ struct Hit {
     float px, py, pz;
     float ngx, ngy, ngz, nsx, nsy, nsz, ssx, ssy, ssz, tsx, tsy, tsz;
     float ex, ey, ez;
+    float u, v;  // the hit's uv, where a textured Kd reads it
     int mat;
 };
 
@@ -434,9 +435,11 @@ struct BsdfSample {
 
 // bsdf_sample for the baked lobe classes, from the sample's uniforms: u_lobe
 // (dimension dim_base + 2, read by the plastic lobe pair only) and (u1, u2)
-// (dimension dim_base + 3)
+// (dimension dim_base + 3). kd: a textured Kd (3 floats) in place of the
+// record's color, or nullptr.
 __device__ __forceinline__ BsdfSample bsdf_sample_u(const float* m, float u_lobe, float u1, float u2, const Hit& h,
-                                                    float wox, float woy, float woz) {
+                                                    float wox, float woy, float woz, const float* kd = nullptr) {
+    const float* col = kd != nullptr ? kd : m + M_COLOR;
     float wo_x, wo_y, wo_z;
     to_local(h, wox, woy, woz, wo_x, wo_y, wo_z);
     const int lobe = (int)m[M_LOBE];
@@ -505,14 +508,14 @@ __device__ __forceinline__ BsdfSample bsdf_sample_u(const float* m, float u_lobe
     if (mirror) {
         float frm = (int)m[M_FRESNEL] == 1 ? fresnel_dielectric(wo_z, eta) : 1.0f;
 #pragma unroll
-        for (int c = 0; c < 3; ++c) bs.f[c] = m[M_COLOR + c] * frm * inv_ci;
+        for (int c = 0; c < 3; ++c) bs.f[c] = col[c] * frm * inv_ci;
         bs.pdf = 1.0f;
     } else if (glass) {
         float st_scale = eta_ratio * eta_ratio;
         float t_term = (1.0f - fr_s) * st_scale * inv_ci;
         float r_term = fr_s * inv_ci;
 #pragma unroll
-        for (int c = 0; c < 3; ++c) bs.f[c] = choose_r ? m[M_COLOR + c] * r_term : m[M_KT + c] * t_term;
+        for (int c = 0; c < 3; ++c) bs.f[c] = choose_r ? col[c] * r_term : m[M_KT + c] * t_term;
         bs.pdf = choose_r ? fr_s : 1.0f - fr_s;
     } else {
         const bool refl_hemi = wo_z * wiz > 0.0f;
@@ -520,7 +523,7 @@ __device__ __forceinline__ BsdfSample bsdf_sample_u(const float* m, float u_lobe
         if (on && refl_hemi) f_diff = on_factor(m, wo_x, wo_y, wo_z, wix, wiy, wiz);
         float pdf = diff_like && refl_hemi ? abs_ci * INV_PI_F : 0.0f;
 #pragma unroll
-        for (int c = 0; c < 3; ++c) bs.f[c] = m[M_COLOR + c] * f_diff;
+        for (int c = 0; c < 3; ++c) bs.f[c] = col[c] * f_diff;
         if (mic) {
             float fm[3], p_m;
             micro_f_pdf(m, wo_x, wo_y, wo_z, wix, wiy, wiz, fm, p_m);
@@ -543,11 +546,12 @@ __device__ __forceinline__ BsdfSample bsdf_sample_u(const float* m, float u_lobe
 // (0,2), random or stratified stream of sample s
 template <int SAMPLER>
 __device__ __forceinline__ BsdfSample bsdf_sample(const float* m, uint32_t hbase, uint32_t s, uint32_t dim_base,
-                                                  const Hit& h, float wox, float woy, float woz) {
+                                                  const Hit& h, float wox, float woy, float woz,
+                                                  const float* kd = nullptr) {
     float u1, u2;
     sample_2d<SAMPLER>(hbase, s, dim_base + 3u, u1, u2);
     const float u_lobe = (int)m[M_LOBE] == LOBE_PLASTIC ? sample_1d<SAMPLER>(hbase, s, dim_base + 2u) : 0.0f;
-    return bsdf_sample_u(m, u_lobe, u1, u2, h, wox, woy, woz);
+    return bsdf_sample_u(m, u_lobe, u1, u2, h, wox, woy, woz, kd);
 }
 
 // --- light selection and delta lights ---------------------------------------------

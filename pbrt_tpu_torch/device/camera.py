@@ -120,3 +120,13 @@ def generate_rays(cam, p_film_x, p_film_y, u_lens1, u_lens2):
     o_w = _xf_vector(c2w, o_cam) + c2w[:3, 3]
     d_w = normalize(_xf_vector(c2w, d_cam))
     return o_w, d_w
+
+
+def ray_differential_dirs(cam, p_film_x, p_film_y):
+    """World directions of the +1-pixel x and y offset rays
+    (camera.rs generate_ray_differential's finite-difference default
+    :43-97), both with the lens sample (0, 0)."""
+    zeros = torch.zeros_like(p_film_x)
+    _, dx = generate_rays(cam, p_film_x + 1.0, p_film_y, zeros, zeros)
+    _, dy = generate_rays(cam, p_film_x, p_film_y + 1.0, zeros, zeros)
+    return dx, dy

@@ -32,7 +32,8 @@ from .lightdistrib import spatial_pmf_of, spatial_select
 from .lights import area_light_emission, compute_power, env_le, env_pdf_li, pdf_li_area_hit, sample_li
 from .materials import lobe_table, make_bsdf
 from .sampler import sample_1d, sample_2d
-from .shading import dot, surface_interaction
+from .shading import apply_bump, dot, surface_interaction
+from .texture import has_imagemaps
 
 RAY_EPS = 1e-3
 DPB = 8  # sampler dimensions per bounce
@@ -85,6 +86,35 @@ def _round_ns(kind: str, n: int) -> int:
     return max(n, 1)
 
 
+def _compute_duv(si, o, d, dd):
+    """uv-footprint derivative (R, 2) of the +1-pixel offset ray with
+    direction dd and the shared origin o (interaction.rs
+    compute_differentials :269): its hit on the tangent plane, solved for
+    (du, dv) over the two axes where |ng| is smallest; zero where the
+    offset ray runs parallel to the plane or dpdu, dpdv are degenerate."""
+    ng = si["ng"]
+    denom = dot(ng, dd)
+    t_off = dot(ng, si["p"] - o) / torch.where(denom.abs() > 1e-9, denom, 1e-9)
+    dp = o + dd * t_off[:, None] - si["p"]
+    drop = ng.abs().argmax(-1)  # the dominant axis of ng
+    ax0 = torch.where(drop == 0, 1, 0)[:, None]
+    ax1 = torch.where(drop == 2, 1, 2)[:, None]
+
+    def pick(v, ax):
+        return v.gather(1, ax)[:, 0]
+
+    a00, a01 = pick(si["dpdu"], ax0), pick(si["dpdv"], ax0)
+    a10, a11 = pick(si["dpdu"], ax1), pick(si["dpdv"], ax1)
+    b0, b1 = pick(dp, ax0), pick(dp, ax1)
+    det = a00 * a11 - a01 * a10
+    ok = det.abs() > 1e-12
+    inv = 1.0 / torch.where(ok, det, 1.0)
+    du = torch.where(ok, (a11 * b0 - a01 * b1) * inv, 0.0)
+    dv = torch.where(ok, (a00 * b1 - a10 * b0) * inv, 0.0)
+    valid = denom.abs() > 1e-9
+    return torch.where(valid[:, None], torch.stack([du, dv], dim=-1), 0.0)
+
+
 def _light_selectors(sa, static, icfg: dict):
     """Light-selection closures (lightdistrib.rs): "uniform",
     power-proportional, or the voxel-grid "spatial" distribution, whose
@@ -134,13 +164,17 @@ def trace_persistent(sa, static, icfg: dict, scfg: dict, seed: int, pixel, s0: i
 
     One lane per pixel (pixel: (R,) int64 pixel ids); lane samples s0 ..
     s0+n_samples-1 are traced one after another. regen(sample_idx (R,)) ->
-    (o, d, w_filter) gives fresh camera samples for every lane. icfg: kind
-    ("path" or "directlighting"), max_depth, rr_threshold, strategy
-    (directlighting's "all" or "one"), light_strategy, and what the route
-    builds once: "spatial_distribution" and "lobe_table" (made here when
-    absent). scfg: sampler kind, spp and, for "stratified", "strata". joint:
-    CUDA queries of a wide scene go through the joint traversal kernel (B2)
-    instead of B1.
+    (o, d, w_filter, dd_x, dd_y) gives fresh camera samples for every lane,
+    with the directions of the +1-pixel offset rays that a scene with
+    imagemaps carries on camera rays (bounced rays carry none, as in the
+    reference). icfg: kind ("path" or "directlighting"), max_depth,
+    rr_threshold, strategy (directlighting's "all" or "one"),
+    light_strategy, and what the route builds once: "spatial_distribution",
+    "lobe_table" (made here when absent) and, for textured scenes,
+    "tex_atlases" (texture.prepare_atlases). A scene without imagemaps,
+    textured parameters and bump maps traces none of that. scfg: sampler
+    kind, spp and, for "stratified", "strata". joint: CUDA queries of a
+    wide scene go through the joint traversal kernel (B2) instead of B1.
 
     Returns (accLw (R, 3), accW (R,), n_vertices (R,)), float32.
     """
@@ -160,6 +194,9 @@ def trace_persistent(sa, static, icfg: dict, scfg: dict, seed: int, pixel, s0: i
     table = icfg.get("lobe_table")
     if table is None:
         table = lobe_table(sa, static)
+    textured = bool(table.get("textured"))
+    atlases = icfg.get("tex_atlases")
+    differentials = has_imagemaps(static)
     s_end = s0 + n_samples
 
     def _nee(si, lobes, alive_m, dim_base, s_cur, light_index=None, dim_salt=0, array_j=0, array_n=1):
@@ -196,7 +233,7 @@ def trace_persistent(sa, static, icfg: dict, scfg: dict, seed: int, pixel, s0: i
         return torch.where(contributes[:, None], contrib, 0.0)
 
     s_cur = torch.full((R,), s0, dtype=torch.int64, device=dev)
-    o, d, w_cur = regen(s_cur)
+    o, d, w_cur, dd_x, dd_y = regen(s_cur)
     L = torch.zeros((R, 3), dtype=torch.float32, device=dev)
     beta = torch.ones((R, 3), dtype=torch.float32, device=dev)
     alive = torch.full((R,), n_samples > 0, dtype=torch.bool, device=dev)
@@ -219,6 +256,8 @@ def trace_persistent(sa, static, icfg: dict, scfg: dict, seed: int, pixel, s0: i
         t_query = torch.where(alive, torch.inf, -1.0)
         hit = intersect(sa, static, o, d, t_query, sort_rays=True, joint=joint)
         si = surface_interaction(sa, hit, o, d)
+        if static.has_bump:
+            si = apply_bump(sa, static, si, atlases)
         valid = si["valid"]
         nverts = nverts + (alive & valid).to(torch.float32)
 
@@ -245,7 +284,12 @@ def trace_persistent(sa, static, icfg: dict, scfg: dict, seed: int, pixel, s0: i
         # --- shade: NEE + BSDF continuation (per-lane bounce depth) ---
         dim_base = 2 + bounces * DPB
         can_scatter = alive & (bounces < max_depth - 1)
-        lobes = make_bsdf(sa, static, si["mat"], table)
+        if textured:
+            duvdx = _compute_duv(si, o, d, dd_x) if differentials else None
+            duvdy = _compute_duv(si, o, d, dd_y) if differentials else None
+            lobes = make_bsdf(sa, static, si["mat"], table, si["uv"], si["p"], duvdx, duvdy, atlases)
+        else:
+            lobes = make_bsdf(sa, static, si["mat"], table)
         alive_sh = can_scatter & (num_lobes(lobes) > 0)
         if direct_all:
             # UniformSampleAll (directlighting.rs strategy "all"): each light's
@@ -312,7 +356,7 @@ def trace_persistent(sa, static, icfg: dict, scfg: dict, seed: int, pixel, s0: i
         s_next = s_cur + 1
         more = die & (s_next < s_end)
         done = done | (die & ~more)
-        o_r, d_r, w_r = regen(torch.where(more, s_next, s_cur))
+        o_r, d_r, w_r, ddx_r, ddy_r = regen(torch.where(more, s_next, s_cur))
         sel = more[:, None]
         o = torch.where(sel, o_r, new_o)
         d = torch.where(sel, d_r, new_d)
@@ -326,5 +370,9 @@ def trace_persistent(sa, static, icfg: dict, scfg: dict, seed: int, pixel, s0: i
         bounces = torch.where(more, 0, new_bounces)
         s_cur = torch.where(more, s_next, s_cur)
         w_cur = torch.where(more, w_r, w_cur)
+        if differentials:
+            # camera rays only: a lane that bounces carries none
+            dd_x = torch.where(sel, ddx_r, 0.0)
+            dd_y = torch.where(sel, ddy_r, 0.0)
 
     return accL, accW, nverts

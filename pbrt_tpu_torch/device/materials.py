@@ -1,9 +1,9 @@
 """Material evaluation: per-ray material rows -> BSDF lobe sets.
 
 The port's counterpart of ``pbrt_tpu/device/materials.py make_bsdf`` for
-matte (Lambert or Oren-Nayar), mirror, glass, metal and plastic with
-constant parameters (src/materials/*.rs). With constant parameters a
-material row's lobes do not depend on the hit, so:
+matte (Lambert or Oren-Nayar), mirror, glass, metal and plastic
+(src/materials/*.rs). With constant parameters a material row's lobes do
+not depend on the hit, so:
 
 - ``bake_lobes`` writes every material row's full lobe set, kinds (M, 8)
   and data (M, 8, 14), to the reference's slots with the reference's
@@ -13,7 +13,10 @@ material row's lobes do not depend on the hit, so:
   from the table), once per route;
 - ``make_bsdf`` is a row gather of that table.
 
-The scene compiler refuses every other material and textured parameters.
+A scene with a textured parameter builds each hit's lobes instead: the
+texture programs the rows read are evaluated per lane (device/texture.py)
+and the same lobe formulas (``_lobes``) run over the lanes' parameters.
+The scene compiler refuses every other material.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from ..scene.arrays import (
     MAT_GLASS, MAT_MATTE, MAT_METAL, MAT_MIRROR, MAT_PLASTIC, P_ETA, P_K, P_KD, P_KR, P_KS, P_KT,
     P_SIGMA, P_UROUGH, P_VROUGH,
 )
+from .texture import eval_textures, material_param, needed_programs
 from .bsdf import (
     LOBE_FRESNEL_SPEC, LOBE_LAMBERT_R, LOBE_MICRO_R, LOBE_MICRO_T, LOBE_NONE, LOBE_OREN_NAYAR,
     LOBE_SPEC_R, LOBE_SPEC_T, N_SLOTS, tr_roughness_to_alpha,
@@ -39,29 +43,66 @@ FR_CONDUCTOR = 2.0
 BAKED_KINDS = frozenset({MAT_MATTE, MAT_MIRROR, MAT_GLASS, MAT_METAL, MAT_PLASTIC})
 
 
+# the slots and lobe kinds each material kind can write (the reference's
+# make_bsdf puts), for the `possible` sets of rows whose lobes vary per hit
+_KIND_SLOTS = {
+    MAT_MATTE: {0: (LOBE_LAMBERT_R, LOBE_OREN_NAYAR)},
+    MAT_MIRROR: {4: (LOBE_SPEC_R,)},
+    MAT_GLASS: {4: (LOBE_FRESNEL_SPEC, LOBE_SPEC_R), 5: (LOBE_SPEC_T,), 2: (LOBE_MICRO_R,), 3: (LOBE_MICRO_T,)},
+    MAT_PLASTIC: {0: (LOBE_LAMBERT_R,), 2: (LOBE_MICRO_R,)},
+    MAT_METAL: {2: (LOBE_MICRO_R,)},
+}
+
+
 def lobe_table(sa, static):
     """The scene's lobes per material row, for make_bsdf: {"kind" (M, S),
     "data" (M, S, 14), "possible" (S frozensets of lobe kinds),
-    "has_beckmann"}, S the slots of bake_lobes that some row fills, in slot
-    order (a row with fewer lobes holds LOBE_NONE and zero data there)."""
+    "has_beckmann", "slots"}, S the slots of bake_lobes that some row
+    fills, in slot order (a row with fewer lobes holds LOBE_NONE and zero
+    data there). A scene with textured parameters gets {"textured": True,
+    "slots", "possible", "has_beckmann", "programs"}: its lobes are built
+    per hit, in every slot each present material kind can fill, from the
+    texture programs the material rows read."""
     if bool((sa.mat_tex >= 0).any()):
-        raise NotImplementedError("pbrt_tpu_torch does not evaluate textured material parameters yet")
+        if set(static.mat_kinds_present) - BAKED_KINDS:
+            raise NotImplementedError("textured lobes cover matte, mirror, glass, metal and plastic only")
+        poss: dict[int, set] = {}
+        for k in static.mat_kinds_present:
+            for slot, kinds in _KIND_SLOTS[int(k)].items():
+                poss.setdefault(slot, set()).update(kinds)
+        slots = sorted(poss) or [0]
+        return {"textured": True, "slots": slots,
+                "possible": tuple(frozenset(poss.get(s_, ())) for s_ in slots),
+                "has_beckmann": bool(((sa.mat_remap >> 1) & 1).any()),
+                "programs": needed_programs(static.tex_programs, sa.mat_tex.flatten().tolist())}
     kind, data = bake_lobes(sa, static)
     k = kind.cpu().numpy()
     slots = [s for s in range(N_SLOTS) if (k[:, s] != LOBE_NONE).any()] or [0]
     micro = np.isin(k, (LOBE_MICRO_R, LOBE_MICRO_T)) & (data[..., 12].cpu().numpy() > 0)
     return {"kind": kind[:, slots].contiguous(), "data": data[:, slots].contiguous(),
             "possible": tuple(frozenset(int(x) for x in np.unique(k[:, s]) if x != LOBE_NONE) for s in slots),
-            "has_beckmann": bool(micro.any())}
+            "has_beckmann": bool(micro.any()), "slots": slots}
 
 
-def make_bsdf(sa, static, mat_ids, table=None):
+def make_bsdf(sa, static, mat_ids, table=None, uv=None, p=None, duvdx=None, duvdy=None, atlases=None):
     """Lobe sets for a wave of shading points (mat_ids: (R,) rows): rows of
-    `table` (lobe_table of the scene, made here when not given)."""
+    `table` (lobe_table of the scene, made here when not given), or, for a
+    scene with textured parameters, the lobes of each hit's parameters:
+    the textures evaluated at uv (R, 2) and p (R, 3) with the MIPMap
+    footprint duvdx, duvdy (R, 2) (None: the finest level) and the route's
+    mip atlases (texture.prepare_atlases)."""
     if table is None:
         table = lobe_table(sa, static)
-    return {"kind": table["kind"][mat_ids], "data": table["data"][mat_ids], "possible": table["possible"],
-            "has_beckmann": table["has_beckmann"]}
+    if not table.get("textured"):
+        return {"kind": table["kind"][mat_ids], "data": table["data"][mat_ids], "possible": table["possible"],
+                "has_beckmann": table["has_beckmann"]}
+    tex_values = eval_textures(sa, static.tex_programs, uv, p, duvdx, duvdy, atlases=atlases,
+                               only=table["programs"])
+    kind, data = _lobes(sa.mat_kind[mat_ids], sa.mat_remap[mat_ids],
+                        lambda slot: material_param(sa, tex_values, mat_ids, slot))
+    slots = table["slots"]
+    return {"kind": kind[:, slots].contiguous(), "data": data[:, slots].contiguous(),
+            "possible": table["possible"], "has_beckmann": table["has_beckmann"]}
 
 
 def bake_lobes(sa, static):
@@ -72,29 +113,33 @@ def bake_lobes(sa, static):
     (A, B) or the micro lobes' Beckmann flag in 12:14."""
     if set(static.mat_kinds_present) - BAKED_KINDS:
         raise NotImplementedError("bake_lobes covers matte, mirror, glass, metal and plastic only")
-    M = sa.mat_kind.shape[0]
-    dev = sa.mat_const.device
-    kind = sa.mat_kind
-    const = sa.mat_const  # (M, N_MAT_PARAMS, 3) float32
-    remap_row = sa.mat_remap
+    return _lobes(sa.mat_kind, sa.mat_remap, lambda slot: sa.mat_const[:, slot])
+
+
+def _lobes(kind, remap_row, param):
+    """Lobe kinds (N, 8) and data (N, 8, 14) of N shading points or material
+    rows: kind and remap_row (N,) per point, param(slot) -> (N, 3) the
+    parameter values, with the reference's clamps (materials.py:150-260)."""
+    M = kind.shape[0]
+    dev = kind.device
     remap = (remap_row & 1) != 0
     beck_f = ((remap_row >> 1) & 1).to(torch.float32)
     zero_r = torch.zeros(M, dtype=torch.float32, device=dev)
 
-    kd = torch.clamp(const[:, P_KD], 0.0, 1.0)
-    sigma = const[:, P_SIGMA, 0]
-    kr = torch.clamp(const[:, P_KR], min=0.0)
-    kt = torch.clamp(const[:, P_KT], min=0.0)
-    ks = torch.clamp(const[:, P_KS], min=0.0)
-    eta3 = const[:, P_ETA]
+    kd = torch.clamp(param(P_KD), 0.0, 1.0)
+    sigma = param(P_SIGMA)[:, 0]
+    kr = torch.clamp(param(P_KR), min=0.0)
+    kt = torch.clamp(param(P_KT), min=0.0)
+    ks = torch.clamp(param(P_KS), min=0.0)
+    eta3 = param(P_ETA)
     eta = torch.where(eta3[:, 0] > 0, eta3[:, 0], 1.5)
-    kcond = const[:, P_K]
+    kcond = param(P_K)
 
     def alpha_of(r):
         return torch.clamp(torch.where(remap, tr_roughness_to_alpha(r), r), min=1e-3)
 
-    urough = const[:, P_UROUGH, 0]
-    vrough = const[:, P_VROUGH, 0]
+    urough = param(P_UROUGH)[:, 0]
+    vrough = param(P_VROUGH)[:, 0]
     ax = alpha_of(urough)
     ay = alpha_of(vrough)
 
@@ -163,3 +208,22 @@ def bake_lobes(sa, static):
     one = torch.ones((M, 3), dtype=torch.float32, device=dev)
     put(2, m, LOBE_MICRO_R, one, eta=eta3, k_or_t=kcond, ax=ax, ay=ay, fresnel=FR_CONDUCTOR, ab=(beck_f, zero_r))
     return out_kind, data
+
+
+def lobes_at_origin(sa, static):
+    """Lobe kinds (M, 8) and data (M, 8, 14) of every material row with its
+    textures evaluated at uv = (0, 0), p = 0 and the finest MIP level: what
+    the reference's megakernel extractors bake (make_bsdf over the rows at
+    the origin); bake_lobes for a scene without textured parameters."""
+    if not bool((sa.mat_tex >= 0).any()):
+        return bake_lobes(sa, static)
+    if set(static.mat_kinds_present) - BAKED_KINDS:
+        raise NotImplementedError("bake_lobes covers matte, mirror, glass, metal and plastic only")
+    M = sa.mat_kind.shape[0]
+    dev = sa.mat_kind.device
+    rows = torch.arange(M, device=dev)
+    uv = torch.zeros((M, 2), dtype=torch.float32, device=dev)
+    p = torch.zeros((M, 3), dtype=torch.float32, device=dev)
+    tex_values = eval_textures(sa, static.tex_programs, uv, p,
+                               only=needed_programs(static.tex_programs, sa.mat_tex.flatten().tolist()))
+    return _lobes(sa.mat_kind, sa.mat_remap, lambda slot: material_param(sa, tex_values, rows, slot))

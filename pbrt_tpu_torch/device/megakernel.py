@@ -25,8 +25,17 @@ Russian roulette and the sample flush.
 - ``make_megakernel_fn``: the wave_p-compatible function of the render
   route; CUDA tensors launch the kernel, CPU tensors run the plain twin.
 
-The reference's grayscale imagemap-Kd atlas is not ported: a scene with a
-textured parameter is outside the class here.
+Textured Kd: a grayscale imagemap of at most 128 x 128 texels under the
+uv mapping with the repeat wrap, on the Kd slot of a matte (Lambert or
+Oren-Nayar) or plastic material of triangle prims, rides a mip atlas in
+device memory (``_bake_imagemap_atlas``; the reference keeps it in VMEM)
+that the kernel reads with a ray-cone trilinear lookup (the reference's
+``eval_kd_tex``: the cone's width at the hit, from the camera's pixel
+angle, the distance travelled since the camera (``t_spread``) and the
+prim's uv density, picks the level; PBRT_TPU_CONE_K scales the width).
+Every other texture puts the scene outside the class, and so do bump maps:
+the reference's megakernels render them without bumps (ROADMAP C), the
+port sends them to the wavefront.
 """
 from __future__ import annotations
 
@@ -75,6 +84,7 @@ H_R2C = 16  # 16 floats, row-major 4x4 raster -> camera
 H_C2W = 32  # 12 floats, row-major 3x4 camera -> world
 H_CDF = 44  # MAX_LIGHTS floats
 H_PMF = 48  # MAX_LIGHTS floats
+H_CONE_PA = 52  # float32(cone_k) * float32(pixel_angle): the ray cone's spread per unit distance
 HEADER = 64
 LIGHT_STRIDE = 16  # kind, par[0:12], spot falloff denominator, pad
 LIGHT_BASE = HEADER
@@ -84,17 +94,27 @@ MAT_STRIDE = 32
 MAT_BASE = PRIM_BASE + MAX_PRIMS * PRIM_STRIDE
 BLOB_FLOATS = MAT_BASE + MAX_MATS * MAT_STRIDE
 # prim record: 0 kind (0 triangle, 1 sphere), 1 material slot, 2 flags, then
-#   triangle: 3 v0, 6 v1, 9 v2, 12 ng, 15 ns, 18 ss, 21 ts (3 floats each)
+#   triangle: 3 v0, 6 v1, 9 v2, 12 ng, 15 ns, 18 ss, 21 ts (3 floats each),
+#           24 uv0 uv1 uv2 (6), 30 the uv density sqrt(|duv cross| / |dp cross|)
 #   sphere: 3 w2o (3x4), 15 o2w (3x4), 27 radius, 28 radius^2, 29 phimax,
 #           30 the p_err constant terms gamma(3) |o2w[row][3]| (3 floats)
 P_KIND, P_MAT, P_FLAGS = 0, 1, 2
-P_V, P_NG, P_NS, P_SS, P_TS = 3, 12, 15, 18, 21
+P_V, P_NG, P_NS, P_SS, P_TS, P_UV, P_UVD = 3, 12, 15, 18, 21, 24, 30
 P_W2O, P_O2W, P_R, P_R2, P_PHIMAX, P_ERRC = 3, 15, 27, 28, 29, 30
 # material record: 0 lobe, 1 color(3), 4 eta, 5 kt(3), 8 fresnel, 9 ks(3),
 #   12 ax, 13 ay, 14 fr_m, 15 eta_m, 16 eta_rgb(3), 19 k_rgb(3), 22 on_a,
-#   23 on_b; absent fields hold mat_select's defaults
+#   23 on_b, 24 the Kd texture: 1 + its row of the texture table, 0 for none;
+#   absent fields hold mat_select's defaults
 M_LOBE, M_COLOR, M_ETA, M_KT, M_FRESNEL, M_KS, M_AX, M_AY = 0, 1, 4, 5, 8, 9, 12, 13
-M_FR_M, M_ETA_M, M_ETA_RGB, M_K_RGB, M_ON_A, M_ON_B = 14, 15, 16, 19, 22, 23
+M_FR_M, M_ETA_M, M_ETA_RGB, M_K_RGB, M_ON_A, M_ON_B, M_TEX = 14, 15, 16, 19, 22, 23, 24
+# the texture table (float32, one TEX_STRIDE row per atlas texture): level
+# count, first atlas row, uscale, vscale, udelta, vdelta, scale, max(|uscale|,
+# |vscale|, 1e-9), the level clamp's upper bound, then (row offset, height,
+# width) per level from TX_LEVELS
+TX_NLEV, TX_BASE, TX_US, TX_VS, TX_UD, TX_VD, TX_SCALE, TX_SMAX, TX_LMAX, TX_LEVELS = range(10)
+TEX_STRIDE = 40
+MAX_LEVELS = 8  # a 128 x 128 base: 128, 64, ..., 1
+ATLAS_W = 128  # atlas row width in texels (the widest base level)
 MAT_DEFAULTS = {"eta": 1.5, "fresnel": 0, "ax": 1e-3, "ay": 1e-3, "fr_m": 0, "eta_m": 1.5,
                 "on_a": 1.0, "on_b": 0.0}
 
@@ -112,16 +132,19 @@ def _f32(x) -> float:
 # ---------------------------------------------------------------------------
 
 
-def bake_lobe_entry(kinds, slots, ld_m):
+def bake_lobe_entry(kinds, slots, ld_m, kd_tex=None):
     """Bake one material's active lobe slots into a kernel material entry,
     or return None when the combination is outside the kernel's class
-    (reference megakernel.bake_lobe_entry without the texture override)."""
+    (reference megakernel.bake_lobe_entry). kd_tex, a textured Kd (B3's
+    atlas texture, B4's checkerboard), rides the Lambert, Oren-Nayar or
+    plastic lobe only."""
+    tex = {} if kd_tex is None else {"kd_tex": kd_tex}
     if kinds == [LOBE_OREN_NAYAR]:
         # matte with sigma > 0 (reflection.rs OrenNayar :901); cosine
         # sampled like Lambert with the A/B retro factor in f
         d = ld_m[slots[0]]
         return {"lobe": LOBE_OREN_NAYAR, "color": d[0:3].astype(float).tolist(),
-                "on_a": float(d[12]), "on_b": float(d[13])}
+                "on_a": float(d[12]), "on_b": float(d[13]), **tex}
     if kinds in ([LOBE_MICRO_R], [LOBE_LAMBERT_R, LOBE_MICRO_R]):
         # GGX microfacet reflection (metal, plastic): slot order is
         # [lambert?, micro], the reference's active-slot pick order.
@@ -133,6 +156,8 @@ def bake_lobe_entry(kinds, slots, ld_m):
         if fr_kind not in (0, 1, 2):
             return None
         two = len(kinds) == 2
+        if kd_tex is not None and not two:
+            return None  # a textured Kd needs the Lambert lobe
         return {
             "lobe": LOBE_PLASTIC if two else LOBE_MICRO_R,
             "color": ld_m[slots[0]][0:3].astype(float).tolist() if two else [0.0, 0.0, 0.0],
@@ -142,17 +167,20 @@ def bake_lobe_entry(kinds, slots, ld_m):
             "eta_m": float(max(float(md[3]), 1.0 + 1e-6)),
             "eta_rgb": md[3:6].astype(float).tolist(),
             "k_rgb": md[6:9].astype(float).tolist(),
+            **tex,
         }
     if len(slots) != 1:
         return None
     kind = kinds[0]
     if kind not in (LOBE_LAMBERT_R, LOBE_SPEC_R, LOBE_FRESNEL_SPEC):
         return None
+    if kd_tex is not None and kind != LOBE_LAMBERT_R:
+        return None  # a textured Kd rides the Lambert lobe only
     d = ld_m[int(slots[0])]
     if kind == LOBE_SPEC_R and int(d[11]) not in (0, 1):
         return None
     return {"lobe": kind, "color": d[0:3].astype(float).tolist(),
-            "eta": float(d[3]), "kt": d[6:9].astype(float).tolist(), "fresnel": int(d[11])}
+            "eta": float(d[3]), "kt": d[6:9].astype(float).tolist(), "fresnel": int(d[11]), **tex}
 
 
 def _h(x):
@@ -161,11 +189,12 @@ def _h(x):
 
 def _tri_frame(p):
     """Constant shading frame of a flat triangle (ng, ns, ss, ts), float64
-    math rounded to float32 as the reference bakes it."""
+    math rounded to float32 as the reference bakes it, and its uv density."""
     v0, v1, v2 = (p["v"][k].astype(np.float64) for k in range(3))
     e1, e2 = v1 - v0, v2 - v0
     ng = np.cross(e1, e2)
-    ng = ng / max(np.linalg.norm(ng), 1e-30)
+    nl = np.linalg.norm(ng)
+    ng = ng / max(nl, 1e-30)
     if p["flags"] & FLAG_FLIP_GEOM_N:
         ng = -ng
     ns = ng
@@ -185,13 +214,64 @@ def _tri_frame(p):
     ts = np.cross(ns, ss)
     for key, vec in (("ng_c", ng), ("ns_c", ns), ("ss_c", ss), ("ts_c", ts)):
         p[key] = vec.astype(np.float32)
+    # uv length per world length on the chart: turns the ray cone's world
+    # width into a texture-space width (reference extract_consts :744)
+    p["uvd_c"] = float(np.sqrt(abs(duv1[0] * duv2[1] - duv1[1] * duv2[0]) / max(nl, 1e-30)))
+
+
+def _bake_imagemap_atlas(sa, xi: int, prog):
+    """One imagemap program as a kernel mip atlas: ({"atlas" (rows, 128)
+    f32, "offs" [(row offset, h, w)] per level, "uscale", "vscale",
+    "udelta", "vdelta", "scale"}, None), or (None, the reason it is outside
+    the class): the uv mapping, the repeat wrap, grayscale texels and a
+    base level of at most 128 x 128 (reference megakernel._bake_imagemap_atlas
+    :523)."""
+    if prog.mapping != "uv" or prog.wrap != "repeat":
+        return None, f"imagemaps with the '{prog.mapping}' mapping or the '{prog.wrap}' wrap"
+    par = _h(sa.tex_param[xi]).astype(np.float64)
+    levels = []
+    for k in range(prog.n_levels):
+        img = _h(sa.tex_images[f"{prog.image_key}_l{k}"]).astype(np.float32)
+        if img.ndim != 3 or img.shape[2] != 3 or np.abs(img - img[:, :, :1]).max() > 1e-5:
+            return None, "colored imagemaps"
+        levels.append(img[:, :, 0])
+    if not levels or levels[0].shape[0] > ATLAS_W or levels[0].shape[1] > ATLAS_W:
+        return None, f"imagemaps larger than {ATLAS_W} x {ATLAS_W}"
+    rows, offs, off = [], [], 0
+    for g in levels:
+        h, w = g.shape
+        padded = np.zeros((h, ATLAS_W), np.float32)
+        padded[:, :w] = g
+        rows.append(padded)
+        offs.append((off, h, w))
+        off += h
+    atlas = np.concatenate(rows, axis=0)
+    if atlas.shape[0] % 8:  # the reference pads to a sublane multiple
+        atlas = np.concatenate([atlas, np.zeros((8 - atlas.shape[0] % 8, ATLAS_W), np.float32)])
+    return {"kind": "imagemap", "atlas": atlas, "offs": offs, "uscale": float(par[0]), "vscale": float(par[1]),
+            "udelta": float(par[2]), "vdelta": float(par[3]),
+            "scale": float(par[10]) if par[10] != 0 else 1.0}, None
+
+
+def _pixel_angle(r2c):
+    """Angular size of one pixel (the ray cone's spread): the camera-space
+    length of a one-pixel raster step over the image plane's depth
+    (reference extract_consts :763-769)."""
+    p0 = r2c @ np.array([0.0, 0.0, 0.0, 1.0])
+    p1 = r2c @ np.array([1.0, 0.0, 0.0, 1.0])
+    p2 = r2c @ np.array([0.0, 1.0, 0.0, 1.0])
+    z0 = max(abs(float(p0[2])), 1e-6)
+    return float(max(np.linalg.norm((p1 - p0)[:3]), np.linalg.norm((p2 - p0)[:3])) / z0)
 
 
 def _extract(cs, cam, icfg, scfg, fcfg):
     """(consts, None) for a scene of the kernel's class, else (None, the
     reason it is outside)."""
+    import os
+
     from .lights import compute_power
-    from .materials import BAKED_KINDS, bake_lobes
+    from .materials import BAKED_KINDS, lobes_at_origin
+    from ..scene.arrays import P_KD
 
     sa, static = cs.arrays, cs.static
     if not static.use_brute_force or static.n_prims == 0 or static.n_prims > MAX_PRIMS:
@@ -206,8 +286,20 @@ def _extract(cs, cam, icfg, scfg, fcfg):
         return None, f"the '{scfg['kind']}' sampler"
     if fcfg["filter"] != "box":
         return None, f"the '{fcfg['filter']}' filter"
-    if any(p.kind != "constant" for p in static.tex_programs):
-        return None, "imagemap textures (the Kd atlas is not ported)"
+    if static.has_bump:
+        return None, "bump maps"
+    # constant textures bake into the lobes; uv-mapped grayscale imagemaps
+    # ride the atlas; any other texture is outside
+    imagemaps = {}
+    for xi, prog in enumerate(static.tex_programs):
+        if prog.kind == "constant":
+            continue
+        if prog.kind != "imagemap":
+            return None, f"the '{prog.kind}' texture"
+        atlas, why = _bake_imagemap_atlas(sa, xi, prog)
+        if atlas is None:
+            return None, why
+        imagemaps[xi] = atlas
     if static.n_lights > MAX_LIGHTS:
         return None, f"more than {MAX_LIGHTS} lights"
     n_l = static.n_lights
@@ -257,26 +349,51 @@ def _extract(cs, cam, icfg, scfg, fcfg):
     # bake material lobes by evaluating the lobe builder once per row
     if MAT_MIX in set(static.mat_kinds_present) or set(static.mat_kinds_present) - BAKED_KINDS:
         return None, "materials other than matte, mirror, glass, metal and plastic"
-    lk, ld = (_h(x) for x in bake_lobes(sa, static))
+    # the lobes of each row with its textures at the origin, as the
+    # reference bakes them; an imagemap on the Kd slot becomes the row's
+    # atlas texture (kd_tex: its index in kd_textures)
+    lk, ld = (_h(x) for x in lobes_at_origin(sa, static))
     mat_tex = _h(sa.mat_tex)
     mats = {}
+    kd_tid = {}
     for m in sorted({p["mat"] for p in prims}):
-        if (mat_tex[m] >= 0).any():
-            return None, "textured material parameters (imagemap textures)"
+        for slot in range(mat_tex.shape[1]):
+            tid = int(mat_tex[m, slot])
+            if tid < 0 or tid not in imagemaps:
+                continue
+            if slot != P_KD:
+                return None, "imagemaps on parameters other than Kd"
+            kd_tid[m] = tid
+    # in program order, as the reference stacks its atlas
+    kd_textures = [imagemaps[t] for t in sorted(set(kd_tid.values()))]
+    tex_row = {t: i for i, t in enumerate(sorted(set(kd_tid.values())))}
+    for m in sorted({p["mat"] for p in prims}):
         slots = np.nonzero(lk[m])[0]
         if len(slots) == 0:
             mats[m] = {"lobe": LOBE_NONE}
             continue
-        entry = bake_lobe_entry([int(lk[m, s]) for s in slots], [int(s) for s in slots], ld[m])
+        kd_tex = tex_row[kd_tid[m]] if m in kd_tid else None
+        entry = bake_lobe_entry([int(lk[m, s]) for s in slots], [int(s) for s in slots], ld[m], kd_tex)
         if entry is None:
             return None, f"the lobe set {[int(lk[m, s]) for s in slots]} of material {m}"
         mats[m] = entry
+    if any(mats[p["mat"]].get("kd_tex") is not None for p in prims if p["kind"] != "tri"):
+        return None, "textured spheres (no uv is baked for them)"
 
     for p in prims:
         if p["kind"] == "tri":
             if p["flags"] & FLAG_HAS_SHADING_N:
                 return None, "meshes with per-vertex normals"
             _tri_frame(p)
+    # the atlas textures, stacked in kd_textures order, each with its first row
+    kd_atlas = None
+    if kd_textures:
+        off = 0
+        for t in kd_textures:
+            t["base"] = off
+            off += t["atlas"].shape[0]
+        kd_atlas = np.concatenate([t["atlas"] for t in kd_textures], axis=0)
+    r2c = _h(cam["raster_to_camera"]).astype(np.float64)
 
     consts = {
         "prims": prims,
@@ -286,7 +403,7 @@ def _extract(cs, cam, icfg, scfg, fcfg):
         "light_pmf": pmf.astype(float).tolist(),
         "uniform_select": uniform_select,
         "world_radius": float(_h(sa.world_radius)),
-        "r2c": _h(cam["raster_to_camera"]).astype(np.float64),
+        "r2c": r2c,
         "c2w": _h(cam["camera_to_world"]).astype(np.float64),
         "filter_xw": float(fcfg["filter_params"].get("xwidth", 0.5)),
         "filter_yw": float(fcfg["filter_params"].get("ywidth", fcfg["filter_params"].get("xwidth", 0.5))),
@@ -296,6 +413,11 @@ def _extract(cs, cam, icfg, scfg, fcfg):
         "spp": int(scfg["spp"]),
         "max_lum": float(fcfg.get("max_sample_luminance", float("inf"))),
         "ikind": str(icfg.get("kind", "path")),
+        "kd_textures": kd_textures,
+        "kd_atlas": kd_atlas,
+        "pixel_angle": _pixel_angle(r2c),
+        # the ray cone's width factor, read as the reference reads it
+        "cone_k": float(os.environ.get("PBRT_TPU_CONE_K", "1.0")),
     }
     if consts["ikind"] not in IKINDS:
         return None, f"the '{consts['ikind']}' integrator"
@@ -350,6 +472,7 @@ def pack_consts(consts) -> torch.Tensor:
     b[H_MAX_LUM] = consts["max_lum"]
     b[H_G7] = _gamma(7)
     b[H_G53] = _gamma(5) + _gamma(3)
+    b[H_CONE_PA] = _cone_pa(consts)
     b[H_R2C:H_R2C + 16] = np.asarray(consts["r2c"]).ravel()
     b[H_C2W:H_C2W + 12] = np.asarray(consts["c2w"])[:3, :].ravel()
     n_l = len(consts["lights"])
@@ -370,6 +493,8 @@ def pack_consts(consts) -> torch.Tensor:
             b[o + P_V:o + P_V + 9] = np.asarray(p["v"], np.float64).ravel()
             for key, off in (("ng_c", P_NG), ("ns_c", P_NS), ("ss_c", P_SS), ("ts_c", P_TS)):
                 b[o + off:o + off + 3] = p[key]
+            b[o + P_UV:o + P_UV + 6] = np.asarray(p["uv"], np.float64).ravel()
+            b[o + P_UVD] = p["uvd_c"]
         else:
             o2w = np.asarray(p["o2w"], np.float64)
             b[o + P_KIND] = 1
@@ -390,7 +515,37 @@ def pack_consts(consts) -> torch.Tensor:
         for key, off in (("eta", M_ETA), ("fresnel", M_FRESNEL), ("ax", M_AX), ("ay", M_AY),
                          ("fr_m", M_FR_M), ("eta_m", M_ETA_M), ("on_a", M_ON_A), ("on_b", M_ON_B)):
             b[o + off] = e[key]
+        b[o + M_TEX] = 0 if e.get("kd_tex") is None else 1 + e["kd_tex"]
     return torch.from_numpy(b.astype(np.float32))
+
+
+def _cone_pa(consts) -> float:
+    """float32(cone_k) * float32(pixel_angle), in float32, as the reference
+    kernel forms the cone's spread."""
+    return float(np.float32(consts.get("cone_k", 1.0)) * np.float32(consts.get("pixel_angle", 0.0)))
+
+
+def pack_textures(consts):
+    """The Kd atlas (rows, ATLAS_W) and the texture table (n_tex *
+    TEX_STRIDE,) as float32 CPU tensors, or (None, None) without atlas
+    textures."""
+    if consts.get("kd_atlas") is None:
+        return None, None
+    tab = np.zeros(len(consts["kd_textures"]) * TEX_STRIDE, np.float64)
+    for i, t in enumerate(consts["kd_textures"]):
+        o = i * TEX_STRIDE
+        n = len(t["offs"])
+        if n > MAX_LEVELS:
+            raise ValueError(f"an atlas texture has {n} levels, more than {MAX_LEVELS}")
+        tab[o + TX_NLEV] = n
+        tab[o + TX_BASE] = t["base"]
+        tab[o + TX_US:o + TX_VD + 1] = t["uscale"], t["vscale"], t["udelta"], t["vdelta"]
+        tab[o + TX_SCALE] = t["scale"]
+        tab[o + TX_SMAX] = max(abs(t["uscale"]), abs(t["vscale"]), 1e-9)
+        tab[o + TX_LMAX] = np.float32(n - 1) - np.float32(1e-4)
+        tab[o + TX_LEVELS:o + TX_LEVELS + 3 * n] = np.asarray(t["offs"], np.float64).ravel()
+    return (torch.from_numpy(np.ascontiguousarray(consts["kd_atlas"], np.float32)),
+            torch.from_numpy(tab.astype(np.float32)))
 
 
 # ---------------------------------------------------------------------------
@@ -671,8 +826,10 @@ class _MatTable:
         tan_beta = torch.where(big_i, si / torch.clamp(abs_ci, min=1e-9), so / torch.clamp(abs_co, min=1e-9))
         return _f32(INV_PI) * (self.f["on_a"][mat] + self.f["on_b"][mat] * max_cos * sin_alpha * tan_beta)
 
-    def bsdf_sample(self, sample_1d, sample_2d, hbase, s_cur, dim_base, at, wox, woy, woz, mat):
-        """bsdf_sample for the baked lobe classes."""
+    def bsdf_sample(self, sample_1d, sample_2d, hbase, s_cur, dim_base, at, wox, woy, woz, mat, kd_over=None):
+        """bsdf_sample for the baked lobe classes. kd_over: (R,) bool mask and
+        (R, 3) Kd, a textured Kd in place of the row's color where the mask
+        is set."""
         wo_x, wo_y, wo_z = _local(at, wox, woy, woz)
         u1, u2 = sample_2d(hbase, s_cur, dim_base + 3)
         false = torch.zeros(wox.shape, dtype=torch.bool, device=self.dev)
@@ -728,6 +885,8 @@ class _MatTable:
         wix, wiy, wiz = _norm3(wix, wiy, wiz)
         abs_ci = wiz.abs()
         kd = [self.f["color"][mat, ch] for ch in range(3)]
+        if kd_over is not None:
+            kd = [torch.where(kd_over[0], kd_over[1][:, ch], kd[ch]) for ch in range(3)]
         f_spec = [zero] * 3
         pdf_spec = zero
         inv_ci = 1.0 / torch.clamp(abs_ci, min=1e-9)
@@ -794,6 +953,56 @@ def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
     g53, g3 = _f32(_gamma(5) + _gamma(3)), _gamma(3)
 
     sample_1d, sample_2d = _samplers(is_random)
+    kd_textures = consts.get("kd_textures") or []
+    any_kd_tex = bool(kd_textures)
+    if any_kd_tex:
+        atlas_t, tab_t = (x.to(dev) for x in pack_textures(consts))
+        cone_pa = _cone_pa(consts)
+
+    def eval_kd_tex(at, mat, t_tot, cosg):
+        """The textured Kd of each lane whose material has an atlas texture:
+        the ray cone's width at the hit picks a level, then a trilinear
+        fetch over it and the next, v flipped (reference eval_kd_tex
+        :1468-1574); returns (mask, (R, 3) grayscale Kd)."""
+        world_fp = cone_pa * t_tot / torch.clamp(cosg, min=0.25)
+        mask_any = torch.zeros(mat.shape, dtype=torch.bool, device=dev)
+        val = torch.zeros_like(t_tot)
+        for ti in range(len(kd_textures)):
+            tx = tab_t[ti * TEX_STRIDE:(ti + 1) * TEX_STRIDE]
+            m_mask = torch.zeros_like(mask_any)
+            for m, e in consts["mats"].items():
+                if e.get("kd_tex") == ti:
+                    m_mask = m_mask | (mat == m)
+            su = at["u"] * tx[TX_US] + tx[TX_UD]
+            sv = at["v"] * tx[TX_VS] + tx[TX_VD]
+            width = world_fp * at["uvd"] * tx[TX_SMAX]
+            lvl = (tx[TX_NLEV] - 1.0) + torch.log2(torch.clamp(width, min=1e-8))
+            lvl = torch.minimum(torch.clamp(lvl, min=0.0), tx[TX_LMAX])
+            l0 = lvl.to(torch.int64)
+            ft = lvl - l0.to(torch.float32)
+            lv = tx[TX_LEVELS:TX_LEVELS + 3 * MAX_LEVELS].reshape(MAX_LEVELS, 3).to(torch.int64)
+            base = int(tx[TX_BASE])
+
+            def bil(lsel):
+                off_l, h_l, w_l = lv[lsel, 0], lv[lsel, 1], lv[lsel, 2]
+                x = (su - torch.floor(su)) * w_l.to(torch.float32) - 0.5
+                y = (1.0 - (sv - torch.floor(sv))) * h_l.to(torch.float32) - 0.5
+                ix, iy = torch.floor(x).to(torch.int64), torch.floor(y).to(torch.int64)
+                fx, fy = x - ix.to(torch.float32), y - iy.to(torch.float32)
+                ixm, iym = torch.remainder(ix, w_l), torch.remainder(iy, h_l)
+                ixp, iyp = torch.remainder(ixm + 1, w_l), torch.remainder(iym + 1, h_l)
+                ra, rb = base + off_l + iym, base + off_l + iyp
+                return atlas_t[ra, ixm], atlas_t[ra, ixp], atlas_t[rb, ixm], atlas_t[rb, ixp], fx, fy
+
+            a0, b0, c0, d0, fx0, fy0 = bil(l0)
+            a1, b1, c1, d1, fx1, fy1 = bil(torch.clamp(l0 + 1, max=len(kd_textures[ti]["offs"]) - 1))
+            t00 = (1 - ft) * (1 - fy0) * (1 - fx0) * a0 + (1 - ft) * (1 - fy0) * fx0 * b0
+            t01 = (1 - ft) * fy0 * (1 - fx0) * c0 + (1 - ft) * fy0 * fx0 * d0
+            t10 = ft * (1 - fy1) * (1 - fx1) * a1 + ft * (1 - fy1) * fx1 * b1
+            t11 = ft * fy1 * (1 - fx1) * c1 + ft * fy1 * fx1 * d1
+            val = torch.where(m_mask, (t00 + t01 + t10 + t11) * tx[TX_SCALE], val)
+            mask_any = mask_any | m_mask
+        return mask_any, torch.stack([val, val, val], dim=-1)
 
     def tri_test(v, ox, oy, oz, permute, sx, sy, sz, t_query):
         def shear(c):
@@ -885,6 +1094,7 @@ def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
     for pr in prims:
         if pr["kind"] == "tri":
             pr["v_c"] = [[_f32(x) for x in row] for row in pr["v"]]
+            pr["uv_c"] = [[_f32(x) for x in row] for row in pr["uv"]]
         else:
             pr["w2o_c"] = [[_f32(x) for x in row] for row in pr["w2o"]]
             pr["o2w_c"] = [[_f32(x) for x in row] for row in pr["o2w"]]
@@ -892,7 +1102,7 @@ def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
             pr["errc"] = [_f32(g3 * abs(float(pr["o2w"][row][3]))) for row in range(3)]
 
     attr_keys = ("px", "py", "pz", "ngx", "ngy", "ngz", "nsx", "nsy", "nsz", "ssx", "ssy", "ssz",
-                 "tsx", "tsy", "tsz", "ex", "ey", "ez", "b1", "b2")
+                 "tsx", "tsy", "tsz", "ex", "ey", "ez", "b1", "b2") + (("u", "v", "uvd") if any_kd_tex else ())
 
     def intersect_all(ox, oy, oz, dx, dy, dz, t_query, want_attrs):
         """Brute-force closest hit (want_attrs) or any hit over all prims."""
@@ -937,8 +1147,15 @@ def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
                     for c, key in enumerate(keys):
                         at[key] = float(vec[c])
                 at["b1"], at["b2"] = b1_p, b2_p
+                if any_kd_tex:
+                    st = pr["uv_c"]
+                    at["u"] = b0_p * st[0][0] + b1_p * st[1][0] + b2_p * st[2][0]
+                    at["v"] = b0_p * st[0][1] + b1_p * st[1][1] + b2_p * st[2][1]
+                    at["uvd"] = _f32(pr["uvd_c"])
             else:
                 at = sph_attrs(pr, p_loc)
+                if any_kd_tex:  # textured spheres are outside the class
+                    at.update(u=attrs["u"], v=attrs["v"], uvd=attrs["uvd"])
             for key in attr_keys:
                 attrs[key] = torch.where(better, at[key], attrs[key])
             attrs["mat"] = torch.where(better, pr["mat"], attrs["mat"])
@@ -1055,13 +1272,14 @@ def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
     aW = zero
     nv = zero
     eta_acc = zero + 1.0
+    t_spread = zero  # the ray cone's distance since the camera
     bounces = torch.zeros(R, dtype=torch.int64, device=dev)
     s_end = (int(s0) + int(n_samples)) & M32
     it = 0
     while it < cap and bool((~done).any()):
         it += 1
         t_query = torch.where(alive, float("inf"), -1.0)
-        valid, _t, at = intersect_all(ox, oy, oz, dx, dy, dz, t_query, want_attrs=True)
+        valid, t_best, at = intersect_all(ox, oy, oz, dx, dy, dz, t_query, want_attrs=True)
         nv = nv + torch.where(alive & valid, 1.0, 0.0)
         alive_b = alive & valid
         wox, woy, woz = -dx, -dy, -dz
@@ -1069,7 +1287,13 @@ def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
         can_scatter = alive_b & (bounces < max_depth - 1)
         mat = at["mat"]
         alive_sh = can_scatter & ~T.in_lobes(mat, (LOBE_NONE,))
-        bs = T.bsdf_sample(sample_1d, sample_2d, hbase, s_cur, dim_base, at, wox, woy, woz, mat)
+        kd_over = None
+        t_tot = t_spread
+        if any_kd_tex:
+            cosg = _dot3(dx, dy, dz, at["ngx"], at["ngy"], at["ngz"]).abs()
+            t_tot = t_spread + torch.where(alive_b, t_best, 0.0)
+            kd_over = eval_kd_tex(at, mat, t_tot, cosg)
+        bs = T.bsdf_sample(sample_1d, sample_2d, hbase, s_cur, dim_base, at, wox, woy, woz, mat, kd_over)
         if n_lights > 0:
             c = nee(hbase, s_cur, dim_base, alive_sh, at, wox, woy, woz, mat, bs["kd"])
             L = [L[ch] + beta[ch] * c[ch] for ch in range(3)]
@@ -1119,6 +1343,8 @@ def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
         eta_acc = torch.where(more, 1.0, eta_acc)
         bounces = torch.where(more, 0, new_bounces)
         s_cur = torch.where(more, s_next, s_cur)
+        # the cone's distance grows along continuations, restarts at the camera
+        t_spread = torch.where(more, 0.0, torch.where(surf_cont, t_tot, t_spread))
     return torch.stack(aL, dim=-1), aW, nv
 
 
@@ -1130,7 +1356,7 @@ def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 # The record of the instrumented instantiation, u64 in the order of
 # csrc/megakernel.cu SPLIT_*: slot-cycles of the slots whose path was tested,
 # in the test pool, in shading + NEE and in flush + regeneration; of slots
@@ -1155,9 +1381,15 @@ def build_kernel() -> dict:
     return info
 
 
+N_PLAIN_MODES = 6  # sampler (3) x integrator kind (2)
+
+
 def kernel_mode(consts) -> int:
-    """The kernel's template selector: sampler * 2 + integrator kind."""
-    return SAMPLERS[consts["sampler"]] * 2 + IKINDS[consts["ikind"]]
+    """The kernel's template selector: tex * 6 + sampler * 2 + integrator
+    kind, tex = 1 for the textured instantiation (atlas textures in the
+    scene), which alone reads the atlas and carries the cone's distance."""
+    tex = consts.get("kd_atlas") is not None
+    return int(tex) * N_PLAIN_MODES + SAMPLERS[consts["sampler"]] * 2 + IKINDS[consts["ikind"]]
 
 
 def occupancy(mode: int) -> int:
@@ -1165,12 +1397,18 @@ def occupancy(mode: int) -> int:
     return nvcc.occupancy(build_kernel()["lib"].brute_megakernel_occupancy, mode)
 
 
-def _launch(entry: str, blob, mode: int, px, py, pids, s0: int, n_samples: int, seed: int, *extra):
+def _launch(entry: str, blob, mode: int, px, py, pids, s0: int, n_samples: int, seed: int, atlas, tex, *extra):
     dev = px.device
     if dev.type != "cuda":
         raise ValueError("megakernel_cuda takes CUDA tensors")
     if blob.device != dev or blob.dtype != torch.float32 or blob.numel() != BLOB_FLOATS:
         raise ValueError(f"blob must be {BLOB_FLOATS} float32 values on {dev}")
+    if mode >= N_PLAIN_MODES:
+        for name, x in (("atlas", atlas), ("tex", tex)):
+            if x is None or x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
+                raise ValueError(f"the textured mode {mode} needs {name} as a contiguous float32 tensor on {dev}")
+        if atlas.dim() != 2 or atlas.shape[1] != ATLAS_W or tex.numel() % TEX_STRIDE:
+            raise ValueError(f"atlas must be (rows, {ATLAS_W}) and tex n x {TEX_STRIDE} floats")
     R = px.shape[0]
     lanes = []
     for name, x in (("px", px), ("py", py), ("pids", pids)):
@@ -1193,21 +1431,23 @@ def _launch(entry: str, blob, mode: int, px, py, pids, s0: int, n_samples: int, 
     err = fn(blob.data_ptr(), lanes[0].data_ptr(), lanes[1].data_ptr(), lanes[2].data_ptr(), R,
              int(seed) & M32, int(s0) & M32, int(n_samples), int(mode),
              out_l.data_ptr(), out_w.data_ptr(), out_nv.data_ptr(), counters.data_ptr(), queue.data_ptr(),
+             None if atlas is None else atlas.data_ptr(), None if tex is None else tex.data_ptr(),
              stream, *(x.data_ptr() for x in extra))
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     return out_l, out_w, out_nv
 
 
-def megakernel_cuda(blob, mode: int, px, py, pids, s0: int, n_samples: int, seed: int):
+def megakernel_cuda(blob, mode: int, px, py, pids, s0: int, n_samples: int, seed: int, atlas=None, tex=None):
     """Launch the CUDA kernel on the current stream. blob: pack_consts's
     float32 tensor on the lanes' device; mode: kernel_mode(consts); px, py,
-    pids: (R,) integer CUDA tensors. Returns (accLw (R, 3), accW (R,),
+    pids: (R,) integer CUDA tensors; atlas, tex: pack_textures's tensors on
+    the lanes' device, for a textured mode. Returns (accLw (R, 3), accW (R,),
     n_vertices (R,)) float32. Adds one to ``megakernel_cuda.launches`` per
     launch; the pixels cut by the iteration cap accumulate in
     ``megakernel_cuda.counters[device]`` (int32 (1,)); raises on a refused
     launch."""
-    out = _launch("brute_megakernel", blob, mode, px, py, pids, s0, n_samples, seed)
+    out = _launch("brute_megakernel", blob, mode, px, py, pids, s0, n_samples, seed, atlas, tex)
     megakernel_cuda.launches += 1
     return out
 
@@ -1218,7 +1458,7 @@ def megakernel_split(blob, mode: int, px, py, pids, s0: int, n_samples: int, see
     returns (accLw, accW, n_vertices, split), split mapping SPLIT_FIELDS to
     cycle and test counts summed over the launch."""
     prof = torch.zeros(len(SPLIT_FIELDS), dtype=torch.int64, device=px.device)
-    out = _launch("brute_megakernel_split", blob, mode, px, py, pids, s0, n_samples, seed, prof)
+    out = _launch("brute_megakernel_split", blob, mode, px, py, pids, s0, n_samples, seed, None, None, prof)
     return (*out, dict(zip(SPLIT_FIELDS, prof.tolist())))
 
 
@@ -1239,23 +1479,30 @@ def make_megakernel_fn(cs, cam, icfg, scfg, fcfg, consts=None):
     if consts is None:
         return None
     blob_cpu = pack_consts(consts)
+    tex_cpu = pack_textures(consts)
     mode = kernel_mode(consts)
+
+    def upload(dev):
+        return blob_cpu.to(dev), *(None if x is None else x.to(dev) for x in tex_cpu)
+
     # uploaded here, not in the first launch, so a render's timed loop holds
     # only the launch
-    blobs = {cs.arrays.device: blob_cpu.to(cs.arrays.device)}
+    blobs = {cs.arrays.device: upload(cs.arrays.device)}
 
     def wave_p(sa, px, py, pixel_ids, s0, n_samples, seed):
         del sa  # the scene is in the constants
         if px.device.type == "cuda":
-            blob = blobs.get(px.device)
-            if blob is None:
-                blob = blobs[px.device] = blob_cpu.to(px.device)
-            return megakernel_cuda(blob, mode, px, py, pixel_ids, s0, n_samples, seed)
+            args = blobs.get(px.device)
+            if args is None:
+                args = blobs[px.device] = upload(px.device)
+            blob, atlas, tex = args
+            return megakernel_cuda(blob, mode, px, py, pixel_ids, s0, n_samples, seed, atlas, tex)
         if px.device.type == "cpu":
             return megakernel_plain(consts, px, py, pixel_ids, s0, n_samples, seed)
         raise ValueError(f"the brute megakernel has no implementation for device {px.device}")
 
     # what the launch takes, for tools that time or instrument the route's
-    # own launch (tools/torch_phases.py)
-    wave_p.blob, wave_p.mode = blobs[cs.arrays.device], mode
+    # own launch (tools/torch_phases.py, chip_smoke.py)
+    wave_p.blob, wave_p.atlas, wave_p.tex = blobs[cs.arrays.device]
+    wave_p.mode = mode
     return wave_p

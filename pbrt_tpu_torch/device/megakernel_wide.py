@@ -5,8 +5,12 @@ The port's counterpart of ``pbrt_tpu/device/megakernel_wide.py``: the whole
 persistent path loop for triangle scenes, with the closest-hit and shadow
 walks of the wide BVH inside the kernel. Its class here: triangle-only
 wide-BVH scenes, flat or smooth-shaded, with default or real UV charts (the
-attribute table); constant-parameter materials of the six lobe classes
-``bake_lobe_entry`` bakes (at most 16 used); at most 8 lights among one- or
+attribute table); materials of the six lobe classes ``bake_lobe_entry``
+bakes (at most 16 used), with constant parameters or constant textures,
+and a 2D uv-mapped checkerboard of two constant, non-black cells on a matte
+or plastic Kd (selected per hit in the kernel, reference :398-440,
+:1273-1287); no bump maps (the reference's kernel renders them without
+bumps, ROADMAP C; the port sends them to the wavefront); at most 8 lights among one- or
 two-sided triangle area lights, point, spot and distant lights and a
 constant infinite light, with uniform or power selection; pinhole and
 thin-lens perspective cameras; the box, triangle and gaussian filters; the
@@ -106,8 +110,11 @@ L_ENV_P = 14
 SOB_INV = SOBOL_DIMS * 32
 SOB_DELTA = SOB_INV + 32
 # material record: device/megakernel.py's M_* fields, plus 31 the material
-# row the slot bakes (the prim table's payload names rows, not slots)
+# row the slot bakes (the prim table's payload names rows, not slots), and
+# the checkerboard Kd: 24 set for one, 25 uscale, vscale, udelta, vdelta;
+# its even cells' color in M_COLOR, its odd cells' in M_KT
 M_ROW = 31
+M_CHK, M_CHK_UV = 24, 25
 
 
 # ---------------------------------------------------------------------------
@@ -119,7 +126,8 @@ def _extract(cs, cam, icfg, scfg, fcfg, max_tris):
     """(consts, None) for a scene of the kernel's class, else (None, the
     reason it is outside), in the reference's gate order."""
     from .lights import compute_power
-    from .materials import bake_lobes
+    from .materials import lobes_at_origin
+    from ..scene.arrays import P_KD
 
     sa, static = cs.arrays, cs.static
     if not static.has_wide or sa.wnode_rec is None:
@@ -200,24 +208,47 @@ def _extract(cs, cam, icfg, scfg, fcfg, max_tris):
 
     if MAT_MIX in set(static.mat_kinds_present):
         return None, "mix materials"
+    if static.has_bump:
+        return None, "bump maps"
     prim_mat = _h(sa.prim_mat)
     used_mats = sorted(set(int(m) for m in prim_mat))
     if len(used_mats) > MAX_MATS:
         return None, f"more than {MAX_MATS} materials"
     try:
-        lk, ld = (_h(x) for x in bake_lobes(sa, static))
+        # the lobes with the textures at the origin, as the reference bakes them
+        lk, ld = (_h(x) for x in lobes_at_origin(sa, static))
     except NotImplementedError:
         return None, "materials other than matte, mirror, glass, metal and plastic"
     mat_tex = _h(sa.mat_tex)
+    tex_param = _h(sa.tex_param)
     mats = {}
     for m in used_mats:
-        if (mat_tex[m] >= 0).any():
-            return None, "textured material parameters (the checkerboard Kd)"
+        # constant textures fold into the lobes; a Kd checkerboard of
+        # constant cells becomes the kernel's per-hit select
+        kd_tex = None
+        for slot in range(mat_tex.shape[1]):
+            tid = int(mat_tex[m, slot])
+            if tid < 0:
+                continue
+            prog = static.tex_programs[tid]
+            if prog.kind == "constant":
+                continue
+            if not (slot == P_KD and prog.kind == "checkerboard" and prog.dimension == 2 and prog.mapping == "uv"
+                    and prog.tex1 < 0 and prog.tex2 < 0):
+                return None, f"the '{prog.kind}' texture (only a 2D uv checkerboard of constant cells on Kd)"
+            par = tex_param[tid]
+            c1, c2 = np.clip(par[10:13], 0.0, 1.0), np.clip(par[13:16], 0.0, 1.0)
+            if not (c1.max() > 0 and c2.max() > 0):
+                # the lobes are baked at the origin: a black cell would
+                # switch the lobe off where the baked row has it
+                return None, "a checkerboard Kd with a black cell"
+            kd_tex = {"us": float(par[0]), "vs": float(par[1]), "du": float(par[2]), "dv": float(par[3]),
+                      "c1": c1.astype(float).tolist(), "c2": c2.astype(float).tolist()}
         slots = np.nonzero(lk[m])[0]
         if len(slots) == 0:
             mats[m] = {"lobe": LOBE_NONE}
             continue
-        entry = bake_lobe_entry([int(lk[m, s]) for s in slots], [int(s) for s in slots], ld[m])
+        entry = bake_lobe_entry([int(lk[m, s]) for s in slots], [int(s) for s in slots], ld[m], kd_tex)
         if entry is None:
             return None, f"the lobe set {[int(lk[m, s]) for s in slots]} of material {m}"
         mats[m] = entry
@@ -360,6 +391,12 @@ def pack_wide_consts(consts) -> torch.Tensor:
         for key, off in (("eta", M_ETA), ("fresnel", M_FRESNEL), ("ax", M_AX), ("ay", M_AY),
                          ("fr_m", M_FR_M), ("eta_m", M_ETA_M), ("on_a", M_ON_A), ("on_b", M_ON_B)):
             b[o + off] = e[key]
+        chk = e.get("kd_tex")
+        if chk:
+            b[o + M_CHK] = 1.0
+            b[o + M_CHK_UV:o + M_CHK_UV + 4] = chk["us"], chk["vs"], chk["du"], chk["dv"]
+            b[o + M_COLOR:o + M_COLOR + 3] = chk["c1"]
+            b[o + M_KT:o + M_KT + 3] = chk["c2"]
     return torch.from_numpy(b.astype(np.float32))
 
 
@@ -377,11 +414,12 @@ def _filter_radii(consts):
 def kernel_mode(consts) -> int:
     """The kernel's template selector: ext * 12 + sampler * 2 + (any area
     light), sampler as in SAMPLERS; ext = 1 selects the extended
-    instantiation, for a filter other than the box, the attribute table or
-    a constant infinite light."""
+    instantiation, for a filter other than the box, the attribute table, a
+    constant infinite light or a checkerboard Kd."""
     any_area = any(lt["kind"] == LIGHT_AREA for lt in consts["lights"])
-    ext = consts["filter"] != "box" or consts["has_attr"] or any(lt["kind"] == LIGHT_INFINITE
-                                                                 for lt in consts["lights"])
+    ext = (consts["filter"] != "box" or consts["has_attr"] or any(lt["kind"] == LIGHT_INFINITE
+                                                                  for lt in consts["lights"])
+           or any(e.get("kd_tex") for e in consts["mats"].values()))
     return int(ext) * 2 * N_SAMPLER_IDS + SAMPLERS[consts["sampler"]] * 2 + int(any_area)
 
 
@@ -612,15 +650,43 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
         at = {"ngx": ngx, "ngy": ngy, "ngz": ngz, "nsx": nsx, "nsy": nsy, "nsz": nsz,
               "ssx": ssx, "ssy": ssy, "ssz": ssz,
               "tsx": nsy * ssz - nsz * ssy, "tsy": nsz * ssx - nsx * ssz, "tsz": nsx * ssy - nsy * ssx}
+        if consts["has_attr"]:  # the hit's uv: the chart's, or the default uvs'
+            at["u"] = b0 * a[:, 9] + b1 * a[:, 11] + b2 * a[:, 13]
+            at["v"] = b0 * a[:, 10] + b1 * a[:, 12] + b2 * a[:, 14]
+        else:
+            at["u"], at["v"] = b1 + b2, b2
         for c, key in enumerate("xyz"):
             at["p" + key] = b0 * v[:, 0, c] + b1 * v[:, 1, c] + b2 * v[:, 2, c]
             at["e" + key] = g7 * ((b0 * v[:, 0, c]).abs() + (b1 * v[:, 1, c]).abs() + (b2 * v[:, 2, c]).abs())
         return at
 
-    def nee(hbase, s_cur, dim_base, alive_sh, at, wox, woy, woz, mat):
+    checkers = {m: e["kd_tex"] for m, e in consts["mats"].items() if e.get("kd_tex")}
+
+    def checker_kd(at, mat):
+        """The checkerboard Kd of the lanes whose material has one: (mask,
+        (R, 3) Kd), the even cells' color where floor(s) + floor(t) is even
+        (reference :1273-1287), or None without checkerboards."""
+        if not checkers:
+            return None
+        mask = torch.zeros(mat.shape, dtype=torch.bool, device=dev)
+        kd = torch.zeros(mat.shape + (3,), dtype=torch.float32, device=dev)
+        for m, c in checkers.items():
+            s_t = _f32(c["us"]) * at["u"] + _f32(c["du"])
+            t_t = _f32(c["vs"]) * at["v"] + _f32(c["dv"])
+            even = torch.remainder(torch.floor(s_t) + torch.floor(t_t), 2.0) == 0
+            cells = torch.where(even[:, None], torch.tensor(np.float32(c["c1"]), device=dev),
+                                torch.tensor(np.float32(c["c2"]), device=dev))
+            mm = mat == m
+            kd = torch.where(mm[:, None], cells, kd)
+            mask = mask | mm
+        return mask, kd
+
+    def nee(hbase, s_cur, dim_base, alive_sh, at, wox, woy, woz, mat, kd_over=None):
         """estimate_direct for one selected light, delta or triangle area,
         with MIS and an any-hit shadow walk."""
         kd = [T.f["color"][mat, ch] for ch in range(3)]
+        if kd_over is not None:
+            kd = [torch.where(kd_over[0], kd_over[1][:, ch], kd[ch]) for ch in range(3)]
         lam_m = T.in_lobes(mat, (LOBE_LAMBERT_R, LOBE_PLASTIC))
         on_m = T.in_lobes(mat, (LOBE_OREN_NAYAR,))
         if n_lights > 1:
@@ -779,8 +845,9 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
         dim_base = 2 + bounces * DPB
         can_scatter = alive_b & (bounces < max_depth - 1)
         alive_sh = can_scatter & ~T.in_lobes(mat, (LOBE_NONE,))
-        bs = T.bsdf_sample(sample_1d, sample_2d, hbase, s_cur, dim_base, at, wox, woy, woz, mat)
-        c = nee(hbase, s_cur, dim_base, alive_sh, at, wox, woy, woz, mat)
+        kd_over = checker_kd(at, mat)
+        bs = T.bsdf_sample(sample_1d, sample_2d, hbase, s_cur, dim_base, at, wox, woy, woz, mat, kd_over)
+        c = nee(hbase, s_cur, dim_base, alive_sh, at, wox, woy, woz, mat, kd_over)
         L = [L[ch] + beta[ch] * c[ch] for ch in range(3)]
         wwx, wwy, wwz = bs["ww"]
         cos_term = _dot3(wwx, wwy, wwz, at["nsx"], at["nsy"], at["nsz"]).abs()

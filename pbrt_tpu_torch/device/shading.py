@@ -4,8 +4,8 @@ The port's counterpart of ``pbrt_tpu/device/shading.py surface_interaction``
 on its triangle branch (src/shapes/triangle.rs:300-399) and its sphere
 branch (sphere.rs: the hit re-projected onto the surface, the analytic
 normal, uv and dpdu/dpdv, and the gamma(5) |p_obj| error bound carried to
-world space), without bump mapping, motion or instancing, which the port's
-scenes do not have.
+world space), without motion or instancing, which the port's scenes do not
+have; and ``apply_bump``, the reference's bump mapping of the shading frame.
 """
 from __future__ import annotations
 
@@ -164,3 +164,45 @@ def surface_interaction(sa, hit, o, d):
     ss, ts = _shading_frame(f["ns"], f["dpdu"])
     return dict(f, valid=valid, ss=ss, ts=ts, mat=torch.where(valid, sa.prim_mat[prim], 0),
                 light=torch.where(valid, sa.prim_light[prim], -1), prim=hit["prim"], wo=-d)
+
+
+def apply_bump(sa, static, si, atlases=None):
+    """Bump-map the shading frame (material.rs:46-87 bump(); the reference's
+    shading.apply_bump :62-117): the material's float bump texture at uv,
+    uv + (du, 0) and uv + (0, dv), with du = dv = 0.0005 (the reference's
+    fallback for rays without differentials) and the hit point moved along
+    dpdu, dpdv, displaces dpdu and dpdv along ns; ns, ss and ts are rebuilt
+    from the displaced tangents, ns kept on the side of the original. Lanes
+    whose material has no bump map keep their frame. Only the bump
+    textures and their children are evaluated (the reference evaluates
+    every program; the values are the same, ROADMAP C)."""
+    from .texture import eval_textures, needed_programs
+
+    tid = sa.mat_bump[torch.clamp(si["mat"], min=0)]
+    has = tid >= 0
+    du = dv = 0.0005
+    only = needed_programs(static.tex_programs, sa.mat_bump.tolist())
+
+    def disp_at(uv, p):
+        vals = eval_textures(sa, static.tex_programs, uv, p, atlases=atlases, only=only)
+        out = torch.zeros(uv.shape[0], dtype=torch.float32, device=uv.device)
+        for x, val in enumerate(vals):
+            if val is not None:
+                out = torch.where(tid == x, val[:, 0], out)
+        return out
+
+    uv, p, ns = si["uv"], si["p"], si["ns"]
+    d0 = disp_at(uv, p)
+    d_u = disp_at(uv + torch.tensor([du, 0.0], device=uv.device), p + du * si["dpdu"])
+    d_v = disp_at(uv + torch.tensor([0.0, dv], device=uv.device), p + dv * si["dpdv"])
+    dpdu_b = si["dpdu"] + ((d_u - d0) / du)[:, None] * ns
+    dpdv_b = si["dpdv"] + ((d_v - d0) / dv)[:, None] * ns
+    ns_b = cross(dpdu_b, dpdv_b)
+    nlen = _norm(ns_b)
+    ns_b = ns_b / torch.clamp(nlen, min=1e-20)[:, None]
+    # keep the displaced normal on the original shading side
+    ns_b = torch.where((dot(ns_b, ns) < 0)[:, None], -ns_b, ns_b)
+    ok = (has & (nlen > 1e-12))[:, None]
+    ns_n = torch.where(ok, ns_b, ns)
+    ss_b, ts_b = _shading_frame(ns_n, torch.where(ok, dpdu_b, si["dpdu"]))
+    return dict(si, ns=ns_n, ss=torch.where(ok, ss_b, si["ss"]), ts=torch.where(ok, ts_b, si["ts"]))

@@ -38,10 +38,11 @@ import time
 import numpy as np
 import torch
 
-from .device.camera import generate_rays, make_camera
+from .device.camera import generate_rays, make_camera, ray_differential_dirs
 from .device.integrator import trace_persistent
 from .device.lightdistrib import build_spatial_distribution
 from .device.materials import lobe_table
+from .device.texture import has_imagemaps, prepare_atlases
 from .device.megakernel import make_megakernel_fn
 from .device.megakernel_wide import DEFAULT_MAX_TRIS, make_wide_megakernel_fn
 from .device.sampler import (
@@ -132,12 +133,14 @@ def filter_offset(name: str, params: dict, u1, u2):
     return (2.0 * u1 - 1.0) * r, (2.0 * u2 - 1.0) * ry, None
 
 
-def make_regen(cam, scfg, fcfg, px_base, py_base, pixel_ids, seed: int):
+def make_regen(cam, scfg, fcfg, px_base, py_base, pixel_ids, seed: int, differentials: bool = False):
     """Camera-sample regeneration closure for the persistent wavefront:
-    regen(sample_idx (R,)) -> (o, d, w_filter), using film dimension 0 for
-    the pixel offset and dimension 1 for the lens (render.make_regen); the
-    halton and sobol samplers draw both from the film enumeration tables in
-    scfg["halton"] / scfg["sobol"]."""
+    regen(sample_idx (R,)) -> (o, d, w_filter, dd_x, dd_y), using film
+    dimension 0 for the pixel offset and dimension 1 for the lens
+    (render.make_regen); the halton and sobol samplers draw both from the
+    film enumeration tables in scfg["halton"] / scfg["sobol"]. dd_x, dd_y:
+    the +1-pixel offset rays' directions when `differentials` (the scene
+    has imagemaps), else zeros."""
     kind = scfg["kind"]
     spp = scfg["spp"]
     strata = scfg.get("strata")
@@ -162,7 +165,9 @@ def make_regen(cam, scfg, fcfg, px_base, py_base, pixel_ids, seed: int):
         o, d = generate_rays(cam, px, py, ul1, ul2)
         if w is None:
             w = torch.ones(o.shape[0], dtype=torch.float32, device=o.device)
-        return o, d, w
+        if differentials:
+            return (o, d, w, *ray_differential_dirs(cam, px, py))
+        return o, d, w, torch.zeros_like(o), torch.zeros_like(o)
 
     return regen
 
@@ -218,11 +223,14 @@ def make_persistent_fn(cs: CompiledScene, cam=None):
     if icfg["light_strategy"] == "spatial" and static.n_lights > 1:
         icfg["spatial_distribution"] = build_spatial_distribution(cs.arrays, static)
     icfg["lobe_table"] = lobe_table(cs.arrays, static)
+    if icfg["lobe_table"].get("textured") or static.has_bump:
+        icfg["tex_atlases"] = prepare_atlases(cs.arrays, static)
+    differentials = has_imagemaps(static)
     shape = "brute" if static.use_brute_force else "wide-joint" if joint else "wide"
     LAST_PERSISTENT_TIER = f"torch-wavefront/{'cuda' if dev.type == 'cuda' else 'plain'}-{shape}"
 
     def wave_p(sa, px, py, pixel_ids, s0: int, n_samples: int, seed: int):
-        regen = make_regen(cam, scfg, fcfg, px, py, pixel_ids, seed)
+        regen = make_regen(cam, scfg, fcfg, px, py, pixel_ids, seed, differentials)
         return trace_persistent(sa, static, icfg, scfg, seed, pixel_ids, s0, n_samples, regen,
                                 max_sample_luminance=float(fcfg["max_sample_luminance"]), joint=joint)
 

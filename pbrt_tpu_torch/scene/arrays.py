@@ -3,8 +3,9 @@
 The port's counterpart of ``pbrt_tpu/scene/arrays.py``: the same id
 constants and the same table layouts, holding only the fields the ported
 slices read: triangle meshes and full spheres, the material rows, the
-light rows, the image-mapped infinite light's tables and, for scenes above
-the brute-force size, the wide BVH with its attribute table.
+light rows, the texture programs with their parameters and MIP pyramids,
+the image-mapped infinite light's tables and, for scenes above the
+brute-force size, the wide BVH with its attribute table.
 
 - ``SceneTensors``: torch tensors, all on one device.
 - ``SceneStatic``: Python-level counts and flags that shape the program.
@@ -18,7 +19,7 @@ every other table is the reference's, bit for bit.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, field, fields
 
 import numpy as np
 import torch
@@ -114,6 +115,8 @@ _TABLE_DTYPES = {
     "mat_const": torch.float32,  # (M, N_MAT_PARAMS, 3)
     "mat_tex": torch.int32,  # (M, N_MAT_PARAMS) texture index or -1
     "mat_remap": torch.int32,  # (M,) bit0 remap roughness, bit1 Beckmann
+    "mat_bump": torch.int32,  # (M,) bump-map texture index or -1
+    "tex_param": torch.float32,  # (X, 24) per-texture parameters (builder._TextureRegistry)
     "light_kind": torch.int32,  # (L,) LIGHT_*
     "light_param": torch.float32,  # (L, 12): area L(3), two_sided; point/spot/distant see builder
     "light_prim": torch.int32,  # (L,) prim row of an area light
@@ -163,6 +166,8 @@ class SceneTensors:
     mat_const: torch.Tensor
     mat_tex: torch.Tensor
     mat_remap: torch.Tensor
+    mat_bump: torch.Tensor
+    tex_param: torch.Tensor
     light_kind: torch.Tensor
     light_param: torch.Tensor
     light_prim: torch.Tensor
@@ -180,18 +185,45 @@ class SceneTensors:
     wnode_rec: torch.Tensor | None = None  # (n_nodes, 64) f32 node records
     wleaf_rec: torch.Tensor | None = None  # (n_oct*8, 16) f32 leaf rows, row = kernel slot
     wattr_rec: torch.Tensor | None = None  # (n_oct*8, 16) f32 attribute rows, row = kernel slot
+    # MIP pyramid levels of the imagemap textures, "{image_key}_l{k}" ->
+    # (H_k, W_k, 3) f32 (TexProgram.image_key, n_levels)
+    tex_images: dict = field(default_factory=dict)
 
     @property
     def device(self) -> torch.device:
         return self.tri_p.device
 
     def to(self, device) -> "SceneTensors":
-        return SceneTensors(**{f.name: None if getattr(self, f.name) is None else getattr(self, f.name).to(device)
-                               for f in fields(self)})
+        out = {f.name: None if getattr(self, f.name) is None else getattr(self, f.name).to(device)
+               for f in fields(self) if f.name != "tex_images"}
+        return SceneTensors(**out, tex_images={k: v.to(device) for k, v in self.tex_images.items()})
 
     def byte_size(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (getattr(self, f.name) for f in fields(self))
-                   if t is not None)
+        tensors = [getattr(self, f.name) for f in fields(self) if f.name != "tex_images"]
+        tensors += list(self.tex_images.values())
+        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+@dataclass
+class TexProgram:
+    """Static per-texture evaluation recipe (children are earlier indices);
+    the reference's scene.arrays.TexProgram."""
+
+    kind: str
+    is_float: bool
+    mapping: str = "uv"
+    image_key: str = ""  # key into SceneTensors.tex_images
+    n_levels: int = 1  # MIP pyramid levels ("{image_key}_l{k}")
+    trilinear: bool = False  # else EWA
+    wrap: str = "repeat"
+    tex1: int = -1  # child index or -1 (then const in tex_param)
+    tex2: int = -1
+    amount: int = -1
+    v01: int = -1
+    v10: int = -1
+    dimension: int = 2
+    octaves: int = 8
+    max_aniso: float = 8.0  # imagemap "maxanisotropy" (EWA eccentricity clamp)
 
 
 @dataclass
@@ -213,7 +245,8 @@ class SceneStatic:
     use_brute_force: bool = False  # n_prims <= 64: brute-force intersection, no BVH tables
     n_media: int = 0
     has_motion: bool = False
-    tex_programs: tuple = ()  # texture programs (the port compiles none yet)
+    tex_programs: tuple = ()  # TexProgram per texture, in evaluation (creation) order
+    has_bump: bool = False  # some material carries a bump-map texture
     has_wide: bool = False
     wide_root: int = 1
 
@@ -229,6 +262,9 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
     for name, dtype in {**_ENV_DTYPES, **_WIDE_DTYPES}.items():
         if arrays.get(name) is not None:
             tensors[name] = torch.as_tensor(np.array(arrays[name]), dtype=dtype, device=device)
+    # mipmap levels (the reference's dict holds device arrays: np.array copies)
+    tensors["tex_images"] = {k: torch.as_tensor(np.array(v), dtype=torch.float32, device=device)
+                             for k, v in (arrays.get("tex_images") or {}).items()}
     if arrays.get("wnode_tab") is not None:
         recs = hopper_layout(*(np.asarray(arrays[n]) for n in ("wnode_tab", "wprim_tab", "wmeta_tab")))
         if arrays.get("wattr_tab") is not None:
@@ -240,7 +276,7 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
     st.mat_kinds_present = tuple(int(k) for k in st.mat_kinds_present)
     st.light_kinds = tuple(int(k) for k in st.light_kinds)
     st.light_n_samples = tuple(int(n) for n in st.light_n_samples)
-    st.tex_programs = tuple(st.tex_programs)
+    st.tex_programs = tuple(p if isinstance(p, TexProgram) else TexProgram(**vars(p)) for p in st.tex_programs)
     return SceneTensors(**tensors), st
 
 

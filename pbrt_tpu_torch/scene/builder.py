@@ -11,7 +11,9 @@ two scene classes:
 Both take point, spot, distant and infinite lights (constant, or
 image-mapped through ``mapname``) and area lights on triangles;
 matte (Lambert or Oren-Nayar), mirror, glass, metal and plastic with
-constant parameters; the (0,2), random, stratified, halton, sobol and
+constant or textured parameters, and bump maps (the texture programs,
+their parameter rows and MIP pyramids of ``_TextureRegistry``); the (0,2),
+random, stratified, halton, sobol and
 maxmindist samplers; a perspective camera and every pixel filter; the path
 and directlighting integrators. The persistent wavefront
 (device/integrator.py) renders all of it; the brute and wide megakernels
@@ -24,8 +26,11 @@ tests/test_torch_megakernel.py hold them equal table for table).
 
 Anything outside those classes raises NotImplementedError naming the
 feature; nothing is silently dropped. The reference's cluster tables,
-joint-kernel probe, fused shading rows and mipmaps are not built: nothing
-in the port reads them.
+joint-kernel probe and fused shading rows are not built: nothing in the
+port reads them. The reference's known texture faults are kept, so the
+tables stay bit-identical (ROADMAP C): the noise textures' parameters
+are overwritten by their texture matrix, and checkerboard "aamode" is
+dropped.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..core.spectrum import copper_eta_k_rgb, y_of_rgb
+from ..device.mipmap import build_pyramid
 from .arrays import (
     GEOM_SPHERE,
     GEOM_TRI,
@@ -60,10 +66,11 @@ from .arrays import (
     QUADRIC_SPHERE,
     SceneStatic,
     SceneTensors,
+    TexProgram,
     scene_tensors_from_numpy,
 )
 from .bvh import build_bvh
-from .host import HostMaterial, SceneDescription
+from .host import HostMaterial, HostTexture, SceneDescription
 from .widebvh import build_wide_bvh
 
 BRUTE_FORCE_MAX_PRIMS = 64
@@ -87,6 +94,80 @@ _MATERIAL_DEFAULTS = {
     "plastic": {"Kd": 0.25, "Ks": 0.25, "roughness": 0.1},
     "metal": {"roughness": 0.01},
 }
+
+
+class _TextureRegistry:
+    """Flattens the host texture DAG into an ordered program list (the
+    reference's builder._TextureRegistry, :72-160): children register
+    before their parents, each texture once; every program gets a (24,)
+    parameter row (mapping uscale, vscale, udelta, vdelta at 0:4, planar
+    v1 4:7 and v2 7:10, constant children at 10:13, 13:16, 16:19, 19:22;
+    imagemap scale at 10; noise roughness, scale, variation at 10:13,
+    then overwritten by the texture matrix at 4:16, as the reference
+    does); imagemaps add their MIP pyramid to `images`."""
+
+    def __init__(self):
+        self.programs: list[TexProgram] = []
+        self.params: list[np.ndarray] = []
+        self.images: dict = {}
+        self._by_id: dict[int, int] = {}
+
+    def register_source(self, src):
+        """src: ('const', value) | ('texture', HostTexture) | None ->
+        (const rgb (3,), texture index or -1)."""
+        if src is None:
+            return np.zeros(3), -1
+        kind, val = src
+        if kind == "const":
+            v = np.atleast_1d(np.asarray(val, dtype=np.float64)).ravel()
+            if v.size == 1:
+                v = np.repeat(v, 3)
+            return v[:3], -1
+        return np.zeros(3), self.register(val)
+
+    def register(self, tex: HostTexture) -> int:
+        key = id(tex)
+        if key in self._by_id:
+            return self._by_id[key]
+        prog = TexProgram(kind=tex.kind, is_float=tex.is_float, mapping=tex.mapping, wrap=tex.wrap,
+                          dimension=tex.dimension, octaves=tex.octaves)
+        par = np.zeros(24, dtype=np.float64)
+        par[0:4] = tex.uscale, tex.vscale, tex.udelta, tex.vdelta
+        if tex.v1 is not None:
+            par[4:7] = tex.v1
+        if tex.v2 is not None:
+            par[7:10] = tex.v2
+        if tex.kind == "constant":
+            v = np.atleast_1d(np.asarray(tex.value, dtype=np.float64)).ravel()
+            par[10:13] = (np.repeat(v, 3) if v.size == 1 else v)[:3]
+        elif tex.kind in ("scale", "mix", "checkerboard", "dots", "bilerp"):
+            par[10:13], prog.tex1 = self.register_source(tex.tex1)
+            par[13:16], prog.tex2 = self.register_source(tex.tex2)
+            if tex.kind == "mix":
+                par[16:19], prog.amount = self.register_source(tex.amount)
+            if tex.kind == "bilerp":
+                par[16:19], prog.v01 = self.register_source(tex.v01)
+                par[19:22], prog.v10 = self.register_source(tex.v10)
+        elif tex.kind == "imagemap":
+            key_name = f"img{sum(1 for k in self.images if k.endswith('_l0'))}"
+            pyr = build_pyramid(np.asarray(tex.image, dtype=np.float32))
+            for li, level in enumerate(pyr):
+                self.images[f"{key_name}_l{li}"] = level
+            prog.image_key = key_name
+            prog.n_levels = len(pyr)
+            prog.trilinear = tex.trilinear
+            prog.max_aniso = float(getattr(tex, "max_aniso", 8.0))
+            par[10] = tex.scale
+        elif tex.kind in ("fbm", "wrinkled", "marble", "windy"):
+            par[10:13] = tex.roughness, tex.scale, tex.variation
+            if tex.world_to_texture is not None:
+                # the reference's fault, kept: the matrix overwrites 10:16
+                par[4:16] = tex.world_to_texture.m[:3, :].ravel()[:12]
+        idx = len(self.programs)
+        self.programs.append(prog)
+        self.params.append(par)
+        self._by_id[key] = idx
+        return idx
 
 
 @dataclass
@@ -153,17 +234,13 @@ def _check_slice(desc: SceneDescription) -> None:
         mat = prim.material
         if mat.kind not in MATERIALS:
             _unsupported(f"the '{mat.kind}' material")
-        if mat.bump_map is not None:
-            _unsupported("bump maps")
-        for name, src in mat.params.items():
-            if isinstance(src, tuple) and src and src[0] == "texture":
-                _unsupported(f"textured material parameter '{name}' (imagemap textures)")
 
 
-def _compile_material(mat: HostMaterial):
-    """HostMaterial of a constant-parameter kind -> (kind_id, const
-    (N_MAT_PARAMS, 3), tex, remap), filled as the reference's
-    _compile_material fills such a row."""
+def _compile_material(mat: HostMaterial, tex_reg: _TextureRegistry):
+    """HostMaterial of a ported kind -> (kind_id, const (N_MAT_PARAMS, 3),
+    tex (N_MAT_PARAMS,), remap, bump texture or -1), filled as the
+    reference's _compile_material (:1398-1593) fills such a row: a textured
+    slot keeps a zero constant and names its program."""
     kind = MAT_IDS.get(mat.kind, MAT_MATTE)
     const = np.zeros((N_MAT_PARAMS, 3), dtype=np.float64)
     tex = np.full(N_MAT_PARAMS, -1, dtype=np.int64)
@@ -182,8 +259,11 @@ def _compile_material(mat: HostMaterial):
             if default is not None:
                 const[slot] = default
             return False
-        v = np.atleast_1d(np.asarray(src[1], dtype=np.float64)).ravel()
-        const[slot] = np.repeat(v, 3)[:3] if v.size == 1 else v[:3]
+        if src[0] == "const":
+            v = np.atleast_1d(np.asarray(src[1], dtype=np.float64)).ravel()
+            const[slot] = np.repeat(v, 3)[:3] if v.size == 1 else v[:3]
+        else:
+            tex[slot] = tex_reg.register_source(src)[1]
         return True
 
     put(P_KD, "Kd")
@@ -205,7 +285,11 @@ def _compile_material(mat: HostMaterial):
     rm = params.get("remaproughness")
     if rm is not None and rm[0] == "const":
         remap = 1 if rm[1] else 0
-    return kind, const, tex, remap | (2 if beckmann else 0)
+    # a bump map is a float texture (material.rs:46-87); a constant source
+    # has no gradient, so only a texture registers
+    bump = mat.bump_map
+    bump_tid = tex_reg.register(bump[1]) if bump is not None and bump[0] == "texture" else -1
+    return kind, const, tex, remap | (2 if beckmann else 0), bump_tid
 
 
 def _compile_light(hl):
@@ -283,6 +367,7 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
     prim_lo, prim_hi = [], []
     mat_index: dict[int, int] = {}
     mat_rows: list[tuple] = []
+    tex_reg = _TextureRegistry()
     lights: list[tuple] = []  # (kind, params(12,), prim_id, nsamples)
 
     # non-area lights first, in description order; the last infinite light
@@ -298,7 +383,7 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         key = id(prim.material)
         if key not in mat_index:
             mat_index[key] = len(mat_rows)
-            mat_rows.append(_compile_material(prim.material))
+            mat_rows.append(_compile_material(prim.material, tex_reg))
         mid = mat_index[key]
         if prim.shape.mesh is None:
             # full or partial sphere (sphere.rs); the checks admit no other quadric
@@ -444,6 +529,10 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         "mat_const": np.stack([r[1] for r in mat_rows]).astype(np.float32),
         "mat_tex": np.stack([r[2] for r in mat_rows]).astype(np.int32),
         "mat_remap": np.array([r[3] for r in mat_rows], dtype=np.int32),
+        "mat_bump": np.array([r[4] for r in mat_rows], dtype=np.int32),
+        "tex_param": (np.stack(tex_reg.params).astype(np.float32) if tex_reg.params
+                      else np.zeros((1, 24), dtype=np.float32)),
+        "tex_images": tex_reg.images,
         "light_kind": np.array([l[0] for l in lights], dtype=np.int32),
         "light_param": np.asarray([l[1] for l in lights], dtype=np.float32).reshape(-1, 12),
         "light_prim": np.array([l[2] for l in lights], dtype=np.int32),
@@ -497,7 +586,8 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         "use_brute_force": use_brute,
         "n_media": 0,
         "has_motion": False,
-        "tex_programs": (),
+        "tex_programs": tuple(tex_reg.programs),
+        "has_bump": any(r[4] >= 0 for r in mat_rows),
         "has_wide": not use_brute,
         "wide_root": wide_root,
     }

@@ -26,9 +26,21 @@ per-vertex normals and a UV chart (matte, plastic, copper metal, glass)
 under a constant infinite light and a distant sun; halton with the gaussian
 filter, power light selection.
 
+``textured_room`` is material_room's geometry with UV charts and the
+texture kinds users' scenes carry: a 1024x1024 RGB imagemap Kd on the floor
+(EWA, pbrt's default filter), a 512x512 trilinear imagemap on the back
+wall, a checkerboard, a scale of marble and a mix driven by fbm, and a
+float-imagemap bump map; halton with the gaussian filter. The wavefront
+renders it. ``textured_gallery`` is spheres_gallery with 128x128 grayscale
+imagemap Kds on its ground quad and on a backdrop quad, the brute
+megakernel's atlas class; ``material_room(checker=True)`` gives the floor
+a UV chart and a checkerboard Kd of two constant cells, the wide
+megakernel's.
+
 ``write_pbrt`` writes a triangle-mesh scene of these out as a .pbrt file,
-each mesh as a binary PLY beside it, so the front end can be driven with
-the same scenes (``python -m pbrt_tpu_torch``).
+each mesh as a binary PLY beside it and each imagemap as a PFM image, so
+the front end can be driven with the same scenes (``python -m
+pbrt_tpu_torch``).
 """
 from __future__ import annotations
 
@@ -38,7 +50,7 @@ import numpy as np
 
 from .core.transform import Transform
 from .scene.host import (
-    CameraConfig, FilmConfig, HostLight, HostMaterial, HostPrimitive,
+    CameraConfig, FilmConfig, HostLight, HostMaterial, HostPrimitive, HostTexture,
     IntegratorConfig, SamplerConfig, SceneDescription, ShapeRecord, Sphere, TriangleMesh,
 )
 
@@ -120,14 +132,24 @@ def _box(center, edge):
     return c + edge * corners, np.asarray(idx, np.int32)
 
 
-def material_room(n_side: int = 40) -> SceneDescription:
+def _grid_uv(n, u_rep=1.0, v_rep=1.0):
+    """The (u, v) chart of a _grid_mesh patch of n x n cells: u and v run
+    over [0, u_rep] and [0, v_rep] along the patch's two parameters."""
+    t = np.linspace(0.0, 1.0, n + 1)
+    gu, gv = np.meshgrid(t * u_rep, t * v_rep)
+    return np.stack([gu, gv], axis=-1).reshape(-1, 2)
+
+
+def material_room(n_side: int = 40, checker: bool = False) -> SceneDescription:
     """The mesh room at n_side 40 (3,842 triangles) with a closed glass box
     (12 triangles) added and its materials and lights changed so that one
     render exercises every lobe and light kind of the wide megakernel's
     class: plastic terrain, a mirror back wall, an Oren-Nayar left wall, a
     copper right wall, matte front wall and ceiling, the two-sided area
     panel, a point and a spot light, power light selection. 3,854
-    triangles, under the wide megakernel's default cap of 4,096."""
+    triangles, under the wide megakernel's default cap of 4,096. checker:
+    the terrain is matte instead, its Kd a checkerboard of two constant
+    cells over a UV chart (8 x 8 cells across the floor)."""
     desc = mesh_room(n_side)
     terrain, back, _front, left, right, _ceiling, _panel = desc.primitives
     terrain.material = HostMaterial(kind="plastic", params={
@@ -142,6 +164,102 @@ def material_room(n_side: int = 40) -> SceneDescription:
         HostLight(kind="spot", from_point=np.array([2.0, 3.5, 1.0]), to_point=np.array([0.0, -0.5, -1.5]),
                   intensity=np.array([30.0, 28.0, 26.0]), cone_angle=30.0, cone_delta=18.0),
     ]
+    if checker:
+        terrain.shape.mesh.uv = _grid_uv(n_side)
+        terrain.material = HostMaterial(kind="matte", params={"Kd": ("texture", _texture(
+            "checkerboard", tex1=_const([0.8, 0.75, 0.7]), tex2=_const([0.25, 0.3, 0.35]), uscale=8.0,
+            vscale=8.0))})
+    return desc
+
+
+def _texture(kind, is_float=False, **fields) -> HostTexture:
+    """A HostTexture as the parser makes one from a Texture directive
+    (parser/api.py _make_texture): a mapped kind's planar axes and the
+    texture-space transform of mapped and noise kinds at their defaults
+    (the identity after WorldBegin), so that write_pbrt's file compiles to
+    the same tables."""
+    if kind in _MAPPED:
+        fields.setdefault("v1", np.array([1.0, 0.0, 0.0]))
+        fields.setdefault("v2", np.array([0.0, 1.0, 0.0]))
+    if kind in _MAPPED or kind in ("fbm", "wrinkled", "marble", "windy"):
+        fields.setdefault("world_to_texture", Transform())
+    return HostTexture(kind=kind, is_float=is_float, **fields)
+
+
+def _tiles(res: int, rs) -> np.ndarray:
+    """A res x res RGB floor of 8 x 8 tiles: a color per tile, dark grout
+    lines and a per-texel grain."""
+    t = (np.arange(res) + 0.5) / res * 8.0
+    fx, fy = np.meshgrid(t, t)
+    colors = rs.uniform(0.3, 0.75, (8, 8, 3))
+    img = colors[fy.astype(int) % 8, fx.astype(int) % 8]
+    grout = ((fx % 1.0) < 0.05) | ((fy % 1.0) < 0.05)
+    img = np.where(grout[..., None], 0.12, img) * (0.85 + 0.15 * rs.rand(res, res, 1))
+    return img.astype(np.float32)
+
+
+def _wallpaper(res: int, rs) -> np.ndarray:
+    """A res x res RGB wallpaper: stripes and a diagonal wave, with grain."""
+    t = (np.arange(res) + 0.5) / res
+    x, y = np.meshgrid(t, t)
+    base = 0.5 + 0.25 * np.sin(2 * np.pi * 12 * x)[..., None] * np.array([1.0, 0.6, 0.3])
+    wave = 0.15 * np.sin(2 * np.pi * 6 * (x + y))[..., None]
+    img = np.clip(base + wave, 0.05, 0.95) * (0.9 + 0.1 * rs.rand(res, res, 1))
+    return img.astype(np.float32)
+
+
+def _bricks(res: int) -> np.ndarray:
+    """A res x res height field of raised bricks (grayscale RGB), for a
+    bump map: 1 on the bricks, falling to 0 in the mortar."""
+    t = (np.arange(res) + 0.5) / res
+    x, y = np.meshgrid(t * 6.0, t * 12.0)
+    x = x + 0.5 * (np.floor(y) % 2)
+    d = np.minimum(np.minimum(x % 1.0, 1.0 - x % 1.0) * 2.0, np.minimum(y % 1.0, 1.0 - y % 1.0))
+    h = np.clip(d / 0.2, 0.0, 1.0)
+    return np.repeat(h[..., None], 3, axis=-1).astype(np.float32)
+
+
+def textured_room(n_side: int = 40, floor_res: int = 1024, wall_res: int = 512, bump_res: int = 256,
+                  seed: int = 11) -> SceneDescription:
+    """The 1000x500, 16 spp, depth-5 textured room: material_room's
+    geometry (3,854 triangles at n_side 40) with UV charts on the floor and
+    walls and
+    - the floor matte, Kd a floor_res^2 RGB tile imagemap, 4 x 4 repeats,
+      EWA (pbrt's default);
+    - the back wall matte, Kd a wall_res^2 RGB imagemap, trilinear;
+    - the front wall matte, Kd a checkerboard (8 x 8);
+    - the left wall matte, Kd a mix of two colors by an fbm amount, and a
+      bump map, a bump_res^2 brick height imagemap;
+    - the right wall plastic, Kd a scale of a marble texture;
+    - the glass box, the ceiling, the area panel and the point and spot
+      lights as material_room's;
+    - halton with the gaussian filter (pbrt's defaults).
+    Every image comes from numpy with the given seed."""
+    rs = np.random.RandomState(seed)
+    desc = material_room(n_side)
+    terrain, back, front, left, right, ceiling = desc.primitives[:6]
+    terrain.shape.mesh.uv = _grid_uv(n_side, 4.0, 4.0)
+    for wall in (back, front, left, right, ceiling):
+        wall.shape.mesh.uv = _grid_uv(8)
+    floor_tex = _texture("imagemap", image=_tiles(floor_res, rs))
+    wall_tex = _texture("imagemap", image=_wallpaper(wall_res, rs), trilinear=True)
+    checker = _texture("checkerboard", tex1=_const([0.75, 0.7, 0.6]), tex2=_const([0.2, 0.25, 0.3]),
+                       uscale=8.0, vscale=8.0)
+    fbm = _texture("fbm", is_float=True, octaves=4)
+    mix = _texture("mix", tex1=_const([0.6, 0.25, 0.2]), tex2=_const([0.2, 0.5, 0.6]), amount=("texture", fbm))
+    marble = _texture("marble", octaves=4, scale=2.0)
+    scaled = _texture("scale", tex1=("texture", marble), tex2=_const([0.8, 0.8, 0.8]))
+    bump = _texture("imagemap", is_float=True, image=_bricks(bump_res), scale=0.02)
+    terrain.material = HostMaterial(kind="matte", params={"Kd": ("texture", floor_tex)})
+    back.material = HostMaterial(kind="matte", params={"Kd": ("texture", wall_tex)})
+    front.material = HostMaterial(kind="matte", params={"Kd": ("texture", checker)})
+    left.material = HostMaterial(kind="matte", params={"Kd": ("texture", mix)}, bump_map=("texture", bump))
+    right.material = HostMaterial(kind="plastic", params={
+        "Kd": ("texture", scaled), "Ks": _const([0.3, 0.3, 0.3]), "roughness": ("const", 0.1)})
+    ceiling.material = HostMaterial(kind="matte", params={"Kd": _const([0.7, 0.7, 0.7])})
+    desc.film.filter_name = "gaussian"
+    desc.film.filter_params = dict(GAUSSIAN_DEFAULTS)
+    desc.sampler = SamplerConfig(kind="halton", pixel_samples=16)
     return desc
 
 
@@ -183,6 +301,43 @@ def spheres_gallery() -> SceneDescription:
         sampler=SamplerConfig(kind="zerotwosequence", pixel_samples=16),
         integrator=IntegratorConfig(kind="path", max_depth=5, light_strategy="power"),
     )
+
+
+def _grayscale_noise(res: int, rs, cells: int) -> np.ndarray:
+    """A res x res grayscale (equal-channel) RGB image: smooth value noise
+    on a cells x cells lattice, in [0.2, 0.8]."""
+    lat = rs.rand(cells + 1, cells + 1)
+    t = (np.arange(res) + 0.5) / res * cells
+    i = np.minimum(t.astype(int), cells - 1)
+    f = t - i
+    f = f * f * (3.0 - 2.0 * f)
+    row = lat[i] * (1 - f)[:, None] + lat[i + 1] * f[:, None]  # (res, cells + 1)
+    g = row[:, i] * (1 - f)[None, :] + row[:, i + 1] * f[None, :]
+    g = 0.2 + 0.6 * g
+    return np.repeat(g[..., None], 3, axis=-1).astype(np.float32)
+
+
+def textured_gallery(res: int = 128, seed: int = 5) -> SceneDescription:
+    """spheres_gallery with grayscale imagemap Kds of res x res texels (at
+    most 128, the brute megakernel's atlas class): the ground quad's (uv
+    mapping, 8 x 8 repeats) and a backdrop quad's behind the spheres; 10
+    prims. A textured sphere is outside that class (the reference's
+    megakernel bakes no uv for spheres), so the spheres keep constant
+    materials."""
+    rs = np.random.RandomState(seed)
+    desc = spheres_gallery()
+    ground = desc.primitives[0]
+    ground.material = HostMaterial(kind="matte", params={"Kd": ("texture", _texture(
+        "imagemap", image=_grayscale_noise(res, rs, 8), uscale=8.0, vscale=8.0))})
+    backdrop = HostPrimitive(
+        shape=ShapeRecord(mesh=TriangleMesh(
+            p=np.array([[-9, -1, -4], [9, -1, -4], [9, 5, -4], [-9, 5, -4]], np.float64),
+            indices=np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+            uv=np.array([[0, 0], [3, 0], [3, 1], [0, 1]], np.float64))),
+        material=HostMaterial(kind="matte", params={"Kd": ("texture", _texture(
+            "imagemap", image=_grayscale_noise(res, rs, 16)))}))
+    desc.primitives.insert(1, backdrop)
+    return desc
 
 
 def _quad(a, b, c, d, material, light=None):
@@ -306,14 +461,87 @@ def _fmt(values) -> str:
     return " ".join(repr(float(v)) for v in np.ravel(values))
 
 
-def _param(name, src) -> str:
+def _param(name, src, tex_names=None) -> str:
+    if src[0] == "texture":
+        return f'"texture {name}" "{tex_names[id(src[1])]}"'
     v = np.ravel(np.asarray(src[1], np.float64))
     return f'"rgb {name}" [{_fmt(v)}]' if v.size == 3 else f'"float {name}" [{_fmt(v)}]'
 
 
+# the children a texture kind reads, by the parameter names of its Texture
+# directive (parser/api.py _make_texture)
+_TEX_CHILDREN = {"scale": (("tex1", "tex1"), ("tex2", "tex2")),
+                 "mix": (("tex1", "tex1"), ("tex2", "tex2"), ("amount", "amount")),
+                 "checkerboard": (("tex1", "tex1"), ("tex2", "tex2")),
+                 "bilerp": (("tex1", "v00"), ("tex2", "v11"), ("v01", "v01"), ("v10", "v10")),
+                 "dots": (("tex1", "inside"), ("tex2", "outside"))}
+_MAPPED = ("imagemap", "checkerboard", "uv", "bilerp", "dots")
+
+
+def _texture_lines(desc: SceneDescription, folder: str) -> tuple[list[str], dict]:
+    """Texture directives for every texture the materials read (children
+    before parents), each imagemap's image written beside the file as
+    t<i>.pfm (float32, exact); returns the lines and id(texture) -> name."""
+    from .core.imageio import write_image
+
+    names: dict[int, str] = {}
+    lines: list[str] = []
+
+    def child_param(name, src, is_float):
+        if src is None:
+            return ""
+        if src[0] == "texture":
+            return f' "texture {name}" "{visit(src[1])}"'
+        v = np.ravel(np.asarray(src[1], np.float64))
+        kind = "float" if is_float or v.size == 1 else "rgb"
+        return f' "{kind} {name}" [{_fmt(v)}]'
+
+    def visit(tex) -> str:
+        if id(tex) in names:
+            return names[id(tex)]
+        params = ""
+        for field, pname in _TEX_CHILDREN.get(tex.kind, ()):
+            params += child_param(pname, getattr(tex, field), tex.is_float or field == "amount")
+        name = f"t{len(names)}"
+        if tex.kind == "constant":
+            v = np.ravel(np.asarray(tex.value, np.float64))
+            params += f' "{"float" if tex.is_float or v.size == 1 else "rgb"} value" [{_fmt(v)}]'
+        elif tex.kind == "imagemap":
+            write_image(os.path.join(folder, f"{name}.pfm"), np.asarray(tex.image, np.float32))
+            params += (f' "string filename" "{name}.pfm" "string wrap" "{tex.wrap}" "float scale" [{_fmt([tex.scale])}]'
+                       f' "bool trilinear" {"true" if tex.trilinear else "false"}'
+                       f' "float maxanisotropy" [{_fmt([tex.max_aniso])}]')
+        elif tex.kind == "checkerboard":
+            params += f' "integer dimension" [{int(tex.dimension)}]'
+        elif tex.kind in ("fbm", "wrinkled", "marble"):
+            params += f' "integer octaves" [{int(tex.octaves)}] "float roughness" [{_fmt([tex.roughness])}]'
+            if tex.kind == "marble":
+                params += f' "float scale" [{_fmt([tex.scale])}] "float variation" [{_fmt([tex.variation])}]'
+        elif tex.kind not in _TEX_CHILDREN and tex.kind not in ("uv", "windy"):
+            raise NotImplementedError(f"write_pbrt does not write '{tex.kind}' textures")
+        if tex.kind in _MAPPED:
+            params += (f' "string mapping" "{tex.mapping}" "float uscale" [{_fmt([tex.uscale])}]'
+                       f' "float vscale" [{_fmt([tex.vscale])}] "float udelta" [{_fmt([tex.udelta])}]'
+                       f' "float vdelta" [{_fmt([tex.vdelta])}]')
+            if tex.mapping == "planar":
+                params += f' "vector v1" [{_fmt(tex.v1)}] "vector v2" [{_fmt(tex.v2)}]'
+        lines.append(f'Texture "{name}" "{"float" if tex.is_float else "spectrum"}" "{tex.kind}"{params}')
+        names[id(tex)] = name
+        return name
+
+    for prim in desc.primitives:
+        srcs = list(prim.material.params.values()) + [prim.material.bump_map]
+        for src in srcs:
+            if isinstance(src, tuple) and src and src[0] == "texture":
+                visit(src[1])
+    return lines, names
+
+
 def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True) -> None:
     """Write a scene of triangle meshes (with their normals and UVs) with
-    constant-parameter materials, area lights on meshes, point, spot and
+    materials of constant or textured parameters and bump maps (each
+    texture a Texture directive, each imagemap a PFM image beside the
+    file), area lights on meshes, point, spot and
     distant lights and infinite lights (a map named by its file name,
     relative to the .pbrt file) as a .pbrt file: a LookAt camera (look_at = (eye, look, up), the one the
     description's camera was made with), the film, pixel filter, integrator
@@ -324,6 +552,7 @@ def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True)
     own Material directive, as each of the description's does."""
     from .parser.catprint import _write_ply
 
+    folder = os.path.dirname(os.path.abspath(path))
     cam, film, integ = desc.camera, desc.film, desc.integrator
     out = [f"LookAt {_fmt(np.concatenate([np.ravel(v) for v in look_at]))}",
            f'Camera "{cam.kind}" "float fov" [{_fmt([cam.fov])}]',
@@ -351,16 +580,20 @@ def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True)
             out.append(f'LightSource "infinite" "rgb L" [{_fmt(hl.intensity)}]{mapname}')
         else:
             raise NotImplementedError(f"write_pbrt does not write '{hl.kind}' lights")
+    tex_lines, tex_names = _texture_lines(desc, folder)
+    out += tex_lines
     for i, prim in enumerate(desc.primitives):
         mesh = prim.shape.mesh
         if mesh is None:
             raise NotImplementedError("write_pbrt writes triangle meshes only")
         fname = f"mesh_{i}.ply"
-        _write_ply(os.path.join(os.path.dirname(os.path.abspath(path)), fname), mesh.p, mesh.indices, n=mesh.n,
-                   uv=mesh.uv, double=True)
+        _write_ply(os.path.join(folder, fname), mesh.p, mesh.indices, n=mesh.n, uv=mesh.uv, double=True)
         out.append("AttributeBegin")
         mat = prim.material
-        out.append(" ".join([f'  Material "{mat.kind}"'] + [_param(k, v) for k, v in mat.params.items()]))
+        params = [_param(k, v, tex_names) for k, v in mat.params.items()]
+        if mat.bump_map is not None:
+            params.append(_param("bumpmap", mat.bump_map, tex_names))
+        out.append(" ".join([f'  Material "{mat.kind}"'] + params))
         if prim.area_light is not None:
             al = prim.area_light
             out.append(f'  AreaLightSource "diffuse" "rgb L" [{_fmt(al.intensity)}] '

@@ -244,12 +244,18 @@ def _tables_equal(cs, ref):
         if a is None:
             assert b is None or f.name.startswith("w") and not ref.static.has_wide, f.name
             continue
+        if isinstance(a, dict):  # the MIP levels of the imagemaps
+            assert a.keys() == b.keys(), f.name
+            for k in a:
+                np.testing.assert_array_equal(a[k].numpy(), np.asarray(b[k]), err_msg=k)
+            continue
         b = np.asarray(b)
         assert a.numpy().dtype.itemsize == b.dtype.itemsize, f.name
         np.testing.assert_array_equal(a.numpy(), b, err_msg=f.name)
     for name in ("n_prims", "n_tris", "n_lights", "n_materials", "use_brute_force", "has_wide", "wide_root",
-                 "has_infinite", "infinite_light_index", "has_env_map"):
+                 "has_infinite", "infinite_light_index", "has_env_map", "has_bump"):
         assert getattr(cs.static, name) == getattr(ref.static, name), name
+    assert [vars(p) for p in cs.static.tex_programs] == [vars(p) for p in ref.static.tex_programs]
 
 
 @pytest.mark.parametrize("scene", ["wide", "brute"])
@@ -269,10 +275,7 @@ def test_compiled_tables_bit_identical(tmp_path, scene):
 
 REFUSED = {
     "cylinder": ('Shape "cylinder"', "'cylinder' quadrics"),
-    "texture": ('Texture "t" "spectrum" "checkerboard"\nMaterial "matte" "texture Kd" "t"\nShape "sphere"',
-                "textured material parameter 'Kd'"),
     "uber": ('Material "uber"\nShape "sphere"', "the 'uber' material"),
-    "bump": ('Texture "b" "float" "fbm"\nMaterial "matte" "texture bumpmap" "b"\nShape "sphere"', "bump maps"),
     "instancing": ('ObjectBegin "o"\nShape "trianglemesh" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]\n'
                    'ObjectEnd\nTranslate 1 0 0\nObjectInstance "o"', "object instancing"),
     "motion": ('ActiveTransform EndTime\nTranslate 0 1 0\nActiveTransform All\nShape "sphere"', "motion blur"),
@@ -282,9 +285,27 @@ REFUSED = {
 }
 
 
+def _textured_tables(tmp_path, extra):
+    """A brute scene with a textured or bump-mapped sphere: the port's
+    compile of its parse gives the reference's tables bit for bit (the
+    texture programs, their parameter rows, mat_tex and mat_bump)."""
+    p = tmp_path / "s.pbrt"
+    p.write_text(room_text(3, "zerotwosequence", "box", extra))
+    cs = compile_scene(pbrt_parse(str(p)), "cpu")
+    ref = ref_compile_scene(ref_pbrt_parse(str(p)))
+    _tables_equal(cs, ref)
+    assert cs.static.tex_programs and (cs.arrays.mat_tex >= 0).any() != cs.static.has_bump
+
+
 # features this list refused until a slice ported them: each case now runs
 # its counterpart, the feature compiled to the reference's tables
-PORTED = {"infinite light": lambda tmp_path: _infinite_light_tables(tmp_path, "")}
+PORTED = {
+    "infinite light": lambda tmp_path: _infinite_light_tables(tmp_path, ""),
+    "texture": lambda tmp_path: _textured_tables(
+        tmp_path, 'Texture "t" "spectrum" "checkerboard"\nMaterial "matte" "texture Kd" "t"\nShape "sphere"'),
+    "bump": lambda tmp_path: _textured_tables(
+        tmp_path, 'Texture "b" "float" "fbm"\nMaterial "matte" "texture bumpmap" "b"\nShape "sphere"'),
+}
 
 
 def _infinite_light_tables(tmp_path, mapname):
@@ -316,7 +337,7 @@ def test_parsed_infinite_lights_compile_as_reference(tmp_path, case):
     _infinite_light_tables(tmp_path, "sky.pfm" if case.endswith("mapname") else "")
 
 
-@pytest.mark.parametrize("case", ["infinite light"] + list(REFUSED) + ["orthographic", "bdpt", "kdtree"])
+@pytest.mark.parametrize("case", list(PORTED) + list(REFUSED) + ["orthographic", "bdpt", "kdtree"])
 def test_refused_features_raise_builder_messages(tmp_path, case):
     """What the API builds and the port cannot render yet is refused by
     compile_scene, naming the feature; a feature a later slice ported runs
@@ -352,7 +373,7 @@ def test_parsed_panel_light_rows(tmp_path):
     np.testing.assert_array_equal(got.light_param.numpy(), want.light_param.numpy())
 
 
-@pytest.mark.parametrize("room", ["mesh_room", "material_room", "sky_meshes"])
+@pytest.mark.parametrize("room", ["mesh_room", "material_room", "sky_meshes", "textured_room"])
 def test_written_rooms_compile_to_the_same_tables(tmp_path, room):
     """scenes.write_pbrt's file of a room (float64 PLY meshes with their
     normals and UVs, a LookAt camera) parses to the room's camera and
@@ -361,13 +382,17 @@ def test_written_rooms_compile_to_the_same_tables(tmp_path, room):
     Sampler directive the file gets pbrt's default, halton at 16 spp."""
     from pbrt_tpu_torch import scenes
 
-    desc = scenes.sky_meshes(10, 6, 10) if room == "sky_meshes" else getattr(scenes, room)(8)
+    if room == "textured_room":  # small images; the textures as Texture directives and PFM files
+        desc = scenes.textured_room(8, 48, 24, 12)
+    else:
+        desc = scenes.sky_meshes(10, 6, 10) if room == "sky_meshes" else getattr(scenes, room)(8)
     path = str(tmp_path / "room.pbrt")
     look_at = scenes.SKY_LOOK_AT if room == "sky_meshes" else scenes.ROOM_LOOK_AT
     scenes.write_pbrt(desc, path, look_at, sampler=room == "mesh_room")
     parsed = pbrt_parse(path)
-    if room == "sky_meshes":
+    if room in ("sky_meshes", "textured_room"):
         assert parsed.film.filter_name == "gaussian" and parsed.film.filter_params == desc.film.filter_params
+    if room == "sky_meshes":
         assert [hl.kind for hl in parsed.lights] == ["infinite", "distant"]
     np.testing.assert_array_equal(parsed.camera.camera_to_world.m, desc.camera.camera_to_world.m)
     assert parsed.sampler.kind == ("zerotwosequence" if room == "mesh_room" else "halton")
@@ -377,5 +402,9 @@ def test_written_rooms_compile_to_the_same_tables(tmp_path, room):
     for f in dataclasses.fields(SceneTensors):
         a, b = getattr(got.arrays, f.name), getattr(want.arrays, f.name)
         assert (a is None) == (b is None), f.name
-        if a is not None:
+        if isinstance(a, dict):  # the MIP levels (the imagemaps' PFM files are float32, exact)
+            assert a.keys() == b.keys(), f.name
+            for k in a:
+                np.testing.assert_array_equal(a[k].numpy(), b[k].numpy(), err_msg=k)
+        elif a is not None:
             np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=f.name)

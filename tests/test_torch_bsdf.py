@@ -153,3 +153,38 @@ def test_bsdf_sample_matches_reference(lanes):
         np.testing.assert_allclose(a[graze], b[graze], rtol=1e-5, atol=5e-5, err_msg=key)
     for key in ("f", "pdf"):
         _close_but_few(bs[key].numpy(), bs_r[key], key)
+
+
+def test_textured_make_bsdf_matches_reference():
+    """make_bsdf of a scene with textured parameters builds each lane's
+    lobes from its texture values (imagemap Kd under EWA and trilinear
+    filtering, a checkerboard, a mix driven by fbm, a scale of marble on a
+    plastic Kd): kinds equal the reference's in every slot the port keeps,
+    the other slots hold none in the reference, and the data agree at rtol
+    1e-5, atol 1e-5 (texture values differ by ulps, tests/test_torch_texture.py).
+    The possible sets cover each kept slot's kinds."""
+    from pbrt_tpu_torch.device.texture import prepare_atlases
+    from pbrt_tpu_torch.scenes import textured_room
+
+    desc = textured_room(4, 48, 24, 12)
+    cs, ref = compile_scene(desc, "cpu"), ref_compile_scene(_to_ref(desc))
+    rs = np.random.RandomState(13)
+    n = 4096
+    mat = rs.randint(0, cs.static.n_materials, n)
+    uv = rs.uniform(-1.0, 3.0, (n, 2)).astype(np.float32)
+    p = rs.uniform(-4.0, 4.0, (n, 3)).astype(np.float32)
+    dx = (rs.normal(size=(n, 2)) * 1e-2).astype(np.float32)
+    dy = (rs.normal(size=(n, 2)) * 3e-3).astype(np.float32)
+    table = lobe_table(cs.arrays, cs.static)
+    assert table["textured"]
+    mine = make_bsdf(cs.arrays, cs.static, torch.as_tensor(mat), table, *(torch.as_tensor(x) for x in (uv, p, dx, dy)),
+                     prepare_atlases(cs.arrays, cs.static))
+    theirs = ref_make_bsdf(ref.arrays, ref.static, jnp.asarray(mat.astype(np.int32)),
+                           *(jnp.asarray(x) for x in (uv, p, dx, dy)))
+    kind_r, data_r = np.asarray(theirs["kind"]), np.asarray(theirs["data"])
+    slots = table["slots"]
+    np.testing.assert_array_equal(mine["kind"].numpy(), kind_r[:, slots])
+    assert not np.delete(kind_r, slots, axis=1).any()
+    np.testing.assert_allclose(mine["data"].numpy(), data_r[:, slots], rtol=1e-5, atol=1e-5)
+    for s, poss in zip(slots, table["possible"]):
+        assert {int(k) for k in np.unique(kind_r[:, s]) if k} <= poss

@@ -19,7 +19,8 @@ than they have path slots, to show that their pixel counters serve every
 lane exactly once, and B3's instrumented instantiation is held to the
 kernel bit for bit. B4 runs under every sampler of its class, the
 extended instantiations (filters, attribute rows, constant sky) on
-sky_meshes.
+sky_meshes. B3's textured instantiation (the Kd atlas) runs on
+textured_gallery, B4's checkerboard Kd on material_room(checker=True).
 """
 import numpy as np
 import pytest
@@ -128,8 +129,9 @@ def _brute_against_plain(cuda_device, consts, lanes, spp, seed):
         counters.zero_()
     before = megakernel.megakernel_cuda.launches
     blob = megakernel.pack_consts(consts).to(cuda_device)
+    atlas, tex = (None if x is None else x.to(cuda_device) for x in megakernel.pack_textures(consts))
     L, w, nv = (x.cpu() for x in megakernel.megakernel_cuda(
-        blob, megakernel.kernel_mode(consts), *(x.to(cuda_device) for x in lanes), 0, spp, seed))
+        blob, megakernel.kernel_mode(consts), *(x.to(cuda_device) for x in lanes), 0, spp, seed, atlas, tex))
     torch.cuda.synchronize()
     assert megakernel.megakernel_cuda.launches == before + 1
     assert megakernel.megakernel_cuda.counters[cuda_device].tolist() == [0]
@@ -152,6 +154,56 @@ def test_megakernel_matches_plain(cuda_device, ikind, sampler):
     consts = _gallery_consts(W, H, sampler, ikind, spp)
     idx = torch.arange(W * H)
     _brute_against_plain(cuda_device, consts, (idx % W, idx // W, idx), spp, 7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampler", ["zerotwosequence", "random"])
+def test_textured_megakernel_matches_plain(cuda_device, sampler):
+    """B3's textured instantiation (the mip atlas in device memory, the ray
+    cone's distance per slot) on textured_gallery at 64x32, 2 spp, against
+    its twin."""
+    from pbrt_tpu_torch.scenes import textured_gallery
+
+    W, H, spp = 64, 32, 2
+    desc = textured_gallery()
+    desc.film.x_resolution, desc.film.y_resolution = W, H
+    desc.sampler.kind = sampler
+    cs = compile_scene(desc, "cpu")
+    icfg = {"kind": "path", "max_depth": 5, "rr_threshold": 1.0, "strategy": "one", "light_strategy": "power"}
+    consts = megakernel.extract_consts(cs, make_camera(desc.camera, desc.film, "cpu"), icfg,
+                                       {"kind": sampler, "spp": spp},
+                                       {"filter": "box", "filter_params": {}, "max_sample_luminance": float("inf")})
+    assert consts is not None and megakernel.kernel_mode(consts) >= megakernel.N_PLAIN_MODES
+    idx = torch.arange(W * H)
+    _brute_against_plain(cuda_device, consts, (idx % W, idx // W, idx), spp, 7)
+
+
+@pytest.mark.gpu
+def test_wide_megakernel_checker_matches_plain(cuda_device):
+    """B4's extended instantiation with the checkerboard Kd:
+    material_room(8, checker=True) at 64x32, 2 spp, against its twin at
+    chip_smoke phase 11's tolerance."""
+    W, H, spp = 64, 32, 2
+    desc = material_room(8, checker=True)
+    cs = compile_scene(desc, "cpu")
+    consts = megakernel_wide.extract_wide_consts(
+        cs, make_camera(desc.camera, desc.film, "cpu"),
+        {"kind": "path", "max_depth": 5, "rr_threshold": 1.0, "light_strategy": "power"},
+        {"kind": "zerotwosequence", "spp": spp},
+        {"filter": "box", "filter_params": {}, "max_sample_luminance": float("inf")}, megakernel_wide.DEFAULT_MAX_TRIS)
+    assert consts is not None and any(e.get("kd_tex") for e in consts["mats"].values())
+    idx = torch.arange(W * H)
+    lanes = (idx % W, idx // W, idx)
+    blob = megakernel_wide.pack_wide_consts(consts).to(cuda_device)
+    L, w, nv = (x.cpu() for x in megakernel_wide.wide_megakernel_cuda(
+        blob, megakernel_wide.kernel_mode(consts), cs.arrays.to(cuda_device), *(x.to(cuda_device) for x in lanes),
+        0, spp, 3))
+    L_p, w_p, nv_p = megakernel_wide.wide_megakernel_plain(consts, cs.arrays, *lanes, 0, spp, 3)
+    assert torch.equal(w, w_p) and L_p.mean().item() > 0
+    assert abs(float(nv.double().sum()) - float(nv_p.double().sum())) <= 6
+    diff = (L - L_p).abs()
+    assert (diff / (L_p.abs() + 1e-2)).max().item() < 2e-2
+    assert diff.mean().item() < 1e-4
 
 
 @pytest.mark.gpu

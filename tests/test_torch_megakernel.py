@@ -35,7 +35,7 @@ from pbrt_tpu_torch import render
 from pbrt_tpu_torch.core.transform import Transform
 from pbrt_tpu_torch.device import megakernel as mk
 from pbrt_tpu_torch.device.camera import make_camera
-from pbrt_tpu_torch.device.materials import bake_lobes
+from pbrt_tpu_torch.device.materials import bake_lobes, lobes_at_origin
 from pbrt_tpu_torch.scene.arrays import HOPPER_TABLES, SceneTensors
 from pbrt_tpu_torch.scene.builder import CompiledScene, compile_scene
 from pbrt_tpu_torch.scene.host import (
@@ -68,9 +68,24 @@ def _to_ref(x, memo=None):
     return out
 
 
+def _atlas_texture(res=16, colored=False, seed=4):
+    """A res x res imagemap texture, grayscale unless colored, uv-mapped
+    with 4 x 4 repeats: the brute megakernel's atlas class at res <= 128."""
+    from pbrt_tpu_torch.scenes import _texture
+
+    img = np.random.RandomState(seed).uniform(0.2, 0.9, (res, res, 3 if colored else 1)).astype(np.float32)
+    return _texture("imagemap", image=np.broadcast_to(img, (res, res, 3)).copy(), uscale=4.0, vscale=4.0)
+
+
 def _mini_spheres(sampler="zerotwosequence", light="distant", micro=False):
-    """tests/test_megakernel.py's _mini_spheres on the port's host types."""
+    """tests/test_megakernel.py's _mini_spheres on the port's host types;
+    micro "atlas": the matte ground's Kd a grayscale imagemap of the
+    megakernel's atlas class."""
+    atlas = micro == "atlas"
+    micro = micro is True
     gkind, gparams = "matte", {"Kd": ("const", np.array([0.6, 0.5, 0.4]))}
+    if atlas:
+        gparams = {"Kd": ("texture", _atlas_texture())}
     if micro:
         gkind = "plastic"
         gparams = {"Kd": ("const", np.array([0.6, 0.5, 0.4])), "Ks": ("const", np.array([0.4, 0.4, 0.4])),
@@ -118,10 +133,20 @@ def _small_gallery(w=W, h=H, spp=SPP):
     return desc
 
 
+def _small_textured_gallery():
+    from pbrt_tpu_torch.scenes import textured_gallery
+
+    desc = textured_gallery(16)
+    desc.film.x_resolution, desc.film.y_resolution = W, H
+    desc.sampler.pixel_samples = SPP
+    return desc
+
+
 SCENES = {
     "mini": lambda: _mini_spheres(),
     "mini-micro": lambda: _mini_spheres(light="point", micro=True),
     "gallery": _small_gallery,
+    "textured-gallery": _small_textured_gallery,
 }
 
 
@@ -157,6 +182,11 @@ def test_brute_tables_bit_identical(compiled, scene):
             # the wide tables are absent, and the env map's where the reference's are
             assert f.name.startswith("w") or theirs is None, f.name
             continue
+        if isinstance(mine, dict):  # the MIP levels
+            assert mine.keys() == theirs.keys(), f.name
+            for k in mine:
+                np.testing.assert_array_equal(mine[k].numpy(), np.asarray(theirs[k]), err_msg=k)
+            continue
         a, b = mine.numpy(), np.asarray(theirs)
         assert a.shape == b.shape and a.dtype.kind == b.dtype.kind, f.name
         np.testing.assert_array_equal(a, b, err_msg=f.name)
@@ -180,7 +210,12 @@ def test_bake_lobes_matches_make_bsdf(compiled, scene):
     cs, ref = compiled[scene]
     n = int(ref.arrays.mat_kind.shape[0])
     lob = ref_make_bsdf(ref.arrays, ref.static, jnp.arange(n, dtype=jnp.int32), jnp.zeros((n, 2)), jnp.zeros((n, 3)))
-    kind, data = bake_lobes(cs.arrays, cs.static)
+    # what the extractor bakes: the rows' lobes with their textures at the
+    # origin (bake_lobes for a scene without textured parameters)
+    kind, data = lobes_at_origin(cs.arrays, cs.static)
+    if not cs.static.tex_programs:
+        k2, d2 = bake_lobes(cs.arrays, cs.static)
+        assert torch.equal(kind, k2) and torch.equal(data, d2)
     np.testing.assert_array_equal(kind.numpy(), np.asarray(lob["kind"]))
     np.testing.assert_array_equal(data.numpy(), np.asarray(lob["data"]))
 
@@ -207,7 +242,22 @@ def test_extract_consts_matches_reference(compiled, scene):
                 np.testing.assert_array_equal(np.asarray(p[key]), np.asarray(q[key]), err_msg=key)
     assert mine["mats"].keys() == theirs["mats"].keys()
     for m, e in theirs["mats"].items():
-        assert mine["mats"][m] == {k: v for k, v in e.items() if k != "kd_tex"}, m
+        assert {k: v for k, v in mine["mats"][m].items() if k != "kd_tex"} == {
+            k: v for k, v in e.items() if k != "kd_tex"}, m
+        # an atlas texture: the port names its row of kd_textures
+        if e.get("kd_tex") is None:
+            assert mine["mats"][m].get("kd_tex") is None
+            continue
+        t = mine["kd_textures"][mine["mats"][m]["kd_tex"]]
+        for key in ("offs", "uscale", "vscale", "udelta", "vdelta", "scale", "base"):
+            assert t[key] == e["kd_tex"][key], key
+        np.testing.assert_array_equal(t["atlas"], e["kd_tex"]["atlas"])
+    assert (mine["kd_atlas"] is None) == (theirs["kd_atlas"] is None)
+    if theirs["kd_atlas"] is not None:
+        np.testing.assert_array_equal(mine["kd_atlas"], theirs["kd_atlas"])
+        assert mine["pixel_angle"] == theirs["pixel_angle"]
+        for p, q in zip(mine["prims"], theirs["prims"]):
+            assert p.get("uvd_c") == q.get("uvd_c")
     assert [lt["kind"] for lt in mine["lights"]] == [lt["kind"] for lt in theirs["lights"]]
     for a, b in zip(mine["lights"], theirs["lights"]):
         np.testing.assert_array_equal(a["par"], b["par"])
@@ -252,13 +302,30 @@ def _three_lights(desc):
     return desc
 
 
-GATES = ["halton", "area-light", "many-prims", "partial-sphere", "spatial", "directlighting-all"]
+def _textured_gate(gate):
+    """The atlas gates: a colored map, a map over 128 x 128, a textured
+    sphere (both packages refuse each)."""
+    desc = _mini_spheres(micro="atlas")
+    if gate == "colored-imagemap":
+        desc.primitives[0].material.params["Kd"] = ("texture", _atlas_texture(colored=True))
+    elif gate == "imagemap-over-128":
+        desc.primitives[0].material.params["Kd"] = ("texture", _atlas_texture(res=130))
+    else:
+        desc.primitives[1].material = HostMaterial(kind="matte", params={"Kd": ("texture", _atlas_texture())})
+    return _compile_both(desc)
+
+
+GATES = ["halton", "area-light", "many-prims", "partial-sphere", "spatial", "directlighting-all", "colored-imagemap",
+         "imagemap-over-128", "textured-sphere"]
+GATE_WORDS = {"colored-imagemap": "colored", "imagemap-over-128": "larger than 128", "textured-sphere": "spheres"}
 
 
 @pytest.mark.parametrize("gate", GATES)
 def test_eligibility_gates(gate):
     if gate == "area-light":
         cs, ref = _area_lit_scene()
+    elif gate in GATE_WORDS:
+        cs, ref = _textured_gate(gate)
     else:
         desc = {"many-prims": _many_tris_scene, "partial-sphere": _partial_sphere_scene}.get(gate, _mini_spheres)()
         if gate in ("spatial", "directlighting-all"):
@@ -276,10 +343,31 @@ def test_eligibility_gates(gate):
     cam = make_camera(cs.description.camera, cs.description.film, "cpu")
     assert not mk.megakernel_eligible(cs, cam, icfg, scfg, fcfg)
     assert mk.explain_ineligible(cs, cam, icfg, scfg, fcfg)
-    if gate in ("many-prims", "partial-sphere", "area-light"):
+    assert GATE_WORDS.get(gate, "") in mk.explain_ineligible(cs, cam, icfg, scfg, fcfg)
+    if gate in ("many-prims", "partial-sphere", "area-light") or gate in GATE_WORDS:
         # outside the megakernel's class, the brute wavefront takes the scene
         render.make_persistent_fn(cs)
         assert render.LAST_PERSISTENT_TIER == "torch-wavefront/plain-brute"
+
+
+def test_bump_maps_go_to_the_wavefront():
+    """A bump-mapped scene of the class: the reference's megakernel takes it
+    and renders it without bumps (ROADMAP C); the port's refuses it, naming
+    "bump maps", and the brute wavefront renders it with them."""
+    from pbrt_tpu_torch.scenes import _texture
+
+    desc = _mini_spheres()
+    height = _atlas_texture()
+    height.is_float = True  # a grayscale height map of the atlas class, which the reference's kernel takes
+    desc.primitives[0].material.bump_map = ("texture", height)
+    cs, ref = _compile_both(desc)
+    assert cs.static.has_bump and ref.static.has_bump
+    mine, theirs = _both_consts(desc, cs, ref)
+    assert theirs is not None and mine is None
+    icfg, scfg, fcfg = _cfgs(desc)
+    assert mk.explain_ineligible(cs, make_camera(desc.camera, desc.film, "cpu"), icfg, scfg, fcfg) == "bump maps"
+    render.make_persistent_fn(cs)
+    assert render.LAST_PERSISTENT_TIER == "torch-wavefront/plain-brute"
 
 
 def test_wavefront_still_refuses_glass_meshes(monkeypatch):
@@ -335,9 +423,12 @@ def test_blob_test_and_split_layouts_match_the_kernel():
                  "H_SAMPLER", "H_STRAT_XS", "H_STRAT_YS", "H_WR2", "H_FXW", "H_FYW", "H_MAX_LUM", "H_G7", "H_G53",
                  "H_R2C", "H_C2W", "H_CDF", "H_PMF", "HEADER", "MAX_LIGHTS", "MAX_PRIMS", "MAX_MATS",
                  "LIGHT_STRIDE", "PRIM_STRIDE", "MAT_STRIDE", "P_KIND", "P_MAT", "P_FLAGS", "P_V", "P_NG", "P_NS",
-                 "P_SS", "P_TS", "P_W2O", "P_O2W", "P_R", "P_R2", "P_PHIMAX", "P_ERRC"):
+                 "P_SS", "P_TS", "P_W2O", "P_O2W", "P_R", "P_R2", "P_PHIMAX", "P_ERRC", "H_CONE_PA", "P_UV", "P_UVD",
+                 "M_TEX", "TX_NLEV", "TX_BASE", "TX_US", "TX_VS", "TX_UD", "TX_VD", "TX_SCALE", "TX_SMAX", "TX_LMAX",
+                 "TX_LEVELS", "TEX_STRIDE", "ATLAS_W"):
         assert d[name] == getattr(mk, name), name
-    assert d["P_FIELDS"] == mk.P_ERRC + 3 and d["M_FIELDS"] == mk.M_ON_B + 1
+    assert d["P_FIELDS"] == mk.P_ERRC + 3 and d["M_FIELDS"] == mk.M_ON_B + 1 == mk.M_TEX
+    assert mk.P_UVD < d["P_FIELDS"]  # the triangle's uv fields ride the shared copy
     got = {k[len("SPLIT_"):].lower(): v for k, v in d.items() if k.startswith("SPLIT_")}
     assert d["N_SPLIT"] == len(mk.SPLIT_FIELDS) == len(got)
     names = {"shade": "shade_nee", "flush": "flush_regen", "idle": "idle_tail", "iters": "iterations"}
@@ -374,14 +465,17 @@ def test_cuda_entries_refuse_cpu_lanes(entry):
 CASES = [("zerotwosequence", "distant", False, "path"), ("random", "point", False, "path"),
          ("stratified", "distant", False, "path"), ("zerotwosequence", "spot", False, "path"),
          ("zerotwosequence", "point", True, "path"), ("random", "point", True, "path"),
-         ("zerotwosequence", "distant", False, "directlighting")]
+         ("zerotwosequence", "distant", False, "directlighting"), ("zerotwosequence", "distant", "atlas", "path")]
 
 
 @pytest.mark.parametrize("seed", [0, 3])
 @pytest.mark.parametrize("sampler,light,micro,ikind", CASES)
 def test_plain_matches_reference_kernel(sampler, light, micro, ikind, seed):
     """The stratified case holds the reference's own strata on both sides:
-    floor(sqrt(spp)) x spp // that, always jittered (ROADMAP C)."""
+    floor(sqrt(spp)) x spp // that, always jittered (ROADMAP C). The atlas
+    case's ground Kd is a grayscale imagemap: the ray-cone trilinear
+    lookup in the mip atlas (the sums of its taps may differ from the
+    reference's row-by-row order in the last ulp)."""
     desc = _mini_spheres(sampler, light, micro)
     desc.integrator.kind = ikind
     cs, ref = _compile_both(desc)

@@ -256,6 +256,9 @@ def test_wide_tables_bit_identical(scene):
         assert (a is None) == (b is None), f.name
         if a is None:
             continue
+        if isinstance(a, dict):  # the MIP levels: none in these scenes
+            assert a.keys() == b.keys() == set(), f.name
+            continue
         a, b = a.numpy(), np.asarray(b)
         assert a.shape == b.shape and a.dtype.kind == b.dtype.kind, f.name
         np.testing.assert_array_equal(a, b, err_msg=f.name)
@@ -314,7 +317,12 @@ def _gate_scene(gate):
         checker = ref_host.HostTexture(kind="checkerboard", is_float=False, tex1=("const", np.array([0.7, 0.7, 0.6])),
                                        tex2=("const", np.array([0.1, 0.1, 0.3])), uscale=6.0, vscale=6.0)
         rdesc.primitives[0].material = ref_host.HostMaterial(kind="matte", params={"Kd": ("texture", checker)})
-        return *_crossed(rdesc), icfg, scfg, fcfg, False, "checkerboard"
+        return *_crossed(rdesc), icfg, scfg, fcfg, False, None
+    if gate == "bump":
+        bump = ref_host.HostTexture(kind="wrinkled", is_float=True, octaves=2)
+        rdesc.primitives[0].material = ref_host.HostMaterial(
+            kind="matte", params={"Kd": ("const", np.array([0.5, 0.5, 0.5]))}, bump_map=("texture", bump))
+        return *_crossed(rdesc), icfg, scfg, fcfg, False, "bump maps"
     if gate == "sphere":
         rdesc.primitives.append(ref_host.HostPrimitive(
             shape=ref_host.ShapeRecord(sphere=ref_host.Sphere(
@@ -345,17 +353,20 @@ def _gate_scene(gate):
     return cs, ref, icfg, scfg, fcfg, True, "triangles"
 
 
-GATES = ["normals", "checker", "sphere", "infinite", "two-skies", "mix", "halton", "gaussian", "mitchell", "over-cap"]
+GATES = ["normals", "checker", "sphere", "infinite", "two-skies", "mix", "halton", "gaussian", "mitchell", "over-cap",
+         "bump"]
 
 
 @pytest.mark.parametrize("gate", GATES)
 def test_eligibility_gates(gate, monkeypatch):
-    """The port refuses checker Kd, spheres, two infinite lights, mix,
-    mitchell, the triangle cap and halton without its film tables, naming
-    each (the reference takes the first three: its kernel lights escaped
-    rays with the first sky, its wavefront with the last); since this slice
-    it takes per-vertex normals, a constant infinite light and the gaussian
-    filter, as the reference does."""
+    """The port refuses spheres, two infinite lights, mix, mitchell, the
+    triangle cap, halton without its film tables and bump maps, naming each
+    (the reference takes spheres and two skies: its kernel lights escaped
+    rays with the first sky, its wavefront with the last; it takes bump
+    maps and renders them without bumps, ROADMAP C, which the port fixes
+    by sending them to the wavefront); it takes per-vertex normals, a
+    constant infinite light, the gaussian filter and the checkerboard Kd,
+    as the reference does."""
     cs, ref, icfg, scfg, fcfg, ref_refuses, word = _gate_scene(gate)
     max_tris = 100 if gate == "over-cap" else mw.DEFAULT_MAX_TRIS  # the room has 170 triangles
     monkeypatch.setenv("PBRT_TPU_WIDEMEGA_MAX_TRIS", str(max_tris))  # the reference reads its cap here
@@ -473,7 +484,7 @@ def test_blob_and_split_layouts_match_the_kernel():
                  "H_STRAT_YS", "H_WR2", "H_FXW", "H_FYW", "H_MAX_LUM", "H_G7", "H_LENS_R", "H_FOCAL", "H_R2C",
                  "H_C2W", "H_CDF", "H_PMF", "HEADER", "MAX_LIGHTS", "LIGHT_STRIDE", "MAX_MATS", "MAT_STRIDE",
                  "L_AREA", "L_TWO_SIDED", "L_V", "L_NG", "M_ROW", "H_FILTER", "H_SAMP", "H_GK", "L_ENV_P",
-                 "SOBOL_DIMS", "N_SAMPLER_IDS"):
+                 "SOBOL_DIMS", "N_SAMPLER_IDS", "M_CHK", "M_CHK_UV"):
         assert int(d[name]) == getattr(mw, name), name
     for name, kind in (("S_HALTON", "halton"), ("S_SOBOL", "sobol"), ("S_MAXMIN", "maxmindist")):
         assert int(d[name]) == mw.SAMPLERS[kind], name
@@ -519,6 +530,28 @@ def material_room_32x16():
     cs, ref, _cam, ref_cam = _both(desc)
     icfg = {"kind": "path", "max_depth": 5, "rr_threshold": 1.0, "light_strategy": "power"}
     return cs, _reference_image(ref, ref_cam, icfg, {"kind": "zerotwosequence", "spp": SPP}, FCFG, 32, 16)
+
+
+def test_checker_room_route_matches_reference(monkeypatch):
+    """material_room(8, checker=True) at 24x12: the floor's matte Kd a uv
+    checkerboard of two constant cells, selected per hit in the kernel's
+    extended instantiation (reference megakernel_wide :1273-1287); the port's
+    route (the twin) against the reference kernel in interpret mode, at the
+    tolerance of test_material_room_route_matches_reference."""
+    desc = _small(material_room(8, checker=True), 24, 12)
+    cs, ref, cam, ref_cam = _both(desc)
+    icfg = {"kind": "path", "max_depth": 5, "rr_threshold": 1.0, "light_strategy": "power"}
+    scfg = {"kind": "zerotwosequence", "spp": SPP}
+    mine = mw.extract_wide_consts(cs, cam, icfg, scfg, FCFG, mw.DEFAULT_MAX_TRIS)
+    theirs = ref_mw.extract_wide_consts(ref, ref_cam, icfg, scfg, FCFG)
+    assert mine["mats"] == {m: {k: v for k, v in e.items() if v is not None} for m, e in theirs["mats"].items()}
+    assert sum(bool(e.get("kd_tex")) for e in mine["mats"].values()) == 1
+    assert mw.kernel_mode(mine) >= 2 * mw.N_SAMPLER_IDS  # the extended instantiation
+    ref_out = _reference_image(ref, ref_cam, icfg, scfg, FCFG, 24, 12)
+    monkeypatch.setenv("PBRT_TPU_WIDEMEGA", "1")
+    L, w, nv = _route_image(cs)
+    assert render.LAST_PERSISTENT_TIER == "torch-megakernel/plain-wide"
+    _assert_wide_tolerance(L, w, nv, *ref_out)
 
 
 def test_material_room_route_matches_reference(material_room_32x16, monkeypatch):

@@ -147,6 +147,23 @@ def _stratified_box():
     return desc
 
 
+def _textured(_tmp_path):
+    """textured_room cut to 8 x 8 floor cells and small images, depth 3: the
+    floor's EWA and the back wall's trilinear imagemap under ray
+    differentials, the checkerboard, a mix and a scale, the left wall's
+    bump map. Its noise textures (fbm, marble) are replaced by a constant
+    mix amount and a uv texture: the reference's XLA compile of them costs
+    about a minute on a CPU; tests/test_torch_texture.py holds them."""
+    from pbrt_tpu_torch.scenes import _const, _texture, textured_room
+
+    desc = textured_room(8, 48, 24, 32)
+    desc.integrator.max_depth = 3
+    left, right = desc.primitives[3], desc.primitives[4]
+    left.material.params["Kd"][1].amount = ("const", 0.3)
+    right.material.params["Kd"][1].tex1 = ("texture", _texture("uv", uscale=3.0, vscale=2.0))
+    return desc
+
+
 def _sky(tmp_path, image=False):
     """sky_meshes cut to 600 triangles (halton, the gaussian filter, smooth
     UV-mapped spheres, a constant infinite light and a distant sun); with
@@ -175,6 +192,7 @@ SLICE = {
     "area_box-stratified-2x2-no-jitter": (lambda _t: _stratified_box(), None, "brute", False),
     "sky_meshes": (_sky, None, "wide", False),
     "sky_meshes-image-map": (lambda t: _sky(t, image=True), None, "wide", False),
+    "textured_room": (_textured, None, "wide", False),
 }
 
 

@@ -263,7 +263,8 @@ def test_make_regen_matches(lens_radius, case):
     o_r, d_r, w_r, _dx, _dy = (np.asarray(x) for x in ref_regen(jnp.asarray(s_idx.astype(np.uint32))))
     regen = render.make_regen(make_camera(desc.camera, desc.film, "cpu"), port_scfg, fcfg,
                               _t(px), _t(py), _t(pids), SEED)
-    o, d, w = (x.numpy() for x in regen(_t(s_idx)))
+    o, d, w, dx, dy = (x.numpy() for x in regen(_t(s_idx)))
+    assert not dx.any() and not dy.any()  # no imagemap in the scene: no differentials, as the reference's zeros
     np.testing.assert_allclose(o, o_r, atol=1e-6, rtol=0)
     np.testing.assert_allclose(d, d_r, atol=5e-6 if filt == "gaussian" else 1e-6, rtol=0)
     np.testing.assert_allclose(w, w_r, atol=1e-6, rtol=1e-6 if filt in ("mitchell", "sinc") else 0)

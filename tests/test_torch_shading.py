@@ -118,3 +118,72 @@ def test_lights(setup):
                                       jnp.asarray(si["ng"].numpy()), jnp.asarray(light.numpy()),
                                       jnp.asarray(area.numpy())))
     _close(lights.compute_power(sa, st), ref_lights.compute_power(ref.arrays, ref.static))
+
+
+@pytest.fixture(scope="module")
+def textured():
+    """A small textured_room (imagemaps with MIP pyramids, a bump map) in
+    both packages, and the camera rays of 512 seeded pixels with their
+    +1-pixel differentials, traced to their first hits."""
+    from pbrt_tpu_torch.device.camera import generate_rays, make_camera, ray_differential_dirs
+    from pbrt_tpu_torch.scene.builder import compile_scene
+    from pbrt_tpu_torch.scenes import textured_room
+    from test_torch_megakernel import _to_ref
+
+    desc = textured_room(4, 48, 24, 32)
+    cs, ref = compile_scene(desc, "cpu"), ref_compile_scene(_to_ref(desc))
+    cam = make_camera(desc.camera, desc.film, "cpu")
+    rs = np.random.RandomState(5)
+    px = torch.as_tensor(rs.uniform(0, 1000, R).astype(np.float32))
+    py = torch.as_tensor(rs.uniform(0, 500, R).astype(np.float32))
+    zeros = torch.zeros(R)
+    o, d = generate_rays(cam, px, py, zeros, zeros)
+    ddx, ddy = ray_differential_dirs(cam, px, py)
+    hit = intersect(cs.arrays, cs.static, o, d, torch.full((R,), np.inf))
+    si = surface_interaction(cs.arrays, hit, o, d)
+    si_r = ref_surface_interaction(ref.arrays, _ref_hit(hit), jnp.asarray(o.numpy()), jnp.asarray(d.numpy()))
+    return cs, ref, o, d, ddx, ddy, si, si_r
+
+
+def test_ray_differentials_and_duv(textured):
+    """The camera's offset-ray directions and the uv footprint each hit
+    derives from them (integrator._compute_duv) agree with the reference's."""
+    from pbrt_tpu.device.camera import make_camera as ref_make_camera, ray_differential_dirs as ref_dirs
+    from pbrt_tpu.device.integrator import _compute_duv as ref_compute_duv
+    from pbrt_tpu_torch.device.integrator import _compute_duv
+
+    cs, ref, o, d, ddx, ddy, si, si_r = textured
+    desc = ref.description
+    # the same film points as the fixture's draw
+    rs = np.random.RandomState(5)
+    px, py = rs.uniform(0, 1000, R).astype(np.float32), rs.uniform(0, 500, R).astype(np.float32)
+    ref_dx, ref_dy = ref_dirs(ref_make_camera(desc.camera, desc.film), jnp.asarray(px), jnp.asarray(py))
+    _close(ddx, ref_dx)
+    _close(ddy, ref_dy)
+    for dd in (ddx, ddy):
+        got = _compute_duv(si, o, d, dd)
+        want = ref_compute_duv(si_r, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()), jnp.asarray(dd.numpy()))
+        # the solve divides by small determinants: rtol 1e-4 (ulps of the hit amplified)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-7)
+        assert float(got.abs().max()) > 0
+    zero = _compute_duv(si, o, d, torch.zeros_like(d))  # bounced rays carry no differentials
+    assert not bool(zero.any())
+
+
+def test_apply_bump(textured):
+    """The bump-mapped shading frame (the left wall's brick height map):
+    ns, ss and ts agree with the reference's; lanes without a bump map keep
+    their frame. The port evaluates the bump textures only."""
+    from pbrt_tpu.device.shading import apply_bump as ref_apply_bump
+    from pbrt_tpu_torch.device.shading import apply_bump
+
+    cs, ref, _o, _d, _ddx, _ddy, si, si_r = textured
+    got = apply_bump(cs.arrays, cs.static, si)
+    want = ref_apply_bump(ref.arrays, ref.static, si_r)
+    bumped = cs.arrays.mat_bump[si["mat"]] >= 0
+    assert 0 < int(bumped.sum()) < R
+    for k in ("ns", "ss", "ts"):
+        # finite differences over du = 0.0005 amplify ulps of the height lookups
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-4, atol=2e-5, err_msg=k)
+        assert torch.equal(got[k][~bumped], si[k][~bumped]), k
+    assert float((got["ns"][bumped] - si["ns"][bumped]).abs().max()) > 1e-3

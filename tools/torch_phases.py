@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in pbrt_tpu_torch's main path, on one CUDA GPU.
 
-    python3 tools/torch_phases.py [--scene mesh|gallery|material_room|mesh_b4|material_room_wave|area_box]
+    python3 tools/torch_phases.py [--scene mesh|gallery|material_room|mesh_b4|material_room_wave|area_box|
+                                           textured_room|textured_gallery|checker_room]
                                   [--reps 5] [--out FILE.json]
 
 Renders at 1000x500, 16 spp, depth 5 one of: the 123,650-triangle mesh room
@@ -9,9 +10,12 @@ on the wavefront (--scene mesh, the default), the spheres gallery (--scene
 gallery; the brute megakernel), material_room (--scene material_room; the
 wide megakernel, PBRT_TPU_WIDEMEGA=1), the mesh room through the wide
 megakernel (--scene mesh_b4; also PBRT_TPU_WIDEMEGA_MAX_TRIS=200000),
-material_room on the wavefront (--scene material_room_wave) or area_box
-on the brute wavefront (--scene area_box), and reports, with the card's
-name and power limit:
+material_room on the wavefront (--scene material_room_wave), area_box
+on the brute wavefront (--scene area_box), textured_room on the wavefront
+(--scene textured_room), textured_gallery through the brute megakernel's
+textured instantiation (--scene textured_gallery) or material_room with
+the checkerboard floor through the wide megakernel (--scene checker_room),
+and reports, with the card's name and power limit:
  1. end to end: render wall time and path_vertex_samples_per_sec over
     --reps untraced renders after a warm-up (median, min, max);
  2. the traversal kernel against its plain PyTorch twin on the main path's
@@ -80,7 +84,8 @@ def _spanned(fn, name, spans):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scene", default="mesh",
-                    choices=("mesh", "gallery", "material_room", "mesh_b4", "material_room_wave", "area_box"))
+                    choices=("mesh", "gallery", "material_room", "mesh_b4", "material_room_wave", "area_box",
+                             "textured_room", "textured_gallery", "checker_room"))
     ap.add_argument("--all-matte", action="store_true", help="every material matte (Kd 0.6), the panel's kept")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
@@ -98,14 +103,16 @@ def main() -> int:
     from pbrt_tpu_torch import render as R_
     from pbrt_tpu_torch.scene.builder import compile_scene
     from pbrt_tpu_torch.scene.host import HostMaterial
-    from pbrt_tpu_torch.scenes import area_box, material_room, mesh_room, spheres_gallery
+    from pbrt_tpu_torch.scenes import area_box, material_room, mesh_room, spheres_gallery, textured_gallery, \
+        textured_room
 
-    if args.scene in ("material_room", "mesh_b4"):
+    if args.scene in ("material_room", "mesh_b4", "checker_room"):
         os.environ["PBRT_TPU_WIDEMEGA"] = "1"
     if args.scene == "mesh_b4":
         os.environ["PBRT_TPU_WIDEMEGA_MAX_TRIS"] = "200000"
     make = {"mesh": mesh_room, "mesh_b4": mesh_room, "gallery": spheres_gallery, "material_room": material_room,
-            "material_room_wave": material_room, "area_box": area_box}
+            "material_room_wave": material_room, "area_box": area_box, "textured_room": textured_room,
+            "textured_gallery": textured_gallery, "checker_room": lambda: material_room(checker=True)}
     rec = {"device": torch.cuda.get_device_name(0), "nvidia_smi": chip_smoke._smi(),
            "torch": torch.__version__, "cuda": torch.version.cuda, "scene": args.scene,
            "all_matte": args.all_matte}
@@ -247,9 +254,10 @@ def _launch_path(args, cs, rec):
         print(f"wide megakernel: {n_v:.0f} path vertices ({n_v / (W * H * spp):.3f} per sample); pops per vertex "
               f"closest {pc / n_v:.2f}, shadow {ps / n_v:.2f}; {rec['wide_megakernel']['ns_per_pop']:.4f} ns of "
               f"device time per pop", flush=True)
-        _wide_split(args, cs, rec, wave, lanes, med["device_ms"])
-    if R_.LAST_PERSISTENT_TIER == "torch-megakernel/cuda-brute":
-        _brute_split(args, cs, rec, wave, lanes, med["device_ms"])
+        if wave.mode == 1:  # the instrumented instantiation's: (0,2), area lights, EXT = 0
+            _wide_split(args, cs, rec, wave, lanes, med["device_ms"])
+    if R_.LAST_PERSISTENT_TIER == "torch-megakernel/cuda-brute" and wave.mode == 0:
+        _brute_split(args, cs, rec, wave, lanes, med["device_ms"])  # (0,2), path, untextured only
 
     # device busy share of one call under the profiler: every device event
     # recorded lies inside the call, which is the render's timed window
