@@ -177,12 +177,39 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     2 spp under phase 11's tolerance; the 16 spp launch timed beside phase
     11's, with its bound, counters at 0, ptxas report; the render through
     B4 (one launch) and through the wavefront at 16 spp: totals within
-    0.01%, the crop through both under phase 11's tolerance.
-Phases 15-21, 24's image-mapped sky and 25 are the wavefront's array code
-around B1 (the brute wavefront launches no kernel of the port): they add no
-row to the kernel report. Each main path runs with every launch count set to 0 just before it and
-read just after; every switch a phase sets is restored after it. The second-to-last lines are the kernel report as JSON
-and the card's nvidia-smi name and power limit; the last line is
+    0.01%, the crop through both under phase 11's tolerance;
+28. spheres in wide scenes through the wavefront: sphere_room (material_room's
+    3,854 triangles beside seven full spheres, a sphere lamp among them, and
+    a glossy uber wall) at 1000x500, 16 spp, depth 5: route
+    torch-wavefront/cuda-wide-mixed, B1 launches > 0; prints the wall,
+    path_vertex_samples_per_sec, path vertices and the device kernels per
+    wavefront iteration beside the mesh room's; the mixed query (B1 over
+    the triangle subset's tables, the spheres tested beside it) against its
+    twin (the plain walk, the same sphere merge) on the render's 500,000
+    camera, bounce and shadow rays, closest and any hit, bit for bit, with
+    the query's time; the crop on cuda and cpu, held as in phase 5. Then the
+    same at n_side 248: the spheres among 123,662 triangles, the full-size
+    main path;
+29. B4's sphere instantiation (ext 2) on sphere_room: against its twin at
+    2 spp under phase 11's tolerance; the 16 spp launch timed with CUDA
+    events beside phase 11's, the counters at 0, its bound (every closest
+    ray's sphere tests added to the operations), ptxas report and blocks per
+    SM; the render through B4 (one launch), its path-vertex total within
+    0.01% of phase 28's wavefront;
+30. the uber material: B3 on the gallery with its plastic sphere a glossy
+    uber one against its twin under phase 6's tolerance; the gallery with
+    a full uber sphere (Kr, Kt, opacity 0.7) refused by B3 by lobe set
+    (route torch-wavefront/cuda-brute); uber_room (sphere_room's uber rows
+    full) refused by B4 by lobe set under PBRT_TPU_WIDEMEGA=1, and its crop
+    through the wavefront on cuda and cpu; area_box with its copper sphere a
+    sphere lamp through the brute wavefront, its crop on cuda and cpu.
+Phases 15-21, 24's image-mapped sky, 25, 28 and 30 are the wavefront's
+array code around B1 (the brute wavefront launches no kernel of the port):
+they add no row to the kernel report; phase 29's sphere instantiation
+rides B4's row. Each main path runs with every launch count set to 0 just
+before it and read just after; every switch a phase sets is restored after
+it. The second-to-last lines are the kernel report as JSON and the card's
+nvidia-smi name and power limit; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -1138,6 +1165,201 @@ def _texture_phases(out, work, g, b3_ms, b3_bound_vertex, m, b4_ms):
     out["b4_instantiations"] = {"material_room checker Kd": b4_inst}
 
 
+def _query_against_twin(label, cs):
+    """Phase 28's mixed query: intersect and intersect_p through B1 over the
+    triangle subset's tables, the spheres tested beside it, against the
+    same query through the walk's plain twin, on the main path's camera,
+    bounce and shadow rays; every result equal bit for bit. Returns the
+    kernel's camera/closest milliseconds (CUDA events) and the rays."""
+    import torch
+
+    from pbrt_tpu_torch.device.intersect import intersect, intersect_p
+
+    sa, st = cs.arrays, cs.static
+    ms = None
+    for name, o, d, t_max in _rays(cs):
+        hk, hp = (intersect(sa, st, o, d, t_max, sort_rays=True, plain=plain) for plain in (False, True))
+        occ_k, occ_p = (intersect_p(sa, st, o, d, t_max, sort_rays=True, plain=plain) for plain in (False, True))
+        equal = all(torch.equal(hk[k], hp[k]) for k in ("t", "prim", "b1", "b2")) and torch.equal(occ_k, occ_p)
+        sph = (sa.prim_kind[hk["prim"].clamp(min=0)] == 1) & (hk["prim"] >= 0)
+        k_ms = _cuda_ms(lambda: intersect(sa, st, o, d, t_max, sort_rays=True), 5)
+        ms = ms if ms is not None else k_ms
+        print(f"  {label} {name}: {o.shape[0]} rays, hits {float((hk['prim'] >= 0).float().mean()):.4f} "
+              f"(spheres {float(sph.float().mean()):.4f}), occluded {float(occ_k.float().mean()):.4f}; closest and "
+              f"any hit equal to the twin bit for bit: {equal}; mixed closest query {k_ms:.4f} ms", flush=True)
+        if not equal:
+            raise AssertionError(f"the mixed query and its twin differ on {label} {name} rays")
+    return ms
+
+
+def _sphere_phases(out, cs, b4_ms, g):
+    """Phases 28-30: spheres and sphere lamps in wide scenes (the mixed
+    query through the wavefront, B4's sphere instantiations), the uber
+    material in both megakernels and the wavefront."""
+    import torch
+
+    from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.device import megakernel, megakernel_wide, wide_bvh
+    from pbrt_tpu_torch.device.camera import make_camera
+    from pbrt_tpu_torch.scene.builder import compile_scene
+    from pbrt_tpu_torch.scene.host import HostMaterial
+
+    dev = torch.device("cuda", 0)
+    fcfg = {"filter": "box", "filter_params": {}, "max_sample_luminance": float("inf")}
+    n_k_mesh, n_it_mesh = _kernels_per_iteration(cs)
+    print(f"[28 mesh room] crop under the profiler: {n_k_mesh} device kernels over {n_it_mesh} wavefront "
+          f"iterations ({n_k_mesh / max(n_it_mesh, 1):.1f} per iteration)", flush=True)
+
+    # --- 28. sphere_room through the wavefront, at n_side 40 and 248 ---
+    rooms = {}
+    for n_side in (40, 248):
+        label = f"28 sphere_room({n_side})"
+        t0 = time.perf_counter()
+        host = compile_scene(scenes.sphere_room(n_side), "cpu")
+        host_s = time.perf_counter() - t0
+        sr = host.to(dev)
+        timing, b1, _img = _main_path(f"{label} main path", sr, "torch-wavefront/cuda-wide-mixed",
+                                      wide_bvh.traverse_cuda)
+        n_k, n_it = _kernels_per_iteration(sr)
+        print(f"  {sr.static.n_tris} triangles beside {sr.static.n_spheres} spheres, {sr.static.n_lights} lights, "
+              f"host compile {host_s:.2f}s; crop under the profiler: {n_k} device kernels over {n_it} wavefront "
+              f"iterations ({n_k / max(n_it, 1):.1f} per iteration; the mesh room's "
+              f"{n_k_mesh / max(n_it_mesh, 1):.1f})", flush=True)
+        q_ms = _query_against_twin(label, sr)
+        _check_crop(f"{label} cuda-vs-cpu crop", sr, host, sr.description)
+        rooms[n_side] = sr
+        out[f"sphere_room_{n_side}"] = {
+            "wall_s": timing["wall_s"], "vps": timing["n_vertices"] / timing["wall_s"],
+            "n_vertices": timing["n_vertices"], "b1_launches": b1, "kernels_per_iteration": n_k / max(n_it, 1),
+            "mesh_room_kernels_per_iteration": n_k_mesh / max(n_it_mesh, 1), "mixed_camera_query_ms": q_ms}
+
+    # --- 29. sphere_room through B4 ---
+    sr = rooms[40]
+    d = sr.description
+    W, H, spp = d.film.x_resolution, d.film.y_resolution, d.sampler.pixel_samples
+    icfg = {"kind": "path", "max_depth": d.integrator.max_depth, "rr_threshold": d.integrator.rr_threshold,
+            "light_strategy": d.integrator.light_strategy}
+    consts = megakernel_wide.extract_wide_consts(sr, make_camera(d.camera, d.film, dev), icfg,
+                                                 {"kind": d.sampler.kind, "spp": spp}, fcfg,
+                                                 megakernel_wide.DEFAULT_MAX_TRIS)
+    if consts is None:
+        raise AssertionError("sphere_room is outside the wide megakernel's class")
+    blob = megakernel_wide.pack_wide_consts(consts).to(dev)
+    mode = megakernel_wide.kernel_mode(consts)
+    idx = torch.arange(W * H, device=dev)
+    lanes = (idx % W, idx // W, idx)
+
+    def launch(n):
+        return megakernel_wide.wide_megakernel_cuda(blob, mode, sr.arrays, *lanes, 0, n, SEED)
+
+    out_k = launch(COMPARE_SPP)
+    t0 = time.perf_counter()
+    out_p = megakernel_wide.wide_megakernel_plain(consts, sr.arrays, *lanes, 0, COMPARE_SPP, SEED)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    ok, desc_cmp = _wide_tolerance(*out_k, *out_p)
+    err = (out_k[0] - out_p[0]).abs().max().item()
+    n_sph = len(consts["spheres"])
+    print(f"[29 B4 sphere_room] {W}x{H} {COMPARE_SPP}spp, mode {mode}, {n_sph} spheres, lamps "
+          f"{sum(bool(lt.get('sphere')) for lt in consts['lights'])}: {desc_cmp}, image mean "
+          f"{out_p[0].mean().item():.5f}; plain twin {plain_ms:.1f} ms", flush=True)
+    if not ok:
+        raise AssertionError("the wide megakernel and its plain twin disagree on sphere_room")
+    ms = _cuda_ms(lambda: launch(spp), 3)
+    counters, pops = megakernel_wide.wide_megakernel_cuda.counters[dev], megakernel_wide.wide_megakernel_cuda.pops[dev]
+    counters.zero_()
+    pops.zero_()
+    nv16 = launch(spp)[2].double().sum().item()
+    pops_c, pops_s = pops.tolist()
+    if counters.tolist() != [0, 0]:
+        raise AssertionError(f"wide megakernel stack overflows / iteration-cap hits on sphere_room: "
+                             f"{counters.tolist()}")
+    nbytes = 3 * 4 * W * H + _nbytes(sr.arrays.wnode_rec, sr.arrays.wleaf_rec, blob) + 5 * 4 * W * H
+    # every closest ray (at least one per path vertex) tests every sphere
+    ops = (pops_c + pops_s) * B1_OPS_PER_POP + nv16 * (B3_OPS_SHADE + n_sph * B3_OPS_SPH)
+    bound = _bound(nbytes, ops)
+    n_s = megakernel_wide.N_SAMPLER_IDS
+    ptx = _ptxas_of(megakernel_wide.build_kernel()["log"],
+                    f"ILi{(mode // 2) % n_s}ELi{mode % 2}ELi{mode // (2 * n_s)}ELi0EE")
+    occ = megakernel_wide.occupancy(mode)
+    print(f"  {spp}spp: kernel {ms:.4f} ms (phase 11's (0,2) + box on material_room {b4_ms:.4f} ms, "
+          f"{ms / b4_ms:.3f}x); {nv16:.0f} path vertices ({nv16 / (W * H * spp):.3f} per sample), pops closest "
+          f"{pops_c} shadow {pops_s}; bound {bound[0]:.4f} ms ({bound[1]}, {ops:.4g} ops, {nbytes} bytes), kernel "
+          f"at {100 * bound[0] / ms:.2f}% of it; ptxas {ptx}, {occ} blocks per SM", flush=True)
+    with mock.patch.dict(os.environ, PBRT_TPU_WIDEMEGA="1"):
+        t_b4, l_b4, _img = _main_path("29 sphere_room through B4", sr, "torch-megakernel/cuda-wide",
+                                      megakernel_wide.wide_megakernel_cuda)
+        if l_b4 != 1:
+            raise AssertionError(f"the sphere_room render made {l_b4} B4 launches, not 1")
+    t_w = out["sphere_room_40"]
+    _total_within("29 sphere_room wavefront (phase 28) against B4", t_w["n_vertices"], t_b4["n_vertices"])
+    print(f"  path_vertex_samples_per_sec B4 {t_b4['n_vertices'] / t_b4['wall_s']:.1f}, wavefront (phase 28) "
+          f"{t_w['vps']:.1f}", flush=True)
+    out["b4_instantiations"] = {"sphere_room": {
+        "mode": mode, "ms": ms, "plain_ms": plain_ms, "n_vertices": nv16, "max_abs_err": err, "bound_ms": bound[0],
+        "bound_by": bound[1], "blocks_per_sm": occ, **ptx}}
+    out["sphere_room_b4"] = {"wall_s": t_b4["wall_s"], "n_vertices": t_b4["n_vertices"], "b4_launches": l_b4}
+
+    # --- 30. the uber rows: B3 with a glossy uber sphere; uber_room and a
+    # sphere lamp in area_box through the wavefronts; the lobe-set refusals ---
+    gd = g.description
+    mats = {id(p.material): HostMaterial(kind="uber", params=dict(p.material.params))
+            for p in gd.primitives if p.material.kind == "plastic"}
+    gu_desc = dataclasses.replace(gd, primitives=[dataclasses.replace(p, material=mats.get(id(p.material), p.material))
+                                                  for p in gd.primitives])
+    gu = compile_scene(gu_desc, dev)
+    W, H, spp = gd.film.x_resolution, gd.film.y_resolution, gd.sampler.pixel_samples
+    gicfg = {"kind": gd.integrator.kind, "max_depth": gd.integrator.max_depth,
+             "rr_threshold": gd.integrator.rr_threshold, "strategy": gd.integrator.strategy,
+             "light_strategy": gd.integrator.light_strategy}
+    cam = make_camera(gd.camera, gd.film, dev)
+    uconsts = megakernel.extract_consts(gu, cam, gicfg, {"kind": gd.sampler.kind, "spp": spp}, fcfg)
+    if uconsts is None:
+        raise AssertionError("the gallery with a glossy uber sphere is outside the brute megakernel's class")
+    ublob = megakernel.pack_consts(uconsts).to(dev)
+    umode = megakernel.kernel_mode(uconsts)
+    idx = torch.arange(W * H, device=dev)
+    glanes = (idx % W, idx // W, idx)
+    b3_out = megakernel.megakernel_cuda(ublob, umode, *glanes, 0, COMPARE_SPP, SEED)
+    _b3_against_plain(f"[30 B3 glossy uber gallery] {W}x{H} {COMPARE_SPP}spp", b3_out,
+                      megakernel.megakernel_plain(uconsts, *glanes, 0, COMPARE_SPP, SEED))
+    full = {k: ("const", v) for k, v in (("Kr", [0.3, 0.3, 0.3]), ("Kt", [0.3, 0.3, 0.3]), ("opacity", [0.7] * 3))}
+    fu_desc = dataclasses.replace(gu_desc, primitives=[
+        dataclasses.replace(p, material=HostMaterial(kind="uber", params={**p.material.params, **full}))
+        if p.material.kind == "uber" else p for p in gu_desc.primitives])
+    fu = compile_scene(fu_desc, dev)
+    why_b3 = megakernel.explain_ineligible(fu, cam, gicfg, {"kind": gd.sampler.kind, "spp": spp}, fcfg)
+    R_.make_persistent_fn(fu)
+    tier_b3 = R_.LAST_PERSISTENT_TIER
+    print(f"[30 B3 full uber gallery] route {tier_b3}; the brute megakernel refuses it: {why_b3}", flush=True)
+    if tier_b3 != "torch-wavefront/cuda-brute" or "lobe set" not in (why_b3 or ""):
+        raise AssertionError("the brute megakernel did not refuse the full uber gallery by lobe set")
+    ub_host = compile_scene(scenes.uber_room(), "cpu")
+    ub = ub_host.to(dev)
+    ud = ub.description
+    why_b4 = megakernel_wide.explain_ineligible_wide(
+        ub, make_camera(ud.camera, ud.film, dev), icfg, {"kind": ud.sampler.kind, "spp": ud.sampler.pixel_samples},
+        fcfg, megakernel_wide.DEFAULT_MAX_TRIS)
+    with mock.patch.dict(os.environ, PBRT_TPU_WIDEMEGA="1"):
+        R_.make_persistent_fn(ub)
+        tier_b4 = R_.LAST_PERSISTENT_TIER
+        print(f"[30 uber_room] route with PBRT_TPU_WIDEMEGA=1: {tier_b4}; the wide megakernel refuses it: {why_b4}",
+              flush=True)
+        if tier_b4 != "torch-wavefront/cuda-wide-mixed" or "lobe set" not in (why_b4 or ""):
+            raise AssertionError("the wide megakernel did not refuse uber_room by lobe set")
+        _check_crop("30 cuda-vs-cpu uber_room crop", ub, ub_host, ud)
+    lamp_host = compile_scene(scenes.area_box(sphere_lamp=True), "cpu")
+    lamp = lamp_host.to(dev)
+    R_.make_persistent_fn(lamp)
+    print(f"[30 area_box with a sphere lamp] {lamp.static.n_lights} lights, cone sphere lights "
+          f"{lamp.static.has_cone_sphere_lights}, route {R_.LAST_PERSISTENT_TIER}", flush=True)
+    if R_.LAST_PERSISTENT_TIER != "torch-wavefront/cuda-brute" or not lamp.static.has_cone_sphere_lights:
+        raise AssertionError("area_box with a sphere lamp did not take the brute wavefront")
+    _check_crop("30 cuda-vs-cpu area_box sphere lamp crop", lamp, lamp_host, lamp.description)
+    out["uber"] = {"b3_refusal": why_b3, "b4_refusal": why_b4}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1163,7 +1385,7 @@ def main() -> int:
     # resident blocks per SM of each kernel (cudaOccupancyMaxActiveBlocksPerMultiprocessor), per variant
     occupancy = (("wide_traverse_occupancy", [()]), ("wide_traverse_joint_occupancy", [()]),
                  ("brute_megakernel_occupancy", [(m,) for m in range(2 * megakernel.N_PLAIN_MODES)]),
-                 ("wide_megakernel_occupancy", [(m,) for m in range(4 * megakernel_wide.N_SAMPLER_IDS)]))
+                 ("wide_megakernel_occupancy", [(m,) for m in range(megakernel_wide.N_MODES)]))
     for build, (entry, variants) in zip((wide_bvh.build_kernel, wide_bvh.build_joint_kernel, megakernel.build_kernel,
                                          megakernel_wide.build_kernel), occupancy):
         info = build()
@@ -1471,6 +1693,10 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     print(f"[25-27 textures] {json.dumps({k: v for k, v in tx.items() if not k.endswith('instantiations')})}",
           flush=True)
+    # --- 28-30. spheres and sphere lamps in wide scenes; B4's spheres; uber ---
+    sph = _unswitched(_sphere_phases, cs, b4_ms, g)
+    print(f"[28-30 spheres] {json.dumps({k: v for k, v in sph.items() if not k.endswith('instantiations')})}",
+          flush=True)
 
     report = {"kernels": [
         {"name": "wide_traverse", "route": "cuda", "source": "pbrt_tpu_torch/csrc/wide_traverse.cu",
@@ -1487,7 +1713,8 @@ def main() -> int:
         {"name": "wide_megakernel", "route": "cuda", "source": "pbrt_tpu_torch/csrc/megakernel_wide.cu",
          "replaces": "pbrt_tpu/device/megakernel_wide.py:525", "launches": b4_launches, "max_abs_err": b4_err,
          "ms": b4_ms, "plain_ms": b4_plain_ms, "bound_ms": b4_bound[0], "bound_by": b4_bound[1],
-         "library_ms": None, "instantiations": {**sk["instantiations"], **tx["b4_instantiations"]}},
+         "library_ms": None,
+         "instantiations": {**sk["instantiations"], **tx["b4_instantiations"], **sph["b4_instantiations"]}},
     ]}
     print(json.dumps(report))
     print(_smi())

@@ -121,7 +121,8 @@
 #define MAT_BASE (PRIM_BASE + MAX_PRIMS * PRIM_STRIDE)
 #define BLOB_FLOATS (MAT_BASE + MAX_MATS * MAT_STRIDE)
 
-// prim record
+// prim record: kind, material slot, flags, then a triangle's fields below
+// or a sphere's (pt_common.cuh's sphere record, SPH_*)
 #define P_KIND 0
 #define P_MAT 1
 #define P_FLAGS 2
@@ -130,12 +131,6 @@
 #define P_NS 15
 #define P_SS 18
 #define P_TS 21
-#define P_W2O 3
-#define P_O2W 15
-#define P_R 27
-#define P_R2 28
-#define P_PHIMAX 29
-#define P_ERRC 30
 #define P_UV 24   // triangle: uv0 uv1 uv2 (6)
 #define P_UVD 30  // triangle: the uv density sqrt(|duv cross| / |dp cross|)
 
@@ -214,97 +209,6 @@ __device__ __forceinline__ bool tri_test(const float* pr, const RaySetup& rs, fl
     return same && dok && t > SHADOW_EPS && t < t_query;
 }
 
-__device__ __forceinline__ void xf_point(const float* m, float x, float y, float z, float& ox, float& oy, float& oz) {
-    ox = m[0] * x + m[1] * y + m[2] * z + m[3];
-    oy = m[4] * x + m[5] * y + m[6] * z + m[7];
-    oz = m[8] * x + m[9] * y + m[10] * z + m[11];
-}
-
-// full-sphere quadric (intersect.ray_quadric sphere branch); p_loc is the
-// object-space hit before reprojection
-__device__ __forceinline__ bool sph_test(const float* pr, float ox, float oy, float oz, float dx, float dy,
-                                         float dz, float t_query, float& t, float& plx, float& ply, float& plz) {
-    const float* m = pr + P_W2O;
-    float oox, ooy, ooz;
-    xf_point(m, ox, oy, oz, oox, ooy, ooz);
-    float odx = m[0] * dx + m[1] * dy + m[2] * dz;
-    float ody = m[4] * dx + m[5] * dy + m[6] * dz;
-    float odz = m[8] * dx + m[9] * dy + m[10] * dz;
-    float a = dot3(odx, ody, odz, odx, ody, odz);
-    float b = 2.0f * dot3(oox, ooy, ooz, odx, ody, odz);
-    float c = dot3(oox, ooy, ooz, oox, ooy, ooz) - pr[P_R2];
-    float disc = b * b - 4.0f * a * c;
-    bool has_root = disc > 0.0f;
-    float sq = sqrtf(fmaxf(disc, 0.0f));
-    float q = b < 0.0f ? -0.5f * (b - sq) : -0.5f * (b + sq);
-    float safe = fabsf(q) > 1e-30f ? q : 1.0f;
-    float t0 = q / (fabsf(a) > 1e-30f ? a : 1e-30f);
-    float t1 = c / safe;
-    float tn = fminf(t0, t1), tf = fmaxf(t0, t1);
-    bool near_valid = has_root && tn > SHADOW_EPS && tn < t_query;
-    bool far_valid = has_root && tf > SHADOW_EPS && tf < t_query;
-    t = near_valid ? tn : tf;
-    plx = oox + odx * t;
-    ply = ooy + ody * t;
-    plz = ooz + odz * t;
-    return near_valid || far_valid;
-}
-
-// surface_interaction sphere branch with constant transforms
-__device__ __forceinline__ void sph_attrs(const float* pr, float g53, float px_o, float py_o, float pz_o, Hit& h) {
-    const float* o2w = pr + P_O2W;
-    const float* w2o = pr + P_W2O;
-    float r = pr[P_R];
-    float norm = sqrtf(fmaxf(px_o * px_o + py_o * py_o + pz_o * pz_o, 1e-30f));
-    float scale = r / fmaxf(norm, 1e-30f);
-    px_o = px_o * scale;
-    py_o = py_o * scale;
-    pz_o = pz_o * scale;
-    float nx = px_o / r, ny = py_o / r, nz = pz_o / r;
-    float ngx = w2o[0] * nx + w2o[4] * ny + w2o[8] * nz;
-    float ngy = w2o[1] * nx + w2o[5] * ny + w2o[9] * nz;
-    float ngz = w2o[2] * nx + w2o[6] * ny + w2o[10] * nz;
-    norm3(ngx, ngy, ngz);
-    if ((int)pr[P_FLAGS] & FLAG_FLIP_GEOM_N) {
-        ngx = -ngx;
-        ngy = -ngy;
-        ngz = -ngz;
-    }
-    float pm = pr[P_PHIMAX];
-    float dux_o = -pm * py_o, duy_o = pm * px_o;
-    float dux = o2w[0] * dux_o + o2w[1] * duy_o;
-    float duy = o2w[4] * dux_o + o2w[5] * duy_o;
-    float duz = o2w[8] * dux_o + o2w[9] * duy_o;
-    float dot_nd = dot3(ngx, ngy, ngz, dux, duy, duz);
-    float sxp = dux - ngx * dot_nd, syp = duy - ngy * dot_nd, szp = duz - ngz * dot_nd;
-    float sl = sqrtf(fmaxf(sxp * sxp + syp * syp + szp * szp, 0.0f));
-    float ssx, ssy, ssz;
-    if (sl > 1e-9f) {
-        float inv_sl = 1.0f / fmaxf(sl, 1e-20f);
-        ssx = sxp * inv_sl;
-        ssy = syp * inv_sl;
-        ssz = szp * inv_sl;
-    } else {  // coordinate_system fallback
-        float sign = ngz >= 0.0f ? 1.0f : -1.0f;
-        float a_f = -1.0f / (sign + ngz);
-        float b_f = ngx * ngy * a_f;
-        ssx = 1.0f + sign * ngx * ngx * a_f;
-        ssy = sign * b_f;
-        ssz = -sign * ngx;
-    }
-    h.ngx = ngx; h.ngy = ngy; h.ngz = ngz;
-    h.nsx = ngx; h.nsy = ngy; h.nsz = ngz;
-    h.ssx = ssx; h.ssy = ssy; h.ssz = ssz;
-    h.tsx = ngy * ssz - ngz * ssy;
-    h.tsy = ngz * ssx - ngx * ssz;
-    h.tsz = ngx * ssy - ngy * ssx;
-    xf_point(o2w, px_o, py_o, pz_o, h.px, h.py, h.pz);
-    float apx = fabsf(px_o), apy = fabsf(py_o), apz = fabsf(pz_o);
-    h.ex = g53 * (fabsf(o2w[0]) * apx + fabsf(o2w[1]) * apy + fabsf(o2w[2]) * apz) + pr[P_ERRC];
-    h.ey = g53 * (fabsf(o2w[4]) * apx + fabsf(o2w[5]) * apy + fabsf(o2w[6]) * apz) + pr[P_ERRC + 1];
-    h.ez = g53 * (fabsf(o2w[8]) * apx + fabsf(o2w[9]) * apy + fabsf(o2w[10]) * apz) + pr[P_ERRC + 2];
-}
-
 // --- the block: THREADS threads, one path slot each ---------------------------
 #define THREADS 128  // at most 256 (byte-sized slot lists)
 #define MIN_BLOCKS 8  // resident blocks per SM that __launch_bounds__ asks for (7 measured equal, 6 slower)
@@ -312,7 +216,7 @@ __device__ __forceinline__ void sph_attrs(const float* pr, float g53, float px_o
 // The blob in shared memory: header and lights as in device memory, then
 // the first P_FIELDS floats of every prim record and M_FIELDS (TEX: one
 // more, M_TEX) of every material record, the fields the kernel reads.
-#define P_FIELDS 33  // P_ERRC + 3
+#define P_FIELDS 33  // SPH_ERRC + 3
 #define M_FIELDS 24  // M_ON_B + 1
 #define SB_PRIM (LIGHT_BASE + MAX_LIGHTS * LIGHT_STRIDE)
 #define SB_MAT (SB_PRIM + MAX_PRIMS * P_FIELDS)

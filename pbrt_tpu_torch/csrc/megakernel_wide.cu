@@ -62,6 +62,18 @@
 // emission, and a sample is flushed, or its pixel finished, only after
 // that.
 //
+// Spheres (EXT = 2, the SPH instantiations; the reference's mixed scenes,
+// :1663-1677): at most 8 full spheres ride the blob in shared memory
+// beside the triangle subset's wide tables; a closest walk that ends tests
+// each with pt_common.cuh's sph_test and keeps the nearer hit, the
+// triangle on a tie (t < t_walk strictly), and records a sphere hit as
+// F_ROW = -1 - its record; shading re-runs that sphere's test on the same
+// ray for the hit point, then sph_attrs. A shadow walk that finds nothing
+// tests the spheres below its t_max. A sphere lamp (a light record with
+// L_SPH) is sampled by the cone it subtends from outside and uniformly
+// over its area from inside (:1443-1537), and an emission hit on one
+// from outside takes the cone's density for its MIS weight (:1710-1728).
+//
 // Data: the traversal returns the winner's row of the leaf rows leaf_rec
 // (vertices, material row, light row and flags; the Hopper layout of
 // wide_traverse.cuh), read again when the hit is shaded; lights, materials
@@ -75,9 +87,9 @@
 // instantiation that reads the filter kind from the blob, the attribute
 // rows when given, the constant infinite light and the checkerboard Kd (a
 // 2D uv-mapped checkerboard of two constant cells on a matte or plastic
-// Kd, selected per hit from the hit's uv; reference :1273-1287); EXT = 0
-// (the box filter, flat default-UV shading, no sky, no checkerboard)
-// compiles none of that. The halton
+// Kd, selected per hit from the hit's uv; reference :1273-1287); EXT = 2
+// is EXT = 1 with the spheres; EXT = 0 (the box filter, flat default-UV
+// shading, no sky, no checkerboard) compiles none of that. The halton
 // sampler's bounce dimensions take a radical inverse in a prime base per
 // lane: a digit loop with an integer division each, ending with the index
 // (the float32 sum is the twin's, digit for digit).
@@ -131,6 +143,15 @@
 #define L_V 16
 #define L_NG 25
 #define L_ENV_P 14  // the infinite light's: 1/4pi x its selection pmf
+// a sphere lamp's (L_AREA and L_TWO_SIDED as a triangle's): its world
+// center, radius r, r^2, r^2 x 1.0001 (outside beyond it), object radius,
+// and 1 + its sphere record (0 for a triangle light)
+#define L_C 16
+#define L_RW 19
+#define L_RW2 20
+#define L_RW2X 21
+#define L_ROBJ 22
+#define L_SPH 28
 #define LIGHT_INFINITE 3
 #define LIGHT_AREA 4
 
@@ -153,6 +174,21 @@
 // color rides M_COLOR and the odd cells' M_KT (unread by these lobes)
 #define M_CHK 24
 #define M_CHK_UV 25
+
+// the spheres (SPH): past BLOB_FLOATS their count, then one SPH_STRIDE
+// record each: its light row (-1 for none), its material row, then
+// pt_common.cuh's sphere record (SPH_FLAGS ... SPH_ERRC)
+#define MAX_SPHERES 8
+#define SPH_BASE BLOB_FLOATS
+#define SPH_HEADER 4
+#define SPH_STRIDE 36
+#define S_LIGHT 0
+#define S_MAT 1
+#define SPH_BLOB_FLOATS (SPH_BASE + SPH_HEADER + MAX_SPHERES * SPH_STRIDE)
+#define TWO_PI_F 6.28318548f  // float32(2 pi)
+// float32(gamma(5) + gamma(3)), gamma(n) = n eps / (1 - n eps), eps = 2^-24
+#define G53_F ((float)(5.0 * 5.9604644775390625e-08 / (1.0 - 5.0 * 5.9604644775390625e-08) + \
+                       3.0 * 5.9604644775390625e-08 / (1.0 - 3.0 * 5.9604644775390625e-08)))
 
 // --- the block: THREADS path slots, one per thread ------------------------------
 #define THREADS 128
@@ -224,8 +260,9 @@
 #define SPLIT_ITERS 9
 #define N_SPLIT 10
 
+template <int SPH>
 struct BlockState {
-    float blob[BLOB_FLOATS];
+    float blob[SPH ? SPH_BLOB_FLOATS : BLOB_FLOATS];
     float st[N_FIELDS * THREADS];
     uint8_t wlist[THREADS];   // slots whose path walks next, compacted
     uint8_t sperm[THREADS];   // hits sorted by class key
@@ -254,6 +291,92 @@ __device__ __forceinline__ int lobe_key(int lobe) {
         case LOBE_SPEC_R: return K_LOBE + 4;
         default: return K_LOBE + 5;  // LOBE_FRESNEL_SPEC
     }
+}
+
+__device__ __forceinline__ const float* sph_rec(const float* blob, int q) {
+    return blob + SPH_BASE + SPH_HEADER + q * SPH_STRIDE;
+}
+
+// (outside, the cone's pdf) of the sphere lamp lt seen from (px, py, pz);
+// also the vector to the center, its squared length and cos theta_max
+__device__ __forceinline__ bool lamp_cone(const float* lt, float px, float py, float pz, float& pdf_cone, float& tx,
+                                          float& ty, float& tz, float& dc2, float& cos_tm) {
+    tx = lt[L_C] - px;
+    ty = lt[L_C + 1] - py;
+    tz = lt[L_C + 2] - pz;
+    dc2 = fmaxf(tx * tx + ty * ty + tz * tz, 1e-12f);
+    const float sin2_tm = fminf(fmaxf(lt[L_RW2] / dc2, 0.0f), 1.0f);
+    cos_tm = sqrtf(fmaxf(1.0f - sin2_tm, 0.0f));
+    pdf_cone = 1.0f / fmaxf(TWO_PI_F * (1.0f - cos_tm), 1e-12f);
+    return dc2 > lt[L_RW2X];
+}
+
+// NEE toward the sphere lamp lt (record pr) from h (lights.sample_li's
+// cone branch; reference :1443-1537): a point in the visible cone from
+// outside, a uniform point on the sphere from inside
+__device__ __forceinline__ void sphere_lamp(const float* lt, const float* pr, const Hit& h, float u1, float u2,
+                                            float& wix, float& wiy, float& wiz, float li[3], float& dist,
+                                            float& p_l) {
+    float pdf_cone, tox, toy, toz, dc2, cos_tm;
+    const bool outside = lamp_cone(lt, h.px, h.py, h.pz, pdf_cone, tox, toy, toz, dc2, cos_tm);
+    float psx, psy, psz, nx, ny, nz;
+    if (outside) {
+        const float dc = sqrtf(dc2);
+        const float invc = 1.0f / dc;
+        const float wcx = tox * invc, wcy = toy * invc, wcz = toz * invc;
+        const float sgn = wcz >= 0.0f ? 1.0f : -1.0f;
+        const float a_cs = -1.0f / (sgn + wcz);
+        const float b_cs = wcx * wcy * a_cs;
+        const float vxx = 1.0f + sgn * wcx * wcx * a_cs, vxy = sgn * b_cs, vxz = -sgn * wcx;
+        const float vyx = b_cs, vyy = sgn + wcy * wcy * a_cs, vyz = -wcy;
+        const float cos_t = (1.0f - u1) + u1 * cos_tm;
+        const float sin2_t = fmaxf(1.0f - cos_t * cos_t, 0.0f);
+        const float ds = dc * cos_t - sqrtf(fmaxf(lt[L_RW2] - dc2 * sin2_t, 0.0f));
+        const float cos_a = fminf(fmaxf((dc2 + lt[L_RW2] - ds * ds) / fmaxf(2.0f * dc * lt[L_RW], 1e-12f), -1.0f), 1.0f);
+        const float sin_a = sqrtf(fmaxf(1.0f - cos_a * cos_a, 0.0f));
+        const float phi = TWO_PI_F * u2;
+        const float sa_c = sin_a * cosf(phi), sa_s = sin_a * sinf(phi);
+        nx = sa_c * -vxx + sa_s * -vyx + cos_a * -wcx;
+        ny = sa_c * -vxy + sa_s * -vyy + cos_a * -wcy;
+        nz = sa_c * -vxz + sa_s * -vyz + cos_a * -wcz;
+        psx = lt[L_C] + lt[L_RW] * nx;
+        psy = lt[L_C + 1] + lt[L_RW] * ny;
+        psz = lt[L_C + 2] + lt[L_RW] * nz;
+    } else {
+        const float zz = 1.0f - 2.0f * u1;
+        const float rr = sqrtf(fmaxf(1.0f - zz * zz, 0.0f));
+        const float ph = TWO_PI_F * u2;
+        const float dox = rr * cosf(ph), doy = rr * sinf(ph), doz = zz;
+        const float* m = pr + SPH_O2W;
+        const float* w = pr + SPH_W2O;
+        const float ro = lt[L_ROBJ];
+        psx = m[0] * (ro * dox) + m[1] * (ro * doy) + m[2] * (ro * doz) + m[3];
+        psy = m[4] * (ro * dox) + m[5] * (ro * doy) + m[6] * (ro * doz) + m[7];
+        psz = m[8] * (ro * dox) + m[9] * (ro * doy) + m[10] * (ro * doz) + m[11];
+        nx = w[0] * dox + w[4] * doy + w[8] * doz;
+        ny = w[1] * dox + w[5] * doy + w[9] * doz;
+        nz = w[2] * dox + w[6] * doy + w[10] * doz;
+        norm3(nx, ny, nz);
+        if ((int)pr[SPH_FLAGS] & FLAG_FLIP_GEOM_N) {
+            nx = -nx;
+            ny = -ny;
+            nz = -nz;
+        }
+    }
+    const float tx = psx - h.px, ty = psy - h.py, tz = psz - h.pz;
+    const float d2 = fmaxf(tx * tx + ty * ty + tz * tz, 1e-12f);
+    const float dl = sqrtf(d2);
+    const float invl = 1.0f / dl;
+    wix = tx * invl;
+    wiy = ty * invl;
+    wiz = tz * invl;
+    const float cos_l = -(wix * nx + wiy * ny + wiz * nz);
+    const bool emits = outside || cos_l > 0.0f || lt[L_TWO_SIDED] != 0.0f;
+    const float pdf_a = d2 / fmaxf(fabsf(cos_l) * lt[L_AREA], 1e-12f);
+    p_l = outside ? pdf_cone : (fabsf(cos_l) > 1e-7f ? pdf_a : 0.0f);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) li[k] = emits ? lt[L_PAR + k] : 0.0f;
+    dist = dl;
 }
 
 // --- the samplers of B4's class ---------------------------------------------------
@@ -601,6 +724,10 @@ __device__ __forceinline__ bool nee_light(const float* blob, const float* m, con
         p_l = (float)(1.0 / (4.0 * 3.141592653589793));
     } else if (delta) {
         delta_light(lt, blob[H_WR2], h, wix, wiy, wiz, li, dist);
+    } else if (EXT == 2 && lt[L_SPH] != 0.0f) {
+        float u1, u2;
+        dr.d2(dim_base + 1u, u1, u2);
+        sphere_lamp(lt, sph_rec(blob, (int)lt[L_SPH] - 1), h, u1, u2, wix, wiy, wiz, li, dist, p_l);
     } else {
         // uniform point on the emitting triangle (lights._sample_prim_point)
         float u1, u2;
@@ -691,8 +818,22 @@ __device__ __forceinline__ bool shade(float* st, int i, int key, const float* bl
                                       const int* __restrict__ stab) {
     Hit h;
     const int row = geti(st, F_ROW, i);
-    const int light = tri_attrs<EXT>(leaf_rec + row, EXT && attr_rec != nullptr ? attr_rec + row : nullptr,
-                                     fld(st, F_B1, i), fld(st, F_B2, i), blob[H_G7], h);
+    int light;
+    if (EXT == 2 && row < 0) {
+        // a sphere hit: its test again on the same ray, for the hit point
+        const float* pr = sph_rec(blob, -1 - row);
+        float t, plx, ply, plz;
+        sph_test(pr, fld(st, F_O, i), fld(st, F_O + 1, i), fld(st, F_O + 2, i), fld(st, F_D, i), fld(st, F_D + 1, i),
+                 fld(st, F_D + 2, i), INFINITY, t, plx, ply, plz);
+        sph_attrs(pr, G53_F, plx, ply, plz, h);
+        h.u = 0.0f;  // no uv is baked for spheres
+        h.v = 0.0f;
+        h.mat = (int)pr[S_MAT];
+        light = (int)pr[S_LIGHT];
+    } else {
+        light = tri_attrs<EXT>(leaf_rec + row, EXT && attr_rec != nullptr ? attr_rec + row : nullptr,
+                               fld(st, F_B1, i), fld(st, F_B2, i), blob[H_G7], h);
+    }
     const float wox = -fld(st, F_D, i), woy = -fld(st, F_D + 1, i), woz = -fld(st, F_D + 2, i);
     float L[3], beta[3];
 #pragma unroll
@@ -710,7 +851,15 @@ __device__ __forceinline__ bool shade(float* st, int i, int key, const float* bl
         const float d2 = fmaxf(tx * tx + ty * ty + tz * tz, 1e-12f);
         const float wl = 1.0f / sqrtf(d2);
         const float cos_l = fabsf(dot3(h.ngx, h.ngy, h.ngz, -tx * wl, -ty * wl, -tz * wl));
-        const float p_lh = (cos_l > 1e-7f ? d2 / fmaxf(cos_l * lt[L_AREA], 1e-12f) : 0.0f) * blob[H_PMF + light];
+        float p_lh = (cos_l > 1e-7f ? d2 / fmaxf(cos_l * lt[L_AREA], 1e-12f) : 0.0f) * blob[H_PMF + light];
+        if (EXT == 2 && lt[L_SPH] != 0.0f) {
+            // a sphere lamp seen from outside: the cone's density
+            float pdf_cone, cx, cy, cz, dc2, cos_tm;
+            if (lamp_cone(lt, fld(st, F_PP, i), fld(st, F_PP + 1, i), fld(st, F_PP + 2, i), pdf_cone, cx, cy, cz, dc2,
+                          cos_tm)) {
+                p_lh = pdf_cone * blob[H_PMF + light];
+            }
+        }
         const float w_mis =
             (geti(st, F_BOUNCES, i) & SPECULAR) ? 1.0f : power_heuristic(fld(st, F_PPDF, i), p_lh);
 #pragma unroll
@@ -913,7 +1062,8 @@ wide_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict__
                        const int* __restrict__ stab, float* __restrict__ out_l, float* __restrict__ out_w, float* __restrict__ out_nv,
                        unsigned long long* __restrict__ pop_counts, unsigned int* __restrict__ trav_counters,
                        int* __restrict__ queue, unsigned long long* __restrict__ prof) {
-    __shared__ BlockState B;
+    constexpr int SPH = EXT == 2;
+    __shared__ BlockState<SPH> B;
     const int tid = threadIdx.x;
     if (n_samples <= 0) {  // no sample to trace: empty sums
         for (int i = blockIdx.x * THREADS + tid; i < n_lanes; i += gridDim.x * THREADS) {
@@ -932,7 +1082,7 @@ wide_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict__
 #pragma unroll
     for (int q = 0; q < N_SPLIT; ++q) sp[q] = 0ull;
 
-    for (int i = tid; i < BLOB_FLOATS; i += THREADS) B.blob[i] = blob_g[i];
+    for (int i = tid; i < (SPH ? SPH_BLOB_FLOATS : BLOB_FLOATS); i += THREADS) B.blob[i] = blob_g[i];
     if (tid == 0) {
         B.n_walk = 0;
         B.n_sh = 0;
@@ -1003,7 +1153,16 @@ wide_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict__
                 // the item is done
                 if (shadow) {
                     pops_s += (unsigned long long)r.pops;
-                    const bool occluded = r.best_idx >= 0;
+                    bool occluded = r.best_idx >= 0;
+                    if (SPH && !occluded) {  // the spheres below t_max
+                        const int n_sph = (int)blob[SPH_BASE];
+                        for (int q = 0; q < n_sph && !occluded; ++q) {
+                            float t, plx, ply, plz;
+                            occluded = sph_test(sph_rec(blob, q), fld(st, F_SO, slot), fld(st, F_SO + 1, slot),
+                                                fld(st, F_SO + 2, slot), fld(st, F_SD, slot), fld(st, F_SD + 1, slot),
+                                                fld(st, F_SD + 2, slot), fld(st, F_TMAX, slot), t, plx, ply, plz);
+                        }
+                    }
                     const int f = (geti(st, F_IT, slot) & IT_OLD) ? F_LOLD : F_L;  // the sample it belongs to
 #pragma unroll
                     for (int k = 0; k < 3; ++k) {
@@ -1013,16 +1172,37 @@ wide_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict__
                 } else {
                     pops_c += (unsigned long long)r.pops;
                     int key = K_MISS;
-                    if (r.best_idx >= 0) {
+                    bool hit = r.best_idx >= 0;
+                    int hit_row = r.best_row, hit_mat = r.best_mat;
+                    if (SPH) {
+                        // the spheres against the walk's winner; the
+                        // triangle keeps a tie
+                        const int n_sph = (int)blob[SPH_BASE];
+                        float t_all = hit ? r.t_best : 1e30f;
+                        for (int q = 0; q < n_sph; ++q) {
+                            const float* pr = sph_rec(blob, q);
+                            float t, plx, ply, plz;
+                            if (sph_test(pr, fld(st, F_O, slot), fld(st, F_O + 1, slot), fld(st, F_O + 2, slot),
+                                         fld(st, F_D, slot), fld(st, F_D + 1, slot), fld(st, F_D + 2, slot), INFINITY,
+                                         t, plx, ply, plz) &&
+                                t < t_all) {
+                                t_all = t;
+                                hit = true;
+                                hit_row = -1 - q;
+                                hit_mat = (int)pr[S_MAT];
+                            }
+                        }
+                    }
+                    if (hit) {
                         fld(st, F_NV, slot) = fld(st, F_NV, slot) + 1.0f;
-                        seti(st, F_ROW, slot, r.best_row);
+                        seti(st, F_ROW, slot, hit_row);
                         fld(st, F_B1, slot) = r.b1;
                         fld(st, F_B2, slot) = r.b2;
                         // the hit's material (the last slot whose row
                         // matches) and whether it samples a BSDF
                         int lobe = LOBE_NONE;
                         for (int sl = 0; sl < n_mats; ++sl) {
-                            if ((int)blob[MAT_BASE + sl * MAT_STRIDE + M_ROW] == r.best_mat) {
+                            if ((int)blob[MAT_BASE + sl * MAT_STRIDE + M_ROW] == hit_mat) {
                                 lobe = (int)blob[MAT_BASE + sl * MAT_STRIDE + M_LOBE];
                             }
                         }
@@ -1131,9 +1311,9 @@ wide_megakernel_kernel(const float* __restrict__ blob_g, const int* __restrict__
     }
 }
 
-// the kernel of a mode (ext * 12 + sampler * 2 + any_area; sampler 0 =
-// (0,2)-sequence, 1 = random, 2 = stratified, 3 = halton, 4 = sobol,
-// 5 = maxmindist), or nullptr for a bad mode
+// the kernel of a mode (ext * 12 + sampler * 2 + any_area; ext 0, 1 or 2
+// (the spheres); sampler 0 = (0,2)-sequence, 1 = random, 2 = stratified,
+// 3 = halton, 4 = sobol, 5 = maxmindist), or nullptr for a bad mode
 #define WM_MODE(m) \
     case m: return (const void*)wide_megakernel_kernel<((m) / 2) % N_SAMPLER_IDS, (m) % 2, (m) / (2 * N_SAMPLER_IDS), 0>;
 static const void* kernel_for(int mode) {
@@ -1141,6 +1321,8 @@ static const void* kernel_for(int mode) {
         WM_MODE(0) WM_MODE(1) WM_MODE(2) WM_MODE(3) WM_MODE(4) WM_MODE(5) WM_MODE(6) WM_MODE(7)
         WM_MODE(8) WM_MODE(9) WM_MODE(10) WM_MODE(11) WM_MODE(12) WM_MODE(13) WM_MODE(14) WM_MODE(15)
         WM_MODE(16) WM_MODE(17) WM_MODE(18) WM_MODE(19) WM_MODE(20) WM_MODE(21) WM_MODE(22) WM_MODE(23)
+        WM_MODE(24) WM_MODE(25) WM_MODE(26) WM_MODE(27) WM_MODE(28) WM_MODE(29) WM_MODE(30) WM_MODE(31)
+        WM_MODE(32) WM_MODE(33) WM_MODE(34) WM_MODE(35)
         default: return nullptr;
     }
 }

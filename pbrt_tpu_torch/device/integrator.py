@@ -215,7 +215,7 @@ def trace_persistent(sa, static, icfg: dict, scfg: dict, seed: int, pixel, s0: i
                 r2 = rng.hash_combine(seed, pixel, s_cur, 0xB229 + light_index)
                 u1 = (((array_j + r1 % array_n) % array_n).float() + u1) / array_n
                 u2 = (((array_j + r2 % array_n) % array_n).float() + u2) / array_n
-        ls = sample_li(sa, static, lid, si["p"], u1, u2)
+        ls = sample_li(sa, static, lid, si["p"], u1, u2, cone_spheres=static.has_cone_sphere_lights)
         wi = ls["wi"]
         wo_l = _to_local(si, si["wo"])
         wi_l = _to_local(si, wi)
@@ -276,7 +276,8 @@ def trace_persistent(sa, static, icfg: dict, scfg: dict, seed: int, pixel, s0: i
             emitting = alive & (lid >= 0)
             le = area_light_emission(sa, lid, si["ng"], si["wo"])
             area = sa.prim_area[torch.clamp(si["prim"], min=0)]
-            p_l = pdf_li_area_hit(sa, prev_p, si["p"], si["ng"], lid, area) * _sel_pmf_of(
+            p_l = pdf_li_area_hit(sa, prev_p, si["p"], si["ng"], lid, area,
+                                  cone_spheres=static.has_cone_sphere_lights) * _sel_pmf_of(
                 torch.clamp(lid, min=0), prev_p)
             w = torch.where(prev_spec, 1.0, power_heuristic(1.0, prev_pdf, 1.0, p_l))
             L = L + torch.where(emitting[:, None], beta * le * w[:, None], 0.0)

@@ -10,18 +10,24 @@ intersect_p`` on its two routes:
   clipping) by (R, P) broadcasting, then the nearest column, ties to the
   lowest (``_brute_all``, ``_select_min``, ``intersect_brute``,
   ``intersect_p_brute``);
-- the wide-BVH route for larger scenes (``_wide_closest`` and the any-hit
-  branch of ``_intersect_p_once``), through device/wide_bvh.py.
+- the wide-BVH route for larger scenes, through device/wide_bvh.py; in a
+  mixed scene (``static.has_wide_tri`` without ``has_wide``) the walk covers
+  the triangle subset and its at most 8 spheres are tested beside it with
+  ``ray_sphere``, t_max clamped to the walk's winner, merged by t with a
+  strict ``<`` so that the triangle keeps a tie (``_mixed_spheres``). The
+  reference walks such scenes through its binary-BVH packet loop; the hits
+  are the same, only the route differs.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from . import efloat as efl
 from .affine import xf_point, xf_vector
-from .wide_bvh import wide_intersect
+from .wide_bvh import wide_intersect, wide_intersect_plain
 
 # above this primitive count, sort rays by a direction-octant + origin-Morton
 # key before traversal (intersect.SORT_MIN_PRIMS)
@@ -177,9 +183,23 @@ def _t_max(o, t_max):
     return torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device), (o.shape[0],))
 
 
-def intersect(sa, static, o, d, t_max, sort_rays=False, joint=False):
+def _mixed_spheres(sa, o, d, t_max):
+    """A mixed scene's spheres against every ray, by broadcasting: (t (R, S)
+    with inf where missed, p_obj (R, S, 3))."""
+    h, t_s, p_obj = ray_sphere(o[:, None, :], d[:, None, :], sa.sph_w2o[None], sa.sph_param[None], t_max[:, None])
+    return torch.where(h, t_s, math.inf), p_obj
+
+
+def _walk(joint, plain):
+    """The wide query: the kernels' (wide_intersect), or with plain their
+    plain twin on any device."""
+    return wide_intersect_plain if plain else functools.partial(wide_intersect, joint=joint)
+
+
+def intersect(sa, static, o, d, t_max, sort_rays=False, joint=False, plain=False):
     """Closest-hit query. Returns hit dict {t, prim, b1, b2}. joint: CUDA
-    rays of a wide scene go through the joint traversal kernel."""
+    rays of a wide scene go through the joint traversal kernel; plain: the
+    walk's plain twin, on any device (no route sets it)."""
     R = o.shape[0]
     if static.n_prims == 0:
         return {"t": torch.full((R,), math.inf, device=o.device), "prim": torch.full((R,), -1, device=o.device),
@@ -187,21 +207,33 @@ def intersect(sa, static, o, d, t_max, sort_rays=False, joint=False):
     if static.use_brute_force:
         return intersect_brute(sa, static, o, d, _t_max(o, t_max))
     sort = sort_rays and static.n_prims >= SORT_MIN_PRIMS
-    t, prim, hitm, b1, b2 = wide_intersect(sa, o, d, t_max, sort=sort, joint=joint)
-    return {
-        "t": torch.where(hitm, t, math.inf),
-        "prim": prim,
-        "b1": torch.where(hitm, torch.clamp(b1, 0.0, 1.0), 0.0),
-        "b2": torch.where(hitm, torch.clamp(b2, 0.0, 1.0), 0.0),
-    }
+    t, prim, hitm, b1, b2 = _walk(joint, plain)(sa, o, d, t_max, sort=sort)
+    b1 = torch.where(hitm, torch.clamp(b1, 0.0, 1.0), 0.0)
+    b2 = torch.where(hitm, torch.clamp(b2, 0.0, 1.0), 0.0)
+    if static.n_spheres:
+        # the spheres beside the triangle walk, below its winner's t; a
+        # sphere column carries its object-space hit's x and y in b1 and b2,
+        # as the brute route's does
+        t_s, p_obj = _mixed_spheres(sa, o, d, torch.minimum(_t_max(o, t_max), t))
+        ts_best, k = torch.min(t_s, dim=1)
+        better = ts_best < t
+        t = torch.where(better, ts_best, t)
+        prim = torch.where(better, sa.sph_prim_ids.to(torch.int64)[k], prim)
+        p_k = p_obj.gather(1, k[:, None, None].expand(-1, 1, 3))[:, 0]
+        b1 = torch.where(better, p_k[:, 0], b1)
+        b2 = torch.where(better, p_k[:, 1], b2)
+        hitm = hitm | better
+    return {"t": torch.where(hitm, t, math.inf), "prim": prim, "b1": b1, "b2": b2}
 
 
-def intersect_p(sa, static, o, d, t_max, sort_rays=False, joint=False):
+def intersect_p(sa, static, o, d, t_max, sort_rays=False, joint=False, plain=False):
     """Any-hit (shadow) query -> bool (R,). (scene.rs intersect_p)"""
     if static.n_prims == 0:
         return torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
     if static.use_brute_force:
         return intersect_p_brute(sa, static, o, d, _t_max(o, t_max))
     sort = sort_rays and static.n_prims >= SORT_MIN_PRIMS
-    _t, _slot, hit_any = wide_intersect(sa, o, d, t_max, any_hit=True, sort=sort, joint=joint)
+    _t, _slot, hit_any = _walk(joint, plain)(sa, o, d, t_max, any_hit=True, sort=sort)
+    if static.n_spheres:
+        hit_any = hit_any | torch.isfinite(_mixed_spheres(sa, o, d, _t_max(o, t_max))[0]).any(1)
     return hit_any

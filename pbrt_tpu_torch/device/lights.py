@@ -3,10 +3,15 @@
 The port's counterpart of ``pbrt_tpu/device/lights.py`` for the light kinds
 the port compiles: point, spot and distant lights (src/lights/point.rs,
 spot.rs, distant.rs), the infinite light, constant or image-mapped
-(src/lights/infinite.rs), and diffuse area lights on triangles
-(src/lights/diffuse.rs), one light row per emitting triangle. sample_li
-evaluates only the branches of the kinds the scene has; area_light_emission,
-pdf_li_area_hit, env_le, env_pdf_li and compute_power complete the set.
+(src/lights/infinite.rs), and diffuse area lights on triangles and on
+full or partial spheres (src/lights/diffuse.rs), one light row per emitting
+triangle or sphere. sample_li evaluates only the branches of the kinds the
+scene has; area_light_emission, pdf_li_area_hit, env_le, env_pdf_li and
+compute_power complete the set. A sphere lamp is sampled uniformly over its
+area, or, with ``cone_spheres`` (the integrators pass
+``static.has_cone_sphere_lights``), over the cone it subtends from outside
+when it is a full, outward-facing sphere (sphere.rs sample_interaction;
+``_sphere_cone_info``).
 """
 from __future__ import annotations
 
@@ -17,10 +22,13 @@ import operator
 import torch
 
 from ..scene.arrays import (
-    LIGHT_AREA, LIGHT_DISTANT, LIGHT_GONIO, LIGHT_INFINITE, LIGHT_POINT, LIGHT_PROJECTION, LIGHT_SPOT,
+    GEOM_SPHERE, GEOM_TRI, LIGHT_AREA, LIGHT_DISTANT, LIGHT_GONIO, LIGHT_INFINITE, LIGHT_POINT, LIGHT_PROJECTION,
+    LIGHT_SPOT, QUADRIC_SPHERE,
 )
-from .affine import xf_vector, xf_vector_t
-from .shading import FLAG_FLIP_GEOM_N, cross, dot, normalize
+from .affine import xf_point, xf_vector, xf_vector_t
+from .shading import FLAG_FLIP_GEOM_N, coordinate_system, cross, dot, normalize
+
+FLAG_REVERSE_ORIENTATION = 4  # scene.builder.FLAG_REVERSE_ORIENTATION
 
 _UNPORTED = {LIGHT_GONIO: "goniometric", LIGHT_PROJECTION: "projection"}
 TWO_PI = 2.0 * math.pi
@@ -128,18 +136,62 @@ def uniform_sample_triangle(u1, u2):
 
 
 def _sample_prim_point(sa, prim_ids, u1, u2):
-    """Uniformly sample a point on triangle prims (sampling.rs:147).
-    Returns (p, n, area)."""
+    """Uniformly sample a point on the prims' surfaces: triangles by
+    uniform barycentrics (sampling.rs:147), spheres by a uniform direction
+    times the radius (sphere.rs sample; the reference samples a partial
+    sphere as a full one). Returns (p, n, area)."""
     prim = torch.clamp(prim_ids, min=0)
     geom = sa.prim_geom[prim]
     flags = sa.prim_flags[prim]
     area = sa.prim_area[prim]
-    tv = sa.tri_p[geom]
-    b0, b1 = uniform_sample_triangle(u1, u2)
-    p = b0[:, None] * tv[:, 0] + b1[:, None] * tv[:, 1] + (1.0 - b0 - b1)[:, None] * tv[:, 2]
-    n = normalize(cross(tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0]))
-    n = torch.where(((flags & FLAG_FLIP_GEOM_N) != 0)[:, None], -n, n)
-    return p, n, area
+    flip = ((flags & FLAG_FLIP_GEOM_N) != 0)[:, None]
+    n_tri, n_sph = sa.tri_p.shape[0], sa.sph_param.shape[0]
+    if n_tri:
+        is_tri = sa.prim_kind[prim] == GEOM_TRI if n_sph else None
+        tv = sa.tri_p[torch.where(is_tri, geom, 0) if n_sph else geom]
+        b0, b1 = uniform_sample_triangle(u1, u2)
+        p = b0[:, None] * tv[:, 0] + b1[:, None] * tv[:, 1] + (1.0 - b0 - b1)[:, None] * tv[:, 2]
+        n = normalize(cross(tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0]))
+        n = torch.where(flip, -n, n)
+        if not n_sph:
+            return p, n, area
+    si = torch.where(sa.prim_kind[prim] == GEOM_SPHERE, geom, 0)
+    d = uniform_sample_sphere(u1, u2)
+    ps = xf_point(sa.sph_o2w[si], d * sa.sph_param[si, 0:1])
+    ns = normalize(xf_vector_t(sa.sph_w2o[si][:, :, :3], d))
+    ns = torch.where(flip, -ns, ns)
+    if not n_tri:
+        return ps, ns, area
+    return torch.where(is_tri[:, None], p, ps), torch.where(is_tri[:, None], n, ns), area
+
+
+def _sphere_cone_info(sa, prim_ids):
+    """(is_cone_sphere, world center, world radius) of light prims: a full,
+    outward-facing sphere is sampled by its visible cone (sphere.rs
+    sample_interaction); its world radius takes column 0 of o2w as the
+    scale (reference lights._sphere_cone_info :461)."""
+    prim = torch.clamp(prim_ids, min=0)
+    kind = sa.prim_kind[prim]
+    gi = torch.where(kind == GEOM_SPHERE, sa.prim_geom[prim], 0)
+    par = sa.sph_param[gi]
+    o2w = sa.sph_o2w[gi]
+    r_o = par[:, 0]
+    full = (par[:, 1] <= -r_o + 1e-6 * r_o) & (par[:, 2] >= r_o - 1e-6 * r_o) & (par[:, 3] >= 2.0 * math.pi - 1e-6)
+    # reverse-oriented spheres emit inward; they keep uniform-area sampling
+    not_rev = (sa.prim_flags[prim] & FLAG_REVERSE_ORIENTATION) == 0
+    is_sph = (kind == GEOM_SPHERE) & (sa.sph_kind[gi] == QUADRIC_SPHERE) & full & not_rev
+    return is_sph, o2w[:, :, 3], r_o * torch.linalg.vector_norm(o2w[:, :, 0], dim=-1)
+
+
+def _cone_cos_max(c_w, r_w, p_ref):
+    """(dc2, cos theta_max) of the cone a sphere of center c_w and radius
+    r_w subtends from p_ref, and the pdf of a direction drawn in it."""
+    to_c = c_w - p_ref
+    dc2 = torch.clamp(dot(to_c, to_c), min=1e-12)
+    sin2_t_max = torch.clamp(r_w * r_w / dc2, 0.0, 1.0)
+    cos_t_max = torch.sqrt(torch.clamp(1.0 - sin2_t_max, min=0.0))
+    pdf = 1.0 / torch.clamp(2.0 * math.pi * (1.0 - cos_t_max), min=1e-12)
+    return to_c, dc2, cos_t_max, pdf
 
 
 def area_light_emission(sa, light_ids, n_light, w):
@@ -150,13 +202,17 @@ def area_light_emission(sa, light_ids, n_light, w):
     return torch.where((emits & (light_ids >= 0))[:, None], par[:, 0:3], 0.0)
 
 
-def sample_li(sa, static, light_ids, p_ref, u1, u2):
+def sample_li(sa, static, light_ids, p_ref, u1, u2, cone_spheres=False):
     """Sample an incident direction from light `light_ids` toward p_ref.
 
     Returns dict {wi, li, pdf, dist, delta, n, area}: pdf in solid angle
     (1 for the delta lights), dist the distance to the light sample (the
     shadow ray's t_max; twice the world radius for a distant light), n and
-    area the area light's sample normal and area (zero and one elsewhere)."""
+    area the area light's sample normal and area (zero and one elsewhere).
+    cone_spheres: a full, outward-facing sphere lamp seen from outside is
+    sampled over its visible cone, with the cone's pdf (pdf_li_area_hit
+    takes the same flag); the spatial distribution's build samples
+    without it, as the reference's does."""
     kinds = set(static.light_kinds)
     for k in kinds & set(_UNPORTED):
         raise NotImplementedError(f"pbrt_tpu_torch does not sample {_UNPORTED[k]} lights yet")
@@ -214,10 +270,12 @@ def sample_li(sa, static, light_ids, p_ref, u1, u2):
         emits = (par[:, 3] > 0) | (cos_l > 0)
         # area pdf -> solid angle (shape.rs pdf_interaction)
         pdf = d2 / torch.clamp(cos_l.abs() * area, min=1e-12)
-        branches.append(((LIGHT_AREA,), {
-            "wi": wi, "li": torch.where(emits[:, None], par[:, 0:3], 0.0),
-            "pdf": torch.where(cos_l.abs() > 1e-7, pdf, 0.0), "dist": dist,
-            "delta": torch.zeros_like(pdf, dtype=torch.bool), "n": ns, "area": area}))
+        area_br = {"wi": wi, "li": torch.where(emits[:, None], par[:, 0:3], 0.0),
+                   "pdf": torch.where(cos_l.abs() > 1e-7, pdf, 0.0), "dist": dist,
+                   "delta": torch.zeros_like(pdf, dtype=torch.bool), "n": ns, "area": area}
+        if cone_spheres and sa.sph_param.shape[0] > 0:
+            area_br = _sample_cone(sa, sa.light_prim[lid], par, p_ref, u1, u2, area_br)
+        branches.append(((LIGHT_AREA,), area_br))
     out = branches[0][1]
     if len(branches) > 1:
         kind = sa.light_kind[lid]
@@ -227,15 +285,53 @@ def sample_li(sa, static, light_ids, p_ref, u1, u2):
     return out
 
 
-def pdf_li_area_hit(sa, p_ref, hit_p, hit_ng, hit_light, prim_area_of_hit):
-    """pdf_li for a BSDF-sampled ray that hit an area light at hit_p with
-    normal hit_ng: the MIS weight's light-side density."""
+def _sample_cone(sa, lprim, par, p_ref, u1, u2, area_br):
+    """sample_li's area branch with the lanes whose lamp is a cone sphere
+    seen from outside sampled over the visible cone (reference
+    lights.sample_li :419-460): the point on the sphere whose outward
+    normal makes the sampled angle with the direction back to p_ref."""
+    is_sph, c_w, r_w = _sphere_cone_info(sa, lprim)
+    to_c, dc2, cos_t_max, pdf_c = _cone_cos_max(c_w, r_w, p_ref)
+    dc = torch.sqrt(dc2)
+    use_cone = is_sph & (dc2 > r_w * r_w * 1.0001)
+    wc = to_c / dc[:, None]
+    vx, vy = coordinate_system(wc)
+    cos_t = (1.0 - u1) + u1 * cos_t_max
+    sin2_t = torch.clamp(1.0 - cos_t * cos_t, min=0.0)
+    ds = dc * cos_t - torch.sqrt(torch.clamp(r_w * r_w - dc2 * sin2_t, min=0.0))
+    cos_a = torch.clamp((dc2 + r_w * r_w - ds * ds) / torch.clamp(2.0 * dc * r_w, min=1e-12), -1.0, 1.0)
+    sin_a = torch.sqrt(torch.clamp(1.0 - cos_a * cos_a, min=0.0))
+    phi_c = 2.0 * math.pi * u2
+    # SphericalDirection with -wc as +z: the normal at the sampled point
+    n_w = ((sin_a * torch.cos(phi_c))[:, None] * (-vx) + (sin_a * torch.sin(phi_c))[:, None] * (-vy)
+           + cos_a[:, None] * (-wc))
+    p_s = c_w + r_w[:, None] * n_w
+    to_sc = p_s - p_ref
+    dac = torch.sqrt(torch.clamp(dot(to_sc, to_sc), min=1e-12))
+    wi_c = to_sc / dac[:, None]
+    # the sampled point faces p_ref: it emits, one-sided or not
+    m = use_cone[:, None]
+    return dict(area_br, wi=torch.where(m, wi_c, area_br["wi"]), li=torch.where(m, par[:, 0:3], area_br["li"]),
+                pdf=torch.where(use_cone, pdf_c, area_br["pdf"]), dist=torch.where(use_cone, dac, area_br["dist"]),
+                n=torch.where(m, n_w, area_br["n"]))
+
+
+def pdf_li_area_hit(sa, p_ref, hit_p, hit_ng, hit_light, prim_area_of_hit, cone_spheres=False):
+    """pdf_li for a BSDF-sampled ray that hit area light `hit_light` at
+    hit_p with normal hit_ng: the MIS weight's light-side density. With
+    cone_spheres, a cone sphere seen from outside gives the cone's pdf, as
+    sample_li draws it (sphere.rs pdf_interaction)."""
     to_s = hit_p - p_ref
     d2 = torch.clamp(dot(to_s, to_s), min=1e-12)
     wi = to_s / torch.sqrt(d2)[:, None]
     cos_l = dot(hit_ng, -wi).abs()
     pdf = d2 / torch.clamp(cos_l * prim_area_of_hit, min=1e-12)
-    return torch.where(cos_l > 1e-7, pdf, 0.0)
+    pdf = torch.where(cos_l > 1e-7, pdf, 0.0)
+    if cone_spheres and sa.sph_param.shape[0] > 0:
+        is_sph, c_w, r_w = _sphere_cone_info(sa, sa.light_prim[torch.clamp(hit_light, min=0)])
+        _to_c, dc2, _cos, pdf_cone = _cone_cos_max(c_w, r_w, p_ref)
+        pdf = torch.where(is_sph & (dc2 > r_w * r_w * 1.0001), pdf_cone, pdf)
+    return pdf
 
 
 def compute_power(sa, static):

@@ -1,7 +1,7 @@
 """Material evaluation: per-ray material rows -> BSDF lobe sets.
 
 The port's counterpart of ``pbrt_tpu/device/materials.py make_bsdf`` for
-matte (Lambert or Oren-Nayar), mirror, glass, metal and plastic
+matte (Lambert or Oren-Nayar), mirror, glass, metal, plastic and uber
 (src/materials/*.rs). With constant parameters a material row's lobes do
 not depend on the hit, so:
 
@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from ..scene.arrays import (
-    MAT_GLASS, MAT_MATTE, MAT_METAL, MAT_MIRROR, MAT_PLASTIC, P_ETA, P_K, P_KD, P_KR, P_KS, P_KT,
-    P_SIGMA, P_UROUGH, P_VROUGH,
+    MAT_GLASS, MAT_MATTE, MAT_METAL, MAT_MIRROR, MAT_PLASTIC, MAT_UBER, P_ETA, P_K, P_KD, P_KR, P_KS, P_KT,
+    P_OPACITY, P_SIGMA, P_UROUGH, P_VROUGH,
 )
 from .texture import eval_textures, material_param, needed_programs
 from .bsdf import (
@@ -40,7 +40,7 @@ FR_NONE = 0.0
 FR_DIELECTRIC = 1.0
 FR_CONDUCTOR = 2.0
 
-BAKED_KINDS = frozenset({MAT_MATTE, MAT_MIRROR, MAT_GLASS, MAT_METAL, MAT_PLASTIC})
+BAKED_KINDS = frozenset({MAT_MATTE, MAT_MIRROR, MAT_GLASS, MAT_METAL, MAT_PLASTIC, MAT_UBER})
 
 
 # the slots and lobe kinds each material kind can write (the reference's
@@ -51,6 +51,7 @@ _KIND_SLOTS = {
     MAT_GLASS: {4: (LOBE_FRESNEL_SPEC, LOBE_SPEC_R), 5: (LOBE_SPEC_T,), 2: (LOBE_MICRO_R,), 3: (LOBE_MICRO_T,)},
     MAT_PLASTIC: {0: (LOBE_LAMBERT_R,), 2: (LOBE_MICRO_R,)},
     MAT_METAL: {2: (LOBE_MICRO_R,)},
+    MAT_UBER: {6: (LOBE_SPEC_T,), 0: (LOBE_LAMBERT_R,), 2: (LOBE_MICRO_R,), 4: (LOBE_SPEC_R,), 5: (LOBE_SPEC_T,)},
 }
 
 
@@ -65,7 +66,7 @@ def lobe_table(sa, static):
     texture programs the material rows read."""
     if bool((sa.mat_tex >= 0).any()):
         if set(static.mat_kinds_present) - BAKED_KINDS:
-            raise NotImplementedError("textured lobes cover matte, mirror, glass, metal and plastic only")
+            raise NotImplementedError("textured lobes cover matte, mirror, glass, metal, plastic and uber only")
         poss: dict[int, set] = {}
         for k in static.mat_kinds_present:
             for slot, kinds in _KIND_SLOTS[int(k)].items():
@@ -99,7 +100,7 @@ def make_bsdf(sa, static, mat_ids, table=None, uv=None, p=None, duvdx=None, duvd
     tex_values = eval_textures(sa, static.tex_programs, uv, p, duvdx, duvdy, atlases=atlases,
                                only=table["programs"])
     kind, data = _lobes(sa.mat_kind[mat_ids], sa.mat_remap[mat_ids],
-                        lambda slot: material_param(sa, tex_values, mat_ids, slot))
+                        lambda slot: material_param(sa, tex_values, mat_ids, slot), static.mat_kinds_present)
     slots = table["slots"]
     return {"kind": kind[:, slots].contiguous(), "data": data[:, slots].contiguous(),
             "possible": table["possible"], "has_beckmann": table["has_beckmann"]}
@@ -112,14 +113,16 @@ def bake_lobes(sa, static):
     k or Kt 6:9, alpha_x 9, alpha_y 10, Fresnel kind 11, then Oren-Nayar
     (A, B) or the micro lobes' Beckmann flag in 12:14."""
     if set(static.mat_kinds_present) - BAKED_KINDS:
-        raise NotImplementedError("bake_lobes covers matte, mirror, glass, metal and plastic only")
-    return _lobes(sa.mat_kind, sa.mat_remap, lambda slot: sa.mat_const[:, slot])
+        raise NotImplementedError("bake_lobes covers matte, mirror, glass, metal, plastic and uber only")
+    return _lobes(sa.mat_kind, sa.mat_remap, lambda slot: sa.mat_const[:, slot], static.mat_kinds_present)
 
 
-def _lobes(kind, remap_row, param):
+def _lobes(kind, remap_row, param, kinds_present):
     """Lobe kinds (N, 8) and data (N, 8, 14) of N shading points or material
     rows: kind and remap_row (N,) per point, param(slot) -> (N, 3) the
-    parameter values, with the reference's clamps (materials.py:150-260)."""
+    parameter values, with the reference's clamps (materials.py:150-260).
+    Uber's lobes are built only when kinds_present (the scene's material
+    kinds) holds it, so other scenes trace no more operations."""
     M = kind.shape[0]
     dev = kind.device
     remap = (remap_row & 1) != 0
@@ -207,6 +210,19 @@ def _lobes(kind, remap_row, param):
     m = kind == MAT_METAL
     one = torch.ones((M, 3), dtype=torch.float32, device=dev)
     put(2, m, LOBE_MICRO_R, one, eta=eta3, k_or_t=kcond, ax=ax, ay=ay, fresnel=FR_CONDUCTOR, ab=(beck_f, zero_r))
+
+    if MAT_UBER in kinds_present:
+        # uber.rs: a pass-through specular transmission of weight 1 -
+        # opacity, then the opaque lobes scaled by opacity
+        m = kind == MAT_UBER
+        op = torch.clamp(param(P_OPACITY), 0.0, 1.0)
+        inv_op = 1.0 - op
+        put(6, m & nonblack(inv_op), LOBE_SPEC_T, inv_op, eta=1.0 + 1e-5)
+        put(0, m & nonblack(op * kd), LOBE_LAMBERT_R, op * kd)
+        put(2, m & nonblack(op * ks), LOBE_MICRO_R, op * ks, eta=eta, ax=ax, ay=ay, fresnel=FR_DIELECTRIC,
+            ab=(beck_f, zero_r))
+        put(4, m & nonblack(op * kr), LOBE_SPEC_R, op * kr, eta=eta, fresnel=FR_DIELECTRIC)
+        put(5, m & nonblack(op * kt), LOBE_SPEC_T, op * kt, eta=eta)
     return out_kind, data
 
 
@@ -218,7 +234,7 @@ def lobes_at_origin(sa, static):
     if not bool((sa.mat_tex >= 0).any()):
         return bake_lobes(sa, static)
     if set(static.mat_kinds_present) - BAKED_KINDS:
-        raise NotImplementedError("bake_lobes covers matte, mirror, glass, metal and plastic only")
+        raise NotImplementedError("bake_lobes covers matte, mirror, glass, metal, plastic and uber only")
     M = sa.mat_kind.shape[0]
     dev = sa.mat_kind.device
     rows = torch.arange(M, device=dev)
@@ -226,4 +242,5 @@ def lobes_at_origin(sa, static):
     p = torch.zeros((M, 3), dtype=torch.float32, device=dev)
     tex_values = eval_textures(sa, static.tex_programs, uv, p,
                                only=needed_programs(static.tex_programs, sa.mat_tex.flatten().tolist()))
-    return _lobes(sa.mat_kind, sa.mat_remap, lambda slot: material_param(sa, tex_values, rows, slot))
+    return _lobes(sa.mat_kind, sa.mat_remap, lambda slot: material_param(sa, tex_values, rows, slot),
+                  static.mat_kinds_present)

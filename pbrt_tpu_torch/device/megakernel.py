@@ -3,8 +3,9 @@ kernel (``csrc/megakernel.cu``) and its plain PyTorch twin.
 
 The port's counterpart of ``pbrt_tpu/device/megakernel.py``. For scenes of
 at most MAX_PRIMS triangle or full-sphere prims, at most MAX_LIGHTS point,
-spot or distant lights and constant-parameter materials (matte with
-Lambert or Oren-Nayar, mirror, glass, GGX metal, Lambert+GGX plastic), the
+spot or distant lights and constant-parameter materials whose lobe set it
+bakes (Lambert or Oren-Nayar matte, mirror, glass, GGX metal, and
+Lambert+GGX plastic or glossy uber: ``bake_lobe_entry``), the
 whole persistent path or directlighting loop runs in one kernel: camera
 regeneration, brute-force closest-hit and shadow tests, NEE, BSDF sampling,
 Russian roulette and the sample flush.
@@ -270,7 +271,7 @@ def _extract(cs, cam, icfg, scfg, fcfg):
     import os
 
     from .lights import compute_power
-    from .materials import BAKED_KINDS, lobes_at_origin
+    from .materials import lobes_at_origin
     from ..scene.arrays import P_KD
 
     sa, static = cs.arrays, cs.static
@@ -346,9 +347,10 @@ def _extract(cs, cam, icfg, scfg, fcfg):
     if len(prims) != static.n_prims:
         return None, "instanced or other primitive rows"
 
-    # bake material lobes by evaluating the lobe builder once per row
-    if MAT_MIX in set(static.mat_kinds_present) or set(static.mat_kinds_present) - BAKED_KINDS:
-        return None, "materials other than matte, mirror, glass, metal and plastic"
+    # bake material lobes by evaluating the lobe builder once per row; a
+    # row is in the class by its lobe set (bake_lobe_entry), not its kind
+    if MAT_MIX in set(static.mat_kinds_present):
+        return None, "mix materials"
     # the lobes of each row with its textures at the origin, as the
     # reference bakes them; an imagemap on the Kd slot becomes the row's
     # atlas texture (kd_tex: its index in kd_textures)
@@ -926,6 +928,98 @@ class _MatTable:
                 "kd": kd}
 
 
+def _xf(m, x, y, z, point):
+    """Rows 0-2 of a 3x4 matrix of floats applied to (x, y, z) lane tensors."""
+    out = []
+    for row in range(3):
+        c = m[row][0] * x + m[row][1] * y + m[row][2] * z
+        out.append(c + m[row][3] if point else c)
+    return out
+
+
+def _sph_consts(pr):
+    """A baked full sphere's float32 constants, as the kernels read them
+    (the csrc/pt_common.cuh sphere record), added to its dict pr."""
+    g3 = _gamma(3)
+    pr["w2o_c"] = [[_f32(x) for x in row] for row in pr["w2o"]]
+    pr["o2w_c"] = [[_f32(x) for x in row] for row in pr["o2w"]]
+    pr["r_c"], pr["r2_c"], pr["phimax_c"] = _f32(pr["r"]), _f32(pr["r"] * pr["r"]), _f32(pr["phimax"])
+    pr["errc"] = [_f32(g3 * abs(float(pr["o2w"][row][3]))) for row in range(3)]
+    return pr
+
+
+def _sph_test(pr, ox, oy, oz, dx, dy, dz, t_query):
+    """The kernels' full-sphere test (pt_common.cuh sph_test; reference
+    megakernel._sph_test): (hit, t, the object-space hit before
+    reprojection)."""
+    oox, ooy, ooz = _xf(pr["w2o_c"], ox, oy, oz, True)
+    odx, ody, odz = _xf(pr["w2o_c"], dx, dy, dz, False)
+    a = _dot3(odx, ody, odz, odx, ody, odz)
+    b = 2.0 * _dot3(oox, ooy, ooz, odx, ody, odz)
+    c = _dot3(oox, ooy, ooz, oox, ooy, ooz) - pr["r2_c"]
+    disc = b * b - 4.0 * a * c
+    has_root = disc > 0
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    q = torch.where(b < 0, -0.5 * (b - sq), -0.5 * (b + sq))
+    safe = torch.where(q.abs() > 1e-30, q, 1.0)
+    t0 = q / torch.where(a.abs() > 1e-30, a, 1e-30)
+    t1 = c / safe
+    tn = torch.minimum(t0, t1)
+    tf = torch.maximum(t0, t1)
+    near_valid = has_root & (tn > SHADOW_EPS) & (tn < t_query)
+    far_valid = has_root & (tf > SHADOW_EPS) & (tf < t_query)
+    t = torch.where(near_valid, tn, tf)
+    return near_valid | far_valid, t, (oox + odx * t, ooy + ody * t, ooz + odz * t)
+
+
+def _sph_attrs(pr, p_loc):
+    """The kernels' sphere shading record (pt_common.cuh sph_attrs;
+    reference megakernel._sph_attrs): the shading dict of lanes that hit
+    the sphere pr at object-space p_loc."""
+    g53 = _f32(_gamma(5) + _gamma(3))
+    r = pr["r_c"]
+    o2w, w2o = pr["o2w_c"], pr["w2o_c"]
+    px_o, py_o, pz_o = p_loc
+    norm = torch.sqrt(torch.clamp(px_o * px_o + py_o * py_o + pz_o * pz_o, min=1e-30))
+    # the radius as a tensor: torch divides by a scalar (or a scalar by a
+    # tensor) through a rounded reciprocal, the kernel with one division
+    r = torch.full_like(norm, r)
+    scale = r / torch.clamp(norm, min=1e-30)
+    px_o, py_o, pz_o = px_o * scale, py_o * scale, pz_o * scale
+    nx_o, ny_o, nz_o = px_o / r, py_o / r, pz_o / r
+    ngx = w2o[0][0] * nx_o + w2o[1][0] * ny_o + w2o[2][0] * nz_o
+    ngy = w2o[0][1] * nx_o + w2o[1][1] * ny_o + w2o[2][1] * nz_o
+    ngz = w2o[0][2] * nx_o + w2o[1][2] * ny_o + w2o[2][2] * nz_o
+    ngx, ngy, ngz = _norm3(ngx, ngy, ngz)
+    if pr["flags"] & FLAG_FLIP_GEOM_N:
+        ngx, ngy, ngz = -ngx, -ngy, -ngz
+    pm = pr["phimax_c"]
+    dux_o, duy_o = -pm * py_o, pm * px_o
+    dux = o2w[0][0] * dux_o + o2w[0][1] * duy_o
+    duy = o2w[1][0] * dux_o + o2w[1][1] * duy_o
+    duz = o2w[2][0] * dux_o + o2w[2][1] * duy_o
+    dot_nd = _dot3(ngx, ngy, ngz, dux, duy, duz)
+    sx_p, sy_p, sz_p = dux - ngx * dot_nd, duy - ngy * dot_nd, duz - ngz * dot_nd
+    sl = torch.sqrt(torch.clamp(sx_p * sx_p + sy_p * sy_p + sz_p * sz_p, min=0.0))
+    ok = sl > 1e-9
+    inv_sl = 1.0 / torch.clamp(sl, min=1e-20)
+    sign = torch.where(ngz >= 0.0, 1.0, -1.0)
+    a_f = -1.0 / (sign + ngz)
+    b_f = ngx * ngy * a_f
+    ssx = torch.where(ok, sx_p * inv_sl, 1.0 + sign * ngx * ngx * a_f)
+    ssy = torch.where(ok, sy_p * inv_sl, sign * b_f)
+    ssz = torch.where(ok, sz_p * inv_sl, -sign * ngx)
+    pw = _xf(o2w, px_o, py_o, pz_o, True)
+    apx, apy, apz = px_o.abs(), py_o.abs(), pz_o.abs()
+    errs = [g53 * (abs(o2w[row][0]) * apx + abs(o2w[row][1]) * apy + abs(o2w[row][2]) * apz)
+            + pr["errc"][row] for row in range(3)]
+    zero = torch.zeros_like(pw[0])
+    return {"px": pw[0], "py": pw[1], "pz": pw[2], "ngx": ngx, "ngy": ngy, "ngz": ngz,
+            "nsx": ngx, "nsy": ngy, "nsz": ngz, "ssx": ssx, "ssy": ssy, "ssz": ssz,
+            "tsx": ngy * ssz - ngz * ssy, "tsy": ngz * ssx - ngx * ssz, "tsz": ngx * ssy - ngy * ssx,
+            "ex": errs[0], "ey": errs[1], "ez": errs[2], "b1": zero, "b2": zero}
+
+
 def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
     """The kernel's estimator in plain PyTorch on any device: lanes px, py,
     pids (R,) integer tensors trace samples s0 .. s0+n_samples-1.
@@ -950,7 +1044,6 @@ def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
     ikind = consts["ikind"]
     T = _MatTable(consts["mats"], dev)
     g7 = _f32(_gamma(7))
-    g53, g3 = _f32(_gamma(5) + _gamma(3)), _gamma(3)
 
     sample_1d, sample_2d = _samplers(is_random)
     kd_textures = consts.get("kd_textures") or []
@@ -1023,83 +1116,13 @@ def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
         hit = same & dok & (t > SHADOW_EPS) & (t < t_query)
         return hit, t, e1 * inv_det, e2 * inv_det
 
-    def xf(m, x, y, z, point):
-        out = []
-        for row in range(3):
-            c = m[row][0] * x + m[row][1] * y + m[row][2] * z
-            out.append(c + m[row][3] if point else c)
-        return out
-
-    def sph_test(pr, ox, oy, oz, dx, dy, dz, t_query):
-        oox, ooy, ooz = xf(pr["w2o_c"], ox, oy, oz, True)
-        odx, ody, odz = xf(pr["w2o_c"], dx, dy, dz, False)
-        a = _dot3(odx, ody, odz, odx, ody, odz)
-        b = 2.0 * _dot3(oox, ooy, ooz, odx, ody, odz)
-        c = _dot3(oox, ooy, ooz, oox, ooy, ooz) - pr["r2_c"]
-        disc = b * b - 4.0 * a * c
-        has_root = disc > 0
-        sq = torch.sqrt(torch.clamp(disc, min=0.0))
-        q = torch.where(b < 0, -0.5 * (b - sq), -0.5 * (b + sq))
-        safe = torch.where(q.abs() > 1e-30, q, 1.0)
-        t0 = q / torch.where(a.abs() > 1e-30, a, 1e-30)
-        t1 = c / safe
-        tn = torch.minimum(t0, t1)
-        tf = torch.maximum(t0, t1)
-        near_valid = has_root & (tn > SHADOW_EPS) & (tn < t_query)
-        far_valid = has_root & (tf > SHADOW_EPS) & (tf < t_query)
-        t = torch.where(near_valid, tn, tf)
-        return near_valid | far_valid, t, (oox + odx * t, ooy + ody * t, ooz + odz * t)
-
-    def sph_attrs(pr, p_loc):
-        r = pr["r_c"]
-        o2w, w2o = pr["o2w_c"], pr["w2o_c"]
-        px_o, py_o, pz_o = p_loc
-        norm = torch.sqrt(torch.clamp(px_o * px_o + py_o * py_o + pz_o * pz_o, min=1e-30))
-        scale = r / torch.clamp(norm, min=1e-30)
-        px_o, py_o, pz_o = px_o * scale, py_o * scale, pz_o * scale
-        nx_o, ny_o, nz_o = px_o / r, py_o / r, pz_o / r
-        ngx = w2o[0][0] * nx_o + w2o[1][0] * ny_o + w2o[2][0] * nz_o
-        ngy = w2o[0][1] * nx_o + w2o[1][1] * ny_o + w2o[2][1] * nz_o
-        ngz = w2o[0][2] * nx_o + w2o[1][2] * ny_o + w2o[2][2] * nz_o
-        ngx, ngy, ngz = _norm3(ngx, ngy, ngz)
-        if pr["flags"] & FLAG_FLIP_GEOM_N:
-            ngx, ngy, ngz = -ngx, -ngy, -ngz
-        pm = pr["phimax_c"]
-        dux_o, duy_o = -pm * py_o, pm * px_o
-        dux = o2w[0][0] * dux_o + o2w[0][1] * duy_o
-        duy = o2w[1][0] * dux_o + o2w[1][1] * duy_o
-        duz = o2w[2][0] * dux_o + o2w[2][1] * duy_o
-        dot_nd = _dot3(ngx, ngy, ngz, dux, duy, duz)
-        sx_p, sy_p, sz_p = dux - ngx * dot_nd, duy - ngy * dot_nd, duz - ngz * dot_nd
-        sl = torch.sqrt(torch.clamp(sx_p * sx_p + sy_p * sy_p + sz_p * sz_p, min=0.0))
-        ok = sl > 1e-9
-        inv_sl = 1.0 / torch.clamp(sl, min=1e-20)
-        sign = torch.where(ngz >= 0.0, 1.0, -1.0)
-        a_f = -1.0 / (sign + ngz)
-        b_f = ngx * ngy * a_f
-        ssx = torch.where(ok, sx_p * inv_sl, 1.0 + sign * ngx * ngx * a_f)
-        ssy = torch.where(ok, sy_p * inv_sl, sign * b_f)
-        ssz = torch.where(ok, sz_p * inv_sl, -sign * ngx)
-        pw = xf(o2w, px_o, py_o, pz_o, True)
-        apx, apy, apz = px_o.abs(), py_o.abs(), pz_o.abs()
-        errs = [g53 * (abs(o2w[row][0]) * apx + abs(o2w[row][1]) * apy + abs(o2w[row][2]) * apz)
-                + pr["errc"][row] for row in range(3)]
-        zero = torch.zeros_like(pw[0])
-        return {"px": pw[0], "py": pw[1], "pz": pw[2], "ngx": ngx, "ngy": ngy, "ngz": ngz,
-                "nsx": ngx, "nsy": ngy, "nsz": ngz, "ssx": ssx, "ssy": ssy, "ssz": ssz,
-                "tsx": ngy * ssz - ngz * ssy, "tsy": ngz * ssx - ngx * ssz, "tsz": ngx * ssy - ngy * ssx,
-                "ex": errs[0], "ey": errs[1], "ez": errs[2], "b1": zero, "b2": zero}
-
     # float32 values of every prim constant, as the kernel reads them
     for pr in prims:
         if pr["kind"] == "tri":
             pr["v_c"] = [[_f32(x) for x in row] for row in pr["v"]]
             pr["uv_c"] = [[_f32(x) for x in row] for row in pr["uv"]]
         else:
-            pr["w2o_c"] = [[_f32(x) for x in row] for row in pr["w2o"]]
-            pr["o2w_c"] = [[_f32(x) for x in row] for row in pr["o2w"]]
-            pr["r_c"], pr["r2_c"], pr["phimax_c"] = _f32(pr["r"]), _f32(pr["r"] * pr["r"]), _f32(pr["phimax"])
-            pr["errc"] = [_f32(g3 * abs(float(pr["o2w"][row][3]))) for row in range(3)]
+            _sph_consts(pr)
 
     attr_keys = ("px", "py", "pz", "ngx", "ngy", "ngz", "nsx", "nsy", "nsz", "ssx", "ssy", "ssz",
                  "tsx", "tsy", "tsz", "ex", "ey", "ez", "b1", "b2") + (("u", "v", "uvd") if any_kd_tex else ())
@@ -1128,7 +1151,7 @@ def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
                 v = pr["v_c"]
                 h_p, t_p, b1_p, b2_p = tri_test(v, ox, oy, oz, permute, sx, sy, sz, t_query)
             else:
-                h_p, t_p, p_loc = sph_test(pr, ox, oy, oz, dx, dy, dz, t_query)
+                h_p, t_p, p_loc = _sph_test(pr, ox, oy, oz, dx, dy, dz, t_query)
             hit_any = hit_any | h_p
             if not want_attrs:
                 continue
@@ -1153,7 +1176,7 @@ def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
                     at["v"] = b0_p * st[0][1] + b1_p * st[1][1] + b2_p * st[2][1]
                     at["uvd"] = _f32(pr["uvd_c"])
             else:
-                at = sph_attrs(pr, p_loc)
+                at = _sph_attrs(pr, p_loc)
                 if any_kd_tex:  # textured spheres are outside the class
                     at.update(u=attrs["u"], v=attrs["v"], uvd=attrs["uvd"])
             for key in attr_keys:
@@ -1170,7 +1193,7 @@ def megakernel_plain(consts, px, py, pids, s0: int, n_samples: int, seed: int):
         w = r2c[3][0] * pxf + r2c[3][1] * pyf + r2c[3][3]
         inv_w = 1.0 / w
         dx, dy, dz = _norm3(cx * inv_w, cy * inv_w, cz * inv_w)
-        wx, wy, wz = _norm3(*xf(c2w, dx, dy, dz, False))
+        wx, wy, wz = _norm3(*_xf(c2w, dx, dy, dz, False))
         return (torch.full_like(pxf, c2w[0][3]), torch.full_like(pxf, c2w[1][3]), torch.full_like(pxf, c2w[2][3]),
                 wx, wy, wz)
 

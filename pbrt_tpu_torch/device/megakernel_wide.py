@@ -3,16 +3,23 @@
 
 The port's counterpart of ``pbrt_tpu/device/megakernel_wide.py``: the whole
 persistent path loop for triangle scenes, with the closest-hit and shadow
-walks of the wide BVH inside the kernel. Its class here: triangle-only
-wide-BVH scenes, flat or smooth-shaded, with default or real UV charts (the
-attribute table); materials of the six lobe classes ``bake_lobe_entry``
-bakes (at most 16 used), with constant parameters or constant textures,
+walks of the wide BVH inside the kernel. Its class here: wide-BVH scenes,
+flat or smooth-shaded, with default or real UV charts (the attribute
+table), and beside the triangles at most 8 full spheres (the mixed
+scenes, whose wide tables cover the triangle subset; each ray tests the
+spheres after its walk and keeps the nearer hit, the triangle on a tie);
+materials of the six lobe classes ``bake_lobe_entry`` bakes (at most 16
+used; a row is in the class by its lobe set, so a glossy uber row bakes
+as plastic does), with constant parameters or constant textures,
 and a 2D uv-mapped checkerboard of two constant, non-black cells on a matte
 or plastic Kd (selected per hit in the kernel, reference :398-440,
 :1273-1287); no bump maps (the reference's kernel renders them without
-bumps, ROADMAP C; the port sends them to the wavefront); at most 8 lights among one- or
-two-sided triangle area lights, point, spot and distant lights and a
-constant infinite light, with uniform or power selection; pinhole and
+bumps, ROADMAP C; the port sends them to the wavefront); untextured sphere
+materials; at most 8 lights among one- or two-sided triangle area lights,
+full-sphere area lights (sampled by the cone they subtend from outside,
+uniformly over their area from inside, sphere.rs sample_interaction),
+point, spot and distant lights and a constant infinite light, with
+uniform or power selection; pinhole and
 thin-lens perspective cameras; the box, triangle and gaussian filters; the
 (0,2), random, stratified, halton, sobol and maxmindist samplers
 (stratified and halton without a lens, stratified with the reference's own
@@ -52,7 +59,7 @@ import numpy as np
 import torch
 
 from ..scene.arrays import (
-    GEOM_SPHERE, LIGHT_AREA, LIGHT_DISTANT, LIGHT_INFINITE, LIGHT_POINT, LIGHT_SPOT, MAT_MIX,
+    GEOM_SPHERE, LIGHT_AREA, LIGHT_DISTANT, LIGHT_INFINITE, LIGHT_POINT, LIGHT_SPOT, MAT_MIX, QUADRIC_SPHERE,
 )
 from . import nvcc, rng
 from .bsdf import LOBE_LAMBERT_R, LOBE_MICRO_R, LOBE_NONE, LOBE_OREN_NAYAR
@@ -60,13 +67,14 @@ from .lights import INV_4PI, uniform_sample_sphere
 from .megakernel import (
     DPB, FLAG_FLIP_GEOM_N, FLAG_HAS_SHADING_N, INV_PI, LOBE_PLASTIC, M32, MAT_DEFAULTS, MAT_STRIDE, RAY_EPS,
     _concentric_disk, _dot3, _f32, _gamma, _h, _local, _MatTable, _norm3, _offset_ray, _pcg, _reverse_bits,
-    _samplers, _sobol2, _u2f01, _vdc, bake_lobe_entry,
+    _samplers, _sobol2, _sph_attrs, _sph_consts, _sph_test, _u2f01, _vdc, bake_lobe_entry,
 )
 from .sampler import _sobol_cols, _wrap, _xor_columns, sobol_dim_dyn, sobol_global_index
 from .wide_bvh import _check_tables, traverse_plain
 
 MAX_MATS = 16
 MAX_LIGHTS = 8
+MAX_SPHERES = 8
 DEFAULT_MAX_TRIS = 4096  # the reference's PBRT_TPU_WIDEMEGA_MAX_TRIS default
 # the kernel's sampler ids (0-2 as the brute megakernel's SAMPLERS)
 SAMPLERS = {"zerotwosequence": 0, "lowdiscrepancy": 0, "random": 1, "stratified": 2, "halton": 3, "sobol": 4,
@@ -100,9 +108,13 @@ MAT_BASE = LIGHT_BASE + MAX_LIGHTS * LIGHT_STRIDE
 BLOB_FLOATS = MAT_BASE + MAX_MATS * MAT_STRIDE
 # light record: 0 kind, 1 par (12), 13 spot falloff denominator (the brute
 # megakernel's record), then for a triangle area light 14 area,
-# 15 two-sided, 16 v0 v1 v2 (9), 25 ng (3); for the infinite light 14 the
-# escaped ray's MIS density, 1/4pi x its selection pmf
+# 15 two-sided, 16 v0 v1 v2 (9), 25 ng (3); for a sphere lamp 14 area,
+# 15 two-sided, 16 the world center (3), 19 the world radius r, 20 r^2,
+# 21 r^2 x 1.0001 (outside the sphere beyond it), 22 the object radius,
+# 28 1 + its sphere record (0 for a triangle); for the infinite light 14
+# the escaped ray's MIS density, 1/4pi x its selection pmf
 L_KIND, L_PAR, L_SPOT_DEN, L_AREA, L_TWO_SIDED, L_V, L_NG = 0, 1, 13, 14, 15, 16, 25
+L_C, L_RW, L_RW2, L_RW2X, L_ROBJ, L_SPH = 16, 19, 20, 21, 22, 28
 L_ENV_P = 14
 # the sampler table (int32): sobol's generator columns of SOBOL_DIMS
 # dimensions (32 each), then the film inversion's 32 columns and its 32
@@ -115,6 +127,16 @@ SOB_DELTA = SOB_INV + 32
 # its even cells' color in M_COLOR, its odd cells' in M_KT
 M_ROW = 31
 M_CHK, M_CHK_UV = 24, 25
+# the spheres (the SPH modes only): past BLOB_FLOATS a count, then one
+# SPH_STRIDE record per sphere: 0 its light row (-1 for none), 1 its
+# material row, then csrc/pt_common.cuh's sphere record (flags, w2o, o2w,
+# radius, radius^2, phimax, the p_err constant terms)
+SPH_BASE = BLOB_FLOATS
+SPH_HEADER = 4
+SPH_STRIDE = 36
+S_LIGHT, S_MAT, S_FLAGS, S_W2O, S_O2W, S_R, S_R2, S_PHIMAX, S_ERRC = 0, 1, 2, 3, 15, 27, 28, 29, 30
+SPH_BLOB_FLOATS = SPH_BASE + SPH_HEADER + MAX_SPHERES * SPH_STRIDE
+N_MODES = 3 * 2 * N_SAMPLER_IDS  # ext 0-2 x sampler x any area light
 
 
 # ---------------------------------------------------------------------------
@@ -130,16 +152,16 @@ def _extract(cs, cam, icfg, scfg, fcfg, max_tris):
     from ..scene.arrays import P_KD
 
     sa, static = cs.arrays, cs.static
-    if not static.has_wide or sa.wnode_rec is None:
-        return None, "scenes without the wide-BVH tables (at most 64 prims, or quadrics)"
+    if static.n_spheres > MAX_SPHERES:
+        return None, f"more than {MAX_SPHERES} spheres"
+    if not static.has_wide_tri or sa.wnode_rec is None:
+        return None, "scenes without the wide-BVH tables (at most 64 prims)"
     if static.n_tris > max_tris:
         return None, f"more than {max_tris} triangles (PBRT_TPU_WIDEMEGA_MAX_TRIS)"
     if static.n_media:
         return None, "participating media"
     if static.has_env_map:
         return None, "the image-mapped infinite light (the env map)"
-    if int(sa.sph_kind.shape[0]):
-        return None, "spheres (baked quadrics)"
     if static.has_motion:
         return None, "motion blur"
     kind = scfg["kind"]
@@ -182,6 +204,7 @@ def _extract(cs, cam, icfg, scfg, fcfg, max_tris):
     light_kind, light_param, light_prim = _h(sa.light_kind), _h(sa.light_param), _h(sa.light_prim)
     prim_area, prim_geom, prim_kind = _h(sa.prim_area), _h(sa.prim_geom), _h(sa.prim_kind)
     tri_p = _h(sa.tri_p)
+    sph_w2o, sph_o2w, sph_par, sph_kind = _h(sa.sph_w2o), _h(sa.sph_o2w), _h(sa.sph_param), _h(sa.sph_kind)
     lights = []
     for i in range(n_l):
         k = int(light_kind[i])
@@ -190,7 +213,25 @@ def _extract(cs, cam, icfg, scfg, fcfg, max_tris):
         elif k == LIGHT_AREA:
             pid = int(light_prim[i])
             if int(prim_kind[pid]) == GEOM_SPHERE:
-                return None, "sphere area lights"
+                # a sphere lamp: the cone it subtends from outside, its
+                # area from inside (reference :305-339), on a full,
+                # outward-facing sphere (lights._sphere_cone_info)
+                si = int(prim_geom[pid])
+                if int(sph_kind[si]) != QUADRIC_SPHERE:
+                    return None, "quadrics other than spheres"
+                r_o = float(sph_par[si, 0])
+                if not (float(sph_par[si, 1]) <= -r_o + 1e-6 * r_o and float(sph_par[si, 2]) >= r_o - 1e-6 * r_o
+                        and float(sph_par[si, 3]) >= 2 * np.pi - 1e-6):
+                    return None, "partial-sphere area lights"
+                if prim_flags[pid] & 4:  # builder.FLAG_REVERSE_ORIENTATION: emits inward
+                    return None, "reverse-oriented sphere area lights"
+                o2w_l, w2o_l = sph_o2w[si].astype(np.float64), sph_w2o[si].astype(np.float64)
+                lights.append({"kind": k, "par": light_param[i].astype(float), "sphere": True, "pid": pid,
+                               "c": o2w_l[:3, 3].tolist(), "r": float(r_o * np.linalg.norm(o2w_l[:3, 0])),
+                               "r_obj": r_o, "o2w": o2w_l[:3, :4].tolist(), "w2oT": w2o_l[:3, :3].T.tolist(),
+                               "flip": bool(prim_flags[pid] & FLAG_FLIP_GEOM_N), "area": float(prim_area[pid]),
+                               "two_sided": bool(light_param[i][3] > 0)})
+                continue
             v = tri_p[prim_geom[pid]].astype(np.float64)
             ng = np.cross(v[1] - v[0], v[2] - v[0])
             ng = ng / max(np.linalg.norm(ng), 1e-30)
@@ -206,11 +247,28 @@ def _extract(cs, cam, icfg, scfg, fcfg, max_tris):
         # wavefront
         return None, "more than one infinite light"
 
+    # the baked full spheres (reference :354-380), tested in the kernel
+    # beside the walk
+    prim_mat, prim_light, sph_pid = _h(sa.prim_mat), _h(sa.prim_light), _h(sa.sph_prim_ids)
+    spheres = []
+    for si in range(int(static.n_spheres)):
+        if int(sph_kind[si]) != QUADRIC_SPHERE:
+            return None, "quadrics other than spheres"
+        r = float(sph_par[si, 0])
+        zmin, zmax, phimax = float(sph_par[si, 1]), float(sph_par[si, 2]), float(sph_par[si, 3])
+        if not (zmin <= -r + 1e-7 * r and zmax >= r - 1e-7 * r and phimax >= 2 * np.pi - 1e-6):
+            return None, "partial spheres"
+        pid = int(sph_pid[si])
+        li = int(prim_light[pid])
+        if li >= 0 and not (li < len(lights) and lights[li].get("sphere")):
+            return None, "a sphere whose light row is not a sphere lamp"
+        spheres.append({"w2o": sph_w2o[si], "o2w": sph_o2w[si], "r": r, "phimax": phimax,
+                        "mat": int(prim_mat[pid]), "flags": int(prim_flags[pid]), "light": li})
+
     if MAT_MIX in set(static.mat_kinds_present):
         return None, "mix materials"
     if static.has_bump:
         return None, "bump maps"
-    prim_mat = _h(sa.prim_mat)
     used_mats = sorted(set(int(m) for m in prim_mat))
     if len(used_mats) > MAX_MATS:
         return None, f"more than {MAX_MATS} materials"
@@ -218,7 +276,7 @@ def _extract(cs, cam, icfg, scfg, fcfg, max_tris):
         # the lobes with the textures at the origin, as the reference bakes them
         lk, ld = (_h(x) for x in lobes_at_origin(sa, static))
     except NotImplementedError:
-        return None, "materials other than matte, mirror, glass, metal and plastic"
+        return None, "materials other than matte, mirror, glass, metal, plastic and uber"
     mat_tex = _h(sa.mat_tex)
     tex_param = _h(sa.tex_param)
     mats = {}
@@ -252,6 +310,8 @@ def _extract(cs, cam, icfg, scfg, fcfg, max_tris):
         if entry is None:
             return None, f"the lobe set {[int(lk[m, s]) for s in slots]} of material {m}"
         mats[m] = entry
+    if any(mats[sp["mat"]].get("kd_tex") for sp in spheres):
+        return None, "textured sphere materials (no uv is baked for spheres)"
 
     fp = fcfg["filter_params"]
     consts = {
@@ -259,7 +319,7 @@ def _extract(cs, cam, icfg, scfg, fcfg, max_tris):
         "has_attr": has_attr,
         "mats": mats,
         "lights": lights,
-        "spheres": [],
+        "spheres": spheres,
         "light_cdf": cdf.astype(float).tolist(),
         "light_pmf": pmf.astype(float).tolist(),
         "uniform_select": uniform_select,
@@ -339,7 +399,7 @@ def pack_wide_consts(consts) -> torch.Tensor:
         M_ON_B,
     )
 
-    b = np.zeros(BLOB_FLOATS, np.float64)
+    b = np.zeros(SPH_BLOB_FLOATS if consts["spheres"] else BLOB_FLOATS, np.float64)
     spp = max(int(consts["spp"]), 1)
     xs = max(int(math.floor(math.sqrt(spp))), 1)
     lights = consts["lights"]
@@ -375,8 +435,14 @@ def pack_wide_consts(consts) -> torch.Tensor:
         if lt["kind"] == LIGHT_AREA:
             b[o + L_AREA] = lt["area"]
             b[o + L_TWO_SIDED] = 1.0 if lt["two_sided"] else 0.0
-            b[o + L_V:o + L_V + 9] = np.asarray(lt["v"], np.float64).ravel()
-            b[o + L_NG:o + L_NG + 3] = lt["ng"]
+            if lt.get("sphere"):
+                r = lt["r"]
+                b[o + L_C:o + L_C + 3] = lt["c"]
+                b[o + L_RW], b[o + L_RW2], b[o + L_RW2X], b[o + L_ROBJ] = r, r * r, r * r * 1.0001, lt["r_obj"]
+                b[o + L_SPH] = 1 + next(j for j, sp in enumerate(consts["spheres"]) if sp["light"] == i)
+            else:
+                b[o + L_V:o + L_V + 9] = np.asarray(lt["v"], np.float64).ravel()
+                b[o + L_NG:o + L_NG + 3] = lt["ng"]
         elif lt["kind"] == LIGHT_INFINITE:
             b[o + L_ENV_P] = INV_4PI * float(consts["light_pmf"][i])
     for s, m in enumerate(sorted(consts["mats"])):
@@ -397,6 +463,16 @@ def pack_wide_consts(consts) -> torch.Tensor:
             b[o + M_CHK_UV:o + M_CHK_UV + 4] = chk["us"], chk["vs"], chk["du"], chk["dv"]
             b[o + M_COLOR:o + M_COLOR + 3] = chk["c1"]
             b[o + M_KT:o + M_KT + 3] = chk["c2"]
+    if consts["spheres"]:
+        b[SPH_BASE] = len(consts["spheres"])
+        for j, sp in enumerate(consts["spheres"]):
+            o = SPH_BASE + SPH_HEADER + j * SPH_STRIDE
+            o2w = np.asarray(sp["o2w"], np.float64)
+            b[o + S_LIGHT], b[o + S_MAT], b[o + S_FLAGS] = sp["light"], sp["mat"], sp["flags"]
+            b[o + S_W2O:o + S_W2O + 12] = np.asarray(sp["w2o"], np.float64).ravel()
+            b[o + S_O2W:o + S_O2W + 12] = o2w.ravel()
+            b[o + S_R], b[o + S_R2], b[o + S_PHIMAX] = sp["r"], sp["r"] * sp["r"], sp["phimax"]
+            b[o + S_ERRC:o + S_ERRC + 3] = [_gamma(3) * abs(o2w[row][3]) for row in range(3)]
     return torch.from_numpy(b.astype(np.float32))
 
 
@@ -415,12 +491,14 @@ def kernel_mode(consts) -> int:
     """The kernel's template selector: ext * 12 + sampler * 2 + (any area
     light), sampler as in SAMPLERS; ext = 1 selects the extended
     instantiation, for a filter other than the box, the attribute table, a
-    constant infinite light or a checkerboard Kd."""
+    constant infinite light or a checkerboard Kd; ext = 2 the extended
+    instantiation with the baked spheres (SPH)."""
     any_area = any(lt["kind"] == LIGHT_AREA for lt in consts["lights"])
     ext = (consts["filter"] != "box" or consts["has_attr"] or any(lt["kind"] == LIGHT_INFINITE
                                                                   for lt in consts["lights"])
            or any(e.get("kd_tex") for e in consts["mats"].values()))
-    return int(ext) * 2 * N_SAMPLER_IDS + SAMPLERS[consts["sampler"]] * 2 + int(any_area)
+    ext = 2 if consts["spheres"] else int(ext)
+    return ext * 2 * N_SAMPLER_IDS + SAMPLERS[consts["sampler"]] * 2 + int(any_area)
 
 
 def sampler_table(consts, device) -> torch.Tensor:
@@ -530,10 +608,34 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
             two_t[i] = bool(lt["two_sided"])
             selp_t[i] = pmf[i]
     if consts["has_attr"]:
-        # the attribute row of each prim: the row of its kernel slot
+        # the attribute row of each prim: the row of its kernel slot (a
+        # mixed scene's slots name the triangle subset's prims)
         slots = sa.wslot_prim.to(torch.int64)
+        prims_of = slots[slots >= 0]
+        if sa.wide_prim_rows is not None:
+            prims_of = sa.wide_prim_rows.to(torch.int64)[prims_of]
         attr_row = torch.zeros(int(sa.prim_mat.shape[0]), dtype=torch.int64, device=dev)
-        attr_row[slots[slots >= 0]] = torch.nonzero(slots >= 0).squeeze(1)
+        attr_row[prims_of] = torch.nonzero(slots >= 0).squeeze(1)
+    # the baked spheres with their float32 constants, and the sphere lamps'
+    spheres = [_sph_consts(dict(sp)) for sp in consts["spheres"]]
+    two_pi = _f32(2.0 * math.pi)
+
+    def sph_lamp(lt):
+        """A sphere lamp's float32 constants, as the kernel's light record holds them."""
+        r = lt["r"]
+        return {"c": [_f32(x) for x in lt["c"]], "rw": _f32(r), "rw2": _f32(r * r), "rw2x": _f32(r * r * 1.0001),
+                "robj": _f32(lt["r_obj"]), "o2w": [[_f32(x) for x in row] for row in lt["o2w"]],
+                "w2oT": [[_f32(x) for x in row] for row in lt["w2oT"]]}
+
+    lamps = {i: sph_lamp(lt) for i, lt in enumerate(lights) if lt.get("sphere")}
+
+    def cone_pdf(lp, px_, py_, pz_):
+        """(outside, the cone's pdf) of a sphere lamp seen from (px_, py_, pz_)."""
+        tcx, tcy, tcz = lp["c"][0] - px_, lp["c"][1] - py_, lp["c"][2] - pz_
+        dc2 = torch.clamp(tcx * tcx + tcy * tcy + tcz * tcz, min=1e-12)
+        sin2_tm = torch.clamp(torch.full_like(dc2, lp["rw2"]) / dc2, 0.0, 1.0)  # one division, as the kernel's
+        cos_tm = torch.sqrt(torch.clamp(1.0 - sin2_tm, min=0.0))
+        return dc2 > lp["rw2x"], 1.0 / torch.clamp(two_pi * (1.0 - cos_tm), min=1e-12), (tcx, tcy, tcz, dc2, cos_tm)
     hoff = consts["halton_offset"].to(dev)[pids.to(torch.int64)] if sampler == SAMPLERS["halton"] else None
 
     def film_sample(hbase, px_f, py_f, s_sel):
@@ -681,6 +783,55 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
             mask = mask | mm
         return mask, kd
 
+    def sphere_lamp_sample(lp, lt, par, at, u1, u2):
+        """NEE toward a sphere lamp (reference :1443-1537): the visible
+        cone from outside, a uniform point on the sphere from inside;
+        returns the light sample's (wi, Li, distance, pdf)."""
+        outside, pdf_cone, (tox, toy, toz, dc2, cos_tm) = cone_pdf(lp, at["px"], at["py"], at["pz"])
+        dc = torch.sqrt(dc2)
+        invc = 1.0 / dc
+        wcx, wcy, wcz = tox * invc, toy * invc, toz * invc
+        sgn = torch.where(wcz >= 0.0, 1.0, -1.0)
+        a_cs = -1.0 / (sgn + wcz)
+        b_cs = wcx * wcy * a_cs
+        vxx, vxy, vxz = 1.0 + sgn * wcx * wcx * a_cs, sgn * b_cs, -sgn * wcx
+        vyx, vyy, vyz = b_cs, sgn + wcy * wcy * a_cs, -wcy
+        cos_t = (1.0 - u1) + u1 * cos_tm
+        sin2_t = torch.clamp(1.0 - cos_t * cos_t, min=0.0)
+        ds_ = dc * cos_t - torch.sqrt(torch.clamp(lp["rw2"] - dc2 * sin2_t, min=0.0))
+        cos_a = torch.clamp((dc2 + lp["rw2"] - ds_ * ds_) / torch.clamp(2.0 * dc * lp["rw"], min=1e-12), -1.0, 1.0)
+        sin_a = torch.sqrt(torch.clamp(1.0 - cos_a * cos_a, min=0.0))
+        phi_c = two_pi * u2
+        sa_c, sa_s = sin_a * torch.cos(phi_c), sin_a * torch.sin(phi_c)
+        nwx = sa_c * -vxx + sa_s * -vyx + cos_a * -wcx
+        nwy = sa_c * -vxy + sa_s * -vyy + cos_a * -wcy
+        nwz = sa_c * -vxz + sa_s * -vyz + cos_a * -wcz
+        ps_c = [lp["c"][0] + lp["rw"] * nwx, lp["c"][1] + lp["rw"] * nwy, lp["c"][2] + lp["rw"] * nwz]
+        # inside: a uniform object-space point (lights._sample_prim_point)
+        zz = 1.0 - 2.0 * u1
+        rr = torch.sqrt(torch.clamp(1.0 - zz * zz, min=0.0))
+        ph = two_pi * u2
+        do = [rr * torch.cos(ph), rr * torch.sin(ph), zz]
+        M, Tt = lp["o2w"], lp["w2oT"]
+        ps_a = [M[r][0] * (lp["robj"] * do[0]) + M[r][1] * (lp["robj"] * do[1]) + M[r][2] * (lp["robj"] * do[2])
+                + M[r][3] for r in range(3)]
+        na = _norm3(*(Tt[r][0] * do[0] + Tt[r][1] * do[1] + Tt[r][2] * do[2] for r in range(3)))
+        if lt["flip"]:
+            na = [-x for x in na]
+        ps = [torch.where(outside, a, b) for a, b in zip(ps_c, ps_a)]
+        ngl = [torch.where(outside, a, b) for a, b in zip((nwx, nwy, nwz), na)]
+        tx, ty, tz = ps[0] - at["px"], ps[1] - at["py"], ps[2] - at["pz"]
+        d2 = torch.clamp(tx * tx + ty * ty + tz * tz, min=1e-12)
+        dl = torch.sqrt(d2)
+        invl = 1.0 / dl
+        wxa, wya, wza = tx * invl, ty * invl, tz * invl
+        cos_l = -(wxa * ngl[0] + wya * ngl[1] + wza * ngl[2])
+        emits = outside | (cos_l > 0) | bool(lt["two_sided"])
+        pdf_a = d2 / torch.clamp(cos_l.abs() * _f32(lt["area"]), min=1e-12)
+        pdf_a = torch.where(cos_l.abs() > 1e-7, pdf_a, 0.0)
+        return (wxa, wya, wza, torch.where(emits, par[0], 0.0), torch.where(emits, par[1], 0.0),
+                torch.where(emits, par[2], 0.0), dl, torch.where(outside, pdf_cone, pdf_a))
+
     def nee(hbase, s_cur, dim_base, alive_sh, at, wox, woy, woz, mat, kd_over=None):
         """estimate_direct for one selected light, delta or triangle area,
         with MIS and an any-hit shadow walk."""
@@ -731,6 +882,9 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
                 ws = uniform_sample_sphere(u1, u2)
                 vals = (ws[:, 0], ws[:, 1], ws[:, 2], par[3], par[4], par[5], wr2, _f32(INV_4PI))
                 is_delta = is_delta & ~m
+            elif lt.get("sphere"):
+                vals = sphere_lamp_sample(lamps[i], lt, par, at, u1, u2)
+                is_delta = is_delta & ~m
             else:  # uniform point on one triangle area light
                 v = [[_f32(x) for x in row] for row in lt["v"]]
                 su0 = torch.sqrt(torch.clamp(u1, min=0.0))
@@ -780,6 +934,8 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
         t_sh = torch.where(contributes, dist * _f32(1.0 - 2.0 * RAY_EPS), -1.0)
         occ = traverse_plain(sa, torch.stack([osx, osy, osz], -1), torch.stack([wix, wiy, wiz], -1), t_sh,
                              True)[1] >= 0
+        for pr in spheres:
+            occ = occ | _sph_test(pr, osx, osy, osz, wix, wiy, wiz, t_sh)[0]
         vis = torch.where(occ, 0.0, 1.0)
         w_l = torch.where(is_delta, 1.0, _power_heuristic(p_sel, p_b))
         scale = vis * w_l / torch.clamp(p_sel, min=1e-30)
@@ -814,10 +970,25 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
         _t, prim, b1, b2 = traverse_plain(sa, torch.stack([ox, oy, oz], -1), torch.stack([dx, dy, dz], -1),
                                           t_query, False)[:4]
         valid = prim >= 0
-        nv = nv + torch.where(alive & valid, 1.0, 0.0)
         prim = torch.clamp(prim, min=0)
         at = tri_attrs(prim, b1, b2)
         mat = sa.prim_mat[prim].long()
+        light_h = sa.prim_light[prim].long()
+        if spheres:
+            # the baked spheres merged against the walk's winner, the
+            # triangle keeping a tie (reference :1663-1677)
+            t_all = torch.where(valid, _t, 1e30)
+            for pr in spheres:
+                h_s, t_s, p_loc = _sph_test(pr, ox, oy, oz, dx, dy, dz, t_query)
+                better = torch.where(h_s, t_s, 1e30) < t_all
+                t_all = torch.where(better, t_s, t_all)
+                at_s = _sph_attrs(pr, p_loc)
+                at_s["u"] = at_s["v"] = torch.zeros_like(ox)  # no uv is baked for spheres
+                at = {k: torch.where(better, at_s[k], v) for k, v in at.items()}
+                mat = torch.where(better, pr["mat"], mat)
+                light_h = torch.where(better, pr["light"], light_h)
+                valid = valid | better
+        nv = nv + torch.where(alive & valid, 1.0, 0.0)
         wox, woy, woz = -dx, -dy, -dz
         if inf_idx >= 0:
             # escaped rays pick up the constant environment with the
@@ -829,7 +1000,6 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
             L = [L[ch] + torch.where(esc, beta[ch] * par_e[ch] * w_env, 0.0) for ch in range(3)]
         if any_area:
             # area-light emission with deferred MIS (diffuse.rs l())
-            light_h = sa.prim_light[prim].long()
             emitting = alive & valid & (light_h >= 0)
             lh = torch.clamp(light_h, min=0)
             em = (_dot3(at["ngx"], at["ngy"], at["ngz"], wox, woy, woz) > 0) | two_t[lh]
@@ -838,6 +1008,10 @@ def wide_megakernel_plain(consts, sa, px, py, pids, s0: int, n_samples: int, see
             wl = 1.0 / torch.sqrt(d2)
             cos_l = _dot3(at["ngx"], at["ngy"], at["ngz"], -tx * wl, -ty * wl, -tz * wl).abs()
             p_lh = torch.where(cos_l > 1e-7, d2 / torch.clamp(cos_l * area_t[lh], min=1e-12), 0.0) * selp_t[lh]
+            for i, lp in lamps.items():
+                # a sphere lamp seen from outside: the cone's density
+                outside, pdf_cone, _geo = cone_pdf(lp, ppx, ppy, ppz)
+                p_lh = torch.where((light_h == i) & outside, pdf_cone * pmf[i], p_lh)
             w_mis = torch.where(prev_spec, 1.0, _power_heuristic(prev_pdf, p_lh))
             L = [L[ch] + torch.where(emitting, beta[ch] * torch.where(em, le_t[lh, ch], 0.0) * w_mis, 0.0)
                  for ch in range(3)]
@@ -941,10 +1115,11 @@ def _launch(entry: str, blob, mode: int, tables, px, py, pids, s0: int, n_sample
     dev = px.device
     if dev.type != "cuda":
         raise ValueError("wide_megakernel_cuda takes CUDA tensors")
-    if blob.device != dev or blob.dtype != torch.float32 or blob.numel() != BLOB_FLOATS:
-        raise ValueError(f"blob must be {BLOB_FLOATS} float32 values on {dev}")
-    if not 0 <= mode < 4 * N_SAMPLER_IDS:
+    if not 0 <= mode < N_MODES:
         raise ValueError(f"bad kernel mode {mode}")
+    n_blob = SPH_BLOB_FLOATS if mode >= 4 * N_SAMPLER_IDS else BLOB_FLOATS
+    if blob.device != dev or blob.dtype != torch.float32 or blob.numel() != n_blob:
+        raise ValueError(f"blob must be {n_blob} float32 values on {dev}")
     _check_tables(tables, dev)
     sampler = (mode // 2) % N_SAMPLER_IDS
     if stab is None:

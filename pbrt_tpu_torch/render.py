@@ -213,13 +213,13 @@ def make_persistent_fn(cs: CompiledScene, cam=None):
         if mk is not None:
             LAST_PERSISTENT_TIER = "torch-megakernel/" + ("cuda-brute" if dev.type == "cuda" else "plain-brute")
             return mk
-    if mega and os.environ.get("PBRT_TPU_WIDEMEGA", "") == "1" and icfg["kind"] == "path" and static.has_wide:
+    if mega and os.environ.get("PBRT_TPU_WIDEMEGA", "") == "1" and icfg["kind"] == "path" and static.has_wide_tri:
         max_tris = int(os.environ.get("PBRT_TPU_WIDEMEGA_MAX_TRIS", str(DEFAULT_MAX_TRIS)))
         mkw = make_wide_megakernel_fn(cs, cam, icfg, scfg, fcfg, max_tris)
         if mkw is not None:
             LAST_PERSISTENT_TIER = "torch-megakernel/" + ("cuda-wide" if dev.type == "cuda" else "plain-wide")
             return mkw
-    joint = os.environ.get("PBRT_TPU_JOINT", "0") == "1" and dev.type == "cuda" and static.has_wide
+    joint = os.environ.get("PBRT_TPU_JOINT", "0") == "1" and dev.type == "cuda" and static.has_wide_tri
     if icfg["light_strategy"] == "spatial" and static.n_lights > 1:
         icfg["spatial_distribution"] = build_spatial_distribution(cs.arrays, static)
     icfg["lobe_table"] = lobe_table(cs.arrays, static)
@@ -227,6 +227,8 @@ def make_persistent_fn(cs: CompiledScene, cam=None):
         icfg["tex_atlases"] = prepare_atlases(cs.arrays, static)
     differentials = has_imagemaps(static)
     shape = "brute" if static.use_brute_force else "wide-joint" if joint else "wide"
+    if not static.use_brute_force and static.n_spheres:
+        shape += "-mixed"  # the triangle subset's walk beside the spheres' tests
     LAST_PERSISTENT_TIER = f"torch-wavefront/{'cuda' if dev.type == 'cuda' else 'plain'}-{shape}"
 
     def wave_p(sa, px, py, pixel_ids, s0: int, n_samples: int, seed: int):

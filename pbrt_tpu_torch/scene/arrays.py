@@ -140,9 +140,12 @@ _WIDE_DTYPES = {
     "wslot_prim": torch.int32,  # (n_oct*8,) kernel slot -> prim row
     "wattr_tab": torch.float32,  # prim_tab-shaped: n0 n1 n2 (9), uv0 uv1 uv2 (6); None if flat, default UVs
 }
-# derived from the wide tables above (widebvh.hopper_layout, hopper_rows);
-# not reference tables
-HOPPER_TABLES = ("wnode_rec", "wleaf_rec", "wattr_rec")
+# derived from the wide tables above (widebvh.hopper_layout, hopper_rows),
+# not reference tables; the last, wide_prim_rows, is the global prim row of
+# each wide-table prim in a mixed scene (more than 64 triangles beside 1-8
+# quadrics), whose wide tables cover the triangle subset and index it
+# locally (None when they cover every prim)
+HOPPER_TABLES = ("wnode_rec", "wleaf_rec", "wattr_rec", "wide_prim_rows")
 
 
 @dataclass
@@ -185,6 +188,7 @@ class SceneTensors:
     wnode_rec: torch.Tensor | None = None  # (n_nodes, 64) f32 node records
     wleaf_rec: torch.Tensor | None = None  # (n_oct*8, 16) f32 leaf rows, row = kernel slot
     wattr_rec: torch.Tensor | None = None  # (n_oct*8, 16) f32 attribute rows, row = kernel slot
+    wide_prim_rows: torch.Tensor | None = None  # (T,) int32 wide-table prim -> prim row (mixed scenes)
     # MIP pyramid levels of the imagemap textures, "{image_key}_l{k}" ->
     # (H_k, W_k, 3) f32 (TexProgram.image_key, n_levels)
     tex_images: dict = field(default_factory=dict)
@@ -243,11 +247,14 @@ class SceneStatic:
     infinite_light_index: int = -1  # the infinite light's row
     has_env_map: bool = False  # ... and it is image-mapped
     use_brute_force: bool = False  # n_prims <= 64: brute-force intersection, no BVH tables
+    n_spheres: int = 0  # quadric rows
+    has_cone_sphere_lights: bool = False  # an area light on a full, outward-facing sphere
     n_media: int = 0
     has_motion: bool = False
     tex_programs: tuple = ()  # TexProgram per texture, in evaluation (creation) order
     has_bump: bool = False  # some material carries a bump-map texture
-    has_wide: bool = False
+    has_wide: bool = False  # wide-BVH tables over every prim (triangle-only scenes)
+    has_wide_tri: bool = False  # ... over the triangle prims (has_wide, or a mixed scene)
     wide_root: int = 1
 
 
@@ -270,6 +277,16 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
         if arrays.get("wattr_tab") is not None:
             # one attribute row per kernel slot, beside the slot's leaf row
             recs = (*recs, hopper_rows(np.asarray(arrays["wattr_tab"])))
+        prim_kind = np.asarray(arrays["prim_kind"])
+        if (prim_kind != GEOM_TRI).any():
+            # a mixed scene: the tables cover the triangle prims in prim
+            # order and name them by their rank there; the leaf rows' prim
+            # column (10) gets the global row, so every walk returns it
+            rows = np.nonzero(prim_kind == GEOM_TRI)[0].astype(np.int32)
+            leaf = recs[1]
+            valid = leaf[:, 9] > 0
+            leaf[valid, 10] = rows[leaf[valid, 10].astype(np.int64)].astype(np.float32)
+            tensors["wide_prim_rows"] = torch.as_tensor(rows, device=device)
         for name, rec in zip(HOPPER_TABLES, recs):
             tensors[name] = torch.as_tensor(rec, device=device)
     st = SceneStatic(**{f.name: static[f.name] for f in fields(SceneStatic)})

@@ -4,13 +4,18 @@ The port's counterpart of ``pbrt_tpu/scene/builder.py compile_scene`` for
 two scene classes:
 
 - the wide class (more than BRUTE_FORCE_MAX_PRIMS prims): static triangle
-  meshes with the BVH accelerator and the wide-BVH tables;
+  meshes with the BVH accelerator and the wide-BVH tables, and the mixed
+  scenes among them, more than BRUTE_FORCE_MAX_PRIMS triangles beside at
+  most MAX_WIDE_QUADRICS full or partial spheres, whose wide tables cover
+  the triangle subset (``has_wide_tri``; ``has_wide`` stays False, as in
+  the reference);
 - the brute-force class (at most BRUTE_FORCE_MAX_PRIMS prims, no BVH
   tables): static triangle meshes and full or partial spheres.
 
 Both take point, spot, distant and infinite lights (constant, or
-image-mapped through ``mapname``) and area lights on triangles;
-matte (Lambert or Oren-Nayar), mirror, glass, metal and plastic with
+image-mapped through ``mapname``) and area lights on triangles and
+spheres; matte (Lambert or Oren-Nayar), mirror, glass, metal, plastic and
+uber with
 constant or textured parameters, and bump maps (the texture programs,
 their parameter rows and MIP pyramids of ``_TextureRegistry``); the (0,2),
 random, stratified, halton, sobol and
@@ -74,6 +79,7 @@ from .host import HostMaterial, HostTexture, SceneDescription
 from .widebvh import build_wide_bvh
 
 BRUTE_FORCE_MAX_PRIMS = 64
+MAX_WIDE_QUADRICS = 8  # quadrics beside the triangle subset's wide tables (the reference's mixed_ok)
 
 # flags bits for prim_flags
 FLAG_FLIP_GEOM_N = 1
@@ -82,7 +88,7 @@ FLAG_REVERSE_ORIENTATION = 4
 FLAG_HAS_UV = 8
 
 # what the compiler admits (the wavefront renders all of it)
-MATERIALS = ("matte", "mirror", "glass", "metal", "plastic")
+MATERIALS = ("matte", "mirror", "glass", "metal", "plastic", "uber")
 SAMPLERS = ("zerotwosequence", "lowdiscrepancy", "random", "stratified", "halton", "sobol", "maxmindist")
 INTEGRATORS = ("path", "directlighting")
 
@@ -93,6 +99,7 @@ _MATERIAL_DEFAULTS = {
     "glass": {"Kr": 1.0, "Kt": 1.0},
     "plastic": {"Kd": 0.25, "Ks": 0.25, "roughness": 0.1},
     "metal": {"roughness": 0.01},
+    "uber": {"Kd": 0.25, "Ks": 0.25, "roughness": 0.1},
 }
 
 
@@ -190,8 +197,15 @@ def _count_prims(desc: SceneDescription) -> int:
 
 def _check_slice(desc: SceneDescription) -> None:
     """Raise NotImplementedError for any feature outside the ported classes."""
-    brute = _count_prims(desc) <= BRUTE_FORCE_MAX_PRIMS
-    route = "scenes of <= 64 primitives" if brute else "scenes of > 64 primitives"
+    n_prims = _count_prims(desc)
+    brute = n_prims <= BRUTE_FORCE_MAX_PRIMS
+    n_quadrics = sum(p.shape.mesh is None for p in desc.primitives)
+    if not brute and n_quadrics:
+        # the reference walks these through its binary-BVH packet loop
+        if n_prims - n_quadrics <= BRUTE_FORCE_MAX_PRIMS:
+            _unsupported("scenes of > 64 primitives with 64 triangles or fewer beside quadrics")
+        if n_quadrics > MAX_WIDE_QUADRICS:
+            _unsupported(f"more than {MAX_WIDE_QUADRICS} quadrics in scenes of > 64 primitives")
     for light in desc.lights:
         if light.kind not in ("point", "spot", "distant", "infinite"):
             _unsupported(f"'{light.kind}' lights")
@@ -212,8 +226,8 @@ def _check_slice(desc: SceneDescription) -> None:
         sh = prim.shape
         if sh.mesh is None:
             sph = sh.sphere
-            if not brute or getattr(sph, "kind", "sphere") != "sphere":
-                _unsupported(f"'{getattr(sph, 'kind', 'sphere')}' quadrics in {route}")
+            if getattr(sph, "kind", "sphere") != "sphere":
+                _unsupported(f"'{sph.kind}' quadrics")
             if sph.object_to_world_end is not None or sph.anim is not None:
                 _unsupported("motion blur")
         else:
@@ -229,8 +243,6 @@ def _check_slice(desc: SceneDescription) -> None:
         if prim.area_light is not None:
             if prim.area_light.kind != "area":
                 _unsupported(f"'{prim.area_light.kind}' lights attached to shapes")
-            if sh.mesh is None:
-                _unsupported("area lights on spheres")
         mat = prim.material
         if mat.kind not in MATERIALS:
             _unsupported(f"the '{mat.kind}' material")
@@ -403,10 +415,17 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
                 flags |= FLAG_FLIP_GEOM_N
             if sph.reverse_orientation:
                 flags |= FLAG_REVERSE_ORIENTATION
+            light_id = -1
+            if prim.area_light is not None:
+                light_id = len(lights)
+                lp = np.zeros(12)
+                lp[0:3] = prim.area_light.intensity
+                lp[3] = 1.0 if prim.area_light.two_sided else 0.0
+                lights.append((LIGHT_AREA, lp, len(prim_kind), max(int(prim.area_light.n_samples), 1)))
             prim_kind.append(GEOM_SPHERE)
             prim_geom.append(si)
             prim_mat.append(mid)
-            prim_light.append(-1)
+            prim_light.append(light_id)
             prim_flags.append(flags)
             prim_area.append(sph.phi_max * sph.radius * (np.clip(sph.z_max, -sph.radius, sph.radius)
                                                          - np.clip(sph.z_min, -sph.radius, sph.radius)))
@@ -547,13 +566,16 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
     wide_root = 1
     if not use_brute:
         # --- wide BVH over the (permuted) triangle rows -----------------------
+        # a mixed scene's tables cover its triangle prims only (the
+        # reference's mixed_ok branch); the quadrics are tested beside them
+        rows = np.nonzero(np.asarray(prim_kind) == GEOM_TRI)[0]
         # payload cols 11-13 (mat, light, flags) as the reference writes them
         extra = np.stack([
-            np.asarray(prim_mat, np.float32),
-            np.asarray(prim_light, np.float32),
-            np.asarray(prim_flags, np.float32),
+            np.asarray(prim_mat, np.float32)[rows],
+            np.asarray(prim_light, np.float32)[rows],
+            np.asarray(prim_flags, np.float32)[rows],
         ], axis=1)
-        pg = np.asarray(prim_geom)
+        pg = np.asarray(prim_geom)[rows]
         tv = tri_p_cat[pg]
         # the attribute table (reference builder :1118-1139), built when some
         # prim has shading normals or a non-default UV chart: lanes 0:9 the
@@ -561,12 +583,12 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         # (octet, slot) layout
         attr = None
         tn, tuv = arrays["tri_n"][pg], arrays["tri_uv"][pg]
-        need_ns = bool((np.asarray(prim_flags, np.int64) & FLAG_HAS_SHADING_N).any())
+        need_ns = bool((np.asarray(prim_flags, np.int64)[rows] & FLAG_HAS_SHADING_N).any())
         need_uv = bool(tuv.shape[0]) and not np.array_equal(
             tuv, np.broadcast_to(np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0]], tuv.dtype), tuv.shape))
         if need_ns or need_uv:
-            attr = np.concatenate([tn.reshape(n_prims, 9), tuv.reshape(n_prims, 6)], axis=1).astype(np.float32)
-        wide = build_wide_bvh(np.asarray(prim_lo), np.asarray(prim_hi), tv[:, 0], tv[:, 1], tv[:, 2],
+            attr = np.concatenate([tn.reshape(len(rows), 9), tuv.reshape(len(rows), 6)], axis=1).astype(np.float32)
+        wide = build_wide_bvh(np.asarray(prim_lo)[rows], np.asarray(prim_hi)[rows], tv[:, 0], tv[:, 1], tv[:, 2],
                               extra_cols=extra, attr_cols=attr)
         arrays.update(wnode_tab=wide.node_tab, wprim_tab=wide.prim_tab, wmeta_tab=wide.meta_tab,
                       wslot_prim=wide.slot_prim, wattr_tab=wide.attr_tab)
@@ -584,11 +606,22 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         "infinite_light_index": inf_idx,
         "has_env_map": "env_image" in arrays,
         "use_brute_force": use_brute,
+        "n_spheres": len(sph_o2w),
+        # full, outward-facing spheres, which NEE samples by their visible
+        # cone (reference builder :1306-1313)
+        "has_cone_sphere_lights": any(
+            l[0] == LIGHT_AREA and prim_kind[l[2]] == GEOM_SPHERE
+            and sph_param[prim_geom[l[2]]][1] <= -sph_param[prim_geom[l[2]]][0] * (1 - 1e-6)
+            and sph_param[prim_geom[l[2]]][2] >= sph_param[prim_geom[l[2]]][0] * (1 - 1e-6)
+            and sph_param[prim_geom[l[2]]][3] >= 2.0 * np.pi - 1e-6
+            and (prim_flags[l[2]] & FLAG_REVERSE_ORIENTATION) == 0
+            for l in lights),
         "n_media": 0,
         "has_motion": False,
         "tex_programs": tuple(tex_reg.programs),
         "has_bump": any(r[4] >= 0 for r in mat_rows),
-        "has_wide": not use_brute,
+        "has_wide": not use_brute and not sph_o2w,
+        "has_wide_tri": not use_brute,
         "wide_root": wide_root,
     }
     tensors, st = scene_tensors_from_numpy(arrays, static, device)

@@ -37,10 +37,17 @@ megakernel's atlas class; ``material_room(checker=True)`` gives the floor
 a UV chart and a checkerboard Kd of two constant cells, the wide
 megakernel's.
 
-``write_pbrt`` writes a triangle-mesh scene of these out as a .pbrt file,
-each mesh as a binary PLY beside it and each imagemap as a PFM image, so
-the front end can be driven with the same scenes (``python -m
-pbrt_tpu_torch``).
+``sphere_room`` is material_room with seven full spheres among its
+triangles (the mixed scenes: the wide tables cover the triangle subset,
+the spheres are tested beside them): glass, mirror, GGX copper, plastic,
+Oren-Nayar, glossy uber (Kd and Ks only) and an emissive sphere lamp, and
+its left wall of glossy uber; at n_side=248 the same spheres sit among the
+mesh room's terrain. ``uber_room`` is sphere_room with its uber rows made
+full (Kr, Kt and opacity 0.7), outside both megakernels' lobe sets.
+
+``write_pbrt`` writes a scene of these out as a .pbrt file, each mesh as a
+binary PLY beside it and each imagemap as a PFM image, so the front end can
+be driven with the same scenes (``python -m pbrt_tpu_torch``).
 """
 from __future__ import annotations
 
@@ -169,6 +176,62 @@ def material_room(n_side: int = 40, checker: bool = False) -> SceneDescription:
         terrain.material = HostMaterial(kind="matte", params={"Kd": ("texture", _texture(
             "checkerboard", tex1=_const([0.8, 0.75, 0.7]), tex2=_const([0.25, 0.3, 0.35]), uscale=8.0,
             vscale=8.0))})
+    return desc
+
+
+# sphere_room's spheres: (center, radius, material kind, parameters)
+_ROOM_SPHERES = (
+    ([-2.0, 1.6, -1.0], 0.6, "glass", {}),
+    ([0.0, 1.8, -2.2], 0.7, "mirror", {"Kr": [0.9, 0.9, 0.9]}),
+    ([2.3, 2.2, 0.0], 0.5, "metal", {"roughness": 0.08}),
+    ([-0.8, 1.2, 0.2], 0.45, "plastic", {"Kd": [0.2, 0.35, 0.6], "Ks": [0.4, 0.4, 0.4], "roughness": 0.12}),
+    ([1.0, 2.6, -0.5], 0.4, "matte", {"Kd": [0.6, 0.55, 0.3], "sigma": 25.0}),
+    ([-2.6, 2.8, 1.0], 0.5, "uber", {"Kd": [0.5, 0.2, 0.2], "Ks": [0.3, 0.3, 0.3], "roughness": 0.1}),
+)
+SPHERE_LAMP = ([0.6, 3.2, 1.0], 0.3, [12.0, 10.0, 8.0])  # center, radius, L
+
+
+def _sphere(center, radius, material, light=None):
+    return HostPrimitive(shape=ShapeRecord(sphere=Sphere(object_to_world=Transform.translate(center), radius=radius,
+                                                         z_min=-radius, z_max=radius)),
+                         material=material, area_light=light)
+
+
+def _full_uber(params):
+    """An uber row outside the megakernels' lobe sets: reflection,
+    transmission and 70% opacity beside its Kd and Ks."""
+    return dict(params, Kr=_const([0.3, 0.3, 0.3]), Kt=_const([0.3, 0.3, 0.3]), opacity=_const([0.7, 0.7, 0.7]))
+
+
+def sphere_room(n_side: int = 40) -> SceneDescription:
+    """material_room (3,854 triangles at n_side 40) with its left wall of
+    glossy uber (Kd and Ks only) and seven full spheres: glass, mirror, GGX
+    copper, plastic, Oren-Nayar, glossy uber and an emissive sphere lamp
+    (a black matte sphere with a one-sided area light). Five lights: the
+    panel's two triangles, the sphere lamp, the point and the spot, under
+    power selection; 1000x500, 16 spp, depth 5. At n_side 248 the same
+    spheres sit among the mesh room's 123,650 terrain and wall triangles."""
+    desc = material_room(n_side)
+    left = desc.primitives[3]
+    left.material = HostMaterial(kind="uber", params={
+        "Kd": _const([0.5, 0.45, 0.3]), "Ks": _const([0.25, 0.25, 0.25]), "roughness": ("const", 0.2)})
+    for center, radius, kind, params in _ROOM_SPHERES:
+        mat = HostMaterial(kind=kind, params={k: ("const", np.asarray(v, np.float64)) for k, v in params.items()})
+        desc.primitives.append(_sphere(center, radius, mat))
+    center, radius, emit = SPHERE_LAMP
+    desc.primitives.append(_sphere(center, radius, HostMaterial(kind="matte", params={"Kd": _const([0.0, 0.0, 0.0])}),
+                                   HostLight(kind="area", intensity=np.asarray(emit, np.float64))))
+    return desc
+
+
+def uber_room(n_side: int = 40) -> SceneDescription:
+    """sphere_room with its uber wall and uber sphere made full (Kr, Kt and
+    opacity 0.7 beside Kd and Ks): the wavefront renders it, and the wide
+    megakernel refuses it by lobe set."""
+    desc = sphere_room(n_side)
+    for prim in desc.primitives:
+        if prim.material.kind == "uber":
+            prim.material = HostMaterial(kind="uber", params=_full_uber(prim.material.params))
     return desc
 
 
@@ -348,14 +411,15 @@ def _quad(a, b, c, d, material, light=None):
                          material=material, area_light=light)
 
 
-def area_box() -> SceneDescription:
+def area_box(sphere_lamp: bool = False) -> SceneDescription:
     """The 1000x500, 16 spp, depth-5 path-traced area box: a box open toward
     the camera, its floor plastic, its back wall a mirror, its ceiling and
     side walls matte (10 triangles); a 1 x 1 one-sided quad light under the
     ceiling facing down (2 triangles, 2 lights) and a point light; a glass
     full sphere, a GGX copper full sphere and an Oren-Nayar (sigma 20)
     sphere clipped at z_max; pbrt's default light strategy ('spatial' over
-    the 3 lights). 15 prims."""
+    the 3 lights). 15 prims. sphere_lamp: the copper sphere emits too, a
+    sphere lamp (4 lights)."""
     x0, x1, y0, y1, z0, z1 = -3.0, 3.0, 0.0, 3.0, -3.0, 2.0
 
     def matte(kd, **extra):
@@ -385,6 +449,8 @@ def area_box() -> SceneDescription:
         sphere([1.4, 0.7, -1.6], 0.7, HostMaterial(kind="metal", params={"roughness": ("const", 0.08)})),
         sphere([0.3, 0.6, 0.5], 0.6, matte([0.5, 0.55, 0.6], sigma=("const", 20.0)), z_max=0.3),
     ]
+    if sphere_lamp:
+        spheres[1].area_light = HostLight(kind="area", intensity=np.array([3.0, 2.5, 2.0]))
     return SceneDescription(
         primitives=walls + [light] + spheres,
         lights=[HostLight(kind="point", from_point=np.array([1.6, 2.2, 0.8]), intensity=np.array([4.0, 4.0, 4.0]))],
@@ -538,10 +604,11 @@ def _texture_lines(desc: SceneDescription, folder: str) -> tuple[list[str], dict
 
 
 def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True) -> None:
-    """Write a scene of triangle meshes (with their normals and UVs) with
+    """Write a scene of triangle meshes (with their normals and UVs) and
+    spheres placed by a translation, with
     materials of constant or textured parameters and bump maps (each
     texture a Texture directive, each imagemap a PFM image beside the
-    file), area lights on meshes, point, spot and
+    file), area lights on meshes and spheres, point, spot and
     distant lights and infinite lights (a map named by its file name,
     relative to the .pbrt file) as a .pbrt file: a LookAt camera (look_at = (eye, look, up), the one the
     description's camera was made with), the film, pixel filter, integrator
@@ -583,12 +650,21 @@ def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True)
     tex_lines, tex_names = _texture_lines(desc, folder)
     out += tex_lines
     for i, prim in enumerate(desc.primitives):
-        mesh = prim.shape.mesh
-        if mesh is None:
-            raise NotImplementedError("write_pbrt writes triangle meshes only")
-        fname = f"mesh_{i}.ply"
-        _write_ply(os.path.join(folder, fname), mesh.p, mesh.indices, n=mesh.n, uv=mesh.uv, double=True)
+        mesh, sph = prim.shape.mesh, prim.shape.sphere
         out.append("AttributeBegin")
+        if mesh is not None:
+            fname = f"mesh_{i}.ply"
+            _write_ply(os.path.join(folder, fname), mesh.p, mesh.indices, n=mesh.n, uv=mesh.uv, double=True)
+            shape = f'  Shape "plymesh" "string filename" "{fname}"'
+        else:
+            # a sphere placed by a translation: the parser's Translate gives
+            # the same transform and inverse bit for bit
+            m = sph.object_to_world.m
+            if sph.kind != "sphere" or not np.array_equal(m[:3, :3], np.eye(3)) or sph.reverse_orientation:
+                raise NotImplementedError("write_pbrt writes quadrics as spheres placed by a translation only")
+            out.append(f"  Translate {_fmt(m[:3, 3])}")
+            shape = (f'  Shape "sphere" "float radius" [{_fmt([sph.radius])}] "float zmin" [{_fmt([sph.z_min])}] '
+                     f'"float zmax" [{_fmt([sph.z_max])}] "float phimax" [{_fmt([np.degrees(sph.phi_max)])}]')
         mat = prim.material
         params = [_param(k, v, tex_names) for k, v in mat.params.items()]
         if mat.bump_map is not None:
@@ -598,7 +674,7 @@ def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True)
             al = prim.area_light
             out.append(f'  AreaLightSource "diffuse" "rgb L" [{_fmt(al.intensity)}] '
                        f'"bool twosided" {"true" if al.two_sided else "false"}')
-        out += [f'  Shape "plymesh" "string filename" "{fname}"', "AttributeEnd"]
+        out += [shape, "AttributeEnd"]
     out.append("WorldEnd")
     with open(path, "w") as f:
         f.write("\n".join(out) + "\n")

@@ -275,7 +275,6 @@ def test_compiled_tables_bit_identical(tmp_path, scene):
 
 REFUSED = {
     "cylinder": ('Shape "cylinder"', "'cylinder' quadrics"),
-    "uber": ('Material "uber"\nShape "sphere"', "the 'uber' material"),
     "instancing": ('ObjectBegin "o"\nShape "trianglemesh" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]\n'
                    'ObjectEnd\nTranslate 1 0 0\nObjectInstance "o"', "object instancing"),
     "motion": ('ActiveTransform EndTime\nTranslate 0 1 0\nActiveTransform All\nShape "sphere"', "motion blur"),
@@ -305,7 +304,24 @@ PORTED = {
         tmp_path, 'Texture "t" "spectrum" "checkerboard"\nMaterial "matte" "texture Kd" "t"\nShape "sphere"'),
     "bump": lambda tmp_path: _textured_tables(
         tmp_path, 'Texture "b" "float" "fbm"\nMaterial "matte" "texture bumpmap" "b"\nShape "sphere"'),
+    "uber": lambda tmp_path: _uber_tables(tmp_path),
 }
+
+
+def _uber_tables(tmp_path):
+    """A brute scene with an uber sphere (pbrt's defaults: Kd 0.25, Ks
+    0.25, roughness 0.1, eta 1.5, opacity 1) and a glossy uber one with an
+    opacity below 1: the port's compile of its parse gives the reference's
+    tables bit for bit, their material rows included."""
+    extra = ('Material "uber"\nShape "sphere"\nAttributeBegin\nTranslate 1 0 0\n'
+             'Material "uber" "rgb Kd" [0.5 0.3 0.2] "rgb Ks" [0.3 0.3 0.3] "float roughness" 0.2 '
+             '"rgb opacity" [0.7 0.7 0.7] "float eta" 1.7\nShape "sphere" "float radius" 0.5\nAttributeEnd')
+    p = tmp_path / "s.pbrt"
+    p.write_text(room_text(3, "zerotwosequence", "box", extra))
+    cs = compile_scene(pbrt_parse(str(p)), "cpu")
+    ref = ref_compile_scene(ref_pbrt_parse(str(p)))
+    _tables_equal(cs, ref)
+    assert 6 in cs.static.mat_kinds_present  # MAT_UBER
 
 
 def _infinite_light_tables(tmp_path, mapname):
@@ -373,10 +389,11 @@ def test_parsed_panel_light_rows(tmp_path):
     np.testing.assert_array_equal(got.light_param.numpy(), want.light_param.numpy())
 
 
-@pytest.mark.parametrize("room", ["mesh_room", "material_room", "sky_meshes", "textured_room"])
+@pytest.mark.parametrize("room", ["mesh_room", "material_room", "sky_meshes", "textured_room", "sphere_room"])
 def test_written_rooms_compile_to_the_same_tables(tmp_path, room):
     """scenes.write_pbrt's file of a room (float64 PLY meshes with their
-    normals and UVs, a LookAt camera) parses to the room's camera and
+    normals and UVs, sphere_room's spheres as a Translate and a sphere
+    Shape, a LookAt camera) parses to the room's camera and
     compiles to its tables, bit for bit (NaN padding of the wide nodes, the
     attribute table and the infinite light's row included); without a
     Sampler directive the file gets pbrt's default, halton at 16 spp."""

@@ -1,8 +1,9 @@
 """The port's lobe sets and BSDF against the reference, on the CPU.
 
-For every material row of area_box, of the spheres gallery and of a scene
+For every material row of area_box, of the spheres gallery, of a scene
 of the remaining lobe variants (rough glass, a glass that only transmits,
-Beckmann plastic and metal), 4,096 lanes each with random (wo, wi) over
+Beckmann plastic and metal) and of a scene of uber materials (glossy, full,
+half-opaque, Beckmann), 4,096 lanes each with random (wo, wi) over
 both hemispheres and random (u_lobe, u1, u2) from a numpy seed:
 make_bsdf (a row gather of the port's lobe table) gives the reference
 make_bsdf's kinds and data, and bsdf_f, bsdf_pdf and bsdf_sample agree at
@@ -72,7 +73,30 @@ def _variants():
     return desc
 
 
-SCENES = {"area_box": area_box, "gallery": spheres_gallery, "variants": _variants}
+def _ubers():
+    """The gallery with uber spheres (uber.rs): glossy (Kd and Ks), full (Kr,
+    Kt and opacity 0.7 beside them: a pass-through transmission and four
+    opaque lobes scaled by opacity), half-opaque matte-like (Kd only, opacity
+    0.5), and one under the Beckmann distribution with eta 1.33."""
+    desc = spheres_gallery()
+    const = lambda v: ("const", np.asarray(v, np.float64))  # noqa: E731
+    glossy = {"Kd": const([0.5, 0.3, 0.2]), "Ks": const([0.3, 0.3, 0.3]), "roughness": ("const", 0.15)}
+    mats = [
+        HostMaterial(kind="uber", params=dict(glossy)),
+        HostMaterial(kind="uber", params=dict(glossy, Kr=const([0.3, 0.3, 0.3]), Kt=const([0.2, 0.3, 0.4]),
+                                              opacity=const([0.7, 0.7, 0.7]), eta=("const", 1.7))),
+        HostMaterial(kind="uber", params={"Kd": const([0.6, 0.6, 0.5]), "Ks": const([0.0, 0.0, 0.0]),
+                                          "opacity": const([0.5, 0.4, 0.5])}),
+        HostMaterial(kind="uber", params=dict(glossy, distribution=("const", "beckmann"), eta=("const", 1.33),
+                                              roughness=("const", 0.3))),
+    ]
+    desc.primitives = desc.primitives[:1] + [
+        HostPrimitive(shape=ShapeRecord(sphere=Sphere(object_to_world=Transform.translate([2.0 * i, 0.0, 0.0]),
+                                                      radius=0.9)), material=m) for i, m in enumerate(mats)]
+    return desc
+
+
+SCENES = {"area_box": area_box, "gallery": spheres_gallery, "variants": _variants, "uber": _ubers}
 
 
 @pytest.fixture(scope="module", params=list(SCENES))
@@ -188,3 +212,33 @@ def test_textured_make_bsdf_matches_reference():
     np.testing.assert_allclose(mine["data"].numpy(), data_r[:, slots], rtol=1e-5, atol=1e-5)
     for s, poss in zip(slots, table["possible"]):
         assert {int(k) for k in np.unique(kind_r[:, s]) if k} <= poss
+
+
+def test_textured_uber_make_bsdf_matches_reference():
+    """An uber material with a checkerboard Kd and an fbm-driven opacity:
+    each lane's lobes from its texture values, as the reference builds
+    them, at the tolerance of test_textured_make_bsdf_matches_reference."""
+    from pbrt_tpu_torch.device.texture import prepare_atlases
+    from pbrt_tpu_torch.scenes import _texture
+
+    desc = _ubers()
+    checker = _texture("checkerboard", tex1=("const", np.array([0.7, 0.6, 0.5])),
+                       tex2=("const", np.array([0.2, 0.3, 0.4])), uscale=4.0, vscale=4.0)
+    fbm = _texture("fbm", is_float=True, octaves=3)
+    desc.primitives[2].material.params.update(Kd=("texture", checker), opacity=("texture", fbm))
+    cs, ref = compile_scene(desc, "cpu"), ref_compile_scene(_to_ref(desc))
+    rs = np.random.RandomState(14)
+    n = 4096
+    mat = rs.randint(0, cs.static.n_materials, n)
+    uv = rs.uniform(-1.0, 3.0, (n, 2)).astype(np.float32)
+    p = rs.uniform(-2.0, 2.0, (n, 3)).astype(np.float32)
+    table = lobe_table(cs.arrays, cs.static)
+    assert table["textured"]
+    mine = make_bsdf(cs.arrays, cs.static, torch.as_tensor(mat), table, torch.as_tensor(uv), torch.as_tensor(p),
+                     None, None, prepare_atlases(cs.arrays, cs.static))
+    theirs = ref_make_bsdf(ref.arrays, ref.static, jnp.asarray(mat.astype(np.int32)), jnp.asarray(uv), jnp.asarray(p))
+    kind_r, data_r = np.asarray(theirs["kind"]), np.asarray(theirs["data"])
+    slots = table["slots"]
+    np.testing.assert_array_equal(mine["kind"].numpy(), kind_r[:, slots])
+    assert not np.delete(kind_r, slots, axis=1).any() and 6 in slots
+    np.testing.assert_allclose(mine["data"].numpy(), data_r[:, slots], rtol=1e-5, atol=1e-5)

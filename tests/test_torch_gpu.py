@@ -20,7 +20,11 @@ lane exactly once, and B3's instrumented instantiation is held to the
 kernel bit for bit. B4 runs under every sampler of its class, the
 extended instantiations (filters, attribute rows, constant sky) on
 sky_meshes. B3's textured instantiation (the Kd atlas) runs on
-textured_gallery, B4's checkerboard Kd on material_room(checker=True).
+textured_gallery, B4's checkerboard Kd on material_room(checker=True),
+B4's sphere instantiation (full spheres and a sphere lamp) on sphere_room
+and B3 on a gallery with a glossy uber sphere; the wavefront's mixed query
+(B1 over a mixed scene's triangle subset, its spheres tested beside it) is
+held to its twin bit for bit.
 """
 import numpy as np
 import pytest
@@ -435,3 +439,88 @@ def test_cli_renders_on_the_card(cuda_device, tmp_path):
     img_g, img_c = read_image(str(tmp_path / "g.pfm")), read_image(str(tmp_path / "c.pfm"))
     assert np.abs(img_g - img_c).sum() / np.abs(img_c).sum() < 1e-3
     assert np.isclose(img_g, img_c, rtol=1e-2, atol=1e-4).all(axis=-1).mean() >= 0.99
+
+
+def _sphere_room_consts(W, H, spp):
+    """scenes.sphere_room(8) at W x H on the host (seven full spheres, a
+    sphere lamp among them, beside the triangles) with its B4 constants."""
+    from pbrt_tpu_torch.scenes import sphere_room
+
+    desc = sphere_room(8)
+    desc.film.x_resolution, desc.film.y_resolution = W, H
+    cs = compile_scene(desc, "cpu")
+    consts = megakernel_wide.extract_wide_consts(
+        cs, make_camera(desc.camera, desc.film, "cpu"),
+        {"kind": "path", "max_depth": 5, "rr_threshold": 1.0, "light_strategy": "power"},
+        {"kind": "zerotwosequence", "spp": spp},
+        {"filter": "box", "filter_params": {}, "max_sample_luminance": float("inf")}, megakernel_wide.DEFAULT_MAX_TRIS)
+    return cs, consts
+
+
+@pytest.mark.gpu
+def test_wide_megakernel_spheres_match_plain(cuda_device):
+    """B4's sphere instantiation (ext 2) on sphere_room(8) at 64x32, 2 spp:
+    the spheres merged against the walk's winner, NEE toward the sphere lamp
+    by its cone, against its twin at chip_smoke phase 11's tolerance."""
+    W, H, spp = 64, 32, 2
+    cs, consts = _sphere_room_consts(W, H, spp)
+    mode = megakernel_wide.kernel_mode(consts)
+    assert len(consts["spheres"]) == 7 and mode >= 4 * megakernel_wide.N_SAMPLER_IDS
+    idx = torch.arange(W * H)
+    lanes = (idx % W, idx // W, idx)
+    blob = megakernel_wide.pack_wide_consts(consts).to(cuda_device)
+    L, w, nv = (x.cpu() for x in megakernel_wide.wide_megakernel_cuda(
+        blob, mode, cs.arrays.to(cuda_device), *(x.to(cuda_device) for x in lanes), 0, spp, 5))
+    assert megakernel_wide.wide_megakernel_cuda.counters[cuda_device].tolist() == [0, 0]
+    L_p, w_p, nv_p = megakernel_wide.wide_megakernel_plain(consts, cs.arrays, *lanes, 0, spp, 5)
+    assert torch.equal(w, w_p) and L_p.mean().item() > 0
+    assert abs(float(nv.double().sum()) - float(nv_p.double().sum())) <= 6
+    diff = (L - L_p).abs()
+    assert (diff / (L_p.abs() + 1e-2)).max().item() < 2e-2
+    assert diff.mean().item() < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_mixed_query_matches_plain(cuda_device, any_hit):
+    """The mixed query (B1 over the triangle subset's tables, the spheres
+    tested beside it) against its twin (the plain walk and the same sphere
+    merge) on sphere_room(8): bit for bit."""
+    from pbrt_tpu_torch.device import intersect
+
+    cs, _consts = _sphere_room_consts(32, 16, 1)
+    sa = cs.arrays.to(cuda_device)
+    o, d, t_max = _random_rays(cuda_device)
+    query = intersect.intersect_p if any_hit else intersect.intersect
+    before = wide_bvh.traverse_cuda.launches
+    k = query(sa, cs.static, o, d, t_max, sort_rays=True)
+    p = query(sa, cs.static, o, d, t_max, sort_rays=True, plain=True)
+    assert wide_bvh.traverse_cuda.launches == before + 1
+    if any_hit:
+        assert torch.equal(k, p) and 0 < int(k.sum()) < o.shape[0]
+    else:
+        assert all(torch.equal(k[key], p[key]) for key in ("t", "prim", "b1", "b2"))
+        assert (cs.static.n_spheres and (cs.arrays.prim_kind.to(cuda_device)[k["prim"].clamp(min=0)] == 1).any())
+
+
+@pytest.mark.gpu
+def test_megakernel_glossy_uber_matches_plain(cuda_device):
+    """B3 on the spheres gallery with its plastic sphere a glossy uber one
+    (Kd and Ks: baked as the Lambert + GGX class) at 64x32, 2 spp."""
+    from pbrt_tpu_torch.scene.host import HostMaterial
+
+    W, H, spp = 64, 32, 2
+    desc = spheres_gallery()
+    desc.film.x_resolution, desc.film.y_resolution = W, H
+    for prim in desc.primitives:
+        if prim.material.kind == "plastic":
+            prim.material = HostMaterial(kind="uber", params=dict(prim.material.params))
+    cs = compile_scene(desc, "cpu")
+    assert 6 in cs.static.mat_kinds_present  # MAT_UBER
+    icfg = {"kind": "path", "max_depth": 5, "rr_threshold": 1.0, "strategy": "one", "light_strategy": "power"}
+    consts = megakernel.extract_consts(cs, make_camera(desc.camera, desc.film, "cpu"), icfg,
+                                       {"kind": "zerotwosequence", "spp": spp},
+                                       {"filter": "box", "filter_params": {}, "max_sample_luminance": float("inf")})
+    assert consts is not None
+    idx = torch.arange(W * H)
+    _brute_against_plain(cuda_device, consts, (idx % W, idx // W, idx), spp, 7)

@@ -177,3 +177,95 @@ def test_env_light_matches_reference(compiled, scene):
         want = ref_lights._env_sample(ref.arrays, jnp.asarray(u1), jnp.asarray(u2))
         for a, b in zip(got, want):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-6)
+
+
+def _sphere_lamps():
+    """A brute scene of sphere lamps beside a triangle panel: a full,
+    outward-facing lamp (sampled by its visible cone), one scaled by 1.5
+    (its world radius from o2w's column 0), a reverse-oriented one and a
+    partial one (both sampled over their area, as a full sphere), and a
+    one-sided triangle area light."""
+    from pbrt_tpu_torch.scene.host import HostMaterial, HostPrimitive, ShapeRecord, Sphere
+
+    desc = area_box()
+    black = HostMaterial(kind="matte", params={"Kd": ("const", np.zeros(3))})
+
+    def lamp(o2w, emit, **kw):
+        kw = {"z_min": -0.3, "z_max": 0.3, **kw}
+        return HostPrimitive(shape=ShapeRecord(sphere=Sphere(object_to_world=o2w, radius=0.3, **kw)),
+                             material=black, area_light=HostLight(kind="area", intensity=np.asarray(emit, float)))
+
+    desc.primitives += [
+        lamp(Transform.translate([0.2, 1.2, -0.4]), [9.0, 8.0, 7.0]),
+        lamp(Transform.translate([-0.6, 0.9, 0.3]) @ Transform.scale(1.5, 1.5, 1.5), [4.0, 5.0, 6.0]),
+        lamp(Transform.translate([0.7, 0.5, 0.5]), [3.0, 3.0, 3.0], reverse_orientation=True),
+        lamp(Transform.translate([-0.2, 0.4, 0.9]), [2.0, 2.5, 3.0], z_max=0.1),
+    ]
+    return desc
+
+
+@pytest.fixture(scope="module")
+def lamps():
+    desc = _sphere_lamps()
+    return compile_scene(desc, "cpu"), ref_compile_scene(_to_ref(desc))
+
+
+def _lamp_refs(cs, rs, n):
+    """Reference points: half around the scene, half inside the full lamps
+    (the cone branch takes only points outside them)."""
+    p = _points(cs, rs, n)
+    sph = cs.arrays.sph_o2w.numpy()[:2]
+    inside = sph[rs.randint(0, 2, n // 2), :, 3] + rs.uniform(-0.15, 0.15, (n // 2, 3))
+    p[: n // 2] = inside.astype(np.float32)
+    return p
+
+
+def test_sphere_lamps_match_reference(lamps):
+    """The sphere lamps' ops against the reference's on the same inputs:
+    _sample_prim_point on every light prim, _sphere_cone_info, sample_li
+    with and without cone_spheres from points inside and outside the
+    lamps, pdf_li_area_hit with cone_spheres at points on the lamps, and
+    compute_power. Tolerances: rtol 1e-6 for the point samples, the cone
+    info and the powers; the cone's direction comes through sqrt(1 - cos^2)
+    and a square root of a difference near the silhouette, which turn an
+    ulp of cos theta_max into up to ~7e-5 relative in a component of the
+    sampled direction and normal (~4e-6 in the pdf): rtol 1e-4, atol 1e-5
+    there (the area branch keeps test_sample_li_matches_reference's 1e-5)."""
+    cs, ref = lamps
+    st = cs.static
+    assert st.has_cone_sphere_lights and ref.static.has_cone_sphere_lights and st.n_spheres == ref.static.n_spheres
+    rs = np.random.RandomState(12)
+    area = [i for i, k in enumerate(st.light_kinds) if k == 4]
+    lid = np.asarray(area)[rs.randint(0, len(area), N)]
+    u1, u2 = rs.uniform(0, 1, (2, N)).astype(np.float32)
+    prim = cs.arrays.light_prim.numpy()[lid]
+    got = lights._sample_prim_point(cs.arrays, torch.as_tensor(prim), torch.as_tensor(u1), torch.as_tensor(u2))
+    want = ref_lights._sample_prim_point(ref.arrays, jnp.asarray(prim.astype(np.int32)), jnp.asarray(u1),
+                                         jnp.asarray(u2))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-7)
+    got = lights._sphere_cone_info(cs.arrays, torch.as_tensor(prim))
+    want = ref_lights._sphere_cone_info(ref.arrays, jnp.asarray(prim.astype(np.int32)))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert got[0].numpy().any() and not got[0].numpy().all()  # the reversed and partial lamps sample by area
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+    p = _lamp_refs(cs, rs, N)
+    for cone in (False, True):
+        mine = lights.sample_li(cs.arrays, st, torch.as_tensor(lid), *(torch.as_tensor(x) for x in (p, u1, u2)),
+                                cone_spheres=cone)
+        theirs = ref_lights.sample_li(ref.arrays, ref.static, jnp.asarray(lid.astype(np.int32)),
+                                      *(jnp.asarray(x) for x in (p, u1, u2)), cone_spheres=cone)
+        for key in ("wi", "li", "pdf", "dist", "n", "area"):
+            np.testing.assert_allclose(mine[key].numpy(), np.asarray(theirs[key]), rtol=1e-4 if cone else 1e-5,
+                                       atol=1e-5 if cone else 1e-6, err_msg=f"{key} cone {cone}")
+    # a BSDF-sampled ray's hit on a lamp: points on its surface, seen from p
+    hit_p, hit_n, hit_area = (x.numpy() for x in lights._sample_prim_point(
+        cs.arrays, torch.as_tensor(prim), torch.as_tensor(u2), torch.as_tensor(u1)))
+    mine = lights.pdf_li_area_hit(cs.arrays, *(torch.as_tensor(x) for x in (p, hit_p, hit_n, lid, hit_area)),
+                                  cone_spheres=True)
+    theirs = ref_lights.pdf_li_area_hit(ref.arrays, *(jnp.asarray(x) for x in (p, hit_p, hit_n)),
+                                        jnp.asarray(lid.astype(np.int32)), jnp.asarray(hit_area), cone_spheres=True)
+    np.testing.assert_allclose(mine.numpy(), np.asarray(theirs), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(lights.compute_power(cs.arrays, st).numpy(),
+                               np.asarray(ref_lights.compute_power(ref.arrays, ref.static)), rtol=1e-6)

@@ -6,8 +6,10 @@ description. Covered:
 
 (a) the brute-class tables equal the reference's bit for bit;
 (b) bake_lobes equals the reference make_bsdf's lobe kinds and data, and
-    extract_consts equals the reference's baked constants;
-(c) the eligibility gates return None where the reference's do;
+    extract_consts equals the reference's baked constants (a glossy uber
+    row baked as the Lambert + GGX class among them);
+(c) the eligibility gates return None where the reference's do (an uber
+    row outside the baked lobe sets refused by its lobe set);
 (d) megakernel_plain against the reference kernel itself in Pallas
     interpret mode, with the reference's own tolerance
     (tests/test_megakernel.py): weights allclose, total path vertices within
@@ -80,8 +82,11 @@ def _atlas_texture(res=16, colored=False, seed=4):
 def _mini_spheres(sampler="zerotwosequence", light="distant", micro=False):
     """tests/test_megakernel.py's _mini_spheres on the port's host types;
     micro "atlas": the matte ground's Kd a grayscale imagemap of the
-    megakernel's atlas class."""
+    megakernel's atlas class; "uber": the glass sphere a glossy uber one
+    (Kd and Ks: the Lambert + GGX lobe set, which bakes), "uber-full": an
+    uber one with Kr, Kt and opacity 0.7 too (outside the lobe sets)."""
     atlas = micro == "atlas"
+    uber = micro if micro in ("uber", "uber-full") else None
     micro = micro is True
     gkind, gparams = "matte", {"Kd": ("const", np.array([0.6, 0.5, 0.4]))}
     if atlas:
@@ -108,6 +113,13 @@ def _mini_spheres(sampler="zerotwosequence", light="distant", micro=False):
     else:
         a = sphere(-1.3, HostMaterial(kind="mirror", params={"Kr": ("const", np.array([0.9, 0.9, 0.9]))}))
         b = sphere(1.3, HostMaterial(kind="glass", params={}))
+    if uber:
+        params = {"Kd": ("const", np.array([0.5, 0.3, 0.2])), "Ks": ("const", np.array([0.3, 0.3, 0.3])),
+                  "roughness": ("const", 0.15), "eta": ("const", 1.7)}
+        if uber == "uber-full":
+            params.update(Kr=("const", np.array([0.3, 0.3, 0.3])), Kt=("const", np.array([0.3, 0.3, 0.3])),
+                          opacity=("const", np.array([0.7, 0.7, 0.7])))
+        b = sphere(1.3, HostMaterial(kind="uber", params=params))
     if light == "distant":
         lights = [HostLight(kind="distant", from_point=np.array([0.0, 10.0, 0.0]), to_point=np.zeros(3),
                             intensity=np.array([3.0, 3.0, 3.0]))]
@@ -145,6 +157,7 @@ def _small_textured_gallery():
 SCENES = {
     "mini": lambda: _mini_spheres(),
     "mini-micro": lambda: _mini_spheres(light="point", micro=True),
+    "mini-uber": lambda: _mini_spheres(light="point", micro="uber"),
     "gallery": _small_gallery,
     "textured-gallery": _small_textured_gallery,
 }
@@ -316,14 +329,19 @@ def _textured_gate(gate):
 
 
 GATES = ["halton", "area-light", "many-prims", "partial-sphere", "spatial", "directlighting-all", "colored-imagemap",
-         "imagemap-over-128", "textured-sphere"]
-GATE_WORDS = {"colored-imagemap": "colored", "imagemap-over-128": "larger than 128", "textured-sphere": "spheres"}
+         "imagemap-over-128", "textured-sphere", "full-uber"]
+GATE_WORDS = {"colored-imagemap": "colored", "imagemap-over-128": "larger than 128", "textured-sphere": "spheres",
+              "full-uber": "lobe set [1, 4, 6, 7, 7]"}
 
 
 @pytest.mark.parametrize("gate", GATES)
 def test_eligibility_gates(gate):
     if gate == "area-light":
         cs, ref = _area_lit_scene()
+    elif gate == "full-uber":
+        # uber's lobes are baked by lobe set, not by kind: transmission and
+        # specular reflection are in no baked class (reference bake_lobe_entry)
+        cs, ref = _compile_both(_mini_spheres(micro="uber-full"))
     elif gate in GATE_WORDS:
         cs, ref = _textured_gate(gate)
     else:
@@ -410,8 +428,14 @@ def test_library_hash_covers_included_headers(tmp_path):
 
 
 def _cu_defines():
-    src = mk.KERNEL_SOURCE.read_text()
-    return {k: int(v) for k, v in re.findall(r"^#define (\w+) \(?(-?\d+)\)?\s*(?://.*)?$", src, re.MULTILINE)}
+    """The kernel's defines, and pt_common.cuh's sphere record (SPH_*) under
+    the prim record's names, which a sphere's prim record shares."""
+    src = mk.KERNEL_SOURCE.read_text() + (mk.KERNEL_SOURCE.parent / "pt_common.cuh").read_text()
+    d = {k: int(v) for k, v in re.findall(r"^#define (\w+) \(?(-?\d+)\)?\s*(?://.*)?$", src, re.MULTILINE)}
+    for name in ("W2O", "O2W", "R", "R2", "PHIMAX", "ERRC"):
+        d["P_" + name] = d["SPH_" + name]
+    assert d["SPH_FLAGS"] == d["P_FLAGS"]
+    return d
 
 
 def test_blob_test_and_split_layouts_match_the_kernel():

@@ -8,14 +8,17 @@ reference's (tests/test_torch_megakernel.py ``_to_ref``). Covered:
     the reference's;
 (b) the gates: what the port's class leaves out gives None and a reason;
     the reference refuses the halton sampler without its tables, a
-    negative-lobe filter, mix materials and meshes over the triangle cap as
-    well, and takes the rest (still to port, ROADMAP B4) and two infinite
+    negative-lobe filter, mix materials, meshes over the triangle cap, more
+    than 8 spheres, a partial sphere, a textured sphere material and an
+    uber row outside the baked lobe sets as well, and takes two infinite
     lights (which the port refuses: the reference's kernel lights escaped
     rays with the first sky, its wavefront with the last); per-vertex
-    normals, a constant infinite light and the gaussian filter are in both
-    classes;
+    normals, a constant infinite light, the gaussian filter and full
+    spheres are in both classes;
 (c) wide_megakernel_plain against the reference kernel itself in Pallas
-    interpret mode on the reference test's cases of this class, with its
+    interpret mode on the reference test's cases of this class (the
+    heavier half of them in tests/test_torch_megakernel_wide_ref.py, with
+    the mixed scenes' cases), with its
     tolerance (tests/test_megakernel_wide.py:190-198): weights allclose,
     total path vertices within 6, per-pixel |dL| / (|L| + 1e-2) < 2e-2 and
     mean |dL| < 1e-4. The stratified case holds the reference's own strata
@@ -62,9 +65,9 @@ from pbrt_tpu_torch.scene.arrays import (
 from pbrt_tpu_torch.scene.builder import CompiledScene, compile_scene
 from pbrt_tpu_torch.scene.host import (
     CameraConfig, FilmConfig, HostLight, HostMaterial, HostPrimitive, IntegratorConfig, SamplerConfig,
-    SceneDescription, ShapeRecord, TriangleMesh,
+    SceneDescription, ShapeRecord, Sphere, TriangleMesh,
 )
-from pbrt_tpu_torch.scenes import material_room, mesh_room
+from pbrt_tpu_torch.scenes import _texture, material_room, mesh_room
 from test_torch_megakernel import _to_ref
 
 W, H, SPP = 48, 24, 2
@@ -86,9 +89,9 @@ def _grid(f, u0, u1, v0, v1, n):
     return verts.astype(np.float64), np.asarray(idx, np.int32)
 
 
-def _room_scene(sampler="zerotwosequence", light="area", strategy="power", micro=False, sigma=0.0):
-    """tests/test_megakernel_wide.py's _room_scene (with its mirror wall) on
-    the port's host types: ~260 triangles, default UVs."""
+def _room_scene(sampler="zerotwosequence", light="area", strategy="power", micro=False, sigma=0.0, with_mirror=True):
+    """tests/test_megakernel_wide.py's _room_scene on the port's host types:
+    ~260 triangles, default UVs."""
     def prim(verts, idx, kind="matte", kd=(0.6, 0.6, 0.6), emit=None):
         lightp = None
         if emit is not None:
@@ -114,7 +117,7 @@ def _room_scene(sampler="zerotwosequence", light="area", strategy="power", micro
         prim(*_grid(lambda u, v: (u, v, np.full_like(u, 4.0)), -4, 4, y0, y1, 2)),
         prim(*_grid(lambda u, v: (np.full_like(u, -4.0), v, u), -4, 4, y0, y1, 2), kd=(0.55, 0.3, 0.3)),
         prim(*_grid(lambda u, v: (np.full_like(u, 4.0), v, u), -4, 4, y0, y1, 2),
-             kind="metal" if micro else "mirror", kd=(0.3, 0.55, 0.3)),
+             kind="metal" if micro else ("mirror" if with_mirror else "matte"), kd=(0.3, 0.55, 0.3)),
         prim(*_grid(lambda u, v: (u, np.full_like(u, y1), v), -4, 4, -4, 4, 2), kd=(0.7, 0.7, 0.7)),
     ]
     panel = prim(*_grid(lambda u, v: (u, np.full_like(u, y1 - 0.01), v), -1.4, 1.4, -1.4, 1.4, 1),
@@ -135,6 +138,36 @@ def _room_scene(sampler="zerotwosequence", light="area", strategy="power", micro
         sampler=SamplerConfig(kind=sampler, pixel_samples=SPP),
         integrator=IntegratorConfig(kind="path", max_depth=4, light_strategy=strategy),
     )
+
+
+def _sphere(center, radius, material, light=None):
+    return HostPrimitive(shape=ShapeRecord(sphere=Sphere(object_to_world=Transform.translate(center), radius=radius)),
+                         material=material, area_light=light)
+
+
+GLOSSY_UBER = {"Kd": ("const", np.array([0.5, 0.3, 0.2])), "Ks": ("const", np.array([0.3, 0.3, 0.3])),
+               "roughness": ("const", 0.15), "eta": ("const", 1.7)}
+
+
+def _mixed_room(kind):
+    """The reference test's mixed scenes on the port's host types: "spheres"
+    (tests/test_megakernel_wide.py:251: a mirror and a glass sphere beside
+    the room's triangles), "lamp" (:312: the room without its mirror and a
+    full-sphere area light), and "uber": the lamp room with a glossy uber
+    sphere (Kd and Ks) beside its lamp."""
+    if kind == "spheres":
+        desc = _room_scene(light="area")
+        desc.primitives.append(_sphere([-1.2, 1.0, 0.0], 0.8, HostMaterial(
+            kind="mirror", params={"Kr": ("const", np.array([0.9, 0.9, 0.9]))})))
+        desc.primitives.append(_sphere([1.4, 0.9, 0.5], 0.6, HostMaterial(kind="glass", params={})))
+        return desc
+    desc = _room_scene(light="area", with_mirror=False)
+    desc.primitives.append(_sphere([0.8, 1.6, -0.5], 0.5, HostMaterial(kind="matte", params={"Kd": ("const", np.zeros(3))}),
+                                   HostLight(kind="area", intensity=np.array([18.0, 15.0, 12.0]))))
+    if kind == "uber":
+        desc.primitives.append(_sphere([-1.3, 0.9, -0.8], 0.6, HostMaterial(kind="uber", params=dict(GLOSSY_UBER))))
+        desc.primitives.append(_sphere([1.4, 0.9, 0.5], 0.6, HostMaterial(kind="glass", params={})))
+    return desc
 
 
 # the reference test's cases (tests/test_megakernel_wide.py:103-132) that lie
@@ -328,7 +361,29 @@ def _gate_scene(gate):
             shape=ref_host.ShapeRecord(sphere=ref_host.Sphere(
                 object_to_world=ref_transform.Transform.translate([0.0, 1.0, 0.0]), radius=0.5)),
             material=ref_host.HostMaterial(kind="glass", params={})))
-        return *_crossed(rdesc), icfg, scfg, fcfg, False, "quadrics"
+        return *_crossed(rdesc), icfg, scfg, fcfg, False, None
+    if gate == "nine-spheres":  # the port's compiler refuses them: crossed from the reference
+        for i in range(9):
+            rdesc.primitives.append(ref_host.HostPrimitive(
+                shape=ref_host.ShapeRecord(sphere=ref_host.Sphere(
+                    object_to_world=ref_transform.Transform.translate([-3.0 + 0.7 * i, 2.0, 0.0]), radius=0.3)),
+                material=ref_host.HostMaterial(kind="glass", params={})))
+        return *_crossed(rdesc), icfg, scfg, fcfg, True, "more than 8 spheres"
+    if gate in ("partial-sphere", "textured-sphere", "full-uber"):
+        sph = _sphere([0.0, 1.0, 0.0], 0.5, HostMaterial(kind="glass", params={}))
+        if gate == "partial-sphere":
+            sph.shape.sphere.z_max = 0.2
+        elif gate == "textured-sphere":
+            checker = _texture("checkerboard", tex1=("const", np.array([0.7, 0.7, 0.6])),
+                               tex2=("const", np.array([0.1, 0.1, 0.3])), uscale=6.0, vscale=6.0)
+            sph.material = HostMaterial(kind="matte", params={"Kd": ("texture", checker)})
+        else:
+            sph.material = HostMaterial(kind="uber", params=scenes._full_uber(GLOSSY_UBER))
+        desc.primitives.append(sph)
+        cs, ref = compile_scene(desc, "cpu"), ref_compile_scene(_to_ref(desc))
+        word = {"partial-sphere": "partial spheres", "textured-sphere": "textured sphere",
+                "full-uber": "lobe set [1, 4, 6, 7, 7]"}[gate]
+        return cs, ref, icfg, scfg, fcfg, True, word
     if gate in ("infinite", "two-skies"):
         desc.lights.append(HostLight(kind="infinite", intensity=np.array([0.5, 0.5, 0.5])))
         if gate == "two-skies":
@@ -354,19 +409,20 @@ def _gate_scene(gate):
 
 
 GATES = ["normals", "checker", "sphere", "infinite", "two-skies", "mix", "halton", "gaussian", "mitchell", "over-cap",
-         "bump"]
+         "bump", "nine-spheres", "partial-sphere", "textured-sphere", "full-uber"]
 
 
 @pytest.mark.parametrize("gate", GATES)
 def test_eligibility_gates(gate, monkeypatch):
-    """The port refuses spheres, two infinite lights, mix, mitchell, the
-    triangle cap, halton without its film tables and bump maps, naming each
-    (the reference takes spheres and two skies: its kernel lights escaped
-    rays with the first sky, its wavefront with the last; it takes bump
-    maps and renders them without bumps, ROADMAP C, which the port fixes
-    by sending them to the wavefront); it takes per-vertex normals, a
-    constant infinite light, the gaussian filter and the checkerboard Kd,
-    as the reference does."""
+    """The port refuses two infinite lights, mix, mitchell, the triangle
+    cap, halton without its film tables, bump maps, more than 8 spheres, a
+    partial sphere, a textured sphere material and an uber row outside the
+    baked lobe sets, naming each (the reference takes two skies: its kernel
+    lights escaped rays with the first sky, its wavefront with the last; it
+    takes bump maps and renders them without bumps, ROADMAP C, which the
+    port fixes by sending them to the wavefront); it takes per-vertex
+    normals, a constant infinite light, the gaussian filter, the
+    checkerboard Kd and full spheres, as the reference does."""
     cs, ref, icfg, scfg, fcfg, ref_refuses, word = _gate_scene(gate)
     max_tris = 100 if gate == "over-cap" else mw.DEFAULT_MAX_TRIS  # the room has 170 triangles
     monkeypatch.setenv("PBRT_TPU_WIDEMEGA_MAX_TRIS", str(max_tris))  # the reference reads its cap here
@@ -410,7 +466,15 @@ def _twin_against_reference(desc, icfg, scfg, fcfg):
     return consts
 
 
-@pytest.mark.parametrize("case", list(CASES))
+# the reference-kernel cases of this file; the others, the heavier half
+# (sobol's compile alone is the longest case), run in
+# tests/test_torch_megakernel_wide_ref.py, so that the two files, one
+# worker each, take about equal time
+REF_CASES_ELSEWHERE = ("sobol-triangle", "maxmin-area", "02-sigma", "random-micro", "02-area", "02-both-uniform",
+                       "random-distant")
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c not in REF_CASES_ELSEWHERE])
 def test_plain_matches_reference_kernel(case):
     _twin_against_reference(*_case(case))
 
@@ -484,7 +548,8 @@ def test_blob_and_split_layouts_match_the_kernel():
                  "H_STRAT_YS", "H_WR2", "H_FXW", "H_FYW", "H_MAX_LUM", "H_G7", "H_LENS_R", "H_FOCAL", "H_R2C",
                  "H_C2W", "H_CDF", "H_PMF", "HEADER", "MAX_LIGHTS", "LIGHT_STRIDE", "MAX_MATS", "MAT_STRIDE",
                  "L_AREA", "L_TWO_SIDED", "L_V", "L_NG", "M_ROW", "H_FILTER", "H_SAMP", "H_GK", "L_ENV_P",
-                 "SOBOL_DIMS", "N_SAMPLER_IDS", "M_CHK", "M_CHK_UV"):
+                 "SOBOL_DIMS", "N_SAMPLER_IDS", "M_CHK", "M_CHK_UV", "L_C", "L_RW", "L_RW2", "L_RW2X", "L_ROBJ",
+                 "L_SPH", "MAX_SPHERES", "SPH_HEADER", "SPH_STRIDE", "S_LIGHT", "S_MAT"):
         assert int(d[name]) == getattr(mw, name), name
     for name, kind in (("S_HALTON", "halton"), ("S_SOBOL", "sobol"), ("S_MAXMIN", "maxmindist")):
         assert int(d[name]) == mw.SAMPLERS[kind], name

@@ -3,9 +3,12 @@ at 24x16, 4 spp, seed 3, on the 770-prim mesh room, on area_box and the
 spheres gallery (brute force), on material_room(8) under path and
 directlighting ("all" and "one"), on the mesh room under the 'spatial'
 light distribution, on area_box with a declared 2x2 stratified sampler
-without jitter, and on scenes.sky_meshes under its constant sky and under
-an image-mapped one (escaped rays pick up the environment with the deferred
-MIS weight; NEE samples the sphere or the map's distribution).
+without jitter, on scenes.sky_meshes under its constant sky and under an
+image-mapped one (escaped rays pick up the environment with the deferred
+MIS weight; NEE samples the sphere or the map's distribution), on a mixed
+scene (84 triangles beside four full spheres, a sphere lamp and a glossy
+uber sphere among them) under 'power' and 'spatial' selection, and on a
+brute scene of sphere lamps, full and partial (the brute wavefront).
 
 The reference runs its own make_persistent_fn on the CPU (its default CPU
 route for wide scenes is the XLA packet traversal, which
@@ -193,7 +196,81 @@ SLICE = {
     "sky_meshes": (_sky, None, "wide", False),
     "sky_meshes-image-map": (lambda t: _sky(t, image=True), None, "wide", False),
     "textured_room": (_textured, None, "wide", False),
+    "mixed-power": (lambda _t: _mixed_small("power"), None, "wide-mixed", False),
+    "mixed-spatial": (lambda _t: _mixed_small("spatial"), None, "wide-mixed", False),
+    "brute-sphere-lamps": (lambda _t: _brute_lamps(), None, "brute", False),
 }
+
+
+def _brute_lamps():
+    """A brute scene of matte spheres under sphere lamps: a floor and a back
+    wall (4 triangles), two matte spheres, a full lamp (sampled by its
+    visible cone) and a partial one (zmax clipped: sampled over its area,
+    as the reference samples a partial sphere) beside a point light, under
+    'spatial' selection."""
+    from pbrt_tpu_torch.scene.host import HostLight, HostMaterial, HostPrimitive, ShapeRecord, Sphere
+    from pbrt_tpu_torch.scenes import _const, _quad
+
+    matte = HostMaterial(kind="matte", params={"Kd": _const([0.6, 0.55, 0.5])})
+    black = HostMaterial(kind="matte", params={"Kd": _const([0.0, 0.0, 0.0])})
+
+    def sphere(center, radius, material, emit=None, z_max=None):
+        light = None if emit is None else HostLight(kind="area", intensity=np.asarray(emit, np.float64))
+        return HostPrimitive(shape=ShapeRecord(sphere=Sphere(
+            object_to_world=Transform.translate(center), radius=radius, z_min=-radius,
+            z_max=radius if z_max is None else z_max)), material=material, area_light=light)
+
+    desc = area_box()
+    desc.primitives = [
+        _quad([-3.0, 0.0, 2.0], [3.0, 0.0, 2.0], [3.0, 0.0, -3.0], [-3.0, 0.0, -3.0], matte),
+        _quad([-3.0, 0.0, -3.0], [3.0, 0.0, -3.0], [3.0, 3.0, -3.0], [-3.0, 3.0, -3.0], matte),
+        sphere([-1.2, 0.7, -1.2], 0.7, matte), sphere([1.2, 0.6, -0.8], 0.6, matte),
+        sphere([0.0, 2.2, -1.0], 0.35, black, emit=[9.0, 8.0, 7.0]),
+        sphere([1.8, 1.8, -2.0], 0.3, black, emit=[4.0, 5.0, 6.0], z_max=0.1),
+    ]
+    return desc
+
+
+def _mixed_small(strategy):
+    """A mixed scene from just over 64 triangles (a 6 x 6 terrain, five
+    two-triangle walls, the two-triangle panel light: 84) beside four full
+    spheres (two matte, a glossy uber one, and a sphere lamp) and a point
+    light, under `strategy` (each lobe kind more costs the reference's XLA
+    compile seconds; the wide megakernel's tests hold glass spheres); the reference walks it through its packet
+    loop over the binary BVH, the port the triangle subset's wide tables
+    beside the spheres' tests."""
+    from pbrt_tpu_torch.scene.host import HostLight, HostMaterial, HostPrimitive, ShapeRecord, Sphere
+    from pbrt_tpu_torch.scenes import ROOM_LOOK_AT, _const, _grid_mesh, _prim
+
+    desc = mesh_room(1)
+    terrain = _prim(*_grid_mesh(lambda x, z: (x, 0.6 * np.sin(1.7 * x) * np.cos(1.3 * z), z), -4, 4, -4, 4, 6),
+                    [0.55, 0.45, 0.35])
+    y0, y1 = -1.3, 4.0
+    walls = [_prim(*_grid_mesh(f, -4, 4, lo, hi, 1), kd) for f, lo, hi, kd in (
+        (lambda u, v: (u, v, np.full_like(u, -4.0)), y0, y1, [0.6, 0.6, 0.6]),
+        (lambda u, v: (u, v, np.full_like(u, 4.0)), y0, y1, [0.6, 0.6, 0.6]),
+        (lambda u, v: (np.full_like(u, -4.0), v, u), y0, y1, [0.55, 0.3, 0.3]),
+        (lambda u, v: (np.full_like(u, 4.0), v, u), y0, y1, [0.3, 0.55, 0.3]),
+        (lambda u, v: (u, np.full_like(u, y1), v), -4, 4, [0.7, 0.7, 0.7]))]
+
+    def sphere(center, radius, material, light=None):
+        return HostPrimitive(shape=ShapeRecord(sphere=Sphere(object_to_world=Transform.translate(center), radius=radius,
+                                                             z_min=-radius, z_max=radius)),
+                             material=material, area_light=light)
+
+    spheres = [
+        sphere([-1.5, 1.2, -1.0], 0.7, HostMaterial(kind="matte", params={"Kd": _const([0.6, 0.6, 0.5])})),
+        sphere([1.3, 1.0, -0.5], 0.6, HostMaterial(kind="uber", params={
+            "Kd": _const([0.5, 0.3, 0.2]), "Ks": _const([0.3, 0.3, 0.3]), "roughness": ("const", 0.15)})),
+        sphere([0.0, 2.0, -2.0], 0.5, HostMaterial(kind="matte", params={"Kd": _const([0.4, 0.5, 0.6])})),
+        sphere([0.6, 2.8, 0.6], 0.3, HostMaterial(kind="matte", params={"Kd": _const([0.0, 0.0, 0.0])}),
+               HostLight(kind="area", intensity=np.array([12.0, 10.0, 8.0]))),
+    ]
+    desc.primitives = [terrain] + walls + desc.primitives[-1:] + spheres
+    desc.lights = [HostLight(kind="point", from_point=np.array([-2.0, 2.5, 1.0]), intensity=np.array([5.0, 5.0, 5.0]))]
+    desc.camera.camera_to_world = Transform.look_at(*ROOM_LOOK_AT)
+    desc.integrator.light_strategy = strategy
+    return desc
 
 
 def _spatial_room_ref():
@@ -217,6 +294,8 @@ def test_wavefront_matches_reference(case, monkeypatch, tmp_path):
         monkeypatch.setattr(ref_sampler, "_STRATIFIED_JITTER", desc.sampler.jitter)
     tier_r, ref_out = _reference_wave(ref_compile_scene(ref_desc))
     assert tier_r.endswith("brute") == (shape == "brute")
+    if shape == "wide-mixed":  # more than 64 triangles beside the spheres
+        assert 64 < compile_scene(desc, "cpu").static.n_tris < 100
     tier, out = _port_wave(compile_scene(desc, "cpu"))
     assert tier == f"torch-wavefront/plain-{shape}"
     if matte:

@@ -10,6 +10,7 @@ from dataclasses import fields
 from pathlib import Path
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -129,3 +130,144 @@ def test_port_imports_without_jax():
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+# --- mixed scenes: more than 64 triangles beside full or partial spheres ---------
+
+
+@pytest.fixture(scope="module")
+def mixed():
+    """The reference test's mixed rooms (tests/test_megakernel_wide.py:251,
+    :312) on the port's host types, compiled by both packages."""
+    from test_torch_megakernel import _to_ref
+    from test_torch_megakernel_wide import _mixed_room
+
+    out = {}
+    for kind in ("spheres", "lamp"):
+        desc = _mixed_room(kind)
+        out[kind] = compile_scene(desc, "cpu"), ref_compile_scene(_to_ref(desc))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["spheres", "lamp"])
+def test_mixed_tables_bit_identical(mixed, kind):
+    """A mixed room's tables equal the reference's, the wide tables over the
+    triangle subset included, and so do its static fields: has_wide stays
+    False, has_wide_tri is True, n_spheres, has_cone_sphere_lights (the
+    sphere lamp). The leaf rows the walks read carry the global prim row;
+    wide_prim_rows lists them (the reference tables index the subset)."""
+    cs, ref = mixed[kind]
+    for f in fields(SceneTensors):
+        if f.name in HOPPER_TABLES:
+            continue
+        a, b = getattr(cs.arrays, f.name), getattr(ref.arrays, f.name)
+        assert (a is None) == (b is None), f.name
+        if a is None or isinstance(a, dict):
+            continue
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=f.name)
+    for name in ("n_prims", "n_tris", "n_spheres", "n_lights", "use_brute_force", "has_wide", "has_wide_tri",
+                 "has_cone_sphere_lights", "has_area_lights", "wide_root"):
+        assert getattr(cs.static, name) == getattr(ref.static, name), name
+    assert cs.static.has_wide_tri and not cs.static.has_wide
+    assert cs.static.has_cone_sphere_lights == (kind == "lamp")
+    rows = np.nonzero(cs.arrays.prim_kind.numpy() == 0)[0]
+    np.testing.assert_array_equal(cs.arrays.wide_prim_rows.numpy(), rows)
+    leaf = cs.arrays.wleaf_rec.numpy()
+    valid = leaf[:, 9] > 0
+    slots = cs.arrays.wslot_prim.numpy()
+    np.testing.assert_array_equal(leaf[valid, 10], rows[slots[slots >= 0]])
+
+
+def test_mixed_queries_match_reference(mixed):
+    """The mixed closest and any hit (the triangle subset's walk, the
+    spheres tested beside it and merged by t) against the reference's
+    intersect and intersect_p (its packet loop over the binary BVH of every
+    prim) on the same rays: random rays in the room and rays toward the
+    spheres. Prim ids and hit flags equal; t within rtol 1e-6 on
+    triangles and 1e-5 on spheres (the reference's jitted loop contracts
+    the quadratic's b^2 - 4ac into fused multiply-adds, and the root's
+    cancellation carries that to ~7e-6 relative on 10 of the 1,563 hits);
+    barycentrics within atol 1e-6; a sphere's b1, b2 are its object-space
+    hit point o + t d, the reference's likewise, within atol 2e-5 (t's
+    error times the distance: up to 1.3e-5 here)."""
+    from pbrt_tpu.device import intersect as ref_isect
+    from pbrt_tpu_torch.device import intersect
+
+    cs, ref = mixed["spheres"]
+    rs = np.random.RandomState(21)
+    n = 2048
+    o = np.stack([rs.uniform(-3.5, 3.5, n), rs.uniform(0.6, 3.5, n), rs.uniform(-3.5, 3.5, n)], -1)
+    centers = cs.arrays.sph_o2w.numpy()[:, :, 3]
+    d = rs.normal(size=(n, 3))
+    d[: n // 2] = centers[rs.randint(0, len(centers), n // 2)] + rs.normal(scale=0.4, size=(n // 2, 3)) - o[: n // 2]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = o.astype(np.float32), d.astype(np.float32)
+    t_max = np.where(rs.uniform(size=n) < 0.5, np.inf, rs.uniform(0.5, 6.0, n)).astype(np.float32)
+    mine = intersect.intersect(cs.arrays, cs.static, *(torch.as_tensor(x) for x in (o, d, t_max)))
+    theirs = ref_isect.intersect(ref.arrays, ref.static, *(jnp.asarray(x) for x in (o, d, t_max)))
+    prim = np.asarray(theirs["prim"])
+    np.testing.assert_array_equal(mine["prim"].numpy(), prim)
+    kind = cs.arrays.prim_kind.numpy()[np.maximum(prim, 0)]
+    assert ((prim >= 0) & (kind == 1)).mean() > 0.2 and ((prim >= 0) & (kind == 0)).mean() > 0.2
+    t, t_r = mine["t"].numpy(), np.asarray(theirs["t"])
+    tri, sph = (prim >= 0) & (kind == 0), (prim >= 0) & (kind == 1)
+    np.testing.assert_allclose(t[tri], t_r[tri], rtol=1e-6)
+    np.testing.assert_allclose(t[sph], t_r[sph], rtol=1e-5)
+    for key in ("b1", "b2"):
+        b, b_r = mine[key].numpy(), np.asarray(theirs[key])
+        np.testing.assert_allclose(b[tri], b_r[tri], atol=1e-6, err_msg=key)
+        np.testing.assert_allclose(b[sph], b_r[sph], atol=2e-5, err_msg=key)
+    occ = intersect.intersect_p(cs.arrays, cs.static, *(torch.as_tensor(x) for x in (o, d, t_max)))
+    occ_r = ref_isect.intersect_p(ref.arrays, ref.static, *(jnp.asarray(x) for x in (o, d, t_max)))
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(occ_r))
+
+
+@pytest.mark.parametrize("case", ["cylinder", "nine-quadrics", "few-triangles"])
+def test_mixed_scene_refusals_name_the_feature(case):
+    """What the reference takes through its binary-BVH packet loop and the
+    port does not yet (ROADMAP A4): the other quadrics, more than 8 quadrics
+    in a scene of more than 64 prims, and such a scene of 64 triangles or
+    fewer."""
+    from pbrt_tpu_torch.core.transform import Transform
+    from pbrt_tpu_torch.scene.host import HostPrimitive, ShapeRecord, Sphere
+
+    desc = mesh_room(8)
+    glass = HostMaterial(kind="glass")
+
+    def quadric(i, kind="sphere"):
+        return HostPrimitive(shape=ShapeRecord(sphere=Sphere(object_to_world=Transform.translate([i * 0.5, 2.0, 0.0]),
+                                                             radius=0.2, kind=kind)), material=glass)
+
+    if case == "cylinder":
+        desc.primitives.append(quadric(0, "cylinder"))
+        match = "'cylinder' quadrics"
+    elif case == "nine-quadrics":
+        desc.primitives += [quadric(i) for i in range(9)]
+        match = "more than 8 quadrics in scenes of > 64 primitives"
+    else:
+        desc.primitives = desc.primitives[-1:] + [quadric(i) for i in range(70)]  # the panel: 2 triangles
+        match = "64 triangles or fewer"
+    with pytest.raises(NotImplementedError, match=match):
+        compile_scene(desc, "cpu")
+
+
+def test_sphere_room_routes(monkeypatch):
+    """sphere_room and uber_room: seven full spheres (a sphere lamp among
+    them) beside material_room's 3,854 triangles, five lights; the
+    wavefront's route label names the mixed query; the wide megakernel
+    takes sphere_room (its uber rows glossy) and refuses uber_room by lobe
+    set."""
+    from pbrt_tpu_torch import render, scenes
+
+    monkeypatch.setenv("PBRT_TPU_WIDEMEGA", "1")
+    for make, tier in ((scenes.sphere_room, "torch-megakernel/plain-wide"),
+                       (scenes.uber_room, "torch-wavefront/plain-wide-mixed")):
+        cs = compile_scene(make(), "cpu")
+        st = cs.static
+        assert (st.n_tris, st.n_spheres, st.n_lights) == (3854, 7, 5)
+        assert st.has_wide_tri and not st.has_wide and st.has_cone_sphere_lights
+        render.make_persistent_fn(cs)
+        assert render.LAST_PERSISTENT_TIER == tier
+    monkeypatch.delenv("PBRT_TPU_WIDEMEGA")
+    render.make_persistent_fn(cs)
+    assert render.LAST_PERSISTENT_TIER == "torch-wavefront/plain-wide-mixed"

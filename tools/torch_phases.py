@@ -2,7 +2,8 @@
 """Where the time goes in pbrt_tpu_torch's main path, on one CUDA GPU.
 
     python3 tools/torch_phases.py [--scene mesh|gallery|material_room|mesh_b4|material_room_wave|area_box|
-                                           textured_room|textured_gallery|checker_room]
+                                           textured_room|textured_gallery|checker_room|sphere_room|
+                                           sphere_room_248]
                                   [--reps 5] [--out FILE.json]
 
 Renders at 1000x500, 16 spp, depth 5 one of: the 123,650-triangle mesh room
@@ -13,9 +14,12 @@ megakernel (--scene mesh_b4; also PBRT_TPU_WIDEMEGA_MAX_TRIS=200000),
 material_room on the wavefront (--scene material_room_wave), area_box
 on the brute wavefront (--scene area_box), textured_room on the wavefront
 (--scene textured_room), textured_gallery through the brute megakernel's
-textured instantiation (--scene textured_gallery) or material_room with
-the checkerboard floor through the wide megakernel (--scene checker_room),
-and reports, with the card's name and power limit:
+textured instantiation (--scene textured_gallery), material_room with
+the checkerboard floor through the wide megakernel (--scene checker_room)
+or sphere_room, seven full spheres beside material_room's triangles, on
+the wavefront's mixed query (--scene sphere_room; sphere_room_248: the same
+spheres among the mesh room's 123,650 triangles), and reports, with the
+card's name and power limit:
  1. end to end: render wall time and path_vertex_samples_per_sec over
     --reps untraced renders after a warm-up (median, min, max);
  2. the traversal kernel against its plain PyTorch twin on the main path's
@@ -25,7 +29,8 @@ and reports, with the card's name and power limit:
  3. layers (the wavefront scenes; a megakernel render is one kernel
     launch): one render with a synchronize around every call into a layer
     (camera regeneration, closest-hit query, shadow query, of which the
-    traversal kernel itself), the rest being shading, NEE, sampling,
+    traversal kernel itself and, in a mixed scene, the spheres' tests and
+    merge), the rest being shading, NEE, sampling,
     Russian roulette, flush and loop control; the synchronizes serialise
     host and device, so the traced wall minus the untraced median is the
     tracing cost;
@@ -85,7 +90,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scene", default="mesh",
                     choices=("mesh", "gallery", "material_room", "mesh_b4", "material_room_wave", "area_box",
-                             "textured_room", "textured_gallery", "checker_room"))
+                             "textured_room", "textured_gallery", "checker_room", "sphere_room", "sphere_room_248"))
     ap.add_argument("--all-matte", action="store_true", help="every material matte (Kd 0.6), the panel's kept")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
@@ -103,8 +108,8 @@ def main() -> int:
     from pbrt_tpu_torch import render as R_
     from pbrt_tpu_torch.scene.builder import compile_scene
     from pbrt_tpu_torch.scene.host import HostMaterial
-    from pbrt_tpu_torch.scenes import area_box, material_room, mesh_room, spheres_gallery, textured_gallery, \
-        textured_room
+    from pbrt_tpu_torch.scenes import area_box, material_room, mesh_room, sphere_room, spheres_gallery, \
+        textured_gallery, textured_room
 
     if args.scene in ("material_room", "mesh_b4", "checker_room"):
         os.environ["PBRT_TPU_WIDEMEGA"] = "1"
@@ -112,7 +117,8 @@ def main() -> int:
         os.environ["PBRT_TPU_WIDEMEGA_MAX_TRIS"] = "200000"
     make = {"mesh": mesh_room, "mesh_b4": mesh_room, "gallery": spheres_gallery, "material_room": material_room,
             "material_room_wave": material_room, "area_box": area_box, "textured_room": textured_room,
-            "textured_gallery": textured_gallery, "checker_room": lambda: material_room(checker=True)}
+            "textured_gallery": textured_gallery, "checker_room": lambda: material_room(checker=True),
+            "sphere_room": sphere_room, "sphere_room_248": lambda: sphere_room(248)}
     rec = {"device": torch.cuda.get_device_name(0), "nvidia_smi": chip_smoke._smi(),
            "torch": torch.__version__, "cuda": torch.version.cuda, "scene": args.scene,
            "all_matte": args.all_matte}
@@ -156,11 +162,11 @@ def main() -> int:
 def _traversal_and_layers(args, cs, rec, wall_median):
     import chip_smoke
     from pbrt_tpu_torch import render as R_
-    from pbrt_tpu_torch.device import integrator, wide_bvh
+    from pbrt_tpu_torch.device import integrator, intersect, wide_bvh
 
     # --- 2. traversal kernel vs plain on the main path's ray sets ---
     rec["traversal"] = []
-    for name, o, d, t_max in (chip_smoke._rays(cs) if cs.static.has_wide else ()):
+    for name, o, d, t_max in (chip_smoke._rays(cs) if cs.static.has_wide_tri else ()):
         for any_hit in (False, True):
             k_ms = chip_smoke._cuda_ms(lambda: wide_bvh.traverse_cuda(cs.arrays, o, d, t_max, any_hit), 20)
             p_ms = chip_smoke._cuda_ms(lambda: wide_bvh.traverse_plain(cs.arrays, o, d, t_max, any_hit), 2)
@@ -177,7 +183,9 @@ def _traversal_and_layers(args, cs, rec, wall_median):
     saved = {n: getattr(integrator, n) for n in ("intersect", "intersect_p")}
     saved_regen = R_.make_regen
     saved_kernel = wide_bvh.traverse_cuda
+    saved_spheres = intersect._mixed_spheres
     try:
+        intersect._mixed_spheres = _spanned(saved_spheres, "sphere_merge", spans)
         integrator.intersect = _spanned(saved["intersect"], "closest_query", spans)
         integrator.intersect_p = _spanned(saved["intersect_p"], "shadow_query", spans)
         R_.make_regen = lambda *a, **k: _spanned(saved_regen(*a, **k), "regen", spans)
@@ -193,6 +201,7 @@ def _traversal_and_layers(args, cs, rec, wall_median):
         integrator.intersect, integrator.intersect_p = saved["intersect"], saved["intersect_p"]
         R_.make_regen = saved_regen
         wide_bvh.traverse_cuda = saved_kernel
+        intersect._mixed_spheres = saved_spheres
     traced = R_.render_compiled.last_timing["wall_s"]
     layers = {"regen": spans.get("regen", 0.0),
               "closest_query": spans.get("closest_query", 0.0),
@@ -200,10 +209,12 @@ def _traversal_and_layers(args, cs, rec, wall_median):
     layers["shading_nee_flush_loop"] = traced - sum(layers.values())
     rec["layers"] = {"traced_wall_s": traced, "tracing_cost_s": traced - wall_median,
                      "seconds": layers, "kernel_s_within_queries": spans.get("kernel", 0.0),
+                     "sphere_merge_s_within_queries": spans.get("sphere_merge", 0.0),
                      "kernel_launches": kern.launches}
     print(f"layers (traced wall {traced:.4f}s): " + ", ".join(
         f"{k} {v:.4f}s ({100 * v / traced:.1f}%)" for k, v in layers.items())
-        + f"; kernel itself {spans.get('kernel', 0.0):.4f}s over {kern.launches} launches", flush=True)
+        + f"; kernel itself {spans.get('kernel', 0.0):.4f}s over {kern.launches} launches; spheres' tests and "
+          f"merge {spans.get('sphere_merge', 0.0):.4f}s", flush=True)
 
 
 def _launch_path(args, cs, rec):
