@@ -202,11 +202,35 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     (route torch-wavefront/cuda-brute); uber_room (sphere_room's uber rows
     full) refused by B4 by lobe set under PBRT_TPU_WIDEMEGA=1, and its crop
     through the wavefront on cuda and cpu; area_box with its copper sphere a
-    sphere lamp through the brute wavefront, its crop on cuda and cpu.
-Phases 15-21, 24's image-mapped sky, 25, 28 and 30 are the wavefront's
+    sphere lamp through the brute wavefront, its crop on cuda and cpu;
+31. the remaining surface materials through the wavefront: zoo_room
+    (material_room's meshes with an anisotropic substrate floor, a disney
+    wall, a wall mixing plastic and copper, a rough-conductor fourier box,
+    a translucent quad and 32 hair curves: 7,952 triangles) at 1000x500,
+    16 spp, depth 5: route torch-wavefront/cuda-wide, B1 launches > 0;
+    prints the wall, path_vertex_samples_per_sec, path vertices, the
+    device kernels per wavefront iteration and the share of camera rays
+    ending on each material kind; B1 against its twin bit for bit on the
+    render's 500,000 camera, bounce and shadow rays; the crops of zoo_room
+    and zoo_room(textured=True) on cuda and cpu, held as in phase 5 with
+    the mix's two sub-rows made one (its per-hit choice hashes the hit
+    point's float bits, which differ by ulps between the devices), and as
+    built held as estimates (means within 1%);
+32. zoo_room at n_side 248 (127,760 triangles), the full-size main path of
+    this class: the same numbers, B1 against its twin;
+33. zoo_room written as a file (scenes.write_pbrt: MakeNamedMaterial for
+    the mix's sub-materials, the Fourier table copied beside it) through
+    main.main: the same tables and a 4 spp crop bit-equal to the
+    hand-built scene's; B4's and B3's named refusals of zoo_room, and B4's
+    refusal by lobe set of substrate, disney, fourier and hair rows; B4 on
+    material_room with its back wall translucent without transmission
+    (baked as plastic) against its twin at 2 spp under phase 11's
+    tolerance, its 16 spp launch timed, and the wavefront's 16 spp path
+    total within 0.01% of it.
+Phases 15-21, 24's image-mapped sky, 25, 28, 30, 31 and 32 are the wavefront's
 array code around B1 (the brute wavefront launches no kernel of the port):
 they add no row to the kernel report; phase 29's sphere instantiation
-rides B4's row. Each main path runs with every launch count set to 0 just
+and phase 33's translucent wall ride B4's row. Each main path runs with every launch count set to 0 just
 before it and read just after; every switch a phase sets is restored after
 it. The second-to-last lines are the kernel report as JSON and the card's
 nvidia-smi name and power limit; the last line is
@@ -251,6 +275,10 @@ B3_OPS_TRI, B3_OPS_SPH = 45, 65  # one watertight triangle / full-sphere test
 B3_OPS_SHADE = 300  # BSDF sample + evaluation + NEE terms per path vertex
 B3_OPS_REGEN = 60  # one camera regeneration: film sample, raster -> camera -> world, two normalisations
 B3_OPS_TEX = 60  # one atlas lookup: the cone's level (log2), 2 levels x 4 taps weighted and summed
+# phases 28-33 count kernels per iteration on a crop at LATE_SPP[0] and hold
+# crops at LATE_SPP[1] samples per pixel, to keep the script's command time
+# near its earlier length as phases are added
+LATE_SPP = (1, 2)
 # phase 26: the brute megakernel's image against the brute wavefront's (EWA),
 # by mean brightness (tests/test_megakernel.py:189-205)
 RAY_CONE_BAND = (0.93, 1.07)
@@ -312,13 +340,17 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _check_crop(label, cs_gpu, cs_cpu, desc, spp=CROP_SPP):
-    """Phases 5, 8, 13, 15-19 and 21: the same crop rendered on cuda and on
-    cpu (desc: the scene description both render). Under a filter with
-    negative lobes (mitchell, sinc), whose samples carry signed weights, a
-    pixel's weight sum can be near 0 or negative at a few samples and the
-    film divides by it, as the reference's does; the image is then
-    required to be non-black in magnitude, not in its mean."""
+def _check_crop(label, cs_gpu, cs_cpu, desc, spp=CROP_SPP, estimate=False):
+    """Phases 5, 8, 13, 15-19, 21 and 25-33: the same crop rendered on cuda
+    and on cpu (desc: the scene description both render). Under a filter
+    with negative lobes (mitchell, sinc), whose samples carry signed
+    weights, a pixel's weight sum can be near 0 or negative at a few
+    samples and the film divides by it, as the reference's does; the image
+    is then required to be non-black in magnitude, not in its mean.
+    estimate: a scene whose paths may part on the two devices (a mix's
+    per-hit choice hashes the hit point's float bits, which differ by ulps
+    between the card's and the CPU's arithmetic) is held as an estimate:
+    the two means within 1%, the gate's numbers printed."""
     import numpy as np
 
     from pbrt_tpu_torch import render as R_
@@ -340,6 +372,10 @@ def _check_crop(label, cs_gpu, cs_cpu, desc, spp=CROP_SPP):
           f"sum|a-b|/sum|b| {rel:.3e}, pixels within rtol 1e-2 {px_ok:.4f}, means {img_g.mean():.5f} "
           f"{img_c.mean():.5f}" + (f", mean |b| {level:.5f}, range [{img_c.min():.5g}, {img_c.max():.5g}]"
                                    if signed else ""), flush=True)
+    if estimate:
+        if not (np.isfinite(img_g).all() and level > 0 and abs(img_g.mean() / img_c.mean() - 1.0) < 0.01):
+            raise AssertionError(f"cuda and cpu renders of the crop disagree as estimates ({label})")
+        return
     if not (np.isfinite(img_g).all() and level > 0 and rel < 1e-3 and px_ok >= 0.99):
         raise AssertionError(f"cuda and cpu renders of the crop disagree ({label})")
 
@@ -931,10 +967,11 @@ def _sky_phases(out, work, m, m_host, b4_ms, fe):
                           "b1_launches": b1}
 
 
-def _kernels_per_iteration(cs) -> tuple[int, int]:
-    """(device kernels, wavefront iterations) of the crop's render under
-    torch.profiler; iterations = closest-hit queries (one per iteration),
-    counted without a synchronize, as tools/torch_phases.py counts them."""
+def _kernels_per_iteration(cs, spp=CROP_SPP) -> tuple[int, int]:
+    """(device kernels, wavefront iterations) of the crop's render at spp
+    under torch.profiler; iterations = closest-hit queries (one per
+    iteration), counted without a synchronize, as tools/torch_phases.py
+    counts them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -944,7 +981,7 @@ def _kernels_per_iteration(cs) -> tuple[int, int]:
 
     desc_c = dataclasses.replace(cs.description, integrator=dataclasses.replace(cs.description.integrator,
                                                                                 pixel_bounds=CROP_BOUNDS),
-                                 sampler=dataclasses.replace(cs.description.sampler, pixel_samples=CROP_SPP))
+                                 sampler=dataclasses.replace(cs.description.sampler, pixel_samples=spp))
     n_iter = [0]
     closest = integrator.intersect
 
@@ -1207,7 +1244,7 @@ def _sphere_phases(out, cs, b4_ms, g):
 
     dev = torch.device("cuda", 0)
     fcfg = {"filter": "box", "filter_params": {}, "max_sample_luminance": float("inf")}
-    n_k_mesh, n_it_mesh = _kernels_per_iteration(cs)
+    n_k_mesh, n_it_mesh = _kernels_per_iteration(cs, LATE_SPP[0])
     print(f"[28 mesh room] crop under the profiler: {n_k_mesh} device kernels over {n_it_mesh} wavefront "
           f"iterations ({n_k_mesh / max(n_it_mesh, 1):.1f} per iteration)", flush=True)
 
@@ -1221,13 +1258,13 @@ def _sphere_phases(out, cs, b4_ms, g):
         sr = host.to(dev)
         timing, b1, _img = _main_path(f"{label} main path", sr, "torch-wavefront/cuda-wide-mixed",
                                       wide_bvh.traverse_cuda)
-        n_k, n_it = _kernels_per_iteration(sr)
+        n_k, n_it = _kernels_per_iteration(sr, LATE_SPP[0])
         print(f"  {sr.static.n_tris} triangles beside {sr.static.n_spheres} spheres, {sr.static.n_lights} lights, "
               f"host compile {host_s:.2f}s; crop under the profiler: {n_k} device kernels over {n_it} wavefront "
               f"iterations ({n_k / max(n_it, 1):.1f} per iteration; the mesh room's "
               f"{n_k_mesh / max(n_it_mesh, 1):.1f})", flush=True)
         q_ms = _query_against_twin(label, sr)
-        _check_crop(f"{label} cuda-vs-cpu crop", sr, host, sr.description)
+        _check_crop(f"{label} cuda-vs-cpu crop", sr, host, sr.description, LATE_SPP[1])
         rooms[n_side] = sr
         out[f"sphere_room_{n_side}"] = {
             "wall_s": timing["wall_s"], "vps": timing["n_vertices"] / timing["wall_s"],
@@ -1348,7 +1385,7 @@ def _sphere_phases(out, cs, b4_ms, g):
               flush=True)
         if tier_b4 != "torch-wavefront/cuda-wide-mixed" or "lobe set" not in (why_b4 or ""):
             raise AssertionError("the wide megakernel did not refuse uber_room by lobe set")
-        _check_crop("30 cuda-vs-cpu uber_room crop", ub, ub_host, ud)
+        _check_crop("30 cuda-vs-cpu uber_room crop", ub, ub_host, ud, LATE_SPP[1])
     lamp_host = compile_scene(scenes.area_box(sphere_lamp=True), "cpu")
     lamp = lamp_host.to(dev)
     R_.make_persistent_fn(lamp)
@@ -1356,14 +1393,186 @@ def _sphere_phases(out, cs, b4_ms, g):
           f"{lamp.static.has_cone_sphere_lights}, route {R_.LAST_PERSISTENT_TIER}", flush=True)
     if R_.LAST_PERSISTENT_TIER != "torch-wavefront/cuda-brute" or not lamp.static.has_cone_sphere_lights:
         raise AssertionError("area_box with a sphere lamp did not take the brute wavefront")
-    _check_crop("30 cuda-vs-cpu area_box sphere lamp crop", lamp, lamp_host, lamp.description)
+    _check_crop("30 cuda-vs-cpu area_box sphere lamp crop", lamp, lamp_host, lamp.description, LATE_SPP[1])
     out["uber"] = {"b3_refusal": why_b3, "b4_refusal": why_b4}
+
+
+def _same_sub_rows(cs):
+    """cs with each mix row's second sub-row pointed at its first (the
+    P_EXTRA slot of mat_const): the hit's hashed choice then picks the same
+    lobes either way, and the image no longer depends on it."""
+    from pbrt_tpu_torch.scene.arrays import MAT_MIX, P_EXTRA
+    from pbrt_tpu_torch.scene.builder import CompiledScene
+
+    const = cs.arrays.mat_const.clone()
+    mix = cs.arrays.mat_kind == MAT_MIX
+    const[mix, P_EXTRA, 1] = const[mix, P_EXTRA, 0]
+    return CompiledScene(dataclasses.replace(cs.arrays, mat_const=const), cs.static, cs.description)
+
+
+def _hit_shares(cs) -> dict:
+    """Share of the main path's camera rays that end on each material kind
+    (a mix's row counted as mix), and on none."""
+    import torch
+
+    from pbrt_tpu_torch.device.intersect import intersect
+    from pbrt_tpu_torch.scene.arrays import MAT_IDS
+
+    names = {v: k for k, v in MAT_IDS.items()}
+    _name, o, d, t_max = _rays(cs)[0]
+    prim = intersect(cs.arrays, cs.static, o, d, t_max, sort_rays=True)["prim"]
+    kind = torch.where(prim >= 0, cs.arrays.mat_kind[cs.arrays.prim_mat[prim.clamp(min=0)]], -1)
+    counts = torch.bincount(kind + 1, minlength=16).tolist()
+    return {("miss" if k == 0 else names[k - 1]): c / prim.numel() for k, c in enumerate(counts) if c}
+
+
+def _material_phases(out, work, m, b4_ms):
+    """Phases 31-33: the surface materials the wavefront renders and the
+    megakernels refuse (substrate, translucent, disney, mix, fourier,
+    hair), in zoo_room at two sizes and from a file; the translucent rows
+    that B4 bakes as plastic."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch import main as cli
+    from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.device import megakernel, megakernel_wide, wide_bvh
+    from pbrt_tpu_torch.device.camera import make_camera
+    from pbrt_tpu_torch.scene.builder import compile_scene
+    from pbrt_tpu_torch.scene.host import HostMaterial
+
+    dev = torch.device("cuda", 0)
+    fcfg = {"filter": "box", "filter_params": {}, "max_sample_luminance": float("inf")}
+    tables = work / "tables"
+
+    # --- 31-32. zoo_room through the wavefront at n_side 40 and 248 ---
+    rooms = {}
+    for n_side in (40, 248):
+        label = f"{31 if n_side == 40 else 32} zoo_room({n_side})"
+        t0 = time.perf_counter()
+        host = compile_scene(scenes.zoo_room(n_side, table_dir=str(tables)), "cpu")
+        host_s = time.perf_counter() - t0
+        z = host.to(dev)
+        timing, b1, _img = _main_path(f"{label} main path", z, "torch-wavefront/cuda-wide", wide_bvh.traverse_cuda)
+        n_k, n_it = _kernels_per_iteration(z, LATE_SPP[0])
+        shares = _hit_shares(z)
+        print(f"  {z.static.n_tris} triangles, {z.static.n_materials} material rows, Fourier tables "
+              f"{_nbytes(*z.arrays.fourier.values())} bytes, host compile {host_s:.2f}s; crop under the profiler: "
+              f"{n_k} device kernels over {n_it} wavefront iterations ({n_k / max(n_it, 1):.1f} per iteration); "
+              f"camera rays ending on each kind {json.dumps({k: round(v, 4) for k, v in shares.items()})}",
+              flush=True)
+        q_ms = _query_against_twin(label, z)
+        rooms[n_side] = (z, host)
+        out[f"zoo_room_{n_side}"] = {
+            "wall_s": timing["wall_s"], "vps": timing["n_vertices"] / timing["wall_s"],
+            "n_vertices": timing["n_vertices"], "b1_launches": b1, "kernels_per_iteration": n_k / max(n_it, 1),
+            "camera_hit_shares": shares, "camera_query_ms": q_ms, "host_compile_s": host_s}
+        if n_side == 40:
+            th = compile_scene(scenes.zoo_room(n_side, textured=True, table_dir=str(tables)), "cpu")
+            for name, g_, c_ in (("", z, host), (" textured", th.to(dev), th)):
+                _check_crop(f"{label}{name} cuda-vs-cpu crop, the mix's sub-rows the same", _same_sub_rows(g_),
+                            _same_sub_rows(c_), c_.description, LATE_SPP[1])
+                _check_crop(f"{label}{name} cuda-vs-cpu crop as built", g_, c_, c_.description, LATE_SPP[1],
+                            estimate=True)
+
+    # --- 33. zoo_room as a file; the megakernels' gates ---
+    z, host = rooms[40]
+    path = work / "zoo_room.pbrt"
+    scenes.write_pbrt(host.description, str(path), scenes.ROOM_LOOK_AT)
+    _reset_launches()
+    cli.main([str(path), "--outfile", str(work / "zoo_room.exr"), "--quiet", "--seed", str(SEED), "--spp",
+              str(CROP_SPP), "--cropwindow", "0.468", "0.532", "0.468", "0.532"])
+    b1 = wide_bvh.traverse_cuda.launches
+    run = cli.main.last_run
+    parsed = run["scene"].description
+    bad = _tables_equal(run["scene"].arrays, host.arrays)
+    hand = R_.render_compiled(_with_desc(z, dataclasses.replace(
+        z.description, film=dataclasses.replace(z.description.film, crop_window=parsed.film.crop_window))),
+        seed=SEED, spp=CROP_SPP)
+    f_img = run["image"]
+    equal = f_img.shape == hand.shape and bool(np.array_equal(f_img, hand))
+    print(f"[33 zoo_room file] {path.name} (MakeNamedMaterial for the mix, bsdffile beside it): parse + API "
+          f"{run['parse_s']:.4f}s, compile_scene {run['compile_s']:.4f}s, route {run['timing']['tier']}, B1 "
+          f"launches {b1}; tables differing from the hand-built scene's: {bad or 'none'}; crop {f_img.shape} at "
+          f"{CROP_SPP} spp bit-equal to the hand-built scene's: {equal}", flush=True)
+    if bad or run["scene"].static != host.static:
+        raise AssertionError(f"the zoo_room file compiles to other tables: {bad}")
+    if not equal or b1 <= 0 or not f_img.any():
+        raise AssertionError("the zoo_room file renders another image than the hand-built scene")
+    d = z.description
+    icfg = {"kind": "path", "max_depth": d.integrator.max_depth, "rr_threshold": d.integrator.rr_threshold,
+            "light_strategy": d.integrator.light_strategy, "strategy": d.integrator.strategy}
+    scfg = {"kind": d.sampler.kind, "spp": d.sampler.pixel_samples}
+    cam = make_camera(d.camera, d.film, dev)
+    # past the triangle cap (zoo_room has 7,952), to the materials
+    why_b4 = megakernel_wide.explain_ineligible_wide(z, cam, icfg, scfg, fcfg, 200_000)
+    why_b3 = megakernel.explain_ineligible(z, cam, icfg, scfg, fcfg)
+    with mock.patch.dict(os.environ, PBRT_TPU_WIDEMEGA="1"):
+        R_.make_persistent_fn(z)
+        tier = R_.LAST_PERSISTENT_TIER
+    refusals = {}
+    for kind in ("substrate", "disney", "fourier", "hair"):  # one at a time, on material_room's floor
+        md = m.description
+        mat = next(p.material for p in d.primitives if p.material.kind == kind)
+        one = compile_scene(dataclasses.replace(md, primitives=[dataclasses.replace(md.primitives[0], material=mat)]
+                                                + md.primitives[1:]), dev)
+        refusals[kind] = megakernel_wide.explain_ineligible_wide(one, cam, icfg, scfg, fcfg,
+                                                                 megakernel_wide.DEFAULT_MAX_TRIS)
+    print(f"[33 refusals] zoo_room with PBRT_TPU_WIDEMEGA=1 takes {tier}; B4 (cap 200,000): {why_b4}; B3: "
+          f"{why_b3}; B4 on "
+          f"material_room with each kind on its floor: {json.dumps(refusals)}", flush=True)
+    if tier != "torch-wavefront/cuda-wide" or "mix materials" not in (why_b4 or "") or not why_b3:
+        raise AssertionError("the megakernels did not refuse zoo_room by name")
+    if not all("lobe set" in (r or "") for r in refusals.values()):
+        raise AssertionError("the wide megakernel did not refuse a new material by lobe set")
+
+    # B4 on material_room with its back wall translucent without
+    # transmission: the lobe set [LAMBERT_R, MICRO_R], baked as plastic
+    md = m.description
+    back = md.primitives[1]
+    tl = HostMaterial(kind="translucent", params={"Kd": ("const", np.array([0.6, 0.55, 0.5])),
+                                                  "Ks": ("const", np.array([0.3, 0.3, 0.3])),
+                                                  "transmit": ("const", np.zeros(3))})
+    t_host = compile_scene(dataclasses.replace(
+        md, primitives=[md.primitives[0], dataclasses.replace(back, material=tl)] + md.primitives[2:]), "cpu")
+    t = t_host.to(dev)
+    W, H, spp = md.film.x_resolution, md.film.y_resolution, md.sampler.pixel_samples
+    consts = megakernel_wide.extract_wide_consts(t, make_camera(md.camera, md.film, dev), icfg,
+                                                 {"kind": md.sampler.kind, "spp": spp}, fcfg,
+                                                 megakernel_wide.DEFAULT_MAX_TRIS)
+    tl_row = int((t.arrays.mat_kind == 8).nonzero()[0].item())
+    if consts is None or consts["mats"][tl_row]["lobe"] != megakernel.LOBE_PLASTIC:
+        raise AssertionError("the wide megakernel did not bake the translucent wall as plastic")
+    blob = megakernel_wide.pack_wide_consts(consts).to(dev)
+    mode = megakernel_wide.kernel_mode(consts)
+    idx = torch.arange(W * H, device=dev)
+    lanes = (idx % W, idx // W, idx)
+    out_k = megakernel_wide.wide_megakernel_cuda(blob, mode, t.arrays, *lanes, 0, COMPARE_SPP, SEED)
+    out_p = megakernel_wide.wide_megakernel_plain(consts, t.arrays, *lanes, 0, COMPARE_SPP, SEED)
+    ok, desc_cmp = _wide_tolerance(*out_k, *out_p)
+    ms = _cuda_ms(lambda: megakernel_wide.wide_megakernel_cuda(blob, mode, t.arrays, *lanes, 0, spp, SEED), 3)
+    nv16 = megakernel_wide.wide_megakernel_cuda(blob, mode, t.arrays, *lanes, 0, spp, SEED)[2].double().sum().item()
+    print(f"[33 B4 translucent wall] material_room, back wall translucent (transmit 0, row {tl_row}, baked "
+          f"{consts['mats'][tl_row]['lobe']} = plastic), mode {mode}, {W}x{H} {COMPARE_SPP}spp "
+          f"against the twin: {desc_cmp}; {spp}spp kernel {ms:.4f} ms (phase 11's {b4_ms:.4f} ms), "
+          f"{nv16:.0f} path vertices", flush=True)
+    if not ok:
+        raise AssertionError("the wide megakernel and its twin disagree on the translucent wall")
+    timing, _b1, _img = _main_path("33 translucent-wall material_room through the wavefront", t,
+                                   "torch-wavefront/cuda-wide", wide_bvh.traverse_cuda)
+    _total_within("33 translucent-wall wavefront against B4", timing["n_vertices"], nv16)
+    out["zoo_room_file"] = {"compile_s": run["compile_s"], "parse_s": run["parse_s"], "bit_equal": equal}
+    out["refusals"] = {"b4": why_b4, "b3": why_b3, **refusals}
+    out["b4_instantiations"] = {"translucent_wall": {"mode": mode, "ms": ms, "n_vertices": nv16,
+                                                     "max_abs_err": (out_k[0] - out_p[0]).abs().max().item()}}
 
 
 def main() -> int:
     import numpy as np
     import torch
 
+    t_script = time.perf_counter()
     # --- 1. device ---
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a GPU", file=sys.stderr)
@@ -1694,10 +1903,21 @@ def main() -> int:
     print(f"[25-27 textures] {json.dumps({k: v for k, v in tx.items() if not k.endswith('instantiations')})}",
           flush=True)
     # --- 28-30. spheres and sphere lamps in wide scenes; B4's spheres; uber ---
+    t_group = time.perf_counter()
     sph = _unswitched(_sphere_phases, cs, b4_ms, g)
-    print(f"[28-30 spheres] {json.dumps({k: v for k, v in sph.items() if not k.endswith('instantiations')})}",
-          flush=True)
+    print(f"[28-30 spheres] in {time.perf_counter() - t_group:.1f}s: "
+          f"{json.dumps({k: v for k, v in sph.items() if not k.endswith('instantiations')})}", flush=True)
+    # --- 31-33. substrate, translucent, disney, mix, fourier and hair ---
+    t_group = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        mt = _unswitched(_material_phases, work, m, b4_ms)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[31-33 materials] in {time.perf_counter() - t_group:.1f}s: "
+          f"{json.dumps({k: v for k, v in mt.items() if not k.endswith('instantiations')})}", flush=True)
 
+    print(f"[timing] phases 1-33 in {time.perf_counter() - t_script:.1f}s", flush=True)
     report = {"kernels": [
         {"name": "wide_traverse", "route": "cuda", "source": "pbrt_tpu_torch/csrc/wide_traverse.cu",
          "replaces": "pbrt_tpu/device/pallas_bvh.py:90", "launches": b1_launches, "max_abs_err": max_err,
@@ -1714,7 +1934,8 @@ def main() -> int:
          "replaces": "pbrt_tpu/device/megakernel_wide.py:525", "launches": b4_launches, "max_abs_err": b4_err,
          "ms": b4_ms, "plain_ms": b4_plain_ms, "bound_ms": b4_bound[0], "bound_by": b4_bound[1],
          "library_ms": None,
-         "instantiations": {**sk["instantiations"], **tx["b4_instantiations"], **sph["b4_instantiations"]}},
+         "instantiations": {**sk["instantiations"], **tx["b4_instantiations"], **sph["b4_instantiations"],
+                            **mt["b4_instantiations"]}},
     ]}
     print(json.dumps(report))
     print(_smi())

@@ -2,21 +2,28 @@
 
 The port's counterpart of ``pbrt_tpu/device/bsdf.py`` (the reference's
 redesign of src/core/reflection.rs:1496-1712, a BSDF of at most 8 BxDFs)
-for the lobe kinds that matte (Lambert or Oren-Nayar), mirror, glass, metal
-and plastic build: LOBE_LAMBERT_R, LOBE_OREN_NAYAR, LOBE_MICRO_R and
-LOBE_MICRO_T (Trowbridge-Reitz or Beckmann), LOBE_SPEC_R, LOBE_SPEC_T and
-LOBE_FRESNEL_SPEC, in radiance transport.
+for every lobe kind the surface materials build: LOBE_LAMBERT_R and
+LOBE_LAMBERT_T, LOBE_OREN_NAYAR, LOBE_MICRO_R and LOBE_MICRO_T
+(Trowbridge-Reitz or Beckmann; dielectric, conductor or Schlick Fresnel),
+LOBE_SPEC_R, LOBE_SPEC_T, LOBE_FRESNEL_SPEC, LOBE_FRESNEL_BLEND (substrate),
+LOBE_DISNEY_DIFF and LOBE_CLEARCOAT (disney), LOBE_FOURIER (device/fourier.py)
+and LOBE_HAIR (device/hair.py), in radiance transport. The BSSRDF adapter
+lobe (subsurface, kdsubsurface) and importance transport are not ported.
 
 A lobe set is {"kind": (R, S) int, "data": (R, S, 14) float32, "possible":
-S frozensets, "has_beckmann": bool}. "possible" is static: per slot, the
+S frozensets, "has_beckmann" and "has_schlick": bool (some lobe may use
+Beckmann's distribution, Schlick's Fresnel), and "fourier": the scene's
+stacked Fourier tables where it has them}. "possible" is static: per slot, the
 lobe kinds the scene's material table holds there (materials.lobe_table
 drops the slots that hold none). Every formula below is evaluated only for
 kinds that can occur, and where a slot can hold one kind only, the test of
 that kind is left out: the lanes it would mask are lanes without a lobe,
 which the callers mask already. The results equal the reference's 8-slot
-evaluation of the same lobes. Data columns: color 0:3, eta 3 (or conductor
-eta 3:6), conductor k or Kt 6:9, alpha_x 9, alpha_y 10, Fresnel kind 11,
-Oren-Nayar (A, B) or the micro lobes' Beckmann flag in 12:14.
+evaluation of the same lobes. Data columns: color 0:3 (Rd of the Fresnel
+blend, sigma_a of hair), eta 3 (or conductor eta, or Schlick's F0, 3:6),
+conductor k, Kt, the blend's Rs or Disney's sheen 6:9, alpha_x 9, alpha_y
+10, Fresnel kind 11, Oren-Nayar (A, B), the micro lobes' Beckmann flag,
+Disney's roughness, the Fourier table id or hair's (alpha, h) in 12:14.
 
 Local frame convention: z = shading normal; cos_theta(w) = w.z.
 """
@@ -34,18 +41,25 @@ from .shading import cross, dot, normalize
 N_SLOTS = 8
 LOBE_NONE = 0
 LOBE_LAMBERT_R = 1
+LOBE_LAMBERT_T = 2
 LOBE_OREN_NAYAR = 3
 LOBE_MICRO_R = 4
 LOBE_MICRO_T = 5
 LOBE_SPEC_R = 6
 LOBE_SPEC_T = 7
 LOBE_FRESNEL_SPEC = 8
-PORTED_KINDS = frozenset({LOBE_LAMBERT_R, LOBE_OREN_NAYAR, LOBE_MICRO_R, LOBE_MICRO_T, LOBE_SPEC_R, LOBE_SPEC_T,
-                          LOBE_FRESNEL_SPEC})
+LOBE_FRESNEL_BLEND = 9
+LOBE_DISNEY_DIFF = 10  # Burley diffuse + sheen (disney.rs DisneyDiffuse, DisneySheen)
+LOBE_CLEARCOAT = 11  # GTR1 clearcoat (disney.rs DisneyClearcoat)
+LOBE_FOURIER = 12  # tabulated BSDF (reflection.rs FourierBSDF); table id in data[12]
+LOBE_HAIR = 13  # Marschner fiber model (materials/hair.rs); slots in device/hair.py
+PORTED_KINDS = frozenset({LOBE_LAMBERT_R, LOBE_LAMBERT_T, LOBE_OREN_NAYAR, LOBE_MICRO_R, LOBE_MICRO_T, LOBE_SPEC_R,
+                          LOBE_SPEC_T, LOBE_FRESNEL_SPEC, LOBE_FRESNEL_BLEND, LOBE_DISNEY_DIFF, LOBE_CLEARCOAT,
+                          LOBE_FOURIER, LOBE_HAIR})
 SPECULAR_KINDS = frozenset({LOBE_SPEC_R, LOBE_SPEC_T, LOBE_FRESNEL_SPEC})
-_DIFFUSE = frozenset({LOBE_LAMBERT_R, LOBE_OREN_NAYAR})
-_TRANS = frozenset({LOBE_MICRO_T, LOBE_SPEC_T})
-_BOTH = frozenset({LOBE_FRESNEL_SPEC})
+_DIFFUSE = frozenset({LOBE_LAMBERT_R, LOBE_OREN_NAYAR, LOBE_DISNEY_DIFF})  # cosine-sampled on the wo side
+_TRANS = frozenset({LOBE_LAMBERT_T, LOBE_MICRO_T, LOBE_SPEC_T})
+_BOTH = frozenset({LOBE_FRESNEL_SPEC, LOBE_FOURIER, LOBE_HAIR})
 INV_PI = 1.0 / math.pi
 _ETA_MIN = 1.0 + 1e-6
 
@@ -147,13 +161,42 @@ def fresnel_conductor(cos_i, eta, k):
     return 0.5 * (rp + rs)
 
 
-def lobe_fresnel(data, cos_i):
-    """Per-lobe Fresnel by data[..., 11]: 0 none, 1 dielectric, 2 conductor."""
+def ipow(x, n: int):
+    """x ** n for an integer n > 0 as XLA lowers it (lax.integer_pow's
+    binary exponentiation), so the products round as the reference's."""
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n > 0:
+            x = x * x
+    return acc
+
+
+def _pow5(x):
+    """x*x*x*x*x, left to right, as the reference's Disney and Fresnel
+    blend terms write it."""
+    return x * x * x * x * x
+
+
+def fresnel_schlick(cos_i, f0):
+    """Schlick's approximation with rgb F0 (disney.rs specular Fresnel)."""
+    c = torch.clamp(cos_i.abs(), 0.0, 1.0)
+    return f0 + ipow(1.0 - c, 5)[..., None] * (1.0 - f0)
+
+
+def lobe_fresnel(data, cos_i, schlick=False):
+    """Per-lobe Fresnel by data[..., 11]: 0 none, 1 dielectric, 2 conductor,
+    3 Schlick (evaluated only when `schlick`: a disney row is present)."""
     fk = data[..., 11]
     f_d = fresnel_dielectric(cos_i, 1.0, torch.clamp(data[..., 3], min=_ETA_MIN))[..., None]
     out = torch.where((fk == 1)[..., None], f_d, 1.0)
     f_c = fresnel_conductor(cos_i, data[..., 3:6], data[..., 6:9])
-    return torch.where((fk == 2)[..., None], f_c, out)
+    out = torch.where((fk == 2)[..., None], f_c, out)
+    if schlick:
+        out = torch.where((fk == 3)[..., None], fresnel_schlick(cos_i, data[..., 3:6]), out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -311,9 +354,10 @@ def micro_pdf_wh(kind, data, wo, wh, ax, ay, beck: bool):
 # ---------------------------------------------------------------------------
 
 
-def _lobe_f(kind, data, wo, wi, possible, beck):
+def _lobe_f(kind, data, wo, wi, possible, beck, schlick=False, fourier=None):
     """f of one slot's non-specular lobe (0 for the specular kinds); lanes
-    without a lobe are the caller's to mask."""
+    without a lobe are the caller's to mask. schlick: a disney row is
+    present (Fresnel kind 3); fourier: the scene's stacked tables."""
     color = data[..., 0:3]
     out = 0.0
 
@@ -322,12 +366,13 @@ def _lobe_f(kind, data, wo, wi, possible, beck):
         m = _and(_of(kind, ks, possible), cond)
         out = value if m is None else torch.where(m[:, None], value, out)
 
-    if possible & {LOBE_OREN_NAYAR, LOBE_MICRO_R, LOBE_MICRO_T}:
+    if possible & {LOBE_OREN_NAYAR, LOBE_MICRO_R, LOBE_MICRO_T, LOBE_DISNEY_DIFF, LOBE_CLEARCOAT,
+                   LOBE_FRESNEL_BLEND}:
         refl_hemi = same_hemisphere(wo, wi)
         abs_ci = abs_cos_theta(wi)
         abs_co = abs_cos_theta(wo)
-    if LOBE_LAMBERT_R in possible:
-        put({LOBE_LAMBERT_R}, None, color * INV_PI)
+    if possible & {LOBE_LAMBERT_R, LOBE_LAMBERT_T}:
+        put({LOBE_LAMBERT_R, LOBE_LAMBERT_T}, None, color * INV_PI)
     if LOBE_OREN_NAYAR in possible:
         si = torch.sqrt(torch.clamp(1.0 - wi[..., 2] * wi[..., 2], min=0.0))
         so = torch.sqrt(torch.clamp(1.0 - wo[..., 2] * wo[..., 2], min=0.0))
@@ -341,15 +386,16 @@ def _lobe_f(kind, data, wo, wi, possible, beck):
         tan_beta = torch.where(i_steeper, si / torch.clamp(abs_ci, min=1e-9), so / torch.clamp(abs_co, min=1e-9))
         put({LOBE_OREN_NAYAR}, None,
             color * INV_PI * (data[..., 12] + data[..., 13] * max_cos * sin_alpha * tan_beta)[..., None])
-    if possible & {LOBE_MICRO_R, LOBE_MICRO_T}:
+    if possible & {LOBE_MICRO_R, LOBE_MICRO_T, LOBE_FRESNEL_BLEND}:
         ax = data[..., 9]
         ay = data[..., 10]
-    if LOBE_MICRO_R in possible:
+    if possible & {LOBE_MICRO_R, LOBE_FRESNEL_BLEND}:
         wh = wi + wo
         wh_len = torch.sqrt(dot(wh, wh))
         wh_n = wh / torch.clamp(wh_len, min=1e-30)[..., None]
         d_val = micro_d(kind, data, wh_n, ax, ay, beck)
-        fr = lobe_fresnel(data, dot(wi, torch.where((wh_n[..., 2] < 0)[..., None], -wh_n, wh_n)))
+    if LOBE_MICRO_R in possible:
+        fr = lobe_fresnel(data, dot(wi, torch.where((wh_n[..., 2] < 0)[..., None], -wh_n, wh_n)), schlick)
         g_val = micro_g(kind, data, wo, wi, ax, ay, beck)
         f_mr = color * fr * (d_val * g_val / torch.clamp(4.0 * abs_co * abs_ci, min=1e-12))[..., None]
         put({LOBE_MICRO_R}, refl_hemi & (wh_len > 1e-12) & (abs_ci > 0) & (abs_co > 0), f_mr)
@@ -370,7 +416,66 @@ def _lobe_f(kind, data, wo, wi, possible, beck):
         f_mt = (1.0 - fr_t) * (d_t * g_t * eta_t * eta_t * factor2 * i_h.abs() * o_h.abs()
                                / torch.clamp(abs_ci * abs_co * sqrt_denom * sqrt_denom, min=1e-12)).abs()
         put({LOBE_MICRO_T}, ~refl_hemi & ~(o_h * i_h > 0) & (abs_ci > 0) & (abs_co > 0), color * f_mt[..., None])
+    if LOBE_DISNEY_DIFF in possible:
+        # Burley diffuse + sheen (disney.rs DisneyDiffuse :60-90, DisneySheen):
+        # color = baseColor (1 - metallic)(1 - spectrans), roughness in 12,
+        # the sheen color in 6:9
+        fo = _pow5(1.0 - abs_co)
+        fi = _pow5(1.0 - abs_ci)
+        cos_d = dot(wi, normalize(wi + wo))
+        fd90 = 0.5 + 2.0 * data[..., 12] * cos_d * cos_d
+        fd = (1.0 + (fd90 - 1.0) * fo) * (1.0 + (fd90 - 1.0) * fi)
+        sheen = data[..., 6:9] * _pow5(1.0 - cos_d.abs())[..., None]
+        put({LOBE_DISNEY_DIFF}, refl_hemi, color * INV_PI * fd[..., None] + sheen)
+    if LOBE_CLEARCOAT in possible:
+        # GTR1 with Fresnel 0.04 and Smith G of alpha 0.25 (disney.rs
+        # DisneyClearcoat); the gloss alpha in 9, the weight in color
+        alpha_c = data[..., 9]
+        wh_c = wi + wo
+        whl = torch.sqrt(dot(wh_c, wh_c))
+        wh_c = wh_c / torch.clamp(whl, min=1e-30)[..., None]
+        d_c = _gtr1(alpha_c, wh_c)
+        fr_c = 0.04 + 0.96 * ipow(1.0 - dot(wi, wh_c).abs(), 5)
+        quarter = torch.full_like(alpha_c, 0.25)
+        g_c = ggx_g(wo, wi, quarter, quarter)
+        f_cc = color * (d_c * fr_c * g_c / torch.clamp(4.0 * abs_co * abs_ci, min=1e-12))[..., None]
+        put({LOBE_CLEARCOAT}, refl_hemi & (whl > 1e-12), f_cc)
+    if LOBE_FOURIER in possible:
+        from .fourier import fourier_f
+
+        put({LOBE_FOURIER}, None, _on_fourier_lanes(kind, torch.zeros_like(wo), lambda i: fourier_f(
+            fourier, data[i, 12].to(torch.int64), wo[i], wi[i])))
+    if LOBE_HAIR in possible:
+        from .hair import hair_f
+
+        put({LOBE_HAIR}, None, hair_f(data, wo, wi))
+    if LOBE_FRESNEL_BLEND in possible:
+        # substrate (reflection.rs FresnelBlend :1115-1170): Rd in color, Rs in 6:9
+        rs = data[..., 6:9]
+        diffuse = ((28.0 / (23.0 * math.pi)) * color * (1.0 - _pow5(1.0 - 0.5 * abs_ci))[..., None]
+                   * (1.0 - _pow5(1.0 - 0.5 * abs_co))[..., None]) * (1.0 - rs)
+        i_h = dot(wi, wh_n).abs()
+        schlick_fb = rs + _pow5(1.0 - i_h)[..., None] * (1.0 - rs)
+        spec = (d_val / torch.clamp(4.0 * i_h * torch.maximum(abs_ci, abs_co), min=1e-12))[..., None] * schlick_fb
+        put({LOBE_FRESNEL_BLEND}, refl_hemi, diffuse + torch.where((wh_len > 1e-12)[..., None], spec, 0.0))
     return out
+
+
+def _on_fourier_lanes(kind, out, fn):
+    """out with fn(lanes) written at the lanes whose lobe is LOBE_FOURIER.
+    A tabulated lobe reads 16 coefficient rows of 3 MCAP floats per lane,
+    so it is evaluated on those lanes only (a compaction: each lane's value
+    is the same function of its own inputs)."""
+    lanes = (kind == LOBE_FOURIER).nonzero()[:, 0]
+    out[lanes] = fn(lanes)
+    return out
+
+
+def _gtr1(alpha_c, wh_c):
+    """GTR1 D of the clearcoat (disney.rs), with the reference's clamps."""
+    a2 = torch.clamp(alpha_c * alpha_c, 1e-6, 1.0 - 1e-4)
+    c2h = torch.clamp(wh_c[..., 2] * wh_c[..., 2], 0.0, 1.0)
+    return torch.clamp((a2 - 1.0) / (math.pi * torch.log(a2) * (1.0 + (a2 - 1.0) * c2h)), 0.0, 1e6)
 
 
 def _any_of(kind, ks):
@@ -379,8 +484,8 @@ def _any_of(kind, ks):
 
 def _lobe_matches(kind, refl, possible):
     """Does this slot's lobe take part for the geometric reflect/transmit
-    bit? Transmission kinds on transmission, FRESNEL_SPEC on both, the rest
-    on reflection; never a lane without a lobe."""
+    bit? Transmission kinds on transmission, FRESNEL_SPEC, FOURIER and HAIR
+    on both, the rest on reflection; never a lane without a lobe."""
     has = kind != LOBE_NONE
     trans = possible & _TRANS
     both = possible & _BOTH
@@ -398,7 +503,7 @@ def _lobe_matches(kind, refl, possible):
     return torch.where(refl, is_refl, is_trans)
 
 
-def _lobe_pdf(kind, data, wo, wi, possible, beck):
+def _lobe_pdf(kind, data, wo, wi, possible, beck, fourier=None):
     """Solid-angle pdf of one slot's lobe (0 for the specular kinds); lanes
     without a lobe are the caller's to mask."""
     refl_hemi = same_hemisphere(wo, wi)
@@ -406,17 +511,29 @@ def _lobe_pdf(kind, data, wo, wi, possible, beck):
 
     def put(ks, cond, value):
         nonlocal pdf
-        pdf = torch.where(_and(_of(kind, ks, possible), cond), value, pdf)
+        m = _and(_of(kind, ks, possible), cond)
+        pdf = value if m is None else torch.where(m, value, pdf)
 
+    if possible & (_DIFFUSE | {LOBE_LAMBERT_T, LOBE_FRESNEL_BLEND}):
+        cos_pdf = abs_cos_theta(wi) * INV_PI
     if possible & _DIFFUSE:
-        put(_DIFFUSE, refl_hemi, abs_cos_theta(wi) * INV_PI)
-    if possible & {LOBE_MICRO_R, LOBE_MICRO_T}:
+        put(_DIFFUSE, refl_hemi, cos_pdf)
+    if LOBE_LAMBERT_T in possible:
+        put({LOBE_LAMBERT_T}, ~refl_hemi, cos_pdf)
+    if LOBE_CLEARCOAT in possible:
+        wh_c = normalize(wo + wi)
+        p_cc = _gtr1(data[..., 9], wh_c) * wh_c[..., 2].abs() / torch.clamp(4.0 * dot(wo, wh_c).abs(), min=1e-12)
+        put({LOBE_CLEARCOAT}, refl_hemi, p_cc)
+    if possible & {LOBE_MICRO_R, LOBE_MICRO_T, LOBE_FRESNEL_BLEND}:
         ax = data[..., 9]
         ay = data[..., 10]
-    if LOBE_MICRO_R in possible:
+    if possible & {LOBE_MICRO_R, LOBE_FRESNEL_BLEND}:
         wh = normalize(wo + wi)
         p_mr = micro_pdf_wh(kind, data, wo, wh, ax, ay, beck) / torch.clamp(4.0 * dot(wo, wh).abs(), min=1e-12)
+    if LOBE_MICRO_R in possible:
         put({LOBE_MICRO_R}, refl_hemi, p_mr)
+    if LOBE_FRESNEL_BLEND in possible:
+        put({LOBE_FRESNEL_BLEND}, refl_hemi, 0.5 * (cos_pdf + p_mr))
     if LOBE_MICRO_T in possible:
         eta = torch.clamp(data[..., 3], min=_ETA_MIN)
         eta_t = torch.where(cos_theta(wo) > 0, eta, 1.0 / eta)
@@ -427,6 +544,15 @@ def _lobe_pdf(kind, data, wo, wi, possible, beck):
         dwh_dwi = (eta_t * eta_t * i_h / torch.clamp(sqrt_denom * sqrt_denom, min=1e-12)).abs()
         p_mt = micro_pdf_wh(kind, data, wo, wh_t, ax, ay, beck) * dwh_dwi
         put({LOBE_MICRO_T}, ~refl_hemi & ~(o_h * i_h > 0), p_mt)
+    if LOBE_FOURIER in possible:
+        from .fourier import fourier_pdf
+
+        put({LOBE_FOURIER}, None, _on_fourier_lanes(kind, torch.zeros_like(wo[:, 0]), lambda i: fourier_pdf(
+            fourier, data[i, 12].to(torch.int64), wo[i], wi[i])))
+    if LOBE_HAIR in possible:
+        from .hair import hair_pdf
+
+        put({LOBE_HAIR}, None, hair_pdf(data, wo, wi))
     if not torch.is_tensor(pdf):  # only specular kinds: pdf 0
         pdf = torch.zeros_like(refl_hemi, dtype=torch.float32)
     return pdf
@@ -453,6 +579,7 @@ def bsdf_f(lobes, wo, wi, refl):
     _check(lobes)
     kinds = lobes["kind"]
     beck = bool(lobes.get("has_beckmann", False))
+    schlick = bool(lobes.get("has_schlick", False))
     total = None
     for s, poss in enumerate(lobes["possible"]):
         if not poss - SPECULAR_KINDS:
@@ -461,7 +588,8 @@ def bsdf_f(lobes, wo, wi, refl):
         match = _lobe_matches(k, refl, poss)
         if poss & SPECULAR_KINDS:
             match = match & ~_is_specular(k)
-        term = torch.where(match[:, None], _lobe_f(k, lobes["data"][:, s], wo, wi, poss, beck), 0.0)
+        term = torch.where(match[:, None], _lobe_f(k, lobes["data"][:, s], wo, wi, poss, beck, schlick,
+                                                   lobes.get("fourier")), 0.0)
         total = term if total is None else total + term
     return torch.zeros_like(wo) if total is None else total
 
@@ -477,14 +605,16 @@ def bsdf_pdf(lobes, wo, wi):
         if not poss - SPECULAR_KINDS:
             return torch.zeros_like(wo[:, 0])
         k = kinds[:, s]
-        return torch.where(k != LOBE_NONE, _lobe_pdf(k, lobes["data"][:, s], wo, wi, poss, beck), 0.0)
+        return torch.where(k != LOBE_NONE, _lobe_pdf(k, lobes["data"][:, s], wo, wi, poss, beck,
+                                                     lobes.get("fourier")), 0.0)
     total = torch.zeros_like(wo[:, 0])
     n = torch.zeros_like(wo[:, 0])
     for s, poss in slots:
         k = kinds[:, s]
         active = k != LOBE_NONE
         if poss - SPECULAR_KINDS:
-            total = total + torch.where(active, _lobe_pdf(k, lobes["data"][:, s], wo, wi, poss, beck), 0.0)
+            total = total + torch.where(active, _lobe_pdf(k, lobes["data"][:, s], wo, wi, poss, beck,
+                                                          lobes.get("fourier")), 0.0)
         n = n + active
     return torch.where(n > 0, total / torch.clamp(n, min=1.0), 0.0)
 
@@ -544,10 +674,14 @@ def bsdf_sample(lobes, wo, u_lobe, u1, u2):
         wi = torch.where(m[:, None], value, wi)
         return m
 
-    if union & _DIFFUSE:
-        wi_cos = cosine_sample_hemisphere(u1, u2)
+    if union & (_DIFFUSE | {LOBE_LAMBERT_T, LOBE_FRESNEL_BLEND}):
         flip_z = torch.tensor([1.0, 1.0, -1.0], dtype=wo.dtype, device=wo.device)
-        take(_DIFFUSE, torch.where(entering[:, None], wi_cos, wi_cos * flip_z))
+    if union & (_DIFFUSE | {LOBE_LAMBERT_T}):
+        wi_cos = cosine_sample_hemisphere(u1, u2)
+        if union & _DIFFUSE:
+            take(_DIFFUSE, torch.where(entering[:, None], wi_cos, wi_cos * flip_z))
+        if LOBE_LAMBERT_T in union:
+            take({LOBE_LAMBERT_T}, torch.where(entering[:, None], wi_cos * flip_z, wi_cos))
     if union & {LOBE_MICRO_R, LOBE_MICRO_T}:
         wh = micro_sample_wh(k, dat, wo, u1, u2, dat[:, 9], dat[:, 10], beck)
         if LOBE_MICRO_R in union:
@@ -574,6 +708,44 @@ def bsdf_sample(lobes, wo, u_lobe, u1, u2):
         choose_r = u1 < fr_s
         m = take({LOBE_FRESNEL_SPEC}, torch.where(choose_r[:, None], wi_sr, wi_st))
         valid = valid & ~(m & ~choose_r & ~ok_st)
+    if LOBE_CLEARCOAT in union:
+        # GTR1 half-vector sampling (disney.rs DisneyClearcoat sample_f)
+        a2c = torch.clamp(dat[:, 9], min=1e-3)
+        a2c = a2c * a2c
+        c2 = torch.where((a2c - 1.0).abs() > 1e-6, (1.0 - torch.pow(a2c, 1.0 - u1)) / (1.0 - a2c), u1)
+        cos_h = torch.sqrt(torch.clamp(c2, 0.0, 1.0))
+        sin_h = torch.sqrt(torch.clamp(1.0 - c2, min=0.0))
+        phi_h = 2.0 * math.pi * u2
+        wh_cc = torch.stack([sin_h * torch.cos(phi_h), sin_h * torch.sin(phi_h), cos_h], dim=-1)
+        wh_cc = torch.where((wo[:, 2] < 0)[:, None], -wh_cc, wh_cc)
+        wi_cc = reflect_dir(wo, wh_cc)
+        m = take({LOBE_CLEARCOAT}, wi_cc)
+        valid = valid & (~m | same_hemisphere(wo, wi_cc))
+    if LOBE_FOURIER in union:
+        from .fourier import fourier_sample
+
+        fs_valid = torch.zeros_like(valid)
+
+        def sample(i):
+            fs = fourier_sample(lobes["fourier"], dat[i, 12].to(torch.int64), wo[i], u1[i], u2[i])
+            fs_valid[i] = fs["valid"]
+            return fs["wi"]
+
+        m = take({LOBE_FOURIER}, _on_fourier_lanes(k, torch.zeros_like(wo), sample))
+        valid = valid & (~m | fs_valid)
+    if LOBE_HAIR in union:
+        from .hair import hair_sample
+
+        take({LOBE_HAIR}, hair_sample(dat, wo, u1, u2)["wi"])  # every hair sample is valid
+    if LOBE_FRESNEL_BLEND in union:
+        # half the samples cosine-weighted, half from the GGX half vector
+        fb_diffuse = u1 < 0.5
+        u1_fb = torch.where(fb_diffuse, torch.clamp(2.0 * u1, max=1.0 - 1e-6),
+                            torch.clamp(2.0 * (u1 - 0.5), max=1.0 - 1e-6))
+        wi_cos_fb = cosine_sample_hemisphere(u1_fb, u2)
+        wi_cos_fb = torch.where(entering[:, None], wi_cos_fb, wi_cos_fb * flip_z)
+        wh_fb = ggx_sample_wh(wo, u1_fb, u2, dat[:, 9], dat[:, 10])
+        take({LOBE_FRESNEL_BLEND}, torch.where(fb_diffuse[:, None], wi_cos_fb, reflect_dir(wo, wh_fb)))
     wi = normalize(wi)
     abs_ci = abs_cos_theta(wi)
 

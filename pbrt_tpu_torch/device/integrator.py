@@ -290,7 +290,8 @@ def trace_persistent(sa, static, icfg: dict, scfg: dict, seed: int, pixel, s0: i
             duvdy = _compute_duv(si, o, d, dd_y) if differentials else None
             lobes = make_bsdf(sa, static, si["mat"], table, si["uv"], si["p"], duvdx, duvdy, atlases)
         else:
-            lobes = make_bsdf(sa, static, si["mat"], table)
+            # the hit's uv and p: a mix row's hash and hair's h read them
+            lobes = make_bsdf(sa, static, si["mat"], table, si["uv"], si["p"])
         alive_sh = can_scatter & (num_lobes(lobes) > 0)
         if direct_all:
             # UniformSampleAll (directlighting.rs strategy "all"): each light's

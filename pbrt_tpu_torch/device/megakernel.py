@@ -5,7 +5,9 @@ The port's counterpart of ``pbrt_tpu/device/megakernel.py``. For scenes of
 at most MAX_PRIMS triangle or full-sphere prims, at most MAX_LIGHTS point,
 spot or distant lights and constant-parameter materials whose lobe set it
 bakes (Lambert or Oren-Nayar matte, mirror, glass, GGX metal, and
-Lambert+GGX plastic or glossy uber: ``bake_lobe_entry``), the
+Lambert+GGX plastic, glossy uber or translucent without transmission:
+``bake_lobe_entry``; substrate, disney, fourier and hair rows are refused
+by their lobe set, mix rows by name), the
 whole persistent path or directlighting loop runs in one kernel: camera
 regeneration, brute-force closest-hit and shadow tests, NEE, BSDF sampling,
 Russian roulette and the sample flush.

@@ -9,8 +9,10 @@ table), and beside the triangles at most 8 full spheres (the mixed
 scenes, whose wide tables cover the triangle subset; each ray tests the
 spheres after its walk and keeps the nearer hit, the triangle on a tie);
 materials of the six lobe classes ``bake_lobe_entry`` bakes (at most 16
-used; a row is in the class by its lobe set, so a glossy uber row bakes
-as plastic does), with constant parameters or constant textures,
+used; a row is in the class by its lobe set, so a glossy uber row and a
+translucent row without transmission bake as plastic does, and
+substrate, disney, fourier and hair rows are refused by theirs; mix rows
+are refused by name), with constant parameters or constant textures,
 and a 2D uv-mapped checkerboard of two constant, non-black cells on a matte
 or plastic Kd (selected per hit in the kernel, reference :398-440,
 :1273-1287); no bump maps (the reference's kernel renders them without
@@ -276,7 +278,7 @@ def _extract(cs, cam, icfg, scfg, fcfg, max_tris):
         # the lobes with the textures at the origin, as the reference bakes them
         lk, ld = (_h(x) for x in lobes_at_origin(sa, static))
     except NotImplementedError:
-        return None, "materials other than matte, mirror, glass, metal, plastic and uber"
+        return None, "the subsurface and kdsubsurface materials (the BSSRDF adapter lobe)"
     mat_tex = _h(sa.mat_tex)
     tex_param = _h(sa.tex_param)
     mats = {}

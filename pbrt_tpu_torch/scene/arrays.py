@@ -4,8 +4,9 @@ The port's counterpart of ``pbrt_tpu/scene/arrays.py``: the same id
 constants and the same table layouts, holding only the fields the ported
 slices read: triangle meshes and full spheres, the material rows, the
 light rows, the texture programs with their parameters and MIP pyramids,
-the image-mapped infinite light's tables and, for scenes above the
-brute-force size, the wide BVH with its attribute table.
+the stacked Fourier BSDF tables, the image-mapped infinite light's tables
+and, for scenes above the brute-force size, the wide BVH with its
+attribute table.
 
 - ``SceneTensors``: torch tensors, all on one device.
 - ``SceneStatic``: Python-level counts and flags that shape the program.
@@ -146,6 +147,10 @@ _WIDE_DTYPES = {
 # quadrics), whose wide tables cover the triangle subset and index it
 # locally (None when they cover every prim)
 HOPPER_TABLES = ("wnode_rec", "wleaf_rec", "wattr_rec", "wide_prim_rows")
+# SceneTensors fields that hold a dict of tensors
+_DICT_FIELDS = ("tex_images", "fourier")
+# the stacked Fourier BSDF tables (empty dict without one)
+FOURIER_TABLES = ("mu", "aflat", "a0", "cdf", "eta")
 
 
 @dataclass
@@ -192,6 +197,10 @@ class SceneTensors:
     # MIP pyramid levels of the imagemap textures, "{image_key}_l{k}" ->
     # (H_k, W_k, 3) f32 (TexProgram.image_key, n_levels)
     tex_images: dict = field(default_factory=dict)
+    # the stacked Fourier BSDF tables (builder._stack_fourier_tables; read by
+    # device/fourier.py): mu (NT, NMU), aflat (NT, NMU^2, 3 MCAP), a0 and
+    # cdf (NT, NMU, NMU), eta (NT,), all f32; empty without a readable table
+    fourier: dict = field(default_factory=dict)
 
     @property
     def device(self) -> torch.device:
@@ -199,12 +208,14 @@ class SceneTensors:
 
     def to(self, device) -> "SceneTensors":
         out = {f.name: None if getattr(self, f.name) is None else getattr(self, f.name).to(device)
-               for f in fields(self) if f.name != "tex_images"}
-        return SceneTensors(**out, tex_images={k: v.to(device) for k, v in self.tex_images.items()})
+               for f in fields(self) if f.name not in _DICT_FIELDS}
+        return SceneTensors(**out, **{n: {k: v.to(device) for k, v in getattr(self, n).items()}
+                                      for n in _DICT_FIELDS})
 
     def byte_size(self) -> int:
-        tensors = [getattr(self, f.name) for f in fields(self) if f.name != "tex_images"]
-        tensors += list(self.tex_images.values())
+        tensors = [getattr(self, f.name) for f in fields(self) if f.name not in _DICT_FIELDS]
+        for n in _DICT_FIELDS:
+            tensors += list(getattr(self, n).values())
         return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
@@ -253,6 +264,7 @@ class SceneStatic:
     has_motion: bool = False
     tex_programs: tuple = ()  # TexProgram per texture, in evaluation (creation) order
     has_bump: bool = False  # some material carries a bump-map texture
+    has_fourier: bool = False  # a readable tabulated (fourier) BSDF table
     has_wide: bool = False  # wide-BVH tables over every prim (triangle-only scenes)
     has_wide_tri: bool = False  # ... over the triangle prims (has_wide, or a mixed scene)
     wide_root: int = 1
@@ -272,6 +284,9 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
     # mipmap levels (the reference's dict holds device arrays: np.array copies)
     tensors["tex_images"] = {k: torch.as_tensor(np.array(v), dtype=torch.float32, device=device)
                              for k, v in (arrays.get("tex_images") or {}).items()}
+    fourier = arrays.get("fourier") or {}
+    tensors["fourier"] = {k: torch.as_tensor(np.array(fourier[k]), dtype=torch.float32, device=device)
+                          for k in FOURIER_TABLES if k in fourier}
     if arrays.get("wnode_tab") is not None:
         recs = hopper_layout(*(np.asarray(arrays[n]) for n in ("wnode_tab", "wprim_tab", "wmeta_tab")))
         if arrays.get("wattr_tab") is not None:

@@ -14,8 +14,11 @@ two scene classes:
 
 Both take point, spot, distant and infinite lights (constant, or
 image-mapped through ``mapname``) and area lights on triangles and
-spheres; matte (Lambert or Oren-Nayar), mirror, glass, metal, plastic and
-uber with
+spheres; matte (Lambert or Oren-Nayar), mirror, glass, metal, plastic,
+uber, substrate, translucent, disney, mix (its sub-materials registered
+as rows of their own, the mix row reserved first), fourier (each SCATFUN
+table read once per path and stacked, ``_stack_fourier_tables``; an
+unreadable table makes the row matte) and hair, with
 constant or textured parameters, and bump maps (the texture programs,
 their parameter rows and MIP pyramids of ``_TextureRegistry``); the (0,2),
 random, stratified, halton, sobol and
@@ -43,6 +46,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..core.fourierbsdf import read_fourier_table
 from ..core.spectrum import copper_eta_k_rgb, y_of_rgb
 from ..device.mipmap import build_pyramid
 from .arrays import (
@@ -53,10 +57,16 @@ from .arrays import (
     LIGHT_INFINITE,
     LIGHT_POINT,
     LIGHT_SPOT,
+    MAT_DISNEY,
+    MAT_FOURIER,
+    MAT_HAIR,
     MAT_IDS,
     MAT_MATTE,
+    MAT_MIX,
     N_MAT_PARAMS,
     P_ETA,
+    P_EXTRA,
+    P_EXTRA2,
     P_K,
     P_KD,
     P_KR,
@@ -88,7 +98,8 @@ FLAG_REVERSE_ORIENTATION = 4
 FLAG_HAS_UV = 8
 
 # what the compiler admits (the wavefront renders all of it)
-MATERIALS = ("matte", "mirror", "glass", "metal", "plastic", "uber")
+MATERIALS = ("matte", "mirror", "glass", "metal", "plastic", "uber", "substrate", "translucent", "disney", "mix",
+             "fourier", "hair")
 SAMPLERS = ("zerotwosequence", "lowdiscrepancy", "random", "stratified", "halton", "sobol", "maxmindist")
 INTEGRATORS = ("path", "directlighting")
 
@@ -100,6 +111,8 @@ _MATERIAL_DEFAULTS = {
     "plastic": {"Kd": 0.25, "Ks": 0.25, "roughness": 0.1},
     "metal": {"roughness": 0.01},
     "uber": {"Kd": 0.25, "Ks": 0.25, "roughness": 0.1},
+    "substrate": {"Kd": 0.5, "Ks": 0.5, "uroughness": 0.1, "vroughness": 0.1},
+    "translucent": {"Kd": 0.25, "Ks": 0.25, "roughness": 0.1, "reflect": 0.5, "transmit": 0.5},
 }
 
 
@@ -243,16 +256,83 @@ def _check_slice(desc: SceneDescription) -> None:
         if prim.area_light is not None:
             if prim.area_light.kind != "area":
                 _unsupported(f"'{prim.area_light.kind}' lights attached to shapes")
-        mat = prim.material
-        if mat.kind not in MATERIALS:
-            _unsupported(f"the '{mat.kind}' material")
+        _check_material(prim.material)
 
 
-def _compile_material(mat: HostMaterial, tex_reg: _TextureRegistry):
+def _check_material(mat: HostMaterial, seen=None) -> None:
+    """Refuse a material outside MATERIALS by name, and a mix whose
+    sub-materials hold one; the null material is the 'interface' one."""
+    seen = set() if seen is None else seen
+    if id(mat) in seen:
+        return
+    seen.add(id(mat))
+    if mat.kind in ("", "none", "interface"):
+        _unsupported("the 'interface' material")
+    if mat.kind not in MATERIALS:
+        _unsupported(f"the '{mat.kind}' material")
+    if mat.kind == "mix":
+        for name in ("material1", "material2"):
+            src = mat.params.get(name)
+            if src is not None:
+                _check_material(src[1], seen)
+
+
+def _hair_sigma_a_from_reflectance(c, beta_n):
+    """hair.rs sigmaa_from_reflectance :291-306 (reference builder :1344)."""
+    bn = float(beta_n)
+    denom = 5.969 - 0.215 * bn + 2.532 * bn ** 2 - 10.73 * bn ** 3 + 5.574 * bn ** 4 + 0.245 * bn ** 5
+    return (np.log(np.clip(np.asarray(c, np.float64), 1e-4, 1.0)) / denom) ** 2
+
+
+def _hair_sigma_a_from_concentration(ce: float, cp: float):
+    """hair.rs sigmaa_from_concentration :279-289 (eumelanin, pheomelanin)."""
+    return ce * np.array([0.419, 0.697, 1.37]) + cp * np.array([0.187, 0.4, 1.05])
+
+
+def _stack_fourier_tables(tables: list[dict]) -> dict:
+    """Stack the per-path Fourier BSDF tables into one padded block (the
+    reference builder's :1356-1396, its arithmetic and order): mu nodes
+    past a table's range keep increasing (the interval search never picks
+    them for an in-range cosine), coefficient rows pad with zeros, cdf
+    columns pad with a steep ramp so the sampling inversion cannot land in
+    the padding. Host arrays; {} without a table."""
+    if not tables:
+        return {}
+    nmu_max = max(t["nmu"] for t in tables)
+    mcap_max = max(t["m_cap"] for t in tables)
+    nt = len(tables)
+    mu_s = np.zeros((nt, nmu_max), np.float32)
+    a_s = np.zeros((nt, nmu_max * nmu_max, 3 * mcap_max), np.float32)
+    a0_s = np.zeros((nt, nmu_max, nmu_max), np.float32)
+    cdf_s = np.zeros((nt, nmu_max, nmu_max), np.float32)
+    eta_s = np.zeros((nt,), np.float32)
+    for ti, t in enumerate(tables):
+        n, mc = t["nmu"], t["m_cap"]
+        mu_s[ti, :n] = t["mu"]
+        if n < nmu_max:
+            mu_s[ti, n:] = t["mu"][-1] + 1e-3 * np.arange(1, nmu_max - n + 1, dtype=np.float32)
+        grid = np.zeros((nmu_max, nmu_max, 3, mcap_max), np.float32)
+        grid[:n, :n, :, :mc] = t["a"].reshape(n, n, 3, mc)  # rows [o, i]
+        a_s[ti] = grid.reshape(nmu_max * nmu_max, 3 * mcap_max)
+        a0_s[ti, :n, :n] = t["a0"]
+        cdf_s[ti, :n, :n] = t["cdf"]
+        if n < nmu_max:
+            step = max(1.0, float(t["cdf"].max()))
+            ramp = t["cdf"][:, -1:] + step * np.arange(1, nmu_max - n + 1, dtype=np.float32)[None, :]
+            cdf_s[ti, :n, n:] = ramp
+            cdf_s[ti, n:, :] = cdf_s[ti, n - 1 : n, :]
+        eta_s[ti] = t["eta"]
+    return {"mu": mu_s, "aflat": a_s, "a0": a0_s, "cdf": cdf_s, "eta": eta_s}
+
+
+def _compile_material(mat: HostMaterial, tex_reg: _TextureRegistry, register_material=None,
+                      register_fourier=None):
     """HostMaterial of a ported kind -> (kind_id, const (N_MAT_PARAMS, 3),
     tex (N_MAT_PARAMS,), remap, bump texture or -1), filled as the
     reference's _compile_material (:1398-1593) fills such a row: a textured
-    slot keeps a zero constant and names its program."""
+    slot keeps a zero constant and names its program. register_material
+    (HostMaterial -> row) registers mix's sub-materials; register_fourier
+    (path -> table id, -1 when unreadable) loads a fourier row's table."""
     kind = MAT_IDS.get(mat.kind, MAT_MATTE)
     const = np.zeros((N_MAT_PARAMS, 3), dtype=np.float64)
     tex = np.full(N_MAT_PARAMS, -1, dtype=np.int64)
@@ -297,6 +377,73 @@ def _compile_material(mat: HostMaterial, tex_reg: _TextureRegistry):
     rm = params.get("remaproughness")
     if rm is not None and rm[0] == "const":
         remap = 1 if rm[1] else 0
+
+    if kind == MAT_FOURIER:
+        # the SCATFUN table, loaded once per path; an unreadable one makes
+        # the row matte, as the reference's api.rs does
+        src = params.get("bsdffile")
+        tid = -1
+        if register_fourier is not None and src is not None and src[0] == "const":
+            tid = register_fourier(str(src[1]))
+        if tid < 0:
+            kind = MAT_MATTE
+        else:
+            const[P_EXTRA][0] = tid
+    if kind == MAT_MIX:
+        # the amount in the Kd slot, the sub-materials' rows in P_EXTRA
+        put(P_KD, "amount", default=[0.5, 0.5, 0.5])
+        m1, m2 = params.get("material1"), params.get("material2")
+        if register_material is not None and m1 is not None and m2 is not None:
+            const[P_EXTRA][0] = register_material(m1[1])
+            const[P_EXTRA][1] = register_material(m2[1])
+        else:
+            kind = MAT_MATTE
+    elif kind == MAT_DISNEY:
+        # disney.rs: color in Kd; metallic, clearcoat, clearcoatgloss in
+        # P_EXTRA; sheen, spectrans, speculartint in P_EXTRA2 (constants)
+        put(P_KD, "color", default=[0.5, 0.5, 0.5])
+        for slot, comp, name, dv in ((P_EXTRA, 0, "metallic", 0.0), (P_EXTRA, 1, "clearcoat", 0.0),
+                                     (P_EXTRA, 2, "clearcoatgloss", 1.0), (P_EXTRA2, 0, "sheen", 0.0),
+                                     (P_EXTRA2, 1, "spectrans", 0.0), (P_EXTRA2, 2, "speculartint", 0.0)):
+            src = params.get(name)
+            const[slot][comp] = (np.atleast_1d(np.asarray(src[1], dtype=np.float64)).ravel()[0]
+                                 if src is not None and src[0] == "const" else dv)
+    elif kind == MAT_HAIR:
+        # hair.rs create_hair_material :604-651: sigma_a before color before
+        # the melanin concentrations; a constant color is converted here, a
+        # textured one on the device (P_EXTRA[1] = 1)
+        remap = 0
+        if "eta" not in params:
+            const[P_ETA] = 1.55
+        if not put(P_UROUGH, "beta_m"):
+            const[P_UROUGH] = 0.3
+        if not put(P_VROUGH, "beta_n"):
+            const[P_VROUGH] = 0.3
+        alpha_src = params.get("alpha")
+        const[P_EXTRA][0] = (float(np.ravel(alpha_src[1])[0]) if alpha_src is not None and alpha_src[0] == "const"
+                             else 2.0)
+        mode = 0.0
+        bn_for_conv = const[P_VROUGH][0] if tex[P_VROUGH] < 0 else 0.3
+        if "sigma_a" in params:
+            put(P_KD, "sigma_a")
+        elif "color" in params:
+            csrc = params["color"]
+            if csrc[0] == "const":
+                const[P_KD] = _hair_sigma_a_from_reflectance(np.asarray(csrc[1], np.float64), bn_for_conv)
+            else:
+                put(P_KD, "color")
+                mode = 1.0
+        elif "eumelanin" in params or "pheomelanin" in params:
+            def conc(name):
+                s_ = params.get(name)
+                if s_ is None or s_[0] != "const":
+                    return 0.0  # the reference warns and takes 0 for a textured one
+                return max(float(np.ravel(s_[1])[0]), 0.0)
+
+            const[P_KD] = _hair_sigma_a_from_concentration(conc("eumelanin"), conc("pheomelanin"))
+        else:
+            const[P_KD] = _hair_sigma_a_from_concentration(1.3, 0.0)
+        const[P_EXTRA][1] = mode
     # a bump map is a float texture (material.rs:46-87); a constant source
     # has no gradient, so only a texture registers
     bump = mat.bump_map
@@ -380,6 +527,28 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
     mat_index: dict[int, int] = {}
     mat_rows: list[tuple] = []
     tex_reg = _TextureRegistry()
+    fourier_tables: list[dict] = []
+    fourier_ids: dict[str, int] = {}
+
+    def register_fourier(path: str) -> int:
+        """Read and densify a SCATFUN table once per path (fourier.rs:16-36)."""
+        if path not in fourier_ids:
+            tbl = read_fourier_table(path)
+            fourier_ids[path] = -1 if tbl is None else len(fourier_tables)
+            if tbl is not None:
+                fourier_tables.append(tbl)
+        return fourier_ids[path]
+
+    def material_id(mat: HostMaterial) -> int:
+        """The material's row; a new row is reserved before its
+        sub-materials (mix) register, so rows come in the reference's order."""
+        key = id(mat)
+        if key not in mat_index:
+            mat_index[key] = len(mat_rows)
+            mat_rows.append(None)
+            mat_rows[mat_index[key]] = _compile_material(mat, tex_reg, material_id, register_fourier)
+        return mat_index[key]
+
     lights: list[tuple] = []  # (kind, params(12,), prim_id, nsamples)
 
     # non-area lights first, in description order; the last infinite light
@@ -392,11 +561,7 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
             infinite_host = hl
 
     for prim in desc.primitives:
-        key = id(prim.material)
-        if key not in mat_index:
-            mat_index[key] = len(mat_rows)
-            mat_rows.append(_compile_material(prim.material, tex_reg))
-        mid = mat_index[key]
+        mid = material_id(prim.material)
         if prim.shape.mesh is None:
             # full or partial sphere (sphere.rs); the checks admit no other quadric
             sph = prim.shape.sphere
@@ -555,6 +720,7 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         "light_kind": np.array([l[0] for l in lights], dtype=np.int32),
         "light_param": np.asarray([l[1] for l in lights], dtype=np.float32).reshape(-1, 12),
         "light_prim": np.array([l[2] for l in lights], dtype=np.int32),
+        "fourier": _stack_fourier_tables(fourier_tables),
         "world_center": wc.astype(np.float32),
         "world_radius": np.float32(wr),
     }
@@ -620,6 +786,7 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         "has_motion": False,
         "tex_programs": tuple(tex_reg.programs),
         "has_bump": any(r[4] >= 0 for r in mat_rows),
+        "has_fourier": bool(fourier_tables),
         "has_wide": not use_brute and not sph_o2w,
         "has_wide_tri": not use_brute,
         "wide_root": wide_root,

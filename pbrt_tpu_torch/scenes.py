@@ -45,21 +45,35 @@ its left wall of glossy uber; at n_side=248 the same spheres sit among the
 mesh room's terrain. ``uber_room`` is sphere_room with its uber rows made
 full (Kr, Kt and opacity 0.7), outside both megakernels' lobe sets.
 
+``zoo_room`` is material_room re-dressed with the surface materials of
+the persistent wavefront that the megakernels do not bake: an anisotropic
+substrate floor, a disney left wall, a right wall that mixes plastic and
+copper, a rough-conductor fourier box in place of the glass one (its
+SCATFUN table written by core/fourierbsdf.py), a two-sided translucent
+quad under the spot light and a tuft of 32 flat hair curves on the floor;
+``textured=True`` drives the mix amount by a uv checkerboard and the
+substrate's Kd by an imagemap.
+
 ``write_pbrt`` writes a scene of these out as a .pbrt file, each mesh as a
-binary PLY beside it and each imagemap as a PFM image, so the front end can
-be driven with the same scenes (``python -m pbrt_tpu_torch``).
+binary PLY beside it, each imagemap as a PFM image and each Fourier table
+as a copy, so the front end can be driven with the same scenes
+(``python -m pbrt_tpu_torch``).
 """
 from __future__ import annotations
 
 import os
+import shutil
+import tempfile
 
 import numpy as np
 
+from .core.fourierbsdf import write_rough_conductor_table
 from .core.transform import Transform
 from .scene.host import (
     CameraConfig, FilmConfig, HostLight, HostMaterial, HostPrimitive, HostTexture,
     IntegratorConfig, SamplerConfig, SceneDescription, ShapeRecord, Sphere, TriangleMesh,
 )
+from .scene.tessellate import tessellate_curve
 
 
 def _grid_mesh(f, u0, u1, v0, v1, n):
@@ -462,6 +476,98 @@ def area_box(sphere_lamp: bool = False) -> SceneDescription:
     )
 
 
+# zoo_room's disney wall: the reference test's parameters (tests/test_materials2.py:39-48)
+ZOO_DISNEY = {"color": [0.6, 0.4, 0.3], "metallic": 0.3, "roughness": 0.4, "clearcoat": 1.0,
+              "clearcoatgloss": 0.8, "sheen": 0.5}
+ZOO_TABLE = "rough_conductor_a0.3.bsdf"  # the fourier box's table, in table_dir
+
+
+def _floor_height(x, z):
+    """The mesh room's terrain height (mesh_room)."""
+    return 0.9 * np.sin(1.7 * x) * np.cos(1.3 * z) + 0.25 * np.sin(6.1 * x + 2.0 * z)
+
+
+def hair_tuft(center, n_curves: int = 32, n_segments: int = 64, seed: int = 7) -> TriangleMesh:
+    """n_curves flat hair curves (cubic Beziers, tessellate_curve with
+    n_segments segments: 2 n_segments triangles each, u along the fiber and
+    v across it) rising from the terrain around center (x, z), as one mesh."""
+    rs = np.random.RandomState(seed)
+    ps, idx, ns, uvs = [], [], [], []
+    for _ in range(n_curves):
+        r, a = 0.25 * np.sqrt(rs.uniform()), rs.uniform(0.0, 2.0 * np.pi)
+        x, z = center[0] + r * np.cos(a), center[1] + r * np.sin(a)
+        lean = rs.uniform(0.0, 2.0 * np.pi)
+        dx, dz = np.cos(lean), np.sin(lean)
+        h = rs.uniform(0.5, 0.8)
+        base = np.array([x, _floor_height(x, z) - 0.02, z])
+        cp = base + np.array([[0.0, 0.0, 0.0], [0.1 * dx, 0.4 * h, 0.1 * dz], [0.3 * dx, 0.8 * h, 0.3 * dz],
+                              [0.6 * dx, h, 0.6 * dz]])
+        m = tessellate_curve(Transform(), cp, 0.03, 0.008, "flat", n_segments=n_segments)
+        idx.append(np.asarray(m.indices) + sum(len(q) for q in ps))
+        ps.append(m.p)
+        ns.append(m.n)
+        uvs.append(m.uv)
+    return TriangleMesh(p=np.concatenate(ps), indices=np.concatenate(idx).astype(np.int32), n=np.concatenate(ns),
+                        uv=np.concatenate(uvs))
+
+
+def zoo_room(n_side: int = 40, textured: bool = False, table_dir: str | None = None,
+             seed: int = 12) -> SceneDescription:
+    """The 1000x500, 16 spp, depth-5 material zoo: material_room's meshes,
+    lights, camera and (0,2) sampler with
+    - the floor an anisotropic substrate (Kd 0.45/0.35/0.25, Ks 0.25,
+      uroughness 0.05, vroughness 0.2);
+    - the left wall disney (ZOO_DISNEY);
+    - the right wall a mix of plastic and copper metal at amount 0.35;
+    - the glass box a fourier box: a rough conductor (alpha 0.3) tabulated
+      by write_rough_conductor_table into table_dir (a folder under the
+      temporary directory when None);
+    - a two-sided translucent quad (reflect 0.5, transmit 0.5) between the
+      spot light and the floor;
+    - a tuft of 32 flat hair curves (eumelanin 1.3) on the floor: 4,096
+      triangles.
+    7,952 triangles at n_side 40, 127,760 at n_side 248. textured: the mix
+    amount is a uv checkerboard (8 x 8 cells of 0.2 and 0.8) and the
+    substrate's Kd a 256 x 256 RGB tile imagemap made with numpy from seed."""
+    desc = material_room(n_side)
+    terrain, _back, _front, left, right, _ceiling, _panel, box = desc.primitives
+    if table_dir is None:
+        table_dir = os.path.join(tempfile.gettempdir(), "pbrt_tpu_torch_tables")
+    os.makedirs(table_dir, exist_ok=True)
+    table = os.path.join(table_dir, ZOO_TABLE)
+    if not os.path.exists(table):
+        write_rough_conductor_table(table, alpha=0.3)
+    kd = _const([0.45, 0.35, 0.25])
+    amount = _const([0.35, 0.35, 0.35])
+    if textured:
+        rs = np.random.RandomState(seed)
+        terrain.shape.mesh.uv = _grid_uv(n_side, 4.0, 4.0)
+        right.shape.mesh.uv = _grid_uv(8)
+        kd = ("texture", _texture("imagemap", image=_tiles(256, rs)))
+        amount = ("texture", _texture("checkerboard", tex1=_const([0.2, 0.2, 0.2]), tex2=_const([0.8, 0.8, 0.8]),
+                                      uscale=8.0, vscale=8.0))
+    terrain.material = HostMaterial(kind="substrate", params={
+        "Kd": kd, "Ks": _const([0.25, 0.25, 0.25]), "uroughness": ("const", 0.05), "vroughness": ("const", 0.2)})
+    left.material = HostMaterial(kind="disney", params={
+        **{k: ("const", np.asarray(v, np.float64)) for k, v in ZOO_DISNEY.items()},
+        "remaproughness": ("const", False)})
+    plastic = HostMaterial(kind="plastic", params={
+        "Kd": _const([0.2, 0.35, 0.6]), "Ks": _const([0.4, 0.4, 0.4]), "roughness": ("const", 0.12)})
+    copper = HostMaterial(kind="metal", params={"roughness": ("const", 0.08)})
+    right.material = HostMaterial(kind="mix", params={"amount": amount, "material1": ("material", plastic),
+                                                      "material2": ("material", copper)})
+    box.material = HostMaterial(kind="fourier", params={"bsdffile": ("const", table), "Kd": _const([0.5, 0.5, 0.5])})
+    yq = 2.2
+    desc.primitives.append(_quad([0.75, yq, -0.4], [1.95, yq, -0.4], [1.95, yq, 0.8], [0.75, yq, 0.8],
+                                 HostMaterial(kind="translucent", params={
+                                     "Kd": _const([0.6, 0.6, 0.5]), "Ks": _const([0.25, 0.25, 0.25]),
+                                     "roughness": ("const", 0.1), "reflect": _const([0.5, 0.5, 0.5]),
+                                     "transmit": _const([0.5, 0.5, 0.5])})))
+    desc.primitives.append(HostPrimitive(shape=ShapeRecord(mesh=hair_tuft((-1.0, 0.6))),
+                                         material=HostMaterial(kind="hair", params={"eumelanin": ("const", 1.3)})))
+    return desc
+
+
 def _uv_sphere(center, radius, n_theta, n_phi):
     """UV-sphere mesh (tests/test_megakernel_wide.py _uv_sphere) with
     analytic per-vertex normals and the (phi / 2pi, theta / pi) chart:
@@ -530,8 +636,32 @@ def _fmt(values) -> str:
 def _param(name, src, tex_names=None) -> str:
     if src[0] == "texture":
         return f'"texture {name}" "{tex_names[id(src[1])]}"'
+    if isinstance(src[1], (bool, np.bool_)):
+        return f'"bool {name}" {"true" if src[1] else "false"}'
+    if isinstance(src[1], str):
+        return f'"string {name}" "{src[1]}"'
     v = np.ravel(np.asarray(src[1], np.float64))
     return f'"rgb {name}" [{_fmt(v)}]' if v.size == 3 else f'"float {name}" [{_fmt(v)}]'
+
+
+def _material_params(mat, tex_names, folder, named) -> str:
+    """The parameter list of a Material (or MakeNamedMaterial) directive:
+    a mix names its sub-materials (named: id -> name, written before it),
+    a fourier material's table is copied beside the file."""
+    params = []
+    for k, v in mat.params.items():
+        if v[0] == "material":
+            params.append(f'"string named{k}" "{named[id(v[1])]}"')
+        elif k == "bsdffile":
+            name = os.path.basename(v[1])
+            if os.path.abspath(v[1]) != os.path.join(folder, name):
+                shutil.copyfile(v[1], os.path.join(folder, name))
+            params.append(f'"string bsdffile" "{name}"')
+        else:
+            params.append(_param(k, v, tex_names))
+    if mat.bump_map is not None:
+        params.append(_param("bumpmap", mat.bump_map, tex_names))
+    return " ".join(params)
 
 
 # the children a texture kind reads, by the parameter names of its Texture
@@ -595,11 +725,15 @@ def _texture_lines(desc: SceneDescription, folder: str) -> tuple[list[str], dict
         names[id(tex)] = name
         return name
 
-    for prim in desc.primitives:
-        srcs = list(prim.material.params.values()) + [prim.material.bump_map]
-        for src in srcs:
+    def visit_material(mat):
+        for src in list(mat.params.values()) + [mat.bump_map]:
             if isinstance(src, tuple) and src and src[0] == "texture":
                 visit(src[1])
+            elif isinstance(src, tuple) and src and src[0] == "material":
+                visit_material(src[1])
+
+    for prim in desc.primitives:
+        visit_material(prim.material)
     return lines, names
 
 
@@ -649,6 +783,19 @@ def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True)
             raise NotImplementedError(f"write_pbrt does not write '{hl.kind}' lights")
     tex_lines, tex_names = _texture_lines(desc, folder)
     out += tex_lines
+    # mix's sub-materials, as named materials (each once, before its mix)
+    named: dict[int, str] = {}
+
+    def name_subs(mat):
+        for v in mat.params.values():
+            if v[0] == "material" and id(v[1]) not in named:
+                name_subs(v[1])
+                named[id(v[1])] = f"m{len(named)}"
+                out.append(f'MakeNamedMaterial "{named[id(v[1])]}" "string type" "{v[1].kind}" '
+                           + _material_params(v[1], tex_names, folder, named))
+
+    for prim in desc.primitives:
+        name_subs(prim.material)
     for i, prim in enumerate(desc.primitives):
         mesh, sph = prim.shape.mesh, prim.shape.sphere
         out.append("AttributeBegin")
@@ -666,10 +813,7 @@ def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True)
             shape = (f'  Shape "sphere" "float radius" [{_fmt([sph.radius])}] "float zmin" [{_fmt([sph.z_min])}] '
                      f'"float zmax" [{_fmt([sph.z_max])}] "float phimax" [{_fmt([np.degrees(sph.phi_max)])}]')
         mat = prim.material
-        params = [_param(k, v, tex_names) for k, v in mat.params.items()]
-        if mat.bump_map is not None:
-            params.append(_param("bumpmap", mat.bump_map, tex_names))
-        out.append(" ".join([f'  Material "{mat.kind}"'] + params))
+        out.append(f'  Material "{mat.kind}" ' + _material_params(mat, tex_names, folder, named))
         if prim.area_light is not None:
             al = prim.area_light
             out.append(f'  AreaLightSource "diffuse" "rgb L" [{_fmt(al.intensity)}] '

@@ -524,3 +524,78 @@ def test_megakernel_glossy_uber_matches_plain(cuda_device):
     assert consts is not None
     idx = torch.arange(W * H)
     _brute_against_plain(cuda_device, consts, (idx % W, idx // W, idx), spp, 7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("textured", [False, True])
+def test_zoo_room_wavefront_cuda_matches_cpu(cuda_device, textured, tmp_path):
+    """zoo_room(4) (substrate, disney, a mix, a fourier box, translucent,
+    hair; with textured=True the mix amount and the substrate's Kd
+    textured) through the wavefront on the card against the CPU. The mix's
+    per-hit choice hashes the hit point's float bits, which differ by ulps
+    between the devices, so paths that meet the mix may part: with the
+    mix's two sub-rows made one (chip_smoke._same_sub_rows) the images meet
+    chip_smoke.py's rule; as built, their means agree within 1%."""
+    import chip_smoke
+    from pbrt_tpu_torch.scenes import zoo_room
+
+    desc = zoo_room(4, textured=textured, table_dir=str(tmp_path))
+    desc.film.x_resolution, desc.film.y_resolution = 32, 16
+    desc.sampler.pixel_samples = 2
+    cs = compile_scene(desc, "cpu")
+    one = chip_smoke._same_sub_rows(cs)
+    img_c = render.render_compiled(one, seed=1)
+    img_g = render.render_compiled(one.to(cuda_device), seed=1)
+    assert render.render_compiled.last_timing["tier"] == "torch-wavefront/cuda-wide"
+    assert np.abs(img_g - img_c).sum() / np.abs(img_c).sum() < 1e-3
+    assert np.isclose(img_g, img_c, rtol=1e-2, atol=1e-4).all(axis=-1).mean() >= 0.99
+    built_c = render.render_compiled(cs, seed=1)
+    built_g = render.render_compiled(cs.to(cuda_device), seed=1)
+    assert abs(built_g.mean() / built_c.mean() - 1.0) < 0.01
+
+
+@pytest.mark.gpu
+def test_fourier_and_hair_lobes_cuda_match_cpu(cuda_device, tmp_path):
+    """device/fourier.py and device/hair.py on the card against the CPU on
+    the same 4,096 lanes: the card's sin, cos, exp and log differ from the
+    CPU's by ulps, so f and pdf agree within 1e-4 of their peak (the
+    Fourier series cancels away from its peak, tests/test_torch_fourier.py)
+    and sampled directions within 1e-3."""
+    from pbrt_tpu_torch.core.fourierbsdf import read_fourier_table, write_rough_conductor_table
+    from pbrt_tpu_torch.device import fourier, hair
+    from pbrt_tpu_torch.scene.builder import _stack_fourier_tables
+
+    path = str(tmp_path / "rc.bsdf")
+    write_rough_conductor_table(path, alpha=0.3, nmu=12)
+    ft = {k: torch.as_tensor(v) for k, v in _stack_fourier_tables([read_fourier_table(path)]).items()}
+    rs = np.random.RandomState(8)
+    n = 4096
+    wo, wi = (torch.as_tensor(v / np.linalg.norm(v, axis=1, keepdims=True), dtype=torch.float32)
+              for v in (rs.normal(size=(n, 3)), rs.normal(size=(n, 3))))
+    u = [torch.as_tensor(rs.uniform(size=n), dtype=torch.float32) for _ in range(2)]
+    data = torch.zeros((n, 14))
+    data[:, 0:3] = torch.as_tensor(rs.uniform(0.1, 2.0, (n, 3)))
+    data[:, 3] = 1.55
+    data[:, 9] = torch.as_tensor(rs.uniform(0.1, 0.6, n))
+    data[:, 10] = torch.as_tensor(rs.uniform(0.1, 0.6, n))
+    data[:, 12] = 2.0
+    data[:, 13] = torch.as_tensor(rs.uniform(-1, 1, n))
+    tid = torch.zeros(n, dtype=torch.int64)
+
+    def on(dev, fn, *args):
+        return fn(*(a.to(dev) if torch.is_tensor(a) else {k: v.to(dev) for k, v in a.items()} for a in args))
+
+    def peak_close(a, b):
+        a, b = a.cpu().numpy(), b.numpy()
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * np.abs(b).max())
+
+    for fn, args in ((fourier.fourier_f, (ft, tid, wo, wi)), (fourier.fourier_pdf, (ft, tid, wo, wi)),
+                     (hair.hair_f, (data, wo, wi)), (hair.hair_pdf, (data, wo, wi))):
+        peak_close(on(cuda_device, fn, *args), on("cpu", fn, *args))
+    s_g = on(cuda_device, fourier.fourier_sample, ft, tid, wo, *u)
+    s_c = on("cpu", fourier.fourier_sample, ft, tid, wo, *u)
+    valid = s_c["valid"] & s_g["valid"].cpu()
+    assert valid.float().mean() > 0.4 and (s_g["valid"].cpu() != s_c["valid"]).float().mean() < 1e-3
+    np.testing.assert_allclose(s_g["wi"].cpu()[valid].numpy(), s_c["wi"][valid].numpy(), atol=1e-3)
+    h_g = on(cuda_device, hair.hair_sample, data, wo, *u)["wi"].cpu().numpy()
+    np.testing.assert_allclose(h_g, on("cpu", hair.hair_sample, data, wo, *u)["wi"].numpy(), atol=1e-3)

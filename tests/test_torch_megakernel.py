@@ -368,6 +368,69 @@ def test_eligibility_gates(gate):
         assert render.LAST_PERSISTENT_TIER == "torch-wavefront/plain-brute"
 
 
+def new_material(kind, table_dir):
+    """A material of the kinds the megakernels gate by lobe set since the
+    slice of substrate, translucent, disney, mix, fourier and hair, and the
+    reason each port extractor names when it refuses it (None: baked). A
+    translucent row without transmission has the lobe set [LAMBERT_R,
+    MICRO_R] (plastic's) and without Ks [LAMBERT_R] (matte's)."""
+    from pbrt_tpu_torch.core.fourierbsdf import write_rough_conductor_table
+    from pbrt_tpu_torch.scenes import ZOO_DISNEY
+
+    const = lambda v: ("const", np.asarray(v, np.float64))  # noqa: E731
+    if kind == "substrate":
+        return HostMaterial(kind="substrate", params={"uroughness": ("const", 0.05)}), "the lobe set [9]"
+    if kind == "disney":
+        params = {k: const(v) for k, v in ZOO_DISNEY.items()}
+        return HostMaterial(kind="disney", params=dict(params, remaproughness=("const", False))), "lobe set [10, 4, 11]"
+    if kind == "fourier":
+        path = str(table_dir / "rc.bsdf")
+        write_rough_conductor_table(path, alpha=0.3, nmu=8)
+        return HostMaterial(kind="fourier", params={"bsdffile": ("const", path), "Kd": const([0.5] * 3)}), "[12]"
+    if kind == "hair":
+        return HostMaterial(kind="hair", params={"eumelanin": ("const", 1.3)}), "the lobe set [13]"
+    if kind == "translucent":
+        return HostMaterial(kind="translucent", params={}), "the lobe set [1, 2, 4, 5]"
+    if kind == "mix":
+        return HostMaterial(kind="mix", params={"material1": ("material", HostMaterial(kind="matte")),
+                                                "material2": ("material", HostMaterial(kind="plastic"))}), "mix"
+    transmit0 = {"Kd": const([0.6, 0.5, 0.4]), "transmit": const([0.0] * 3)}
+    if kind == "translucent-no-transmit":
+        return HostMaterial(kind="translucent", params=transmit0), None
+    assert kind == "translucent-no-transmit-no-ks"
+    return HostMaterial(kind="translucent", params=dict(transmit0, Ks=const([0.0] * 3))), None
+
+
+NEW_KINDS = ["substrate", "disney", "fourier", "hair", "translucent", "mix", "translucent-no-transmit",
+             "translucent-no-transmit-no-ks"]
+
+
+@pytest.mark.parametrize("kind", NEW_KINDS)
+def test_new_material_gates_as_reference(kind, tmp_path):
+    """The extractor decides a row of each new kind by its lobe set, as the
+    reference's does: substrate, disney, fourier, hair and a transmitting
+    translucent row are refused naming their lobe set, mix rows by name;
+    a translucent row without transmission bakes to the reference's entry
+    (Lambert + GGX, as plastic; Lambert alone without Ks)."""
+    desc = _mini_spheres(light="point")
+    mat, word = new_material(kind, tmp_path)
+    desc.primitives[2].material = mat
+    cs, ref = _compile_both(desc)
+    mine, theirs = _both_consts(desc, cs, ref)
+    cam = make_camera(desc.camera, desc.film, "cpu")
+    icfg, scfg, fcfg = _cfgs(desc)
+    if word is not None:
+        assert mine is None and theirs is None
+        assert word in mk.explain_ineligible(cs, cam, icfg, scfg, fcfg)
+        return
+    assert mine is not None and theirs is not None
+    assert mine["mats"].keys() == theirs["mats"].keys()
+    for m, e in theirs["mats"].items():
+        assert mine["mats"][m] == {k: v for k, v in e.items() if k != "kd_tex"}, m
+    m = int(cs.arrays.mat_kind.numpy().tolist().index(8))  # the translucent row
+    assert mine["mats"][m]["lobe"] == (mk.LOBE_PLASTIC if kind == "translucent-no-transmit" else 1)
+
+
 def test_bump_maps_go_to_the_wavefront():
     """A bump-mapped scene of the class: the reference's megakernel takes it
     and renders it without bumps (ROADMAP C); the port's refuses it, naming

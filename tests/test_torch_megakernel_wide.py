@@ -68,7 +68,7 @@ from pbrt_tpu_torch.scene.host import (
     SceneDescription, ShapeRecord, Sphere, TriangleMesh,
 )
 from pbrt_tpu_torch.scenes import _texture, material_room, mesh_room
-from test_torch_megakernel import _to_ref
+from test_torch_megakernel import NEW_KINDS, _to_ref, new_material
 
 W, H, SPP = 48, 24, 2
 FCFG = {"filter": "box", "filter_params": {}, "max_sample_luminance": float("inf")}
@@ -437,6 +437,29 @@ def test_eligibility_gates(gate, monkeypatch):
     assert mw.extract_wide_consts(cs, cam, icfg, scfg, fcfg, max_tris) is None
     assert not mw.wide_megakernel_eligible(cs, cam, icfg, scfg, fcfg, max_tris)
     assert word in mw.explain_ineligible_wide(cs, cam, icfg, scfg, fcfg, max_tris)
+
+
+@pytest.mark.parametrize("kind", NEW_KINDS)
+def test_new_material_gates_as_reference(kind, tmp_path):
+    """The wide extractor decides a row of each new kind by its lobe set, as
+    the reference's does (tests/test_torch_megakernel.py
+    test_new_material_gates_as_reference): the room's floor re-dressed;
+    refused with the lobe set named (mix rows by name), or, for a
+    translucent row without transmission, baked to the reference's entry."""
+    desc, icfg, scfg, fcfg = _case("02-area")
+    mat, word = new_material(kind, tmp_path)
+    desc.primitives[0].material = mat
+    cs, ref, cam, ref_cam = _both(desc)
+    mine = mw.extract_wide_consts(cs, cam, icfg, scfg, fcfg, mw.DEFAULT_MAX_TRIS)
+    theirs = ref_mw.extract_wide_consts(ref, ref_cam, icfg, scfg, fcfg)
+    if word is not None:
+        assert mine is None and theirs is None
+        assert word in mw.explain_ineligible_wide(cs, cam, icfg, scfg, fcfg, mw.DEFAULT_MAX_TRIS)
+        return
+    assert mine is not None and theirs is not None
+    assert mine["mats"].keys() == theirs["mats"].keys()
+    for m, e in theirs["mats"].items():
+        assert mine["mats"][m] == {k: v for k, v in e.items() if k != "kd_tex"}, m
 
 
 @pytest.mark.parametrize("n_side,eligible", [(40, True), (64, False)])

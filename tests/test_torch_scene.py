@@ -271,3 +271,76 @@ def test_sphere_room_routes(monkeypatch):
     monkeypatch.delenv("PBRT_TPU_WIDEMEGA")
     render.make_persistent_fn(cs)
     assert render.LAST_PERSISTENT_TIER == "torch-wavefront/plain-wide-mixed"
+
+
+@pytest.fixture(scope="module")
+def zoo(tmp_path_factory):
+    from pbrt_tpu_torch.scenes import zoo_room
+    from test_torch_megakernel import _to_ref
+
+    desc = zoo_room(4, table_dir=str(tmp_path_factory.mktemp("zoo_tables")))
+    return compile_scene(desc, "cpu"), ref_compile_scene(_to_ref(desc))
+
+
+def test_zoo_room_tables_bit_identical(zoo):
+    """zoo_room(4): substrate, disney, a mix of plastic and copper (its
+    sub-materials' rows after the mix row's, as the reference reserves
+    them), a fourier box (its table read and stacked), translucent and
+    hair: every table equals the reference's, the Fourier arrays
+    included, and so do the static fields the routes read."""
+    cs, ref = zoo
+    for f in fields(SceneTensors):
+        if f.name in HOPPER_TABLES:
+            continue
+        a, b = getattr(cs.arrays, f.name), getattr(ref.arrays, f.name)
+        assert (a is None) == (b is None), f.name
+        if a is None:
+            continue
+        if isinstance(a, dict):
+            assert a.keys() == b.keys(), f.name
+            for k in a:
+                np.testing.assert_array_equal(a[k].numpy(), np.asarray(b[k]), err_msg=k)
+            continue
+        a, b = a.numpy(), np.asarray(b)
+        assert a.dtype.kind == b.dtype.kind and a.dtype.itemsize == b.dtype.itemsize, f.name
+        np.testing.assert_array_equal(a, b, err_msg=f.name)
+    assert set(cs.arrays.fourier) == {"mu", "aflat", "a0", "cdf", "eta"}
+    for name in ("n_prims", "n_tris", "n_materials", "n_lights", "has_fourier", "has_wide", "wide_root",
+                 "has_bump", "use_brute_force"):
+        assert getattr(cs.static, name) == getattr(ref.static, name), name
+    assert cs.static.mat_kinds_present == tuple(int(k) for k in ref.static.mat_kinds_present) == (
+        1, 2, 4, 5, 7, 8, 9, 10, 13, 14)
+    assert cs.static.n_tris == 4784 and cs.static.has_fourier
+
+
+@pytest.mark.parametrize("kind", ["subsurface", "kdsubsurface", "interface", "mix-of-subsurface"])
+def test_bssrdf_and_interface_materials_refused_by_name(kind):
+    """What the port's wavefront does not render yet (ROADMAP A5): the
+    subsurface materials (the BSSRDF adapter lobe) and the null material,
+    also as a mix's sub-material."""
+    desc = mesh_room(8)
+    if kind == "mix-of-subsurface":
+        sub = HostMaterial(kind="subsurface")
+        desc.primitives[1].material = HostMaterial(kind="mix", params={
+            "material1": ("material", HostMaterial(kind="matte")), "material2": ("material", sub)})
+        match = "the 'subsurface' material"
+    else:
+        desc.primitives[1].material = HostMaterial(kind=kind)
+        match = f"the '{kind}' material"
+    with pytest.raises(NotImplementedError, match=match):
+        compile_scene(desc, "cpu")
+
+
+def test_unreadable_fourier_table_makes_the_row_matte(tmp_path):
+    """A fourier row whose table cannot be read compiles as matte, as in the
+    reference (api.rs logs and degrades); the scene then has no tables."""
+    from test_torch_megakernel import _to_ref
+
+    desc = mesh_room(8)
+    desc.primitives[1].material = HostMaterial(kind="fourier", params={
+        "bsdffile": ("const", str(tmp_path / "missing.bsdf")), "Kd": ("const", np.array([0.5, 0.5, 0.5]))})
+    cs, ref = compile_scene(desc, "cpu"), ref_compile_scene(_to_ref(desc))
+    assert not cs.static.has_fourier and not ref.static.has_fourier and cs.arrays.fourier == {}
+    np.testing.assert_array_equal(cs.arrays.mat_kind.numpy(), np.asarray(ref.arrays.mat_kind))
+    np.testing.assert_array_equal(cs.arrays.mat_const.numpy(), np.asarray(ref.arrays.mat_const))
+    assert 13 not in cs.static.mat_kinds_present

@@ -3,7 +3,7 @@
 
     python3 tools/torch_phases.py [--scene mesh|gallery|material_room|mesh_b4|material_room_wave|area_box|
                                            textured_room|textured_gallery|checker_room|sphere_room|
-                                           sphere_room_248]
+                                           sphere_room_248|zoo_room|zoo_room_248]
                                   [--reps 5] [--out FILE.json]
 
 Renders at 1000x500, 16 spp, depth 5 one of: the 123,650-triangle mesh room
@@ -18,8 +18,10 @@ textured instantiation (--scene textured_gallery), material_room with
 the checkerboard floor through the wide megakernel (--scene checker_room)
 or sphere_room, seven full spheres beside material_room's triangles, on
 the wavefront's mixed query (--scene sphere_room; sphere_room_248: the same
-spheres among the mesh room's 123,650 triangles), and reports, with the
-card's name and power limit:
+spheres among the mesh room's 123,650 triangles), or zoo_room, material_room
+re-dressed in substrate, disney, mix, fourier, translucent and hair, on the
+wavefront (--scene zoo_room; zoo_room_248: among the mesh room's terrain),
+and reports, with the card's name and power limit:
  1. end to end: render wall time and path_vertex_samples_per_sec over
     --reps untraced renders after a warm-up (median, min, max);
  2. the traversal kernel against its plain PyTorch twin on the main path's
@@ -30,7 +32,8 @@ card's name and power limit:
     launch): one render with a synchronize around every call into a layer
     (camera regeneration, closest-hit query, shadow query, of which the
     traversal kernel itself and, in a mixed scene, the spheres' tests and
-    merge), the rest being shading, NEE, sampling,
+    merge; lobe evaluation: make_bsdf and the integrator's calls of
+    bsdf_f, bsdf_pdf and bsdf_sample), the rest being shading, NEE, sampling,
     Russian roulette, flush and loop control; the synchronizes serialise
     host and device, so the traced wall minus the untraced median is the
     tracing cost;
@@ -90,7 +93,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scene", default="mesh",
                     choices=("mesh", "gallery", "material_room", "mesh_b4", "material_room_wave", "area_box",
-                             "textured_room", "textured_gallery", "checker_room", "sphere_room", "sphere_room_248"))
+                             "textured_room", "textured_gallery", "checker_room", "sphere_room", "sphere_room_248",
+                             "zoo_room", "zoo_room_248"))
     ap.add_argument("--all-matte", action="store_true", help="every material matte (Kd 0.6), the panel's kept")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
@@ -109,7 +113,7 @@ def main() -> int:
     from pbrt_tpu_torch.scene.builder import compile_scene
     from pbrt_tpu_torch.scene.host import HostMaterial
     from pbrt_tpu_torch.scenes import area_box, material_room, mesh_room, sphere_room, spheres_gallery, \
-        textured_gallery, textured_room
+        textured_gallery, textured_room, zoo_room
 
     if args.scene in ("material_room", "mesh_b4", "checker_room"):
         os.environ["PBRT_TPU_WIDEMEGA"] = "1"
@@ -118,7 +122,8 @@ def main() -> int:
     make = {"mesh": mesh_room, "mesh_b4": mesh_room, "gallery": spheres_gallery, "material_room": material_room,
             "material_room_wave": material_room, "area_box": area_box, "textured_room": textured_room,
             "textured_gallery": textured_gallery, "checker_room": lambda: material_room(checker=True),
-            "sphere_room": sphere_room, "sphere_room_248": lambda: sphere_room(248)}
+            "sphere_room": sphere_room, "sphere_room_248": lambda: sphere_room(248), "zoo_room": zoo_room,
+            "zoo_room_248": lambda: zoo_room(248)}
     rec = {"device": torch.cuda.get_device_name(0), "nvidia_smi": chip_smoke._smi(),
            "torch": torch.__version__, "cuda": torch.version.cuda, "scene": args.scene,
            "all_matte": args.all_matte}
@@ -159,6 +164,11 @@ def main() -> int:
     return 0
 
 
+# the integrator's calls into the lobe layer (bsdf_sample's own calls of
+# bsdf_f and bsdf_pdf run inside its span)
+LOBE_CALLS = ("make_bsdf", "bsdf_f", "bsdf_pdf", "bsdf_sample")
+
+
 def _traversal_and_layers(args, cs, rec, wall_median):
     import chip_smoke
     from pbrt_tpu_torch import render as R_
@@ -180,7 +190,7 @@ def _traversal_and_layers(args, cs, rec, wall_median):
 
     # --- 3. layers, with a synchronize around every layer call ---
     spans: dict = {}
-    saved = {n: getattr(integrator, n) for n in ("intersect", "intersect_p")}
+    saved = {n: getattr(integrator, n) for n in ("intersect", "intersect_p") + LOBE_CALLS}
     saved_regen = R_.make_regen
     saved_kernel = wide_bvh.traverse_cuda
     saved_spheres = intersect._mixed_spheres
@@ -188,6 +198,8 @@ def _traversal_and_layers(args, cs, rec, wall_median):
         intersect._mixed_spheres = _spanned(saved_spheres, "sphere_merge", spans)
         integrator.intersect = _spanned(saved["intersect"], "closest_query", spans)
         integrator.intersect_p = _spanned(saved["intersect_p"], "shadow_query", spans)
+        for n in LOBE_CALLS:
+            setattr(integrator, n, _spanned(saved[n], "lobe_eval", spans))
         R_.make_regen = lambda *a, **k: _spanned(saved_regen(*a, **k), "regen", spans)
         kern = _spanned(saved_kernel, "kernel", spans)
         kern.launches = 0
@@ -198,14 +210,16 @@ def _traversal_and_layers(args, cs, rec, wall_median):
         wide_bvh.traverse_cuda = kern
         R_.render_compiled(cs, seed=args.seed)
     finally:
-        integrator.intersect, integrator.intersect_p = saved["intersect"], saved["intersect_p"]
+        for n, fn in saved.items():
+            setattr(integrator, n, fn)
         R_.make_regen = saved_regen
         wide_bvh.traverse_cuda = saved_kernel
         intersect._mixed_spheres = saved_spheres
     traced = R_.render_compiled.last_timing["wall_s"]
     layers = {"regen": spans.get("regen", 0.0),
               "closest_query": spans.get("closest_query", 0.0),
-              "shadow_query": spans.get("shadow_query", 0.0)}
+              "shadow_query": spans.get("shadow_query", 0.0),
+              "lobe_eval": spans.get("lobe_eval", 0.0)}
     layers["shading_nee_flush_loop"] = traced - sum(layers.values())
     rec["layers"] = {"traced_wall_s": traced, "tracing_cost_s": traced - wall_median,
                      "seconds": layers, "kernel_s_within_queries": spans.get("kernel", 0.0),
@@ -391,7 +405,7 @@ def _device(args, cs, rec, wall_median):
     finally:
         integrator.intersect = closest
     wall = R_.render_compiled.last_timing["wall_s"]
-    if args.out:
+    if args.out and args.scene == "mesh":
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(out.with_suffix(".trace.json")))
