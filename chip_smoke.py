@@ -8,8 +8,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
  1. device: requires CUDA (no CPU fallback), prints the card's name and
     power limit;
  2. build: nvcc-compiles every kernel source (csrc/wide_traverse.cu,
-    wide_traverse_joint.cu, megakernel.cu, megakernel_wide.cu), one nvcc
-    each, all started together; prints build seconds, the ptxas
+    wide_traverse_joint.cu, megakernel.cu, megakernel_wide.cu,
+    bvh_walk.cu), one nvcc each, all started together; prints build seconds, the ptxas
     register/spill/shared-memory report of each and every variant's
     resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
     and B3's __launch_bounds__ choice;
@@ -226,11 +226,49 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     material_room with its back wall translucent without transmission
     (baked as plastic) against its twin at 2 spp under phase 11's
     tolerance, its 16 spp launch timed, and the wavefront's 16 spp path
-    total within 0.01% of it.
-Phases 15-21, 24's image-mapped sky, 25, 28, 30, 31 and 32 are the wavefront's
-array code around B1 (the brute wavefront launches no kernel of the port):
-they add no row to the kernel report; phase 29's sphere instantiation
-and phase 33's translucent wall ride B4's row. Each main path runs with every launch count set to 0 just
+    total within 0.01% of it;
+34. bvh_walk (csrc/bvh_walk.cu: the BVH walk and the kd walk) against its
+    plain twins (device/bvh_walk.py walk_plain, kd_walk_plain) on
+    quadric_room(248) (the mesh room's enclosure with 30 quadrics of the
+    six kinds, 64 instances of a 1,984-triangle prop, an alpha-cut panel,
+    goniometric and projection lights: 251,168 prims) and on its kd
+    variant (n_side 40, no instances): the camera, bounce and shadow rays of
+    the main path, closest and any hit, compared on every eighth ray: hits
+    and prims equal (a prim may differ only on a tie in t), t within 4
+    ulps, the counters 0; prints the kernel's time on each whole set
+    (CUDA events), pops per ray, the share of lanes holding a ray, its
+    ptxas report and blocks per SM, the plain twin's time on the camera
+    rays, and its bound from the instrumented entry's counts (pops,
+    triangle, quadric and instanced tests);
+35. quadric_room(248) through the wavefront at 1000x500, 16 spp, depth 5
+    (route torch-wavefront/cuda-bvh, walk launches > 0), then its kd
+    variant (torch-wavefront/cuda-kdtree): wall,
+    path_vertex_samples_per_sec, device kernels per iteration (the
+    profiler over a 1 spp crop), the walk's launches; the 64x32 crop at
+    1 spp on cuda and cpu held as in phase 5 with the cones', paraboloids'
+    and hyperboloids' hits taken out (_without_raw_quadrics: the reference
+    does not re-project their hit points, so the devices' ulps part a few
+    paths there), and the kd variant's as built by phase 5's second clause
+    (99% of the pixels within rtol 1e-2);
+36. camera_room (material_room(checker=True)) under the orthographic and,
+    with the alpha panel, the environment camera through B1 at 1000x500,
+    16 spp: route torch-wavefront/cuda-wide, B1 launches > 0, the 1 spp
+    crops on cuda and cpu; then B3's and B4's named refusals of the orthographic and
+    environment cameras and of quadric_room (goniometric lights first)
+    and its kd variant;
+37. quadric_room(8) (a 112-triangle prop instanced 64 times), asking for
+    the kd-tree and under the orthographic camera, written as a file
+    (scenes.write_pbrt: the five quadric Shapes, ObjectBegin and
+    ObjectInstance, "texture alpha", the goniometric and projection lights
+    with PFM maps, Accelerator "kdtree", Camera "orthographic") through
+    main.main on cuda (route torch-wavefront/cuda-bvh: its instances keep
+    the BVH) with the tables and the 4 spp crop bit-equal to the hand-built
+    scene's, and through python -m pbrt_tpu_torch as a subprocess.
+Phases 15-21, 24's image-mapped sky, 25, 28, 30, 31, 32 and 36 are the
+wavefront's array code around B1 (the brute wavefront launches no kernel
+of the port): they add no row to the kernel report; phase 29's sphere
+instantiation and phase 33's translucent wall ride B4's row; phases 34-35
+fill bvh_walk's row (its launches: the two renders of phase 35). Each main path runs with every launch count set to 0 just
 before it and read just after; every switch a phase sets is restored after
 it. The second-to-last lines are the kernel report as JSON and the card's
 nvidia-smi name and power limit; the last line is
@@ -350,7 +388,10 @@ def _check_crop(label, cs_gpu, cs_cpu, desc, spp=CROP_SPP, estimate=False):
     estimate: a scene whose paths may part on the two devices (a mix's
     per-hit choice hashes the hit point's float bits, which differ by ulps
     between the card's and the CPU's arithmetic) is held as an estimate:
-    the two means within 1%, the gate's numbers printed."""
+    the two means within 1%, the gate's numbers printed. estimate
+    "pixels": a scene whose parted paths are few but bright (phase 35) is
+    held by phase 5's second clause alone, 99% of the pixels within rtol
+    1e-2."""
     import numpy as np
 
     from pbrt_tpu_torch import render as R_
@@ -372,6 +413,10 @@ def _check_crop(label, cs_gpu, cs_cpu, desc, spp=CROP_SPP, estimate=False):
           f"sum|a-b|/sum|b| {rel:.3e}, pixels within rtol 1e-2 {px_ok:.4f}, means {img_g.mean():.5f} "
           f"{img_c.mean():.5f}" + (f", mean |b| {level:.5f}, range [{img_c.min():.5g}, {img_c.max():.5g}]"
                                    if signed else ""), flush=True)
+    if estimate == "pixels":
+        if not (np.isfinite(img_g).all() and level > 0 and px_ok >= 0.99):
+            raise AssertionError(f"cuda and cpu renders of the crop disagree pixel by pixel ({label})")
+        return
     if estimate:
         if not (np.isfinite(img_g).all() and level > 0 and abs(img_g.mean() / img_c.mean() - 1.0) < 0.01):
             raise AssertionError(f"cuda and cpu renders of the crop disagree as estimates ({label})")
@@ -381,10 +426,10 @@ def _check_crop(label, cs_gpu, cs_cpu, desc, spp=CROP_SPP, estimate=False):
 
 
 def _reset_launches():
-    from pbrt_tpu_torch.device import megakernel, megakernel_wide, wide_bvh
+    from pbrt_tpu_torch.device import bvh_walk, megakernel, megakernel_wide, wide_bvh
 
     for fn in (wide_bvh.traverse_cuda, wide_bvh.traverse_joint_cuda, megakernel.megakernel_cuda,
-               megakernel_wide.wide_megakernel_cuda):
+               megakernel_wide.wide_megakernel_cuda, bvh_walk.bvh_walk_cuda, bvh_walk.kd_walk_cuda):
         fn.launches = 0
 
 
@@ -1568,6 +1613,284 @@ def _material_phases(out, work, m, b4_ms):
                                                      "max_abs_err": (out_k[0] - out_p[0]).abs().max().item()}}
 
 
+# the BVH and kd walks (bvh_walk.cu): float32 operations per unit of work,
+# counted from its source as a lower bound: one node's slab test per pop,
+# one watertight triangle test, one EFloat quadric test (the intervals of
+# the coefficients, the quadratic and both roots' clips with their atan2),
+# one instance transform of the ray (two 3x4 transforms and the shear setup)
+BW_OPS_POP = 20
+BW_OPS_TRI = 45
+BW_OPS_QUADRIC = 300
+BW_OPS_INSTANCE = 40
+
+
+def _walk_against_twin(label, cs, walk_k, walk_p):
+    """Phase 34: the walk kernel (walk_k) against its plain twin (walk_p)
+    on the main path's camera, bounce and shadow rays, closest and any hit:
+    hits equal, prim equal wherever the two t are not tied, t within 4 ulps
+    where the prims agree, on every eighth ray (each ray walks alone in
+    both, so the kernel's launch over the whole set is compared on that
+    subset; the twin's lockstep loop costs seconds per set). Prints per set
+    the kernel's time over the whole set (CUDA events), pops per ray, the
+    share of lanes holding a ray (one thread per ray in a fixed grid: a
+    warp pops as often as its longest walk). Returns ({set/query: {...}},
+    max |dt|, the ray sets)."""
+    import torch
+
+    sa, st = cs.arrays, cs.static
+    rows, max_err = {}, 0.0
+    ray_sets = _rays(cs)
+    for name, o, d, t_max in ray_sets:
+        for any_hit in (False, True):
+            q = f"{name}/{'any' if any_hit else 'closest'}"
+            res_all = walk_k(sa, st, o, d, t_max, any_hit)
+            res_k = [x[::8] for x in res_all]
+            res_p = walk_p(sa, st, o[::8].contiguous(), d[::8].contiguous(), t_max[::8].contiguous(), any_hit)
+            t_k, p_k, t_p, p_p = res_k[0], res_k[1].long(), res_p[0], res_p[1].long()
+            hk, hp = p_k >= 0, p_p >= 0
+            both = hk & hp
+            same = both & (p_k == p_p)
+            tied = both & (p_k != p_p) & (t_k == t_p)
+            ulp = torch.abs(t_k.view(torch.int32).long() - t_p.view(torch.int32).long())
+            bad_prim = int((both & (p_k != p_p) & ~tied).sum())
+            bad_t = int((same & (ulp > 4)).sum())
+            dt = float((t_k - t_p).abs()[both].max()) if bool(both.any()) else 0.0
+            max_err = max(max_err, dt)
+            pops = res_all[4].double()
+            n32 = -(-pops.numel() // 32) * 32
+            per_warp = torch.nn.functional.pad(pops, (0, n32 - pops.numel())).view(-1, 32).max(1).values
+            share = float(pops.sum()) / max(32.0 * float(per_warp.sum()), 1.0)
+            ms = _cuda_ms(lambda: walk_k(sa, st, o, d, t_max, any_hit), 5)
+            rows[q] = {"rays": o.shape[0], "compared": int(hk.numel()), "hit": float(hk.float().mean()), "ms": ms,
+                       "pops_per_ray": float(pops.mean()),
+                       "lanes_with_a_ray": share, "hit_disagree": int((hk != hp).sum()), "prim_disagree": bad_prim,
+                       "tied": int(tied.sum()), "t_over_4ulp": bad_t, "max_dt": dt}
+            print(f"  {label} {q}: {json.dumps(rows[q])}", flush=True)
+            if rows[q]["hit_disagree"] or bad_prim or bad_t or res_p[5]:
+                raise AssertionError(f"the walk kernel and its twin disagree on {label} {q}")
+    return rows, max_err, ray_sets
+
+
+def _walk_bound(label, cs, o, d, t_max):
+    """Phase 34: the BVH walk's bound on one ray set from its instrumented
+    entry (the pops, the prim tests by kind and the table rows this run's
+    walk read): the larger of the bytes (rays in; of the tables, each row
+    the walk read once, and of it only what it reads: a node's box, 24
+    bytes, its offset and count, 8, its axis, 4; a prim's kind and
+    instance id, 8, and its row's 9 floats of a triangle or 19 (25 with
+    the twisted hyperboloid's columns) of a quadric; an instance's 12
+    floats; t, prim, b1, b2, pops out) over the HBM rate and the operations
+    over the float32 rate. Returns (bound_ms, bound_by, the counts)."""
+    import torch
+
+    from pbrt_tpu_torch.device import bvh_walk
+
+    sa, st = cs.arrays, cs.static
+    dev = o.device
+    tests = torch.empty((o.shape[0], 3), dtype=torch.int32, device=dev)
+    seen = tuple(torch.zeros(n, dtype=torch.int32, device=dev)
+                 for n in (sa.bvh_packed.shape[0], sa.prim_test_data.shape[0], sa.inst_w2i.shape[0]))
+    res = bvh_walk.bvh_walk_cuda(sa, st, o, d, t_max, False, prim_tests=tests, rows_read=seen)
+    bvh_walk.bvh_walk_cuda.launches -= 1  # a measurement launch, not the main path's
+    tri, quad, inst = (float(x) for x in tests.double().sum(0))
+    pops = float(res[4].double().sum())
+    nodes, prims, insts = seen
+    node_bytes = sum(w * int(((nodes & bit) != 0).sum()) for bit, w in ((1, 24), (2, 8), (4, 4)))
+    read = prims != 0
+    is_tri = sa.prim_kind == 0
+    quad_floats = 25 if sa.prim_test_data.shape[1] >= 25 else 19
+    prim_bytes = (8 * int(read.sum()) + 4 * 9 * int((read & is_tri).sum())
+                  + 4 * quad_floats * int((read & ~is_tri).sum()))
+    inst_bytes = 48 * int(insts.sum())
+    n_bytes = _nbytes(o, d, t_max, *res[:5]) + node_bytes + prim_bytes + inst_bytes
+    ops = pops * BW_OPS_POP + tri * BW_OPS_TRI + quad * BW_OPS_QUADRIC + inst * BW_OPS_INSTANCE
+    b = _bound(n_bytes, ops)
+    counts = {"pops": pops, "triangle_tests": tri, "quadric_tests": quad, "instanced_tests": inst,
+              "nodes_read": int((nodes != 0).sum()), "prim_rows_read": int(read.sum()),
+              "instances_read": int(insts.sum()), "table_bytes_read": node_bytes + prim_bytes + inst_bytes,
+              "table_bytes": _nbytes(sa.bvh_packed, sa.prim_test_data, sa.prim_kind, sa.prim_inst, sa.inst_w2i),
+              "bytes": n_bytes, "ops": ops}
+    print(f"  {label} bound {b[0]:.4f} ms ({b[1]}): {json.dumps(counts)}", flush=True)
+    return b[0], b[1], counts
+
+
+def _without_raw_quadrics(cs):
+    """cs with the cones, paraboloids and hyperboloids made never to be hit
+    (their prim_test_data rows a disk of radius 0 inside an inner radius
+    of 1), every other table shared: the quadrics whose hit points the
+    reference does not re-project (phase 35)."""
+    ptd = cs.arrays.prim_test_data.clone()
+    raw = (cs.arrays.prim_kind == 1) & (ptd[:, 18] >= 3)
+    ptd[raw, 18] = 2.0
+    ptd[raw, 12] = 0.0
+    ptd[raw, 14] = 1.0
+    return dataclasses.replace(cs, arrays=dataclasses.replace(cs.arrays, prim_test_data=ptd))
+
+
+def _walk_phases(out, work):
+    """Phases 34-37: the rest of the persistent wavefront's class (quadrics,
+    instancing, the kd-tree, alpha cutouts, goniometric and projection
+    lights, orthographic and environment cameras) and the walk kernel
+    that serves the scenes the wide tables do not."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch import main as cli
+    from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.device import bvh_walk, megakernel, megakernel_wide, nvcc, wide_bvh
+    from pbrt_tpu_torch.device.camera import make_camera
+    from pbrt_tpu_torch.scene.builder import compile_scene
+
+    dev = torch.device("cuda", 0)
+    seconds = out["seconds"] = {}
+    t_phase = time.perf_counter()
+    # --- 34. the walk kernel against its twin ---
+    info = bvh_walk.build_kernel()
+    regs = "; ".join(sorted(set(re.findall(r"Used \d+ registers[^\n]*", info["log"])))) or "n/a"
+    spills = "; ".join(sorted(set(re.findall(r"\d+ bytes spill stores, \d+ bytes spill loads", info["log"])))) or "n/a"
+    occ = [nvcc.occupancy(getattr(info["lib"], e)) for e in ("bvh_walk_occupancy", "kd_walk_occupancy")]
+    print(f"[34 bvh_walk build] {Path(info['path']).name}; ptxas: {regs}; {spills}; blocks of 128 per SM "
+          f"(bvh, kd) {occ}", flush=True)
+    scenes_34 = {}
+    for key, make in (("bvh", lambda: scenes.quadric_room(248)),
+                      ("kdtree", lambda: scenes.quadric_room(40, instances=False, accelerator="kdtree"))):
+        t0 = time.perf_counter()
+        host = compile_scene(make(), "cpu")
+        host_s = time.perf_counter() - t0
+        q = host.to(dev)
+        scenes_34[key] = (q, host)
+        st = q.static
+        print(f"[34 scene] quadric_room {key}: {st.n_prims} prims ({st.n_tris} triangle rows, {st.n_spheres} "
+              f"quadrics, {q.arrays.inst_i2w.shape[0] - 1} instances), {st.n_lights} lights, host compile "
+              f"{host_s:.1f}s, tables {q.arrays.byte_size()} bytes", flush=True)
+        walk_k = bvh_walk.kd_walk_cuda if key == "kdtree" else bvh_walk.bvh_walk_cuda
+        walk_p = bvh_walk.kd_walk_plain if key == "kdtree" else bvh_walk.walk_plain
+        rows, err, ray_sets = _walk_against_twin(f"34 {key}", q, walk_k, walk_p)
+        counters = walk_k.counters[dev].tolist()
+        if counters != [0, 0]:
+            raise AssertionError(f"walk stack overflows / iteration-cap hits: {counters}")
+        entry = {"host_compile_s": host_s, "queries": rows, "max_abs_err": err}
+        if key == "bvh":
+            _n, o, d_, t_max = ray_sets[0]
+            # the twin once, by the host clock around a call ending in a synchronize
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bvh_walk.walk_plain(q.arrays, st, o, d_, t_max, False)
+            torch.cuda.synchronize()
+            entry["plain_ms"] = 1e3 * (time.perf_counter() - t0)
+            entry["bound_ms"], entry["bound_by"], entry["counts"] = _walk_bound("34 bvh camera/closest", q, o, d_,
+                                                                                t_max)
+            entry["ms"] = rows["camera/closest"]["ms"]
+            b1_per_ray = 0.3715 / 500_000  # phase 3's B1 camera/closest on the mesh room (PERF.md)
+            print(f"  camera/closest: {entry['ms']:.4f} ms for {o.shape[0]} rays ({1e6 * entry['ms'] / o.shape[0]:.3f}"
+                  f" ns per ray; B1 on the mesh room {1e6 * b1_per_ray:.3f}), plain twin {entry['plain_ms']:.2f} ms, "
+                  f"at {100 * entry['bound_ms'] / entry['ms']:.2f}% of the bound", flush=True)
+        out[f"walk_{key}"] = entry
+
+    seconds["34"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # --- 35. quadric_room through the wavefront, BVH then kd ---
+    for key, tier in (("bvh", "torch-wavefront/cuda-bvh"), ("kdtree", "torch-wavefront/cuda-kdtree")):
+        q, host = scenes_34[key]
+        walk_k = bvh_walk.kd_walk_cuda if key == "kdtree" else bvh_walk.bvh_walk_cuda
+        timing, launches, _img = _main_path(f"35 quadric_room {key} main path", q, tier, walk_k)
+        n_k, n_it = _kernels_per_iteration(q, LATE_SPP[0])
+        print(f"  crop under the profiler: {n_k} device kernels over {n_it} wavefront iterations "
+              f"({n_k / max(n_it, 1):.1f} per iteration); walk launches in the render {launches}", flush=True)
+        # the crop without the cones', paraboloids' and hyperboloids' hits
+        # meets phase 5's rule; the crop as built, 99% of its pixels must
+        # (their hit points are not re-projected onto the surface, as in
+        # the reference, so an origin offset by the devices' different ulps
+        # (sums of squares in another order on the card) can re-hit the
+        # surface on one device and not the other: a few paths part, and a
+        # parted path can carry a bright light's sample, which moves the
+        # crop's sum by a percent)
+        _check_crop(f"35 quadric_room {key} cuda-vs-cpu crop, no cone, paraboloid or hyperboloid hits",
+                    _without_raw_quadrics(q), _without_raw_quadrics(host), host.description, LATE_SPP[0])
+        _check_crop(f"35 quadric_room {key} cuda-vs-cpu crop as built", q, host, host.description, LATE_SPP[0],
+                    estimate="pixels")
+        out[f"quadric_room_{key}"] = {"wall_s": timing["wall_s"], "vps": timing["n_vertices"] / timing["wall_s"],
+                                      "n_vertices": timing["n_vertices"], "walk_launches": launches,
+                                      "kernels_per_iteration": n_k / max(n_it, 1)}
+
+    seconds["35"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # --- 36. the camera scenes through B1; the megakernels' named refusals ---
+    for kind in ("orthographic", "environment"):
+        host = compile_scene(scenes.camera_room(kind), "cpu")
+        c = host.to(dev)
+        timing, b1, _img = _main_path(f"36 {kind} camera_room main path", c, "torch-wavefront/cuda-wide",
+                                      wide_bvh.traverse_cuda)
+        _check_crop(f"36 {kind} cuda-vs-cpu crop", c, host, host.description, LATE_SPP[0])
+        out[f"camera_{kind}"] = {"wall_s": timing["wall_s"], "vps": timing["n_vertices"] / timing["wall_s"],
+                                 "b1_launches": b1, "has_alpha": c.static.has_alpha}
+    fcfg = {"filter": "box", "filter_params": {}, "max_sample_luminance": float("inf")}
+    refusals = {}
+    q_bvh, q_kd = scenes_34["bvh"][1], scenes_34["kdtree"][1]
+    for name, host in (("orthographic", compile_scene(scenes.camera_room("orthographic", 4), "cpu")),
+                       ("environment", compile_scene(scenes.camera_room("environment", 4), "cpu")),
+                       ("quadric_room", q_bvh), ("quadric_room kd", q_kd)):
+        d = host.description
+        cam = make_camera(d.camera, d.film, "cpu")
+        icfg = {"kind": "path", "max_depth": d.integrator.max_depth, "rr_threshold": d.integrator.rr_threshold,
+                "light_strategy": d.integrator.light_strategy, "strategy": d.integrator.strategy}
+        scfg = {"kind": d.sampler.kind, "spp": d.sampler.pixel_samples}
+        refusals[name] = {"b3": megakernel.explain_ineligible(host, cam, icfg, scfg, fcfg),
+                          "b4": megakernel_wide.explain_ineligible_wide(host, cam, icfg, scfg, fcfg, 400_000)}
+    print(f"[36 refusals] {json.dumps(refusals)}", flush=True)
+    if refusals["orthographic"] != {"b3": "'orthographic' cameras", "b4": "'orthographic' cameras"} or \
+            refusals["environment"]["b4"] != "'environment' cameras" or \
+            refusals["quadric_room"]["b4"] != "goniometric lights":
+        raise AssertionError("the megakernels did not refuse the new kinds by name")
+    out["refusals"] = refusals
+
+    seconds["36"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # --- 37. quadric_room as a file, through the front end ---
+    desc = scenes.quadric_room(8, accelerator="kdtree", prop_res=8)
+    desc.camera = scenes.camera_room("orthographic").camera
+    host = compile_scene(desc, "cpu")
+    path = work / "quadric_room.pbrt"
+    scenes.write_pbrt(desc, str(path), scenes.ROOM_LOOK_AT)
+    text = path.read_text()
+    directives = [w for w in ('Shape "cylinder"', 'Shape "disk"', 'Shape "cone"', 'Shape "paraboloid"',
+                              'Shape "hyperboloid"', "ObjectBegin", "ObjectInstance", '"texture alpha"',
+                              'LightSource "goniometric"', 'LightSource "projection"', 'Accelerator "kdtree"',
+                              'Camera "orthographic"') if w in text]
+    sub = subprocess.Popen([sys.executable, "-m", "pbrt_tpu_torch", str(path), "--outfile", str(work / "cli.exr"),
+                            "--quiet", "--spp", "1", "--cropwindow", "0.468", "0.532", "0.468", "0.532"],
+                           cwd=str(Path(__file__).resolve().parent), stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+    _reset_launches()
+    cli.main([str(path), "--outfile", str(work / "quadric_room.exr"), "--quiet", "--seed", str(SEED), "--spp",
+              str(CROP_SPP), "--cropwindow", "0.468", "0.532", "0.468", "0.532"])
+    walks = bvh_walk.bvh_walk_cuda.launches + bvh_walk.kd_walk_cuda.launches
+    run = cli.main.last_run
+    parsed = run["scene"].description
+    bad = _tables_equal(run["scene"].arrays, host.arrays)
+    g = host.to(dev)
+    hand = R_.render_compiled(_with_desc(g, dataclasses.replace(
+        desc, film=dataclasses.replace(desc.film, crop_window=parsed.film.crop_window))), seed=SEED, spp=CROP_SPP)
+    f_img = run["image"]
+    equal = f_img.shape == hand.shape and bool(np.array_equal(f_img, hand))
+    log, _ = sub.communicate(timeout=600)
+    print(f"[37 quadric_room file] {path.name} ({len(text)} bytes; writes {directives}): route "
+          f"{run['timing']['tier']}, walk launches {walks}; tables differing from the hand-built scene's: "
+          f"{bad or 'none'}; crop {f_img.shape} at {CROP_SPP} spp bit-equal to the hand-built scene's: {equal}; "
+          f"python -m pbrt_tpu_torch exit {sub.returncode}, wrote {(work / 'cli.exr').exists()}", flush=True)
+    if len(directives) != 12:
+        raise AssertionError("the quadric_room file lacks a directive of the class")
+    if bad or run["scene"].static != host.static:
+        raise AssertionError(f"the quadric_room file compiles to other tables: {bad}")
+    if not equal or walks <= 0 or not f_img.any() or run["timing"]["tier"] != "torch-wavefront/cuda-bvh":
+        raise AssertionError("the quadric_room file renders another image than the hand-built scene")
+    if sub.returncode != 0 or not (work / "cli.exr").exists():
+        raise AssertionError(f"python -m pbrt_tpu_torch failed on the quadric_room file:\n{log[-2000:]}")
+    out["quadric_room_file"] = {"bytes": len(text), "compile_s": run["compile_s"], "bit_equal": equal}
+    seconds["37"] = time.perf_counter() - t_phase
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1583,14 +1906,14 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from pbrt_tpu_torch import render as R_
-    from pbrt_tpu_torch.device import megakernel, megakernel_wide, nvcc, wide_bvh
+    from pbrt_tpu_torch.device import bvh_walk, megakernel, megakernel_wide, nvcc, wide_bvh
     from pbrt_tpu_torch.device.camera import make_camera
     from pbrt_tpu_torch.scene.builder import compile_scene
     from pbrt_tpu_torch.scenes import material_room, mesh_room, spheres_gallery
 
     # --- 2. build: every kernel, one nvcc each, all started together ---
     nvcc.build_all([wide_bvh.KERNEL_SOURCE, wide_bvh.JOINT_SOURCE, megakernel.KERNEL_SOURCE,
-                    megakernel_wide.KERNEL_SOURCE])
+                    megakernel_wide.KERNEL_SOURCE, bvh_walk.KERNEL_SOURCE])
     # resident blocks per SM of each kernel (cudaOccupancyMaxActiveBlocksPerMultiprocessor), per variant
     occupancy = (("wide_traverse_occupancy", [()]), ("wide_traverse_joint_occupancy", [()]),
                  ("brute_megakernel_occupancy", [(m,) for m in range(2 * megakernel.N_PLAIN_MODES)]),
@@ -1916,8 +2239,17 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     print(f"[31-33 materials] in {time.perf_counter() - t_group:.1f}s: "
           f"{json.dumps({k: v for k, v in mt.items() if not k.endswith('instantiations')})}", flush=True)
+    # --- 34-37. quadrics, instancing, the kd-tree, alpha, gonio and projection
+    # lights, the orthographic and environment cameras; the walk kernel ---
+    t_group = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        wk = _unswitched(_walk_phases, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[34-37 walks] in {time.perf_counter() - t_group:.1f}s: {json.dumps(wk)}", flush=True)
 
-    print(f"[timing] phases 1-33 in {time.perf_counter() - t_script:.1f}s", flush=True)
+    print(f"[timing] phases 1-37 in {time.perf_counter() - t_script:.1f}s", flush=True)
     report = {"kernels": [
         {"name": "wide_traverse", "route": "cuda", "source": "pbrt_tpu_torch/csrc/wide_traverse.cu",
          "replaces": "pbrt_tpu/device/pallas_bvh.py:90", "launches": b1_launches, "max_abs_err": max_err,
@@ -1936,6 +2268,14 @@ def main() -> int:
          "library_ms": None,
          "instantiations": {**sk["instantiations"], **tx["b4_instantiations"], **sph["b4_instantiations"],
                             **mt["b4_instantiations"]}},
+        {"name": "bvh_walk", "route": "cuda", "source": "pbrt_tpu_torch/csrc/bvh_walk.cu",
+         "replaces": "none (pbrt_tpu/device/intersect.py:487 _traverse and :893 _traverse_kd are XLA loops)",
+         "launches": wk["quadric_room_bvh"]["walk_launches"] + wk["quadric_room_kdtree"]["walk_launches"],
+         "max_abs_err": max(wk["walk_bvh"]["max_abs_err"], wk["walk_kdtree"]["max_abs_err"]),
+         "ms": wk["walk_bvh"]["ms"], "plain_ms": wk["walk_bvh"]["plain_ms"], "bound_ms": wk["walk_bvh"]["bound_ms"],
+         "bound_by": wk["walk_bvh"]["bound_by"], "library_ms": None,
+         "launches_by_route": {"bvh": wk["quadric_room_bvh"]["walk_launches"],
+                               "kdtree": wk["quadric_room_kdtree"]["walk_launches"]}},
     ]}
     print(json.dumps(report))
     print(_smi())

@@ -1,0 +1,417 @@
+// Closest-hit / any-hit walks of the binary BVH (bvh_walk) and of the
+// kd-tree (kd_walk): one thread per ray, a private stack in local memory.
+//
+// Replaces no Pallas kernel. The reference walks these scenes in XLA
+// (pbrt_tpu/device/intersect.py _traverse :487-694 and _traverse_kd
+// :893-1048): a lax.while_loop that pops one node per 256-ray packet over
+// one shared stack, because a TPU core cannot give each lane its own stack.
+// In eager PyTorch that loop would cost hundreds of launches and a host sync
+// per query; on a GPU a thread can keep its own stack, so each ray walks
+// alone and visits only the nodes its own tests accept, near child first.
+//
+// bvh_walk: the reference's bvh_packed rows (N, 12: lo, hi, offset, n prims,
+// axis) and prim_test_data rows (P, 20 | 26). A node whose box the ray hits
+// (tn <= tf * 1.0000004, tf > 0, tn < t_best) is a leaf (n > 0: its prims
+// off .. off + n - 1) or pushes its children, the one on the ray's side of
+// its split axis last (popped first: pbrt's BVHAccel::Intersect). A leaf
+// prim of a nonzero instance sees the ray through inst_w2i (t is kept). A
+// leaf's tests all run against the t_best it started with; its winner is
+// the first prim of the nearest t, and it replaces the ray's hit only when
+// strictly nearer. Triangles take the watertight test (intersect.
+// ray_triangle), quadrics quadric.cuh.
+// kd_walk: pbrt's KdTreeAccel::Intersect over the kd_* tables, a todo stack
+// of 96 (node, t_min, t_max) entries, the root interval from the tree's
+// bounds; a ray stops once its best hit lies before its next interval.
+// Both write (t, prim, b1, b2, pops): t_max and -1 on a miss; b1, b2 the
+// barycentrics of a triangle hit, a quadric hit's object-space x and y.
+// They are the twins of device/bvh_walk.py walk_plain and kd_walk_plain,
+// operation for operation (built with -fmad=false and without fast math).
+//
+// Bound: dependent loads and, on quadric leaves, the EFloat arithmetic. A pop
+// reads one 48-byte node row and the next pop depends on it; a leaf reads
+// up to max_leaf prim rows, of which a test reads 36 bytes (a triangle) or
+// 76-100 (a quadric). quadric_room(248)'s tables (251,168 prims: 49,146,848
+// bytes of nodes, prim rows, kinds, instance ids and transforms) about fill
+// the 50 MB L2; its 500,000 camera rays read 7,405,832 bytes of them
+// (chip_smoke.py phase 34). This first version keeps it simple:
+// one ray per thread, a fixed grid, no ray queue and no node layout of its
+// own (B1's tricks are later work); PERF.md has its time beside its bound.
+// bvh_walk_counted is the instrumented build: it also writes each ray's prim
+// tests (triangle, quadric, and those through an instance transform) and
+// marks the table rows the walk read (a node's box: bit 1, its offset and
+// count: bit 2, its axis: bit 4; a prim row tested; an instance used), so
+// that the bound counts the operations done and the bytes read.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "quadric.cuh"
+
+#define THREADS 128
+#define BW_STACK 64
+#define KD_STACK 96
+#define BW_ITER_CAP 1000000
+#define BW_EPS 1e-4f
+#define BW_SLAB 1.0000004f
+
+// v[i] for a runtime i in 0..2 without indexing a local array (which would
+// put the array in local memory)
+__device__ __forceinline__ float bw_pick(const float v[3], int i) { return i == 0 ? v[0] : (i == 1 ? v[1] : v[2]); }
+
+struct BwRay {
+    float o[3], d[3];
+    int kz;
+    float sx, sy, sz;
+};
+
+__device__ __forceinline__ void bw_setup(BwRay& r, const float o[3], const float d[3]) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        r.o[i] = o[i];
+        r.d[i] = d[i];
+    }
+    // kz = argmax |d| (first index on ties), kx = kz + 1, ky = kz + 2 (mod 3)
+    const float ax = fabsf(d[0]), ay = fabsf(d[1]), az = fabsf(d[2]);
+    int kz = 0;
+    if (ay > ax) kz = 1;
+    if (az > (kz == 0 ? ax : ay)) kz = 2;
+    r.kz = kz;
+    const float dkx = bw_pick(d, kz == 2 ? 0 : kz + 1), dky = bw_pick(d, kz == 0 ? 2 : kz - 1), dkz = bw_pick(d, kz);
+    const float inv_dz = 1.0f / dkz;
+    r.sx = -dkx * inv_dz;
+    r.sy = -dky * inv_dz;
+    r.sz = inv_dz;
+}
+
+// The watertight test of one triangle (9 floats): intersect.ray_triangle.
+__device__ __forceinline__ bool bw_tri(const BwRay& r, const float* v, float t_max, float& t, float& b1, float& b2) {
+    float xs[3], ys[3], zs[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        const float vx = v[3 * i] - r.o[0], vy = v[3 * i + 1] - r.o[1], vz = v[3 * i + 2] - r.o[2];
+        const float px = r.kz == 0 ? vy : (r.kz == 1 ? vz : vx);
+        const float py = r.kz == 0 ? vz : (r.kz == 1 ? vx : vy);
+        const float pz = r.kz == 0 ? vx : (r.kz == 1 ? vy : vz);
+        xs[i] = px + r.sx * pz;
+        ys[i] = py + r.sy * pz;
+        zs[i] = r.sz * pz;
+    }
+    const float e0 = xs[1] * ys[2] - ys[1] * xs[2];
+    const float e1 = xs[2] * ys[0] - ys[2] * xs[0];
+    const float e2 = xs[0] * ys[1] - ys[0] * xs[1];
+    const bool same = (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f) || (e0 <= 0.0f && e1 <= 0.0f && e2 <= 0.0f);
+    const float det = e0 + e1 + e2;
+    if (!same || det == 0.0f) return false;
+    const float inv = 1.0f / det;
+    t = (e0 * zs[0] + e1 * zs[1] + e2 * zs[2]) * inv;
+    b1 = e1 * inv;
+    b2 = e2 * inv;
+    return t > BW_EPS && t < t_max;
+}
+
+// One prim of a leaf against the ray, at the leaf's t_best: the instanced
+// ray for a nonzero instance, then the triangle or quadric test.
+__device__ __forceinline__ bool bw_prim(const BwRay& r, int pid, const float* __restrict__ ptd, int cols,
+                                        const int* __restrict__ prim_kind, const int* __restrict__ prim_inst,
+                                        const float* __restrict__ inst_w2i, float t_max, float& t, float& b1,
+                                        float& b2) {
+    const float* row = ptd + (size_t)pid * cols;
+    const int iid = prim_inst ? __ldg(prim_inst + pid) : 0;
+    BwRay ri;
+    const BwRay* rr = &r;
+    if (iid != 0) {
+        const float* m = inst_w2i + (size_t)iid * 12;
+        float o[3], d[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+            o[i] = __ldg(m + 4 * i) * r.o[0] + __ldg(m + 4 * i + 1) * r.o[1] + __ldg(m + 4 * i + 2) * r.o[2] +
+                   __ldg(m + 4 * i + 3);
+            d[i] = __ldg(m + 4 * i) * r.d[0] + __ldg(m + 4 * i + 1) * r.d[1] + __ldg(m + 4 * i + 2) * r.d[2];
+        }
+        bw_setup(ri, o, d);
+        rr = &ri;
+    }
+    if (__ldg(prim_kind + pid) == 0) {
+        float v[9];
+#pragma unroll
+        for (int i = 0; i < 9; ++i) v[i] = __ldg(row + i);
+        return bw_tri(*rr, v, t_max, t, b1, b2);
+    }
+    float w2o[12], par[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) w2o[i] = __ldg(row + i);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) par[i] = __ldg(row + 12 + i);
+    const bool twisted = cols >= 25;
+    if (twisted) {
+#pragma unroll
+        for (int i = 0; i < 6; ++i) par[6 + i] = __ldg(row + 19 + i);
+    }
+    return qf_ray_quadric(rr->o, rr->d, w2o, par, (int)__ldg(row + 18), twisted, t_max, t, b1, b2);
+}
+
+// 1/d with |d| clamped at 1e-30 (bvh_walk._inv_dir)
+__device__ __forceinline__ float bw_inv(float x) {
+    return 1.0f / (fabsf(x) < 1e-30f ? (x < 0.0f ? -1e-30f : 1e-30f) : x);
+}
+
+template <bool COUNT>
+__global__ void __launch_bounds__(THREADS)
+bvh_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, const float* __restrict__ t_max_in,
+                int n_rays, const float* __restrict__ nodes, const float* __restrict__ ptd, int cols,
+                const int* __restrict__ prim_kind, const int* __restrict__ prim_inst,
+                const float* __restrict__ inst_w2i, int max_leaf, int any_hit, float* __restrict__ out_t,
+                int* __restrict__ out_prim, float* __restrict__ out_b1, float* __restrict__ out_b2,
+                int* __restrict__ out_pops, unsigned int* __restrict__ counters, int* __restrict__ out_tests,
+                int* __restrict__ seen_nodes, int* __restrict__ seen_prims, int* __restrict__ seen_inst) {
+    const int ray = blockIdx.x * blockDim.x + threadIdx.x;
+    if (ray >= n_rays) return;
+    (void)max_leaf;
+    const float o[3] = {o_in[3 * ray], o_in[3 * ray + 1], o_in[3 * ray + 2]};
+    const float d[3] = {d_in[3 * ray], d_in[3 * ray + 1], d_in[3 * ray + 2]};
+    const float inv[3] = {bw_inv(d[0]), bw_inv(d[1]), bw_inv(d[2])};
+    BwRay r;
+    bw_setup(r, o, d);
+    const float t_max = t_max_in[ray];
+    float t_best = t_max, b1 = 0.0f, b2 = 0.0f;
+    int prim = -1, pops = 0, n_tri = 0, n_quad = 0, n_inst = 0;
+    int stack[BW_STACK];
+    int sp = 0;
+    if (t_max > 0.0f) stack[sp++] = 0;
+    while (sp > 0) {
+        if (pops >= BW_ITER_CAP) {
+            atomicAdd(&counters[1], 1u);
+            break;
+        }
+        const int node = stack[--sp];
+        ++pops;
+        const float* row = nodes + (size_t)node * 12;
+        float tn = -INFINITY, tf = INFINITY;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            const float t0 = (__ldg(row + a) - o[a]) * inv[a];
+            const float t1 = (__ldg(row + 3 + a) - o[a]) * inv[a];
+            tn = qf_max(tn, qf_min(t0, t1));
+            tf = qf_min(tf, qf_max(t0, t1));
+        }
+        tf = tf * BW_SLAB;
+        const bool enter = tn <= tf && tf > 0.0f && tn < t_best;
+        if (COUNT) atomicOr(seen_nodes + node, enter ? 3 : 1);
+        if (!enter) continue;
+        const int off = (int)__ldg(row + 6), n = (int)__ldg(row + 7);
+        if (n > 0) {
+            float tmin = INFINITY, w1 = 0.0f, w2 = 0.0f;
+            int win = -1;
+            for (int k = 0; k < n; ++k) {
+                float t, c1, c2;
+                if (COUNT) {
+                    const int pid = off + k, iid = __ldg(prim_inst + pid);
+                    if (__ldg(prim_kind + pid) == 0) ++n_tri; else ++n_quad;
+                    seen_prims[pid] = 1;
+                    if (iid != 0) {
+                        ++n_inst;
+                        seen_inst[iid] = 1;
+                    }
+                }
+                if (bw_prim(r, off + k, ptd, cols, prim_kind, prim_inst, inst_w2i, t_best, t, c1, c2) && t < tmin) {
+                    tmin = t;
+                    w1 = c1;
+                    w2 = c2;
+                    win = off + k;
+                }
+            }
+            if (tmin < t_best) {
+                t_best = tmin;
+                prim = win;
+                b1 = w1;
+                b2 = w2;
+                if (any_hit) break;
+            }
+            continue;
+        }
+        const int axis = (int)__ldg(row + 8);
+        if (COUNT) atomicOr(seen_nodes + node, 4);
+        const bool neg = bw_pick(d, axis) < 0.0f;
+        const int left = node + 1, right = off;
+        if (sp + 2 > BW_STACK) {
+            atomicAdd(&counters[0], 1u);
+            continue;
+        }
+        stack[sp++] = neg ? left : right;  // far
+        stack[sp++] = neg ? right : left;  // near, popped first
+    }
+    out_t[ray] = t_best;
+    out_prim[ray] = prim;
+    out_b1[ray] = b1;
+    out_b2[ray] = b2;
+    out_pops[ray] = pops;
+    if (COUNT) {
+        out_tests[3 * ray] = n_tri;
+        out_tests[3 * ray + 1] = n_quad;
+        out_tests[3 * ray + 2] = n_inst;
+    }
+}
+
+__global__ void __launch_bounds__(THREADS)
+kd_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, const float* __restrict__ t_max_in,
+               int n_rays, const int* __restrict__ kd_flags, const float* __restrict__ kd_split,
+               const int* __restrict__ kd_above, const int* __restrict__ kd_nprims,
+               const int* __restrict__ kd_prim_ids, const float* __restrict__ kd_lo, const float* __restrict__ kd_hi,
+               const float* __restrict__ ptd, int cols, const int* __restrict__ prim_kind, int any_hit,
+               float* __restrict__ out_t, int* __restrict__ out_prim, float* __restrict__ out_b1,
+               float* __restrict__ out_b2, int* __restrict__ out_pops, unsigned int* __restrict__ counters) {
+    const int ray = blockIdx.x * blockDim.x + threadIdx.x;
+    if (ray >= n_rays) return;
+    const float o[3] = {o_in[3 * ray], o_in[3 * ray + 1], o_in[3 * ray + 2]};
+    const float d[3] = {d_in[3 * ray], d_in[3 * ray + 1], d_in[3 * ray + 2]};
+    const float inv[3] = {bw_inv(d[0]), bw_inv(d[1]), bw_inv(d[2])};
+    BwRay r;
+    bw_setup(r, o, d);
+    const float t_max = t_max_in[ray];
+    float t_best = t_max, b1 = 0.0f, b2 = 0.0f;
+    int prim = -1, pops = 0;
+    // the root interval: the tree's bounds
+    float tn = -INFINITY, tf = INFINITY;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        const float t0 = (__ldg(kd_lo + a) - o[a]) * inv[a];
+        const float t1 = (__ldg(kd_hi + a) - o[a]) * inv[a];
+        tn = qf_max(tn, qf_min(t0, t1));
+        tf = qf_min(tf, qf_max(t0, t1));
+    }
+    tf = tf * BW_SLAB;
+    bool live = tn <= tf && tf > 0.0f && t_max > 0.0f;
+    int node = 0;
+    float tmin = qf_max(tn, 0.0f), tmax = qf_min(tf, t_max);
+    int st_n[KD_STACK];
+    float st_lo[KD_STACK], st_hi[KD_STACK];
+    int sp = 0;
+    while (live) {
+        if (t_best < tmin) break;  // pbrt: if (ray.tMax < tMin) break
+        if (pops >= BW_ITER_CAP) {
+            atomicAdd(&counters[1], 1u);
+            break;
+        }
+        ++pops;
+        const int fl = __ldg(kd_flags + node);
+        if (fl != 3) {
+            const float s = __ldg(kd_split + node);
+            const float o_a = bw_pick(o, fl), d_a = bw_pick(d, fl);
+            const float tp = (s - o_a) * bw_pick(inv, fl);
+            const bool below_first = o_a < s || (o_a == s && d_a <= 0.0f);
+            const int above = __ldg(kd_above + node);
+            const int first = below_first ? node + 1 : above;
+            const int second = below_first ? above : node + 1;
+            if (tp > tmax || tp <= 0.0f) {
+                node = first;
+            } else if (tp < tmin) {
+                node = second;
+            } else {
+                if (sp < KD_STACK) {
+                    st_n[sp] = second;
+                    st_lo[sp] = tp;
+                    st_hi[sp] = tmax;
+                    ++sp;
+                } else {
+                    atomicAdd(&counters[0], 1u);
+                }
+                node = first;
+                tmax = tp;
+            }
+            continue;
+        }
+        // a leaf: its listed prims at the t_best it starts with
+        const int off = __ldg(kd_above + node), n = __ldg(kd_nprims + node);
+        float tl = INFINITY, w1 = 0.0f, w2 = 0.0f;
+        int win = -1;
+        for (int k = 0; k < n; ++k) {
+            const int pid = __ldg(kd_prim_ids + off + k);
+            float t, c1, c2;
+            if (bw_prim(r, pid, ptd, cols, prim_kind, nullptr, nullptr, t_best, t, c1, c2) && t < tl) {
+                tl = t;
+                w1 = c1;
+                w2 = c2;
+                win = pid;
+            }
+        }
+        const bool better = tl < t_best;
+        if (better) {
+            t_best = tl;
+            prim = win;
+            b1 = w1;
+            b2 = w2;
+        }
+        if (sp == 0 || (better && any_hit)) break;
+        --sp;
+        node = st_n[sp];
+        tmin = st_lo[sp];
+        tmax = st_hi[sp];
+    }
+    out_t[ray] = t_best;
+    out_prim[ray] = prim;
+    out_b1[ray] = b1;
+    out_b2[ray] = b2;
+    out_pops[ray] = pops;
+}
+
+template <bool COUNT>
+static int launch_bvh(const void* o, const void* d, const void* t_max, int n_rays, const void* nodes, const void* ptd,
+                      int cols, const void* prim_kind, const void* prim_inst, const void* inst_w2i, int max_leaf,
+                      int any_hit, void* out_t, void* out_prim, void* out_b1, void* out_b2, void* out_pops,
+                      void* counters, void* stream, void* out_tests, void* seen_nodes, void* seen_prims,
+                      void* seen_inst) {
+    if (n_rays > 0) {
+        const int blocks = (n_rays + THREADS - 1) / THREADS;
+        bvh_walk_kernel<COUNT><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+            (const float*)o, (const float*)d, (const float*)t_max, n_rays, (const float*)nodes, (const float*)ptd, cols,
+            (const int*)prim_kind, (const int*)prim_inst, (const float*)inst_w2i, max_leaf, any_hit, (float*)out_t,
+            (int*)out_prim, (float*)out_b1, (float*)out_b2, (int*)out_pops, (unsigned int*)counters, (int*)out_tests,
+            (int*)seen_nodes, (int*)seen_prims, (int*)seen_inst);
+    }
+    return (int)cudaGetLastError();
+}
+
+extern "C" int bvh_walk(const void* o, const void* d, const void* t_max, int n_rays, const void* nodes,
+                        const void* ptd, int cols, const void* prim_kind, const void* prim_inst, const void* inst_w2i,
+                        int max_leaf, int any_hit, void* out_t, void* out_prim, void* out_b1, void* out_b2,
+                        void* out_pops, void* counters, void* stream) {
+    return launch_bvh<false>(o, d, t_max, n_rays, nodes, ptd, cols, prim_kind, prim_inst, inst_w2i, max_leaf, any_hit,
+                             out_t, out_prim, out_b1, out_b2, out_pops, counters, stream, nullptr, nullptr, nullptr,
+                             nullptr);
+}
+
+extern "C" int bvh_walk_counted(const void* o, const void* d, const void* t_max, int n_rays, const void* nodes,
+                                const void* ptd, int cols, const void* prim_kind, const void* prim_inst,
+                                const void* inst_w2i, int max_leaf, int any_hit, void* out_t, void* out_prim,
+                                void* out_b1, void* out_b2, void* out_pops, void* counters, void* stream,
+                                void* out_tests, void* seen_nodes, void* seen_prims, void* seen_inst) {
+    return launch_bvh<true>(o, d, t_max, n_rays, nodes, ptd, cols, prim_kind, prim_inst, inst_w2i, max_leaf, any_hit,
+                            out_t, out_prim, out_b1, out_b2, out_pops, counters, stream, out_tests, seen_nodes,
+                            seen_prims, seen_inst);
+}
+
+extern "C" int kd_walk(const void* o, const void* d, const void* t_max, int n_rays, const void* kd_flags,
+                       const void* kd_split, const void* kd_above, const void* kd_nprims, const void* kd_prim_ids,
+                       const void* kd_lo, const void* kd_hi, const void* ptd, int cols, const void* prim_kind,
+                       int any_hit, void* out_t, void* out_prim, void* out_b1, void* out_b2, void* out_pops,
+                       void* counters, void* stream) {
+    if (n_rays > 0) {
+        const int blocks = (n_rays + THREADS - 1) / THREADS;
+        kd_walk_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+            (const float*)o, (const float*)d, (const float*)t_max, n_rays, (const int*)kd_flags,
+            (const float*)kd_split, (const int*)kd_above, (const int*)kd_nprims, (const int*)kd_prim_ids,
+            (const float*)kd_lo, (const float*)kd_hi, (const float*)ptd, cols, (const int*)prim_kind, any_hit,
+            (float*)out_t, (int*)out_prim, (float*)out_b1, (float*)out_b2, (int*)out_pops, (unsigned int*)counters);
+    }
+    return (int)cudaGetLastError();
+}
+
+// Resident blocks of THREADS threads per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int bvh_walk_occupancy(int* blocks_per_sm) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, bvh_walk_kernel<false>, THREADS, 0);
+}
+
+extern "C" int kd_walk_occupancy(int* blocks_per_sm) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kd_walk_kernel, THREADS, 0);
+}

@@ -1,0 +1,434 @@
+"""Per-ray walks of the binary BVH and of the kd-tree: the hand-written CUDA
+kernel and its plain PyTorch twins.
+
+The reference walks these scenes in XLA, not Pallas: ``pbrt_tpu/device/
+intersect.py _traverse`` (:487-694) pops one node per packet of 256 rays
+over one shared stack, and ``_traverse_kd`` (:893-1048) does the same over
+the kd-tree with conservative per-packet intervals. They serve every scene
+the wide tables do not: instanced scenes, scenes with quadrics beside more
+than 64 triangles (other than the mixed route's spheres), and scenes with
+``Accelerator "kdtree"``. In eager PyTorch a packet loop would cost
+hundreds of launches and a host sync per query, so the port walks each ray
+on its own instead, as B1 does:
+
+- ``bvh_walk_cuda`` (``csrc/bvh_walk.cu``, entry ``bvh_walk``): one thread
+  per ray with a private 64-entry stack over ``bvh_packed`` (near child
+  first by the sign of the ray's direction on the node's axis, as pbrt's
+  BVHAccel::Intersect), each leaf's prims through B1's watertight triangle
+  test or the EFloat quadric test of ``csrc/quadric.cuh``, an instanced
+  prim's ray brought into instance space first (t is kept);
+- ``kd_walk_cuda`` (entry ``kd_walk``): pbrt's KdTreeAccel::Intersect, a
+  todo stack of 96 (node, t_min, t_max) entries over the ``kd_*`` tables.
+
+Both answer closest-hit and any-hit queries and write (t, prim, b1, b2,
+pops): b1, b2 are the barycentrics of a triangle hit, the object-space x
+and y of a quadric hit, as the brute route writes them. A leaf's hits tie
+to its first prim; across leaves only a strict improvement counts.
+``walk_plain`` and ``kd_walk_plain`` are the same walks in plain PyTorch,
+lockstep over every ray with a (R, 64) or (R, 96) stack tensor; the
+kernels are held to them (chip_smoke.py phase 34), and they to the
+reference's queries (tests/test_torch_bvh_walk.py). The reference's kd
+packet walk drops the near child when every ray of a packet moves away
+from the split plane (ROADMAP C); the per-ray walk here is pbrt's.
+
+``walk_intersect`` launches a kernel for CUDA tensors and runs a twin only
+for CPU tensors; a build or launch failure raises. The kernel is compiled
+with nvcc at its first launch (device/nvcc.py) and loaded with ctypes.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import nvcc
+from .affine import xf_point, xf_vector
+from .prims import ray_quadric, ray_triangle
+from .wide_bvh import SORT_MIN_RAYS, coherence_keys
+
+STACK = 64  # node entries per ray (intersect.STACK_DEPTH)
+KD_STACK = 96  # (node, t_min, t_max) entries per ray (intersect.KD_STACK)
+GEOM_TRI = 0  # scene.arrays.GEOM_TRI
+KERNEL_SOURCE = nvcc.CSRC / "bvh_walk.cu"
+
+# o, d, t_max, n_rays, nodes, ptd, ptd_cols, prim_kind, prim_inst, inst_w2i,
+# max_leaf, any_hit, t, prim, b1, b2, pops, counters, stream
+_BVH_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7)
+# o, d, t_max, n_rays, kd_flags, kd_split, kd_above, kd_nprims, kd_prim_ids,
+# kd_lo, kd_hi, ptd, ptd_cols, prim_kind, any_hit, t, prim, b1, b2, pops,
+# counters, stream
+_KD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int]
+                + [ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 7)
+
+
+def build_kernel() -> dict:
+    """Compile (if needed) and load the walk kernels' library: {"lib",
+    "seconds", "log", "path"} as device/nvcc.build returns it. Its C
+    entries: bvh_walk, kd_walk, bvh_walk_occupancy and, in the same
+    library, bvh_walk_counted (the instrumented build of the BVH walk: it
+    also writes each ray's prim tests by kind and marks the table rows it
+    read)."""
+    info = nvcc.build(KERNEL_SOURCE)
+    lib = info["lib"]
+    lib.bvh_walk.argtypes = _BVH_ARGTYPES
+    lib.bvh_walk.restype = ctypes.c_int
+    lib.bvh_walk_counted.argtypes = _BVH_ARGTYPES + [ctypes.c_void_p] * 4
+    lib.bvh_walk_counted.restype = ctypes.c_int
+    lib.kd_walk.argtypes = _KD_ARGTYPES
+    lib.kd_walk.restype = ctypes.c_int
+    return info
+
+
+def _check(name, x, dtype, shape, dev):
+    if x is None or x.device != dev or x.dtype != dtype or not x.is_contiguous() or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must be a contiguous {dtype} {tuple(shape)} tensor on {dev}")
+
+
+def _outputs(wrapper, o, d, t_max):
+    dev = o.device
+    if dev.type != "cuda":
+        raise ValueError(f"{wrapper.__name__} takes CUDA tensors")
+    R = o.shape[0]
+    for name, x, shape in (("o", o, (R, 3)), ("d", d, (R, 3)), ("t_max", t_max, (R,))):
+        _check(name, x, torch.float32, shape, dev)
+    counters = wrapper.counters.get(dev)
+    if counters is None:
+        counters = wrapper.counters[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
+    out = (torch.empty(R, dtype=torch.float32, device=dev), torch.empty(R, dtype=torch.int32, device=dev),
+           torch.empty(R, dtype=torch.float32, device=dev), torch.empty(R, dtype=torch.float32, device=dev),
+           torch.empty(R, dtype=torch.int32, device=dev))
+    return R, counters, out, torch.cuda.current_stream(dev).cuda_stream
+
+
+def bvh_walk_cuda(sa, static, o, d, t_max, any_hit: bool, prim_tests=None, rows_read=None):
+    """Launch the BVH walk (entry bvh_walk). Returns (t, prim, b1, b2,
+    pops): prim the closest (or any) hit's prim row, -1 on a miss, t the
+    hit's t (t_max on a miss). Adds one to ``bvh_walk_cuda.launches``;
+    stack overflows and iteration-cap hits accumulate in
+    ``bvh_walk_cuda.counters``. prim_tests: an int32 (R, 3) tensor
+    launches the instrumented entry, which writes each ray's triangle
+    tests, quadric tests and tests through an instance transform there;
+    it then also takes rows_read, three zeroed int32 tensors of the node,
+    prim and instance counts, in which it marks what the walk read: a
+    node's bits 1 (its box), 2 (its offset and count) and 4 (its split
+    axis), a prim row tested, an instance whose transform was applied."""
+    R, counters, (t, prim, b1, b2, pops), stream = _outputs(bvh_walk_cuda, o, d, t_max)
+    dev = o.device
+    P, cols = sa.prim_test_data.shape
+    _check("bvh_packed", sa.bvh_packed, torch.float32, (sa.bvh_packed.shape[0], 12), dev)
+    _check("prim_test_data", sa.prim_test_data, torch.float32, (P, cols), dev)
+    _check("prim_kind", sa.prim_kind, torch.int32, (P,), dev)
+    _check("prim_inst", sa.prim_inst, torch.int32, (P,), dev)
+    _check("inst_w2i", sa.inst_w2i, torch.float32, (sa.inst_w2i.shape[0], 3, 4), dev)
+    lib = build_kernel()["lib"]
+    args = [o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R, sa.bvh_packed.data_ptr(), sa.prim_test_data.data_ptr(),
+            cols, sa.prim_kind.data_ptr(), sa.prim_inst.data_ptr(), sa.inst_w2i.data_ptr(), int(static.max_leaf),
+            int(bool(any_hit)), t.data_ptr(), prim.data_ptr(), b1.data_ptr(), b2.data_ptr(), pops.data_ptr(),
+            counters.data_ptr(), stream]
+    if prim_tests is None:
+        err = lib.bvh_walk(*args)
+    else:
+        _check("prim_tests", prim_tests, torch.int32, (R, 3), dev)
+        seen = tuple(rows_read)
+        for name, x, n in zip(("node", "prim", "instance"), seen, (sa.bvh_packed.shape[0], P, sa.inst_w2i.shape[0])):
+            _check(f"rows_read ({name})", x, torch.int32, (n,), dev)
+        err = lib.bvh_walk_counted(*args, prim_tests.data_ptr(), *(x.data_ptr() for x in seen))
+    if err != 0:
+        raise RuntimeError(f"bvh_walk launch failed: cudaError {err}")
+    bvh_walk_cuda.launches += 1
+    return t, prim, b1, b2, pops
+
+
+bvh_walk_cuda.launches = 0
+bvh_walk_cuda.counters = {}  # device -> int32 (2,): stack overflows, iteration-cap hits
+
+
+def kd_walk_cuda(sa, static, o, d, t_max, any_hit: bool):
+    """Launch the kd-tree walk (entry kd_walk); bvh_walk_cuda's contract,
+    counted in ``kd_walk_cuda.launches`` and ``.counters``."""
+    R, counters, (t, prim, b1, b2, pops), stream = _outputs(kd_walk_cuda, o, d, t_max)
+    dev = o.device
+    N = sa.kd_flags.shape[0]
+    P, cols = sa.prim_test_data.shape
+    for name, dtype, shape in (("kd_flags", torch.int32, (N,)), ("kd_split", torch.float32, (N,)),
+                               ("kd_above", torch.int32, (N,)), ("kd_nprims", torch.int32, (N,)),
+                               ("kd_prim_ids", torch.int32, (sa.kd_prim_ids.shape[0],)),
+                               ("kd_lo", torch.float32, (3,)), ("kd_hi", torch.float32, (3,)),
+                               ("prim_test_data", torch.float32, (P, cols)), ("prim_kind", torch.int32, (P,))):
+        _check(name, getattr(sa, name), dtype, shape, dev)
+    lib = build_kernel()["lib"]
+    err = lib.kd_walk(o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R, sa.kd_flags.data_ptr(), sa.kd_split.data_ptr(),
+                      sa.kd_above.data_ptr(), sa.kd_nprims.data_ptr(), sa.kd_prim_ids.data_ptr(), sa.kd_lo.data_ptr(),
+                      sa.kd_hi.data_ptr(), sa.prim_test_data.data_ptr(), cols, sa.prim_kind.data_ptr(),
+                      int(bool(any_hit)), t.data_ptr(), prim.data_ptr(), b1.data_ptr(), b2.data_ptr(), pops.data_ptr(),
+                      counters.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"kd_walk launch failed: cudaError {err}")
+    kd_walk_cuda.launches += 1
+    return t, prim, b1, b2, pops
+
+
+kd_walk_cuda.launches = 0
+kd_walk_cuda.counters = {}  # device -> int32 (2,): stack overflows, iteration-cap hits
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch walks (the kernels' twins)
+# ---------------------------------------------------------------------------
+
+
+def _inv_dir(d):
+    """1/d with |d| clamped at 1e-30 (the reference's inv_d)."""
+    return 1.0 / torch.where(d.abs() < 1e-30, torch.where(d < 0, -1e-30, 1e-30), d)
+
+
+def _leaf_tests(sa, static, o, d, t_best, ids, valid):
+    """The rays (A, 3) against their leaves' prims ids (A, K): (t (A, K),
+    inf where missed or not valid, b1, b2). An instanced prim's ray is
+    brought into instance space first; a quadric's params are its
+    prim_test_data columns (with p1, p2 when the table has 26). The
+    quadric test runs only on the entries that hold a quadric."""
+    rows = sa.prim_test_data[ids]  # (A, K, C)
+    is_tri = sa.prim_kind[ids] == GEOM_TRI
+    ob = o[:, None, :].expand(ids.shape + (3,))
+    db = d[:, None, :].expand(ids.shape + (3,))
+    if static.has_instances:
+        w2i = sa.inst_w2i[sa.prim_inst[ids].to(torch.int64)]
+        ob = xf_point(w2i, ob)
+        db = xf_vector(w2i, db)
+    tb = t_best[:, None].expand(ids.shape)
+    hit, t, _b0, b1, b2 = ray_triangle(ob, db, rows[..., 0:3], rows[..., 3:6], rows[..., 6:9], tb)
+    if static.n_spheres:
+        q = torch.nonzero(valid & ~is_tri, as_tuple=True)
+        if q[0].numel():
+            rq = rows[q]
+            par = rq[:, 12:18]
+            if rq.shape[-1] >= 25:
+                par = torch.cat([par, rq[:, 19:25]], dim=-1)
+            h_s, t_s, p_obj = ray_quadric(ob[q], db[q], rq[:, 0:12].reshape(-1, 3, 4), par, rq[:, 18].to(torch.int64),
+                                          tb[q], kinds=frozenset(static.quadric_kinds))
+            hit, t, b1, b2 = (x.clone() for x in (hit, t, b1, b2))
+            hit[q], t[q], b1[q], b2[q] = h_s, t_s, p_obj[:, 0], p_obj[:, 1]
+    hit = hit & valid
+    return torch.where(hit, t, math.inf), b1, b2
+
+
+def _take_leaf(t_k, b1_k, b2_k, ids):
+    """The nearest of a leaf's K tests, ties to the first: (t (A,), prim,
+    b1, b2)."""
+    t_new, k = torch.min(t_k, dim=1)  # torch.min returns the first minimum
+    kk = k[:, None]
+    return t_new, ids.gather(1, kk)[:, 0], b1_k.gather(1, kk)[:, 0], b2_k.gather(1, kk)[:, 0]
+
+
+def walk_plain(sa, static, o, d, t_max, any_hit: bool):
+    """The BVH walk in plain PyTorch on any device: bvh_walk_cuda's
+    outputs (prim int64) and the count of pushes dropped on a full stack."""
+    dev = o.device
+    R = o.shape[0]
+    nodes = sa.bvh_packed
+    inv_d = _inv_dir(d)
+    K = int(static.max_leaf)
+    iota = torch.arange(K, device=dev)
+    P = sa.prim_test_data.shape[0]
+    stack = torch.zeros((R, STACK), dtype=torch.int64, device=dev)
+    sp = (t_max > 0).to(torch.int64)  # the root pre-pushed; t_max <= 0: a dead ray
+    t_best = t_max.clone()
+    prim = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    b1 = torch.zeros(R, dtype=torch.float32, device=dev)
+    b2 = torch.zeros(R, dtype=torch.float32, device=dev)
+    pops = torch.zeros(R, dtype=torch.int64, device=dev)
+    overflow = 0
+    while True:
+        act = torch.nonzero(sp > 0).squeeze(1)
+        if act.numel() == 0:
+            break
+        spa = sp[act] - 1
+        node = stack[act, spa]
+        pops[act] += 1
+        row = nodes[node]
+        oa, ia, tba = o[act], inv_d[act], t_best[act]
+        t0 = (row[:, 0:3] - oa) * ia
+        t1 = (row[:, 3:6] - oa) * ia
+        tn = torch.minimum(t0, t1).max(dim=1).values
+        tf = torch.maximum(t0, t1).min(dim=1).values * 1.0000004
+        box = (tn <= tf) & (tf > 0) & (tn < tba)
+        n_leaf = row[:, 7].to(torch.int64)
+        off = row[:, 6].to(torch.int64)
+        axis = row[:, 8].to(torch.int64)
+        # --- leaf: its prims, rows off .. off + n - 1 ---
+        lf = box & (n_leaf > 0)
+        li = act[lf]
+        if li.numel():
+            ids = torch.clamp(off[lf][:, None] + iota[None, :], max=P - 1)
+            valid = iota[None, :] < n_leaf[lf][:, None]
+            t_k, b1_k, b2_k = _leaf_tests(sa, static, o[li], d[li], t_best[li], ids, valid)
+            t_new, p_new, b1_new, b2_new = _take_leaf(t_k, b1_k, b2_k, ids)
+            better = t_new < t_best[li]
+            bi = li[better]
+            t_best[bi] = t_new[better]
+            prim[bi] = p_new[better]
+            b1[bi] = b1_new[better]
+            b2[bi] = b2_new[better]
+        # --- interior: push the far child, then the near one (popped first) ---
+        inn = box & (n_leaf == 0)
+        ii = act[inn]
+        sp_new = spa.clone()
+        if ii.numel():
+            neg = d[ii].gather(1, axis[inn][:, None])[:, 0] < 0
+            left = node[inn] + 1
+            right = off[inn]
+            near = torch.where(neg, right, left)
+            far = torch.where(neg, left, right)
+            s0 = spa[inn]
+            # a push that would overflow the stack is dropped and counted,
+            # as the kernel drops it
+            fits = s0 + 2 <= STACK
+            overflow += int((~fits).sum())
+            pi, ps = ii[fits], s0[fits]
+            stack[pi, ps] = far[fits]
+            stack[pi, ps + 1] = near[fits]
+            sp_new[inn] = s0 + 2 * fits.to(torch.int64)
+        sp[act] = sp_new
+        if any_hit:
+            sp = torch.where(prim >= 0, 0, sp)
+    return t_best, prim, b1, b2, pops, overflow
+
+
+def kd_walk_plain(sa, static, o, d, t_max, any_hit: bool):
+    """The kd-tree walk (pbrt's KdTreeAccel::Intersect) in plain PyTorch
+    on any device: kd_walk_cuda's outputs (prim int64) and the count of
+    pushes dropped on a full stack."""
+    dev = o.device
+    R = o.shape[0]
+    inv_d = _inv_dir(d)
+    K = int(static.kd_max_leaf)
+    iota = torch.arange(K, device=dev)
+    n_ids = sa.kd_prim_ids.shape[0]
+    flags, split, above, nprims = sa.kd_flags, sa.kd_split, sa.kd_above.to(torch.int64), sa.kd_nprims
+    pids = sa.kd_prim_ids.to(torch.int64)
+    # the root interval: the tree's bounds (reference :915-921)
+    t0 = (sa.kd_lo - o) * inv_d
+    t1 = (sa.kd_hi - o) * inv_d
+    tn = torch.minimum(t0, t1).max(dim=1).values
+    tf = torch.maximum(t0, t1).min(dim=1).values * 1.0000004
+    live = (tn <= tf) & (tf > 0) & (t_max > 0)
+    node = torch.zeros(R, dtype=torch.int64, device=dev)
+    tmin = torch.clamp(tn, min=0.0)
+    tmax = torch.minimum(tf, t_max)
+    st_n = torch.zeros((R, KD_STACK), dtype=torch.int64, device=dev)
+    st_lo = torch.zeros((R, KD_STACK), dtype=torch.float32, device=dev)
+    st_hi = torch.zeros((R, KD_STACK), dtype=torch.float32, device=dev)
+    sp = torch.zeros(R, dtype=torch.int64, device=dev)
+    t_best = t_max.clone()
+    prim = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    b1 = torch.zeros(R, dtype=torch.float32, device=dev)
+    b2 = torch.zeros(R, dtype=torch.float32, device=dev)
+    pops = torch.zeros(R, dtype=torch.int64, device=dev)
+    overflow = 0
+    while True:
+        # a ray whose best hit lies before its interval is done (pbrt:
+        # `if ray.tMax < tMin break`)
+        live = live & ~(t_best < tmin)
+        act = torch.nonzero(live).squeeze(1)
+        if act.numel() == 0:
+            break
+        pops[act] += 1
+        na = node[act]
+        fl = flags[na]
+        is_leaf = fl == 3
+        # --- interior: the split plane's crossing picks the children ---
+        ii = act[~is_leaf]
+        if ii.numel():
+            ni = node[ii]
+            ax = fl[~is_leaf].to(torch.int64)[:, None]
+            o_a = o[ii].gather(1, ax)[:, 0]
+            d_a = d[ii].gather(1, ax)[:, 0]
+            s = split[ni]
+            tp = (s - o_a) * inv_d[ii].gather(1, ax)[:, 0]
+            below_first = (o_a < s) | ((o_a == s) & (d_a <= 0))
+            first = torch.where(below_first, ni + 1, above[ni])
+            second = torch.where(below_first, above[ni], ni + 1)
+            lo_i, hi_i = tmin[ii], tmax[ii]
+            only_first = (tp > hi_i) | (tp <= 0)
+            only_second = ~only_first & (tp < lo_i)
+            both = ~only_first & ~only_second
+            # both: push the second child with (tp, t_max), go on in the first
+            s0 = sp[ii]
+            push = both & (s0 < KD_STACK)
+            overflow += int((both & ~push).sum())  # a push onto a full stack is dropped, as the kernel drops it
+            pr, ps = ii[push], s0[push]
+            st_n[pr, ps] = second[push]
+            st_lo[pr, ps] = tp[push]
+            st_hi[pr, ps] = hi_i[push]
+            sp[ii] = s0 + push.to(torch.int64)
+            node[ii] = torch.where(only_second, second, first)
+            tmax[ii] = torch.where(both, tp, hi_i)
+        # --- leaf: its listed prims, then the next todo entry ---
+        li = act[is_leaf]
+        if li.numel():
+            nl = node[li]
+            off = above[nl]
+            ids = pids[torch.clamp(off[:, None] + iota[None, :], max=max(n_ids - 1, 0))]
+            valid = iota[None, :] < nprims[nl][:, None].to(torch.int64)
+            t_k, b1_k, b2_k = _leaf_tests(sa, static, o[li], d[li], t_best[li], ids, valid)
+            t_new, p_new, b1_new, b2_new = _take_leaf(t_k, b1_k, b2_k, ids)
+            better = t_new < t_best[li]
+            bi = li[better]
+            t_best[bi] = t_new[better]
+            prim[bi] = p_new[better]
+            b1[bi] = b1_new[better]
+            b2[bi] = b2_new[better]
+            s0 = sp[li]
+            empty = s0 == 0
+            top = torch.clamp(s0 - 1, min=0)
+            node[li] = st_n[li, top]
+            tmin[li] = st_lo[li, top]
+            tmax[li] = st_hi[li, top]
+            sp[li] = top
+            done = empty | (better & any_hit)
+            live[li[done]] = False
+    return t_best, prim, b1, b2, pops, overflow
+
+
+# ---------------------------------------------------------------------------
+# The query
+# ---------------------------------------------------------------------------
+
+
+def walk_intersect(sa, static, o, d, t_max, any_hit=False, sort=True, plain=False):
+    """Closest-hit (or any-hit) query of a scene through its binary BVH, or
+    its kd-tree when static.accel_kind is "kdtree". Returns (t, prim, hit,
+    b1, b2): t = inf and prim = -1 on a miss. ``sort`` reorders rays by
+    wide_bvh.coherence_keys before the walk and restores the order after;
+    it cannot change a result. CUDA tensors launch the CUDA kernel, CPU
+    tensors (or ``plain``) run the plain twin."""
+    kd = static.accel_kind == "kdtree"
+    if plain or o.device.type == "cpu":
+        walk = kd_walk_plain if kd else walk_plain
+    elif o.device.type == "cuda":
+        walk = kd_walk_cuda if kd else bvh_walk_cuda
+    else:
+        raise ValueError(f"walk_intersect has no implementation for device {o.device}")
+    R = o.shape[0]
+    t_arr = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device), (R,)).contiguous()
+    o = o.contiguous()
+    d = d.contiguous()
+    perm = None
+    if sort and R >= SORT_MIN_RAYS:
+        lo = sa.world_center - sa.world_radius
+        inv_ext = 1.0 / torch.clamp(2.0 * sa.world_radius, min=1e-20)
+        keys = torch.where(t_arr > 0, coherence_keys(o, d, lo, inv_ext), 0xFFFFFFFF)
+        perm = torch.argsort(keys, stable=True)
+        o, d, t_arr = o[perm], d[perm], t_arr[perm]
+    t, prim, b1, b2 = walk(sa, static, o, d, t_arr, any_hit)[:4]
+    if perm is not None:
+        res = [torch.empty_like(x) for x in (t, prim, b1, b2)]
+        for dst, src in zip(res, (t, prim, b1, b2)):
+            dst[perm] = src
+        t, prim, b1, b2 = res
+    prim = prim.to(torch.int64)
+    hit = prim >= 0
+    return torch.where(hit, t, math.inf), prim, hit, b1, b2

@@ -1,9 +1,17 @@
-"""Camera ray generation: perspective pinhole and thin lens.
+"""Camera ray generation: perspective (pinhole and thin lens),
+orthographic and environment cameras.
 
 The port's counterpart of ``pbrt_tpu/device/camera.py``. The host builds the
 raster->camera and camera->world matrices exactly as the reference does (in
 float64, exported as float32); the device maps raster sample positions to
-world rays with explicit multiply-adds in the reference's order.
+world rays with explicit multiply-adds in the reference's order. An
+orthographic ray starts on the raster's point of the z = 0 plane and runs
+along +z; an environment ray runs along the (theta, phi) of its raster
+position over the whole sphere (cameras/environment.rs), from the camera's
+origin. Ray differentials carry directions only, as the reference's do, so
+an orthographic camera's offset rays share the main ray's origin and
+direction: its texture footprint is zero (the reference's fault, kept;
+ROADMAP C).
 """
 from __future__ import annotations
 
@@ -31,10 +39,17 @@ def _perspective_matrix(fov_deg, n=1e-2, f=1000.0):
     return s @ m
 
 
+CAM_PERSPECTIVE = 0
+CAM_ORTHOGRAPHIC = 1
+CAM_ENVIRONMENT = 2
+KINDS = {"perspective": CAM_PERSPECTIVE, "orthographic": CAM_ORTHOGRAPHIC, "environment": CAM_ENVIRONMENT}
+
+
 def make_camera(cfg: CameraConfig, film: FilmConfig, device="cuda"):
     """Build the camera parameter dict (matrices as float32 tensors on
-    `device`: the card unless the caller names another device)."""
-    if cfg.kind != "perspective":
+    `device`: the card unless the caller names another device; "kind" one
+    of the CAM_* ids)."""
+    if cfg.kind not in KINDS:
         raise NotImplementedError(f"pbrt_tpu_torch does not support '{cfg.kind}' cameras yet")
     if cfg.camera_to_world_end is not None:
         raise NotImplementedError("pbrt_tpu_torch does not support animated cameras yet")
@@ -53,9 +68,13 @@ def make_camera(cfg: CameraConfig, film: FilmConfig, device="cuda"):
         @ np.array([[1 / (x1 - x0), 0, 0, -x0 / (x1 - x0)], [0, 1 / (y0 - y1), 0, -y1 / (y0 - y1)], [0, 0, 1, 0], [0, 0, 0, 1.0]])
     )
     raster_to_screen = np.linalg.inv(screen_to_raster)
-    raster_to_camera = np.linalg.inv(_perspective_matrix(cfg.fov)) @ raster_to_screen
+    kind = KINDS[cfg.kind]
+    proj = _perspective_matrix(cfg.fov) if kind == CAM_PERSPECTIVE else np.eye(4)
+    raster_to_camera = np.linalg.inv(proj) @ raster_to_screen
     c2w = np.asarray(cfg.camera_to_world.m, dtype=np.float32)
     return {
+        "kind": kind,
+        "resolution": (xres, yres),
         "raster_to_camera": torch.as_tensor(raster_to_camera.astype(np.float32), device=device),
         "camera_to_world": torch.as_tensor(c2w, device=device),
         "lens_radius": float(np.float32(cfg.lens_radius)),
@@ -104,11 +123,25 @@ def generate_rays(cam, p_film_x, p_film_y, u_lens1, u_lens2):
     """Raster-space sample positions -> world-space rays (o, d), each (R, 3)."""
     r2c = cam["raster_to_camera"]
     c2w = cam["camera_to_world"]
-    p_cam = _apply44_point(r2c, p_film_x, p_film_y, torch.zeros_like(p_film_x))
-    o_cam = torch.zeros_like(p_cam)
-    d_cam = normalize(p_cam)
+    kind = cam.get("kind", CAM_PERSPECTIVE)
+    if kind == CAM_ENVIRONMENT:
+        # equirect over the full sphere (cameras/environment.rs)
+        xres, yres = cam["resolution"]
+        theta = math.pi * p_film_y / yres
+        phi = 2.0 * math.pi * p_film_x / xres
+        st = torch.sin(theta)
+        d_cam = torch.stack([st * torch.cos(phi), torch.cos(theta), st * torch.sin(phi)], dim=-1)
+        o_cam = torch.zeros_like(d_cam)
+    else:
+        p_cam = _apply44_point(r2c, p_film_x, p_film_y, torch.zeros_like(p_film_x))
+        if kind == CAM_ORTHOGRAPHIC:
+            o_cam = p_cam
+            d_cam = torch.broadcast_to(torch.tensor([0.0, 0.0, 1.0], device=p_cam.device), p_cam.shape)
+        else:
+            o_cam = torch.zeros_like(p_cam)
+            d_cam = normalize(p_cam)
     lens_r = cam["lens_radius"]
-    if lens_r > 0:
+    if kind == CAM_PERSPECTIVE and lens_r > 0:
         # thin-lens DoF (perspective.rs generate_ray)
         lx, ly = concentric_sample_disk(u_lens1, u_lens2)
         lx = lens_r * lx

@@ -255,7 +255,7 @@ def trace_persistent(sa, static, icfg: dict, scfg: dict, seed: int, pixel, s0: i
         # --- extend: intersect + escaped/emitted pickup (deferred MIS) ---
         t_query = torch.where(alive, torch.inf, -1.0)
         hit = intersect(sa, static, o, d, t_query, sort_rays=True, joint=joint)
-        si = surface_interaction(sa, hit, o, d)
+        si = surface_interaction(sa, hit, o, d, static.quadric_kinds)
         if static.has_bump:
             si = apply_bump(sa, static, si, atlases)
         valid = si["valid"]

@@ -1,22 +1,30 @@
 """Batched ray-scene queries.
 
 The port's counterpart of ``pbrt_tpu/device/intersect.py intersect /
-intersect_p`` on its two routes:
+intersect_p``, routed as the reference's ``_intersect_once`` (:815-870):
 
-- the brute-force route for scenes of at most 64 prims (no BVH tables):
-  every ray against every triangle (``ray_triangle``, the watertight test of
-  src/shapes/triangle.rs:136-399) and every sphere (``ray_sphere``,
-  src/shapes/sphere.rs with EFloat root bounds and zmin/zmax/phimax
-  clipping) by (R, P) broadcasting, then the nearest column, ties to the
-  lowest (``_brute_all``, ``_select_min``, ``intersect_brute``,
+- the brute-force route for scenes of at most 64 prims without instances
+  (no BVH tables): every ray against every triangle and quadric
+  (device/prims.py) by (R, P) broadcasting, then the nearest column, ties
+  to the lowest (``_brute_all``, ``_select_min``, ``intersect_brute``,
   ``intersect_p_brute``);
-- the wide-BVH route for larger scenes, through device/wide_bvh.py; in a
-  mixed scene (``static.has_wide_tri`` without ``has_wide``) the walk covers
-  the triangle subset and its at most 8 spheres are tested beside it with
-  ``ray_sphere``, t_max clamped to the walk's winner, merged by t with a
-  strict ``<`` so that the triangle keeps a tie (``_mixed_spheres``). The
-  reference walks such scenes through its binary-BVH packet loop; the hits
-  are the same, only the route differs.
+- then the kd-tree of a scene with ``Accelerator "kdtree"``, and
+- the wide-BVH route of a scene with the wide tables, through
+  device/wide_bvh.py; in a mixed scene (``static.has_wide_tri`` without
+  ``has_wide``) whose quadrics are all spheres, the walk covers the
+  triangle subset and its at most 8 spheres are tested beside it, t_max
+  clamped to the walk's winner, merged by t with a strict ``<`` so that the
+  triangle keeps a tie (``_mixed_spheres``);
+- then the binary BVH: every other scene (instances, other quadrics beside
+  more than 64 triangles), through device/bvh_walk.py, as the reference
+  takes such scenes through its packet loop ``_traverse``.
+
+A scene with alpha cutouts re-casts a ray past each cut hit, at most
+ALPHA_PASSES times, over whichever route the scene takes
+(``_intersect_alpha``, reference :1051-1098); its shadow query is the
+closest-hit query, as in the reference. The hits are the reference's; only
+the walks differ (per ray instead of per packet), so ties in t may pick
+another prim.
 """
 from __future__ import annotations
 
@@ -25,120 +33,24 @@ import math
 
 import torch
 
-from . import efloat as efl
-from .affine import xf_point, xf_vector
+from .bvh_walk import walk_intersect
+from .prims import SHADOW_EPS, SPHERE, ray_quadric, ray_sphere, ray_triangle  # noqa: F401 (the module's API)
 from .wide_bvh import wide_intersect, wide_intersect_plain
 
 # above this primitive count, sort rays by a direction-octant + origin-Morton
 # key before traversal (intersect.SORT_MIN_PRIMS)
 SORT_MIN_PRIMS = 4096
-# hit epsilon of the triangle test (intersect.SHADOW_EPS)
-SHADOW_EPS = 1e-4
-TWO_PI = 2.0 * math.pi
+GEOM_TRI = 0  # scene.arrays.GEOM_TRI
+# re-casts past cut hits in an alpha scene (intersect.ALPHA_PASSES)
+ALPHA_PASSES = 4
 
 
-def ray_triangle(o, d, p0, p1, p2, t_max):
-    """Watertight ray-triangle intersection (broadcasting).
-
-    o, d: (..., 3); p0/p1/p2: (..., 3); t_max: (...).
-    Returns (hit, t, b0, b1, b2), barycentrics with respect to (p0, p1, p2)."""
-    p0t = p0 - o
-    p1t = p1 - o
-    p2t = p2 - o
-    # permute so |d_z| is the largest (triangle.rs max_dimension + permute)
-    kz = torch.argmax(d.abs(), dim=-1)
-    k0 = kz == 0
-    k1 = kz == 1
-
-    def _sel(v, i0, i1, i2):
-        return torch.where(k0, v[..., i0], torch.where(k1, v[..., i1], v[..., i2]))
-
-    def permute(v):
-        # kx = kz + 1 mod 3, ky = kz + 2 mod 3
-        return torch.stack([_sel(v, 1, 2, 0), _sel(v, 2, 0, 1), _sel(v, 0, 1, 2)], dim=-1)
-
-    dp = permute(d)
-    p0t = permute(p0t)
-    p1t = permute(p1t)
-    p2t = permute(p2t)
-    # shear so the ray runs along +z
-    inv_dz = 1.0 / dp[..., 2]
-    sx = -dp[..., 0] * inv_dz
-    sy = -dp[..., 1] * inv_dz
-    sz = inv_dz
-    x0 = p0t[..., 0] + sx * p0t[..., 2]
-    y0 = p0t[..., 1] + sy * p0t[..., 2]
-    x1 = p1t[..., 0] + sx * p1t[..., 2]
-    y1 = p1t[..., 1] + sy * p1t[..., 2]
-    x2 = p2t[..., 0] + sx * p2t[..., 2]
-    y2 = p2t[..., 1] + sy * p2t[..., 2]
-    # edge functions
-    e0 = x1 * y2 - y1 * x2
-    e1 = x2 * y0 - y2 * x0
-    e2 = x0 * y1 - y0 * x1
-    same_sign = ((e0 >= 0) & (e1 >= 0) & (e2 >= 0)) | ((e0 <= 0) & (e1 <= 0) & (e2 <= 0))
-    det = e0 + e1 + e2
-    z0 = sz * p0t[..., 2]
-    z1 = sz * p1t[..., 2]
-    z2 = sz * p2t[..., 2]
-    t_scaled = e0 * z0 + e1 * z1 + e2 * z2
-    det_nonzero = det != 0
-    inv_det = torch.where(det_nonzero, 1.0 / torch.where(det_nonzero, det, 1.0), 0.0)
-    t = t_scaled * inv_det
-    hit = same_sign & det_nonzero & (t > SHADOW_EPS) & (t < t_max)
-    return hit, t, e0 * inv_det, e1 * inv_det, e2 * inv_det
-
-
-def ray_sphere(o, d, w2o, params, t_max):
-    """Sphere intersection in object space: the sphere case of the
-    reference's ray_quadric (sphere.rs), broadcasting.
-
-    w2o: (..., 3, 4); params (..., 12): radius, zmin, zmax, phimax, ...
-    A root is taken iff its EFloat interval is strictly positive and below
-    t_max and its re-projected point passes the z and phi clips
-    (sphere.rs:91-102). Returns (hit, t, p_obj), p_obj the re-projected
-    object-space hit."""
-    oo = xf_point(w2o, o)
-    od = xf_vector(w2o, d)
-    radius = params[..., 0]
-    zmin = params[..., 1]
-    zmax = params[..., 2]
-    phimax = params[..., 3]
-    o_err, d_err = efl.transform_ray_error(w2o, o, d)
-    e_ox, e_oy, e_oz = (efl.ef(oo[..., i], o_err[..., i]) for i in range(3))
-    e_dx, e_dy, e_dz = (efl.ef(od[..., i], d_err[..., i]) for i in range(3))
-    e_a = efl.add(efl.add(efl.sqr(e_dx), efl.sqr(e_dy)), efl.sqr(e_dz))
-    e_oxyd = efl.add(efl.mul(e_dx, e_ox), efl.mul(e_dy, e_oy))
-    e_b = efl.scale(efl.add(e_oxyd, efl.mul(e_oz, e_dz)), 2.0)
-    e_c = efl.sub(efl.add(efl.add(efl.sqr(e_ox), efl.sqr(e_oy)), efl.sqr(e_oz)), efl.sqr(efl.ef(radius)))
-    has, (tn, tn_lo, tn_hi), (tf, tf_lo, tf_hi) = efl.quadratic(e_a, e_b, e_c)
-    full = (zmin <= -radius + 1e-7 * radius) & (zmax >= radius - 1e-7 * radius) & (phimax >= TWO_PI - 1e-6)
-
-    def clip_ok(t):
-        p = oo + od * t[..., None]
-        # refine onto the surface (sphere.rs re-projects the hit)
-        s = radius / torch.clamp(torch.sqrt((p * p).sum(-1)), min=1e-30)
-        pn = p * s[..., None]
-        phi = torch.atan2(pn[..., 1], pn[..., 0])
-        phi = torch.where(phi < 0, phi + TWO_PI, phi)
-        z = pn[..., 2]
-        return full | ((z >= zmin) & (z <= zmax) & (phi <= phimax)), pn
-
-    okn, pn_near = clip_ok(tn)
-    okf, pn_far = clip_ok(tf)
-    near_valid = has & (tn_lo > 0) & (tn_hi < t_max) & okn
-    far_valid = has & (tf_lo > 0) & (tf_hi < t_max) & okf
-    t = torch.where(near_valid, tn, tf)
-    p_obj = torch.where(near_valid[..., None], pn_near, pn_far)
-    return near_valid | far_valid, t, p_obj
-
-
-def _brute_all(sa, o, d, t_max):
+def _brute_all(sa, static, o, d, t_max):
     """Every ray against every prim by broadcasting. Returns (t, b1, b2)
-    each (R, P) in table order (triangle rows, then sphere rows), t = inf
-    where missed, and pid (P,) the prim row of each column. A sphere column
-    carries its object-space hit's x and y in b1 and b2, as the reference's
-    does."""
+    each (R, P) in table order (triangle rows, then quadric rows), t = inf
+    where missed, and pid (P,) the prim row of each column. A quadric
+    column carries its object-space hit's x and y in b1 and b2, as the
+    reference's does."""
     o_b = o[:, None, :]
     d_b = d[:, None, :]
     tm = t_max[:, None]
@@ -151,7 +63,8 @@ def _brute_all(sa, o, d, t_max):
         parts_b2.append(b2)
         parts_pid.append(sa.tri_prim_ids)
     if sa.sph_param.shape[0] > 0:
-        h, t_s, p_obj = ray_sphere(o_b, d_b, sa.sph_w2o[None], sa.sph_param[None], tm)
+        h, t_s, p_obj = ray_quadric(o_b, d_b, sa.sph_w2o[None], sa.sph_param[None], sa.sph_kind[None].to(torch.int64),
+                                    tm, kinds=frozenset(static.quadric_kinds))
         parts_t.append(torch.where(h, t_s, math.inf))
         parts_b1.append(p_obj[..., 0])
         parts_b2.append(p_obj[..., 1])
@@ -169,13 +82,13 @@ def _select_min(t, cols):
 
 
 def intersect_brute(sa, static, o, d, t_max):
-    t, b1, b2, pid = _brute_all(sa, o, d, t_max)
+    t, b1, b2, pid = _brute_all(sa, static, o, d, t_max)
     tbest, k, (b1_s, b2_s) = _select_min(t, [b1, b2])
     return {"t": tbest, "prim": torch.where(torch.isfinite(tbest), pid[k], -1), "b1": b1_s, "b2": b2_s}
 
 
 def intersect_p_brute(sa, static, o, d, t_max):
-    t = _brute_all(sa, o, d, t_max)[0]
+    t = _brute_all(sa, static, o, d, t_max)[0]
     return torch.isfinite(t).any(1)
 
 
@@ -190,16 +103,32 @@ def _mixed_spheres(sa, o, d, t_max):
     return torch.where(h, t_s, math.inf), p_obj
 
 
+def _wide_route(static) -> bool:
+    """The wide tables serve the query: a triangle-only scene, or a mixed
+    scene whose quadrics are all spheres (the mixed route)."""
+    return static.has_wide_tri and (static.has_wide or set(static.quadric_kinds) <= {SPHERE})
+
+
 def _walk(joint, plain):
     """The wide query: the kernels' (wide_intersect), or with plain their
     plain twin on any device."""
     return wide_intersect_plain if plain else functools.partial(wide_intersect, joint=joint)
 
 
-def intersect(sa, static, o, d, t_max, sort_rays=False, joint=False, plain=False):
-    """Closest-hit query. Returns hit dict {t, prim, b1, b2}. joint: CUDA
-    rays of a wide scene go through the joint traversal kernel; plain: the
-    walk's plain twin, on any device (no route sets it)."""
+def route_name(static, joint=False) -> str:
+    """The query's route: "brute", "kdtree", "wide", "wide-joint" (either
+    with "-mixed" for the spheres beside the walk) or "bvh"."""
+    if static.use_brute_force:
+        return "brute"
+    if static.accel_kind == "kdtree":
+        return "kdtree"
+    if _wide_route(static):
+        return ("wide-joint" if joint else "wide") + ("-mixed" if static.n_spheres else "")
+    return "bvh"
+
+
+def _intersect_once(sa, static, o, d, t_max, sort_rays=False, joint=False, plain=False):
+    """One closest-hit pass (no alpha cutouts)."""
     R = o.shape[0]
     if static.n_prims == 0:
         return {"t": torch.full((R,), math.inf, device=o.device), "prim": torch.full((R,), -1, device=o.device),
@@ -207,6 +136,9 @@ def intersect(sa, static, o, d, t_max, sort_rays=False, joint=False, plain=False
     if static.use_brute_force:
         return intersect_brute(sa, static, o, d, _t_max(o, t_max))
     sort = sort_rays and static.n_prims >= SORT_MIN_PRIMS
+    if not _wide_route(static):
+        t, prim, _hit, b1, b2 = walk_intersect(sa, static, o, d, t_max, sort=sort, plain=plain)
+        return {"t": t, "prim": prim, "b1": b1, "b2": b2}
     t, prim, hitm, b1, b2 = _walk(joint, plain)(sa, o, d, t_max, sort=sort)
     b1 = torch.where(hitm, torch.clamp(b1, 0.0, 1.0), 0.0)
     b2 = torch.where(hitm, torch.clamp(b2, 0.0, 1.0), 0.0)
@@ -226,14 +158,79 @@ def intersect(sa, static, o, d, t_max, sort_rays=False, joint=False, plain=False
     return {"t": torch.where(hitm, t, math.inf), "prim": prim, "b1": b1, "b2": b2}
 
 
-def intersect_p(sa, static, o, d, t_max, sort_rays=False, joint=False, plain=False):
-    """Any-hit (shadow) query -> bool (R,). (scene.rs intersect_p)"""
+def _intersect_p_once(sa, static, o, d, t_max, sort_rays=False, joint=False, plain=False):
+    """One any-hit pass (no alpha cutouts)."""
     if static.n_prims == 0:
         return torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
     if static.use_brute_force:
         return intersect_p_brute(sa, static, o, d, _t_max(o, t_max))
     sort = sort_rays and static.n_prims >= SORT_MIN_PRIMS
+    if not _wide_route(static):
+        return walk_intersect(sa, static, o, d, t_max, any_hit=True, sort=sort, plain=plain)[2]
     _t, _slot, hit_any = _walk(joint, plain)(sa, o, d, t_max, any_hit=True, sort=sort)
     if static.n_spheres:
         hit_any = hit_any | torch.isfinite(_mixed_spheres(sa, o, d, _t_max(o, t_max))[0]).any(1)
     return hit_any
+
+
+def _alpha_cut_mask(sa, static, hit, o, d, shadow: bool):
+    """True where the hit lands on a zero-alpha point of a cut-out
+    triangle (triangle.rs:29-30 alpha_mask / shadow_alpha_mask; reference
+    _alpha_cut_mask): the prim's alpha (or shadow-alpha) float texture at
+    the hit's uv, without differentials."""
+    from .texture import eval_textures, needed_programs
+
+    prim = torch.clamp(hit["prim"], min=0)
+    tex = (sa.prim_shadow_alpha_tex if shadow else sa.prim_alpha_tex)[prim]
+    geom = sa.prim_geom[prim]
+    is_tri = sa.prim_kind[prim] == GEOM_TRI
+    uvv = sa.tri_uv[torch.where(is_tri, geom, 0)]
+    b1 = hit["b1"][:, None]
+    b2 = hit["b2"][:, None]
+    uv = (1.0 - b1 - b2) * uvv[:, 0] + b1 * uvv[:, 1] + b2 * uvv[:, 2]
+    p_hit = o + d * hit["t"][:, None]
+    vals = eval_textures(sa, static.tex_programs, uv, p_hit, only=needed_programs(static.tex_programs,
+                                                                                   static.alpha_programs))
+    a = torch.ones(uv.shape[0], dtype=torch.float32, device=uv.device)
+    for xi in static.alpha_programs:
+        a = torch.where(tex == xi, vals[xi][:, 0], a)
+    return (hit["prim"] >= 0) & is_tri & (tex >= 0) & (a == 0.0)
+
+
+def _intersect_alpha(sa, static, o, d, t_max, sort_rays, joint, plain, shadow: bool):
+    """The closest hit that is not cut out, t measured from o: each cut
+    hit's ray is re-cast from just past it, at most ALPHA_PASSES times (the
+    other rays ride along dead, t_max < 0); a hit still cut after them is
+    dropped (reference _intersect_alpha)."""
+    tm0 = _t_max(o, t_max)
+    o_cur = o
+    acc = torch.zeros(o.shape[0], dtype=torch.float32, device=o.device)
+    hit = _intersect_once(sa, static, o_cur, d, tm0, sort_rays, joint, plain)
+    for _ in range(ALPHA_PASSES):
+        cut = _alpha_cut_mask(sa, static, hit, o_cur, d, shadow)
+        adv = hit["t"] * (1.0 + 1e-4) + 1e-4
+        o_cur = torch.where(cut[:, None], o_cur + d * adv[:, None], o_cur)
+        acc = acc + torch.where(cut, adv, 0.0)
+        tq = torch.where(cut, tm0 - acc, -1.0)
+        h2 = _intersect_once(sa, static, o_cur, d, tq, sort_rays, joint, plain)
+        hit = {k: torch.where(cut, h2[k], v) for k, v in hit.items()}
+    cut = _alpha_cut_mask(sa, static, hit, o_cur, d, shadow)
+    t_final = torch.where(cut, math.inf, hit["t"]) + acc
+    prim = torch.where(cut | (hit["prim"] < 0), -1, hit["prim"])
+    return {"t": torch.where(prim >= 0, t_final, math.inf), "prim": prim, "b1": hit["b1"], "b2": hit["b2"]}
+
+
+def intersect(sa, static, o, d, t_max, sort_rays=False, joint=False, plain=False):
+    """Closest-hit query. Returns hit dict {t, prim, b1, b2}. joint: CUDA
+    rays of a wide scene go through the joint traversal kernel; plain: the
+    walks' plain twins, on any device (no route sets it)."""
+    if static.has_alpha and static.n_prims > 0:
+        return _intersect_alpha(sa, static, o, d, t_max, sort_rays, joint, plain, shadow=False)
+    return _intersect_once(sa, static, o, d, t_max, sort_rays, joint, plain)
+
+
+def intersect_p(sa, static, o, d, t_max, sort_rays=False, joint=False, plain=False):
+    """Any-hit (shadow) query -> bool (R,). (scene.rs intersect_p)"""
+    if static.has_alpha and static.n_prims > 0:
+        return _intersect_alpha(sa, static, o, d, t_max, sort_rays, joint, plain, shadow=True)["prim"] >= 0
+    return _intersect_p_once(sa, static, o, d, t_max, sort_rays, joint, plain)

@@ -1,11 +1,14 @@
 """Light sampling and light power.
 
 The port's counterpart of ``pbrt_tpu/device/lights.py`` for the light kinds
-the port compiles: point, spot and distant lights (src/lights/point.rs,
-spot.rs, distant.rs), the infinite light, constant or image-mapped
+the port compiles: point, spot, distant, goniometric and projection lights
+(src/lights/point.rs, spot.rs, distant.rs, goniometric.rs, projection.rs:
+the last two scale the point light's intensity by their image,
+``_image_light_scale``), the infinite light, constant or image-mapped
 (src/lights/infinite.rs), and diffuse area lights on triangles and on
-full or partial spheres (src/lights/diffuse.rs), one light row per emitting
-triangle or sphere. sample_li evaluates only the branches of the kinds the
+quadrics of the six kinds (src/lights/diffuse.rs; ``_sample_prim_point``
+as the reference samples each kind), one light row per emitting triangle or
+quadric. sample_li evaluates only the branches of the kinds the
 scene has; area_light_emission, pdf_li_area_hit, env_le, env_pdf_li and
 compute_power complete the set. A sphere lamp is sampled uniformly over its
 area, or, with ``cone_spheres`` (the integrators pass
@@ -23,14 +26,15 @@ import torch
 
 from ..scene.arrays import (
     GEOM_SPHERE, GEOM_TRI, LIGHT_AREA, LIGHT_DISTANT, LIGHT_GONIO, LIGHT_INFINITE, LIGHT_POINT, LIGHT_PROJECTION,
-    LIGHT_SPOT, QUADRIC_SPHERE,
+    LIGHT_SPOT, QUADRIC_CONE, QUADRIC_CYLINDER, QUADRIC_DISK, QUADRIC_HYPERBOLOID, QUADRIC_PARABOLOID, QUADRIC_SPHERE,
 )
 from .affine import xf_point, xf_vector, xf_vector_t
+from .camera import concentric_sample_disk
+from .mipmap import image_bilinear
 from .shading import FLAG_FLIP_GEOM_N, coordinate_system, cross, dot, normalize
 
 FLAG_REVERSE_ORIENTATION = 4  # scene.builder.FLAG_REVERSE_ORIENTATION
-
-_UNPORTED = {LIGHT_GONIO: "goniometric", LIGHT_PROJECTION: "projection"}
+POINT_FAMILY = (LIGHT_POINT, LIGHT_SPOT, LIGHT_GONIO, LIGHT_PROJECTION)
 TWO_PI = 2.0 * math.pi
 INV_4PI = 1.0 / (4.0 * math.pi)
 
@@ -135,11 +139,68 @@ def uniform_sample_triangle(u1, u2):
     return 1.0 - su0, u2 * su0
 
 
-def _sample_prim_point(sa, prim_ids, u1, u2):
-    """Uniformly sample a point on the prims' surfaces: triangles by
-    uniform barycentrics (sampling.rs:147), spheres by a uniform direction
-    times the radius (sphere.rs sample; the reference samples a partial
-    sphere as a full one). Returns (p, n, area)."""
+def _quadric_point(par, qk, u1, u2, kinds):
+    """A point on each quadric in object space and its object-space
+    normal, as the reference samples each kind (lights._sample_prim_point
+    :226-299): a sphere by a uniform direction (partial ones as full), a
+    cylinder by (z, phi) uniform, a disk by the concentric map over the
+    full disk, a cone uniformly in area, a paraboloid with density ~ r(z)
+    (the slant factor neglected), a hyperboloid uniformly in (v, phi)."""
+    radius = par[:, 0]
+    phimax = par[:, 3]
+    d = uniform_sample_sphere(u1, u2)
+    p_obj = d * radius[:, None]
+    n_obj = d
+    if not kinds - {QUADRIC_SPHERE}:
+        return p_obj, n_obj
+    phi = u2 * phimax
+    cphi, sphi = torch.cos(phi), torch.sin(phi)
+    cases = []
+    if QUADRIC_CYLINDER in kinds:
+        z_c = par[:, 1] + u1 * (par[:, 2] - par[:, 1])
+        cases.append((QUADRIC_CYLINDER, torch.stack([radius * cphi, radius * sphi, z_c], dim=-1),
+                      torch.stack([cphi, sphi, torch.zeros_like(cphi)], dim=-1)))
+    if QUADRIC_DISK in kinds:
+        dx, dy = concentric_sample_disk(u1, u2)
+        cases.append((QUADRIC_DISK, torch.stack([dx * radius, dy * radius, par[:, 1]], dim=-1),
+                      torch.stack([torch.zeros_like(dx), torch.zeros_like(dx), torch.ones_like(dx)], dim=-1)))
+    if QUADRIC_CONE in kinds:
+        h = par[:, 1].abs()
+        v = 1.0 - torch.sqrt(torch.clamp(1.0 - u1, min=0.0))
+        r = radius * (1.0 - v)
+        p_cn = torch.stack([r * cphi, r * sphi, v * h], dim=-1)
+        kr = radius / torch.clamp(h, min=1e-9)
+        cases.append((QUADRIC_CONE, p_cn, normalize(torch.stack([p_cn[:, 0], p_cn[:, 1],
+                                                                      kr * kr * (h - p_cn[:, 2])], dim=-1))))
+    if QUADRIC_PARABOLOID in kinds:
+        zlo = torch.clamp(par[:, 1], min=0.0)
+        zhi = torch.clamp(par[:, 2], min=1e-9)
+        z15 = zlo ** 1.5 + u1 * (zhi ** 1.5 - zlo ** 1.5)
+        z_p = torch.clamp(z15, min=0.0) ** (2.0 / 3.0)
+        r_p = radius * torch.sqrt(z_p / zhi)
+        p_pa = torch.stack([r_p * cphi, r_p * sphi, z_p], dim=-1)
+        k = zhi / torch.clamp(radius * radius, min=1e-20)
+        cases.append((QUADRIC_PARABOLOID, p_pa, normalize(torch.stack([2.0 * k * p_pa[:, 0], 2.0 * k * p_pa[:, 1],
+                                                                            -torch.ones_like(z_p)], dim=-1))))
+    if QUADRIC_HYPERBOLOID in kinds:
+        hp1, hp2 = par[:, 6:9], par[:, 9:12]
+        seg = hp1 + u1[:, None] * (hp2 - hp1)
+        p_hy = torch.stack([seg[:, 0] * cphi - seg[:, 1] * sphi, seg[:, 0] * sphi + seg[:, 1] * cphi, seg[:, 2]],
+                           dim=-1)
+        ah, ch = par[:, 4], par[:, 5]
+        cases.append((QUADRIC_HYPERBOLOID, p_hy, normalize(torch.stack([ah * p_hy[:, 0], ah * p_hy[:, 1],
+                                                                             -ch * p_hy[:, 2]], dim=-1))))
+    for k, p_k, n_k in cases:
+        m = (qk == k)[:, None]
+        p_obj = torch.where(m, p_k, p_obj)
+        n_obj = torch.where(m, n_k, n_obj)
+    return p_obj, n_obj
+
+
+def _sample_prim_point(sa, prim_ids, u1, u2, kinds=frozenset({QUADRIC_SPHERE})):
+    """Sample a point on the prims' surfaces: triangles by uniform
+    barycentrics (sampling.rs:147), quadrics by _quadric_point (kinds: the
+    quadric kinds the scene has). Returns (p, n, area)."""
     prim = torch.clamp(prim_ids, min=0)
     geom = sa.prim_geom[prim]
     flags = sa.prim_flags[prim]
@@ -156,13 +217,43 @@ def _sample_prim_point(sa, prim_ids, u1, u2):
         if not n_sph:
             return p, n, area
     si = torch.where(sa.prim_kind[prim] == GEOM_SPHERE, geom, 0)
-    d = uniform_sample_sphere(u1, u2)
-    ps = xf_point(sa.sph_o2w[si], d * sa.sph_param[si, 0:1])
-    ns = normalize(xf_vector_t(sa.sph_w2o[si][:, :, :3], d))
+    p_obj, n_obj = _quadric_point(sa.sph_param[si], sa.sph_kind[si], u1, u2, kinds)
+    ps = xf_point(sa.sph_o2w[si], p_obj)
+    ns = normalize(xf_vector_t(sa.sph_w2o[si][:, :, :3], n_obj))
     ns = torch.where(flip, -ns, ns)
     if not n_tri:
         return ps, ns, area
     return torch.where(is_tri[:, None], p, ps), torch.where(is_tri[:, None], n, ns), area
+
+
+def _image_light_scale(sa, static, lid, w_from_light, par, fall):
+    """The goniometric and projection lights' direction-dependent scale of
+    their intensity (goniometric.rs: the map over (phi, theta) of the
+    direction in the light's frame; projection.rs: the image over the
+    perspective screen, zero outside it), for the lanes whose light has an
+    image (reference lights._image_light_scale :161-195)."""
+    for i, key in enumerate(static.light_image_keys):
+        if key is None:
+            continue
+        img = sa.light_images[key]
+        wl = normalize(xf_vector(sa.light_w2l[i, :, :3], w_from_light))
+        is_this = (lid == i)[:, None]
+        if static.light_kinds[i] == LIGHT_GONIO:
+            theta = torch.arccos(torch.clamp(wl[:, 2], -1.0, 1.0))
+            phi = torch.atan2(wl[:, 1], wl[:, 0])
+            phi = torch.where(phi < 0, phi + TWO_PI, phi)
+            fall = torch.where(is_this, image_bilinear(img, phi / TWO_PI, 1.0 - theta / math.pi), fall)
+        else:
+            tan_half = par[:, 9]
+            aspect = par[:, 10]
+            behind = wl[:, 2] < 1e-3
+            zc = torch.clamp(wl[:, 2], min=1e-6)
+            sx = wl[:, 0] / zc / torch.clamp(tan_half * torch.clamp(aspect, min=1.0), min=1e-6)
+            sy = wl[:, 1] / zc / torch.clamp(tan_half / torch.clamp(torch.clamp(aspect, min=1e-6), max=1.0), min=1e-6)
+            inside = ~behind & (sx.abs() <= 1.0) & (sy.abs() <= 1.0)
+            val = image_bilinear(img, 0.5 * (sx + 1.0), 0.5 * (sy + 1.0))
+            fall = torch.where(is_this, torch.where(inside[:, None], val, 0.0), fall)
+    return fall
 
 
 def _sphere_cone_info(sa, prim_ids):
@@ -214,14 +305,12 @@ def sample_li(sa, static, light_ids, p_ref, u1, u2, cone_spheres=False):
     takes the same flag); the spatial distribution's build samples
     without it, as the reference's does."""
     kinds = set(static.light_kinds)
-    for k in kinds & set(_UNPORTED):
-        raise NotImplementedError(f"pbrt_tpu_torch does not sample {_UNPORTED[k]} lights yet")
     lid = torch.clamp(light_ids, min=0)
     par = sa.light_param[lid]
     # one branch per light family the scene has; every lane's light is of
     # one of them, so the first branch needs no mask
     branches = []
-    if kinds & {LIGHT_POINT, LIGHT_SPOT}:
+    if kinds & set(POINT_FAMILY):
         to_l = par[:, 0:3] - p_ref
         d2 = torch.clamp(dot(to_l, to_l), min=1e-12)
         dl = torch.sqrt(d2)
@@ -238,8 +327,12 @@ def sample_li(sa, static, light_ids, p_ref, u1, u2, cone_spheres=False):
             fall = torch.where(cos_t < ctw, 0.0, torch.where(cos_t > cfs, 1.0, dfall2 * dfall2))
             fall = torch.where(sa.light_kind[lid] == LIGHT_SPOT, fall, 1.0)
             power = power * fall[:, None]
+        if any(k is not None for k in static.light_image_keys):
+            fall3 = (torch.ones_like(power) if LIGHT_SPOT not in kinds
+                     else torch.broadcast_to(fall[:, None], power.shape))
+            power = par[:, 3:6] * _image_light_scale(sa, static, lid, -wi, par, fall3)
         one = torch.ones_like(dl)
-        branches.append(((LIGHT_POINT, LIGHT_SPOT), {
+        branches.append((POINT_FAMILY, {
             "wi": wi, "li": power / d2[:, None], "pdf": one, "dist": dl,
             "delta": torch.ones_like(dl, dtype=torch.bool), "n": torch.zeros_like(wi), "area": one}))
     if LIGHT_DISTANT in kinds:
@@ -261,7 +354,7 @@ def sample_li(sa, static, light_ids, p_ref, u1, u2, cone_spheres=False):
             "delta": torch.zeros_like(pdf, dtype=torch.bool), "n": torch.zeros_like(wi),
             "area": torch.ones_like(pdf)}))
     if LIGHT_AREA in kinds:
-        ps, ns, area = _sample_prim_point(sa, sa.light_prim[lid], u1, u2)
+        ps, ns, area = _sample_prim_point(sa, sa.light_prim[lid], u1, u2, frozenset(static.quadric_kinds))
         to_s = ps - p_ref
         d2 = torch.clamp(dot(to_s, to_s), min=1e-12)
         dist = torch.sqrt(d2)
@@ -349,8 +442,31 @@ def compute_power(sa, static):
     power = torch.where(kind == LIGHT_SPOT, 2.0 * math.pi * (1.0 - 0.5 * (par[:, 9] + par[:, 10])) * lum, power)
     power = torch.where(kind == LIGHT_DISTANT, math.pi * wr * wr * lum, power)
     power = torch.where(kind == LIGHT_INFINITE, math.pi * wr * wr * lum, power)
+    if any(k in (LIGHT_GONIO, LIGHT_PROJECTION) for k in static.light_kinds):
+        # goniometric: 4 pi sum(I x the image's mean) (goniometric.rs
+        # power); projection: the screen cone's solid angle 2 pi (1 -
+        # cosTotalWidth) times the same (projection.rs power); a light
+        # without an image counts its mean as 1
+        avg = torch.stack([sa.light_images[key].mean(dim=(0, 1)) if key is not None
+                           else torch.ones(3, dtype=torch.float32, device=par.device)
+                           for key in static.light_image_keys])
+        ilum = (par[:, 3:6] * avg).sum(-1)
+        power = torch.where(kind == LIGHT_GONIO, 4.0 * math.pi * ilum, power)
+        power = torch.where(kind == LIGHT_PROJECTION, 2.0 * math.pi * (1.0 - _projection_cos_total(par)) * ilum, power)
     if static.has_area_lights:
         area = sa.prim_area[torch.clamp(sa.light_prim, min=0)]
         two = 1.0 + (par[:, 3] > 0).to(torch.float32)
         power = torch.where(kind == LIGHT_AREA, two * area * math.pi * par[:, 0:3].sum(-1), power)
     return torch.clamp(power, min=0.0)
+
+
+def _projection_cos_total(par):
+    """cos of the cone around a projection light's screen window
+    (projection.rs:75-79; reference lights._projection_cos_total :522):
+    the screen corner (xm tan, ym tan, 1), (xm, ym) = (aspect, 1) for a
+    wide image, (1, 1 / aspect) for a tall one."""
+    tan_half = par[:, 9]
+    aspect = torch.clamp(par[:, 10], min=1e-6)
+    xm = torch.clamp(aspect, min=1.0)
+    ym = torch.clamp(1.0 / aspect, min=1.0)
+    return 1.0 / torch.sqrt(1.0 + tan_half * tan_half * (xm * xm + ym * ym))

@@ -267,6 +267,39 @@ def _pixel_angle(r2c):
     return float(max(np.linalg.norm((p1 - p0)[:3]), np.linalg.norm((p2 - p0)[:3])) / z0)
 
 
+_QUADRIC_NAMES = ("sphere", "cylinder", "disk", "cone", "paraboloid", "hyperboloid")
+
+
+def new_kind_refusal(cs, cam) -> str | None:
+    """The first kind of the persistent wavefront's class that neither
+    megakernel bakes, named, or None: orthographic and environment cameras
+    (the reference's gate: cam kind != 0), goniometric and projection
+    lights, quadrics other than spheres, object instancing, alpha cutouts
+    (the reference's B3 never checks them and would render a cut-out
+    triangle whole: the port refuses them, ROADMAP C) and the kd-tree. Both
+    extractors ask it first; such scenes take the wavefront."""
+    from .camera import CAM_PERSPECTIVE
+    from ..scene.arrays import LIGHT_GONIO, LIGHT_PROJECTION
+
+    static = cs.static
+    kind = cam.get("kind", CAM_PERSPECTIVE)
+    if kind != CAM_PERSPECTIVE:
+        return f"'{cs.description.camera.kind}' cameras"
+    for k, name in ((LIGHT_GONIO, "goniometric"), (LIGHT_PROJECTION, "projection")):
+        if k in static.light_kinds:
+            return f"{name} lights"
+    for q in static.quadric_kinds:
+        if q != QUADRIC_SPHERE:
+            return f"'{_QUADRIC_NAMES[q]}' quadrics"
+    if static.has_instances:
+        return "object instancing"
+    if static.has_alpha:
+        return "alpha cutouts"
+    if static.accel_kind == "kdtree":
+        return "the 'kdtree' accelerator"
+    return None
+
+
 def _extract(cs, cam, icfg, scfg, fcfg):
     """(consts, None) for a scene of the kernel's class, else (None, the
     reason it is outside)."""
@@ -277,6 +310,9 @@ def _extract(cs, cam, icfg, scfg, fcfg):
     from ..scene.arrays import P_KD
 
     sa, static = cs.arrays, cs.static
+    why = new_kind_refusal(cs, cam)
+    if why is not None:
+        return None, why
     if not static.use_brute_force or static.n_prims == 0 or static.n_prims > MAX_PRIMS:
         return None, f"more than {MAX_PRIMS} primitives"
     if static.has_infinite or static.has_area_lights or static.n_media:

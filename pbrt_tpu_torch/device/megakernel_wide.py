@@ -153,7 +153,12 @@ def _extract(cs, cam, icfg, scfg, fcfg, max_tris):
     from .materials import lobes_at_origin
     from ..scene.arrays import P_KD
 
+    from .megakernel import new_kind_refusal
+
     sa, static = cs.arrays, cs.static
+    why = new_kind_refusal(cs, cam)
+    if why is not None:
+        return None, why
     if static.n_spheres > MAX_SPHERES:
         return None, f"more than {MAX_SPHERES} spheres"
     if not static.has_wide_tri or sa.wnode_rec is None:

@@ -1,11 +1,14 @@
 """Surface interaction reconstruction from hit records.
 
 The port's counterpart of ``pbrt_tpu/device/shading.py surface_interaction``
-on its triangle branch (src/shapes/triangle.rs:300-399) and its sphere
-branch (sphere.rs: the hit re-projected onto the surface, the analytic
-normal, uv and dpdu/dpdv, and the gamma(5) |p_obj| error bound carried to
-world space), without motion or instancing, which the port's scenes do not
-have; and ``apply_bump``, the reference's bump mapping of the shading frame.
+on its triangle branch (src/shapes/triangle.rs:300-399; an instanced
+triangle's vertices and normals brought to world space through its
+instance transform, reference :190-205) and its quadric branch (sphere.rs,
+cylinder.rs, disk.rs, cone.rs, paraboloid.rs, hyperboloid.rs, reference
+:250-394: the hit re-projected onto the surface, the analytic normal, uv
+and dpdu/dpdv per kind, and the gamma(5) |p_obj| error bound carried to
+world space), without motion, which the port's scenes do not have; and
+``apply_bump``, the reference's bump mapping of the shading frame.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ from .affine import xf_point, xf_vector, xf_vector_t
 FLAG_FLIP_GEOM_N = 1
 FLAG_HAS_SHADING_N = 2
 GEOM_TRI = 0  # scene.arrays.GEOM_TRI
+# quadric sub-kinds (scene.arrays.QUADRIC_*)
+_CYLINDER, _DISK, _CONE, _PARABOLOID, _HYPERBOLOID = 1, 2, 3, 4, 5
 
 # gamma(n) = n*eps/(1 - n*eps), eps = 2^-24 (pbrt.rs gamma; efloat.rs)
 _EPS32 = float(2.0 ** -24)
@@ -69,12 +74,20 @@ def _shading_frame(ns, dpdu):
     return ss, ts
 
 
-def _triangle_fields(sa, geom, flags, b1, b2):
+def _triangle_fields(sa, geom, flags, b1, b2, prim=None):
     """Hit point, error bound, normals, uv and dpdu/dpdv on triangle rows
-    `geom` at barycentrics (b1, b2)."""
+    `geom` at barycentrics (b1, b2); with `prim`, in an instanced scene,
+    each prim's vertices go through its instance's i2w and its normals
+    through the transpose of its w2i (the rows are instance-space)."""
     tv = sa.tri_p[geom]  # (R, 3, 3)
     tn = sa.tri_n[geom]
     tuv = sa.tri_uv[geom]
+    if prim is not None:
+        iid = sa.prim_inst[prim].to(torch.int64)
+        i2w = sa.inst_i2w[iid][:, None]
+        w2i = sa.inst_w2i[iid][:, None]
+        tv = xf_point(i2w, tv)
+        tn = xf_vector_t(w2i[..., :3], tn)
     b0 = 1.0 - b1 - b2
     e1 = tv[:, 1] - tv[:, 0]
     e2 = tv[:, 2] - tv[:, 0]
@@ -109,41 +122,113 @@ def _triangle_fields(sa, geom, flags, b1, b2):
     return {"p": p, "p_err": p_err, "ng": ng, "ns": ns, "uv": uv, "dpdu": dpdu, "dpdv": dpdv}
 
 
-def _sphere_fields(sa, geom, flags, p):
-    """The same fields on (full or partial) sphere rows `geom` for world
-    hit points p = o + t d (sphere.rs)."""
+def _normalize_eps(v, eps):
+    return v / torch.clamp(_norm(v)[..., None], min=eps)
+
+
+def _quadric_fields(sa, geom, flags, p, kinds):
+    """The same fields on quadric rows `geom` for world hit points
+    p = o + t d, per kind (kinds: the kinds present, a static set): the
+    hit re-projected (a sphere onto its surface, a cylinder onto its
+    radius, a disk onto its plane; the others keep the raw point), the
+    object-space normal (each surface's implicit gradient), uv and
+    dpdu/dpdv of each shape's parameterization (the reference's; its
+    hyperboloid dpdv is pbrt-v3's rotation derivative)."""
     o2w = sa.sph_o2w[geom]
     w2o = sa.sph_w2o[geom]
     par = sa.sph_param[geom]
+    qk = sa.sph_kind[geom]
     radius = par[:, 0]
     p_obj = xf_point(w2o, p)
-    # re-project onto the surface
+    x0, y0, z0 = p_obj[:, 0], p_obj[:, 1], p_obj[:, 2]
     r_sph = radius / torch.clamp(torch.sqrt((p_obj * p_obj).sum(-1)), min=1e-30)
-    p_obj = torch.stack([p_obj[:, 0] * r_sph, p_obj[:, 1] * r_sph, p_obj[:, 2] * r_sph], dim=-1)
-    ng = normalize(xf_vector_t(w2o[:, :, :3], p_obj / radius[:, None]))
-    ng = torch.where(((flags & FLAG_FLIP_GEOM_N) != 0)[:, None], -ng, ng)
+    scale = r_sph
+    z_new = z0 * r_sph
+    is_ = {k: qk == k for k in kinds}
+    if _CYLINDER in kinds:
+        r_cyl = radius / torch.clamp(torch.sqrt(x0 * x0 + y0 * y0), min=1e-30)
+        scale = torch.where(is_[_CYLINDER], r_cyl, scale)
+        z_new = torch.where(is_[_CYLINDER], z0, z_new)
+    for k in kinds & {_DISK, _CONE, _PARABOLOID, _HYPERBOLOID}:
+        scale = torch.where(is_[k], 1.0, scale)
+        z_new = torch.where(is_[k], par[:, 1] if k == _DISK else z0, z_new)
+    p_obj = torch.stack([x0 * scale, y0 * scale, z_new], dim=-1)
     x, y, z = p_obj[:, 0], p_obj[:, 1], p_obj[:, 2]
-    phi = torch.atan2(y, x)
-    phi = torch.where(phi < 0, phi + 2.0 * math.pi, phi)
-    theta = torch.arccos(torch.clamp(z / radius, -1.0, 1.0))
+    zero = torch.zeros_like(radius)
+    one = torch.ones_like(radius)
     phimax = par[:, 3]
     tmin = par[:, 4]
     tmax = par[:, 5]
-    uv = torch.stack([phi / torch.clamp(phimax, min=1e-9), (theta - tmin) / torch.clamp(tmax - tmin, min=1e-9)], dim=-1)
+    n_obj = p_obj / radius[:, None]
+    phi = torch.atan2(y, x)
+    phi = torch.where(phi < 0, phi + 2.0 * math.pi, phi)
+    theta = torch.arccos(torch.clamp(z / radius, -1.0, 1.0))
+    u = phi / torch.clamp(phimax, min=1e-9)
+    v = (theta - tmin) / torch.clamp(tmax - tmin, min=1e-9)
     zr = torch.sqrt(torch.clamp(x * x + y * y, min=1e-20))
     dpdu = torch.stack([-phimax * y, phimax * x, torch.zeros_like(zr)], dim=-1)
     dpdv = torch.stack([z * x / zr, z * y / zr, -radius * torch.sin(theta)], dim=-1) * (tmax - tmin)[:, None]
+
+    def put(k, n_k, u_k, v_k, dpdv_k):
+        nonlocal n_obj, u, v, dpdv
+        m = is_[k]
+        n_obj = torch.where(m[:, None], n_k, n_obj)
+        if u_k is not None:
+            u = torch.where(m, u_k, u)
+        v = torch.where(m, v_k, v)
+        dpdv = torch.where(m[:, None], dpdv_k, dpdv)
+
+    if _CYLINDER in kinds:
+        put(_CYLINDER, torch.stack([x / radius, y / radius, zero], dim=-1), None,
+            (z - par[:, 1]) / torch.clamp(par[:, 2] - par[:, 1], min=1e-9),
+            torch.stack([zero, zero, par[:, 2] - par[:, 1]], dim=-1))
+    if _DISK in kinds:
+        r_hit = torch.sqrt(torch.clamp(x * x + y * y, min=1e-20))
+        put(_DISK, torch.stack([zero, zero, one], dim=-1), None,
+            1.0 - (r_hit - par[:, 2]) / torch.clamp(radius - par[:, 2], min=1e-9),
+            torch.stack([x, y, zero], dim=-1) * ((par[:, 2] - radius) / r_hit)[:, None])
+    if _CONE in kinds:
+        # grad(x^2 + y^2 - k (z - h)^2), k = (r / h)^2: (x, y, k (h - z))
+        kr = radius / torch.clamp(par[:, 1].abs(), min=1e-12)
+        v_cone = z / torch.clamp(par[:, 1].abs(), min=1e-9)
+        omv = torch.clamp(1.0 - v_cone, min=1e-6)  # cone.rs:115
+        put(_CONE, _normalize_eps(torch.stack([x, y, kr * kr * (par[:, 1] - z)], dim=-1), 1e-20), None, v_cone,
+            torch.stack([-x / omv, -y / omv, par[:, 1].abs() + zero], dim=-1))
+    if _PARABOLOID in kinds:
+        k_para = par[:, 2] / torch.clamp(radius * radius, min=1e-20)
+        z2 = torch.clamp(2.0 * z.abs(), min=1e-9) * torch.sign(z + 1e-30)  # paraboloid.rs:116
+        put(_PARABOLOID, _normalize_eps(torch.stack([2.0 * k_para * x, 2.0 * k_para * y, -one], dim=-1), 1e-20),
+            None, (z - par[:, 1]) / torch.clamp(par[:, 2] - par[:, 1], min=1e-9),
+            torch.stack([x / z2, y / z2, one], dim=-1) * (par[:, 2] - par[:, 1])[:, None])
+    if _HYPERBOLOID in kinds:
+        # hyperboloid.rs:134-151: v along the p1 -> p2 segment, phi against
+        # the twisted frame (the lerped segment point pr)
+        ah, ch = par[:, 4], par[:, 5]
+        hp1, hp2 = par[:, 6:9], par[:, 9:12]
+        v_hyp = (z - hp1[:, 2]) / torch.where((hp2[:, 2] - hp1[:, 2]).abs() > 1e-12, hp2[:, 2] - hp1[:, 2], 1.0)
+        pr = hp1 + v_hyp[:, None] * (hp2 - hp1)
+        phi_h = torch.atan2(pr[:, 0] * y - x * pr[:, 1], x * pr[:, 0] + y * pr[:, 1])
+        phi_h = torch.where(phi_h < 0, phi_h + 2.0 * math.pi, phi_h)
+        cph, sph = torch.cos(phi_h), torch.sin(phi_h)
+        ex = hp2[:, 0] - hp1[:, 0]
+        ey = hp2[:, 1] - hp1[:, 1]
+        put(_HYPERBOLOID, _normalize_eps(torch.stack([ah * x, ah * y, -ch * z], dim=-1), 1e-20),
+            phi_h / torch.clamp(phimax, min=1e-9), v_hyp,
+            torch.stack([ex * cph - ey * sph, ex * sph + ey * cph, hp2[:, 2] - hp1[:, 2]], dim=-1))
+    ng = normalize(xf_vector_t(w2o[:, :, :3], n_obj))
+    ng = torch.where(((flags & FLAG_FLIP_GEOM_N) != 0)[:, None], -ng, ng)
     # gamma(5) |p_obj| in object space, through the affine o2w with the
     # transform_point_error bound (transform.rs:433)
     p_err = (_gamma(5) + _gamma(3)) * xf_vector(o2w[:, :, :3].abs(), p_obj.abs()) + _gamma(3) * o2w[:, :, 3].abs()
-    return {"p": xf_point(o2w, p_obj), "p_err": p_err, "ng": ng, "ns": ng, "uv": uv,
+    return {"p": xf_point(o2w, p_obj), "p_err": p_err, "ng": ng, "ns": ng, "uv": torch.stack([u, v], dim=-1),
             "dpdu": xf_vector(o2w[:, :, :3], dpdu), "dpdv": xf_vector(o2w[:, :, :3], dpdv)}
 
 
-def surface_interaction(sa, hit, o, d):
+def surface_interaction(sa, hit, o, d, quadric_kinds=None):
     """Build the shading record for each ray.
 
-    hit: dict from intersect(); o, d: (R, 3) ray. Returns dict with p,
+    hit: dict from intersect(); o, d: (R, 3) ray; quadric_kinds: the
+    scene's (static.quadric_kinds; read from sa.sph_kind when None). Returns dict with p,
     p_err, ng (geometric normal), ns (shading normal), uv, tangent frame
     (ss, ts), dpdu, dpdv, mat (material row), light (area light row or -1),
     prim, wo and the valid (R,) mask."""
@@ -151,15 +236,19 @@ def surface_interaction(sa, hit, o, d):
     valid = hit["prim"] >= 0
     geom = sa.prim_geom[prim]
     flags = sa.prim_flags[prim]
+    instanced = prim if sa.inst_i2w.shape[0] > 1 else None
     if sa.sph_param.shape[0] == 0:
-        f = _triangle_fields(sa, geom, flags, hit["b1"], hit["b2"])
+        f = _triangle_fields(sa, geom, flags, hit["b1"], hit["b2"], instanced)
     else:
         t = torch.where(valid, hit["t"], 1.0)
         p = o + d * t[:, None]
         is_tri = sa.prim_kind[prim] == GEOM_TRI
-        f = _sphere_fields(sa, torch.where(is_tri, 0, geom), flags, p)
+        if quadric_kinds is None:
+            quadric_kinds = torch.unique(sa.sph_kind).tolist()
+        kinds = frozenset(int(k) for k in quadric_kinds)
+        f = _quadric_fields(sa, torch.where(is_tri, 0, geom), flags, p, kinds)
         if sa.tri_p.shape[0] > 0:
-            ft = _triangle_fields(sa, torch.where(is_tri, geom, 0), flags, hit["b1"], hit["b2"])
+            ft = _triangle_fields(sa, torch.where(is_tri, geom, 0), flags, hit["b1"], hit["b2"], instanced)
             f = {k: torch.where(is_tri[:, None], ft[k], v) for k, v in f.items()}
     ss, ts = _shading_frame(f["ns"], f["dpdu"])
     return dict(f, valid=valid, ss=ss, ts=ts, mat=torch.where(valid, sa.prim_mat[prim], 0),

@@ -15,10 +15,13 @@ reference's order:
   wavefront's;
 - the persistent wavefront (device/integrator.py) otherwise, in spp chunks
   of PERSISTENT_SPP_CHUNK = 8 (the reference mesh tier's accumulation
-  granularity): brute-force intersection for scenes of at most 64 prims,
-  the wide-BVH traversal for larger ones (PBRT_TPU_JOINT=1 sends its CUDA
-  queries through the joint traversal kernel). It renders every scene that
-  compile_scene takes.
+  granularity): brute-force intersection for scenes of at most 64 prims
+  without instances, the kd-tree walk for a scene that asks for the
+  kd-tree, the wide-BVH traversal for triangle scenes (PBRT_TPU_JOINT=1
+  sends its CUDA queries through the joint traversal kernel) and mixed
+  scenes of at most 8 spheres, and the binary-BVH walk for every other
+  scene (device/intersect.py route_name). It renders every scene that
+  compile_scene takes: the reference's persistent_eligible class.
 
 PBRT_TPU_NO_MEGAKERNEL (any non-empty value) skips both megakernels. The
 switches are the reference's, read once when a route is built; the route
@@ -40,6 +43,7 @@ import torch
 
 from .device.camera import generate_rays, make_camera, ray_differential_dirs
 from .device.integrator import trace_persistent
+from .device.intersect import route_name
 from .device.lightdistrib import build_spatial_distribution
 from .device.materials import lobe_table
 from .device.texture import has_imagemaps, prepare_atlases
@@ -60,8 +64,10 @@ PERSISTENT_SPP_CHUNK = 8
 # route of the most recent make_persistent_fn build, so a run shows the
 # path it took: torch-megakernel/{cuda,plain}-brute,
 # torch-megakernel/{cuda,plain}-wide, torch-wavefront/{cuda,plain}-brute,
-# torch-wavefront/{cuda,plain}-wide or torch-wavefront/cuda-wide-joint (the
-# CUDA kernels, or their plain twins on the CPU)
+# torch-wavefront/{cuda,plain}-wide (-mixed with spheres beside the walk),
+# torch-wavefront/cuda-wide-joint, torch-wavefront/{cuda,plain}-bvh or
+# torch-wavefront/{cuda,plain}-kdtree (the CUDA kernels, or their plain
+# twins on the CPU)
 LAST_PERSISTENT_TIER = "unbuilt"
 
 
@@ -226,10 +232,7 @@ def make_persistent_fn(cs: CompiledScene, cam=None):
     if icfg["lobe_table"].get("textured") or static.has_bump:
         icfg["tex_atlases"] = prepare_atlases(cs.arrays, static)
     differentials = has_imagemaps(static)
-    shape = "brute" if static.use_brute_force else "wide-joint" if joint else "wide"
-    if not static.use_brute_force and static.n_spheres:
-        shape += "-mixed"  # the triangle subset's walk beside the spheres' tests
-    LAST_PERSISTENT_TIER = f"torch-wavefront/{'cuda' if dev.type == 'cuda' else 'plain'}-{shape}"
+    LAST_PERSISTENT_TIER = f"torch-wavefront/{'cuda' if dev.type == 'cuda' else 'plain'}-{route_name(static, joint)}"
 
     def wave_p(sa, px, py, pixel_ids, s0: int, n_samples: int, seed: int):
         regen = make_regen(cam, scfg, fcfg, px, py, pixel_ids, seed, differentials)

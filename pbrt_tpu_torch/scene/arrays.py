@@ -2,11 +2,13 @@
 
 The port's counterpart of ``pbrt_tpu/scene/arrays.py``: the same id
 constants and the same table layouts, holding only the fields the ported
-slices read: triangle meshes and full spheres, the material rows, the
-light rows, the texture programs with their parameters and MIP pyramids,
-the stacked Fourier BSDF tables, the image-mapped infinite light's tables
-and, for scenes above the brute-force size, the wide BVH with its
-attribute table.
+slices read: triangle meshes and the six quadric kinds, the binary BVH
+with its per-prim test rows, the instance transforms, the alpha masks,
+the material rows, the light rows with the goniometric and projection
+lights' frames and images, the texture programs with their parameters and
+MIP pyramids, the stacked Fourier BSDF tables, the image-mapped infinite
+light's tables, the kd-tree of a scene that asks for one and, for scenes
+above the brute-force size, the wide BVH with its attribute table.
 
 - ``SceneTensors``: torch tensors, all on one device.
 - ``SceneStatic``: Python-level counts and flags that shape the program.
@@ -33,6 +35,11 @@ GEOM_SPHERE = 1  # any analytic quadric row (see QUADRIC_* for the sub-kind)
 
 # quadric sub-kinds (sph_kind)
 QUADRIC_SPHERE = 0
+QUADRIC_CYLINDER = 1
+QUADRIC_DISK = 2
+QUADRIC_CONE = 3
+QUADRIC_PARABOLOID = 4
+QUADRIC_HYPERBOLOID = 5
 
 # material kind ids
 MAT_NONE = 0
@@ -103,7 +110,7 @@ _TABLE_DTYPES = {
     "tri_prim_ids": torch.int32,  # (T,) triangle row -> prim row
     "sph_o2w": torch.float32,  # (S, 3, 4) quadric object -> world
     "sph_w2o": torch.float32,  # (S, 3, 4) world -> object
-    "sph_param": torch.float32,  # (S, 12) sphere: radius, zmin, zmax, phimax, thetamin, thetamax
+    "sph_param": torch.float32,  # (S, 12) per kind (builder; intersect.ray_quadric)
     "sph_kind": torch.int32,  # (S,) QUADRIC_*
     "sph_prim_ids": torch.int32,  # (S,) quadric row -> prim row
     "prim_kind": torch.int32,  # (P,) GEOM_*
@@ -121,8 +128,27 @@ _TABLE_DTYPES = {
     "light_kind": torch.int32,  # (L,) LIGHT_*
     "light_param": torch.float32,  # (L, 12): area L(3), two_sided; point/spot/distant see builder
     "light_prim": torch.int32,  # (L,) prim row of an area light
+    "light_w2l": torch.float32,  # (L, 3, 4) world -> light (goniometric and projection frames)
+    "bvh_packed": torch.float32,  # (N, 12) binary BVH nodes: lo (3), hi (3), offset, n prims, axis, pad (3)
+    "prim_test_data": torch.float32,  # (P, 20 | 26) tri verts (9) | quadric w2o (12), params 0:6, kind; 19:25 p1 p2
+    "prim_inst": torch.int32,  # (P,) instance row (0: the identity)
+    "inst_i2w": torch.float32,  # (I, 3, 4) instance -> world
+    "inst_w2i": torch.float32,  # (I, 3, 4) world -> instance
+    "prim_alpha_tex": torch.int32,  # (P,) alpha cutout texture or -1
+    "prim_shadow_alpha_tex": torch.int32,  # (P,) shadow-alpha texture (the alpha one by default) or -1
     "world_center": torch.float32,  # (3,)
     "world_radius": torch.float32,  # ()
+}
+
+# the kd-tree (scene/kdtree.py): None unless static.accel_kind == "kdtree"
+_KD_DTYPES = {
+    "kd_flags": torch.int32,  # (N,) 0-2 split axis, 3 leaf
+    "kd_split": torch.float32,  # (N,) split position
+    "kd_above": torch.int32,  # (N,) interior: above child; leaf: offset into kd_prim_ids
+    "kd_nprims": torch.int32,  # (N,) leaf prim count
+    "kd_prim_ids": torch.int32,  # (M,) leaf prim lists
+    "kd_lo": torch.float32,  # (3,) root bounds
+    "kd_hi": torch.float32,  # (3,)
 }
 
 # the image-mapped infinite light: None without one
@@ -148,7 +174,7 @@ _WIDE_DTYPES = {
 # locally (None when they cover every prim)
 HOPPER_TABLES = ("wnode_rec", "wleaf_rec", "wattr_rec", "wide_prim_rows")
 # SceneTensors fields that hold a dict of tensors
-_DICT_FIELDS = ("tex_images", "fourier")
+_DICT_FIELDS = ("tex_images", "fourier", "light_images")
 # the stacked Fourier BSDF tables (empty dict without one)
 FOURIER_TABLES = ("mu", "aflat", "a0", "cdf", "eta")
 
@@ -179,8 +205,23 @@ class SceneTensors:
     light_kind: torch.Tensor
     light_param: torch.Tensor
     light_prim: torch.Tensor
+    light_w2l: torch.Tensor
+    bvh_packed: torch.Tensor
+    prim_test_data: torch.Tensor
+    prim_inst: torch.Tensor
+    inst_i2w: torch.Tensor
+    inst_w2i: torch.Tensor
+    prim_alpha_tex: torch.Tensor
+    prim_shadow_alpha_tex: torch.Tensor
     world_center: torch.Tensor
     world_radius: torch.Tensor
+    kd_flags: torch.Tensor | None = None
+    kd_split: torch.Tensor | None = None
+    kd_above: torch.Tensor | None = None
+    kd_nprims: torch.Tensor | None = None
+    kd_prim_ids: torch.Tensor | None = None
+    kd_lo: torch.Tensor | None = None
+    kd_hi: torch.Tensor | None = None
     env_image: torch.Tensor | None = None
     env_cond_cdf: torch.Tensor | None = None
     env_marg_cdf: torch.Tensor | None = None
@@ -201,6 +242,9 @@ class SceneTensors:
     # device/fourier.py): mu (NT, NMU), aflat (NT, NMU^2, 3 MCAP), a0 and
     # cdf (NT, NMU, NMU), eta (NT,), all f32; empty without a readable table
     fourier: dict = field(default_factory=dict)
+    # the goniometric and projection lights' images, "lim{i}" -> (H, W, 3)
+    # f32 (SceneStatic.light_image_keys names each light's)
+    light_images: dict = field(default_factory=dict)
 
     @property
     def device(self) -> torch.device:
@@ -268,6 +312,20 @@ class SceneStatic:
     has_wide: bool = False  # wide-BVH tables over every prim (triangle-only scenes)
     has_wide_tri: bool = False  # ... over the triangle prims (has_wide, or a mixed scene)
     wide_root: int = 1
+    max_leaf: int = 4  # prims per binary-BVH leaf at most ("maxnodeprims")
+    has_instances: bool = False  # some prim carries an instance transform (inst_i2w has more than the identity)
+    has_alpha: bool = False  # some prim carries an alpha or shadow-alpha cutout
+    accel_kind: str = "bvh"  # "bvh" | "kdtree" (the Accelerator directive, after the reference's demotions)
+    kd_max_leaf: int = 1  # longest kd leaf list
+    light_image_keys: tuple = ()  # per light: its light_images key or None
+    # derived from the tables by scene_tensors_from_numpy, not reference
+    # fields: the quadric kinds present, and the texture programs the alpha
+    # and shadow-alpha cutouts read
+    quadric_kinds: tuple = ()
+    alpha_programs: tuple = ()
+
+
+_DERIVED_STATIC = ("quadric_kinds", "alpha_programs")
 
 
 def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneTensors, SceneStatic]:
@@ -278,12 +336,14 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
     for name, dtype in _TABLE_DTYPES.items():
         # np.array copies: reference arrays may be read-only views
         tensors[name] = torch.as_tensor(np.array(arrays[name]), dtype=dtype, device=device)
-    for name, dtype in {**_ENV_DTYPES, **_WIDE_DTYPES}.items():
+    for name, dtype in {**_ENV_DTYPES, **_WIDE_DTYPES, **_KD_DTYPES}.items():
         if arrays.get(name) is not None:
             tensors[name] = torch.as_tensor(np.array(arrays[name]), dtype=dtype, device=device)
     # mipmap levels (the reference's dict holds device arrays: np.array copies)
     tensors["tex_images"] = {k: torch.as_tensor(np.array(v), dtype=torch.float32, device=device)
                              for k, v in (arrays.get("tex_images") or {}).items()}
+    tensors["light_images"] = {k: torch.as_tensor(np.array(v), dtype=torch.float32, device=device)
+                               for k, v in (arrays.get("light_images") or {}).items()}
     fourier = arrays.get("fourier") or {}
     tensors["fourier"] = {k: torch.as_tensor(np.array(fourier[k]), dtype=torch.float32, device=device)
                           for k in FOURIER_TABLES if k in fourier}
@@ -304,10 +364,15 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
             tensors["wide_prim_rows"] = torch.as_tensor(rows, device=device)
         for name, rec in zip(HOPPER_TABLES, recs):
             tensors[name] = torch.as_tensor(rec, device=device)
-    st = SceneStatic(**{f.name: static[f.name] for f in fields(SceneStatic)})
+    st = SceneStatic(**{f.name: static[f.name] for f in fields(SceneStatic) if f.name not in _DERIVED_STATIC})
+    st.quadric_kinds = tuple(sorted(set(int(k) for k in np.asarray(arrays["sph_kind"]).ravel())))
+    alpha = np.concatenate([np.asarray(arrays[n]).ravel() for n in ("prim_alpha_tex", "prim_shadow_alpha_tex")])
+    st.alpha_programs = tuple(sorted(set(int(x) for x in alpha if x >= 0)))
     st.mat_kinds_present = tuple(int(k) for k in st.mat_kinds_present)
     st.light_kinds = tuple(int(k) for k in st.light_kinds)
     st.light_n_samples = tuple(int(n) for n in st.light_n_samples)
+    st.light_image_keys = tuple(st.light_image_keys)
+    st.accel_kind = str(st.accel_kind)
     st.tex_programs = tuple(p if isinstance(p, TexProgram) else TexProgram(**vars(p)) for p in st.tex_programs)
     return SceneTensors(**tensors), st
 

@@ -1,47 +1,53 @@
 """Scene compiler: SceneDescription (host records) -> SceneTensors.
 
 The port's counterpart of ``pbrt_tpu/scene/builder.py compile_scene`` for
-two scene classes:
+the persistent wavefront's class (the reference's ``persistent_eligible``):
+static triangle meshes (with alpha and shadow-alpha cutouts) and the six
+quadric kinds (sphere, cylinder, disk, cone, paraboloid, hyperboloid; full
+or partial), object instancing of meshes (instanced prims keep their
+prototype's rows and carry an instance transform), the BVH or kd-tree
+accelerator, and for every scene the binary BVH's packed tables
+(``bvh_packed``, ``prim_test_data``). Scenes of more than
+BRUTE_FORCE_MAX_PRIMS prims without instances also get the wide-BVH tables
+when they hold only triangles, or more than BRUTE_FORCE_MAX_PRIMS triangles
+beside at most MAX_WIDE_QUADRICS quadrics (the mixed scenes, whose wide
+tables cover the triangle subset: ``has_wide_tri`` without ``has_wide``),
+as in the reference.
 
-- the wide class (more than BRUTE_FORCE_MAX_PRIMS prims): static triangle
-  meshes with the BVH accelerator and the wide-BVH tables, and the mixed
-  scenes among them, more than BRUTE_FORCE_MAX_PRIMS triangles beside at
-  most MAX_WIDE_QUADRICS full or partial spheres, whose wide tables cover
-  the triangle subset (``has_wide_tri``; ``has_wide`` stays False, as in
-  the reference);
-- the brute-force class (at most BRUTE_FORCE_MAX_PRIMS prims, no BVH
-  tables): static triangle meshes and full or partial spheres.
-
-Both take point, spot, distant and infinite lights (constant, or
+Lights: point, spot, distant, goniometric and projection (their frames in
+``light_w2l``, their images in ``light_images``), infinite (constant, or
 image-mapped through ``mapname``) and area lights on triangles and
-spheres; matte (Lambert or Oren-Nayar), mirror, glass, metal, plastic,
-uber, substrate, translucent, disney, mix (its sub-materials registered
-as rows of their own, the mix row reserved first), fourier (each SCATFUN
-table read once per path and stacked, ``_stack_fourier_tables``; an
-unreadable table makes the row matte) and hair, with
-constant or textured parameters, and bump maps (the texture programs,
-their parameter rows and MIP pyramids of ``_TextureRegistry``); the (0,2),
-random, stratified, halton, sobol and
-maxmindist samplers; a perspective camera and every pixel filter; the path
-and directlighting integrators. The persistent wavefront
+quadrics (an area light on an instanced prototype is dropped with the
+reference's warning). Materials: matte (Lambert or Oren-Nayar), mirror,
+glass, metal, plastic, uber, substrate, translucent, disney, mix (its
+sub-materials registered as rows of their own, the mix row reserved
+first), fourier (each SCATFUN table read once per path and stacked,
+``_stack_fourier_tables``; an unreadable table makes the row matte) and
+hair, with constant or textured parameters, and bump maps (the texture
+programs, their parameter rows and MIP pyramids of ``_TextureRegistry``);
+the (0,2), random, stratified, halton, sobol and maxmindist samplers;
+perspective, orthographic and environment cameras and every pixel filter;
+the path and directlighting integrators. The persistent wavefront
 (device/integrator.py) renders all of it; the brute and wide megakernels
 (device/megakernel.py, device/megakernel_wide.py) take the parts of it that
 the reference's take.
-Primitive order, areas, light and material rows, world bounds and the wide
-tables are computed with the reference's NumPy code in the reference's
-order, so they come out bit-identical (tests/test_torch_scene.py,
-tests/test_torch_megakernel.py hold them equal table for table).
+Primitive order, areas, light and material rows, world bounds and the BVH,
+kd-tree and wide tables are computed with the reference's NumPy code in the
+reference's order, so they come out bit-identical (tests/test_torch_scene.py,
+tests/test_torch_quadrics.py, tests/test_torch_megakernel.py hold them equal
+table for table).
 
-Anything outside those classes raises NotImplementedError naming the
-feature; nothing is silently dropped. The reference's cluster tables,
-joint-kernel probe and fused shading rows are not built: nothing in the
-port reads them. The reference's known texture faults are kept, so the
-tables stay bit-identical (ROADMAP C): the noise textures' parameters
-are overwritten by their texture matrix, and checkerboard "aamode" is
-dropped.
+Anything outside this class raises NotImplementedError naming the
+feature; nothing is silently dropped but what the reference drops. The
+reference's cluster tables, joint-kernel probe and fused shading rows are
+not built: nothing in the port reads them. The reference's known texture
+faults are kept, so the tables stay bit-identical (ROADMAP C): the noise
+textures' parameters are overwritten by their texture matrix, and
+checkerboard "aamode" is dropped.
 """
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 
 import numpy as np
@@ -54,8 +60,10 @@ from .arrays import (
     GEOM_TRI,
     LIGHT_AREA,
     LIGHT_DISTANT,
+    LIGHT_GONIO,
     LIGHT_INFINITE,
     LIGHT_POINT,
+    LIGHT_PROJECTION,
     LIGHT_SPOT,
     MAT_DISNEY,
     MAT_FOURIER,
@@ -78,6 +86,11 @@ from .arrays import (
     P_TRANSMIT,
     P_UROUGH,
     P_VROUGH,
+    QUADRIC_CONE,
+    QUADRIC_CYLINDER,
+    QUADRIC_DISK,
+    QUADRIC_HYPERBOLOID,
+    QUADRIC_PARABOLOID,
     QUADRIC_SPHERE,
     SceneStatic,
     SceneTensors,
@@ -86,7 +99,10 @@ from .arrays import (
 )
 from .bvh import build_bvh
 from .host import HostMaterial, HostTexture, SceneDescription
+from .kdtree import build_kdtree
 from .widebvh import build_wide_bvh
+
+log = logging.getLogger(__name__)
 
 BRUTE_FORCE_MAX_PRIMS = 64
 MAX_WIDE_QUADRICS = 8  # quadrics beside the triangle subset's wide tables (the reference's mixed_ok)
@@ -102,6 +118,10 @@ MATERIALS = ("matte", "mirror", "glass", "metal", "plastic", "uber", "substrate"
              "fourier", "hair")
 SAMPLERS = ("zerotwosequence", "lowdiscrepancy", "random", "stratified", "halton", "sobol", "maxmindist")
 INTEGRATORS = ("path", "directlighting")
+CAMERAS = ("perspective", "orthographic", "environment")
+LIGHTS = ("point", "spot", "distant", "infinite", "goniometric", "projection")
+QUADRICS = {"sphere": QUADRIC_SPHERE, "cylinder": QUADRIC_CYLINDER, "disk": QUADRIC_DISK, "cone": QUADRIC_CONE,
+            "paraboloid": QUADRIC_PARABOLOID, "hyperboloid": QUADRIC_HYPERBOLOID}
 
 # per-kind parameter defaults (reference src/materials/*.rs create_* fns)
 _MATERIAL_DEFAULTS = {
@@ -195,9 +215,12 @@ class CompiledScene:
     arrays: SceneTensors
     static: SceneStatic
     description: SceneDescription
+    # prim row -> the prim's index in description order (the BVH's leaf
+    # order), a host array; None for tables filled from another compiler
+    prim_order: np.ndarray | None = None
 
     def to(self, device) -> "CompiledScene":
-        return CompiledScene(self.arrays.to(device), self.static, self.description)
+        return CompiledScene(self.arrays.to(device), self.static, self.description, self.prim_order)
 
 
 def _unsupported(feature: str):
@@ -209,25 +232,16 @@ def _count_prims(desc: SceneDescription) -> int:
 
 
 def _check_slice(desc: SceneDescription) -> None:
-    """Raise NotImplementedError for any feature outside the ported classes."""
-    n_prims = _count_prims(desc)
-    brute = n_prims <= BRUTE_FORCE_MAX_PRIMS
-    n_quadrics = sum(p.shape.mesh is None for p in desc.primitives)
-    if not brute and n_quadrics:
-        # the reference walks these through its binary-BVH packet loop
-        if n_prims - n_quadrics <= BRUTE_FORCE_MAX_PRIMS:
-            _unsupported("scenes of > 64 primitives with 64 triangles or fewer beside quadrics")
-        if n_quadrics > MAX_WIDE_QUADRICS:
-            _unsupported(f"more than {MAX_WIDE_QUADRICS} quadrics in scenes of > 64 primitives")
+    """Raise NotImplementedError for any feature outside the ported class."""
     for light in desc.lights:
-        if light.kind not in ("point", "spot", "distant", "infinite"):
+        if light.kind not in LIGHTS:
             _unsupported(f"'{light.kind}' lights")
     if desc.media or desc.camera_medium:
         _unsupported("participating media")
-    if str(desc.accelerator or "bvh") != "bvh":
+    if str(desc.accelerator or "bvh") not in ("bvh", "kdtree"):
         _unsupported(f"the '{desc.accelerator}' accelerator")
     cam = desc.camera
-    if cam.kind != "perspective":
+    if cam.kind not in CAMERAS:
         _unsupported(f"'{cam.kind}' cameras")
     if cam.camera_to_world_end is not None:
         _unsupported("animated cameras")
@@ -239,7 +253,7 @@ def _check_slice(desc: SceneDescription) -> None:
         sh = prim.shape
         if sh.mesh is None:
             sph = sh.sphere
-            if getattr(sph, "kind", "sphere") != "sphere":
+            if getattr(sph, "kind", "sphere") not in QUADRICS:
                 _unsupported(f"'{sph.kind}' quadrics")
             if sph.object_to_world_end is not None or sph.anim is not None:
                 _unsupported("motion blur")
@@ -247,10 +261,6 @@ def _check_slice(desc: SceneDescription) -> None:
             mesh = sh.mesh
             if mesh.p_end is not None or mesh.anim is not None:
                 _unsupported("motion blur")
-            if mesh.alpha_texture is not None or mesh.shadow_alpha_texture is not None:
-                _unsupported("alpha cutouts")
-        if prim.instance_transform is not None:
-            _unsupported("object instancing")
         if prim.inside_medium or prim.outside_medium:
             _unsupported("medium interfaces")
         if prim.area_light is not None:
@@ -452,8 +462,9 @@ def _compile_material(mat: HostMaterial, tex_reg: _TextureRegistry, register_mat
 
 
 def _compile_light(hl):
-    """Point / spot / distant / infinite HostLight -> (kind, params (12,)),
-    as the reference's light loop writes them (scene/builder.py:361-410)."""
+    """Point / spot / distant / goniometric / projection / infinite
+    HostLight -> (kind, params (12,)), as the reference's light loop writes
+    them (scene/builder.py:361-410)."""
     p = np.zeros(12)
     if hl.kind == "infinite":
         p[3:6] = hl.intensity
@@ -462,6 +473,16 @@ def _compile_light(hl):
         p[0:3] = hl.from_point
         p[3:6] = hl.intensity
         return LIGHT_POINT, p
+    if hl.kind in ("goniometric", "projection"):
+        p[0:3] = hl.light_to_world.xpoint(np.zeros(3))
+        p[3:6] = hl.intensity
+        if hl.kind == "goniometric":
+            return LIGHT_GONIO, p
+        # projection.rs: the screen from the fov; tan(fov / 2) and the
+        # image's aspect
+        p[9] = np.tan(np.radians(hl.cone_angle) / 2.0)
+        p[10] = hl.image.shape[1] / hl.image.shape[0] if hl.image is not None and hl.image.shape[0] > 0 else 1.0
+        return LIGHT_PROJECTION, p
     if hl.kind == "spot":
         p[0:3] = hl.from_point
         p[3:6] = hl.intensity
@@ -516,14 +537,140 @@ def _geom_to_prim_map(prim_kind, prim_geom, kind_id, n_geom):
     return out
 
 
+def _quadric_area(sph, qkind):
+    """Analytic surface areas (sphere.rs / cylinder.rs / disk.rs / cone.rs /
+    paraboloid.rs area()); the hyperboloid's by midpoint quadrature of
+    |dp/du x dp/dv|, the reference's deliberate replacement of pbrt-v3's
+    broken closed form (reference builder._quadric_area :178-230)."""
+    if qkind == QUADRIC_DISK:
+        return sph.phi_max * 0.5 * (sph.radius ** 2 - sph.inner_radius ** 2)
+    if qkind == QUADRIC_CYLINDER:
+        return sph.phi_max * sph.radius * abs(sph.z_max - sph.z_min)
+    if qkind == QUADRIC_CONE:
+        return sph.radius * np.sqrt(sph.height ** 2 + sph.radius ** 2) * sph.phi_max / 2.0
+    if qkind == QUADRIC_HYPERBOLOID:
+        p1 = np.asarray(sph.p1, np.float64)
+        p2 = np.asarray(sph.p2, np.float64)
+        nv, nu = 256, 64
+        v = (np.arange(nv) + 0.5) / nv
+        phi = (np.arange(nu) + 0.5) / nu * sph.phi_max
+        seg = p1[None, :] + v[:, None] * (p2 - p1)[None, :]
+        cph, sph_ = np.cos(phi), np.sin(phi)
+        x = seg[:, None, 0] * cph[None, :] - seg[:, None, 1] * sph_[None, :]
+        y = seg[:, None, 0] * sph_[None, :] + seg[:, None, 1] * cph[None, :]
+        dpdu = np.stack([-y, x, np.zeros_like(x)], axis=-1) * sph.phi_max
+        dseg = p2 - p1
+        dvx = dseg[0] * cph - dseg[1] * sph_
+        dvy = dseg[0] * sph_ + dseg[1] * cph
+        dpdv = np.stack([np.broadcast_to(dvx, x.shape), np.broadcast_to(dvy, x.shape),
+                         np.full_like(x, dseg[2])], axis=-1)
+        return float(np.linalg.norm(np.cross(dpdu, dpdv), axis=-1).mean())
+    if qkind == QUADRIC_PARABOLOID:
+        r2 = sph.radius ** 2
+        zmax = max(sph.z_min, sph.z_max)
+        zmin = min(sph.z_min, sph.z_max)
+        if zmax <= 0:
+            return 0.0
+        k = 4.0 * zmax / r2
+        return (r2 * r2 * sph.phi_max / (12.0 * zmax * zmax)) * ((k * zmax + 1.0) ** 1.5 - (k * zmin + 1.0) ** 1.5)
+    return sph.phi_max * sph.radius * (np.clip(sph.z_max, -sph.radius, sph.radius)
+                                       - np.clip(sph.z_min, -sph.radius, sph.radius))
+
+
+def _hyperboloid_coefficients(sph):
+    """The implicit ah (x^2 + y^2) - ch z^2 = 1 of a hyperboloid's segment
+    (hyperboloid.rs:44-62; reference builder :700-728): pp walks away from
+    p1 until the system is conditioned; degenerate inputs (on which the
+    reference's loop spins) warn and give a never-hit shape."""
+    p1 = np.asarray(sph.p1, np.float64).copy()
+    p2 = np.asarray(sph.p2, np.float64).copy()
+    if p2[2] == 0.0:
+        p1, p2 = p2.copy(), p1.copy()
+    pp = p1.copy()
+    ah = np.inf
+    for _ in range(64):
+        pp += 2.0 * (p2 - p1)
+        xy1 = pp[0] * pp[0] + pp[1] * pp[1]
+        xy2 = p2[0] * p2[0] + p2[1] * p2[1]
+        den = 1.0 - (xy2 * pp[2] * pp[2]) / (xy1 * p2[2] * p2[2])
+        ah = (1.0 / xy1 - (pp[2] * pp[2]) / (xy1 * p2[2] * p2[2])) / den
+        ch = (ah * xy2 - 1.0) / (p2[2] * p2[2])
+        if np.isfinite(ah):
+            break
+    if not (np.isfinite(ah) and np.isfinite(ch)):
+        log.warning("degenerate hyperboloid p1=%s p2=%s: implicit coefficients are non-finite; "
+                    "shape will not render", p1, p2)
+        ah = ch = 0.0
+    return p1, p2, ah, ch
+
+
+def _quadric_row(sph, qkind):
+    """(sph_param row (12,), object-space bounds lo, hi) of a quadric, as
+    the reference writes them (builder :684-772)."""
+    pad6 = [0.0] * 6
+    r = sph.radius
+    if qkind == QUADRIC_SPHERE:
+        zmin = np.clip(min(sph.z_min, sph.z_max), -r, r)
+        zmax = np.clip(max(sph.z_min, sph.z_max), -r, r)
+        theta_min = np.arccos(np.clip(zmin / r, -1.0, 1.0))
+        theta_max = np.arccos(np.clip(zmax / r, -1.0, 1.0))
+        return [r, zmin, zmax, sph.phi_max, theta_min, theta_max] + pad6, [-r] * 3, [r] * 3
+    if qkind in (QUADRIC_CYLINDER, QUADRIC_PARABOLOID):
+        zmin, zmax = min(sph.z_min, sph.z_max), max(sph.z_min, sph.z_max)
+        return [r, zmin, zmax, sph.phi_max, 0.0, 0.0] + pad6, [-r, -r, zmin], [r, r, zmax]
+    if qkind == QUADRIC_CONE:
+        return [r, sph.height, 0.0, sph.phi_max, 0.0, 0.0] + pad6, [-r, -r, 0.0], [r, r, sph.height]
+    if qkind == QUADRIC_HYPERBOLOID:
+        p1, p2, ah, ch = _hyperboloid_coefficients(sph)
+        rmax = max(np.hypot(p1[0], p1[1]), np.hypot(p2[0], p2[1]))
+        zmin, zmax = min(p1[2], p2[2]), max(p1[2], p2[2])
+        return ([rmax, zmin, zmax, sph.phi_max, float(ah), float(ch)] + list(p1) + list(p2),
+                [-rmax, -rmax, zmin], [rmax, rmax, zmax])
+    # disk (disk.rs): the plane z = height, the annulus [inner, radius]
+    return ([r, sph.height, sph.inner_radius, sph.phi_max, 0.0, 0.0] + pad6,
+            [-r, -r, sph.height - 1e-4], [r, r, sph.height + 1e-4])
+
+
+def _mesh_rows(mesh):
+    """A mesh's per-triangle rows: (vertices (t, 3, 3), shading normals,
+    uvs, areas, flags), as the reference's prim loop computes them."""
+    v = np.asarray(mesh.p, dtype=np.float64)
+    f = np.asarray(mesh.indices, dtype=np.int64)
+    pv = v[f]  # (t, 3, 3)
+    e1 = pv[:, 1] - pv[:, 0]
+    e2 = pv[:, 2] - pv[:, 0]
+    gn = np.cross(e1, e2)
+    areas = 0.5 * np.linalg.norm(gn, axis=-1)
+    flags = 0
+    if mesh.reverse_orientation ^ mesh.transform_swaps_handedness:
+        flags |= FLAG_FLIP_GEOM_N
+    if mesh.reverse_orientation:
+        flags |= FLAG_REVERSE_ORIENTATION
+    if mesh.n is not None:
+        flags |= FLAG_HAS_SHADING_N
+        nv = np.asarray(mesh.n, dtype=np.float64)[f]
+    else:
+        gnn = gn / np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-30)
+        if flags & FLAG_FLIP_GEOM_N:
+            gnn = -gnn
+        nv = np.repeat(gnn[:, None, :], 3, axis=1)
+    if mesh.uv is not None:
+        flags |= FLAG_HAS_UV
+        uvv = np.asarray(mesh.uv, dtype=np.float64)[f]
+    else:
+        uvv = np.broadcast_to(np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0]]), (len(f), 3, 2)).copy()
+    return pv, nv, uvv, areas, flags
+
+
 def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
-    """Compile a scene of a ported class into tables on `device` (the card
-    unless the caller names another device)."""
+    """Compile a scene of the ported class into tables on `device` (the
+    card unless the caller names another device)."""
     _check_slice(desc)
     tri_p, tri_n, tri_uv = [], [], []
     sph_o2w, sph_w2o, sph_param, sph_kind = [], [], [], []
     prim_kind, prim_geom, prim_mat, prim_light, prim_flags, prim_area = [], [], [], [], [], []
     prim_lo, prim_hi = [], []
+    prim_alpha, prim_shadow_alpha = [], []  # float texture ids or -1 (cutouts)
     mat_index: dict[int, int] = {}
     mat_rows: list[tuple] = []
     tex_reg = _TextureRegistry()
@@ -550,6 +697,20 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         return mat_index[key]
 
     lights: list[tuple] = []  # (kind, params(12,), prim_id, nsamples)
+    # per light row: its world -> light frame and its image key (the
+    # goniometric and projection lights' maps), as the reference pushes them
+    light_w2l_rows: list = []
+    light_images: dict = {}
+    light_image_keys: list = []
+
+    def push_light_frame(hl, has_image):
+        light_w2l_rows.append(np.eye(4)[:3, :] if hl is None else hl.light_to_world.inverse().m[:3, :])
+        if has_image and hl.image is not None:
+            key = f"lim{len(light_images)}"
+            light_images[key] = np.asarray(hl.image, dtype=np.float32)
+            light_image_keys.append(key)
+        else:
+            light_image_keys.append(None)
 
     # non-area lights first, in description order; the last infinite light
     # is the scene's environment, as in the reference
@@ -557,24 +718,43 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
     for hl in desc.lights:
         kind, p = _compile_light(hl)
         lights.append((kind, p, -1, max(int(hl.n_samples), 1)))
+        push_light_frame(hl, kind in (LIGHT_GONIO, LIGHT_PROJECTION))
         if kind == LIGHT_INFINITE:
             infinite_host = hl
+
+    def add_area_lights(area_light, first_prim, n):
+        """n area-light rows for prims first_prim.. (one per triangle or
+        quadric); returns their light ids."""
+        lp = np.zeros(12)
+        lp[0:3] = area_light.intensity
+        lp[3] = 1.0 if area_light.two_sided else 0.0
+        ns = max(int(area_light.n_samples), 1)
+        ids = np.arange(len(lights), len(lights) + n)
+        for ti in range(n):
+            lights.append((LIGHT_AREA, lp, first_prim + ti, ns))
+            push_light_frame(None, False)
+        return ids
+
+    # instance transforms (primitive.rs TransformedPrimitive): row 0 is the
+    # identity; an instanced mesh's prims keep its prototype's rows (one
+    # set of rows per mesh) and carry the instance id
+    inst_i2w_rows = [np.eye(4)[:3, :]]
+    inst_w2i_rows = [np.eye(4)[:3, :]]
+    prim_inst: list[int] = []
+    proto_rows: dict[int, tuple] = {}  # id(mesh) -> (t0, t, pv, areas, flags)
 
     for prim in desc.primitives:
         mid = material_id(prim.material)
         if prim.shape.mesh is None:
-            # full or partial sphere (sphere.rs); the checks admit no other quadric
             sph = prim.shape.sphere
             o2w = sph.object_to_world
+            qkind = QUADRICS[getattr(sph, "kind", "sphere")]
             si = len(sph_o2w)
             sph_o2w.append(o2w.m[:3, :])
             sph_w2o.append(o2w.inverse().m[:3, :])
-            sph_kind.append(QUADRIC_SPHERE)
-            zmin = np.clip(min(sph.z_min, sph.z_max), -sph.radius, sph.radius)
-            zmax = np.clip(max(sph.z_min, sph.z_max), -sph.radius, sph.radius)
-            theta_min = np.arccos(np.clip(zmin / sph.radius, -1.0, 1.0))
-            theta_max = np.arccos(np.clip(zmax / sph.radius, -1.0, 1.0))
-            sph_param.append([sph.radius, zmin, zmax, sph.phi_max, theta_min, theta_max] + [0.0] * 6)
+            sph_kind.append(qkind)
+            row, obj_lo, obj_hi = _quadric_row(sph, qkind)
+            sph_param.append(row)
             flags = 0
             if sph.reverse_orientation ^ o2w.swaps_handedness():
                 flags |= FLAG_FLIP_GEOM_N
@@ -582,76 +762,70 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
                 flags |= FLAG_REVERSE_ORIENTATION
             light_id = -1
             if prim.area_light is not None:
-                light_id = len(lights)
-                lp = np.zeros(12)
-                lp[0:3] = prim.area_light.intensity
-                lp[3] = 1.0 if prim.area_light.two_sided else 0.0
-                lights.append((LIGHT_AREA, lp, len(prim_kind), max(int(prim.area_light.n_samples), 1)))
+                light_id = int(add_area_lights(prim.area_light, len(prim_kind), 1)[0])
             prim_kind.append(GEOM_SPHERE)
+            prim_inst.append(0)
             prim_geom.append(si)
             prim_mat.append(mid)
             prim_light.append(light_id)
             prim_flags.append(flags)
-            prim_area.append(sph.phi_max * sph.radius * (np.clip(sph.z_max, -sph.radius, sph.radius)
-                                                         - np.clip(sph.z_min, -sph.radius, sph.radius)))
-            lo, hi = o2w.xbounds([-sph.radius] * 3, [sph.radius] * 3)
+            prim_area.append(_quadric_area(sph, qkind))
+            prim_alpha.append(-1)
+            prim_shadow_alpha.append(-1)
+            lo, hi = o2w.xbounds(obj_lo, obj_hi)
             prim_lo.append(lo)
             prim_hi.append(hi)
             continue
         mesh = prim.shape.mesh
-        v = np.asarray(mesh.p, dtype=np.float64)
-        f = np.asarray(mesh.indices, dtype=np.int64)
-        pv = v[f]  # (t, 3, 3)
-        e1 = pv[:, 1] - pv[:, 0]
-        e2 = pv[:, 2] - pv[:, 0]
-        gn = np.cross(e1, e2)
-        areas = 0.5 * np.linalg.norm(gn, axis=-1)
-        flags = 0
-        if mesh.reverse_orientation ^ mesh.transform_swaps_handedness:
-            flags |= FLAG_FLIP_GEOM_N
-        if mesh.reverse_orientation:
-            flags |= FLAG_REVERSE_ORIENTATION
-        if mesh.n is not None:
-            flags |= FLAG_HAS_SHADING_N
-            nv = np.asarray(mesh.n, dtype=np.float64)[f]
+        inst_t = prim.instance_transform
+        cached = proto_rows.get(id(mesh)) if inst_t is not None else None
+        if cached is None:
+            pv, nv, uvv, areas, flags = _mesh_rows(mesh)
+            t = len(pv)
+            t0 = sum(len(c) for c in tri_p)
+            tri_p.append(pv)
+            tri_n.append(nv)
+            tri_uv.append(uvv)
+            if inst_t is not None:
+                proto_rows[id(mesh)] = (t0, t, pv, areas, flags)
         else:
-            gnn = gn / np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-30)
-            if flags & FLAG_FLIP_GEOM_N:
-                gnn = -gnn
-            nv = np.repeat(gnn[:, None, :], 3, axis=1)
-        if mesh.uv is not None:
-            flags |= FLAG_HAS_UV
-            uvv = np.asarray(mesh.uv, dtype=np.float64)[f]
+            t0, t, pv, areas, flags = cached
+        if inst_t is not None:
+            iid = len(inst_i2w_rows)
+            inst_i2w_rows.append(inst_t.m[:3, :])
+            inst_w2i_rows.append(inst_t.inverse().m[:3, :])
+            flags_p = flags ^ (FLAG_FLIP_GEOM_N if inst_t.swaps_handedness() else 0)
+            # world bounds of the instance-space triangles
+            pv_w = inst_t.xpoint(pv.reshape(-1, 3)).reshape(-1, 3, 3)
         else:
-            uvv = np.broadcast_to(np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0]]), (len(f), 3, 2)).copy()
-
-        t = len(f)
-        t0 = sum(len(c) for c in tri_p)
-        tri_p.append(pv)
-        tri_n.append(nv)
-        tri_uv.append(uvv)
+            iid, flags_p, pv_w = 0, flags, pv
         base_prim = len(prim_kind)
         light_ids = np.full(t, -1, dtype=np.int64)
         if prim.area_light is not None:
-            light_ids = np.arange(len(lights), len(lights) + t)
-            lp = np.zeros(12)
-            lp[0:3] = prim.area_light.intensity
-            lp[3] = 1.0 if prim.area_light.two_sided else 0.0
-            ns = max(int(prim.area_light.n_samples), 1)
-            lights.extend((LIGHT_AREA, lp, base_prim + ti, ns) for ti in range(t))
+            if inst_t is not None:
+                log.warning("area lights on instanced prototypes are not supported (dropped)")
+            else:
+                light_ids = add_area_lights(prim.area_light, base_prim, t)
         prim_kind.extend([GEOM_TRI] * t)
         prim_geom.extend(range(t0, t0 + t))
         prim_mat.extend([mid] * t)
         prim_light.extend(light_ids.tolist())
-        prim_flags.extend([flags] * t)
+        prim_flags.extend([flags_p] * t)
         prim_area.extend(areas.tolist())
+        prim_inst.extend([iid] * t)
         # static meshes: the reference's Bezier-hull motion bound reduces to
         # the triangle's own AABB exactly
-        prim_lo.extend(pv.min(axis=1))
-        prim_hi.extend(pv.max(axis=1))
+        prim_lo.extend(pv_w.min(axis=1))
+        prim_hi.extend(pv_w.max(axis=1))
+        # alpha / shadow-alpha cutout masks (triangle.rs:29-30)
+        a_id = tex_reg.register(mesh.alpha_texture) if mesh.alpha_texture is not None else -1
+        sa_id = tex_reg.register(mesh.shadow_alpha_texture) if mesh.shadow_alpha_texture is not None else a_id
+        prim_alpha.extend([a_id] * t)
+        prim_shadow_alpha.extend([sa_id] * t)
 
     n_prims = len(prim_kind)
-    use_brute = n_prims <= BRUTE_FORCE_MAX_PRIMS
+    has_instances = len(inst_i2w_rows) > 1
+    use_brute = n_prims <= BRUTE_FORCE_MAX_PRIMS and not has_instances
     if n_prims == 0:
         _unsupported("scenes without primitives")
     if not lights and not use_brute:
@@ -682,9 +856,16 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
     prim_light = _perm(prim_light)
     prim_flags = _perm(prim_flags)
     prim_area = _perm(prim_area)
+    prim_alpha = _perm(prim_alpha)
+    prim_shadow_alpha = _perm(prim_shadow_alpha)
     prim_lo = _perm(prim_lo)
     prim_hi = _perm(prim_hi)
     lights = [(k, p_, int(inv[pr]) if pr >= 0 else -1, ns) for (k, p_, pr, ns) in lights]
+    # the reference leaves prim_inst in description order (builder :887-904
+    # permutes every other prim table), so its instanced prims read other
+    # prims' transforms once the BVH reorders them; the port permutes it
+    # with the rest (ROADMAP C)
+    prim_inst = _perm(prim_inst)
 
     def _cat(chunks, shape):
         if not chunks:
@@ -692,6 +873,35 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         return np.concatenate([np.asarray(c, dtype=np.float32).reshape((-1,) + shape) for c in chunks], axis=0)
 
     tri_p_cat = _cat(tri_p, (3, 3))
+    sph_w2o_cat = np.asarray(sph_w2o, dtype=np.float32).reshape(-1, 3, 4)
+    sph_param_cat = np.asarray(sph_param, dtype=np.float32).reshape(-1, 12)
+
+    # --- the binary BVH's packed tables (the walks' input) --------------------
+    # node rows (N, 12): lo (3), hi (3), offset, n prims, axis, pad (3)
+    node_data = np.zeros((len(bvh.n_prims), 12), np.float32)
+    node_data[:, 0:3] = bvh.bounds_min
+    node_data[:, 3:6] = bvh.bounds_max
+    node_data[:, 6] = bvh.offset
+    node_data[:, 7] = bvh.n_prims
+    node_data[:, 8] = bvh.axis
+    # prim rows (P, 20): a triangle's 9 vertex floats; a quadric's w2o (12),
+    # params 0:6, kind (col 18); a partial-phimax hyperboloid widens every
+    # row to 26 with params 6:12 (its p1, p2) in cols 19:25
+    partial_hyp = any(k == QUADRIC_HYPERBOLOID and row[3] < 2.0 * np.pi - 1e-6 for k, row in zip(sph_kind, sph_param))
+    ptd = np.zeros((n_prims, 26 if partial_hyp else 20), np.float32)
+    pk = np.asarray(prim_kind)
+    pg = np.asarray(prim_geom)
+    tri_rows = np.where(pk == GEOM_TRI)[0]
+    q_rows = np.where(pk == GEOM_SPHERE)[0]
+    if len(tri_rows):
+        ptd[tri_rows, 0:9] = tri_p_cat[pg[tri_rows]].reshape(len(tri_rows), 9)
+    if len(q_rows):
+        ptd[q_rows, 0:12] = sph_w2o_cat[pg[q_rows]].reshape(len(q_rows), 12)
+        ptd[q_rows, 12:18] = sph_param_cat[pg[q_rows]][:, 0:6]
+        ptd[q_rows, 18] = np.asarray(sph_kind, np.float32)[pg[q_rows]]
+        if partial_hyp:
+            ptd[q_rows, 19:25] = sph_param_cat[pg[q_rows]][:, 6:12]
+
     mat_kind = np.array([r[0] for r in mat_rows], dtype=np.int32)
     arrays = {
         "tri_p": tri_p_cat,
@@ -699,8 +909,8 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         "tri_uv": _cat(tri_uv, (3, 2)),
         "tri_prim_ids": _geom_to_prim_map(prim_kind, prim_geom, GEOM_TRI, len(tri_p_cat)),
         "sph_o2w": np.asarray(sph_o2w, dtype=np.float32).reshape(-1, 3, 4),
-        "sph_w2o": np.asarray(sph_w2o, dtype=np.float32).reshape(-1, 3, 4),
-        "sph_param": np.asarray(sph_param, dtype=np.float32).reshape(-1, 12),
+        "sph_w2o": sph_w2o_cat,
+        "sph_param": sph_param_cat,
         "sph_kind": np.asarray(sph_kind, dtype=np.int32),
         "sph_prim_ids": _geom_to_prim_map(prim_kind, prim_geom, GEOM_SPHERE, len(sph_o2w)),
         "prim_kind": np.asarray(prim_kind, dtype=np.int32),
@@ -720,6 +930,15 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         "light_kind": np.array([l[0] for l in lights], dtype=np.int32),
         "light_param": np.asarray([l[1] for l in lights], dtype=np.float32).reshape(-1, 12),
         "light_prim": np.array([l[2] for l in lights], dtype=np.int32),
+        "light_w2l": np.asarray(light_w2l_rows, dtype=np.float32).reshape(-1, 3, 4),
+        "light_images": light_images,
+        "bvh_packed": node_data,
+        "prim_test_data": ptd,
+        "prim_inst": np.asarray(prim_inst, dtype=np.int32),
+        "inst_i2w": np.asarray(inst_i2w_rows, dtype=np.float32).reshape(-1, 3, 4),
+        "inst_w2i": np.asarray(inst_w2i_rows, dtype=np.float32).reshape(-1, 3, 4),
+        "prim_alpha_tex": np.asarray(prim_alpha, dtype=np.int32),
+        "prim_shadow_alpha_tex": np.asarray(prim_shadow_alpha, dtype=np.int32),
         "fourier": _stack_fourier_tables(fourier_tables),
         "world_center": wc.astype(np.float32),
         "world_radius": np.float32(wr),
@@ -729,26 +948,47 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         env, mean = _env_tables(infinite_host)
         arrays.update(env)
         arrays["light_param"][inf_idx, 3:6] = mean
+
+    # --- the kd-tree (Accelerator "kdtree"), with the reference's demotions:
+    # instancing keeps the BVH (with its warning), a brute-force scene the
+    # brute route
+    accel_kind = str(desc.accelerator or "bvh")
+    if accel_kind == "kdtree" and has_instances:
+        log.warning("kd-tree accelerator does not support instancing; using bvh")
+        accel_kind = "bvh"
+    kd = None
+    if accel_kind == "kdtree" and not use_brute:
+        kd = build_kdtree(np.asarray(prim_lo), np.asarray(prim_hi))
+        arrays.update(kd_flags=kd.flags, kd_split=kd.split, kd_above=kd.above, kd_nprims=kd.nprims,
+                      kd_prim_ids=kd.prim_ids, kd_lo=kd.bounds_lo.astype(np.float32),
+                      kd_hi=kd.bounds_hi.astype(np.float32))
+    else:
+        accel_kind = "bvh"
+
     wide_root = 1
-    if not use_brute:
+    n_tri_prims = len(tri_rows)
+    all_tri = n_tri_prims == n_prims
+    mixed_ok = not all_tri and n_tri_prims > BRUTE_FORCE_MAX_PRIMS and 0 < len(sph_o2w) <= MAX_WIDE_QUADRICS
+    has_wide_tri = not use_brute and accel_kind == "bvh" and not has_instances and (all_tri or mixed_ok)
+    if has_wide_tri:
         # --- wide BVH over the (permuted) triangle rows -----------------------
         # a mixed scene's tables cover its triangle prims only (the
-        # reference's mixed_ok branch); the quadrics are tested beside them
-        rows = np.nonzero(np.asarray(prim_kind) == GEOM_TRI)[0]
+        # reference's mixed_ok branch)
+        rows = tri_rows
         # payload cols 11-13 (mat, light, flags) as the reference writes them
         extra = np.stack([
             np.asarray(prim_mat, np.float32)[rows],
             np.asarray(prim_light, np.float32)[rows],
             np.asarray(prim_flags, np.float32)[rows],
         ], axis=1)
-        pg = np.asarray(prim_geom)[rows]
-        tv = tri_p_cat[pg]
+        pgt = pg[rows]
+        tv = tri_p_cat[pgt]
         # the attribute table (reference builder :1118-1139), built when some
         # prim has shading normals or a non-default UV chart: lanes 0:9 the
         # per-vertex normals n0/n1/n2, 9:15 uv0/uv1/uv2, in the prim table's
         # (octet, slot) layout
         attr = None
-        tn, tuv = arrays["tri_n"][pg], arrays["tri_uv"][pg]
+        tn, tuv = arrays["tri_n"][pgt], arrays["tri_uv"][pgt]
         need_ns = bool((np.asarray(prim_flags, np.int64)[rows] & FLAG_HAS_SHADING_N).any())
         need_uv = bool(tuv.shape[0]) and not np.array_equal(
             tuv, np.broadcast_to(np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0]], tuv.dtype), tuv.shape))
@@ -777,6 +1017,7 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         # cone (reference builder :1306-1313)
         "has_cone_sphere_lights": any(
             l[0] == LIGHT_AREA and prim_kind[l[2]] == GEOM_SPHERE
+            and sph_kind[prim_geom[l[2]]] == QUADRIC_SPHERE
             and sph_param[prim_geom[l[2]]][1] <= -sph_param[prim_geom[l[2]]][0] * (1 - 1e-6)
             and sph_param[prim_geom[l[2]]][2] >= sph_param[prim_geom[l[2]]][0] * (1 - 1e-6)
             and sph_param[prim_geom[l[2]]][3] >= 2.0 * np.pi - 1e-6
@@ -787,9 +1028,15 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         "tex_programs": tuple(tex_reg.programs),
         "has_bump": any(r[4] >= 0 for r in mat_rows),
         "has_fourier": bool(fourier_tables),
-        "has_wide": not use_brute and not sph_o2w,
-        "has_wide_tri": not use_brute,
+        "has_wide": has_wide_tri and all_tri,
+        "has_wide_tri": has_wide_tri,
         "wide_root": wide_root,
+        "max_leaf": max_leaf,
+        "has_instances": has_instances,
+        "has_alpha": any(a >= 0 for a in prim_alpha) or any(a >= 0 for a in prim_shadow_alpha),
+        "accel_kind": accel_kind,
+        "kd_max_leaf": int(kd.max_leaf) if kd is not None else 1,
+        "light_image_keys": tuple(light_image_keys),
     }
     tensors, st = scene_tensors_from_numpy(arrays, static, device)
-    return CompiledScene(arrays=tensors, static=st, description=desc)
+    return CompiledScene(arrays=tensors, static=st, description=desc, prim_order=perm)

@@ -61,6 +61,7 @@ as a copy, so the front end can be driven with the same scenes
 """
 from __future__ import annotations
 
+import math
 import os
 import shutil
 import tempfile
@@ -69,6 +70,7 @@ import numpy as np
 
 from .core.fourierbsdf import write_rough_conductor_table
 from .core.transform import Transform
+from .parser.api import _normed
 from .scene.host import (
     CameraConfig, FilmConfig, HostLight, HostMaterial, HostPrimitive, HostTexture,
     IntegratorConfig, SamplerConfig, SceneDescription, ShapeRecord, Sphere, TriangleMesh,
@@ -592,6 +594,182 @@ def _uv_sphere(center, radius, n_theta, n_phi):
                         n=norms, uv=uv)
 
 
+# quadric_room's quadrics: per kind, five (parameters, material, extra)
+# rows; placed on a 6 x 5 grid (a column per kind) standing upright
+_QUADRIC_MATERIALS = (
+    ("matte", {"Kd": [0.6, 0.5, 0.35]}),
+    ("plastic", {"Kd": [0.2, 0.35, 0.6], "Ks": [0.4, 0.4, 0.4], "roughness": 0.12}),
+    ("glass", {}),
+    ("metal", {"roughness": 0.08}),
+    ("matte", {"Kd": [0.35, 0.6, 0.4], "sigma": 20.0}),
+)
+_QUADRICS = (
+    ("sphere", ({"radius": 0.3}, {"radius": 0.3, "z_min": -0.15, "z_max": 0.25, "phi_max": np.radians(270.0)},
+                {"radius": 0.25}, {"radius": 0.35, "z_min": -0.35, "z_max": 0.1}, {"radius": 0.2})),
+    ("cylinder", ({"radius": 0.2, "z_min": -0.3, "z_max": 0.3}, {"radius": 0.25, "z_min": -0.2, "z_max": 0.35,
+                                                               "phi_max": np.radians(200.0)},
+                  {"radius": 0.15, "z_min": -0.35, "z_max": 0.35}, {"radius": 0.22, "z_min": 0.0, "z_max": 0.4},
+                  {"radius": 0.12, "z_min": -0.25, "z_max": 0.25})),
+    ("disk", ({"radius": 0.3}, {"radius": 0.3, "inner_radius": 0.12}, {"radius": 0.25, "phi_max": np.radians(300.0)},
+              {"radius": 0.2, "height": 0.1}, {"radius": 0.28, "inner_radius": 0.05})),
+    ("cone", ({"radius": 0.25, "height": 0.5}, {"radius": 0.3, "height": 0.4, "phi_max": np.radians(240.0)},
+              {"radius": 0.2, "height": 0.6}, {"radius": 0.15, "height": 0.3}, {"radius": 0.28, "height": 0.45})),
+    ("paraboloid", ({"radius": 0.3, "z_min": 0.0, "z_max": 0.5}, {"radius": 0.25, "z_min": 0.1, "z_max": 0.4},
+                    {"radius": 0.2, "z_min": 0.0, "z_max": 0.3, "phi_max": np.radians(220.0)},
+                    {"radius": 0.3, "z_min": 0.0, "z_max": 0.25}, {"radius": 0.18, "z_min": 0.0, "z_max": 0.45})),
+    ("hyperboloid", ({"p1": [0.25, 0.0, -0.3], "p2": [0.0, 0.25, 0.3]},
+                     {"p1": [0.2, 0.0, -0.3], "p2": [0.1, 0.2, 0.3], "phi_max": np.radians(250.0)},
+                     {"p1": [0.3, 0.0, -0.25], "p2": [0.3, 0.0, 0.25]}, {"p1": [0.1, 0.0, -0.3], "p2": [0.25, 0.1, 0.3]},
+                     {"p1": [0.22, -0.1, -0.2], "p2": [-0.1, 0.22, 0.3]})),
+)
+QUADRIC_LIGHTS = {("disk", 0): [9.0, 8.0, 7.0], ("cylinder", 4): [6.0, 7.0, 9.0]}  # (kind, row) -> L
+
+
+def _quadric(kind, params, o2w, material, light=None):
+    fields = dict(params)
+    for k in ("p1", "p2"):
+        if k in fields:
+            fields[k] = np.asarray(fields[k], np.float64)
+    if kind == "sphere":
+        fields.setdefault("z_min", -fields["radius"])
+        fields.setdefault("z_max", fields["radius"])
+    return HostPrimitive(shape=ShapeRecord(sphere=Sphere(object_to_world=o2w, kind=kind, **fields)),
+                         material=material, area_light=light)
+
+
+def _alpha_panel(n: int = 16, res: int = 64, seed: int = 3):
+    """A vertical 1.6 x 1.6 panel of 2 n^2 triangles (512 at n 16) with a
+    UV chart, an alpha cutout (a float imagemap of round holes and
+    random speckle) and a shadow-alpha one (a float imagemap of stripes);
+    both images from numpy with the given seed."""
+    rs = np.random.RandomState(seed)
+    verts, idx = _grid_mesh(lambda u, v: (u, v, np.full_like(u, -0.6)), -0.8, 0.8, 0.9, 2.5, n)
+    t = (np.arange(res) + 0.5) / res
+    x, y = np.meshgrid(t * 4.0, t * 4.0)
+    holes = ((x % 1.0 - 0.5) ** 2 + (y % 1.0 - 0.5) ** 2 < 0.09) | (rs.rand(res, res) < 0.05)
+    alpha_img = np.repeat(np.where(holes, 0.0, 1.0)[..., None], 3, axis=-1).astype(np.float32)
+    stripes = np.repeat(np.where((x * 2.0) % 1.0 < 0.35, 0.0, 1.0)[..., None], 3, axis=-1).astype(np.float32)
+    mesh = TriangleMesh(p=verts, indices=idx, uv=_grid_uv(n),
+                        alpha_texture=_texture("imagemap", is_float=True, image=alpha_img),
+                        shadow_alpha_texture=_texture("imagemap", is_float=True, image=stripes))
+    return HostPrimitive(shape=ShapeRecord(mesh=mesh),
+                         material=HostMaterial(kind="matte", params={"Kd": _const([0.7, 0.3, 0.2])}))
+
+
+def _image_light_maps(seed: int = 9):
+    """The goniometric light's 64 x 32 map (a lobed pattern over theta and
+    phi) and the projection light's 32 x 32 image (colored squares)."""
+    rs = np.random.RandomState(seed)
+    th = (np.arange(32) + 0.5) / 32 * np.pi
+    ph = (np.arange(64) + 0.5) / 64 * 2 * np.pi
+    gp, gt = np.meshgrid(ph, th)
+    lobe = 0.3 + np.abs(np.cos(3.0 * gp)) * np.sin(gt) ** 2
+    gonio = (lobe[..., None] * np.array([1.0, 0.9, 0.7])).astype(np.float32)
+    proj = np.kron(rs.uniform(0.1, 1.0, (4, 4, 3)), np.ones((8, 8, 1))).astype(np.float32)
+    return gonio, proj
+
+
+def _placed(t: Transform) -> Transform:
+    """t as a Transform directive gives it (the matrix, its inverse by
+    np.linalg.inv), so that write_pbrt's file compiles to the same tables."""
+    return Transform.from_matrix(t.m)
+
+
+def _upright(center, deg=-90.0):
+    """Object -> world of a quadric standing along +y (deg -90 about x) at
+    center."""
+    return _placed(Transform.translate(center) @ Transform.rotate(deg, [1.0, 0.0, 0.0]))
+
+
+def quadric_room(n_side: int = 248, instances: int | bool = True, accelerator: str = "bvh",
+                 prop_res: int = 32) -> SceneDescription:
+    """The mesh room's enclosure (123,650 triangles at n_side 248, its
+    two-sided ceiling lamp) with the rest of the persistent wavefront's
+    class in it:
+    - 30 quadrics, 5 of each kind (sphere, cylinder, disk, cone, paraboloid,
+      hyperboloid) standing on a 6 x 5 grid above the floor, among them
+      partial ones (a partial sphere, a partial-phimax hyperboloid), in
+      matte, plastic, glass, metal and Oren-Nayar materials; one disk and
+      one cylinder are area lights;
+    - a goniometric light with a 64 x 32 map and a projection light with
+      a 32 x 32 image (_image_light_maps);
+    - a 512-triangle panel with an alpha and a shadow-alpha cutout
+      (_alpha_panel);
+    - with `instances`, a 1,984-triangle prop (a UV sphere with per-vertex
+      normals and a chart) instanced 64 times on an 8 x 8 grid under the ceiling, with
+      rotations, anisotropic scales and one mirrored instance (126,976
+      instanced triangles: 251,168 prims in all at n_side 248);
+    - the given accelerator ("bvh" or "kdtree"); 1000 x 500, 16 spp,
+      depth 5, power light selection.
+    An int `instances` places that many of the 64 instances, and prop_res
+    sets the prop's UV-sphere resolution (2 prop_res (prop_res - 1)
+    triangles), for small test scenes.
+    The reference builds its kd-tree by Python recursion: keep the kd
+    variant small (n_side 40, without instances)."""
+    desc = mesh_room(n_side)
+    for q, (kind, rows) in enumerate(_QUADRICS):
+        for j, params in enumerate(rows):
+            mk, mp = _QUADRIC_MATERIALS[j]
+            mat = HostMaterial(kind=mk, params={k: ("const", np.asarray(v, np.float64)) for k, v in mp.items()})
+            center = [-3.2 + 1.28 * q, 1.75, -3.2 + 1.0 * j]
+            light = None
+            emit = QUADRIC_LIGHTS.get((kind, j))
+            if emit is not None:
+                # the lamps hang near the ceiling, facing down
+                center = [-2.0 + 4.0 * (kind == "cylinder"), 3.5, -1.0]
+                light = HostLight(kind="area", intensity=np.asarray(emit, np.float64), two_sided=kind == "cylinder")
+                mat = HostMaterial(kind="matte", params={"Kd": _const([0.1, 0.1, 0.1])})
+            desc.primitives.append(_quadric(kind, params, _upright(center, 90.0 if kind == "disk" else -90.0),
+                                            mat, light))
+    desc.primitives.append(_alpha_panel())
+    gonio, proj = _image_light_maps()
+    desc.lights = [
+        HostLight(kind="goniometric", light_to_world=_upright([-2.5, 3.2, 1.5], 90.0),
+                  intensity=np.array([3.0, 3.0, 3.0]), image=gonio, map_name="gonio.pfm"),
+        HostLight(kind="projection", light_to_world=_upright([2.5, 3.4, 2.0], 126.87),
+                  intensity=np.array([8.0, 8.0, 8.0]), image=proj, map_name="proj.pfm", cone_angle=40.0),
+    ]
+    if instances:
+        # a smooth prop; the parser transforms and normalises the
+        # per-vertex normals it reads (parser/api.py: _normed(o2w.xnormal(n)),
+        # whose product turns a -0.0 into 0.0), so the prop's go through the
+        # same two functions, and a written file compiles to its tables bit
+        # for bit
+        prop = _uv_sphere([0.0, 0.0, 0.0], 1.0, prop_res, prop_res)
+        prop.n = _normed(Transform.identity().xnormal(prop.n))
+        mat = HostMaterial(kind="plastic", params={"Kd": _const([0.5, 0.3, 0.15]), "Ks": _const([0.3, 0.3, 0.3]),
+                                                   "roughness": ("const", np.asarray(0.1))})
+        rs = np.random.RandomState(17)
+        for i in range(64 if instances is True else int(instances)):
+            gx, gz = i % 8, i // 8
+            s = rs.uniform(0.12, 0.22, 3)
+            if i == 5:
+                s[0] = -s[0]  # the mirrored instance
+            i2w = _placed(Transform.translate([-3.5 + gx, 3.0 + 0.2 * rs.rand(), -3.5 + gz * 0.8])
+                          @ Transform.rotate(float(rs.uniform(0, 360)), rs.uniform(-1, 1, 3)) @ Transform.scale(*s))
+            desc.primitives.append(HostPrimitive(shape=ShapeRecord(mesh=prop), material=mat, instance_transform=i2w))
+    desc.accelerator = accelerator
+    return desc
+
+
+def camera_room(kind: str, n_side: int = 40) -> SceneDescription:
+    """material_room(checker=True) under an orthographic camera (its screen
+    window fitted to the room, along the rooms' view) or under an
+    environment camera at the room's center, 1000 x 500, with
+    quadric_room's alpha panel added (the environment one)."""
+    desc = material_room(n_side, checker=True)
+    if kind == "orthographic":
+        desc.camera = CameraConfig(kind="orthographic", camera_to_world=Transform.look_at(*ROOM_LOOK_AT),
+                                   screen_window=(-3.9, 3.9, -1.95, 1.95))
+    elif kind == "environment":
+        desc.camera = CameraConfig(kind="environment",
+                                   camera_to_world=Transform.look_at([0.0, 1.8, 0.0], [0.0, 1.8, -1.0], [0, 1, 0]))
+        desc.primitives.append(_alpha_panel())
+    else:
+        raise ValueError(f"camera_room takes 'orthographic' or 'environment', not {kind!r}")
+    return desc
+
+
 # the parser's parameters of a bare PixelFilter "gaussian"
 GAUSSIAN_DEFAULTS = {"xwidth": 2.0, "ywidth": 2.0, "alpha": 2.0, "B": 1.0 / 3.0, "C": 1.0 / 3.0, "tau": 3.0}
 # (eye, look, up) of sky_meshes' camera
@@ -734,38 +912,92 @@ def _texture_lines(desc: SceneDescription, folder: str) -> tuple[list[str], dict
 
     for prim in desc.primitives:
         visit_material(prim.material)
+        mesh = prim.shape.mesh
+        for tex in (mesh.alpha_texture, mesh.shadow_alpha_texture) if mesh is not None else ():
+            if tex is not None:
+                visit(tex)
     return lines, names
 
 
+def _transform_line(t: Transform) -> str:
+    """The directive that makes the CTM (identity before it) equal t bit
+    for bit, matrix and inverse: Translate for a translation,
+    Transform (column-major) for a Transform.from_matrix."""
+    tr = Transform.translate(t.m[:3, 3])
+    if np.array_equal(tr.m, t.m) and np.array_equal(tr.m_inv, t.m_inv):
+        return f"Translate {_fmt(t.m[:3, 3])}"
+    if np.array_equal(np.linalg.inv(t.m), t.m_inv):
+        return f"Transform {_fmt(t.m.T.ravel())}"
+    raise NotImplementedError("write_pbrt writes transforms made by Translate or Transform.from_matrix only")
+
+
+def _degrees(rad: float) -> float:
+    """A phimax in degrees that the parser's math.radians maps back to rad."""
+    deg = float(np.degrees(rad))
+    for cand in (deg, np.nextafter(deg, np.inf), np.nextafter(deg, -np.inf)):
+        if math.radians(float(cand)) == rad:
+            return float(cand)
+    raise NotImplementedError(f"write_pbrt cannot write phimax {rad!r} exactly")
+
+
+def _quadric_shape(sph) -> str:
+    """The Shape directive of a quadric (the parser's parameter names)."""
+    phi = f'"float phimax" [{_fmt([_degrees(sph.phi_max)])}]'
+    if sph.kind in ("sphere", "cylinder", "paraboloid"):
+        return (f'Shape "{sph.kind}" "float radius" [{_fmt([sph.radius])}] "float zmin" [{_fmt([sph.z_min])}] '
+                f'"float zmax" [{_fmt([sph.z_max])}] {phi}')
+    if sph.kind == "disk":
+        return (f'Shape "disk" "float radius" [{_fmt([sph.radius])}] "float height" [{_fmt([sph.height])}] '
+                f'"float innerradius" [{_fmt([sph.inner_radius])}] {phi}')
+    if sph.kind == "cone":
+        return f'Shape "cone" "float radius" [{_fmt([sph.radius])}] "float height" [{_fmt([sph.height])}] {phi}'
+    return f'Shape "hyperboloid" "point p1" [{_fmt(sph.p1)}] "point p2" [{_fmt(sph.p2)}] {phi}'
+
+
 def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True) -> None:
-    """Write a scene of triangle meshes (with their normals and UVs) and
-    spheres placed by a translation, with
+    """Write a scene of triangle meshes (with their normals, UVs and alpha
+    cutouts), quadrics of the six kinds and instanced meshes (an
+    ObjectBegin block per prototype before its first ObjectInstance), with
     materials of constant or textured parameters and bump maps (each
     texture a Texture directive, each imagemap a PFM image beside the
-    file), area lights on meshes and spheres, point, spot and
-    distant lights and infinite lights (a map named by its file name,
-    relative to the .pbrt file) as a .pbrt file: a LookAt camera (look_at = (eye, look, up), the one the
-    description's camera was made with), the film, pixel filter, integrator
-    and, when `sampler`, the Sampler directive (without it the file gets
-    pbrt's default, halton at 16 spp). Mesh i goes into mesh_<i>.ply beside
-    the file (binary, catprint._write_ply with float64 positions, so the
-    tables compile bit for bit as the description's); each shape gets its
-    own Material directive, as each of the description's does."""
+    file), area lights on meshes and quadrics, point, spot, distant,
+    goniometric and projection lights (their maps as PFM images beside the
+    file) and infinite lights (a map named by its file name, relative to
+    the .pbrt file) as a .pbrt file: a LookAt camera (look_at = (eye, look,
+    up), the one the description's camera was made with; a perspective,
+    orthographic or environment camera), the film, pixel filter,
+    integrator, the accelerator and, when `sampler`, the Sampler directive
+    (without it the file gets pbrt's default, halton at 16 spp). Mesh i
+    goes into mesh_<i>.ply beside the file (binary, catprint._write_ply
+    with float64 positions, so the tables compile bit for bit as the
+    description's); a mesh with an alpha cutout is written inline (a PLY
+    carries no alpha); each shape gets its own Material directive, as each
+    of the description's does. Quadrics, lights and instances are placed
+    by Translate or Transform directives (_transform_line)."""
+    from .core.imageio import write_image
     from .parser.catprint import _write_ply
 
     folder = os.path.dirname(os.path.abspath(path))
     cam, film, integ = desc.camera, desc.film, desc.integrator
-    out = [f"LookAt {_fmt(np.concatenate([np.ravel(v) for v in look_at]))}",
-           f'Camera "{cam.kind}" "float fov" [{_fmt([cam.fov])}]',
-           f'Film "image" "integer xresolution" [{film.x_resolution}] "integer yresolution" [{film.y_resolution}]']
+    out = [f"LookAt {_fmt(np.concatenate([np.ravel(v) for v in look_at]))}"]
+    if cam.kind == "perspective":
+        out.append(f'Camera "perspective" "float fov" [{_fmt([cam.fov])}]')
+    elif cam.kind == "orthographic":
+        window = f' "float screenwindow" [{_fmt(cam.screen_window)}]' if cam.screen_window is not None else ""
+        out.append(f'Camera "orthographic"{window}')
+    else:
+        out.append(f'Camera "{cam.kind}"')
+    out.append(f'Film "image" "integer xresolution" [{film.x_resolution}] "integer yresolution" [{film.y_resolution}]')
     if sampler:
         kind = "02sequence" if desc.sampler.kind == "zerotwosequence" else desc.sampler.kind
         out.append(f'Sampler "{kind}" "integer pixelsamples" [{desc.sampler.pixel_samples}]')
     if film.filter_name != "box":
         out.append(f'PixelFilter "{film.filter_name}"')
+    if str(desc.accelerator or "bvh") != "bvh":
+        out.append(f'Accelerator "{desc.accelerator}"')
     out += [f'Integrator "{integ.kind}" "integer maxdepth" [{integ.max_depth}] '
             f'"string lightsamplestrategy" "{integ.light_strategy}"', "WorldBegin"]
-    for hl in desc.lights:
+    for li, hl in enumerate(desc.lights):
         if hl.kind == "point":
             out.append(f'LightSource "point" "point from" [{_fmt(hl.from_point)}] "rgb I" [{_fmt(hl.intensity)}]')
         elif hl.kind in ("spot", "distant"):
@@ -779,6 +1011,16 @@ def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True)
                 raise NotImplementedError("write_pbrt writes infinite lights with the identity transform only")
             mapname = f' "string mapname" "{hl.map_name}"' if hl.map_name else ""
             out.append(f'LightSource "infinite" "rgb L" [{_fmt(hl.intensity)}]{mapname}')
+        elif hl.kind in ("goniometric", "projection"):
+            params = f'"rgb I" [{_fmt(hl.intensity)}]'
+            if hl.image is not None:
+                name = f"light{li}.pfm"
+                write_image(os.path.join(folder, name), np.asarray(hl.image, np.float32))
+                params += f' "string mapname" "{name}"'
+            if hl.kind == "projection":
+                params += f' "float fov" [{_fmt([hl.cone_angle])}]'
+            out += ["AttributeBegin", f"  {_transform_line(hl.light_to_world)}",
+                    f'  LightSource "{hl.kind}" {params}', "AttributeEnd"]
         else:
             raise NotImplementedError(f"write_pbrt does not write '{hl.kind}' lights")
     tex_lines, tex_names = _texture_lines(desc, folder)
@@ -796,29 +1038,52 @@ def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True)
 
     for prim in desc.primitives:
         name_subs(prim.material)
-    for i, prim in enumerate(desc.primitives):
+
+    def shape_lines(i, prim):
+        """The Material, AreaLightSource and Shape lines of prim i."""
         mesh, sph = prim.shape.mesh, prim.shape.sphere
-        out.append("AttributeBegin")
-        if mesh is not None:
-            fname = f"mesh_{i}.ply"
-            _write_ply(os.path.join(folder, fname), mesh.p, mesh.indices, n=mesh.n, uv=mesh.uv, double=True)
-            shape = f'  Shape "plymesh" "string filename" "{fname}"'
-        else:
-            # a sphere placed by a translation: the parser's Translate gives
-            # the same transform and inverse bit for bit
-            m = sph.object_to_world.m
-            if sph.kind != "sphere" or not np.array_equal(m[:3, :3], np.eye(3)) or sph.reverse_orientation:
-                raise NotImplementedError("write_pbrt writes quadrics as spheres placed by a translation only")
-            out.append(f"  Translate {_fmt(m[:3, 3])}")
-            shape = (f'  Shape "sphere" "float radius" [{_fmt([sph.radius])}] "float zmin" [{_fmt([sph.z_min])}] '
-                     f'"float zmax" [{_fmt([sph.z_max])}] "float phimax" [{_fmt([np.degrees(sph.phi_max)])}]')
         mat = prim.material
-        out.append(f'  Material "{mat.kind}" ' + _material_params(mat, tex_names, folder, named))
+        lines = [f'  Material "{mat.kind}" ' + _material_params(mat, tex_names, folder, named)]
         if prim.area_light is not None:
             al = prim.area_light
-            out.append(f'  AreaLightSource "diffuse" "rgb L" [{_fmt(al.intensity)}] '
-                       f'"bool twosided" {"true" if al.two_sided else "false"}')
-        out += [shape, "AttributeEnd"]
+            lines.append(f'  AreaLightSource "diffuse" "rgb L" [{_fmt(al.intensity)}] '
+                         f'"bool twosided" {"true" if al.two_sided else "false"}')
+        if mesh is None:
+            if sph.reverse_orientation:
+                raise NotImplementedError("write_pbrt does not write reverse-oriented quadrics")
+            lines.append(f"  {_quadric_shape(sph)}")
+        elif mesh.alpha_texture is not None or mesh.shadow_alpha_texture is not None:
+            if mesh.n is not None:
+                raise NotImplementedError("write_pbrt writes alpha-cut meshes without normals only")
+            alpha = "".join(f' "texture {name}" "{tex_names[id(t)]}"'
+                            for name, t in (("alpha", mesh.alpha_texture), ("shadowalpha", mesh.shadow_alpha_texture))
+                            if t is not None)
+            uv = f' "float uv" [{_fmt(mesh.uv)}]' if mesh.uv is not None else ""
+            indices = " ".join(str(int(v)) for v in np.ravel(mesh.indices))
+            lines.append(f'  Shape "trianglemesh" "integer indices" [{indices}] "point P" [{_fmt(mesh.p)}]{uv}{alpha}')
+        else:
+            fname = f"mesh_{i}.ply"
+            _write_ply(os.path.join(folder, fname), mesh.p, mesh.indices, n=mesh.n, uv=mesh.uv, double=True)
+            lines.append(f'  Shape "plymesh" "string filename" "{fname}"')
+        return lines
+
+    prototypes: dict[int, str] = {}  # id(mesh) -> object name
+    for i, prim in enumerate(desc.primitives):
+        if prim.instance_transform is not None:
+            key = id(prim.shape.mesh)
+            if key not in prototypes:
+                prototypes[key] = f"object{len(prototypes)}"
+                out.append(f'ObjectBegin "{prototypes[key]}"')
+                out += shape_lines(i, prim)
+                out.append("ObjectEnd")
+            out += ["AttributeBegin", f"  {_transform_line(prim.instance_transform)}",
+                    f'  ObjectInstance "{prototypes[key]}"', "AttributeEnd"]
+            continue
+        out.append("AttributeBegin")
+        if prim.shape.mesh is None:
+            out.append(f"  {_transform_line(prim.shape.sphere.object_to_world)}")
+        out += shape_lines(i, prim)
+        out.append("AttributeEnd")
     out.append("WorldEnd")
     with open(path, "w") as f:
         f.write("\n".join(out) + "\n")

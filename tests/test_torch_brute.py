@@ -22,21 +22,9 @@ from pbrt_tpu_torch.device import intersect, shading
 from pbrt_tpu_torch.scene.builder import compile_scene
 from pbrt_tpu_torch.scenes import area_box
 from test_torch_megakernel import _to_ref
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: PyTorch single-threaded in this module)
 
 N_RAYS = 4096
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """PyTorch runs single-threaded in this module. On the CPU, in a process
-    that has run XLA, its first multithreaded sqrt over more than a few
-    thousand elements has returned results off by ~1e-5 relative in one or
-    two threads' blocks (seen in some runs of the sphere test); on
-    one thread it gives its usual results (within 1 ulp of IEEE) every run."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(x):

@@ -1,0 +1,254 @@
+"""The per-ray walks of the binary BVH and of the kd-tree (device/
+bvh_walk.py), the alpha wrapper over every route, and the whole slice,
+against the reference on the CPU.
+
+- walk_plain against the reference's packet loop ``_traverse`` on the
+  instanced quadric room (every quadric kind, 8 instances, a mirrored one
+  among them), closest and any hit: hits equal, t within 5e-5 relative
+  (the reference's jitted packet loop contracts multiply-adds into FMAs;
+  an instance scaled by 0.12-0.22 amplifies those ulps in the watertight
+  test's edge functions, and a quadric's root cancels in q / a), prim
+  equal where t is not tied.
+- kd_walk_plain against the all-pairs test over the same prims: the
+  reference's own kd walk (``_traverse_kd``) drops the near child when
+  every ray of a packet moves away from the split plane and misses hits
+  (ROADMAP C), so the truth it is held to is the port's intersect_brute
+  (whose triangle and quadric tests are held to the reference's in
+  tests/test_torch_brute.py and tests/test_torch_quadrics.py); the walk
+  also equals walk_plain's hits.
+- the witness of that fault: on the kd-tree of the quadrics and a sloped
+  terrain (no prim flat in a split plane, so the two packages' kd tables
+  are equal bit for bit), packets of camera-like rays (one origin, a cone
+  of directions), the reference's jitted ``_traverse_kd`` misses hits
+  that its own ``intersect_brute`` finds, while
+  kd_walk_plain finds the brute-force hits (t within 5e-5 relative of the
+  jitted reference's, prim equal where t is not tied).
+- the alpha wrapper against the reference's intersect and intersect_p on
+  the walk's route (quadric_room) and on B1's (camera_room's environment
+  scene: the wide tables and the alpha panel).
+- one render against the reference's persistent wavefront at 24x16,
+  4 spp, depth 3: quadric_room with instances (the kd variant's queries
+  are held to brute force above; the orthographic camera's rays in
+  tests/test_torch_camera.py; both render on the card against their cpu
+  twins in chip_smoke.py phase 35).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pbrt_tpu.device import intersect as ref_intersect
+from pbrt_tpu.scene.builder import compile_scene as ref_compile_scene
+from pbrt_tpu_torch import scenes
+from pbrt_tpu_torch.device import bvh_walk, intersect
+from pbrt_tpu_torch.scene.builder import compile_scene
+from test_torch_megakernel import _to_ref
+from test_torch_quadrics import fixed_reference, small_quadric_room
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: PyTorch single-threaded in this module)
+
+N_RAYS = 2048
+
+
+def _rays(n, seed):
+    """Origins through the room, directions uniform on the sphere; a quarter
+    of the rays with a finite t_max."""
+    rs = np.random.RandomState(seed)
+    o = rs.uniform([-3.5, -0.5, -3.5], [3.5, 3.8, 3.5], (n, 3)).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = np.full(n, np.inf, np.float32)
+    t_max[::4] = rs.uniform(0.1, 3.0, len(t_max[::4]))
+    return o, d, t_max
+
+
+@pytest.fixture(scope="module")
+def rooms():
+    desc = small_quadric_room()
+    cs = compile_scene(desc, "cpu")
+    ref = fixed_reference(cs, ref_compile_scene(_to_ref(desc)))
+    kd_desc = small_quadric_room(instances=False, accelerator="kdtree")
+    kd = compile_scene(kd_desc, "cpu")
+    return cs, ref, kd, ref_compile_scene(_to_ref(kd_desc))
+
+
+def _t(x):
+    return torch.as_tensor(np.array(x))
+
+
+_WALKS = {}
+
+
+def _reference_walk(ref, any_hit):
+    """The reference's packet loop ``_traverse`` over ref's tables, jitted
+    once per query kind: the twin test and the alpha wrapper's passes on
+    the instanced room share its compile."""
+    key = (id(ref), any_hit)
+    if key not in _WALKS:
+        _WALKS[key] = jax.jit(lambda o, d, t_max: ref_intersect._traverse(ref.arrays, ref.static, o, d, t_max,
+                                                                         any_hit=any_hit))
+    return _WALKS[key]
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bvh_walk_twin_matches_reference(rooms, any_hit):
+    cs, ref, _kd, _ref_kd = rooms
+    o, d, t_max = _rays(N_RAYS, 1)
+    # a quarter of the rays aimed at the instances
+    rs = np.random.RandomState(6)
+    k = N_RAYS // 4
+    centres = cs.arrays.inst_i2w.numpy()[1:, :, 3]
+    target = centres[rs.randint(0, len(centres), k)] + rs.normal(0, 0.1, (k, 3)).astype(np.float32)
+    d[:k] = (target - o[:k]) / np.linalg.norm(target - o[:k], axis=1, keepdims=True)
+    t, prim, b1, b2, pops, overflow = bvh_walk.walk_plain(cs.arrays, cs.static, _t(o), _t(d), _t(t_max), any_hit)
+    hit_r, hit_any_r = _reference_walk(ref, any_hit)(jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max))
+    hit = prim.numpy() >= 0
+    np.testing.assert_array_equal(hit, np.asarray(hit_any_r))
+    assert overflow == 0 and 0.3 < hit.mean() < 1.0 and int(pops.max()) > 10
+    if any_hit:
+        return
+    t_r, prim_r = np.asarray(hit_r["t"]), np.asarray(hit_r["prim"])
+    quad = hit & (cs.arrays.prim_kind.numpy()[np.maximum(prim_r, 0)] == 1)
+    inst = hit & (cs.arrays.prim_inst.numpy()[np.maximum(prim_r, 0)] > 0)
+    np.testing.assert_allclose(t.numpy()[hit], t_r[hit], rtol=5e-5)
+    differ = hit & (prim.numpy() != prim_r)
+    assert (t.numpy()[differ] == t_r[differ]).all()  # another prim only on a tie
+    assert quad.sum() > 100 and inst.sum() > 20
+    same = hit & ~differ
+    np.testing.assert_allclose(b1.numpy()[same & quad], np.asarray(hit_r["b1"])[same & quad], atol=1e-4)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_kd_walk_twin_matches_brute_force(rooms, any_hit):
+    _cs, _ref, kd, _ref_kd = rooms
+    o, d, t_max = _rays(N_RAYS, 2)
+    t, prim, _b1, _b2, pops, overflow = bvh_walk.kd_walk_plain(kd.arrays, kd.static, _t(o), _t(d), _t(t_max), any_hit)
+    truth = intersect.intersect_brute(kd.arrays, kd.static, _t(o), _t(d), _t(t_max))
+    hit, t_r = prim.numpy() >= 0, truth["t"].numpy()
+    np.testing.assert_array_equal(hit, np.isfinite(t_r))
+    assert overflow == 0 and 0.3 < hit.mean() < 1.0 and int(pops.max()) > 5
+    if not any_hit:
+        np.testing.assert_array_equal(t.numpy()[hit], t_r[hit])
+        walk = bvh_walk.walk_plain(kd.arrays, kd.static, _t(o), _t(d), _t(t_max), False)
+        np.testing.assert_array_equal(walk[0].numpy()[hit], t.numpy()[hit])
+
+
+def test_reference_kd_walk_misses_hits_its_brute_force_finds():
+    desc = small_quadric_room(instances=False, accelerator="kdtree")
+    desc.primitives = scenes.mesh_room(8).primitives[:1] + [p for p in desc.primitives if p.shape.mesh is None]
+    cs, ref = compile_scene(desc, "cpu"), ref_compile_scene(_to_ref(desc))
+    assert cs.static.accel_kind == ref.static.accel_kind == "kdtree"
+    np.testing.assert_array_equal(cs.arrays.kd_prim_ids.numpy(), np.asarray(ref.arrays.kd_prim_ids))
+    # four packets of 256 rays (the reference's PACKET), each from one
+    # origin into a cone around a direction of its own
+    rs = np.random.RandomState(5)
+    n = 4 * ref_intersect.PACKET
+    o = np.repeat(rs.uniform([-3.0, 0.5, -3.0], [3.0, 3.0, 3.0], (4, 3)), ref_intersect.PACKET, 0).astype(np.float32)
+    axis = np.repeat(rs.normal(size=(4, 3)), ref_intersect.PACKET, 0)
+    d = axis + rs.normal(0.0, 0.35, (n, 3)) * np.linalg.norm(axis, axis=1, keepdims=True)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    t_max = np.full(n, np.inf, np.float32)
+    args = (jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max))
+    kd_r = jax.jit(lambda o, d, t: ref_intersect._traverse_kd(ref.arrays, ref.static, o, d, t, any_hit=False)[0])(*args)
+    brute_r = jax.jit(lambda o, d, t: ref_intersect.intersect_brute(ref.arrays, ref.static, o, d, t))(*args)
+    hit_kd, hit = np.asarray(kd_r["prim"]) >= 0, np.asarray(brute_r["prim"]) >= 0
+    t_r, prim_r = np.asarray(brute_r["t"]), np.asarray(brute_r["prim"])
+    assert not (hit_kd & ~hit).any()
+    assert (hit & ~hit_kd).sum() > 10  # hits the reference's kd walk misses
+    t, prim, _b1, _b2, _pops, overflow = bvh_walk.kd_walk_plain(cs.arrays, cs.static, _t(o), _t(d), _t(t_max), False)
+    assert overflow == 0
+    np.testing.assert_array_equal(prim.numpy() >= 0, hit)
+    np.testing.assert_allclose(t.numpy()[hit], t_r[hit], rtol=5e-5)
+    differ = hit & (prim.numpy() != prim_r)
+    assert (np.abs(t.numpy()[differ] - t_r[differ]) <= 5e-5 * t_r[differ]).all()
+
+
+@pytest.mark.parametrize("route", ["bvh", "wide"])
+def test_alpha_wrapper_matches_reference(rooms, route, monkeypatch):
+    """intersect and intersect_p of an alpha scene: the closest hit that is
+    not cut out (re-cast at most 4 times past cut hits), and the shadow
+    query as that closest-hit query, on the walk's route and on B1's,
+    against the reference's wrapper over its packet loop ``_traverse``
+    (which its ``_intersect_once`` takes for these scenes on the CPU),
+    jitted once for the ten passes of a query pair (called eagerly, each
+    pass compiles its own while loop); on the walk's route, the instanced
+    room of the twin test above, with its jitted loop."""
+    if route == "bvh":
+        cs, ref, _kd, _ref_kd = rooms
+    else:
+        desc = scenes.camera_room("environment", 4)
+        cs, ref = compile_scene(desc, "cpu"), ref_compile_scene(_to_ref(desc))
+    assert cs.static.has_alpha and cs.static.has_wide == (route == "wide")
+    assert intersect.route_name(cs.static) == route
+    walk = _reference_walk(ref, False)
+    walk_r = lambda o, d, t_max: walk(o, d, t_max)[0]  # noqa: E731
+    monkeypatch.setattr(ref_intersect, "_intersect_once", lambda sa, st, o, d, t_max, time=None, sort_rays=False:
+                        walk_r(o, d, jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), (o.shape[0],))))
+    rs = np.random.RandomState(4)
+    o, d, t_max = _rays(N_RAYS, 3)
+    # a third of the rays aimed through the alpha panel (z = -0.6)
+    k = N_RAYS // 3
+    target = rs.uniform([-0.8, 0.9, -0.6], [0.8, 2.5, -0.6], (k, 3)).astype(np.float32)
+    o[:k] = target + np.array([0.0, 0.0, 2.0], np.float32)
+    d[:k] = (target - o[:k]) / np.linalg.norm(target - o[:k], axis=1, keepdims=True)
+    mine = intersect.intersect(cs.arrays, cs.static, _t(o), _t(d), _t(t_max))
+    theirs = ref_intersect.intersect(ref.arrays, ref.static, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max))
+    hit = np.asarray(theirs["prim"]) >= 0
+    np.testing.assert_array_equal(mine["prim"].numpy() >= 0, hit)
+    # t accumulates each re-cast's advance: within 1e-5 relative or 1e-6
+    np.testing.assert_allclose(mine["t"].numpy()[hit], np.asarray(theirs["t"])[hit], rtol=1e-5, atol=1e-6)
+    occ = intersect.intersect_p(cs.arrays, cs.static, _t(o), _t(d), _t(t_max)).numpy()
+    occ_r = np.asarray(ref_intersect.intersect_p(ref.arrays, ref.static, jnp.asarray(o), jnp.asarray(d),
+                                                 jnp.asarray(t_max)))
+    np.testing.assert_array_equal(occ, occ_r)
+    # the cut-outs matter: some panel rays pass through a hole to a farther hit
+    panel = cs.arrays.prim_alpha_tex.numpy() >= 0
+    first = intersect._intersect_once(cs.arrays, cs.static, _t(o), _t(d), _t(t_max))["prim"].numpy()
+    through = (first >= 0) & panel[np.maximum(first, 0)] & (mine["prim"].numpy() != first)
+    assert through[:k].sum() > 10
+
+
+def test_wavefront_matches_reference(monkeypatch):
+    """The port's persistent wavefront against the reference's at 24x16,
+    4 spp, depth 3 on quadric_room with its instances (route plain-bvh
+    against the reference's packet loop; its alpha panel left out, whose
+    re-casts cost the reference's XLA compile minutes: the alpha wrapper's
+    queries are held above). Held as an estimate: weights equal, the path
+    vertices within 0.5%, the means within 2% and 90% of the pixels within
+    the reference megakernel test's per-pixel tolerance (|dL| / (|L| +
+    1e-2) < 2e-2). A ray leaving a cone, paraboloid or hyperboloid starts
+    from the hit that the reference does not re-project onto the surface
+    (cone.rs, paraboloid.rs), so the ulps by which XLA's FMA-contracted
+    arithmetic and PyTorch's differ move its origin across the surface in
+    some rays, and those paths part; with spheres, cylinders and disks
+    alone the two renders agree pixel for pixel (2e-6 relative)."""
+    from pbrt_tpu import render as ref_render
+    from pbrt_tpu_torch import render
+
+    monkeypatch.delenv("PBRT_TPU_WIDEMEGA", raising=False)
+    W, H, SPP, SEED = 24, 16, 4, 3
+    desc = small_quadric_room()
+    desc.primitives = [p for p in desc.primitives if p.shape.mesh is None or p.shape.mesh.alpha_texture is None]
+    desc.film.x_resolution, desc.film.y_resolution = W, H
+    desc.sampler.pixel_samples = SPP
+    desc.integrator.max_depth = 3
+    cs = compile_scene(desc, "cpu")
+    ref = fixed_reference(cs, ref_compile_scene(_to_ref(desc)))
+    ys, xs = np.mgrid[0:H, 0:W]
+    px, py, pids = xs.ravel(), ys.ravel(), (ys * W + xs).ravel()
+    wave_r = ref_render.make_persistent_fn(ref)
+    assert ref_render.LAST_PERSISTENT_TIER == "xla-wavefront/packet"
+    L_r, w_r, nv_r = (np.asarray(x) for x in wave_r(
+        ref.arrays, jnp.asarray(px.astype(np.int32)), jnp.asarray(py.astype(np.int32)),
+        jnp.asarray(pids.astype(np.uint32)), jnp.uint32(0), SPP, jnp.uint32(SEED)))
+    wave = render.make_persistent_fn(cs)
+    assert render.LAST_PERSISTENT_TIER == "torch-wavefront/plain-bvh"
+    L, w, nv = (x.numpy() for x in wave(cs.arrays, *(torch.as_tensor(x.astype(np.int64)) for x in (px, py, pids)),
+                                        0, SPP, SEED))
+    np.testing.assert_array_equal(w, w_r)
+    assert abs(float(nv.sum()) / float(nv_r.sum()) - 1.0) < 5e-3
+    assert L_r.mean() > 0.1 and abs(L.mean() / L_r.mean() - 1.0) < 2e-2
+    close = (np.abs(L - L_r) / (np.abs(L_r) + 1e-2)).max(-1) < 2e-2
+    assert close.mean() >= 0.9, close.mean()

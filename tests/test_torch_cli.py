@@ -25,6 +25,7 @@ from pbrt_tpu_torch.core.imageio import read_image
 from pbrt_tpu_torch.core.options import Options
 from pbrt_tpu_torch.parser.api import pbrt_parse
 from test_torch_api import room_text
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: PyTorch single-threaded in this module)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -43,18 +44,30 @@ def _scene(tmp_path, **kw):
     return str(p)
 
 
-def test_main_writes_the_render(tmp_path):
-    """32x16 film cut to 24x16 by the text, 4 spp, depth 3, halton and
-    gaussian: the film main writes equals render.render of the parse."""
+@pytest.fixture(scope="module")
+def main_run(tmp_path_factory):
+    """The matte room rendered once by main at seed 2 (the render the
+    tests below read): (scene path, written image path, main.last_run,
+    the route's label)."""
+    tmp_path = tmp_path_factory.mktemp("cli")
     path = _scene(tmp_path)
     out = str(tmp_path / "out.pfm")
-    assert cli.main([path, "--outfile", out, "--device", "cpu", "--quiet"]) == 0
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PBRT_TPU_NO_MEGAKERNEL", "1")
+        mp.delenv("PBRT_TPU_WIDEMEGA", raising=False)
+        assert cli.main([path, "--outfile", out, "--device", "cpu", "--quiet", "--seed", "2"]) == 0
+    return path, out, cli.main.last_run, render.LAST_PERSISTENT_TIER
+
+
+def test_main_writes_the_render(main_run):
+    """32x16 film cut to 24x16 by the text, 4 spp, depth 3, halton and
+    gaussian: the film main writes equals render.render of the parse."""
+    path, out, run, tier = main_run
     img = read_image(out)
-    want = render.render(pbrt_parse(path), device="cpu")
+    want = render.render(pbrt_parse(path), seed=2, device="cpu")
     assert img.shape == (16, 24, 3) and img.mean() > 0.01
     np.testing.assert_array_equal(img, want)
-    assert render.LAST_PERSISTENT_TIER == "torch-wavefront/plain-brute"
-    run = cli.main.last_run
+    assert tier == render.LAST_PERSISTENT_TIER == "torch-wavefront/plain-brute"
     assert run["outfile"] == out and run["timing"]["n_vertices"] > 0
 
 
@@ -101,12 +114,10 @@ def test_module_entry_point(tmp_path):
     assert "Statistics:" in out.stderr and read_image(str(tmp_path / "m.exr")).shape == (16, 24, 3)
 
 
-def test_cli_render_matches_reference(tmp_path):
+def test_cli_render_matches_reference(main_run):
     """The one reference render: halton + gaussian on the matte room at
     24x16, 4 spp, depth 3, through the reference's own parse and render."""
-    path = _scene(tmp_path)
-    out = str(tmp_path / "out.pfm")
-    assert cli.main([path, "--outfile", out, "--device", "cpu", "--quiet", "--seed", "2"]) == 0
+    path, out, _run, _tier = main_run
     want = np.asarray(ref_render.render(ref_pbrt_parse(path), seed=2))
     assert ref_render.LAST_PERSISTENT_TIER.startswith("xla-wavefront")
     got = read_image(out)

@@ -30,6 +30,7 @@ from pbrt_tpu.scene.builder import _stack_fourier_tables as ref_stack
 from pbrt_tpu_torch.core import fourierbsdf as fb
 from pbrt_tpu_torch.device import fourier
 from pbrt_tpu_torch.scene.builder import _stack_fourier_tables
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: PyTorch single-threaded in this module)
 
 N = 256
 WRITERS = {"rough-conductor": lambda m, path: m.write_rough_conductor_table(path, alpha=0.3, nmu=10),

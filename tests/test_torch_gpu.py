@@ -24,7 +24,9 @@ textured_gallery, B4's checkerboard Kd on material_room(checker=True),
 B4's sphere instantiation (full spheres and a sphere lamp) on sphere_room
 and B3 on a gallery with a glossy uber sphere; the wavefront's mixed query
 (B1 over a mixed scene's triangle subset, its spheres tested beside it) is
-held to its twin bit for bit.
+held to its twin bit for bit, and so are the BVH and kd walks of
+csrc/bvh_walk.cu (quadric_room and its kd variant), whose renders are held
+on the card against the CPU.
 """
 import numpy as np
 import pytest
@@ -599,3 +601,64 @@ def test_fourier_and_hair_lobes_cuda_match_cpu(cuda_device, tmp_path):
     np.testing.assert_allclose(s_g["wi"].cpu()[valid].numpy(), s_c["wi"][valid].numpy(), atol=1e-3)
     h_g = on(cuda_device, hair.hair_sample, data, wo, *u)["wi"].cpu().numpy()
     np.testing.assert_allclose(h_g, on("cpu", hair.hair_sample, data, wo, *u)["wi"].numpy(), atol=1e-3)
+
+
+def _small_quadric_room(kd=False):
+    from pbrt_tpu_torch.scenes import camera_room, quadric_room
+
+    if kd:
+        desc = quadric_room(4, instances=False, accelerator="kdtree", prop_res=6)
+        desc.camera = camera_room("orthographic").camera
+    else:
+        desc = quadric_room(4, instances=8, prop_res=6)
+    desc.film.x_resolution, desc.film.y_resolution = 32, 16
+    desc.sampler.pixel_samples = 2
+    return compile_scene(desc, "cpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kd", [False, True])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bvh_walk_matches_plain(cuda_device, kd, any_hit):
+    """The BVH walk (quadric_room with instances) and the kd walk (its kd
+    variant) against their plain twins on the card on random rays: the
+    same (t, prim, b1, b2, pops) bit for bit (the same arithmetic without
+    fused multiply-adds on both sides, the same walk order)."""
+    from pbrt_tpu_torch.device import bvh_walk
+
+    cs = _small_quadric_room(kd).to(cuda_device)
+    o, d, t_max = (torch.as_tensor(x, dtype=torch.float32, device=cuda_device).contiguous()
+                   for x in _random_rays(cuda_device))
+    kernel = bvh_walk.kd_walk_cuda if kd else bvh_walk.bvh_walk_cuda
+    plain = bvh_walk.kd_walk_plain if kd else bvh_walk.walk_plain
+    res_k = kernel(cs.arrays, cs.static, o, d, t_max, any_hit)
+    res_p = plain(cs.arrays, cs.static, o, d, t_max, any_hit)
+    torch.cuda.synchronize()
+    for a, b in zip(res_k, res_p[:5]):
+        assert torch.equal(a, b.to(a.dtype))
+    assert (res_k[1] >= 0).any() and kernel.counters[cuda_device].tolist() == [0, 0] and res_p[5] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kd", [False, True])
+def test_quadric_room_wavefront_cuda_matches_cpu(cuda_device, kd):
+    """quadric_room (instances, every quadric kind, the alpha panel,
+    goniometric and projection lights) through the walk on the card against
+    the CPU, and its kd variant under the orthographic camera: the route
+    labels; without the hits of cones, paraboloids and hyperboloids
+    (chip_smoke._without_raw_quadrics: the quadrics whose hit points are
+    not re-projected, where the devices' ulps can part a path) images
+    within chip_smoke.py's crop rule, and as built 99% of the pixels within
+    rtol 1e-2 (chip_smoke.py phase 35)."""
+    import chip_smoke
+
+    cs = _small_quadric_room(kd)
+    one = chip_smoke._without_raw_quadrics(cs)
+    img_c = render.render_compiled(one, seed=1)
+    img_g = render.render_compiled(chip_smoke._without_raw_quadrics(cs.to(cuda_device)), seed=1)
+    assert render.render_compiled.last_timing["tier"] == f"torch-wavefront/cuda-{'kdtree' if kd else 'bvh'}"
+    assert np.abs(img_g - img_c).sum() / np.abs(img_c).sum() < 1e-3
+    assert np.isclose(img_g, img_c, rtol=1e-2, atol=1e-4).all(axis=-1).mean() >= 0.99
+    built_c = render.render_compiled(cs, seed=1)
+    built_g = render.render_compiled(cs.to(cuda_device), seed=1)
+    assert np.isclose(built_g, built_c, rtol=1e-2, atol=1e-4).all(axis=-1).mean() >= 0.99

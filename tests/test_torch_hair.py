@@ -24,6 +24,7 @@ from pbrt_tpu.device import hair as ref_hair
 from pbrt_tpu.scene import builder as ref_builder
 from pbrt_tpu_torch.device import hair
 from pbrt_tpu_torch.scene import builder
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: PyTorch single-threaded in this module)
 
 N = 512
 

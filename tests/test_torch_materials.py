@@ -44,17 +44,9 @@ from pbrt_tpu_torch.scene.builder import compile_scene
 from pbrt_tpu_torch.scene.host import HostMaterial, HostPrimitive, ShapeRecord, Sphere
 from pbrt_tpu_torch.scenes import ZOO_DISNEY, _const, _texture, _tiles, spheres_gallery
 from test_torch_megakernel import _to_ref
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: PyTorch single-threaded in this module)
 
 N = 512
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """PyTorch single-threaded, as tests/test_torch_bsdf.py runs it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def zoo_gallery(table: str, textured: bool = False):

@@ -18,6 +18,7 @@ description. Covered:
 (f) render_compiled of a small spheres_gallery takes the plain-brute route.
 """
 import dataclasses
+import functools
 import inspect
 import math
 import re
@@ -45,6 +46,7 @@ from pbrt_tpu_torch.scene.host import (
     SceneDescription, ShapeRecord, Sphere, TriangleMesh,
 )
 from pbrt_tpu_torch.scenes import spheres_gallery
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: PyTorch single-threaded in this module)
 
 W, H, SPP = 32, 16, 2
 FCFG = {"filter": "box", "filter_params": {}, "max_sample_luminance": float("inf")}
@@ -555,6 +557,19 @@ CASES = [("zerotwosequence", "distant", False, "path"), ("random", "point", Fals
          ("zerotwosequence", "distant", False, "directlighting"), ("zerotwosequence", "distant", "atlas", "path")]
 
 
+@functools.lru_cache(maxsize=1)
+def _kernel_case(sampler, light, micro, ikind):
+    """One case's scenes, the reference kernel (jitted once: the seeds'
+    runs share its compile) and the port's constants."""
+    desc = _mini_spheres(sampler, light, micro)
+    desc.integrator.kind = ikind
+    cs, ref = _compile_both(desc)
+    icfg, scfg, fcfg = _cfgs(desc)
+    fn = ref_mk.make_megakernel_fn(ref, ref_make_camera(ref.description.camera, ref.description.film),
+                                   icfg, scfg, fcfg, interpret=True)
+    return ref, fn, mk.extract_consts(cs, make_camera(desc.camera, desc.film, "cpu"), icfg, scfg, fcfg)
+
+
 @pytest.mark.parametrize("seed", [0, 3])
 @pytest.mark.parametrize("sampler,light,micro,ikind", CASES)
 def test_plain_matches_reference_kernel(sampler, light, micro, ikind, seed):
@@ -562,19 +577,14 @@ def test_plain_matches_reference_kernel(sampler, light, micro, ikind, seed):
     floor(sqrt(spp)) x spp // that, always jittered (ROADMAP C). The atlas
     case's ground Kd is a grayscale imagemap: the ray-cone trilinear
     lookup in the mip atlas (the sums of its taps may differ from the
-    reference's row-by-row order in the last ulp)."""
-    desc = _mini_spheres(sampler, light, micro)
-    desc.integrator.kind = ikind
-    cs, ref = _compile_both(desc)
-    icfg, scfg, fcfg = _cfgs(desc)
-    fn = ref_mk.make_megakernel_fn(ref, ref_make_camera(ref.description.camera, ref.description.film),
-                                   icfg, scfg, fcfg, interpret=True)
+    reference's row-by-row order in the last ulp). The two seeds of a case
+    run one after the other and share its compiled reference kernel."""
+    ref, fn, consts = _kernel_case(sampler, light, micro, ikind)
     ys, xs = np.mgrid[0:H, 0:W]
     px, py, pid = xs.ravel(), ys.ravel(), (ys * W + xs).ravel()
     L_r, w_r, nv_r = (np.asarray(x) for x in fn(
         ref.arrays, jnp.asarray(px.astype(np.int32)), jnp.asarray(py.astype(np.int32)),
         jnp.asarray(pid.astype(np.uint32)), jnp.uint32(0), SPP, jnp.uint32(seed)))
-    consts = mk.extract_consts(cs, make_camera(desc.camera, desc.film, "cpu"), icfg, scfg, fcfg)
     L, w, nv = (x.numpy() for x in mk.megakernel_plain(
         consts, *(torch.as_tensor(x.astype(np.int64)) for x in (px, py, pid)), 0, SPP, seed))
     assert L_r.mean() > 1e-3
@@ -675,3 +685,56 @@ def test_render_compiled_gallery_plain_brute():
     np.testing.assert_array_equal(img[3:9, 5:17], full[3:9, 5:17])
     assert not img[:3].any() and not img[:, 17:].any()
     assert math.isclose(float(img[3:9, 5:17].mean()), float(full[3:9, 5:17].mean()))
+
+
+# the kinds of the persistent wavefront's class that no megakernel bakes,
+# and the name each extractor gives when it refuses them
+SLICE_KINDS = {"orthographic": "'orthographic' cameras", "environment": "'environment' cameras",
+               "goniometric": "goniometric lights", "projection": "projection lights",
+               "cylinder": "'cylinder' quadrics", "disk": "'disk' quadrics", "cone": "'cone' quadrics",
+               "paraboloid": "'paraboloid' quadrics", "hyperboloid": "'hyperboloid' quadrics",
+               "instancing": "object instancing", "alpha": "alpha cutouts"}
+
+
+def slice_kind_scene(desc, kind):
+    """desc with one of SLICE_KINDS put in: the camera, a light at (0, 4, 2)
+    (an 8 x 4 map), the last prim's sphere made that quadric, the first
+    mesh instanced by a translation, or the first mesh given an alpha
+    texture (a constant 0.5: cut nowhere)."""
+    from pbrt_tpu_torch.scenes import _texture
+
+    if kind in ("orthographic", "environment"):
+        desc.camera = dataclasses.replace(desc.camera, kind=kind)
+    elif kind in ("goniometric", "projection"):
+        desc.lights.append(HostLight(kind=kind, light_to_world=Transform.translate([0.0, 4.0, 2.0]),
+                                     intensity=np.array([5.0, 5.0, 5.0]), image=np.full((4, 8, 3), 0.5, np.float32),
+                                     cone_angle=40.0))
+    elif kind == "instancing":
+        first = next(p for p in desc.primitives if p.shape.mesh is not None)
+        desc.primitives.append(dataclasses.replace(first, instance_transform=Transform.translate([0.0, 0.5, 0.0])))
+    elif kind == "alpha":
+        mesh = next(p for p in desc.primitives if p.shape.mesh is not None).shape.mesh
+        mesh.alpha_texture = _texture("constant", is_float=True, value=np.array([0.5]))
+    else:
+        sph = next(p for p in reversed(desc.primitives) if p.shape.mesh is None).shape.sphere
+        sph.kind = kind
+        sph.height, sph.z_min, sph.z_max = 0.8, 0.0, 0.8
+        sph.p1, sph.p2 = np.array([0.6, 0.0, -0.5]), np.array([0.3, 0.5, 0.5])
+    return desc
+
+
+@pytest.mark.parametrize("kind", list(SLICE_KINDS))
+def test_slice_kinds_refused_by_name(kind):
+    """B3's extractor refuses each kind of the wavefront's class that it does
+    not bake, naming it, as the reference's refuses them (a camera other
+    than the perspective one, lights other than point, spot and distant,
+    quadrics other than spheres, instanced rows) -- except alpha cutouts:
+    the reference's B3 never checks them and would render a cut-out
+    triangle whole (ROADMAP C); the port refuses them and the brute
+    wavefront renders the cut-outs."""
+    desc = slice_kind_scene(_mini_spheres(light="point"), kind)
+    cs, ref = _compile_both(desc)
+    mine, theirs = _both_consts(desc, cs, ref)
+    assert mine is None and (theirs is not None) == (kind == "alpha")
+    icfg, scfg, fcfg = _cfgs(desc)
+    assert mk.explain_ineligible(cs, make_camera(desc.camera, desc.film, "cpu"), icfg, scfg, fcfg) == SLICE_KINDS[kind]

@@ -68,7 +68,8 @@ from pbrt_tpu_torch.scene.host import (
     SceneDescription, ShapeRecord, Sphere, TriangleMesh,
 )
 from pbrt_tpu_torch.scenes import _texture, material_room, mesh_room
-from test_torch_megakernel import NEW_KINDS, _to_ref, new_material
+from test_torch_megakernel import NEW_KINDS, SLICE_KINDS, _to_ref, new_material, slice_kind_scene
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: PyTorch single-threaded in this module)
 
 W, H, SPP = 48, 24, 2
 FCFG = {"filter": "box", "filter_params": {}, "max_sample_luminance": float("inf")}
@@ -704,3 +705,30 @@ def test_material_room_is_in_the_class():
     assert consts is not None
     assert sorted(lt["kind"] for lt in consts["lights"]) == [0, 1, LIGHT_AREA, LIGHT_AREA]
     assert {e["lobe"] for e in consts["mats"].values()} == {0, 1, 3, 4, 6, 8, 100}
+
+
+@pytest.mark.parametrize("kind", list(SLICE_KINDS) + ["kdtree"])
+def test_slice_kinds_refused_by_name(kind):
+    """B4's extractor refuses each kind of the wavefront's class that it
+    does not bake, naming it, as the reference's refuses them all: the
+    cameras other than the perspective one, goniometric and projection
+    lights, a quadric other than a sphere beside the room's triangles,
+    instancing, alpha cutouts and the kd-tree (whose scenes have no wide
+    tables)."""
+    from pbrt_tpu_torch.scene.host import HostPrimitive, ShapeRecord, Sphere
+
+    desc, icfg, scfg, fcfg = _case("02-area")
+    if kind == "kdtree":
+        desc.accelerator = "kdtree"
+        word = "the 'kdtree' accelerator"
+    else:
+        if kind in ("cylinder", "disk", "cone", "paraboloid", "hyperboloid"):
+            desc.primitives.append(HostPrimitive(shape=ShapeRecord(sphere=Sphere(
+                object_to_world=Transform.translate([0.5, 1.5, 0.0]), radius=0.3)),
+                material=HostMaterial(kind="matte")))
+        desc = slice_kind_scene(desc, kind)
+        word = SLICE_KINDS[kind]
+    cs, ref, cam, ref_cam = _both(desc)
+    assert mw.extract_wide_consts(cs, cam, icfg, scfg, fcfg, mw.DEFAULT_MAX_TRIS) is None
+    assert ref_mw.extract_wide_consts(ref, ref_cam, icfg, scfg, fcfg) is None
+    assert mw.explain_ineligible_wide(cs, cam, icfg, scfg, fcfg, mw.DEFAULT_MAX_TRIS) == word

@@ -31,6 +31,7 @@ from test_torch_megakernel_wide import (
     CASES, FCFG, REF_CASES_ELSEWHERE, SPP, _assert_wide_tolerance, _both, _case, _mixed_room, _pixels,
     _reference_image, _route_image, _small, _twin_against_reference,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: PyTorch single-threaded in this module)
 
 ICFG = {"kind": "path", "max_depth": 4, "rr_threshold": 1.0, "light_strategy": "power"}
 SCFG = {"kind": "zerotwosequence", "spp": SPP}

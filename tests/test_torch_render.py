@@ -39,22 +39,9 @@ from pbrt_tpu_torch.core.imageio import read_image, write_image
 from pbrt_tpu_torch.core.transform import Transform
 from pbrt_tpu_torch.scenes import area_box, material_room, mesh_room, sky_meshes, spheres_gallery
 from test_torch_megakernel import _to_ref
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: PyTorch single-threaded in this module)
 
 W, H, SPP, SEED = 24, 16, 4, 3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """PyTorch runs single-threaded in this module. On the CPU, in a process
-    that has run XLA, its first multithreaded sqrt over a few thousand
-    elements (the spatial distribution's sweep) has returned results off by
-    ~1e-5 relative in one or two threads' blocks in some runs
-    (tests/test_torch_brute.py); on one thread it gives its usual results
-    every run."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _small(desc):

@@ -44,15 +44,7 @@ from pbrt_tpu_torch.scene.host import HostMaterial, HostPrimitive, ShapeRecord
 from pbrt_tpu_torch.scenes import hair_tuft, zoo_room
 from test_torch_megakernel import _to_ref
 from test_torch_render import _assert_specular_tolerance, _port_wave, _reference_wave, _small
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """PyTorch single-threaded, as test_torch_render runs it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: PyTorch single-threaded in this module)
 
 
 def _room_a(table_dir):

@@ -22,6 +22,7 @@ from pbrt_tpu_torch import render
 from pbrt_tpu_torch.device import rng, sampler
 from pbrt_tpu_torch.device.camera import make_camera
 from pbrt_tpu_torch.scenes import mesh_room
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: PyTorch single-threaded in this module)
 
 SEED = 12345
 

@@ -22,6 +22,7 @@ from pbrt_tpu_torch.scene.builder import compile_scene
 from pbrt_tpu_torch.scene.widebvh import hopper_layout
 from pbrt_tpu_torch.scene.host import HostMaterial
 from pbrt_tpu_torch.scenes import mesh_room
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: PyTorch single-threaded in this module)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -224,30 +225,36 @@ def test_mixed_queries_match_reference(mixed):
 
 @pytest.mark.parametrize("case", ["cylinder", "nine-quadrics", "few-triangles"])
 def test_mixed_scene_refusals_name_the_feature(case):
-    """What the reference takes through its binary-BVH packet loop and the
-    port does not yet (ROADMAP A4): the other quadrics, more than 8 quadrics
-    in a scene of more than 64 prims, and such a scene of 64 triangles or
-    fewer."""
+    """What the reference takes through its binary-BVH packet loop: the
+    other quadrics, more than 8 quadrics in a scene of more than 64 prims,
+    and such a scene of 64 triangles or fewer. Since the binary-BVH walk
+    (device/bvh_walk.py) the port compiles each and routes it there, with
+    the reference's tables; what stays outside the class keeps its refusal
+    by name (motion blur on one of the quadrics)."""
     from pbrt_tpu_torch.core.transform import Transform
+    from pbrt_tpu_torch.device.intersect import route_name
     from pbrt_tpu_torch.scene.host import HostPrimitive, ShapeRecord, Sphere
+    from test_torch_megakernel import _to_ref
 
     desc = mesh_room(8)
     glass = HostMaterial(kind="glass")
 
     def quadric(i, kind="sphere"):
         return HostPrimitive(shape=ShapeRecord(sphere=Sphere(object_to_world=Transform.translate([i * 0.5, 2.0, 0.0]),
-                                                             radius=0.2, kind=kind)), material=glass)
+                                                             radius=0.2, kind=kind, height=0.3)), material=glass)
 
     if case == "cylinder":
         desc.primitives.append(quadric(0, "cylinder"))
-        match = "'cylinder' quadrics"
     elif case == "nine-quadrics":
         desc.primitives += [quadric(i) for i in range(9)]
-        match = "more than 8 quadrics in scenes of > 64 primitives"
     else:
         desc.primitives = desc.primitives[-1:] + [quadric(i) for i in range(70)]  # the panel: 2 triangles
-        match = "64 triangles or fewer"
-    with pytest.raises(NotImplementedError, match=match):
+    cs, ref = compile_scene(desc, "cpu"), ref_compile_scene(_to_ref(desc))
+    assert route_name(cs.static) == "bvh"
+    for name in ("prim_test_data", "bvh_packed", "sph_param", "prim_kind", "prim_area"):
+        np.testing.assert_array_equal(getattr(cs.arrays, name).numpy(), np.asarray(getattr(ref.arrays, name)))
+    desc.primitives[-1].shape.sphere.object_to_world_end = Transform.translate([0.0, 3.0, 0.0])
+    with pytest.raises(NotImplementedError, match="motion blur"):
         compile_scene(desc, "cpu")
 
 

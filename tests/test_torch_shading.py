@@ -23,6 +23,7 @@ from pbrt_tpu_torch.device.intersect import intersect
 from pbrt_tpu_torch.device.materials import make_bsdf
 from pbrt_tpu_torch.device.shading import surface_interaction
 from pbrt_tpu_torch.scene.arrays import scene_tensors_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: PyTorch single-threaded in this module)
 
 RTOL, ATOL = 1e-5, 1e-6
 R = 512

@@ -38,6 +38,7 @@ from pbrt_tpu_torch.scene.builder import compile_scene
 from pbrt_tpu_torch.scene.host import HostMaterial
 from pbrt_tpu_torch.scenes import _texture, textured_gallery
 from test_torch_megakernel import _to_ref
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: PyTorch single-threaded in this module)
 
 RTOL, ATOL = 1e-5, 1e-5
 N = 512

@@ -19,6 +19,7 @@ from pbrt_tpu.scene.widebvh import build_wide_bvh as ref_build_wide_bvh
 from pbrt_tpu_torch.device import wide_bvh
 from pbrt_tpu_torch.scene import widebvh
 from pbrt_tpu_torch.scene.widebvh import build_wide_bvh, hopper_layout
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: PyTorch single-threaded in this module)
 
 
 def _tri_scene(n_side=10):

@@ -3,7 +3,8 @@
 
     python3 tools/torch_phases.py [--scene mesh|gallery|material_room|mesh_b4|material_room_wave|area_box|
                                            textured_room|textured_gallery|checker_room|sphere_room|
-                                           sphere_room_248|zoo_room|zoo_room_248]
+                                           sphere_room_248|zoo_room|zoo_room_248|quadric_room|
+                                           quadric_room_kd]
                                   [--reps 5] [--out FILE.json]
 
 Renders at 1000x500, 16 spp, depth 5 one of: the 123,650-triangle mesh room
@@ -21,7 +22,12 @@ the wavefront's mixed query (--scene sphere_room; sphere_room_248: the same
 spheres among the mesh room's 123,650 triangles), or zoo_room, material_room
 re-dressed in substrate, disney, mix, fourier, translucent and hair, on the
 wavefront (--scene zoo_room; zoo_room_248: among the mesh room's terrain),
-and reports, with the card's name and power limit:
+or quadric_room, the mesh room's enclosure with 30 quadrics of the six
+kinds, 64 instances of a prop, an alpha-cut panel and goniometric and
+projection lights, on the wavefront's binary-BVH walk (--scene
+quadric_room; quadric_room_kd: its kd variant at n_side 40 without
+instances, on the kd walk), and reports, with the card's name and power
+limit:
  1. end to end: render wall time and path_vertex_samples_per_sec over
     --reps untraced renders after a warm-up (median, min, max);
  2. the traversal kernel against its plain PyTorch twin on the main path's
@@ -32,7 +38,9 @@ and reports, with the card's name and power limit:
     launch): one render with a synchronize around every call into a layer
     (camera regeneration, closest-hit query, shadow query, of which the
     traversal kernel itself and, in a mixed scene, the spheres' tests and
-    merge; lobe evaluation: make_bsdf and the integrator's calls of
+    merge; on the walk's scenes the walk itself, split into the closest
+    queries' walks, the shadow queries' walks and the alpha re-casts (the
+    walks after a query's first); lobe evaluation: make_bsdf and the integrator's calls of
     bsdf_f, bsdf_pdf and bsdf_sample), the rest being shading, NEE, sampling,
     Russian roulette, flush and loop control; the synchronizes serialise
     host and device, so the traced wall minus the untraced median is the
@@ -94,7 +102,7 @@ def main() -> int:
     ap.add_argument("--scene", default="mesh",
                     choices=("mesh", "gallery", "material_room", "mesh_b4", "material_room_wave", "area_box",
                              "textured_room", "textured_gallery", "checker_room", "sphere_room", "sphere_room_248",
-                             "zoo_room", "zoo_room_248"))
+                             "zoo_room", "zoo_room_248", "quadric_room", "quadric_room_kd"))
     ap.add_argument("--all-matte", action="store_true", help="every material matte (Kd 0.6), the panel's kept")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
@@ -112,8 +120,8 @@ def main() -> int:
     from pbrt_tpu_torch import render as R_
     from pbrt_tpu_torch.scene.builder import compile_scene
     from pbrt_tpu_torch.scene.host import HostMaterial
-    from pbrt_tpu_torch.scenes import area_box, material_room, mesh_room, sphere_room, spheres_gallery, \
-        textured_gallery, textured_room, zoo_room
+    from pbrt_tpu_torch.scenes import area_box, material_room, mesh_room, quadric_room, sphere_room, \
+        spheres_gallery, textured_gallery, textured_room, zoo_room
 
     if args.scene in ("material_room", "mesh_b4", "checker_room"):
         os.environ["PBRT_TPU_WIDEMEGA"] = "1"
@@ -123,7 +131,8 @@ def main() -> int:
             "material_room_wave": material_room, "area_box": area_box, "textured_room": textured_room,
             "textured_gallery": textured_gallery, "checker_room": lambda: material_room(checker=True),
             "sphere_room": sphere_room, "sphere_room_248": lambda: sphere_room(248), "zoo_room": zoo_room,
-            "zoo_room_248": lambda: zoo_room(248)}
+            "zoo_room_248": lambda: zoo_room(248), "quadric_room": lambda: quadric_room(248),
+            "quadric_room_kd": lambda: quadric_room(40, instances=False, accelerator="kdtree")}
     rec = {"device": torch.cuda.get_device_name(0), "nvidia_smi": chip_smoke._smi(),
            "torch": torch.__version__, "cuda": torch.version.cuda, "scene": args.scene,
            "all_matte": args.all_matte}
@@ -172,15 +181,24 @@ LOBE_CALLS = ("make_bsdf", "bsdf_f", "bsdf_pdf", "bsdf_sample")
 def _traversal_and_layers(args, cs, rec, wall_median):
     import chip_smoke
     from pbrt_tpu_torch import render as R_
-    from pbrt_tpu_torch.device import integrator, intersect, wide_bvh
+    from pbrt_tpu_torch.device import bvh_walk, integrator, intersect, wide_bvh
 
     # --- 2. traversal kernel vs plain on the main path's ray sets ---
     rec["traversal"] = []
-    for name, o, d, t_max in (chip_smoke._rays(cs) if cs.static.has_wide_tri else ()):
+    route = intersect.route_name(cs.static)
+    if route in ("bvh", "kdtree"):
+        walk_k = bvh_walk.kd_walk_cuda if route == "kdtree" else bvh_walk.bvh_walk_cuda
+        walk_p = bvh_walk.kd_walk_plain if route == "kdtree" else bvh_walk.walk_plain
+        kernel = lambda o, d, t_max, any_hit: walk_k(cs.arrays, cs.static, o, d, t_max, any_hit)  # noqa: E731
+        plain = lambda o, d, t_max, any_hit: walk_p(cs.arrays, cs.static, o, d, t_max, any_hit)  # noqa: E731
+    else:
+        kernel = lambda o, d, t_max, any_hit: wide_bvh.traverse_cuda(cs.arrays, o, d, t_max, any_hit)  # noqa: E731
+        plain = lambda o, d, t_max, any_hit: wide_bvh.traverse_plain(cs.arrays, o, d, t_max, any_hit)  # noqa: E731
+    for name, o, d, t_max in (chip_smoke._rays(cs) if cs.static.has_wide_tri or route in ("bvh", "kdtree") else ()):
         for any_hit in (False, True):
-            k_ms = chip_smoke._cuda_ms(lambda: wide_bvh.traverse_cuda(cs.arrays, o, d, t_max, any_hit), 20)
-            p_ms = chip_smoke._cuda_ms(lambda: wide_bvh.traverse_plain(cs.arrays, o, d, t_max, any_hit), 2)
-            pops = wide_bvh.traverse_cuda(cs.arrays, o, d, t_max, any_hit)[4].double()
+            k_ms = chip_smoke._cuda_ms(lambda: kernel(o, d, t_max, any_hit), 20)
+            p_ms = chip_smoke._cuda_ms(lambda: plain(o, d, t_max, any_hit), 2)
+            pops = kernel(o, d, t_max, any_hit)[4].double()
             row = {"rays": name, "query": "any" if any_hit else "closest", "n": o.shape[0],
                    "kernel_ms": k_ms, "plain_ms": p_ms, "pops_mean": pops.mean().item(),
                    "pops_max": int(pops.max().item())}
@@ -194,10 +212,27 @@ def _traversal_and_layers(args, cs, rec, wall_median):
     saved_regen = R_.make_regen
     saved_kernel = wide_bvh.traverse_cuda
     saved_spheres = intersect._mixed_spheres
+    saved_walk = intersect.walk_intersect
+    # the walk's span by the query that calls it: a query's first walk, or a
+    # re-cast past an alpha cut-out
+    query = {"name": None, "walks": 0}
+
+    def in_query(fn, name):
+        def wrapped(*a, **k):
+            query["name"], query["walks"] = name, 0
+            return fn(*a, **k)
+        return wrapped
+
+    def walk(*a, **k):
+        name = "walk_alpha_recast" if query["walks"] else f"walk_{query['name']}"
+        query["walks"] += 1
+        return _spanned(saved_walk, name, spans)(*a, **k)
+
     try:
         intersect._mixed_spheres = _spanned(saved_spheres, "sphere_merge", spans)
-        integrator.intersect = _spanned(saved["intersect"], "closest_query", spans)
-        integrator.intersect_p = _spanned(saved["intersect_p"], "shadow_query", spans)
+        intersect.walk_intersect = walk
+        integrator.intersect = in_query(_spanned(saved["intersect"], "closest_query", spans), "closest")
+        integrator.intersect_p = in_query(_spanned(saved["intersect_p"], "shadow_query", spans), "shadow")
         for n in LOBE_CALLS:
             setattr(integrator, n, _spanned(saved[n], "lobe_eval", spans))
         R_.make_regen = lambda *a, **k: _spanned(saved_regen(*a, **k), "regen", spans)
@@ -215,6 +250,7 @@ def _traversal_and_layers(args, cs, rec, wall_median):
         R_.make_regen = saved_regen
         wide_bvh.traverse_cuda = saved_kernel
         intersect._mixed_spheres = saved_spheres
+        intersect.walk_intersect = saved_walk
     traced = R_.render_compiled.last_timing["wall_s"]
     layers = {"regen": spans.get("regen", 0.0),
               "closest_query": spans.get("closest_query", 0.0),
@@ -224,11 +260,15 @@ def _traversal_and_layers(args, cs, rec, wall_median):
     rec["layers"] = {"traced_wall_s": traced, "tracing_cost_s": traced - wall_median,
                      "seconds": layers, "kernel_s_within_queries": spans.get("kernel", 0.0),
                      "sphere_merge_s_within_queries": spans.get("sphere_merge", 0.0),
+                     "walk_s_within_queries": {k: spans.get(k, 0.0) for k in
+                                               ("walk_closest", "walk_shadow", "walk_alpha_recast")},
                      "kernel_launches": kern.launches}
     print(f"layers (traced wall {traced:.4f}s): " + ", ".join(
         f"{k} {v:.4f}s ({100 * v / traced:.1f}%)" for k, v in layers.items())
         + f"; kernel itself {spans.get('kernel', 0.0):.4f}s over {kern.launches} launches; spheres' tests and "
-          f"merge {spans.get('sphere_merge', 0.0):.4f}s", flush=True)
+          f"merge {spans.get('sphere_merge', 0.0):.4f}s; walks: closest {spans.get('walk_closest', 0.0):.4f}s, shadow "
+          f"{spans.get('walk_shadow', 0.0):.4f}s, alpha re-casts {spans.get('walk_alpha_recast', 0.0):.4f}s",
+        flush=True)
 
 
 def _launch_path(args, cs, rec):
