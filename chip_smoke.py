@@ -9,7 +9,7 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     power limit;
  2. build: nvcc-compiles every kernel source (csrc/wide_traverse.cu,
     wide_traverse_joint.cu, megakernel.cu, megakernel_wide.cu,
-    bvh_walk.cu), one nvcc each, all started together; prints build seconds, the ptxas
+    bvh_walk.cu, medium_track.cu), one nvcc each, all started together; prints build seconds, the ptxas
     register/spill/shared-memory report of each and every variant's
     resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
     and B3's __launch_bounds__ choice;
@@ -153,14 +153,15 @@ Phases (one line each; any failure raises and the exit code is non-zero):
 25. textured_room (material_room's 3,854 triangles with UV charts, a
     1024x1024 RGB imagemap under EWA on the floor, a 512x512 trilinear one
     on a wall, a checkerboard, a scale of marble, a mix by fbm and a brick
-    bump map; halton + gaussian) through the wavefront at 1000x500, 16 spp,
-    depth 5: route torch-wavefront/cuda-wide, B1 launches > 0; prints the
-    wall, path_vertex_samples_per_sec, the path vertices and the device
-    kernels per wavefront iteration (torch.profiler over the crop's
-    render); the crop on cuda and cpu, held as in phase 5; then the scene
-    written as a file (Texture directives, PFM images) through main.main:
-    the tables equal to the hand-built scene's bit for bit, the same path
-    vertices and an image bit-equal to the first render's;
+    bump map; halton + gaussian) through the wavefront at 1000x500, 8 spp
+    (LATE_MAIN_SPP), depth 5: route
+    torch-wavefront/cuda-wide, B1 launches > 0; prints the wall,
+    path_vertex_samples_per_sec, the path vertices and the device kernels
+    per wavefront iteration (torch.profiler over the crop's render at 1
+    spp); the crop at 2 spp on cuda and cpu, held as in phase 5; then the scene
+    written as a file (Texture directives, PFM images) through main.main
+    at 8 spp: the tables equal to the hand-built scene's bit for bit, the
+    same path vertices and an image bit-equal to the first render's;
 26. B3's textured instantiation: textured_gallery (spheres_gallery with
     128x128 grayscale imagemap Kds on the ground and a backdrop quad, the
     mip atlas in device memory) against its twin at 1000x500, 2 spp under
@@ -169,7 +170,7 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     counted in the bytes, the taps of the camera rays' textured hits in the
     operations), no pixel cut by the iteration cap, its ptxas report and
     blocks per SM; the render through the route (one B3 launch) and through
-    the brute wavefront (PBRT_TPU_NO_MEGAKERNEL=1) at 16 spp, their mean
+    the brute wavefront (PBRT_TPU_NO_MEGAKERNEL=1) at 8 spp, their mean
     brightness within 0.93-1.07 of each other (the reference's band for a
     ray-cone filter against EWA, tests/test_megakernel.py:189-205);
 27. B4's checkerboard Kd: material_room(checker=True) (the floor matte, a
@@ -207,7 +208,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     (material_room's meshes with an anisotropic substrate floor, a disney
     wall, a wall mixing plastic and copper, a rough-conductor fourier box,
     a translucent quad and 32 hair curves: 7,952 triangles) at 1000x500,
-    16 spp, depth 5: route torch-wavefront/cuda-wide, B1 launches > 0;
+    8 spp (LATE_MAIN_SPP), depth 5: route
+    torch-wavefront/cuda-wide, B1 launches > 0;
     prints the wall, path_vertex_samples_per_sec, path vertices, the
     device kernels per wavefront iteration and the share of camera rays
     ending on each material kind; B1 against its twin bit for bit on the
@@ -240,7 +242,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     ptxas report and blocks per SM, the plain twin's time on the camera
     rays, and its bound from the instrumented entry's counts (pops,
     triangle, quadric and instanced tests);
-35. quadric_room(248) through the wavefront at 1000x500, 16 spp, depth 5
+35. quadric_room(248) through the wavefront at 1000x500, 8 spp
+    (LATE_MAIN_SPP), depth 5
     (route torch-wavefront/cuda-bvh, walk launches > 0), then its kd
     variant (torch-wavefront/cuda-kdtree): wall,
     path_vertex_samples_per_sec, device kernels per iteration (the
@@ -252,7 +255,7 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     (99% of the pixels within rtol 1e-2);
 36. camera_room (material_room(checker=True)) under the orthographic and,
     with the alpha panel, the environment camera through B1 at 1000x500,
-    16 spp: route torch-wavefront/cuda-wide, B1 launches > 0, the 1 spp
+    8 spp (LATE_MAIN_SPP): route torch-wavefront/cuda-wide, B1 launches > 0, the 1 spp
     crops on cuda and cpu; then B3's and B4's named refusals of the orthographic and
     environment cameras and of quadric_room (goniometric lights first)
     and its kd variant;
@@ -263,12 +266,36 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     with PFM maps, Accelerator "kdtree", Camera "orthographic") through
     main.main on cuda (route torch-wavefront/cuda-bvh: its instances keep
     the BVH) with the tables and the 4 spp crop bit-equal to the hand-built
-    scene's, and through python -m pbrt_tpu_torch as a subprocess.
+    scene's, and through python -m pbrt_tpu_torch as a subprocess;
+38. medium_track (csrc/medium_track.cu: delta and ratio tracking through
+    grid media) against its twin on 500,000 rays from fog_room(248)'s
+    camera through its smoke box (64^3 densities), entry to exit: steps
+    and collisions equal on every ray, t and the transmittance within rel
+    1e-5 (prints how many rays are bit-equal); the kernel's time by CUDA
+    events, the twin's by the host clock, its ptxas report, and its bound
+    from the steps counted (MT_OPS_DELTA, MT_OPS_RATIO per step);
+39. fog_room(248) (volpath: the mesh room in a homogeneous fog that is the
+    camera's medium, an interface box of grid smoke, a spot light) at
+    1000x500, 16 spp, depth 5 on cuda after a warm-up on the crop: route
+    torch-wave/wide, B1 and medium_track launches > 0 in that run, a
+    finite, non-black image; path_vertex_samples_per_sec and the device
+    kernels per wave bounce (the profiler over a 1 spp crop);
+40. sss_room(248) (a "Skin1" subsurface and a kdsubsurface sphere, path)
+    the same way (the tabulated BSSRDF); then a crop of sss_room(40) under
+    PBRT_TPU_NO_TABSSS=1 (the random walk through the interiors as media);
+41. crops of both rooms, of the mesh room under whitted and of sky_meshes
+    under ao (the mesh room is closed: every ao ray there is occluded) on
+    cuda and cpu, held as in phase 5;
+42. fog_room(8) (the 64^3 grid) written as a file, rendered by python -m
+    pbrt_tpu_torch --checkpoint as a subprocess that is killed after its
+    first checkpoint (2 of 4 samples) and run again to resume: the resumed
+    image bit-equal to the uninterrupted render's.
 Phases 15-21, 24's image-mapped sky, 25, 28, 30, 31, 32 and 36 are the
 wavefront's array code around B1 (the brute wavefront launches no kernel
 of the port): they add no row to the kernel report; phase 29's sphere
 instantiation and phase 33's translucent wall ride B4's row; phases 34-35
-fill bvh_walk's row (its launches: the two renders of phase 35). Each main path runs with every launch count set to 0 just
+fill bvh_walk's row (its launches: the two renders of phase 35); phases
+38-39 medium_track's (its launches: the fog room's render). Each main path runs with every launch count set to 0 just
 before it and read just after; every switch a phase sets is restored after
 it. The second-to-last lines are the kernel report as JSON and the card's
 nvidia-smi name and power limit; the last line is
@@ -317,6 +344,10 @@ B3_OPS_TEX = 60  # one atlas lookup: the cone's level (log2), 2 levels x 4 taps 
 # crops at LATE_SPP[1] samples per pixel, to keep the script's command time
 # near its earlier length as phases are added
 LATE_SPP = (1, 2)
+# the main paths of phases 25-26, 31-32 and 35-36 render at this spp, half
+# the scenes' 16, to hold the script under 1,000 s beside the wave's phases
+# 38-42 (phase 25 also profiles and checks its crop at LATE_SPP)
+LATE_MAIN_SPP = 8
 # phase 26: the brute megakernel's image against the brute wavefront's (EWA),
 # by mean brightness (tests/test_megakernel.py:189-205)
 RAY_CONE_BAND = (0.93, 1.07)
@@ -426,10 +457,11 @@ def _check_crop(label, cs_gpu, cs_cpu, desc, spp=CROP_SPP, estimate=False):
 
 
 def _reset_launches():
-    from pbrt_tpu_torch.device import bvh_walk, megakernel, megakernel_wide, wide_bvh
+    from pbrt_tpu_torch.device import bvh_walk, medium_track, megakernel, megakernel_wide, wide_bvh
 
     for fn in (wide_bvh.traverse_cuda, wide_bvh.traverse_joint_cuda, megakernel.megakernel_cuda,
-               megakernel_wide.wide_megakernel_cuda, bvh_walk.bvh_walk_cuda, bvh_walk.kd_walk_cuda):
+               megakernel_wide.wide_megakernel_cuda, bvh_walk.bvh_walk_cuda, bvh_walk.kd_walk_cuda,
+               medium_track.delta_track_cuda, medium_track.ratio_track_cuda):
         fn.launches = 0
 
 
@@ -447,18 +479,19 @@ def _wide_tolerance(L, w, nv, L_r, w_r, nv_r):
                 f"max |dL| {diff.max().item():.3e}")
 
 
-def _main_path(label, cs, expect_tier, kernel_fn):
+def _main_path(label, cs, expect_tier, kernel_fn, spp=None):
     """Phases 4, 7, 10, 12, 14 and 15-18: a warm-up pass, then one full
     render with every launch count set to 0 just before it; returns (timing,
     launches of kernel_fn, image). kernel_fn None: a route of array code
-    only (the brute wavefront), which launches no kernel of the port."""
+    only (the brute wavefront), which launches no kernel of the port. spp:
+    the render's samples per pixel (None: the scene's)."""
     import numpy as np
 
     from pbrt_tpu_torch import render as R_
 
     R_.render_compiled(cs, seed=SEED, spp=2)  # warm-up pass
     _reset_launches()
-    img = R_.render_compiled(cs, seed=SEED)
+    img = R_.render_compiled(cs, seed=SEED, spp=spp)
     launches = None if kernel_fn is None else kernel_fn.launches
     timing = R_.render_compiled.last_timing
     desc = cs.description
@@ -469,7 +502,7 @@ def _main_path(label, cs, expect_tier, kernel_fn):
     if not (np.isfinite(img).all() and img.mean() > 0):
         raise AssertionError(f"{label} image is not finite and non-black")
     vps = timing["n_vertices"] / timing["wall_s"]
-    print(f"[{label}] {desc.film.x_resolution}x{desc.film.y_resolution} {desc.sampler.pixel_samples}spp "
+    print(f"[{label}] {desc.film.x_resolution}x{desc.film.y_resolution} {spp or desc.sampler.pixel_samples}spp "
           f"depth {desc.integrator.max_depth} route {timing['tier']}: wall {timing['wall_s']:.4f}s, "
           f"{timing['n_vertices']:.0f} path vertices, path_vertex_samples_per_sec {vps:.1f}, "
           f"kernel launches {launches}, image mean {img.mean():.5f}", flush=True)
@@ -1067,18 +1100,19 @@ def _texture_phases(out, work, g, b3_ms, b3_bound_vertex, m, b4_ms):
     host_s = time.perf_counter() - t0
     tr = tr_host.to(dev)
     timing, b1, img = _main_path("25 textured_room main path", tr, "torch-wavefront/cuda-wide",
-                                 wide_bvh.traverse_cuda)
-    n_k, n_it = _kernels_per_iteration(tr)
+                                 wide_bvh.traverse_cuda, LATE_MAIN_SPP)
+    n_k, n_it = _kernels_per_iteration(tr, LATE_SPP[0])
     tex_bytes = _nbytes(*tr.arrays.tex_images.values())
     print(f"  host compile {host_s:.2f}s, {len(tr.static.tex_programs)} texture programs "
           f"{[p.kind for p in tr.static.tex_programs]}, MIP levels {tex_bytes} bytes; crop under the profiler: "
           f"{n_k} device kernels over {n_it} wavefront iterations ({n_k / max(n_it, 1):.1f} per iteration)",
           flush=True)
-    _check_crop("25 cuda-vs-cpu textured_room crop", tr, tr_host, tr.description)
+    _check_crop("25 cuda-vs-cpu textured_room crop", tr, tr_host, tr.description, LATE_SPP[1])
     path = work / "textured_room.pbrt"
     scenes.write_pbrt(tr_host.description, str(path), scenes.ROOM_LOOK_AT, sampler=False)
     _reset_launches()
-    cli.main([str(path), "--outfile", str(work / "textured_room.exr"), "--quiet", "--seed", str(SEED)])
+    cli.main([str(path), "--outfile", str(work / "textured_room.exr"), "--quiet", "--seed", str(SEED), "--spp",
+              str(LATE_MAIN_SPP)])
     run = cli.main.last_run
     f_timing, f_img = run["timing"], run["image"]
     bad = _tables_equal(run["scene"].arrays, tr_host.arrays)
@@ -1157,12 +1191,12 @@ def _texture_phases(out, work, g, b3_ms, b3_bound_vertex, m, b4_ms):
     b3_inst = {"mode": mode, "ms": ms, "plain_ms": plain_ms, "n_vertices": nv16, "max_abs_err": err,
                "bound_ms": bound[0], "bound_by": bound[1], "blocks_per_sm": occ, **ptx}
     t_k, l_k, img_k = _main_path("26 textured_gallery through B3", tg, "torch-megakernel/cuda-brute",
-                                 megakernel.megakernel_cuda)
+                                 megakernel.megakernel_cuda, LATE_MAIN_SPP)
     if l_k != 1:
         raise AssertionError(f"the textured gallery render made {l_k} brute megakernel launches, not 1")
     with mock.patch.dict(os.environ, PBRT_TPU_NO_MEGAKERNEL="1"):
         t_w, _l, img_w = _main_path("26 textured_gallery through the brute wavefront", tg,
-                                    "torch-wavefront/cuda-brute", None)
+                                    "torch-wavefront/cuda-brute", None, LATE_MAIN_SPP)
     ratio = float(img_k.mean()) / float(img_w.mean())
     print(f"  mean brightness B3 (ray cones) {img_k.mean():.5f}, wavefront (EWA) {img_w.mean():.5f}: ratio "
           f"{ratio:.4f} (band {RAY_CONE_BAND}); path_vertex_samples_per_sec B3 "
@@ -1499,7 +1533,8 @@ def _material_phases(out, work, m, b4_ms):
         host = compile_scene(scenes.zoo_room(n_side, table_dir=str(tables)), "cpu")
         host_s = time.perf_counter() - t0
         z = host.to(dev)
-        timing, b1, _img = _main_path(f"{label} main path", z, "torch-wavefront/cuda-wide", wide_bvh.traverse_cuda)
+        timing, b1, _img = _main_path(f"{label} main path", z, "torch-wavefront/cuda-wide", wide_bvh.traverse_cuda,
+                                      LATE_MAIN_SPP)
         n_k, n_it = _kernels_per_iteration(z, LATE_SPP[0])
         shares = _hit_shares(z)
         print(f"  {z.static.n_tris} triangles, {z.static.n_materials} material rows, Fourier tables "
@@ -1794,7 +1829,7 @@ def _walk_phases(out, work):
     for key, tier in (("bvh", "torch-wavefront/cuda-bvh"), ("kdtree", "torch-wavefront/cuda-kdtree")):
         q, host = scenes_34[key]
         walk_k = bvh_walk.kd_walk_cuda if key == "kdtree" else bvh_walk.bvh_walk_cuda
-        timing, launches, _img = _main_path(f"35 quadric_room {key} main path", q, tier, walk_k)
+        timing, launches, _img = _main_path(f"35 quadric_room {key} main path", q, tier, walk_k, LATE_MAIN_SPP)
         n_k, n_it = _kernels_per_iteration(q, LATE_SPP[0])
         print(f"  crop under the profiler: {n_k} device kernels over {n_it} wavefront iterations "
               f"({n_k / max(n_it, 1):.1f} per iteration); walk launches in the render {launches}", flush=True)
@@ -1821,7 +1856,7 @@ def _walk_phases(out, work):
         host = compile_scene(scenes.camera_room(kind), "cpu")
         c = host.to(dev)
         timing, b1, _img = _main_path(f"36 {kind} camera_room main path", c, "torch-wavefront/cuda-wide",
-                                      wide_bvh.traverse_cuda)
+                                      wide_bvh.traverse_cuda, LATE_MAIN_SPP)
         _check_crop(f"36 {kind} cuda-vs-cpu crop", c, host, host.description, LATE_SPP[0])
         out[f"camera_{kind}"] = {"wall_s": timing["wall_s"], "vps": timing["n_vertices"] / timing["wall_s"],
                                  "b1_launches": b1, "has_alpha": c.static.has_alpha}
@@ -1891,6 +1926,238 @@ def _walk_phases(out, work):
     seconds["37"] = time.perf_counter() - t_phase
 
 
+# medium_track.cu: float32 operations per tracking step, counted from its
+# source as a lower bound: a delta step's two draws (3 each), the step
+# (5, the log as one), the test against t_end, the point (6), the
+# world -> grid transform (18), the voxel coordinates (18), the trilinear
+# blend (21) and the collision test (2); a ratio step has one draw and the
+# transmittance update (4) in place of the collision test
+MT_OPS_DELTA = 6 + 5 + 1 + 6 + 18 + 18 + 21 + 2
+MT_OPS_RATIO = 3 + 5 + 1 + 6 + 18 + 18 + 21 + 4
+TRACK_RAYS = 500_000
+
+
+def _track_rays(cs, n, seed=SEED):
+    """n rays from the room's camera eye to uniform points of the fog
+    room's smoke box, started where they enter it and ending where they
+    leave it (a slab test), in the box's grid medium, with uint32 keys."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch import scenes
+
+    rs = np.random.RandomState(seed)
+    eye = np.asarray(scenes.ROOM_LOOK_AT[0], np.float64)
+    lo, hi = (np.asarray(v, np.float64) for v in scenes.FOG_BOX)
+    d = lo + rs.random_sample((n, 3)) * (hi - lo) - eye
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t0, t1 = (lo - eye) / d, (hi - eye) / d
+    tn, tf = np.minimum(t0, t1).max(1), np.maximum(t0, t1).min(1)
+    dev = cs.arrays.device
+    smoke = cs.static.media_kinds.index("heterogeneous")
+    f32 = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)  # noqa: E731
+    return (torch.full((n,), smoke, dtype=torch.int64, device=dev), f32(eye + d * tn[:, None]), f32(d), f32(tf - tn),
+            torch.as_tensor(rs.randint(0, 2 ** 32, n, dtype=np.int64), device=dev))
+
+
+def _kernels_per_bounce(cs, spp=1) -> tuple[int, int]:
+    """(device kernels, wave bounces) of the crop's render at spp under
+    torch.profiler; a wave's bounces are its iterations and its last
+    pickup (integrator.wave_iterations + 1)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch.device import integrator
+
+    d = cs.description
+    desc_c = dataclasses.replace(d, integrator=dataclasses.replace(d.integrator, pixel_bounds=CROP_BOUNDS),
+                                 sampler=dataclasses.replace(d.sampler, pixel_samples=spp))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        R_.render_compiled(_with_desc(cs, desc_c), seed=SEED)
+        torch.cuda.synchronize()
+    bounces = spp * (integrator.wave_iterations(cs.static, d.integrator.kind, d.integrator.max_depth) + 1)
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA), bounces
+
+
+def _wave_main_path(label, cs, kernels):
+    """Phases 39-40: a warm-up render of the crop at 1 spp, then the full
+    render with every launch count set to 0 just before it; the route must
+    be the wave's torch-wave/wide and each of `kernels` launched in it.
+    Returns (timing, {kernel: launches}, image)."""
+    import numpy as np
+
+    from pbrt_tpu_torch import render as R_
+
+    d = cs.description
+    R_.render_compiled(_with_desc(cs, dataclasses.replace(
+        d, integrator=dataclasses.replace(d.integrator, pixel_bounds=CROP_BOUNDS),
+        sampler=dataclasses.replace(d.sampler, pixel_samples=1))), seed=SEED)
+    _reset_launches()
+    img = R_.render_compiled(cs, seed=SEED)
+    timing = R_.render_compiled.last_timing
+    launches = {k.__name__: k.launches for k in kernels}
+    vps = timing["n_vertices"] / timing["wall_s"]
+    print(f"[{label}] {d.film.x_resolution}x{d.film.y_resolution} {d.sampler.pixel_samples}spp "
+          f"{d.integrator.kind} depth {d.integrator.max_depth} route {timing['tier']}: wall {timing['wall_s']:.4f}s, "
+          f"{timing['n_vertices']:.0f} path vertices, path_vertex_samples_per_sec {vps:.1f}, launches {launches}, "
+          f"image mean {img.mean():.5f}", flush=True)
+    if timing["tier"] != "torch-wave/wide":
+        raise AssertionError(f"{label} took route {timing['tier']}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"{label} made no launch of a kernel of its path: {launches}")
+    if not (np.isfinite(img).all() and img.mean() > 0):
+        raise AssertionError(f"{label} image is not finite and non-black")
+    return timing, launches, img
+
+
+def _wave_phases(out, work, cs, cs_host):
+    """Phases 38-42: the per-sample wave (volpath with homogeneous and grid
+    media, interface crossings, subsurface and kdsubsurface, whitted, ao,
+    checkpoint and resume) and the medium_track kernel."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch import main as cli
+    from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.device import medium_track, nvcc, wide_bvh
+    from pbrt_tpu_torch.scene.builder import compile_scene
+
+    seconds = out["seconds"] = {}
+    t_phase = time.perf_counter()
+    # --- 38. medium_track against its twin ---
+    info = medium_track.build_kernel()
+    regs = "; ".join(sorted(set(re.findall(r"Used \d+ registers[^\n]*", info["log"])))) or "n/a"
+    occ = [nvcc.occupancy(info["lib"].medium_track_occupancy, w, 2) for w in (0, 1)]
+    t0 = time.perf_counter()
+    fog_host = compile_scene(scenes.fog_room(248), "cpu")
+    fog_compile_s = time.perf_counter() - t0
+    fog = fog_host.to("cuda")
+    sa, kinds = fog.arrays, fog.static.media_kinds
+    med, o, d, t_end, key = _track_rays(fog, TRACK_RAYS)
+    rows = {}
+    for name, kernel, plain, n_out, ops in (
+            ("delta_track", medium_track.delta_track_cuda, medium_track.delta_track_plain, 3, MT_OPS_DELTA),
+            ("ratio_track", medium_track.ratio_track_cuda, medium_track.ratio_track_plain, 2, MT_OPS_RATIO)):
+        res_k = kernel(sa, med, o, d, t_end, key)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res_p = plain(sa, kinds, med, o, d, t_end, key)
+        torch.cuda.synchronize()
+        p_ms = 1e3 * (time.perf_counter() - t0)
+        k_ms = _cuda_ms(lambda: kernel(sa, med, o, d, t_end, key), 20)
+        val_k, val_p = res_k[0], res_p[0]
+        steps_k, steps_p = res_k[-1], res_p[-1]
+        decisions = torch.equal(steps_k, steps_p) and (n_out == 2 or torch.equal(res_k[1], res_p[1]))
+        rel = ((val_k - val_p).abs() / val_p.abs().clamp(min=1e-30)).max().item()
+        bit_equal = int((val_k.view(torch.int32) == val_p.view(torch.int32)).sum().item())
+        steps = float(steps_k.double().sum())
+        grid_bytes = _nbytes(sa.med_grid_flat, sa.med_grid_dims, sa.med_w2m, sa.med_param)
+        nbytes = _nbytes(o, d, t_end, med, key, *res_k) + grid_bytes
+        bound = _bound(nbytes, steps * ops)
+        rows[name] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": (val_k - val_p).abs().max().item(),
+                      "max_rel_err": rel, "bit_equal_rays": bit_equal, "steps": steps,
+                      "steps_max": int(steps_k.max().item()), "bound_ms": bound[0], "bound_by": bound[1],
+                      "bytes": nbytes}
+        extra = f", collisions {int(res_k[1].sum().item())}" if n_out == 3 else f", mean tr {val_k.mean().item():.5f}"
+        print(f"[38 {name}] {TRACK_RAYS} rays through the smoke box: steps and decisions equal {decisions}, "
+              f"max rel err {rel:.3e}, bit-equal {bit_equal}/{TRACK_RAYS}; kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms; "
+              f"{steps:.0f} steps ({steps / TRACK_RAYS:.2f} per ray, max {rows[name]['steps_max']}){extra}; bound "
+              f"{bound[0]:.4f} ms ({bound[1]}: {nbytes} bytes, {steps * ops:.4g} ops), kernel at "
+              f"{100 * bound[0] / k_ms:.2f}% of it", flush=True)
+        if not decisions or rel > 1e-5:
+            raise AssertionError(f"{name}: the kernel and its twin disagree")
+    print(f"  medium_track ptxas: {regs}; blocks per SM (delta, ratio) {occ}; fog_room host compile "
+          f"{fog_compile_s:.1f}s, grid {tuple(sa.med_grids['med1'].shape)}", flush=True)
+    out["medium_track"] = {**rows, "ptxas": regs, "blocks_per_sm": occ}
+
+    seconds["38"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # --- 39. the fog room main path ---
+    timing, launches, _img = _wave_main_path("39 fog_room main path", fog, (
+        wide_bvh.traverse_cuda, medium_track.delta_track_cuda, medium_track.ratio_track_cuda))
+    kern, bounces = _kernels_per_bounce(fog)
+    print(f"  device kernels per wave bounce {kern / bounces:.1f} ({kern} over {bounces} bounces of a 1 spp crop)",
+          flush=True)
+    out["fog_room"] = {"wall_s": timing["wall_s"], "vps": timing["n_vertices"] / timing["wall_s"],
+                       "launches": launches, "kernels_per_bounce": kern / bounces}
+
+    seconds["39"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # --- 40. the sss room main path (the tabulated BSSRDF); the walk ---
+    t0 = time.perf_counter()
+    sss_host = compile_scene(scenes.sss_room(248), "cpu")
+    sss_compile_s = time.perf_counter() - t0
+    sss = sss_host.to("cuda")
+    timing, launches, _img = _wave_main_path("40 sss_room main path", sss, (wide_bvh.traverse_cuda,))
+    kern, bounces = _kernels_per_bounce(sss)
+    # the walk on a smaller room (the spheres at 64 x 32 and 32 x 32 cells)
+    x0, x1, y0, y1 = CROP_BOUNDS
+    with mock.patch.dict(os.environ, PBRT_TPU_NO_TABSSS="1"):
+        walk = compile_scene(scenes.sss_room(40, 64, 32), "cuda")
+    d = walk.description
+    desc_c = dataclasses.replace(d, integrator=dataclasses.replace(d.integrator, pixel_bounds=CROP_BOUNDS),
+                                 sampler=dataclasses.replace(d.sampler, pixel_samples=LATE_SPP[1]))
+    walk_img = R_.render_compiled(_with_desc(walk, desc_c), seed=SEED)[y0:y1, x0:x1]
+    print(f"  host compile {sss_compile_s:.1f}s; device kernels per wave bounce {kern / bounces:.1f}; the walk "
+          f"(PBRT_TPU_NO_TABSSS=1: {walk.static.sss_media} walk media, route {R_.render_compiled.last_timing['tier']}) "
+          f"crop of sss_room(40, 64, 32) at {LATE_SPP[1]} spp mean {walk_img.mean():.5f}", flush=True)
+    if not (walk.static.has_sss_media and np.isfinite(walk_img).all() and walk_img.mean() > 0):
+        raise AssertionError("the sss room's walk crop is not finite and non-black")
+    out["sss_room"] = {"wall_s": timing["wall_s"], "vps": timing["n_vertices"] / timing["wall_s"],
+                       "launches": launches, "kernels_per_bounce": kern / bounces,
+                       "walk_crop_mean": float(walk_img.mean())}
+
+    seconds["40"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # --- 41. crops on cuda and cpu: both rooms, whitted and ao ---
+    _check_crop("41 fog_room cuda-vs-cpu crop", fog, fog_host, fog.description, LATE_SPP[0])
+    _check_crop("41 sss_room cuda-vs-cpu crop", sss, sss_host, sss.description, LATE_SPP[0])
+    # whitted on the mesh room (phase 3's tables); ao on the open sky_meshes
+    # (the mesh room is closed: every ao ray is occluded)
+    sky_host = compile_scene(scenes.sky_meshes(), "cpu")
+    for kind, gpu, host in (("whitted", cs, cs_host), ("ao", sky_host.to("cuda"), sky_host)):
+        desc = dataclasses.replace(host.description, integrator=dataclasses.replace(host.description.integrator,
+                                                                                    kind=kind))
+        _check_crop(f"41 {kind} cuda-vs-cpu crop", _with_desc(gpu, desc), _with_desc(host, desc), desc, LATE_SPP[1])
+
+    seconds["41"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # --- 42. the fog room as a file: a checkpointed render, interrupted and resumed ---
+    path = work / "fog_room.pbrt"
+    scenes.write_pbrt(scenes.fog_room(8), str(path), scenes.ROOM_LOOK_AT)
+    ck = work / "fog.npz"
+    crop = ["--cropwindow", "0.3", "0.7", "0.3", "0.7"]
+    args = [str(path), "--quiet", "--seed", str(SEED), "--spp", "4", *crop]
+    cmd = [sys.executable, "-m", "pbrt_tpu_torch", *args, "--checkpoint", str(ck), "--checkpoint-every", "2"]
+    cwd = str(Path(__file__).resolve().parent)
+    sub = subprocess.Popen(cmd + ["--outfile", str(work / "cut.pfm")], cwd=cwd, stdout=subprocess.DEVNULL,
+                           stderr=subprocess.DEVNULL)
+    t0 = time.perf_counter()
+    while not ck.exists() and sub.poll() is None and time.perf_counter() - t0 < 300:
+        time.sleep(0.01)
+    sub.kill()
+    sub.wait()
+    cut_at = int(np.load(ck)["next_sample"]) if ck.exists() else None
+    res = subprocess.run(cmd + ["--outfile", str(work / "resumed.pfm")], cwd=cwd, capture_output=True, text=True,
+                         timeout=600)
+    cli.main(args + ["--outfile", str(work / "whole.pfm")])
+    from pbrt_tpu_torch.core.imageio import read_image
+
+    resumed, whole = read_image(str(work / "resumed.pfm")), read_image(str(work / "whole.pfm"))
+    equal = resumed.shape == whole.shape and bool(np.array_equal(resumed, whole))
+    print(f"[42 checkpoint] {path.name} ({path.stat().st_size} bytes): python -m pbrt_tpu_torch stopped at the "
+          f"checkpoint of sample {cut_at}/4, resumed (exit {res.returncode}) to an image bit-equal to the "
+          f"uninterrupted render's: {equal} (max |d| {np.abs(resumed - whole).max():.3e}, mean {whole.mean():.5f}); "
+          f"route {cli.main.last_run['timing']['tier']}", flush=True)
+    if cut_at != 2 or res.returncode != 0 or not equal or not whole.mean() > 0:
+        raise AssertionError(f"the checkpointed render did not resume to the uninterrupted one:\n{res.stderr[-2000:]}")
+    out["checkpoint"] = {"cut_at": cut_at, "bit_equal": equal}
+    seconds["42"] = time.perf_counter() - t_phase
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1906,14 +2173,14 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from pbrt_tpu_torch import render as R_
-    from pbrt_tpu_torch.device import bvh_walk, megakernel, megakernel_wide, nvcc, wide_bvh
+    from pbrt_tpu_torch.device import bvh_walk, medium_track, megakernel, megakernel_wide, nvcc, wide_bvh
     from pbrt_tpu_torch.device.camera import make_camera
     from pbrt_tpu_torch.scene.builder import compile_scene
     from pbrt_tpu_torch.scenes import material_room, mesh_room, spheres_gallery
 
     # --- 2. build: every kernel, one nvcc each, all started together ---
     nvcc.build_all([wide_bvh.KERNEL_SOURCE, wide_bvh.JOINT_SOURCE, megakernel.KERNEL_SOURCE,
-                    megakernel_wide.KERNEL_SOURCE, bvh_walk.KERNEL_SOURCE])
+                    megakernel_wide.KERNEL_SOURCE, bvh_walk.KERNEL_SOURCE, medium_track.KERNEL_SOURCE])
     # resident blocks per SM of each kernel (cudaOccupancyMaxActiveBlocksPerMultiprocessor), per variant
     occupancy = (("wide_traverse_occupancy", [()]), ("wide_traverse_joint_occupancy", [()]),
                  ("brute_megakernel_occupancy", [(m,) for m in range(2 * megakernel.N_PLAIN_MODES)]),
@@ -1927,6 +2194,10 @@ def main() -> int:
         occ = [nvcc.occupancy(getattr(info["lib"], entry), *v) for v in variants]
         print(f"[2 build] {Path(info['path']).name} in {info['seconds']:.1f}s; ptxas: {regs}; {spills}; "
               f"blocks per SM by variant {occ}", flush=True)
+    info = medium_track.build_kernel()
+    regs = "; ".join(sorted(set(re.findall(r"Used \d+ registers[^\n]*", info["log"])))) or "n/a"
+    print(f"[2 build] {Path(info['path']).name} in {info['seconds']:.1f}s; ptxas: {regs}; blocks per SM (delta, "
+          f"ratio) {[nvcc.occupancy(info['lib'].medium_track_occupancy, w, 2) for w in (0, 1)]}", flush=True)
     group = wide_bvh.joint_group_width()
     print(f"[2 build] B2 walks a ray with {group} lanes, {32 // group} rays per warp", flush=True)
     b3_min_blocks = re.search(r"^#define MIN_BLOCKS (\d+)", megakernel.KERNEL_SOURCE.read_text(), re.MULTILINE)[1]
@@ -2249,7 +2520,17 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     print(f"[34-37 walks] in {time.perf_counter() - t_group:.1f}s: {json.dumps(wk)}", flush=True)
 
-    print(f"[timing] phases 1-37 in {time.perf_counter() - t_script:.1f}s", flush=True)
+    # --- 38-42. the per-sample wave: volpath, media, subsurface, whitted, ao,
+    # checkpoints; the medium_track kernel ---
+    t_group = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        wv = _unswitched(_wave_phases, work, cs, cs_host)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[38-42 wave] in {time.perf_counter() - t_group:.1f}s: {json.dumps(wv)}", flush=True)
+
+    print(f"[timing] phases 1-42 in {time.perf_counter() - t_script:.1f}s", flush=True)
     report = {"kernels": [
         {"name": "wide_traverse", "route": "cuda", "source": "pbrt_tpu_torch/csrc/wide_traverse.cu",
          "replaces": "pbrt_tpu/device/pallas_bvh.py:90", "launches": b1_launches, "max_abs_err": max_err,
@@ -2276,6 +2557,15 @@ def main() -> int:
          "bound_by": wk["walk_bvh"]["bound_by"], "library_ms": None,
          "launches_by_route": {"bvh": wk["quadric_room_bvh"]["walk_launches"],
                                "kdtree": wk["quadric_room_kdtree"]["walk_launches"]}},
+        {"name": "medium_track", "route": "cuda", "source": "pbrt_tpu_torch/csrc/medium_track.cu",
+         "replaces": "none (pbrt_tpu/device/media.py:183 and :248, lax.while_loops of delta and ratio tracking)",
+         "launches": sum(wv["fog_room"]["launches"][k] for k in ("delta_track_cuda", "ratio_track_cuda")),
+         "max_abs_err": max(wv["medium_track"][k]["max_abs_err"] for k in ("delta_track", "ratio_track")),
+         "ms": wv["medium_track"]["delta_track"]["ms"], "plain_ms": wv["medium_track"]["delta_track"]["plain_ms"],
+         "bound_ms": wv["medium_track"]["delta_track"]["bound_ms"],
+         "bound_by": wv["medium_track"]["delta_track"]["bound_by"], "library_ms": None,
+         "launches_by_entry": {k: wv["fog_room"]["launches"][k] for k in ("delta_track_cuda", "ratio_track_cuda")},
+         "ratio_track": {k: wv["medium_track"]["ratio_track"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
     ]}
     print(json.dumps(report))
     print(_smi())

@@ -7,8 +7,9 @@ LOBE_LAMBERT_T, LOBE_OREN_NAYAR, LOBE_MICRO_R and LOBE_MICRO_T
 (Trowbridge-Reitz or Beckmann; dielectric, conductor or Schlick Fresnel),
 LOBE_SPEC_R, LOBE_SPEC_T, LOBE_FRESNEL_SPEC, LOBE_FRESNEL_BLEND (substrate),
 LOBE_DISNEY_DIFF and LOBE_CLEARCOAT (disney), LOBE_FOURIER (device/fourier.py)
-and LOBE_HAIR (device/hair.py), in radiance transport. The BSSRDF adapter
-lobe (subsurface, kdsubsurface) and importance transport are not ported.
+LOBE_HAIR (device/hair.py) and LOBE_SSS_ADAPTER (the tabulated BSSRDF's
+exit-point lobe, device/bssrdf.py), in radiance transport. Importance
+transport is not ported.
 
 A lobe set is {"kind": (R, S) int, "data": (R, S, 14) float32, "possible":
 S frozensets, "has_beckmann" and "has_schlick": bool (some lobe may use
@@ -53,11 +54,13 @@ LOBE_DISNEY_DIFF = 10  # Burley diffuse + sheen (disney.rs DisneyDiffuse, Disney
 LOBE_CLEARCOAT = 11  # GTR1 clearcoat (disney.rs DisneyClearcoat)
 LOBE_FOURIER = 12  # tabulated BSDF (reflection.rs FourierBSDF); table id in data[12]
 LOBE_HAIR = 13  # Marschner fiber model (materials/hair.rs); slots in device/hair.py
+LOBE_SSS_ADAPTER = 14  # the BSSRDF's exit-point lobe: f = Sw(wi) eta^2, eta in data[3]
 PORTED_KINDS = frozenset({LOBE_LAMBERT_R, LOBE_LAMBERT_T, LOBE_OREN_NAYAR, LOBE_MICRO_R, LOBE_MICRO_T, LOBE_SPEC_R,
                           LOBE_SPEC_T, LOBE_FRESNEL_SPEC, LOBE_FRESNEL_BLEND, LOBE_DISNEY_DIFF, LOBE_CLEARCOAT,
-                          LOBE_FOURIER, LOBE_HAIR})
+                          LOBE_FOURIER, LOBE_HAIR, LOBE_SSS_ADAPTER})
 SPECULAR_KINDS = frozenset({LOBE_SPEC_R, LOBE_SPEC_T, LOBE_FRESNEL_SPEC})
-_DIFFUSE = frozenset({LOBE_LAMBERT_R, LOBE_OREN_NAYAR, LOBE_DISNEY_DIFF})  # cosine-sampled on the wo side
+# cosine-sampled on the wo side
+_DIFFUSE = frozenset({LOBE_LAMBERT_R, LOBE_OREN_NAYAR, LOBE_DISNEY_DIFF, LOBE_SSS_ADAPTER})
 _TRANS = frozenset({LOBE_LAMBERT_T, LOBE_MICRO_T, LOBE_SPEC_T})
 _BOTH = frozenset({LOBE_FRESNEL_SPEC, LOBE_FOURIER, LOBE_HAIR})
 INV_PI = 1.0 / math.pi
@@ -373,6 +376,14 @@ def _lobe_f(kind, data, wo, wi, possible, beck, schlick=False, fourier=None):
         abs_co = abs_cos_theta(wo)
     if possible & {LOBE_LAMBERT_R, LOBE_LAMBERT_T}:
         put({LOBE_LAMBERT_R, LOBE_LAMBERT_T}, None, color * INV_PI)
+    if LOBE_SSS_ADAPTER in possible:
+        # the BSSRDF's directional term at the exit point, times eta^2 in
+        # radiance transport (bssrdf.rs:593-600)
+        from .bssrdf import sw_factor
+
+        eta_a = torch.clamp(data[..., 3], min=_ETA_MIN)
+        f_sw = sw_factor(eta_a, cos_theta(wi)) * eta_a * eta_a
+        put({LOBE_SSS_ADAPTER}, same_hemisphere(wo, wi), f_sw[..., None] * torch.ones_like(color))
     if LOBE_OREN_NAYAR in possible:
         si = torch.sqrt(torch.clamp(1.0 - wi[..., 2] * wi[..., 2], min=0.0))
         so = torch.sqrt(torch.clamp(1.0 - wo[..., 2] * wo[..., 2], min=0.0))

@@ -20,8 +20,10 @@ so:
 A scene with a textured parameter builds each hit's lobes instead: the
 texture programs the rows read are evaluated per lane (device/texture.py)
 and the same lobe formulas (``_lobes``) run over the lanes' parameters.
-The subsurface, kdsubsurface and interface materials (the BSSRDF adapter
-lobe, the null material) are not ported: the scene compiler refuses them.
+The subsurface and kdsubsurface materials build their interface lobes
+(Fresnel reflection, specular or GGX, and diffuse transmission); the
+BSSRDF's exit-point lobe (bsdf.LOBE_SSS_ADAPTER) is made by the wave's
+subsurface event itself. The interface (null) material writes no lobe.
 """
 from __future__ import annotations
 
@@ -32,9 +34,9 @@ import torch
 
 from . import rng
 from ..scene.arrays import (
-    MAT_DISNEY, MAT_FOURIER, MAT_GLASS, MAT_HAIR, MAT_MATTE, MAT_METAL, MAT_MIRROR, MAT_MIX, MAT_PLASTIC,
-    MAT_SUBSTRATE, MAT_TRANSLUCENT, MAT_UBER, P_ETA, P_EXTRA, P_EXTRA2, P_K, P_KD, P_KR, P_KS, P_KT, P_OPACITY,
-    P_REFLECT, P_SIGMA, P_TRANSMIT, P_UROUGH, P_VROUGH,
+    MAT_DISNEY, MAT_FOURIER, MAT_GLASS, MAT_HAIR, MAT_KDSUBSURFACE, MAT_MATTE, MAT_METAL, MAT_MIRROR, MAT_MIX,
+    MAT_NONE, MAT_PLASTIC, MAT_SUBSTRATE, MAT_SUBSURFACE, MAT_TRANSLUCENT, MAT_UBER, P_ETA, P_EXTRA, P_EXTRA2, P_K,
+    P_KD, P_KR, P_KS, P_KT, P_OPACITY, P_REFLECT, P_SIGMA, P_TRANSMIT, P_UROUGH, P_VROUGH,
 )
 from .texture import eval_textures, material_param, needed_programs
 from .bsdf import (
@@ -48,11 +50,6 @@ FR_NONE = 0.0
 FR_DIELECTRIC = 1.0
 FR_CONDUCTOR = 2.0
 FR_SCHLICK = 3.0
-
-# the material kinds _lobes builds (a mix row writes none: its sub-rows do)
-BAKED_KINDS = frozenset({MAT_MATTE, MAT_MIRROR, MAT_GLASS, MAT_METAL, MAT_PLASTIC, MAT_UBER, MAT_SUBSTRATE,
-                         MAT_TRANSLUCENT, MAT_DISNEY, MAT_MIX, MAT_FOURIER, MAT_HAIR})
-
 
 # the slots and lobe kinds each material kind can write (the reference's
 # make_bsdf puts), for the `possible` sets of rows whose lobes vary per hit
@@ -69,6 +66,9 @@ _KIND_SLOTS = {
     MAT_MIX: {},  # its sub-materials' kinds are in mat_kinds_present
     MAT_FOURIER: {5: (LOBE_FOURIER,)},
     MAT_HAIR: {0: (LOBE_HAIR,)},
+    MAT_SUBSURFACE: {4: (LOBE_SPEC_R,), 2: (LOBE_MICRO_R,), 1: (LOBE_LAMBERT_T,)},
+    MAT_KDSUBSURFACE: {4: (LOBE_SPEC_R,), 2: (LOBE_MICRO_R,), 1: (LOBE_LAMBERT_T,)},
+    MAT_NONE: {},
 }
 
 
@@ -91,8 +91,6 @@ def lobe_table(sa, static):
     per hit, in every slot each present material kind can fill, from the
     texture programs the material rows read."""
     if bool((sa.mat_tex >= 0).any()):
-        if set(static.mat_kinds_present) - BAKED_KINDS:
-            raise NotImplementedError("the BSSRDF adapter lobe (subsurface, kdsubsurface) is not ported")
         poss: dict[int, set] = {}
         for k in static.mat_kinds_present:
             for slot, kinds in _KIND_SLOTS[int(k)].items():
@@ -177,8 +175,6 @@ def bake_lobes(sa, static):
     row writes none). Data columns: color 0:3, eta 3 (or rgb 3:6), k, Kt
     or a second color 6:9, alpha_x 9, alpha_y 10, Fresnel kind 11, then
     12:14 as device/bsdf.py lists them."""
-    if set(static.mat_kinds_present) - BAKED_KINDS:
-        raise NotImplementedError("the BSSRDF adapter lobe (subsurface, kdsubsurface) is not ported")
     return _lobes(sa.mat_kind, sa.mat_remap, lambda slot: sa.mat_const[:, slot], static,
                   lambda slot: sa.mat_const[:, slot])
 
@@ -335,6 +331,18 @@ def _lobes(kind, remap_row, param, static, const, uv=None):
         st_c = torch.sqrt(torch.clamp(color, 0.0, 1.0)) * spectrans[:, None]
         put(3, m & nonblack(st_c), LOBE_MICRO_T, st_c, eta=eta, ax=ax, ay=ay)
 
+    if MAT_SUBSURFACE in kinds_present or MAT_KDSUBSURFACE in kinds_present:
+        # the subsurface interface (materials.py:313-330): Fresnel
+        # reflection (specular, or GGX where rough) and a diffuse
+        # transmission of weight Kt (1 - F0), F0 = ((eta - 1) / (eta + 1))^2
+        m = (kind == MAT_SUBSURFACE) | (kind == MAT_KDSUBSURFACE)
+        smooth = (urough == 0) & (vrough == 0)
+        f0 = ipow((eta - 1.0) / (eta + 1.0), 2)
+        trans_w = torch.clamp(kt * (1.0 - f0)[:, None], 0.0, 1.0)
+        put(4, m & smooth, LOBE_SPEC_R, kr, eta=eta, fresnel=FR_DIELECTRIC)
+        put(2, m & ~smooth, LOBE_MICRO_R, kr, eta=eta, ax=ax, ay=ay, fresnel=FR_DIELECTRIC)
+        put(1, m, LOBE_LAMBERT_T, trans_w)
+
     if MAT_FOURIER in kinds_present:
         # fourier.rs: the table id in data[12] (the tables ride the lobe set;
         # a row whose table was unreadable compiled as matte)
@@ -365,8 +373,6 @@ def lobes_at_origin(sa, static):
     the origin); bake_lobes for a scene without textured parameters."""
     if not bool((sa.mat_tex >= 0).any()):
         return bake_lobes(sa, static)
-    if set(static.mat_kinds_present) - BAKED_KINDS:
-        raise NotImplementedError("the BSSRDF adapter lobe (subsurface, kdsubsurface) is not ported")
     M = sa.mat_kind.shape[0]
     dev = sa.mat_kind.device
     rows = torch.arange(M, device=dev)

@@ -276,12 +276,21 @@ def new_kind_refusal(cs, cam) -> str | None:
     (the reference's gate: cam kind != 0), goniometric and projection
     lights, quadrics other than spheres, object instancing, alpha cutouts
     (the reference's B3 never checks them and would render a cut-out
-    triangle whole: the port refuses them, ROADMAP C) and the kd-tree. Both
-    extractors ask it first; such scenes take the wavefront."""
+    triangle whole: the port refuses them, ROADMAP C) and the kd-tree; and
+    of the per-sample wave's: medium interfaces, participating media, the
+    interface material and the subsurface and kdsubsurface materials, which
+    render.py never sends to a megakernel. Both extractors ask it first."""
     from .camera import CAM_PERSPECTIVE
-    from ..scene.arrays import LIGHT_GONIO, LIGHT_PROJECTION
+    from ..scene.arrays import LIGHT_GONIO, LIGHT_PROJECTION, MAT_KDSUBSURFACE, MAT_NONE, MAT_SUBSURFACE
 
     static = cs.static
+    if bool((cs.arrays.prim_medium >= 0).any()):
+        return "medium interfaces"
+    if static.n_media or static.camera_medium >= 0:
+        return "participating media"
+    for k, name in ((MAT_NONE, "interface"), (MAT_SUBSURFACE, "subsurface"), (MAT_KDSUBSURFACE, "kdsubsurface")):
+        if k in static.mat_kinds_present:
+            return f"the '{name}' material"
     kind = cam.get("kind", CAM_PERSPECTIVE)
     if kind != CAM_PERSPECTIVE:
         return f"'{cs.description.camera.kind}' cameras"

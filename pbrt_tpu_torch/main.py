@@ -6,9 +6,11 @@ The port's counterpart of ``pbrt_tpu/main.py``: lexer -> parser -> API ->
 SceneDescription -> compile_scene -> render -> write_image -> the stats
 report. It renders on the card ("--device cuda", the default) and raises
 when no GPU is present; "--device cpu" runs every kernel's plain PyTorch
-twin. "--checkpoint" is refused: the reference sends a checkpointed render
-to its per-sample wave, which the port does not have yet. "--profile DIR"
-writes a torch.profiler chrome trace of the render into DIR.
+twin. "--checkpoint FILE" renders through the per-sample wave, writing the
+film's accumulators to FILE every "--checkpoint-every" samples and resuming
+from a FILE that matches the render (its spp, film and seed), as the
+reference does. "--profile DIR" writes a torch.profiler chrome trace of the
+render into DIR.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ def build_arg_parser():
     p.add_argument("--logtostderr", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--spp", type=int, default=None, help="override sampler pixel samples")
-    p.add_argument("--checkpoint", default="", help="checkpoint file for resumable renders (not supported yet)")
+    p.add_argument("--checkpoint", default="", help="checkpoint file for resumable renders")
     p.add_argument("--checkpoint-every", type=int, default=32, help="samples between checkpoints")
     p.add_argument("--profile", default="", metavar="DIR",
                    help="write a torch.profiler chrome trace of the render to DIR")
@@ -48,11 +50,6 @@ def main(argv=None):
     level = logging.DEBUG if args.verbose else (logging.ERROR if args.quiet else logging.INFO)
     logging.basicConfig(level=level, format="%(levelname).1s %(name)s: %(message)s")
     log = logging.getLogger("pbrt_tpu_torch")
-
-    if args.checkpoint:
-        raise NotImplementedError(
-            "pbrt_tpu_torch does not support --checkpoint yet: the reference resumes only on its "
-            "per-sample wave, which is not ported")
 
     from .core.options import Options
     from .parser.api import pbrt_parse
@@ -110,7 +107,8 @@ def main(argv=None):
         prof_ctx = prof = profile(activities=activities)
     t0 = time.perf_counter()
     with prof_ctx:
-        img = render_compiled(cs, seed=args.seed, spp=args.spp, progress=progress)
+        img = render_compiled(cs, seed=args.seed, spp=args.spp, progress=progress,
+                              checkpoint_path=args.checkpoint or None, checkpoint_every=args.checkpoint_every)
     t_render = time.perf_counter() - t0
     if prof is not None:
         os.makedirs(args.profile, exist_ok=True)

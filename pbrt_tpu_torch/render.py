@@ -1,9 +1,17 @@
 """Top-level render driver: SceneDescription -> image, on one device.
 
-The port's counterpart of ``pbrt_tpu/render.py`` for the persistent routes
-(``make_regen``, ``make_persistent_fn``, the persistent branch of
-``render_compiled``, ``render``). ``make_persistent_fn`` tries, in the
-reference's order:
+The port's counterpart of ``pbrt_tpu/render.py`` (``make_regen``,
+``make_persistent_fn``, ``persistent_eligible``, ``make_wave_fn``,
+``render_compiled``, ``render``). ``render_compiled`` picks the route as
+the reference's does: the persistent routes for a scene of the reference's
+``persistent_eligible`` class (path or directlighting without media,
+interface or subsurface materials) when no checkpoint is asked for and
+PBRT_TPU_FORCE_WAVE is unset, else the per-sample wave (``make_wave_fn``,
+device/integrator.py trace_wave): every pixel's sample s traced to the end,
+sample after sample, in chunks of MAX_RAYS_PER_PASS rays, with a checkpoint
+of the film's accumulators every `checkpoint_every` samples that a matching
+render resumes. The wave's route label is "torch-wave/" + the query's route
+(LAST_WAVE_TIER). ``make_persistent_fn`` tries, in the reference's order:
 
 - the brute megakernel (device/megakernel.py) for every path or
   directlighting scene of its class; all samples of a render go in one
@@ -42,7 +50,7 @@ import numpy as np
 import torch
 
 from .device.camera import generate_rays, make_camera, ray_differential_dirs
-from .device.integrator import trace_persistent
+from .device.integrator import trace_persistent, trace_wave
 from .device.intersect import route_name
 from .device.lightdistrib import build_spatial_distribution
 from .device.materials import lobe_table
@@ -60,6 +68,7 @@ from .utils.stats import STATS
 log = logging.getLogger(__name__)
 
 PERSISTENT_SPP_CHUNK = 8
+MAX_RAYS_PER_PASS = 1 << 20  # the wave's rays per pass (render.MAX_RAYS_PER_PASS)
 
 # route of the most recent make_persistent_fn build, so a run shows the
 # path it took: torch-megakernel/{cuda,plain}-brute,
@@ -69,6 +78,10 @@ PERSISTENT_SPP_CHUNK = 8
 # torch-wavefront/{cuda,plain}-kdtree (the CUDA kernels, or their plain
 # twins on the CPU)
 LAST_PERSISTENT_TIER = "unbuilt"
+# route of the most recent make_wave_fn build: "torch-wave/" + the query's
+# route (intersect.route_name: brute, kdtree, wide, wide-joint, bvh, with
+# "-mixed" where spheres ride beside the wide walk)
+LAST_WAVE_TIER = "unbuilt"
 
 
 def _erfinv(x):
@@ -178,21 +191,11 @@ def make_regen(cam, scfg, fcfg, px_base, py_base, pixel_ids, seed: int, differen
     return regen
 
 
-def make_persistent_fn(cs: CompiledScene, cam=None):
-    """Build the persistent-wave function: (sa, px, py, pids, s0, n_samples,
-    seed) -> (accLw, accW, n_vertices), all on the scene's device.
-
-    Sets LAST_PERSISTENT_TIER to the route that will execute. The
-    halton and sobol film tables (for the wide megakernel and the
-    wavefront) and the wavefront's tables (the spatial light distribution,
-    the material lobe table) are built here, once, on the scene's device."""
-    global LAST_PERSISTENT_TIER
-    desc = cs.description
-    dev = cs.arrays.device
-    if cam is None:
-        cam = make_camera(desc.camera, desc.film, dev)
+def _configs(desc, dev, kind: str):
+    """The route's integrator, sampler and film configurations (icfg, scfg,
+    fcfg), the halton and sobol film tables built on `dev`."""
     icfg = {
-        "kind": desc.integrator.kind if desc.integrator.kind == "directlighting" else "path",
+        "kind": kind,
         "max_depth": max(int(desc.integrator.max_depth), 1),
         "rr_threshold": desc.integrator.rr_threshold,
         "strategy": desc.integrator.strategy,
@@ -212,6 +215,39 @@ def make_persistent_fn(cs: CompiledScene, cam=None):
         "filter_params": dict(desc.film.filter_params),
         "max_sample_luminance": desc.film.max_sample_luminance,
     }
+    return icfg, scfg, fcfg
+
+
+def _route_tables(cs, icfg):
+    """The tables a wavefront or wave builds once per render: the spatial
+    light distribution, the lobe table and the texture atlases."""
+    static = cs.static
+    if icfg["light_strategy"] == "spatial" and static.n_lights > 1:
+        icfg["spatial_distribution"] = build_spatial_distribution(cs.arrays, static)
+    icfg["lobe_table"] = lobe_table(cs.arrays, static)
+    if icfg["lobe_table"].get("textured") or static.has_bump:
+        icfg["tex_atlases"] = prepare_atlases(cs.arrays, static)
+
+
+def _joint(static, dev) -> bool:
+    return os.environ.get("PBRT_TPU_JOINT", "0") == "1" and dev.type == "cuda" and static.has_wide_tri
+
+
+def make_persistent_fn(cs: CompiledScene, cam=None):
+    """Build the persistent-wave function: (sa, px, py, pids, s0, n_samples,
+    seed) -> (accLw, accW, n_vertices), all on the scene's device.
+
+    Sets LAST_PERSISTENT_TIER to the route that will execute. The
+    halton and sobol film tables (for the wide megakernel and the
+    wavefront) and the wavefront's tables (the spatial light distribution,
+    the material lobe table) are built here, once, on the scene's device."""
+    global LAST_PERSISTENT_TIER
+    desc = cs.description
+    dev = cs.arrays.device
+    if cam is None:
+        cam = make_camera(desc.camera, desc.film, dev)
+    icfg, scfg, fcfg = _configs(desc, dev, desc.integrator.kind if desc.integrator.kind == "directlighting"
+                                else "path")
     static = cs.static
     mega = not os.environ.get("PBRT_TPU_NO_MEGAKERNEL")
     if mega and static.use_brute_force:
@@ -225,12 +261,8 @@ def make_persistent_fn(cs: CompiledScene, cam=None):
         if mkw is not None:
             LAST_PERSISTENT_TIER = "torch-megakernel/" + ("cuda-wide" if dev.type == "cuda" else "plain-wide")
             return mkw
-    joint = os.environ.get("PBRT_TPU_JOINT", "0") == "1" and dev.type == "cuda" and static.has_wide_tri
-    if icfg["light_strategy"] == "spatial" and static.n_lights > 1:
-        icfg["spatial_distribution"] = build_spatial_distribution(cs.arrays, static)
-    icfg["lobe_table"] = lobe_table(cs.arrays, static)
-    if icfg["lobe_table"].get("textured") or static.has_bump:
-        icfg["tex_atlases"] = prepare_atlases(cs.arrays, static)
+    joint = _joint(static, dev)
+    _route_tables(cs, icfg)
     differentials = has_imagemaps(static)
     LAST_PERSISTENT_TIER = f"torch-wavefront/{'cuda' if dev.type == 'cuda' else 'plain'}-{route_name(static, joint)}"
 
@@ -242,9 +274,56 @@ def make_persistent_fn(cs: CompiledScene, cam=None):
     return wave_p
 
 
-def render(desc: SceneDescription, seed: int = 0, spp: int | None = None, progress=None, device="cuda"):
+def persistent_eligible(desc, static) -> bool:
+    """The persistent routes' class (render.persistent_eligible :235-249):
+    path or directlighting without motion, animated or realistic cameras
+    (which the compiler refuses), media, subsurface or interface materials;
+    every other scene takes the per-sample wave."""
+    return (desc.integrator.kind in ("path", "directlighting") and not static.has_motion and static.n_media == 0
+            and not static.has_sss_media and not static.has_tab_sss and not static.has_null_material)
+
+
+def make_wave_fn(cs: CompiledScene, cam=None):
+    """Build the per-sample wave: (sa, px, py, pixel_ids, sample_idx, seed)
+    -> (L w (R, 3), w (R,), n_vertices (R,)) for one sample of every pixel
+    given (render._one_sample_wave): the camera ray from film dimensions 0
+    and 1 (make_regen), trace_wave, the NaN and negative clamps
+    (integrator.rs:350-368) and max_sample_luminance, weighted by the
+    filter's sample weight. Sets LAST_WAVE_TIER; the spatial light
+    distribution and the lobe table are built here, once."""
+    global LAST_WAVE_TIER
+    desc = cs.description
+    dev = cs.arrays.device
+    if cam is None:
+        cam = make_camera(desc.camera, desc.film, dev)
+    icfg, scfg, fcfg = _configs(desc, dev, desc.integrator.kind)
+    icfg["n_samples"] = desc.integrator.n_samples
+    icfg["cos_sample"] = desc.integrator.cos_sample
+    static = cs.static
+    joint = _joint(static, dev)
+    _route_tables(cs, icfg)
+    differentials = has_imagemaps(static)
+    max_lum = float(fcfg["max_sample_luminance"])
+    LAST_WAVE_TIER = f"torch-wave/{route_name(static, joint)}"
+
+    def wave(sa, px, py, pixel_ids, sample_idx: int, seed: int):
+        regen = make_regen(cam, scfg, fcfg, px, py, pixel_ids, seed, differentials)
+        sidx = torch.full(pixel_ids.shape, int(sample_idx), dtype=torch.int64, device=pixel_ids.device)
+        o, d, w, dd_x, dd_y = regen(sidx)
+        L, nv = trace_wave(sa, static, icfg, scfg, seed, o, d, pixel_ids, sidx,
+                           (dd_x, dd_y) if differentials else None, joint=joint)
+        L = torch.clamp(torch.where(torch.isfinite(L), L, 0.0), min=0.0)
+        if max_lum < float("inf"):
+            y = L[:, 0] * 0.212671 + L[:, 1] * 0.715160 + L[:, 2] * 0.072169
+            L = L * torch.where(y > max_lum, max_lum / torch.clamp(y, min=1e-12), 1.0)[:, None]
+        return L * w[:, None], w, nv
+
+    return wave
+
+
+def render(desc: SceneDescription, seed: int = 0, spp: int | None = None, progress=None, device="cuda", **kw):
     """Render a scene description to an (H, W, 3) float32 numpy image."""
-    return render_compiled(compile_scene(desc, device), seed=seed, spp=spp, progress=progress)
+    return render_compiled(compile_scene(desc, device), seed=seed, spp=spp, progress=progress, **kw)
 
 
 # integrator kinds whose reference create() accepts "pixelbounds"
@@ -274,13 +353,43 @@ def film_pixel_bounds(desc) -> tuple[int, int, int, int]:
     return x0, x1, y0, y1
 
 
-def render_compiled(cs: CompiledScene, seed: int = 0, spp: int | None = None, progress=None):
+def _load_checkpoint(path, spp, seed, acc, wacc):
+    """(acc, wacc, next sample) from a checkpoint that matches this render
+    (spp, film shape and seed), else None (render.py :742-753)."""
+    try:
+        ck = np.load(path)
+        if int(ck["spp_total"]) == spp and ck["acc"].shape == tuple(acc.shape) and int(ck["seed"]) == seed:
+            log.info("resumed checkpoint at sample %d/%d", int(ck["next_sample"]), spp)
+            return (torch.as_tensor(ck["acc"], device=acc.device), torch.as_tensor(ck["wacc"], device=acc.device),
+                    int(ck["next_sample"]))
+        log.warning("checkpoint %s does not match this render; ignoring", path)
+    except Exception as e:  # a corrupt snapshot: start over
+        log.warning("checkpoint unreadable (%s); starting fresh", e)
+    return None
+
+
+def _write_checkpoint(path, acc, wacc, next_sample, spp, seed):
+    """The film's accumulators as the reference writes them: an .npz of
+    acc (R, 3) and wacc (R,) float64, next_sample, spp_total and seed,
+    written beside the target and moved over it."""
+    tmp = path + ".tmp.npz"
+    with open(tmp, "wb") as fh:
+        np.savez(fh, acc=acc.cpu().numpy(), wacc=wacc.cpu().numpy(), next_sample=next_sample, spp_total=spp, seed=seed)
+    os.replace(tmp, path)
+
+
+def render_compiled(cs: CompiledScene, seed: int = 0, spp: int | None = None, progress=None,
+                    checkpoint_path: str | None = None, checkpoint_every: int = 0):
     """Render a compiled scene on its device; returns the (H, W, 3) float32
     image and records ``render_compiled.last_timing`` = {"wall_s",
     "n_vertices", "tier"} (wall time ends after a device synchronize).
-    progress(done_spp, spp), when given, is called after each spp chunk; the
-    reference's counters (camera rays, path vertices, path length, scene
-    bytes) go to utils.stats.STATS."""
+    progress(done_spp, spp), when given, is called after each spp chunk (the
+    wave: after each sample); the reference's counters (camera rays, path
+    vertices, path length, scene bytes) go to utils.stats.STATS.
+    checkpoint_path: the wave writes the film's accumulators there every
+    checkpoint_every samples, and resumes from a matching one (spp, film
+    shape and seed); asking for a checkpoint sends any scene to the wave,
+    as in the reference."""
     desc = cs.description
     dev = cs.arrays.device
     W = desc.film.x_resolution
@@ -294,22 +403,47 @@ def render_compiled(cs: CompiledScene, seed: int = 0, spp: int | None = None, pr
     py = torch.as_tensor(ys.ravel().astype(np.int64), device=dev)
     pixel_ids = torch.as_tensor((ys * W + xs).ravel().astype(np.int64), device=dev)
 
-    wave_p = make_persistent_fn(cs)
-    tier = LAST_PERSISTENT_TIER
-    # the megakernel takes every sample of the render in one launch
-    chunk = spp if tier.startswith("torch-megakernel") else PERSISTENT_SPP_CHUNK
     acc = torch.zeros((ww * wh, 3), dtype=torch.float64, device=dev)
     wacc = torch.zeros(ww * wh, dtype=torch.float64, device=dev)
     n_vertices = torch.zeros((), dtype=torch.float64, device=dev)
-    t0 = time.perf_counter()
-    for s in range(0, spp, chunk):
-        n_s = min(chunk, spp - s)
-        Lw, w, nv = wave_p(cs.arrays, px, py, pixel_ids, s, n_s, seed)
-        acc += Lw.to(torch.float64)
-        wacc += w.to(torch.float64)
-        n_vertices += nv.to(torch.float64).sum()
-        if progress:
-            progress(s + n_s, spp)
+    if (persistent_eligible(desc, cs.static) and checkpoint_path is None
+            and not os.environ.get("PBRT_TPU_FORCE_WAVE")):
+        wave_p = make_persistent_fn(cs)
+        tier = LAST_PERSISTENT_TIER
+        # the megakernel takes every sample of the render in one launch
+        chunk = spp if tier.startswith("torch-megakernel") else PERSISTENT_SPP_CHUNK
+        t0 = time.perf_counter()
+        for s in range(0, spp, chunk):
+            n_s = min(chunk, spp - s)
+            Lw, w, nv = wave_p(cs.arrays, px, py, pixel_ids, s, n_s, seed)
+            acc += Lw.to(torch.float64)
+            wacc += w.to(torch.float64)
+            n_vertices += nv.to(torch.float64).sum()
+            if progress:
+                progress(s + n_s, spp)
+    else:
+        wave = make_wave_fn(cs)
+        tier = LAST_WAVE_TIER
+        R = ww * wh
+        n_chunks = max(1, math.ceil(R / MAX_RAYS_PER_PASS))
+        chunk = math.ceil(R / n_chunks)
+        s_start = 0
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            resumed = _load_checkpoint(checkpoint_path, spp, seed, acc, wacc)
+            if resumed is not None:
+                acc, wacc, s_start = resumed
+        t0 = time.perf_counter()
+        for s in range(s_start, spp):
+            for c in range(n_chunks):
+                sl = slice(c * chunk, min((c + 1) * chunk, R))
+                Lw, w, nv = wave(cs.arrays, px[sl], py[sl], pixel_ids[sl], s, seed)
+                acc[sl] += Lw.to(torch.float64)
+                wacc[sl] += w.to(torch.float64)
+                n_vertices += nv.to(torch.float64).sum()
+            if checkpoint_path and checkpoint_every and (s + 1) % checkpoint_every == 0:
+                _write_checkpoint(checkpoint_path, acc, wacc, s + 1, spp, seed)
+            if progress:
+                progress(s + 1, spp)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0

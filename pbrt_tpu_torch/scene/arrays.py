@@ -7,8 +7,11 @@ with its per-prim test rows, the instance transforms, the alpha masks,
 the material rows, the light rows with the goniometric and projection
 lights' frames and images, the texture programs with their parameters and
 MIP pyramids, the stacked Fourier BSDF tables, the image-mapped infinite
-light's tables, the kd-tree of a scene that asks for one and, for scenes
-above the brute-force size, the wide BVH with its attribute table.
+light's tables, the kd-tree of a scene that asks for one, the
+participating media (each prim's inside and outside medium, the medium rows,
+their world-to-grid frames and density grids), the tabulated BSSRDF's rows
+of a scene with subsurface materials and, for scenes above the brute-force
+size, the wide BVH with its attribute table.
 
 - ``SceneTensors``: torch tensors, all on one device.
 - ``SceneStatic``: Python-level counts and flags that shape the program.
@@ -136,6 +139,9 @@ _TABLE_DTYPES = {
     "inst_w2i": torch.float32,  # (I, 3, 4) world -> instance
     "prim_alpha_tex": torch.int32,  # (P,) alpha cutout texture or -1
     "prim_shadow_alpha_tex": torch.int32,  # (P,) shadow-alpha texture (the alpha one by default) or -1
+    "prim_medium": torch.int32,  # (P, 2) inside, outside medium row (-1: vacuum)
+    "med_param": torch.float32,  # (Md, 8) sigma_a (3), sigma_s (3), g, max density (1 if homogeneous)
+    "med_w2m": torch.float32,  # (Md, 3, 4) world -> medium ([0, 1]^3 grid space of a grid medium)
     "world_center": torch.float32,  # (3,)
     "world_radius": torch.float32,  # ()
 }
@@ -159,6 +165,17 @@ _ENV_DTYPES = {
     "env_w2l": torch.float32,  # (3, 4) world -> light
 }
 
+# the tabulated BSSRDF's rows (builder; device/bssrdf.py): None without a
+# subsurface or kdsubsurface material (or under PBRT_TPU_NO_TABSSS=1)
+_SSS_DTYPES = {
+    "sss_prof": torch.float32,  # (M, 3, 64) radial profile rows, the albedo axis folded per row
+    "sss_cdf": torch.float32,  # (M, 3, 64) their running integrals
+    "sss_rhoeff": torch.float32,  # (M, 3) effective albedo
+    "sss_sigma_t": torch.float32,  # (M, 3) extinction
+    "sss_eta": torch.float32,  # (M,)
+    "sss_radius": torch.float32,  # (64,) optical-radius knots
+}
+
 # the wide-BVH tables: None for a brute-force scene, which has none
 _WIDE_DTYPES = {
     "wnode_tab": torch.float32,  # (ceil(Nw/8)*8, 128) wide-BVH node boxes
@@ -167,14 +184,16 @@ _WIDE_DTYPES = {
     "wslot_prim": torch.int32,  # (n_oct*8,) kernel slot -> prim row
     "wattr_tab": torch.float32,  # prim_tab-shaped: n0 n1 n2 (9), uv0 uv1 uv2 (6); None if flat, default UVs
 }
-# derived from the wide tables above (widebvh.hopper_layout, hopper_rows),
-# not reference tables; the last, wide_prim_rows, is the global prim row of
-# each wide-table prim in a mixed scene (more than 64 triangles beside 1-8
-# quadrics), whose wide tables cover the triangle subset and index it
-# locally (None when they cover every prim)
-HOPPER_TABLES = ("wnode_rec", "wleaf_rec", "wattr_rec", "wide_prim_rows")
+# the tables scene_tensors_from_numpy derives for the Hopper kernels, not
+# reference tables: the wide BVH's records (widebvh.hopper_layout,
+# hopper_rows); wide_prim_rows, the global prim row of each wide-table prim
+# in a mixed scene (more than 64 triangles beside 1-8 quadrics), whose wide
+# tables cover the triangle subset and index it locally (None when they
+# cover every prim); and the grid media's densities packed for
+# csrc/medium_track.cu (med_grid_flat, med_grid_dims)
+HOPPER_TABLES = ("wnode_rec", "wleaf_rec", "wattr_rec", "wide_prim_rows", "med_grid_flat", "med_grid_dims")
 # SceneTensors fields that hold a dict of tensors
-_DICT_FIELDS = ("tex_images", "fourier", "light_images")
+_DICT_FIELDS = ("tex_images", "fourier", "light_images", "med_grids")
 # the stacked Fourier BSDF tables (empty dict without one)
 FOURIER_TABLES = ("mu", "aflat", "a0", "cdf", "eta")
 
@@ -213,6 +232,9 @@ class SceneTensors:
     inst_w2i: torch.Tensor
     prim_alpha_tex: torch.Tensor
     prim_shadow_alpha_tex: torch.Tensor
+    prim_medium: torch.Tensor
+    med_param: torch.Tensor
+    med_w2m: torch.Tensor
     world_center: torch.Tensor
     world_radius: torch.Tensor
     kd_flags: torch.Tensor | None = None
@@ -235,6 +257,18 @@ class SceneTensors:
     wleaf_rec: torch.Tensor | None = None  # (n_oct*8, 16) f32 leaf rows, row = kernel slot
     wattr_rec: torch.Tensor | None = None  # (n_oct*8, 16) f32 attribute rows, row = kernel slot
     wide_prim_rows: torch.Tensor | None = None  # (T,) int32 wide-table prim -> prim row (mixed scenes)
+    # derived from med_grids (None without a grid medium): every grid
+    # medium's densities in one flat buffer, and per medium row its offset
+    # there and its (nx, ny, nz), nx = 0 for a homogeneous one
+    # (medium_track.cu)
+    med_grid_flat: torch.Tensor | None = None  # (N,) f32
+    med_grid_dims: torch.Tensor | None = None  # (Md, 4) int32
+    sss_prof: torch.Tensor | None = None
+    sss_cdf: torch.Tensor | None = None
+    sss_rhoeff: torch.Tensor | None = None
+    sss_sigma_t: torch.Tensor | None = None
+    sss_eta: torch.Tensor | None = None
+    sss_radius: torch.Tensor | None = None
     # MIP pyramid levels of the imagemap textures, "{image_key}_l{k}" ->
     # (H_k, W_k, 3) f32 (TexProgram.image_key, n_levels)
     tex_images: dict = field(default_factory=dict)
@@ -245,6 +279,8 @@ class SceneTensors:
     # the goniometric and projection lights' images, "lim{i}" -> (H, W, 3)
     # f32 (SceneStatic.light_image_keys names each light's)
     light_images: dict = field(default_factory=dict)
+    # the grid media's densities, "med{i}" -> (nz, ny, nx) f32 (i the medium row)
+    med_grids: dict = field(default_factory=dict)
 
     @property
     def device(self) -> torch.device:
@@ -305,6 +341,12 @@ class SceneStatic:
     n_spheres: int = 0  # quadric rows
     has_cone_sphere_lights: bool = False  # an area light on a full, outward-facing sphere
     n_media: int = 0
+    media_kinds: tuple = ()  # "homogeneous" | "heterogeneous" per medium row
+    camera_medium: int = -1  # the camera's medium row (-1: vacuum)
+    has_null_material: bool = False  # some prim has the interface (null) material
+    has_sss_media: bool = False  # subsurface interiors walked as media (PBRT_TPU_NO_TABSSS=1)
+    has_tab_sss: bool = False  # subsurface materials with the tabulated BSSRDF's rows
+    sss_media: tuple = ()  # the medium rows that are subsurface interiors
     has_motion: bool = False
     tex_programs: tuple = ()  # TexProgram per texture, in evaluation (creation) order
     has_bump: bool = False  # some material carries a bump-map texture
@@ -336,7 +378,7 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
     for name, dtype in _TABLE_DTYPES.items():
         # np.array copies: reference arrays may be read-only views
         tensors[name] = torch.as_tensor(np.array(arrays[name]), dtype=dtype, device=device)
-    for name, dtype in {**_ENV_DTYPES, **_WIDE_DTYPES, **_KD_DTYPES}.items():
+    for name, dtype in {**_ENV_DTYPES, **_WIDE_DTYPES, **_KD_DTYPES, **_SSS_DTYPES}.items():
         if arrays.get(name) is not None:
             tensors[name] = torch.as_tensor(np.array(arrays[name]), dtype=dtype, device=device)
     # mipmap levels (the reference's dict holds device arrays: np.array copies)
@@ -344,6 +386,12 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
                              for k, v in (arrays.get("tex_images") or {}).items()}
     tensors["light_images"] = {k: torch.as_tensor(np.array(v), dtype=torch.float32, device=device)
                                for k, v in (arrays.get("light_images") or {}).items()}
+    tensors["med_grids"] = {k: torch.as_tensor(np.array(v), dtype=torch.float32, device=device)
+                            for k, v in (arrays.get("med_grids") or {}).items()}
+    if tensors["med_grids"]:
+        flat, dims = _grid_pack(tensors["med_grids"], np.asarray(arrays["med_param"]).shape[0])
+        tensors["med_grid_flat"] = torch.as_tensor(flat, device=device)
+        tensors["med_grid_dims"] = torch.as_tensor(dims, device=device)
     fourier = arrays.get("fourier") or {}
     tensors["fourier"] = {k: torch.as_tensor(np.array(fourier[k]), dtype=torch.float32, device=device)
                           for k in FOURIER_TABLES if k in fourier}
@@ -373,8 +421,26 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
     st.light_n_samples = tuple(int(n) for n in st.light_n_samples)
     st.light_image_keys = tuple(st.light_image_keys)
     st.accel_kind = str(st.accel_kind)
+    st.media_kinds = tuple(str(k) for k in st.media_kinds)
+    st.sss_media = tuple(int(m) for m in st.sss_media)
     st.tex_programs = tuple(p if isinstance(p, TexProgram) else TexProgram(**vars(p)) for p in st.tex_programs)
     return SceneTensors(**tensors), st
+
+
+def _grid_pack(grids: dict, n_media: int):
+    """(flat f32 buffer of every grid, (n_media, 4) int32 rows offset, nx,
+    ny, nz; nx = 0 where the medium has no grid) of a scene with grids."""
+    dims = np.zeros((n_media, 4), np.int32)
+    parts, off = [], 0
+    for i in range(n_media):
+        g = grids.get(f"med{i}")
+        if g is None:
+            continue
+        nz, ny, nx = g.shape
+        dims[i] = off, nx, ny, nz
+        parts.append(g.detach().cpu().numpy().ravel())
+        off += g.numel()
+    return np.concatenate(parts).astype(np.float32), dims
 
 
 def scene_byte_size(sa: SceneTensors) -> int:

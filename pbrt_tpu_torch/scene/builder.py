@@ -27,10 +27,20 @@ hair, with constant or textured parameters, and bump maps (the texture
 programs, their parameter rows and MIP pyramids of ``_TextureRegistry``);
 the (0,2), random, stratified, halton, sobol and maxmindist samplers;
 perspective, orthographic and environment cameras and every pixel filter;
-the path and directlighting integrators. The persistent wavefront
-(device/integrator.py) renders all of it; the brute and wide megakernels
-(device/megakernel.py, device/megakernel_wide.py) take the parts of it that
-the reference's take.
+the path, volpath, directlighting, whitted and ao integrators. Participating
+media: homogeneous and grid (heterogeneous) media in the medium table
+(``med_param``, ``med_w2m``, ``med_grids``), each prim's inside and outside
+medium (``prim_medium``, from MediumInterface), the camera's medium and the
+interface (null, "none") material. Subsurface and kdsubsurface materials get
+the tabulated BSSRDF's rows (``sss_*``: the beam-diffusion table of
+core/bssrdf.py with the albedo axis folded per material row), or, under the
+reference's PBRT_TPU_NO_TABSSS=1, an implicit homogeneous interior medium
+per material that the volumetric random walk crosses (``sss_media``). The
+persistent wavefront (device/integrator.py trace_persistent) renders the
+path and directlighting scenes of the reference's ``persistent_eligible``
+class and the per-sample wave (trace_wave) every other; the brute and wide
+megakernels (device/megakernel.py, device/megakernel_wide.py) take the parts
+of the first class that the reference's take.
 Primitive order, areas, light and material rows, world bounds and the BVH,
 kd-tree and wide tables are computed with the reference's NumPy code in the
 reference's order, so they come out bit-identical (tests/test_torch_scene.py,
@@ -48,10 +58,12 @@ checkerboard "aamode" is dropped.
 from __future__ import annotations
 
 import logging
+import os
 from dataclasses import dataclass
 
 import numpy as np
 
+from ..core.bssrdf import catmull_rom_weights, compute_beam_diffusion_table, subsurface_from_diffuse
 from ..core.fourierbsdf import read_fourier_table
 from ..core.spectrum import copper_eta_k_rgb, y_of_rgb
 from ..device.mipmap import build_pyramid
@@ -70,7 +82,9 @@ from .arrays import (
     MAT_HAIR,
     MAT_IDS,
     MAT_MATTE,
+    MAT_KDSUBSURFACE,
     MAT_MIX,
+    MAT_SUBSURFACE,
     N_MAT_PARAMS,
     P_ETA,
     P_EXTRA,
@@ -98,7 +112,7 @@ from .arrays import (
     scene_tensors_from_numpy,
 )
 from .bvh import build_bvh
-from .host import HostMaterial, HostTexture, SceneDescription
+from .host import HostMaterial, HostMedium, HostTexture, SceneDescription
 from .kdtree import build_kdtree
 from .widebvh import build_wide_bvh
 
@@ -115,9 +129,9 @@ FLAG_HAS_UV = 8
 
 # what the compiler admits (the wavefront renders all of it)
 MATERIALS = ("matte", "mirror", "glass", "metal", "plastic", "uber", "substrate", "translucent", "disney", "mix",
-             "fourier", "hair")
+             "fourier", "hair", "subsurface", "kdsubsurface", "none")
 SAMPLERS = ("zerotwosequence", "lowdiscrepancy", "random", "stratified", "halton", "sobol", "maxmindist")
-INTEGRATORS = ("path", "directlighting")
+INTEGRATORS = ("path", "volpath", "directlighting", "whitted", "ao")
 CAMERAS = ("perspective", "orthographic", "environment")
 LIGHTS = ("point", "spot", "distant", "infinite", "goniometric", "projection")
 QUADRICS = {"sphere": QUADRIC_SPHERE, "cylinder": QUADRIC_CYLINDER, "disk": QUADRIC_DISK, "cone": QUADRIC_CONE,
@@ -236,8 +250,6 @@ def _check_slice(desc: SceneDescription) -> None:
     for light in desc.lights:
         if light.kind not in LIGHTS:
             _unsupported(f"'{light.kind}' lights")
-    if desc.media or desc.camera_medium:
-        _unsupported("participating media")
     if str(desc.accelerator or "bvh") not in ("bvh", "kdtree"):
         _unsupported(f"the '{desc.accelerator}' accelerator")
     cam = desc.camera
@@ -261,8 +273,6 @@ def _check_slice(desc: SceneDescription) -> None:
             mesh = sh.mesh
             if mesh.p_end is not None or mesh.anim is not None:
                 _unsupported("motion blur")
-        if prim.inside_medium or prim.outside_medium:
-            _unsupported("medium interfaces")
         if prim.area_light is not None:
             if prim.area_light.kind != "area":
                 _unsupported(f"'{prim.area_light.kind}' lights attached to shapes")
@@ -271,13 +281,12 @@ def _check_slice(desc: SceneDescription) -> None:
 
 def _check_material(mat: HostMaterial, seen=None) -> None:
     """Refuse a material outside MATERIALS by name, and a mix whose
-    sub-materials hold one; the null material is the 'interface' one."""
+    sub-materials hold one (the interface material is kind "none", the
+    parser's name for Material "" and "none")."""
     seen = set() if seen is None else seen
     if id(mat) in seen:
         return
     seen.add(id(mat))
-    if mat.kind in ("", "none", "interface"):
-        _unsupported("the 'interface' material")
     if mat.kind not in MATERIALS:
         _unsupported(f"the '{mat.kind}' material")
     if mat.kind == "mix":
@@ -285,6 +294,163 @@ def _check_material(mat: HostMaterial, seen=None) -> None:
             src = mat.params.get(name)
             if src is not None:
                 _check_material(src[1], seen)
+
+
+class _MediaTable:
+    """The medium rows (the reference builder's media table, :264-311):
+    the named media in description order, each an (8,) row sigma_a,
+    sigma_s, g and the majorant's density (a grid's max density; 1 for a
+    homogeneous medium) with its world -> medium frame; a grid medium's
+    frame maps its [p0, p1] box onto [0, 1]^3 and its densities go to
+    grids["med{i}"]. add() appends the subsurface walk's implicit media."""
+
+    def __init__(self, media: dict):
+        self.ids: dict[str, int] = {}
+        self.param_rows: list = []
+        self.w2m_rows: list = []
+        self.grids: dict = {}
+        self.kinds: list[str] = []
+        for name, hm in media.items():
+            row = self.add(hm, name)
+            if hm.kind == "heterogeneous" and hm.density is not None:
+                self.param_rows[row][7] = float(hm.density.max())
+                self.grids[f"med{row}"] = hm.density.astype(np.float32)
+                span = np.maximum(hm.p1 - hm.p0, 1e-12)
+                norm = np.eye(4)
+                norm[:3, :3] = np.diag(1.0 / span)
+                norm[:3, 3] = -hm.p0 / span
+                self.w2m_rows[row] = (norm @ hm.medium_to_world.inverse().m)[:3, :]
+
+    def add(self, hm, name: str) -> int:
+        mid = len(self.param_rows)
+        self.ids[name] = mid
+        self.kinds.append(hm.kind)
+        row = np.zeros(8)
+        row[0:3] = hm.sigma_a
+        row[3:6] = hm.sigma_s
+        row[6] = hm.g
+        row[7] = 1.0
+        self.param_rows.append(row)
+        self.w2m_rows.append(hm.medium_to_world.inverse().m[:3, :])
+        return mid
+
+    def medium_id(self, name: str) -> int:
+        if not name:
+            return -1
+        mid = self.ids.get(name)
+        if mid is None:
+            log.error("medium '%s' not defined", name)
+            return -1
+        return mid
+
+
+class _SubsurfaceRows:
+    """The subsurface and kdsubsurface materials (the reference builder
+    :415-505, :1032-1065): by default each material row gets the tabulated
+    BSSRDF's rows; under PBRT_TPU_NO_TABSSS=1 each gets an implicit
+    homogeneous interior medium of its coefficients instead, which the
+    wave's volumetric random walk crosses."""
+
+    def __init__(self, med: _MediaTable):
+        self.med = med
+        self.walk = os.environ.get("PBRT_TPU_NO_TABSSS", "") == "1"
+        self.walk_media: dict[int, str] = {}  # material row -> its medium's name
+        self.tab_mats: dict[int, HostMaterial] = {}  # material row -> material
+        self._tables: dict[tuple, dict] = {}
+
+    def table(self, g, eta) -> dict:
+        """The beam-diffusion table of (g, eta), computed once (cached by
+        both rounded to 4 places, as the reference's _sss_table_for)."""
+        key = (round(float(g), 4), round(float(eta), 4))
+        if key not in self._tables:
+            self._tables[key] = compute_beam_diffusion_table(g, eta)
+        return self._tables[key]
+
+    def coefficients(self, mat: HostMaterial):
+        """(sigma_a, sigma_s, g, eta) of a subsurface-family material
+        (subsurface.rs / kdsubsurface.rs create): kdsubsurface's Kd and mfp,
+        or subsurface's reflectance and mfp, inverted through the table
+        (bssrdf.rs subsurface_from_diffuse); else sigma_a, sigma_s times
+        scale."""
+
+        def cscalar(name, default):
+            v = mat.params.get(name)
+            if v is not None and v[0] == "const":
+                return float(np.atleast_1d(v[1]).ravel()[0])
+            return default
+
+        def cvec(name, default):
+            v = mat.params.get(name)
+            if v is not None and v[0] == "const":
+                a = np.atleast_1d(np.asarray(v[1], float)).ravel()
+                return np.repeat(a, 3)[:3] if a.size == 1 else a[:3]
+            return None if default is None else np.asarray(default, float)
+
+        scale = cscalar("scale", 1.0)
+        g = cscalar("g", 0.0)
+        eta = cscalar("eta", cscalar("index", 1.33))
+        if mat.kind == "kdsubsurface":
+            kdv = np.clip(cvec("Kd", [0.5, 0.5, 0.5]), 1e-4, 0.999)
+            mfp = np.maximum(cvec("mfp", [1.0, 1.0, 1.0]), 1e-6)
+            sig_a, sig_s = subsurface_from_diffuse(self.table(g, eta), kdv, mfp)
+        else:
+            refl = cvec("reflectance", None)
+            if refl is not None:
+                mfp = np.maximum(cvec("mfp", [1.0, 1.0, 1.0]), 1e-6)
+                sig_a, sig_s = subsurface_from_diffuse(self.table(g, eta), np.clip(refl, 1e-4, 0.999), mfp)
+            else:
+                sig_a = cvec("sigma_a", [0.0011, 0.0024, 0.014]) * scale
+                sig_s = cvec("sigma_s", [2.55, 3.21, 3.77]) * scale
+        return np.maximum(sig_a, 0.0), np.maximum(sig_s, 0.0), g, eta
+
+    def register(self, mat: HostMaterial, mid: int) -> None:
+        if mat.kind not in ("subsurface", "kdsubsurface"):
+            return
+        if not self.walk:
+            self.tab_mats.setdefault(mid, mat)
+        elif mid not in self.walk_media:
+            sig_a, sig_s, g, _eta = self.coefficients(mat)
+            name = f"__sss_walk_{mid}"
+            self.med.add(HostMedium(kind="homogeneous", sigma_a=np.asarray(sig_a, float),
+                                    sigma_s=np.asarray(sig_s, float), g=float(g)), name)
+            self.walk_media[mid] = name
+
+    def inside_medium(self, prim, mid: int) -> int:
+        """The prim's inside medium, else its material's walk medium."""
+        if prim.inside_medium:
+            return self.med.medium_id(prim.inside_medium)
+        name = self.walk_media.get(mid)
+        return self.med.ids[name] if name else -1
+
+    def tables(self, n_materials: int) -> dict:
+        """The sss_* rows: each tabulated material's spline rows with the
+        albedo axis folded by its Catmull-Rom weights; {} without one."""
+        if not self.tab_mats:
+            return {}
+        M = n_materials
+        s_prof = np.zeros((M, 3, 64), np.float32)
+        s_cdf = np.zeros((M, 3, 64), np.float32)
+        s_rhoeff = np.zeros((M, 3), np.float32)
+        s_sigt = np.zeros((M, 3), np.float32)
+        s_eta = np.full((M,), 1.33, np.float32)
+        radius = None
+        for mid, mat in self.tab_mats.items():
+            sig_a, sig_s, g, eta = self.coefficients(mat)
+            tab = self.table(g, eta)
+            radius = tab["radius_samples"]
+            sigma_t = sig_a + sig_s
+            rho = np.where(sigma_t > 0, sig_s / np.maximum(sigma_t, 1e-12), 0.0)
+            s_sigt[mid] = sigma_t
+            s_eta[mid] = eta
+            for ch in range(3):
+                off, w = catmull_rom_weights(tab["rho_samples"].astype(np.float64), rho[ch])
+                for k in range(4):
+                    idx = int(np.clip(off + k, 0, len(tab["rho_samples"]) - 1))
+                    s_prof[mid, ch] += np.float32(w[k]) * tab["profile"][idx]
+                    s_cdf[mid, ch] += np.float32(w[k]) * tab["profile_cdf"][idx]
+                    s_rhoeff[mid, ch] += np.float32(w[k]) * tab["rho_eff"][idx]
+        return {"sss_prof": s_prof, "sss_cdf": s_cdf, "sss_rhoeff": np.maximum(s_rhoeff, 1e-6),
+                "sss_sigma_t": s_sigt, "sss_eta": s_eta, "sss_radius": radius}
 
 
 def _hair_sigma_a_from_reflectance(c, beta_n):
@@ -454,6 +620,13 @@ def _compile_material(mat: HostMaterial, tex_reg: _TextureRegistry, register_mat
         else:
             const[P_KD] = _hair_sigma_a_from_concentration(1.3, 0.0)
         const[P_EXTRA][1] = mode
+    elif kind in (MAT_SUBSURFACE, MAT_KDSUBSURFACE):
+        # the interface's surface lobes (Fresnel reflection and diffuse
+        # transmission); the BSSRDF's rows are the compiler's sss_* tables
+        if not np.any(const[P_KR]):
+            const[P_KR] = 1.0
+        if not np.any(const[P_KT]):
+            const[P_KT] = 1.0
     # a bump map is a float texture (material.rs:46-87); a constant source
     # has no gradient, so only a texture registers
     bump = mat.bump_map
@@ -671,6 +844,8 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
     prim_kind, prim_geom, prim_mat, prim_light, prim_flags, prim_area = [], [], [], [], [], []
     prim_lo, prim_hi = [], []
     prim_alpha, prim_shadow_alpha = [], []  # float texture ids or -1 (cutouts)
+    prim_medium = []  # [inside, outside] medium rows per prim
+    med = _MediaTable(desc.media)
     mat_index: dict[int, int] = {}
     mat_rows: list[tuple] = []
     tex_reg = _TextureRegistry()
@@ -743,8 +918,11 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
     prim_inst: list[int] = []
     proto_rows: dict[int, tuple] = {}  # id(mesh) -> (t0, t, pv, areas, flags)
 
+    sss = _SubsurfaceRows(med)
     for prim in desc.primitives:
         mid = material_id(prim.material)
+        sss.register(prim.material, mid)
+        media = [sss.inside_medium(prim, mid), med.medium_id(prim.outside_medium)]
         if prim.shape.mesh is None:
             sph = prim.shape.sphere
             o2w = sph.object_to_world
@@ -772,6 +950,7 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
             prim_area.append(_quadric_area(sph, qkind))
             prim_alpha.append(-1)
             prim_shadow_alpha.append(-1)
+            prim_medium.append(media)
             lo, hi = o2w.xbounds(obj_lo, obj_hi)
             prim_lo.append(lo)
             prim_hi.append(hi)
@@ -822,6 +1001,7 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         sa_id = tex_reg.register(mesh.shadow_alpha_texture) if mesh.shadow_alpha_texture is not None else a_id
         prim_alpha.extend([a_id] * t)
         prim_shadow_alpha.extend([sa_id] * t)
+        prim_medium.extend([media] * t)
 
     n_prims = len(prim_kind)
     has_instances = len(inst_i2w_rows) > 1
@@ -858,6 +1038,7 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
     prim_area = _perm(prim_area)
     prim_alpha = _perm(prim_alpha)
     prim_shadow_alpha = _perm(prim_shadow_alpha)
+    prim_medium = _perm(prim_medium)
     prim_lo = _perm(prim_lo)
     prim_hi = _perm(prim_hi)
     lights = [(k, p_, int(inv[pr]) if pr >= 0 else -1, ns) for (k, p_, pr, ns) in lights]
@@ -939,6 +1120,11 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         "inst_w2i": np.asarray(inst_w2i_rows, dtype=np.float32).reshape(-1, 3, 4),
         "prim_alpha_tex": np.asarray(prim_alpha, dtype=np.int32),
         "prim_shadow_alpha_tex": np.asarray(prim_shadow_alpha, dtype=np.int32),
+        "prim_medium": np.asarray(prim_medium, dtype=np.int32).reshape(-1, 2),
+        "med_param": np.asarray(med.param_rows, dtype=np.float32).reshape(-1, 8),
+        "med_w2m": np.asarray(med.w2m_rows, dtype=np.float32).reshape(-1, 3, 4),
+        "med_grids": med.grids,
+        **sss.tables(len(mat_rows)),
         "fourier": _stack_fourier_tables(fourier_tables),
         "world_center": wc.astype(np.float32),
         "world_radius": np.float32(wr),
@@ -1023,7 +1209,13 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
             and sph_param[prim_geom[l[2]]][3] >= 2.0 * np.pi - 1e-6
             and (prim_flags[l[2]] & FLAG_REVERSE_ORIENTATION) == 0
             for l in lights),
-        "n_media": 0,
+        "n_media": len(med.param_rows),
+        "media_kinds": tuple(med.kinds),
+        "camera_medium": med.ids.get(desc.camera_medium, -1),
+        "has_null_material": bool((mat_kind[np.asarray(prim_mat, dtype=np.int64)] == 0).any()),
+        "has_sss_media": bool(sss.walk_media),
+        "sss_media": tuple(med.ids[n] for n in sss.walk_media.values()),
+        "has_tab_sss": bool(sss.tab_mats),
         "has_motion": False,
         "tex_programs": tuple(tex_reg.programs),
         "has_bump": any(r[4] >= 0 for r in mat_rows),

@@ -54,6 +54,16 @@ quad under the spot light and a tuft of 32 flat hair curves on the floor;
 ``textured=True`` drives the mix amount by a uv checkerboard and the
 substrate's Kd by an imagemap.
 
+``fog_room`` is the mesh room's enclosure filled with a homogeneous fog
+that is also the camera's medium, with a box of the interface (null)
+material that holds a grid medium of smoke (a sum of Gaussian blobs made
+from a seed) and a spot light shining through the fog: volpath's media,
+medium interfaces and null crossings in one render. ``sss_room`` is the
+same enclosure with a displaced sphere of the measured "Skin1" subsurface
+material and a UV sphere of kdsubsurface, under path: the tabulated BSSRDF
+(or, under PBRT_TPU_NO_TABSSS=1, the volumetric random walk). Both are
+triangle-only, so they walk the wide BVH.
+
 ``write_pbrt`` writes a scene of these out as a .pbrt file, each mesh as a
 binary PLY beside it, each imagemap as a PFM image and each Fourier table
 as a copy, so the front end can be driven with the same scenes
@@ -70,9 +80,9 @@ import numpy as np
 
 from .core.fourierbsdf import write_rough_conductor_table
 from .core.transform import Transform
-from .parser.api import _normed
+from .parser.api import MEDIUM_PRESETS, _normed
 from .scene.host import (
-    CameraConfig, FilmConfig, HostLight, HostMaterial, HostPrimitive, HostTexture,
+    CameraConfig, FilmConfig, HostLight, HostMaterial, HostMedium, HostPrimitive, HostTexture,
     IntegratorConfig, SamplerConfig, SceneDescription, ShapeRecord, Sphere, TriangleMesh,
 )
 from .scene.tessellate import tessellate_curve
@@ -142,6 +152,98 @@ def mesh_room(n_side: int = 248) -> SceneDescription:
 
 def _const(v):
     return ("const", np.asarray(v, np.float64))
+
+
+# the fog room's box of smoke: its corners, and the fog's and the smoke's
+# coefficients (per unit density)
+FOG_BOX = ([-0.5, 1.2, -1.6], [0.9, 2.6, -0.2])
+FOG = {"sigma_a": [0.02, 0.02, 0.025], "sigma_s": [0.07, 0.075, 0.08], "g": 0.2}
+SMOKE = {"sigma_a": [0.6, 0.65, 0.7], "sigma_s": [2.2, 2.0, 1.8], "g": 0.4}
+
+
+def smoke_grid(res: int = 64, seed: int = 11, n_blobs: int = 12) -> np.ndarray:
+    """(res, res, res) float32 densities (z, y, x): a sum of n_blobs
+    Gaussian blobs with centers, widths and weights drawn from `seed`,
+    sampled at the voxel centers of [0, 1]^3 (64^3: 1 MiB)."""
+    rs = np.random.RandomState(seed)
+    c = (np.arange(res) + 0.5) / res
+    z, y, x = np.meshgrid(c, c, c, indexing="ij")
+    dens = np.zeros((res, res, res))
+    for _ in range(n_blobs):
+        cx, cy, cz = rs.uniform(0.2, 0.8, 3)
+        sig = rs.uniform(0.07, 0.18)
+        dens += rs.uniform(0.3, 1.0) * np.exp(-((x - cx) ** 2 + (y - cy) ** 2 + (z - cz) ** 2) / (2.0 * sig * sig))
+    return dens.astype(np.float32)
+
+
+def fog_room(n_side: int = 248, grid_res: int = 64) -> SceneDescription:
+    """The mesh room's enclosure in a homogeneous fog (the camera's medium
+    too), a 12-triangle box of the interface material whose inside is a
+    grid medium of grid_res^3 smoke densities (smoke_grid), and a spot
+    light through the fog beside the ceiling panel: volpath, depth 5,
+    (0,2) samples with the box filter, power light selection. n_side 248:
+    123,662 triangles."""
+    desc = mesh_room(n_side)
+    lo, hi = (np.asarray(v, np.float64) for v in FOG_BOX)
+    verts, idx = _box(0.5 * (lo + hi), 1.0)
+    verts = 0.5 * (lo + hi) + (verts - 0.5 * (lo + hi)) * (hi - lo)
+    box = HostPrimitive(shape=ShapeRecord(mesh=TriangleMesh(p=verts, indices=idx)),
+                        material=HostMaterial(kind="none"), inside_medium="smoke", outside_medium="fog")
+    desc.primitives.append(box)
+    # densities as float64 values of float32 numbers: what a written file
+    # parses back to, bit for bit
+    grid = smoke_grid(grid_res).astype(np.float64)
+    desc.media = {
+        "fog": HostMedium(kind="homogeneous", sigma_a=np.asarray(FOG["sigma_a"], np.float64),
+                          sigma_s=np.asarray(FOG["sigma_s"], np.float64), g=FOG["g"]),
+        "smoke": HostMedium(kind="heterogeneous", sigma_a=np.asarray(SMOKE["sigma_a"], np.float64),
+                            sigma_s=np.asarray(SMOKE["sigma_s"], np.float64), g=SMOKE["g"],
+                            nx=grid_res, ny=grid_res, nz=grid_res, density=grid, p0=lo, p1=hi),
+    }
+    desc.camera_medium = "fog"
+    desc.lights = [HostLight(kind="spot", intensity=np.array([40.0, 36.0, 30.0]),
+                             from_point=np.array([-2.6, 3.6, 1.8]), to_point=np.array([0.2, 1.6, -0.9]),
+                             cone_angle=22.0, cone_delta=6.0)]
+    desc.integrator = IntegratorConfig(kind="volpath", max_depth=5, light_strategy="power")
+    return desc
+
+
+def _subsurface(kind, **params):
+    """A subsurface-family material: every parameter the parser would set
+    for it that the compiler reads (eta 1.33, the parser's default, where
+    not given)."""
+    out = {"eta": ("const", 1.33)}
+    for k, v in params.items():
+        out[k] = ("const", v) if isinstance(v, str) else _const(v)
+    return HostMaterial(kind=kind, params=out)
+
+
+def _displaced_sphere(center, radius, n, amp=0.06):
+    """A UV sphere of 2 n (n - 1) triangles whose radius is displaced by a
+    few sinusoids of its angles (geometric normals, the sphere's chart)."""
+    m = _uv_sphere([0.0, 0.0, 0.0], 1.0, n, n)
+    d = m.p / np.linalg.norm(m.p, axis=-1, keepdims=True)
+    th, ph = np.arccos(np.clip(d[:, 1], -1.0, 1.0)), np.arctan2(d[:, 2], d[:, 0])
+    r = radius * (1.0 + amp * (np.sin(5.0 * th) * np.cos(3.0 * ph) + 0.5 * np.sin(11.0 * ph + 2.0 * th)))
+    return TriangleMesh(p=np.asarray(center, np.float64) + d * r[:, None], indices=m.indices, uv=m.uv)
+
+
+def sss_room(n_side: int = 248, sss_res: int = 128, kd_res: int = 32) -> SceneDescription:
+    """The mesh room's enclosure with a displaced sphere of 2 sss_res
+    (sss_res - 1) triangles (32,512 at 128) in the measured "Skin1"
+    subsurface material (eta 1.33, scale 20 as tools/fidelity.py's
+    cross-check scene) and a UV sphere of 2 kd_res (kd_res - 1) triangles
+    (1,984 at 32) in kdsubsurface with a constant Kd and mfp: path, depth 5.
+    n_side 248: 158,146 triangles."""
+    desc = mesh_room(n_side)
+    sp, sa = MEDIUM_PRESETS["Skin1"]
+    skin = _subsurface("subsurface", preset="Skin1", sigma_a=sa, sigma_s=sp, scale=20.0)
+    kd = _subsurface("kdsubsurface", Kd=[0.75, 0.55, 0.35], mfp=[0.08, 0.05, 0.03])
+    desc.primitives += [
+        HostPrimitive(shape=ShapeRecord(mesh=_displaced_sphere([-0.9, 1.25, -0.8], 0.55, sss_res)), material=skin),
+        HostPrimitive(shape=ShapeRecord(mesh=_uv_sphere([0.95, 1.15, -0.5], 0.45, kd_res, kd_res)), material=kd),
+    ]
+    return desc
 
 
 def _box(center, edge):
@@ -828,7 +930,9 @@ def _material_params(mat, tex_names, folder, named) -> str:
     a fourier material's table is copied beside the file."""
     params = []
     for k, v in mat.params.items():
-        if v[0] == "material":
+        if k == "preset":  # a subsurface material's measured medium
+            params.append(f'"string name" "{v[1]}"')
+        elif v[0] == "material":
             params.append(f'"string named{k}" "{named[id(v[1])]}"')
         elif k == "bsdffile":
             name = os.path.basename(v[1])
@@ -966,7 +1070,11 @@ def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True)
     the .pbrt file) as a .pbrt file: a LookAt camera (look_at = (eye, look,
     up), the one the description's camera was made with; a perspective,
     orthographic or environment camera), the film, pixel filter,
-    integrator, the accelerator and, when `sampler`, the Sampler directive
+    integrator, the accelerator, participating media (MakeNamedMedium,
+    homogeneous or a grid with its densities, each prim's MediumInterface
+    and the camera's medium), the interface material (Material "none") and
+    subsurface materials (a measured medium by its "name") and, when
+    `sampler`, the Sampler directive
     (without it the file gets pbrt's default, halton at 16 spp). Mesh i
     goes into mesh_<i>.ply beside the file (binary, catprint._write_ply
     with float64 positions, so the tables compile bit for bit as the
@@ -995,8 +1103,20 @@ def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True)
         out.append(f'PixelFilter "{film.filter_name}"')
     if str(desc.accelerator or "bvh") != "bvh":
         out.append(f'Accelerator "{desc.accelerator}"')
+    if desc.camera_medium:
+        # the camera's medium is the outside medium current at Camera
+        out.insert(1, f'MediumInterface "" "{desc.camera_medium}"')
     out += [f'Integrator "{integ.kind}" "integer maxdepth" [{integ.max_depth}] '
             f'"string lightsamplestrategy" "{integ.light_strategy}"', "WorldBegin"]
+    for name, hm in desc.media.items():
+        if not (np.array_equal(hm.medium_to_world.m, np.eye(4)) and np.array_equal(hm.medium_to_world.m_inv, np.eye(4))):
+            raise NotImplementedError("write_pbrt writes media with the identity transform only")
+        params = (f'"rgb sigma_a" [{_fmt(hm.sigma_a)}] "rgb sigma_s" [{_fmt(hm.sigma_s)}] '
+                  f'"float g" [{_fmt([hm.g])}]')
+        if hm.kind == "heterogeneous":
+            params += (f' "integer nx" [{hm.nx}] "integer ny" [{hm.ny}] "integer nz" [{hm.nz}]'
+                       f' "point p0" [{_fmt(hm.p0)}] "point p1" [{_fmt(hm.p1)}] "float density" [{_fmt(hm.density)}]')
+        out.append(f'MakeNamedMedium "{name}" "string type" "{hm.kind}" {params}')
     for li, hl in enumerate(desc.lights):
         if hl.kind == "point":
             out.append(f'LightSource "point" "point from" [{_fmt(hl.from_point)}] "rgb I" [{_fmt(hl.intensity)}]')
@@ -1080,6 +1200,8 @@ def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True)
                     f'  ObjectInstance "{prototypes[key]}"', "AttributeEnd"]
             continue
         out.append("AttributeBegin")
+        if desc.media:
+            out.append(f'  MediumInterface "{prim.inside_medium}" "{prim.outside_medium}"')
         if prim.shape.mesh is None:
             out.append(f"  {_transform_line(prim.shape.sphere.object_to_world)}")
         out += shape_lines(i, prim)

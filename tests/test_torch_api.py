@@ -281,7 +281,7 @@ def test_compiled_tables_bit_identical(tmp_path, scene):
 
 REFUSED = {
     "motion": ('ActiveTransform EndTime\nTranslate 0 1 0\nActiveTransform All\nShape "sphere"', "motion blur"),
-    "medium": ('MediumInterface "m" ""\nShape "sphere"', "medium interfaces"),
+    "medium": ('MediumInterface "m" ""\nActiveTransform EndTime\nTranslate 0 1 0\nShape "sphere"', "motion blur"),
 }
 
 

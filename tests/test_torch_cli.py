@@ -5,8 +5,8 @@ PyTorch twins and writes the film: the written image must equal
 render.render of the port's own parse. One tiny halton + gaussian render of
 a matte scene is held against the reference's pbrt_tpu.render.render of the
 same file, within tests/test_torch_render.py's tier tolerance (rtol 2e-4,
-atol 2e-4). --checkpoint is refused, and so is --device cuda where there
-is no GPU.
+atol 2e-4). --checkpoint is accepted (the wave; test_torch_wave.py
+resumes one); --device cuda is refused where there is no GPU.
 """
 import os
 import subprocess
@@ -88,8 +88,8 @@ def test_main_flags(tmp_path):
 
 
 def test_checkpoint_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="per-sample wave"):
-        cli.main([_scene(tmp_path), "--device", "cpu", "--checkpoint", str(tmp_path / "ck.npz")])
+    assert cli.main([_scene(tmp_path), "-o", str(tmp_path / "c.pfm"), "--device", "cpu", "--quiet", "--spp", "2",
+                     "--checkpoint", str(tmp_path / "k.npz")]) == 0 and render.LAST_WAVE_TIER == "torch-wave/brute"
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal where there is no GPU")

@@ -26,7 +26,10 @@ and B3 on a gallery with a glossy uber sphere; the wavefront's mixed query
 (B1 over a mixed scene's triangle subset, its spheres tested beside it) is
 held to its twin bit for bit, and so are the BVH and kd walks of
 csrc/bvh_walk.cu (quadric_room and its kd variant), whose renders are held
-on the card against the CPU.
+on the card against the CPU. The grid media's tracking kernel
+(csrc/medium_track.cu) makes its twin's decisions on every ray, and the
+per-sample wave's renders (volpath, the BSSRDF, whitted) are held on the
+card against the CPU.
 """
 import numpy as np
 import pytest
@@ -662,3 +665,47 @@ def test_quadric_room_wavefront_cuda_matches_cpu(cuda_device, kd):
     built_c = render.render_compiled(cs, seed=1)
     built_g = render.render_compiled(cs.to(cuda_device), seed=1)
     assert np.isclose(built_g, built_c, rtol=1e-2, atol=1e-4).all(axis=-1).mean() >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["delta_track", "ratio_track"])
+def test_medium_track_matches_plain(cuda_device, entry):
+    """csrc/medium_track.cu against its twin on rays through the fog room's
+    smoke box (chip_smoke._track_rays, a 16^3 grid): the same collisions
+    and steps on every ray, and t (delta) or the transmittance (ratio)
+    within rtol 1e-5 (the twin's log on the card is the kernel's logf)."""
+    import chip_smoke
+    from pbrt_tpu_torch.device import medium_track
+    from pbrt_tpu_torch.scenes import fog_room
+
+    cs = compile_scene(fog_room(8, 16), "cpu").to(cuda_device)
+    rays = chip_smoke._track_rays(cs, 20_000)
+    kernel, plain = getattr(medium_track, entry + "_cuda"), getattr(medium_track, entry + "_plain")
+    res_k = kernel(cs.arrays, *rays)
+    res_p = plain(cs.arrays, cs.static.media_kinds, *rays)
+    assert torch.equal(res_k[-1], res_p[-1]) and int(res_k[-1].max()) > 1
+    if entry == "delta_track":
+        assert torch.equal(res_k[1], res_p[1]) and 0 < int(res_k[1].sum()) < 20_000
+    torch.testing.assert_close(res_k[0], res_p[0], rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["fog", "sss", "whitted"])
+def test_wave_cuda_matches_cpu(cuda_device, scene):
+    """The per-sample wave on the card against the CPU: the small fog room
+    (volpath, the medium_track kernel), the small sss room (the tabulated
+    BSSRDF) and the mesh room under whitted, 24x16 at 2 spp, within
+    chip_smoke.py's crop rule; route torch-wave/wide."""
+    from pbrt_tpu_torch.scenes import fog_room, sss_room
+
+    desc = {"fog": lambda: fog_room(8, 16), "sss": lambda: sss_room(8, 16, 8), "whitted": lambda: mesh_room(8)}[scene]()
+    desc.film.x_resolution, desc.film.y_resolution = 24, 16
+    desc.sampler.pixel_samples = 2
+    if scene == "whitted":
+        desc.integrator.kind = "whitted"
+    cs = compile_scene(desc, "cpu")
+    img_c = render.render_compiled(cs, seed=1)
+    img_g = render.render_compiled(cs.to(cuda_device), seed=1)
+    assert render.render_compiled.last_timing["tier"] == "torch-wave/wide"
+    assert img_c.mean() > 0 and np.abs(img_g - img_c).sum() / np.abs(img_c).sum() < 1e-3
+    assert np.isclose(img_g, img_c, rtol=1e-2, atol=1e-4).all(axis=-1).mean() >= 0.99

@@ -693,15 +693,31 @@ SLICE_KINDS = {"orthographic": "'orthographic' cameras", "environment": "'enviro
                "goniometric": "goniometric lights", "projection": "projection lights",
                "cylinder": "'cylinder' quadrics", "disk": "'disk' quadrics", "cone": "'cone' quadrics",
                "paraboloid": "'paraboloid' quadrics", "hyperboloid": "'hyperboloid' quadrics",
-               "instancing": "object instancing", "alpha": "alpha cutouts"}
+               "instancing": "object instancing", "alpha": "alpha cutouts",
+               "media": "participating media", "medium interface": "medium interfaces",
+               "interface": "the 'interface' material", "subsurface": "the 'subsurface' material",
+               "kdsubsurface": "the 'kdsubsurface' material"}
 
 
 def slice_kind_scene(desc, kind):
     """desc with one of SLICE_KINDS put in: the camera, a light at (0, 4, 2)
     (an 8 x 4 map), the last prim's sphere made that quadric, the first
     mesh instanced by a translation, or the first mesh given an alpha
-    texture (a constant 0.5: cut nowhere)."""
+    texture (a constant 0.5: cut nowhere), a homogeneous fog as the
+    camera's medium (and the first prim's inside), or the first mesh given
+    the interface, subsurface or kdsubsurface material."""
+    from pbrt_tpu_torch.scene.host import HostMedium
     from pbrt_tpu_torch.scenes import _texture
+
+    if kind in ("media", "medium interface"):
+        desc.media = {"fog": HostMedium(kind="homogeneous", sigma_a=np.full(3, 0.1), sigma_s=np.full(3, 0.2))}
+        desc.camera_medium = "fog"
+        desc.primitives[0].inside_medium = "fog" if kind == "medium interface" else ""
+        return desc
+    if kind in ("interface", "subsurface", "kdsubsurface"):
+        mesh = next(p for p in desc.primitives if p.shape.mesh is not None)
+        mesh.material = HostMaterial(kind={"interface": "none"}.get(kind, kind), params={"eta": ("const", 1.33)})
+        return desc
 
     if kind in ("orthographic", "environment"):
         desc.camera = dataclasses.replace(desc.camera, kind=kind)
@@ -731,10 +747,12 @@ def test_slice_kinds_refused_by_name(kind):
     quadrics other than spheres, instanced rows) -- except alpha cutouts:
     the reference's B3 never checks them and would render a cut-out
     triangle whole (ROADMAP C); the port refuses them and the brute
-    wavefront renders the cut-outs."""
+    wavefront renders the cut-outs; and the interface material, which the
+    reference's B3 bakes as a surface without lobes (its render_compiled
+    sends such a scene to the wave; the port's B3 refuses it)."""
     desc = slice_kind_scene(_mini_spheres(light="point"), kind)
     cs, ref = _compile_both(desc)
     mine, theirs = _both_consts(desc, cs, ref)
-    assert mine is None and (theirs is not None) == (kind == "alpha")
+    assert mine is None and (theirs is not None) == (kind in ("alpha", "interface"))
     icfg, scfg, fcfg = _cfgs(desc)
     assert mk.explain_ineligible(cs, make_camera(desc.camera, desc.film, "cpu"), icfg, scfg, fcfg) == SLICE_KINDS[kind]

@@ -123,10 +123,11 @@ def test_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None; sys.modules['PIL'] = None\n"
         "import pbrt_tpu_torch.render, pbrt_tpu_torch.scenes, pbrt_tpu_torch.device.wide_bvh\n"
         "import pbrt_tpu_torch.device.megakernel, pbrt_tpu_torch.device.nvcc, pbrt_tpu_torch.core.spectrum\n"
-        "import pbrt_tpu_torch.device.megakernel_wide, pbrt_tpu_torch.device.sampler\n"
+        "import pbrt_tpu_torch.device.megakernel_wide, pbrt_tpu_torch.device.sampler, pbrt_tpu_torch.device.media\n"
         "import pbrt_tpu_torch.parser.api, pbrt_tpu_torch.parser.parser, pbrt_tpu_torch.parser.catprint\n"
         "import pbrt_tpu_torch.main, pbrt_tpu_torch.__main__\n"
         "import pbrt_tpu_torch.core.imageio, pbrt_tpu_torch.scene.tessellate, pbrt_tpu_torch.utils.stats\n"
+        "import pbrt_tpu_torch.device.medium_track, pbrt_tpu_torch.device.bssrdf, pbrt_tpu_torch.core.bssrdf\n"
         "assert not any(m == 'pbrt_tpu' or m.startswith('pbrt_tpu.') for m in sys.modules)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
@@ -322,18 +323,16 @@ def test_zoo_room_tables_bit_identical(zoo):
 
 @pytest.mark.parametrize("kind", ["subsurface", "kdsubsurface", "interface", "mix-of-subsurface"])
 def test_bssrdf_and_interface_materials_refused_by_name(kind):
-    """What the port's wavefront does not render yet (ROADMAP A5): the
-    subsurface materials (the BSSRDF adapter lobe) and the null material,
-    also as a mix's sub-material."""
+    """The subsurface and interface ("none") materials, also in a mix, now
+    compile; what the port does not render yet keeps its name."""
     desc = mesh_room(8)
-    if kind == "mix-of-subsurface":
-        sub = HostMaterial(kind="subsurface")
-        desc.primitives[1].material = HostMaterial(kind="mix", params={
-            "material1": ("material", HostMaterial(kind="matte")), "material2": ("material", sub)})
-        match = "the 'subsurface' material"
-    else:
-        desc.primitives[1].material = HostMaterial(kind=kind)
-        match = f"the '{kind}' material"
+    sub = HostMaterial(kind={"interface": "none", "mix-of-subsurface": "subsurface"}.get(kind, kind))
+    desc.primitives[1].material = sub if kind != "mix-of-subsurface" else HostMaterial(kind="mix", params={
+        "material1": ("material", HostMaterial(kind="matte")), "material2": ("material", sub)})
+    assert compile_scene(desc, "cpu").static.has_tab_sss == (kind in ("subsurface", "kdsubsurface"))
+    feature, match = {"subsurface": ("bdpt", "the 'bdpt' integrator"), "kdsubsurface": ("sppm", "the 'sppm' "),
+                      "interface": ("mlt", "the 'mlt' "), "mix-of-subsurface": ("realistic", "'realistic'")}[kind]
+    setattr(desc.camera if feature == "realistic" else desc.integrator, "kind", feature)
     with pytest.raises(NotImplementedError, match=match):
         compile_scene(desc, "cpu")
 

@@ -4,7 +4,7 @@
     python3 tools/torch_phases.py [--scene mesh|gallery|material_room|mesh_b4|material_room_wave|area_box|
                                            textured_room|textured_gallery|checker_room|sphere_room|
                                            sphere_room_248|zoo_room|zoo_room_248|quadric_room|
-                                           quadric_room_kd]
+                                           quadric_room_kd|fog_room|sss_room]
                                   [--reps 5] [--out FILE.json]
 
 Renders at 1000x500, 16 spp, depth 5 one of: the 123,650-triangle mesh room
@@ -26,8 +26,11 @@ or quadric_room, the mesh room's enclosure with 30 quadrics of the six
 kinds, 64 instances of a prop, an alpha-cut panel and goniometric and
 projection lights, on the wavefront's binary-BVH walk (--scene
 quadric_room; quadric_room_kd: its kd variant at n_side 40 without
-instances, on the kd walk), and reports, with the card's name and power
-limit:
+instances, on the kd walk), or, through the per-sample wave, fog_room
+(volpath: the mesh room's enclosure in a homogeneous fog, an interface box
+of grid smoke; --scene fog_room) or sss_room (path: a subsurface and a
+kdsubsurface sphere in the enclosure; --scene sss_room), and reports,
+with the card's name and power limit:
  1. end to end: render wall time and path_vertex_samples_per_sec over
     --reps untraced renders after a warm-up (median, min, max);
  2. the traversal kernel against its plain PyTorch twin on the main path's
@@ -42,9 +45,13 @@ limit:
     queries' walks, the shadow queries' walks and the alpha re-casts (the
     walks after a query's first); lobe evaluation: make_bsdf and the integrator's calls of
     bsdf_f, bsdf_pdf and bsdf_sample), the rest being shading, NEE, sampling,
-    Russian roulette, flush and loop control; the synchronizes serialise
-    host and device, so the traced wall minus the untraced median is the
-    tracing cost;
+    Russian roulette, flush and loop control; on the wave's scenes also
+    medium sampling (media.medium_sample, with its delta tracking), shadow
+    transmittance (media.transmittance_shadow: the null-crossing queries
+    and ratio tracking) and the BSSRDF's probe chain (integrator.
+    probe_chain); a span nested in another counts in the outer one only;
+    the synchronizes serialise host and device, so the traced wall minus
+    the untraced median is the tracing cost;
  3g. launch path (the megakernel scenes): the route's one call with a
     synchronize before and after: host time until it returns, device time
     by CUDA events, the whole call; for the wide megakernel also its
@@ -61,7 +68,8 @@ limit:
     torch.profiler: total kernel time, device kernels per render and per
     wavefront iteration (closest-hit queries), the device busy share
     (kernel time / wall) and the top kernels (--out also keeps the chrome
-    trace).
+    trace); on the wave's scenes per wave bounce (its iterations and last
+    pickup) instead.
 --all-matte gives every material of the scene the room's matte (Kd 0.6,
 the panel's black Kd kept), so that a wide-megakernel run with and without
 it tells shading divergence from geometry. The spans are wrapped around the
@@ -83,13 +91,32 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 
-def _spanned(fn, name, spans):
+_DEPTH = [0]  # spans open: a span inside another counts in the outer one only
+
+
+def _spanned(fn, name, spans, within=False):
+    """fn with a synchronized span: a layer's (counted only outside any
+    other layer's span) or, with `within`, a span inside a layer's (the
+    kernel, the walks, the spheres' merge), always counted."""
     import torch
 
     def wrapped(*args, **kw):
+        if within:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spans[name] = spans.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        if _DEPTH[0]:
+            return fn(*args, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fn(*args, **kw)
+        _DEPTH[0] += 1
+        try:
+            out = fn(*args, **kw)
+        finally:
+            _DEPTH[0] -= 1
         torch.cuda.synchronize()
         spans[name] = spans.get(name, 0.0) + time.perf_counter() - t0
         return out
@@ -102,7 +129,8 @@ def main() -> int:
     ap.add_argument("--scene", default="mesh",
                     choices=("mesh", "gallery", "material_room", "mesh_b4", "material_room_wave", "area_box",
                              "textured_room", "textured_gallery", "checker_room", "sphere_room", "sphere_room_248",
-                             "zoo_room", "zoo_room_248", "quadric_room", "quadric_room_kd"))
+                             "zoo_room", "zoo_room_248", "quadric_room", "quadric_room_kd", "fog_room",
+                             "sss_room"))
     ap.add_argument("--all-matte", action="store_true", help="every material matte (Kd 0.6), the panel's kept")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
@@ -120,8 +148,8 @@ def main() -> int:
     from pbrt_tpu_torch import render as R_
     from pbrt_tpu_torch.scene.builder import compile_scene
     from pbrt_tpu_torch.scene.host import HostMaterial
-    from pbrt_tpu_torch.scenes import area_box, material_room, mesh_room, quadric_room, sphere_room, \
-        spheres_gallery, textured_gallery, textured_room, zoo_room
+    from pbrt_tpu_torch.scenes import area_box, fog_room, material_room, mesh_room, quadric_room, sphere_room, \
+        spheres_gallery, sss_room, textured_gallery, textured_room, zoo_room
 
     if args.scene in ("material_room", "mesh_b4", "checker_room"):
         os.environ["PBRT_TPU_WIDEMEGA"] = "1"
@@ -132,7 +160,8 @@ def main() -> int:
             "textured_gallery": textured_gallery, "checker_room": lambda: material_room(checker=True),
             "sphere_room": sphere_room, "sphere_room_248": lambda: sphere_room(248), "zoo_room": zoo_room,
             "zoo_room_248": lambda: zoo_room(248), "quadric_room": lambda: quadric_room(248),
-            "quadric_room_kd": lambda: quadric_room(40, instances=False, accelerator="kdtree")}
+            "quadric_room_kd": lambda: quadric_room(40, instances=False, accelerator="kdtree"),
+            "fog_room": fog_room, "sss_room": sss_room}
     rec = {"device": torch.cuda.get_device_name(0), "nvidia_smi": chip_smoke._smi(),
            "torch": torch.__version__, "cuda": torch.version.cuda, "scene": args.scene,
            "all_matte": args.all_matte}
@@ -160,7 +189,7 @@ def main() -> int:
     print(f"render: wall median {statistics.median(walls):.4f}s (min {min(walls):.4f} max {max(walls):.4f}), "
           f"path_vertex_samples_per_sec median {statistics.median(vps):.1f}", flush=True)
 
-    if tm["tier"].startswith("torch-wavefront"):
+    if tm["tier"].startswith(("torch-wavefront", "torch-wave/")):
         _traversal_and_layers(args, cs, rec, statistics.median(walls))
         _device(args, cs, rec, statistics.median(walls))
     else:
@@ -181,7 +210,7 @@ LOBE_CALLS = ("make_bsdf", "bsdf_f", "bsdf_pdf", "bsdf_sample")
 def _traversal_and_layers(args, cs, rec, wall_median):
     import chip_smoke
     from pbrt_tpu_torch import render as R_
-    from pbrt_tpu_torch.device import bvh_walk, integrator, intersect, wide_bvh
+    from pbrt_tpu_torch.device import bvh_walk, integrator, intersect, media, wide_bvh
 
     # --- 2. traversal kernel vs plain on the main path's ray sets ---
     rec["traversal"] = []
@@ -208,7 +237,8 @@ def _traversal_and_layers(args, cs, rec, wall_median):
 
     # --- 3. layers, with a synchronize around every layer call ---
     spans: dict = {}
-    saved = {n: getattr(integrator, n) for n in ("intersect", "intersect_p") + LOBE_CALLS}
+    saved = {n: getattr(integrator, n) for n in ("intersect", "intersect_p", "probe_chain") + LOBE_CALLS}
+    saved_media = {n: getattr(media, n) for n in ("medium_sample", "transmittance_shadow")}
     saved_regen = R_.make_regen
     saved_kernel = wide_bvh.traverse_cuda
     saved_spheres = intersect._mixed_spheres
@@ -226,17 +256,20 @@ def _traversal_and_layers(args, cs, rec, wall_median):
     def walk(*a, **k):
         name = "walk_alpha_recast" if query["walks"] else f"walk_{query['name']}"
         query["walks"] += 1
-        return _spanned(saved_walk, name, spans)(*a, **k)
+        return _spanned(saved_walk, name, spans, within=True)(*a, **k)
 
     try:
-        intersect._mixed_spheres = _spanned(saved_spheres, "sphere_merge", spans)
+        intersect._mixed_spheres = _spanned(saved_spheres, "sphere_merge", spans, within=True)
         intersect.walk_intersect = walk
         integrator.intersect = in_query(_spanned(saved["intersect"], "closest_query", spans), "closest")
         integrator.intersect_p = in_query(_spanned(saved["intersect_p"], "shadow_query", spans), "shadow")
         for n in LOBE_CALLS:
             setattr(integrator, n, _spanned(saved[n], "lobe_eval", spans))
+        integrator.probe_chain = _spanned(saved["probe_chain"], "bssrdf_probes", spans)
+        media.medium_sample = _spanned(saved_media["medium_sample"], "medium_sample", spans)
+        media.transmittance_shadow = _spanned(saved_media["transmittance_shadow"], "shadow_transmittance", spans)
         R_.make_regen = lambda *a, **k: _spanned(saved_regen(*a, **k), "regen", spans)
-        kern = _spanned(saved_kernel, "kernel", spans)
+        kern = _spanned(saved_kernel, "kernel", spans, within=True)
         kern.launches = 0
         kern.counters, kern.iterations, kern.queues = (saved_kernel.counters, saved_kernel.iterations,
                                                        saved_kernel.queues)
@@ -247,6 +280,8 @@ def _traversal_and_layers(args, cs, rec, wall_median):
     finally:
         for n, fn in saved.items():
             setattr(integrator, n, fn)
+        for n, fn in saved_media.items():
+            setattr(media, n, fn)
         R_.make_regen = saved_regen
         wide_bvh.traverse_cuda = saved_kernel
         intersect._mixed_spheres = saved_spheres
@@ -256,6 +291,9 @@ def _traversal_and_layers(args, cs, rec, wall_median):
               "closest_query": spans.get("closest_query", 0.0),
               "shadow_query": spans.get("shadow_query", 0.0),
               "lobe_eval": spans.get("lobe_eval", 0.0)}
+    for k in ("medium_sample", "shadow_transmittance", "bssrdf_probes"):
+        if k in spans:
+            layers[k] = spans[k]
     layers["shading_nee_flush_loop"] = traced - sum(layers.values())
     rec["layers"] = {"traced_wall_s": traced, "tracing_cost_s": traced - wall_median,
                      "seconds": layers, "kernel_s_within_queries": spans.get("kernel", 0.0),
@@ -430,20 +468,27 @@ def _device(args, cs, rec, wall_median):
     from pbrt_tpu_torch.device import integrator
 
     # wavefront iterations = closest-hit queries (one per iteration), counted
-    # without a synchronize
+    # without a synchronize; the wave's bounces = its waves times its
+    # iterations and last pickup
     n_iter = [0]
-    closest = integrator.intersect
+    wave_scene = R_.render_compiled.last_timing["tier"].startswith("torch-wave/")
+    name = "trace_wave" if wave_scene else "intersect"
+    closest = getattr(integrator, name)
+    per_call = (integrator.wave_iterations(cs.static, cs.description.integrator.kind,
+                                           cs.description.integrator.max_depth) + 1) if wave_scene else 1
 
     def counted(*a, **k):
-        n_iter[0] += 1
+        n_iter[0] += per_call
         return closest(*a, **k)
 
-    integrator.intersect = counted
+    setattr(integrator, name, counted)
+    R_.trace_wave = integrator.trace_wave
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             R_.render_compiled(cs, seed=args.seed)
     finally:
-        integrator.intersect = closest
+        setattr(integrator, name, closest)
+        R_.trace_wave = integrator.trace_wave
     wall = R_.render_compiled.last_timing["wall_s"]
     if args.out and args.scene == "mesh":
         out = Path(args.out)
@@ -464,7 +509,8 @@ def _device(args, cs, rec, wall_median):
                      "kernel_launches": n_kernels, "iterations": n_iter[0],
                      "kernels_per_iteration": n_kernels / max(n_iter[0], 1),
                      "top": [{"name": k[:120], "s": s, "count": c} for s, c, k in rows[:15]]}
-    print(f"device: kernel time {dev_s:.4f}s in {n_kernels} kernels over {n_iter[0]} wavefront iterations "
+    print(f"device: kernel time {dev_s:.4f}s in {n_kernels} kernels over {n_iter[0]} "
+          f"{'wave bounces' if wave_scene else 'wavefront iterations'} "
           f"({n_kernels / max(n_iter[0], 1):.1f} per iteration); untraced wall {wall_median:.4f}s -> busy "
           f"{100 * busy:.1f}%, idle {100 * (1 - busy):.1f}% (profiled wall {wall:.4f}s)", flush=True)
     for s, c, k in rows[:10]:
