@@ -9,10 +9,15 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     power limit;
  2. build: nvcc-compiles every kernel source (csrc/wide_traverse.cu,
     wide_traverse_joint.cu, megakernel.cu, megakernel_wide.cu,
-    bvh_walk.cu, medium_track.cu), one nvcc each, all started together; prints build seconds, the ptxas
+    bvh_walk.cu, medium_track.cu), one nvcc each, all started together,
+    while HOST_WORKERS spawned processes compile the large rooms of the
+    later phases on the host (the mesh, quadric, sss, fog, motion and
+    sphere rooms at n_side 248; LARGE_ROOMS); prints build seconds, the ptxas
     register/spill/shared-memory report of each and every variant's
     resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-    and B3's __launch_bounds__ choice;
+    B3's __launch_bounds__ choice, and the walk kernels' report per entry:
+    the static instantiations (MOTION 0) beside the motion ones (MOTION 1
+    keyframes, 2 the exact animated transform);
  3. B1 kernel vs plain: compiles the 123,650-triangle mesh room on the host,
     then traces 500,000 camera rays, one cosine bounce from their hits and
     shadow rays to the panel light through the CUDA kernel and through its
@@ -235,7 +240,7 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     six kinds, 64 instances of a 1,984-triangle prop, an alpha-cut panel,
     goniometric and projection lights: 251,168 prims) and on its kd
     variant (n_side 40, no instances): the camera, bounce and shadow rays of
-    the main path, closest and any hit, compared on every eighth ray: hits
+    the main path, closest and any hit, compared on every 32nd ray: hits
     and prims equal (a prim may differ only on a tie in t), t within 4
     ulps, the counters 0; prints the kernel's time on each whole set
     (CUDA events), pops per ray, the share of lanes holding a ray, its
@@ -276,8 +281,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     from the steps counted (MT_OPS_DELTA, MT_OPS_RATIO per step);
 39. fog_room(248) (volpath: the mesh room in a homogeneous fog that is the
     camera's medium, an interface box of grid smoke, a spot light) at
-    1000x500, 16 spp, depth 5 on cuda after a warm-up on the crop: route
-    torch-wave/wide, B1 and medium_track launches > 0 in that run, a
+    1000x500, 8 spp (LATE_MAIN_SPP), depth 5 on cuda after a warm-up on the
+    crop: route torch-wave/wide, B1 and medium_track launches > 0 in that run, a
     finite, non-black image; path_vertex_samples_per_sec and the device
     kernels per wave bounce (the profiler over a 1 spp crop);
 40. sss_room(248) (a "Skin1" subsurface and a kdsubsurface sphere, path)
@@ -289,13 +294,42 @@ Phases (one line each; any failure raises and the exit code is non-zero):
 42. fog_room(8) (the 64^3 grid) written as a file, rendered by python -m
     pbrt_tpu_torch --checkpoint as a subprocess that is killed after its
     first checkpoint (2 of 4 samples) and run again to resume: the resumed
-    image bit-equal to the uninterrupted render's.
+    image bit-equal to the uninterrupted render's;
+43. the motion walk (csrc/bvh_walk.cu, MOTION 2) against its twin on the
+    500,000 camera rays of motion_room(248) (a spinning UV sphere, a
+    translating box and a moving sphere quadric in the mesh room under a
+    dollying camera), each at its shutter fraction from the sampler's
+    dimension 8117 (render.TIME_DIM), as the wave draws them: t, prim and
+    pops bit-equal on every ray, the barycentrics of every triangle hit
+    too; a quadric hit's b1, b2 (its object-space x, y) within 2 ulps, as
+    the static walk's against its twin on the same rays (the quadric test
+    is unchanged); the kernel's time by CUDA events,
+    the twin's by the host clock, the bound from the instrumented entry's
+    counts with the motion evaluation of every candidate in the operations;
+44. motion_room(248) at 1000x500, 16 spp, depth 5 on cuda after a warm-up
+    on the crop: route torch-wave/bvh, motion-walk launches > 0, a finite,
+    non-black image; path_vertex_samples_per_sec and the device kernels per
+    wave bounce;
+45. the mesh room under the realistic camera (scenes.write_lens's double
+    Gauss, phase 3's compiled tables with the camera swapped) at 1000x500,
+    16 spp: route torch-wave/wide, B1 launches > 0;
+46. BDPT on the mesh room (phase 3's tables) at 1000x500, depth 5, BDPT_SPP
+    spp: route torch-bdpt/wide, B1 launches > 0; path_vertex_samples_per_sec
+    (the subpaths' surface vertices over the wall), seconds per spp and the
+    ratio of its mean to phase 4's path image (a reading beside the
+    reference's 0.90-1.10 mesh-agreement band, not a gate);
+47. crops of phases 44-46 on cuda and cpu with one seed, held as in phase
+    5; a crop of motion_room(16, rotate=False) (the keyframe tables); and
+    python -m pbrt_tpu_torch as a subprocess on written motion_room(8) and
+    BDPT mesh-room files.
 Phases 15-21, 24's image-mapped sky, 25, 28, 30, 31, 32 and 36 are the
 wavefront's array code around B1 (the brute wavefront launches no kernel
 of the port): they add no row to the kernel report; phase 29's sphere
 instantiation and phase 33's translucent wall ride B4's row; phases 34-35
 fill bvh_walk's row (its launches: the two renders of phase 35); phases
-38-39 medium_track's (its launches: the fog room's render). Each main path runs with every launch count set to 0 just
+38-39 medium_track's (its launches: the fog room's render); phases 43-44
+the row of bvh_walk's motion entry (its launches: the motion room's render).
+Each main path runs with every launch count set to 0 just
 before it and read just after; every switch a phase sets is restored after
 it. The second-to-last lines are the kernel report as JSON and the card's
 nvidia-smi name and power limit; the last line is
@@ -344,13 +378,66 @@ B3_OPS_TEX = 60  # one atlas lookup: the cone's level (log2), 2 levels x 4 taps 
 # crops at LATE_SPP[1] samples per pixel, to keep the script's command time
 # near its earlier length as phases are added
 LATE_SPP = (1, 2)
-# the main paths of phases 25-26, 31-32 and 35-36 render at this spp, half
-# the scenes' 16, to hold the script under 1,000 s beside the wave's phases
-# 38-42 (phase 25 also profiles and checks its crop at LATE_SPP)
+# the main paths of phases 25-26, 31-32, 35-36 and 39-40 render at this spp,
+# half the scenes' 16, to hold the script under 1,000 s beside the wave's
+# phases 38-47 (phase 25 also profiles and checks its crop at LATE_SPP)
 LATE_MAIN_SPP = 8
+# phase 46's BDPT render of the mesh room (the scene's 16 spp)
+BDPT_SPP = 16
 # phase 26: the brute megakernel's image against the brute wavefront's (EWA),
 # by mean brightness (tests/test_megakernel.py:189-205)
 RAY_CONE_BAND = (0.93, 1.07)
+
+
+# the large rooms' host compiles, made by worker processes while nvcc builds
+# the kernels (phase 2) and taken by the phases that render them
+# (_host_scene): name -> a future of (CompiledScene on the CPU, seconds)
+_HOST: dict = {}
+# (name, scenes function, its arguments) of the rooms compiled during the build
+LARGE_ROOMS = (("mesh_room", "mesh_room", (248,)), ("quadric_room", "quadric_room", (248,)),
+               ("sss_room", "sss_room", (248,)), ("fog_room", "fog_room", (248,)),
+               ("motion_room", "motion_room", (248,)), ("sphere_room", "sphere_room", (248,)))
+HOST_WORKERS = 4  # worker processes for LARGE_ROOMS' host compiles
+
+
+def _compile_room(fn: str, args: tuple):
+    """A worker's task: (compile_scene(scenes.fn(*args), "cpu"), seconds)."""
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.scene.builder import compile_scene
+
+    t0 = time.perf_counter()
+    return compile_scene(getattr(scenes, fn)(*args), "cpu"), time.perf_counter() - t0
+
+
+def _host_scene(name):
+    """(the CPU-compiled scene `name` of LARGE_ROOMS, its host compile
+    seconds in its worker): the worker's result, or compiled now."""
+    if name not in _HOST:
+        _n, fn, args = next(r for r in LARGE_ROOMS if r[0] == name)
+        return _compile_room(fn, args)
+    return _HOST[name].result()
+
+
+def _build_beside_host_compiles(sources):
+    """Phase 2: nvcc.build_all(sources) while HOST_WORKERS spawned processes
+    compile LARGE_ROOMS on the host; waits for both, shuts the workers down
+    and returns the build's result."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from pbrt_tpu_torch.device import nvcc
+
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=HOST_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        for name, fn, args in LARGE_ROOMS:
+            _HOST[name] = pool.submit(_compile_room, fn, args)
+        libs = nvcc.build_all(sources)
+        build_s = time.perf_counter() - t0
+        done = {name: f.result() for name, f in _HOST.items()}
+    print(f"[2 build] the kernels built in {build_s:.1f}s; beside them {HOST_WORKERS} worker processes compiled "
+          + ", ".join(f"{n} ({s_:.1f}s)" for n, (_c, s_) in done.items())
+          + f" on the host, all done at {time.perf_counter() - t0:.1f}s", flush=True)
+    return libs
 
 
 def _smi() -> str:
@@ -461,6 +548,7 @@ def _reset_launches():
 
     for fn in (wide_bvh.traverse_cuda, wide_bvh.traverse_joint_cuda, megakernel.megakernel_cuda,
                megakernel_wide.wide_megakernel_cuda, bvh_walk.bvh_walk_cuda, bvh_walk.kd_walk_cuda,
+               bvh_walk.bvh_walk_motion_cuda, bvh_walk.kd_walk_motion_cuda,
                medium_track.delta_track_cuda, medium_track.ratio_track_cuda):
         fn.launches = 0
 
@@ -846,6 +934,22 @@ def _front_end_phases(out, work, mesh_timing, mesh_img, cs_host, m, m_host):
     if sub.returncode != 0 or crop is None or not crop.any():
         raise AssertionError(f"python -m pbrt_tpu_torch failed:\n{sub_out[-4000:]}")
     out["module_entry_point_s"] = sub_s
+
+
+def _ptxas_entries(log: str) -> list[dict]:
+    """Every entry function of an nvcc -Xptxas -v log: its kernel name (the
+    mangled name's identifier), template arguments, registers, spills and
+    stack frame (tools/ptxas_report.py's fields)."""
+    rows = []
+    for m in re.finditer(r"Function properties for (\S+)\s*\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                         r"(\d+) bytes spill loads\s*\n[^\n]*Used (\d+) registers", log):
+        name = re.match(r"_Z\d+(\w+?)I|_Z\d+(\w+)", m[1])
+        targs = re.search(r"I((?:L[ib]-?\d+E)+)E", m[1])
+        rows.append({"kernel": (name[1] or name[2]) if name else m[1],
+                     "template": [int(x) for x in re.findall(r"L[ib](-?\d+)E", targs[1])] if targs else [],
+                     "registers": int(m[5]), "spill_stores": int(m[3]), "spill_loads": int(m[4]),
+                     "stack_frame": int(m[2])})
+    return rows
 
 
 def _ptxas_of(log: str, template: str) -> dict:
@@ -1332,8 +1436,11 @@ def _sphere_phases(out, cs, b4_ms, g):
     for n_side in (40, 248):
         label = f"28 sphere_room({n_side})"
         t0 = time.perf_counter()
-        host = compile_scene(scenes.sphere_room(n_side), "cpu")
-        host_s = time.perf_counter() - t0
+        if n_side == 248:
+            host, host_s = _host_scene("sphere_room")
+        else:
+            host = compile_scene(scenes.sphere_room(n_side), "cpu")
+            host_s = time.perf_counter() - t0
         sr = host.to(dev)
         timing, b1, _img = _main_path(f"{label} main path", sr, "torch-wavefront/cuda-wide-mixed",
                                       wide_bvh.traverse_cuda)
@@ -1706,16 +1813,20 @@ def _walk_against_twin(label, cs, walk_k, walk_p):
     return rows, max_err, ray_sets
 
 
-def _walk_bound(label, cs, o, d, t_max):
-    """Phase 34: the BVH walk's bound on one ray set from its instrumented
-    entry (the pops, the prim tests by kind and the table rows this run's
-    walk read): the larger of the bytes (rays in; of the tables, each row
-    the walk read once, and of it only what it reads: a node's box, 24
-    bytes, its offset and count, 8, its axis, 4; a prim's kind and
+def _walk_bound(label, cs, o, d, t_max, tm=None, res_main=None):
+    """Phases 34 and 43: the BVH walk's bound on one ray set from its
+    instrumented entry (the pops, the prim tests by kind and the table rows
+    this run's walk read): the larger of the bytes (rays in; of the tables,
+    each row the walk read once, and of it only what it reads: a node's
+    box, 24 bytes, its offset and count, 8, its axis, 4; a prim's kind and
     instance id, 8, and its row's 9 floats of a triangle or 19 (25 with
     the twisted hyperboloid's columns) of a quadric; an instance's 12
     floats; t, prim, b1, b2, pops out) over the HBM rate and the operations
-    over the float32 rate. Returns (bound_ms, bound_by, the counts)."""
+    over the float32 rate. With the rays' shutter fractions tm, the motion
+    entry's (its paths must be res_main's): the times in, per prim row read
+    its group id and compose constant (52 bytes), every group row once,
+    and per candidate test the motion evaluation (BW_OPS_ANIM*). Returns
+    (bound_ms, bound_by, the counts)."""
     import torch
 
     from pbrt_tpu_torch.device import bvh_walk
@@ -1725,8 +1836,12 @@ def _walk_bound(label, cs, o, d, t_max):
     tests = torch.empty((o.shape[0], 3), dtype=torch.int32, device=dev)
     seen = tuple(torch.zeros(n, dtype=torch.int32, device=dev)
                  for n in (sa.bvh_packed.shape[0], sa.prim_test_data.shape[0], sa.inst_w2i.shape[0]))
-    res = bvh_walk.bvh_walk_cuda(sa, st, o, d, t_max, False, prim_tests=tests, rows_read=seen)
-    bvh_walk.bvh_walk_cuda.launches -= 1  # a measurement launch, not the main path's
+    walk = bvh_walk.bvh_walk_cuda if tm is None else bvh_walk.bvh_walk_motion_cuda
+    extra = {} if tm is None else {"time": tm}
+    res = walk(sa, st, o, d, t_max, False, prim_tests=tests, rows_read=seen, **extra)
+    walk.launches -= 1  # a measurement launch, not the main path's
+    if res_main is not None and not all(torch.equal(x, y) for x, y in zip(res, res_main)):
+        raise AssertionError(f"{label}: the instrumented entry walked other paths")
     tri, quad, inst = (float(x) for x in tests.double().sum(0))
     pops = float(res[4].double().sum())
     nodes, prims, insts = seen
@@ -1739,6 +1854,9 @@ def _walk_bound(label, cs, o, d, t_max):
     inst_bytes = 48 * int(insts.sum())
     n_bytes = _nbytes(o, d, t_max, *res[:5]) + node_bytes + prim_bytes + inst_bytes
     ops = pops * BW_OPS_POP + tri * BW_OPS_TRI + quad * BW_OPS_QUADRIC + inst * BW_OPS_INSTANCE
+    if tm is not None:
+        n_bytes += _nbytes(tm, sa.anim_rec) + 52 * int(read.sum())
+        ops += tri * (BW_OPS_ANIM + BW_OPS_ANIM_TRI) + quad * (BW_OPS_ANIM + BW_OPS_ANIM_QUADRIC)
     b = _bound(n_bytes, ops)
     counts = {"pops": pops, "triangle_tests": tri, "quadric_tests": quad, "instanced_tests": inst,
               "nodes_read": int((nodes != 0).sum()), "prim_rows_read": int(read.sum()),
@@ -1788,11 +1906,13 @@ def _walk_phases(out, work):
     print(f"[34 bvh_walk build] {Path(info['path']).name}; ptxas: {regs}; {spills}; blocks of 128 per SM "
           f"(bvh, kd) {occ}", flush=True)
     scenes_34 = {}
-    for key, make in (("bvh", lambda: scenes.quadric_room(248)),
-                      ("kdtree", lambda: scenes.quadric_room(40, instances=False, accelerator="kdtree"))):
+    for key in ("bvh", "kdtree"):
         t0 = time.perf_counter()
-        host = compile_scene(make(), "cpu")
-        host_s = time.perf_counter() - t0
+        if key == "bvh":
+            host, host_s = _host_scene("quadric_room")
+        else:
+            host = compile_scene(scenes.quadric_room(40, instances=False, accelerator="kdtree"), "cpu")
+            host_s = time.perf_counter() - t0
         q = host.to(dev)
         scenes_34[key] = (q, host)
         st = q.static
@@ -1981,11 +2101,11 @@ def _kernels_per_bounce(cs, spp=1) -> tuple[int, int]:
     return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA), bounces
 
 
-def _wave_main_path(label, cs, kernels):
-    """Phases 39-40: a warm-up render of the crop at 1 spp, then the full
-    render with every launch count set to 0 just before it; the route must
-    be the wave's torch-wave/wide and each of `kernels` launched in it.
-    Returns (timing, {kernel: launches}, image)."""
+def _wave_main_path(label, cs, kernels, tier="torch-wave/wide", spp=None):
+    """Phases 39-40 and 44-46: a warm-up render of the crop at 1 spp, then
+    the full render (spp: None, the scene's) with every launch count set to
+    0 just before it; the route must be `tier` and each of `kernels`
+    launched in it. Returns (timing, {kernel: launches}, image)."""
     import numpy as np
 
     from pbrt_tpu_torch import render as R_
@@ -1995,15 +2115,15 @@ def _wave_main_path(label, cs, kernels):
         d, integrator=dataclasses.replace(d.integrator, pixel_bounds=CROP_BOUNDS),
         sampler=dataclasses.replace(d.sampler, pixel_samples=1))), seed=SEED)
     _reset_launches()
-    img = R_.render_compiled(cs, seed=SEED)
+    img = R_.render_compiled(cs, seed=SEED, spp=spp)
     timing = R_.render_compiled.last_timing
     launches = {k.__name__: k.launches for k in kernels}
     vps = timing["n_vertices"] / timing["wall_s"]
-    print(f"[{label}] {d.film.x_resolution}x{d.film.y_resolution} {d.sampler.pixel_samples}spp "
+    print(f"[{label}] {d.film.x_resolution}x{d.film.y_resolution} {spp or d.sampler.pixel_samples}spp "
           f"{d.integrator.kind} depth {d.integrator.max_depth} route {timing['tier']}: wall {timing['wall_s']:.4f}s, "
           f"{timing['n_vertices']:.0f} path vertices, path_vertex_samples_per_sec {vps:.1f}, launches {launches}, "
           f"image mean {img.mean():.5f}", flush=True)
-    if timing["tier"] != "torch-wave/wide":
+    if timing["tier"] != tier:
         raise AssertionError(f"{label} took route {timing['tier']}")
     if not all(n > 0 for n in launches.values()):
         raise AssertionError(f"{label} made no launch of a kernel of its path: {launches}")
@@ -2031,9 +2151,7 @@ def _wave_phases(out, work, cs, cs_host):
     info = medium_track.build_kernel()
     regs = "; ".join(sorted(set(re.findall(r"Used \d+ registers[^\n]*", info["log"])))) or "n/a"
     occ = [nvcc.occupancy(info["lib"].medium_track_occupancy, w, 2) for w in (0, 1)]
-    t0 = time.perf_counter()
-    fog_host = compile_scene(scenes.fog_room(248), "cpu")
-    fog_compile_s = time.perf_counter() - t0
+    fog_host, fog_compile_s = _host_scene("fog_room")
     fog = fog_host.to("cuda")
     sa, kinds = fog.arrays, fog.static.media_kinds
     med, o, d, t_end, key = _track_rays(fog, TRACK_RAYS)
@@ -2076,7 +2194,7 @@ def _wave_phases(out, work, cs, cs_host):
     seconds["38"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     # --- 39. the fog room main path ---
-    timing, launches, _img = _wave_main_path("39 fog_room main path", fog, (
+    timing, launches, _img = _wave_main_path("39 fog_room main path", fog, spp=LATE_MAIN_SPP, kernels=(
         wide_bvh.traverse_cuda, medium_track.delta_track_cuda, medium_track.ratio_track_cuda))
     kern, bounces = _kernels_per_bounce(fog)
     print(f"  device kernels per wave bounce {kern / bounces:.1f} ({kern} over {bounces} bounces of a 1 spp crop)",
@@ -2087,11 +2205,10 @@ def _wave_phases(out, work, cs, cs_host):
     seconds["39"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     # --- 40. the sss room main path (the tabulated BSSRDF); the walk ---
-    t0 = time.perf_counter()
-    sss_host = compile_scene(scenes.sss_room(248), "cpu")
-    sss_compile_s = time.perf_counter() - t0
+    sss_host, sss_compile_s = _host_scene("sss_room")
     sss = sss_host.to("cuda")
-    timing, launches, _img = _wave_main_path("40 sss_room main path", sss, (wide_bvh.traverse_cuda,))
+    timing, launches, _img = _wave_main_path("40 sss_room main path", sss, (wide_bvh.traverse_cuda,),
+                                             spp=LATE_MAIN_SPP)
     kern, bounces = _kernels_per_bounce(sss)
     # the walk on a smaller room (the spheres at 64 x 32 and 32 x 32 cells)
     x0, x1, y0, y1 = CROP_BOUNDS
@@ -2158,6 +2275,184 @@ def _wave_phases(out, work, cs, cs_host):
     seconds["42"] = time.perf_counter() - t_phase
 
 
+# the motion walk (bvh_walk.cu, MOTION 2): float32 operations per candidate
+# prim, counted from its source as a lower bound: the group's M(dt)
+# (bw_anim_matrix: the slerp weights 8, the quaternion 12, its norm and
+# divides 12, the rotation 24, the scale lerp 27, rot . scale 45, the
+# translation lerp 9), the compose with C (45 + 18); a triangle's three
+# vertices through G (54); a quadric's adjugate inverse of M (60)
+BW_OPS_ANIM = 8 + 12 + 12 + 24 + 27 + 45 + 9 + 63
+BW_OPS_ANIM_TRI = 54
+BW_OPS_ANIM_QUADRIC = 60
+MOTION_RAYS = 500_000
+
+
+def _motion_rays(cs, sample=0):
+    """The camera rays of sample `sample` of every pixel of cs's film, as
+    the wave makes them: the film and lens dimensions, the shutter time of
+    dimension render.TIME_DIM, the animated camera at it. Returns (o, d,
+    t_max, time)."""
+    import torch
+
+    from pbrt_tpu_torch import render as R_
+
+    desc = cs.description
+    dev = cs.arrays.device
+    W, H = desc.film.x_resolution, desc.film.y_resolution
+    cam = R_.scene_camera(desc, dev)
+    icfg, scfg, fcfg = R_._configs(desc, dev, desc.integrator.kind)
+    idx = torch.arange(W * H, device=dev)
+    px, py = idx % W, idx // W
+    sidx = torch.full_like(idx, sample)
+    pxf, pyf, ul1, ul2, _w = R_._film_sample(scfg, fcfg, px, py, idx, SEED, sidx)
+    tf = R_._shutter_fraction(cam, scfg, SEED, idx, sidx).contiguous()
+    o, d = R_.generate_rays(cam, pxf, pyf, ul1, ul2, tf)
+    return o.contiguous(), d.contiguous(), torch.full((W * H,), float("inf"), device=dev), tf
+
+
+def _bits_against_twin(res_k, res_p, quad):
+    """Phase 43: ({output: rays differing bit for bit} over t, prim and pops
+    and, on the rays that hit no quadric, b1 and b2; the largest ulp
+    distance of b1 and b2 on the rays that hit a quadric (`quad`), where
+    they are the hit's object-space x and y)."""
+    import torch
+
+    bit, ulps = {}, 0
+    for name, a, b in zip(("t", "prim", "b1", "b2", "pops"), res_k, res_p):
+        a32 = a.view(torch.int32).long() if a.dtype == torch.float32 else a.long()
+        b32 = b.view(torch.int32).long() if b.dtype == torch.float32 else b.long()
+        if name in ("b1", "b2"):
+            ulps = max(ulps, int((a32 - b32).abs()[quad].max()) if bool(quad.any()) else 0)
+            a32, b32 = a32[~quad], b32[~quad]
+        bit[name] = int((a32 != b32).sum())
+    return bit, ulps
+
+
+def _motion_bdpt_phases(out, work, cs, cs_host, mesh_img):
+    """Phases 43-47: motion blur and the animated camera (the motion walk),
+    the realistic camera, BDPT."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.device import bvh_walk, wide_bvh
+    from pbrt_tpu_torch.scene.builder import compile_scene
+    from pbrt_tpu_torch.scene.host import CameraConfig
+
+    seconds = out["seconds"] = {}
+    t_phase = time.perf_counter()
+    # --- 43. the motion walk against its twin on 500,000 camera rays ---
+    mr_host, mr_compile_s = _host_scene("motion_room")
+    mr = mr_host.to("cuda")
+    sa, st = mr.arrays, mr.static
+    o, d, t_max, tm = _motion_rays(mr)
+    res_k = bvh_walk.bvh_walk_motion_cuda(sa, st, o, d, t_max, False, time=tm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_p = bvh_walk.walk_plain(sa, st, o, d, t_max, False, time=tm)
+    torch.cuda.synchronize()
+    p_ms = 1e3 * (time.perf_counter() - t0)
+    k_ms = _cuda_ms(lambda: bvh_walk.bvh_walk_motion_cuda(sa, st, o, d, t_max, False, time=tm), 10)
+    hit = res_k[1] >= 0
+    quad = hit & (sa.prim_kind[res_k[1].long().clamp(min=0)] != 0)
+    bit, quad_ulps = _bits_against_twin(res_k, res_p, quad)
+    # the static walk against its twin on the same rays: the quadric's
+    # object-space x and y part by the same ulps there (csrc/quadric.cuh
+    # against prims.ray_quadric, the static walk's own quadric test)
+    _b, static_ulps = _bits_against_twin(bvh_walk.bvh_walk_cuda(sa, st, o, d, t_max, False),
+                                         bvh_walk.walk_plain(sa, st, o, d, t_max, False), quad)
+    bvh_walk.bvh_walk_cuda.launches -= 1  # a comparison launch, not the main path's
+    err = float((res_k[0] - res_p[0]).abs()[hit].max()) if bool(hit.any()) else 0.0
+    moving = sa.anim_gid[res_k[1].long().clamp(min=0)] > 0
+    bound_ms, bound_by, counts = _walk_bound("43 motion camera/closest", mr, o, d, t_max, tm, res_k)
+    counters = bvh_walk.bvh_walk_motion_cuda.counters[torch.device("cuda", 0)].tolist()
+    print(f"[43 motion walk] motion_room(248): {st.n_prims} prims, {sa.anim['q0'].shape[0]} groups, host compile "
+          f"{mr_compile_s:.1f}s; {o.shape[0]} camera rays at shutter fractions of dimension {R_.TIME_DIM}: rays "
+          f"differing from the twin (t, prim, pops, and b1, b2 on triangle hits) {bit}, max |dt| {err:.3e}; on the "
+          f"{int(quad.sum())} quadric hits b1, b2 (object-space x, y) within {quad_ulps} ulps (the static walk "
+          f"against its twin on the same rays: {static_ulps}); hits {float(hit.float().mean()):.4f}"
+          f", on moving prims {int((hit & moving).sum())}; kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms; pops/ray "
+          f"{float(res_k[4].double().mean()):.2f}; bound {bound_ms:.4f} ms ({bound_by}), kernel at "
+          f"{100 * bound_ms / k_ms:.2f}% of it; counters {counters}", flush=True)
+    if any(bit.values()) or quad_ulps > 2 or counters != [0, 0] or not bool((hit & moving).any()):
+        raise AssertionError("the motion walk and its twin disagree")
+    out["motion_walk"] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err, "rays_differing": bit,
+                          "quadric_xy_ulps": quad_ulps, "static_quadric_xy_ulps": static_ulps,
+                          "bound_ms": bound_ms, "bound_by": bound_by, "counts": counts, "host_compile_s": mr_compile_s}
+
+    seconds["43"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # --- 44. motion_room main path ---
+    timing, launches, _img = _wave_main_path("44 motion_room main path", mr, (bvh_walk.bvh_walk_motion_cuda,),
+                                             "torch-wave/bvh")
+    kern, bounces = _kernels_per_bounce(mr)
+    print(f"  device kernels per wave bounce {kern / bounces:.1f} ({kern} over {bounces} bounces of a 1 spp crop)",
+          flush=True)
+    out["motion_room"] = {"wall_s": timing["wall_s"], "vps": timing["n_vertices"] / timing["wall_s"],
+                          "launches": launches, "kernels_per_bounce": kern / bounces}
+
+    seconds["44"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # --- 45. the mesh room under the realistic camera (phase 3's tables) ---
+    lens = scenes.write_lens(str(work / scenes.LENS_FILE))
+    real = scenes.realistic_mesh_room(1, lens_dir=str(work)).camera
+    desc_r = dataclasses.replace(cs.description, camera=real)
+    assert isinstance(real, CameraConfig) and real.lens_file == lens
+    cs_r = _with_desc(cs, desc_r)
+    timing, launches, _img = _wave_main_path("45 realistic camera main path", cs_r, (wide_bvh.traverse_cuda,))
+    out["realistic_room"] = {"wall_s": timing["wall_s"], "vps": timing["n_vertices"] / timing["wall_s"],
+                             "launches": launches}
+
+    seconds["45"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # --- 46. BDPT on the mesh room (phase 3's tables) ---
+    desc_b = dataclasses.replace(cs.description, integrator=dataclasses.replace(cs.description.integrator,
+                                                                                kind="bdpt"))
+    cs_b = _with_desc(cs, desc_b)
+    spp_b = BDPT_SPP
+    timing, launches, img_b = _wave_main_path("46 bdpt main path", cs_b, (wide_bvh.traverse_cuda,),
+                                              "torch-bdpt/wide", spp_b)
+    ratio = float(img_b.mean() / mesh_img.mean())
+    print(f"  {timing['wall_s'] / spp_b:.4f} s per spp; image mean against phase 4's path image: ratio {ratio:.4f} "
+          f"(a reading: the reference's mesh-agreement band is 0.90-1.10, tools/fidelity.py :372-373)", flush=True)
+    out["bdpt_mesh"] = {"wall_s": timing["wall_s"], "vps": timing["n_vertices"] / timing["wall_s"],
+                        "s_per_spp": timing["wall_s"] / spp_b, "spp": spp_b, "launches": launches,
+                        "mean_ratio_to_path": ratio}
+
+    seconds["46"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # --- 47. crops on cuda and cpu; the keyframe motion; the front end ---
+    _check_crop("47 motion_room cuda-vs-cpu crop", mr, mr_host, mr.description, LATE_SPP[0])
+    _check_crop("47 realistic camera cuda-vs-cpu crop", cs_r, _with_desc(cs_host, desc_r), desc_r, LATE_SPP[0])
+    _check_crop("47 bdpt cuda-vs-cpu crop", cs_b, _with_desc(cs_host, desc_b), desc_b, LATE_SPP[0])
+    keyed_host = compile_scene(scenes.motion_room(16, rotate=False), "cpu")
+    if keyed_host.static.has_rot_motion or not keyed_host.static.has_motion:
+        raise AssertionError("motion_room(rotate=False) should take the keyframe tables")
+    _check_crop("47 motion_room(16, rotate=False) cuda-vs-cpu crop", keyed_host.to("cuda"), keyed_host,
+                keyed_host.description, LATE_SPP[1])
+    files = {}
+    for name, desc in (("motion_room", scenes.motion_room(8)),
+                       ("bdpt_room", dataclasses.replace(scenes.mesh_room(8), integrator=dataclasses.replace(
+                           scenes.mesh_room(8).integrator, kind="bdpt")))):
+        path = work / f"{name}.pbrt"
+        scenes.write_pbrt(desc, str(path), scenes.ROOM_LOOK_AT)
+        img_path = work / f"{name}.pfm"
+        res = subprocess.run([sys.executable, "-m", "pbrt_tpu_torch", str(path), "--quiet", "--seed", str(SEED),
+                              "--spp", "2", "--cropwindow", "0.3", "0.7", "0.3", "0.7", "--outfile", str(img_path)],
+                             cwd=str(Path(__file__).resolve().parent), capture_output=True, text=True, timeout=600)
+        from pbrt_tpu_torch.core.imageio import read_image
+
+        img = read_image(str(img_path)) if img_path.exists() else None
+        files[name] = {"exit": res.returncode, "mean": None if img is None else float(img.mean())}
+        print(f"[47 front end] python -m pbrt_tpu_torch {path.name}: exit {res.returncode}, image mean "
+              f"{files[name]['mean']}", flush=True)
+        if res.returncode != 0 or img is None or not (np.isfinite(img).all() and img.mean() > 0):
+            raise AssertionError(f"python -m pbrt_tpu_torch failed on {path.name}:\n{res.stderr[-2000:]}")
+    out["files"] = files
+    seconds["47"] = time.perf_counter() - t_phase
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2176,11 +2471,11 @@ def main() -> int:
     from pbrt_tpu_torch.device import bvh_walk, medium_track, megakernel, megakernel_wide, nvcc, wide_bvh
     from pbrt_tpu_torch.device.camera import make_camera
     from pbrt_tpu_torch.scene.builder import compile_scene
-    from pbrt_tpu_torch.scenes import material_room, mesh_room, spheres_gallery
+    from pbrt_tpu_torch.scenes import material_room, spheres_gallery
 
     # --- 2. build: every kernel, one nvcc each, all started together ---
-    nvcc.build_all([wide_bvh.KERNEL_SOURCE, wide_bvh.JOINT_SOURCE, megakernel.KERNEL_SOURCE,
-                    megakernel_wide.KERNEL_SOURCE, bvh_walk.KERNEL_SOURCE, medium_track.KERNEL_SOURCE])
+    _build_beside_host_compiles([wide_bvh.KERNEL_SOURCE, wide_bvh.JOINT_SOURCE, megakernel.KERNEL_SOURCE,
+                                 megakernel_wide.KERNEL_SOURCE, bvh_walk.KERNEL_SOURCE, medium_track.KERNEL_SOURCE])
     # resident blocks per SM of each kernel (cudaOccupancyMaxActiveBlocksPerMultiprocessor), per variant
     occupancy = (("wide_traverse_occupancy", [()]), ("wide_traverse_joint_occupancy", [()]),
                  ("brute_megakernel_occupancy", [(m,) for m in range(2 * megakernel.N_PLAIN_MODES)]),
@@ -2198,6 +2493,16 @@ def main() -> int:
     regs = "; ".join(sorted(set(re.findall(r"Used \d+ registers[^\n]*", info["log"])))) or "n/a"
     print(f"[2 build] {Path(info['path']).name} in {info['seconds']:.1f}s; ptxas: {regs}; blocks per SM (delta, "
           f"ratio) {[nvcc.occupancy(info['lib'].medium_track_occupancy, w, 2) for w in (0, 1)]}", flush=True)
+    # the walk kernels: the static instantiations (MOTION 0, whose reports
+    # equal the parent's) beside the motion ones (MOTION 1: keyframes, 2:
+    # the exact animated transform)
+    info = bvh_walk.build_kernel()
+    walk_rows = _ptxas_entries(info["log"])
+    print(f"[2 build] {Path(info['path']).name} in {info['seconds']:.1f}s; ptxas per entry (name, template, "
+          f"registers, spill stores/loads, stack frame): "
+          + ("; ".join(f"{r['kernel']}{r['template']} {r['registers']} regs, {r['spill_stores']}/"
+                       f"{r['spill_loads']} spill, {r['stack_frame']} stack" for r in walk_rows)
+             or "none: the library was built before this run (tools/ptxas_report.py --kernel bvh_walk)"), flush=True)
     group = wide_bvh.joint_group_width()
     print(f"[2 build] B2 walks a ray with {group} lanes, {32 // group} rays per warp", flush=True)
     b3_min_blocks = re.search(r"^#define MIN_BLOCKS (\d+)", megakernel.KERNEL_SOURCE.read_text(), re.MULTILINE)[1]
@@ -2206,9 +2511,7 @@ def main() -> int:
           flush=True)
 
     # --- 3. B1 kernel vs plain at the main path's shapes ---
-    t0 = time.perf_counter()
-    cs_host = compile_scene(mesh_room(248), "cpu")
-    host_s = time.perf_counter() - t0
+    cs_host, host_s = _host_scene("mesh_room")
     cs = cs_host.to("cuda")
     sa = cs.arrays
     tab_bytes = {n: getattr(sa, n).numel() * getattr(sa, n).element_size() for n in ("wnode_rec", "wleaf_rec")}
@@ -2530,7 +2833,16 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     print(f"[38-42 wave] in {time.perf_counter() - t_group:.1f}s: {json.dumps(wv)}", flush=True)
 
-    print(f"[timing] phases 1-42 in {time.perf_counter() - t_script:.1f}s", flush=True)
+    # --- 43-47. motion blur, the animated and realistic cameras, BDPT ---
+    t_group = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        mb = _unswitched(_motion_bdpt_phases, work, cs, cs_host, mesh_img)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[43-47 motion, realistic, bdpt] in {time.perf_counter() - t_group:.1f}s: {json.dumps(mb)}", flush=True)
+
+    print(f"[timing] phases 1-47 in {time.perf_counter() - t_script:.1f}s", flush=True)
     report = {"kernels": [
         {"name": "wide_traverse", "route": "cuda", "source": "pbrt_tpu_torch/csrc/wide_traverse.cu",
          "replaces": "pbrt_tpu/device/pallas_bvh.py:90", "launches": b1_launches, "max_abs_err": max_err,
@@ -2566,6 +2878,12 @@ def main() -> int:
          "bound_by": wv["medium_track"]["delta_track"]["bound_by"], "library_ms": None,
          "launches_by_entry": {k: wv["fog_room"]["launches"][k] for k in ("delta_track_cuda", "ratio_track_cuda")},
          "ratio_track": {k: wv["medium_track"]["ratio_track"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+        {"name": "bvh_walk_motion", "route": "cuda", "source": "pbrt_tpu_torch/csrc/bvh_walk.cu",
+         "replaces": "none (pbrt_tpu/device/intersect.py:487 _traverse with time, its leaf test :575-600, an XLA loop)",
+         "launches": mb["motion_room"]["launches"]["bvh_walk_motion_cuda"],
+         "max_abs_err": mb["motion_walk"]["max_abs_err"], "ms": mb["motion_walk"]["ms"],
+         "plain_ms": mb["motion_walk"]["plain_ms"], "bound_ms": mb["motion_walk"]["bound_ms"],
+         "bound_by": mb["motion_walk"]["bound_by"], "library_ms": None},
     ]}
     print(json.dumps(report))
     print(_smi())

@@ -41,6 +41,28 @@
 // marks the table rows the walk read (a node's box: bit 1, its offset and
 // count: bit 2, its axis: bit 4; a prim row tested; an instance used), so
 // that the bound counts the operations done and the bytes read.
+//
+// Motion blur: the MOTION template argument of both walks. MOTION 0 is the
+// static walk above. The motion instantiations take a per-ray shutter
+// fraction time in [0, 1] and move each candidate prim to it before its
+// test, as the reference's time-aware leaf test does (intersect.py
+// :575-600, _test_prims :326-354):
+// - MOTION 1 (keyframes): the prim row lerped toward its shutter-close row
+//   (ptd_end), plus the quadratic arc term through its mid-shutter row
+//   (ptd_mid) where the scene has one (_motion_quad :697); a triangle's 9
+//   vertex floats, a quadric's world-to-object (12);
+// - MOTION 2 (the exact animated transform, scenes whose shutter transform
+//   rotates): the prim's group (anim_gid) slerped at the ray's time with
+//   the nlerp below theta 0.0317, the rotation built, scale and translation
+//   lerped, M(dt) = T R S (device/motion.py eval_anim); a triangle's three
+//   shutter-open vertices go through M(dt) . C, a quadric's world-to-object
+//   is C . M(dt)^-1 (the adjugate inverse, |det| clamped at 1e-30), C the
+//   prim's anim_c. The identity group 0 goes through the same math, as the
+//   reference's does.
+// An instanced prim's ray is brought to instance space first. The motion
+// code runs in device/motion.py's order (the twin's), with sinf, sqrtf and
+// IEEE division; bvh_walk_motion, kd_walk_motion and
+// bvh_walk_motion_counted are its entries.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,6 +80,19 @@
 // v[i] for a runtime i in 0..2 without indexing a local array (which would
 // put the array in local memory)
 __device__ __forceinline__ float bw_pick(const float v[3], int i) { return i == 0 ? v[0] : (i == 1 ? v[1] : v[2]); }
+
+// The motion tables of a MOTION > 0 walk (unused by the static walk).
+struct BwMotion {
+    const float* time;     // (R,) shutter fraction per ray
+    const float* ptd_end;  // (P, cols) shutter-close rows (MOTION 1)
+    const float* ptd_mid;  // (P, cols) mid-shutter rows, or null (MOTION 1)
+    const float* anim;     // (G, BW_ANIM_COLS) group rows (MOTION 2): q0, q1, t0, t1, s0, s1, theta
+    const int* anim_gid;   // (P,) group per prim (MOTION 2)
+    const float* anim_c;   // (P, 12) compose constant per prim (MOTION 2)
+};
+
+// the columns of a group row (device/bvh_walk.py anim_records)
+#define BW_ANIM_COLS 36
 
 struct BwRay {
     float o[3], d[3];
@@ -110,12 +145,80 @@ __device__ __forceinline__ bool bw_tri(const BwRay& r, const float* v, float t_m
     return t > BW_EPS && t < t_max;
 }
 
+// r = a . b of two 3x3 (row-major) matrices, each entry (a_i0 b_0j +
+// a_i1 b_1j) + a_i2 b_2j (motion._mat3); stride: b's and r's row stride
+__device__ __forceinline__ void bw_mat3(const float* a, int sa, const float* b, int sb, float* r, int sr) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+            r[sr * i + j] = (a[sa * i] * b[j] + a[sa * i + 1] * b[sb + j]) + a[sa * i + 2] * b[2 * sb + j];
+}
+
+// M(dt) (3x4, row-major) of a group row g at shutter fraction dt
+// (motion.eval_anim)
+__device__ __forceinline__ void bw_anim_matrix(const float* __restrict__ g, float dt, float m[12]) {
+    float gr[BW_ANIM_COLS];
+#pragma unroll
+    for (int i = 0; i < 33; ++i) gr[i] = __ldg(g + i);
+    const float theta = gr[32];
+    const bool near = theta < 0.0317f;
+    const float st = sinf(near ? 1.0f : theta);
+    const float w0 = near ? 1.0f - dt : sinf((1.0f - dt) * theta) / st;
+    const float w1 = near ? dt : sinf(dt * theta) / st;
+    float q[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q[i] = w0 * gr[i] + w1 * gr[4 + i];
+    const float n2 = ((q[0] * q[0] + q[1] * q[1]) + q[2] * q[2]) + q[3] * q[3];
+    const float nrm = fmaxf(sqrtf(n2), 1e-12f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q[i] = q[i] / nrm;
+    const float w = q[0], x = q[1], y = q[2], z = q[3];
+    const float xx = x * x, yy = y * y, zz = z * z, xy = x * y, xz = x * z, yz = y * z;
+    const float wx = w * x, wy = w * y, wz = w * z;
+    const float rot[9] = {1.0f - 2.0f * (yy + zz), 2.0f * (xy - wz), 2.0f * (xz + wy),
+                          2.0f * (xy + wz), 1.0f - 2.0f * (xx + zz), 2.0f * (yz - wx),
+                          2.0f * (xz - wy), 2.0f * (yz + wx), 1.0f - 2.0f * (xx + yy)};
+    float sc[9];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) sc[i] = (1.0f - dt) * gr[14 + i] + dt * gr[23 + i];
+    bw_mat3(rot, 3, sc, 3, m, 4);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) m[4 * i + 3] = (1.0f - dt) * gr[8 + i] + dt * gr[11 + i];
+}
+
+// a . b as 3x4 affine transforms, b applied first (motion._compose)
+__device__ __forceinline__ void bw_compose(const float a[12], const float b[12], float r[12]) {
+    bw_mat3(a, 4, b, 4, r, 4);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+        r[4 * i + 3] = ((a[4 * i] * b[3] + a[4 * i + 1] * b[7]) + a[4 * i + 2] * b[11]) + a[4 * i + 3];
+}
+
+// the inverse of a 3x4 affine transform by the adjugate (motion._affine_inverse)
+__device__ __forceinline__ void bw_affine_inverse(const float m[12], float r[12]) {
+    // the columns a0, a1, a2 of the linear part
+    const float a0[3] = {m[0], m[4], m[8]}, a1[3] = {m[1], m[5], m[9]}, a2[3] = {m[2], m[6], m[10]};
+    const float c[9] = {a1[1] * a2[2] - a1[2] * a2[1], a1[2] * a2[0] - a1[0] * a2[2], a1[0] * a2[1] - a1[1] * a2[0],
+                        a2[1] * a0[2] - a2[2] * a0[1], a2[2] * a0[0] - a2[0] * a0[2], a2[0] * a0[1] - a2[1] * a0[0],
+                        a0[1] * a1[2] - a0[2] * a1[1], a0[2] * a1[0] - a0[0] * a1[2], a0[0] * a1[1] - a0[1] * a1[0]};
+    float det = (a0[0] * c[0] + a0[1] * c[1]) + a0[2] * c[2];
+    det = fabsf(det) < 1e-30f ? 1e-30f : det;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) r[4 * (i / 3) + i % 3] = c[i] / det;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+        r[4 * i + 3] = -((r[4 * i] * m[3] + r[4 * i + 1] * m[7]) + r[4 * i + 2] * m[11]);
+}
+
 // One prim of a leaf against the ray, at the leaf's t_best: the instanced
-// ray for a nonzero instance, then the triangle or quadric test.
+// ray for a nonzero instance, the prim moved to the ray's time (MOTION > 0),
+// then the triangle or quadric test.
+template <int MOTION>
 __device__ __forceinline__ bool bw_prim(const BwRay& r, int pid, const float* __restrict__ ptd, int cols,
                                         const int* __restrict__ prim_kind, const int* __restrict__ prim_inst,
                                         const float* __restrict__ inst_w2i, float t_max, float& t, float& b1,
-                                        float& b2) {
+                                        float& b2, const BwMotion& mo, float dt) {
     const float* row = ptd + (size_t)pid * cols;
     const int iid = prim_inst ? __ldg(prim_inst + pid) : 0;
     BwRay ri;
@@ -132,15 +235,68 @@ __device__ __forceinline__ bool bw_prim(const BwRay& r, int pid, const float* __
         bw_setup(ri, o, d);
         rr = &ri;
     }
+    float g[12];
+    if (MOTION == 2) {
+        float m[12], c[12];
+        bw_anim_matrix(mo.anim + (size_t)__ldg(mo.anim_gid + pid) * BW_ANIM_COLS, dt, m);
+#pragma unroll
+        for (int i = 0; i < 12; ++i) c[i] = __ldg(mo.anim_c + (size_t)pid * 12 + i);
+        if (__ldg(prim_kind + pid) == 0) {
+            bw_compose(m, c, g);
+        } else {
+            float mi[12];
+            bw_affine_inverse(m, mi);
+            bw_compose(c, mi, g);
+        }
+    }
     if (__ldg(prim_kind + pid) == 0) {
         float v[9];
 #pragma unroll
         for (int i = 0; i < 9; ++i) v[i] = __ldg(row + i);
+        if (MOTION == 1) {
+            const float* re = mo.ptd_end + (size_t)pid * cols;
+#pragma unroll
+            for (int i = 0; i < 9; ++i) v[i] = v[i] + dt * (__ldg(re + i) - v[i]);
+            if (mo.ptd_mid) {
+                const float* rm = mo.ptd_mid + (size_t)pid * cols;
+#pragma unroll
+                for (int i = 0; i < 9; ++i) {
+                    const float b = __ldg(row + i);
+                    v[i] = v[i] + (dt * (1.0f - dt)) * ((4.0f * __ldg(rm + i) - 2.0f * b) - 2.0f * __ldg(re + i));
+                }
+            }
+        } else if (MOTION == 2) {
+            float p[9];
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+#pragma unroll
+                for (int i = 0; i < 3; ++i)
+                    p[3 * k + i] = ((g[4 * i] * v[3 * k] + g[4 * i + 1] * v[3 * k + 1]) + g[4 * i + 2] * v[3 * k + 2]) +
+                                   g[4 * i + 3];
+#pragma unroll
+            for (int i = 0; i < 9; ++i) v[i] = p[i];
+        }
         return bw_tri(*rr, v, t_max, t, b1, b2);
     }
     float w2o[12], par[12];
 #pragma unroll
     for (int i = 0; i < 12; ++i) w2o[i] = __ldg(row + i);
+    if (MOTION == 1) {
+        const float* re = mo.ptd_end + (size_t)pid * cols;
+#pragma unroll
+        for (int i = 0; i < 12; ++i) w2o[i] = w2o[i] + dt * (__ldg(re + i) - w2o[i]);
+        if (mo.ptd_mid) {
+            const float* rm = mo.ptd_mid + (size_t)pid * cols;
+#pragma unroll
+            for (int i = 0; i < 12; ++i) {
+                const float b = __ldg(row + i);
+                w2o[i] = w2o[i] + (dt * (1.0f - dt)) * ((4.0f * __ldg(rm + i) - 2.0f * b) - 2.0f * __ldg(re + i));
+            }
+        }
+    } else if (MOTION == 2) {
+#pragma unroll
+        for (int i = 0; i < 12; ++i) w2o[i] = g[i];
+    }
 #pragma unroll
     for (int i = 0; i < 6; ++i) par[i] = __ldg(row + 12 + i);
     const bool twisted = cols >= 25;
@@ -156,7 +312,7 @@ __device__ __forceinline__ float bw_inv(float x) {
     return 1.0f / (fabsf(x) < 1e-30f ? (x < 0.0f ? -1e-30f : 1e-30f) : x);
 }
 
-template <bool COUNT>
+template <bool COUNT, int MOTION>
 __global__ void __launch_bounds__(THREADS)
 bvh_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, const float* __restrict__ t_max_in,
                 int n_rays, const float* __restrict__ nodes, const float* __restrict__ ptd, int cols,
@@ -164,10 +320,11 @@ bvh_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, 
                 const float* __restrict__ inst_w2i, int max_leaf, int any_hit, float* __restrict__ out_t,
                 int* __restrict__ out_prim, float* __restrict__ out_b1, float* __restrict__ out_b2,
                 int* __restrict__ out_pops, unsigned int* __restrict__ counters, int* __restrict__ out_tests,
-                int* __restrict__ seen_nodes, int* __restrict__ seen_prims, int* __restrict__ seen_inst) {
+                int* __restrict__ seen_nodes, int* __restrict__ seen_prims, int* __restrict__ seen_inst, BwMotion mo) {
     const int ray = blockIdx.x * blockDim.x + threadIdx.x;
     if (ray >= n_rays) return;
     (void)max_leaf;
+    const float dt = MOTION ? mo.time[ray] : 0.0f;
     const float o[3] = {o_in[3 * ray], o_in[3 * ray + 1], o_in[3 * ray + 2]};
     const float d[3] = {d_in[3 * ray], d_in[3 * ray + 1], d_in[3 * ray + 2]};
     const float inv[3] = {bw_inv(d[0]), bw_inv(d[1]), bw_inv(d[2])};
@@ -214,7 +371,8 @@ bvh_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, 
                         seen_inst[iid] = 1;
                     }
                 }
-                if (bw_prim(r, off + k, ptd, cols, prim_kind, prim_inst, inst_w2i, t_best, t, c1, c2) && t < tmin) {
+                if (bw_prim<MOTION>(r, off + k, ptd, cols, prim_kind, prim_inst, inst_w2i, t_best, t, c1, c2, mo, dt) &&
+                    t < tmin) {
                     tmin = t;
                     w1 = c1;
                     w2 = c2;
@@ -253,6 +411,7 @@ bvh_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, 
     }
 }
 
+template <int MOTION>
 __global__ void __launch_bounds__(THREADS)
 kd_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, const float* __restrict__ t_max_in,
                int n_rays, const int* __restrict__ kd_flags, const float* __restrict__ kd_split,
@@ -260,9 +419,11 @@ kd_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, c
                const int* __restrict__ kd_prim_ids, const float* __restrict__ kd_lo, const float* __restrict__ kd_hi,
                const float* __restrict__ ptd, int cols, const int* __restrict__ prim_kind, int any_hit,
                float* __restrict__ out_t, int* __restrict__ out_prim, float* __restrict__ out_b1,
-               float* __restrict__ out_b2, int* __restrict__ out_pops, unsigned int* __restrict__ counters) {
+               float* __restrict__ out_b2, int* __restrict__ out_pops, unsigned int* __restrict__ counters,
+               BwMotion mo) {
     const int ray = blockIdx.x * blockDim.x + threadIdx.x;
     if (ray >= n_rays) return;
+    const float dt = MOTION ? mo.time[ray] : 0.0f;
     const float o[3] = {o_in[3 * ray], o_in[3 * ray + 1], o_in[3 * ray + 2]};
     const float d[3] = {d_in[3 * ray], d_in[3 * ray + 1], d_in[3 * ray + 2]};
     const float inv[3] = {bw_inv(d[0]), bw_inv(d[1]), bw_inv(d[2])};
@@ -328,7 +489,7 @@ kd_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, c
         for (int k = 0; k < n; ++k) {
             const int pid = __ldg(kd_prim_ids + off + k);
             float t, c1, c2;
-            if (bw_prim(r, pid, ptd, cols, prim_kind, nullptr, nullptr, t_best, t, c1, c2) && t < tl) {
+            if (bw_prim<MOTION>(r, pid, ptd, cols, prim_kind, nullptr, nullptr, t_best, t, c1, c2, mo, dt) && t < tl) {
                 tl = t;
                 w1 = c1;
                 w2 = c2;
@@ -355,19 +516,43 @@ kd_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, c
     out_pops[ray] = pops;
 }
 
-template <bool COUNT>
+static BwMotion bw_motion(const void* time, const void* ptd_end, const void* ptd_mid, const void* anim,
+                          const void* anim_gid, const void* anim_c) {
+    return BwMotion{(const float*)time, (const float*)ptd_end, (const float*)ptd_mid, (const float*)anim,
+                    (const int*)anim_gid, (const float*)anim_c};
+}
+
+template <bool COUNT, int MOTION>
 static int launch_bvh(const void* o, const void* d, const void* t_max, int n_rays, const void* nodes, const void* ptd,
                       int cols, const void* prim_kind, const void* prim_inst, const void* inst_w2i, int max_leaf,
                       int any_hit, void* out_t, void* out_prim, void* out_b1, void* out_b2, void* out_pops,
                       void* counters, void* stream, void* out_tests, void* seen_nodes, void* seen_prims,
-                      void* seen_inst) {
+                      void* seen_inst, BwMotion mo) {
     if (n_rays > 0) {
         const int blocks = (n_rays + THREADS - 1) / THREADS;
-        bvh_walk_kernel<COUNT><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        bvh_walk_kernel<COUNT, MOTION><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
             (const float*)o, (const float*)d, (const float*)t_max, n_rays, (const float*)nodes, (const float*)ptd, cols,
             (const int*)prim_kind, (const int*)prim_inst, (const float*)inst_w2i, max_leaf, any_hit, (float*)out_t,
             (int*)out_prim, (float*)out_b1, (float*)out_b2, (int*)out_pops, (unsigned int*)counters, (int*)out_tests,
-            (int*)seen_nodes, (int*)seen_prims, (int*)seen_inst);
+            (int*)seen_nodes, (int*)seen_prims, (int*)seen_inst, mo);
+    }
+    return (int)cudaGetLastError();
+}
+
+template <int MOTION>
+static int launch_kd(const void* o, const void* d, const void* t_max, int n_rays, const void* kd_flags,
+                     const void* kd_split, const void* kd_above, const void* kd_nprims, const void* kd_prim_ids,
+                     const void* kd_lo, const void* kd_hi, const void* ptd, int cols, const void* prim_kind,
+                     int any_hit, void* out_t, void* out_prim, void* out_b1, void* out_b2, void* out_pops,
+                     void* counters, void* stream, BwMotion mo) {
+    if (n_rays > 0) {
+        const int blocks = (n_rays + THREADS - 1) / THREADS;
+        kd_walk_kernel<MOTION><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+            (const float*)o, (const float*)d, (const float*)t_max, n_rays, (const int*)kd_flags,
+            (const float*)kd_split, (const int*)kd_above, (const int*)kd_nprims, (const int*)kd_prim_ids,
+            (const float*)kd_lo, (const float*)kd_hi, (const float*)ptd, cols, (const int*)prim_kind, any_hit,
+            (float*)out_t, (int*)out_prim, (float*)out_b1, (float*)out_b2, (int*)out_pops, (unsigned int*)counters,
+            mo);
     }
     return (int)cudaGetLastError();
 }
@@ -376,9 +561,9 @@ extern "C" int bvh_walk(const void* o, const void* d, const void* t_max, int n_r
                         const void* ptd, int cols, const void* prim_kind, const void* prim_inst, const void* inst_w2i,
                         int max_leaf, int any_hit, void* out_t, void* out_prim, void* out_b1, void* out_b2,
                         void* out_pops, void* counters, void* stream) {
-    return launch_bvh<false>(o, d, t_max, n_rays, nodes, ptd, cols, prim_kind, prim_inst, inst_w2i, max_leaf, any_hit,
-                             out_t, out_prim, out_b1, out_b2, out_pops, counters, stream, nullptr, nullptr, nullptr,
-                             nullptr);
+    return launch_bvh<false, 0>(o, d, t_max, n_rays, nodes, ptd, cols, prim_kind, prim_inst, inst_w2i, max_leaf,
+                                any_hit, out_t, out_prim, out_b1, out_b2, out_pops, counters, stream, nullptr, nullptr,
+                                nullptr, nullptr, BwMotion{});
 }
 
 extern "C" int bvh_walk_counted(const void* o, const void* d, const void* t_max, int n_rays, const void* nodes,
@@ -386,9 +571,49 @@ extern "C" int bvh_walk_counted(const void* o, const void* d, const void* t_max,
                                 const void* inst_w2i, int max_leaf, int any_hit, void* out_t, void* out_prim,
                                 void* out_b1, void* out_b2, void* out_pops, void* counters, void* stream,
                                 void* out_tests, void* seen_nodes, void* seen_prims, void* seen_inst) {
-    return launch_bvh<true>(o, d, t_max, n_rays, nodes, ptd, cols, prim_kind, prim_inst, inst_w2i, max_leaf, any_hit,
-                            out_t, out_prim, out_b1, out_b2, out_pops, counters, stream, out_tests, seen_nodes,
-                            seen_prims, seen_inst);
+    return launch_bvh<true, 0>(o, d, t_max, n_rays, nodes, ptd, cols, prim_kind, prim_inst, inst_w2i, max_leaf,
+                               any_hit, out_t, out_prim, out_b1, out_b2, out_pops, counters, stream, out_tests,
+                               seen_nodes, seen_prims, seen_inst, BwMotion{});
+}
+
+// The motion walks: bvh_walk's and bvh_walk_counted's arguments, then motion
+// (1 keyframes, 2 the exact animated transform), the per-ray time and the
+// motion tables (ptd_mid may be null; the tables a MOTION does not read may
+// be null).
+extern "C" int bvh_walk_motion(const void* o, const void* d, const void* t_max, int n_rays, const void* nodes,
+                               const void* ptd, int cols, const void* prim_kind, const void* prim_inst,
+                               const void* inst_w2i, int max_leaf, int any_hit, void* out_t, void* out_prim,
+                               void* out_b1, void* out_b2, void* out_pops, void* counters, void* stream, int motion,
+                               const void* time, const void* ptd_end, const void* ptd_mid, const void* anim,
+                               const void* anim_gid, const void* anim_c) {
+    const BwMotion mo = bw_motion(time, ptd_end, ptd_mid, anim, anim_gid, anim_c);
+#define BW_CALL(M)                                                                                                  \
+    launch_bvh<false, M>(o, d, t_max, n_rays, nodes, ptd, cols, prim_kind, prim_inst, inst_w2i, max_leaf, any_hit, \
+                         out_t, out_prim, out_b1, out_b2, out_pops, counters, stream, nullptr, nullptr, nullptr,    \
+                         nullptr, mo)
+    if (motion == 1) return BW_CALL(1);
+    if (motion == 2) return BW_CALL(2);
+#undef BW_CALL
+    return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int bvh_walk_motion_counted(const void* o, const void* d, const void* t_max, int n_rays,
+                                       const void* nodes, const void* ptd, int cols, const void* prim_kind,
+                                       const void* prim_inst, const void* inst_w2i, int max_leaf, int any_hit,
+                                       void* out_t, void* out_prim, void* out_b1, void* out_b2, void* out_pops,
+                                       void* counters, void* stream, int motion, const void* time,
+                                       const void* ptd_end, const void* ptd_mid, const void* anim,
+                                       const void* anim_gid, const void* anim_c, void* out_tests, void* seen_nodes,
+                                       void* seen_prims, void* seen_inst) {
+    const BwMotion mo = bw_motion(time, ptd_end, ptd_mid, anim, anim_gid, anim_c);
+#define BW_CALL(M)                                                                                                  \
+    launch_bvh<true, M>(o, d, t_max, n_rays, nodes, ptd, cols, prim_kind, prim_inst, inst_w2i, max_leaf, any_hit,  \
+                        out_t, out_prim, out_b1, out_b2, out_pops, counters, stream, out_tests, seen_nodes,         \
+                        seen_prims, seen_inst, mo)
+    if (motion == 1) return BW_CALL(1);
+    if (motion == 2) return BW_CALL(2);
+#undef BW_CALL
+    return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int kd_walk(const void* o, const void* d, const void* t_max, int n_rays, const void* kd_flags,
@@ -396,22 +621,35 @@ extern "C" int kd_walk(const void* o, const void* d, const void* t_max, int n_ra
                        const void* kd_lo, const void* kd_hi, const void* ptd, int cols, const void* prim_kind,
                        int any_hit, void* out_t, void* out_prim, void* out_b1, void* out_b2, void* out_pops,
                        void* counters, void* stream) {
-    if (n_rays > 0) {
-        const int blocks = (n_rays + THREADS - 1) / THREADS;
-        kd_walk_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-            (const float*)o, (const float*)d, (const float*)t_max, n_rays, (const int*)kd_flags,
-            (const float*)kd_split, (const int*)kd_above, (const int*)kd_nprims, (const int*)kd_prim_ids,
-            (const float*)kd_lo, (const float*)kd_hi, (const float*)ptd, cols, (const int*)prim_kind, any_hit,
-            (float*)out_t, (int*)out_prim, (float*)out_b1, (float*)out_b2, (int*)out_pops, (unsigned int*)counters);
-    }
-    return (int)cudaGetLastError();
+    return launch_kd<0>(o, d, t_max, n_rays, kd_flags, kd_split, kd_above, kd_nprims, kd_prim_ids, kd_lo, kd_hi, ptd,
+                        cols, prim_kind, any_hit, out_t, out_prim, out_b1, out_b2, out_pops, counters, stream,
+                        BwMotion{});
+}
+
+// kd_walk's arguments, then motion, the per-ray time and the motion tables
+// (bvh_walk_motion's)
+extern "C" int kd_walk_motion(const void* o, const void* d, const void* t_max, int n_rays, const void* kd_flags,
+                              const void* kd_split, const void* kd_above, const void* kd_nprims,
+                              const void* kd_prim_ids, const void* kd_lo, const void* kd_hi, const void* ptd, int cols,
+                              const void* prim_kind, int any_hit, void* out_t, void* out_prim, void* out_b1,
+                              void* out_b2, void* out_pops, void* counters, void* stream, int motion,
+                              const void* time, const void* ptd_end, const void* ptd_mid, const void* anim,
+                              const void* anim_gid, const void* anim_c) {
+    const BwMotion mo = bw_motion(time, ptd_end, ptd_mid, anim, anim_gid, anim_c);
+#define BW_CALL(M)                                                                                                  \
+    launch_kd<M>(o, d, t_max, n_rays, kd_flags, kd_split, kd_above, kd_nprims, kd_prim_ids, kd_lo, kd_hi, ptd, cols, \
+                 prim_kind, any_hit, out_t, out_prim, out_b1, out_b2, out_pops, counters, stream, mo)
+    if (motion == 1) return BW_CALL(1);
+    if (motion == 2) return BW_CALL(2);
+#undef BW_CALL
+    return (int)cudaErrorInvalidValue;
 }
 
 // Resident blocks of THREADS threads per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 extern "C" int bvh_walk_occupancy(int* blocks_per_sm) {
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, bvh_walk_kernel<false>, THREADS, 0);
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, bvh_walk_kernel<false, 0>, THREADS, 0);
 }
 
 extern "C" int kd_walk_occupancy(int* blocks_per_sm) {
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kd_walk_kernel, THREADS, 0);
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kd_walk_kernel<0>, THREADS, 0);
 }

@@ -8,8 +8,12 @@ LOBE_LAMBERT_T, LOBE_OREN_NAYAR, LOBE_MICRO_R and LOBE_MICRO_T
 LOBE_SPEC_R, LOBE_SPEC_T, LOBE_FRESNEL_SPEC, LOBE_FRESNEL_BLEND (substrate),
 LOBE_DISNEY_DIFF and LOBE_CLEARCOAT (disney), LOBE_FOURIER (device/fourier.py)
 LOBE_HAIR (device/hair.py) and LOBE_SSS_ADAPTER (the tabulated BSSRDF's
-exit-point lobe, device/bssrdf.py), in radiance transport. Importance
-transport is not ported.
+exit-point lobe, device/bssrdf.py), in radiance transport or, with
+``mode="importance"`` (BDPT's light subpaths), in importance transport:
+the specular and microfacet transmissions, the Fourier lobe and the
+adapter then leave out their eta factors (reflection.rs:703, :777, :1087,
+:1308; bssrdf.rs:593-600), and ``correct_shading_normal`` is the adjoint
+shading-normal factor the callers apply.
 
 A lobe set is {"kind": (R, S) int, "data": (R, S, 14) float32, "possible":
 S frozensets, "has_beckmann" and "has_schlick": bool (some lobe may use
@@ -357,10 +361,14 @@ def micro_pdf_wh(kind, data, wo, wh, ax, ay, beck: bool):
 # ---------------------------------------------------------------------------
 
 
-def _lobe_f(kind, data, wo, wi, possible, beck, schlick=False, fourier=None):
+def _lobe_f(kind, data, wo, wi, possible, beck, schlick=False, fourier=None, mode: str = "radiance"):
     """f of one slot's non-specular lobe (0 for the specular kinds); lanes
     without a lobe are the caller's to mask. schlick: a disney row is
-    present (Fresnel kind 3); fourier: the scene's stacked tables."""
+    present (Fresnel kind 3); fourier: the scene's stacked tables; mode:
+    the transport mode, "radiance" or "importance" (reference :355-430):
+    radiance transport carries the non-symmetric eta factors of the
+    microfacet transmission, the Fourier lobe and the BSSRDF adapter,
+    importance (adjoint) transport omits them."""
     color = data[..., 0:3]
     out = 0.0
 
@@ -382,7 +390,9 @@ def _lobe_f(kind, data, wo, wi, possible, beck, schlick=False, fourier=None):
         from .bssrdf import sw_factor
 
         eta_a = torch.clamp(data[..., 3], min=_ETA_MIN)
-        f_sw = sw_factor(eta_a, cos_theta(wi)) * eta_a * eta_a
+        f_sw = sw_factor(eta_a, cos_theta(wi))
+        if mode == "radiance":
+            f_sw = f_sw * eta_a * eta_a
         put({LOBE_SSS_ADAPTER}, same_hemisphere(wo, wi), f_sw[..., None] * torch.ones_like(color))
     if LOBE_OREN_NAYAR in possible:
         si = torch.sqrt(torch.clamp(1.0 - wi[..., 2] * wi[..., 2], min=0.0))
@@ -422,8 +432,8 @@ def _lobe_f(kind, data, wo, wi, possible, beck, schlick=False, fourier=None):
         d_t = micro_d(kind, data, wh_t, ax, ay, beck)
         g_t = micro_g(kind, data, wo, wi, ax, ay, beck)
         # radiance transport: (1/eta_t)^2 against the eta_t^2 Jacobian term
-        # (reflection.rs:1086-1089)
-        factor2 = 1.0 / (eta_t * eta_t)
+        # (reflection.rs:1086-1089); importance transport keeps the bare eta_t^2
+        factor2 = 1.0 / (eta_t * eta_t) if mode == "radiance" else torch.ones_like(eta_t)
         f_mt = (1.0 - fr_t) * (d_t * g_t * eta_t * eta_t * factor2 * i_h.abs() * o_h.abs()
                                / torch.clamp(abs_ci * abs_co * sqrt_denom * sqrt_denom, min=1e-12)).abs()
         put({LOBE_MICRO_T}, ~refl_hemi & ~(o_h * i_h > 0) & (abs_ci > 0) & (abs_co > 0), color * f_mt[..., None])
@@ -455,7 +465,7 @@ def _lobe_f(kind, data, wo, wi, possible, beck, schlick=False, fourier=None):
         from .fourier import fourier_f
 
         put({LOBE_FOURIER}, None, _on_fourier_lanes(kind, torch.zeros_like(wo), lambda i: fourier_f(
-            fourier, data[i, 12].to(torch.int64), wo[i], wi[i])))
+            fourier, data[i, 12].to(torch.int64), wo[i], wi[i], mode)))
     if LOBE_HAIR in possible:
         from .hair import hair_f
 
@@ -580,13 +590,22 @@ def _check(lobes):
 # ---------------------------------------------------------------------------
 
 
+def correct_shading_normal(ns, ng, wo, wi):
+    """The adjoint BSDF's shading-normal correction of importance transport,
+    |wo.ns| |wi.ng| / (|wo.ng| |wi.ns|), 0 where the denominator vanishes
+    (bdpt.rs:45-57; reference :54). All vectors in world space."""
+    num = dot(wo, ns).abs() * dot(wi, ng).abs()
+    denom = dot(wo, ng).abs() * dot(wi, ns).abs()
+    return torch.where(denom > 1e-12, num / torch.clamp(denom, min=1e-12), 0.0)
+
+
 def _is_specular(kind):
     return (kind == LOBE_SPEC_R) | (kind == LOBE_SPEC_T) | (kind == LOBE_FRESNEL_SPEC)
 
 
-def bsdf_f(lobes, wo, wi, refl):
+def bsdf_f(lobes, wo, wi, refl, mode: str = "radiance"):
     """Sum of the non-specular lobes' f that match the reflect/transmit
-    geometry bit."""
+    geometry bit, in transport mode `mode` (_lobe_f)."""
     _check(lobes)
     kinds = lobes["kind"]
     beck = bool(lobes.get("has_beckmann", False))
@@ -600,7 +619,7 @@ def bsdf_f(lobes, wo, wi, refl):
         if poss & SPECULAR_KINDS:
             match = match & ~_is_specular(k)
         term = torch.where(match[:, None], _lobe_f(k, lobes["data"][:, s], wo, wi, poss, beck, schlick,
-                                                   lobes.get("fourier")), 0.0)
+                                                   lobes.get("fourier"), mode), 0.0)
         total = term if total is None else total + term
     return torch.zeros_like(wo) if total is None else total
 
@@ -638,10 +657,13 @@ def all_possible(lobes) -> frozenset:
     return frozenset().union(*lobes["possible"])
 
 
-def bsdf_sample(lobes, wo, u_lobe, u1, u2):
+def bsdf_sample(lobes, wo, u_lobe, u1, u2, mode: str = "radiance"):
     """Sample the BSDF: choose an active lobe uniformly, sample it, combine
     (reflection.rs BSDF::sample_f :1583-1669). For a non-specular chosen
-    lobe, f and pdf are recomputed over every lobe.
+    lobe, f and pdf are recomputed over every lobe. mode: the transport
+    mode; importance transport omits the (eta_i / eta_t)^2 of the specular
+    transmissions (reflection.rs:703,777) and _lobe_f's eta factors, and
+    its callers apply correct_shading_normal themselves.
 
     Returns dict {wi, f, pdf, specular, valid, eta_scale, abs_cos}."""
     _check(lobes)
@@ -738,7 +760,7 @@ def bsdf_sample(lobes, wo, u_lobe, u1, u2):
         fs_valid = torch.zeros_like(valid)
 
         def sample(i):
-            fs = fourier_sample(lobes["fourier"], dat[i, 12].to(torch.int64), wo[i], u1[i], u2[i])
+            fs = fourier_sample(lobes["fourier"], dat[i, 12].to(torch.int64), wo[i], u1[i], u2[i], mode)
             fs_valid[i] = fs["valid"]
             return fs["wi"]
 
@@ -770,7 +792,8 @@ def bsdf_sample(lobes, wo, u_lobe, u1, u2):
             f_spec = torch.where(m[:, None], color * lobe_fresnel(dat, cos_theta(wo)) / ci[:, None], f_spec)
             pdf_spec = torch.where(m, 1.0, pdf_spec)
         if union & {LOBE_SPEC_T, LOBE_FRESNEL_SPEC}:
-            st_scale = eta_ratio * eta_ratio  # (eta_i / eta_t)^2, radiance transport (reflection.rs:703,777)
+            # (eta_i / eta_t)^2, radiance transport only (reflection.rs:703,777)
+            st_scale = eta_ratio * eta_ratio if mode == "radiance" else torch.ones_like(eta_ratio)
         if LOBE_SPEC_T in union:
             m = k == LOBE_SPEC_T
             fr_d = fresnel_dielectric(cos_theta(wo), 1.0, eta)
@@ -792,7 +815,7 @@ def bsdf_sample(lobes, wo, u_lobe, u1, u2):
         specular = torch.zeros_like(valid)
     # the non-specular lobes: f and pdf over every lobe
     if union - SPECULAR_KINDS:
-        f = bsdf_f(lobes, wo, wi, same_hemisphere(wo, wi))
+        f = bsdf_f(lobes, wo, wi, same_hemisphere(wo, wi), mode)
         pdf = bsdf_pdf(lobes, wo, wi)
         if union & SPECULAR_KINDS:
             f = torch.where(specular[:, None], f_spec, f)

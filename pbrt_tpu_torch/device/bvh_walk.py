@@ -31,6 +31,18 @@ reference's queries (tests/test_torch_bvh_walk.py). The reference's kd
 packet walk drops the near child when every ray of a packet moves away
 from the split plane (ROADMAP C); the per-ray walk here is pbrt's.
 
+Motion blur: a scene with moving prims (``static.has_motion``) and a
+per-ray shutter fraction ``time`` walks the same trees with each candidate
+prim moved to the ray's time before its test (the reference's time-aware
+leaf test, intersect.py :575-600; its kd loop through ``_test_prims``
+:326-354): the keyframe rows lerped (``prim_test_data_end``, ``_mid``), or,
+in a scene whose shutter transform rotates, the exact animated transform of
+the prim's group (device/motion.py). The BVH was built over the swept
+bounds, so the walk itself is unchanged. ``bvh_walk_motion_cuda`` and
+``kd_walk_motion_cuda`` launch the kernel's motion instantiations (entries
+bvh_walk_motion, kd_walk_motion); ``walk_plain`` and ``kd_walk_plain`` take
+the time too.
+
 ``walk_intersect`` launches a kernel for CUDA tensors and runs a twin only
 for CPU tensors; a build or launch failure raises. The kernel is compiled
 with nvcc at its first launch (device/nvcc.py) and loaded with ctypes.
@@ -44,7 +56,9 @@ import torch
 
 from . import nvcc
 from .affine import xf_point, xf_vector
+from .motion import motion_matrices, motion_quad, xform_point
 from .prims import ray_quadric, ray_triangle
+from ..scene.arrays import ANIM_REC_COLS
 from .wide_bvh import SORT_MIN_RAYS, coherence_keys
 
 STACK = 64  # node entries per ray (intersect.STACK_DEPTH)
@@ -61,6 +75,17 @@ _BVH_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2 
 # counters, stream
 _KD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int]
                 + [ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 7)
+# the motion entries' extra arguments: motion, time, ptd_end, ptd_mid, anim
+# rows, anim_gid, anim_c
+_MOTION_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6
+
+
+def motion_kind(static) -> int:
+    """The walk's MOTION: 0 static, 1 keyframe rows, 2 the exact animated
+    transform (a scene whose shutter transform rotates)."""
+    if not static.has_motion:
+        return 0
+    return 2 if static.has_rot_motion else 1
 
 
 def build_kernel() -> dict:
@@ -69,7 +94,8 @@ def build_kernel() -> dict:
     entries: bvh_walk, kd_walk, bvh_walk_occupancy and, in the same
     library, bvh_walk_counted (the instrumented build of the BVH walk: it
     also writes each ray's prim tests by kind and marks the table rows it
-    read)."""
+    read), and the motion walks bvh_walk_motion, bvh_walk_motion_counted
+    and kd_walk_motion."""
     info = nvcc.build(KERNEL_SOURCE)
     lib = info["lib"]
     lib.bvh_walk.argtypes = _BVH_ARGTYPES
@@ -78,6 +104,12 @@ def build_kernel() -> dict:
     lib.bvh_walk_counted.restype = ctypes.c_int
     lib.kd_walk.argtypes = _KD_ARGTYPES
     lib.kd_walk.restype = ctypes.c_int
+    lib.bvh_walk_motion.argtypes = _BVH_ARGTYPES + _MOTION_ARGTYPES
+    lib.bvh_walk_motion.restype = ctypes.c_int
+    lib.bvh_walk_motion_counted.argtypes = _BVH_ARGTYPES + _MOTION_ARGTYPES + [ctypes.c_void_p] * 4
+    lib.bvh_walk_motion_counted.restype = ctypes.c_int
+    lib.kd_walk_motion.argtypes = _KD_ARGTYPES + _MOTION_ARGTYPES
+    lib.kd_walk_motion.restype = ctypes.c_int
     return info
 
 
@@ -102,6 +134,23 @@ def _outputs(wrapper, o, d, t_max):
     return R, counters, out, torch.cuda.current_stream(dev).cuda_stream
 
 
+def _motion_args(sa, static, time, R, dev):
+    """The motion entries' extra arguments for a scene with motion."""
+    kind = motion_kind(static)
+    _check("time", time, torch.float32, (R,), dev)
+    P, cols = sa.prim_test_data.shape
+    if kind == 1:
+        _check("prim_test_data_end", sa.prim_test_data_end, torch.float32, (P, cols), dev)
+        mid = sa.prim_test_data_mid
+        if mid is not None:
+            _check("prim_test_data_mid", mid, torch.float32, (P, cols), dev)
+        return [kind, time.data_ptr(), sa.prim_test_data_end.data_ptr(), 0 if mid is None else mid.data_ptr(), 0, 0, 0]
+    _check("anim_rec", sa.anim_rec, torch.float32, (sa.anim_rec.shape[0], ANIM_REC_COLS), dev)
+    _check("anim_gid", sa.anim_gid, torch.int32, (P,), dev)
+    _check("anim_c", sa.anim_c, torch.float32, (P, 3, 4), dev)
+    return [kind, time.data_ptr(), 0, 0, sa.anim_rec.data_ptr(), sa.anim_gid.data_ptr(), sa.anim_c.data_ptr()]
+
+
 def bvh_walk_cuda(sa, static, o, d, t_max, any_hit: bool, prim_tests=None, rows_read=None):
     """Launch the BVH walk (entry bvh_walk). Returns (t, prim, b1, b2,
     pops): prim the closest (or any) hit's prim row, -1 on a miss, t the
@@ -114,35 +163,66 @@ def bvh_walk_cuda(sa, static, o, d, t_max, any_hit: bool, prim_tests=None, rows_
     prim and instance counts, in which it marks what the walk read: a
     node's bits 1 (its box), 2 (its offset and count) and 4 (its split
     axis), a prim row tested, an instance whose transform was applied."""
-    R, counters, (t, prim, b1, b2, pops), stream = _outputs(bvh_walk_cuda, o, d, t_max)
+    R, counters, outs, stream = _outputs(bvh_walk_cuda, o, d, t_max)
+    args = _bvh_args(sa, static, o, d, t_max, any_hit, outs, counters, stream)
+    return _launch_bvh(bvh_walk_cuda, "bvh_walk", sa, args, R, o.device, prim_tests, rows_read, outs)
+
+
+bvh_walk_cuda.launches = 0
+bvh_walk_cuda.counters = {}  # device -> int32 (2,): stack overflows, iteration-cap hits
+
+
+def _launch_bvh(wrapper, entry, sa, args, R, dev, prim_tests, rows_read, outs):
+    """Launch entry (or, with prim_tests, its instrumented entry
+    entry + "_counted") of the walk library with args; count the launch in
+    wrapper.launches; raise on a launch error."""
+    lib = build_kernel()["lib"]
+    if prim_tests is None:
+        err = getattr(lib, entry)(*args)
+    else:
+        _check("prim_tests", prim_tests, torch.int32, (R, 3), dev)
+        seen = tuple(rows_read)
+        for name, x, n in zip(("node", "prim", "instance"), seen,
+                              (sa.bvh_packed.shape[0], sa.prim_test_data.shape[0], sa.inst_w2i.shape[0])):
+            _check(f"rows_read ({name})", x, torch.int32, (n,), dev)
+        err = getattr(lib, entry + "_counted")(*args, prim_tests.data_ptr(), *(x.data_ptr() for x in seen))
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    wrapper.launches += 1
+    return outs
+
+
+def _bvh_args(sa, static, o, d, t_max, any_hit, outs, counters, stream):
     dev = o.device
+    R = o.shape[0]
     P, cols = sa.prim_test_data.shape
     _check("bvh_packed", sa.bvh_packed, torch.float32, (sa.bvh_packed.shape[0], 12), dev)
     _check("prim_test_data", sa.prim_test_data, torch.float32, (P, cols), dev)
     _check("prim_kind", sa.prim_kind, torch.int32, (P,), dev)
     _check("prim_inst", sa.prim_inst, torch.int32, (P,), dev)
     _check("inst_w2i", sa.inst_w2i, torch.float32, (sa.inst_w2i.shape[0], 3, 4), dev)
-    lib = build_kernel()["lib"]
-    args = [o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R, sa.bvh_packed.data_ptr(), sa.prim_test_data.data_ptr(),
+    t, prim, b1, b2, pops = outs
+    return [o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R, sa.bvh_packed.data_ptr(), sa.prim_test_data.data_ptr(),
             cols, sa.prim_kind.data_ptr(), sa.prim_inst.data_ptr(), sa.inst_w2i.data_ptr(), int(static.max_leaf),
             int(bool(any_hit)), t.data_ptr(), prim.data_ptr(), b1.data_ptr(), b2.data_ptr(), pops.data_ptr(),
             counters.data_ptr(), stream]
-    if prim_tests is None:
-        err = lib.bvh_walk(*args)
-    else:
-        _check("prim_tests", prim_tests, torch.int32, (R, 3), dev)
-        seen = tuple(rows_read)
-        for name, x, n in zip(("node", "prim", "instance"), seen, (sa.bvh_packed.shape[0], P, sa.inst_w2i.shape[0])):
-            _check(f"rows_read ({name})", x, torch.int32, (n,), dev)
-        err = lib.bvh_walk_counted(*args, prim_tests.data_ptr(), *(x.data_ptr() for x in seen))
-    if err != 0:
-        raise RuntimeError(f"bvh_walk launch failed: cudaError {err}")
-    bvh_walk_cuda.launches += 1
-    return t, prim, b1, b2, pops
 
 
-bvh_walk_cuda.launches = 0
-bvh_walk_cuda.counters = {}  # device -> int32 (2,): stack overflows, iteration-cap hits
+def bvh_walk_motion_cuda(sa, static, o, d, t_max, any_hit: bool, time=None, prim_tests=None, rows_read=None):
+    """Launch the BVH walk's motion instantiation (entry bvh_walk_motion,
+    MOTION = motion_kind(static)) at the per-ray shutter fractions `time`
+    (float32 (R,), required; walk_plain's signature); bvh_walk_cuda's
+    outputs and instrumented entry
+    (bvh_walk_motion_counted), counted in ``bvh_walk_motion_cuda.launches``
+    and ``.counters``."""
+    R, counters, outs, stream = _outputs(bvh_walk_motion_cuda, o, d, t_max)
+    args = (_bvh_args(sa, static, o, d, t_max, any_hit, outs, counters, stream)
+            + _motion_args(sa, static, time, R, o.device))
+    return _launch_bvh(bvh_walk_motion_cuda, "bvh_walk_motion", sa, args, R, o.device, prim_tests, rows_read, outs)
+
+
+bvh_walk_motion_cuda.launches = 0
+bvh_walk_motion_cuda.counters = {}  # device -> int32 (2,): stack overflows, iteration-cap hits
 
 
 def kd_walk_cuda(sa, static, o, d, t_max, any_hit: bool):
@@ -174,6 +254,30 @@ kd_walk_cuda.launches = 0
 kd_walk_cuda.counters = {}  # device -> int32 (2,): stack overflows, iteration-cap hits
 
 
+def kd_walk_motion_cuda(sa, static, o, d, t_max, any_hit: bool, time=None):
+    """Launch the kd-tree walk's motion instantiation (entry
+    kd_walk_motion); kd_walk_cuda's contract, counted in
+    ``kd_walk_motion_cuda.launches`` and ``.counters``."""
+    R, counters, (t, prim, b1, b2, pops), stream = _outputs(kd_walk_motion_cuda, o, d, t_max)
+    dev = o.device
+    P, cols = sa.prim_test_data.shape
+    lib = build_kernel()["lib"]
+    err = lib.kd_walk_motion(o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R, sa.kd_flags.data_ptr(),
+                             sa.kd_split.data_ptr(), sa.kd_above.data_ptr(), sa.kd_nprims.data_ptr(),
+                             sa.kd_prim_ids.data_ptr(), sa.kd_lo.data_ptr(), sa.kd_hi.data_ptr(),
+                             sa.prim_test_data.data_ptr(), cols, sa.prim_kind.data_ptr(), int(bool(any_hit)),
+                             t.data_ptr(), prim.data_ptr(), b1.data_ptr(), b2.data_ptr(), pops.data_ptr(),
+                             counters.data_ptr(), stream, *_motion_args(sa, static, time, R, dev))
+    if err != 0:
+        raise RuntimeError(f"kd_walk_motion launch failed: cudaError {err}")
+    kd_walk_motion_cuda.launches += 1
+    return t, prim, b1, b2, pops
+
+
+kd_walk_motion_cuda.launches = 0
+kd_walk_motion_cuda.counters = {}  # device -> int32 (2,): stack overflows, iteration-cap hits
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch walks (the kernels' twins)
 # ---------------------------------------------------------------------------
@@ -184,12 +288,27 @@ def _inv_dir(d):
     return 1.0 / torch.where(d.abs() < 1e-30, torch.where(d < 0, -1e-30, 1e-30), d)
 
 
-def _leaf_tests(sa, static, o, d, t_best, ids, valid):
+def _moved_rows(sa, static, rows, ids, is_tri, time):
+    """The candidates' rows at their rays' times (A,): (triangle vertices
+    (A, K, 9), a function giving the world-to-object (Q, 3, 4) of the
+    quadric entries q)."""
+    if motion_kind(static) == 1:
+        mid = None if sa.prim_test_data_mid is None else sa.prim_test_data_mid[ids][..., 0:12]
+        moved = motion_quad(rows[..., 0:12], sa.prim_test_data_end[ids][..., 0:12], mid, time[:, None, None])
+        return moved[..., 0:9], lambda q: moved[q].reshape(-1, 3, 4)
+    g = motion_matrices(sa, ids, time[:, None])  # (A, K, 3, 4)
+    v = torch.cat([xform_point(g, rows[..., 3 * k:3 * k + 3]) for k in range(3)], dim=-1)
+    return v, lambda q: motion_matrices(sa, ids[q], time[q[0]], quadric=True)
+
+
+def _leaf_tests(sa, static, o, d, t_best, ids, valid, time=None):
     """The rays (A, 3) against their leaves' prims ids (A, K): (t (A, K),
     inf where missed or not valid, b1, b2). An instanced prim's ray is
     brought into instance space first; a quadric's params are its
     prim_test_data columns (with p1, p2 when the table has 26). The
-    quadric test runs only on the entries that hold a quadric."""
+    quadric test runs only on the entries that hold a quadric. With
+    `time` (A,) in a scene with motion, each prim is moved to its ray's
+    time first (_moved_rows)."""
     rows = sa.prim_test_data[ids]  # (A, K, C)
     is_tri = sa.prim_kind[ids] == GEOM_TRI
     ob = o[:, None, :].expand(ids.shape + (3,))
@@ -199,7 +318,9 @@ def _leaf_tests(sa, static, o, d, t_best, ids, valid):
         ob = xf_point(w2i, ob)
         db = xf_vector(w2i, db)
     tb = t_best[:, None].expand(ids.shape)
-    hit, t, _b0, b1, b2 = ray_triangle(ob, db, rows[..., 0:3], rows[..., 3:6], rows[..., 6:9], tb)
+    moving = time is not None and static.has_motion
+    verts, w2o_of = _moved_rows(sa, static, rows, ids, is_tri, time) if moving else (rows[..., 0:9], None)
+    hit, t, _b0, b1, b2 = ray_triangle(ob, db, verts[..., 0:3], verts[..., 3:6], verts[..., 6:9], tb)
     if static.n_spheres:
         q = torch.nonzero(valid & ~is_tri, as_tuple=True)
         if q[0].numel():
@@ -207,7 +328,8 @@ def _leaf_tests(sa, static, o, d, t_best, ids, valid):
             par = rq[:, 12:18]
             if rq.shape[-1] >= 25:
                 par = torch.cat([par, rq[:, 19:25]], dim=-1)
-            h_s, t_s, p_obj = ray_quadric(ob[q], db[q], rq[:, 0:12].reshape(-1, 3, 4), par, rq[:, 18].to(torch.int64),
+            w2o = w2o_of(q) if moving else rq[:, 0:12].reshape(-1, 3, 4)
+            h_s, t_s, p_obj = ray_quadric(ob[q], db[q], w2o, par, rq[:, 18].to(torch.int64),
                                           tb[q], kinds=frozenset(static.quadric_kinds))
             hit, t, b1, b2 = (x.clone() for x in (hit, t, b1, b2))
             hit[q], t[q], b1[q], b2[q] = h_s, t_s, p_obj[:, 0], p_obj[:, 1]
@@ -223,9 +345,10 @@ def _take_leaf(t_k, b1_k, b2_k, ids):
     return t_new, ids.gather(1, kk)[:, 0], b1_k.gather(1, kk)[:, 0], b2_k.gather(1, kk)[:, 0]
 
 
-def walk_plain(sa, static, o, d, t_max, any_hit: bool):
+def walk_plain(sa, static, o, d, t_max, any_hit: bool, time=None):
     """The BVH walk in plain PyTorch on any device: bvh_walk_cuda's
-    outputs (prim int64) and the count of pushes dropped on a full stack."""
+    outputs (prim int64) and the count of pushes dropped on a full stack.
+    time: the rays' shutter fractions (bvh_walk_motion_cuda's twin)."""
     dev = o.device
     R = o.shape[0]
     nodes = sa.bvh_packed
@@ -264,7 +387,8 @@ def walk_plain(sa, static, o, d, t_max, any_hit: bool):
         if li.numel():
             ids = torch.clamp(off[lf][:, None] + iota[None, :], max=P - 1)
             valid = iota[None, :] < n_leaf[lf][:, None]
-            t_k, b1_k, b2_k = _leaf_tests(sa, static, o[li], d[li], t_best[li], ids, valid)
+            t_k, b1_k, b2_k = _leaf_tests(sa, static, o[li], d[li], t_best[li], ids, valid,
+                                          None if time is None else time[li])
             t_new, p_new, b1_new, b2_new = _take_leaf(t_k, b1_k, b2_k, ids)
             better = t_new < t_best[li]
             bi = li[better]
@@ -297,10 +421,10 @@ def walk_plain(sa, static, o, d, t_max, any_hit: bool):
     return t_best, prim, b1, b2, pops, overflow
 
 
-def kd_walk_plain(sa, static, o, d, t_max, any_hit: bool):
+def kd_walk_plain(sa, static, o, d, t_max, any_hit: bool, time=None):
     """The kd-tree walk (pbrt's KdTreeAccel::Intersect) in plain PyTorch
     on any device: kd_walk_cuda's outputs (prim int64) and the count of
-    pushes dropped on a full stack."""
+    pushes dropped on a full stack; with time, kd_walk_motion_cuda's twin."""
     dev = o.device
     R = o.shape[0]
     inv_d = _inv_dir(d)
@@ -373,7 +497,8 @@ def kd_walk_plain(sa, static, o, d, t_max, any_hit: bool):
             off = above[nl]
             ids = pids[torch.clamp(off[:, None] + iota[None, :], max=max(n_ids - 1, 0))]
             valid = iota[None, :] < nprims[nl][:, None].to(torch.int64)
-            t_k, b1_k, b2_k = _leaf_tests(sa, static, o[li], d[li], t_best[li], ids, valid)
+            t_k, b1_k, b2_k = _leaf_tests(sa, static, o[li], d[li], t_best[li], ids, valid,
+                                          None if time is None else time[li])
             t_new, p_new, b1_new, b2_new = _take_leaf(t_k, b1_k, b2_k, ids)
             better = t_new < t_best[li]
             bi = li[better]
@@ -398,24 +523,31 @@ def kd_walk_plain(sa, static, o, d, t_max, any_hit: bool):
 # ---------------------------------------------------------------------------
 
 
-def walk_intersect(sa, static, o, d, t_max, any_hit=False, sort=True, plain=False):
+def walk_intersect(sa, static, o, d, t_max, any_hit=False, sort=True, plain=False, time=None):
     """Closest-hit (or any-hit) query of a scene through its binary BVH, or
     its kd-tree when static.accel_kind is "kdtree". Returns (t, prim, hit,
     b1, b2): t = inf and prim = -1 on a miss. ``sort`` reorders rays by
     wide_bvh.coherence_keys before the walk and restores the order after;
     it cannot change a result. CUDA tensors launch the CUDA kernel, CPU
-    tensors (or ``plain``) run the plain twin."""
+    tensors (or ``plain``) run the plain twin. time: the rays' shutter
+    fractions (float32 (R,)); in a scene with motion it takes the motion
+    walk, elsewhere it is ignored."""
     kd = static.accel_kind == "kdtree"
+    moving = time is not None and static.has_motion
     if plain or o.device.type == "cpu":
         walk = kd_walk_plain if kd else walk_plain
     elif o.device.type == "cuda":
-        walk = kd_walk_cuda if kd else bvh_walk_cuda
+        if moving:
+            walk = kd_walk_motion_cuda if kd else bvh_walk_motion_cuda
+        else:
+            walk = kd_walk_cuda if kd else bvh_walk_cuda
     else:
         raise ValueError(f"walk_intersect has no implementation for device {o.device}")
     R = o.shape[0]
     t_arr = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device), (R,)).contiguous()
     o = o.contiguous()
     d = d.contiguous()
+    tm = time.to(torch.float32).contiguous() if moving else None
     perm = None
     if sort and R >= SORT_MIN_RAYS:
         lo = sa.world_center - sa.world_radius
@@ -423,7 +555,9 @@ def walk_intersect(sa, static, o, d, t_max, any_hit=False, sort=True, plain=Fals
         keys = torch.where(t_arr > 0, coherence_keys(o, d, lo, inv_ext), 0xFFFFFFFF)
         perm = torch.argsort(keys, stable=True)
         o, d, t_arr = o[perm], d[perm], t_arr[perm]
-    t, prim, b1, b2 = walk(sa, static, o, d, t_arr, any_hit)[:4]
+        if tm is not None:
+            tm = tm[perm]
+    t, prim, b1, b2 = walk(sa, static, o, d, t_arr, any_hit, **({"time": tm} if moving else {}))[:4]
     if perm is not None:
         res = [torch.empty_like(x) for x in (t, prim, b1, b2)]
         for dst, src in zip(res, (t, prim, b1, b2)):

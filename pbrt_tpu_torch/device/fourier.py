@@ -124,21 +124,24 @@ def _rgb_from_series(y, r, b, scale):
     return torch.clamp(torch.stack([r, g, b], dim=-1) * scale[:, None], min=0.0)
 
 
-def _radiance_scale(ft, tid, mui, muo):
+def _radiance_scale(ft, tid, mui, muo, mode: str = "radiance"):
     """1/|mui| and, on transmission, radiance transport's eta^2 factor
-    (reflection.rs:1301-1316)."""
+    (reflection.rs:1301-1316); importance transport keeps the bare 1/|mui|."""
     scale = torch.where(mui.abs() > 1e-9, 1.0 / torch.clamp(mui.abs(), min=1e-9), 0.0)
+    if mode != "radiance":
+        return scale
     eta = _table_rows(ft, "eta", tid).expand(mui.shape)
     ef = torch.where(mui > 0, 1.0 / torch.clamp(eta, min=1e-6), eta)
     return torch.where(mui * muo > 0, scale * ef * ef, scale)
 
 
-def fourier_f(ft, tid, wo, wi):
-    """The tabulated BSDF's value (R, 3) (reflection.rs f())."""
+def fourier_f(ft, tid, wo, wi, mode: str = "radiance"):
+    """The tabulated BSDF's value (R, 3) (reflection.rs f()) in transport
+    mode `mode`."""
     mui, muo, offi, wi4, offo, wo4, valid = _weights_io(ft, tid, wo, wi)
     ak = _accumulate_ak(ft, tid, offi, wi4, offo, wo4)
     y, r, b = _series_all(ak, _cos_d_phi(-wi, wo))
-    rgb = _rgb_from_series(torch.clamp(y, min=0.0), r, b, _radiance_scale(ft, tid, mui, muo))
+    rgb = _rgb_from_series(torch.clamp(y, min=0.0), r, b, _radiance_scale(ft, tid, mui, muo, mode))
     return torch.where(valid[:, None], rgb, 0.0)
 
 
@@ -252,9 +255,9 @@ def _sample_phi(ak_y, u):
     return torch.where(flip, 2.0 * math.pi - phi, phi), torch.clamp(pdf, min=0.0)
 
 
-def fourier_sample(ft, tid, wo, u1, u2):
-    """Importance-sample the tabulated BSDF (reflection.rs sample_f()).
-    Returns {wi, f (R, 3), pdf, valid}."""
+def fourier_sample(ft, tid, wo, u1, u2, mode: str = "radiance"):
+    """Importance-sample the tabulated BSDF (reflection.rs sample_f()) in
+    transport mode `mode`. Returns {wi, f (R, 3), pdf, valid}."""
     muo = wo[:, 2]
     mu = _table_rows(ft, "mu", tid)
     offo, wo4, vo = catmull_rom_weights(mu, muo)
@@ -271,7 +274,7 @@ def fourier_sample(ft, tid, wo, u1, u2):
                        norm * (sin_phi * wo[:, 0] + cos_phi * wo[:, 1]), mui], dim=-1)
     wi = wi / torch.clamp(torch.sqrt((wi * wi).sum(-1, keepdim=True)), min=1e-12)
     y, r, b = _series_all(ak, cos_phi)
-    f = _rgb_from_series(torch.clamp(y, min=0.0), r, b, _radiance_scale(ft, tid, mui, muo))
+    f = _rgb_from_series(torch.clamp(y, min=0.0), r, b, _radiance_scale(ft, tid, mui, muo, mode))
     pdf = torch.clamp(pdf_phi * pdf_mu, min=0.0)
     valid = vo & vi & (pdf > 0)
     return {"wi": wi, "f": torch.where(valid[:, None], f, 0.0), "pdf": pdf, "valid": valid}

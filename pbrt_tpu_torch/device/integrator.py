@@ -5,9 +5,10 @@
 traced to the end through a fixed number of bounces, for path, volpath
 (participating media, interface crossings), directlighting, whitted and ao
 (``_trace_ao``), with subsurface materials (the tabulated BSSRDF's exit
-event, or the random walk through their interior media); render.py takes it
-for every scene outside the persistent wavefront's class, and for a
-checkpointed render.
+event, or the random walk through their interior media), and at each ray's
+shutter time in a scene with moving prims; render.py takes it for every
+scene outside the persistent wavefront's class (motion, the animated and
+realistic cameras among them), and for a checkpointed render.
 
 ``trace_persistent`` is the port's counterpart of
 ``pbrt_tpu/device/integrator.py trace_persistent`` for the path and
@@ -409,7 +410,8 @@ def _lane_samples(sample_idx, R, dev):
     return torch.as_tensor(sample_idx, dtype=torch.int64, device=dev).expand(R).contiguous()
 
 
-def trace_wave(sa, static, icfg: dict, scfg: dict, seed: int, o, d, pixel, sample_idx, diff_dirs=None, joint=False):
+def trace_wave(sa, static, icfg: dict, scfg: dict, seed: int, o, d, pixel, sample_idx, diff_dirs=None, joint=False,
+               time=None):
     """Trace one wave of camera rays to completion: the per-sample wave of
     the path, volpath, directlighting, whitted and ao integrators
     (reference device/integrator.py trace_wave :192-692; path.rs li,
@@ -436,9 +438,14 @@ def trace_wave(sa, static, icfg: dict, scfg: dict, seed: int, o, d, pixel, sampl
     costs no depth, nor does scattering inside a subsurface walk medium.
     Sample dimensions: 2 + 8 b per bounce b (NEE 0-1, lobe 2-3, roulette 4,
     phase 6, the BSSRDF 8-10); medium keys hash_combine(seed, pixel,
-    sample, 0xC0FFEE00 + 2 b), shadow keys the same + 1."""
+    sample, 0xC0FFEE00 + 2 b), shadow keys the same + 1. time: the rays'
+    shutter fractions (R,) in a scene with moving prims: every camera,
+    bounce and shadow query and every hit's shading record is taken at it
+    (the subsurface probe chain at shutter open, as in the reference)."""
     R = o.shape[0]
     dev = o.device
+    if not static.has_motion:
+        time = None
     ikind = icfg["kind"]
     max_depth = int(icfg["max_depth"])
     kind_s = scfg["kind"]
@@ -446,7 +453,7 @@ def trace_wave(sa, static, icfg: dict, scfg: dict, seed: int, o, d, pixel, sampl
     strata = scfg.get("strata")
     sidx = _lane_samples(sample_idx, R, dev)
     if ikind == "ao":
-        return _trace_ao(sa, static, icfg, scfg, seed, o, d, pixel, sidx, joint), torch.ones(R, device=dev)
+        return _trace_ao(sa, static, icfg, scfg, seed, o, d, pixel, sidx, joint, time), torch.ones(R, device=dev)
 
     nee_on = ikind in ("path", "volpath", "directlighting")
     _select_light, _sel_pmf_of = _light_selectors(sa, static, icfg, nee_on, ikind)
@@ -466,15 +473,15 @@ def trace_wave(sa, static, icfg: dict, scfg: dict, seed: int, o, d, pixel, sampl
         return sample_2d(kind_s, seed, pixel, sidx, dim, spp, strata)
 
     def query(sa_, static_, o_, d_, t_):
-        return intersect(sa_, static_, o_, d_, t_, joint=joint)
+        return intersect(sa_, static_, o_, d_, t_, joint=joint, time=time)
 
     def pickup(st, b):
         """Closest hit, the medium's distance sample, then escaped and
         emitted radiance with the deferred MIS weight (reference :232)."""
         t_query = torch.where(st["alive"], torch.inf, -1.0)
         o_, d_ = st["o"], st["d"]
-        hit = intersect(sa, static, o_, d_, t_query, sort_rays=True, joint=joint)
-        si = surface_interaction(sa, hit, o_, d_, static.quadric_kinds)
+        hit = intersect(sa, static, o_, d_, t_query, sort_rays=True, joint=joint, time=time)
+        si = surface_interaction(sa, hit, o_, d_, static.quadric_kinds, time)
         if static.has_bump:
             si = apply_bump(sa, static, si, atlases)
         valid = si["valid"]
@@ -534,7 +541,7 @@ def trace_wave(sa, static, icfg: dict, scfg: dict, seed: int, o, d, pixel, sampl
                                               query=query)
         if needed is not None:
             t_sh = torch.where(needed, t_sh, -1.0)
-        occ = intersect_p(sa, static, o_sh, wi, t_sh, sort_rays=True, joint=joint)
+        occ = intersect_p(sa, static, o_sh, wi, t_sh, sort_rays=True, joint=joint, time=time)
         return torch.where(occ[:, None], 0.0, 1.0)
 
     def nee_at(si, lobes, alive_m, medium_v, b, dim_base, light_index=None, dim_salt=0, medium_vertex=None,
@@ -847,15 +854,15 @@ def probe_chain(sa, static, p0, vz, t_rem, mat, joint=False):
     return recs
 
 
-def _trace_ao(sa, static, icfg, scfg, seed, o, d, pixel, sidx, joint=False):
+def _trace_ao(sa, static, icfg, scfg, seed, o, d, pixel, sidx, joint=False, time=None):
     """Ambient occlusion (ao.rs; reference _trace_ao :942-977): at each
     camera hit, n_samples shadow rays over the hemisphere of the normal
     faced toward the camera, cosine-weighted or uniform; the mean of
     cos / (pi pdf) over the unoccluded ones, as a gray radiance."""
     R = o.shape[0]
     dev = o.device
-    hit = intersect(sa, static, o, d, torch.full((R,), torch.inf, device=dev), joint=joint)
-    si = surface_interaction(sa, hit, o, d, static.quadric_kinds)
+    hit = intersect(sa, static, o, d, torch.full((R,), torch.inf, device=dev), joint=joint, time=time)
+    si = surface_interaction(sa, hit, o, d, static.quadric_kinds, time)
     valid = si["valid"]
     n_samples = int(icfg.get("n_samples", 64))
     cos_sample = bool(icfg.get("cos_sample", True))
@@ -875,7 +882,7 @@ def _trace_ao(sa, static, icfg, scfg, seed, o, d, pixel, sidx, joint=False):
             pdf = torch.full((R,), 1.0 / (2 * math.pi), dtype=torch.float32, device=dev)
         w = w_l[..., 0:1] * si["ss"] + w_l[..., 1:2] * si["ts"] + w_l[..., 2:3] * ns
         o_sh = _offset_ray(si["p"], ng, w, si["p_err"])
-        occ = intersect_p(sa, static, o_sh, w, torch.full((R,), torch.inf, device=dev), joint=joint)
+        occ = intersect_p(sa, static, o_sh, w, torch.full((R,), torch.inf, device=dev), joint=joint, time=time)
         cos_w = dot(w, ns)
         acc = acc + torch.where(valid & ~occ & (cos_w > 0), cos_w / (math.pi * pdf), 0.0)
     return (acc / n_samples)[:, None].expand(R, 3).contiguous()

@@ -19,6 +19,14 @@ intersect_p``, routed as the reference's ``_intersect_once`` (:815-870):
   more than 64 triangles), through device/bvh_walk.py, as the reference
   takes such scenes through its packet loop ``_traverse``.
 
+Motion blur: every query takes the rays' shutter fractions ``time`` (None
+for a static query, and ignored in a scene without moving prims, as the
+reference's). A scene with moving prims has no wide tables (the builder
+builds none), so it takes the brute route, moving every prim to each ray's
+time by broadcasting (reference ``_brute_all`` :408-431), or the time-aware
+BVH or kd-tree walk of device/bvh_walk.py; ``route_name`` is then "brute",
+"bvh" or "kdtree".
+
 A scene with alpha cutouts re-casts a ray past each cut hit, at most
 ALPHA_PASSES times, over whichever route the scene takes
 (``_intersect_alpha``, reference :1051-1098); its shadow query is the
@@ -34,6 +42,7 @@ import math
 import torch
 
 from .bvh_walk import walk_intersect
+from .motion import motion_matrices, motion_quad, xform_point
 from .prims import SHADOW_EPS, SPHERE, ray_quadric, ray_sphere, ray_triangle  # noqa: F401 (the module's API)
 from .wide_bvh import wide_intersect, wide_intersect_plain
 
@@ -45,25 +54,40 @@ GEOM_TRI = 0  # scene.arrays.GEOM_TRI
 ALPHA_PASSES = 4
 
 
-def _brute_all(sa, static, o, d, t_max):
+def _brute_all(sa, static, o, d, t_max, time=None):
     """Every ray against every prim by broadcasting. Returns (t, b1, b2)
     each (R, P) in table order (triangle rows, then quadric rows), t = inf
     where missed, and pid (P,) the prim row of each column. A quadric
     column carries its object-space hit's x and y in b1 and b2, as the
-    reference's does."""
+    reference's does. With time (R,), every prim is moved to each ray's
+    time first: the exact animated transform, or the keyframe rows."""
     o_b = o[:, None, :]
     d_b = d[:, None, :]
     tm = t_max[:, None]
+    exact = time is not None and static.has_rot_motion
+    keyed = time is not None and not exact
     parts_t, parts_b1, parts_b2, parts_pid = [], [], [], []
     if sa.tri_p.shape[0] > 0:
         tv = sa.tri_p[None]
+        if exact:
+            g = motion_matrices(sa, sa.tri_prim_ids.to(torch.int64)[None, :], time[:, None])
+            tv = xform_point(g[:, :, None], tv)
+        elif keyed:
+            tv = motion_quad(tv, sa.tri_p_end[None], None if sa.tri_p_mid is None else sa.tri_p_mid[None],
+                             time[:, None, None, None])
         h, t_t, _b0, b1, b2 = ray_triangle(o_b, d_b, tv[..., 0, :], tv[..., 1, :], tv[..., 2, :], tm)
         parts_t.append(torch.where(h, t_t, math.inf))
         parts_b1.append(b1)
         parts_b2.append(b2)
         parts_pid.append(sa.tri_prim_ids)
     if sa.sph_param.shape[0] > 0:
-        h, t_s, p_obj = ray_quadric(o_b, d_b, sa.sph_w2o[None], sa.sph_param[None], sa.sph_kind[None].to(torch.int64),
+        w2o = sa.sph_w2o[None]
+        if exact:
+            w2o = motion_matrices(sa, sa.sph_prim_ids.to(torch.int64)[None, :], time[:, None], quadric=True)
+        elif keyed:
+            w2o = motion_quad(w2o, sa.sph_w2o_end[None], None if sa.sph_w2o_mid is None else sa.sph_w2o_mid[None],
+                              time[:, None, None, None])
+        h, t_s, p_obj = ray_quadric(o_b, d_b, w2o, sa.sph_param[None], sa.sph_kind[None].to(torch.int64),
                                     tm, kinds=frozenset(static.quadric_kinds))
         parts_t.append(torch.where(h, t_s, math.inf))
         parts_b1.append(p_obj[..., 0])
@@ -81,14 +105,14 @@ def _select_min(t, cols):
     return tbest, k, [c.gather(1, k[:, None])[:, 0] for c in cols]
 
 
-def intersect_brute(sa, static, o, d, t_max):
-    t, b1, b2, pid = _brute_all(sa, static, o, d, t_max)
+def intersect_brute(sa, static, o, d, t_max, time=None):
+    t, b1, b2, pid = _brute_all(sa, static, o, d, t_max, time)
     tbest, k, (b1_s, b2_s) = _select_min(t, [b1, b2])
     return {"t": tbest, "prim": torch.where(torch.isfinite(tbest), pid[k], -1), "b1": b1_s, "b2": b2_s}
 
 
-def intersect_p_brute(sa, static, o, d, t_max):
-    t = _brute_all(sa, static, o, d, t_max)[0]
+def intersect_p_brute(sa, static, o, d, t_max, time=None):
+    t = _brute_all(sa, static, o, d, t_max, time)[0]
     return torch.isfinite(t).any(1)
 
 
@@ -127,17 +151,19 @@ def route_name(static, joint=False) -> str:
     return "bvh"
 
 
-def _intersect_once(sa, static, o, d, t_max, sort_rays=False, joint=False, plain=False):
+def _intersect_once(sa, static, o, d, t_max, sort_rays=False, joint=False, plain=False, time=None):
     """One closest-hit pass (no alpha cutouts)."""
     R = o.shape[0]
+    if not static.has_motion:
+        time = None
     if static.n_prims == 0:
         return {"t": torch.full((R,), math.inf, device=o.device), "prim": torch.full((R,), -1, device=o.device),
                 "b1": torch.zeros(R, device=o.device), "b2": torch.zeros(R, device=o.device)}
     if static.use_brute_force:
-        return intersect_brute(sa, static, o, d, _t_max(o, t_max))
+        return intersect_brute(sa, static, o, d, _t_max(o, t_max), time)
     sort = sort_rays and static.n_prims >= SORT_MIN_PRIMS
     if not _wide_route(static):
-        t, prim, _hit, b1, b2 = walk_intersect(sa, static, o, d, t_max, sort=sort, plain=plain)
+        t, prim, _hit, b1, b2 = walk_intersect(sa, static, o, d, t_max, sort=sort, plain=plain, time=time)
         return {"t": t, "prim": prim, "b1": b1, "b2": b2}
     t, prim, hitm, b1, b2 = _walk(joint, plain)(sa, o, d, t_max, sort=sort)
     b1 = torch.where(hitm, torch.clamp(b1, 0.0, 1.0), 0.0)
@@ -158,15 +184,17 @@ def _intersect_once(sa, static, o, d, t_max, sort_rays=False, joint=False, plain
     return {"t": torch.where(hitm, t, math.inf), "prim": prim, "b1": b1, "b2": b2}
 
 
-def _intersect_p_once(sa, static, o, d, t_max, sort_rays=False, joint=False, plain=False):
+def _intersect_p_once(sa, static, o, d, t_max, sort_rays=False, joint=False, plain=False, time=None):
     """One any-hit pass (no alpha cutouts)."""
+    if not static.has_motion:
+        time = None
     if static.n_prims == 0:
         return torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
     if static.use_brute_force:
-        return intersect_p_brute(sa, static, o, d, _t_max(o, t_max))
+        return intersect_p_brute(sa, static, o, d, _t_max(o, t_max), time)
     sort = sort_rays and static.n_prims >= SORT_MIN_PRIMS
     if not _wide_route(static):
-        return walk_intersect(sa, static, o, d, t_max, any_hit=True, sort=sort, plain=plain)[2]
+        return walk_intersect(sa, static, o, d, t_max, any_hit=True, sort=sort, plain=plain, time=time)[2]
     _t, _slot, hit_any = _walk(joint, plain)(sa, o, d, t_max, any_hit=True, sort=sort)
     if static.n_spheres:
         hit_any = hit_any | torch.isfinite(_mixed_spheres(sa, o, d, _t_max(o, t_max))[0]).any(1)
@@ -197,7 +225,7 @@ def _alpha_cut_mask(sa, static, hit, o, d, shadow: bool):
     return (hit["prim"] >= 0) & is_tri & (tex >= 0) & (a == 0.0)
 
 
-def _intersect_alpha(sa, static, o, d, t_max, sort_rays, joint, plain, shadow: bool):
+def _intersect_alpha(sa, static, o, d, t_max, sort_rays, joint, plain, shadow: bool, time=None):
     """The closest hit that is not cut out, t measured from o: each cut
     hit's ray is re-cast from just past it, at most ALPHA_PASSES times (the
     other rays ride along dead, t_max < 0); a hit still cut after them is
@@ -205,14 +233,14 @@ def _intersect_alpha(sa, static, o, d, t_max, sort_rays, joint, plain, shadow: b
     tm0 = _t_max(o, t_max)
     o_cur = o
     acc = torch.zeros(o.shape[0], dtype=torch.float32, device=o.device)
-    hit = _intersect_once(sa, static, o_cur, d, tm0, sort_rays, joint, plain)
+    hit = _intersect_once(sa, static, o_cur, d, tm0, sort_rays, joint, plain, time)
     for _ in range(ALPHA_PASSES):
         cut = _alpha_cut_mask(sa, static, hit, o_cur, d, shadow)
         adv = hit["t"] * (1.0 + 1e-4) + 1e-4
         o_cur = torch.where(cut[:, None], o_cur + d * adv[:, None], o_cur)
         acc = acc + torch.where(cut, adv, 0.0)
         tq = torch.where(cut, tm0 - acc, -1.0)
-        h2 = _intersect_once(sa, static, o_cur, d, tq, sort_rays, joint, plain)
+        h2 = _intersect_once(sa, static, o_cur, d, tq, sort_rays, joint, plain, time)
         hit = {k: torch.where(cut, h2[k], v) for k, v in hit.items()}
     cut = _alpha_cut_mask(sa, static, hit, o_cur, d, shadow)
     t_final = torch.where(cut, math.inf, hit["t"]) + acc
@@ -220,17 +248,18 @@ def _intersect_alpha(sa, static, o, d, t_max, sort_rays, joint, plain, shadow: b
     return {"t": torch.where(prim >= 0, t_final, math.inf), "prim": prim, "b1": hit["b1"], "b2": hit["b2"]}
 
 
-def intersect(sa, static, o, d, t_max, sort_rays=False, joint=False, plain=False):
+def intersect(sa, static, o, d, t_max, sort_rays=False, joint=False, plain=False, time=None):
     """Closest-hit query. Returns hit dict {t, prim, b1, b2}. joint: CUDA
     rays of a wide scene go through the joint traversal kernel; plain: the
-    walks' plain twins, on any device (no route sets it)."""
+    walks' plain twins, on any device (no route sets it); time: the rays'
+    shutter fractions (R,) in a scene with motion."""
     if static.has_alpha and static.n_prims > 0:
-        return _intersect_alpha(sa, static, o, d, t_max, sort_rays, joint, plain, shadow=False)
-    return _intersect_once(sa, static, o, d, t_max, sort_rays, joint, plain)
+        return _intersect_alpha(sa, static, o, d, t_max, sort_rays, joint, plain, False, time)
+    return _intersect_once(sa, static, o, d, t_max, sort_rays, joint, plain, time)
 
 
-def intersect_p(sa, static, o, d, t_max, sort_rays=False, joint=False, plain=False):
+def intersect_p(sa, static, o, d, t_max, sort_rays=False, joint=False, plain=False, time=None):
     """Any-hit (shadow) query -> bool (R,). (scene.rs intersect_p)"""
     if static.has_alpha and static.n_prims > 0:
-        return _intersect_alpha(sa, static, o, d, t_max, sort_rays, joint, plain, shadow=True)["prim"] >= 0
-    return _intersect_p_once(sa, static, o, d, t_max, sort_rays, joint, plain)
+        return _intersect_alpha(sa, static, o, d, t_max, sort_rays, joint, plain, True, time)["prim"] >= 0
+    return _intersect_p_once(sa, static, o, d, t_max, sort_rays, joint, plain, time)

@@ -14,7 +14,8 @@ compute_power complete the set. A sphere lamp is sampled uniformly over its
 area, or, with ``cone_spheres`` (the integrators pass
 ``static.has_cone_sphere_lights``), over the cone it subtends from outside
 when it is a full, outward-facing sphere (sphere.rs sample_interaction;
-``_sphere_cone_info``).
+``_sphere_cone_info``). ``sample_le`` and ``area_light_pdf_dir`` are the
+lights as BDPT's light-subpath endpoints (Light::sample_le, pdf_le).
 """
 from __future__ import annotations
 
@@ -470,3 +471,130 @@ def _projection_cos_total(par):
     xm = torch.clamp(aspect, min=1.0)
     ym = torch.clamp(1.0 / aspect, min=1.0)
     return 1.0 / torch.sqrt(1.0 + tan_half * tan_half * (xm * xm + ym * ym))
+
+
+# ---------------------------------------------------------------------------
+# Emission sampling: the light endpoint of BDPT's light subpaths
+# (Light::sample_le; reference lights.sample_le :573, area_light_pdf_dir :723)
+# ---------------------------------------------------------------------------
+
+
+def sample_le(sa, static, light_ids, u1a, u1b, u2a, u2b):
+    """An emitted ray from each lane's light: {o, d, le_over_pdf (R, 3), n}
+    with the radiance already divided by the position and direction pdfs
+    (the light choice is the caller's), n the area light's surface normal
+    at o (zeros for the other kinds). Point and goniometric lights emit
+    uniformly over the sphere, spot and projection lights uniformly in
+    their cone (the projection light's image, or its screen's inside test,
+    scales Le), distant and infinite lights from a disk of the world's
+    radius (the infinite light's direction from its map's distribution),
+    area lights cosine-weighted from a uniform point (a two-sided one from
+    the back half the time, u2a remapped to keep both halves stratified)."""
+    R = light_ids.shape[0]
+    dev = light_ids.device
+    lid = torch.clamp(light_ids, min=0)
+    kind = sa.light_kind[lid]
+    par = sa.light_param[lid]
+    wc = sa.world_center
+    wr = sa.world_radius
+    o = torch.zeros((R, 3), dtype=torch.float32, device=dev)
+    d = torch.zeros_like(o)
+    w = torch.zeros_like(o)
+
+    def put(m, o_k, d_k, w_k):
+        nonlocal o, d, w
+        mc = m[:, None]
+        o = torch.where(mc, o_k, o)
+        d = torch.where(mc, d_k, d)
+        w = torch.where(mc, w_k, w)
+
+    # point: the uniform sphere, pdf 1 / 4 pi
+    put(kind == LIGHT_POINT, par[:, 0:3], uniform_sample_sphere(u2a, u2b), par[:, 3:6] * (4.0 * math.pi))
+    # spot: the uniform cone about its axis, pdf 1 / (2 pi (1 - cosTotal))
+    ctw = par[:, 9]
+    cos_t = (1.0 - u2a) + u2a * ctw
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = TWO_PI * u2b
+    axis = par[:, 6:9]
+    t1, t2 = coordinate_system(axis)
+    d_sp = normalize(sin_t[:, None] * (torch.cos(phi)[:, None] * t1 + torch.sin(phi)[:, None] * t2)
+                     + cos_t[:, None] * axis)
+    cfs = par[:, 10]
+    dfall = torch.clamp((cos_t - ctw) / torch.clamp(cfs - ctw, min=1e-9), 0.0, 1.0)
+    fall = torch.where(cos_t < ctw, 0.0, torch.where(cos_t > cfs, 1.0, dfall ** 4))
+    pdf_cone = 1.0 / torch.clamp(2.0 * math.pi * (1.0 - ctw), min=1e-9)
+    put(kind == LIGHT_SPOT, par[:, 0:3], d_sp, par[:, 3:6] * (fall / pdf_cone)[:, None])
+    if any(k in (LIGHT_GONIO, LIGHT_PROJECTION) for k in static.light_kinds):
+        # goniometric: the point light's sphere, Le scaled by its map;
+        # projection: the cone about the screen's +z in light space, Le its
+        # image there (0 outside the screen)
+        m_g = kind == LIGHT_GONIO
+        m_pj = kind == LIGHT_PROJECTION
+        d_g = uniform_sample_sphere(u2a, u2b)
+        cos_total = _projection_cos_total(par)
+        cos_p = (1.0 - u2a) + u2a * cos_total
+        sin_p = torch.sqrt(torch.clamp(1.0 - cos_p * cos_p, min=0.0))
+        phi_p = TWO_PI * u2b
+        v_l = torch.stack([sin_p * torch.cos(phi_p), sin_p * torch.sin(phi_p), cos_p], dim=-1)
+        l2w_rot = torch.linalg.inv(sa.light_w2l[:, :3, :3])[lid]
+        d_pj = normalize(xf_vector(l2w_rot, v_l))
+        d_gp = torch.where(m_pj[:, None], d_pj, d_g)
+        scale = torch.ones((R, 3), dtype=torch.float32, device=dev)
+        if any(k is not None for k in static.light_image_keys):
+            scale = _image_light_scale(sa, static, lid, d_gp, par, scale)
+        tan_half = par[:, 9]
+        aspect = torch.clamp(par[:, 10], min=1e-6)
+        zc = torch.clamp(v_l[:, 2], min=1e-6)
+        sx = v_l[:, 0] / zc / torch.clamp(tan_half * torch.clamp(aspect, min=1.0), min=1e-6)
+        sy = v_l[:, 1] / zc / torch.clamp(tan_half * torch.clamp(1.0 / aspect, min=1.0), min=1e-6)
+        inside = (v_l[:, 2] >= 1e-3) & (sx.abs() <= 1.0) & (sy.abs() <= 1.0)
+        has_img = torch.zeros(R, dtype=torch.bool, device=dev)
+        for i, key in enumerate(static.light_image_keys):
+            if key is not None:
+                has_img = has_img | (lid == i)
+        scale = torch.where((m_pj & ~has_img)[:, None], torch.where(inside[:, None], 1.0, 0.0), scale)
+        pdf_pj = 1.0 / torch.clamp(2.0 * math.pi * (1.0 - cos_total), min=1e-9)
+        put(m_g, par[:, 0:3], d_gp, par[:, 3:6] * scale * (4.0 * math.pi))
+        put(m_pj, par[:, 0:3], d_gp, par[:, 3:6] * scale / pdf_pj[:, None])
+    # distant: a point of the world's disk, along -(the direction to it)
+    wl = par[:, 0:3]
+    dx, dy = concentric_sample_disk(u1a, u1b)
+    v1, v2 = coordinate_system(wl)
+    p_disk = wc + wr * (dx[:, None] * v1 + dy[:, None] * v2) + wl * wr
+    put(kind == LIGHT_DISTANT, p_disk, -wl, par[:, 3:6] * (math.pi * wr * wr))
+    if static.has_infinite:
+        if static.has_env_map:
+            d_env, li_env, pdf_env = _env_sample(sa, u2a, u2b)
+            le = li_env / torch.clamp(pdf_env, min=1e-12)[:, None]
+        else:
+            d_env = uniform_sample_sphere(u2a, u2b)
+            le = par[:, 3:6] * (4.0 * math.pi)
+        d_in = -d_env
+        v1, v2 = coordinate_system(d_in)
+        p_disk = wc + wr * (dx[:, None] * v1 + dy[:, None] * v2) - d_in * wr
+        put(kind == LIGHT_INFINITE, p_disk, d_in, le * (math.pi * wr * wr))
+    n_out = torch.zeros((R, 3), dtype=torch.float32, device=dev)
+    if static.has_area_lights:
+        from .bsdf import cosine_sample_hemisphere
+
+        m = kind == LIGHT_AREA
+        ps, ns, area = _sample_prim_point(sa, sa.light_prim[lid], u1a, u1b, frozenset(static.quadric_kinds))
+        two_sided = par[:, 3] > 0
+        flip = two_sided & (u2a < 0.5)
+        u2a_r = torch.where(two_sided, torch.where(u2a < 0.5, 2.0 * u2a, 2.0 * (u2a - 0.5)), u2a)
+        w_l = cosine_sample_hemisphere(u2a_r, u2b)
+        ns_e = torch.where(flip[:, None], -ns, ns)
+        t1a, t2a = coordinate_system(ns_e)
+        d_ar = normalize(w_l[:, 0:1] * t1a + w_l[:, 1:2] * t2a + w_l[:, 2:3] * ns_e)
+        # pdf_pos 1 / area, pdf_dir cos / pi (half that when two-sided)
+        w_area = par[:, 0:3] * (area * math.pi * torch.where(two_sided, 2.0, 1.0))[:, None]
+        put(m, ps + ns_e * 1e-3, d_ar, w_area)
+        n_out = torch.where(m[:, None], ns, n_out)
+    return {"o": o, "d": d, "le_over_pdf": w, "n": n_out}
+
+
+def area_light_pdf_dir(sa, light_ids, n, w):
+    """A diffuse area light's emission-direction pdf (diffuse.rs pdf_le):
+    cos / pi one-sided, half that two-sided, cos clamped at 1e-6."""
+    par = sa.light_param[torch.clamp(light_ids, min=0)]
+    return torch.where(par[:, 3] > 0, 0.5, 1.0) * torch.clamp(dot(n, w).abs(), min=1e-6) / math.pi

@@ -278,8 +278,10 @@ def new_kind_refusal(cs, cam) -> str | None:
     (the reference's B3 never checks them and would render a cut-out
     triangle whole: the port refuses them, ROADMAP C) and the kd-tree; and
     of the per-sample wave's: medium interfaces, participating media, the
-    interface material and the subsurface and kdsubsurface materials, which
-    render.py never sends to a megakernel. Both extractors ask it first."""
+    interface material and the subsurface and kdsubsurface materials, and
+    motion blur, animated cameras and the realistic camera (the reference's
+    gates :577-579), which render.py never sends to a megakernel. Both
+    extractors ask it first."""
     from .camera import CAM_PERSPECTIVE
     from ..scene.arrays import LIGHT_GONIO, LIGHT_PROJECTION, MAT_KDSUBSURFACE, MAT_NONE, MAT_SUBSURFACE
 
@@ -291,6 +293,10 @@ def new_kind_refusal(cs, cam) -> str | None:
     for k, name in ((MAT_NONE, "interface"), (MAT_SUBSURFACE, "subsurface"), (MAT_KDSUBSURFACE, "kdsubsurface")):
         if k in static.mat_kinds_present:
             return f"the '{name}' material"
+    if static.has_motion:
+        return "motion blur"
+    if cam.get("anim") is not None:
+        return "animated cameras"
     kind = cam.get("kind", CAM_PERSPECTIVE)
     if kind != CAM_PERSPECTIVE:
         return f"'{cs.description.camera.kind}' cameras"

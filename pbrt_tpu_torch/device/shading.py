@@ -7,7 +7,10 @@ instance transform, reference :190-205) and its quadric branch (sphere.rs,
 cylinder.rs, disk.rs, cone.rs, paraboloid.rs, hyperboloid.rs, reference
 :250-394: the hit re-projected onto the surface, the analytic normal, uv
 and dpdu/dpdv per kind, and the gamma(5) |p_obj| error bound carried to
-world space), without motion, which the port's scenes do not have; and
+world space), at the ray's shutter time in a scene with moving prims
+(reference :119-184, :254-268: the exact animated transform of the prim's
+group, its normals through the inverse's transpose, or the keyframe rows
+lerped, so that p and ng agree with the time-aware query's hit); and
 ``apply_bump``, the reference's bump mapping of the shading frame.
 """
 from __future__ import annotations
@@ -17,6 +20,7 @@ import math
 import torch
 
 from .affine import xf_point, xf_vector, xf_vector_t
+from .motion import _affine_inverse, motion_matrices, motion_quad
 
 FLAG_FLIP_GEOM_N = 1
 FLAG_HAS_SHADING_N = 2
@@ -74,14 +78,25 @@ def _shading_frame(ns, dpdu):
     return ss, ts
 
 
-def _triangle_fields(sa, geom, flags, b1, b2, prim=None):
+def _triangle_fields(sa, geom, flags, b1, b2, prim=None, motion=None):
     """Hit point, error bound, normals, uv and dpdu/dpdv on triangle rows
     `geom` at barycentrics (b1, b2); with `prim`, in an instanced scene,
     each prim's vertices go through its instance's i2w and its normals
-    through the transpose of its w2i (the rows are instance-space)."""
+    through the transpose of its w2i (the rows are instance-space).
+    motion: (the prims, their rays' times) of a scene with moving prims."""
     tv = sa.tri_p[geom]  # (R, 3, 3)
     tn = sa.tri_n[geom]
     tuv = sa.tri_uv[geom]
+    if motion is not None:
+        mprim, time = motion
+        if sa.anim:
+            g = motion_matrices(sa, mprim, time)  # (R, 3, 4)
+            tv = xf_point(g[:, None], tv)
+            # normals move by the inverse transpose of g's linear part
+            tn = xf_vector_t(_affine_inverse(g)[:, None, :, :3], tn)
+        else:
+            tv = motion_quad(tv, sa.tri_p_end[geom], None if sa.tri_p_mid is None else sa.tri_p_mid[geom],
+                             time[:, None, None])
     if prim is not None:
         iid = sa.prim_inst[prim].to(torch.int64)
         i2w = sa.inst_i2w[iid][:, None]
@@ -126,16 +141,27 @@ def _normalize_eps(v, eps):
     return v / torch.clamp(_norm(v)[..., None], min=eps)
 
 
-def _quadric_fields(sa, geom, flags, p, kinds):
+def _quadric_fields(sa, geom, flags, p, kinds, motion=None):
     """The same fields on quadric rows `geom` for world hit points
     p = o + t d, per kind (kinds: the kinds present, a static set): the
     hit re-projected (a sphere onto its surface, a cylinder onto its
     radius, a disk onto its plane; the others keep the raw point), the
     object-space normal (each surface's implicit gradient), uv and
     dpdu/dpdv of each shape's parameterization (the reference's; its
-    hyperboloid dpdv is pbrt-v3's rotation derivative)."""
+    hyperboloid dpdv is pbrt-v3's rotation derivative). motion: as
+    _triangle_fields's."""
     o2w = sa.sph_o2w[geom]
     w2o = sa.sph_w2o[geom]
+    if motion is not None:
+        mprim, time = motion
+        if sa.anim:
+            w2o = motion_matrices(sa, mprim, time, quadric=True)
+            o2w = _affine_inverse(w2o)
+        else:
+            tb = time[:, None, None]
+            mid = sa.sph_w2o_mid is not None
+            w2o = motion_quad(w2o, sa.sph_w2o_end[geom], sa.sph_w2o_mid[geom] if mid else None, tb)
+            o2w = motion_quad(o2w, sa.sph_o2w_end[geom], sa.sph_o2w_mid[geom] if mid else None, tb)
     par = sa.sph_param[geom]
     qk = sa.sph_kind[geom]
     radius = par[:, 0]
@@ -224,11 +250,13 @@ def _quadric_fields(sa, geom, flags, p, kinds):
             "dpdu": xf_vector(o2w[:, :, :3], dpdu), "dpdv": xf_vector(o2w[:, :, :3], dpdv)}
 
 
-def surface_interaction(sa, hit, o, d, quadric_kinds=None):
+def surface_interaction(sa, hit, o, d, quadric_kinds=None, time=None):
     """Build the shading record for each ray.
 
     hit: dict from intersect(); o, d: (R, 3) ray; quadric_kinds: the
-    scene's (static.quadric_kinds; read from sa.sph_kind when None). Returns dict with p,
+    scene's (static.quadric_kinds; read from sa.sph_kind when None); time:
+    the rays' shutter fractions (R,), which move the hit prims in a scene
+    with moving prims (its tables have tri_p_end). Returns dict with p,
     p_err, ng (geometric normal), ns (shading normal), uv, tangent frame
     (ss, ts), dpdu, dpdv, mat (material row), light (area light row or -1),
     prim, wo and the valid (R,) mask."""
@@ -237,8 +265,9 @@ def surface_interaction(sa, hit, o, d, quadric_kinds=None):
     geom = sa.prim_geom[prim]
     flags = sa.prim_flags[prim]
     instanced = prim if sa.inst_i2w.shape[0] > 1 else None
+    motion = (prim, time) if time is not None and sa.tri_p_end is not None else None
     if sa.sph_param.shape[0] == 0:
-        f = _triangle_fields(sa, geom, flags, hit["b1"], hit["b2"], instanced)
+        f = _triangle_fields(sa, geom, flags, hit["b1"], hit["b2"], instanced, motion)
     else:
         t = torch.where(valid, hit["t"], 1.0)
         p = o + d * t[:, None]
@@ -246,9 +275,9 @@ def surface_interaction(sa, hit, o, d, quadric_kinds=None):
         if quadric_kinds is None:
             quadric_kinds = torch.unique(sa.sph_kind).tolist()
         kinds = frozenset(int(k) for k in quadric_kinds)
-        f = _quadric_fields(sa, torch.where(is_tri, 0, geom), flags, p, kinds)
+        f = _quadric_fields(sa, torch.where(is_tri, 0, geom), flags, p, kinds, motion)
         if sa.tri_p.shape[0] > 0:
-            ft = _triangle_fields(sa, torch.where(is_tri, geom, 0), flags, hit["b1"], hit["b2"], instanced)
+            ft = _triangle_fields(sa, torch.where(is_tri, geom, 0), flags, hit["b1"], hit["b2"], instanced, motion)
             f = {k: torch.where(is_tri[:, None], ft[k], v) for k, v in f.items()}
     ss, ts = _shading_frame(f["ns"], f["dpdu"])
     return dict(f, valid=valid, ss=ss, ts=ts, mat=torch.where(valid, sa.prim_mat[prim], 0),

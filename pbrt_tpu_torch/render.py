@@ -49,7 +49,9 @@ import time
 import numpy as np
 import torch
 
+from .core.transform import AnimatedTransform
 from .device.camera import generate_rays, make_camera, ray_differential_dirs
+from .device.realistic import realistic_generate_rays
 from .device.integrator import trace_persistent, trace_wave
 from .device.intersect import route_name
 from .device.lightdistrib import build_spatial_distribution
@@ -58,7 +60,8 @@ from .device.texture import has_imagemaps, prepare_atlases
 from .device.megakernel import make_megakernel_fn
 from .device.megakernel_wide import DEFAULT_MAX_TRIS, make_wide_megakernel_fn
 from .device.sampler import (
-    halton_dim_2d, halton_film_jitter, halton_tables, sample_2d, sobol_dim_2d, sobol_film_jitter, sobol_tables,
+    halton_dim_2d, halton_film_jitter, halton_tables, sample_1d, sample_2d, sobol_dim_2d, sobol_film_jitter,
+    sobol_tables,
 )
 from .scene.arrays import scene_byte_size
 from .scene.builder import CompiledScene, compile_scene
@@ -152,6 +155,46 @@ def filter_offset(name: str, params: dict, u1, u2):
     return (2.0 * u1 - 1.0) * r, (2.0 * u2 - 1.0) * ry, None
 
 
+TIME_DIM = 8117  # the sampler dimension of a ray's shutter time (render._one_sample_wave :153)
+
+
+def _shutter_fraction(cam, scfg, seed: int, pixel_ids, sample_idx):
+    """The shutter time of sample sample_idx of every pixel (camera.rs
+    CameraSample::time, sampler dimension TIME_DIM), normalised to the
+    TransformTimes range of the motion tables and clamped to [0, 1]."""
+    ut = sample_1d(scfg["kind"], seed, pixel_ids, sample_idx, TIME_DIM, scfg["spp"], scfg.get("strata"))
+    so, sc = cam["shutter"]
+    ts, te = cam["motion_times"]
+    return torch.clamp((so + ut * (sc - so) - ts) / max(te - ts, 1e-9), 0.0, 1.0)
+
+
+def _film_sample(scfg, fcfg, px_base, py_base, pixel_ids, seed: int, sample_idx):
+    """The raster position (px, py) of sample sample_idx of every pixel, its
+    lens sample (ul1, ul2) and its filter weight (None = 1): film dimension 0
+    for the offset, 1 for the lens; the halton and sobol samplers draw both
+    from the film enumeration tables in scfg["halton"] / scfg["sobol"]."""
+    kind = scfg["kind"]
+    spp = scfg["spp"]
+    strata = scfg.get("strata")
+    if kind == "halton" and scfg.get("halton") is not None:
+        # the Halton points of the film (CRT pixel enumeration)
+        aux = scfg["halton"]
+        u1, u2 = halton_film_jitter(aux, pixel_ids, sample_idx)
+        ul1, ul2 = halton_dim_2d(aux, pixel_ids, sample_idx, 1)
+    elif kind == "sobol" and scfg.get("sobol") is not None:
+        # the global Sobol sequence over the power-of-2 padded film
+        aux = scfg["sobol"]
+        u1, u2 = sobol_film_jitter(aux, px_base, py_base, sample_idx)
+        ul1, ul2 = sobol_dim_2d(aux, px_base, py_base, sample_idx, 1)
+    else:
+        u1, u2 = sample_2d(kind, seed, pixel_ids, sample_idx, 0, spp, strata)
+        ul1, ul2 = sample_2d(kind, seed, pixel_ids, sample_idx, 1, spp, strata)
+    dx, dy, w = filter_offset(fcfg["filter"], fcfg["filter_params"], u1, u2)
+    px = px_base.to(torch.float32) + 0.5 + dx
+    py = py_base.to(torch.float32) + 0.5 + dy
+    return px, py, ul1, ul2, w
+
+
 def make_regen(cam, scfg, fcfg, px_base, py_base, pixel_ids, seed: int, differentials: bool = False):
     """Camera-sample regeneration closure for the persistent wavefront:
     regen(sample_idx (R,)) -> (o, d, w_filter, dd_x, dd_y), using film
@@ -160,27 +203,8 @@ def make_regen(cam, scfg, fcfg, px_base, py_base, pixel_ids, seed: int, differen
     film enumeration tables in scfg["halton"] / scfg["sobol"]. dd_x, dd_y:
     the +1-pixel offset rays' directions when `differentials` (the scene
     has imagemaps), else zeros."""
-    kind = scfg["kind"]
-    spp = scfg["spp"]
-    strata = scfg.get("strata")
-
     def regen(sample_idx):
-        if kind == "halton" and scfg.get("halton") is not None:
-            # the Halton points of the film (CRT pixel enumeration)
-            aux = scfg["halton"]
-            u1, u2 = halton_film_jitter(aux, pixel_ids, sample_idx)
-            ul1, ul2 = halton_dim_2d(aux, pixel_ids, sample_idx, 1)
-        elif kind == "sobol" and scfg.get("sobol") is not None:
-            # the global Sobol sequence over the power-of-2 padded film
-            aux = scfg["sobol"]
-            u1, u2 = sobol_film_jitter(aux, px_base, py_base, sample_idx)
-            ul1, ul2 = sobol_dim_2d(aux, px_base, py_base, sample_idx, 1)
-        else:
-            u1, u2 = sample_2d(kind, seed, pixel_ids, sample_idx, 0, spp, strata)
-            ul1, ul2 = sample_2d(kind, seed, pixel_ids, sample_idx, 1, spp, strata)
-        dx, dy, w = filter_offset(fcfg["filter"], fcfg["filter_params"], u1, u2)
-        px = px_base.to(torch.float32) + 0.5 + dx
-        py = py_base.to(torch.float32) + 0.5 + dy
+        px, py, ul1, ul2, w = _film_sample(scfg, fcfg, px_base, py_base, pixel_ids, seed, sample_idx)
         o, d = generate_rays(cam, px, py, ul1, ul2)
         if w is None:
             w = torch.ones(o.shape[0], dtype=torch.float32, device=o.device)
@@ -274,20 +298,39 @@ def make_persistent_fn(cs: CompiledScene, cam=None):
     return wave_p
 
 
+def camera_animated(cfg) -> bool:
+    """The camera's transform moves over the shutter (make_camera builds
+    its "anim")."""
+    return cfg.camera_to_world_end is not None and AnimatedTransform(cfg.camera_to_world,
+                                                                     cfg.camera_to_world_end).actually_animated
+
+
 def persistent_eligible(desc, static) -> bool:
     """The persistent routes' class (render.persistent_eligible :235-249):
-    path or directlighting without motion, animated or realistic cameras
-    (which the compiler refuses), media, subsurface or interface materials;
-    every other scene takes the per-sample wave."""
-    return (desc.integrator.kind in ("path", "directlighting") and not static.has_motion and static.n_media == 0
+    path or directlighting without moving prims, an animated or a realistic
+    camera, media, subsurface or interface materials; every other scene
+    takes the per-sample wave."""
+    return (desc.integrator.kind in ("path", "directlighting") and not static.has_motion
+            and desc.camera.kind != "realistic" and not camera_animated(desc.camera) and static.n_media == 0
             and not static.has_sss_media and not static.has_tab_sss and not static.has_null_material)
+
+
+def scene_camera(desc, dev):
+    """make_camera with the scene's TransformTimes range as "motion_times"
+    (the shutter times' normalisation, render.make_wave_fn :461)."""
+    cam = make_camera(desc.camera, desc.film, dev)
+    cam["motion_times"] = (float(desc.transform_start_time), float(desc.transform_end_time))
+    return cam
 
 
 def make_wave_fn(cs: CompiledScene, cam=None):
     """Build the per-sample wave: (sa, px, py, pixel_ids, sample_idx, seed)
     -> (L w (R, 3), w (R,), n_vertices (R,)) for one sample of every pixel
     given (render._one_sample_wave): the camera ray from film dimensions 0
-    and 1 (make_regen), trace_wave, the NaN and negative clamps
+    and 1 (_film_sample), at the shutter time of dimension TIME_DIM when the
+    camera or the scene moves (the shutter interval mapped onto the
+    TransformTimes range), through a realistic camera's lens with its
+    vignetting weight on L; trace_wave, the NaN and negative clamps
     (integrator.rs:350-368) and max_sample_luminance, weighted by the
     filter's sample weight. Sets LAST_WAVE_TIER; the spatial light
     distribution and the lobe table are built here, once."""
@@ -295,7 +338,7 @@ def make_wave_fn(cs: CompiledScene, cam=None):
     desc = cs.description
     dev = cs.arrays.device
     if cam is None:
-        cam = make_camera(desc.camera, desc.film, dev)
+        cam = scene_camera(desc, dev)
     icfg, scfg, fcfg = _configs(desc, dev, desc.integrator.kind)
     icfg["n_samples"] = desc.integrator.n_samples
     icfg["cos_sample"] = desc.integrator.cos_sample
@@ -306,16 +349,28 @@ def make_wave_fn(cs: CompiledScene, cam=None):
     max_lum = float(fcfg["max_sample_luminance"])
     LAST_WAVE_TIER = f"torch-wave/{route_name(static, joint)}"
 
+    timed = cam.get("anim") is not None or static.has_motion
+
     def wave(sa, px, py, pixel_ids, sample_idx: int, seed: int):
-        regen = make_regen(cam, scfg, fcfg, px, py, pixel_ids, seed, differentials)
         sidx = torch.full(pixel_ids.shape, int(sample_idx), dtype=torch.int64, device=pixel_ids.device)
-        o, d, w, dd_x, dd_y = regen(sidx)
-        L, nv = trace_wave(sa, static, icfg, scfg, seed, o, d, pixel_ids, sidx,
-                           (dd_x, dd_y) if differentials else None, joint=joint)
+        pxf, pyf, ul1, ul2, w = _film_sample(scfg, fcfg, px, py, pixel_ids, seed, sidx)
+        time_frac = _shutter_fraction(cam, scfg, seed, pixel_ids, sidx) if timed else None
+        ray_w = None
+        if cam.get("realistic") is not None:
+            o, d, ray_w = realistic_generate_rays(cam, cam["realistic"], pxf, pyf, ul1, ul2)
+        else:
+            o, d = generate_rays(cam, pxf, pyf, ul1, ul2, time_frac)
+        diff = ray_differential_dirs(cam, pxf, pyf) if differentials else None
+        L, nv = trace_wave(sa, static, icfg, scfg, seed, o, d, pixel_ids, sidx, diff, joint=joint, time=time_frac)
         L = torch.clamp(torch.where(torch.isfinite(L), L, 0.0), min=0.0)
         if max_lum < float("inf"):
             y = L[:, 0] * 0.212671 + L[:, 1] * 0.715160 + L[:, 2] * 0.072169
             L = L * torch.where(y > max_lum, max_lum / torch.clamp(y, min=1e-12), 1.0)[:, None]
+        if w is None:
+            w = torch.ones(L.shape[0], dtype=torch.float32, device=L.device)
+        if ray_w is not None:
+            # the lens's vignetting weight weighs the sample, not the filter
+            L = L * ray_w[:, None]
         return L * w[:, None], w, nv
 
     return wave
@@ -392,6 +447,16 @@ def render_compiled(cs: CompiledScene, seed: int = 0, spp: int | None = None, pr
     as in the reference."""
     desc = cs.description
     dev = cs.arrays.device
+    if desc.integrator.kind == "bdpt":
+        # bidirectional path tracing has its own host loop (reference
+        # render_compiled :633-636)
+        from .device.bdpt import render_bdpt
+
+        t0 = time.perf_counter()
+        img = render_bdpt(cs, seed=seed, spp=spp, progress=progress) * desc.film.scale
+        render_compiled.last_timing = dict(render_bdpt.last_timing, wall_s=time.perf_counter() - t0,
+                                           tier="torch-bdpt/" + route_name(cs.static))
+        return img
     W = desc.film.x_resolution
     H = desc.film.y_resolution
     spp = int(spp if spp is not None else desc.sampler.pixel_samples)

@@ -11,7 +11,9 @@ light's tables, the kd-tree of a scene that asks for one, the
 participating media (each prim's inside and outside medium, the medium rows,
 their world-to-grid frames and density grids), the tabulated BSSRDF's rows
 of a scene with subsurface materials and, for scenes above the brute-force
-size, the wide BVH with its attribute table.
+size, the wide BVH with its attribute table, and the motion tables of a
+scene with moving prims (the shutter-close and mid-shutter keyframe rows,
+the animated-transform groups and each prim's group and compose constant).
 
 - ``SceneTensors``: torch tensors, all on one device.
 - ``SceneStatic``: Python-level counts and flags that shape the program.
@@ -176,6 +178,26 @@ _SSS_DTYPES = {
     "sss_radius": torch.float32,  # (64,) optical-radius knots
 }
 
+# motion blur (reference arrays :147-153, :204-222): the shutter-close
+# keyframe rows (None for a static scene), the mid-shutter rows of a scene
+# whose shutter transform rotates, and the exact animated-transform tables
+# (device/motion.py): per prim its group and compose constant (a triangle's
+# M0^-1, a quadric's w2o0 . M0), the group 0 the identity
+_MOTION_DTYPES = {
+    "tri_p_end": torch.float32,  # (T, 3, 3)
+    "sph_w2o_end": torch.float32,  # (S, 3, 4)
+    "sph_o2w_end": torch.float32,  # (S, 3, 4)
+    "prim_test_data_end": torch.float32,  # prim_test_data's layout
+    "tri_p_mid": torch.float32,  # (T, 3, 3)
+    "sph_w2o_mid": torch.float32,  # (S, 3, 4)
+    "sph_o2w_mid": torch.float32,  # (S, 3, 4)
+    "prim_test_data_mid": torch.float32,
+    "anim_gid": torch.int32,  # (P,) animation group per prim
+    "anim_c": torch.float32,  # (P, 3, 4) per-prim compose constant
+}
+# the animated-transform groups (SceneTensors.anim; empty without rotation)
+ANIM_TABLES = ("q0", "q1", "t0", "t1", "s0", "s1", "theta")
+
 # the wide-BVH tables: None for a brute-force scene, which has none
 _WIDE_DTYPES = {
     "wnode_tab": torch.float32,  # (ceil(Nw/8)*8, 128) wide-BVH node boxes
@@ -189,11 +211,13 @@ _WIDE_DTYPES = {
 # hopper_rows); wide_prim_rows, the global prim row of each wide-table prim
 # in a mixed scene (more than 64 triangles beside 1-8 quadrics), whose wide
 # tables cover the triangle subset and index it locally (None when they
-# cover every prim); and the grid media's densities packed for
-# csrc/medium_track.cu (med_grid_flat, med_grid_dims)
-HOPPER_TABLES = ("wnode_rec", "wleaf_rec", "wattr_rec", "wide_prim_rows", "med_grid_flat", "med_grid_dims")
-# SceneTensors fields that hold a dict of tensors
-_DICT_FIELDS = ("tex_images", "fourier", "light_images", "med_grids")
+# cover every prim); the grid media's densities packed for
+# csrc/medium_track.cu (med_grid_flat, med_grid_dims); and the
+# animated-transform groups as one row each for csrc/bvh_walk.cu's motion
+# walk (anim_rec: q0, q1, t0, t1, s0, s1, theta in ANIM_REC_COLS floats)
+HOPPER_TABLES = ("wnode_rec", "wleaf_rec", "wattr_rec", "wide_prim_rows", "med_grid_flat", "med_grid_dims",
+                 "anim_rec")
+ANIM_REC_COLS = 36
 # the stacked Fourier BSDF tables (empty dict without one)
 FOURIER_TABLES = ("mu", "aflat", "a0", "cdf", "eta")
 
@@ -263,12 +287,28 @@ class SceneTensors:
     # (medium_track.cu)
     med_grid_flat: torch.Tensor | None = None  # (N,) f32
     med_grid_dims: torch.Tensor | None = None  # (Md, 4) int32
+    anim_rec: torch.Tensor | None = None  # (G, ANIM_REC_COLS) f32, None without rotating motion
     sss_prof: torch.Tensor | None = None
     sss_cdf: torch.Tensor | None = None
     sss_rhoeff: torch.Tensor | None = None
     sss_sigma_t: torch.Tensor | None = None
     sss_eta: torch.Tensor | None = None
     sss_radius: torch.Tensor | None = None
+    tri_p_end: torch.Tensor | None = None
+    sph_w2o_end: torch.Tensor | None = None
+    sph_o2w_end: torch.Tensor | None = None
+    prim_test_data_end: torch.Tensor | None = None
+    tri_p_mid: torch.Tensor | None = None
+    sph_w2o_mid: torch.Tensor | None = None
+    sph_o2w_mid: torch.Tensor | None = None
+    prim_test_data_mid: torch.Tensor | None = None
+    anim_gid: torch.Tensor | None = None
+    anim_c: torch.Tensor | None = None
+    # the animated-transform groups of a scene whose shutter transform
+    # rotates (static.has_rot_motion): q0, q1 (G, 4) wxyz, sign-aligned;
+    # t0, t1 (G, 3); s0, s1 (G, 3, 3); theta (G,) the angle between q0 and
+    # q1; all f32; None otherwise, as in the reference
+    anim: dict | None = None
     # MIP pyramid levels of the imagemap textures, "{image_key}_l{k}" ->
     # (H_k, W_k, 3) f32 (TexProgram.image_key, n_levels)
     tex_images: dict = field(default_factory=dict)
@@ -287,15 +327,18 @@ class SceneTensors:
         return self.tri_p.device
 
     def to(self, device) -> "SceneTensors":
-        out = {f.name: None if getattr(self, f.name) is None else getattr(self, f.name).to(device)
-               for f in fields(self) if f.name not in _DICT_FIELDS}
-        return SceneTensors(**out, **{n: {k: v.to(device) for k, v in getattr(self, n).items()}
-                                      for n in _DICT_FIELDS})
+        def move(x):
+            if isinstance(x, dict):
+                return {k: v.to(device) for k, v in x.items()}
+            return None if x is None else x.to(device)
+
+        return SceneTensors(**{f.name: move(getattr(self, f.name)) for f in fields(self)})
 
     def byte_size(self) -> int:
-        tensors = [getattr(self, f.name) for f in fields(self) if f.name not in _DICT_FIELDS]
-        for n in _DICT_FIELDS:
-            tensors += list(getattr(self, n).values())
+        tensors = []
+        for f in fields(self):
+            x = getattr(self, f.name)
+            tensors += list(x.values()) if isinstance(x, dict) else [x]
         return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
@@ -347,7 +390,8 @@ class SceneStatic:
     has_sss_media: bool = False  # subsurface interiors walked as media (PBRT_TPU_NO_TABSSS=1)
     has_tab_sss: bool = False  # subsurface materials with the tabulated BSSRDF's rows
     sss_media: tuple = ()  # the medium rows that are subsurface interiors
-    has_motion: bool = False
+    has_motion: bool = False  # some prim carries shutter-close keyframes
+    has_rot_motion: bool = False  # ... and a shutter transform rotates: the exact TRS tables (anim)
     tex_programs: tuple = ()  # TexProgram per texture, in evaluation (creation) order
     has_bump: bool = False  # some material carries a bump-map texture
     has_fourier: bool = False  # a readable tabulated (fourier) BSDF table
@@ -378,7 +422,7 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
     for name, dtype in _TABLE_DTYPES.items():
         # np.array copies: reference arrays may be read-only views
         tensors[name] = torch.as_tensor(np.array(arrays[name]), dtype=dtype, device=device)
-    for name, dtype in {**_ENV_DTYPES, **_WIDE_DTYPES, **_KD_DTYPES, **_SSS_DTYPES}.items():
+    for name, dtype in {**_ENV_DTYPES, **_WIDE_DTYPES, **_KD_DTYPES, **_SSS_DTYPES, **_MOTION_DTYPES}.items():
         if arrays.get(name) is not None:
             tensors[name] = torch.as_tensor(np.array(arrays[name]), dtype=dtype, device=device)
     # mipmap levels (the reference's dict holds device arrays: np.array copies)
@@ -392,6 +436,10 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
         flat, dims = _grid_pack(tensors["med_grids"], np.asarray(arrays["med_param"]).shape[0])
         tensors["med_grid_flat"] = torch.as_tensor(flat, device=device)
         tensors["med_grid_dims"] = torch.as_tensor(dims, device=device)
+    if arrays.get("anim"):
+        tensors["anim"] = {k: torch.as_tensor(np.array(v), dtype=torch.float32, device=device)
+                           for k, v in arrays["anim"].items()}
+        tensors["anim_rec"] = anim_records(tensors["anim"])
     fourier = arrays.get("fourier") or {}
     tensors["fourier"] = {k: torch.as_tensor(np.array(fourier[k]), dtype=torch.float32, device=device)
                           for k in FOURIER_TABLES if k in fourier}
@@ -413,6 +461,8 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
         for name, rec in zip(HOPPER_TABLES, recs):
             tensors[name] = torch.as_tensor(rec, device=device)
     st = SceneStatic(**{f.name: static[f.name] for f in fields(SceneStatic) if f.name not in _DERIVED_STATIC})
+    st.has_motion = bool(st.has_motion)
+    st.has_rot_motion = bool(st.has_rot_motion)
     st.quadric_kinds = tuple(sorted(set(int(k) for k in np.asarray(arrays["sph_kind"]).ravel())))
     alpha = np.concatenate([np.asarray(arrays[n]).ravel() for n in ("prim_alpha_tex", "prim_shadow_alpha_tex")])
     st.alpha_programs = tuple(sorted(set(int(x) for x in alpha if x >= 0)))
@@ -425,6 +475,16 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
     st.sss_media = tuple(int(m) for m in st.sss_media)
     st.tex_programs = tuple(p if isinstance(p, TexProgram) else TexProgram(**vars(p)) for p in st.tex_programs)
     return SceneTensors(**tensors), st
+
+
+def anim_records(anim: dict) -> torch.Tensor:
+    """The animated-transform groups as (G, ANIM_REC_COLS) rows, the motion
+    walk's layout: q0 (0:4), q1 (4:8), t0 (8:11), t1 (11:14), s0 (14:23),
+    s1 (23:32) row-major, theta (32), zeros after."""
+    g = anim["q0"].shape[0]
+    parts = [anim[k].reshape(g, -1) for k in ANIM_TABLES[:6]] + [anim["theta"].reshape(g, 1)]
+    rec = torch.cat(parts, dim=1)
+    return torch.nn.functional.pad(rec, (0, ANIM_REC_COLS - rec.shape[1])).contiguous()
 
 
 def _grid_pack(grids: dict, n_media: int):

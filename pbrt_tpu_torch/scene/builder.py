@@ -1,8 +1,11 @@
 """Scene compiler: SceneDescription (host records) -> SceneTensors.
 
 The port's counterpart of ``pbrt_tpu/scene/builder.py compile_scene`` for
-the persistent wavefront's class (the reference's ``persistent_eligible``):
-static triangle meshes (with alpha and shadow-alpha cutouts) and the six
+the persistent wavefront's class (the reference's ``persistent_eligible``)
+and the per-sample wave's: triangle meshes (with alpha and shadow-alpha
+cutouts; moving over the shutter or not: ``_Motion``'s keyframe tables,
+animated-transform groups and swept bounds, with the reference's float64
+arithmetic; a scene with motion gets no wide tables) and the six
 quadric kinds (sphere, cylinder, disk, cone, paraboloid, hyperboloid; full
 or partial), object instancing of meshes (instanced prims keep their
 prototype's rows and carry an instance transform), the BVH or kd-tree
@@ -26,8 +29,9 @@ first), fourier (each SCATFUN table read once per path and stacked,
 hair, with constant or textured parameters, and bump maps (the texture
 programs, their parameter rows and MIP pyramids of ``_TextureRegistry``);
 the (0,2), random, stratified, halton, sobol and maxmindist samplers;
-perspective, orthographic and environment cameras and every pixel filter;
-the path, volpath, directlighting, whitted and ao integrators. Participating
+perspective (animated or not), orthographic, environment and realistic
+cameras and every pixel filter; the path, volpath, directlighting, whitted,
+ao and bdpt integrators. Participating
 media: homogeneous and grid (heterogeneous) media in the medium table
 (``med_param``, ``med_w2m``, ``med_grids``), each prim's inside and outside
 medium (``prim_medium``, from MediumInterface), the camera's medium and the
@@ -66,6 +70,7 @@ import numpy as np
 from ..core.bssrdf import catmull_rom_weights, compute_beam_diffusion_table, subsurface_from_diffuse
 from ..core.fourierbsdf import read_fourier_table
 from ..core.spectrum import copper_eta_k_rgb, y_of_rgb
+from ..core.transform import AnimatedTransform, Transform
 from ..device.mipmap import build_pyramid
 from .arrays import (
     GEOM_SPHERE,
@@ -131,8 +136,8 @@ FLAG_HAS_UV = 8
 MATERIALS = ("matte", "mirror", "glass", "metal", "plastic", "uber", "substrate", "translucent", "disney", "mix",
              "fourier", "hair", "subsurface", "kdsubsurface", "none")
 SAMPLERS = ("zerotwosequence", "lowdiscrepancy", "random", "stratified", "halton", "sobol", "maxmindist")
-INTEGRATORS = ("path", "volpath", "directlighting", "whitted", "ao")
-CAMERAS = ("perspective", "orthographic", "environment")
+INTEGRATORS = ("path", "volpath", "directlighting", "whitted", "ao", "bdpt")
+CAMERAS = ("perspective", "orthographic", "environment", "realistic")
 LIGHTS = ("point", "spot", "distant", "infinite", "goniometric", "projection")
 QUADRICS = {"sphere": QUADRIC_SPHERE, "cylinder": QUADRIC_CYLINDER, "disk": QUADRIC_DISK, "cone": QUADRIC_CONE,
             "paraboloid": QUADRIC_PARABOLOID, "hyperboloid": QUADRIC_HYPERBOLOID}
@@ -255,8 +260,6 @@ def _check_slice(desc: SceneDescription) -> None:
     cam = desc.camera
     if cam.kind not in CAMERAS:
         _unsupported(f"'{cam.kind}' cameras")
-    if cam.camera_to_world_end is not None:
-        _unsupported("animated cameras")
     if desc.sampler.kind not in SAMPLERS:
         _unsupported(f"the '{desc.sampler.kind}' sampler")
     if desc.integrator.kind not in INTEGRATORS:
@@ -267,12 +270,6 @@ def _check_slice(desc: SceneDescription) -> None:
             sph = sh.sphere
             if getattr(sph, "kind", "sphere") not in QUADRICS:
                 _unsupported(f"'{sph.kind}' quadrics")
-            if sph.object_to_world_end is not None or sph.anim is not None:
-                _unsupported("motion blur")
-        else:
-            mesh = sh.mesh
-            if mesh.p_end is not None or mesh.anim is not None:
-                _unsupported("motion blur")
         if prim.area_light is not None:
             if prim.area_light.kind != "area":
                 _unsupported(f"'{prim.area_light.kind}' lights attached to shapes")
@@ -804,6 +801,203 @@ def _quadric_row(sph, qkind):
             [-r, -r, sph.height - 1e-4], [r, r, sph.height + 1e-4])
 
 
+_IDENT34 = np.eye(4)[:3, :]
+N_T = 16  # samples of a rotating prim's exact path in its swept bounds (reference builder :835)
+
+
+class _Motion:
+    """The motion rows of the prim loop (reference builder :230-262,
+    :513-526, :571-600, :620-672, :774-850): the shutter-close and
+    mid-shutter keyframes of every triangle and quadric row, one
+    animated-transform group per distinct (M0, M1) shutter CTM pair
+    (group 0 the identity), each prim's group and compose constant, and
+    the prims whose swept bounds are re-sampled along the exact path when
+    a group rotates. All in float64, in the reference's order."""
+
+    def __init__(self):
+        self.tri_p_e, self.tri_p_m = [], []
+        self.sph_w2o_e, self.sph_o2w_e, self.sph_w2o_m, self.sph_o2w_m = [], [], [], []
+        self.any_motion = False
+        self.any_rot_motion = False
+        self.keys: dict = {}
+        self.group_mats: list = [(np.eye(4), np.eye(4))]
+        self.prim_gid: list = []
+        self.prim_c: list = []
+        self.rot_prims: list = []  # (prim row, group, lo0 (3,), hi0 (3,))
+        self.parts: list = []
+        self.has_rot_motion = False
+
+    def gid(self, pair) -> int:
+        key = (pair[0].tobytes(), pair[1].tobytes())
+        g = self.keys.get(key)
+        if g is None:
+            g = len(self.group_mats)
+            self.keys[key] = g
+            self.group_mats.append((np.asarray(pair[0], np.float64), np.asarray(pair[1], np.float64)))
+        return g
+
+    def mesh_keyframes(self, mesh, pv):
+        """A new mesh's shutter-close and mid-shutter vertices."""
+        f = np.asarray(mesh.indices, dtype=np.int64)
+        if mesh.p_end is not None:
+            pv_end = np.asarray(mesh.p_end, dtype=np.float64)[f]
+            self.any_motion = True
+            if mesh.p_mid is not None:
+                pv_mid = np.asarray(mesh.p_mid, dtype=np.float64)[f]
+                if not np.allclose(pv_mid, 0.5 * (pv + pv_end), atol=1e-9):
+                    self.any_rot_motion = True
+            else:
+                pv_mid = 0.5 * (pv + pv_end)
+        else:
+            pv_end = pv_mid = pv
+        self.tri_p_e.append(pv_end)
+        self.tri_p_m.append(pv_mid)
+
+    def mesh_bounds(self, pv):
+        """A new, non-instanced mesh's swept bounds: the hull of the
+        quadratic arc's Bezier control points {p0, 2m - (p0 + p1) / 2, p1}."""
+        pv_end, pv_mid = self.tri_p_e[-1], self.tri_p_m[-1]
+        ctrl = 2.0 * pv_mid - 0.5 * (pv + pv_end)
+        return (np.minimum.reduce([pv.min(axis=1), pv_end.min(axis=1), ctrl.min(axis=1)]),
+                np.maximum.reduce([pv.max(axis=1), pv_end.max(axis=1), ctrl.max(axis=1)]))
+
+    @staticmethod
+    def instance_sweep(mesh, inst_t, pv, lo_rows, hi_rows):
+        """An animated instanced prototype's bounds over the whole shutter:
+        N_T + 1 samples of the exact path in world space, and the arc pad."""
+        m0a = np.asarray(mesh.anim[0], np.float64)
+        at = AnimatedTransform(Transform.from_matrix(m0a), Transform.from_matrix(np.asarray(mesh.anim[1], np.float64)),
+                               0.0, 1.0)
+        m0inv = np.linalg.inv(m0a)
+        for i_t in range(N_T + 1):
+            hm = at.interpolate(i_t / N_T).m @ m0inv
+            pw = inst_t.xpoint((pv.reshape(-1, 3) @ hm[:3, :3].T) + hm[:3, 3]).reshape(-1, 3, 3)
+            lo_rows = np.minimum(lo_rows, pw.min(axis=1))
+            hi_rows = np.maximum(hi_rows, pw.max(axis=1))
+        ext = float(np.linalg.norm(hi_rows.max(axis=0) - lo_rows.min(axis=0)))
+        (_, q0a, _), (_, q1a, _) = at._parts()
+        th = float(np.arccos(np.clip(np.dot(q0a, q1a), -1.0, 1.0)))
+        pad = ext * (th / N_T) ** 2 / 8.0 + 1e-6
+        return lo_rows - pad, hi_rows + pad
+
+    def mesh_prims(self, mesh, inst_t, base_prim, pv):
+        t = len(pv)
+        if getattr(mesh, "anim", None) is not None:
+            # an instanced prototype's ray is brought to instance space
+            # first; the exact motion acts in prototype space
+            g = self.gid(mesh.anim)
+            self.prim_gid.extend([g] * t)
+            self.prim_c.extend([np.linalg.inv(mesh.anim[0])[:3, :]] * t)
+            if inst_t is None:
+                lo0, hi0 = pv.min(axis=1), pv.max(axis=1)
+                self.rot_prims.extend((base_prim + ti, g, lo0[ti], hi0[ti]) for ti in range(t))
+        else:
+            self.prim_gid.extend([0] * t)
+            self.prim_c.extend([_IDENT34] * t)
+
+    def quadric(self, sph, o2w, w2o, pid, lo, hi, obj_lo, obj_hi):
+        """A quadric's keyframes, group and swept bounds."""
+        end = sph.object_to_world_end
+        if end is not None:
+            self.sph_w2o_e.append(end.inverse().m[:3, :])
+            self.sph_o2w_e.append(end.m[:3, :])
+            self.any_motion = True
+            mid = sph.object_to_world_mid
+            if mid is None:
+                self.sph_w2o_m.append(0.5 * (w2o.m[:3, :] + end.inverse().m[:3, :]))
+                self.sph_o2w_m.append(0.5 * (o2w.m[:3, :] + end.m[:3, :]))
+            else:
+                self.sph_w2o_m.append(mid.inverse().m[:3, :])
+                self.sph_o2w_m.append(mid.m[:3, :])
+                self.any_rot_motion = True
+        else:
+            for rows, m in ((self.sph_w2o_e, w2o), (self.sph_o2w_e, o2w), (self.sph_w2o_m, w2o),
+                            (self.sph_o2w_m, o2w)):
+                rows.append(m.m[:3, :])
+        if getattr(sph, "anim", None) is not None:
+            g = self.gid(sph.anim)
+            self.prim_gid.append(g)
+            self.prim_c.append((w2o.m @ np.asarray(sph.anim[0], np.float64))[:3, :])
+            self.rot_prims.append((pid, g, np.asarray(lo, float), np.asarray(hi, float)))
+        else:
+            # a static quadric under group 0 (M(t) = I): C . M^-1 must still
+            # be its own world-to-object
+            self.prim_gid.append(0)
+            self.prim_c.append(w2o.m[:3, :])
+        if end is not None:
+            lo2, hi2 = end.xbounds(obj_lo, obj_hi)
+            lo, hi = np.minimum(lo, lo2), np.maximum(hi, hi2)
+        return lo, hi
+
+    def rebound(self, prim_lo, prim_hi):
+        """Decompose every group; when one rotates, re-bound its prims by
+        N_T + 1 samples of the exact transform path plus the inter-sample
+        arc pad (reference :817-850)."""
+        for (m0, m1) in self.group_mats:
+            at = AnimatedTransform(Transform.from_matrix(m0), Transform.from_matrix(m1), 0.0, 1.0)
+            (t0_, q0_, s0_), (t1_, q1_, s1_) = at._parts()
+            theta = float(np.arccos(np.clip(np.dot(q0_, q1_), -1.0, 1.0)))
+            self.parts.append((t0_, q0_, s0_, t1_, q1_, s1_, theta))
+            if theta > 1e-6:
+                self.has_rot_motion = True
+        if not (self.has_rot_motion and self.rot_prims):
+            return
+        hs = [[(AnimatedTransform(Transform.from_matrix(m0), Transform.from_matrix(m1), 0.0, 1.0)
+                .interpolate(i / N_T).m @ np.linalg.inv(m0))[:3, :] for i in range(N_T + 1)]
+              for (m0, m1) in self.group_mats]
+        for (row, g, lo0, hi0) in self.rot_prims:
+            theta = self.parts[g][6]
+            corners = np.array([[lo0[0], lo0[1], lo0[2]], [hi0[0], lo0[1], lo0[2]],
+                                [lo0[0], hi0[1], lo0[2]], [hi0[0], hi0[1], lo0[2]],
+                                [lo0[0], lo0[1], hi0[2]], [hi0[0], lo0[1], hi0[2]],
+                                [lo0[0], hi0[1], hi0[2]], [hi0[0], hi0[1], hi0[2]]])
+            pts = np.concatenate([(h[:, :3] @ corners.T).T + h[:, 3] for h in hs[g]])
+            # the inter-sample chord deviation of a rotation arc: r phi^2 / 8
+            r = float(np.linalg.norm(hi0 - lo0)) * 0.5 + float(np.max(np.linalg.norm(pts - pts.mean(axis=0), axis=1)))
+            pad = r * (theta / N_T) ** 2 / 8.0 + 1e-6
+            prim_lo[row] = np.minimum(prim_lo[row], pts.min(axis=0) - pad)
+            prim_hi[row] = np.maximum(prim_hi[row], pts.max(axis=0) + pad)
+
+    def tables(self, perm, tri_p_cat, sph_w2o_cat, sph_param_cat, sph_kind, ptd, pk, pg, partial_hyp):
+        """The keyframe tables (reference builder :986-1025, :1212-1219)
+        and the anim tables (:1275-1289), prim rows in BVH leaf order."""
+        out = {}
+        if self.any_motion:
+            def cat(chunks):
+                return np.concatenate([np.asarray(c, dtype=np.float32).reshape(-1, 3, 3) for c in chunks], axis=0)
+
+            tri_pe = cat(self.tri_p_e) if self.tri_p_e else tri_p_cat
+            tri_pm = cat(self.tri_p_m) if self.tri_p_m else tri_p_cat
+            w2oe = np.asarray(self.sph_w2o_e, dtype=np.float32).reshape(-1, 3, 4)
+            w2om = np.asarray(self.sph_w2o_m, dtype=np.float32).reshape(-1, 3, 4)
+            tri_rows = np.where(pk == GEOM_TRI)[0]
+            q_rows = np.where(pk == GEOM_SPHERE)[0]
+            for name, tri_k, w2o_k in (("end", tri_pe, w2oe), ("mid", tri_pm, w2om)):
+                if name == "mid" and not self.any_rot_motion:
+                    continue
+                p = np.zeros_like(ptd)
+                if len(tri_rows):
+                    p[tri_rows, 0:9] = tri_k[pg[tri_rows]].reshape(len(tri_rows), 9)
+                if len(q_rows):
+                    p[q_rows, 0:12] = w2o_k[pg[q_rows]].reshape(len(q_rows), 12)
+                    p[q_rows, 12:18] = sph_param_cat[pg[q_rows]][:, 0:6]
+                    p[q_rows, 18] = np.asarray(sph_kind, np.float32)[pg[q_rows]]
+                    if partial_hyp:
+                        p[q_rows, 19:25] = sph_param_cat[pg[q_rows]][:, 6:12]
+                out[f"prim_test_data_{name}"] = p
+                out[f"tri_p_{name}"] = tri_k
+                out[f"sph_w2o_{name}"] = w2o_k
+                out[f"sph_o2w_{name}"] = np.asarray(getattr(self, f"sph_o2w_{name[0]}"),
+                                                    dtype=np.float32).reshape(-1, 3, 4)
+        if self.has_rot_motion:
+            idx = {"t0": 0, "q0": 1, "s0": 2, "t1": 3, "q1": 4, "s1": 5}
+            out["anim"] = {k: np.stack([p[i] for p in self.parts]).astype(np.float32) for k, i in idx.items()}
+            out["anim"]["theta"] = np.asarray([p[6] for p in self.parts], np.float32)
+            out["anim_gid"] = np.asarray([self.prim_gid[i] for i in perm], np.int32)
+            out["anim_c"] = np.stack([self.prim_c[i] for i in perm]).astype(np.float32)
+        return out
+
+
 def _mesh_rows(mesh):
     """A mesh's per-triangle rows: (vertices (t, 3, 3), shading normals,
     uvs, areas, flags), as the reference's prim loop computes them."""
@@ -919,6 +1113,7 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
     proto_rows: dict[int, tuple] = {}  # id(mesh) -> (t0, t, pv, areas, flags)
 
     sss = _SubsurfaceRows(med)
+    mo = _Motion()
     for prim in desc.primitives:
         mid = material_id(prim.material)
         sss.register(prim.material, mid)
@@ -939,8 +1134,9 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
             if sph.reverse_orientation:
                 flags |= FLAG_REVERSE_ORIENTATION
             light_id = -1
+            pid = len(prim_kind)
             if prim.area_light is not None:
-                light_id = int(add_area_lights(prim.area_light, len(prim_kind), 1)[0])
+                light_id = int(add_area_lights(prim.area_light, pid, 1)[0])
             prim_kind.append(GEOM_SPHERE)
             prim_inst.append(0)
             prim_geom.append(si)
@@ -951,7 +1147,7 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
             prim_alpha.append(-1)
             prim_shadow_alpha.append(-1)
             prim_medium.append(media)
-            lo, hi = o2w.xbounds(obj_lo, obj_hi)
+            lo, hi = mo.quadric(sph, o2w, o2w.inverse(), pid, *o2w.xbounds(obj_lo, obj_hi), obj_lo, obj_hi)
             prim_lo.append(lo)
             prim_hi.append(hi)
             continue
@@ -962,6 +1158,7 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
             pv, nv, uvv, areas, flags = _mesh_rows(mesh)
             t = len(pv)
             t0 = sum(len(c) for c in tri_p)
+            mo.mesh_keyframes(mesh, pv)
             tri_p.append(pv)
             tri_n.append(nv)
             tri_uv.append(uvv)
@@ -974,10 +1171,15 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
             inst_i2w_rows.append(inst_t.m[:3, :])
             inst_w2i_rows.append(inst_t.inverse().m[:3, :])
             flags_p = flags ^ (FLAG_FLIP_GEOM_N if inst_t.swaps_handedness() else 0)
-            # world bounds of the instance-space triangles
+            # world bounds of the instance-space triangles, swept over the
+            # shutter for an animated prototype
             pv_w = inst_t.xpoint(pv.reshape(-1, 3)).reshape(-1, 3, 3)
+            lo_rows, hi_rows = pv_w.min(axis=1), pv_w.max(axis=1)
+            if getattr(mesh, "anim", None) is not None:
+                lo_rows, hi_rows = mo.instance_sweep(mesh, inst_t, pv, lo_rows, hi_rows)
         else:
-            iid, flags_p, pv_w = 0, flags, pv
+            iid, flags_p = 0, flags
+            lo_rows, hi_rows = mo.mesh_bounds(pv)
         base_prim = len(prim_kind)
         light_ids = np.full(t, -1, dtype=np.int64)
         if prim.area_light is not None:
@@ -992,10 +1194,9 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         prim_flags.extend([flags_p] * t)
         prim_area.extend(areas.tolist())
         prim_inst.extend([iid] * t)
-        # static meshes: the reference's Bezier-hull motion bound reduces to
-        # the triangle's own AABB exactly
-        prim_lo.extend(pv_w.min(axis=1))
-        prim_hi.extend(pv_w.max(axis=1))
+        prim_lo.extend(lo_rows)
+        prim_hi.extend(hi_rows)
+        mo.mesh_prims(mesh, inst_t, base_prim, pv)
         # alpha / shadow-alpha cutout masks (triangle.rs:29-30)
         a_id = tex_reg.register(mesh.alpha_texture) if mesh.alpha_texture is not None else -1
         sa_id = tex_reg.register(mesh.shadow_alpha_texture) if mesh.shadow_alpha_texture is not None else a_id
@@ -1010,6 +1211,8 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         _unsupported("scenes without primitives")
     if not lights and not use_brute:
         _unsupported("scenes of > 64 primitives without lights")
+
+    mo.rebound(prim_lo, prim_hi)
 
     # --- world bounds ---------------------------------------------------------
     wlo = np.min(np.asarray(prim_lo), axis=0)
@@ -1084,6 +1287,7 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
             ptd[q_rows, 19:25] = sph_param_cat[pg[q_rows]][:, 6:12]
 
     mat_kind = np.array([r[0] for r in mat_rows], dtype=np.int32)
+    motion = mo.tables(perm, tri_p_cat, sph_w2o_cat, sph_param_cat, sph_kind, ptd, pk, pg, partial_hyp)
     arrays = {
         "tri_p": tri_p_cat,
         "tri_n": _cat(tri_n, (3, 3)),
@@ -1128,6 +1332,7 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         "fourier": _stack_fourier_tables(fourier_tables),
         "world_center": wc.astype(np.float32),
         "world_radius": np.float32(wr),
+        **motion,
     }
     inf_idx = max((i for i, l in enumerate(lights) if l[0] == LIGHT_INFINITE), default=-1)
     if infinite_host is not None and infinite_host.image is not None:
@@ -1155,7 +1360,8 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
     n_tri_prims = len(tri_rows)
     all_tri = n_tri_prims == n_prims
     mixed_ok = not all_tri and n_tri_prims > BRUTE_FORCE_MAX_PRIMS and 0 < len(sph_o2w) <= MAX_WIDE_QUADRICS
-    has_wide_tri = not use_brute and accel_kind == "bvh" and not has_instances and (all_tri or mixed_ok)
+    has_wide_tri = (not use_brute and accel_kind == "bvh" and not has_instances and not mo.any_motion
+                    and (all_tri or mixed_ok))
     if has_wide_tri:
         # --- wide BVH over the (permuted) triangle rows -----------------------
         # a mixed scene's tables cover its triangle prims only (the
@@ -1216,7 +1422,8 @@ def compile_scene(desc: SceneDescription, device="cuda") -> CompiledScene:
         "has_sss_media": bool(sss.walk_media),
         "sss_media": tuple(med.ids[n] for n in sss.walk_media.values()),
         "has_tab_sss": bool(sss.tab_mats),
-        "has_motion": False,
+        "has_motion": mo.any_motion,
+        "has_rot_motion": mo.has_rot_motion,
         "tex_programs": tuple(tex_reg.programs),
         "has_bump": any(r[4] >= 0 for r in mat_rows),
         "has_fourier": bool(fourier_tables),

@@ -64,6 +64,18 @@ material and a UV sphere of kdsubsurface, under path: the tabulated BSSRDF
 (or, under PBRT_TPU_NO_TABSSS=1, the volumetric random walk). Both are
 triangle-only, so they walk the wide BVH.
 
+``motion_room`` is the mesh room's enclosure with three moving prims over
+a 0-1 shutter (TransformTimes 0 1): a 1,984-triangle UV sphere spinning 30
+degrees about its vertical axis, a 12-triangle box translating 0.3 and a
+full sphere quadric crossing the room, seen by a camera that dollies and
+yaws over the shutter; with rotate=False the UV sphere translates instead,
+no group rotates, and the scene takes the keyframe tables in place of the
+exact animated transform. Its moving prims carry the keyframes the parser
+gives the same directives (``_animate``). ``realistic_mesh_room`` is the
+mesh room under Camera "realistic" with the lens file ``write_lens``
+writes (the built-in double Gauss), an aperture and a focus distance on
+the room's far wall.
+
 ``write_pbrt`` writes a scene of these out as a .pbrt file, each mesh as a
 binary PLY beside it, each imagemap as a PFM image and each Fourier table
 as a copy, so the front end can be driven with the same scenes
@@ -79,7 +91,7 @@ import tempfile
 import numpy as np
 
 from .core.fourierbsdf import write_rough_conductor_table
-from .core.transform import Transform
+from .core.transform import AnimatedTransform, Transform
 from .parser.api import MEDIUM_PRESETS, _normed
 from .scene.host import (
     CameraConfig, FilmConfig, HostLight, HostMaterial, HostMedium, HostPrimitive, HostTexture,
@@ -243,6 +255,102 @@ def sss_room(n_side: int = 248, sss_res: int = 128, kd_res: int = 32) -> SceneDe
         HostPrimitive(shape=ShapeRecord(mesh=_displaced_sphere([-0.9, 1.25, -0.8], 0.55, sss_res)), material=skin),
         HostPrimitive(shape=ShapeRecord(mesh=_uv_sphere([0.95, 1.15, -0.5], 0.45, kd_res, kd_res)), material=kd),
     ]
+    return desc
+
+
+def _animate(shape: ShapeRecord, ctm0: Transform, ctm1: Transform) -> ShapeRecord:
+    """Give a shape made under ctm0 the shutter-close CTM ctm1: its
+    keyframes, as parser.api's shape() computes them for the directives
+    ActiveTransform EndTime / Transform / ActiveTransform All (write_pbrt
+    writes those)."""
+    rel = ctm1 @ ctm0.inverse()
+    mid = AnimatedTransform(Transform(), rel, 0.0, 1.0).interpolate(0.5)
+    key_pair = (np.asarray(ctm0.m, np.float64).copy(), np.asarray(ctm1.m, np.float64).copy())
+    if shape.mesh is not None:
+        p0 = np.asarray(shape.mesh.p, dtype=np.float64).reshape(-1, 3)
+        shape.mesh.p_end = rel.xpoint(p0)
+        shape.mesh.p_mid = mid.xpoint(p0)
+        shape.mesh.anim = key_pair
+    else:
+        shape.sphere.object_to_world_end = rel @ shape.sphere.object_to_world
+        shape.sphere.object_to_world_mid = mid @ shape.sphere.object_to_world
+        shape.sphere.anim = key_pair
+    return shape
+
+
+def _about(center, rot: Transform) -> Transform:
+    """rot about center: T(c) . rot . T(-c), as one from_matrix transform."""
+    c = np.asarray(center, np.float64)
+    return Transform.from_matrix(Transform.translate(c).m @ rot.m @ Transform.translate(-c).m)
+
+
+MOTION_SPHERE = ([-1.2, 1.7, -1.2], 0.6)  # the spinning UV sphere's center and radius
+MOTION_BOX = ([1.3, 1.6, -0.6], 0.6)  # the translating box's center and edge
+MOTION_BALL = ([-2.2, 2.7, -2.0], [2.2, 2.7, -2.0], 0.35)  # the quadric's start, end and radius
+
+
+def motion_room(n_side: int = 248, rotate: bool = True, sphere_res: int = 32) -> SceneDescription:
+    """The mesh room with moving prims under a moving camera, path depth 5,
+    (0,2) + box, power light selection (its docstring above). sphere_res:
+    the UV sphere's rings and segments (2 res (res - 1) triangles: 1,984 at
+    32)."""
+    desc = mesh_room(n_side)
+    desc.transform_start_time, desc.transform_end_time = 0.0, 1.0
+    ident = Transform()
+    c, r = MOTION_SPHERE
+    ball = _uv_sphere(c, r, sphere_res, sphere_res)
+    spin = _about(c, Transform.rotate(30.0, [0.0, 1.0, 0.0])) if rotate else Transform.from_matrix(
+        Transform.translate([0.0, 0.2, 0.0]).m)
+    sphere = HostPrimitive(shape=_animate(ShapeRecord(mesh=ball), ident, spin),
+                           material=HostMaterial(kind="plastic", params={"Kd": ("const", np.array([0.2, 0.35, 0.6])),
+                                                                         "Ks": ("const", np.array([0.3, 0.3, 0.3]))}))
+    bc, edge = MOTION_BOX
+    verts, idx = _box(bc, edge)
+    box = HostPrimitive(shape=_animate(ShapeRecord(mesh=TriangleMesh(p=verts, indices=idx)), ident,
+                                       Transform.from_matrix(Transform.translate([0.3, 0.0, 0.0]).m)),
+                        material=HostMaterial(kind="matte", params={"Kd": ("const", np.array([0.7, 0.55, 0.2]))}))
+    q0, q1, qr = MOTION_BALL
+    start = Transform.translate(q0)
+    quad = HostPrimitive(shape=_animate(ShapeRecord(sphere=Sphere(object_to_world=start, radius=qr, z_min=-qr,
+                                                                  z_max=qr)), start,
+                                        Transform.from_matrix(Transform.translate(q1).m)),
+                         material=HostMaterial(kind="matte", params={"Kd": ("const", np.array([0.6, 0.2, 0.2]))}))
+    desc.primitives += [sphere, box, quad]
+    # the camera dollies 0.25 forward and yaws 3 degrees over the shutter
+    eye, look, up = (np.asarray(v, np.float64) for v in ROOM_LOOK_AT)
+    yaw = Transform.rotate(3.0, [0.0, 1.0, 0.0]).m[:3, :3]
+    fwd = (look - eye) / np.linalg.norm(look - eye)
+    eye1 = eye + 0.25 * fwd
+    c2w_end = Transform.look_at(eye1, eye1 + yaw @ (look - eye), up)
+    desc.camera.camera_to_world_end = Transform.from_matrix(c2w_end.m_inv).inverse()
+    return desc
+
+
+LENS_FILE = "dgauss.dat"  # write_lens's file name
+
+
+def write_lens(path: str) -> str:
+    """Write the built-in double Gauss (realistic.DEFAULT_LENS) as a pbrt
+    lens file: one row per element of curvature radius, thickness, index
+    of refraction and aperture diameter, in mm. Returns path."""
+    from .device.realistic import DEFAULT_LENS
+
+    with open(path, "w") as f:
+        f.write("# radius thickness eta aperture (mm), front element first\n")
+        for row in DEFAULT_LENS:
+            f.write(" ".join(repr(float(v)) for v in row) + "\n")
+    return path
+
+
+def realistic_mesh_room(n_side: int = 248, lens_dir: str | None = None, aperture: float = 4.0,
+                        focus: float = 7.5) -> SceneDescription:
+    """The mesh room under Camera "realistic": the lens file write_lens
+    writes into lens_dir (a new temporary folder when None), the aperture
+    diameter in mm, the focus distance on the far wall."""
+    desc = mesh_room(n_side)
+    lens = write_lens(os.path.join(lens_dir or tempfile.mkdtemp(prefix="pbrt_lens_"), LENS_FILE))
+    desc.camera = CameraConfig(kind="realistic", camera_to_world=Transform.look_at(*ROOM_LOOK_AT), lens_file=lens,
+                               aperture_diameter=aperture, focus_distance=focus)
     return desc
 
 
@@ -1058,6 +1166,12 @@ def _quadric_shape(sph) -> str:
     return f'Shape "hyperboloid" "point p1" [{_fmt(sph.p1)}] "point p2" [{_fmt(sph.p2)}] {phi}'
 
 
+def _moving(desc) -> bool:
+    """Some prim or the camera moves over the shutter."""
+    return desc.camera.camera_to_world_end is not None or any(
+        (p.shape.mesh or p.shape.sphere).anim is not None for p in desc.primitives)
+
+
 def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True) -> None:
     """Write a scene of triangle meshes (with their normals, UVs and alpha
     cutouts), quadrics of the six kinds and instanced meshes (an
@@ -1069,7 +1183,10 @@ def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True)
     file) and infinite lights (a map named by its file name, relative to
     the .pbrt file) as a .pbrt file: a LookAt camera (look_at = (eye, look,
     up), the one the description's camera was made with; a perspective,
-    orthographic or environment camera), the film, pixel filter,
+    orthographic, environment or realistic camera, its shutter-close
+    transform, the shutter and TransformTimes when something moves), the
+    moving shapes' shutter-close CTMs (ActiveTransform EndTime), the film,
+    pixel filter,
     integrator, the accelerator, participating media (MakeNamedMedium,
     homogeneous or a grid with its densities, each prim's MediumInterface
     and the camera's medium), the interface material (Material "none") and
@@ -1088,8 +1205,21 @@ def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True)
     folder = os.path.dirname(os.path.abspath(path))
     cam, film, integ = desc.camera, desc.film, desc.integrator
     out = [f"LookAt {_fmt(np.concatenate([np.ravel(v) for v in look_at]))}"]
+    if cam.camera_to_world_end is not None:
+        # the shutter-close camera: its world-to-camera as the end CTM
+        out += ["ActiveTransform EndTime", f"Transform {_fmt(cam.camera_to_world_end.m_inv.T.ravel())}",
+                "ActiveTransform All"]
+    if (desc.transform_start_time, desc.transform_end_time) != (0.0, 1.0) or _moving(desc):
+        out.append(f"TransformTimes {_fmt([desc.transform_start_time])} {_fmt([desc.transform_end_time])}")
+    shutter = ""
+    if (cam.shutter_open, cam.shutter_close) != (0.0, 1.0) or _moving(desc):
+        shutter = f' "float shutteropen" [{_fmt([cam.shutter_open])}] "float shutterclose" [{_fmt([cam.shutter_close])}]'
     if cam.kind == "perspective":
-        out.append(f'Camera "perspective" "float fov" [{_fmt([cam.fov])}]')
+        out.append(f'Camera "perspective" "float fov" [{_fmt([cam.fov])}]{shutter}')
+    elif cam.kind == "realistic":
+        out.append(f'Camera "realistic" "string lensfile" "{cam.lens_file}" '
+                   f'"float aperturediameter" [{_fmt([cam.aperture_diameter])}] '
+                   f'"float focusdistance" [{_fmt([cam.focus_distance])}]{shutter}')
     elif cam.kind == "orthographic":
         window = f' "float screenwindow" [{_fmt(cam.screen_window)}]' if cam.screen_window is not None else ""
         out.append(f'Camera "orthographic"{window}')
@@ -1204,6 +1334,11 @@ def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True)
             out.append(f'  MediumInterface "{prim.inside_medium}" "{prim.outside_medium}"')
         if prim.shape.mesh is None:
             out.append(f"  {_transform_line(prim.shape.sphere.object_to_world)}")
+        anim = (prim.shape.mesh or prim.shape.sphere).anim
+        if anim is not None:
+            # a moving shape: its shutter-close CTM (_animate's ctm1)
+            out += ["  ActiveTransform EndTime", f"  Transform {_fmt(np.asarray(anim[1]).T.ravel())}",
+                    "  ActiveTransform All"]
         out += shape_lines(i, prim)
         out.append("AttributeEnd")
     out.append("WorldEnd")

@@ -29,7 +29,9 @@ csrc/bvh_walk.cu (quadric_room and its kd variant), whose renders are held
 on the card against the CPU. The grid media's tracking kernel
 (csrc/medium_track.cu) makes its twin's decisions on every ray, and the
 per-sample wave's renders (volpath, the BSSRDF, whitted) are held on the
-card against the CPU.
+card against the CPU. The walks' motion instantiations match their twins
+bit for bit at random shutter times, and the motion room, the realistic
+camera and BDPT render on the card as on the CPU.
 """
 import numpy as np
 import pytest
@@ -707,5 +709,71 @@ def test_wave_cuda_matches_cpu(cuda_device, scene):
     img_c = render.render_compiled(cs, seed=1)
     img_g = render.render_compiled(cs.to(cuda_device), seed=1)
     assert render.render_compiled.last_timing["tier"] == "torch-wave/wide"
+    assert img_c.mean() > 0 and np.abs(img_g - img_c).sum() / np.abs(img_c).sum() < 1e-3
+    assert np.isclose(img_g, img_c, rtol=1e-2, atol=1e-4).all(axis=-1).mean() >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rotate", [True, False])
+@pytest.mark.parametrize("kd", [False, True])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_motion_walk_matches_plain(cuda_device, rotate, kd, any_hit):
+    """The walks' motion instantiations (csrc/bvh_walk.cu MOTION 2: the exact
+    animated transform, rotate; MOTION 1: the keyframe rows) against their
+    twins on the small motion room (and its kd variant) on random rays at
+    random shutter fractions: t, prim and pops bit for bit, b1 and b2 too on
+    triangle hits; on a hit of the moving sphere b1, b2 (its object-space x,
+    y from csrc/quadric.cuh, the static walk's code) within 2 ulps, as the
+    static walk gives on the card (chip_smoke.py phase 43)."""
+    from pbrt_tpu_torch.device import bvh_walk
+    from pbrt_tpu_torch.scenes import motion_room
+
+    desc = motion_room(6, rotate=rotate, sphere_res=6)
+    desc.accelerator = "kdtree" if kd else "bvh"
+    cs = compile_scene(desc, "cpu").to(cuda_device)
+    o, d, t_max = (x.contiguous() for x in _random_rays(cuda_device))
+    tm = torch.as_tensor(np.random.RandomState(8).uniform(0, 1, o.shape[0]), dtype=torch.float32,
+                         device=cuda_device)
+    kernel = bvh_walk.kd_walk_motion_cuda if kd else bvh_walk.bvh_walk_motion_cuda
+    plain = bvh_walk.kd_walk_plain if kd else bvh_walk.walk_plain
+    res_k = kernel(cs.arrays, cs.static, o, d, t_max, any_hit, time=tm)
+    res_p = plain(cs.arrays, cs.static, o, d, t_max, any_hit, time=tm)
+    torch.cuda.synchronize()
+    quad = (res_k[1] >= 0) & (cs.arrays.prim_kind[res_k[1].long().clamp(min=0)] != 0)
+    for i, (a, b) in enumerate(zip(res_k, res_p[:5])):
+        b = b.to(a.dtype)
+        if i in (2, 3):
+            assert torch.equal(a[~quad], b[~quad])
+            ulp = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()[quad]
+            assert ulp.numel() == 0 or ulp.max().item() <= 2
+        else:
+            assert torch.equal(a, b)
+    assert (res_k[1] >= 0).any() and kernel.counters[cuda_device].tolist() == [0, 0] and res_p[5] == 0
+    static = (bvh_walk.kd_walk_cuda if kd else bvh_walk.bvh_walk_cuda)(cs.arrays, cs.static, o, d, t_max, any_hit)
+    assert not torch.equal(static[0], res_k[0])  # the time moves the hits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["motion", "motion_keyframes", "realistic", "bdpt"])
+def test_motion_realistic_bdpt_cuda_matches_cpu(cuda_device, scene, tmp_path):
+    """The small motion room (the time-aware walk; rotate=False: the
+    keyframe tables), the mesh room under the realistic camera and under
+    BDPT, 24x16 at 2 spp, on the card against the CPU within chip_smoke.py's
+    crop rule; the route labels."""
+    from pbrt_tpu_torch.scenes import motion_room, realistic_mesh_room
+
+    make = {"motion": lambda: motion_room(8, sphere_res=8), "motion_keyframes": lambda: motion_room(8, rotate=False),
+            "realistic": lambda: realistic_mesh_room(8, lens_dir=str(tmp_path)), "bdpt": lambda: mesh_room(8)}
+    desc = make[scene]()
+    desc.film.x_resolution, desc.film.y_resolution = 24, 16
+    desc.sampler.pixel_samples = 2
+    if scene == "bdpt":
+        desc.integrator.kind, desc.integrator.max_depth = "bdpt", 3
+    cs = compile_scene(desc, "cpu")
+    img_c = render.render_compiled(cs, seed=1)
+    img_g = render.render_compiled(cs.to(cuda_device), seed=1)
+    tier = {"motion": "torch-wave/bvh", "motion_keyframes": "torch-wave/bvh", "realistic": "torch-wave/wide",
+            "bdpt": "torch-bdpt/wide"}[scene]
+    assert render.render_compiled.last_timing["tier"] == tier
     assert img_c.mean() > 0 and np.abs(img_g - img_c).sum() / np.abs(img_c).sum() < 1e-3
     assert np.isclose(img_g, img_c, rtol=1e-2, atol=1e-4).all(axis=-1).mean() >= 0.99

@@ -21,6 +21,7 @@ import dataclasses
 import functools
 import inspect
 import math
+import os
 import re
 
 import jax.numpy as jnp
@@ -696,7 +697,21 @@ SLICE_KINDS = {"orthographic": "'orthographic' cameras", "environment": "'enviro
                "instancing": "object instancing", "alpha": "alpha cutouts",
                "media": "participating media", "medium interface": "medium interfaces",
                "interface": "the 'interface' material", "subsurface": "the 'subsurface' material",
-               "kdsubsurface": "the 'kdsubsurface' material"}
+               "kdsubsurface": "the 'kdsubsurface' material", "motion": "motion blur",
+               "animated camera": "animated cameras", "realistic": "'realistic' cameras"}
+
+
+@functools.lru_cache(maxsize=None)
+def _one_lens() -> str:
+    """A lens file of one biconvex element and the stop (a realistic camera
+    that focuses and bounds its pupil in a fraction of the double Gauss's
+    time)."""
+    import tempfile
+
+    path = os.path.join(tempfile.mkdtemp(prefix="lens_"), "one.dat")
+    with open(path, "w") as f:
+        f.write("20.0 3.0 1.5 12.0\n-20.0 2.0 1.0 12.0\n0.0 40.0 0.0 8.0\n")
+    return path
 
 
 def slice_kind_scene(desc, kind):
@@ -704,8 +719,9 @@ def slice_kind_scene(desc, kind):
     (an 8 x 4 map), the last prim's sphere made that quadric, the first
     mesh instanced by a translation, or the first mesh given an alpha
     texture (a constant 0.5: cut nowhere), a homogeneous fog as the
-    camera's medium (and the first prim's inside), or the first mesh given
-    the interface, subsurface or kdsubsurface material."""
+    camera's medium (and the first prim's inside), the first mesh given
+    the interface, subsurface or kdsubsurface material, the last prim
+    moving 0.2 over the shutter, or the camera doing so (animated)."""
     from pbrt_tpu_torch.scene.host import HostMedium
     from pbrt_tpu_torch.scenes import _texture
 
@@ -719,7 +735,18 @@ def slice_kind_scene(desc, kind):
         mesh.material = HostMaterial(kind={"interface": "none"}.get(kind, kind), params={"eta": ("const", 1.33)})
         return desc
 
-    if kind in ("orthographic", "environment"):
+    if kind == "motion":
+        from pbrt_tpu_torch.scenes import _animate
+
+        prim = desc.primitives[-1]
+        o2w = prim.shape.sphere.object_to_world if prim.shape.mesh is None else Transform()
+        _animate(prim.shape, o2w, Transform.from_matrix(Transform.translate([0.2, 0.0, 0.0]).m @ o2w.m))
+    elif kind == "animated camera":
+        c2w = desc.camera.camera_to_world
+        desc.camera = dataclasses.replace(desc.camera, camera_to_world_end=Transform.translate([0.1, 0.0, 0.0]) @ c2w)
+    elif kind == "realistic":
+        desc.camera = dataclasses.replace(desc.camera, kind=kind, lens_file=_one_lens())
+    elif kind in ("orthographic", "environment"):
         desc.camera = dataclasses.replace(desc.camera, kind=kind)
     elif kind in ("goniometric", "projection"):
         desc.lights.append(HostLight(kind=kind, light_to_world=Transform.translate([0.0, 4.0, 2.0]),

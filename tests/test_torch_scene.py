@@ -128,6 +128,7 @@ def test_port_imports_without_jax():
         "import pbrt_tpu_torch.main, pbrt_tpu_torch.__main__\n"
         "import pbrt_tpu_torch.core.imageio, pbrt_tpu_torch.scene.tessellate, pbrt_tpu_torch.utils.stats\n"
         "import pbrt_tpu_torch.device.medium_track, pbrt_tpu_torch.device.bssrdf, pbrt_tpu_torch.core.bssrdf\n"
+        "import pbrt_tpu_torch.device.motion, pbrt_tpu_torch.device.realistic, pbrt_tpu_torch.device.bdpt\n"
         "assert not any(m == 'pbrt_tpu' or m.startswith('pbrt_tpu.') for m in sys.modules)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
@@ -230,8 +231,9 @@ def test_mixed_scene_refusals_name_the_feature(case):
     other quadrics, more than 8 quadrics in a scene of more than 64 prims,
     and such a scene of 64 triangles or fewer. Since the binary-BVH walk
     (device/bvh_walk.py) the port compiles each and routes it there, with
-    the reference's tables; what stays outside the class keeps its refusal
-    by name (motion blur on one of the quadrics)."""
+    the reference's tables; motion blur on one of the quadrics too, which
+    keeps the scene on the walk; what stays outside the class keeps its
+    refusal by name (the sppm integrator)."""
     from pbrt_tpu_torch.core.transform import Transform
     from pbrt_tpu_torch.device.intersect import route_name
     from pbrt_tpu_torch.scene.host import HostPrimitive, ShapeRecord, Sphere
@@ -255,7 +257,10 @@ def test_mixed_scene_refusals_name_the_feature(case):
     for name in ("prim_test_data", "bvh_packed", "sph_param", "prim_kind", "prim_area"):
         np.testing.assert_array_equal(getattr(cs.arrays, name).numpy(), np.asarray(getattr(ref.arrays, name)))
     desc.primitives[-1].shape.sphere.object_to_world_end = Transform.translate([0.0, 3.0, 0.0])
-    with pytest.raises(NotImplementedError, match="motion blur"):
+    moving = compile_scene(desc, "cpu")
+    assert moving.static.has_motion and route_name(moving.static) == "bvh"
+    desc.integrator.kind = "sppm"
+    with pytest.raises(NotImplementedError, match="the 'sppm' integrator"):
         compile_scene(desc, "cpu")
 
 
@@ -330,9 +335,11 @@ def test_bssrdf_and_interface_materials_refused_by_name(kind):
     desc.primitives[1].material = sub if kind != "mix-of-subsurface" else HostMaterial(kind="mix", params={
         "material1": ("material", HostMaterial(kind="matte")), "material2": ("material", sub)})
     assert compile_scene(desc, "cpu").static.has_tab_sss == (kind in ("subsurface", "kdsubsurface"))
-    feature, match = {"subsurface": ("bdpt", "the 'bdpt' integrator"), "kdsubsurface": ("sppm", "the 'sppm' "),
-                      "interface": ("mlt", "the 'mlt' "), "mix-of-subsurface": ("realistic", "'realistic'")}[kind]
-    setattr(desc.camera if feature == "realistic" else desc.integrator, "kind", feature)
+    # bdpt and the realistic camera compile now: the cases that named them
+    # meet the refusals that remain
+    feature, match = {"subsurface": ("mlt", "the 'mlt' integrator"), "kdsubsurface": ("sppm", "the 'sppm' "),
+                      "interface": ("mlt", "the 'mlt' "), "mix-of-subsurface": ("sppm", "the 'sppm' integrator")}[kind]
+    desc.integrator.kind = feature
     with pytest.raises(NotImplementedError, match=match):
         compile_scene(desc, "cpu")
 

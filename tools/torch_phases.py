@@ -4,7 +4,8 @@
     python3 tools/torch_phases.py [--scene mesh|gallery|material_room|mesh_b4|material_room_wave|area_box|
                                            textured_room|textured_gallery|checker_room|sphere_room|
                                            sphere_room_248|zoo_room|zoo_room_248|quadric_room|
-                                           quadric_room_kd|fog_room|sss_room]
+                                           quadric_room_kd|fog_room|sss_room|motion_room|
+                                           realistic_room|bdpt_mesh]
                                   [--reps 5] [--out FILE.json]
 
 Renders at 1000x500, 16 spp, depth 5 one of: the 123,650-triangle mesh room
@@ -29,8 +30,13 @@ quadric_room; quadric_room_kd: its kd variant at n_side 40 without
 instances, on the kd walk), or, through the per-sample wave, fog_room
 (volpath: the mesh room's enclosure in a homogeneous fog, an interface box
 of grid smoke; --scene fog_room) or sss_room (path: a subsurface and a
-kdsubsurface sphere in the enclosure; --scene sss_room), and reports,
-with the card's name and power limit:
+kdsubsurface sphere in the enclosure; --scene sss_room), motion_room (the
+mesh room with a spinning UV sphere, a translating box and a moving
+sphere quadric under a dollying camera: the time-aware binary-BVH walk;
+--scene motion_room) or the mesh room under the realistic camera (--scene
+realistic_room), or the mesh room under bidirectional path tracing
+(--scene bdpt_mesh: B1 for every subpath and connection query), and
+reports, with the card's name and power limit:
  1. end to end: render wall time and path_vertex_samples_per_sec over
     --reps untraced renders after a warm-up (median, min, max);
  2. the traversal kernel against its plain PyTorch twin on the main path's
@@ -69,7 +75,15 @@ with the card's name and power limit:
     wavefront iteration (closest-hit queries), the device busy share
     (kernel time / wall) and the top kernels (--out also keeps the chrome
     trace); on the wave's scenes per wave bounce (its iterations and last
-    pickup) instead.
+    pickup) instead;
+ 5. BDPT (--scene bdpt_mesh) in place of 2-4: one render with a
+    synchronize around the camera subpaths, the light subpaths, the
+    connections of t >= 2 (of which the MIS weights and B1) and the splats
+    (the t = 1 connections and the film's index_add_); then one render under
+    torch.profiler: device kernels per wave and the busy share.
+The motion scene's traversal rows (2) run the walk's motion entry at
+uniform shutter fractions from --seed, and its layers count the motion
+walk as a span within the queries.
 --all-matte gives every material of the scene the room's matte (Kd 0.6,
 the panel's black Kd kept), so that a wide-megakernel run with and without
 it tells shading divergence from geometry. The spans are wrapped around the
@@ -130,7 +144,7 @@ def main() -> int:
                     choices=("mesh", "gallery", "material_room", "mesh_b4", "material_room_wave", "area_box",
                              "textured_room", "textured_gallery", "checker_room", "sphere_room", "sphere_room_248",
                              "zoo_room", "zoo_room_248", "quadric_room", "quadric_room_kd", "fog_room",
-                             "sss_room"))
+                             "sss_room", "motion_room", "realistic_room", "bdpt_mesh"))
     ap.add_argument("--all-matte", action="store_true", help="every material matte (Kd 0.6), the panel's kept")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
@@ -148,8 +162,14 @@ def main() -> int:
     from pbrt_tpu_torch import render as R_
     from pbrt_tpu_torch.scene.builder import compile_scene
     from pbrt_tpu_torch.scene.host import HostMaterial
-    from pbrt_tpu_torch.scenes import area_box, fog_room, material_room, mesh_room, quadric_room, sphere_room, \
-        spheres_gallery, sss_room, textured_gallery, textured_room, zoo_room
+    from pbrt_tpu_torch.scenes import area_box, fog_room, material_room, mesh_room, motion_room, quadric_room, \
+        realistic_mesh_room, sphere_room, spheres_gallery, sss_room, textured_gallery, textured_room, zoo_room
+
+    def bdpt_mesh():
+        desc = mesh_room(248)
+        desc.integrator.kind = "bdpt"
+        return desc
+
 
     if args.scene in ("material_room", "mesh_b4", "checker_room"):
         os.environ["PBRT_TPU_WIDEMEGA"] = "1"
@@ -161,7 +181,8 @@ def main() -> int:
             "sphere_room": sphere_room, "sphere_room_248": lambda: sphere_room(248), "zoo_room": zoo_room,
             "zoo_room_248": lambda: zoo_room(248), "quadric_room": lambda: quadric_room(248),
             "quadric_room_kd": lambda: quadric_room(40, instances=False, accelerator="kdtree"),
-            "fog_room": fog_room, "sss_room": sss_room}
+            "fog_room": fog_room, "sss_room": sss_room, "motion_room": motion_room,
+            "realistic_room": realistic_mesh_room, "bdpt_mesh": bdpt_mesh}
     rec = {"device": torch.cuda.get_device_name(0), "nvidia_smi": chip_smoke._smi(),
            "torch": torch.__version__, "cuda": torch.version.cuda, "scene": args.scene,
            "all_matte": args.all_matte}
@@ -189,7 +210,9 @@ def main() -> int:
     print(f"render: wall median {statistics.median(walls):.4f}s (min {min(walls):.4f} max {max(walls):.4f}), "
           f"path_vertex_samples_per_sec median {statistics.median(vps):.1f}", flush=True)
 
-    if tm["tier"].startswith(("torch-wavefront", "torch-wave/")):
+    if tm["tier"].startswith("torch-bdpt/"):
+        _bdpt_layers(args, cs, rec, statistics.median(walls))
+    elif tm["tier"].startswith(("torch-wavefront", "torch-wave/")):
         _traversal_and_layers(args, cs, rec, statistics.median(walls))
         _device(args, cs, rec, statistics.median(walls))
     else:
@@ -208,6 +231,8 @@ LOBE_CALLS = ("make_bsdf", "bsdf_f", "bsdf_pdf", "bsdf_sample")
 
 
 def _traversal_and_layers(args, cs, rec, wall_median):
+    import torch
+
     import chip_smoke
     from pbrt_tpu_torch import render as R_
     from pbrt_tpu_torch.device import bvh_walk, integrator, intersect, media, wide_bvh
@@ -215,7 +240,21 @@ def _traversal_and_layers(args, cs, rec, wall_median):
     # --- 2. traversal kernel vs plain on the main path's ray sets ---
     rec["traversal"] = []
     route = intersect.route_name(cs.static)
-    if route in ("bvh", "kdtree"):
+    if cs.static.has_motion and route == "bvh":
+        # the motion entry at uniform shutter fractions, one per ray
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        times = {}
+
+        def time_of(o):
+            if o.shape[0] not in times:
+                times[o.shape[0]] = torch.rand(o.shape[0], device="cuda", generator=gen)
+            return times[o.shape[0]]
+
+        kernel = lambda o, d, t_max, any_hit: bvh_walk.bvh_walk_motion_cuda(  # noqa: E731
+            cs.arrays, cs.static, o, d, t_max, any_hit, time=time_of(o))
+        plain = lambda o, d, t_max, any_hit: bvh_walk.walk_plain(  # noqa: E731
+            cs.arrays, cs.static, o, d, t_max, any_hit, time=time_of(o))
+    elif route in ("bvh", "kdtree"):
         walk_k = bvh_walk.kd_walk_cuda if route == "kdtree" else bvh_walk.bvh_walk_cuda
         walk_p = bvh_walk.kd_walk_plain if route == "kdtree" else bvh_walk.walk_plain
         kernel = lambda o, d, t_max, any_hit: walk_k(cs.arrays, cs.static, o, d, t_max, any_hit)  # noqa: E731
@@ -240,9 +279,13 @@ def _traversal_and_layers(args, cs, rec, wall_median):
     saved = {n: getattr(integrator, n) for n in ("intersect", "intersect_p", "probe_chain") + LOBE_CALLS}
     saved_media = {n: getattr(media, n) for n in ("medium_sample", "transmittance_shadow")}
     saved_regen = R_.make_regen
+    # the wave's camera samples (make_wave_fn calls these itself)
+    saved_cam = {n: getattr(R_, n) for n in ("_film_sample", "_shutter_fraction", "generate_rays",
+                                             "realistic_generate_rays", "ray_differential_dirs")}
     saved_kernel = wide_bvh.traverse_cuda
     saved_spheres = intersect._mixed_spheres
     saved_walk = intersect.walk_intersect
+    saved_motion = bvh_walk.bvh_walk_motion_cuda
     # the walk's span by the query that calls it: a query's first walk, or a
     # re-cast past an alpha cut-out
     query = {"name": None, "walks": 0}
@@ -261,6 +304,9 @@ def _traversal_and_layers(args, cs, rec, wall_median):
     try:
         intersect._mixed_spheres = _spanned(saved_spheres, "sphere_merge", spans, within=True)
         intersect.walk_intersect = walk
+        motion_walk = _spanned(saved_motion, "motion_walk", spans, within=True)
+        motion_walk.launches, motion_walk.counters = 0, saved_motion.counters
+        bvh_walk.bvh_walk_motion_cuda = motion_walk  # walk_intersect looks the entry up at call time
         integrator.intersect = in_query(_spanned(saved["intersect"], "closest_query", spans), "closest")
         integrator.intersect_p = in_query(_spanned(saved["intersect_p"], "shadow_query", spans), "shadow")
         for n in LOBE_CALLS:
@@ -269,6 +315,8 @@ def _traversal_and_layers(args, cs, rec, wall_median):
         media.medium_sample = _spanned(saved_media["medium_sample"], "medium_sample", spans)
         media.transmittance_shadow = _spanned(saved_media["transmittance_shadow"], "shadow_transmittance", spans)
         R_.make_regen = lambda *a, **k: _spanned(saved_regen(*a, **k), "regen", spans)
+        for n, fn in saved_cam.items():
+            setattr(R_, n, _spanned(fn, "regen", spans))
         kern = _spanned(saved_kernel, "kernel", spans, within=True)
         kern.launches = 0
         kern.counters, kern.iterations, kern.queues = (saved_kernel.counters, saved_kernel.iterations,
@@ -283,9 +331,12 @@ def _traversal_and_layers(args, cs, rec, wall_median):
         for n, fn in saved_media.items():
             setattr(media, n, fn)
         R_.make_regen = saved_regen
+        for n, fn in saved_cam.items():
+            setattr(R_, n, fn)
         wide_bvh.traverse_cuda = saved_kernel
         intersect._mixed_spheres = saved_spheres
         intersect.walk_intersect = saved_walk
+        bvh_walk.bvh_walk_motion_cuda = saved_motion
     traced = R_.render_compiled.last_timing["wall_s"]
     layers = {"regen": spans.get("regen", 0.0),
               "closest_query": spans.get("closest_query", 0.0),
@@ -300,13 +351,78 @@ def _traversal_and_layers(args, cs, rec, wall_median):
                      "sphere_merge_s_within_queries": spans.get("sphere_merge", 0.0),
                      "walk_s_within_queries": {k: spans.get(k, 0.0) for k in
                                                ("walk_closest", "walk_shadow", "walk_alpha_recast")},
+                     "motion_walk_s_within_queries": spans.get("motion_walk", 0.0),
+                     "motion_walk_launches": motion_walk.launches,
                      "kernel_launches": kern.launches}
     print(f"layers (traced wall {traced:.4f}s): " + ", ".join(
         f"{k} {v:.4f}s ({100 * v / traced:.1f}%)" for k, v in layers.items())
         + f"; kernel itself {spans.get('kernel', 0.0):.4f}s over {kern.launches} launches; spheres' tests and "
           f"merge {spans.get('sphere_merge', 0.0):.4f}s; walks: closest {spans.get('walk_closest', 0.0):.4f}s, shadow "
-          f"{spans.get('walk_shadow', 0.0):.4f}s, alpha re-casts {spans.get('walk_alpha_recast', 0.0):.4f}s",
-        flush=True)
+          f"{spans.get('walk_shadow', 0.0):.4f}s, alpha re-casts {spans.get('walk_alpha_recast', 0.0):.4f}s; the "
+          f"motion walk {spans.get('motion_walk', 0.0):.4f}s over {motion_walk.launches} launches", flush=True)
+
+
+def _bdpt_layers(args, cs, rec, wall_median):
+    """BDPT's layers: one render with a synchronize around each call into
+    the camera subpaths, the light subpaths, the connections of t >= 2 and
+    the splats (t = 1 connections and the film adds); the MIS weights and
+    B1 as spans within them. Then one render under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch.device import bdpt, wide_bvh
+
+    spans: dict = {}
+    names = {"generate_camera_subpath": "camera_subpath", "generate_light_subpath": "light_subpath",
+             "connect_bdpt": "connections", "connect_t1": "splats", "_splat": "splats"}
+    saved = {n: getattr(bdpt, n) for n in list(names) + ["_mis_weight"]}
+    saved_kernel = wide_bvh.traverse_cuda
+    waves = [0]
+
+    def counted(*a, **k):
+        waves[0] += 1
+        return saved_wave(*a, **k)
+
+    saved_wave = bdpt.bdpt_wave
+    try:
+        for n, span in names.items():
+            setattr(bdpt, n, _spanned(saved[n], span, spans))
+        bdpt._mis_weight = _spanned(saved["_mis_weight"], "mis_weight", spans, within=True)
+        kern = _spanned(saved_kernel, "kernel", spans, within=True)
+        kern.launches = 0
+        kern.counters, kern.iterations, kern.queues = (saved_kernel.counters, saved_kernel.iterations,
+                                                       saved_kernel.queues)
+        wide_bvh.traverse_cuda = kern
+        R_.render_compiled(cs, seed=args.seed)
+    finally:
+        for n, fn in saved.items():
+            setattr(bdpt, n, fn)
+        wide_bvh.traverse_cuda = saved_kernel
+    traced = R_.render_compiled.last_timing["wall_s"]
+    layers = {k: spans.get(k, 0.0) for k in ("camera_subpath", "light_subpath", "connections", "splats")}
+    layers["loop_and_film"] = traced - sum(layers.values())
+    rec["layers"] = {"traced_wall_s": traced, "tracing_cost_s": traced - wall_median, "seconds": layers,
+                     "mis_weight_s_within": spans.get("mis_weight", 0.0),
+                     "kernel_s_within": spans.get("kernel", 0.0), "kernel_launches": kern.launches}
+    print(f"bdpt layers (traced wall {traced:.4f}s): " + ", ".join(
+        f"{k} {v:.4f}s ({100 * v / traced:.1f}%)" for k, v in layers.items())
+        + f"; within them the MIS weights {spans.get('mis_weight', 0.0):.4f}s, B1 {spans.get('kernel', 0.0):.4f}s "
+          f"over {kern.launches} launches", flush=True)
+    bdpt.bdpt_wave = counted
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            R_.render_compiled(cs, seed=args.seed)
+    finally:
+        bdpt.bdpt_wave = saved_wave
+    dev_s = sum(e.time_range.elapsed_us() / 1e6 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    n_kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy = dev_s / wall_median
+    rec["device"] = {"kernel_time_s": dev_s, "busy_share": busy, "kernel_launches": n_kernels, "waves": waves[0],
+                     "kernels_per_wave": n_kernels / max(waves[0], 1)}
+    print(f"device: kernel time {dev_s:.4f}s in {n_kernels} kernels over {waves[0]} waves "
+          f"({n_kernels / max(waves[0], 1):.1f} per wave); untraced wall {wall_median:.4f}s -> busy "
+          f"{100 * busy:.1f}%, idle {100 * (1 - busy):.1f}%", flush=True)
 
 
 def _launch_path(args, cs, rec):
