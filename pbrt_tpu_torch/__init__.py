@@ -31,9 +31,12 @@ hot path where the reference has a Pallas kernel:
   its class with PBRT_TPU_WIDEMEGA=1 (``csrc/megakernel_wide.cu``); both
   take the (0,2), random and stratified samplers and the box filter.
 
-The parser builds every other feature (textures, media, instancing,
-quadrics other than spheres, other lights, cameras, materials and
-integrators); compile_scene refuses it by name with NotImplementedError.
+Later slices added the rest of the reference's kinds: textures, every
+material, quadric, light and camera kind, instancing, the kd-tree, alpha
+cutouts, media and subsurface scattering, motion blur, and every
+integrator (volpath, whitted and ao on the per-sample wave; BDPT, MLT and
+SPPM through host loops of their own). What the parser builds and no
+route renders, compile_scene refuses by name with NotImplementedError.
 
 Public entry points:
     python -m pbrt_tpu_torch scene.pbrt [--outfile F] [--spp N] [--device cpu] ...

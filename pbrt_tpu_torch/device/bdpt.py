@@ -289,7 +289,7 @@ def generate_light_subpath(sa, static, ctx, prov, dim0, power_cdf, max_s, R, sta
     if static.n_lights == 0:
         return v, torch.zeros(R, dtype=torch.int64, device=dev)
     u_l = prov_1d(prov, dim0)
-    lid = torch.clamp(torch.searchsorted(power_cdf, u_l, right=True), 0, static.n_lights - 1)
+    lid = torch.clamp(torch.searchsorted(power_cdf, u_l.contiguous(), right=True), 0, static.n_lights - 1)
     sel_pdf = power_cdf[lid] - torch.where(lid > 0, power_cdf[torch.clamp(lid - 1, min=0)], 0.0)
     em = sample_le(sa, static, lid, prov_1d(prov, dim0 + 1), prov_1d(prov, dim0 + 2), prov_1d(prov, dim0 + 3),
                    prov_1d(prov, dim0 + 4))

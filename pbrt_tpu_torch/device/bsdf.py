@@ -251,13 +251,22 @@ def ggx_g1(w, ax, ay):
     return 1.0 / (1.0 + ggx_lambda(w, ax, ay))
 
 
+def _axis(like, i: int):
+    """The unit vector along axis i, shaped like `like` (..., 3), made on
+    its device (no host-to-device copy, so a captured or sync-free step may
+    call it)."""
+    e = torch.zeros_like(like)
+    e[..., i] = 1.0
+    return e
+
+
 def ggx_sample_wh(wo, u1, u2, ax, ay):
     """Visible-normal sampling (microfacet.rs trowbridge_reitz_sample)."""
     flip = (wo[..., 2] < 0)[..., None]
     wo_f = torch.where(flip, -wo, wo)
     wi_s = normalize(torch.stack([ax * wo_f[..., 0], ay * wo_f[..., 1], wo_f[..., 2]], dim=-1))
-    z_axis = torch.tensor([0.0, 0.0, 1.0], dtype=wo.dtype, device=wo.device).expand_as(wi_s)
-    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=wo.dtype, device=wo.device)
+    z_axis = _axis(wi_s, 2)
+    x_axis = _axis(wi_s, 0)
     t1 = torch.where((wi_s[..., 2] < 0.9999)[..., None], normalize(cross(z_axis, wi_s)), x_axis)
     t2 = cross(wi_s, t1)
     a = 1.0 / (1.0 + wi_s[..., 2])
@@ -708,7 +717,7 @@ def bsdf_sample(lobes, wo, u_lobe, u1, u2, mode: str = "radiance"):
         return m
 
     if union & (_DIFFUSE | {LOBE_LAMBERT_T, LOBE_FRESNEL_BLEND}):
-        flip_z = torch.tensor([1.0, 1.0, -1.0], dtype=wo.dtype, device=wo.device)
+        flip_z = 1.0 - 2.0 * _axis(wo, 2)  # (1, 1, -1)
     if union & (_DIFFUSE | {LOBE_LAMBERT_T}):
         wi_cos = cosine_sample_hemisphere(u1, u2)
         if union & _DIFFUSE:
@@ -731,7 +740,7 @@ def bsdf_sample(lobes, wo, u_lobe, u1, u2, mode: str = "radiance"):
         if LOBE_SPEC_R in union:
             take({LOBE_SPEC_R}, wi_sr)
     if union & {LOBE_SPEC_T, LOBE_FRESNEL_SPEC}:
-        n_local = torch.tensor([0.0, 0.0, 1.0], dtype=wo.dtype, device=wo.device)
+        n_local = _axis(wo, 2)
         ok_st, wi_st = refract_dir(wo, torch.where(entering[:, None], n_local, -n_local), eta_ratio)
         if LOBE_SPEC_T in union:
             m = take({LOBE_SPEC_T}, wi_st)

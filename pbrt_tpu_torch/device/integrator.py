@@ -101,6 +101,12 @@ def _to_world(si, w):
     return w[..., 0:1] * si["ss"] + w[..., 1:2] * si["ts"] + w[..., 2:3] * si["ns"]
 
 
+def _light_select_pdf(static) -> float:
+    """The uniform light choice's probability, 1 / n_lights (reference
+    integrator._light_select_pdf; SPPM's camera pass selects so)."""
+    return 1.0 / max(static.n_lights, 1)
+
+
 def _round_ns(kind: str, n: int) -> int:
     """Sampler::round_count: the power-of-2 samplers round an array's size up
     to a power of two (zerotwosequence.rs, maxmindist.rs)."""

@@ -156,8 +156,10 @@ def ray_quadric(o, d, w2o, params, qkind, t_max, kinds=ALL_KINDS):
     def clip_ok(t):
         p = oo + od * t[..., None]
         # the sphere re-projects the hit onto its surface, the cylinder onto
-        # its radius (sphere.rs, cylinder.rs)
-        s = radius / torch.clamp(torch.sqrt((p * p).sum(-1)), min=1e-30)
+        # its radius (sphere.rs, cylinder.rs); |p|^2 summed left to right, as
+        # csrc/quadric.cuh does (a library reduction's order is its own)
+        s = radius / torch.clamp(torch.sqrt(p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1] + p[..., 2] * p[..., 2]),
+                                 min=1e-30)
         zs = p[..., 2] * s
         if CYLINDER in kinds:
             r_c = radius / torch.clamp(torch.sqrt(p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1]), min=1e-30)

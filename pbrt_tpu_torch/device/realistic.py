@@ -195,6 +195,14 @@ def _dot3(a, b):
     return (a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1]) + a[:, 2] * b[:, 2]
 
 
+def _div(x, s: float):
+    """x / s rounded as one IEEE division on every device: PyTorch's CUDA
+    divide by a Python number multiplies by its rounded reciprocal instead
+    (an ulp off the CPU's quotient in some lanes, which the lens's
+    refractions amplify), so s rides in as a tensor on x's device."""
+    return x / x.new_full((), s)
+
+
 def trace_film_to_scene(rcam, o, d):
     """Rays (R, 3) in lens space, leaving the film toward -z, through every
     element, rear first: (ok (R,), o, d) of the ray leaving the front
@@ -224,7 +232,7 @@ def trace_film_to_scene(rcam, o, d):
         p = o + d * t[:, None]
         good = (disc >= 0) & (t > 1e-9) & (p[:, 0] ** 2 + p[:, 1] ** 2 <= ap2)
         eta_next = rcam["eta"][i - 1] if i > 0 else 1.0
-        nrm = (p - center) / abs(r)
+        nrm = _div(p - center, abs(r))
         nrm = torch.where((_dot3(nrm, d) > 0)[:, None], -nrm, nrm)
         eta_ratio = rcam["eta"][i] / max(eta_next, 1e-6)
         cos_i = -_dot3(nrm, d)
@@ -276,8 +284,8 @@ def realistic_generate_rays(cam, rcam, p_film_x, p_film_y, u1, u2):
     fx, fy = rcam["film_extent"]
     dev = p_film_x.device
     # the film point (flipped, realistic.rs p_film)
-    x = (0.5 - p_film_x / W) * fx
-    y = (p_film_y / H - 0.5) * fy
+    x = (0.5 - _div(p_film_x, W)) * fx
+    y = (_div(p_film_y, H) - 0.5) * fy
     o = torch.stack([x, y, torch.full_like(x, rcam["film_z"])], dim=-1)
     # a point of the film radius's pupil bucket, turned to the film azimuth
     # (realistic.rs sample_exit_pupil)
@@ -285,7 +293,7 @@ def realistic_generate_rays(cam, rcam, p_film_x, p_film_y, u1, u2):
     film_diag_half = 0.5 * math.hypot(fx, fy)
     r_film = torch.sqrt(x * x + y * y)
     nb = pupil.shape[0]
-    bidx = torch.clamp((r_film / film_diag_half * nb).to(torch.int64), 0, nb - 1)
+    bidx = torch.clamp((_div(r_film, film_diag_half) * nb).to(torch.int64), 0, nb - 1)
     bb = pupil[bidx]
     px_r = bb[:, 0] + u1 * (bb[:, 1] - bb[:, 0])
     py_r = bb[:, 2] + u2 * (bb[:, 3] - bb[:, 2])
@@ -314,5 +322,6 @@ def realistic_generate_rays(cam, rcam, p_film_x, p_film_y, u1, u2):
     # pupil area over the on-axis bucket's
     area = (bb[:, 1] - bb[:, 0]) * (bb[:, 3] - bb[:, 2])
     area0 = torch.clamp((pupil[0, 1] - pupil[0, 0]) * (pupil[0, 3] - pupil[0, 2]), min=1e-12)
-    weight = torch.where(ok, cos0 ** 4 * area / area0, 0.0)
+    cos2 = cos0 * cos0  # cos^4 as two products: a float power's rounding differs between devices
+    weight = torch.where(ok, cos2 * cos2 * area / area0, 0.0)
     return o_w, d_w, weight

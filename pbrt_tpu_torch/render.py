@@ -3,7 +3,10 @@
 The port's counterpart of ``pbrt_tpu/render.py`` (``make_regen``,
 ``make_persistent_fn``, ``persistent_eligible``, ``make_wave_fn``,
 ``render_compiled``, ``render``). ``render_compiled`` picks the route as
-the reference's does: the persistent routes for a scene of the reference's
+the reference's does: the sppm, bdpt and mlt integrators first, each to a
+host loop of its own (device/sppm.py, bdpt.py, mlt.py; route label
+"torch-sppm/", "torch-bdpt/" or "torch-mlt/" + the query's route; sppm and
+mlt render the whole film); then the persistent routes for a scene of the reference's
 ``persistent_eligible`` class (path or directlighting without media,
 interface or subsurface materials) when no checkpoint is asked for and
 PBRT_TPU_FORCE_WAVE is unset, else the per-sample wave (``make_wave_fn``,
@@ -447,15 +450,18 @@ def render_compiled(cs: CompiledScene, seed: int = 0, spp: int | None = None, pr
     as in the reference."""
     desc = cs.description
     dev = cs.arrays.device
-    if desc.integrator.kind == "bdpt":
-        # bidirectional path tracing has its own host loop (reference
-        # render_compiled :633-636)
-        from .device.bdpt import render_bdpt
+    kind = desc.integrator.kind
+    if kind in ("sppm", "bdpt", "mlt"):
+        # sppm, bdpt and mlt have host loops of their own (reference
+        # render_compiled :629-640); sppm and mlt render the whole film
+        from .device import bdpt, mlt, sppm
 
+        render_fn = {"sppm": sppm.render_sppm, "bdpt": bdpt.render_bdpt, "mlt": mlt.render_mlt}[kind]
+        kw = {"spp": spp} if kind == "bdpt" else {}
         t0 = time.perf_counter()
-        img = render_bdpt(cs, seed=seed, spp=spp, progress=progress) * desc.film.scale
-        render_compiled.last_timing = dict(render_bdpt.last_timing, wall_s=time.perf_counter() - t0,
-                                           tier="torch-bdpt/" + route_name(cs.static))
+        img = render_fn(cs, seed=seed, progress=progress, **kw) * desc.film.scale  # on the host: the device is done
+        render_compiled.last_timing = dict(render_fn.last_timing, wall_s=time.perf_counter() - t0,
+                                           tier=f"torch-{kind}/" + route_name(cs.static))
         return img
     W = desc.film.x_resolution
     H = desc.film.y_resolution

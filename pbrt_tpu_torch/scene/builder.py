@@ -136,7 +136,7 @@ FLAG_HAS_UV = 8
 MATERIALS = ("matte", "mirror", "glass", "metal", "plastic", "uber", "substrate", "translucent", "disney", "mix",
              "fourier", "hair", "subsurface", "kdsubsurface", "none")
 SAMPLERS = ("zerotwosequence", "lowdiscrepancy", "random", "stratified", "halton", "sobol", "maxmindist")
-INTEGRATORS = ("path", "volpath", "directlighting", "whitted", "ao", "bdpt")
+INTEGRATORS = ("path", "volpath", "directlighting", "whitted", "ao", "bdpt", "mlt", "sppm")
 CAMERAS = ("perspective", "orthographic", "environment", "realistic")
 LIGHTS = ("point", "spot", "distant", "infinite", "goniometric", "projection")
 QUADRICS = {"sphere": QUADRIC_SPHERE, "cylinder": QUADRIC_CYLINDER, "disk": QUADRIC_DISK, "cone": QUADRIC_CONE,

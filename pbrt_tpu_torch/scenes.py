@@ -1236,8 +1236,18 @@ def write_pbrt(desc: SceneDescription, path: str, look_at, sampler: bool = True)
     if desc.camera_medium:
         # the camera's medium is the outside medium current at Camera
         out.insert(1, f'MediumInterface "" "{desc.camera_medium}"')
+    extra = ""
+    if integ.kind == "mlt":
+        extra = (f' "integer mutationsperpixel" [{integ.mutations_per_pixel}] "integer bootstrapsamples" '
+                 f'[{integ.n_bootstrap}] "integer chains" [{integ.n_chains}] "float largestepprobability" '
+                 f'[{_fmt([integ.large_step_probability])}] "float sigma" [{_fmt([integ.sigma])}]')
+    elif integ.kind == "sppm":
+        extra = (f' "integer numiterations" [{integ.num_iterations}] "integer photonsperiteration" '
+                 f'[{integ.photons_per_iteration}] "float radius" [{_fmt([integ.initial_radius])}]')
+        if integ.write_frequency < 1 << 31:
+            extra += f' "integer imagewritefrequency" [{integ.write_frequency}]'
     out += [f'Integrator "{integ.kind}" "integer maxdepth" [{integ.max_depth}] '
-            f'"string lightsamplestrategy" "{integ.light_strategy}"', "WorldBegin"]
+            f'"string lightsamplestrategy" "{integ.light_strategy}"' + extra, "WorldBegin"]
     for name, hm in desc.media.items():
         if not (np.array_equal(hm.medium_to_world.m, np.eye(4)) and np.array_equal(hm.medium_to_world.m_inv, np.eye(4))):
             raise NotImplementedError("write_pbrt writes media with the identity transform only")

@@ -279,12 +279,14 @@ def test_compiled_tables_bit_identical(tmp_path, scene):
     _tables_equal(cs, ref)
 
 
-# a feature's scene, and an integrator the port does not render yet, whose
-# refusal the scene meets now that the feature itself compiles (motion
-# blur; bdpt's case meets the sppm integrator's)
+# a feature's scene, and the integrator with a host loop of its own it is
+# rendered under (motion blur under mlt, a medium under sppm; bdpt's case
+# meets sppm); "unknown" names an integrator neither package has, which
+# keeps the refusal by name
 REFUSED = {
     "motion": ('ActiveTransform EndTime\nTranslate 0 1 0\nActiveTransform All\nShape "sphere"', "mlt"),
     "medium": ('MediumInterface "m" ""\nActiveTransform EndTime\nTranslate 0 1 0\nShape "sphere"', "sppm"),
+    "unknown": ("", "photonmap"),
 }
 
 
@@ -392,15 +394,19 @@ def test_parsed_infinite_lights_compile_as_reference(tmp_path, case):
 
 @pytest.mark.parametrize("case", list(PORTED) + list(REFUSED) + ["bdpt"])
 def test_refused_features_raise_builder_messages(tmp_path, case):
-    """What the API builds and the port cannot render yet is refused by
+    """What the API builds and the port cannot render is refused by
     compile_scene, naming the feature; a feature a later slice ported runs
-    its counterpart (PORTED). The motion scenes and the bdpt integrator now
-    compile to the reference's tables; under an integrator still to be
-    ported (mlt, sppm) the same files are refused by its name."""
+    its counterpart (PORTED). The motion scenes and the bdpt integrator
+    compile to the reference's tables, and so do they under mlt and sppm,
+    which render through their own host loops (route torch-mlt/ or
+    torch-sppm/ and the query's); an integrator neither package has is
+    refused by its name."""
+    from test_torch_sppm import render_small
+
     if case in PORTED:
         PORTED[case](tmp_path)
         return
-    extra, refused = REFUSED.get(case, ("", "sppm"))
+    extra, kind = REFUSED.get(case, ("", "sppm"))
     text = room_text(3, "zerotwosequence", "box", extra)
     if case == "bdpt":
         text = text.replace('Integrator "path"', 'Integrator "bdpt"')
@@ -408,11 +414,17 @@ def test_refused_features_raise_builder_messages(tmp_path, case):
     p.write_text(text)
     cs = compile_scene(pbrt_parse(str(p)), "cpu")
     _tables_equal(cs, ref_compile_scene(ref_pbrt_parse(str(p))))
-    assert cs.static.has_motion == (case != "bdpt")
-    p.write_text(text.replace('Integrator "path"', f'Integrator "{refused}"').replace(
-        'Integrator "bdpt"', f'Integrator "{refused}"'))
-    with pytest.raises(NotImplementedError, match=f"the '{refused}' integrator"):
-        compile_scene(pbrt_parse(str(p)), "cpu")
+    assert cs.static.has_motion == (case in ("motion", "medium"))
+    p.write_text(text.replace('Integrator "path"', f'Integrator "{kind}"').replace(
+        'Integrator "bdpt"', f'Integrator "{kind}"'))
+    if case == "unknown":
+        with pytest.raises(NotImplementedError, match="the 'photonmap' integrator"):
+            compile_scene(pbrt_parse(str(p)), "cpu")
+        return
+    cs = compile_scene(pbrt_parse(str(p)), "cpu")
+    _tables_equal(cs, ref_compile_scene(ref_pbrt_parse(str(p))))
+    img, tier = render_small(pbrt_parse(str(p)), kind)
+    assert tier == f"torch-{kind}/brute" and np.isfinite(img).all()
 
 
 def test_parsed_panel_light_rows(tmp_path):

@@ -232,12 +232,13 @@ def test_mixed_scene_refusals_name_the_feature(case):
     and such a scene of 64 triangles or fewer. Since the binary-BVH walk
     (device/bvh_walk.py) the port compiles each and routes it there, with
     the reference's tables; motion blur on one of the quadrics too, which
-    keeps the scene on the walk; what stays outside the class keeps its
-    refusal by name (the sppm integrator)."""
+    keeps the scene on the walk; under the sppm integrator it renders
+    through SPPM's host loop on the walk (route torch-sppm/bvh)."""
     from pbrt_tpu_torch.core.transform import Transform
     from pbrt_tpu_torch.device.intersect import route_name
     from pbrt_tpu_torch.scene.host import HostPrimitive, ShapeRecord, Sphere
     from test_torch_megakernel import _to_ref
+    from test_torch_sppm import render_small
 
     desc = mesh_room(8)
     glass = HostMaterial(kind="glass")
@@ -259,9 +260,8 @@ def test_mixed_scene_refusals_name_the_feature(case):
     desc.primitives[-1].shape.sphere.object_to_world_end = Transform.translate([0.0, 3.0, 0.0])
     moving = compile_scene(desc, "cpu")
     assert moving.static.has_motion and route_name(moving.static) == "bvh"
-    desc.integrator.kind = "sppm"
-    with pytest.raises(NotImplementedError, match="the 'sppm' integrator"):
-        compile_scene(desc, "cpu")
+    img, tier = render_small(desc, "sppm")
+    assert tier == "torch-sppm/bvh" and np.isfinite(img).all()
 
 
 def test_sphere_room_routes(monkeypatch):
@@ -328,20 +328,25 @@ def test_zoo_room_tables_bit_identical(zoo):
 
 @pytest.mark.parametrize("kind", ["subsurface", "kdsubsurface", "interface", "mix-of-subsurface"])
 def test_bssrdf_and_interface_materials_refused_by_name(kind):
-    """The subsurface and interface ("none") materials, also in a mix, now
-    compile; what the port does not render yet keeps its name."""
+    """The subsurface and interface ("none") materials, also in a mix,
+    compile to the reference's tables, and under mlt and sppm render
+    through their host loops (route torch-mlt/ or torch-sppm/ and the
+    query's)."""
+    from test_torch_megakernel import _to_ref
+    from test_torch_sppm import render_small
+
     desc = mesh_room(8)
     sub = HostMaterial(kind={"interface": "none", "mix-of-subsurface": "subsurface"}.get(kind, kind))
     desc.primitives[1].material = sub if kind != "mix-of-subsurface" else HostMaterial(kind="mix", params={
         "material1": ("material", HostMaterial(kind="matte")), "material2": ("material", sub)})
     assert compile_scene(desc, "cpu").static.has_tab_sss == (kind in ("subsurface", "kdsubsurface"))
-    # bdpt and the realistic camera compile now: the cases that named them
-    # meet the refusals that remain
-    feature, match = {"subsurface": ("mlt", "the 'mlt' integrator"), "kdsubsurface": ("sppm", "the 'sppm' "),
-                      "interface": ("mlt", "the 'mlt' "), "mix-of-subsurface": ("sppm", "the 'sppm' integrator")}[kind]
-    desc.integrator.kind = feature
-    with pytest.raises(NotImplementedError, match=match):
-        compile_scene(desc, "cpu")
+    integrator = {"subsurface": "mlt", "kdsubsurface": "sppm", "interface": "mlt", "mix-of-subsurface": "sppm"}[kind]
+    desc.integrator.kind = integrator
+    cs, ref = compile_scene(desc, "cpu"), ref_compile_scene(_to_ref(desc))
+    for name in ("prim_mat", "mat_kind", "mat_remap", "bvh_packed"):
+        np.testing.assert_array_equal(getattr(cs.arrays, name).numpy(), np.asarray(getattr(ref.arrays, name)))
+    img, tier = render_small(desc, integrator)
+    assert tier == f"torch-{integrator}/wide" and np.isfinite(img).all()
 
 
 def test_unreadable_fourier_table_makes_the_row_matte(tmp_path):

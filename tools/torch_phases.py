@@ -5,7 +5,7 @@
                                            textured_room|textured_gallery|checker_room|sphere_room|
                                            sphere_room_248|zoo_room|zoo_room_248|quadric_room|
                                            quadric_room_kd|fog_room|sss_room|motion_room|
-                                           realistic_room|bdpt_mesh]
+                                           realistic_room|bdpt_mesh|mlt_mesh|sppm_mesh]
                                   [--reps 5] [--out FILE.json]
 
 Renders at 1000x500, 16 spp, depth 5 one of: the 123,650-triangle mesh room
@@ -35,10 +35,14 @@ mesh room with a spinning UV sphere, a translating box and a moving
 sphere quadric under a dollying camera: the time-aware binary-BVH walk;
 --scene motion_room) or the mesh room under the realistic camera (--scene
 realistic_room), or the mesh room under bidirectional path tracing
-(--scene bdpt_mesh: B1 for every subpath and connection query), and
-reports, with the card's name and power limit:
- 1. end to end: render wall time and path_vertex_samples_per_sec over
-    --reps untraced renders after a warm-up (median, min, max);
+(--scene bdpt_mesh: B1 for every subpath and connection query), MLT
+(--scene mlt_mesh: chip_smoke.py phase 48's settings, 1 mutation per
+pixel, 4,096 chains, 100,000 bootstrap samples) or SPPM (--scene
+sppm_mesh: phase 49's, 4 iterations of 500,000 photons, radius 0.024),
+and reports, with the card's name and power limit:
+ 1. end to end: render wall time and path_vertex_samples_per_sec (MLT:
+    mutations per second; SPPM: photons per second) over --reps untraced
+    renders after a warm-up (median, min, max);
  2. the traversal kernel against its plain PyTorch twin on the main path's
     ray sets (camera, one cosine bounce, shadow rays; closest and any hit),
     by CUDA events (mesh and material_room_wave; chip_smoke.py times the
@@ -80,7 +84,20 @@ reports, with the card's name and power limit:
     synchronize around the camera subpaths, the light subpaths, the
     connections of t >= 2 (of which the MIS weights and B1) and the splats
     (the t = 1 connections and the film's index_add_); then one render under
-    torch.profiler: device kernels per wave and the busy share.
+    torch.profiler: device kernels per wave and the busy share;
+ 6. MLT (--scene mlt_mesh) in place of 2-4: one render with a synchronize
+    around the bootstrap (each depth's evaluation of its samples, its own
+    subpaths and connections within it), the chains' subpaths, their
+    connections of t >= 2, their splats (the t = 1 connections and the
+    film's index_add_) and the accept step (the proposal, the acceptance
+    and the next state); then one render under torch.profiler: device
+    kernels per chain step and the busy share;
+ 7. SPPM (--scene sppm_mesh) in place of 2-4: the render's own split
+    (render_sppm.last_timing: the camera pass, the grid, the photon trace
+    and the deposit, each span ended by a synchronize at a point where the
+    host loop reads the device anyway, or just before one); then one
+    render under torch.profiler: device kernels per iteration and the
+    busy share.
 The motion scene's traversal rows (2) run the walk's motion entry at
 uniform shutter fractions from --seed, and its layers count the motion
 walk as a span within the queries.
@@ -89,11 +106,13 @@ the panel's black Kd kept), so that a wide-megakernel run with and without
 it tells shading divergence from geometry. The spans are wrapped around the
 port's functions from this script; the program itself carries no tracing
 code but the megakernels' instrumented instantiations, which no route
-launches.
+launches, and the host loops' own seconds (MLT per depth, SPPM per phase),
+each ended by a synchronize where the loop reads the device anyway.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -144,7 +163,7 @@ def main() -> int:
                     choices=("mesh", "gallery", "material_room", "mesh_b4", "material_room_wave", "area_box",
                              "textured_room", "textured_gallery", "checker_room", "sphere_room", "sphere_room_248",
                              "zoo_room", "zoo_room_248", "quadric_room", "quadric_room_kd", "fog_room",
-                             "sss_room", "motion_room", "realistic_room", "bdpt_mesh"))
+                             "sss_room", "motion_room", "realistic_room", "bdpt_mesh", "mlt_mesh", "sppm_mesh"))
     ap.add_argument("--all-matte", action="store_true", help="every material matte (Kd 0.6), the panel's kept")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
@@ -170,6 +189,18 @@ def main() -> int:
         desc.integrator.kind = "bdpt"
         return desc
 
+    def mlt_mesh():
+        desc = mesh_room(248)
+        desc.integrator = dataclasses.replace(desc.integrator, kind="mlt", mutations_per_pixel=1, n_chains=4096,
+                                              n_bootstrap=100_000)
+        return desc
+
+    def sppm_mesh():
+        desc = mesh_room(248)
+        desc.integrator = dataclasses.replace(desc.integrator, kind="sppm", num_iterations=4,
+                                              photons_per_iteration=-1, initial_radius=0.024)
+        return desc
+
 
     if args.scene in ("material_room", "mesh_b4", "checker_room"):
         os.environ["PBRT_TPU_WIDEMEGA"] = "1"
@@ -182,7 +213,8 @@ def main() -> int:
             "zoo_room_248": lambda: zoo_room(248), "quadric_room": lambda: quadric_room(248),
             "quadric_room_kd": lambda: quadric_room(40, instances=False, accelerator="kdtree"),
             "fog_room": fog_room, "sss_room": sss_room, "motion_room": motion_room,
-            "realistic_room": realistic_mesh_room, "bdpt_mesh": bdpt_mesh}
+            "realistic_room": realistic_mesh_room, "bdpt_mesh": bdpt_mesh, "mlt_mesh": mlt_mesh,
+            "sppm_mesh": sppm_mesh}
     rec = {"device": torch.cuda.get_device_name(0), "nvidia_smi": chip_smoke._smi(),
            "torch": torch.__version__, "cuda": torch.version.cuda, "scene": args.scene,
            "all_matte": args.all_matte}
@@ -199,19 +231,28 @@ def main() -> int:
     # --- 1. end to end, untraced ---
     R_.render_compiled(cs, seed=args.seed, spp=2)  # warm-up
     walls, vps = [], []
+    # the work a render does: path vertices, or MLT's mutations, or SPPM's photons
+    work = "n_vertices"
     for _ in range(args.reps):
         R_.render_compiled(cs, seed=args.seed)
         tm = R_.render_compiled.last_timing
+        work = next(k for k in ("n_vertices", "mutations", "photons") if k in tm)
         walls.append(tm["wall_s"])
-        vps.append(tm["n_vertices"] / tm["wall_s"])
+        vps.append(tm[work] / tm["wall_s"])
     rec["render"] = {"reps": args.reps, "wall_s": walls, "wall_s_median": statistics.median(walls),
-                     "vps": vps, "vps_median": statistics.median(vps), "n_vertices": tm["n_vertices"],
+                     "vps": vps, "vps_median": statistics.median(vps), "work": work, work: tm[work],
                      "tier": tm["tier"]}
+    rate = {"n_vertices": "path_vertex_samples_per_sec", "mutations": "mutations per second",
+            "photons": "photons per second"}[work]
     print(f"render: wall median {statistics.median(walls):.4f}s (min {min(walls):.4f} max {max(walls):.4f}), "
-          f"path_vertex_samples_per_sec median {statistics.median(vps):.1f}", flush=True)
+          f"{rate} median {statistics.median(vps):.1f}", flush=True)
 
     if tm["tier"].startswith("torch-bdpt/"):
         _bdpt_layers(args, cs, rec, statistics.median(walls))
+    elif tm["tier"].startswith("torch-mlt/"):
+        _mlt_layers(args, cs, rec, statistics.median(walls))
+    elif tm["tier"].startswith("torch-sppm/"):
+        _sppm_layers(args, cs, rec, statistics.median(walls))
     elif tm["tier"].startswith(("torch-wavefront", "torch-wave/")):
         _traversal_and_layers(args, cs, rec, statistics.median(walls))
         _device(args, cs, rec, statistics.median(walls))
@@ -423,6 +464,87 @@ def _bdpt_layers(args, cs, rec, wall_median):
     print(f"device: kernel time {dev_s:.4f}s in {n_kernels} kernels over {waves[0]} waves "
           f"({n_kernels / max(waves[0], 1):.1f} per wave); untraced wall {wall_median:.4f}s -> busy "
           f"{100 * busy:.1f}%, idle {100 * (1 - busy):.1f}%", flush=True)
+
+
+def _profiled_render(args, cs, wall_median):
+    """One render under torch.profiler: (device kernel seconds, kernels,
+    the busy share against the untraced wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pbrt_tpu_torch import render as R_
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        R_.render_compiled(cs, seed=args.seed)
+    dev_s = sum(e.time_range.elapsed_us() / 1e6 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    n_kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return dev_s, n_kernels, dev_s / wall_median
+
+
+def _mlt_layers(args, cs, rec, wall_median):
+    """MLT's layers: one render with a synchronize around each call into the
+    bootstrap, the chains' subpaths, connections, splats and accept step
+    (B1 a span within them); then one render under torch.profiler."""
+    from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch.device import mlt, wide_bvh
+
+    spans: dict = {}
+    names = {"_bootstrap": "bootstrap", "generate_camera_subpath": "subpaths", "generate_light_subpath": "subpaths",
+             "connect_bdpt": "connections", "connect_t1": "splats", "_splat_step": "splats", "_propose": "accept",
+             "_weights": "accept", "_accept": "accept"}
+    saved = {n: getattr(mlt, n) for n in names}
+    saved_kernel = wide_bvh.traverse_cuda
+    try:
+        for n, span in names.items():
+            setattr(mlt, n, _spanned(saved[n], span, spans))
+        kern = _spanned(saved_kernel, "kernel", spans, within=True)
+        kern.launches = 0
+        kern.counters, kern.iterations, kern.queues = (saved_kernel.counters, saved_kernel.iterations,
+                                                       saved_kernel.queues)
+        wide_bvh.traverse_cuda = kern
+        R_.render_compiled(cs, seed=args.seed)
+    finally:
+        for n, fn in saved.items():
+            setattr(mlt, n, fn)
+        wide_bvh.traverse_cuda = saved_kernel
+    tm = R_.render_compiled.last_timing
+    traced = tm["wall_s"]
+    layers = {k: spans.get(k, 0.0) for k in ("bootstrap", "subpaths", "connections", "splats", "accept")}
+    layers["loop"] = traced - sum(layers.values())
+    rec["layers"] = {"traced_wall_s": traced, "tracing_cost_s": traced - wall_median, "seconds": layers,
+                     "kernel_s_within": spans.get("kernel", 0.0), "kernel_launches": kern.launches,
+                     "chain_steps": tm["chain_steps"], "acceptance": tm["acceptance"]}
+    print(f"mlt layers (traced wall {traced:.4f}s, {tm['chain_steps']} chain steps): " + ", ".join(
+        f"{k} {v:.4f}s ({100 * v / traced:.1f}%)" for k, v in layers.items())
+        + f"; within them B1 {spans.get('kernel', 0.0):.4f}s over {kern.launches} launches", flush=True)
+    dev_s, n_kernels, busy = _profiled_render(args, cs, wall_median)
+    steps = tm["chain_steps"]
+    rec["device"] = {"kernel_time_s": dev_s, "busy_share": busy, "kernel_launches": n_kernels,
+                     "kernels_per_chain_step": n_kernels / max(steps, 1)}
+    print(f"device: kernel time {dev_s:.4f}s in {n_kernels} kernels ({n_kernels / max(steps, 1):.1f} per chain "
+          f"step, the bootstraps' with them); untraced wall {wall_median:.4f}s -> busy {100 * busy:.1f}%, idle "
+          f"{100 * (1 - busy):.1f}%", flush=True)
+
+
+def _sppm_layers(args, cs, rec, wall_median):
+    """SPPM's layers from the render's own split, then one render under
+    torch.profiler."""
+    from pbrt_tpu_torch import render as R_
+
+    tm = R_.render_compiled.last_timing
+    n_it = tm["iterations"]
+    rec["layers"] = {"seconds": tm["split"], "iterations": n_it, "max_run": tm["max_run"], "dropped": tm["dropped"],
+                     "pairs": tm["pairs"]}
+    print(f"sppm layers ({n_it} iterations, wall {tm['wall_s']:.4f}s): " + ", ".join(
+        f"{k} {v:.4f}s ({100 * v / tm['wall_s']:.1f}%)" for k, v in tm["split"].items())
+        + f"; {tm['pairs']} photon-visible point pairs, longest cell run {tm['max_run']}, dropped {tm['dropped']}",
+        flush=True)
+    dev_s, n_kernels, busy = _profiled_render(args, cs, wall_median)
+    rec["device"] = {"kernel_time_s": dev_s, "busy_share": busy, "kernel_launches": n_kernels,
+                     "kernels_per_iteration": n_kernels / max(n_it, 1)}
+    print(f"device: kernel time {dev_s:.4f}s in {n_kernels} kernels ({n_kernels / max(n_it, 1):.1f} per "
+          f"iteration); untraced wall {wall_median:.4f}s -> busy {100 * busy:.1f}%, idle {100 * (1 - busy):.1f}%",
+          flush=True)
 
 
 def _launch_path(args, cs, rec):
