@@ -16,9 +16,12 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     images (SMALL_HOST_LOOPS); prints build seconds, the ptxas
     register/spill/shared-memory report of each and every variant's
     resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-    B3's __launch_bounds__ choice, and the walk kernels' report per entry:
-    the static instantiations (MOTION 0) beside the motion ones (MOTION 1
-    keyframes, 2 the exact animated transform);
+    B3's __launch_bounds__ choice, and the walk kernels' report per entry
+    (registers, spills, stack frame, blocks per SM): the static
+    instantiations (MOTION 0) beside the motion ones (MOTION 1 keyframes, 2
+    the exact animated transform); the workers then go on to render the
+    CPU crops of phases 35 and 47 (CPU_CROP_TASKS) while the card runs the
+    phases before them;
  3. B1 kernel vs plain: compiles the 123,650-triangle mesh room on the host,
     then traces 500,000 camera rays, one cosine bounce from their hits and
     shadow rays to the panel light through the CUDA kernel and through its
@@ -244,17 +247,22 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     the main path, closest and any hit, compared on every 32nd ray: hits
     and prims equal (a prim may differ only on a tie in t), t within 4
     ulps, the counters 0; prints the kernel's time on each whole set
-    (CUDA events), pops per ray, the share of lanes holding a ray, its
-    ptxas report and blocks per SM, the plain twin's time on the camera
-    rays, and its bound from the instrumented entry's counts (pops,
-    triangle, quadric and instanced tests);
+    (CUDA events) and per ray, pops per ray (the BVH walk's: boxes
+    tested), node visits per ray and the share of lanes holding a ray
+    (visits over 32 x each warp's most), its ptxas report and blocks
+    per SM per entry, the plain twin's time on the camera rays, and its
+    bound from the instrumented entry's counts (boxes tested, triangle,
+    quadric and instanced tests, the bvh_packed rows read); the kd walk's
+    bound on its camera rays by the same formula from its twin's counts,
+    a split plane (KD_OPS_NODE) per interior visit in place of a box test;
 35. quadric_room(248) through the wavefront at 1000x500, 8 spp
     (LATE_MAIN_SPP), depth 5
     (route torch-wavefront/cuda-bvh, walk launches > 0), then its kd
     variant (torch-wavefront/cuda-kdtree): wall,
     path_vertex_samples_per_sec, device kernels per iteration (the
     profiler over a 1 spp crop), the walk's launches; the 64x32 crop at
-    1 spp on cuda and cpu held as in phase 5 with the cones', paraboloids'
+    1 spp on cuda and cpu (the cpu crop rendered by phase 2's workers)
+    held as in phase 5 with the cones', paraboloids'
     and hyperboloids' hits taken out (_without_raw_quadrics: the reference
     does not re-project their hit points, so the devices' ulps part a few
     paths there), and the kd variant's as built by phase 5's second clause
@@ -304,7 +312,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     b1, b2 and pops bit-equal on every ray (on a quadric hit b1, b2 are its
     object-space x, y: the twin sums the sphere's |p|^2 in the kernel's
     order), and so the static walk's against its twin on the same rays;
-    the kernel's time by CUDA events,
+    the kernel's time by CUDA events and per ray, node visits per ray and
+    the share of lanes holding a ray,
     the twin's by the host clock, the bound from the instrumented entry's
     counts with the motion evaluation of every candidate in the operations;
 44. motion_room(248) at 1000x500, 16 spp, depth 5 on cuda after a warm-up
@@ -319,7 +328,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     (the subpaths' surface vertices over the wall), seconds per spp and the
     ratio of its mean to phase 4's path image (a reading beside the
     reference's 0.90-1.10 mesh-agreement band, not a gate);
-47. crops of phases 44-46 on cuda and cpu with one seed, held as in phase
+47. crops of phases 44-46 on cuda and cpu with one seed (the cpu crops
+    rendered by phase 2's workers), held as in phase
     5 (before the crop, the realistic camera's rays of the crop on both
     devices: the rays whose origin, direction or weight differ in any bit);
     a crop of motion_room(16, rotate=False) (the keyframe tables); and
@@ -329,8 +339,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     mutation per pixel, 4,096 chains, 100,000 bootstrap samples (16,666
     per depth; 20 mutations per depth in one block): route torch-mlt/wide,
     B1 launches > 0, a finite, non-black image; the device kernels of one
-    chain step per depth (one torch.profiler session), seconds per chain
-    step, the
+    chain step at depth 1 and at the deepest depth (one torch.profiler
+    session), seconds per chain step, the
     acceptance rate, and the image mean against phase 46's BDPT image (a
     reading beside the reference's mesh-agreement readings, not a gate);
 49. SPPM on the mesh room at 1000x500, depth 5, 4 iterations of 500,000
@@ -496,31 +506,121 @@ def _cpu_render(kind: str):
     return _render_small(kind, "cpu")
 
 
+# phases 35's and 47's CPU crops, rendered by the same workers after their
+# phase 2 tasks, while the card runs phases 3-34 (_cpu_crops): task ->
+# a future of {crop label: (image, route label)}
+_CPU_CROPS: dict = {}
+_POOL: list = []  # the worker pool of phase 2, shut down at the end of main
+
+
 def _build_beside_host_compiles(sources):
     """Phase 2: nvcc.build_all(sources) while HOST_WORKERS spawned processes
     compile LARGE_ROOMS on the host and make phase 51's CPU renders; waits
-    for both, shuts the workers down and returns the build's result."""
+    for both and returns the build's result. The workers also render the
+    CPU crops of phases 35 and 47 (CPU_CROP_TASKS), which those phases
+    take: a task on a room of LARGE_ROOMS is handed that room's compiled
+    scene once phase 2 has it (so each room is compiled once), the others
+    compile their own small scenes; the pool is shut down at the end of
+    main."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     from pbrt_tpu_torch.device import nvcc
 
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(max_workers=HOST_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
-        for name, fn, args in LARGE_ROOMS:
-            _HOST[name] = pool.submit(_compile_room, fn, args)
-        for kind in SMALL_HOST_LOOPS:
-            _CPU_RENDERS[kind] = pool.submit(_cpu_render, kind)
-        libs = nvcc.build_all(sources)
-        build_s = time.perf_counter() - t0
-        done = {name: f.result() for name, f in _HOST.items()}
-        rendered = {kind: f.result()[2] for kind, f in _CPU_RENDERS.items()}
+    pool = ProcessPoolExecutor(max_workers=HOST_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    _POOL.append(pool)
+    for name, fn, args in LARGE_ROOMS:
+        _HOST[name] = pool.submit(_compile_room, fn, args)
+    for kind in SMALL_HOST_LOOPS:
+        _CPU_RENDERS[kind] = pool.submit(_cpu_render, kind)
+    large = {(fn, args): name for name, fn, args in LARGE_ROOMS}
+    for task, (fn, args, _crops) in CPU_CROP_TASKS.items():
+        if (fn, args) not in large:
+            _CPU_CROPS[task] = pool.submit(_cpu_crops, task)
+    libs = nvcc.build_all(sources)
+    build_s = time.perf_counter() - t0
+    done = {name: f.result() for name, f in _HOST.items()}
+    for task, (fn, args, _crops) in CPU_CROP_TASKS.items():
+        if (fn, args) in large:
+            _CPU_CROPS[task] = pool.submit(_cpu_crops, task, done[large[(fn, args)]][0])
+    rendered = {kind: f.result()[2] for kind, f in _CPU_RENDERS.items()}
     print(f"[2 build] the kernels built in {build_s:.1f}s; beside them {HOST_WORKERS} worker processes compiled "
           + ", ".join(f"{n} ({s_:.1f}s)" for n, (_c, s_) in done.items())
           + " on the host and rendered phase 51's CPU images ("
           + ", ".join(f"{k} {s_:.1f}s" for k, s_ in rendered.items())
-          + f"), all done at {time.perf_counter() - t0:.1f}s", flush=True)
+          + f"), all done at {time.perf_counter() - t0:.1f}s; the CPU crops of phases 35 and 47 follow there",
+          flush=True)
     return libs
+
+
+def _crop_image(cs, desc, spp):
+    """(the crop CROP_BOUNDS of desc at spp samples per pixel rendered from
+    cs's tables, its route label)."""
+    from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch.scene.builder import CompiledScene
+
+    desc_c = dataclasses.replace(desc, integrator=dataclasses.replace(desc.integrator, pixel_bounds=CROP_BOUNDS),
+                                 sampler=dataclasses.replace(desc.sampler, pixel_samples=spp))
+    x0, x1, y0, y1 = CROP_BOUNDS
+    img = R_.render_compiled(CompiledScene(cs.arrays, cs.static, desc_c), seed=SEED)[y0:y1, x0:x1]
+    return img, R_.render_compiled.last_timing["tier"]
+
+
+# phases 35's and 47's CPU crops by worker task: (scenes function, its
+# arguments, {crop label: spp}); the labels name the scene variant each
+# phase holds its cuda crop against; a task whose (function, arguments)
+# are a room of LARGE_ROOMS renders from that room's host compile
+CPU_CROP_TASKS = {
+    "quadric_room": ("quadric_room", (248,), {"no_raw": LATE_SPP[0], "built": LATE_SPP[0]}),
+    "quadric_room_kd": ("quadric_room", (40, False, "kdtree"), {"no_raw": LATE_SPP[0], "built": LATE_SPP[0]}),
+    "motion_room": ("motion_room", (248,), {"built": LATE_SPP[0]}),
+    "motion_room_keyed": ("motion_room", (16, False), {"built": LATE_SPP[1]}),
+    "mesh_room": ("mesh_room", (248,), {"realistic": LATE_SPP[0], "bdpt": LATE_SPP[0]}),
+}
+
+
+def _crop_variant(cs, label, work):
+    """A crop label's scene: cs as built, without the raw quadrics' hits
+    (phase 35), under the realistic camera (its lens written to the
+    directory work) or under BDPT (phase 47)."""
+    from pbrt_tpu_torch import scenes
+
+    if label == "no_raw":
+        return _without_raw_quadrics(cs)
+    desc = cs.description
+    if label == "realistic":
+        scenes.write_lens(str(Path(work) / scenes.LENS_FILE))
+        desc = dataclasses.replace(desc, camera=scenes.realistic_mesh_room(1, lens_dir=str(work)).camera)
+    elif label == "bdpt":
+        desc = dataclasses.replace(desc, integrator=dataclasses.replace(desc.integrator, kind="bdpt"))
+    return _with_desc(cs, desc)
+
+
+def _cpu_crops(task: str, host=None) -> dict:
+    """A worker's task (two PyTorch threads, at a lower scheduling priority
+    than the script's own process and nvcc): render the task's CPU crops
+    from host, its scene compiled on the host (compiled here when None):
+    {label: (image, route label)}."""
+    import torch
+
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.scene.builder import compile_scene
+
+    os.nice(10)  # this worker's process only: the crops fill the cores the card's phases leave idle
+    torch.set_num_threads(2)
+    fn, args, crops = CPU_CROP_TASKS[task]
+    if host is None:
+        host = compile_scene(getattr(scenes, fn)(*args), "cpu")
+    out = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_crops_")
+    try:
+        for label, spp in crops.items():
+            c = _crop_variant(host, label, work)
+            out[label] = _crop_image(c, c.description, spp)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
 
 
 def _smi() -> str:
@@ -579,7 +679,7 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _check_crop(label, cs_gpu, cs_cpu, desc, spp=CROP_SPP, estimate=False):
+def _check_crop(label, cs_gpu, cs_cpu, desc, spp=CROP_SPP, estimate=False, cpu=None):
     """Phases 5, 8, 13, 15-19, 21 and 25-33: the same crop rendered on cuda
     and on cpu (desc: the scene description both render). Under a filter
     with negative lobes (mitchell, sinc), whose samples carry signed
@@ -592,20 +692,13 @@ def _check_crop(label, cs_gpu, cs_cpu, desc, spp=CROP_SPP, estimate=False):
     the two means within 1%, the gate's numbers printed. estimate
     "pixels": a scene whose parted paths are few but bright (phase 35) is
     held by phase 5's second clause alone, 99% of the pixels within rtol
-    1e-2."""
+    1e-2. cpu: the cpu crop (image, route label) made elsewhere (a worker
+    process: _cpu_crops), in place of rendering it from cs_cpu."""
     import numpy as np
 
-    from pbrt_tpu_torch import render as R_
-    from pbrt_tpu_torch.scene.builder import CompiledScene
-
-    desc_c = dataclasses.replace(
-        desc, integrator=dataclasses.replace(desc.integrator, pixel_bounds=CROP_BOUNDS),
-        sampler=dataclasses.replace(desc.sampler, pixel_samples=spp))
     x0, x1, y0, y1 = CROP_BOUNDS
-    img_g = R_.render_compiled(CompiledScene(cs_gpu.arrays, cs_gpu.static, desc_c), seed=SEED)[y0:y1, x0:x1]
-    tier_g = R_.render_compiled.last_timing["tier"]
-    img_c = R_.render_compiled(CompiledScene(cs_cpu.arrays, cs_cpu.static, desc_c), seed=SEED)[y0:y1, x0:x1]
-    tier_c = R_.render_compiled.last_timing["tier"]
+    img_g, tier_g = _crop_image(cs_gpu, desc, spp)
+    img_c, tier_c = cpu if cpu is not None else _crop_image(cs_cpu, desc, spp)
     rel = np.abs(img_g - img_c).sum() / max(np.abs(img_c).sum(), 1e-30)
     px_ok = np.isclose(img_g, img_c, rtol=1e-2, atol=1e-4).all(axis=-1).mean()
     signed = desc.film.filter_name in ("mitchell", "sinc", "lanczossinc")
@@ -1032,6 +1125,21 @@ def _ptxas_entries(log: str) -> list[dict]:
                      "template": [int(x) for x in re.findall(r"L[ib](-?\d+)E", targs[1])] if targs else [],
                      "registers": int(m[5]), "spill_stores": int(m[3]), "spill_loads": int(m[4]),
                      "stack_frame": int(m[2])})
+    return rows
+
+
+def _walk_entries(info) -> list[dict]:
+    """_ptxas_entries of the walk library's log, each with its resident
+    blocks of 128 per SM (the BVH walk's template: COUNT, MOTION; the kd
+    walk's: MOTION, its static instantiation's blocks for all three)."""
+    from pbrt_tpu_torch.device import nvcc
+
+    rows = _ptxas_entries(info["log"])
+    for r in rows:
+        if r["kernel"] == "bvh_walk_kernel":
+            r["blocks_per_sm"] = nvcc.occupancy(info["lib"].bvh_walk_occupancy, *r["template"])
+        else:
+            r["blocks_per_sm"] = nvcc.occupancy(info["lib"].kd_walk_occupancy)
     return rows
 
 
@@ -1847,6 +1955,41 @@ BW_OPS_POP = 20
 BW_OPS_TRI = 45
 BW_OPS_QUADRIC = 300
 BW_OPS_INSTANCE = 40
+# the kd walk's interior node (kd_walk_kernel's interior branch): the split
+# plane's t (a subtract and a multiply) and six compares (which side the
+# origin lies on: three; the plane against the interval: three); a leaf's
+# visit does no node work (its prim tests are counted by kind)
+KD_OPS_NODE = 8
+
+
+def _warp_share(work):
+    """The share of lanes holding a ray in a grid of one thread per ray,
+    from each ray's loop iterations `work` (R,): their sum over 32 x the
+    sum of each warp's (32 consecutive rays') most, since a warp loops as
+    often as its longest walk."""
+    import torch
+
+    work = work.double()
+    n32 = -(-work.numel() // 32) * 32
+    per_warp = torch.nn.functional.pad(work, (0, n32 - work.numel())).view(-1, 32).max(1).values
+    return float(work.sum()) / max(32.0 * float(per_warp.sum()), 1.0)
+
+
+def _bvh_lanes(walk, sa, st, o, d, t_max, any_hit, **extra):
+    """The BVH walk's share of lanes holding a ray on one ray set, from
+    the node visits (a thread's loop iterations) its instrumented entry
+    counts in one measurement launch (_warp_share). Returns (the share,
+    visits per ray)."""
+    import torch
+
+    dev = o.device
+    tests = torch.empty((o.shape[0], 4), dtype=torch.int32, device=dev)
+    seen = tuple(torch.zeros(n, dtype=torch.int32, device=dev)
+                 for n in (sa.bvh_packed.shape[0], sa.prim_test_data.shape[0], sa.inst_w2i.shape[0]))
+    walk(sa, st, o, d, t_max, any_hit, prim_tests=tests, rows_read=seen, **extra)
+    walk.launches -= 1  # a measurement launch, not the main path's
+    visits = tests[:, 3]
+    return _warp_share(visits), float(visits.double().sum()) / o.shape[0]
 
 
 def _walk_against_twin(label, cs, walk_k, walk_p):
@@ -1856,11 +1999,15 @@ def _walk_against_twin(label, cs, walk_k, walk_p):
     where the prims agree, on every eighth ray (each ray walks alone in
     both, so the kernel's launch over the whole set is compared on that
     subset; the twin's lockstep loop costs seconds per set). Prints per set
-    the kernel's time over the whole set (CUDA events), pops per ray, the
-    share of lanes holding a ray (one thread per ray in a fixed grid: a
-    warp pops as often as its longest walk). Returns ({set/query: {...}},
+    the kernel's time over the whole set (CUDA events) and per ray, pops
+    per ray (the BVH walk's: boxes tested) and the share of lanes holding
+    a ray (both walks run one thread per ray in a fixed grid, and a warp
+    loops as often as its longest walk: _warp_share of the BVH walk's node
+    visits, _bvh_lanes, and of the kd walk's pops). Returns ({set/query: {...}},
     max |dt|, the ray sets)."""
     import torch
+
+    from pbrt_tpu_torch.device import bvh_walk
 
     sa, st = cs.arrays, cs.static
     rows, max_err = {}, 0.0
@@ -1870,7 +2017,9 @@ def _walk_against_twin(label, cs, walk_k, walk_p):
             q = f"{name}/{'any' if any_hit else 'closest'}"
             res_all = walk_k(sa, st, o, d, t_max, any_hit)
             res_k = [x[::8] for x in res_all]
+            t_twin = time.perf_counter()
             res_p = walk_p(sa, st, o[::8].contiguous(), d[::8].contiguous(), t_max[::8].contiguous(), any_hit)
+            t_twin = time.perf_counter() - t_twin
             t_k, p_k, t_p, p_p = res_k[0], res_k[1].long(), res_p[0], res_p[1].long()
             hk, hp = p_k >= 0, p_p >= 0
             both = hk & hp
@@ -1882,14 +2031,16 @@ def _walk_against_twin(label, cs, walk_k, walk_p):
             dt = float((t_k - t_p).abs()[both].max()) if bool(both.any()) else 0.0
             max_err = max(max_err, dt)
             pops = res_all[4].double()
-            n32 = -(-pops.numel() // 32) * 32
-            per_warp = torch.nn.functional.pad(pops, (0, n32 - pops.numel())).view(-1, 32).max(1).values
-            share = float(pops.sum()) / max(32.0 * float(per_warp.sum()), 1.0)
+            if walk_k is bvh_walk.bvh_walk_cuda:
+                share, visits = _bvh_lanes(walk_k, sa, st, o, d, t_max, any_hit)
+            else:
+                share, visits = _warp_share(pops), None
             ms = _cuda_ms(lambda: walk_k(sa, st, o, d, t_max, any_hit), 5)
             rows[q] = {"rays": o.shape[0], "compared": int(hk.numel()), "hit": float(hk.float().mean()), "ms": ms,
-                       "pops_per_ray": float(pops.mean()),
-                       "lanes_with_a_ray": share, "hit_disagree": int((hk != hp).sum()), "prim_disagree": bad_prim,
-                       "tied": int(tied.sum()), "t_differing": bad_t, "max_dt": dt}
+                       "ns_per_ray": 1e6 * ms / o.shape[0], "pops_per_ray": float(pops.mean()),
+                       "visits_per_ray": visits, "lanes_with_a_ray": share, "hit_disagree": int((hk != hp).sum()),
+                       "prim_disagree": bad_prim, "tied": int(tied.sum()), "t_differing": bad_t, "max_dt": dt,
+                       "twin_s": t_twin}
             print(f"  {label} {q}: {json.dumps(rows[q])}", flush=True)
             if rows[q]["hit_disagree"] or bad_prim or bad_t or res_p[5]:
                 raise AssertionError(f"the walk kernel and its twin disagree on {label} {q}")
@@ -1916,7 +2067,7 @@ def _walk_bound(label, cs, o, d, t_max, tm=None, res_main=None):
 
     sa, st = cs.arrays, cs.static
     dev = o.device
-    tests = torch.empty((o.shape[0], 3), dtype=torch.int32, device=dev)
+    tests = torch.empty((o.shape[0], 4), dtype=torch.int32, device=dev)
     seen = tuple(torch.zeros(n, dtype=torch.int32, device=dev)
                  for n in (sa.bvh_packed.shape[0], sa.prim_test_data.shape[0], sa.inst_w2i.shape[0]))
     walk = bvh_walk.bvh_walk_cuda if tm is None else bvh_walk.bvh_walk_motion_cuda
@@ -1925,7 +2076,7 @@ def _walk_bound(label, cs, o, d, t_max, tm=None, res_main=None):
     walk.launches -= 1  # a measurement launch, not the main path's
     if res_main is not None and not all(torch.equal(x, y) for x, y in zip(res, res_main)):
         raise AssertionError(f"{label}: the instrumented entry walked other paths")
-    tri, quad, inst = (float(x) for x in tests.double().sum(0))
+    tri, quad, inst, visits = (float(x) for x in tests.double().sum(0))
     pops = float(res[4].double().sum())
     nodes, prims, insts = seen
     node_bytes = sum(w * int(((nodes & bit) != 0).sum()) for bit, w in ((1, 24), (2, 8), (4, 4)))
@@ -1941,13 +2092,52 @@ def _walk_bound(label, cs, o, d, t_max, tm=None, res_main=None):
         n_bytes += _nbytes(tm, sa.anim_rec) + 52 * int(read.sum())
         ops += tri * (BW_OPS_ANIM + BW_OPS_ANIM_TRI) + quad * (BW_OPS_ANIM + BW_OPS_ANIM_QUADRIC)
     b = _bound(n_bytes, ops)
-    counts = {"pops": pops, "triangle_tests": tri, "quadric_tests": quad, "instanced_tests": inst,
+    counts = {"pops": pops, "visits": visits, "triangle_tests": tri, "quadric_tests": quad, "instanced_tests": inst,
               "nodes_read": int((nodes != 0).sum()), "prim_rows_read": int(read.sum()),
               "instances_read": int(insts.sum()), "table_bytes_read": node_bytes + prim_bytes + inst_bytes,
               "table_bytes": _nbytes(sa.bvh_packed, sa.prim_test_data, sa.prim_kind, sa.prim_inst, sa.inst_w2i),
               "bytes": n_bytes, "ops": ops}
     print(f"  {label} bound {b[0]:.4f} ms ({b[1]}): {json.dumps(counts)}", flush=True)
     return b[0], b[1], counts
+
+
+def _kd_walk_bound(label, cs, o, d, t_max, res_main):
+    """Phase 34: the kd walk's bound on one ray set, by _walk_bound's
+    formula from the work its twin counts on the same rays (it must walk
+    res_main's paths), with a split plane in place of a box: the interior
+    visits (each KD_OPS_NODE; a leaf's visit does no node work) and the
+    prim tests by kind in the operations; the rays in, the outputs and, of the
+    tables, each row the walk read once: a node's flag, split, child and
+    count (16 bytes), a leaf's prim id (4), a prim's kind (4) and its
+    row's 9 floats of a triangle or 19 (25) of a quadric, and the tree's
+    bounds (24). Returns (bound_ms, bound_by, the counts)."""
+    import torch
+
+    from pbrt_tpu_torch.device import bvh_walk
+
+    sa, st = cs.arrays, cs.static
+    counts = {}
+    res = bvh_walk.kd_walk_plain(sa, st, o, d, t_max, False, counts=counts)
+    if not all(torch.equal(x, y.to(x.dtype)) for x, y in zip(res_main[:5], res[:5])):
+        raise AssertionError(f"{label}: the counting twin walked other paths")
+    pops = float(res[4].double().sum())
+    interior, leaves = float(counts["interior_visits"]), float(counts["leaf_visits"])
+    if interior + leaves != pops:
+        raise AssertionError(f"{label}: the twin's visits do not sum to its pops")
+    tri, quad = float(counts["triangle_tests"]), float(counts["quadric_tests"])
+    read = counts["prims"]
+    is_tri = sa.prim_kind == 0
+    quad_floats = 25 if sa.prim_test_data.shape[1] >= 25 else 19
+    table_bytes = (16 * int(counts["nodes"].sum()) + 4 * int(counts["prim_ids"].sum()) + 4 * int(read.sum())
+                   + 36 * int((read & is_tri).sum()) + 4 * quad_floats * int((read & ~is_tri).sum()) + 24)
+    n_bytes = _nbytes(o, d, t_max, *res_main[:5]) + table_bytes
+    ops = interior * KD_OPS_NODE + tri * BW_OPS_TRI + quad * BW_OPS_QUADRIC
+    b = _bound(n_bytes, ops)
+    out = {"pops": pops, "interior_visits": interior, "leaf_visits": leaves, "triangle_tests": tri, "quadric_tests": quad, "nodes_read": int(counts["nodes"].sum()),
+           "prim_ids_read": int(counts["prim_ids"].sum()), "prim_rows_read": int(read.sum()),
+           "table_bytes_read": table_bytes, "bytes": n_bytes, "ops": ops}
+    print(f"  {label} bound {b[0]:.4f} ms ({b[1]}): {json.dumps(out)}", flush=True)
+    return b[0], b[1], out
 
 
 def _without_raw_quadrics(cs):
@@ -1974,7 +2164,7 @@ def _walk_phases(out, work):
     from pbrt_tpu_torch import main as cli
     from pbrt_tpu_torch import render as R_
     from pbrt_tpu_torch import scenes
-    from pbrt_tpu_torch.device import bvh_walk, megakernel, megakernel_wide, nvcc, wide_bvh
+    from pbrt_tpu_torch.device import bvh_walk, megakernel, megakernel_wide, wide_bvh
     from pbrt_tpu_torch.device.camera import make_camera
     from pbrt_tpu_torch.scene.builder import compile_scene
 
@@ -1983,11 +2173,13 @@ def _walk_phases(out, work):
     t_phase = time.perf_counter()
     # --- 34. the walk kernel against its twin ---
     info = bvh_walk.build_kernel()
-    regs = "; ".join(sorted(set(re.findall(r"Used \d+ registers[^\n]*", info["log"])))) or "n/a"
-    spills = "; ".join(sorted(set(re.findall(r"\d+ bytes spill stores, \d+ bytes spill loads", info["log"])))) or "n/a"
-    occ = [nvcc.occupancy(getattr(info["lib"], e)) for e in ("bvh_walk_occupancy", "kd_walk_occupancy")]
-    print(f"[34 bvh_walk build] {Path(info['path']).name}; ptxas: {regs}; {spills}; blocks of 128 per SM "
-          f"(bvh, kd) {occ}", flush=True)
+    entries = _walk_entries(info)
+    print(f"[34 bvh_walk build] {Path(info['path']).name}; per entry (template; registers, spill stores/loads, "
+          f"stack frame, blocks of 128 per SM): "
+          + ("; ".join(f"{r['kernel']}{r['template']} {r['registers']}, {r['spill_stores']}/{r['spill_loads']}, "
+                       f"{r['stack_frame']}, {r['blocks_per_sm']}" for r in entries) or "n/a (built before this run)"),
+          flush=True)
+    out["entries"] = entries
     scenes_34 = {}
     for key in ("bvh", "kdtree"):
         t0 = time.perf_counter()
@@ -2024,6 +2216,15 @@ def _walk_phases(out, work):
             print(f"  camera/closest: {entry['ms']:.4f} ms for {o.shape[0]} rays ({1e6 * entry['ms'] / o.shape[0]:.3f}"
                   f" ns per ray; B1 on the mesh room {1e6 * b1_per_ray:.3f}), plain twin {entry['plain_ms']:.2f} ms, "
                   f"at {100 * entry['bound_ms'] / entry['ms']:.2f}% of the bound", flush=True)
+        else:
+            # the kd walk's bound on its camera rays, from its twin's counts
+            _n, o, d_, t_max = ray_sets[0]
+            entry["ms"] = rows["camera/closest"]["ms"]
+            entry["bound_ms"], entry["bound_by"], entry["counts"] = _kd_walk_bound(
+                "34 kdtree camera/closest", q, o, d_, t_max, walk_k(q.arrays, st, o, d_, t_max, False))
+            walk_k.launches -= 1  # a measurement launch, not the main path's
+            print(f"  kd camera/closest: {entry['ms']:.4f} ms for {o.shape[0]} rays, at "
+                  f"{100 * entry['bound_ms'] / entry['ms']:.2f}% of the bound", flush=True)
         out[f"walk_{key}"] = entry
 
     seconds["34"] = time.perf_counter() - t_phase
@@ -2044,10 +2245,13 @@ def _walk_phases(out, work):
         # surface on one device and not the other: a few paths part, and a
         # parted path can carry a bright light's sample, which moves the
         # crop's sum by a percent)
+        # (the cpu crops rendered by phase 2's workers, from the same scene
+        # compiled there)
+        crops = _CPU_CROPS[{"bvh": "quadric_room", "kdtree": "quadric_room_kd"}[key]].result()
         _check_crop(f"35 quadric_room {key} cuda-vs-cpu crop, no cone, paraboloid or hyperboloid hits",
-                    _without_raw_quadrics(q), _without_raw_quadrics(host), host.description, LATE_SPP[0])
-        _check_crop(f"35 quadric_room {key} cuda-vs-cpu crop as built", q, host, host.description, LATE_SPP[0],
-                    estimate="pixels")
+                    _without_raw_quadrics(q), None, host.description, LATE_SPP[0], cpu=crops["no_raw"])
+        _check_crop(f"35 quadric_room {key} cuda-vs-cpu crop as built", q, None, host.description, LATE_SPP[0],
+                    estimate="pixels", cpu=crops["built"])
         out[f"quadric_room_{key}"] = {"wall_s": timing["wall_s"], "vps": timing["n_vertices"] / timing["wall_s"],
                                       "n_vertices": timing["n_vertices"], "walk_launches": launches,
                                       "kernels_per_iteration": n_k / max(n_it, 1)}
@@ -2480,18 +2684,21 @@ def _motion_bdpt_phases(out, work, cs, cs_host, mesh_img):
     err = float((res_k[0] - res_p[0]).abs()[hit].max()) if bool(hit.any()) else 0.0
     moving = sa.anim_gid[res_k[1].long().clamp(min=0)] > 0
     bound_ms, bound_by, counts = _walk_bound("43 motion camera/closest", mr, o, d, t_max, tm, res_k)
+    lanes, visits = _bvh_lanes(bvh_walk.bvh_walk_motion_cuda, sa, st, o, d, t_max, False, time=tm)
     counters = bvh_walk.bvh_walk_motion_cuda.counters[torch.device("cuda", 0)].tolist()
     print(f"[43 motion walk] motion_room(248): {st.n_prims} prims, {sa.anim['q0'].shape[0]} groups, host compile "
           f"{mr_compile_s:.1f}s; {o.shape[0]} camera rays at shutter fractions of dimension {R_.TIME_DIM}: rays "
           f"differing from the twin (t, prim, b1, b2, pops) {bit}, max |dt| {err:.3e}; on the {int(quad.sum())} "
           f"quadric hits b1, b2 (object-space x, y) apart by at most {quad_ulps} ulps (the static walk against its "
           f"twin on the same rays: differing {static_bit}, {static_ulps} ulps); hits {float(hit.float().mean()):.4f}"
-          f", on moving prims {int((hit & moving).sum())}; kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms; pops/ray "
-          f"{float(res_k[4].double().mean()):.2f}; bound {bound_ms:.4f} ms ({bound_by}), kernel at "
+          f", on moving prims {int((hit & moving).sum())}; kernel {k_ms:.4f} ms ({1e6 * k_ms / o.shape[0]:.3f} ns per "
+          f"ray), plain {p_ms:.1f} ms; boxes tested per ray {float(res_k[4].double().mean()):.2f}, node visits per "
+          f"ray {visits:.2f}, lanes with a ray {lanes:.4f}; bound {bound_ms:.4f} ms ({bound_by}), kernel at "
           f"{100 * bound_ms / k_ms:.2f}% of it; counters {counters}", flush=True)
     if any(bit.values()) or any(static_bit.values()) or counters != [0, 0] or not bool((hit & moving).any()):
         raise AssertionError("the motion walk (or the static walk) and its twin disagree")
-    out["motion_walk"] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err, "rays_differing": bit,
+    out["motion_walk"] = {"ms": k_ms, "ns_per_ray": 1e6 * k_ms / o.shape[0], "lanes_with_a_ray": lanes,
+                          "visits_per_ray": visits, "plain_ms": p_ms, "max_abs_err": err, "rays_differing": bit,
                           "quadric_xy_ulps": quad_ulps, "static_quadric_xy_ulps": static_ulps,
                           "bound_ms": bound_ms, "bound_by": bound_by, "counts": counts, "host_compile_s": mr_compile_s}
 
@@ -2537,18 +2744,21 @@ def _motion_bdpt_phases(out, work, cs, cs_host, mesh_img):
     seconds["46"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     # --- 47. crops on cuda and cpu; the keyframe motion; the front end ---
-    _check_crop("47 motion_room cuda-vs-cpu crop", mr, mr_host, mr.description, LATE_SPP[0])
+    # (the cpu crops rendered by phase 2's workers, from the same scenes compiled there)
+    _check_crop("47 motion_room cuda-vs-cpu crop", mr, None, mr.description, LATE_SPP[0],
+                cpu=_CPU_CROPS["motion_room"].result()["built"])
     rays = _realistic_rays_against_cpu(cs_r, _with_desc(cs_host, desc_r))
     print(f"[47 realistic camera rays] the crop's camera rays (sample 0) on cuda against cpu: {json.dumps(rays)}",
           flush=True)
     out["realistic_rays"] = rays
-    _check_crop("47 realistic camera cuda-vs-cpu crop", cs_r, _with_desc(cs_host, desc_r), desc_r, LATE_SPP[0])
-    _check_crop("47 bdpt cuda-vs-cpu crop", cs_b, _with_desc(cs_host, desc_b), desc_b, LATE_SPP[0])
+    mesh_crops = _CPU_CROPS["mesh_room"].result()
+    _check_crop("47 realistic camera cuda-vs-cpu crop", cs_r, None, desc_r, LATE_SPP[0], cpu=mesh_crops["realistic"])
+    _check_crop("47 bdpt cuda-vs-cpu crop", cs_b, None, desc_b, LATE_SPP[0], cpu=mesh_crops["bdpt"])
     keyed_host = compile_scene(scenes.motion_room(16, rotate=False), "cpu")
     if keyed_host.static.has_rot_motion or not keyed_host.static.has_motion:
         raise AssertionError("motion_room(rotate=False) should take the keyframe tables")
-    _check_crop("47 motion_room(16, rotate=False) cuda-vs-cpu crop", keyed_host.to("cuda"), keyed_host,
-                keyed_host.description, LATE_SPP[1])
+    _check_crop("47 motion_room(16, rotate=False) cuda-vs-cpu crop", keyed_host.to("cuda"), None,
+                keyed_host.description, LATE_SPP[1], cpu=_CPU_CROPS["motion_room_keyed"].result()["built"])
     files = {}
     for name, desc in (("motion_room", scenes.motion_room(8)),
                        ("bdpt_room", dataclasses.replace(scenes.mesh_room(8), integrator=dataclasses.replace(
@@ -2625,11 +2835,12 @@ def _device_kernels(fn) -> int:
     return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
-def _mlt_step_kernels(cs, max_depth, n_chains):
-    """Device kernels of one MLT chain step of n_chains chains at each depth,
-    on uniform rows: one step per depth under one torch.profiler session,
-    each in a range that ends with a synchronize, a kernel counted in the
-    range its start falls in. Returns (per depth, all of them)."""
+def _mlt_step_kernels(cs, depths, n_chains):
+    """Device kernels of one MLT chain step of n_chains chains at each of
+    `depths`, on uniform rows: one step per depth under one torch.profiler
+    session, each in a range that ends with a synchronize, a kernel counted
+    in the range its start falls in. Returns ({depth: kernels}, all of
+    them)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -2646,10 +2857,10 @@ def _mlt_step_kernels(cs, max_depth, n_chains):
     u = torch.rand((n_chains, mlt.DIMS), generator=torch.Generator().manual_seed(SEED)).to(sa.device)
     ids = torch.arange(n_chains, device=sa.device)
     film = torch.zeros((W * H + 1, 3), dtype=torch.float64, device=sa.device)
-    curs = [mlt._l_fn(sa, st, ctx, cam, cdf, u, depth, W, H) for depth in range(max_depth + 1)]
+    curs = {depth: mlt._l_fn(sa, st, ctx, cam, cdf, u, depth, W, H) for depth in depths}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for depth in range(max_depth + 1):
+        for depth in depths:
             with record_function(f"mlt_step_depth_{depth}"):
                 mlt.mlt_chain_step(sa, st, ctx, cam, cdf, depth, W, H, mlt.SIGMA, mlt.P_LARGE, ids, u, curs[depth],
                                    1, film)
@@ -2659,8 +2870,9 @@ def _mlt_step_kernels(cs, max_depth, n_chains):
               if e.name.startswith("mlt_step_depth_") and e.device_type == DeviceType.CPU}
     starts = [e.time_range.start for e in events
               if e.device_type == DeviceType.CUDA and not e.name.startswith("mlt_step_depth_")]
-    per_depth = [sum(1 for t in starts if ranges[f"mlt_step_depth_{d}"].start <= t <= ranges[f"mlt_step_depth_{d}"].end)
-                 for d in range(max_depth + 1)]
+    per_depth = {d: sum(1 for t in starts
+                        if ranges[f"mlt_step_depth_{d}"].start <= t <= ranges[f"mlt_step_depth_{d}"].end)
+                 for d in depths}
     return per_depth, len(starts)
 
 
@@ -2691,7 +2903,9 @@ def _mlt_sppm_phases(out, work, cs, cs_host, bdpt_mean):
     depths = timing["depths"]
     chain_s = sum(d_["chain_s"] for d_ in depths)
     boot_s = sum(d_["bootstrap_s"] for d_ in depths)
-    kernels, kernels_all = _mlt_step_kernels(_with_desc(cs, desc), desc.integrator.max_depth,
+    # the steps of depth 1 and of the deepest depth under the profiler
+    # (every depth's took about 16 s of the script)
+    kernels, kernels_all = _mlt_step_kernels(_with_desc(cs, desc), (1, desc.integrator.max_depth),
                                              desc.integrator.n_chains)
     ratio = float(img.mean()) / bdpt_mean
     print(f"[48 mlt main path] 1000x500 depth {desc.integrator.max_depth}, {desc.integrator.n_chains} chains, "
@@ -2852,11 +3066,11 @@ def main() -> int:
     # equal the parent's) beside the motion ones (MOTION 1: keyframes, 2:
     # the exact animated transform)
     info = bvh_walk.build_kernel()
-    walk_rows = _ptxas_entries(info["log"])
     print(f"[2 build] {Path(info['path']).name} in {info['seconds']:.1f}s; ptxas per entry (name, template, "
-          f"registers, spill stores/loads, stack frame): "
+          f"registers, spill stores/loads, stack frame, blocks of 128 per SM): "
           + ("; ".join(f"{r['kernel']}{r['template']} {r['registers']} regs, {r['spill_stores']}/"
-                       f"{r['spill_loads']} spill, {r['stack_frame']} stack" for r in walk_rows)
+                       f"{r['spill_loads']} spill, {r['stack_frame']} stack, {r['blocks_per_sm']} blocks"
+                       for r in _walk_entries(info))
              or "none: the library was built before this run (tools/ptxas_report.py --kernel bvh_walk)"), flush=True)
     group = wide_bvh.joint_group_width()
     print(f"[2 build] B2 walks a ray with {group} lanes, {32 // group} rays per warp", flush=True)
@@ -3234,7 +3448,8 @@ def main() -> int:
          "ms": wk["walk_bvh"]["ms"], "plain_ms": wk["walk_bvh"]["plain_ms"], "bound_ms": wk["walk_bvh"]["bound_ms"],
          "bound_by": wk["walk_bvh"]["bound_by"], "library_ms": None,
          "launches_by_route": {"bvh": wk["quadric_room_bvh"]["walk_launches"],
-                               "kdtree": wk["quadric_room_kdtree"]["walk_launches"]}},
+                               "kdtree": wk["quadric_room_kdtree"]["walk_launches"]},
+         "kd_walk": {k: wk["walk_kdtree"][k] for k in ("ms", "bound_ms", "bound_by")}},
         {"name": "medium_track", "route": "cuda", "source": "pbrt_tpu_torch/csrc/medium_track.cu",
          "replaces": "none (pbrt_tpu/device/media.py:183 and :248, lax.while_loops of delta and ratio tracking)",
          "launches": sum(wv["fog_room"]["launches"][k] for k in ("delta_track_cuda", "ratio_track_cuda")),
@@ -3259,4 +3474,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        for _pool in _POOL:  # phase 2's workers: no task left pending, every process ended
+            _pool.shutdown(wait=True, cancel_futures=True)
+    sys.exit(rc)

@@ -1,5 +1,5 @@
 // Closest-hit / any-hit walks of the binary BVH (bvh_walk) and of the
-// kd-tree (kd_walk): one thread per ray, a private stack in local memory.
+// kd-tree (kd_walk), each ray with a private stack.
 //
 // Replaces no Pallas kernel. The reference walks these scenes in XLA
 // (pbrt_tpu/device/intersect.py _traverse :487-694 and _traverse_kd
@@ -9,38 +9,65 @@
 // per query; on a GPU a thread can keep its own stack, so each ray walks
 // alone and visits only the nodes its own tests accept, near child first.
 //
-// bvh_walk: the reference's bvh_packed rows (N, 12: lo, hi, offset, n prims,
-// axis) and prim_test_data rows (P, 20 | 26). A node whose box the ray hits
-// (tn <= tf * 1.0000004, tf > 0, tn < t_best) is a leaf (n > 0: its prims
-// off .. off + n - 1) or pushes its children, the one on the ray's side of
-// its split axis last (popped first: pbrt's BVHAccel::Intersect). A leaf
-// prim of a nonzero instance sees the ray through inst_w2i (t is kept). A
-// leaf's tests all run against the t_best it started with; its winner is
-// the first prim of the nearest t, and it replaces the ray's hit only when
-// strictly nearer. Triangles take the watertight test (intersect.
-// ray_triangle), quadrics quadric.cuh.
-// kd_walk: pbrt's KdTreeAccel::Intersect over the kd_* tables, a todo stack
-// of 96 (node, t_min, t_max) entries, the root interval from the tree's
-// bounds; a ray stops once its best hit lies before its next interval.
+// bvh_walk: pbrt's BVHAccel::Intersect over the walk's records
+// (scene/arrays.py bvh_walk_records), derived from the reference's
+// bvh_packed rows: one 64-byte record per interior node holding both
+// children's boxes (three float4) and an int4 of the children's references
+// (an interior child's record, a leaf's ~offset), the split axis and the
+// node's bvh_packed row; one 48-byte row per prim holding a triangle's 9
+// vertex floats, then kind | rem << 4 (rem: the prims left in its leaf),
+// the instance row and the animation group. The root's box (bvh_packed row
+// 0) is tested when a ray starts; an interior node tests both children's
+// boxes (tn <= tf * 1.0000004, tf > 0, tn < t_best) and goes on in the near
+// child it hits (child 1 when the ray's direction is negative on the split
+// axis: pbrt's order), pushing the far one with its tn when it hits both; a
+// pop drops an entry whose tn is no longer below t_best. So the walk
+// enters, in the same order and at the same t_best, exactly the nodes of a
+// walk that tests each node's box when it pops it, and returns the same
+// hits. A leaf's tests all run against the t_best it started with; its
+// winner is the first prim of the nearest t, and it replaces the ray's hit
+// only when strictly nearer. A prim of a nonzero instance sees the ray
+// through inst_w2i (t is kept). Triangles take the watertight test
+// (intersect.ray_triangle), quadrics quadric.cuh over their prim_test_data
+// rows. pops counts the boxes tested (the root's, then two per interior
+// node entered), which equals a pop-time walk's pops on closest-hit queries.
+// kd_walk: pbrt's KdTreeAccel::Intersect over the kd_* tables, one thread
+// per ray in a fixed grid, a todo stack of 96 (node, t_min, t_max) entries,
+// the root interval from the tree's bounds; a ray stops once its best hit
+// lies before its next interval.
 // Both write (t, prim, b1, b2, pops): t_max and -1 on a miss; b1, b2 the
 // barycentrics of a triangle hit, a quadric hit's object-space x and y.
 // They are the twins of device/bvh_walk.py walk_plain and kd_walk_plain,
 // operation for operation (built with -fmad=false and without fast math).
 //
-// Bound: dependent loads and, on quadric leaves, the EFloat arithmetic. A pop
-// reads one 48-byte node row and the next pop depends on it; a leaf reads
-// up to max_leaf prim rows, of which a test reads 36 bytes (a triangle) or
-// 76-100 (a quadric). quadric_room(248)'s tables (251,168 prims: 49,146,848
-// bytes of nodes, prim rows, kinds, instance ids and transforms) about fill
-// the 50 MB L2; its 500,000 camera rays read 7,405,832 bytes of them
-// (chip_smoke.py phase 34). This first version keeps it simple:
-// one ray per thread, a fixed grid, no ray queue and no node layout of its
-// own (B1's tricks are later work); PERF.md has its time beside its bound.
-// bvh_walk_counted is the instrumented build: it also writes each ray's prim
-// tests (triangle, quadric, and those through an instance transform) and
-// marks the table rows the walk read (a node's box: bit 1, its offset and
-// count: bit 2, its axis: bit 4; a prim row tested; an instance used), so
-// that the bound counts the operations done and the bytes read.
+// Bound: dependent loads and, on quadric leaves, the EFloat arithmetic.
+// quadric_room(248)'s tables (251,168 prims) about fill the 50 MB L2; the
+// walk reads its records, the prim rows of the leaves it enters and a
+// quadric's prim_test_data row. What the BVH walk's design does about it
+// (tools/bvh_walk_variants.py measures each lever against the others and
+// against the design before it; PERF.md has the numbers):
+//  - the records: a visit of an interior node is four 16-byte loads of one
+//    record and two box tests, and it pushes only the far child it hits,
+//    so a ray makes about half as many dependent steps as a walk that pops
+//    every child; a leaf's prims are contiguous 48-byte rows, read as
+//    float4, with the kind, instance and group the test needs;
+//  - work done once: the ray in an instance's space is computed once per
+//    (ray, instance) and kept while the instance repeats, the motion
+//    group's M(dt) once per (ray, group) (the same arithmetic, so the same
+//    bits);
+//  - occupancy: __launch_bounds__(THREADS, BW_MIN_BLOCKS) caps the
+//    registers at 72, 7 blocks of 128 per SM;
+//  - one thread per ray over a grid that covers the rays: persistent
+//    lanes over a ray queue (B1's) hold more rays per warp on bounce rays
+//    but cost two ballots and a branch per visit, more than the idle lanes
+//    cost here (a visit is two box tests, not B1's eight).
+// bvh_walk_counted is the instrumented build: it also writes each ray's
+// prim tests (triangle, quadric, and those through an instance transform)
+// and its node visits (loop iterations), and marks the bvh_packed rows the
+// walk read (a node's box: bit 1, when the box is tested; its offset and
+// count: bit 2, when the node is entered; its axis: bit 4, when an
+// interior node is entered), the prim rows tested and the instances used,
+// so that the bound counts the operations done and the bytes read.
 //
 // Motion blur: the MOTION template argument of both walks. MOTION 0 is the
 // static walk above. The motion instantiations take a per-ray shutter
@@ -71,7 +98,8 @@
 #include "quadric.cuh"
 
 #define THREADS 128
-#define BW_STACK 64
+#define BW_STACK 64      // entries (far child, its tn) per ray: intersect.STACK_DEPTH
+#define BW_MIN_BLOCKS 7  // resident blocks per SM the register cap aims at (72 registers; PERF.md)
 #define KD_STACK 96
 #define BW_ITER_CAP 1000000
 #define BW_EPS 1e-4f
@@ -211,9 +239,103 @@ __device__ __forceinline__ void bw_affine_inverse(const float m[12], float r[12]
         r[4 * i + 3] = -((r[4 * i] * m[3] + r[4 * i + 1] * m[7]) + r[4 * i + 2] * m[11]);
 }
 
-// One prim of a leaf against the ray, at the leaf's t_best: the instanced
-// ray for a nonzero instance, the prim moved to the ray's time (MOTION > 0),
-// then the triangle or quadric test.
+// The ray in an instance's space (w2i: its 3x4 world-to-instance rows).
+__device__ __forceinline__ void bw_inst_ray(const BwRay& r, const float* __restrict__ m, BwRay& ri) {
+    float o[3], d[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        o[i] = __ldg(m + 4 * i) * r.o[0] + __ldg(m + 4 * i + 1) * r.o[1] + __ldg(m + 4 * i + 2) * r.o[2] +
+               __ldg(m + 4 * i + 3);
+        d[i] = __ldg(m + 4 * i) * r.d[0] + __ldg(m + 4 * i + 1) * r.d[1] + __ldg(m + 4 * i + 2) * r.d[2];
+    }
+    bw_setup(ri, o, d);
+}
+
+// One prim against the ray rr (already in its instance's space), at t_max:
+// a triangle's shutter-open vertices v (its prim row's first 9 floats), or
+// a quadric's prim_test_data row; moved to the ray's time dt (MOTION 1:
+// the keyframe rows of pid; MOTION 2: through g, the prim's M(dt) . C for
+// a triangle, C . M(dt)^-1 for a quadric), then the watertight or the
+// quadric test.
+template <int MOTION>
+__device__ __forceinline__ bool bw_test(const BwRay& rr, int pid, bool tri, const float v0[9],
+                                        const float* __restrict__ row, int cols, const float g[12],
+                                        const BwMotion& mo, float dt, float t_max, float& t, float& b1, float& b2) {
+    if (tri) {
+        float v[9];
+#pragma unroll
+        for (int i = 0; i < 9; ++i) v[i] = v0[i];
+        if (MOTION == 1) {
+            const float* re = mo.ptd_end + (size_t)pid * cols;
+#pragma unroll
+            for (int i = 0; i < 9; ++i) v[i] = v[i] + dt * (__ldg(re + i) - v[i]);
+            if (mo.ptd_mid) {
+                const float* rm = mo.ptd_mid + (size_t)pid * cols;
+#pragma unroll
+                for (int i = 0; i < 9; ++i)
+                    v[i] = v[i] + (dt * (1.0f - dt)) * ((4.0f * __ldg(rm + i) - 2.0f * v0[i]) - 2.0f * __ldg(re + i));
+            }
+        } else if (MOTION == 2) {
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+#pragma unroll
+                for (int i = 0; i < 3; ++i)
+                    v[3 * k + i] =
+                        ((g[4 * i] * v0[3 * k] + g[4 * i + 1] * v0[3 * k + 1]) + g[4 * i + 2] * v0[3 * k + 2]) +
+                        g[4 * i + 3];
+        }
+        return bw_tri(rr, v, t_max, t, b1, b2);
+    }
+    float w2o[12], par[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) w2o[i] = __ldg(row + i);
+    if (MOTION == 1) {
+        const float* re = mo.ptd_end + (size_t)pid * cols;
+#pragma unroll
+        for (int i = 0; i < 12; ++i) w2o[i] = w2o[i] + dt * (__ldg(re + i) - w2o[i]);
+        if (mo.ptd_mid) {
+            const float* rm = mo.ptd_mid + (size_t)pid * cols;
+#pragma unroll
+            for (int i = 0; i < 12; ++i) {
+                const float b = __ldg(row + i);
+                w2o[i] = w2o[i] + (dt * (1.0f - dt)) * ((4.0f * __ldg(rm + i) - 2.0f * b) - 2.0f * __ldg(re + i));
+            }
+        }
+    } else if (MOTION == 2) {
+#pragma unroll
+        for (int i = 0; i < 12; ++i) w2o[i] = g[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) par[i] = __ldg(row + 12 + i);
+    const bool twisted = cols >= 25;
+    if (twisted) {
+#pragma unroll
+        for (int i = 0; i < 6; ++i) par[6 + i] = __ldg(row + 19 + i);
+    }
+    return qf_ray_quadric(rr.o, rr.d, w2o, par, (int)__ldg(row + 18), twisted, t_max, t, b1, b2);
+}
+
+// g of a prim under MOTION 2 from its group's M(dt) m: M(dt) . C for a
+// triangle, C . M(dt)^-1 for a quadric (C its anim_c row).
+__device__ __forceinline__ void bw_motion_g(const float m[12], const float* __restrict__ anim_c, int pid, bool tri,
+                                            float g[12]) {
+    float c[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) c[i] = __ldg(anim_c + (size_t)pid * 12 + i);
+    if (tri) {
+        bw_compose(m, c, g);
+    } else {
+        float mi[12];
+        bw_affine_inverse(m, mi);
+        bw_compose(c, mi, g);
+    }
+}
+
+// One prim of a kd leaf against the ray, at the leaf's t_best: the
+// instanced ray for a nonzero instance, the prim moved to the ray's time
+// (MOTION > 0), then the triangle or quadric test. The kd walk's
+// per-candidate code, as it was before the BVH walk's redesign (its own
+// redesign is queued: ROADMAP).
 template <int MOTION>
 __device__ __forceinline__ bool bw_prim(const BwRay& r, int pid, const float* __restrict__ ptd, int cols,
                                         const int* __restrict__ prim_kind, const int* __restrict__ prim_inst,
@@ -312,102 +434,228 @@ __device__ __forceinline__ float bw_inv(float x) {
     return 1.0f / (fabsf(x) < 1e-30f ? (x < 0.0f ? -1e-30f : 1e-30f) : x);
 }
 
-template <bool COUNT, int MOTION>
-__global__ void __launch_bounds__(THREADS)
-bvh_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, const float* __restrict__ t_max_in,
-                int n_rays, const float* __restrict__ nodes, const float* __restrict__ ptd, int cols,
-                const int* __restrict__ prim_kind, const int* __restrict__ prim_inst,
-                const float* __restrict__ inst_w2i, int max_leaf, int any_hit, float* __restrict__ out_t,
-                int* __restrict__ out_prim, float* __restrict__ out_b1, float* __restrict__ out_b2,
-                int* __restrict__ out_pops, unsigned int* __restrict__ counters, int* __restrict__ out_tests,
-                int* __restrict__ seen_nodes, int* __restrict__ seen_prims, int* __restrict__ seen_inst, BwMotion mo) {
-    const int ray = blockIdx.x * blockDim.x + threadIdx.x;
-    if (ray >= n_rays) return;
-    (void)max_leaf;
-    const float dt = MOTION ? mo.time[ray] : 0.0f;
-    const float o[3] = {o_in[3 * ray], o_in[3 * ray + 1], o_in[3 * ray + 2]};
-    const float d[3] = {d_in[3 * ray], d_in[3 * ray + 1], d_in[3 * ray + 2]};
-    const float inv[3] = {bw_inv(d[0]), bw_inv(d[1]), bw_inv(d[2])};
-    BwRay r;
-    bw_setup(r, o, d);
-    const float t_max = t_max_in[ray];
-    float t_best = t_max, b1 = 0.0f, b2 = 0.0f;
-    int prim = -1, pops = 0, n_tri = 0, n_quad = 0, n_inst = 0;
-    int stack[BW_STACK];
-    int sp = 0;
-    if (t_max > 0.0f) stack[sp++] = 0;
-    while (sp > 0) {
-        if (pops >= BW_ITER_CAP) {
-            atomicAdd(&counters[1], 1u);
-            break;
-        }
-        const int node = stack[--sp];
-        ++pops;
-        const float* row = nodes + (size_t)node * 12;
-        float tn = -INFINITY, tf = INFINITY;
+// The slab test of a box (lo, hi): enter = tn <= tf * BW_SLAB, tf > 0 and
+// tn < t_best; tn out.
+__device__ __forceinline__ bool bw_box(const float o[3], const float inv[3], float t_best, float lx, float ly,
+                                       float lz, float hx, float hy, float hz, float& tn) {
+    const float lo[3] = {lx, ly, lz}, hi[3] = {hx, hy, hz};
+    float n = -INFINITY, f = INFINITY;
 #pragma unroll
-        for (int a = 0; a < 3; ++a) {
-            const float t0 = (__ldg(row + a) - o[a]) * inv[a];
-            const float t1 = (__ldg(row + 3 + a) - o[a]) * inv[a];
-            tn = qf_max(tn, qf_min(t0, t1));
-            tf = qf_min(tf, qf_max(t0, t1));
-        }
-        tf = tf * BW_SLAB;
-        const bool enter = tn <= tf && tf > 0.0f && tn < t_best;
-        if (COUNT) atomicOr(seen_nodes + node, enter ? 3 : 1);
-        if (!enter) continue;
-        const int off = (int)__ldg(row + 6), n = (int)__ldg(row + 7);
-        if (n > 0) {
-            float tmin = INFINITY, w1 = 0.0f, w2 = 0.0f;
-            int win = -1;
-            for (int k = 0; k < n; ++k) {
-                float t, c1, c2;
-                if (COUNT) {
-                    const int pid = off + k, iid = __ldg(prim_inst + pid);
-                    if (__ldg(prim_kind + pid) == 0) ++n_tri; else ++n_quad;
-                    seen_prims[pid] = 1;
-                    if (iid != 0) {
-                        ++n_inst;
-                        seen_inst[iid] = 1;
-                    }
-                }
-                if (bw_prim<MOTION>(r, off + k, ptd, cols, prim_kind, prim_inst, inst_w2i, t_best, t, c1, c2, mo, dt) &&
-                    t < tmin) {
-                    tmin = t;
-                    w1 = c1;
-                    w2 = c2;
-                    win = off + k;
-                }
-            }
-            if (tmin < t_best) {
-                t_best = tmin;
-                prim = win;
-                b1 = w1;
-                b2 = w2;
-                if (any_hit) break;
-            }
-            continue;
-        }
-        const int axis = (int)__ldg(row + 8);
-        if (COUNT) atomicOr(seen_nodes + node, 4);
-        const bool neg = bw_pick(d, axis) < 0.0f;
-        const int left = node + 1, right = off;
-        if (sp + 2 > BW_STACK) {
-            atomicAdd(&counters[0], 1u);
-            continue;
-        }
-        stack[sp++] = neg ? left : right;  // far
-        stack[sp++] = neg ? right : left;  // near, popped first
+    for (int a = 0; a < 3; ++a) {
+        const float t0 = (lo[a] - o[a]) * inv[a];
+        const float t1 = (hi[a] - o[a]) * inv[a];
+        n = qf_max(n, qf_min(t0, t1));
+        f = qf_min(f, qf_max(t0, t1));
     }
-    out_t[ray] = t_best;
-    out_prim[ray] = prim;
-    out_b1[ray] = b1;
-    out_b2[ray] = b2;
-    out_pops[ray] = pops;
-    if (COUNT) {
-        out_tests[3 * ray] = n_tri;
-        out_tests[3 * ray + 1] = n_quad;
-        out_tests[3 * ray + 2] = n_inst;
+    f = f * BW_SLAB;
+    tn = n;
+    return n <= f && f > 0.0f && n < t_best;
+}
+
+// One ray's BVH walk between node visits.
+struct BwWalk {
+    BwRay r;                       // the world ray
+    float inv[3];
+    float t_best, b1, b2, dt;
+    int prim, pops, cur, sp;       // cur: the node to visit (record, or ~leaf offset)
+    bool live;
+    int c_iid;                     // the instance whose space ri holds (0: none yet)
+    BwRay ri;
+    int c_gid;                     // the group whose M(dt) m holds (-1: none yet; MOTION 2)
+    float m[12];
+    int visits, n_tri, n_quad, n_inst, cur_row;  // the instrumented build's counts; cur's bvh_packed row
+};
+
+// The BVH walk's tables and instrumented outputs.
+struct BwTables {
+    const float* nodes;     // bvh_packed (N, 12): the root's box; the counted build's rows
+    const float4* node_rec; // (n_interior, 4) float4
+    const float4* prim_rec; // (P, 3) float4
+    const float* ptd;       // prim_test_data (P, cols): the quadrics' rows
+    int cols;
+    const float* inst_w2i;  // (I, 12)
+    int* seen_nodes;        // the counted build: bits per bvh_packed row
+    int* seen_prims;
+    int* seen_inst;
+};
+
+// Start ray id: its setup and the root's box (a dead ray, t_max <= 0,
+// tests nothing).
+template <bool COUNT, int MOTION>
+__device__ __forceinline__ void bw_start(BwWalk& w, int id, const float* __restrict__ o_in,
+                                         const float* __restrict__ d_in, const float* __restrict__ t_max_in,
+                                         const BwTables& tb, const BwMotion& mo) {
+    const float o[3] = {o_in[3 * id], o_in[3 * id + 1], o_in[3 * id + 2]};
+    const float d[3] = {d_in[3 * id], d_in[3 * id + 1], d_in[3 * id + 2]};
+#pragma unroll
+    for (int i = 0; i < 3; ++i) w.inv[i] = bw_inv(d[i]);
+    bw_setup(w.r, o, d);
+    w.dt = MOTION ? mo.time[id] : 0.0f;
+    w.t_best = t_max_in[id];
+    w.b1 = 0.0f;
+    w.b2 = 0.0f;
+    w.prim = -1;
+    w.pops = 0;
+    w.sp = 0;
+    w.c_iid = 0;
+    w.c_gid = -1;
+    w.visits = w.n_tri = w.n_quad = w.n_inst = 0;
+    w.cur_row = 0;
+    w.live = false;
+    if (w.t_best > 0.0f) {
+        const float* rt = tb.nodes;
+        float tn;
+        w.pops = 1;
+        w.live = bw_box(w.r.o, w.inv, w.t_best, __ldg(rt), __ldg(rt + 1), __ldg(rt + 2), __ldg(rt + 3),
+                        __ldg(rt + 4), __ldg(rt + 5), tn);
+        w.cur = __ldg(rt + 7) > 0.0f ? ~(int)__ldg(rt + 6) : 0;
+        if (COUNT) atomicOr(tb.seen_nodes, 1);
+    }
+}
+
+// One visit of the node w.cur (an interior node's two boxes, or a leaf's
+// prims), then, unless it goes on in a child, a pop.
+template <bool COUNT, int MOTION>
+__device__ __forceinline__ void bw_visit(BwWalk& w, int2* stack, int* st_row, const BwTables& tb, bool any_hit,
+                                         unsigned int* counters, const BwMotion& mo) {
+    if (w.pops >= BW_ITER_CAP) {
+        atomicAdd(&counters[1], 1u);
+        w.live = false;
+        return;
+    }
+    if (COUNT) ++w.visits;
+    if (w.cur >= 0) {
+        const float4* rec = tb.node_rec + (size_t)w.cur * 4;
+        const float4 a = __ldg(rec), b = __ldg(rec + 1), c = __ldg(rec + 2);
+        const int4 m = __ldg(reinterpret_cast<const int4*>(rec + 3));
+        float tn0, tn1;
+        const bool h0 = bw_box(w.r.o, w.inv, w.t_best, a.x, a.y, a.z, a.w, b.x, b.y, tn0);
+        const bool h1 = bw_box(w.r.o, w.inv, w.t_best, b.z, b.w, c.x, c.y, c.z, c.w, tn1);
+        w.pops += 2;
+        const bool neg = bw_pick(w.r.d, m.z) < 0.0f;
+        const bool hn = neg ? h1 : h0, hf = neg ? h0 : h1;
+        const int rn = neg ? m.y : m.x, rf = neg ? m.x : m.y;
+        int row_n = 0, row_f = 0;
+        if (COUNT) {
+            const int left = m.w + 1, right = (int)__ldg(tb.nodes + (size_t)m.w * 12 + 6);
+            atomicOr(tb.seen_nodes + m.w, 6);
+            atomicOr(tb.seen_nodes + left, 1);
+            atomicOr(tb.seen_nodes + right, 1);
+            row_n = neg ? right : left;
+            row_f = neg ? left : right;
+        }
+        if (hn && hf) {
+            if (w.sp < BW_STACK) {
+                stack[w.sp] = make_int2(rf, __float_as_int(neg ? tn0 : tn1));
+                if (COUNT) st_row[w.sp] = row_f;
+                ++w.sp;
+            } else {
+                atomicAdd(&counters[0], 1u);
+            }
+        }
+        if (hn || hf) {
+            w.cur = hn ? rn : rf;
+            if (COUNT) w.cur_row = hn ? row_n : row_f;
+            return;
+        }
+    } else {
+        // a leaf: its prims at the t_best it starts with
+        int p = ~w.cur;
+        float tmin = INFINITY, v1 = 0.0f, v2 = 0.0f;
+        int win = -1;
+        if (COUNT) atomicOr(tb.seen_nodes + w.cur_row, 2);
+        for (;;) {
+            const float4* pr = tb.prim_rec + (size_t)p * 3;
+            const float4 q0 = __ldg(pr), q1 = __ldg(pr + 1), q2 = __ldg(pr + 2);
+            const int kw = __float_as_int(q2.y), iid = __float_as_int(q2.z);
+            const bool tri = (kw & 15) == 0;
+            if (COUNT) {
+                if (tri) ++w.n_tri; else ++w.n_quad;
+                tb.seen_prims[p] = 1;
+                if (iid != 0) {
+                    ++w.n_inst;
+                    tb.seen_inst[iid] = 1;
+                }
+            }
+            // the ray in the prim's instance space, once per (ray, instance)
+            if (iid != 0 && iid != w.c_iid) {
+                bw_inst_ray(w.r, tb.inst_w2i + (size_t)iid * 12, w.ri);
+                w.c_iid = iid;
+            }
+            float g[12];
+            if (MOTION == 2) {
+                // the group's M(dt), once per (ray, group)
+                const int gid = __float_as_int(q2.w);
+                if (gid != w.c_gid) {
+                    bw_anim_matrix(mo.anim + (size_t)gid * BW_ANIM_COLS, w.dt, w.m);
+                    w.c_gid = gid;
+                }
+                bw_motion_g(w.m, mo.anim_c, p, tri, g);
+            }
+            const float v[9] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x};
+            float t, c1, c2;
+            if (bw_test<MOTION>(iid != 0 ? w.ri : w.r, p, tri, v, tb.ptd + (size_t)p * tb.cols, tb.cols, g, mo, w.dt,
+                                w.t_best, t, c1, c2) &&
+                t < tmin) {
+                tmin = t;
+                v1 = c1;
+                v2 = c2;
+                win = p;
+            }
+            if ((kw >> 4) <= 1) break;
+            ++p;
+        }
+        if (tmin < w.t_best) {
+            w.t_best = tmin;
+            w.prim = win;
+            w.b1 = v1;
+            w.b2 = v2;
+            if (any_hit) {
+                w.live = false;
+                return;
+            }
+        }
+    }
+    // pop: the top entry whose tn is still below t_best
+    while (w.sp > 0) {
+        const int2 e = stack[--w.sp];
+        if (__int_as_float(e.y) < w.t_best) {
+            w.cur = e.x;
+            if (COUNT) w.cur_row = st_row[w.sp];
+            return;
+        }
+    }
+    w.live = false;
+}
+
+// One thread per ray over a grid that covers the rays (a thread's loop
+// iterations are its node visits).
+template <bool COUNT, int MOTION>
+__global__ void __launch_bounds__(THREADS, BW_MIN_BLOCKS)
+bvh_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, const float* __restrict__ t_max_in,
+                int n_rays, BwTables tb, int any_hit, float* __restrict__ out_t, int* __restrict__ out_prim,
+                float* __restrict__ out_b1, float* __restrict__ out_b2, int* __restrict__ out_pops,
+                unsigned int* __restrict__ counters, int* __restrict__ out_tests, BwMotion mo) {
+    const int ray = blockIdx.x * blockDim.x + threadIdx.x;
+    BwWalk w;
+    int2 stack[BW_STACK];
+    int st_row[COUNT ? BW_STACK : 1];
+    if (ray < n_rays) {
+        bw_start<COUNT, MOTION>(w, ray, o_in, d_in, t_max_in, tb, mo);
+        while (w.live) {
+            bw_visit<COUNT, MOTION>(w, stack, st_row, tb, any_hit != 0, counters, mo);
+        }
+        out_t[ray] = w.t_best;
+        out_prim[ray] = w.prim;
+        out_b1[ray] = w.b1;
+        out_b2[ray] = w.b2;
+        out_pops[ray] = w.pops;
+        if (COUNT) {
+            out_tests[4 * ray] = w.n_tri;
+            out_tests[4 * ray + 1] = w.n_quad;
+            out_tests[4 * ray + 2] = w.n_inst;
+            out_tests[4 * ray + 3] = w.visits;
+        }
     }
 }
 
@@ -523,20 +771,23 @@ static BwMotion bw_motion(const void* time, const void* ptd_end, const void* ptd
 }
 
 template <bool COUNT, int MOTION>
-static int launch_bvh(const void* o, const void* d, const void* t_max, int n_rays, const void* nodes, const void* ptd,
-                      int cols, const void* prim_kind, const void* prim_inst, const void* inst_w2i, int max_leaf,
-                      int any_hit, void* out_t, void* out_prim, void* out_b1, void* out_b2, void* out_pops,
-                      void* counters, void* stream, void* out_tests, void* seen_nodes, void* seen_prims,
-                      void* seen_inst, BwMotion mo) {
+static int launch_bvh(const void* o, const void* d, const void* t_max, int n_rays, const BwTables& tb, int any_hit,
+                      void* out_t, void* out_prim, void* out_b1, void* out_b2, void* out_pops, void* counters,
+                      void* stream, void* out_tests, BwMotion mo) {
     if (n_rays > 0) {
         const int blocks = (n_rays + THREADS - 1) / THREADS;
         bvh_walk_kernel<COUNT, MOTION><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-            (const float*)o, (const float*)d, (const float*)t_max, n_rays, (const float*)nodes, (const float*)ptd, cols,
-            (const int*)prim_kind, (const int*)prim_inst, (const float*)inst_w2i, max_leaf, any_hit, (float*)out_t,
-            (int*)out_prim, (float*)out_b1, (float*)out_b2, (int*)out_pops, (unsigned int*)counters, (int*)out_tests,
-            (int*)seen_nodes, (int*)seen_prims, (int*)seen_inst, mo);
+            (const float*)o, (const float*)d, (const float*)t_max, n_rays, tb, any_hit, (float*)out_t,
+            (int*)out_prim, (float*)out_b1, (float*)out_b2, (int*)out_pops, (unsigned int*)counters,
+            (int*)out_tests, mo);
     }
     return (int)cudaGetLastError();
+}
+
+static BwTables bw_tables(const void* nodes, const void* node_rec, const void* prim_rec, const void* ptd, int cols,
+                          const void* inst_w2i, void* seen_nodes, void* seen_prims, void* seen_inst) {
+    return BwTables{(const float*)nodes, (const float4*)node_rec, (const float4*)prim_rec, (const float*)ptd, cols,
+                    (const float*)inst_w2i, (int*)seen_nodes, (int*)seen_prims, (int*)seen_inst};
 }
 
 template <int MOTION>
@@ -557,40 +808,48 @@ static int launch_kd(const void* o, const void* d, const void* t_max, int n_rays
     return (int)cudaGetLastError();
 }
 
+// The BVH walk's entries. Tables: bvh_packed (the root's box; the counted
+// build's rows), the walk's node and prim records, prim_test_data and its
+// column count, inst_w2i.
 extern "C" int bvh_walk(const void* o, const void* d, const void* t_max, int n_rays, const void* nodes,
-                        const void* ptd, int cols, const void* prim_kind, const void* prim_inst, const void* inst_w2i,
-                        int max_leaf, int any_hit, void* out_t, void* out_prim, void* out_b1, void* out_b2,
-                        void* out_pops, void* counters, void* stream) {
-    return launch_bvh<false, 0>(o, d, t_max, n_rays, nodes, ptd, cols, prim_kind, prim_inst, inst_w2i, max_leaf,
-                                any_hit, out_t, out_prim, out_b1, out_b2, out_pops, counters, stream, nullptr, nullptr,
-                                nullptr, nullptr, BwMotion{});
+                        const void* node_rec, const void* prim_rec, const void* ptd, int cols, const void* inst_w2i,
+                        int any_hit, void* out_t, void* out_prim, void* out_b1, void* out_b2, void* out_pops,
+                        void* counters, void* stream) {
+    return launch_bvh<false, 0>(o, d, t_max, n_rays,
+                                bw_tables(nodes, node_rec, prim_rec, ptd, cols, inst_w2i, nullptr, nullptr, nullptr),
+                                any_hit, out_t, out_prim, out_b1, out_b2, out_pops, counters, stream,
+                                nullptr, BwMotion{});
 }
 
+// bvh_walk's arguments, then out_tests (R, 4: triangle, quadric and
+// instanced tests, node visits) and the zeroed row marks of bvh_packed,
+// the prims and the instances.
 extern "C" int bvh_walk_counted(const void* o, const void* d, const void* t_max, int n_rays, const void* nodes,
-                                const void* ptd, int cols, const void* prim_kind, const void* prim_inst,
-                                const void* inst_w2i, int max_leaf, int any_hit, void* out_t, void* out_prim,
-                                void* out_b1, void* out_b2, void* out_pops, void* counters, void* stream,
+                                const void* node_rec, const void* prim_rec, const void* ptd, int cols,
+                                const void* inst_w2i, int any_hit, void* out_t, void* out_prim, void* out_b1,
+                                void* out_b2, void* out_pops, void* counters, void* stream,
                                 void* out_tests, void* seen_nodes, void* seen_prims, void* seen_inst) {
-    return launch_bvh<true, 0>(o, d, t_max, n_rays, nodes, ptd, cols, prim_kind, prim_inst, inst_w2i, max_leaf,
-                               any_hit, out_t, out_prim, out_b1, out_b2, out_pops, counters, stream, out_tests,
-                               seen_nodes, seen_prims, seen_inst, BwMotion{});
+    return launch_bvh<true, 0>(
+        o, d, t_max, n_rays,
+        bw_tables(nodes, node_rec, prim_rec, ptd, cols, inst_w2i, seen_nodes, seen_prims, seen_inst),
+        any_hit, out_t, out_prim, out_b1, out_b2, out_pops, counters, stream, out_tests, BwMotion{});
 }
 
-// The motion walks: bvh_walk's and bvh_walk_counted's arguments, then motion
-// (1 keyframes, 2 the exact animated transform), the per-ray time and the
-// motion tables (ptd_mid may be null; the tables a MOTION does not read may
-// be null).
+// The motion walks: bvh_walk's arguments, then motion (1 keyframes, 2 the
+// exact animated transform), the per-ray time and the motion tables
+// (ptd_mid may be null; the tables a MOTION does not read may be null; the
+// BVH walk reads each prim's group from its prim record, not anim_gid).
 extern "C" int bvh_walk_motion(const void* o, const void* d, const void* t_max, int n_rays, const void* nodes,
-                               const void* ptd, int cols, const void* prim_kind, const void* prim_inst,
-                               const void* inst_w2i, int max_leaf, int any_hit, void* out_t, void* out_prim,
-                               void* out_b1, void* out_b2, void* out_pops, void* counters, void* stream, int motion,
-                               const void* time, const void* ptd_end, const void* ptd_mid, const void* anim,
-                               const void* anim_gid, const void* anim_c) {
+                               const void* node_rec, const void* prim_rec, const void* ptd, int cols,
+                               const void* inst_w2i, int any_hit, void* out_t, void* out_prim, void* out_b1,
+                               void* out_b2, void* out_pops, void* counters, void* stream,
+                               int motion, const void* time, const void* ptd_end, const void* ptd_mid,
+                               const void* anim, const void* anim_gid, const void* anim_c) {
     const BwMotion mo = bw_motion(time, ptd_end, ptd_mid, anim, anim_gid, anim_c);
-#define BW_CALL(M)                                                                                                  \
-    launch_bvh<false, M>(o, d, t_max, n_rays, nodes, ptd, cols, prim_kind, prim_inst, inst_w2i, max_leaf, any_hit, \
-                         out_t, out_prim, out_b1, out_b2, out_pops, counters, stream, nullptr, nullptr, nullptr,    \
-                         nullptr, mo)
+    const BwTables tb = bw_tables(nodes, node_rec, prim_rec, ptd, cols, inst_w2i, nullptr, nullptr, nullptr);
+#define BW_CALL(M)                                                                                               \
+    launch_bvh<false, M>(o, d, t_max, n_rays, tb, any_hit, out_t, out_prim, out_b1, out_b2, out_pops, counters, \
+                         stream, nullptr, mo)
     if (motion == 1) return BW_CALL(1);
     if (motion == 2) return BW_CALL(2);
 #undef BW_CALL
@@ -598,18 +857,18 @@ extern "C" int bvh_walk_motion(const void* o, const void* d, const void* t_max, 
 }
 
 extern "C" int bvh_walk_motion_counted(const void* o, const void* d, const void* t_max, int n_rays,
-                                       const void* nodes, const void* ptd, int cols, const void* prim_kind,
-                                       const void* prim_inst, const void* inst_w2i, int max_leaf, int any_hit,
-                                       void* out_t, void* out_prim, void* out_b1, void* out_b2, void* out_pops,
-                                       void* counters, void* stream, int motion, const void* time,
+                                       const void* nodes, const void* node_rec, const void* prim_rec,
+                                       const void* ptd, int cols, const void* inst_w2i, int any_hit, void* out_t,
+                                       void* out_prim, void* out_b1, void* out_b2, void* out_pops, void* counters,
+                                       void* stream, int motion, const void* time,
                                        const void* ptd_end, const void* ptd_mid, const void* anim,
                                        const void* anim_gid, const void* anim_c, void* out_tests, void* seen_nodes,
                                        void* seen_prims, void* seen_inst) {
     const BwMotion mo = bw_motion(time, ptd_end, ptd_mid, anim, anim_gid, anim_c);
-#define BW_CALL(M)                                                                                                  \
-    launch_bvh<true, M>(o, d, t_max, n_rays, nodes, ptd, cols, prim_kind, prim_inst, inst_w2i, max_leaf, any_hit,  \
-                        out_t, out_prim, out_b1, out_b2, out_pops, counters, stream, out_tests, seen_nodes,         \
-                        seen_prims, seen_inst, mo)
+    const BwTables tb = bw_tables(nodes, node_rec, prim_rec, ptd, cols, inst_w2i, seen_nodes, seen_prims, seen_inst);
+#define BW_CALL(M)                                                                                              \
+    launch_bvh<true, M>(o, d, t_max, n_rays, tb, any_hit, out_t, out_prim, out_b1, out_b2, out_pops, counters, \
+                        stream, out_tests, mo)
     if (motion == 1) return BW_CALL(1);
     if (motion == 2) return BW_CALL(2);
 #undef BW_CALL
@@ -645,9 +904,16 @@ extern "C" int kd_walk_motion(const void* o, const void* d, const void* t_max, i
     return (int)cudaErrorInvalidValue;
 }
 
-// Resident blocks of THREADS threads per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-extern "C" int bvh_walk_occupancy(int* blocks_per_sm) {
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, bvh_walk_kernel<false, 0>, THREADS, 0);
+// Resident blocks of THREADS threads per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// of the BVH walk's instantiation (count, motion), and of the kd walk's static one.
+extern "C" int bvh_walk_occupancy(int count, int motion, int* blocks_per_sm) {
+    const void* kernels[2][3] = {
+        {(const void*)bvh_walk_kernel<false, 0>, (const void*)bvh_walk_kernel<false, 1>,
+         (const void*)bvh_walk_kernel<false, 2>},
+        {(const void*)bvh_walk_kernel<true, 0>, (const void*)bvh_walk_kernel<true, 1>,
+         (const void*)bvh_walk_kernel<true, 2>}};
+    if (count < 0 || count > 1 || motion < 0 || motion > 2) return (int)cudaErrorInvalidValue;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernels[count][motion], THREADS, 0);
 }
 
 extern "C" int kd_walk_occupancy(int* blocks_per_sm) {

@@ -12,24 +12,29 @@ hundreds of launches and a host sync per query, so the port walks each ray
 on its own instead, as B1 does:
 
 - ``bvh_walk_cuda`` (``csrc/bvh_walk.cu``, entry ``bvh_walk``): one thread
-  per ray with a private 64-entry stack over ``bvh_packed`` (near child
+  per ray over the walk's records (``scene/arrays.py bvh_walk_records``:
+  both child boxes in the parent's 64-byte record, a 48-byte row per
+  prim) with a private stack of far children and their tn (near child
   first by the sign of the ray's direction on the node's axis, as pbrt's
-  BVHAccel::Intersect), each leaf's prims through B1's watertight triangle
-  test or the EFloat quadric test of ``csrc/quadric.cuh``, an instanced
-  prim's ray brought into instance space first (t is kept);
+  BVHAccel::Intersect), each leaf's prims through B1's watertight
+  triangle test or the EFloat quadric test of ``csrc/quadric.cuh``, an
+  instanced prim's ray brought into instance space first (t is kept) and
+  kept while the instance repeats;
 - ``kd_walk_cuda`` (entry ``kd_walk``): pbrt's KdTreeAccel::Intersect, a
   todo stack of 96 (node, t_min, t_max) entries over the ``kd_*`` tables.
 
 Both answer closest-hit and any-hit queries and write (t, prim, b1, b2,
-pops): b1, b2 are the barycentrics of a triangle hit, the object-space x
-and y of a quadric hit, as the brute route writes them. A leaf's hits tie
-to its first prim; across leaves only a strict improvement counts.
-``walk_plain`` and ``kd_walk_plain`` are the same walks in plain PyTorch,
-lockstep over every ray with a (R, 64) or (R, 96) stack tensor; the
-kernels are held to them (chip_smoke.py phase 34), and they to the
-reference's queries (tests/test_torch_bvh_walk.py). The reference's kd
-packet walk drops the near child when every ray of a packet moves away
-from the split plane (ROADMAP C); the per-ray walk here is pbrt's.
+pops; the BVH walk's pops are the boxes it tested): b1, b2 are the
+barycentrics of a triangle hit, the object-space x and y of a quadric hit,
+as the brute route writes them. A leaf's hits tie to its first prim;
+across leaves only a strict improvement counts. ``walk_plain`` and
+``kd_walk_plain`` are the same walks in plain PyTorch, lockstep over every
+ray with a (R, 64) or (R, 96) stack tensor, the BVH walk's over the same
+records in the same order; the kernels are held to them (chip_smoke.py
+phase 34), and they to the reference's queries
+(tests/test_torch_bvh_walk.py). The reference's kd packet walk drops the
+near child when every ray of a packet moves away from the split plane
+(ROADMAP C); the per-ray walk here is pbrt's.
 
 Motion blur: a scene with moving prims (``static.has_motion``) and a
 per-ray shutter fraction ``time`` walks the same trees with each candidate
@@ -61,15 +66,15 @@ from .prims import ray_quadric, ray_triangle
 from ..scene.arrays import ANIM_REC_COLS
 from .wide_bvh import SORT_MIN_RAYS, coherence_keys
 
-STACK = 64  # node entries per ray (intersect.STACK_DEPTH)
+STACK = 64  # far-child entries per ray of the BVH walk (intersect.STACK_DEPTH)
 KD_STACK = 96  # (node, t_min, t_max) entries per ray (intersect.KD_STACK)
 GEOM_TRI = 0  # scene.arrays.GEOM_TRI
 KERNEL_SOURCE = nvcc.CSRC / "bvh_walk.cu"
 
-# o, d, t_max, n_rays, nodes, ptd, ptd_cols, prim_kind, prim_inst, inst_w2i,
-# max_leaf, any_hit, t, prim, b1, b2, pops, counters, stream
-_BVH_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7)
+# o, d, t_max, n_rays, bvh_packed, bw_node_rec, bw_prim_rec, ptd, ptd_cols,
+# inst_w2i, any_hit, t, prim, b1, b2, pops, counters, stream
+_BVH_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+                 + [ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 7)
 # o, d, t_max, n_rays, kd_flags, kd_split, kd_above, kd_nprims, kd_prim_ids,
 # kd_lo, kd_hi, ptd, ptd_cols, prim_kind, any_hit, t, prim, b1, b2, pops,
 # counters, stream
@@ -91,11 +96,12 @@ def motion_kind(static) -> int:
 def build_kernel() -> dict:
     """Compile (if needed) and load the walk kernels' library: {"lib",
     "seconds", "log", "path"} as device/nvcc.build returns it. Its C
-    entries: bvh_walk, kd_walk, bvh_walk_occupancy and, in the same
-    library, bvh_walk_counted (the instrumented build of the BVH walk: it
-    also writes each ray's prim tests by kind and marks the table rows it
-    read), and the motion walks bvh_walk_motion, bvh_walk_motion_counted
-    and kd_walk_motion."""
+    entries: bvh_walk, kd_walk, bvh_walk_occupancy(count, motion),
+    kd_walk_occupancy and, in the same library, bvh_walk_counted (the
+    instrumented build of the BVH walk: it also writes each ray's prim
+    tests by kind and node visits and marks the table rows it read), and
+    the motion walks bvh_walk_motion, bvh_walk_motion_counted and
+    kd_walk_motion."""
     info = nvcc.build(KERNEL_SOURCE)
     lib = info["lib"]
     lib.bvh_walk.argtypes = _BVH_ARGTYPES
@@ -154,17 +160,18 @@ def _motion_args(sa, static, time, R, dev):
 def bvh_walk_cuda(sa, static, o, d, t_max, any_hit: bool, prim_tests=None, rows_read=None):
     """Launch the BVH walk (entry bvh_walk). Returns (t, prim, b1, b2,
     pops): prim the closest (or any) hit's prim row, -1 on a miss, t the
-    hit's t (t_max on a miss). Adds one to ``bvh_walk_cuda.launches``;
-    stack overflows and iteration-cap hits accumulate in
-    ``bvh_walk_cuda.counters``. prim_tests: an int32 (R, 3) tensor
-    launches the instrumented entry, which writes each ray's triangle
-    tests, quadric tests and tests through an instance transform there;
-    it then also takes rows_read, three zeroed int32 tensors of the node,
-    prim and instance counts, in which it marks what the walk read: a
-    node's bits 1 (its box), 2 (its offset and count) and 4 (its split
-    axis), a prim row tested, an instance whose transform was applied."""
+    hit's t (t_max on a miss), pops the boxes tested. Adds one to
+    ``bvh_walk_cuda.launches``; stack overflows and iteration-cap hits
+    accumulate in ``bvh_walk_cuda.counters``. prim_tests: an int32 (R, 4) tensor launches the
+    instrumented entry, which writes each ray's triangle tests, quadric
+    tests, tests through an instance transform and node visits there; it
+    then also takes rows_read, three zeroed int32 tensors of the bvh_packed
+    rows, prims and instances, in which it marks what the walk read: a
+    node's bits 1 (its box, tested at its parent), 2 (its offset and count:
+    entered) and 4 (its split axis: an interior node entered), a prim row
+    tested, an instance whose transform was applied."""
     R, counters, outs, stream = _outputs(bvh_walk_cuda, o, d, t_max)
-    args = _bvh_args(sa, static, o, d, t_max, any_hit, outs, counters, stream)
+    args = _bvh_args(sa, o, d, t_max, any_hit, outs, counters, stream)
     return _launch_bvh(bvh_walk_cuda, "bvh_walk", sa, args, R, o.device, prim_tests, rows_read, outs)
 
 
@@ -180,7 +187,7 @@ def _launch_bvh(wrapper, entry, sa, args, R, dev, prim_tests, rows_read, outs):
     if prim_tests is None:
         err = getattr(lib, entry)(*args)
     else:
-        _check("prim_tests", prim_tests, torch.int32, (R, 3), dev)
+        _check("prim_tests", prim_tests, torch.int32, (R, 4), dev)
         seen = tuple(rows_read)
         for name, x, n in zip(("node", "prim", "instance"), seen,
                               (sa.bvh_packed.shape[0], sa.prim_test_data.shape[0], sa.inst_w2i.shape[0])):
@@ -192,20 +199,21 @@ def _launch_bvh(wrapper, entry, sa, args, R, dev, prim_tests, rows_read, outs):
     return outs
 
 
-def _bvh_args(sa, static, o, d, t_max, any_hit, outs, counters, stream):
+def _bvh_args(sa, o, d, t_max, any_hit, outs, counters, stream):
     dev = o.device
-    R = o.shape[0]
     P, cols = sa.prim_test_data.shape
+    if sa.bw_node_rec is None:
+        raise ValueError("the BVH walk needs the scene's walk records (scene.arrays.bvh_walk_records)")
     _check("bvh_packed", sa.bvh_packed, torch.float32, (sa.bvh_packed.shape[0], 12), dev)
+    _check("bw_node_rec", sa.bw_node_rec, torch.float32, (sa.bw_node_rec.shape[0], 16), dev)
+    _check("bw_prim_rec", sa.bw_prim_rec, torch.float32, (P, 12), dev)
     _check("prim_test_data", sa.prim_test_data, torch.float32, (P, cols), dev)
-    _check("prim_kind", sa.prim_kind, torch.int32, (P,), dev)
-    _check("prim_inst", sa.prim_inst, torch.int32, (P,), dev)
     _check("inst_w2i", sa.inst_w2i, torch.float32, (sa.inst_w2i.shape[0], 3, 4), dev)
     t, prim, b1, b2, pops = outs
-    return [o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R, sa.bvh_packed.data_ptr(), sa.prim_test_data.data_ptr(),
-            cols, sa.prim_kind.data_ptr(), sa.prim_inst.data_ptr(), sa.inst_w2i.data_ptr(), int(static.max_leaf),
-            int(bool(any_hit)), t.data_ptr(), prim.data_ptr(), b1.data_ptr(), b2.data_ptr(), pops.data_ptr(),
-            counters.data_ptr(), stream]
+    return [o.data_ptr(), d.data_ptr(), t_max.data_ptr(), o.shape[0], sa.bvh_packed.data_ptr(),
+            sa.bw_node_rec.data_ptr(), sa.bw_prim_rec.data_ptr(), sa.prim_test_data.data_ptr(), cols,
+            sa.inst_w2i.data_ptr(), int(bool(any_hit)), t.data_ptr(), prim.data_ptr(), b1.data_ptr(), b2.data_ptr(),
+            pops.data_ptr(), counters.data_ptr(), stream]
 
 
 def bvh_walk_motion_cuda(sa, static, o, d, t_max, any_hit: bool, time=None, prim_tests=None, rows_read=None):
@@ -216,7 +224,7 @@ def bvh_walk_motion_cuda(sa, static, o, d, t_max, any_hit: bool, time=None, prim
     (bvh_walk_motion_counted), counted in ``bvh_walk_motion_cuda.launches``
     and ``.counters``."""
     R, counters, outs, stream = _outputs(bvh_walk_motion_cuda, o, d, t_max)
-    args = (_bvh_args(sa, static, o, d, t_max, any_hit, outs, counters, stream)
+    args = (_bvh_args(sa, o, d, t_max, any_hit, outs, counters, stream)
             + _motion_args(sa, static, time, R, o.device))
     return _launch_bvh(bvh_walk_motion_cuda, "bvh_walk_motion", sa, args, R, o.device, prim_tests, rows_read, outs)
 
@@ -345,48 +353,102 @@ def _take_leaf(t_k, b1_k, b2_k, ids):
     return t_new, ids.gather(1, kk)[:, 0], b1_k.gather(1, kk)[:, 0], b2_k.gather(1, kk)[:, 0]
 
 
+def _slab(lo, hi, o, inv_d, t_best):
+    """The walk's box test of rays (A, 3) against boxes (A, 3): (enter, tn),
+    enter = tn <= tf * 1.0000004 and tf > 0 and tn < t_best."""
+    t0 = (lo - o) * inv_d
+    t1 = (hi - o) * inv_d
+    tn = torch.minimum(t0, t1).max(dim=1).values
+    tf = torch.maximum(t0, t1).min(dim=1).values * 1.0000004
+    return (tn <= tf) & (tf > 0) & (tn < t_best), tn
+
+
 def walk_plain(sa, static, o, d, t_max, any_hit: bool, time=None):
-    """The BVH walk in plain PyTorch on any device: bvh_walk_cuda's
-    outputs (prim int64) and the count of pushes dropped on a full stack.
-    time: the rays' shutter fractions (bvh_walk_motion_cuda's twin)."""
+    """The BVH walk in plain PyTorch on any device, over the walk's records
+    (``sa.bw_node_rec``, ``bw_prim_rec``: scene.arrays.bvh_walk_records), a
+    node at a time for every ray in lockstep: bvh_walk_cuda's outputs
+    (prim int64) and the count of pushes dropped on a full stack. time: the
+    rays' shutter fractions (bvh_walk_motion_cuda's twin).
+
+    The walk is pbrt's BVHAccel::Intersect, with each child's box tested at
+    its parent: the root's box first (bvh_packed row 0); an interior node
+    tests both children's boxes (tn <= tf * 1.0000004, tf > 0, tn <
+    t_best) and goes on in the near one that it hits (child 1 when the
+    ray's direction is negative on the node's split axis), pushing the far
+    one with its tn when it hits both; a leaf tests its prims at the t_best
+    it starts with (the first prim of the nearest t wins; the ray's hit
+    changes only when strictly nearer); a pop takes the top entry and drops
+    it when its tn is no longer below t_best. pops counts the boxes tested,
+    as a walk that tests each node's box when it pops it (the parent's
+    design) counts its pops on closest-hit queries."""
     dev = o.device
     R = o.shape[0]
-    nodes = sa.bvh_packed
+    node_rec = sa.bw_node_rec
+    if node_rec is None:
+        raise ValueError("walk_plain: the scene has no walk records (scene.arrays.bvh_walk_records)")
+    boxes = node_rec[:, 0:12].reshape(-1, 2, 2, 3)  # (Ni, child, lo/hi, xyz)
+    words = node_rec.view(torch.int32)
+    refs = words[:, 12:14].to(torch.int64)  # (Ni, 2)
+    axis = words[:, 14].to(torch.int64)
+    rem = (sa.bw_prim_rec.view(torch.int32)[:, 9] >> 4).to(torch.int64)
     inv_d = _inv_dir(d)
     K = int(static.max_leaf)
     iota = torch.arange(K, device=dev)
     P = sa.prim_test_data.shape[0]
-    stack = torch.zeros((R, STACK), dtype=torch.int64, device=dev)
-    sp = (t_max > 0).to(torch.int64)  # the root pre-pushed; t_max <= 0: a dead ray
+    st_ref = torch.zeros((R, STACK), dtype=torch.int64, device=dev)
+    st_tn = torch.zeros((R, STACK), dtype=torch.float32, device=dev)
+    slots = torch.arange(STACK, device=dev)
+    sp = torch.zeros(R, dtype=torch.int64, device=dev)
     t_best = t_max.clone()
     prim = torch.full((R,), -1, dtype=torch.int64, device=dev)
     b1 = torch.zeros(R, dtype=torch.float32, device=dev)
     b2 = torch.zeros(R, dtype=torch.float32, device=dev)
-    pops = torch.zeros(R, dtype=torch.int64, device=dev)
+    # the root: its box from bvh_packed row 0; a dead ray (t_max <= 0) tests nothing
+    root = sa.bvh_packed[0]
+    started = t_max > 0
+    enter, _tn = _slab(root[0:3], root[3:6], o, inv_d, t_best)
+    pops = started.to(torch.int64)
+    live = started & enter
+    cur = torch.full((R,), ~int(root[6]) if int(root[7]) > 0 else 0, dtype=torch.int64, device=dev)
     overflow = 0
     while True:
-        act = torch.nonzero(sp > 0).squeeze(1)
+        act = torch.nonzero(live).squeeze(1)
         if act.numel() == 0:
             break
-        spa = sp[act] - 1
-        node = stack[act, spa]
-        pops[act] += 1
-        row = nodes[node]
-        oa, ia, tba = o[act], inv_d[act], t_best[act]
-        t0 = (row[:, 0:3] - oa) * ia
-        t1 = (row[:, 3:6] - oa) * ia
-        tn = torch.minimum(t0, t1).max(dim=1).values
-        tf = torch.maximum(t0, t1).min(dim=1).values * 1.0000004
-        box = (tn <= tf) & (tf > 0) & (tn < tba)
-        n_leaf = row[:, 7].to(torch.int64)
-        off = row[:, 6].to(torch.int64)
-        axis = row[:, 8].to(torch.int64)
-        # --- leaf: its prims, rows off .. off + n - 1 ---
-        lf = box & (n_leaf > 0)
-        li = act[lf]
+        c = cur[act]
+        inner = c >= 0
+        popping = [act[~inner]]
+        # --- interior: both children's boxes, on in the near one ---
+        ii = act[inner]
+        if ii.numel():
+            ci = c[inner]
+            oi, ivi, tbi = o[ii], inv_d[ii], t_best[ii]
+            hit0, tn0 = _slab(boxes[ci, 0, 0], boxes[ci, 0, 1], oi, ivi, tbi)
+            hit1, tn1 = _slab(boxes[ci, 1, 0], boxes[ci, 1, 1], oi, ivi, tbi)
+            pops[ii] += 2
+            neg = d[ii].gather(1, axis[ci][:, None])[:, 0] < 0
+            h_near, h_far = torch.where(neg, hit1, hit0), torch.where(neg, hit0, hit1)
+            r_near = torch.where(neg, refs[ci, 1], refs[ci, 0])
+            r_far = torch.where(neg, refs[ci, 0], refs[ci, 1])
+            tn_far = torch.where(neg, tn0, tn1)
+            # both hit: the far child is pushed (dropped and counted on a
+            # full stack, as the kernel drops it)
+            both = h_near & h_far
+            s0 = sp[ii]
+            push = both & (s0 < STACK)
+            overflow += int((both & ~push).sum())
+            pi, ps = ii[push], s0[push]
+            st_ref[pi, ps] = r_far[push]
+            st_tn[pi, ps] = tn_far[push]
+            sp[ii] = s0 + push.to(torch.int64)
+            cur[ii] = torch.where(h_near, r_near, r_far)
+            popping.append(ii[~h_near & ~h_far])
+        # --- leaf: its prims, rows ~ref .. ~ref + rem - 1 ---
+        li = act[~inner]
         if li.numel():
-            ids = torch.clamp(off[lf][:, None] + iota[None, :], max=P - 1)
-            valid = iota[None, :] < n_leaf[lf][:, None]
+            off = ~c[~inner]
+            ids = torch.clamp(off[:, None] + iota[None, :], max=P - 1)
+            valid = iota[None, :] < rem[off][:, None]
             t_k, b1_k, b2_k = _leaf_tests(sa, static, o[li], d[li], t_best[li], ids, valid,
                                           None if time is None else time[li])
             t_new, p_new, b1_new, b2_new = _take_leaf(t_k, b1_k, b2_k, ids)
@@ -396,35 +458,32 @@ def walk_plain(sa, static, o, d, t_max, any_hit: bool, time=None):
             prim[bi] = p_new[better]
             b1[bi] = b1_new[better]
             b2[bi] = b2_new[better]
-        # --- interior: push the far child, then the near one (popped first) ---
-        inn = box & (n_leaf == 0)
-        ii = act[inn]
-        sp_new = spa.clone()
-        if ii.numel():
-            neg = d[ii].gather(1, axis[inn][:, None])[:, 0] < 0
-            left = node[inn] + 1
-            right = off[inn]
-            near = torch.where(neg, right, left)
-            far = torch.where(neg, left, right)
-            s0 = spa[inn]
-            # a push that would overflow the stack is dropped and counted,
-            # as the kernel drops it
-            fits = s0 + 2 <= STACK
-            overflow += int((~fits).sum())
-            pi, ps = ii[fits], s0[fits]
-            stack[pi, ps] = far[fits]
-            stack[pi, ps + 1] = near[fits]
-            sp_new[inn] = s0 + 2 * fits.to(torch.int64)
-        sp[act] = sp_new
-        if any_hit:
-            sp = torch.where(prim >= 0, 0, sp)
+            if any_hit:
+                live[bi] = False
+                popping[0] = li[~better]
+        # --- pop: the top entry whose tn is still below t_best (the
+        # entries above it are dropped); none left: the ray is done ---
+        pp = torch.cat(popping)
+        if pp.numel():
+            ok = (slots[None, :] < sp[pp][:, None]) & (st_tn[pp] < t_best[pp][:, None])
+            top = torch.where(ok, slots[None, :], -1).max(dim=1).values
+            found = top >= 0
+            live[pp[~found]] = False
+            pf, tf = pp[found], top[found]
+            cur[pf] = st_ref[pf, tf]
+            sp[pf] = tf
     return t_best, prim, b1, b2, pops, overflow
 
 
-def kd_walk_plain(sa, static, o, d, t_max, any_hit: bool, time=None):
+def kd_walk_plain(sa, static, o, d, t_max, any_hit: bool, time=None, counts=None):
     """The kd-tree walk (pbrt's KdTreeAccel::Intersect) in plain PyTorch
     on any device: kd_walk_cuda's outputs (prim int64) and the count of
-    pushes dropped on a full stack; with time, kd_walk_motion_cuda's twin."""
+    pushes dropped on a full stack; with time, kd_walk_motion_cuda's twin.
+    counts: a dict the walk fills with the work it did (the kd walk's
+    bound, chip_smoke.py phase 34): "interior_visits" and "leaf_visits"
+    (the pops of interior nodes and of leaves), "triangle_tests",
+    "quadric_tests" and boolean masks of the rows it read, "nodes" (kd_flags), "prim_ids"
+    (kd_prim_ids) and "prims" (prim_test_data)."""
     dev = o.device
     R = o.shape[0]
     inv_d = _inv_dir(d)
@@ -452,6 +511,11 @@ def kd_walk_plain(sa, static, o, d, t_max, any_hit: bool, time=None):
     b2 = torch.zeros(R, dtype=torch.float32, device=dev)
     pops = torch.zeros(R, dtype=torch.int64, device=dev)
     overflow = 0
+    if counts is not None:
+        counts.update(interior_visits=0, leaf_visits=0, triangle_tests=0, quadric_tests=0,
+                      nodes=torch.zeros(flags.shape[0], dtype=torch.bool, device=dev),
+                      prim_ids=torch.zeros(n_ids, dtype=torch.bool, device=dev),
+                      prims=torch.zeros(sa.prim_kind.shape[0], dtype=torch.bool, device=dev))
     while True:
         # a ray whose best hit lies before its interval is done (pbrt:
         # `if ray.tMax < tMin break`)
@@ -463,6 +527,11 @@ def kd_walk_plain(sa, static, o, d, t_max, any_hit: bool, time=None):
         na = node[act]
         fl = flags[na]
         is_leaf = fl == 3
+        if counts is not None:
+            counts["nodes"][na] = True
+            n_leaf = int(is_leaf.sum())
+            counts["interior_visits"] += act.numel() - n_leaf
+            counts["leaf_visits"] += n_leaf
         # --- interior: the split plane's crossing picks the children ---
         ii = act[~is_leaf]
         if ii.numel():
@@ -497,6 +566,13 @@ def kd_walk_plain(sa, static, o, d, t_max, any_hit: bool, time=None):
             off = above[nl]
             ids = pids[torch.clamp(off[:, None] + iota[None, :], max=max(n_ids - 1, 0))]
             valid = iota[None, :] < nprims[nl][:, None].to(torch.int64)
+            if counts is not None:
+                tested = ids[valid]
+                n_tri = int((sa.prim_kind[tested] == GEOM_TRI).sum())
+                counts["triangle_tests"] += n_tri
+                counts["quadric_tests"] += tested.numel() - n_tri
+                counts["prims"][tested] = True
+                counts["prim_ids"][(off[:, None] + iota[None, :])[valid]] = True
             t_k, b1_k, b2_k = _leaf_tests(sa, static, o[li], d[li], t_best[li], ids, valid,
                                           None if time is None else time[li])
             t_new, p_new, b1_new, b2_new = _take_leaf(t_k, b1_k, b2_k, ids)

@@ -22,8 +22,10 @@ the animated-transform groups and each prim's group and compose constant).
 to the device; the port's own compiler and the parity tests (which fill it
 from a reference ``CompiledScene``) both go through it. It also derives,
 once per scene, the wide BVH's Hopper layout (``HOPPER_TABLES``,
-``widebvh.hopper_layout``) that the CUDA walks and their plain twin read;
-every other table is the reference's, bit for bit.
+``widebvh.hopper_layout``) that the CUDA walks and their plain twin read,
+and the binary BVH walk's records (``bvh_walk_records``: both child boxes
+in the parent's record, a compact row per prim); every other table is the
+reference's, bit for bit.
 """
 from __future__ import annotations
 
@@ -214,9 +216,11 @@ _WIDE_DTYPES = {
 # cover every prim); the grid media's densities packed for
 # csrc/medium_track.cu (med_grid_flat, med_grid_dims); and the
 # animated-transform groups as one row each for csrc/bvh_walk.cu's motion
-# walk (anim_rec: q0, q1, t0, t1, s0, s1, theta in ANIM_REC_COLS floats)
+# walk (anim_rec: q0, q1, t0, t1, s0, s1, theta in ANIM_REC_COLS floats);
+# and the binary BVH walk's records (bvh_walk_records: bw_node_rec,
+# bw_prim_rec) of the scenes whose route is bvh or kdtree
 HOPPER_TABLES = ("wnode_rec", "wleaf_rec", "wattr_rec", "wide_prim_rows", "med_grid_flat", "med_grid_dims",
-                 "anim_rec")
+                 "anim_rec", "bw_node_rec", "bw_prim_rec")
 ANIM_REC_COLS = 36
 # the stacked Fourier BSDF tables (empty dict without one)
 FOURIER_TABLES = ("mu", "aflat", "a0", "cdf", "eta")
@@ -288,6 +292,11 @@ class SceneTensors:
     med_grid_flat: torch.Tensor | None = None  # (N,) f32
     med_grid_dims: torch.Tensor | None = None  # (Md, 4) int32
     anim_rec: torch.Tensor | None = None  # (G, ANIM_REC_COLS) f32, None without rotating motion
+    # the binary BVH walk's records (bvh_walk_records; None on the brute
+    # and wide routes): one 16-word row per interior node, one 12-word row
+    # per prim
+    bw_node_rec: torch.Tensor | None = None  # (n_interior, 16) f32, words 12-15 int32 bits
+    bw_prim_rec: torch.Tensor | None = None  # (P, 12) f32, words 9-11 int32 bits
     sss_prof: torch.Tensor | None = None
     sss_cdf: torch.Tensor | None = None
     sss_rhoeff: torch.Tensor | None = None
@@ -474,7 +483,76 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
     st.media_kinds = tuple(str(k) for k in st.media_kinds)
     st.sss_media = tuple(int(m) for m in st.sss_media)
     st.tex_programs = tuple(p if isinstance(p, TexProgram) else TexProgram(**vars(p)) for p in st.tex_programs)
+    from ..device.intersect import route_name  # the device layer imports this module
+
+    if st.n_prims > 0 and route_name(st) in ("bvh", "kdtree"):
+        # the binary BVH walk serves the scene (a kd scene keeps its binary
+        # BVH too, which its twin checks walk); the brute and wide routes
+        # never launch it
+        gid = arrays.get("anim_gid")
+        recs = bvh_walk_records(np.asarray(arrays["bvh_packed"]), np.asarray(arrays["prim_test_data"]),
+                                np.asarray(arrays["prim_kind"]), np.asarray(arrays["prim_inst"]),
+                                None if gid is None else np.asarray(gid))
+        tensors["bw_node_rec"], tensors["bw_prim_rec"] = (torch.as_tensor(r, device=device) for r in recs)
     return SceneTensors(**tensors), st
+
+
+def bvh_walk_records(bvh_packed, prim_test_data, prim_kind, prim_inst, anim_gid=None):
+    """The binary BVH walk's records (csrc/bvh_walk.cu, device/bvh_walk.py
+    walk_plain) derived from the reference's tables: (node_rec
+    (n_interior, 16), prim_rec (P, 12)), both float32 arrays whose int
+    words hold int32 bits.
+
+    Interior nodes are numbered by their rank among the interior rows of
+    bvh_packed (row 0, the root, is record 0 when it is interior). A
+    record holds both children's boxes, so a walk tests the two at their
+    parent with three float4 loads: words 0-5 child 0's lo and hi, 6-11
+    child 1's; word 12 child 0's reference, 13 child 1's (an interior
+    child's record number, a leaf's ~offset: its prims are rows offset,
+    offset + 1, ... of the prim tables); 14 the split axis; 15 the node's
+    row in bvh_packed. Child 0 is row node + 1, child 1 row offset, as in
+    bvh_packed. A prim row holds a triangle's 9 vertex floats (the first 9
+    of its prim_test_data row, for every prim), then kind | rem << 4 (rem:
+    the prims of its leaf from it to the leaf's end, so the walk knows a
+    leaf's length from its first prim), its instance row and its
+    animation group (0 without one). Raises ValueError if two leaves share
+    a prim row."""
+    nodes = np.asarray(bvh_packed, np.float32)
+    n_leaf = nodes[:, 7].astype(np.int64)
+    off = nodes[:, 6].astype(np.int64)
+    interior = np.nonzero(n_leaf == 0)[0]
+    rank = np.full(nodes.shape[0], -1, np.int64)
+    rank[interior] = np.arange(interior.size)
+
+    def ref(child):
+        return np.where(n_leaf[child] > 0, ~off[child], rank[child]).astype(np.int32)
+
+    left, right = interior + 1, off[interior]
+    node_rec = np.zeros((interior.size, 16), np.float32)
+    node_rec[:, 0:6] = nodes[left, 0:6]
+    node_rec[:, 6:12] = nodes[right, 0:6]
+    words = node_rec.view(np.int32)
+    words[:, 12] = ref(left)
+    words[:, 13] = ref(right)
+    words[:, 14] = nodes[interior, 8].astype(np.int32)
+    words[:, 15] = interior.astype(np.int32)
+    P = prim_test_data.shape[0]
+    rem = np.zeros(P, np.int64)
+    leaves = np.nonzero(n_leaf > 0)[0]
+    starts, counts = off[leaves], n_leaf[leaves]
+    k = np.arange(int(counts.max()) if leaves.size else 0)
+    rows = starts[:, None] + k[None, :]
+    valid = k[None, :] < counts[:, None]
+    if valid.sum() != np.unique(rows[valid]).size:
+        raise ValueError("bvh_walk_records: two leaves share a prim row")
+    rem[rows[valid]] = (counts[:, None] - k[None, :])[valid]
+    prim_rec = np.zeros((P, 12), np.float32)
+    prim_rec[:, 0:9] = prim_test_data[:, 0:9]
+    pw = prim_rec.view(np.int32)
+    pw[:, 9] = (np.asarray(prim_kind, np.int64) | (rem << 4)).astype(np.int32)
+    pw[:, 10] = np.asarray(prim_inst, np.int32)
+    pw[:, 11] = 0 if anim_gid is None else np.asarray(anim_gid, np.int32)
+    return node_rec, prim_rec
 
 
 def anim_records(anim: dict) -> torch.Tensor:

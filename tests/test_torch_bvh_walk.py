@@ -9,13 +9,19 @@ against the reference on the CPU.
   an instance scaled by 0.12-0.22 amplifies those ulps in the watertight
   test's edge functions, and a quadric's root cancels in q / a), prim
   equal where t is not tied.
+- the walk's records (scene.arrays.bvh_walk_records, which the kernel and
+  walk_plain read): on quadric_room(40) and a motion room they give back
+  every box, offset, count and interior axis of bvh_packed bit for bit,
+  each row once, and every prim's row, instance, kind and group;
+  bvh_packed itself equals the reference's on the instanced room.
 - kd_walk_plain against the all-pairs test over the same prims: the
   reference's own kd walk (``_traverse_kd``) drops the near child when
   every ray of a packet moves away from the split plane and misses hits
   (ROADMAP C), so the truth it is held to is the port's intersect_brute
   (whose triangle and quadric tests are held to the reference's in
   tests/test_torch_brute.py and tests/test_torch_quadrics.py); the walk
-  also equals walk_plain's hits.
+  also equals walk_plain's hits, and the interior and leaf visits it
+  counts for the bound sum to its pops.
 - the witness of that fault: on the kd-tree of the quadrics and a sloped
   terrain (no prim flat in a split plane, so the two packages' kd tables
   are equal bit for bit), packets of camera-like rays (one origin, a cone
@@ -120,15 +126,70 @@ def test_bvh_walk_twin_matches_reference(rooms, any_hit):
     np.testing.assert_allclose(b1.numpy()[same & quad], np.asarray(hit_r["b1"])[same & quad], atol=1e-4)
 
 
+def _check_records_against(packed, node_rec, prim_rec):
+    """Every row of bvh_packed (columns 0-8: box, offset, count, axis) as
+    the walk's records give it: each interior record names its row j (word
+    15), whose axis it holds; its child 0 is row j + 1 and its child 1 row
+    j's offset, each with the box the record holds; an interior child's
+    record names that row, a leaf child's reference is ~its offset and its
+    first prim row's rem its count. The root's row is 0 (record 0, or the
+    one leaf), and together the rows cover bvh_packed once each."""
+    words = node_rec.view(np.int32)
+    rows, refs = words[:, 15].astype(np.int64), words[:, 12:14].astype(np.int64)
+    rem = prim_rec.view(np.int32)[:, 9] >> 4
+    interior = packed[:, 7] == 0
+    np.testing.assert_array_equal(interior[rows], True)
+    np.testing.assert_array_equal(packed[rows, 8].astype(np.int32), words[:, 14])
+    assert packed[0, 7] > 0 or rows[0] == 0
+    seen = [np.zeros(1, np.int64)]
+    for c, child_row in enumerate((rows + 1, packed[rows, 6].astype(np.int64))):
+        seen.append(child_row)
+        np.testing.assert_array_equal(node_rec[:, 6 * c:6 * c + 6].view(np.int32),
+                                      packed[child_row, 0:6].view(np.int32))
+        ref = refs[:, c]
+        inner = ref >= 0
+        np.testing.assert_array_equal(rows[ref[inner]], child_row[inner])
+        leaf_row, off = child_row[~inner], ~ref[~inner]
+        np.testing.assert_array_equal(packed[leaf_row, 7] > 0, True)
+        np.testing.assert_array_equal(packed[leaf_row, 6].astype(np.int64), off)
+        np.testing.assert_array_equal(packed[leaf_row, 7].astype(np.int64), rem[off])
+    covered = np.concatenate(seen)
+    assert covered.size == packed.shape[0] and np.unique(covered).size == covered.size
+
+
+@pytest.mark.parametrize("scene", ["quadric_room_40", "motion_room"])
+def test_walk_records_reproduce_bvh_packed(rooms, scene):
+    cs, ref, _kd, _ref_kd = rooms
+    np.testing.assert_array_equal(cs.arrays.bvh_packed.numpy(), np.asarray(ref.arrays.bvh_packed))
+    desc = scenes.quadric_room(40) if scene == "quadric_room_40" else scenes.motion_room(16, sphere_res=12)
+    sa = compile_scene(desc, "cpu").arrays
+    packed = sa.bvh_packed.numpy()
+    node_rec, prim_rec = sa.bw_node_rec.numpy(), sa.bw_prim_rec.numpy()
+    assert (packed[:, 7] > 0).sum() > 1000
+    _check_records_against(packed, node_rec, prim_rec)
+    words = prim_rec.view(np.int32)
+    np.testing.assert_array_equal(prim_rec[:, 0:9], sa.prim_test_data.numpy()[:, 0:9])
+    np.testing.assert_array_equal(words[:, 9] & 15, sa.prim_kind.numpy())
+    np.testing.assert_array_equal(words[:, 10], sa.prim_inst.numpy())
+    gid = np.zeros(len(words), np.int32) if sa.anim_gid is None else sa.anim_gid.numpy()
+    np.testing.assert_array_equal(words[:, 11], gid)
+    assert (words[:, 11] > 0).any() == (scene == "motion_room")
+
+
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_kd_walk_twin_matches_brute_force(rooms, any_hit):
     _cs, _ref, kd, _ref_kd = rooms
     o, d, t_max = _rays(N_RAYS, 2)
-    t, prim, _b1, _b2, pops, overflow = bvh_walk.kd_walk_plain(kd.arrays, kd.static, _t(o), _t(d), _t(t_max), any_hit)
+    counts = {}
+    t, prim, _b1, _b2, pops, overflow = bvh_walk.kd_walk_plain(kd.arrays, kd.static, _t(o), _t(d), _t(t_max), any_hit,
+                                                               counts=counts)
     truth = intersect.intersect_brute(kd.arrays, kd.static, _t(o), _t(d), _t(t_max))
     hit, t_r = prim.numpy() >= 0, truth["t"].numpy()
     np.testing.assert_array_equal(hit, np.isfinite(t_r))
     assert overflow == 0 and 0.3 < hit.mean() < 1.0 and int(pops.max()) > 5
+    # the bound's counts: every pop is an interior or a leaf visit
+    assert counts["interior_visits"] > 0 and counts["leaf_visits"] > 0
+    assert counts["interior_visits"] + counts["leaf_visits"] == int(pops.sum())
     if not any_hit:
         np.testing.assert_array_equal(t.numpy()[hit], t_r[hit])
         walk = bvh_walk.walk_plain(kd.arrays, kd.static, _t(o), _t(d), _t(t_max), False)
