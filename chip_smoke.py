@@ -244,9 +244,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     six kinds, 64 instances of a 1,984-triangle prop, an alpha-cut panel,
     goniometric and projection lights: 251,168 prims) and on its kd
     variant (n_side 40, no instances): the camera, bounce and shadow rays of
-    the main path, closest and any hit, compared on every 32nd ray: hits
-    and prims equal (a prim may differ only on a tie in t), t within 4
-    ulps, the counters 0; prints the kernel's time on each whole set
+    the main path, closest and any hit, compared on every eighth ray: hits
+    and prims equal (a prim may differ only on a tie in t), t bit-equal,
+    the counters 0; prints the kernel's time on each whole set
     (CUDA events) and per ray, pops per ray (the BVH walk's: boxes
     tested), node visits per ray and the share of lanes holding a ray
     (visits over 32 x each warp's most), its ptxas report and blocks
@@ -254,7 +254,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     bound from the instrumented entry's counts (boxes tested, triangle,
     quadric and instanced tests, the bvh_packed rows read); the kd walk's
     bound on its camera rays by the same formula from its twin's counts,
-    a split plane (KD_OPS_NODE) per interior visit in place of a box test;
+    a split plane (KD_OPS_NODE) per interior visit in place of a box test,
+    the twin's time on them, the tree's depth against the kd walk's stack
+    (KD_STACK); the ptxas reports of every BVH and kd instantiation;
 35. quadric_room(248) through the wavefront at 1000x500, 8 spp
     (LATE_MAIN_SPP), depth 5
     (route torch-wavefront/cuda-bvh, walk launches > 0), then its kd
@@ -285,9 +287,17 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     grid media) against its twin on 500,000 rays from fog_room(248)'s
     camera through its smoke box (64^3 densities), entry to exit: steps
     and collisions equal on every ray, t and the transmittance within rel
-    1e-5 (prints how many rays are bit-equal); the kernel's time by CUDA
-    events, the twin's by the host clock, its ptxas report, and its bound
-    from the steps counted (MT_OPS_DELTA, MT_OPS_RATIO per step);
+    1e-5 and bit for bit on every ray; the time through the wrapper by
+    CUDA events (the `ms` of the kernels report, as every row's) and the
+    wrapper's host time per call, and the kernel alone (its C entry on
+    inputs prepared once) on those rays, on a mixed launch of them with
+    the render's share of grid rays (MIXED_GRID_SHARE in the grid medium,
+    the rest in the homogeneous fog or in none, shuffled: every output
+    bit-equal to the twin's, the rays outside the grid unstepped) and on
+    an empty launch (no ray in a grid medium), the twin's time by the host
+    clock, the ptxas report of both instantiations, and the bound from the
+    steps counted (MT_OPS_DELTA, MT_OPS_RATIO per step) and the bytes of
+    the rays, the outputs and the grids' own densities once;
 39. fog_room(248) (volpath: the mesh room in a homogeneous fog that is the
     camera's medium, an interface box of grid smoke, a spot light) at
     1000x500, 8 spp (LATE_MAIN_SPP), depth 5 on cuda after a warm-up on the
@@ -316,10 +326,17 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     the share of lanes holding a ray,
     the twin's by the host clock, the bound from the instrumented entry's
     counts with the motion evaluation of every candidate in the operations;
+    then the kd walk's motion entry on the kd variants of motion_room(40)
+    (KD_MOTION_ROOM_ARGS: MOTION 2, and MOTION 1 on the keyframe room, both
+    compiled by phase 2's workers) on their 500,000 camera rays at their
+    shutter fractions: t, prim, b1, b2 and pops bit-equal to the twin on
+    every ray, the counters 0; its time, the twin's, and the bound from
+    the twin's counts (_kd_bound_of, the motion evaluation per candidate);
 44. motion_room(248) at 1000x500, 16 spp, depth 5 on cuda after a warm-up
     on the crop: route torch-wave/bvh, motion-walk launches > 0, a finite,
     non-black image; path_vertex_samples_per_sec and the device kernels per
-    wave bounce;
+    wave bounce; then the kd motion room (MOTION 2) at 1000x500, 1 spp:
+    route torch-wave/kdtree, kd motion-walk launches > 0;
 45. the mesh room under the realistic camera (scenes.write_lens's double
     Gauss, phase 3's compiled tables with the camera swapped) at 1000x500,
     16 spp: route torch-wave/wide, B1 launches > 0;
@@ -367,9 +384,11 @@ Phases 15-21, 24's image-mapped sky, 25, 28, 30, 31, 32 and 36 are the
 wavefront's array code around B1 (the brute wavefront launches no kernel
 of the port): they add no row to the kernel report; phase 29's sphere
 instantiation and phase 33's translucent wall ride B4's row; phases 34-35
-fill bvh_walk's row (its launches: the two renders of phase 35); phases
-38-39 medium_track's (its launches: the fog room's render); phases 43-44
-the row of bvh_walk's motion entry (its launches: the motion room's render);
+fill bvh_walk's and kd_walk's rows (their launches: the two renders of
+phase 35); phases 38-39 medium_track's (its launches: the fog room's
+render); phases 43-44 the rows of the motion entries, bvh_walk_motion's
+(its launches: the motion room's render) and kd_walk_motion's (the kd
+motion room's render);
 phases 48-49 add their B1 launches to wide_traverse's row
 (launches_by_route).
 Each main path runs with every launch count set to 0 just
@@ -436,10 +455,17 @@ RAY_CONE_BAND = (0.93, 1.07)
 # the kernels (phase 2) and taken by the phases that render them
 # (_host_scene): name -> a future of (CompiledScene on the CPU, seconds)
 _HOST: dict = {}
+# phase 43's kd motion rooms (rotate -> scenes.motion_room's arguments):
+# motion_room(40) (rotate: the spinning sphere, the exact animated
+# transform; else the keyframe tables) under Accelerator "kdtree", a size
+# the port's recursive kd build compiles in seconds (5,839 prims)
+KD_MOTION_ROOM_ARGS = {rotate: (40, rotate, 32, "kdtree") for rotate in (True, False)}
 # (name, scenes function, its arguments) of the rooms compiled during the build
 LARGE_ROOMS = (("mesh_room", "mesh_room", (248,)), ("quadric_room", "quadric_room", (248,)),
                ("sss_room", "sss_room", (248,)), ("fog_room", "fog_room", (248,)),
-               ("motion_room", "motion_room", (248,)), ("sphere_room", "sphere_room", (248,)))
+               ("motion_room", "motion_room", (248,)), ("sphere_room", "sphere_room", (248,)),
+               ("motion_room_kd", "motion_room", KD_MOTION_ROOM_ARGS[True]),
+               ("motion_room_kd_keyframes", "motion_room", KD_MOTION_ROOM_ARGS[False]))
 HOST_WORKERS = 4  # worker processes for LARGE_ROOMS' host compiles
 
 
@@ -1131,15 +1157,14 @@ def _ptxas_entries(log: str) -> list[dict]:
 def _walk_entries(info) -> list[dict]:
     """_ptxas_entries of the walk library's log, each with its resident
     blocks of 128 per SM (the BVH walk's template: COUNT, MOTION; the kd
-    walk's: MOTION, its static instantiation's blocks for all three)."""
+    walk's: MOTION)."""
     from pbrt_tpu_torch.device import nvcc
 
     rows = _ptxas_entries(info["log"])
     for r in rows:
-        if r["kernel"] == "bvh_walk_kernel":
-            r["blocks_per_sm"] = nvcc.occupancy(info["lib"].bvh_walk_occupancy, *r["template"])
-        else:
-            r["blocks_per_sm"] = nvcc.occupancy(info["lib"].kd_walk_occupancy)
+        occupancy = info["lib"].bvh_walk_occupancy if r["kernel"] == "bvh_walk_kernel" else \
+            info["lib"].kd_walk_occupancy
+        r["blocks_per_sm"] = nvcc.occupancy(occupancy, *r["template"])
     return rows
 
 
@@ -2101,25 +2126,54 @@ def _walk_bound(label, cs, o, d, t_max, tm=None, res_main=None):
     return b[0], b[1], counts
 
 
-def _kd_walk_bound(label, cs, o, d, t_max, res_main):
-    """Phase 34: the kd walk's bound on one ray set, by _walk_bound's
-    formula from the work its twin counts on the same rays (it must walk
-    res_main's paths), with a split plane in place of a box: the interior
-    visits (each KD_OPS_NODE; a leaf's visit does no node work) and the
-    prim tests by kind in the operations; the rays in, the outputs and, of the
-    tables, each row the walk read once: a node's flag, split, child and
-    count (16 bytes), a leaf's prim id (4), a prim's kind (4) and its
-    row's 9 floats of a triangle or 19 (25) of a quadric, and the tree's
-    bounds (24). Returns (bound_ms, bound_by, the counts)."""
+# the keyframe motion walk (MOTION 1): float32 operations per float of a
+# candidate's row moved to the ray's time, the lerp toward its
+# shutter-close row and, with a mid-shutter row, the arc term
+BW_OPS_KEYFRAME = 3
+BW_OPS_KEYFRAME_MID = 7
+
+
+def _kd_walk_bound(label, cs, o, d, t_max, res_main, tm=None):
+    """Phases 34 and 43: the kd walk's bound on one ray set, by
+    _walk_bound's formula from the work its twin counts on the same rays
+    (it must walk res_main's paths; _kd_bound_of). Returns (bound_ms,
+    bound_by, the counts, with "twin_ms": that twin run's milliseconds by
+    the host clock, its counting included)."""
     import torch
 
     from pbrt_tpu_torch.device import bvh_walk
 
-    sa, st = cs.arrays, cs.static
     counts = {}
-    res = bvh_walk.kd_walk_plain(sa, st, o, d, t_max, False, counts=counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = bvh_walk.kd_walk_plain(cs.arrays, cs.static, o, d, t_max, False, counts=counts,
+                                 **({} if tm is None else {"time": tm}))
+    torch.cuda.synchronize()
+    twin_ms = 1e3 * (time.perf_counter() - t0)
     if not all(torch.equal(x, y.to(x.dtype)) for x, y in zip(res_main[:5], res[:5])):
         raise AssertionError(f"{label}: the counting twin walked other paths")
+    b = _kd_bound_of(label, cs, o, d, t_max, res_main, res, counts, tm)
+    b[2]["twin_ms"] = twin_ms
+    return b
+
+
+def _kd_bound_of(label, cs, o, d, t_max, res_main, res, counts, tm=None):
+    """The kd walk's bound from its twin's result res and counts on the
+    rays: a split plane in place of a box, the interior visits (each
+    KD_OPS_NODE; a leaf's visit does no node work) and the prim tests by
+    kind in the operations; the rays in, the outputs and, of the tables,
+    each row the walk read once: a node's flag, split, child and count (16
+    bytes), a leaf's prim id (4), a prim's kind (4) and its row's 9 floats
+    of a triangle or 19 (25) of a quadric, and the tree's bounds (24). With
+    the rays' shutter fractions tm, the motion entry's: the times in, and
+    per candidate test the motion evaluation, MOTION 2's group M(dt) and
+    compose (BW_OPS_ANIM*; per prim row read its group id and compose
+    constant, 52 bytes, and every group row once) or MOTION 1's keyframe
+    rows (BW_OPS_KEYFRAME* per float; the shutter-close and mid rows read).
+    Returns (bound_ms, bound_by, the counts)."""
+    from pbrt_tpu_torch.device import bvh_walk
+
+    sa, st = cs.arrays, cs.static
     pops = float(res[4].double().sum())
     interior, leaves = float(counts["interior_visits"]), float(counts["leaf_visits"])
     if interior + leaves != pops:
@@ -2128,12 +2182,22 @@ def _kd_walk_bound(label, cs, o, d, t_max, res_main):
     read = counts["prims"]
     is_tri = sa.prim_kind == 0
     quad_floats = 25 if sa.prim_test_data.shape[1] >= 25 else 19
+    n_tri_rows, n_quad_rows = int((read & is_tri).sum()), int((read & ~is_tri).sum())
     table_bytes = (16 * int(counts["nodes"].sum()) + 4 * int(counts["prim_ids"].sum()) + 4 * int(read.sum())
-                   + 36 * int((read & is_tri).sum()) + 4 * quad_floats * int((read & ~is_tri).sum()) + 24)
+                   + 36 * n_tri_rows + 4 * quad_floats * n_quad_rows + 24)
     n_bytes = _nbytes(o, d, t_max, *res_main[:5]) + table_bytes
     ops = interior * KD_OPS_NODE + tri * BW_OPS_TRI + quad * BW_OPS_QUADRIC
+    if tm is not None and bvh_walk.motion_kind(st) == 2:
+        n_bytes += _nbytes(tm, sa.anim_rec) + 52 * int(read.sum())
+        ops += tri * (BW_OPS_ANIM + BW_OPS_ANIM_TRI) + quad * (BW_OPS_ANIM + BW_OPS_ANIM_QUADRIC)
+    elif tm is not None:
+        keyframes = 1 if sa.prim_test_data_mid is None else 2
+        n_bytes += _nbytes(tm) + keyframes * (36 * n_tri_rows + 48 * n_quad_rows)
+        per_float = BW_OPS_KEYFRAME + (keyframes - 1) * BW_OPS_KEYFRAME_MID
+        ops += per_float * (9 * tri + 12 * quad)
     b = _bound(n_bytes, ops)
-    out = {"pops": pops, "interior_visits": interior, "leaf_visits": leaves, "triangle_tests": tri, "quadric_tests": quad, "nodes_read": int(counts["nodes"].sum()),
+    out = {"pops": pops, "interior_visits": interior, "leaf_visits": leaves, "triangle_tests": tri,
+           "quadric_tests": quad, "nodes_read": int(counts["nodes"].sum()),
            "prim_ids_read": int(counts["prim_ids"].sum()), "prim_rows_read": int(read.sum()),
            "table_bytes_read": table_bytes, "bytes": n_bytes, "ops": ops}
     print(f"  {label} bound {b[0]:.4f} ms ({b[1]}): {json.dumps(out)}", flush=True)
@@ -2223,7 +2287,9 @@ def _walk_phases(out, work):
             entry["bound_ms"], entry["bound_by"], entry["counts"] = _kd_walk_bound(
                 "34 kdtree camera/closest", q, o, d_, t_max, walk_k(q.arrays, st, o, d_, t_max, False))
             walk_k.launches -= 1  # a measurement launch, not the main path's
-            print(f"  kd camera/closest: {entry['ms']:.4f} ms for {o.shape[0]} rays, at "
+            entry["plain_ms"] = entry["counts"]["twin_ms"]
+            print(f"  kd camera/closest: {entry['ms']:.4f} ms for {o.shape[0]} rays, plain twin (counting) "
+                  f"{entry['plain_ms']:.2f} ms, tree depth {st.kd_depth} (stack {bvh_walk.KD_STACK}), at "
                   f"{100 * entry['bound_ms'] / entry['ms']:.2f}% of the bound", flush=True)
         out[f"walk_{key}"] = entry
 
@@ -2345,26 +2411,71 @@ TRACK_RAYS = 500_000
 
 
 def _track_rays(cs, n, seed=SEED):
-    """n rays from the room's camera eye to uniform points of the fog
-    room's smoke box, started where they enter it and ending where they
-    leave it (a slab test), in the box's grid medium, with uint32 keys."""
+    """scenes.fog_box_rays(n, seed) on cs's device in its grid medium: (med,
+    o, d, t_end, key), float32 but for med and key (int64)."""
     import numpy as np
     import torch
 
     from pbrt_tpu_torch import scenes
 
-    rs = np.random.RandomState(seed)
-    eye = np.asarray(scenes.ROOM_LOOK_AT[0], np.float64)
-    lo, hi = (np.asarray(v, np.float64) for v in scenes.FOG_BOX)
-    d = lo + rs.random_sample((n, 3)) * (hi - lo) - eye
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    t0, t1 = (lo - eye) / d, (hi - eye) / d
-    tn, tf = np.minimum(t0, t1).max(1), np.maximum(t0, t1).min(1)
+    o, d, t_end, key = scenes.fog_box_rays(n, seed)
     dev = cs.arrays.device
     smoke = cs.static.media_kinds.index("heterogeneous")
     f32 = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)  # noqa: E731
-    return (torch.full((n,), smoke, dtype=torch.int64, device=dev), f32(eye + d * tn[:, None]), f32(d), f32(tf - tn),
-            torch.as_tensor(rs.randint(0, 2 ** 32, n, dtype=np.int64), device=dev))
+    return (torch.full((n,), smoke, dtype=torch.int64, device=dev), f32(o), f32(d), f32(t_end),
+            torch.as_tensor(key, device=dev))
+
+
+def _track_alone_ms(entry, sa, rays, reps=20) -> float:
+    """medium_track's C entry `entry` alone, by CUDA events over reps
+    launches on inputs and outputs prepared once (the wrapper's argument
+    checks, key conversion and output allocations outside the timing)."""
+    import torch
+
+    from pbrt_tpu_torch.device import medium_track
+
+    R, ins, tables, n_media = medium_track._inputs(sa, *rays)
+    dev = ins[0].device
+    outs = [torch.empty(R, dtype=torch.float32, device=dev)] + (
+        [torch.empty(R, dtype=torch.bool, device=dev)] if entry == "delta_track" else []) + [
+        torch.empty(R, dtype=torch.int32, device=dev)]
+    fn = getattr(medium_track.build_kernel()["lib"], entry)
+    args = [*(x.data_ptr() for x in ins), R, *(x.data_ptr() for x in tables), n_media,
+            *(x.data_ptr() for x in outs), torch.cuda.current_stream(dev).cuda_stream]
+
+    def launch():
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+
+    return _cuda_ms(launch, reps)
+
+
+# the share of a render's delta-tracking rays in the grid medium: fog_room's
+# delta launches at 1000x500 (tools/torch_phases.py --scene fog_room, its
+# grid-share pass: 2.6% on average, 4.3% at most, on an H100)
+MIXED_GRID_SHARE = 0.026
+
+
+def _mixed_track_rays(cs, rays, seed=SEED):
+    """Phase 38's rays in one launch with the render's share of grid rays:
+    MIXED_GRID_SHARE of them left in the grid medium, the rest alternately
+    put in the homogeneous fog and in no medium, in a shuffled order. The
+    grid rays keep phase 38's short chains (3.8 steps a ray), not the
+    render's (38 a grid ray, the longest of a launch 135 on average): the
+    render's own launches are replayed by tools/medium_track_variants.py."""
+    import numpy as np
+    import torch
+
+    med, *rest = rays
+    n = med.shape[0]
+    n_grid = int(round(MIXED_GRID_SHARE * n))
+    kinds = cs.static.media_kinds
+    med = med.clone()
+    med[n_grid::2] = kinds.index("homogeneous")
+    med[n_grid + 1::2] = -1
+    perm = torch.as_tensor(np.random.RandomState(seed).permutation(n), device=med.device)
+    return [x[perm].contiguous() for x in (med, *rest)]
 
 
 def _kernels_per_bounce(cs, spp=1) -> tuple[int, int]:
@@ -2436,12 +2547,16 @@ def _wave_phases(out, work, cs, cs_host):
     t_phase = time.perf_counter()
     # --- 38. medium_track against its twin ---
     info = medium_track.build_kernel()
-    regs = "; ".join(sorted(set(re.findall(r"Used \d+ registers[^\n]*", info["log"])))) or "n/a"
+    regs = "; ".join(f"{r['kernel']}{r['template']} {r['registers']} registers, {r['spill_stores']}/"
+                     f"{r['spill_loads']} bytes of spill stores/loads, {r['stack_frame']}-byte frame"
+                     for r in _ptxas_entries(info["log"])) or "n/a (built before this run)"
     occ = [nvcc.occupancy(info["lib"].medium_track_occupancy, w, 2) for w in (0, 1)]
     fog_host, fog_compile_s = _host_scene("fog_room")
     fog = fog_host.to("cuda")
     sa, kinds = fog.arrays, fog.static.media_kinds
     med, o, d, t_end, key = _track_rays(fog, TRACK_RAYS)
+    mixed = _mixed_track_rays(fog, (med, o, d, t_end, key))
+    empty = [torch.full_like(med, -1), o, d, t_end, key]
     rows = {}
     for name, kernel, plain, n_out, ops in (
             ("delta_track", medium_track.delta_track_cuda, medium_track.delta_track_plain, 3, MT_OPS_DELTA),
@@ -2453,26 +2568,48 @@ def _wave_phases(out, work, cs, cs_host):
         torch.cuda.synchronize()
         p_ms = 1e3 * (time.perf_counter() - t0)
         k_ms = _cuda_ms(lambda: kernel(sa, med, o, d, t_end, key), 20)
+        # the wrapper's host time per call (no sync among the 20 calls)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            kernel(sa, med, o, d, t_end, key)
+        host_ms = 1e3 * (time.perf_counter() - t0) / 20
+        torch.cuda.synchronize()
+        alone = {k: _track_alone_ms(name, sa, r) for k, r in (("grid", (med, o, d, t_end, key)), ("mixed", mixed),
+                                                               ("empty", empty))}
         val_k, val_p = res_k[0], res_p[0]
         steps_k, steps_p = res_k[-1], res_p[-1]
         decisions = torch.equal(steps_k, steps_p) and (n_out == 2 or torch.equal(res_k[1], res_p[1]))
         rel = ((val_k - val_p).abs() / val_p.abs().clamp(min=1e-30)).max().item()
         bit_equal = int((val_k.view(torch.int32) == val_p.view(torch.int32)).sum().item())
+        # the mixed launch: every output bit for bit, the rays outside the grid medium without a step
+        mix_k, mix_p = kernel(sa, *mixed), plain(sa, kinds, *mixed)
+        mix_equal = torch.equal(mix_k[0].view(torch.int32), mix_p[0].view(torch.int32)) and all(
+            torch.equal(a, b) for a, b in zip(mix_k[1:], mix_p[1:]))
+        in_grid = mixed[0] == kinds.index("heterogeneous")
+        mix_skipped = int(mix_k[-1][~in_grid].abs().sum()) == 0
         steps = float(steps_k.double().sum())
-        grid_bytes = _nbytes(sa.med_grid_flat, sa.med_grid_dims, sa.med_w2m, sa.med_param)
+        # the grids' own densities once (the kernel's corner rows are its layout, not the work)
+        grid_bytes = _nbytes(*sa.med_grids.values(), sa.med_grid_dims, sa.med_w2m, sa.med_param)
         nbytes = _nbytes(o, d, t_end, med, key, *res_k) + grid_bytes
         bound = _bound(nbytes, steps * ops)
-        rows[name] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": (val_k - val_p).abs().max().item(),
-                      "max_rel_err": rel, "bit_equal_rays": bit_equal, "steps": steps,
+        rows[name] = {"ms": k_ms, "alone_ms": alone["grid"], "wrapper_host_ms": host_ms,
+                      "mixed_alone_ms": alone["mixed"], "empty_alone_ms": alone["empty"], "plain_ms": p_ms,
+                      "max_abs_err": (val_k - val_p).abs().max().item(), "max_rel_err": rel,
+                      "bit_equal_rays": bit_equal, "mixed_bit_equal": mix_equal,
+                      "mixed_grid_rays": int(in_grid.sum()), "steps": steps,
                       "steps_max": int(steps_k.max().item()), "bound_ms": bound[0], "bound_by": bound[1],
                       "bytes": nbytes}
         extra = f", collisions {int(res_k[1].sum().item())}" if n_out == 3 else f", mean tr {val_k.mean().item():.5f}"
         print(f"[38 {name}] {TRACK_RAYS} rays through the smoke box: steps and decisions equal {decisions}, "
-              f"max rel err {rel:.3e}, bit-equal {bit_equal}/{TRACK_RAYS}; kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms; "
-              f"{steps:.0f} steps ({steps / TRACK_RAYS:.2f} per ray, max {rows[name]['steps_max']}){extra}; bound "
-              f"{bound[0]:.4f} ms ({bound[1]}: {nbytes} bytes, {steps * ops:.4g} ops), kernel at "
-              f"{100 * bound[0] / k_ms:.2f}% of it", flush=True)
-        if not decisions or rel > 1e-5:
+              f"max rel err {rel:.3e}, bit-equal {bit_equal}/{TRACK_RAYS}; through the wrapper {k_ms:.4f} ms "
+              f"(its host time {host_ms:.4f} ms a call), the kernel alone {alone['grid']:.4f} ms, plain {p_ms:.1f} "
+              f"ms; {steps:.0f} steps ({steps / TRACK_RAYS:.2f} per ray, max {rows[name]['steps_max']}){extra}; "
+              f"bound {bound[0]:.4f} ms ({bound[1]}: {nbytes} bytes, {steps * ops:.4g} ops): through the wrapper "
+              f"{100 * bound[0] / k_ms:.2f}% of it, alone {100 * bound[0] / alone['grid']:.2f}%; a mixed launch "
+              f"({int(in_grid.sum())} of {TRACK_RAYS} rays in the grid medium, the rest in the fog or none) alone "
+              f"{alone['mixed']:.4f} ms, bit-equal {mix_equal}, rays outside the grid medium unstepped "
+              f"{mix_skipped}; an empty launch (no ray in a grid medium) alone {alone['empty']:.4f} ms", flush=True)
+        if not decisions or bit_equal != TRACK_RAYS or not mix_equal or not mix_skipped:
             raise AssertionError(f"{name}: the kernel and its twin disagree")
     print(f"  medium_track ptxas: {regs}; blocks per SM (delta, ratio) {occ}; fog_room host compile "
           f"{fog_compile_s:.1f}s, grid {tuple(sa.med_grids['med1'].shape)}", flush=True)
@@ -2701,6 +2838,48 @@ def _motion_bdpt_phases(out, work, cs, cs_host, mesh_img):
                           "visits_per_ray": visits, "plain_ms": p_ms, "max_abs_err": err, "rays_differing": bit,
                           "quadric_xy_ulps": quad_ulps, "static_quadric_xy_ulps": static_ulps,
                           "bound_ms": bound_ms, "bound_by": bound_by, "counts": counts, "host_compile_s": mr_compile_s}
+    # the kd walk's motion entry on the kd motion rooms (MOTION 2; MOTION 1
+    # on the keyframe room), each ray bit for bit against the twin, whose
+    # counts give the bound
+    kd_rows, kd_rooms = {}, {}
+    for name, motion in (("motion_room_kd", 2), ("motion_room_kd_keyframes", 1)):
+        host, host_s = _host_scene(name)
+        km = kd_rooms[name] = host.to("cuda")
+        ka, ks = km.arrays, km.static
+        if bvh_walk.motion_kind(ks) != motion or ks.accel_kind != "kdtree":
+            raise AssertionError(f"{name} is not a kd scene of MOTION {motion}")
+        ko, kdir, kt, ktm = _motion_rays(km)
+        res_k = bvh_walk.kd_walk_motion_cuda(ka, ks, ko, kdir, kt, False, time=ktm)
+        kcounts = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res_p = bvh_walk.kd_walk_plain(ka, ks, ko, kdir, kt, False, time=ktm, counts=kcounts)
+        torch.cuda.synchronize()
+        kp_ms = 1e3 * (time.perf_counter() - t0)
+        kk_ms = _cuda_ms(lambda: bvh_walk.kd_walk_motion_cuda(ka, ks, ko, kdir, kt, False, time=ktm), 10)
+        khit = res_k[1] >= 0
+        kquad = khit & (ka.prim_kind[res_k[1].long().clamp(min=0)] != 0)
+        kbit, kulps = _bits_against_twin(res_k, res_p, kquad)
+        kb_ms, kb_by, kb_counts = _kd_bound_of(f"43 kd MOTION {motion} camera/closest", km, ko, kdir, kt, res_k,
+                                               res_p, kcounts, ktm)
+        kcounters = bvh_walk.kd_walk_motion_cuda.counters[torch.device("cuda", 0)].tolist()
+        kerr = float((res_k[0] - res_p[0]).abs()[khit].max()) if bool(khit.any()) else 0.0
+        # the moving prims: a group other than the identity, or keyframe rows that move
+        moves = ka.anim_gid > 0 if ka.anim_gid is not None else (ka.prim_test_data_end != ka.prim_test_data).any(1)
+        kmoving = moves[res_k[1].long().clamp(min=0)]
+        print(f"[43 kd motion walk MOTION {motion}] {name} (motion_room(40), kdtree): {ks.n_prims} prims, tree depth "
+              f"{ks.kd_depth}, host compile {host_s:.1f}s; {ko.shape[0]} camera rays at their shutter fractions: "
+              f"rays differing from the twin (t, prim, b1, b2, pops) {kbit}, quadric hits {int(kquad.sum())} "
+              f"({kulps} ulps), hits {float(khit.float().mean()):.4f}, on moving prims {int((khit & kmoving).sum())}; "
+              f"kernel {kk_ms:.4f} ms ({1e6 * kk_ms / ko.shape[0]:.3f} ns per ray), plain {kp_ms:.1f} ms; pops per "
+              f"ray {float(res_k[4].double().mean()):.2f}; bound {kb_ms:.4f} ms ({kb_by}), kernel at "
+              f"{100 * kb_ms / kk_ms:.2f}% of it; counters {kcounters}", flush=True)
+        if any(kbit.values()) or kcounters != [0, 0] or res_p[5] or not bool((khit & kmoving).any()):
+            raise AssertionError(f"the kd motion walk (MOTION {motion}) and its twin disagree")
+        kd_rows[f"motion{motion}"] = {"ms": kk_ms, "ns_per_ray": 1e6 * kk_ms / ko.shape[0], "plain_ms": kp_ms,
+                                      "max_abs_err": kerr, "rays_differing": kbit, "bound_ms": kb_ms,
+                                      "bound_by": kb_by, "counts": kb_counts, "host_compile_s": host_s}
+    out["kd_motion_walk"] = kd_rows
 
     seconds["43"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -2712,6 +2891,11 @@ def _motion_bdpt_phases(out, work, cs, cs_host, mesh_img):
           flush=True)
     out["motion_room"] = {"wall_s": timing["wall_s"], "vps": timing["n_vertices"] / timing["wall_s"],
                           "launches": launches, "kernels_per_bounce": kern / bounces}
+    # the kd motion room's render at 1 spp: the kd motion entry on its main path
+    timing, launches, _img = _wave_main_path("44 motion_room kd main path", kd_rooms["motion_room_kd"],
+                                             (bvh_walk.kd_walk_motion_cuda,), "torch-wave/kdtree", spp=1)
+    out["motion_room_kd"] = {"wall_s": timing["wall_s"], "vps": timing["n_vertices"] / timing["wall_s"],
+                             "launches": launches}
 
     seconds["44"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -3059,7 +3243,9 @@ def main() -> int:
         print(f"[2 build] {Path(info['path']).name} in {info['seconds']:.1f}s; ptxas: {regs}; {spills}; "
               f"blocks per SM by variant {occ}", flush=True)
     info = medium_track.build_kernel()
-    regs = "; ".join(sorted(set(re.findall(r"Used \d+ registers[^\n]*", info["log"])))) or "n/a"
+    regs = "; ".join(f"{r['kernel']}{r['template']} {r['registers']} registers, {r['spill_stores']}/"
+                     f"{r['spill_loads']} bytes of spill stores/loads, {r['stack_frame']}-byte frame"
+                     for r in _ptxas_entries(info["log"])) or "n/a (built before this run)"
     print(f"[2 build] {Path(info['path']).name} in {info['seconds']:.1f}s; ptxas: {regs}; blocks per SM (delta, "
           f"ratio) {[nvcc.occupancy(info['lib'].medium_track_occupancy, w, 2) for w in (0, 1)]}", flush=True)
     # the walk kernels: the static instantiations (MOTION 0, whose reports
@@ -3442,14 +3628,15 @@ def main() -> int:
          "instantiations": {**sk["instantiations"], **tx["b4_instantiations"], **sph["b4_instantiations"],
                             **mt["b4_instantiations"]}},
         {"name": "bvh_walk", "route": "cuda", "source": "pbrt_tpu_torch/csrc/bvh_walk.cu",
-         "replaces": "none (pbrt_tpu/device/intersect.py:487 _traverse and :893 _traverse_kd are XLA loops)",
-         "launches": wk["quadric_room_bvh"]["walk_launches"] + wk["quadric_room_kdtree"]["walk_launches"],
-         "max_abs_err": max(wk["walk_bvh"]["max_abs_err"], wk["walk_kdtree"]["max_abs_err"]),
+         "replaces": "none (pbrt_tpu/device/intersect.py:487 _traverse, an XLA loop)",
+         "launches": wk["quadric_room_bvh"]["walk_launches"], "max_abs_err": wk["walk_bvh"]["max_abs_err"],
          "ms": wk["walk_bvh"]["ms"], "plain_ms": wk["walk_bvh"]["plain_ms"], "bound_ms": wk["walk_bvh"]["bound_ms"],
-         "bound_by": wk["walk_bvh"]["bound_by"], "library_ms": None,
-         "launches_by_route": {"bvh": wk["quadric_room_bvh"]["walk_launches"],
-                               "kdtree": wk["quadric_room_kdtree"]["walk_launches"]},
-         "kd_walk": {k: wk["walk_kdtree"][k] for k in ("ms", "bound_ms", "bound_by")}},
+         "bound_by": wk["walk_bvh"]["bound_by"], "library_ms": None},
+        {"name": "kd_walk", "route": "cuda", "source": "pbrt_tpu_torch/csrc/bvh_walk.cu",
+         "replaces": "none (pbrt_tpu/device/intersect.py:893 _traverse_kd, an XLA loop)",
+         "launches": wk["quadric_room_kdtree"]["walk_launches"], "max_abs_err": wk["walk_kdtree"]["max_abs_err"],
+         "ms": wk["walk_kdtree"]["ms"], "plain_ms": wk["walk_kdtree"]["plain_ms"],
+         "bound_ms": wk["walk_kdtree"]["bound_ms"], "bound_by": wk["walk_kdtree"]["bound_by"], "library_ms": None},
         {"name": "medium_track", "route": "cuda", "source": "pbrt_tpu_torch/csrc/medium_track.cu",
          "replaces": "none (pbrt_tpu/device/media.py:183 and :248, lax.while_loops of delta and ratio tracking)",
          "launches": sum(wv["fog_room"]["launches"][k] for k in ("delta_track_cuda", "ratio_track_cuda")),
@@ -3458,13 +3645,25 @@ def main() -> int:
          "bound_ms": wv["medium_track"]["delta_track"]["bound_ms"],
          "bound_by": wv["medium_track"]["delta_track"]["bound_by"], "library_ms": None,
          "launches_by_entry": {k: wv["fog_room"]["launches"][k] for k in ("delta_track_cuda", "ratio_track_cuda")},
-         "ratio_track": {k: wv["medium_track"]["ratio_track"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+         **{k: wv["medium_track"]["delta_track"][k] for k in ("alone_ms", "mixed_alone_ms", "empty_alone_ms")},
+         "ratio_track": {k: wv["medium_track"]["ratio_track"][k]
+                         for k in ("ms", "alone_ms", "plain_ms", "bound_ms", "bound_by", "mixed_alone_ms",
+                                   "empty_alone_ms")}},
         {"name": "bvh_walk_motion", "route": "cuda", "source": "pbrt_tpu_torch/csrc/bvh_walk.cu",
          "replaces": "none (pbrt_tpu/device/intersect.py:487 _traverse with time, its leaf test :575-600, an XLA loop)",
          "launches": mb["motion_room"]["launches"]["bvh_walk_motion_cuda"],
          "max_abs_err": mb["motion_walk"]["max_abs_err"], "ms": mb["motion_walk"]["ms"],
          "plain_ms": mb["motion_walk"]["plain_ms"], "bound_ms": mb["motion_walk"]["bound_ms"],
          "bound_by": mb["motion_walk"]["bound_by"], "library_ms": None},
+        {"name": "kd_walk_motion", "route": "cuda", "source": "pbrt_tpu_torch/csrc/bvh_walk.cu",
+         "replaces": "none (pbrt_tpu/device/intersect.py:893 _traverse_kd with time, its _test_prims :326-354, an "
+                     "XLA loop)",
+         "launches": mb["motion_room_kd"]["launches"]["kd_walk_motion_cuda"],
+         "max_abs_err": mb["kd_motion_walk"]["motion2"]["max_abs_err"], "ms": mb["kd_motion_walk"]["motion2"]["ms"],
+         "plain_ms": mb["kd_motion_walk"]["motion2"]["plain_ms"],
+         "bound_ms": mb["kd_motion_walk"]["motion2"]["bound_ms"],
+         "bound_by": mb["kd_motion_walk"]["motion2"]["bound_by"], "library_ms": None,
+         "keyframes": {k: mb["kd_motion_walk"]["motion1"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
     ]}
     print(json.dumps(report))
     print(_smi())

@@ -31,10 +31,18 @@
 // (intersect.ray_triangle), quadrics quadric.cuh over their prim_test_data
 // rows. pops counts the boxes tested (the root's, then two per interior
 // node entered), which equals a pop-time walk's pops on closest-hit queries.
-// kd_walk: pbrt's KdTreeAccel::Intersect over the kd_* tables, one thread
-// per ray in a fixed grid, a todo stack of 96 (node, t_min, t_max) entries,
-// the root interval from the tree's bounds; a ray stops once its best hit
-// lies before its next interval.
+// kd_walk: pbrt's KdTreeAccel::Intersect over the kd walk's records
+// (scene/arrays.py kd_walk_records), derived from the reference's kd_*
+// tables: one 8-byte record per node (an interior node's split and axis |
+// above << 2, a leaf's first row and 3 | count << 2), one 48-byte row per
+// entry of kd_prim_ids in leaf order (the BVH walk's prim row, with the
+// prim's row in place of the instance: a kd scene has none). The root
+// interval comes from the tree's bounds; an interior node's split plane
+// picks the first child (below when the origin lies below the split, or on
+// it with a direction <= 0) and, when the plane cuts the interval, pushes
+// the second with (t_split, t_max); a leaf's rows are tested at the t_best
+// it starts with; a ray stops once its best hit lies before its next
+// interval. pops counts the nodes visited, interior and leaf.
 // Both write (t, prim, b1, b2, pops): t_max and -1 on a miss; b1, b2 the
 // barycentrics of a triangle hit, a quadric hit's object-space x and y.
 // They are the twins of device/bvh_walk.py walk_plain and kd_walk_plain,
@@ -61,6 +69,22 @@
 //    lanes over a ray queue (B1's) hold more rays per warp on bounce rays
 //    but cost two ballots and a branch per visit, more than the idle lanes
 //    cost here (a visit is two box tests, not B1's eight).
+// What the kd walk's design does about the same bound (the same tool
+// measures its levers against the design before it):
+//  - the records: an interior visit is one 8-byte load where the tables
+//    took three dependent scalar loads (kd_flags, kd_split, kd_above), and
+//    a leaf's candidates are contiguous 48-byte rows tested by the BVH
+//    walk's bw_test, where each took a kd_prim_ids load, then a prim_kind
+//    load and its prim_test_data row;
+//  - the stack: KD_STACK (node, t_min, t_max) entries of 12 bytes, the kd
+//    build's depth bound round(8 + 1.3 log2 n) for any int32 prim count
+//    (a ray holds at most one entry per interior level of the tree); the
+//    wrapper refuses a deeper tree before the launch;
+//  - work done once: the motion group's M(dt) once per (ray, group);
+//  - occupancy: __launch_bounds__(THREADS, KD_MIN_BLOCKS) on the static
+//    instantiation (72 registers, 7 blocks per SM); the motion ones take
+//    no cap, where 72 registers spilled 148-192 bytes;
+//  - one thread per ray over a grid that covers the rays, as the BVH walk.
 // bvh_walk_counted is the instrumented build: it also writes each ray's
 // prim tests (triangle, quadric, and those through an instance transform)
 // and its node visits (loop iterations), and marks the bvh_packed rows the
@@ -100,7 +124,9 @@
 #define THREADS 128
 #define BW_STACK 64      // entries (far child, its tn) per ray: intersect.STACK_DEPTH
 #define BW_MIN_BLOCKS 7  // resident blocks per SM the register cap aims at (72 registers; PERF.md)
-#define KD_STACK 96
+#define KD_STACK 48      // todo entries per ray: the kd build's depth bound for any n < 2^31 prims
+#define KD_MIN_BLOCKS 7  // resident blocks per SM the kd walk's register cap aims at (PERF.md)
+#define KD_MIN_BLOCKS_MOTION 1  // ... and its motion instantiations': no cap (PERF.md)
 #define BW_ITER_CAP 1000000
 #define BW_EPS 1e-4f
 #define BW_SLAB 1.0000004f
@@ -329,104 +355,6 @@ __device__ __forceinline__ void bw_motion_g(const float m[12], const float* __re
         bw_affine_inverse(m, mi);
         bw_compose(c, mi, g);
     }
-}
-
-// One prim of a kd leaf against the ray, at the leaf's t_best: the
-// instanced ray for a nonzero instance, the prim moved to the ray's time
-// (MOTION > 0), then the triangle or quadric test. The kd walk's
-// per-candidate code, as it was before the BVH walk's redesign (its own
-// redesign is queued: ROADMAP).
-template <int MOTION>
-__device__ __forceinline__ bool bw_prim(const BwRay& r, int pid, const float* __restrict__ ptd, int cols,
-                                        const int* __restrict__ prim_kind, const int* __restrict__ prim_inst,
-                                        const float* __restrict__ inst_w2i, float t_max, float& t, float& b1,
-                                        float& b2, const BwMotion& mo, float dt) {
-    const float* row = ptd + (size_t)pid * cols;
-    const int iid = prim_inst ? __ldg(prim_inst + pid) : 0;
-    BwRay ri;
-    const BwRay* rr = &r;
-    if (iid != 0) {
-        const float* m = inst_w2i + (size_t)iid * 12;
-        float o[3], d[3];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-            o[i] = __ldg(m + 4 * i) * r.o[0] + __ldg(m + 4 * i + 1) * r.o[1] + __ldg(m + 4 * i + 2) * r.o[2] +
-                   __ldg(m + 4 * i + 3);
-            d[i] = __ldg(m + 4 * i) * r.d[0] + __ldg(m + 4 * i + 1) * r.d[1] + __ldg(m + 4 * i + 2) * r.d[2];
-        }
-        bw_setup(ri, o, d);
-        rr = &ri;
-    }
-    float g[12];
-    if (MOTION == 2) {
-        float m[12], c[12];
-        bw_anim_matrix(mo.anim + (size_t)__ldg(mo.anim_gid + pid) * BW_ANIM_COLS, dt, m);
-#pragma unroll
-        for (int i = 0; i < 12; ++i) c[i] = __ldg(mo.anim_c + (size_t)pid * 12 + i);
-        if (__ldg(prim_kind + pid) == 0) {
-            bw_compose(m, c, g);
-        } else {
-            float mi[12];
-            bw_affine_inverse(m, mi);
-            bw_compose(c, mi, g);
-        }
-    }
-    if (__ldg(prim_kind + pid) == 0) {
-        float v[9];
-#pragma unroll
-        for (int i = 0; i < 9; ++i) v[i] = __ldg(row + i);
-        if (MOTION == 1) {
-            const float* re = mo.ptd_end + (size_t)pid * cols;
-#pragma unroll
-            for (int i = 0; i < 9; ++i) v[i] = v[i] + dt * (__ldg(re + i) - v[i]);
-            if (mo.ptd_mid) {
-                const float* rm = mo.ptd_mid + (size_t)pid * cols;
-#pragma unroll
-                for (int i = 0; i < 9; ++i) {
-                    const float b = __ldg(row + i);
-                    v[i] = v[i] + (dt * (1.0f - dt)) * ((4.0f * __ldg(rm + i) - 2.0f * b) - 2.0f * __ldg(re + i));
-                }
-            }
-        } else if (MOTION == 2) {
-            float p[9];
-#pragma unroll
-            for (int k = 0; k < 3; ++k)
-#pragma unroll
-                for (int i = 0; i < 3; ++i)
-                    p[3 * k + i] = ((g[4 * i] * v[3 * k] + g[4 * i + 1] * v[3 * k + 1]) + g[4 * i + 2] * v[3 * k + 2]) +
-                                   g[4 * i + 3];
-#pragma unroll
-            for (int i = 0; i < 9; ++i) v[i] = p[i];
-        }
-        return bw_tri(*rr, v, t_max, t, b1, b2);
-    }
-    float w2o[12], par[12];
-#pragma unroll
-    for (int i = 0; i < 12; ++i) w2o[i] = __ldg(row + i);
-    if (MOTION == 1) {
-        const float* re = mo.ptd_end + (size_t)pid * cols;
-#pragma unroll
-        for (int i = 0; i < 12; ++i) w2o[i] = w2o[i] + dt * (__ldg(re + i) - w2o[i]);
-        if (mo.ptd_mid) {
-            const float* rm = mo.ptd_mid + (size_t)pid * cols;
-#pragma unroll
-            for (int i = 0; i < 12; ++i) {
-                const float b = __ldg(row + i);
-                w2o[i] = w2o[i] + (dt * (1.0f - dt)) * ((4.0f * __ldg(rm + i) - 2.0f * b) - 2.0f * __ldg(re + i));
-            }
-        }
-    } else if (MOTION == 2) {
-#pragma unroll
-        for (int i = 0; i < 12; ++i) w2o[i] = g[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 6; ++i) par[i] = __ldg(row + 12 + i);
-    const bool twisted = cols >= 25;
-    if (twisted) {
-#pragma unroll
-        for (int i = 0; i < 6; ++i) par[6 + i] = __ldg(row + 19 + i);
-    }
-    return qf_ray_quadric(rr->o, rr->d, w2o, par, (int)__ldg(row + 18), twisted, t_max, t, b1, b2);
 }
 
 // 1/d with |d| clamped at 1e-30 (bvh_walk._inv_dir)
@@ -659,16 +587,22 @@ bvh_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, 
     }
 }
 
+// One todo entry of the kd walk: the node and its (t_min, t_max)
+struct KdEntry {
+    int node;
+    float lo, hi;
+};
+
+// pbrt's KdTreeAccel::Intersect over the kd walk's records, one thread per
+// ray over a grid that covers the rays.
 template <int MOTION>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MOTION ? KD_MIN_BLOCKS_MOTION : KD_MIN_BLOCKS)
 kd_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, const float* __restrict__ t_max_in,
-               int n_rays, const int* __restrict__ kd_flags, const float* __restrict__ kd_split,
-               const int* __restrict__ kd_above, const int* __restrict__ kd_nprims,
-               const int* __restrict__ kd_prim_ids, const float* __restrict__ kd_lo, const float* __restrict__ kd_hi,
-               const float* __restrict__ ptd, int cols, const int* __restrict__ prim_kind, int any_hit,
-               float* __restrict__ out_t, int* __restrict__ out_prim, float* __restrict__ out_b1,
-               float* __restrict__ out_b2, int* __restrict__ out_pops, unsigned int* __restrict__ counters,
-               BwMotion mo) {
+               int n_rays, const int2* __restrict__ node_rec, const float4* __restrict__ leaf_rec,
+               const float* __restrict__ kd_lo, const float* __restrict__ kd_hi, const float* __restrict__ ptd,
+               int cols, int any_hit, float* __restrict__ out_t, int* __restrict__ out_prim,
+               float* __restrict__ out_b1, float* __restrict__ out_b2, int* __restrict__ out_pops,
+               unsigned int* __restrict__ counters, BwMotion mo) {
     const int ray = blockIdx.x * blockDim.x + threadIdx.x;
     if (ray >= n_rays) return;
     const float dt = MOTION ? mo.time[ray] : 0.0f;
@@ -693,9 +627,10 @@ kd_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, c
     bool live = tn <= tf && tf > 0.0f && t_max > 0.0f;
     int node = 0;
     float tmin = qf_max(tn, 0.0f), tmax = qf_min(tf, t_max);
-    int st_n[KD_STACK];
-    float st_lo[KD_STACK], st_hi[KD_STACK];
+    KdEntry stack[KD_STACK];
     int sp = 0;
+    int c_gid = -1;  // the group whose M(dt) m holds (MOTION 2)
+    float m[12];
     while (live) {
         if (t_best < tmin) break;  // pbrt: if (ray.tMax < tMin) break
         if (pops >= BW_ITER_CAP) {
@@ -703,13 +638,14 @@ kd_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, c
             break;
         }
         ++pops;
-        const int fl = __ldg(kd_flags + node);
+        const int2 nd = __ldg(node_rec + node);
+        const int fl = nd.y & 3;
         if (fl != 3) {
-            const float s = __ldg(kd_split + node);
+            const float s = __int_as_float(nd.x);
             const float o_a = bw_pick(o, fl), d_a = bw_pick(d, fl);
             const float tp = (s - o_a) * bw_pick(inv, fl);
             const bool below_first = o_a < s || (o_a == s && d_a <= 0.0f);
-            const int above = __ldg(kd_above + node);
+            const int above = nd.y >> 2;
             const int first = below_first ? node + 1 : above;
             const int second = below_first ? above : node + 1;
             if (tp > tmax || tp <= 0.0f) {
@@ -718,9 +654,7 @@ kd_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, c
                 node = second;
             } else {
                 if (sp < KD_STACK) {
-                    st_n[sp] = second;
-                    st_lo[sp] = tp;
-                    st_hi[sp] = tmax;
+                    stack[sp] = KdEntry{second, tp, tmax};
                     ++sp;
                 } else {
                     atomicAdd(&counters[0], 1u);
@@ -730,14 +664,29 @@ kd_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, c
             }
             continue;
         }
-        // a leaf: its listed prims at the t_best it starts with
-        const int off = __ldg(kd_above + node), n = __ldg(kd_nprims + node);
+        // a leaf: its rows at the t_best it starts with
+        const float4* pr = leaf_rec + (size_t)nd.x * 3;
+        const int n = nd.y >> 2;
         float tl = INFINITY, w1 = 0.0f, w2 = 0.0f;
         int win = -1;
-        for (int k = 0; k < n; ++k) {
-            const int pid = __ldg(kd_prim_ids + off + k);
+        for (int k = 0; k < n; ++k, pr += 3) {
+            const float4 q0 = __ldg(pr), q1 = __ldg(pr + 1), q2 = __ldg(pr + 2);
+            const bool tri = (__float_as_int(q2.y) & 15) == 0;
+            const int pid = __float_as_int(q2.z);
+            float g[12];
+            if (MOTION == 2) {
+                // the group's M(dt), once per (ray, group)
+                const int gid = __float_as_int(q2.w);
+                if (gid != c_gid) {
+                    bw_anim_matrix(mo.anim + (size_t)gid * BW_ANIM_COLS, dt, m);
+                    c_gid = gid;
+                }
+                bw_motion_g(m, mo.anim_c, pid, tri, g);
+            }
+            const float v[9] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x};
             float t, c1, c2;
-            if (bw_prim<MOTION>(r, pid, ptd, cols, prim_kind, nullptr, nullptr, t_best, t, c1, c2, mo, dt) && t < tl) {
+            if (bw_test<MOTION>(r, pid, tri, v, ptd + (size_t)pid * cols, cols, g, mo, dt, t_best, t, c1, c2) &&
+                t < tl) {
                 tl = t;
                 w1 = c1;
                 w2 = c2;
@@ -753,9 +702,9 @@ kd_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, c
         }
         if (sp == 0 || (better && any_hit)) break;
         --sp;
-        node = st_n[sp];
-        tmin = st_lo[sp];
-        tmax = st_hi[sp];
+        node = stack[sp].node;
+        tmin = stack[sp].lo;
+        tmax = stack[sp].hi;
     }
     out_t[ray] = t_best;
     out_prim[ray] = prim;
@@ -791,17 +740,15 @@ static BwTables bw_tables(const void* nodes, const void* node_rec, const void* p
 }
 
 template <int MOTION>
-static int launch_kd(const void* o, const void* d, const void* t_max, int n_rays, const void* kd_flags,
-                     const void* kd_split, const void* kd_above, const void* kd_nprims, const void* kd_prim_ids,
-                     const void* kd_lo, const void* kd_hi, const void* ptd, int cols, const void* prim_kind,
-                     int any_hit, void* out_t, void* out_prim, void* out_b1, void* out_b2, void* out_pops,
-                     void* counters, void* stream, BwMotion mo) {
+static int launch_kd(const void* o, const void* d, const void* t_max, int n_rays, const void* node_rec,
+                     const void* leaf_rec, const void* kd_lo, const void* kd_hi, const void* ptd, int cols, int any_hit,
+                     void* out_t, void* out_prim, void* out_b1, void* out_b2, void* out_pops, void* counters,
+                     void* stream, BwMotion mo) {
     if (n_rays > 0) {
         const int blocks = (n_rays + THREADS - 1) / THREADS;
         kd_walk_kernel<MOTION><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-            (const float*)o, (const float*)d, (const float*)t_max, n_rays, (const int*)kd_flags,
-            (const float*)kd_split, (const int*)kd_above, (const int*)kd_nprims, (const int*)kd_prim_ids,
-            (const float*)kd_lo, (const float*)kd_hi, (const float*)ptd, cols, (const int*)prim_kind, any_hit,
+            (const float*)o, (const float*)d, (const float*)t_max, n_rays, (const int2*)node_rec,
+            (const float4*)leaf_rec, (const float*)kd_lo, (const float*)kd_hi, (const float*)ptd, cols, any_hit,
             (float*)out_t, (int*)out_prim, (float*)out_b1, (float*)out_b2, (int*)out_pops, (unsigned int*)counters,
             mo);
     }
@@ -875,29 +822,29 @@ extern "C" int bvh_walk_motion_counted(const void* o, const void* d, const void*
     return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int kd_walk(const void* o, const void* d, const void* t_max, int n_rays, const void* kd_flags,
-                       const void* kd_split, const void* kd_above, const void* kd_nprims, const void* kd_prim_ids,
-                       const void* kd_lo, const void* kd_hi, const void* ptd, int cols, const void* prim_kind,
+// The kd walk's entries. Tables: the kd walk's node records and leaf rows
+// (scene/arrays.py kd_walk_records), the tree's bounds kd_lo, kd_hi,
+// prim_test_data and its column count.
+extern "C" int kd_walk(const void* o, const void* d, const void* t_max, int n_rays, const void* node_rec,
+                       const void* leaf_rec, const void* kd_lo, const void* kd_hi, const void* ptd, int cols,
                        int any_hit, void* out_t, void* out_prim, void* out_b1, void* out_b2, void* out_pops,
                        void* counters, void* stream) {
-    return launch_kd<0>(o, d, t_max, n_rays, kd_flags, kd_split, kd_above, kd_nprims, kd_prim_ids, kd_lo, kd_hi, ptd,
-                        cols, prim_kind, any_hit, out_t, out_prim, out_b1, out_b2, out_pops, counters, stream,
-                        BwMotion{});
+    return launch_kd<0>(o, d, t_max, n_rays, node_rec, leaf_rec, kd_lo, kd_hi, ptd, cols, any_hit, out_t, out_prim,
+                        out_b1, out_b2, out_pops, counters, stream, BwMotion{});
 }
 
 // kd_walk's arguments, then motion, the per-ray time and the motion tables
-// (bvh_walk_motion's)
-extern "C" int kd_walk_motion(const void* o, const void* d, const void* t_max, int n_rays, const void* kd_flags,
-                              const void* kd_split, const void* kd_above, const void* kd_nprims,
-                              const void* kd_prim_ids, const void* kd_lo, const void* kd_hi, const void* ptd, int cols,
-                              const void* prim_kind, int any_hit, void* out_t, void* out_prim, void* out_b1,
-                              void* out_b2, void* out_pops, void* counters, void* stream, int motion,
-                              const void* time, const void* ptd_end, const void* ptd_mid, const void* anim,
-                              const void* anim_gid, const void* anim_c) {
+// (bvh_walk_motion's; the kd walk reads each row's group from its leaf row,
+// not anim_gid)
+extern "C" int kd_walk_motion(const void* o, const void* d, const void* t_max, int n_rays, const void* node_rec,
+                              const void* leaf_rec, const void* kd_lo, const void* kd_hi, const void* ptd, int cols,
+                              int any_hit, void* out_t, void* out_prim, void* out_b1, void* out_b2, void* out_pops,
+                              void* counters, void* stream, int motion, const void* time, const void* ptd_end,
+                              const void* ptd_mid, const void* anim, const void* anim_gid, const void* anim_c) {
     const BwMotion mo = bw_motion(time, ptd_end, ptd_mid, anim, anim_gid, anim_c);
-#define BW_CALL(M)                                                                                                  \
-    launch_kd<M>(o, d, t_max, n_rays, kd_flags, kd_split, kd_above, kd_nprims, kd_prim_ids, kd_lo, kd_hi, ptd, cols, \
-                 prim_kind, any_hit, out_t, out_prim, out_b1, out_b2, out_pops, counters, stream, mo)
+#define BW_CALL(M)                                                                                                \
+    launch_kd<M>(o, d, t_max, n_rays, node_rec, leaf_rec, kd_lo, kd_hi, ptd, cols, any_hit, out_t, out_prim, out_b1, \
+                 out_b2, out_pops, counters, stream, mo)
     if (motion == 1) return BW_CALL(1);
     if (motion == 2) return BW_CALL(2);
 #undef BW_CALL
@@ -905,7 +852,7 @@ extern "C" int kd_walk_motion(const void* o, const void* d, const void* t_max, i
 }
 
 // Resident blocks of THREADS threads per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-// of the BVH walk's instantiation (count, motion), and of the kd walk's static one.
+// of the BVH walk's instantiation (count, motion), and of the kd walk's (motion).
 extern "C" int bvh_walk_occupancy(int count, int motion, int* blocks_per_sm) {
     const void* kernels[2][3] = {
         {(const void*)bvh_walk_kernel<false, 0>, (const void*)bvh_walk_kernel<false, 1>,
@@ -916,6 +863,9 @@ extern "C" int bvh_walk_occupancy(int count, int motion, int* blocks_per_sm) {
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernels[count][motion], THREADS, 0);
 }
 
-extern "C" int kd_walk_occupancy(int* blocks_per_sm) {
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kd_walk_kernel<0>, THREADS, 0);
+extern "C" int kd_walk_occupancy(int motion, int* blocks_per_sm) {
+    const void* kernels[3] = {(const void*)kd_walk_kernel<0>, (const void*)kd_walk_kernel<1>,
+                              (const void*)kd_walk_kernel<2>};
+    if (motion < 0 || motion > 2) return (int)cudaErrorInvalidValue;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernels[motion], THREADS, 0);
 }

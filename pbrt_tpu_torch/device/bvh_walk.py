@@ -20,8 +20,13 @@ on its own instead, as B1 does:
   triangle test or the EFloat quadric test of ``csrc/quadric.cuh``, an
   instanced prim's ray brought into instance space first (t is kept) and
   kept while the instance repeats;
-- ``kd_walk_cuda`` (entry ``kd_walk``): pbrt's KdTreeAccel::Intersect, a
-  todo stack of 96 (node, t_min, t_max) entries over the ``kd_*`` tables.
+- ``kd_walk_cuda`` (entry ``kd_walk``): pbrt's KdTreeAccel::Intersect
+  over the kd walk's records (``scene/arrays.py kd_walk_records``: an
+  8-byte record per node, a 48-byte row per leaf entry, tested through
+  the BVH walk's per-prim code), a todo stack of KD_STACK (node, t_min,
+  t_max) entries, the kd build's depth bound for any int32 prim count; a
+  tree deeper than that (``static.kd_depth``) is refused before the
+  launch, by the twin too.
 
 Both answer closest-hit and any-hit queries and write (t, prim, b1, b2,
 pops; the BVH walk's pops are the boxes it tested): b1, b2 are the
@@ -29,8 +34,9 @@ barycentrics of a triangle hit, the object-space x and y of a quadric hit,
 as the brute route writes them. A leaf's hits tie to its first prim;
 across leaves only a strict improvement counts. ``walk_plain`` and
 ``kd_walk_plain`` are the same walks in plain PyTorch, lockstep over every
-ray with a (R, 64) or (R, 96) stack tensor, the BVH walk's over the same
-records in the same order; the kernels are held to them (chip_smoke.py
+ray with a (R, STACK) or (R, KD_STACK) stack tensor, the BVH walk's over
+the same records in the same order, the kd walk's over the ``kd_*`` tables
+the records come from; the kernels are held to them (chip_smoke.py
 phase 34), and they to the reference's queries
 (tests/test_torch_bvh_walk.py). The reference's kd packet walk drops the
 near child when every ray of a packet moves away from the split plane
@@ -67,7 +73,7 @@ from ..scene.arrays import ANIM_REC_COLS
 from .wide_bvh import SORT_MIN_RAYS, coherence_keys
 
 STACK = 64  # far-child entries per ray of the BVH walk (intersect.STACK_DEPTH)
-KD_STACK = 96  # (node, t_min, t_max) entries per ray (intersect.KD_STACK)
+KD_STACK = 48  # (node, t_min, t_max) entries per ray (csrc/bvh_walk.cu KD_STACK): round(8 + 1.3 log2 n), n < 2^31
 GEOM_TRI = 0  # scene.arrays.GEOM_TRI
 KERNEL_SOURCE = nvcc.CSRC / "bvh_walk.cu"
 
@@ -75,11 +81,10 @@ KERNEL_SOURCE = nvcc.CSRC / "bvh_walk.cu"
 # inst_w2i, any_hit, t, prim, b1, b2, pops, counters, stream
 _BVH_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
                  + [ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 7)
-# o, d, t_max, n_rays, kd_flags, kd_split, kd_above, kd_nprims, kd_prim_ids,
-# kd_lo, kd_hi, ptd, ptd_cols, prim_kind, any_hit, t, prim, b1, b2, pops,
-# counters, stream
-_KD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int]
-                + [ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 7)
+# o, d, t_max, n_rays, kd_node_rec, kd_leaf_rec, kd_lo, kd_hi, ptd,
+# ptd_cols, any_hit, t, prim, b1, b2, pops, counters, stream
+_KD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p] * 7)
 # the motion entries' extra arguments: motion, time, ptd_end, ptd_mid, anim
 # rows, anim_gid, anim_c
 _MOTION_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6
@@ -97,7 +102,7 @@ def build_kernel() -> dict:
     """Compile (if needed) and load the walk kernels' library: {"lib",
     "seconds", "log", "path"} as device/nvcc.build returns it. Its C
     entries: bvh_walk, kd_walk, bvh_walk_occupancy(count, motion),
-    kd_walk_occupancy and, in the same library, bvh_walk_counted (the
+    kd_walk_occupancy(motion) and, in the same library, bvh_walk_counted (the
     instrumented build of the BVH walk: it also writes each ray's prim
     tests by kind and node visits and marks the table rows it read), and
     the motion walks bvh_walk_motion, bvh_walk_motion_counted and
@@ -233,29 +238,42 @@ bvh_walk_motion_cuda.launches = 0
 bvh_walk_motion_cuda.counters = {}  # device -> int32 (2,): stack overflows, iteration-cap hits
 
 
-def kd_walk_cuda(sa, static, o, d, t_max, any_hit: bool):
-    """Launch the kd-tree walk (entry kd_walk); bvh_walk_cuda's contract,
-    counted in ``kd_walk_cuda.launches`` and ``.counters``."""
-    R, counters, (t, prim, b1, b2, pops), stream = _outputs(kd_walk_cuda, o, d, t_max)
+def check_kd_depth(static):
+    """Raise ValueError for a kd-tree deeper than the walks' todo stack
+    (KD_STACK entries: a ray holds at most one per interior level)."""
+    if static.kd_depth > KD_STACK:
+        raise ValueError(f"the kd-tree is {static.kd_depth} interior levels deep; the kd walk's stack holds "
+                         f"{KD_STACK}")
+
+
+def _kd_args(wrapper, sa, static, o, d, t_max, any_hit):
+    """The kd entries' arguments (the tree's depth checked first), with the
+    outputs."""
+    check_kd_depth(static)
+    R, counters, outs, stream = _outputs(wrapper, o, d, t_max)
     dev = o.device
-    N = sa.kd_flags.shape[0]
     P, cols = sa.prim_test_data.shape
-    for name, dtype, shape in (("kd_flags", torch.int32, (N,)), ("kd_split", torch.float32, (N,)),
-                               ("kd_above", torch.int32, (N,)), ("kd_nprims", torch.int32, (N,)),
-                               ("kd_prim_ids", torch.int32, (sa.kd_prim_ids.shape[0],)),
+    if sa.kd_node_rec is None:
+        raise ValueError("the kd walk needs the scene's kd walk records (scene.arrays.kd_walk_records)")
+    for name, dtype, shape in (("kd_node_rec", torch.int32, (sa.kd_node_rec.shape[0], 2)),
+                               ("kd_leaf_rec", torch.float32, (sa.kd_leaf_rec.shape[0], 12)),
                                ("kd_lo", torch.float32, (3,)), ("kd_hi", torch.float32, (3,)),
-                               ("prim_test_data", torch.float32, (P, cols)), ("prim_kind", torch.int32, (P,))):
+                               ("prim_test_data", torch.float32, (P, cols))):
         _check(name, getattr(sa, name), dtype, shape, dev)
-    lib = build_kernel()["lib"]
-    err = lib.kd_walk(o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R, sa.kd_flags.data_ptr(), sa.kd_split.data_ptr(),
-                      sa.kd_above.data_ptr(), sa.kd_nprims.data_ptr(), sa.kd_prim_ids.data_ptr(), sa.kd_lo.data_ptr(),
-                      sa.kd_hi.data_ptr(), sa.prim_test_data.data_ptr(), cols, sa.prim_kind.data_ptr(),
-                      int(bool(any_hit)), t.data_ptr(), prim.data_ptr(), b1.data_ptr(), b2.data_ptr(), pops.data_ptr(),
-                      counters.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"kd_walk launch failed: cudaError {err}")
-    kd_walk_cuda.launches += 1
-    return t, prim, b1, b2, pops
+    t, prim, b1, b2, pops = outs
+    args = [o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R, sa.kd_node_rec.data_ptr(), sa.kd_leaf_rec.data_ptr(),
+            sa.kd_lo.data_ptr(), sa.kd_hi.data_ptr(), sa.prim_test_data.data_ptr(), cols, int(bool(any_hit)),
+            t.data_ptr(), prim.data_ptr(), b1.data_ptr(), b2.data_ptr(), pops.data_ptr(), counters.data_ptr(), stream]
+    return R, args, outs
+
+
+def kd_walk_cuda(sa, static, o, d, t_max, any_hit: bool):
+    """Launch the kd-tree walk (entry kd_walk); bvh_walk_cuda's contract
+    (pops: the nodes visited), counted in ``kd_walk_cuda.launches`` and
+    ``.counters``; raises before the launch on a tree deeper than
+    KD_STACK."""
+    R, args, outs = _kd_args(kd_walk_cuda, sa, static, o, d, t_max, any_hit)
+    return _launch_bvh(kd_walk_cuda, "kd_walk", sa, args, R, o.device, None, None, outs)
 
 
 kd_walk_cuda.launches = 0
@@ -266,20 +284,9 @@ def kd_walk_motion_cuda(sa, static, o, d, t_max, any_hit: bool, time=None):
     """Launch the kd-tree walk's motion instantiation (entry
     kd_walk_motion); kd_walk_cuda's contract, counted in
     ``kd_walk_motion_cuda.launches`` and ``.counters``."""
-    R, counters, (t, prim, b1, b2, pops), stream = _outputs(kd_walk_motion_cuda, o, d, t_max)
-    dev = o.device
-    P, cols = sa.prim_test_data.shape
-    lib = build_kernel()["lib"]
-    err = lib.kd_walk_motion(o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R, sa.kd_flags.data_ptr(),
-                             sa.kd_split.data_ptr(), sa.kd_above.data_ptr(), sa.kd_nprims.data_ptr(),
-                             sa.kd_prim_ids.data_ptr(), sa.kd_lo.data_ptr(), sa.kd_hi.data_ptr(),
-                             sa.prim_test_data.data_ptr(), cols, sa.prim_kind.data_ptr(), int(bool(any_hit)),
-                             t.data_ptr(), prim.data_ptr(), b1.data_ptr(), b2.data_ptr(), pops.data_ptr(),
-                             counters.data_ptr(), stream, *_motion_args(sa, static, time, R, dev))
-    if err != 0:
-        raise RuntimeError(f"kd_walk_motion launch failed: cudaError {err}")
-    kd_walk_motion_cuda.launches += 1
-    return t, prim, b1, b2, pops
+    R, args, outs = _kd_args(kd_walk_motion_cuda, sa, static, o, d, t_max, any_hit)
+    args += _motion_args(sa, static, time, R, o.device)
+    return _launch_bvh(kd_walk_motion_cuda, "kd_walk_motion", sa, args, R, o.device, None, None, outs)
 
 
 kd_walk_motion_cuda.launches = 0
@@ -483,7 +490,9 @@ def kd_walk_plain(sa, static, o, d, t_max, any_hit: bool, time=None, counts=None
     bound, chip_smoke.py phase 34): "interior_visits" and "leaf_visits"
     (the pops of interior nodes and of leaves), "triangle_tests",
     "quadric_tests" and boolean masks of the rows it read, "nodes" (kd_flags), "prim_ids"
-    (kd_prim_ids) and "prims" (prim_test_data)."""
+    (kd_prim_ids) and "prims" (prim_test_data). Its todo stack holds KD_STACK
+    entries, the kernel's: a deeper tree raises (check_kd_depth)."""
+    check_kd_depth(static)
     dev = o.device
     R = o.shape[0]
     inv_d = _inv_dir(d)

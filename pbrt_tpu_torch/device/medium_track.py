@@ -9,7 +9,9 @@ steps over every lane until the last lane ends. In eager PyTorch that is a
 host sync and some thirty launches per step, once per bounce for the
 distance and up to MAX_NULL_CROSSINGS times per shadow ray for the
 transmittance, so the port tracks each ray in one thread instead
-(``csrc/medium_track.cu``):
+(``csrc/medium_track.cu``: one thread per ray, the grid read through its
+corner table ``SceneTensors.med_grid_corners``, one 32-byte row of a
+voxel's eight densities per voxel, ``scene/arrays.py grid_corners``):
 
 - ``delta_track(sa, med, o, d, t_end, key)`` -> (t, found, steps): entry
   ``delta_track``; key is the per-lane key before the medium's own
@@ -42,8 +44,8 @@ from .affine import xf_point
 MAX_TRACKING_STEPS = 256
 KERNEL_SOURCE = nvcc.CSRC / "medium_track.cu"
 
-# o, d, t_end, med, key, n_rays, grid, dims, w2m, par, n_media, outputs...,
-# stream
+# o, d, t_end, med, key, n_rays, corners, dims, w2m, par, n_media,
+# outputs..., stream
 _IN_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
 
 
@@ -64,14 +66,19 @@ def _inputs(sa, med, o, d, t_end, key):
     dev = o.device
     R = o.shape[0]
     f32 = torch.float32
+    # the keys as int64: the kernel reads their low 32 bits (rng._u32's value)
     ins = (o.to(f32).contiguous(), d.to(f32).contiguous(), t_end.to(f32).contiguous(),
-           med.to(torch.int64).contiguous(), rng._u32(key).contiguous())
+           med.to(torch.int64).contiguous(), key.to(torch.int64).contiguous())
     for name, x, shape in zip(("o", "d", "t_end", "med", "key"), ins, ((R, 3), (R, 3), (R,), (R,), (R,))):
         if x.device != dev or tuple(x.shape) != shape:
             raise ValueError(f"{name} must be a {shape} tensor on {dev}")
     n_media = sa.med_param.shape[0]
-    tables = (sa.med_grid_flat.contiguous(), sa.med_grid_dims.contiguous(),
-              sa.med_w2m.reshape(n_media, 12).contiguous(), sa.med_param.contiguous())
+    tables = (sa.med_grid_corners, sa.med_grid_dims, sa.med_w2m.reshape(n_media, 12).contiguous(),
+              sa.med_param.contiguous())
+    for name, x, dtype, shape in zip(("med_grid_corners", "med_grid_dims"), tables, (torch.float32, torch.int32),
+                                     ((tables[0].shape[0], 8), (n_media, 4))):
+        if x.device != dev or x.dtype != dtype or not x.is_contiguous() or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be a contiguous {dtype} {shape} tensor on {dev}")
     return R, ins, tables, n_media
 
 
@@ -84,7 +91,7 @@ def delta_track_cuda(sa, med, o, d, t_end, key):
     R, ins, tables, n_media = _inputs(sa, med, o, d, t_end, key)
     dev = o.device
     t = torch.empty(R, dtype=torch.float32, device=dev)
-    found = torch.empty(R, dtype=torch.int32, device=dev)
+    found = torch.empty(R, dtype=torch.bool, device=dev)
     steps = torch.empty(R, dtype=torch.int32, device=dev)
     lib = build_kernel()["lib"]
     err = lib.delta_track(*(x.data_ptr() for x in ins), R, *(x.data_ptr() for x in tables), n_media,
@@ -92,7 +99,7 @@ def delta_track_cuda(sa, med, o, d, t_end, key):
     if err != 0:
         raise RuntimeError(f"delta_track launch failed: cudaError {err}")
     delta_track_cuda.launches += 1
-    return t, found.bool(), steps
+    return t, found, steps
 
 
 delta_track_cuda.launches = 0

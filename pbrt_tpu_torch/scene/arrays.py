@@ -214,13 +214,14 @@ _WIDE_DTYPES = {
 # in a mixed scene (more than 64 triangles beside 1-8 quadrics), whose wide
 # tables cover the triangle subset and index it locally (None when they
 # cover every prim); the grid media's densities packed for
-# csrc/medium_track.cu (med_grid_flat, med_grid_dims); and the
+# csrc/medium_track.cu (med_grid_corners, med_grid_dims); and the
 # animated-transform groups as one row each for csrc/bvh_walk.cu's motion
 # walk (anim_rec: q0, q1, t0, t1, s0, s1, theta in ANIM_REC_COLS floats);
 # and the binary BVH walk's records (bvh_walk_records: bw_node_rec,
-# bw_prim_rec) of the scenes whose route is bvh or kdtree
-HOPPER_TABLES = ("wnode_rec", "wleaf_rec", "wattr_rec", "wide_prim_rows", "med_grid_flat", "med_grid_dims",
-                 "anim_rec", "bw_node_rec", "bw_prim_rec")
+# bw_prim_rec) of the scenes whose route is bvh or kdtree; and the kd
+# walk's (kd_walk_records: kd_node_rec, kd_leaf_rec) of a kd scene
+HOPPER_TABLES = ("wnode_rec", "wleaf_rec", "wattr_rec", "wide_prim_rows", "med_grid_corners", "med_grid_dims",
+                 "anim_rec", "bw_node_rec", "bw_prim_rec", "kd_node_rec", "kd_leaf_rec")
 ANIM_REC_COLS = 36
 # the stacked Fourier BSDF tables (empty dict without one)
 FOURIER_TABLES = ("mu", "aflat", "a0", "cdf", "eta")
@@ -285,11 +286,16 @@ class SceneTensors:
     wleaf_rec: torch.Tensor | None = None  # (n_oct*8, 16) f32 leaf rows, row = kernel slot
     wattr_rec: torch.Tensor | None = None  # (n_oct*8, 16) f32 attribute rows, row = kernel slot
     wide_prim_rows: torch.Tensor | None = None  # (T,) int32 wide-table prim -> prim row (mixed scenes)
-    # derived from med_grids (None without a grid medium): every grid
-    # medium's densities in one flat buffer, and per medium row its offset
-    # there and its (nx, ny, nz), nx = 0 for a homogeneous one
-    # (medium_track.cu)
-    med_grid_flat: torch.Tensor | None = None  # (N,) f32
+    # derived from med_grids (None without a grid medium; grid_corners):
+    # every grid medium's voxel corners, one 32-byte row of eight densities
+    # per voxel of the grid padded by one voxel below, and per medium row
+    # the offset of its first row there and its (nx, ny, nz), nx = 0 for a
+    # homogeneous one (medium_track.cu). A second copy of each grid at
+    # 32 (nx + 1) (ny + 1) (nz + 1) bytes, about 8x the grid's own (8.8 MB
+    # for 64^3, 543 MB for 256^3), counted in byte_size; it stays within
+    # the H100's 50 MB L2 up to about 115^3 voxels
+    # (tools/medium_track_variants.py measures it against the flat grid)
+    med_grid_corners: torch.Tensor | None = None  # (V, 8) f32
     med_grid_dims: torch.Tensor | None = None  # (Md, 4) int32
     anim_rec: torch.Tensor | None = None  # (G, ANIM_REC_COLS) f32, None without rotating motion
     # the binary BVH walk's records (bvh_walk_records; None on the brute
@@ -297,6 +303,10 @@ class SceneTensors:
     # per prim
     bw_node_rec: torch.Tensor | None = None  # (n_interior, 16) f32, words 12-15 int32 bits
     bw_prim_rec: torch.Tensor | None = None  # (P, 12) f32, words 9-11 int32 bits
+    # the kd walk's records (kd_walk_records; None but on the kdtree route):
+    # 8 bytes per node, one 12-word row per entry of kd_prim_ids
+    kd_node_rec: torch.Tensor | None = None  # (N, 2) int32
+    kd_leaf_rec: torch.Tensor | None = None  # (M, 12) f32, words 9-11 int32 bits
     sss_prof: torch.Tensor | None = None
     sss_cdf: torch.Tensor | None = None
     sss_rhoeff: torch.Tensor | None = None
@@ -418,9 +428,12 @@ class SceneStatic:
     # and shadow-alpha cutouts read
     quadric_kinds: tuple = ()
     alpha_programs: tuple = ()
+    # ... and of a kd scene the most interior nodes on a path from the
+    # root to a leaf: the kd walk's todo stack never holds more entries
+    kd_depth: int = 0
 
 
-_DERIVED_STATIC = ("quadric_kinds", "alpha_programs")
+_DERIVED_STATIC = ("quadric_kinds", "alpha_programs", "kd_depth")
 
 
 def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneTensors, SceneStatic]:
@@ -442,8 +455,8 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
     tensors["med_grids"] = {k: torch.as_tensor(np.array(v), dtype=torch.float32, device=device)
                             for k, v in (arrays.get("med_grids") or {}).items()}
     if tensors["med_grids"]:
-        flat, dims = _grid_pack(tensors["med_grids"], np.asarray(arrays["med_param"]).shape[0])
-        tensors["med_grid_flat"] = torch.as_tensor(flat, device=device)
+        corners, dims = grid_corners(tensors["med_grids"], np.asarray(arrays["med_param"]).shape[0])
+        tensors["med_grid_corners"] = torch.as_tensor(corners, device=device)
         tensors["med_grid_dims"] = torch.as_tensor(dims, device=device)
     if arrays.get("anim"):
         tensors["anim"] = {k: torch.as_tensor(np.array(v), dtype=torch.float32, device=device)
@@ -494,6 +507,14 @@ def scene_tensors_from_numpy(arrays: dict, static: dict, device) -> tuple[SceneT
                                 np.asarray(arrays["prim_kind"]), np.asarray(arrays["prim_inst"]),
                                 None if gid is None else np.asarray(gid))
         tensors["bw_node_rec"], tensors["bw_prim_rec"] = (torch.as_tensor(r, device=device) for r in recs)
+    if st.n_prims > 0 and route_name(st) == "kdtree":
+        gid = arrays.get("anim_gid")
+        node_rec, leaf_rec, st.kd_depth = kd_walk_records(
+            *(np.asarray(arrays[n]) for n in ("kd_flags", "kd_split", "kd_above", "kd_nprims", "kd_prim_ids",
+                                              "prim_test_data", "prim_kind")),
+            None if gid is None else np.asarray(gid))
+        tensors["kd_node_rec"], tensors["kd_leaf_rec"] = (torch.as_tensor(r, device=device)
+                                                          for r in (node_rec, leaf_rec))
     return SceneTensors(**tensors), st
 
 
@@ -555,6 +576,58 @@ def bvh_walk_records(bvh_packed, prim_test_data, prim_kind, prim_inst, anim_gid=
     return node_rec, prim_rec
 
 
+def kd_walk_records(kd_flags, kd_split, kd_above, kd_nprims, kd_prim_ids, prim_test_data, prim_kind,
+                    anim_gid=None):
+    """The kd walk's records (csrc/bvh_walk.cu kd_walk_kernel) derived from
+    the kd tables, which stay as they are: (node_rec (N, 2) int32,
+    leaf_rec (M, 12) float32 whose words 9-11 hold int32 bits, the tree's
+    depth: the most interior nodes on a path from the root to a leaf).
+
+    A node is one 8-byte record, pbrt's KdAccelNode: an interior node's
+    word 0 holds its split's float bits and word 1 its axis | above << 2
+    (the below child is the next node); a leaf's word 0 the offset of its
+    first row in leaf_rec and word 1 3 | count << 2. leaf_rec holds one row
+    per entry of kd_prim_ids, in leaf order, so a prim listed in two leaves
+    has two rows: the BVH walk's 48-byte prim row (bvh_walk_records: a
+    triangle's 9 vertex floats, kind | rem << 4, then the animation group
+    in word 11) with the prim's row in word 10, where the BVH walk keeps
+    the instance (a kd scene has no instances: compile_scene keeps the BVH
+    for them). Raises ValueError if two leaves share an entry, or an entry
+    is in no leaf."""
+    flags = np.asarray(kd_flags, np.int64)
+    above = np.asarray(kd_above, np.int64)
+    nprims = np.asarray(kd_nprims, np.int64)
+    ids = np.asarray(kd_prim_ids, np.int64)
+    leaf = flags == 3
+    node_rec = np.zeros((flags.size, 2), np.int32)
+    node_rec[:, 0] = np.where(leaf, above, np.asarray(kd_split, np.float32).view(np.int32))
+    node_rec[:, 1] = np.where(leaf, 3 | (nprims << 2), flags | (above << 2)).astype(np.int32)
+    starts, counts = above[leaf], nprims[leaf]
+    k = np.arange(int(counts.max()) if counts.size else 0)
+    entry = starts[:, None] + k[None, :]
+    valid = k[None, :] < counts[:, None]
+    listed = entry[valid]
+    if listed.size != ids.size or np.unique(listed).size != ids.size or (ids.size and listed.max() >= ids.size):
+        raise ValueError("kd_walk_records: the leaves do not cover kd_prim_ids once each")
+    rem = np.zeros(ids.size, np.int64)
+    rem[entry[valid]] = (counts[:, None] - k[None, :])[valid]
+    leaf_rec = np.zeros((ids.size, 12), np.float32)
+    leaf_rec[:, 0:9] = np.asarray(prim_test_data, np.float32)[ids, 0:9]
+    words = leaf_rec.view(np.int32)
+    words[:, 9] = (np.asarray(prim_kind, np.int64)[ids] | (rem << 4)).astype(np.int32)
+    words[:, 10] = ids.astype(np.int32)
+    words[:, 11] = 0 if anim_gid is None else np.asarray(anim_gid, np.int32)[ids]
+    # the depth, a level of interior nodes at a time (children follow their parent)
+    depth, level = 0, np.zeros(1, np.int64)
+    while True:
+        inner = level[~leaf[level]]
+        if inner.size == 0:
+            break
+        depth += 1
+        level = np.concatenate([inner + 1, above[inner]])
+    return node_rec, leaf_rec, depth
+
+
 def anim_records(anim: dict) -> torch.Tensor:
     """The animated-transform groups as (G, ANIM_REC_COLS) rows, the motion
     walk's layout: q0 (0:4), q1 (4:8), t0 (8:11), t1 (11:14), s0 (14:23),
@@ -565,20 +638,33 @@ def anim_records(anim: dict) -> torch.Tensor:
     return torch.nn.functional.pad(rec, (0, ANIM_REC_COLS - rec.shape[1])).contiguous()
 
 
-def _grid_pack(grids: dict, n_media: int):
-    """(flat f32 buffer of every grid, (n_media, 4) int32 rows offset, nx,
-    ny, nz; nx = 0 where the medium has no grid) of a scene with grids."""
+def grid_corners(grids: dict, n_media: int):
+    """Every grid's voxel corners for csrc/medium_track.cu: (corners (V, 8)
+    float32, dims (n_media, 4) int32: per medium row the offset of its
+    first row in corners, nx, ny, nz; nx = 0 where the medium has no grid).
+    For a grid "med{i}" of grids ((nz, ny, nx)) the rows are its voxels
+    (x0, y0, z0) from (-1, -1, -1) to (nx - 1, ny - 1, nz - 1), x fastest:
+    row (z0 + 1) * (ny + 1) * (nx + 1) + (y0 + 1) * (nx + 1) + x0 + 1 from
+    the medium's offset, holding the densities at (x0 + i, y0 + j, z0 + k)
+    for (i, j, k) = (0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0), (0, 0, 1),
+    (1, 0, 1), (0, 1, 1), (1, 1, 1): the grid's values, 0 outside it. A
+    trilinear lookup reads one 32-byte row where the grid itself takes
+    eight scattered values; the values are the same floats."""
     dims = np.zeros((n_media, 4), np.int32)
     parts, off = [], 0
     for i in range(n_media):
-        g = grids.get(f"med{i}")
-        if g is None:
+        grid = grids.get(f"med{i}")
+        if grid is None:
             continue
-        nz, ny, nx = g.shape
+        grid = grid.detach().cpu().numpy().astype(np.float32)
+        nz, ny, nx = grid.shape
+        g = np.zeros((nz + 2, ny + 2, nx + 2), np.float32)
+        g[1:-1, 1:-1, 1:-1] = grid
+        corners = [g[k:k + nz + 1, j:j + ny + 1, i_:i_ + nx + 1] for k in (0, 1) for j in (0, 1) for i_ in (0, 1)]
         dims[i] = off, nx, ny, nz
-        parts.append(g.detach().cpu().numpy().ravel())
-        off += g.numel()
-    return np.concatenate(parts).astype(np.float32), dims
+        parts.append(np.stack(corners, axis=-1).reshape(-1, 8))
+        off += parts[-1].shape[0]
+    return np.concatenate(parts), dims
 
 
 def scene_byte_size(sa: SceneTensors) -> int:

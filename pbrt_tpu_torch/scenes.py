@@ -220,6 +220,21 @@ def fog_room(n_side: int = 248, grid_res: int = 64) -> SceneDescription:
     return desc
 
 
+def fog_box_rays(n: int, seed: int = 0):
+    """n rays from the room's eye to uniform points of fog_room's smoke box,
+    each started where it enters the box and ending where it leaves it (a
+    slab test), with a uint32 key each: (o (n, 3), d (n, 3), t_end (n,),
+    key (n,) int64), float64 but for the keys."""
+    rs = np.random.RandomState(seed)
+    eye = np.asarray(ROOM_LOOK_AT[0], np.float64)
+    lo, hi = (np.asarray(v, np.float64) for v in FOG_BOX)
+    d = lo + rs.random_sample((n, 3)) * (hi - lo) - eye
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t0, t1 = (lo - eye) / d, (hi - eye) / d
+    tn, tf = np.minimum(t0, t1).max(1), np.maximum(t0, t1).min(1)
+    return eye + d * tn[:, None], d, tf - tn, rs.randint(0, 2 ** 32, n, dtype=np.int64)
+
+
 def _subsurface(kind, **params):
     """A subsurface-family material: every parameter the parser would set
     for it that the compiler reads (eta 1.33, the parser's default, where
@@ -289,12 +304,14 @@ MOTION_BOX = ([1.3, 1.6, -0.6], 0.6)  # the translating box's center and edge
 MOTION_BALL = ([-2.2, 2.7, -2.0], [2.2, 2.7, -2.0], 0.35)  # the quadric's start, end and radius
 
 
-def motion_room(n_side: int = 248, rotate: bool = True, sphere_res: int = 32) -> SceneDescription:
+def motion_room(n_side: int = 248, rotate: bool = True, sphere_res: int = 32,
+                accelerator: str = "bvh") -> SceneDescription:
     """The mesh room with moving prims under a moving camera, path depth 5,
     (0,2) + box, power light selection (its docstring above). sphere_res:
     the UV sphere's rings and segments (2 res (res - 1) triangles: 1,984 at
-    32)."""
+    32); accelerator: "bvh" or "kdtree"."""
     desc = mesh_room(n_side)
+    desc.accelerator = accelerator
     desc.transform_start_time, desc.transform_end_time = 0.0, 1.0
     ident = Transform()
     c, r = MOTION_SPHERE

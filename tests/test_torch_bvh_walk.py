@@ -14,6 +14,15 @@ against the reference on the CPU.
   every box, offset, count and interior axis of bvh_packed bit for bit,
   each row once, and every prim's row, instance, kind and group;
   bvh_packed itself equals the reference's on the instanced room.
+- the kd walk's records (scene.arrays.kd_walk_records, which the kernel
+  reads): on quadric_room(4)'s kd variant and a small kd motion room they
+  give back kd_flags, kd_split, kd_above and kd_nprims bit for bit, and
+  every entry of kd_prim_ids as one row holding that prim's triangle
+  floats, kind, group and the prims left in its leaf; a mutated node or
+  row fails the check; the tree's depth is its deepest leaf's interior
+  ancestors. A tree deeper than the walks' KD_STACK is refused by the
+  twin and by the kernel's wrapper before any launch, and a tree of
+  exactly KD_STACK levels walks with no push dropped.
 - kd_walk_plain against the all-pairs test over the same prims: the
   reference's own kd walk (``_traverse_kd``) drops the near child when
   every ray of a packet moves away from the split plane and misses hits
@@ -53,6 +62,7 @@ from pbrt_tpu_torch.device import bvh_walk, intersect
 from pbrt_tpu_torch.scene.builder import compile_scene
 from test_torch_megakernel import _to_ref
 from test_torch_quadrics import fixed_reference, small_quadric_room
+from torch_test_scenes import deep_kd_room
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: PyTorch single-threaded in this module)
 
 N_RAYS = 2048
@@ -174,6 +184,73 @@ def test_walk_records_reproduce_bvh_packed(rooms, scene):
     gid = np.zeros(len(words), np.int32) if sa.anim_gid is None else sa.anim_gid.numpy()
     np.testing.assert_array_equal(words[:, 11], gid)
     assert (words[:, 11] > 0).any() == (scene == "motion_room")
+
+
+def _check_kd_records_against(sa, node_rec, leaf_rec):
+    """The kd tables as the kd walk's records give them: each node's flag,
+    split bits, above child and count from its 8-byte record, each entry
+    of kd_prim_ids from its leaf row (word 10), with the prim's triangle
+    floats, kind and group and the prims left in its leaf (rem)."""
+    flags, above, nprims = (getattr(sa, n).numpy() for n in ("kd_flags", "kd_above", "kd_nprims"))
+    leaf = flags == 3
+    np.testing.assert_array_equal(np.where(node_rec[:, 1] & 3 == 3, 3, node_rec[:, 1] & 3), flags)
+    np.testing.assert_array_equal(node_rec[:, 1] >> 2, np.where(leaf, nprims, above))
+    np.testing.assert_array_equal(node_rec[leaf, 0], above[leaf])
+    np.testing.assert_array_equal(node_rec[~leaf, 0], sa.kd_split.numpy()[~leaf].view(np.int32))
+    ids = sa.kd_prim_ids.numpy()
+    words = leaf_rec.view(np.int32)
+    assert leaf_rec.shape == (ids.size, 12)
+    np.testing.assert_array_equal(words[:, 10], ids)
+    np.testing.assert_array_equal(leaf_rec[:, 0:9], sa.prim_test_data.numpy()[ids, 0:9])
+    np.testing.assert_array_equal(words[:, 9] & 15, sa.prim_kind.numpy()[ids])
+    gid = np.zeros(ids.size, np.int32) if sa.anim_gid is None else sa.anim_gid.numpy()[ids]
+    np.testing.assert_array_equal(words[:, 11], gid)
+    rem = np.zeros(ids.size, np.int64)
+    for off, n in zip(above[leaf], nprims[leaf]):
+        rem[off:off + n] = np.arange(n, 0, -1)
+    np.testing.assert_array_equal(words[:, 9] >> 4, rem)
+
+
+@pytest.mark.parametrize("scene", ["quadric_room_4", "motion_room"])
+def test_kd_records_reproduce_kd_tables(scene):
+    if scene == "quadric_room_4":
+        desc = scenes.quadric_room(4, instances=False, accelerator="kdtree", prop_res=6)
+    else:
+        desc = scenes.motion_room(6, sphere_res=6)
+        desc.accelerator = "kdtree"
+    cs = compile_scene(desc, "cpu")
+    sa = cs.arrays
+    assert cs.static.accel_kind == "kdtree" and (sa.kd_flags.numpy() == 3).sum() > 100
+    node_rec, leaf_rec = sa.kd_node_rec.numpy(), sa.kd_leaf_rec.numpy()
+    _check_kd_records_against(sa, node_rec, leaf_rec)
+    assert (leaf_rec.view(np.int32)[:, 11] > 0).any() == (scene == "motion_room")
+    # the depth: the most interior ancestors of a leaf
+    flags, above = sa.kd_flags.numpy(), sa.kd_above.numpy()
+    depth = np.zeros(flags.size, np.int64)
+    for i in np.nonzero(flags != 3)[0]:
+        depth[i + 1] = depth[above[i]] = depth[i] + 1
+    assert cs.static.kd_depth == int(depth.max()) > 5
+    # a mutated node, split or row fails the check
+    for mutate in (lambda n, r: n.__setitem__((n.shape[0] // 2, 1), n[n.shape[0] // 2, 1] + 4),
+                   lambda n, r: n.__setitem__((int(np.argmax(flags != 3)), 0), n[int(np.argmax(flags != 3)), 0] + 1),
+                   lambda n, r: r.view(np.int32).__setitem__((r.shape[0] // 3, 10), 0)):
+        n, r = node_rec.copy(), leaf_rec.copy()
+        mutate(n, r)
+        with pytest.raises(AssertionError):
+            _check_kd_records_against(sa, n, r)
+
+
+def test_kd_walk_refuses_a_tree_deeper_than_its_stack():
+    deep, o, d, t_max = deep_kd_room(bvh_walk.KD_STACK + 1)
+    sa, st = deep.arrays, deep.static
+    with pytest.raises(ValueError, match="stack"):
+        bvh_walk.kd_walk_plain(sa, st, _t(o), _t(d), _t(t_max), False)
+    with pytest.raises(ValueError, match="stack"):
+        bvh_walk.kd_walk_cuda(sa, st, _t(o), _t(d), _t(t_max), False)
+    full, o, d, t_max = deep_kd_room(bvh_walk.KD_STACK)
+    n = 64
+    res = bvh_walk.kd_walk_plain(full.arrays, full.static, _t(o[:n]), _t(d[:n]), _t(t_max[:n]), False)
+    assert res[5] == 0 and int(res[4].min()) >= bvh_walk.KD_STACK
 
 
 @pytest.mark.parametrize("any_hit", [False, True])

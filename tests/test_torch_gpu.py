@@ -43,6 +43,7 @@ from pbrt_tpu_torch.device.camera import make_camera
 from pbrt_tpu_torch.device.sampler import halton_tables, sobol_tables
 from pbrt_tpu_torch.scene.builder import compile_scene
 from pbrt_tpu_torch.scenes import GAUSSIAN_DEFAULTS, area_box, material_room, mesh_room, sky_meshes, spheres_gallery
+from torch_test_scenes import deep_kd_room, small_quadric_room, track_rays
 
 
 @pytest.fixture
@@ -608,19 +609,6 @@ def test_fourier_and_hair_lobes_cuda_match_cpu(cuda_device, tmp_path):
     np.testing.assert_allclose(h_g, on("cpu", hair.hair_sample, data, wo, *u)["wi"].numpy(), atol=1e-3)
 
 
-def _small_quadric_room(kd=False):
-    from pbrt_tpu_torch.scenes import camera_room, quadric_room
-
-    if kd:
-        desc = quadric_room(4, instances=False, accelerator="kdtree", prop_res=6)
-        desc.camera = camera_room("orthographic").camera
-    else:
-        desc = quadric_room(4, instances=8, prop_res=6)
-    desc.film.x_resolution, desc.film.y_resolution = 32, 16
-    desc.sampler.pixel_samples = 2
-    return compile_scene(desc, "cpu")
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("kd", [False, True])
 @pytest.mark.parametrize("any_hit", [False, True])
@@ -631,7 +619,7 @@ def test_bvh_walk_matches_plain(cuda_device, kd, any_hit):
     fused multiply-adds on both sides, the same walk order)."""
     from pbrt_tpu_torch.device import bvh_walk
 
-    cs = _small_quadric_room(kd).to(cuda_device)
+    cs = small_quadric_room(kd).to(cuda_device)
     o, d, t_max = (torch.as_tensor(x, dtype=torch.float32, device=cuda_device).contiguous()
                    for x in _random_rays(cuda_device))
     kernel = bvh_walk.kd_walk_cuda if kd else bvh_walk.bvh_walk_cuda
@@ -642,6 +630,28 @@ def test_bvh_walk_matches_plain(cuda_device, kd, any_hit):
     for a, b in zip(res_k, res_p[:5]):
         assert torch.equal(a, b.to(a.dtype))
     assert (res_k[1] >= 0).any() and kernel.counters[cuda_device].tolist() == [0, 0] and res_p[5] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_kd_walk_fills_its_stack(cuda_device, any_hit):
+    """The kd walk on a tree 4 levels short of its stack (deep_kd_room):
+    the same (t, prim, b1, b2, pops) as its twin bit for bit, no push
+    dropped, and the rays that cross every split visit at least as many
+    nodes as the tree is deep."""
+    from pbrt_tpu_torch.device import bvh_walk
+
+    depth = bvh_walk.KD_STACK - 4
+    cs, o, d, t_max = deep_kd_room(depth)
+    cs = cs.to(cuda_device)
+    o, d, t_max = (torch.as_tensor(x, device=cuda_device) for x in (o, d, t_max))
+    res_k = bvh_walk.kd_walk_cuda(cs.arrays, cs.static, o, d, t_max, any_hit)
+    res_p = bvh_walk.kd_walk_plain(cs.arrays, cs.static, o, d, t_max, any_hit)
+    torch.cuda.synchronize()
+    for a, b in zip(res_k, res_p[:5]):
+        assert torch.equal(a, b.to(a.dtype))
+    assert bvh_walk.kd_walk_cuda.counters[cuda_device].tolist() == [0, 0] and res_p[5] == 0
+    assert int(res_k[4][:384].min()) >= depth and (res_k[1] >= 0).any()
 
 
 @pytest.mark.gpu
@@ -657,7 +667,7 @@ def test_quadric_room_wavefront_cuda_matches_cpu(cuda_device, kd):
     rtol 1e-2 (chip_smoke.py phase 35)."""
     import chip_smoke
 
-    cs = _small_quadric_room(kd)
+    cs = small_quadric_room(kd)
     one = chip_smoke._without_raw_quadrics(cs)
     img_c = render.render_compiled(one, seed=1)
     img_g = render.render_compiled(chip_smoke._without_raw_quadrics(cs.to(cuda_device)), seed=1)
@@ -673,15 +683,14 @@ def test_quadric_room_wavefront_cuda_matches_cpu(cuda_device, kd):
 @pytest.mark.parametrize("entry", ["delta_track", "ratio_track"])
 def test_medium_track_matches_plain(cuda_device, entry):
     """csrc/medium_track.cu against its twin on rays through the fog room's
-    smoke box (chip_smoke._track_rays, a 16^3 grid): the same collisions
+    smoke box (torch_test_scenes.track_rays, a 16^3 grid): the same collisions
     and steps on every ray, and t (delta) or the transmittance (ratio)
     within rtol 1e-5 (the twin's log on the card is the kernel's logf)."""
-    import chip_smoke
     from pbrt_tpu_torch.device import medium_track
     from pbrt_tpu_torch.scenes import fog_room
 
     cs = compile_scene(fog_room(8, 16), "cpu").to(cuda_device)
-    rays = chip_smoke._track_rays(cs, 20_000)
+    rays = track_rays(cs, 20_000)
     kernel, plain = getattr(medium_track, entry + "_cuda"), getattr(medium_track, entry + "_plain")
     res_k = kernel(cs.arrays, *rays)
     res_p = plain(cs.arrays, cs.static.media_kinds, *rays)
@@ -689,6 +698,36 @@ def test_medium_track_matches_plain(cuda_device, entry):
     if entry == "delta_track":
         assert torch.equal(res_k[1], res_p[1]) and 0 < int(res_k[1].sum()) < 20_000
     torch.testing.assert_close(res_k[0], res_p[0], rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["delta_track", "ratio_track"])
+def test_medium_track_mixed_launch_matches_plain(cuda_device, entry):
+    """csrc/medium_track.cu on one launch whose rays lie, in a shuffled
+    order, in the grid medium (through the smoke box), in the homogeneous
+    fog and in no medium, as the wave's launches do: every output equal to
+    its twin's bit for bit, the rays outside the grid medium written
+    without a step (the persistent loop's skip path)."""
+    from pbrt_tpu_torch.device import medium_track
+    from pbrt_tpu_torch.scenes import fog_room
+
+    cs = compile_scene(fog_room(8, 16), "cpu").to(cuda_device)
+    med, o, d, t_end, key = track_rays(cs, 30_000)
+    kinds = cs.static.media_kinds
+    med = med.clone()
+    med[10_000:20_000] = kinds.index("homogeneous")
+    med[20_000:] = -1
+    perm = torch.as_tensor(np.random.RandomState(5).permutation(30_000), device=cuda_device)
+    rays = [x[perm].contiguous() for x in (med, o, d, t_end, key)]
+    kernel, plain = getattr(medium_track, entry + "_cuda"), getattr(medium_track, entry + "_plain")
+    res_k = kernel(cs.arrays, *rays)
+    res_p = plain(cs.arrays, kinds, *rays)
+    torch.cuda.synchronize()
+    assert torch.equal(res_k[0].view(torch.int32), res_p[0].view(torch.int32))
+    for a, b in zip(res_k[1:], res_p[1:]):
+        assert torch.equal(a, b)
+    grid = rays[0] == kinds.index("heterogeneous")
+    assert int(res_k[-1][~grid].abs().sum()) == 0 and int(res_k[-1][grid].min()) >= 1
 
 
 @pytest.mark.gpu

@@ -8,6 +8,9 @@
   (each package compiling its own parse) give the reference's tables bit
   for bit (prim_medium, med_param, med_w2m, med_grids, the sss_* rows and
   every other table) and its media statics.
+- The grid's corner table (one 32-byte row per voxel, which the tracking
+  kernel reads): every row holds the grid's eight taps, 0 outside,
+  and the lookup through it is the twin's density bit for bit.
 - Functions, on 4,096 rays in the fog room with media rows, distances and
   uint32 keys from a numpy seed, the reference called op by op (its
   tracking loops are jitted lax.while_loops): hg_p and hg_sample, the grid
@@ -32,6 +35,7 @@ from pbrt_tpu.scene.builder import compile_scene as ref_compile_scene
 from pbrt_tpu_torch import scenes
 from pbrt_tpu_torch.device import integrator, media, medium_track, rng
 from pbrt_tpu_torch.parser.api import pbrt_parse
+from pbrt_tpu_torch.scene.arrays import scene_byte_size
 from pbrt_tpu_torch.scene.builder import compile_scene
 from test_torch_api import _tables_equal
 from test_torch_megakernel import _to_ref
@@ -131,6 +135,56 @@ def test_grid_density_matches_reference(fog):
     theirs = ref_media._grid_density(ref.arrays.med_grids["med1"], jnp.asarray(pg))
     np.testing.assert_allclose(mine.numpy(), np.asarray(theirs), rtol=1e-6, atol=1e-7)
     assert float(mine.max()) > 0.1 and float(mine.min()) == 0.0  # zero outside the grid
+
+
+def _corner_density(sa, m, pg):
+    """csrc/medium_track.cu's lookup through medium m's corner rows
+    (scene.arrays.grid_corners): the voxel's 32-byte row, zeros for a voxel
+    outside the padded grid, then the same trilinear blend as the twin's."""
+    off, nx, ny, nz = (int(v) for v in sa.med_grid_dims[m])
+    rows = sa.med_grid_corners[off:off + (nx + 1) * (ny + 1) * (nz + 1)]
+    g = [pg[:, a] * n - 0.5 for a, n in enumerate((nx, ny, nz))]
+    i0 = [torch.floor(x).to(torch.int32) for x in g]
+    f = [x - i for x, i in zip(g, i0)]
+    x0, y0, z0 = i0
+    inside = (x0 >= -1) & (x0 < nx) & (y0 >= -1) & (y0 < ny) & (z0 >= -1) & (z0 < nz)
+    idx = (((z0 + 1) * (ny + 1) + (y0 + 1)) * (nx + 1) + (x0 + 1)).long().clamp(0, rows.shape[0] - 1)
+    c = torch.where(inside[:, None], rows[idx], 0.0)
+    fx, fy, fz = f
+    d00 = c[:, 0] * (1 - fx) + c[:, 1] * fx
+    d10 = c[:, 2] * (1 - fx) + c[:, 3] * fx
+    d01 = c[:, 4] * (1 - fx) + c[:, 5] * fx
+    d11 = c[:, 6] * (1 - fx) + c[:, 7] * fx
+    return (d00 * (1 - fy) + d10 * fy) * (1 - fz) + (d01 * (1 - fy) + d11 * fy) * fz
+
+
+def test_grid_corner_rows_hold_the_grid(fog):
+    """The grid's corner table (scene.arrays.grid_corners, read by the
+    tracking kernel): every voxel row of the grid padded by one voxel
+    below holds the grid's eight taps, 0 outside the grid, and the lookup
+    through it gives the twin's density bit for bit at points in and
+    around the grid."""
+    cs, _ref, _h = fog
+    sa = cs.arrays
+    m = cs.static.media_kinds.index("heterogeneous")
+    grid = sa.med_grids[f"med{m}"].numpy()
+    nz, ny, nx = grid.shape
+    off, *dims = sa.med_grid_dims[m].tolist()
+    assert dims == [nx, ny, nz] and sa.med_grid_dims[1 - m, 1] == 0  # the fog has no grid
+    rows = sa.med_grid_corners.numpy()[off:off + (nx + 1) * (ny + 1) * (nz + 1)].reshape(nz + 1, ny + 1, nx + 1, 8)
+    z0, y0, x0 = np.meshgrid(np.arange(-1, nz), np.arange(-1, ny), np.arange(-1, nx), indexing="ij")
+    for c, (i, j, k) in enumerate((i, j, k) for k in (0, 1) for j in (0, 1) for i in (0, 1)):
+        x, y, z = x0 + i, y0 + j, z0 + k
+        inside = (x >= 0) & (x < nx) & (y >= 0) & (y < ny) & (z >= 0) & (z < nz)
+        want = np.where(inside, grid[np.clip(z, 0, nz - 1), np.clip(y, 0, ny - 1), np.clip(x, 0, nx - 1)], 0.0)
+        np.testing.assert_array_equal(rows[..., c], want.astype(np.float32))
+    pg = torch.as_tensor(np.random.RandomState(3).uniform(-0.3, 1.3, (N, 3)).astype(np.float32))
+    flat = medium_track.grid_density(sa.med_grids[f"med{m}"], pg)
+    assert torch.equal(_corner_density(sa, m, pg).view(torch.int32), flat.view(torch.int32))
+    assert float(flat.max()) > 0.1 and float(flat.min()) == 0.0
+    # the table costs 32 (nx + 1) (ny + 1) (nz + 1) bytes, counted in the scene's byte size
+    assert sa.med_grid_corners.numel() * 4 == 32 * (nx + 1) * (ny + 1) * (nz + 1)
+    assert scene_byte_size(sa) >= sa.med_grid_corners.numel() * 4 + grid.nbytes
 
 
 def test_medium_sample_matches_reference(fog):

@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
-"""The binary BVH walk (csrc/bvh_walk.cu) against an earlier design and
-against variants of itself, timed on one CUDA GPU.
+"""The binary BVH walk and the kd walk (csrc/bvh_walk.cu) against an earlier
+design and against variants of themselves, timed on one CUDA GPU.
 
-    python3 tools/bvh_walk_variants.py [--parent DIR] [--reps 10] [--only NAME ...] [--out FILE.json]
+    python3 tools/bvh_walk_variants.py [--walk bvh|kd] [--parent DIR] [--reps 10] [--only NAME ...]
+                                       [--out FILE.json]
+
+--walk kd (the kd walk; below, "The kd walk") or bvh (the default: this
+paragraph and the next ones).
 
 --parent DIR: the root of a checkout of an earlier commit (a `git archive`)
 whose csrc/bvh_walk.cu has the parent design's C interface (one thread per
@@ -44,6 +48,35 @@ The variants, each one lever:
    with scalar loads (the tree: the 48-byte walk row as three float4).
 A variant that fails to build or to pass its gate is reported and skipped.
 The variants live only here: no route builds them.
+
+The kd walk (--walk kd): phase 34's six sets on quadric_room(40)'s kd
+variant and phase 43's kd motion rooms' 500,000 camera rays at their
+shutter times (chip_smoke.KD_MOTION_ROOM_ARGS: MOTION 2, and MOTION 1 on the
+keyframe room). --parent DIR: a checkout whose kd entries have the parent
+design's C interface (the kd_* tables, prim_test_data and prim_kind; a
+96-entry stack); every variant and the parent must return the tree's t,
+prim, b1, b2 and pops (the nodes visited) bit for bit on every set, then
+each is timed in turns as above. The kd variants, each one lever:
+ - kd_node_tables: each node from the kd_* tables (kd_flags, then
+   kd_split and kd_above, or a leaf's kd_above and kd_nprims: dependent
+   scalar loads) in place of its 8-byte record;
+ - kd_leaf_ids: each leaf candidate through kd_prim_ids into its
+   prim_test_data row, prim_kind and anim_gid (scalar loads) in place of
+   the leaf's contiguous 48-byte rows;
+ - kd_stack96, kd_stack32: the todo stack 96 or 32 entries deep (the
+   tree: KD_STACK = 48);
+ - kd_bounds6, kd_bounds8, kd_bounds_none: the static instantiation under
+   __launch_bounds__(128, 6), (128, 8), (128) (the tree: KD_MIN_BLOCKS =
+   7); kd_motion_bounds6, kd_motion_bounds7: the motion ones under (128,
+   6), (128, 7) (the tree: no cap, KD_MIN_BLOCKS_MOTION = 1);
+ - kd_queue, kd_queue16: persistent lanes over a ray queue (B1's), a warp
+   refilled once 8 (16) of its lanes are idle, one node visit per
+   iteration (the tree: one thread per ray over a grid that covers the
+   rays); its share of lanes holding a ray from a counter of its own;
+ - kd_no_cache: the motion group's M(dt) for every candidate (the tree:
+   once per (ray, group)).
+Both kd_node_tables and kd_leaf_ids read the tables through pointers a
+C entry of the variant (kd_variant_tables) sets before the launches.
 """
 from __future__ import annotations
 
@@ -181,8 +214,8 @@ def _queue(body, refill):
     def patch(s):
         s = _replace(s, '#include "quadric.cuh"\n', '#include "quadric.cuh"\n#include "wide_traverse.cuh"\n'
                      f"#define BW_REFILL_MIN {refill}\n")
-        s = _between(s, "// One thread per ray over a grid that covers the rays",
-                     "template <int MOTION>\n__global__ void __launch_bounds__(THREADS)\nkd_walk_kernel", body)
+        s = _between(s, "// One thread per ray over a grid that covers the rays", "// One todo entry of the kd walk",
+                     body)
         return _replace(s, "        const int blocks = (n_rays + THREADS - 1) / THREADS;\n        bvh_walk_kernel",
                         "        int blocks = 0;\n        const int err = wt_grid((const void*)bvh_walk_kernel<COUNT, "
                         "MOTION>, THREADS, n_rays, THREADS, &blocks);\n        if (err != 0) return err;\n"
@@ -219,11 +252,13 @@ VARIANTS = {
     "no_caches": lambda s: _replace(_replace(s, "if (iid != 0 && iid != w.c_iid) {", "if (iid != 0) {"),
                                     "if (gid != w.c_gid) {", "{"),
     "ptd_triangles": lambda s: _replace(
-        s, "const float v[9] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x};",
+        s, "const float v[9] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x};\n"
+        "            float t, c1, c2;\n            if (bw_test<MOTION>(iid != 0",
         "const float* vr = tb.ptd + (size_t)p * tb.cols;\n"
         "            const float v[9] = {__ldg(vr), __ldg(vr + 1), __ldg(vr + 2), __ldg(vr + 3), __ldg(vr + 4),\n"
         "                                __ldg(vr + 5), __ldg(vr + 6), __ldg(vr + 7), __ldg(vr + 8)};\n"
-        "            (void)q0;\n            (void)q1;"),
+        "            (void)q0;\n            (void)q1;\n"
+        "            float t, c1, c2;\n            if (bw_test<MOTION>(iid != 0"),
 }
 
 # the parent design's C interface (one thread per ray, no queue): o, d,
@@ -365,11 +400,439 @@ def _share(walk, sa, st, o, d, t_max, any_hit, time, visits):
     return float(visits.double().sum()) / max(32.0 * float(n_iter.value), 1.0)
 
 
+# the kd variants' tables: pointers in constant memory that kd_variant_tables
+# sets (kd_flags, kd_split, kd_above, kd_nprims, kd_prim_ids, prim_kind, anim_gid)
+_KD_TABLES = '''
+__constant__ const int* kdv_flags;
+__constant__ const float* kdv_split;
+__constant__ const int* kdv_above;
+__constant__ const int* kdv_nprims;
+__constant__ const int* kdv_prim_ids;
+__constant__ const int* kdv_prim_kind;
+__constant__ const int* kdv_anim_gid;
+'''
+
+_KD_TABLES_ENTRY = '''
+extern "C" int kd_variant_tables(const void* flags, const void* split, const void* above, const void* nprims,
+                                 const void* prim_ids, const void* prim_kind, const void* anim_gid) {
+    const void* p[7] = {flags, split, above, nprims, prim_ids, prim_kind, anim_gid};
+    const void* syms[7] = {&kdv_flags, &kdv_split, &kdv_above, &kdv_nprims, &kdv_prim_ids, &kdv_prim_kind,
+                           &kdv_anim_gid};
+    for (int i = 0; i < 7; ++i) {
+        const cudaError_t e = cudaMemcpyToSymbol(syms[i], &p[i], sizeof(void*));
+        if (e != cudaSuccess) return (int)e;
+    }
+    return 0;
+}
+'''
+
+_KD_NODE = """        const int2 nd = __ldg(node_rec + node);
+        const int fl = nd.y & 3;
+"""
+
+_KD_ROW = """            const float4 q0 = __ldg(pr), q1 = __ldg(pr + 1), q2 = __ldg(pr + 2);
+            const bool tri = (__float_as_int(q2.y) & 15) == 0;
+            const int pid = __float_as_int(q2.z);
+"""
+
+
+def _kd_tables(patch):
+    """patch, with the kd variant tables' pointers and their C entry."""
+    def apply(s):
+        s = _replace(s, '#include "quadric.cuh"\n', '#include "quadric.cuh"\n' + _KD_TABLES)
+        return patch(s) + _KD_TABLES_ENTRY
+    return apply
+
+
+# the kd walk as persistent lanes over a ray queue (B1's queue_take,
+# queue_finish): a lane whose ray is done writes it; once KD_REFILL_MIN
+# lanes of the warp are idle (or all of them) the warp takes that many ray
+# ids; each iteration is one node visit of every live lane's ray
+_KD_QUEUE = """__device__ int kd_queue[2];  // the ray queue: zero at load, re-zeroed by each launch's last block
+__device__ unsigned long long kd_iters;  // the warps' loop iterations (kd_walk_iterations)
+
+struct KdEntry {
+    int node;
+    float lo, hi;
+};
+
+template <int MOTION>
+__global__ void __launch_bounds__(THREADS, MOTION ? KD_MIN_BLOCKS_MOTION : KD_MIN_BLOCKS)
+kd_walk_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in, const float* __restrict__ t_max_in,
+               int n_rays, const int2* __restrict__ node_rec, const float4* __restrict__ leaf_rec,
+               const float* __restrict__ kd_lo, const float* __restrict__ kd_hi, const float* __restrict__ ptd,
+               int cols, int any_hit, float* __restrict__ out_t, int* __restrict__ out_prim,
+               float* __restrict__ out_b1, float* __restrict__ out_b2, int* __restrict__ out_pops,
+               unsigned int* __restrict__ counters, BwMotion mo) {
+    int* queue = kd_queue;
+    const int lane = threadIdx.x & 31;
+    int ray = -1;
+    bool drained = false, live = false;
+    unsigned int n_iter = 0;
+    float o[3], d[3], inv[3], dt = 0.0f, t_best = 0.0f, b1 = 0.0f, b2 = 0.0f, tmin = 0.0f, tmax = 0.0f;
+    BwRay r;
+    int prim = -1, pops = 0, node = 0, sp = 0, c_gid = -1;
+    float m[12];
+    KdEntry stack[KD_STACK];
+    for (;;) {
+        if (ray >= 0 && !live) {
+            out_t[ray] = t_best;
+            out_prim[ray] = prim;
+            out_b1[ray] = b1;
+            out_b2[ray] = b2;
+            out_pops[ray] = pops;
+            ray = -1;
+        }
+        const unsigned idle = __ballot_sync(0xffffffffu, ray < 0);
+        if (idle != 0 && !drained && (__popc(idle) >= KD_REFILL_MIN || idle == 0xffffffffu)) {
+            const int id = queue_take(idle, lane, queue, n_rays, drained);
+            if (ray < 0 && id < n_rays) {
+                ray = id;
+                dt = MOTION ? mo.time[ray] : 0.0f;
+#pragma unroll
+                for (int a = 0; a < 3; ++a) {
+                    o[a] = o_in[3 * ray + a];
+                    d[a] = d_in[3 * ray + a];
+                    inv[a] = bw_inv(d[a]);
+                }
+                bw_setup(r, o, d);
+                const float t_max = t_max_in[ray];
+                t_best = t_max;
+                b1 = 0.0f;
+                b2 = 0.0f;
+                prim = -1;
+                pops = 0;
+                sp = 0;
+                c_gid = -1;
+                node = 0;
+                float tn = -INFINITY, tf = INFINITY;
+#pragma unroll
+                for (int a = 0; a < 3; ++a) {
+                    const float t0 = (__ldg(kd_lo + a) - o[a]) * inv[a];
+                    const float t1 = (__ldg(kd_hi + a) - o[a]) * inv[a];
+                    tn = qf_max(tn, qf_min(t0, t1));
+                    tf = qf_min(tf, qf_max(t0, t1));
+                }
+                tf = tf * BW_SLAB;
+                live = tn <= tf && tf > 0.0f && t_max > 0.0f;
+                tmin = qf_max(tn, 0.0f);
+                tmax = qf_min(tf, t_max);
+            }
+        }
+        if (__ballot_sync(0xffffffffu, live) == 0) {
+            if (drained && __ballot_sync(0xffffffffu, ray >= 0) == 0) break;
+            continue;
+        }
+        ++n_iter;
+        if (!live) continue;
+        if (t_best < tmin) {
+            live = false;
+            continue;
+        }
+        if (pops >= BW_ITER_CAP) {
+            atomicAdd(&counters[1], 1u);
+            live = false;
+            continue;
+        }
+        ++pops;
+        const int2 nd = __ldg(node_rec + node);
+        const int fl = nd.y & 3;
+        if (fl != 3) {
+            const float s = __int_as_float(nd.x);
+            const float o_a = bw_pick(o, fl), d_a = bw_pick(d, fl);
+            const float tp = (s - o_a) * bw_pick(inv, fl);
+            const bool below_first = o_a < s || (o_a == s && d_a <= 0.0f);
+            const int above = nd.y >> 2;
+            const int first = below_first ? node + 1 : above;
+            const int second = below_first ? above : node + 1;
+            if (tp > tmax || tp <= 0.0f) {
+                node = first;
+            } else if (tp < tmin) {
+                node = second;
+            } else {
+                if (sp < KD_STACK) {
+                    stack[sp] = KdEntry{second, tp, tmax};
+                    ++sp;
+                } else {
+                    atomicAdd(&counters[0], 1u);
+                }
+                node = first;
+                tmax = tp;
+            }
+            continue;
+        }
+        const float4* pr = leaf_rec + (size_t)nd.x * 3;
+        const int n = nd.y >> 2;
+        float tl = INFINITY, w1 = 0.0f, w2 = 0.0f;
+        int win = -1;
+        for (int k = 0; k < n; ++k, pr += 3) {
+            const float4 q0 = __ldg(pr), q1 = __ldg(pr + 1), q2 = __ldg(pr + 2);
+            const bool tri = (__float_as_int(q2.y) & 15) == 0;
+            const int pid = __float_as_int(q2.z);
+            float g[12];
+            if (MOTION == 2) {
+                const int gid = __float_as_int(q2.w);
+                if (gid != c_gid) {
+                    bw_anim_matrix(mo.anim + (size_t)gid * BW_ANIM_COLS, dt, m);
+                    c_gid = gid;
+                }
+                bw_motion_g(m, mo.anim_c, pid, tri, g);
+            }
+            const float v[9] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x};
+            float t, c1, c2;
+            if (bw_test<MOTION>(r, pid, tri, v, ptd + (size_t)pid * cols, cols, g, mo, dt, t_best, t, c1, c2) &&
+                t < tl) {
+                tl = t;
+                w1 = c1;
+                w2 = c2;
+                win = pid;
+            }
+        }
+        const bool better = tl < t_best;
+        if (better) {
+            t_best = tl;
+            prim = win;
+            b1 = w1;
+            b2 = w2;
+        }
+        if (sp == 0 || (better && any_hit)) {
+            live = false;
+            continue;
+        }
+        --sp;
+        node = stack[sp].node;
+        tmin = stack[sp].lo;
+        tmax = stack[sp].hi;
+    }
+    queue_finish(queue, &kd_iters, n_iter);
+}
+
+"""
+
+_KD_ITERATIONS = '''
+extern "C" int kd_walk_iterations(unsigned long long* out) {
+    const unsigned long long zero = 0;
+    cudaError_t e = cudaMemcpyFromSymbol(out, kd_iters, sizeof(zero));
+    if (e == cudaSuccess) e = cudaMemcpyToSymbol(kd_iters, &zero, sizeof(zero));
+    return (int)e;
+}
+'''
+
+
+def _kd_queue(refill):
+    """The kd kernel as persistent lanes over a ray queue (_KD_QUEUE), the
+    grid the resident blocks (wide_traverse.cuh), with a counter of its
+    warps' loop iterations (_KD_ITERATIONS)."""
+    def patch(s):
+        s = _replace(s, '#include "quadric.cuh"\n', '#include "quadric.cuh"\n#include "wide_traverse.cuh"\n'
+                     f"#define KD_REFILL_MIN {refill}\n")
+        s = _between(s, "// One todo entry of the kd walk", "static BwMotion bw_motion(", _KD_QUEUE)
+        return _replace(s, "        const int blocks = (n_rays + THREADS - 1) / THREADS;\n        kd_walk_kernel",
+                        "        int blocks = 0;\n        const int err = wt_grid((const void*)kd_walk_kernel<MOTION>, "
+                        "THREADS, n_rays, THREADS, &blocks);\n        if (err != 0) return err;\n"
+                        "        kd_walk_kernel") + _KD_ITERATIONS
+    return patch
+
+
+KD_VARIANTS = {
+    "kd_node_tables": _kd_tables(lambda s: _replace(s, _KD_NODE, """        const int fl = __ldg(kdv_flags + node);
+        int2 nd;
+        if (fl != 3) {
+            nd.x = __float_as_int(__ldg(kdv_split + node));
+            nd.y = fl | (__ldg(kdv_above + node) << 2);
+        } else {
+            nd.x = __ldg(kdv_above + node);
+            nd.y = 3 | (__ldg(kdv_nprims + node) << 2);
+        }
+""")),
+    "kd_leaf_ids": _kd_tables(lambda s: _replace(s, _KD_ROW, """\
+            const int pid = __ldg(kdv_prim_ids + (int)((pr - leaf_rec) / 3));
+            const float* vr = ptd + (size_t)pid * cols;
+            const bool tri = __ldg(kdv_prim_kind + pid) == 0;
+            const float4 q0 = make_float4(__ldg(vr), __ldg(vr + 1), __ldg(vr + 2), __ldg(vr + 3));
+            const float4 q1 = make_float4(__ldg(vr + 4), __ldg(vr + 5), __ldg(vr + 6), __ldg(vr + 7));
+            const float4 q2 = make_float4(__ldg(vr + 8), 0.0f, 0.0f,
+                                          __int_as_float(kdv_anim_gid ? __ldg(kdv_anim_gid + pid) : 0));
+""")),
+    "kd_stack96": _define("KD_STACK", 96),
+    "kd_stack32": _define("KD_STACK", 32),
+    "kd_bounds6": _define("KD_MIN_BLOCKS", 6),
+    "kd_bounds8": _define("KD_MIN_BLOCKS", 8),
+    "kd_bounds_none": lambda s: _replace(s, "MOTION ? KD_MIN_BLOCKS_MOTION : KD_MIN_BLOCKS)",
+                                         "MOTION ? KD_MIN_BLOCKS_MOTION : 1)"),
+    "kd_motion_bounds6": _define("KD_MIN_BLOCKS_MOTION", 6),
+    "kd_motion_bounds7": _define("KD_MIN_BLOCKS_MOTION", 7),
+    "kd_queue": _kd_queue(8),
+    "kd_queue16": _kd_queue(16),
+    "kd_no_cache": lambda s: _replace(s, "                if (gid != c_gid) {", "                {"),
+}
+
+# the parent design's kd C interface: o, d, t_max, n_rays, kd_flags,
+# kd_split, kd_above, kd_nprims, kd_prim_ids, kd_lo, kd_hi, ptd, cols,
+# prim_kind, any_hit, t, prim, b1, b2, pops, counters, stream
+_KD_PARENT_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int]
+                       + [ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 7)
+
+
+class _KdWalk:
+    """A kd library (the tree's, a variant's or, with parent, the parent
+    design's) launched with the arguments of its C interface."""
+
+    def __init__(self, name, info, motion, parent=False):
+        from pbrt_tpu_torch.device import bvh_walk
+
+        self.__name__ = name
+        self.info, self.parent = info, parent
+        self.lib = info["lib"]
+        self.entry = "kd_walk_motion" if motion else "kd_walk"
+        base = _KD_PARENT_ARGTYPES if parent else bvh_walk._KD_ARGTYPES
+        for e, extra in (("kd_walk", []), ("kd_walk_motion", bvh_walk._MOTION_ARGTYPES)):
+            getattr(self.lib, e).argtypes = base + extra
+            getattr(self.lib, e).restype = ctypes.c_int
+        self.launches, self.counters = 0, {}
+        self.tables_of = None  # the scene whose tables kd_variant_tables holds
+
+    def __call__(self, sa, st, o, d, t_max, any_hit, time=None):
+        from pbrt_tpu_torch.device import bvh_walk
+
+        if self.parent:
+            R, counters, outs, stream = bvh_walk._outputs(self, o, d, t_max)
+            args = [o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R] + [
+                getattr(sa, n).data_ptr() for n in ("kd_flags", "kd_split", "kd_above", "kd_nprims", "kd_prim_ids",
+                                                    "kd_lo", "kd_hi", "prim_test_data")] + [
+                sa.prim_test_data.shape[1], sa.prim_kind.data_ptr(), int(bool(any_hit))] + [
+                x.data_ptr() for x in outs] + [counters.data_ptr(), stream]
+        else:
+            if hasattr(self.lib, "kd_variant_tables") and self.tables_of is not sa:
+                ptrs = [getattr(sa, n).data_ptr() for n in ("kd_flags", "kd_split", "kd_above", "kd_nprims",
+                                                             "kd_prim_ids", "prim_kind")]
+                gid = 0 if sa.anim_gid is None else sa.anim_gid.data_ptr()
+                fn = self.lib.kd_variant_tables
+                fn.argtypes, fn.restype = [ctypes.c_void_p] * 7, ctypes.c_int
+                if fn(*ptrs, gid) != 0:
+                    raise RuntimeError("kd_variant_tables failed")
+                self.tables_of = sa
+            R, args, outs = bvh_walk._kd_args(self, sa, st, o, d, t_max, any_hit)
+        if time is not None:
+            args += bvh_walk._motion_args(sa, st, time, o.shape[0], o.device)
+        err = getattr(self.lib, self.entry)(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.__name__} {self.entry} launch failed: cudaError {err}")
+        return outs
+
+
+def _kd_queue_share(walk, sa, st, o, d, t_max, any_hit, tm, pops) -> float:
+    """A kd queue variant's share of lanes holding a ray: the node visits
+    (pops) over 32 x its warps' loop iterations in one launch."""
+    n_iter = ctypes.c_ulonglong(0)
+    read = walk.lib.kd_walk_iterations
+    if read(ctypes.byref(n_iter)) != 0:
+        raise RuntimeError("kd_walk_iterations failed")
+    walk(sa, st, o, d, t_max, any_hit, time=tm)
+    if read(ctypes.byref(n_iter)) != 0:
+        raise RuntimeError("kd_walk_iterations failed")
+    return float(pops.double().sum()) / max(32.0 * float(n_iter.value), 1.0)
+
+
+def _kd_ptxas(info) -> list[dict]:
+    import ptxas_report
+
+    return [{k: r[k] for k in ("template", "registers", "spill_stores", "spill_loads", "stack_frame")}
+            for r in ptxas_report.parse(info["log"]) if "kd_walk_kernel" in r["function"]]
+
+
+def _main_kd(args, rec) -> None:
+    """--walk kd: the tree's kd walk, its variants and the parent design on
+    phase 34's kd sets and phase 43's kd motion rays, in turns."""
+    import torch
+
+    import chip_smoke
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.device import bvh_walk, nvcc
+    from pbrt_tpu_torch.scene.builder import compile_scene
+
+    names = list(args.only if args.only is not None else KD_VARIANTS)
+    sources = {}
+    for n in names:
+        out = nvcc.BUILD_DIR / "variants" / f"bvh_walk_{n}"
+        out.mkdir(parents=True, exist_ok=True)
+        for f in (SOURCE,) + HEADERS:
+            text = (nvcc.CSRC / f).read_text()
+            (out / f).write_text(KD_VARIANTS[n](text) if f == SOURCE else text)
+        sources[n] = out / SOURCE
+    if args.parent:
+        sources["parent"] = Path(args.parent).resolve() / "pbrt_tpu_torch" / "csrc" / SOURCE
+    try:
+        nvcc.build_all([bvh_walk.KERNEL_SOURCE, *sources.values()])
+    except RuntimeError as e:
+        print(f"[build] {str(e)[-3000:]}", flush=True)
+    tree_info = nvcc.build(bvh_walk.KERNEL_SOURCE)
+    occ = [nvcc.occupancy(tree_info["lib"].kd_walk_occupancy, m) for m in (0, 1, 2)]
+    rec["tree"] = {"ptxas": _kd_ptxas(tree_info), "blocks_per_sm": occ}
+    print(f"[tree] ptxas {rec['tree']['ptxas']}; blocks per SM (MOTION 0, 1, 2) {occ}", flush=True)
+    dev = torch.device("cuda", 0)
+    q = compile_scene(scenes.quadric_room(40, instances=False, accelerator="kdtree"), "cpu").to(dev)
+    cases = [(q, f"{name}/{'any' if any_hit else 'closest'}", o, d, t_max, any_hit, None)
+             for name, o, d, t_max in chip_smoke._rays(q) for any_hit in (False, True)]
+    for rotate, label in ((True, "motion2 camera/closest"), (False, "motion1 camera/closest")):
+        mr = compile_scene(scenes.motion_room(*chip_smoke.KD_MOTION_ROOM_ARGS[rotate]), "cpu").to(dev)
+        o, d, t_max, tm = chip_smoke._motion_rays(mr)
+        cases.append((mr, label, o, d, t_max, False, tm))
+    tree = {m: _KdWalk("tree", tree_info, m) for m in (False, True)}
+    want = {}
+    for cs, label, o, d, t_max, any_hit, tm in cases:
+        want[label] = tree[tm is not None](cs.arrays, cs.static, o, d, t_max, any_hit, time=tm)
+    for name in names + (["parent"] if args.parent else []):
+        try:
+            info = nvcc.build(sources[name])
+            parent = name == "parent"
+            var = {m: _KdWalk(name, info, m, parent) for m in (False, True)}
+            entry = {"ptxas": _kd_ptxas(info), "rows": []}
+            if not parent:
+                entry["blocks_per_sm"] = [nvcc.occupancy(info["lib"].kd_walk_occupancy, m) for m in (0, 1, 2)]
+            print(f"[{name}] ptxas {entry['ptxas']}; blocks per SM {entry.get('blocks_per_sm')}", flush=True)
+            for cs, label, o, d, t_max, any_hit, tm in cases:
+                sa, st = cs.arrays, cs.static
+                k_t, k_v = tree[tm is not None], var[tm is not None]
+                res_t = want[label]
+                res_v = k_v(sa, st, o, d, t_max, any_hit, time=tm)
+                same = [torch.equal(x, y) for x, y in zip(res_t, res_v)]
+                if not all(same):
+                    raise AssertionError(f"{name} differs from the tree on {label}: t, prim, b1, b2, pops {same}")
+                if k_v.counters[dev].tolist() != [0, 0]:
+                    raise AssertionError(f"{name}: stack overflows / iteration-cap hits")
+                order = (k_v, k_t, k_t, k_v) if parent else (k_t, k_v, k_v, k_t)
+                turns = [chip_smoke._cuda_ms(lambda: k(sa, st, o, d, t_max, any_hit, time=tm), args.reps)
+                         for k in order]
+                inner, outer = statistics.mean(turns[1:3]), statistics.mean([turns[0], turns[3]])
+                ms_t, ms_v = (inner, outer) if parent else (outer, inner)
+                row = {"rays": label, "n": o.shape[0], "turns_ms": turns, "tree_ms": ms_t, "variant_ms": ms_v,
+                       "tree_ns_per_ray": 1e6 * ms_t / o.shape[0], "variant_ns_per_ray": 1e6 * ms_v / o.shape[0],
+                       "pops_per_ray": float(res_t[4].double().mean()),
+                       "lanes_with_a_ray": chip_smoke._warp_share(res_t[4])}
+                if name.startswith("kd_queue"):
+                    row["variant_lanes"] = _kd_queue_share(k_v, sa, st, o, d, t_max, any_hit, tm, res_t[4])
+                entry["rows"].append(row)
+                print(f"  {label}: " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                                                 for k, v in row.items() if k != "rays"), flush=True)
+            six = [r for r in entry["rows"] if not r["rays"].startswith("motion")]
+            entry["tree_ms_six"] = sum(r["tree_ms"] for r in six)
+            entry["variant_ms_six"] = sum(r["variant_ms"] for r in six)
+            print(f"[{name}] six sets: tree {entry['tree_ms_six']:.4f} ms, {name} {entry['variant_ms_six']:.4f} ms "
+                  f"({entry['variant_ms_six'] / entry['tree_ms_six']:.3f}x)", flush=True)
+            rec["variants"][name] = entry
+        except (RuntimeError, AssertionError) as e:
+            print(f"[{name}] failed: {str(e)[-2000:]}", flush=True)
+            rec["variants"][name] = {"error": str(e)[-2000:]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--walk", choices=("bvh", "kd"), default="bvh")
     ap.add_argument("--parent", help="root of a checkout with the parent design's csrc/bvh_walk.cu")
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--only", nargs="*", choices=list(VARIANTS), help="variants to run (default: all)")
+    ap.add_argument("--only", nargs="*", choices=list(VARIANTS) + list(KD_VARIANTS),
+                    help="variants to run (default: all of the walk's)")
     ap.add_argument("--out", help="also write the record as JSON here")
     args = ap.parse_args()
 
@@ -383,10 +846,13 @@ def main() -> int:
     from pbrt_tpu_torch.device import bvh_walk, nvcc
     from pbrt_tpu_torch.scene.builder import compile_scene
 
-    names = list(args.only if args.only is not None else VARIANTS)
     rec = {"device": torch.cuda.get_device_name(0), "nvidia_smi": chip_smoke._smi(), "reps": args.reps,
-           "variants": {}}
+           "walk": args.walk, "variants": {}}
     print(f"bvh_walk_variants: {rec['device']}; nvidia-smi: {rec['nvidia_smi']}", flush=True)
+    if args.walk == "kd":
+        _main_kd(args, rec)
+        return _finish(args, rec)
+    names = list(args.only if args.only is not None else VARIANTS)
     sources = {n: _write_variant(n) for n in names}
     if args.parent:
         sources["parent"] = Path(args.parent).resolve() / "pbrt_tpu_torch" / "csrc" / SOURCE
@@ -421,6 +887,10 @@ def main() -> int:
         except (RuntimeError, AssertionError) as e:
             print(f"[{name}] failed: {str(e)[-2000:]}", flush=True)
             rec["variants"][name] = {"error": str(e)[-2000:]}
+    return _finish(args, rec)
+
+
+def _finish(args, rec) -> int:
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

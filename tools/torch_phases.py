@@ -6,7 +6,7 @@
                                            sphere_room_248|zoo_room|zoo_room_248|quadric_room|
                                            quadric_room_kd|fog_room|sss_room|motion_room|
                                            realistic_room|bdpt_mesh|mlt_mesh|sppm_mesh]
-                                  [--reps 5] [--out FILE.json]
+                                  [--reps 5] [--out FILE.json] [--package-root DIR]
 
 Renders at 1000x500, 16 spp, depth 5 one of: the 123,650-triangle mesh room
 on the wavefront (--scene mesh, the default), the spheres gallery (--scene
@@ -98,6 +98,10 @@ and reports, with the card's name and power limit:
     host loop reads the device anyway, or just before one); then one
     render under torch.profiler: device kernels per iteration and the
     busy share.
+--package-root DIR imports pbrt_tpu_torch from DIR (the root of a `git
+archive` of another commit) in place of this checkout's, so that one call
+measures two designs with the same script: the walks' and medium_track's
+device time over their launches (4) read the same way for both.
 The motion scene's traversal rows (2) run the walk's motion entry at
 uniform shutter fractions from --seed, and its layers count the motion
 walk as a span within the queries.
@@ -169,7 +173,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write the full record as JSON here (with --scene mesh, the profiled "
                                   "render's chrome trace beside it, FILE.trace.json)")
+    ap.add_argument("--package-root", help="import pbrt_tpu_torch from this checkout root instead")
     args = ap.parse_args()
+    if args.package_root:
+        sys.path.insert(0, str(Path(args.package_root).resolve()))
 
     import numpy as np
     import torch
@@ -215,7 +222,10 @@ def main() -> int:
             "fog_room": fog_room, "sss_room": sss_room, "motion_room": motion_room,
             "realistic_room": realistic_mesh_room, "bdpt_mesh": bdpt_mesh, "mlt_mesh": mlt_mesh,
             "sppm_mesh": sppm_mesh}
+    import pbrt_tpu_torch
+
     rec = {"device": torch.cuda.get_device_name(0), "nvidia_smi": chip_smoke._smi(),
+           "package": str(Path(pbrt_tpu_torch.__file__).resolve().parent),
            "torch": torch.__version__, "cuda": torch.version.cuda, "scene": args.scene,
            "all_matte": args.all_matte}
     desc = make[args.scene]()
@@ -747,12 +757,69 @@ def _device(args, cs, rec, wall_median):
                      "kernel_launches": n_kernels, "iterations": n_iter[0],
                      "kernels_per_iteration": n_kernels / max(n_iter[0], 1),
                      "top": [{"name": k[:120], "s": s, "count": c} for s, c, k in rows[:15]]}
+    # the hand-written walk and tracking kernels by name, wherever they rank
+    mine = {k: {"s": s_, "count": c_} for k, (s_, c_) in by_name.items()
+            if any(n in k for n in ("walk_kernel", "track_kernel"))}
+    rec["device"]["walk_and_track_kernels"] = mine
+    print(f"package {rec['package']}", flush=True)
     print(f"device: kernel time {dev_s:.4f}s in {n_kernels} kernels over {n_iter[0]} "
           f"{'wave bounces' if wave_scene else 'wavefront iterations'} "
           f"({n_kernels / max(n_iter[0], 1):.1f} per iteration); untraced wall {wall_median:.4f}s -> busy "
           f"{100 * busy:.1f}%, idle {100 * (1 - busy):.1f}% (profiled wall {wall:.4f}s)", flush=True)
     for s, c, k in rows[:10]:
         print(f"  {s:.4f}s  x{c:6d}  {k[:100]}")
+    for k, v in mine.items():
+        print(f"  walk/track kernel {k[:80]}: {v['s']:.4f}s over {v['count']} launches "
+              f"({1e3 * v['s'] / max(v['count'], 1):.4f} ms each)", flush=True)
+    if cs.static.n_media:
+        _grid_shares(args, cs, rec)
+
+
+def _grid_shares(args, cs, rec):
+    """A scene with media: one more render whose tracking calls each record
+    their rays, the share of them in a grid medium, their steps and the
+    longest ray's (host reads per launch, outside every timed render)."""
+    import torch
+
+    from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch.device import media
+
+    grid = torch.as_tensor([i for i, k in enumerate(cs.static.media_kinds) if k == "heterogeneous"],
+                           dtype=torch.int64, device=cs.arrays.device)
+    shares = {"delta_track": [], "ratio_track": []}
+    saved = {n: getattr(media, n) for n in shares}  # media calls them by these names
+
+    def recording(name):
+        fn = saved[name]
+
+        def wrapped(sa, static, med, *a):
+            out = fn(sa, static, med, *a)
+            steps = out[-1]
+            shares[name].append((int(med.shape[0]), int(torch.isin(med.long(), grid).sum()), int(steps.sum()),
+                                 int(steps.max()) if steps.numel() else 0))
+            return out
+        return wrapped
+
+    try:
+        for n in shares:
+            setattr(media, n, recording(n))
+        R_.render_compiled(cs, seed=args.seed)
+    finally:
+        for n, fn in saved.items():
+            setattr(media, n, fn)
+    out = {}
+    for n, rows in shares.items():
+        if rows:
+            share = [r[1] / max(r[0], 1) for r in rows]
+            out[n] = {"launches": len(rows), "rays_per_launch": statistics.mean(r[0] for r in rows),
+                      "grid_rays": sum(r[1] for r in rows), "share_mean": statistics.mean(share),
+                      "share_min": min(share), "share_max": max(share),
+                      "launches_without_a_grid_ray": sum(1 for r in rows if r[1] == 0),
+                      "steps_per_grid_ray": sum(r[2] for r in rows) / max(sum(r[1] for r in rows), 1),
+                      "longest_ray_steps_mean": statistics.mean(r[3] for r in rows),
+                      "longest_ray_steps_max": max(r[3] for r in rows)}
+            print(f"medium_track {n}: {json.dumps(out[n])}", flush=True)
+    rec["medium_track_grid_shares"] = out
 
 
 if __name__ == "__main__":
