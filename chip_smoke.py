@@ -11,17 +11,17 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     wide_traverse_joint.cu, megakernel.cu, megakernel_wide.cu,
     bvh_walk.cu, medium_track.cu), one nvcc each, all started together,
     while HOST_WORKERS spawned processes compile the large rooms of the
-    later phases on the host (the mesh, quadric, sss, fog, motion and
-    sphere rooms at n_side 248; LARGE_ROOMS) and render phase 51's CPU
-    images (SMALL_HOST_LOOPS); prints build seconds, the ptxas
+    later phases on the host (the mesh, quadric, sss, fog, motion, sphere
+    and zoo rooms at n_side 248; LARGE_ROOMS) and render the CPU images of
+    phases 51 (SMALL_HOST_LOOPS) and 52; prints build seconds, the ptxas
     register/spill/shared-memory report of each and every variant's
     resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
     B3's __launch_bounds__ choice, and the walk kernels' report per entry
     (registers, spills, stack frame, blocks per SM): the static
     instantiations (MOTION 0) beside the motion ones (MOTION 1 keyframes, 2
     the exact animated transform); the workers then go on to render the
-    CPU crops of phases 35 and 47 (CPU_CROP_TASKS) while the card runs the
-    phases before them;
+    CPU crops of phases 5, 18, 35, 41 and 47 (CPU_CROP_TASKS) while the
+    card runs the phases before them;
  3. B1 kernel vs plain: compiles the 123,650-triangle mesh room on the host,
     then traces 500,000 camera rays, one cosine bounce from their hits and
     shadow rays to the panel light through the CUDA kernel and through its
@@ -38,8 +38,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     launches > 0 in that run, and a finite, non-black image; prints
     path_vertex_samples_per_sec (sum of path vertices / render wall time);
  5. same mesh image on both devices: a 64x32 crop at 4 spp on cuda (kernel)
-    and on cpu (plain versions) with one seed must agree: sum|a-b| / sum|b|
-    < 1e-3 and >= 99% of pixels within rtol 1e-2 (atol 1e-4);
+    and on cpu (plain versions; rendered by phase 2's workers, as the cpu
+    crops of phases 18, 35, 41 and 47 are) with one seed must agree:
+    sum|a-b| / sum|b| < 1e-3 and >= 99% of pixels within rtol 1e-2 (atol
+    1e-4);
  6. B3 kernel vs plain: the brute megakernel and its plain twin on the
     spheres gallery (8 prims, 3 delta lights) at 1000x500, 2 spp, with the
     reference megakernel's image tolerance (tests/test_megakernel.py):
@@ -379,7 +381,27 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     cuda renders' walls and B1 launches); and
     python -m pbrt_tpu_torch on written mlt and sppm files of
     mesh_room(8) at 200x100, two subprocesses started before phase 50 and
-    waited for here (killed if a phase fails).
+    waited for here (killed if a phase fails);
+52. one image over a list of devices (pbrt_tpu_torch/parallel/shard.py),
+    as two shards on the one card, each in its own thread and stream: (a)
+    render_sharded_step on the mesh room (phase 3's tables) at 1000x500,
+    16 spp, depth 5 over [cuda:0, cuda:0] and over [cuda:0], the images
+    within the reference's mesh-invariance tolerance
+    (tests/test_shard_parity.py: rtol 2e-4, atol 2e-5; whether they are
+    bit-equal printed), the same path vertices, B1 launches > 0 in each
+    run, both walls and path_vertex_samples_per_sec, and sum|a-b|/sum|b|
+    against phase 4's image (a reading); (b) BDPT (4 spp), MLT (depth 2,
+    4,096 chains, render_compiled's n_mut at 1 mutation per pixel) and
+    SPPM (1 iteration of 500,000 photons, radius 0.024) on the mesh room
+    over two shards and one: BDPT and MLT within the reference's
+    tolerances, SPPM's lit pixels' mean ratio within 0.1 (its seeds ride
+    the shard index); (c) the two-shard path of mesh_room(8) at 64x32,
+    4 spp on [cuda:0, cuda:0] and on ["cpu", "cpu"] (rendered by phase 2's
+    workers), held as in phase 5; (d) render_compiled given the devices
+    [cuda:0, cuda:0] at 2 spp: route torch-shard2/wide, B1
+    launches > 0, and the image of (a)'s two-shard step at 2 spp (its
+    warm-up pass) within sum|a-b|/sum|b| < 1e-6 (bit-equality printed);
+    each sub-phase's seconds.
 Phases 15-21, 24's image-mapped sky, 25, 28, 30, 31, 32 and 36 are the
 wavefront's array code around B1 (the brute wavefront launches no kernel
 of the port): they add no row to the kernel report; phase 29's sphere
@@ -390,7 +412,7 @@ render); phases 43-44 the rows of the motion entries, bvh_walk_motion's
 (its launches: the motion room's render) and kd_walk_motion's (the kd
 motion room's render);
 phases 48-49 add their B1 launches to wide_traverse's row
-(launches_by_route).
+(launches_by_route), and so does phase 52 (its two-shard runs').
 Each main path runs with every launch count set to 0 just
 before it and read just after; every switch a phase sets is restored after
 it. The second-to-last lines are the kernel report as JSON and the card's
@@ -465,17 +487,23 @@ LARGE_ROOMS = (("mesh_room", "mesh_room", (248,)), ("quadric_room", "quadric_roo
                ("sss_room", "sss_room", (248,)), ("fog_room", "fog_room", (248,)),
                ("motion_room", "motion_room", (248,)), ("sphere_room", "sphere_room", (248,)),
                ("motion_room_kd", "motion_room", KD_MOTION_ROOM_ARGS[True]),
-               ("motion_room_kd_keyframes", "motion_room", KD_MOTION_ROOM_ARGS[False]))
+               ("motion_room_kd_keyframes", "motion_room", KD_MOTION_ROOM_ARGS[False]),
+               ("zoo_room", "zoo_room", (248,)))
 HOST_WORKERS = 4  # worker processes for LARGE_ROOMS' host compiles
 
 
 def _compile_room(fn: str, args: tuple):
-    """A worker's task: (compile_scene(scenes.fn(*args), "cpu"), seconds)."""
+    """A worker's task: (compile_scene(scenes.fn(*args), "cpu"), seconds);
+    zoo_room writes its rough conductor's table into a folder that lives
+    for the compile only (the tables hold it; nothing reads the file
+    later)."""
     from pbrt_tpu_torch import scenes
     from pbrt_tpu_torch.scene.builder import compile_scene
 
     t0 = time.perf_counter()
-    return compile_scene(getattr(scenes, fn)(*args), "cpu"), time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tables_") as tables:
+        kw = {"table_dir": tables} if fn == "zoo_room" else {}
+        return compile_scene(getattr(scenes, fn)(*args, **kw), "cpu"), time.perf_counter() - t0
 
 
 def _host_scene(name):
@@ -488,7 +516,8 @@ def _host_scene(name):
 
 
 # phase 51's CPU renders, made by the same workers during the build
-# (_cpu_render): kind -> a future of (image, accept decisions or None, seconds)
+# (_cpu_render), and phase 52 (c)'s ("shard", _cpu_shard_render): kind -> a
+# future of (image, accept decisions or None, seconds)
 _CPU_RENDERS: dict = {}
 # phase 51's small scenes: mesh_room(8) at 64x32 under these integrator settings
 SMALL_HOST_LOOPS = {"mlt": dict(max_depth=2, n_chains=64, mutations_per_pixel=4, n_bootstrap=2048),
@@ -532,8 +561,9 @@ def _cpu_render(kind: str):
     return _render_small(kind, "cpu")
 
 
-# phases 35's and 47's CPU crops, rendered by the same workers after their
-# phase 2 tasks, while the card runs phases 3-34 (_cpu_crops): task ->
+# the CPU crops of phases 5, 18, 35, 41 and 47, rendered by the same workers
+# after their phase 2 tasks, while the card runs the phases before them
+# (_cpu_crops): task ->
 # a future of {crop label: (image, route label)}
 _CPU_CROPS: dict = {}
 _POOL: list = []  # the worker pool of phase 2, shut down at the end of main
@@ -541,9 +571,10 @@ _POOL: list = []  # the worker pool of phase 2, shut down at the end of main
 
 def _build_beside_host_compiles(sources):
     """Phase 2: nvcc.build_all(sources) while HOST_WORKERS spawned processes
-    compile LARGE_ROOMS on the host and make phase 51's CPU renders; waits
-    for both and returns the build's result. The workers also render the
-    CPU crops of phases 35 and 47 (CPU_CROP_TASKS), which those phases
+    compile LARGE_ROOMS on the host and make the CPU renders of phases 51
+    and 52; waits for both and returns the build's result. The workers also
+    render the CPU crops of phases 5, 18, 35, 41 and 47 (CPU_CROP_TASKS),
+    which those phases
     take: a task on a room of LARGE_ROOMS is handed that room's compiled
     scene once phase 2 has it (so each room is compiled once), the others
     compile their own small scenes; the pool is shut down at the end of
@@ -560,6 +591,7 @@ def _build_beside_host_compiles(sources):
         _HOST[name] = pool.submit(_compile_room, fn, args)
     for kind in SMALL_HOST_LOOPS:
         _CPU_RENDERS[kind] = pool.submit(_cpu_render, kind)
+    _CPU_RENDERS["shard"] = pool.submit(_cpu_shard_render)
     large = {(fn, args): name for name, fn, args in LARGE_ROOMS}
     for task, (fn, args, _crops) in CPU_CROP_TASKS.items():
         if (fn, args) not in large:
@@ -573,9 +605,10 @@ def _build_beside_host_compiles(sources):
     rendered = {kind: f.result()[2] for kind, f in _CPU_RENDERS.items()}
     print(f"[2 build] the kernels built in {build_s:.1f}s; beside them {HOST_WORKERS} worker processes compiled "
           + ", ".join(f"{n} ({s_:.1f}s)" for n, (_c, s_) in done.items())
-          + " on the host and rendered phase 51's CPU images ("
+          + " on the host and rendered the CPU images of phases 51 and 52 ("
           + ", ".join(f"{k} {s_:.1f}s" for k, s_ in rendered.items())
-          + f"), all done at {time.perf_counter() - t0:.1f}s; the CPU crops of phases 35 and 47 follow there",
+          + f"), all done at {time.perf_counter() - t0:.1f}s; the CPU crops of phases 5, 18, 35, 41 and 47 "
+          "follow there",
           flush=True)
     return libs
 
@@ -593,23 +626,29 @@ def _crop_image(cs, desc, spp):
     return img, R_.render_compiled.last_timing["tier"]
 
 
-# phases 35's and 47's CPU crops by worker task: (scenes function, its
+# the worker-rendered CPU crops by task: (scenes function, its
 # arguments, {crop label: spp}); the labels name the scene variant each
 # phase holds its cuda crop against; a task whose (function, arguments)
 # are a room of LARGE_ROOMS renders from that room's host compile
 CPU_CROP_TASKS = {
+    "mesh_room_early": ("mesh_room", (248,), {"built": CROP_SPP, "spatial": CROP_SPP}),
     "quadric_room": ("quadric_room", (248,), {"no_raw": LATE_SPP[0], "built": LATE_SPP[0]}),
     "quadric_room_kd": ("quadric_room", (40, False, "kdtree"), {"no_raw": LATE_SPP[0], "built": LATE_SPP[0]}),
     "motion_room": ("motion_room", (248,), {"built": LATE_SPP[0]}),
     "motion_room_keyed": ("motion_room", (16, False), {"built": LATE_SPP[1]}),
-    "mesh_room": ("mesh_room", (248,), {"realistic": LATE_SPP[0], "bdpt": LATE_SPP[0]}),
+    "mesh_room": ("mesh_room", (248,), {"realistic": LATE_SPP[0], "bdpt": LATE_SPP[0], "whitted": LATE_SPP[1]}),
+    "fog_room": ("fog_room", (248,), {"built": LATE_SPP[0]}),
+    "sss_room": ("sss_room", (248,), {"built": LATE_SPP[0]}),
+    "sky_meshes": ("sky_meshes", (), {"ao": LATE_SPP[1]}),
 }
 
 
 def _crop_variant(cs, label, work):
-    """A crop label's scene: cs as built, without the raw quadrics' hits
-    (phase 35), under the realistic camera (its lens written to the
-    directory work) or under BDPT (phase 47)."""
+    """A crop label's scene: cs as built (phases 5, 35, 41, 47), without
+    the raw quadrics' hits (phase 35), under the realistic camera (its lens
+    written to the directory work) or under BDPT (phase 47), under the
+    'spatial' light distribution (phase 18), or under whitted or ao (phase
+    41)."""
     from pbrt_tpu_torch import scenes
 
     if label == "no_raw":
@@ -618,8 +657,10 @@ def _crop_variant(cs, label, work):
     if label == "realistic":
         scenes.write_lens(str(Path(work) / scenes.LENS_FILE))
         desc = dataclasses.replace(desc, camera=scenes.realistic_mesh_room(1, lens_dir=str(work)).camera)
-    elif label == "bdpt":
-        desc = dataclasses.replace(desc, integrator=dataclasses.replace(desc.integrator, kind="bdpt"))
+    elif label in ("bdpt", "whitted", "ao"):
+        desc = dataclasses.replace(desc, integrator=dataclasses.replace(desc.integrator, kind=label))
+    elif label == "spatial":
+        desc = dataclasses.replace(desc, integrator=dataclasses.replace(desc.integrator, light_strategy="spatial"))
     return _with_desc(cs, desc)
 
 
@@ -988,8 +1029,8 @@ def _wavefront_phases(out, cs, cs_host, m, m_host, g, g_host, b4_timing, gallery
           f"{build_s:.4f}s", flush=True)
     t18, l18, _img = _main_path("18 mesh room spatial", _with_desc(cs, desc_sp), "torch-wavefront/cuda-wide",
                                 wide_bvh.traverse_cuda)
-    _check_crop("18 cuda-vs-cpu mesh room spatial crop", _with_desc(cs, desc_sp), _with_desc(cs_host, desc_sp),
-                desc_sp)
+    _check_crop("18 cuda-vs-cpu mesh room spatial crop", _with_desc(cs, desc_sp), None, desc_sp,
+                cpu=_CPU_CROPS["mesh_room_early"].result()["spatial"])
     out["mesh_spatial"] = {"vps": t18["n_vertices"] / t18["wall_s"], "wall_s": t18["wall_s"],
                            "build_s": build_s, "b1_launches": l18}
 
@@ -1853,8 +1894,11 @@ def _material_phases(out, work, m, b4_ms):
     for n_side in (40, 248):
         label = f"{31 if n_side == 40 else 32} zoo_room({n_side})"
         t0 = time.perf_counter()
-        host = compile_scene(scenes.zoo_room(n_side, table_dir=str(tables)), "cpu")
-        host_s = time.perf_counter() - t0
+        if n_side == 248:  # compiled by phase 2's workers
+            host, host_s = _host_scene("zoo_room")
+        else:
+            host = compile_scene(scenes.zoo_room(n_side, table_dir=str(tables)), "cpu")
+            host_s = time.perf_counter() - t0
         z = host.to(dev)
         timing, b1, _img = _main_path(f"{label} main path", z, "torch-wavefront/cuda-wide", wide_bvh.traverse_cuda,
                                       LATE_MAIN_SPP)
@@ -2654,15 +2698,19 @@ def _wave_phases(out, work, cs, cs_host):
     seconds["40"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     # --- 41. crops on cuda and cpu: both rooms, whitted and ao ---
-    _check_crop("41 fog_room cuda-vs-cpu crop", fog, fog_host, fog.description, LATE_SPP[0])
-    _check_crop("41 sss_room cuda-vs-cpu crop", sss, sss_host, sss.description, LATE_SPP[0])
+    # the cpu crops come from phase 2's workers (CPU_CROP_TASKS)
+    _check_crop("41 fog_room cuda-vs-cpu crop", fog, None, fog.description, LATE_SPP[0],
+                cpu=_CPU_CROPS["fog_room"].result()["built"])
+    _check_crop("41 sss_room cuda-vs-cpu crop", sss, None, sss.description, LATE_SPP[0],
+                cpu=_CPU_CROPS["sss_room"].result()["built"])
     # whitted on the mesh room (phase 3's tables); ao on the open sky_meshes
     # (the mesh room is closed: every ao ray is occluded)
-    sky_host = compile_scene(scenes.sky_meshes(), "cpu")
-    for kind, gpu, host in (("whitted", cs, cs_host), ("ao", sky_host.to("cuda"), sky_host)):
-        desc = dataclasses.replace(host.description, integrator=dataclasses.replace(host.description.integrator,
-                                                                                    kind=kind))
-        _check_crop(f"41 {kind} cuda-vs-cpu crop", _with_desc(gpu, desc), _with_desc(host, desc), desc, LATE_SPP[1])
+    sky = compile_scene(scenes.sky_meshes(), "cuda")
+    for kind, gpu, task in (("whitted", cs, "mesh_room"), ("ao", sky, "sky_meshes")):
+        desc = dataclasses.replace(gpu.description, integrator=dataclasses.replace(gpu.description.integrator,
+                                                                                   kind=kind))
+        _check_crop(f"41 {kind} cuda-vs-cpu crop", _with_desc(gpu, desc), None, desc, LATE_SPP[1],
+                    cpu=_CPU_CROPS[task].result()[kind])
 
     seconds["41"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -3206,6 +3254,151 @@ def _mlt_sppm_phases(out, work, cs, cs_host, bdpt_mean):
                 proc.communicate()
 
 
+# phase 52's tolerances: the reference's mesh invariance (tests/test_shard_parity.py :43, :90, :99) and
+# its SPPM band (:57-60)
+SHARD_TOL = {"path": (2e-4, 2e-5), "bdpt": (2e-4, 2e-5), "mlt": (2e-4, 3e-5)}
+SHARD_SPPM_BAND = 0.1
+
+
+def _small_shard_desc():
+    """Phase 52 (c)'s scene: mesh_room(8) at 64x32."""
+    from pbrt_tpu_torch import scenes
+
+    d = scenes.mesh_room(8)
+    return dataclasses.replace(d, film=dataclasses.replace(d.film, x_resolution=64, y_resolution=32))
+
+
+def _render_small_sharded(devices):
+    """Phase 52 (c): the sharded path of _small_shard_desc() over devices
+    at CROP_SPP: (image, None, seconds)."""
+    from pbrt_tpu_torch.parallel import shard
+    from pbrt_tpu_torch.scene.builder import compile_scene
+
+    desc = _small_shard_desc()
+    cs = compile_scene(desc, "cpu")
+    t0 = time.perf_counter()
+    img = shard.render_sharded_step(cs, desc, devices, spp=CROP_SPP, seed=SEED)
+    return img, None, time.perf_counter() - t0
+
+
+def _cpu_shard_render():
+    """A worker's task (two PyTorch threads, beside the build): phase 52
+    (c)'s render on two shards of the CPU."""
+    import torch
+
+    torch.set_num_threads(2)
+    return _render_small_sharded(["cpu", "cpu"])
+
+
+def _shard_phases(out, cs, mesh_img):
+    """Phase 52: one image over a list of devices (parallel/shard.py), as
+    two shards on the one card, each in its own thread and stream."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch import render as R_
+    from pbrt_tpu_torch.device import wide_bvh
+    from pbrt_tpu_torch.parallel import shard
+
+    dev = torch.device("cuda", 0)
+    one, two = [dev], [dev, dev]
+    d0 = cs.description
+    W, H = d0.film.x_resolution, d0.film.y_resolution
+    spp = d0.sampler.pixel_samples
+
+    def variant(kind, **ic):
+        return dataclasses.replace(d0, integrator=dataclasses.replace(d0.integrator, kind=kind, **ic))
+
+    def run(label, step, desc, devices, **kw):
+        """The step over devices with every launch count set to 0 just
+        before it: (image, wall seconds, B1 launches)."""
+        _reset_launches()
+        t0 = time.perf_counter()
+        img = step(_with_desc(cs, desc), desc, devices, seed=SEED, **kw)  # on the host: the shards are done
+        wall = time.perf_counter() - t0
+        launches = wide_bvh.traverse_cuda.launches
+        if launches <= 0:
+            raise AssertionError(f"52 {label} over {len(devices)} shards made no launch of B1")
+        if not (np.isfinite(img).all() and img.mean() > 0):
+            raise AssertionError(f"52 {label} over {len(devices)} shards: the image is not finite and non-black")
+        return img, wall, launches
+
+    # --- 52 (a). the path at full width, two shards against one ---
+    t_phase = time.perf_counter()
+    warm = shard.render_sharded_step(cs, d0, two, spp=2, seed=SEED)  # warm-up pass; (d)'s image
+    img2, wall2, l2 = run("path", shard.render_sharded_step, d0, two, spp=spp)
+    nv2 = shard.render_sharded_step.last_timing["n_vertices"]
+    img1, wall1, l1 = run("path", shard.render_sharded_step, d0, one, spp=spp)
+    nv1 = shard.render_sharded_step.last_timing["n_vertices"]
+    rtol, atol = SHARD_TOL["path"]
+    rel4 = float(np.abs(img2 - mesh_img.reshape(-1, 3)).sum() / np.abs(mesh_img).sum())
+    out["path"] = {"walls_s": [wall2, wall1], "b1_launches": [l2, l1], "n_vertices": [nv2, nv1],
+                   "path_vertex_samples_per_sec": [nv2 / wall2, nv1 / wall1],
+                   "bit_equal": bool(np.array_equal(img2, img1)), "max_abs_diff": float(np.abs(img2 - img1).max()),
+                   "rel_to_phase_4": rel4}
+    print(f"[52 sharded path] {W}x{H} {spp}spp depth {d0.integrator.max_depth}, two shards on one card against "
+          f"one: {json.dumps(out['path'])} (walls, launches, vertices and rates in that order; rel_to_phase_4: "
+          f"sum|a-b|/sum|b| against phase 4's image, a reading)", flush=True)
+    if nv2 != nv1 or not np.allclose(img2, img1, rtol=rtol, atol=atol):
+        raise AssertionError("52: the two-shard path image differs from the one-shard image")
+    seconds = out["seconds"] = {"a": time.perf_counter() - t_phase}
+    t_phase = time.perf_counter()
+
+    # --- 52 (b). BDPT, MLT and SPPM on the mesh room, two shards against one ---
+    mlt_desc = variant("mlt", mutations_per_pixel=1, n_chains=4096)
+    ic = mlt_desc.integrator
+    n_mut = int(np.clip(ic.mutations_per_pixel * W * H // (ic.n_chains * (ic.max_depth + 1)), 1, 8192))
+    families = (("bdpt", shard.render_bdpt_sharded_step, variant("bdpt"), dict(spp=4)),
+                ("mlt", shard.render_mlt_sharded_step, mlt_desc, dict(depth=2, n_chains=ic.n_chains, n_mut=n_mut)),
+                ("sppm", shard.render_sppm_sharded_step, variant("sppm", initial_radius=0.024),
+                 dict(n_iters=1, n_photons=500_000)))
+    for kind, step, desc, kw in families:
+        a, wall_a, la = run(kind, step, desc, two, **kw)
+        b, wall_b, lb = run(kind, step, desc, one, **kw)
+        row = {"walls_s": [wall_a, wall_b], "b1_launches": [la, lb], "bit_equal": bool(np.array_equal(a, b)),
+               "max_abs_diff": float(np.abs(a - b).max()), **{k: v for k, v in kw.items()}}
+        if kind == "sppm":
+            lit = b.mean(-1) > 1e-3
+            row["lit_mean_ratio"] = float(a[lit].mean() / b[lit].mean())
+            ok = lit.sum() > 0 and abs(row["lit_mean_ratio"] - 1.0) < SHARD_SPPM_BAND
+        else:
+            ok = np.allclose(a, b, rtol=SHARD_TOL[kind][0], atol=SHARD_TOL[kind][1])
+        out[kind] = row
+        print(f"[52 sharded {kind}] {W}x{H}, two shards against one: {json.dumps(row)}", flush=True)
+        if not ok:
+            raise AssertionError(f"52: the two-shard {kind} image differs from the one-shard image")
+    seconds["b"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # --- 52 (c). the two-shard path on cuda against cpu ---
+    _reset_launches()
+    img_g, _none, wall_g = _render_small_sharded(two)
+    lc = wide_bvh.traverse_cuda.launches
+    img_c = _CPU_RENDERS["shard"].result()[0] if "shard" in _CPU_RENDERS else _render_small_sharded(["cpu"] * 2)[0]
+    out["cuda_vs_cpu"] = dict(_gate("52 sharded path cuda-vs-cpu 64x32", img_g, img_c), cuda_wall_s=wall_g,
+                              b1_launches=lc)
+    if lc <= 0:
+        raise AssertionError("52: the small two-shard render made no launch of B1")
+    seconds["c"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # --- 52 (d). render_compiled's branch, given two shards: (a)'s two-shard step at 2 spp ---
+    _reset_launches()
+    img_d = R_.render_compiled(cs, seed=SEED, spp=2, devices=two)
+    ld = wide_bvh.traverse_cuda.launches
+    tier = R_.render_compiled.last_timing["tier"]
+    want = warm * d0.film.scale
+    rel_d = float(np.abs(img_d.reshape(-1, 3) - want).sum() / np.abs(want).sum())
+    out["branch"] = {"tier": tier, "spp": 2, "b1_launches": ld, "wall_s": R_.render_compiled.last_timing["wall_s"],
+                     "rel_to_step": rel_d, "bit_equal": bool(np.array_equal(img_d.reshape(-1, 3), want))}
+    print(f"[52 render_compiled branch] {json.dumps(out['branch'])}", flush=True)
+    if tier != "torch-shard2/wide" or ld <= 0 or not rel_d < 1e-6:
+        raise AssertionError(f"52: render_compiled's sharded branch took {tier} or another image")
+    seconds["d"] = time.perf_counter() - t_phase
+    if wide_bvh.traverse_cuda.counters[dev].tolist() != [0, 0]:
+        raise AssertionError("B1 stack overflows / iteration-cap hits in phase 52")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3320,7 +3513,7 @@ def main() -> int:
         raise AssertionError(f"kernel stack overflows / iteration-cap hits: {counters}")
 
     # --- 5. the same mesh crop on cuda and cpu ---
-    _check_crop("5 cuda-vs-cpu crop", cs, cs_host, cs.description)
+    _check_crop("5 cuda-vs-cpu crop", cs, None, cs.description, cpu=_CPU_CROPS["mesh_room_early"].result()["built"])
 
     # --- 6. B3 kernel vs plain on the spheres gallery ---
     g_host = compile_scene(spheres_gallery(), "cpu")
@@ -3606,13 +3799,20 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     print(f"[48-51 mlt, sppm] in {time.perf_counter() - t_group:.1f}s: {json.dumps(mls)}", flush=True)
 
-    print(f"[timing] phases 1-51 in {time.perf_counter() - t_script:.1f}s", flush=True)
+    # --- 52. one image over two shards of the card (parallel/shard.py) ---
+    t_group = time.perf_counter()
+    sh = _unswitched(_shard_phases, cs, mesh_img)
+    print(f"[52 shards] in {time.perf_counter() - t_group:.1f}s: seconds by sub-phase {json.dumps(sh['seconds'])}",
+          flush=True)
+
+    print(f"[timing] phases 1-52 in {time.perf_counter() - t_script:.1f}s", flush=True)
     report = {"kernels": [
         {"name": "wide_traverse", "route": "cuda", "source": "pbrt_tpu_torch/csrc/wide_traverse.cu",
          "replaces": "pbrt_tpu/device/pallas_bvh.py:90", "launches": b1_launches, "max_abs_err": max_err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": b1_bound[0], "bound_by": b1_bound[1], "library_ms": None,
          "launches_by_route": {"wavefront": b1_launches, "mlt": mls["mlt_mesh"]["launches"],
-                               "sppm": mls["sppm_mesh"]["launches"]}},
+                               "sppm": mls["sppm_mesh"]["launches"],
+                               **{f"shard2_{k}": sh[k]["b1_launches"][0] for k in ("path", "bdpt", "mlt", "sppm")}}},
         {"name": "wide_traverse_joint", "route": "cuda", "source": "pbrt_tpu_torch/csrc/wide_traverse_joint.cu",
          "replaces": "pbrt_tpu/device/pallas_bvh.py:326", "launches": b2_launches, "max_abs_err": b2_err,
          "ms": b2_cam_ms, "plain_ms": plain_ms, "bound_ms": b1_bound[0], "bound_by": b1_bound[1],

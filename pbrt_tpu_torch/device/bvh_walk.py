@@ -137,8 +137,8 @@ def _outputs(wrapper, o, d, t_max):
     for name, x, shape in (("o", o, (R, 3)), ("d", d, (R, 3)), ("t_max", t_max, (R,))):
         _check(name, x, torch.float32, shape, dev)
     counters = wrapper.counters.get(dev)
-    if counters is None:
-        counters = wrapper.counters[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
+    if counters is None:  # setdefault: a shard thread that loses the race takes the winner's tensor
+        counters = wrapper.counters.setdefault(dev, torch.zeros(2, dtype=torch.int32, device=dev))
     out = (torch.empty(R, dtype=torch.float32, device=dev), torch.empty(R, dtype=torch.int32, device=dev),
            torch.empty(R, dtype=torch.float32, device=dev), torch.empty(R, dtype=torch.float32, device=dev),
            torch.empty(R, dtype=torch.int32, device=dev))
@@ -189,18 +189,18 @@ def _launch_bvh(wrapper, entry, sa, args, R, dev, prim_tests, rows_read, outs):
     entry + "_counted") of the walk library with args; count the launch in
     wrapper.launches; raise on a launch error."""
     lib = build_kernel()["lib"]
-    if prim_tests is None:
-        err = getattr(lib, entry)(*args)
-    else:
+    if prim_tests is not None:
         _check("prim_tests", prim_tests, torch.int32, (R, 4), dev)
         seen = tuple(rows_read)
         for name, x, n in zip(("node", "prim", "instance"), seen,
                               (sa.bvh_packed.shape[0], sa.prim_test_data.shape[0], sa.inst_w2i.shape[0])):
             _check(f"rows_read ({name})", x, torch.int32, (n,), dev)
-        err = getattr(lib, entry + "_counted")(*args, prim_tests.data_ptr(), *(x.data_ptr() for x in seen))
+        entry, args = entry + "_counted", [*args, prim_tests.data_ptr(), *(x.data_ptr() for x in seen)]
+    with torch.cuda.device(dev):  # the C entry launches on the calling thread's current device
+        err = getattr(lib, entry)(*args)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-    wrapper.launches += 1
+    nvcc.count_launch(wrapper)
     return outs
 
 

@@ -94,11 +94,12 @@ def delta_track_cuda(sa, med, o, d, t_end, key):
     found = torch.empty(R, dtype=torch.bool, device=dev)
     steps = torch.empty(R, dtype=torch.int32, device=dev)
     lib = build_kernel()["lib"]
-    err = lib.delta_track(*(x.data_ptr() for x in ins), R, *(x.data_ptr() for x in tables), n_media,
-                          t.data_ptr(), found.data_ptr(), steps.data_ptr(), _stream(dev))
+    with torch.cuda.device(dev):  # the C entry launches on the calling thread's current device
+        err = lib.delta_track(*(x.data_ptr() for x in ins), R, *(x.data_ptr() for x in tables), n_media,
+                              t.data_ptr(), found.data_ptr(), steps.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"delta_track launch failed: cudaError {err}")
-    delta_track_cuda.launches += 1
+    nvcc.count_launch(delta_track_cuda)
     return t, found, steps
 
 
@@ -112,11 +113,12 @@ def ratio_track_cuda(sa, med, o, d, t_end, key):
     tr = torch.empty(R, dtype=torch.float32, device=dev)
     steps = torch.empty(R, dtype=torch.int32, device=dev)
     lib = build_kernel()["lib"]
-    err = lib.ratio_track(*(x.data_ptr() for x in ins), R, *(x.data_ptr() for x in tables), n_media,
-                          tr.data_ptr(), steps.data_ptr(), _stream(dev))
+    with torch.cuda.device(dev):  # the C entry launches on the calling thread's current device
+        err = lib.ratio_track(*(x.data_ptr() for x in ins), R, *(x.data_ptr() for x in tables), n_media,
+                              tr.data_ptr(), steps.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"ratio_track launch failed: cudaError {err}")
-    ratio_track_cuda.launches += 1
+    nvcc.count_launch(ratio_track_cuda)
     return tr, steps
 
 

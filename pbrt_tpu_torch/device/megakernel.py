@@ -1499,16 +1499,17 @@ def _launch(entry: str, blob, mode: int, px, py, pids, s0: int, n_samples: int, 
     w = megakernel_cuda
     counters = w.counters.get(dev)
     if counters is None:
-        counters = w.counters[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+        counters = w.counters.setdefault(dev, torch.zeros(1, dtype=torch.int32, device=dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     queue = w.queues.get((dev, stream))
     if queue is None:  # next pixel, finished blocks; the grid's last block zeroes both
-        queue = w.queues[dev, stream] = torch.zeros(2, dtype=torch.int32, device=dev)
-    err = fn(blob.data_ptr(), lanes[0].data_ptr(), lanes[1].data_ptr(), lanes[2].data_ptr(), R,
-             int(seed) & M32, int(s0) & M32, int(n_samples), int(mode),
-             out_l.data_ptr(), out_w.data_ptr(), out_nv.data_ptr(), counters.data_ptr(), queue.data_ptr(),
-             None if atlas is None else atlas.data_ptr(), None if tex is None else tex.data_ptr(),
-             stream, *(x.data_ptr() for x in extra))
+        queue = w.queues.setdefault((dev, stream), torch.zeros(2, dtype=torch.int32, device=dev))
+    with torch.cuda.device(dev):  # the C entry launches on the calling thread's current device
+        err = fn(blob.data_ptr(), lanes[0].data_ptr(), lanes[1].data_ptr(), lanes[2].data_ptr(), R,
+                 int(seed) & M32, int(s0) & M32, int(n_samples), int(mode),
+                 out_l.data_ptr(), out_w.data_ptr(), out_nv.data_ptr(), counters.data_ptr(), queue.data_ptr(),
+                 None if atlas is None else atlas.data_ptr(), None if tex is None else tex.data_ptr(),
+                 stream, *(x.data_ptr() for x in extra))
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     return out_l, out_w, out_nv
@@ -1524,7 +1525,7 @@ def megakernel_cuda(blob, mode: int, px, py, pids, s0: int, n_samples: int, seed
     ``megakernel_cuda.counters[device]`` (int32 (1,)); raises on a refused
     launch."""
     out = _launch("brute_megakernel", blob, mode, px, py, pids, s0, n_samples, seed, atlas, tex)
-    megakernel_cuda.launches += 1
+    nvcc.count_launch(megakernel_cuda)
     return out
 
 

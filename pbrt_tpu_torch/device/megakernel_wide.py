@@ -1153,19 +1153,20 @@ def _launch(entry: str, blob, mode: int, tables, px, py, pids, s0: int, n_sample
     out_nv = torch.empty(R, dtype=torch.float32, device=dev)
     pops = wide_megakernel_cuda.pops.get(dev)
     if pops is None:
-        pops = wide_megakernel_cuda.pops[dev] = torch.zeros(2, dtype=torch.int64, device=dev)
+        pops = wide_megakernel_cuda.pops.setdefault(dev, torch.zeros(2, dtype=torch.int64, device=dev))
     counters = wide_megakernel_cuda.counters.get(dev)
     if counters is None:
-        counters = wide_megakernel_cuda.counters[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
+        counters = wide_megakernel_cuda.counters.setdefault(dev, torch.zeros(2, dtype=torch.int32, device=dev))
     queue = torch.zeros(1, dtype=torch.int32, device=dev)  # the next unserved lane
     stream = torch.cuda.current_stream(dev).cuda_stream
     # the extended modes read the attribute rows when the scene has them
     attr_ptr = attr.data_ptr() if mode >= 2 * N_SAMPLER_IDS and attr is not None else None
-    err = fn(blob.data_ptr(), lanes[0].data_ptr(), lanes[1].data_ptr(), lanes[2].data_ptr(), R,
-             int(seed) & M32, int(s0) & M32, int(n_samples), int(mode),
-             tables.wnode_rec.data_ptr(), tables.wleaf_rec.data_ptr(), attr_ptr, stab.data_ptr(),
-             out_l.data_ptr(), out_w.data_ptr(), out_nv.data_ptr(), pops.data_ptr(), counters.data_ptr(),
-             queue.data_ptr(), stream, *(x.data_ptr() for x in extra))
+    with torch.cuda.device(dev):  # the C entry launches on the calling thread's current device
+        err = fn(blob.data_ptr(), lanes[0].data_ptr(), lanes[1].data_ptr(), lanes[2].data_ptr(), R,
+                 int(seed) & M32, int(s0) & M32, int(n_samples), int(mode),
+                 tables.wnode_rec.data_ptr(), tables.wleaf_rec.data_ptr(), attr_ptr, stab.data_ptr(),
+                 out_l.data_ptr(), out_w.data_ptr(), out_nv.data_ptr(), pops.data_ptr(), counters.data_ptr(),
+                 queue.data_ptr(), stream, *(x.data_ptr() for x in extra))
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     return out_l, out_w, out_nv
@@ -1185,7 +1186,7 @@ def wide_megakernel_cuda(blob, mode: int, tables, px, py, pids, s0: int, n_sampl
     iteration-cap hits in ``wide_megakernel_cuda.counters[device]`` (int32
     (2,)); raises on a refused launch."""
     out = _launch("wide_megakernel", blob, mode, tables, px, py, pids, s0, n_samples, seed, stab)
-    wide_megakernel_cuda.launches += 1
+    nvcc.count_launch(wide_megakernel_cuda)
     return out
 
 

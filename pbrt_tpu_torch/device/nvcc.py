@@ -10,6 +10,10 @@ per source at once, so a cold start pays for the slowest build only.
 Every kernel is built for ``sm_90a`` with ``-fmad=false`` and without fast
 math: the watertight triangle test needs each multiply and add rounded on
 its own, and the kernels are held to their plain PyTorch twins.
+
+The build and the launch counts are safe from several threads (the shards
+of parallel/shard.py): one build runs at a time, and ``count_launch`` adds
+to a wrapper's count under a lock.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -29,6 +34,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
 
 _LIBS: dict = {}  # source path -> {"lib", "seconds", "log", "path"}
+_BUILD_LOCK = threading.Lock()  # one build_all at a time: two threads never run nvcc into one target
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to wrapper.launches (a launch wrapper's count), exactly when
+    several threads launch at once."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def _nvcc() -> str:
@@ -69,9 +83,14 @@ def build_all(sources) -> dict:
     wall time (0 when already built), "log": nvcc's -Xptxas -v output,
     "path": library path}}; raises RuntimeError naming a failed build."""
     sources = [Path(s) for s in sources]
-    todo = [s for s in sources if str(s) not in _LIBS]
-    if not todo:  # the launch path: no file-system call once built
+    if all(str(s) in _LIBS for s in sources):  # the launch path: no lock and no file-system call once built
         return {s: _LIBS[str(s)] for s in sources}
+    with _BUILD_LOCK:
+        return _build_locked(sources)
+
+
+def _build_locked(sources) -> dict:
+    todo = [s for s in sources if str(s) not in _LIBS]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()

@@ -329,6 +329,35 @@ def _write_progress(desc, img):
         log.warning("sppm: progressive write failed: %s", e)
 
 
+def grid_inv_cell(max_r: float, wr: float, in_float32: bool = False) -> float:
+    """1 / the grid's cell size: the largest valid radius's diameter, but at
+    most 1022 cells across the world's diameter (the packed 10-bit key is
+    exact below 1024 per axis). in_float32: the reference's sharded step
+    computes it in float32, its single-device render in float64."""
+    if in_float32:
+        cell = max(np.float32(2.0) * np.float32(max_r), np.float32(2.0 * wr / 1022.0), np.float32(1e-6))
+        return float(np.float32(1.0) / cell)
+    return float(np.float32(1.0 / max(2.0 * max_r, 2.0 * wr / 1022.0, 1e-6)))
+
+
+def update_points(radius, n_eff, tau, beta, phi, m):
+    """The radius and tau update (sppm.rs :470-502) of the visible points
+    that took photons (m > 0), in float32; returns (radius, n_eff, tau)."""
+    has = m > 0
+    n_new = n_eff + GAMMA * m
+    r_new = torch.where(has, radius * torch.sqrt(n_new / torch.clamp(n_eff + m, min=1e-12)), radius)
+    tau = torch.where(has[:, None], (tau + beta * phi)
+                      * ((r_new * r_new) / torch.clamp(radius * radius, min=1e-20))[:, None], tau)
+    return torch.where(has, r_new, radius), torch.where(has, n_new, n_eff), tau
+
+
+def sppm_image(ld, tau, radius, n_iters: int, n_photons: int):
+    """The estimate after n_iters iterations of n_photons photons each:
+    Ld / n_iters + tau / (n_iters n_photons pi r^2)."""
+    return ld / n_iters + tau / (float(n_iters) * n_photons * math.pi
+                                 * torch.clamp(radius * radius, min=1e-20))[:, None]
+
+
 def render_sppm(cs, seed: int = 0, progress=None):
     """The SPPM host loop over the integrator's iterations: the camera pass,
     the grid (cell size max(2 max_r, 2 world_radius / 1022, 1e-6)), the
@@ -383,7 +412,7 @@ def render_sppm(cs, seed: int = 0, progress=None):
         stats["visible_points"] += vp["valid"].sum()
         max_r = float(torch.where(vp["valid"], radius, 0.0).max())
         split.lap("camera")
-        inv_cell = float(np.float32(1.0 / max(2.0 * max_r, 2.0 * wr / 1022.0, 1e-6)))
+        inv_cell = grid_inv_cell(max_r, wr)
         sc, sv = _build_grid(vp, radius, grid_min, inv_cell)
         split.lap("grid")
         phi = torch.zeros((R + 1, 3), dtype=torch.float64, device=dev)
@@ -397,26 +426,15 @@ def render_sppm(cs, seed: int = 0, progress=None):
         if dropped > 0:
             log.warning("sppm iter %d: %d photon-VP pairs dropped by the %d-entry scan cap", it, dropped,
                         KMAX * N_CHUNKS)
-        phi32 = phi[:R].to(torch.float32)
-        m32 = m_cnt[:R].to(torch.float32)
-        # the radius and tau update (sppm.rs :470-502)
-        has = m32 > 0
-        n_new = n_eff + GAMMA * m32
-        r_new = torch.where(has, radius * torch.sqrt(n_new / torch.clamp(n_eff + m32, min=1e-12)), radius)
-        tau = torch.where(has[:, None], (tau + vp["beta"] * phi32)
-                          * ((r_new * r_new) / torch.clamp(radius * radius, min=1e-20))[:, None], tau)
-        radius = torch.where(has, r_new, radius)
-        n_eff = torch.where(has, n_new, n_eff)
+        radius, n_eff, tau = update_points(radius, n_eff, tau, vp["beta"], phi[:R].to(torch.float32),
+                                           m_cnt[:R].to(torch.float32))
         if progress:
             progress(it + 1, n_iters)
         if wf < n_iters and (it + 1) % wf == 0 and (it + 1) < n_iters:
-            img = ld / (it + 1) + tau / (float(it + 1) * n_photons * math.pi
-                                         * torch.clamp(radius * radius, min=1e-20))[:, None]
+            img = sppm_image(ld, tau, radius, it + 1, n_photons)
             _write_progress(desc, img.reshape(H, W, 3).cpu().numpy())
         split.lap("update")
-    np_total = float(n_iters) * n_photons
-    img = ld / n_iters + tau / (np_total * math.pi * torch.clamp(radius * radius, min=1e-20))[:, None]
-    img = img.reshape(H, W, 3).cpu().numpy()
+    img = sppm_image(ld, tau, radius, n_iters, n_photons).reshape(H, W, 3).cpu().numpy()
     seconds = time.perf_counter() - t0
     render_sppm.last_timing = {"seconds": seconds, "iterations": n_iters, "photons": n_iters * n_photons,
                                "visible_points": int(stats["visible_points"]), "split": dict(split.seconds),

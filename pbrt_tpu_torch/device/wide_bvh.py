@@ -95,14 +95,14 @@ def _state(wrapper, dev, stream):
     """The wrapper's per-device counters and iteration sum, and its ray queue
     for this stream (zeroed once here; each launch's last block re-zeroes it)."""
     counters = wrapper.counters.get(dev)
-    if counters is None:
-        counters = wrapper.counters[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
+    if counters is None:  # setdefault: a shard thread that loses the race takes the winner's tensor
+        counters = wrapper.counters.setdefault(dev, torch.zeros(2, dtype=torch.int32, device=dev))
     iters = wrapper.iterations.get(dev)
     if iters is None:
-        iters = wrapper.iterations[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+        iters = wrapper.iterations.setdefault(dev, torch.zeros(1, dtype=torch.int64, device=dev))
     queue = wrapper.queues.get((dev, stream))
     if queue is None:
-        queue = wrapper.queues[dev, stream] = torch.zeros(2, dtype=torch.int32, device=dev)
+        queue = wrapper.queues.setdefault((dev, stream), torch.zeros(2, dtype=torch.int32, device=dev))
     return counters, iters, queue
 
 
@@ -125,13 +125,14 @@ def _launch(wrapper, fn, tables, o, d, t_max, any_hit):
     pops = torch.empty(R, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     counters, iters, queue = _state(wrapper, dev, stream)
-    err = fn(o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R,
-             tables.wnode_rec.data_ptr(), tables.wleaf_rec.data_ptr(), int(bool(any_hit)),
-             t.data_ptr(), idx.data_ptr(), b1.data_ptr(), b2.data_ptr(), pops.data_ptr(),
-             counters.data_ptr(), iters.data_ptr(), queue.data_ptr(), stream)
+    with torch.cuda.device(dev):  # the C entry launches on the calling thread's current device
+        err = fn(o.data_ptr(), d.data_ptr(), t_max.data_ptr(), R,
+                 tables.wnode_rec.data_ptr(), tables.wleaf_rec.data_ptr(), int(bool(any_hit)),
+                 t.data_ptr(), idx.data_ptr(), b1.data_ptr(), b2.data_ptr(), pops.data_ptr(),
+                 counters.data_ptr(), iters.data_ptr(), queue.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
-    wrapper.launches += 1
+    nvcc.count_launch(wrapper)
     return t, idx, b1, b2, pops
 
 

@@ -218,9 +218,10 @@ def make_regen(cam, scfg, fcfg, px_base, py_base, pixel_ids, seed: int, differen
     return regen
 
 
-def _configs(desc, dev, kind: str):
+def _configs(desc, dev, kind: str, film_tables: bool = True):
     """The route's integrator, sampler and film configurations (icfg, scfg,
-    fcfg), the halton and sobol film tables built on `dev`."""
+    fcfg), the halton and sobol film tables built on `dev` unless
+    film_tables is False (the sharded steps', parallel/shard.py)."""
     icfg = {
         "kind": kind,
         "max_depth": max(int(desc.integrator.max_depth), 1),
@@ -233,9 +234,9 @@ def _configs(desc, dev, kind: str):
         # the declared strata and jitter flag (stratified.rs:121-131)
         scfg["strata"] = (max(int(desc.sampler.x_samples), 1), max(int(desc.sampler.y_samples), 1),
                           bool(desc.sampler.jitter))
-    elif desc.sampler.kind == "halton":
+    elif film_tables and desc.sampler.kind == "halton":
         scfg["halton"] = halton_tables(desc.film.x_resolution, desc.film.y_resolution, dev)
-    elif desc.sampler.kind == "sobol":
+    elif film_tables and desc.sampler.kind == "sobol":
         scfg["sobol"] = sobol_tables(desc.film.x_resolution, desc.film.y_resolution, int(desc.sampler.pixel_samples))
     fcfg = {
         "filter": desc.film.filter_name,
@@ -326,7 +327,7 @@ def scene_camera(desc, dev):
     return cam
 
 
-def make_wave_fn(cs: CompiledScene, cam=None):
+def make_wave_fn(cs: CompiledScene, cam=None, cfgs=None):
     """Build the per-sample wave: (sa, px, py, pixel_ids, sample_idx, seed)
     -> (L w (R, 3), w (R,), n_vertices (R,)) for one sample of every pixel
     given (render._one_sample_wave): the camera ray from film dimensions 0
@@ -336,18 +337,23 @@ def make_wave_fn(cs: CompiledScene, cam=None):
     vignetting weight on L; trace_wave, the NaN and negative clamps
     (integrator.rs:350-368) and max_sample_luminance, weighted by the
     filter's sample weight. Sets LAST_WAVE_TIER; the spatial light
-    distribution and the lobe table are built here, once."""
+    distribution and the lobe table are built here, once. cfgs: the
+    route's (icfg, scfg, fcfg) in place of the scene's own (the sharded
+    step's, parallel/shard.py), its tables built by the caller."""
     global LAST_WAVE_TIER
     desc = cs.description
     dev = cs.arrays.device
     if cam is None:
         cam = scene_camera(desc, dev)
-    icfg, scfg, fcfg = _configs(desc, dev, desc.integrator.kind)
-    icfg["n_samples"] = desc.integrator.n_samples
-    icfg["cos_sample"] = desc.integrator.cos_sample
     static = cs.static
+    if cfgs is None:
+        icfg, scfg, fcfg = _configs(desc, dev, desc.integrator.kind)
+        icfg["n_samples"] = desc.integrator.n_samples
+        icfg["cos_sample"] = desc.integrator.cos_sample
+        _route_tables(cs, icfg)
+    else:
+        icfg, scfg, fcfg = cfgs
     joint = _joint(static, dev)
-    _route_tables(cs, icfg)
     differentials = has_imagemaps(static)
     max_lum = float(fcfg["max_sample_luminance"])
     LAST_WAVE_TIER = f"torch-wave/{route_name(static, joint)}"
@@ -436,11 +442,58 @@ def _write_checkpoint(path, acc, wacc, next_sample, spp, seed):
     os.replace(tmp, path)
 
 
+def _render_sharded(cs: CompiledScene, devices, seed: int, spp: int | None):
+    """render_compiled's multi-device branch (reference :574-625): the
+    integrator's sharded step over devices (parallel/shard.py); MLT with
+    n_chains = max(n_chains, devices), n_mut = mutations per pixel x pixels
+    // (n_chains (max_depth + 1)) clipped to 1-8192, each depth's film
+    summed; SPPM with max(photons per iteration, 1) photons. The film
+    scale applies; records ``render_compiled.last_timing`` {"wall_s",
+    "n_vertices" (the path family's, else None), "tier": "torch-shard<n>/"
+    + the query's route, "shards"}."""
+    from .parallel import shard
+
+    desc = cs.description
+    ic = desc.integrator
+    W, H = desc.film.x_resolution, desc.film.y_resolution
+    n_vertices = None
+    t0 = time.perf_counter()
+    if ic.kind == "sppm":
+        img = shard.render_sppm_sharded_step(cs, desc, devices, seed=seed, n_iters=max(int(ic.num_iterations), 1),
+                                             n_photons=max(int(ic.photons_per_iteration), 1))
+    elif ic.kind == "bdpt":
+        img = shard.render_bdpt_sharded_step(cs, desc, devices, seed=seed,
+                                             spp=int(spp if spp is not None else desc.sampler.pixel_samples))
+    elif ic.kind == "mlt":
+        max_depth = max(int(ic.max_depth), 1)
+        n_chains = max(int(ic.n_chains), len(devices))
+        n_mut = int(np.clip((max(int(ic.mutations_per_pixel), 1) * W * H) // (n_chains * (max_depth + 1)), 1, 8192))
+        img = np.zeros((W * H, 3), np.float32)
+        for depth in range(max_depth + 1):
+            img = img + shard.render_mlt_sharded_step(cs, desc, devices, seed=seed, depth=depth, n_chains=n_chains,
+                                                      n_mut=n_mut)
+    else:
+        img = shard.render_sharded_step(cs, desc, devices, spp=spp, seed=seed)
+        n_vertices = shard.render_sharded_step.last_timing["n_vertices"]
+    wall = time.perf_counter() - t0  # the steps end with their images on the host
+    route = route_name(cs.static, _joint(cs.static, torch.device(devices[0])))
+    render_compiled.last_timing = {"wall_s": wall, "n_vertices": n_vertices, "shards": len(devices),
+                                   "tier": f"torch-shard{len(devices)}/{route}"}
+    log.info("sharded %s render over %d devices in %.2fs", ic.kind, len(devices), wall)
+    return img.reshape(H, W, 3) * desc.film.scale
+
+
 def render_compiled(cs: CompiledScene, seed: int = 0, spp: int | None = None, progress=None,
-                    checkpoint_path: str | None = None, checkpoint_every: int = 0):
+                    checkpoint_path: str | None = None, checkpoint_every: int = 0, devices=None):
     """Render a compiled scene on its device; returns the (H, W, 3) float32
     image and records ``render_compiled.last_timing`` = {"wall_s",
     "n_vertices", "tier"} (wall time ends after a device synchronize).
+    devices: a list of torch devices, in which a device may repeat, to
+    split the whole film over (``_render_sharded``, parallel/shard.py: the
+    reference's sharded steps, which take no megakernel, no film tables
+    and no progress); None renders on the scene's device. The port never
+    chooses it by itself, where the reference shards whenever it sees
+    several devices: on one card two shards take longer than one.
     progress(done_spp, spp), when given, is called after each spp chunk (the
     wave: after each sample); the reference's counters (camera rays, path
     vertices, path length, scene bytes) go to utils.stats.STATS.
@@ -451,6 +504,11 @@ def render_compiled(cs: CompiledScene, seed: int = 0, spp: int | None = None, pr
     desc = cs.description
     dev = cs.arrays.device
     kind = desc.integrator.kind
+    if devices is not None:
+        # the reference's branch checks the crop window, not "pixelbounds"; so does this
+        if checkpoint_path is not None or tuple(desc.film.crop_window or (0.0, 1.0, 0.0, 1.0)) != (0.0, 1.0, 0.0, 1.0):
+            raise ValueError("a sharded render takes the whole film and no checkpoint")
+        return _render_sharded(cs, devices, seed, spp)
     if kind in ("sppm", "bdpt", "mlt"):
         # sppm, bdpt and mlt have host loops of their own (reference
         # render_compiled :629-640); sppm and mlt render the whole film

@@ -103,7 +103,9 @@ def test_module_entry_point(tmp_path):
     """python -m pbrt_tpu_torch, as a subprocess: --cat prints the scene,
     and a render writes its file."""
     path = _scene(tmp_path)
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # one PyTorch thread, as in this module's own process: beside the other
+    # test workers more threads only contend for the cores
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     cat = subprocess.run([sys.executable, "-m", "pbrt_tpu_torch", path, "--cat"], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=120)
     assert cat.returncode == 0, cat.stderr

@@ -31,7 +31,8 @@ on the card against the CPU. The grid media's tracking kernel
 per-sample wave's renders (volpath, the BSSRDF, whitted) are held on the
 card against the CPU. The walks' motion instantiations match their twins
 bit for bit at random shutter times, and the motion room, the realistic
-camera and BDPT render on the card as on the CPU.
+camera and BDPT render on the card as on the CPU. The sharded path
+(parallel/shard.py) on two shards of the card matches one shard.
 """
 import numpy as np
 import pytest
@@ -85,6 +86,22 @@ def test_kernel_matches_plain(cuda_device, any_hit, sort):
     for x, y in zip(k, p):
         assert torch.equal(x.cpu(), y.cpu())
     assert wide_bvh.traverse_cuda.counters[cuda_device].tolist() == [0, 0]
+
+
+@pytest.mark.gpu
+def test_sharded_path_matches_one_shard(cuda_device):
+    """Two shards on one card (each its own thread and stream) against one
+    shard, at the reference's mesh-invariance tolerance
+    (tests/test_shard_parity.py); both go through B1."""
+    from pbrt_tpu_torch.parallel import shard
+
+    cs = _small_room()
+    img1 = shard.render_sharded_step(cs, cs.description, [cuda_device], spp=2)
+    wide_bvh.traverse_cuda.launches = 0
+    img2 = shard.render_sharded_step(cs, cs.description, [cuda_device, cuda_device], spp=2)
+    assert wide_bvh.traverse_cuda.launches > 0
+    assert np.isfinite(img2).all() and img1.mean() > 0
+    np.testing.assert_allclose(img2, img1, rtol=2e-4, atol=2e-5)
 
 
 @pytest.mark.gpu

@@ -15,11 +15,15 @@
   hash are equal bit for bit), every accept decision equal, the next state
   within 2e-5, the step's film (the port's float64 index_add_ against the
   reference's float32 segment sums) within 1e-5 of its largest value;
-- the whole render at tests/test_bdpt.py:56's size (the floor and the
-  lamp, 12 x 9, depth 2, 200 mutations per pixel, 2,048 bootstrap samples,
-  64 chains) against the reference's render_mlt: within 1e-4 of the
-  image's largest value (the chains take the same steps; the films differ
-  by float32 rounding), and render_compiled's route and work counts;
+- the whole render of tests/test_bdpt.py:56's scene (the floor and the
+  lamp, 12 x 9, depth 2) with 512 chains of 16 mutations a depth (228
+  mutations per pixel) from 1,536 bootstrap samples (512 a depth: the
+  reference's bootstrap and chains then share one shape, so its _l_fn
+  compiles once a depth; 16,384 mutations, as many as the reference
+  test's 64 chains of 128) against the reference's render_mlt: within
+  1e-4 of the image's largest value (the chains take the same steps; the
+  films differ by float32 rounding), and render_compiled's route and work
+  counts;
 - the front end: python -m pbrt_tpu_torch renders a written mlt file.
 
 The reference's _l_fn and mlt_chain_step run op by op here (its jitted
@@ -172,15 +176,15 @@ def test_chain_step_matches_reference(both, targets, depth):
 def test_render_mlt_matches_reference():
     """render_compiled of the reference MLT test's scene against the
     reference's render_mlt, and the route's work counts."""
-    desc = _floor_lamp(IntegratorConfig(kind="mlt", max_depth=2, mutations_per_pixel=200, n_bootstrap=2048,
-                                        n_chains=64))
+    desc = _floor_lamp(IntegratorConfig(kind="mlt", max_depth=2, mutations_per_pixel=228, n_bootstrap=1536,
+                                        n_chains=512))
     cs = compile_scene(desc, "cpu")
     img = render.render_compiled(cs, seed=1)
     tm = render.render_compiled.last_timing
     img_r = ref_mlt.render_mlt(ref_compile_scene(_to_ref(desc)), seed=1)
     assert tm["tier"] == "torch-mlt/brute"
-    # n_mut = 200 x 108 // (64 x 3) = 112 steps, rounded up to 4 blocks of 32
-    assert tm["chain_steps"] == 2 * 128 and tm["mutations"] == 2 * 128 * 64
+    # n_mut = 228 x 108 // (512 x 3) = 16 steps, one block, at depths 0 and 1 (depth 2 carries no light)
+    assert tm["chain_steps"] == 2 * 16 and tm["mutations"] == 2 * 16 * 512
     assert 0.2 < tm["acceptance"] < 0.95 and tm["wall_s"] > 0
     assert np.isfinite(img).all() and img.mean() > 0.01
     np.testing.assert_allclose(img, img_r, rtol=0, atol=1e-4 * img_r.max())

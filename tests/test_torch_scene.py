@@ -129,6 +129,7 @@ def test_port_imports_without_jax():
         "import pbrt_tpu_torch.core.imageio, pbrt_tpu_torch.scene.tessellate, pbrt_tpu_torch.utils.stats\n"
         "import pbrt_tpu_torch.device.medium_track, pbrt_tpu_torch.device.bssrdf, pbrt_tpu_torch.core.bssrdf\n"
         "import pbrt_tpu_torch.device.motion, pbrt_tpu_torch.device.realistic, pbrt_tpu_torch.device.bdpt\n"
+        "import pbrt_tpu_torch.device.mlt, pbrt_tpu_torch.device.sppm, pbrt_tpu_torch.parallel.shard\n"
         "assert not any(m == 'pbrt_tpu' or m.startswith('pbrt_tpu.') for m in sys.modules)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)

@@ -77,3 +77,44 @@ def track_rays(cs, n, seed=0):
     f32 = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)  # noqa: E731
     return (torch.full((n,), smoke, dtype=torch.int64, device=dev), f32(o), f32(d), f32(t_end),
             torch.as_tensor(key, device=dev))
+
+
+def tiny_scene(res=(16, 8), spp=2, integrator="path", max_depth=3, fog=False, specular=True):
+    """The reference's dryrun scene (__graft_entry__._tiny_scene: a matte
+    floor, a mirror and a glass sphere under a distant light) in the port's
+    records; fog: the camera inside a homogeneous medium
+    (tests/test_shard_parity.py's volpath scene); specular=False: both
+    spheres matte (the reference's compiled steps then carry no specular
+    lobes, which costs them seconds to a quarter of their compile)."""
+    from pbrt_tpu_torch.core.transform import Transform
+    from pbrt_tpu_torch.scene.host import (
+        CameraConfig, FilmConfig, HostLight, HostMaterial, HostMedium, HostPrimitive, IntegratorConfig,
+        SamplerConfig, SceneDescription, ShapeRecord, Sphere, TriangleMesh,
+    )
+
+    floor = TriangleMesh(p=np.array([[-20, -1, -20], [20, -1, -20], [20, -1, 20], [-20, -1, 20]], np.float64),
+                         indices=np.array([[0, 2, 1], [0, 3, 2]], np.int32),
+                         uv=np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float64))
+    matte = HostMaterial(kind="matte", params={"Kd": ("const", np.array([0.5, 0.5, 0.5]))})
+    prims = [
+        HostPrimitive(shape=ShapeRecord(mesh=floor),
+                      material=HostMaterial(kind="matte", params={"Kd": ("const", np.array([0.6, 0.5, 0.4]))})),
+        HostPrimitive(shape=ShapeRecord(sphere=Sphere(object_to_world=Transform.translate([-1.3, 0, 0]))),
+                      material=HostMaterial(kind="mirror", params={"Kr": ("const", np.array([0.9, 0.9, 0.9]))})
+                      if specular else matte),
+        HostPrimitive(shape=ShapeRecord(sphere=Sphere(object_to_world=Transform.translate([1.3, 0, 0]))),
+                      material=HostMaterial(kind="glass", params={}) if specular else matte),
+    ]
+    lights = [HostLight(kind="distant", from_point=np.array([0.0, 10.0, 0.0]), to_point=np.zeros(3),
+                        intensity=np.array([3.14, 3.14, 3.14]))]
+    desc = SceneDescription(
+        primitives=prims, lights=lights,
+        camera=CameraConfig(kind="perspective", camera_to_world=Transform.look_at([2, 2, 5], [0, -0.4, 0], [0, 1, 0]),
+                            fov=30.0),
+        film=FilmConfig(x_resolution=res[0], y_resolution=res[1]),
+        sampler=SamplerConfig(kind="zerotwosequence", pixel_samples=spp),
+        integrator=IntegratorConfig(kind=integrator, max_depth=max_depth))
+    if fog:
+        desc.media = {"fog": HostMedium(kind="homogeneous", sigma_a=np.full(3, 0.02), sigma_s=np.full(3, 0.08), g=0.2)}
+        desc.camera_medium = "fog"
+    return desc
